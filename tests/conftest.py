@@ -30,6 +30,10 @@ def pytest_configure(config):
         "markers", "slow: long multi-subprocess tests excluded from the "
         "tier-1 run (-m 'not slow'); tools/run_chaos.py --serving covers "
         "the same contracts as a gated artifact")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the PyTorch port's kernels); "
+        "skips without one — run on the card with "
+        "`python -m pytest tests/test_torch_*.py -m cuda`")
 
 
 @pytest.fixture(autouse=True)
