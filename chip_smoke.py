@@ -24,6 +24,22 @@ exits non-zero:
    unpartitioned graph on the card, and check that K1 ran twice per
    dispatched batch; then print the device time by kernel of one
    bucket-32 dispatch and the device's busy share (torch.profiler).
+3b. kernels K2 (`flash_fwd`, whole KV) and K3 (`flash_fwd_stream`,
+   split KV) through `flash_attention_partial` against their plain
+   version `_partial_ref` on the card: the long-context shapes
+   (2, 8192, 8, 64) and (1, 32768, 1, 64), ring-shard offsets at
+   T = 2048, the fully-masked shard (held to the contract m = -1e30,
+   l = 0, o = 0), a ragged T = 1000 at D = 64 and 128; each case checks
+   that its route's launch counter moved; times of the kernel, the plain
+   version and SDPA (a yardstick only) beside the bound.
+5. the attention path at full width, the counts of K2 and K3 set to 0
+   before it and read after it: `flash_attention` forward and backward
+   at (2, 8192, 8, 64) bf16 causal (one K2 launch), output and gradients
+   against fp32 T x T attention through autograd; `ring_attention(...,
+   use_pallas=True)` without a process group (one more K2 launch, equal
+   to `flash_attention`); the long-context envelope (1, 32768, 1, 64)
+   fp32 causal forward and backward (one K3 launch), checked the same
+   way; then forward and forward+backward times beside SDPA's.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -70,6 +86,49 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -6, 1e-4)}
 SERVE_TOL = (1e-3, 1e-3)
 # the JSON line's shape: fc6 at bucket 32, the bucket of the served load
 REP = (32, 25088, 4096, torch.float32)
+BF16 = torch.bfloat16
+F32 = torch.float32
+# phase 3b: (label, (B, T, H, D), dtype, causal, (q_off, k_off),
+# MXNET_FLASH_VMEM_MB or None for the default, the route it must take)
+ATTN_CASES = [
+    ("long-context", (2, 8192, 8, 64), BF16, True, (0, 0), None, "whole"),
+    ("long-context", (2, 8192, 8, 64), BF16, False, (0, 0), None, "whole"),
+    ("long-context", (2, 8192, 8, 64), F32, True, (0, 0), None, "whole"),
+    ("long-context", (2, 8192, 8, 64), F32, False, (0, 0), None, "whole"),
+    ("long KV", (1, 32768, 1, 64), BF16, True, (0, 0), None, "whole"),
+    ("long KV", (1, 32768, 1, 64), BF16, True, (0, 0), "4", "stream"),
+    ("long KV", (1, 32768, 1, 64), F32, True, (0, 0), None, "stream"),
+    ("ring below", (2, 2048, 8, 64), BF16, True, (2048, 0), None, "whole"),
+    ("ring diagonal", (2, 2048, 8, 64), BF16, True, (2048, 2048), None,
+     "whole"),
+    ("ring above", (2, 2048, 8, 64), BF16, True, (0, 2048), None, "whole"),
+    ("ragged", (2, 1000, 8, 64), F32, True, (0, 0), None, "whole"),
+    ("ragged", (2, 1000, 8, 64), BF16, True, (0, 0), None, "whole"),
+    ("ragged", (2, 1000, 8, 128), F32, True, (0, 0), None, "whole"),
+    ("ragged", (2, 1000, 8, 128), BF16, True, (0, 0), None, "whole"),
+]
+# the JSON line's cases: the ones phase 5 runs through each kernel
+REP_K2 = ("long-context", (2, 8192, 8, 64), BF16, True, (0, 0), None)
+REP_K3 = ("long KV", (1, 32768, 1, 64), F32, True, (0, 0), None)
+# kernel vs plain version.  fp32: the same fp32 terms, up to 32768 of
+# them, summed in other orders (~1e-5 relative).  bf16: o is rounded to
+# bf16 (2**-8 relative), and each p is rounded to bf16 against a running
+# max that depends on the tiling (the kernel's 64-key tiles or split
+# ranges vs the plain version's 256-key blocks), noise of 2**-9 of each
+# p*v term that reached 0.0044*max|o| in a CPU emulation of the split.
+ATTN_TOL = {F32: (1e-4, 1e-5), BF16: (2.0 ** -6, 2.0 ** -7)}
+# the port's normalised output vs SDPA: SDPA picks its own backend,
+# whose fp32 path may round like TF32 (~1e-3)
+SDPA_TOL = {F32: (2e-3, 2e-3), BF16: (2.0 ** -6, 2.0 ** -7)}
+# phase 5, the bf16 kernel path against fp32 T x T attention: out is
+# rounded to bf16 twice (o, then o / l) and its gradients are rounded
+# to bf16 after an fp32 backward that starts from the bf16 out, so
+# 2**-6 relative plus 2**-6 of the largest value; fp32: sums of 32768
+# terms in other orders (1e-5), with the backward's rowsum(dO*O)
+# shortcut against autograd's softmax backward, 1e-3
+PATH_TOL = {BF16: (2.0 ** -6, 2.0 ** -6), F32: (1e-3, 1e-4)}
+PATH_BLOCK = 512      # block_q, block_k of phase 5 (the repo's long-context
+                      # configuration, tests_tpu/test_flash_perf.py)
 
 
 def check(cond, msg):
@@ -335,6 +394,235 @@ def serve_phase(card, workdir):
     return launches
 
 
+def attn_bound(b, h, tq, tk, d, dtype, causal, q_off, k_off):
+    """(least ms for one partial-attention call, "bytes" or "operations"):
+    q, k, v read and o, m, l written once at the HBM rate, against
+    4*D operations for every (query, key) pair the causal mask leaves
+    (these offsets' pairs, counted exactly) at the type's peak."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    if causal:
+        seen = np.clip(q_off + np.arange(tq) - k_off + 1, 0, tk)
+        pairs = int(seen.sum())
+    else:
+        pairs = tq * tk
+    t_ops = 4 * b * h * pairs * d / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = ((2 * b * tq * h * d + 2 * b * tk * h * d) * item
+               + 2 * b * h * tq * 4) / HBM_BYTES_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_inputs(shape, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+                 for _ in range(3))
+
+
+def set_budget(budget):
+    """Set MXNET_FLASH_VMEM_MB (None: unset); returns the value before."""
+    old = os.environ.pop("MXNET_FLASH_VMEM_MB", None)
+    if budget is not None:
+        os.environ["MXNET_FLASH_VMEM_MB"] = budget
+    return old
+
+
+def attn_kernel_phase(card, flush):
+    """Phase 3b: K2 and K3 against `_partial_ref`; returns the JSON
+    numbers of REP_K2 and REP_K3."""
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    reps = {}
+    for seed, (label, shape, dtype, causal, offs, budget, route) in \
+            enumerate(ATTN_CASES):
+        b, t, h, d = shape
+        q, k, v = attn_inputs(shape, dtype, seed)
+        old = set_budget(budget)
+        try:
+            check(fa._route(t, d, dtype) == route,
+                  f"{label} {shape} takes route {fa._route(t, d, dtype)}")
+            wrapper = fa.flash_fwd if route == "whole" else \
+                fa.flash_fwd_stream
+            other = fa.flash_fwd_stream if route == "whole" else fa.flash_fwd
+            counts = (wrapper.launches, other.launches)
+            o, m, l = fa.flash_attention_partial(q, k, v, *offs, causal)
+            torch.cuda.synchronize()
+            check((wrapper.launches, other.launches)
+                  == (counts[0] + 1, counts[1]),
+                  f"{label} {shape}: {wrapper.__name__} did not launch once")
+            run = lambda: fa.flash_attention_partial(q, k, v, *offs, causal)
+            ms = time_ms(run, flush)
+        finally:
+            set_budget(old)
+        name = (f"{route:6s} {label:13s} {str(dtype)[6:]:8s} "
+                f"{'x'.join(map(str, shape)):14s} causal={causal!s:5s} "
+                f"off={offs}")
+        check(o.dtype == dtype and o.shape == shape
+              and m.shape == l.shape == (b, h, t), f"{name}: output shapes")
+        if offs[1] >= offs[0] + t and causal:
+            # every key after every query: the kernel's contract
+            ok = bool((o == 0).all() and (l == 0).all()
+                      and (m == -1e30).all())
+            print(f"K2/K3 parity {name} m=-1e30, l=0, o=0 (the contract "
+                  f"for rows that see no key) {'ok' if ok else 'FAIL'}")
+            check(ok, f"{name}: rows with no visible key break the contract")
+            err = 0.0
+        else:
+            rtol, atol = ATTN_TOL[dtype]
+            plain = fa._ref_bthd(q, k, v, *offs, causal, 256)
+            errs, oks = zip(*(within(g, w, rtol, atol)
+                              for g, w in zip((o, m, l), plain)))
+            err = errs[0]
+            print(f"K2/K3 parity {name} max_abs_err o={errs[0]:.3e} "
+                  f"m={errs[1]:.3e} l={errs[2]:.3e} (rtol {rtol:g}, atol "
+                  f"{atol:g}*max|plain|) {'ok' if all(oks) else 'FAIL'}")
+            check(all(oks), f"{name}: kernel disagrees with _partial_ref")
+        t_bound, bound_by = attn_bound(b, h, t, t, d, dtype, causal, *offs)
+        times = {"ms": ms, "bound_ms": t_bound, "bound_by": bound_by,
+                 "max_abs_err": err, "library_ms": None,
+                 "plain_ms": time_ms(lambda: fa._ref_bthd(
+                     q, k, v, *offs, causal, 256), flush)}
+        if offs == (0, 0):
+            qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                         is_causal=causal)
+            times["library_ms"] = time_ms(lib, flush)
+            out = o / l.transpose(1, 2)[..., None].to(o.dtype)
+            rtol, atol = SDPA_TOL[dtype]
+            serr, sok = within(out, lib().transpose(1, 2), rtol, atol)
+            print(f"K2/K3 vs SDPA {name} (kernel + division, normalised) "
+                  f"max_abs_err={serr:.3e} (rtol {rtol:g}, atol {atol:g}"
+                  f"*max|SDPA|) {'ok' if sok else 'FAIL'}")
+            check(sok, f"{name}: the port's attention disagrees with SDPA")
+        lib_ms = ("n/a" if times["library_ms"] is None
+                  else f"{times['library_ms']:.4f}")
+        print(f"K2/K3 time   {name} kernel_ms={ms:.4f} "
+              f"plain_ms={times['plain_ms']:.4f} library_ms={lib_ms} "
+              f"bound_ms={t_bound:.4f} ({bound_by}) [{card}]")
+        key = (label, shape, dtype, causal, offs, budget)
+        if key in (REP_K2, REP_K3):
+            reps[key] = dict(times, shape=f"{str(dtype)[6:]} "
+                             f"B,T,H,D={b},{t},{h},{d} causal={causal}")
+        del q, k, v, o, m, l
+    return reps
+
+
+def plain_attention(q, k, v, causal):
+    """fp32 attention with the (T, T) scores, the autograd reference."""
+    d = q.shape[-1]
+    qh, kh, vh = (x.float().transpose(1, 2) for x in (q, k, v))
+    s = qh @ kh.transpose(-1, -2) / math.sqrt(d)
+    if causal:
+        t = s.shape[-1]
+        mask = torch.ones(t, t, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~mask, -math.inf)
+    return (torch.softmax(s, dim=-1) @ vh).transpose(1, 2)
+
+
+def path_case(shape, dtype, seed):
+    """flash_attention forward and backward against plain_attention in
+    fp32 on the same inputs; returns (out, q, k, v) for the ring check."""
+    from incubator_mxnet_tpu_torch.ops.flash_attention import flash_attention
+    q, k, v = (x.requires_grad_() for x in attn_inputs(shape, dtype, seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+    tgt = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    out = flash_attention(q, k, v, True, PATH_BLOCK, PATH_BLOCK)
+    ((out.float() - tgt.float()) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    refs = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref = plain_attention(*refs, True)
+    ((ref - tgt.float()) ** 2).sum().backward()
+    rtol, atol = PATH_TOL[dtype]
+    results = [(name, *within(g, w, rtol, atol), w.abs().max().item())
+               for name, g, w in (("out", out, ref),
+                                  ("dq", q.grad, refs[0].grad),
+                                  ("dk", k.grad, refs[1].grad),
+                                  ("dv", v.grad, refs[2].grad))]
+    for name, err, ok, top in results:
+        print(f"path  {str(dtype)[6:]:8s} {'x'.join(map(str, shape)):14s} "
+              f"{name:3s} max_abs_err={err:.3e} max|ref|={top:.3e} vs fp32 "
+              f"T x T autograd (rtol {rtol:g}, atol {atol:g}*max|ref|) "
+              f"{'ok' if ok else 'FAIL'}")
+    check(all(ok for _, _, ok, _ in results),
+          f"flash_attention {shape} {dtype} disagrees with plain attention")
+    del ref, refs
+    return out.detach(), q.detach(), k.detach(), v.detach()
+
+
+def path_times(shape, dtype, card, flush, seed):
+    """Forward and forward+backward ms of flash_attention and of SDPA."""
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch.ops.flash_attention import flash_attention
+    q, k, v = (x.requires_grad_() for x in attn_inputs(shape, dtype, seed))
+    qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    g = torch.ones(shape, dtype=dtype, device="cuda")
+    gh = g.transpose(1, 2).contiguous()
+
+    def port_fwd():
+        with torch.no_grad():
+            flash_attention(q, k, v, True, PATH_BLOCK, PATH_BLOCK)
+
+    def port_both():
+        flash_attention(q, k, v, True, PATH_BLOCK, PATH_BLOCK).backward(g)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    def sdpa_both():
+        F.scaled_dot_product_attention(qh, kh, vh,
+                                       is_causal=True).backward(gh)
+
+    t = {name: time_ms(fn, flush, iters=5) for name, fn in
+         (("fwd", port_fwd), ("fwd+bwd", port_both), ("sdpa fwd", sdpa_fwd),
+          ("sdpa fwd+bwd", sdpa_both))}
+    print(f"path  {str(dtype)[6:]:8s} {'x'.join(map(str, shape)):14s} "
+          f"causal flash_attention forward {t['fwd']:.3f} ms, forward+"
+          f"backward {t['fwd+bwd']:.3f} ms; SDPA forward "
+          f"{t['sdpa fwd']:.3f} ms, forward+backward "
+          f"{t['sdpa fwd+bwd']:.3f} ms [{card}]")
+
+
+def attention_path_phase(card, flush):
+    """Phase 5; returns the K2 and K3 launches of the path's run."""
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    from incubator_mxnet_tpu_torch.parallel import ring_attention
+    import torch.distributed as dist
+    check(not (dist.is_available() and dist.is_initialized()),
+          "a process group is initialised")
+    old = set_budget(None)
+    try:
+        fa.flash_fwd.launches = 0
+        fa.flash_fwd_stream.launches = 0
+        out, q, k, v = path_case((2, 8192, 8, 64), BF16, 0)
+        check((fa.flash_fwd.launches, fa.flash_fwd_stream.launches)
+              == (1, 0), "flash_attention forward+backward launched "
+              f"K2 {fa.flash_fwd.launches}, K3 {fa.flash_fwd_stream.launches}"
+              " times, want 1, 0")
+        ring = ring_attention(q, k, v, causal=True, use_pallas=True)
+        torch.cuda.synchronize()
+        check(fa.flash_fwd.launches == 2, "ring_attention(use_pallas=True) "
+              "did not launch K2 once")
+        rtol, atol = ATTN_TOL[BF16]
+        err, ok = within(ring, out, rtol, atol)
+        print(f"path  ring_attention(use_pallas=True), no process group: "
+              f"max_abs_err={err:.3e} vs flash_attention (rtol {rtol:g}, "
+              f"atol {atol:g}*max|flash|) {'ok' if ok else 'FAIL'}")
+        check(ok, "ring_attention disagrees with flash_attention")
+        del out, q, k, v, ring
+        path_case((1, 32768, 1, 64), F32, 1)
+        launches = (fa.flash_fwd.launches, fa.flash_fwd_stream.launches)
+        check(launches == (2, 1), f"the path launched K2, K3 {launches} "
+              "times, want 2, 1")
+        print(f"path  launches: K2 {launches[0]} (flash_attention + ring), "
+              f"K3 {launches[1]} (the 32768 envelope)")
+        torch.cuda.empty_cache()
+        path_times((2, 8192, 8, 64), BF16, card, flush, 2)
+        path_times((1, 32768, 1, 64), F32, card, flush, 3)
+    finally:
+        set_budget(old)
+    return launches
+
+
 def main():
     if sys.argv[1:]:
         print(f"usage: python3 chip_smoke.py (takes no arguments; got "
@@ -363,10 +651,19 @@ def main():
                 print(f"build: {name}: {line.strip()}")
 
     rep = kernel_phase(card)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    t0 = time.perf_counter()
+    attn = attn_kernel_phase(card, flush)
+    print(f"phase 3b: {time.perf_counter() - t0:.1f} s")
     launches = serve_phase(card, str(_build.BUILD_DIR.parent))
+    t0 = time.perf_counter()
+    k2_launches, k3_launches = attention_path_phase(card, flush)
+    print(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     m, k, n, _ = REP
+    src = "incubator_mxnet_tpu_torch/csrc/flash_attn.cu"
+    tpu = "incubator_mxnet_tpu/ops/flash_attention.py"
     print(json.dumps({"kernels": [{
         "name": "fc_relu", "route": "cuda",
         "source": "incubator_mxnet_tpu_torch/csrc/fc_relu.cu",
@@ -375,7 +672,12 @@ def main():
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"],
-        "shape": f"float32 M={m} K={k} N={n}"}]}))
+        "shape": f"float32 M={m} K={k} N={n}"}, dict(
+            name="flash_fwd", route="cuda", source=src,
+            replaces=f"{tpu}:229", launches=k2_launches, **attn[REP_K2]),
+        dict(name="flash_fwd_stream", route="cuda", source=src,
+             replaces=f"{tpu}:180", launches=k3_launches,
+             **attn[REP_K3])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

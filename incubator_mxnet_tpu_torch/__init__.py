@@ -7,7 +7,10 @@ the default context (`gpu(0)`); pass ``ctx=mx.cpu()`` to run on the CPU.
 
 Slice 1 covers serving: Symbol graphs, the checkpoint pair, the
 ``TPU_PALLAS`` subgraph backend with its fused FC+bias+ReLU CUDA kernel,
-and `serving.ModelServer`.
+and `serving.ModelServer`.  Slice 2 covers attention: `ops.flash_attention`
+(`flash_attention`, `flash_attention_partial`) with the flash-attention
+forward as CUDA kernels (whole-KV and split-KV), `parallel.ring_attention`
+over a `torch.distributed` group, and the ``BlockwiseAttention`` op.
 
     import incubator_mxnet_tpu_torch as mx
 """
@@ -23,8 +26,9 @@ from . import model
 from .model import save_checkpoint, load_checkpoint
 from . import serving
 from . import model_zoo
+from . import parallel
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "ops", "symbol", "sym", "ndarray", "nd", "subgraph",
            "model", "save_checkpoint", "load_checkpoint", "serving",
-           "model_zoo"]
+           "model_zoo", "parallel"]

@@ -1,5 +1,6 @@
 """Operator registry and the ops the port carries so far."""
 from . import registry
-from . import nn, matrix, elemwise  # noqa: F401  (registration side effects)
+from . import nn, matrix, elemwise, attention  # noqa: F401  (registration)
+from . import flash_attention  # noqa: F401
 
 __all__ = ["registry"]

@@ -1,0 +1,270 @@
+"""The port's attention (`ops.flash_attention`, `parallel.ring_attention`,
+the ``BlockwiseAttention`` op) against the JAX package, on the CPU.
+
+Inputs come from a numpy seed and go through both packages as float32.
+The port runs its kernels' plain versions here (CPU tensors).  The JAX
+side runs as its own tests do: with ``MXNET_FLASH_INTERPRET=1`` for the
+interpreted Pallas kernel, without it for its `_partial_ref` fallback.
+Tolerance 2e-5 (the JAX tests' own): fp32 sums over at most 64 keys in
+different orders.  Rows that see no key are checked against the
+interpreted kernel only: the JAX fallback gives l = kv_len there.
+"""
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import incubator_mxnet_tpu as jmx
+from incubator_mxnet_tpu import test_utils as tu
+from incubator_mxnet_tpu.ops import flash_attention as jfa
+from incubator_mxnet_tpu.parallel.ring_attention import (
+    blockwise_attention as jax_blockwise, ring_attention as jax_ring)
+
+import incubator_mxnet_tpu_torch as tmx
+from incubator_mxnet_tpu_torch.ops import flash_attention as tfa
+from incubator_mxnet_tpu_torch.parallel import (blockwise_attention,
+                                                ring_attention)
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _qkv(B, T, H, D, seed=0):
+    rng = np.random.RandomState(seed)
+    return tuple(rng.randn(B, T, H, D).astype(np.float32) for _ in range(3))
+
+
+def _jax_partial(monkeypatch, interpret, q, k, v, *args):
+    if interpret:
+        monkeypatch.setenv("MXNET_FLASH_INTERPRET", "1")
+    else:
+        monkeypatch.delenv("MXNET_FLASH_INTERPRET", raising=False)
+    out = jfa.flash_attention_partial(*(jnp.asarray(x) for x in (q, k, v)),
+                                      *args)
+    monkeypatch.delenv("MXNET_FLASH_INTERPRET", raising=False)
+    return [np.asarray(x) for x in out]
+
+
+def _port_partial(q, k, v, *args):
+    return [x.numpy() for x in tfa.flash_attention_partial(
+        *(torch.from_numpy(x) for x in (q, k, v)), *args)]
+
+
+def _close(got, want, what):
+    for g, w, name in zip(got, want, ("o", "m", "l")):
+        np.testing.assert_allclose(g, w, err_msg=f"{what}: {name}", **TOL)
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (64, 0), (32, 0)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("block", [16, 32])
+@pytest.mark.parametrize("shape", [(2, 64, 2, 16), (1, 32, 1, 8)])
+def test_partial_matches_both_jax_routes(monkeypatch, shape, block, causal,
+                                         offsets):
+    q, k, v = _qkv(*shape)
+    args = (*offsets, causal, block, block)
+    got = _port_partial(q, k, v, *args)
+    assert got[0].shape == shape and got[1].shape == (shape[0], shape[2],
+                                                      shape[1])
+    _close(got, _jax_partial(monkeypatch, True, q, k, v, *args),
+           "interpreted kernel")
+    _close(got, _jax_partial(monkeypatch, False, q, k, v, *args),
+           "_partial_ref")
+
+
+def test_rows_that_see_no_key_follow_the_kernel(monkeypatch):
+    """Causal, every key after every query (q_off=0, k_off=64): the
+    interpreted kernel skips every block, so m = -1e30, l = 0, o = 0."""
+    q, k, v = _qkv(1, 32, 1, 8)
+    args = (0, 64, True, 16, 16)
+    got = _port_partial(q, k, v, *args)
+    _close(got, _jax_partial(monkeypatch, True, q, k, v, *args),
+           "interpreted kernel")
+    assert (got[0] == 0).all() and (got[2] == 0).all()
+    assert (got[1] == np.float32(-1e30)).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ragged_length(monkeypatch, causal):
+    """T = 48: the JAX kernel halves its blocks of 32 to 16; the port's
+    plain version keeps 32 and a ragged last block."""
+    q, k, v = _qkv(2, 48, 2, 16, seed=3)
+    args = (0, 0, causal, 32, 32)
+    got = _port_partial(q, k, v, *args)
+    _close(got, _jax_partial(monkeypatch, True, q, k, v, *args),
+           "interpreted kernel")
+    _close(got, _jax_partial(monkeypatch, False, q, k, v, *args),
+           "_partial_ref")
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (32, 0)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_stream_route(monkeypatch, causal, offsets):
+    """A budget of 0.001 MiB sends both packages down the KV-streaming
+    route (K3; the interpreted `_fwd_kernel_stream` on the JAX side)."""
+    monkeypatch.setenv("MXNET_FLASH_VMEM_MB", "0.001")
+    q, k, v = _qkv(2, 64, 2, 16, seed=4)
+    assert tfa._route(64, 16, torch.float32) == "stream"
+    before = (tfa.flash_fwd.launches, tfa.flash_fwd_stream.launches)
+    args = (*offsets, causal, 16, 16)
+    got = _port_partial(q, k, v, *args)
+    # CPU tensors take the plain version: no kernel launch is counted
+    assert (tfa.flash_fwd.launches, tfa.flash_fwd_stream.launches) == before
+    _close(got, _jax_partial(monkeypatch, True, q, k, v, *args),
+           "interpreted stream kernel")
+
+
+@pytest.mark.parametrize("budget", [None, "4", "0.001", "64"])
+def test_route_matches_jax_rule(monkeypatch, budget):
+    if budget is None:
+        monkeypatch.delenv("MXNET_FLASH_VMEM_MB", raising=False)
+    else:
+        monkeypatch.setenv("MXNET_FLASH_VMEM_MB", budget)
+    for kv_len, d, tdt, ndt in [(64, 16, torch.float32, np.float32),
+                                (32, 8, torch.float32, np.float32),
+                                (8192, 64, torch.bfloat16, jnp.bfloat16),
+                                (8192, 64, torch.float32, np.float32),
+                                (32768, 64, torch.bfloat16, jnp.bfloat16),
+                                (32768, 64, torch.float32, np.float32)]:
+        jax_stream = 2 * kv_len * d * np.dtype(ndt).itemsize > \
+            jfa._vmem_budget_bytes()
+        assert tfa._route(kv_len, d, tdt) == (
+            "stream" if jax_stream else "whole"), (kv_len, d, tdt, budget)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_forward_and_gradients(causal):
+    """Output and dq, dk, dv of sum((out - tgt)^2): torch autograd through
+    `FlashAttention` against jax.grad through the JAX custom VJP."""
+    q, k, v = _qkv(2, 32, 2, 16)
+    tgt = np.random.RandomState(1).randn(*q.shape).astype(np.float32)
+
+    def jloss(q, k, v):
+        return jnp.sum((jfa.flash_attention(q, k, v, causal, 16, 16)
+                        - tgt) ** 2)
+
+    jout = jfa.flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                               causal, 16, 16)
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal, 16, 16)
+    ((out - torch.from_numpy(tgt)) ** 2).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=5e-4, atol=5e-4)
+    for got, want, name in zip((tq.grad, tk.grad, tv.grad), jgrads, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=5e-4, atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("block", [None, 16, 24])
+@pytest.mark.parametrize("causal", [False, True])
+def test_blockwise_attention(causal, block):
+    q, k, v = _qkv(2, 64, 2, 16, seed=5)
+    want = jax_blockwise(*(jnp.asarray(x) for x in (q, k, v)),
+                         block_size=block, causal=causal)
+    got = blockwise_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                              block_size=block, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_blockwise_attention_op_through_the_symbol_interpreter(causal):
+    rng = np.random.RandomState(6)
+    x = {n: rng.randn(2, 32, 12).astype(np.float32) for n in "qkv"}
+    params = dict(num_heads=3, causal=causal, block_size=8)
+
+    jsym = jmx.sym.BlockwiseAttention(*(jmx.sym.var(n) for n in "qkv"),
+                                      name="att", **params)
+    exe = jsym.simple_bind(ctx=jmx.cpu(), grad_req="null",
+                           **{n: a.shape for n, a in x.items()})
+    want = exe.forward(is_train=False, **{n: jmx.nd.array(a)
+                                          for n, a in x.items()})[0]
+    tsym = tmx.sym.load_json(jsym.tojson())
+    gfn, arg_nodes, _ = tmx.sym.graph_eval_fn(tsym, False)
+    got = gfn([torch.from_numpy(x[n.name]) for n in arg_nodes], [])[0][0]
+    np.testing.assert_allclose(got.numpy(), want.asnumpy(), **TOL)
+    assert tsym.infer_shape(q=(2, 32, 12), k=(2, 32, 12),
+                            v=(2, 32, 12))[1] == [(2, 32, 12)]
+    naive = tmx.ops.attention.naive_attention(
+        *(torch.from_numpy(x[n]) for n in "qkv"), 3, causal)
+    np.testing.assert_allclose(naive.numpy(), want.asnumpy(), **TOL)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_without_a_group(causal, use_pallas):
+    """No process group: a ring of one, equal to blockwise attention."""
+    q, k, v = _qkv(2, 64, 2, 16, seed=7)
+    want = jax_blockwise(*(jnp.asarray(x) for x in (q, k, v)),
+                         causal=causal)
+    got = ring_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                         causal=causal, use_pallas=use_pallas)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+RING_WORLD = 4
+RING_DEADLINE_S = 120.0
+
+
+@pytest.mark.skipif(not tu.has_stable_shard_map(),
+                    reason="this jax build lacks the stable jax.shard_map "
+                           "API the JAX ring is written against")
+def test_ring_attention_four_gloo_ranks(tmp_path):
+    """Four spawned ranks on a gloo group (a FileStore, no TCP ports) each
+    hold one sequence shard; every rank's output shard equals the JAX
+    package's 4-device shard_map ring, for use_pallas False and True and
+    causal and not."""
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+    from incubator_mxnet_tpu import parallel as par
+    import torch.multiprocessing as tmp_mp
+    import _torch_ring_worker as worker
+
+    q, k, v = _qkv(2, 64, 2, 16, seed=8)
+    inputs = tmp_path / "qkv.npz"
+    np.savez(inputs, q=q, k=k, v=v)
+    ctx = tmp_mp.get_context("spawn")
+    procs = [ctx.Process(target=worker.run,
+                         args=(r, RING_WORLD, str(tmp_path / "store"),
+                               str(inputs), str(tmp_path)),
+                         name=f"ring-rank-{r}")
+             for r in range(RING_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RING_DEADLINE_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [p.name for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    assert not hung, f"ranks past the {RING_DEADLINE_S:.0f} s deadline: {hung}"
+    assert [p.exitcode for p in procs] == [0] * RING_WORLD
+
+    mesh = par.make_mesh({"sp": RING_WORLD},
+                         devices=jax.devices()[:RING_WORLD])
+    shard = q.shape[1] // RING_WORLD
+    for causal in (False, True):
+        for use_pallas in (False, True):
+            fn = shard_map(
+                lambda a, b, c: jax_ring(
+                    a, b, c, "sp", causal=causal, use_pallas=use_pallas),
+                mesh=mesh, in_specs=(P(None, "sp"),) * 3,
+                out_specs=P(None, "sp"), check_vma=False)
+            want = np.asarray(jax.jit(fn)(*(jnp.asarray(x)
+                                            for x in (q, k, v))))
+            for r in range(RING_WORLD):
+                got = np.load(os.path.join(
+                    tmp_path, f"r{r}_c{int(causal)}_p{int(use_pallas)}.npy"))
+                np.testing.assert_allclose(
+                    got, want[:, r * shard:(r + 1) * shard],
+                    err_msg=f"rank {r} causal={causal} "
+                            f"use_pallas={use_pallas}", **TOL)

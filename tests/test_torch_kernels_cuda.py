@@ -1,5 +1,6 @@
-"""Kernel K1 (`fc_relu`, csrc/fc_relu.cu) on a CUDA card against its plain
-PyTorch version, and the kernel library's launch plan.
+"""The port's CUDA kernels on a card against their plain PyTorch versions:
+K1 (`fc_relu`, csrc/fc_relu.cu) and its launch plan; K2 and K3
+(`flash_fwd`, `flash_fwd_stream`, csrc/flash_attn.cu) and K3's split plan.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -7,12 +8,14 @@ no JAX, so on a machine with a card and no JAX it runs alone:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernels_cuda.py
 
-`chip_smoke.py` covers the full VGG-16 shapes.
+`chip_smoke.py` covers the full VGG-16 and long-context attention shapes.
 """
 import numpy as np
 import pytest
 import torch
 
+from incubator_mxnet_tpu_torch.base import MXNetError
+from incubator_mxnet_tpu_torch.ops import flash_attention as fa
 from incubator_mxnet_tpu_torch.subgraph.fused_ops import (fc_relu,
                                                           fc_relu_ref,
                                                           launch_plan)
@@ -75,3 +78,110 @@ def test_fc_relu_kernel_on_card(dtype):
         tol = 1e-4 if dt == torch.float32 else 2.0 ** -6
         torch.testing.assert_close(got.float(), fc_relu_ref(x, w, b).float(),
                                    rtol=tol, atol=tol)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card")
+
+
+def _attn_inputs(B, T, H, D, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rng.normal(0, 1, (B, T, H, D)).astype(
+        np.float32)).to("cuda", dtype) for _ in range(3))
+
+
+# fp32: kernel and plain version add the same fp32 terms in other orders
+# (about 1e-6 relative at these lengths).  bf16: o is rounded to bf16
+# (2**-8 relative), and every p is rounded to bf16 against a running max
+# that depends on the tiling; where the split-KV kernel's ranges differ
+# from the plain version's blocks, that rounding noise (2**-9 of each
+# p*v term) reaches 0.0044*max|o| at T = 100..128 (a CPU emulation of
+# the split), hence atol 2**-7*max|plain|.
+ATTN_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -6,
+                                                          2.0 ** -7)}
+
+
+def _assert_partial_close(got, want, dtype):
+    rtol, atol = ATTN_TOL[dtype]
+    for g, w, name in zip(got, want, ("o", "m", "l")):
+        w = w.float()
+        torch.testing.assert_close(
+            g.float(), w, rtol=rtol, atol=atol * max(w.abs().max().item(),
+                                                     1.0),
+            msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_fwd_stream"])
+def test_flash_kernels_on_card(wrapper, dtype):
+    """K2 and K3 against `_partial_ref` at small shapes: D 16, 64 and 128,
+    a ragged T = 100, causal and not, at ring offsets."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    fwd = getattr(fa, wrapper)
+    for B, T, H, D in [(2, 64, 2, 16), (1, 100, 2, 64), (2, 128, 1, 128)]:
+        q, k, v = _attn_inputs(B, T, H, D, dt)
+        for causal in (False, True):
+            for q_off, k_off in [(0, 0), (64, 0), (32, 0)]:
+                before = fwd.launches
+                got = fwd(q, k, v, q_off, k_off, causal)
+                torch.cuda.synchronize()
+                assert fwd.launches == before + 1
+                assert got[0].dtype == dt and got[0].shape == q.shape
+                assert got[1].shape == got[2].shape == (B, H, T)
+                want = fa._ref_bthd(q, k, v, q_off, k_off, causal, 64)
+                _assert_partial_close(got, want, dt)
+        # every key after every query: the contract for rows with no key
+        got = fwd(q, k, v, 0, T, True)
+        torch.cuda.synchronize()
+        assert (got[0] == 0).all() and (got[2] == 0).all()
+        assert (got[1] == -1e30).all()
+
+
+@pytest.mark.cuda
+def test_flash_routes_by_budget(monkeypatch):
+    _need_card()
+    q, k, v = _attn_inputs(1, 256, 2, 64, torch.bfloat16)
+    for budget, wrapper in [("10", fa.flash_fwd),
+                            ("0.01", fa.flash_fwd_stream)]:
+        monkeypatch.setenv("MXNET_FLASH_VMEM_MB", budget)
+        before = wrapper.launches
+        fa.flash_attention_partial(q, k, v, causal=True)
+        assert wrapper.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_rejects_what_it_cannot_take():
+    _need_card()
+    q, k, v = _attn_inputs(1, 64, 2, 100, torch.float32)
+    for fwd in (fa.flash_fwd, fa.flash_fwd_stream):
+        with pytest.raises(MXNetError, match="D=100"):
+            fwd(q, k, v)
+    q, k, v = _attn_inputs(1, 64, 2, 32, torch.float32)
+    strided = q[..., ::2]                      # head dimension not contiguous
+    with pytest.raises(MXNetError, match="layout"):
+        fa.flash_fwd(strided, k[..., ::2].contiguous(),
+                     v[..., ::2].contiguous())
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
+        fa.flash_fwd(q.half(), k.half(), v.half())
+
+
+@pytest.mark.cuda
+def test_stream_plan_covers_kv_and_splits_the_long_causal_shape():
+    _need_card()
+    for B, T, H, D, causal in [(1, 32768, 1, 64, True), (2, 8192, 8, 64, False),
+                               (1, 100, 2, 64, True), (1, 64, 1, 16, False)]:
+        q = torch.zeros(B, T, H, D, device="cuda")
+        plan = fa.stream_plan(q, q, causal=causal)
+        nk = -(-T // 64)
+        assert plan["splits"] * plan["chunk"] >= nk > \
+            (plan["splits"] - 1) * plan["chunk"]
+        assert plan["splits"] >= min(2, nk)
+        assert plan["workspace"] == plan["splits"] * B * H * T * (D + 2)
+    # the causal triangle at T = 32768: no range longer than the balanced
+    # share of 8 blocks per SM
+    q = torch.zeros(1, 32768, 1, 64, device="cuda")
+    plan = fa.stream_plan(q, q, causal=True)
+    assert plan["chunk"] <= -(-512 * 513 // 2 // (8 * plan["sm_count"]))
