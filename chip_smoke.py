@@ -29,17 +29,22 @@ exits non-zero:
    version `_partial_ref` on the card: the long-context shapes
    (2, 8192, 8, 64) and (1, 32768, 1, 64), ring-shard offsets at
    T = 2048, the fully-masked shard (held to the contract m = -1e30,
-   l = 0, o = 0), a ragged T = 1000 at D = 64 and 128; each case checks
-   that its route's launch counter moved; times of the kernel, the plain
-   version and SDPA (a yardstick only) beside the bound.
+   l = 0, o = 0), a ragged T = 1000 at D = 64 and 128, the widest head
+   at long context (2, 8192, 8, 128) and q, k, v sliced from one packed
+   (B, T, 3, H, D) tensor; each case checks that its route's launch
+   counter moved; times of the kernel, the plain version and SDPA (a
+   yardstick only) beside the bound, with the achieved TFLOP/s and the
+   share of the bound, and the call's device time under torch.profiler
+   (at T <= 2048 the CUDA-event time is mostly the host's).
 5. the attention path at full width, the counts of K2 and K3 set to 0
    before it and read after it: `flash_attention` forward and backward
    at (2, 8192, 8, 64) bf16 causal (one K2 launch), output and gradients
    against fp32 T x T attention through autograd; `ring_attention(...,
    use_pallas=True)` without a process group (one more K2 launch, equal
    to `flash_attention`); the long-context envelope (1, 32768, 1, 64)
-   fp32 causal forward and backward (one K3 launch), checked the same
-   way; then forward and forward+backward times beside SDPA's.
+   causal forward and backward in fp32 (one K3 launch by default) and in
+   bf16 under MXNET_FLASH_VMEM_MB=4 (one more K3 launch), checked the
+   same way; then forward and forward+backward times beside SDPA's.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -51,6 +56,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -106,10 +112,12 @@ ATTN_CASES = [
     ("ragged", (2, 1000, 8, 64), BF16, True, (0, 0), None, "whole"),
     ("ragged", (2, 1000, 8, 128), F32, True, (0, 0), None, "whole"),
     ("ragged", (2, 1000, 8, 128), BF16, True, (0, 0), None, "whole"),
+    ("widest head", (2, 8192, 8, 128), BF16, True, (0, 0), None, "whole"),
+    ("packed qkv", (2, 2048, 8, 64), BF16, True, (0, 0), None, "whole"),
 ]
 # the JSON line's cases: the ones phase 5 runs through each kernel
 REP_K2 = ("long-context", (2, 8192, 8, 64), BF16, True, (0, 0), None)
-REP_K3 = ("long KV", (1, 32768, 1, 64), F32, True, (0, 0), None)
+REP_K3 = ("long KV", (1, 32768, 1, 64), BF16, True, (0, 0), "4")
 # kernel vs plain version.  fp32: the same fp32 terms, up to 32768 of
 # them, summed in other orders (~1e-5 relative).  bf16: o is rounded to
 # bf16 (2**-8 relative), and each p is rounded to bf16 against a running
@@ -168,6 +176,23 @@ def time_ms(fn, flush, iters=20):
         events.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def device_ms(fn, reps=10):
+    """Mean device time per call of fn() under torch.profiler: the sum of
+    the durations of the kernels it launches, without the host time
+    between launches that CUDA events around a small call also count."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(busy > 0, "the profiler saw no device activity")
+    return busy / reps / 1e3
 
 
 def bound(m, k, n, dtype):
@@ -394,25 +419,38 @@ def serve_phase(card, workdir):
     return launches
 
 
-def attn_bound(b, h, tq, tk, d, dtype, causal, q_off, k_off):
-    """(least ms for one partial-attention call, "bytes" or "operations"):
-    q, k, v read and o, m, l written once at the HBM rate, against
-    4*D operations for every (query, key) pair the causal mask leaves
-    (these offsets' pairs, counted exactly) at the type's peak."""
-    item = torch.tensor([], dtype=dtype).element_size()
+def attn_ops(b, h, tq, tk, d, causal, q_off, k_off):
+    """4*D operations for every (query, key) pair the causal mask leaves
+    (these offsets' pairs, counted exactly)."""
     if causal:
         seen = np.clip(q_off + np.arange(tq) - k_off + 1, 0, tk)
         pairs = int(seen.sum())
     else:
         pairs = tq * tk
-    t_ops = 4 * b * h * pairs * d / PEAK_FLOPS[dtype] * 1e3
+    return 4 * b * h * pairs * d
+
+
+def attn_bound(b, h, tq, tk, d, dtype, causal, q_off, k_off):
+    """(least ms for one partial-attention call, "bytes" or "operations"):
+    q, k, v read and o, m, l written once at the HBM rate, against
+    `attn_ops` at the type's peak."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    t_ops = attn_ops(b, h, tq, tk, d, causal, q_off, k_off) / \
+        PEAK_FLOPS[dtype] * 1e3
     t_bytes = ((2 * b * tq * h * d + 2 * b * tk * h * d) * item
                + 2 * b * h * tq * 4) / HBM_BYTES_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attn_inputs(shape, dtype, seed):
+def attn_inputs(shape, dtype, seed, packed=False):
+    """q, k, v of `shape` from a seed; packed: views of one (B, T, 3, H,
+    D) tensor, as a fused QKV projection leaves them."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    if packed:
+        b, t, h, d = shape
+        qkv = torch.randn(b, t, 3, h, d, generator=gen,
+                          device="cuda").to(dtype)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     return tuple(torch.randn(*shape, generator=gen, device="cuda").to(dtype)
                  for _ in range(3))
 
@@ -434,7 +472,7 @@ def attn_kernel_phase(card, flush):
     for seed, (label, shape, dtype, causal, offs, budget, route) in \
             enumerate(ATTN_CASES):
         b, t, h, d = shape
-        q, k, v = attn_inputs(shape, dtype, seed)
+        q, k, v = attn_inputs(shape, dtype, seed, label == "packed qkv")
         old = set_budget(budget)
         try:
             check(fa._route(t, d, dtype) == route,
@@ -450,6 +488,7 @@ def attn_kernel_phase(card, flush):
                   f"{label} {shape}: {wrapper.__name__} did not launch once")
             run = lambda: fa.flash_attention_partial(q, k, v, *offs, causal)
             ms = time_ms(run, flush)
+            dev_ms = device_ms(run)
         finally:
             set_budget(old)
         name = (f"{route:6s} {label:13s} {str(dtype)[6:]:8s} "
@@ -494,9 +533,12 @@ def attn_kernel_phase(card, flush):
             check(sok, f"{name}: the port's attention disagrees with SDPA")
         lib_ms = ("n/a" if times["library_ms"] is None
                   else f"{times['library_ms']:.4f}")
+        tflops = attn_ops(b, h, t, t, d, causal, *offs) / ms / 1e9
         print(f"K2/K3 time   {name} kernel_ms={ms:.4f} "
               f"plain_ms={times['plain_ms']:.4f} library_ms={lib_ms} "
-              f"bound_ms={t_bound:.4f} ({bound_by}) [{card}]")
+              f"bound_ms={t_bound:.4f} ({bound_by}) {tflops:.1f} TFLOP/s, "
+              f"{t_bound / ms:.3f} of the bound; device_ms={dev_ms:.4f} "
+              f"(profiler) [{card}]")
         key = (label, shape, dtype, causal, offs, budget)
         if key in (REP_K2, REP_K3):
             reps[key] = dict(times, shape=f"{str(dtype)[6:]} "
@@ -575,7 +617,9 @@ def path_times(shape, dtype, card, flush, seed):
     t = {name: time_ms(fn, flush, iters=5) for name, fn in
          (("fwd", port_fwd), ("fwd+bwd", port_both), ("sdpa fwd", sdpa_fwd),
           ("sdpa fwd+bwd", sdpa_both))}
+    budget = os.environ.get("MXNET_FLASH_VMEM_MB", "default")
     print(f"path  {str(dtype)[6:]:8s} {'x'.join(map(str, shape)):14s} "
+          f"MXNET_FLASH_VMEM_MB={budget} "
           f"causal flash_attention forward {t['fwd']:.3f} ms, forward+"
           f"backward {t['fwd+bwd']:.3f} ms; SDPA forward "
           f"{t['sdpa fwd']:.3f} ms, forward+backward "
@@ -610,14 +654,21 @@ def attention_path_phase(card, flush):
         check(ok, "ring_attention disagrees with flash_attention")
         del out, q, k, v, ring
         path_case((1, 32768, 1, 64), F32, 1)
+        torch.cuda.empty_cache()
+        set_budget("4")
+        path_case((1, 32768, 1, 64), BF16, 4)
+        set_budget(None)
         launches = (fa.flash_fwd.launches, fa.flash_fwd_stream.launches)
-        check(launches == (2, 1), f"the path launched K2, K3 {launches} "
-              "times, want 2, 1")
+        check(launches == (2, 2), f"the path launched K2, K3 {launches} "
+              "times, want 2, 2")
         print(f"path  launches: K2 {launches[0]} (flash_attention + ring), "
-              f"K3 {launches[1]} (the 32768 envelope)")
+              f"K3 {launches[1]} (the 32768 envelope, fp32 and bf16 under "
+              "MXNET_FLASH_VMEM_MB=4)")
         torch.cuda.empty_cache()
         path_times((2, 8192, 8, 64), BF16, card, flush, 2)
         path_times((1, 32768, 1, 64), F32, card, flush, 3)
+        set_budget("4")
+        path_times((1, 32768, 1, 64), BF16, card, flush, 5)
     finally:
         set_budget(old)
     return launches
@@ -647,7 +698,12 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            entry = re.search(r"entry function '\w*?_cu_[0-9a-f]+\d+(\w+)'",
+                              line)
+            if entry:
+                print(f"build: {name}: {entry.group(1)[:60]}")
+            elif "registers" in line or "spill" in line or \
+                    "wgmma" in line.lower():
                 print(f"build: {name}: {line.strip()}")
 
     rep = kernel_phase(card)

@@ -20,11 +20,15 @@ design does about it):
 * K3, `flash_fwd_stream`: the KV range split across blocks, then merged
   (replaces the Pallas `_fwd_kernel_stream` behind `_stream_tpu`).
 
-`_route` picks between them with the JAX package's rule
-(``MXNET_FLASH_VMEM_MB``, see `config`).  On a CUDA tensor a wrapper
-launches its kernel or raises; only a tensor on the CPU takes the plain
-version `_partial_ref`.  On the card ``block_q`` and ``block_k`` steer
-only the plain version and the backward's loop: the kernels choose
+Each has a bf16 route on the tensor cores (``wgmma`` with K/V tiles fed
+by TMA) and an fp32 route on the CUDA cores.  `_route` picks between K2
+and K3 with the JAX package's rule (``MXNET_FLASH_VMEM_MB``, see
+`config`).  On a CUDA tensor a wrapper launches its kernel or raises;
+only a tensor on the CPU takes the plain version `_partial_ref`.  The
+kernels take head sizes that are multiples of 8 up to 128; the wrappers
+zero-pad any other D below 128 to the next multiple of 8 (`_pad_head`),
+scale by 1/sqrt of the original D and slice o back.  On the card ``block_q`` and ``block_k``
+steer only the plain version and the backward's loop: the kernels choose
 their own tiles.  A row that sees no key (causal, ``q_off + row <
 k_off``) gives m = -1e30, l = 0 and o = 0, as the TPU kernel does.
 """
@@ -45,15 +49,16 @@ _NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _partial_ref(q3, k3, v3, q_off, k_off, causal, block_k):
+def _partial_ref(q3, k3, v3, q_off, k_off, causal, block_k, scale=None):
     """The plain version of K2 and K3 on (BH, T, D) tensors: the
     blockwise online softmax, with the kernels' rounding points (q scaled
-    by 1/sqrt(D) and rounded to its dtype, fp32 scores and sums, p cast
-    to v's dtype before P.V).  Masked keys get p = 0, so a row with no
-    visible key keeps m = -1e30, l = 0, o = 0."""
+    by ``scale``, 1/sqrt(D) by default, and rounded to its dtype, fp32
+    scores and sums, p cast to v's dtype before P.V).  Masked keys get
+    p = 0, so a row with no visible key keeps m = -1e30, l = 0, o = 0."""
     BH, Tq, D = q3.shape
     kv_len = k3.shape[1]
-    scale = 1.0 / math.sqrt(D)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
     dev = q3.device
     qs = (q3.float() * scale).to(q3.dtype).float()
     m = torch.full((BH, Tq), _NEG, dtype=torch.float32, device=dev)
@@ -82,11 +87,11 @@ def _to3(x):
     return x.permute(0, 2, 1, 3).reshape(b * h, t, d)
 
 
-def _ref_bthd(q, k, v, q_off, k_off, causal, block_k):
+def _ref_bthd(q, k, v, q_off, k_off, causal, block_k, scale=None):
     """`_partial_ref` at the API layout: o (B, Tq, H, D), m, l (B, H, Tq)."""
     B, Tq, H, D = q.shape
     o3, m3, l3 = _partial_ref(_to3(q), _to3(k), _to3(v), q_off, k_off,
-                              causal, block_k)
+                              causal, block_k, scale)
     return (o3.reshape(B, H, Tq, D).permute(0, 2, 1, 3),
             m3.reshape(B, H, Tq), l3.reshape(B, H, Tq))
 
@@ -128,7 +133,7 @@ def _lib():
         f = ctypes.c_float
         lib.mx_flash_fwd.argtypes = [p, p, p, p, p, p, arr, arr, f, i, p]
         lib.mx_flash_fwd.restype = i
-        lib.mx_flash_fwd_stream_plan.argtypes = [arr, i, arr]
+        lib.mx_flash_fwd_stream_plan.argtypes = [arr, i, i, arr]
         lib.mx_flash_fwd_stream_plan.restype = i
         lib.mx_flash_fwd_stream.argtypes = [p, p, p, p, p, p, p, ll, arr,
                                             arr, f, i, i, p]
@@ -138,10 +143,21 @@ def _lib():
     return lib
 
 
+def _pad_head(x):
+    """x with its head dimension zero-padded up to a multiple of 8, the
+    kernels' multiple (x itself when D already is one).  Zero columns add
+    nothing to q.k and give zero columns of o, which the wrappers slice
+    off."""
+    pad = -x.shape[3] % 8
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
 def _kernel_call(name, q, k, v, q_off, k_off, causal):
-    """Validate CUDA operands; allocate o, m, l; the dims and strides
-    arrays of the C interface.  None for the arrays when the call has no
-    work (an empty dimension): then o, m, l already hold the result."""
+    """Validate CUDA operands and pad their head dimension (`_pad_head`);
+    allocate o (padded), m, l; the dims and strides arrays of the C
+    interface.  Returns the padded q, k, v, then o, m, l, dims, strides;
+    None for the arrays when the call has no work (an empty dimension):
+    then o, m, l already hold the result."""
     if q.device.type != "cuda":
         raise MXNetError(f"{name}: no kernel for device {q.device}")
     if q.dtype not in _DTYPE_CODE:
@@ -149,10 +165,11 @@ def _kernel_call(name, q, k, v, q_off, k_off, causal):
                          f"{q.dtype}")
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    if D % 8 or not 8 <= D <= 128:
+    if not 1 <= D <= 128:
         raise MXNetError(f"{name}: head size D={D} of q {tuple(q.shape)} is "
-                         "outside the kernel's range (a multiple of 8 up to "
-                         "128)")
+                         "outside the kernel's range 1..128 (the O "
+                         "accumulator of 128 columns fills its registers)")
+    q, k, v = (_pad_head(x) for x in (q, k, v))
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         st = t.stride()
         if st[3] != 1 or any(s % 8 for s in st[:3]) or t.data_ptr() % 16:
@@ -160,17 +177,18 @@ def _kernel_call(name, q, k, v, q_off, k_off, causal):
                 f"{name}: {what} {tuple(t.shape)} with strides {st} is a "
                 "layout the kernel cannot read (head dimension contiguous, "
                 "other strides multiples of 8, 16-byte aligned)")
-    o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    Dp = q.shape[3]
+    o = torch.empty((B, Tq, H, Dp), dtype=q.dtype, device=q.device)
     m = torch.full((B, H, Tq), _NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, H, Tq), dtype=torch.float32, device=q.device)
     if B * H * Tq == 0 or Tk == 0:
         o.zero_()
-        return o, m, l, None, None
-    dims = (ctypes.c_longlong * 8)(B, H, Tq, Tk, D, int(q_off), int(k_off),
+        return q, k, v, o, m, l, None, None
+    dims = (ctypes.c_longlong * 8)(B, H, Tq, Tk, Dp, int(q_off), int(k_off),
                                    int(bool(causal)))
     strides = (ctypes.c_longlong * 12)(*(q.stride()[:3] + k.stride()[:3]
                                          + v.stride()[:3] + o.stride()[:3]))
-    return o, m, l, dims, strides
+    return q, k, v, o, m, l, dims, strides
 
 
 def _raise_on(name, lib, err):
@@ -186,20 +204,21 @@ def flash_fwd(q, k, v, q_off=0, k_off=0, causal=False, block_k=256):
     _check("flash_fwd", q, k, v)
     if q.device.type == "cpu":
         return _ref_bthd(q, k, v, q_off, k_off, causal, block_k)
-    o, m, l, dims, strides = _kernel_call("flash_fwd", q, k, v, q_off,
-                                          k_off, causal)
+    D = q.shape[3]
+    qp, kp, vp, o, m, l, dims, strides = _kernel_call(
+        "flash_fwd", q, k, v, q_off, k_off, causal)
     if dims is None:
-        return o, m, l
+        return o[..., :D], m, l
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.mx_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            m.data_ptr(), l.data_ptr(), dims, strides,
-            1.0 / math.sqrt(q.shape[3]), _DTYPE_CODE[q.dtype],
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), dims, strides, 1.0 / math.sqrt(D),
+            _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_fwd", lib, err)
     flash_fwd.launches += 1
-    return o, m, l
+    return o[..., :D], m, l
 
 
 flash_fwd.launches = 0
@@ -207,18 +226,22 @@ flash_fwd.launches = 0
 
 def stream_plan(q, k, q_off=0, k_off=0, causal=False):
     """K3's split-KV plan for q, k on their CUDA device, as the kernel
-    library computes it: a dict of KV ranges, KV tiles per range, fp32
-    workspace elements and the SM count; None outside the kernel's
-    range."""
+    library computes it for q's dtype and head size (padded to a multiple
+    of 8): a dict of KV ranges, KV tiles per range, fp32 workspace
+    elements, keys per KV tile of the dtype's route, and the SM count;
+    None outside the kernel's range."""
+    if q.dtype not in _DTYPE_CODE:
+        return None
     lib = _lib()
     B, Tq, H, D = q.shape
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    dims = (ctypes.c_longlong * 8)(B, H, Tq, k.shape[1], D, int(q_off),
-                                   int(k_off), int(bool(causal)))
-    plan = (ctypes.c_longlong * 3)()
-    if lib.mx_flash_fwd_stream_plan(dims, sms, plan):
+    dims = (ctypes.c_longlong * 8)(B, H, Tq, k.shape[1], -(-D // 8) * 8,
+                                   int(q_off), int(k_off), int(bool(causal)))
+    plan = (ctypes.c_longlong * 4)()
+    if lib.mx_flash_fwd_stream_plan(dims, _DTYPE_CODE[q.dtype], sms, plan):
         return None
-    return dict(zip(("splits", "chunk", "workspace"), plan), sm_count=sms)
+    return dict(zip(("splits", "chunk", "workspace", "tile"), plan),
+                sm_count=sms)
 
 
 def flash_fwd_stream(q, k, v, q_off=0, k_off=0, causal=False, block_k=256):
@@ -228,11 +251,12 @@ def flash_fwd_stream(q, k, v, q_off=0, k_off=0, causal=False, block_k=256):
     _check("flash_fwd_stream", q, k, v)
     if q.device.type == "cpu":
         return _ref_bthd(q, k, v, q_off, k_off, causal, block_k)
-    o, m, l, dims, strides = _kernel_call("flash_fwd_stream", q, k, v,
-                                          q_off, k_off, causal)
+    D = q.shape[3]
+    qp, kp, vp, o, m, l, dims, strides = _kernel_call(
+        "flash_fwd_stream", q, k, v, q_off, k_off, causal)
     if dims is None:
-        return o, m, l
-    plan = stream_plan(q, k, q_off, k_off, causal)
+        return o[..., :D], m, l
+    plan = stream_plan(qp, kp, q_off, k_off, causal)
     if plan is None:
         raise MXNetError(f"flash_fwd_stream: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)} are outside the kernel's range")
@@ -240,14 +264,13 @@ def flash_fwd_stream(q, k, v, q_off=0, k_off=0, causal=False, block_k=256):
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.mx_flash_fwd_stream(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
             m.data_ptr(), l.data_ptr(), ws.data_ptr(), plan["workspace"],
-            dims, strides, 1.0 / math.sqrt(q.shape[3]),
-            _DTYPE_CODE[q.dtype], plan["sm_count"],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            dims, strides, 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
+            plan["sm_count"], torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_fwd_stream", lib, err)
     flash_fwd_stream.launches += 1
-    return o, m, l
+    return o[..., :D], m, l
 
 
 flash_fwd_stream.launches = 0

@@ -9,6 +9,7 @@ Tolerance 2e-5 (the JAX tests' own): fp32 sums over at most 64 keys in
 different orders.  Rows that see no key are checked against the
 interpreted kernel only: the JAX fallback gives l = kv_len there.
 """
+import math
 import os
 import time
 
@@ -86,6 +87,26 @@ def test_rows_that_see_no_key_follow_the_kernel(monkeypatch):
            "interpreted kernel")
     assert (got[0] == 0).all() and (got[2] == 0).all()
     assert (got[1] == np.float32(-1e30)).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [20, 100])
+def test_padded_head_matches_the_interpreted_kernel(monkeypatch, D, causal):
+    """The CUDA wrappers' head padding, through the plain version: q, k, v
+    zero-padded to a multiple of 8 (`_pad_head`), scaled by 1/sqrt of the
+    original D, o sliced back; against the JAX package's interpreted
+    kernel at the unpadded D."""
+    q, k, v = _qkv(1, 32, 2, D, seed=9)
+    padded = [tfa._pad_head(torch.from_numpy(x)) for x in (q, k, v)]
+    assert padded[0].shape[3] == -(-D // 8) * 8 > D
+    o, m, l = tfa._ref_bthd(*padded, 16, 0, causal, 16,
+                            scale=1.0 / math.sqrt(D))
+    assert (o[..., D:] == 0).all()
+    got = [o[..., :D].numpy(), m.numpy(), l.numpy()]
+    _close(got, _jax_partial(monkeypatch, True, q, k, v, 16, 0, causal, 16,
+                             16), "interpreted kernel")
+    same = torch.zeros(1, 4, 1, 24)
+    assert tfa._pad_head(same) is same
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -85,10 +85,19 @@ def _need_card():
         pytest.skip("needs a CUDA device; run on the card")
 
 
-def _attn_inputs(B, T, H, D, dtype, seed=0):
+def _attn_inputs(B, T, H, D, dtype, seed=0, Tk=None):
+    """q (B, T, H, D) and k, v (B, Tk, H, D), Tk = T by default."""
     rng = np.random.RandomState(seed)
-    return tuple(torch.from_numpy(rng.normal(0, 1, (B, T, H, D)).astype(
-        np.float32)).to("cuda", dtype) for _ in range(3))
+    return tuple(torch.from_numpy(rng.normal(0, 1, (B, t, H, D)).astype(
+        np.float32)).to("cuda", dtype) for t in (T, Tk or T, Tk or T))
+
+
+def _packed_inputs(B, T, H, D, dtype, seed=0):
+    """q, k, v as views of one packed (B, T, 3, H, D) tensor."""
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rng.normal(0, 1, (B, T, 3, H, D)).astype(
+        np.float32)).to("cuda", dtype)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
 # fp32: kernel and plain version add the same fp32 terms in other orders
@@ -112,32 +121,58 @@ def _assert_partial_close(got, want, dtype):
             msg=lambda m, name=name: f"{name}: {m}")
 
 
+# (B, Tq, Tk, H, D) of test_flash_kernels_on_card: D 16, 64 and 128 and a
+# ragged T = 100 on both routes; the bf16 (tensor-core) route also every
+# head size the TMA boxes treat differently (8, 24 and 96 zero-filled
+# past D, 100 padded by the wrapper), a ragged T = 1000 over several
+# 128-key tiles, and Tq != Tk both ways
+ATTN_SHAPES = [(2, 64, 64, 2, 16), (1, 100, 100, 2, 64), (2, 128, 128, 1, 128),
+               (1, 64, 64, 2, 100)]
+ATTN_SHAPES_BF16 = [(1, 130, 130, 2, 8), (1, 200, 200, 1, 24),
+                    (2, 256, 256, 1, 96), (1, 1000, 1000, 2, 64),
+                    (1, 100, 100, 1, 128), (1, 64, 320, 2, 64),
+                    (1, 320, 64, 1, 64)]
+# (q_off, k_off): 32 and 96 put the diagonal inside a 128-row q tile
+ATTN_OFFSETS = [(0, 0), (64, 0), (32, 0), (96, 0)]
+
+
+def _check_call(fwd, dt, q, k, v, q_off, k_off, causal):
+    before = fwd.launches
+    got = fwd(q, k, v, q_off, k_off, causal)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 1
+    B, Tq, H, D = q.shape
+    assert got[0].dtype == dt and got[0].shape == q.shape
+    assert got[1].shape == got[2].shape == (B, H, Tq)
+    want = fa._ref_bthd(q, k, v, q_off, k_off, causal, 64)
+    _assert_partial_close(got, want, dt)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_fwd_stream"])
 def test_flash_kernels_on_card(wrapper, dtype):
-    """K2 and K3 against `_partial_ref` at small shapes: D 16, 64 and 128,
-    a ragged T = 100, causal and not, at ring offsets."""
+    """K2 and K3 against `_partial_ref` at small shapes (ATTN_SHAPES, and
+    ATTN_SHAPES_BF16 for bf16), causal and not, at ring offsets; the
+    fully-above shard; q, k, v sliced from one packed tensor."""
     _need_card()
     dt = getattr(torch, dtype)
     fwd = getattr(fa, wrapper)
-    for B, T, H, D in [(2, 64, 2, 16), (1, 100, 2, 64), (2, 128, 1, 128)]:
-        q, k, v = _attn_inputs(B, T, H, D, dt)
+    shapes = ATTN_SHAPES + (ATTN_SHAPES_BF16 if dt == torch.bfloat16 else [])
+    for B, Tq, Tk, H, D in shapes:
+        q, k, v = _attn_inputs(B, Tq, H, D, dt, Tk=Tk)
         for causal in (False, True):
-            for q_off, k_off in [(0, 0), (64, 0), (32, 0)]:
-                before = fwd.launches
-                got = fwd(q, k, v, q_off, k_off, causal)
-                torch.cuda.synchronize()
-                assert fwd.launches == before + 1
-                assert got[0].dtype == dt and got[0].shape == q.shape
-                assert got[1].shape == got[2].shape == (B, H, T)
-                want = fa._ref_bthd(q, k, v, q_off, k_off, causal, 64)
-                _assert_partial_close(got, want, dt)
+            for q_off, k_off in ATTN_OFFSETS:
+                _check_call(fwd, dt, q, k, v, q_off, k_off, causal)
         # every key after every query: the contract for rows with no key
-        got = fwd(q, k, v, 0, T, True)
+        got = fwd(q, k, v, 0, Tq, True)
         torch.cuda.synchronize()
         assert (got[0] == 0).all() and (got[2] == 0).all()
         assert (got[1] == -1e30).all()
+    q, k, v = _packed_inputs(2, 200, 2, 64, dt)
+    assert not q.is_contiguous()
+    for causal in (False, True):
+        _check_call(fwd, dt, q, k, v, 0, 0, causal)
 
 
 @pytest.mark.cuda
@@ -155,9 +190,9 @@ def test_flash_routes_by_budget(monkeypatch):
 @pytest.mark.cuda
 def test_flash_rejects_what_it_cannot_take():
     _need_card()
-    q, k, v = _attn_inputs(1, 64, 2, 100, torch.float32)
+    q, k, v = _attn_inputs(1, 64, 2, 160, torch.float32)
     for fwd in (fa.flash_fwd, fa.flash_fwd_stream):
-        with pytest.raises(MXNetError, match="D=100"):
+        with pytest.raises(MXNetError, match="D=160"):
             fwd(q, k, v)
     q, k, v = _attn_inputs(1, 64, 2, 32, torch.float32)
     strided = q[..., ::2]                      # head dimension not contiguous
@@ -170,18 +205,31 @@ def test_flash_rejects_what_it_cannot_take():
 
 @pytest.mark.cuda
 def test_stream_plan_covers_kv_and_splits_the_long_causal_shape():
+    """The plan counts in its route's tiles (64 query rows by 64 keys in
+    fp32; 128 by 128 in bf16, 64 keys at D > 64) and cuts the causal
+    triangle into balanced ranges."""
     _need_card()
-    for B, T, H, D, causal in [(1, 32768, 1, 64, True), (2, 8192, 8, 64, False),
-                               (1, 100, 2, 64, True), (1, 64, 1, 16, False)]:
-        q = torch.zeros(B, T, H, D, device="cuda")
-        plan = fa.stream_plan(q, q, causal=causal)
-        nk = -(-T // 64)
-        assert plan["splits"] * plan["chunk"] >= nk > \
-            (plan["splits"] - 1) * plan["chunk"]
-        assert plan["splits"] >= min(2, nk)
-        assert plan["workspace"] == plan["splits"] * B * H * T * (D + 2)
-    # the causal triangle at T = 32768: no range longer than the balanced
-    # share of 8 blocks per SM
-    q = torch.zeros(1, 32768, 1, 64, device="cuda")
-    plan = fa.stream_plan(q, q, causal=True)
-    assert plan["chunk"] <= -(-512 * 513 // 2 // (8 * plan["sm_count"]))
+    for dt in (torch.float32, torch.bfloat16):
+        for B, T, H, D, causal in [(1, 32768, 1, 64, True),
+                                   (2, 8192, 8, 64, False),
+                                   (1, 100, 2, 64, True),
+                                   (1, 64, 1, 16, False),
+                                   (1, 100, 1, 20, True),
+                                   (1, 1000, 2, 128, True)]:
+            q = torch.zeros(B, T, H, D, device="cuda", dtype=dt)
+            plan = fa.stream_plan(q, q, causal=causal)
+            d8 = -(-D // 8) * 8
+            assert plan["tile"] == (
+                (128 if d8 <= 64 else 64) if dt == torch.bfloat16 else 64)
+            nk = -(-T // plan["tile"])
+            assert plan["splits"] * plan["chunk"] >= nk > \
+                (plan["splits"] - 1) * plan["chunk"]
+            assert plan["splits"] >= min(2, nk)
+            assert plan["workspace"] == plan["splits"] * B * H * T * (d8 + 2)
+        # the causal triangle at T = 32768: no range longer than the
+        # balanced share of 8 blocks per SM
+        q = torch.zeros(1, 32768, 1, 64, device="cuda", dtype=dt)
+        plan = fa.stream_plan(q, q, causal=True)
+        nk = 32768 // plan["tile"]
+        assert plan["chunk"] <= -(-nk * (nk + 1) // 2 //
+                                  (8 * plan["sm_count"]))
