@@ -26,25 +26,28 @@ exits non-zero:
    bucket-32 dispatch and the device's busy share (torch.profiler).
 3b. kernels K2 (`flash_fwd`, whole KV) and K3 (`flash_fwd_stream`,
    split KV) through `flash_attention_partial` against their plain
-   version `_partial_ref` on the card: the long-context shapes
-   (2, 8192, 8, 64) and (1, 32768, 1, 64), ring-shard offsets at
-   T = 2048, the fully-masked shard (held to the contract m = -1e30,
-   l = 0, o = 0), a ragged T = 1000 at D = 64 and 128, the widest head
-   at long context (2, 8192, 8, 128) and q, k, v sliced from one packed
-   (B, T, 3, H, D) tensor; each case checks that its route's launch
-   counter moved; times of the kernel, the plain version and SDPA (a
-   yardstick only) beside the bound, with the achieved TFLOP/s and the
-   share of the bound, and the call's device time under torch.profiler
-   (at T <= 2048 the CUDA-event time is mostly the host's).
+   version `_partial_ref` on the card, in fp32 (3xTF32), bf16 and fp16:
+   the long-context shapes (2, 8192, 8, 64) and (1, 32768, 1, 64),
+   ring-shard offsets at T = 2048, the fully-masked shard (held to the
+   contract m = -1e30, l = 0, o = 0), a ragged T = 1000 at D = 64, 128
+   and 136, the wide heads (2, 8192, 8, 128) and (2, 8192, 8, 256) (two
+   column groups of O) and q, k, v sliced from one packed (B, T, 3, H, D)
+   tensor; each case checks that its route's launch counter moved; times
+   of the kernel, the plain version and SDPA (a yardstick only, where it
+   computes the same function) beside the bound, with the achieved
+   TFLOP/s and the share of the bound, and the call's device time under
+   torch.profiler (at T <= 2048 the CUDA-event time is mostly the
+   host's); then the wrapper's host time per call at (2, 2048, 8, 64).
 5. the attention path at full width, the counts of K2 and K3 set to 0
    before it and read after it: `flash_attention` forward and backward
    at (2, 8192, 8, 64) bf16 causal (one K2 launch), output and gradients
    against fp32 T x T attention through autograd; `ring_attention(...,
    use_pallas=True)` without a process group (one more K2 launch, equal
-   to `flash_attention`); the long-context envelope (1, 32768, 1, 64)
-   causal forward and backward in fp32 (one K3 launch by default) and in
-   bf16 under MXNET_FLASH_VMEM_MB=4 (one more K3 launch), checked the
-   same way; then forward and forward+backward times beside SDPA's.
+   to `flash_attention`); the same in fp32 (one more K2 launch); the
+   long-context envelope (1, 32768, 1, 64) causal forward and backward in
+   fp32 (one K3 launch by default) and in bf16 under
+   MXNET_FLASH_VMEM_MB=4 (one more K3 launch), checked the same way; then
+   forward and forward+backward times beside SDPA's.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -77,10 +80,15 @@ CLASSES = 1000
 CLIENTS = 32
 REQUESTS_PER_CLIENT = 24
 SOLO_ROWS = (1, 2, 3, 5, 12, 27)        # buckets 1, 2, 4, 8, 16, 32
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; FLOP/s by type
-# (fp32 on the CUDA cores, bf16 on the tensor cores)
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; FLOP/s by type.
+# bf16 and fp16 on the tensor cores.  fp32: the least time for fp32-exact
+# work is on the tensor cores too, in three TF32 passes (3xTF32): 495/3 =
+# 165 TFLOP/s, above the CUDA cores' 67 (against which a 3xTF32 kernel
+# could read over 100 % of its bound).  K1's fp32 bound is set by bytes at
+# M <= 32 either way.
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 165e12, torch.bfloat16: 989e12,
+              torch.float16: 989e12}
 # fp32: the kernel and the plain version add the same fp32 products in
 # different orders; with unit-scale outputs over K <= 25088 terms the
 # rounding difference is ~1e-5.  bf16: both round an fp32 sum to bf16,
@@ -93,6 +101,7 @@ SERVE_TOL = (1e-3, 1e-3)
 # the JSON line's shape: fc6 at bucket 32, the bucket of the served load
 REP = (32, 25088, 4096, torch.float32)
 BF16 = torch.bfloat16
+F16 = torch.float16
 F32 = torch.float32
 # phase 3b: (label, (B, T, H, D), dtype, causal, (q_off, k_off),
 # MXNET_FLASH_VMEM_MB or None for the default, the route it must take)
@@ -112,22 +121,37 @@ ATTN_CASES = [
     ("ragged", (2, 1000, 8, 64), BF16, True, (0, 0), None, "whole"),
     ("ragged", (2, 1000, 8, 128), F32, True, (0, 0), None, "whole"),
     ("ragged", (2, 1000, 8, 128), BF16, True, (0, 0), None, "whole"),
-    ("widest head", (2, 8192, 8, 128), BF16, True, (0, 0), None, "whole"),
+    ("wide head", (2, 8192, 8, 128), BF16, True, (0, 0), None, "whole"),
     ("packed qkv", (2, 2048, 8, 64), BF16, True, (0, 0), None, "whole"),
+    # two column groups of O; fp32's 16.8 MB of K and V take K3
+    ("widest head", (2, 8192, 8, 256), F32, True, (0, 0), None, "stream"),
+    ("widest head", (2, 8192, 8, 256), BF16, True, (0, 0), None, "whole"),
+    ("ragged", (2, 1000, 8, 136), BF16, True, (0, 0), None, "whole"),
+    ("ragged", (2, 1000, 8, 136), F32, True, (0, 0), None, "whole"),
+    ("long-context", (2, 8192, 8, 64), F16, True, (0, 0), None, "whole"),
+    ("long KV", (1, 32768, 1, 64), F16, True, (0, 0), "4", "stream"),
 ]
 # the JSON line's cases: the ones phase 5 runs through each kernel
 REP_K2 = ("long-context", (2, 8192, 8, 64), BF16, True, (0, 0), None)
 REP_K3 = ("long KV", (1, 32768, 1, 64), BF16, True, (0, 0), "4")
-# kernel vs plain version.  fp32: the same fp32 terms, up to 32768 of
-# them, summed in other orders (~1e-5 relative).  bf16: o is rounded to
-# bf16 (2**-8 relative), and each p is rounded to bf16 against a running
-# max that depends on the tiling (the kernel's 64-key tiles or split
-# ranges vs the plain version's 256-key blocks), noise of 2**-9 of each
-# p*v term that reached 0.0044*max|o| in a CPU emulation of the split.
-ATTN_TOL = {F32: (1e-4, 1e-5), BF16: (2.0 ** -6, 2.0 ** -7)}
+# and their fp32 cases (the 3xTF32 route), under keys of their own
+REP_K2_F32 = ("long-context", (2, 8192, 8, 64), F32, True, (0, 0), None)
+REP_K3_F32 = ("long KV", (1, 32768, 1, 64), F32, True, (0, 0), None)
+# kernel vs plain version.  fp32: the same terms, up to 32768 of them,
+# summed in other orders, each product 3xTF32 (~2**-21 relative; ~1e-5
+# relative in all).  bf16: o is rounded to bf16 (2**-8 relative), and
+# each p is rounded to bf16 against a running max that depends on the
+# tiling (the kernel's 64-key tiles or split ranges vs the plain
+# version's 256-key blocks), noise of 2**-9 of each p*v term that reached
+# 0.0044*max|o| in a CPU emulation of the split.  fp16: the same with 3
+# more mantissa bits.
+ATTN_TOL = {F32: (1e-4, 1e-5), BF16: (2.0 ** -6, 2.0 ** -7),
+            F16: (2.0 ** -8, 2.0 ** -9)}
 # the port's normalised output vs SDPA: SDPA picks its own backend,
-# whose fp32 path may round like TF32 (~1e-3)
-SDPA_TOL = {F32: (2e-3, 2e-3), BF16: (2.0 ** -6, 2.0 ** -7)}
+# whose fp32 path may round like TF32 (~1e-3); 16-bit: o rounded twice
+# (o, then o / l) against SDPA's once
+SDPA_TOL = {F32: (2e-3, 2e-3), BF16: (2.0 ** -6, 2.0 ** -7),
+            F16: (2.0 ** -7, 2.0 ** -8)}
 # phase 5, the bf16 kernel path against fp32 T x T attention: out is
 # rounded to bf16 twice (o, then o / l) and its gradients are rounded
 # to bf16 after an fp32 backward that starts from the bf16 out, so
@@ -463,9 +487,54 @@ def set_budget(budget):
     return old
 
 
+def sdpa_equivalent(causal, offs, t):
+    """(is_causal of the SDPA call that computes the same normalised
+    attention as this partial call, or None, and the reason when None)."""
+    q_off, k_off = offs
+    if not causal or q_off - k_off >= t - 1:
+        return False, None          # every row sees every key
+    if q_off == k_off:
+        return True, None           # the diagonal where SDPA puts it
+    if k_off >= q_off + t:
+        return None, ("no row sees a key: SDPA computes no such call (its "
+                      "softmax over no key is not the contract's m = -1e30, "
+                      "l = 0, o = 0)")
+    return None, "a shifted diagonal: SDPA's is_causal has no offset"
+
+
+def host_us_per_call(card):
+    """Host time per call of flash_attention_partial at (2, 2048, 8, 64)
+    bf16 causal (the enqueue, which is the call's time at this size), and
+    of the two fills its m and l took before they were torch.empty."""
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    q, k, v = attn_inputs((2, 2048, 8, 64), BF16, 99)
+    calls = 200
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / calls * 1e6
+
+    def fills():
+        torch.full((2, 8, 2048), -1e30, dtype=torch.float32, device="cuda")
+        torch.zeros((2, 8, 2048), dtype=torch.float32, device="cuda")
+
+    call = per_call(lambda: fa.flash_attention_partial(q, k, v, 0, 0, True))
+    before = per_call(fills)
+    print(f"host: flash_attention_partial bf16 2x2048x8x64 causal "
+          f"{call:.1f} us per call on the host (m, l by torch.empty); the "
+          f"two fills m and l took before (torch.full + torch.zeros of "
+          f"(B, H, Tq)) {before:.1f} us per call [{card}]")
+
+
 def attn_kernel_phase(card, flush):
     """Phase 3b: K2 and K3 against `_partial_ref`; returns the JSON
-    numbers of REP_K2 and REP_K3."""
+    numbers of REP_K2, REP_K3, REP_K2_F32 and REP_K3_F32."""
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops import flash_attention as fa
     reps = {}
@@ -519,17 +588,21 @@ def attn_kernel_phase(card, flush):
                  "max_abs_err": err, "library_ms": None,
                  "plain_ms": time_ms(lambda: fa._ref_bthd(
                      q, k, v, *offs, causal, 256), flush)}
-        if offs == (0, 0):
+        lib_causal, why = sdpa_equivalent(causal, offs, t)
+        if lib_causal is None:
+            print(f"K2/K3 vs SDPA {name} n/a: {why}")
+        else:
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib = lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                         is_causal=causal)
+            lib = lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=lib_causal)
             times["library_ms"] = time_ms(lib, flush)
             out = o / l.transpose(1, 2)[..., None].to(o.dtype)
             rtol, atol = SDPA_TOL[dtype]
             serr, sok = within(out, lib().transpose(1, 2), rtol, atol)
-            print(f"K2/K3 vs SDPA {name} (kernel + division, normalised) "
-                  f"max_abs_err={serr:.3e} (rtol {rtol:g}, atol {atol:g}"
-                  f"*max|SDPA|) {'ok' if sok else 'FAIL'}")
+            print(f"K2/K3 vs SDPA {name} (kernel + division, normalised; "
+                  f"SDPA is_causal={lib_causal}) max_abs_err={serr:.3e} "
+                  f"(rtol {rtol:g}, atol {atol:g}*max|SDPA|) "
+                  f"{'ok' if sok else 'FAIL'}")
             check(sok, f"{name}: the port's attention disagrees with SDPA")
         lib_ms = ("n/a" if times["library_ms"] is None
                   else f"{times['library_ms']:.4f}")
@@ -540,10 +613,11 @@ def attn_kernel_phase(card, flush):
               f"{t_bound / ms:.3f} of the bound; device_ms={dev_ms:.4f} "
               f"(profiler) [{card}]")
         key = (label, shape, dtype, causal, offs, budget)
-        if key in (REP_K2, REP_K3):
+        if key in (REP_K2, REP_K3, REP_K2_F32, REP_K3_F32):
             reps[key] = dict(times, shape=f"{str(dtype)[6:]} "
                              f"B,T,H,D={b},{t},{h},{d} causal={causal}")
         del q, k, v, o, m, l
+    host_us_per_call(card)
     return reps
 
 
@@ -653,25 +727,38 @@ def attention_path_phase(card, flush):
               f"atol {atol:g}*max|flash|) {'ok' if ok else 'FAIL'}")
         check(ok, "ring_attention disagrees with flash_attention")
         del out, q, k, v, ring
+        torch.cuda.empty_cache()
+        path_case((2, 8192, 8, 64), F32, 6)
+        check(fa.flash_fwd.launches == 3, "fp32 flash_attention did not "
+              "launch K2 once")
+        torch.cuda.empty_cache()
         path_case((1, 32768, 1, 64), F32, 1)
         torch.cuda.empty_cache()
         set_budget("4")
         path_case((1, 32768, 1, 64), BF16, 4)
         set_budget(None)
         launches = (fa.flash_fwd.launches, fa.flash_fwd_stream.launches)
-        check(launches == (2, 2), f"the path launched K2, K3 {launches} "
-              "times, want 2, 2")
-        print(f"path  launches: K2 {launches[0]} (flash_attention + ring), "
-              f"K3 {launches[1]} (the 32768 envelope, fp32 and bf16 under "
-              "MXNET_FLASH_VMEM_MB=4)")
+        check(launches == (3, 2), f"the path launched K2, K3 {launches} "
+              "times, want 3, 2")
+        print(f"path  launches: K2 {launches[0]} (flash_attention bf16 + "
+              f"ring + flash_attention fp32), K3 {launches[1]} (the 32768 "
+              "envelope, fp32 and bf16 under MXNET_FLASH_VMEM_MB=4)")
         torch.cuda.empty_cache()
         path_times((2, 8192, 8, 64), BF16, card, flush, 2)
+        path_times((2, 8192, 8, 64), F32, card, flush, 7)
         path_times((1, 32768, 1, 64), F32, card, flush, 3)
         set_budget("4")
         path_times((1, 32768, 1, 64), BF16, card, flush, 5)
     finally:
         set_budget(old)
     return launches
+
+
+def fp32_keys(rep):
+    """A kernel's fp32 case under keys of their own in the JSON line."""
+    return {f"fp32_{key}": rep[key] for key in
+            ("shape", "ms", "bound_ms", "bound_by", "library_ms",
+             "max_abs_err")}
 
 
 def main():
@@ -705,6 +792,9 @@ def main():
             elif "registers" in line or "spill" in line or \
                     "wgmma" in line.lower():
                 print(f"build: {name}: {line.strip()}")
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
+        print(f"build: {name}: {log.count('Compiling entry')} kernels, "
+              f"{sum(spills)} spill bytes in all")
 
     rep = kernel_phase(card)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -730,10 +820,11 @@ def main():
         "library_ms": rep["library_ms"],
         "shape": f"float32 M={m} K={k} N={n}"}, dict(
             name="flash_fwd", route="cuda", source=src,
-            replaces=f"{tpu}:229", launches=k2_launches, **attn[REP_K2]),
+            replaces=f"{tpu}:229", launches=k2_launches, **attn[REP_K2],
+            **fp32_keys(attn[REP_K2_F32])),
         dict(name="flash_fwd_stream", route="cuda", source=src,
              replaces=f"{tpu}:180", launches=k3_launches,
-             **attn[REP_K3])]}))
+             **attn[REP_K3], **fp32_keys(attn[REP_K3_F32]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

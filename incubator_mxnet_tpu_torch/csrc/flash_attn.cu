@@ -2,12 +2,13 @@
 // one KV shard, in the ring-step contract of the JAX package,
 //     s = (q / sqrt(D)) k^T  (causal: key position > query position masked)
 //     m = rowmax(s),  l = rowsum(exp(s - m)),  o = exp(s - m) v   (unnormalised)
-// q (B, Tq, H, D), k and v (B, Tk, H, D), float32 or bfloat16, read through
-// their strides (the head dimension contiguous); o (B, Tq, H, D) in q's
-// dtype, m and l (B, H, Tq) in float32.  q_off and k_off are the global
-// positions of q's and k's first rows, for the causal mask.  The scale is
-// the caller's (1/sqrt of the head size before any padding).  A row that
-// sees no key ends with m = -1e30, l = 0, o = 0.
+// q (B, Tq, H, D), k and v (B, Tk, H, D), float32, bfloat16 or float16,
+// read through their strides (the head dimension contiguous); o (B, Tq,
+// H, D) in q's dtype, m and l (B, H, Tq) in float32.  q_off and k_off are
+// the global positions of q's and k's first rows, for the causal mask.
+// The scale is the caller's (1/sqrt of the head size before any padding).
+// A row that sees no key ends with m = -1e30, l = 0, o = 0.  D is a
+// multiple of 8 up to 256.
 //
 // Two entries, two TPU kernels replaced:
 //   mx_flash_fwd         K2, `_fwd_kernel` via `_partial_tpu` in
@@ -28,74 +29,101 @@
 // shapes (T = 8192..32768, D = 64) both are far above the ridge point:
 // operation-bound, at the rate of the unit that multiplies.
 //
-// bfloat16 route (flash_fwd_tc): the tensor cores, 989 TFLOP/s.  Both
-// products are bf16 x bf16 -> fp32, as the TPU kernel's dots
+// Both routes run on the tensor cores with `wgmma`, in one block shape:
+// one producer warp that loads Q once and K/V tiles through a 2-stage
+// ring in shared memory by TMA (a 4-D tensor map over (D, H, T, B) with
+// the tensors' own strides, so q, k, v sliced out of a packed tensor read
+// without a copy; 128-byte boxes, 128-byte swizzle; TMA zero-fills rows
+// past T and columns past D), handed over with mbarriers (full: the bytes
+// landed; empty: every consumer warp is done), and one or two consumer
+// warpgroups of 64 query rows each.  Accumulator fragments: a thread
+// holds rows r and r + 8 and, per 8-column chunk j, columns 8j + 2t and
+// 8j + 2t + 1 (t = lane % 4).  Softmax runs on the S fragments: a row
+// lives in 4 lanes (a 2-step shuffle for its max); exp is ex2 of s*log2(e)
+// - m*log2(e) with m kept in natural units, so a row that never saw a key
+// keeps m = -1e30 exactly (alpha = ex2(0) = 1, p = ex2(-inf) = 0); l is
+// kept per lane and summed over its 4 lanes at the end.  Only tiles that
+// touch the causal diagonal or the ragged end of KV evaluate the mask
+// (TMA's zero fill gives s = 0, not -inf); tiles above the diagonal are
+// never loaded; the heaviest causal q tiles are launched first (reversed
+// grid x).  Registers and shared memory set the tiles: a 288-thread block
+// puts 3 warps on one of the SM's 4 sub-partitions, so a thread gets at
+// most 168 registers; a block holds at most 227 KB of shared memory.
+//
+// Head sizes above 128 split O's columns across blocks: a column group
+// of DV columns (grid x = q tiles x groups) accumulates its DV columns of
+// O from its DV columns of V, and computes S over the whole of D and the
+// same softmax as the other groups; group 0 writes m and l.  At D = 256
+// that is 1.5x the operations of one pass (S twice), so such a call reads
+// at most 0.67 of the bound, which counts 4*D per pair.
+//
+// 16-bit route (flash_fwd_tc, bfloat16 and float16): 989 TFLOP/s.  Both
+// products are 16-bit x 16-bit -> fp32, as the TPU kernel's dots
 // (preferred_element_type=float32), so the rounding points are the
-// contract's: q scaled and rounded to bf16 once, fp32 scores and row sums,
-// p rounded to bf16 before P.V while l sums the fp32 p.
-//   * a block of 128 query rows is two consumer warpgroups (64 rows each)
-//     and one producer warp: 288 threads;
-//   * K/V tiles go through a 2-stage ring in shared memory, loaded by TMA
-//     (one thread of the producer warp; a 4-D tensor map over (D, H, T, B)
-//     with the tensors' own strides, so q, k, v sliced out of a packed
-//     tensor read without a copy) and handed over with mbarriers (full:
-//     the bytes landed; empty: all 8 consumer warps are done), so tile
-//     j+1 is in flight while the consumers compute on tile j;
-//   * each TMA box is 64 columns (128 bytes, the 128-byte swizzle's span)
-//     by the tile's rows: one box at D <= 64, two at D <= 128; TMA
-//     zero-fills rows past T and columns past D, so any D that is a
-//     multiple of 8 runs as 64 or 128;
-//   * tile sizes come from the registers: 288 threads put 3 warps on one
-//     of the SM's 4 sub-partitions, so a thread gets at most 168 (16384 /
-//     96, rounded down to 8).  At D <= 64, 128-key tiles keep S at 64 fp32
-//     registers, O at 32 and P at 32; at D <= 128, O takes 64 and 128-key
-//     tiles spilled, so the tile is 64 keys (S 32, P 16).  Shared memory:
-//     Q 16 KB + 2 stages x (K + V) 64 KB = 80 KB at D <= 64, 32 + 64 =
-//     96 KB at D <= 128, of 227 KB: one block per SM either way, held
-//     there by the registers;
-//   * S = Q K^T: wgmma m64nBKk16, A = Q and B = the K tile from shared
-//     memory, both K-major.  Q is scaled by 1/sqrt(D) and rounded to bf16
-//     in shared memory by its warpgroup once, behind fence.proxy.async;
-//   * softmax in registers on the accumulator fragments: a row lives in 4
-//     lanes, so its max is a 2-step shuffle; exp as ex2 of s*log2(e) -
-//     m*log2(e), with m kept in natural units so that a row that never saw
-//     a key keeps m = -1e30 exactly (alpha = ex2(0) = 1, p = ex2(-inf) = 0);
-//     l is kept per lane and summed over the 4 lanes once, at the end;
-//   * O += P V: wgmma m64n64k16 per 64 columns of D with A = P from
-//     registers (the fp32 accumulator layout of S, paired into bf16x2, is
-//     the A-operand layout) and B = the V tile, keys x D, which is MN-major
-//     for this B: the transpose bit.  P never goes through shared memory.
-// fp32 route (flash_fwd_kernel): the CUDA cores, 67 TFLOP/s; parity needs
-// full fp32, not TF32.  One block of 128 threads per (b*h, 64-row q tile),
-// 64-key tiles widened into shared memory; each thread owns a 4 x 8
-// micro-tile of S (a 3-step shuffle among 8 lanes per row) and the same 4
-// rows of O; p is staged in shared memory for P.V.  A tensor-core design
-// for it (3xTF32) is later work.
-// Both routes: tiles above the causal diagonal are never loaded; only
-// tiles that touch the diagonal or the ragged end of KV evaluate the mask
-// (TMA's zero fill gives a score of 0, not -inf); the heaviest causal q
-// tiles are launched first (reversed grid x); the split-KV plan
-// (mx_flash_fwd_stream_plan) counts in the route's own tiles and cuts the
-// KV range so that about kBlocksPerSm blocks of work per SM exist and no
-// block's share exceeds the balanced share of the causal triangle.
+// contract's: q scaled and rounded to the dtype once (in shared memory,
+// by its warpgroup, behind fence.proxy.async), fp32 scores and row sums,
+// p rounded to the dtype before P.V while l sums the fp32 p.  128 query
+// rows (two consumer warpgroups), 288 threads.  S = Q K^T: m64nBKk16, Q
+// and the K tile K-major from shared memory.  O += P V: m64n64k16 per 64
+// columns of the group, A = P from registers (the S fragment paired into
+// 16-bit x2 is the A fragment) and B = the V tile, keys x D, MN-major:
+// the transpose bit.  Tiles: 128 keys at D <= 64 (S 64 registers, O 32);
+// 64 keys at D <= 128 (O takes 64; 128-key tiles spilled) and at D <= 256
+// (128-column groups).  Shared memory: 80, 96 and 160 KB.  In float16 the
+// unnormalised o of a long row can pass 65504 and overflow to inf; the
+// TPU kernel's cast (acc.astype(o_ref.dtype)) overflows the same way.
+//
+// float32 route (flash_fwd_f32): TF32 tensor cores at 495 TFLOP/s,
+// three passes for fp32 accuracy ("3xTF32", CUTLASS's
+// OpMultiplyAddFastF32): x = hi + lo with hi = tf32(x), lo = tf32(x - hi),
+// and a b ~ hi_a hi_b + hi_a lo_b + lo_a hi_b summed in the fp32
+// accumulator, about 2^-21 relative per product, an effective 165 TFLOP/s.
+// Parity needs full fp32: one TF32 pass is off by ~1e-3.  `wgmma` reads
+// only the top 19 bits of a .tf32 operand (it truncates; measured on an
+// H100), so hi and lo are rounded explicitly with cvt.rna.  `wgmma` takes
+// .tf32 operands K-major only (no transpose bit), so:
+//   * S = Q K^T: Q (scaled by the caller's scale in fp32, then split) and
+//     K tiles, D-contiguous, are K-major as loaded.  The consumers split
+//     each K tile in place (hi) and into a K_lo buffer of the same layout;
+//   * O += P V needs V as a K-major B, keys contiguous: the consumers
+//     transpose each V tile into V^T_hi and V^T_lo (swizzled like a TMA
+//     tile), then fence.proxy.async and a barrier of the consumers hand
+//     them to `wgmma`.  A second barrier before the next tile's transform
+//     keeps it off buffers still being read;
+//   * P comes from registers.  The tf32 A fragment of a k8 step gives a
+//     thread columns t and t + 4 (registers a0 (r, t), a1 (r + 8, t), a2
+//     (r, t + 4), a3 (r + 8, t + 4); measured), while S's fragment holds
+//     2t and 2t + 1.  So P is fed as it lies, and the transpose writes V's
+//     8 keys of each k-step in the order pi = (0, 2, 4, 6, 1, 3, 5, 7):
+//     position q of the k-step holds key pi(q).  hi and lo of p are split
+//     in registers;
+//   * tiles from shared memory: Q in hi and lo takes 2x what one fp32 copy
+//     does, so D <= 64 runs 128 query rows by 64 keys (Q 64 KB, ring
+//     64 KB, K_lo 16 KB, V^T 32 KB = 176 KB), D <= 128 runs 64 rows (one
+//     consumer warpgroup, 160 threads) by 32 keys (176 KB), and D <= 256
+//     64 rows by 16 keys with 128-column groups (224 KB).
+// The split-KV plan (mx_flash_fwd_stream_plan) counts in the route's own
+// tiles and column groups, and cuts the KV range so that about
+// kBlocksPerSm blocks of work per SM exist and no block's share exceeds
+// the balanced share of the causal triangle.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kBQ = 64;          // fp32 route: query rows per block
-constexpr int kBK = 64;          // fp32 route: keys per KV tile
-constexpr int kThreads = 128;    // fp32 route: 16 row groups x 8 column groups
-constexpr int kRows = 4;         // query rows per thread
-constexpr int kCols = kBK / 8;   // S columns per thread
-constexpr int kPP = kBK + 2;     // pitch of P in shared memory
-constexpr int kBlocksPerSm = 8;  // split-KV target: blocks of work per SM
+constexpr int kBlocksPerSm = 8;   // split-KV target: blocks of work per SM
+constexpr int kStages = 2;        // K/V ring depth
+constexpr int kMaxD = 256;        // the widest head the kernels take
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
   const void* q;
@@ -121,41 +149,30 @@ template <> __device__ __forceinline__ __nv_bfloat16
 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
-
-// 8 consecutive fp32 elements at p (16-byte aligned)
-__device__ __forceinline__ void load8(const float* p, float* d) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  d[0] = a.x; d[1] = a.y; d[2] = a.z; d[3] = a.w;
-  d[4] = b.x; d[5] = b.y; d[6] = b.z; d[7] = b.w;
+template <> __device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
 }
 
-// rows [t0, t0 + 64) of head (b, h) into dst (pitch ld, fp32); rows past
-// T are zero.  scale > 0: each value is multiplied by scale.
-__device__ __forceinline__ void load_tile(float* dst, int ld, const float* base,
-                                          const long long* st, int b, int h,
-                                          int t0, int T_len, int D,
-                                          float scale) {
-  const int per_row = D / 8;
-  for (int e = threadIdx.x; e < 64 * per_row; e += kThreads) {
-    const int row = e / per_row;
-    const int c = (e - row * per_row) * 8;
-    const int t = t0 + row;
-    float x[8];
-    if (t < T_len) {
-      load8(base + b * st[0] + t * st[1] + h * st[2] + c, x);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] = 0.f;
-    }
-    if (scale > 0.f) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] *= scale;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[row * ld + c + i] = x[i];
+// The 16-bit element types: two values packed in 32 bits (x0 low)
+template <typename T> struct Pair;
+template <> struct Pair<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t pack(float x0, float x1) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+    return *reinterpret_cast<const uint32_t*>(&v);
   }
-}
+  static __device__ __forceinline__ float2 unpack(uint32_t w) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  }
+};
+template <> struct Pair<__half> {
+  static __device__ __forceinline__ uint32_t pack(float x0, float x1) {
+    const __half2 v = __floats2half2_rn(x0, x1);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t w) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  }
+};
 
 // KV tiles of bk keys that q tile qt (bq rows) must visit: all of them, or
 // under the causal mask those up to the one holding the tile's last row's
@@ -173,200 +190,7 @@ __host__ __device__ inline int tiles_run(int qt, int Tq, int Tk,
   return n < nk ? static_cast<int>(n) : nk;
 }
 
-size_t smem_bytes(int dmax) {
-  return static_cast<size_t>(3 * 64 * (dmax + 1) + kBQ * kPP) * sizeof(float);
-}
-
-// The fp32 route of K2 (SPLIT = false, one split covering the KV range) and
-// of K3's first pass (SPLIT = true); see the note at the top of the file.
-// One block: q tile (reversed blockIdx.x), head blockIdx.y, KV tiles
-// [split * chunk, min(nk_run, (split + 1) * chunk)) with split = blockIdx.z.
-// SPLIT: write the fp32 partial to the workspace, else o, m, l.
-template <int DMAX, bool SPLIT>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const Args a) {
-  extern __shared__ float smem[];
-  const int D = a.D;
-  const int ld = D + 1;
-  float* Qs = smem;
-  float* Ks = Qs + kBQ * ld;
-  float* Vs = Ks + kBK * ld;
-  float* Ps = Vs + kBK * ld;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H;
-  const int h = bh - b * a.H;
-  const int split = blockIdx.z;
-  const int cg = threadIdx.x & 7;     // column group: keys cg, cg + 8, ...
-  const int rg = threadIdx.x >> 3;    // row group: rows 4*rg .. 4*rg + 3
-  const int q0 = qt * kBQ;
-  const long long qg0 = a.q_off + q0;
-  const int nk_run = tiles_run(qt, a.Tq, a.Tk, a.q_off, a.k_off, a.causal,
-                               kBQ, kBK);
-  const int kt_begin = split * a.chunk;
-  const int kt_end = min(nk_run, kt_begin + a.chunk);
-  constexpr int DT = DMAX / 8;
-  const int dt = D / 8;
-
-  float acc[kRows][DT];
-  float mrow[kRows];
-  float lrow[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    mrow[i] = kNeg;
-    lrow[i] = 0.f;
-#pragma unroll
-    for (int t = 0; t < DT; ++t) acc[i][t] = 0.f;
-  }
-
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  if (kt_begin < kt_end)
-    load_tile(Qs, ld, q, a.qs, b, h, q0, a.Tq, D, a.scale);
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    load_tile(Ks, ld, k, a.ks, b, h, k0, a.Tk, D, 0.f);
-    load_tile(Vs, ld, v, a.vs, b, h, k0, a.Tk, D, 0.f);
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = Qs[(rg * kRows + i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = Ks[(cg + 8 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // only tiles touching the diagonal or the end of KV evaluate the mask
-    const bool masked = (a.causal && a.k_off + k0 + kBK - 1 > qg0) ||
-                        k0 + kBK > a.Tk;
-    if (masked) {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const long long qpos = qg0 + rg * kRows + i;
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int col = k0 + cg + 8 * j;
-          if (col >= a.Tk || (a.causal && a.k_off + col > qpos))
-            s[i][j] = -INFINITY;    // exp(-inf - m) = 0: p = 0 when masked
-        }
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) mx = fmaxf(mx, s[i][j]);
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(mrow[i], mx);
-      const float alpha = expf(mrow[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        Ps[(rg * kRows + i) * kPP + cg + 8 * j] = p;
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      lrow[i] = lrow[i] * alpha + rs;
-      mrow[i] = m_new;
-#pragma unroll
-      for (int t = 0; t < DT; ++t) acc[i][t] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = Ps[(rg * kRows + i) * kPP + c];
-#pragma unroll
-      for (int t = 0; t < DT; ++t) {
-        if (t < dt) {
-          const float vv = Vs[c * ld + cg + 8 * t];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][t] = fmaf(pv[i], vv, acc[i][t]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const long long rows_all = static_cast<long long>(a.B) * a.H * a.Tq;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + rg * kRows + i;
-    if (row >= a.Tq) continue;
-    const long long r = static_cast<long long>(bh) * a.Tq + row;
-    if (SPLIT) {
-      // workspace: o [splits][rows][D], then m [splits][rows], l likewise
-      const long long splits = gridDim.z;
-      const long long slot = split * rows_all + r;
-      float* wo = a.ws + slot * D;
-#pragma unroll
-      for (int t = 0; t < DT; ++t)
-        if (t < dt) wo[cg + 8 * t] = acc[i][t];
-      if (cg == 0) {
-        float* wm = a.ws + splits * rows_all * D;
-        wm[slot] = mrow[i];
-        wm[splits * rows_all + slot] = lrow[i];
-      }
-    } else {
-      float* o = static_cast<float*>(a.o) + b * a.os[0] + row * a.os[1] +
-                 h * a.os[2];
-#pragma unroll
-      for (int t = 0; t < DT; ++t)
-        if (t < dt) o[cg + 8 * t] = acc[i][t];
-      if (cg == 0) {
-        a.m[r] = mrow[i];
-        a.l[r] = lrow[i];
-      }
-    }
-  }
-}
-
-// ---- bfloat16 route: wgmma on the tensor cores, K/V through a TMA ring --
-
-constexpr int kTcBQ = 128;        // query rows per block: 2 consumer warpgroups
-constexpr int kTcBK64 = 128;      // keys per K/V tile at D <= 64
-constexpr int kTcBK128 = 64;      // keys per K/V tile at D <= 128
-constexpr int kTcStages = 2;      // K/V ring depth
-constexpr int kTcThreads = 288;   // 2 consumer warpgroups + 1 producer warp
-constexpr int kBox = 64;          // bf16 columns per TMA box: 128 bytes
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Shared memory of the bf16 kernel, in bytes from a 1024-aligned base (the
-// 128-byte swizzle repeats every 8 rows of 128 bytes).  A tile of R rows
-// is DMAX / 64 boxes of R x 128 bytes, one after the other.
-template <int DMAX, int BK>
-struct TcSmem {
-  static constexpr int kBoxes = DMAX / kBox;
-  static constexpr int kQBytes = kBoxes * kTcBQ * 128;
-  static constexpr int kKVBytes = kBoxes * BK * 128;   // one K or V tile
-  static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kQBytes;                 // + stage * kKVBytes
-  static constexpr int kV = kK + kTcStages * kKVBytes;
-  static constexpr int kBar = kV + kTcStages * kKVBytes;  // full[], empty[], q
-  static constexpr int kBytes = kBar + 8 * (2 * kTcStages + 1) + 1024;
-};
+// ---- barriers, TMA, wgmma -------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -400,6 +224,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   } while (!done);
 }
 
+// named barrier `id` over `count` threads
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// generic-proxy writes to shared memory, made visible to wgmma and TMA
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // one box of a 4-D tensor map at coordinates (d, h, t, b) into dst,
 // completing `bar`'s transaction bytes
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -421,6 +255,17 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// a K-major swizzled operand at `addr`: 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
+  return smem_desc(addr, 16, 1024);
+}
+
+// the 128-byte swizzle of byte offset `off` in a 1024-aligned tile: the
+// 16-byte chunk of a 128-byte row moves by the row's index mod 8
+__device__ __forceinline__ uint32_t swz(uint32_t off) {
+  return off ^ (((off >> 7) & 7) << 4);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -438,118 +283,347 @@ __device__ __forceinline__ void reg_fence(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 
+// x, opaque to the compiler: what is computed from it inside a loop stays
+// there (wgmma descriptors hoisted out of the KV loop would hold registers)
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// zero `bytes` (a multiple of 16) of shared memory at p, by threads
+// `first`, `first + step`, ...
+__device__ __forceinline__ void zero_smem(uint8_t* p, int bytes, int first,
+                                          int step) {
+  for (int e = first; e < bytes / 16; e += step)
+    reinterpret_cast<uint4*>(p)[e] = make_uint4(0u, 0u, 0u, 0u);
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
-// two fp32 rounded to bf16, x0 in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as fp32
+__device__ __forceinline__ float tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
 }
 
-// d = A B (scale_d 0) or d += A B: A (64 x 16) and B (16 x 128), both
-// K-major in shared memory (the descriptors a, b)
+#define MX_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define MX_R16 MX_R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define MX_R32 MX_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, " \
+    "%24, %25, %26, %27, %28, %29, %30, %31"
+#define MX_R64 MX_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, " \
+    "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+    "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define MX_A8(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+    "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+#define MX_A16(d) MX_A8(d), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), \
+    "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define MX_A32(d) MX_A16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), \
+    "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), \
+    "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define MX_A64(d) MX_A32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+    "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+    "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+    "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+    "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+    "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
+
+// 16-bit d = A B (scale_d 0) or d += A B, A (64 x 16) and B (16 x N) both
+// K-major in shared memory (descriptors a, b): m64n128k16 (d[64]) and
+// m64n64k16 (d[32])
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
                                          uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+  if constexpr (kIsHalf<T>)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+                 MX_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+                 : MX_A64(d) : "l"(a), "l"(b), "r"(scale_d));
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+                 MX_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+                 : MX_A64(d) : "l"(a), "l"(b), "r"(scale_d));
 }
-
-// d = A B (scale_d 0) or d += A B: A (64 x 16) and B (16 x 64), both
-// K-major in shared memory (the descriptors a, b)
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
                                          uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+  if constexpr (kIsHalf<T>)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+                 MX_R32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : MX_A32(d) : "l"(a), "l"(b), "r"(scale_d));
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+                 MX_R32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : MX_A32(d) : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// d += A B: A (64 x 16) from registers in the accumulator layout, B
+// 16-bit d += A B: A (64 x 16) from registers in the accumulator layout, B
 // (16 x 64) MN-major in shared memory (the transpose bit set)
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  if constexpr (kIsHalf<T>)
+    asm volatile("wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+                 MX_R32 "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+                 : MX_A32(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+                   "l"(b));
+  else
+    asm volatile("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+                 MX_R32 "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+                 : MX_A32(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+                   "l"(b));
 }
 
-// The bf16 route of K2 (SPLIT = false) and of K3's first pass (SPLIT =
+// tf32 d = A B (scale_d 0) or d += A B, A (64 x 8) and B (8 x N) K-major in
+// shared memory: N = 64 (d[32]), 32 (d[16]), 16 (d[8])
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+               MX_R32 "}, %32, %33, p, 1, 1;\n}\n"
+               : MX_A32(d) : "l"(a), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+               MX_R16 "}, %16, %17, p, 1, 1;\n}\n"
+               : MX_A16(d) : "l"(a), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+               MX_R8 "}, %8, %9, p, 1, 1;\n}\n"
+               : MX_A8(d) : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// tf32 d += A B: A (64 x 8) from registers {a0 (r, t), a1 (r + 8, t),
+// a2 (r, t + 4), a3 (r + 8, t + 4)}, B (8 x 64) K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile("wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+               MX_R32 "}, {%32, %33, %34, %35}, %36, 1, 1, 1;\n"
+               : MX_A32(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+                 "l"(b));
+}
+
+// ---- what the two routes share around their products ----------------------
+
+// -inf where key column `col` (of 2 per chunk j) is past Tk or, causal,
+// after the row's position; sc is the S fragment of NJ 8-column chunks
+template <int NJ>
+__device__ __forceinline__ void mask_tile(float* sc, const Args& a, int k0,
+                                          int cq, long long qpos_a,
+                                          long long qpos_b) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = k0 + 8 * j + cq + c;
+      const long long kp = a.k_off + col;
+      const bool out = col >= a.Tk;
+      if (out || (a.causal && kp > qpos_a)) sc[4 * j + c] = -INFINITY;
+      if (out || (a.causal && kp > qpos_b)) sc[4 * j + 2 + c] = -INFINITY;
+    }
+  }
+}
+
+// the online softmax step of rows a and b: new maxima from the tile's S,
+// the rescale factors of the old sums, and m in log2 units for ex2
+template <int NJ>
+__device__ __forceinline__ void softmax_max(const float* sc, float& m_a,
+                                            float& m_b, float& al_a,
+                                            float& al_b, float& ms_a,
+                                            float& ms_b) {
+  float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+  }
+  const float mn_a = fmaxf(m_a, mx_a);
+  const float mn_b = fmaxf(m_b, mx_b);
+  al_a = ex2((m_a - mn_a) * kLog2e);
+  al_b = ex2((m_b - mn_b) * kLog2e);
+  m_a = mn_a;
+  m_b = mn_b;
+  ms_a = mn_a * kLog2e;
+  ms_b = mn_b * kLog2e;
+}
+
+// The epilogue of both routes: rows r_a and r_a + 8 of the block's q tile,
+// the columns c0 + 64x + 8j + cq (+1) that are < D.  SPLIT: the fp32
+// partial into the workspace (o [splits][rows][D], then m [splits][rows],
+// then l), else o in T and m, l.  Column group 0 writes m and l.
+template <typename T, int NX, bool SPLIT>
+__device__ __forceinline__ void store_rows(const Args& a, float (&o)[NX][32],
+                                           float m_a, float m_b, float l_a,
+                                           float l_b, int bh, int b, int h,
+                                           int q0, int r_a, int c0, int cg,
+                                           int lane) {
+  const int cq = 2 * (lane % 4);
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const long long rows_all = static_cast<long long>(a.B) * a.H * a.Tq;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + r_a + 8 * hr;
+    if (row >= a.Tq) continue;
+    const long long r = static_cast<long long>(bh) * a.Tq + row;
+    const float mr = hr ? m_b : m_a;
+    const float lr = hr ? l_b : l_a;
+    const bool ml = cg == 0 && lane % 4 == 0;
+    if (SPLIT) {
+      const long long splits = gridDim.z;
+      const long long slot = blockIdx.z * rows_all + r;
+      float* wo = a.ws + slot * a.D;
+#pragma unroll
+      for (int x = 0; x < NX; ++x)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = c0 + x * 64 + 8 * j + cq;
+          if (col < a.D)
+            *reinterpret_cast<float2*>(wo + col) =
+                make_float2(o[x][4 * j + 2 * hr], o[x][4 * j + 2 * hr + 1]);
+        }
+      if (ml) {
+        float* wm = a.ws + splits * rows_all * a.D;
+        wm[slot] = mr;
+        wm[splits * rows_all + slot] = lr;
+      }
+    } else {
+      T* out = static_cast<T*>(a.o) + b * a.os[0] + row * a.os[1] +
+               h * a.os[2];
+#pragma unroll
+      for (int x = 0; x < NX; ++x)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = c0 + x * 64 + 8 * j + cq;
+          if (col >= a.D) continue;
+          const float x0 = o[x][4 * j + 2 * hr];
+          const float x1 = o[x][4 * j + 2 * hr + 1];
+          if constexpr (std::is_same<T, float>::value)
+            *reinterpret_cast<float2*>(out + col) = make_float2(x0, x1);
+          else
+            *reinterpret_cast<uint32_t*>(out + col) = Pair<T>::pack(x0, x1);
+        }
+      if (ml) {
+        a.m[r] = mr;
+        a.l[r] = lr;
+      }
+    }
+  }
+}
+
+// Where a block starts: its q tile (the heaviest causal tiles first) and
+// column group, from the reversed grid x of n_tiles x groups
+struct BlockPos {
+  int qt, cg, bh, b, h;
+};
+__device__ __forceinline__ BlockPos block_pos(const Args& a, int groups) {
+  BlockPos p;
+  const int idx = gridDim.x - 1 - blockIdx.x;
+  p.qt = idx / groups;
+  p.cg = idx - p.qt * groups;
+  p.bh = blockIdx.y;
+  p.b = p.bh / a.H;
+  p.h = p.bh - p.b * a.H;
+  return p;
+}
+
+// ---- 16-bit route: bfloat16 and float16 ------------------------------------
+
+constexpr int kTcBQ = 128;        // query rows per block: 2 consumer warpgroups
+constexpr int kTcThreads = 288;   // 2 consumer warpgroups + 1 producer warp
+constexpr int kBox16 = 64;        // 16-bit columns per TMA box: 128 bytes
+
+// Shared memory of the 16-bit kernel, in bytes from a 1024-aligned base
+// (the 128-byte swizzle repeats every 8 rows of 128 bytes).  A tile of R
+// rows is boxes of R x 128 bytes, one after the other: DQK / 64 of them
+// for Q and K, DV / 64 for V.
+template <int DQK, int DV, int BK>
+struct TcSmem {
+  static constexpr int kQBoxes = DQK / kBox16;
+  static constexpr int kVBoxes = DV / kBox16;
+  static constexpr int kQBytes = kQBoxes * kTcBQ * 128;
+  static constexpr int kKBytes = kQBoxes * BK * 128;      // one K tile
+  static constexpr int kVBytes = kVBoxes * BK * 128;      // one V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;                 // + stage * kKBytes
+  static constexpr int kV = kK + kStages * kKBytes;       // + stage * kVBytes
+  static constexpr int kBar = kV + kStages * kVBytes;     // full[], empty[], q
+  static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + 1024;
+};
+
+// The 16-bit route of K2 (SPLIT = false) and of K3's first pass (SPLIT =
 // true), see the note at the top of the file.  One block: q tile of 128
-// rows (reversed blockIdx.x), head blockIdx.y, KV tiles [split * chunk,
-// min(nk_run, (split + 1) * chunk)) with split = blockIdx.z.  Warps 0-7
-// are the consumer warpgroups (rows 0-63, 64-127 of the tile), warp 8
-// the producer.  Accumulator fragment of wgmma m64nN: a thread holds rows
-// r and r + 8 (r = 16 * warp + lane / 4 within its warpgroup) and, for
-// each 8-column chunk j, columns 8j + 2 * (lane % 4) + {0, 1}: registers
-// 4j, 4j + 1 (row r) and 4j + 2, 4j + 3 (row r + 8).
-template <int DMAX, int BK, bool SPLIT>
+// rows and column group (block_pos), head blockIdx.y, KV tiles [split *
+// chunk, min(nk_run, (split + 1) * chunk)) with split = blockIdx.z.
+// Warps 0-7 are the consumer warpgroups (rows 0-63, 64-127 of the tile),
+// warp 8 the producer.
+template <typename T, int DQK, int DV, int BK, bool SPLIT>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap, const Args a) {
-  using L = TcSmem<DMAX, BK>;
-  constexpr int NB = L::kBoxes;
+  using L = TcSmem<DQK, DV, BK>;
+  constexpr int NX = L::kVBoxes;
   constexpr int NJ = BK / 8;       // 8-column chunks of S
   constexpr int NKS = BK / 16;     // k-steps of P.V
+  // Q and K boxes that hold columns < D: all of them below DQK = 256
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - smem_addr(smem_raw));
   const uint32_t full = base + L::kBar;             // full[s] at + 8 s
-  const uint32_t empty = full + 8 * kTcStages;      // empty[s] at + 8 s
-  const uint32_t qbar = empty + 8 * kTcStages;
+  const uint32_t empty = full + 8 * kStages;        // empty[s] at + 8 s
+  const uint32_t qbar = empty + 8 * kStages;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H;
-  const int h = bh - b * a.H;
-  const int q0 = qt * kTcBQ;
-  const int nk_run = tiles_run(qt, a.Tq, a.Tk, a.q_off, a.k_off, a.causal,
-                               kTcBQ, BK);
+  const int groups = (a.D + DV - 1) / DV;
+  const BlockPos bp = block_pos(a, groups);
+  const int q0 = bp.qt * kTcBQ;
+  const int c0 = bp.cg * DV;                        // first column of O, V
+  const int nq = DQK <= 128 ? L::kQBoxes : (a.D + kBox16 - 1) / kBox16;
+  const int nv = min(NX, (a.D - c0 + kBox16 - 1) / kBox16);
+  const int nk_run = tiles_run(bp.qt, a.Tq, a.Tk, a.q_off, a.k_off,
+                               a.causal, kTcBQ, BK);
   const int kt_begin = blockIdx.z * a.chunk;
   const int n = min(nk_run, kt_begin + a.chunk) - kt_begin;   // may be <= 0
 
+  // Q and K boxes past D are never loaded: zero, so that every wgmma runs
+  // over all DQK columns (a wgmma behind a runtime branch makes ptxas
+  // serialise); V boxes past D only feed columns of O past D
+  if (nq < L::kQBoxes) {
+    zero_smem(smem + L::kQ + nq * kTcBQ * 128,
+              (L::kQBoxes - nq) * kTcBQ * 128, threadIdx.x, kTcThreads);
+    for (int s = 0; s < kStages; ++s)
+      zero_smem(smem + L::kK + s * L::kKBytes + nq * BK * 128,
+                (L::kQBoxes - nq) * BK * 128, threadIdx.x, kTcThreads);
+    fence_async_smem();
+  }
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kTcStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 8);
     }
@@ -563,24 +637,24 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
   if (warp == 8) {
     // producer: Q once, then K/V tiles into the ring
     if (lane == 0 && n > 0) {
-      mbar_expect_tx(qbar, L::kQBytes);
-      for (int x = 0; x < NB; ++x)
-        tma_load(base + L::kQ + x * kTcBQ * 128, &qmap, qbar, x * kBox, h,
-                 q0, b);
+      mbar_expect_tx(qbar, nq * kTcBQ * 128);
+      for (int x = 0; x < nq; ++x)
+        tma_load(base + L::kQ + x * kTcBQ * 128, &qmap, qbar, x * kBox16,
+                 bp.h, q0, bp.b);
       for (int i = 0; i < n; ++i) {
-        const int s = i % kTcStages;
-        const int use = i / kTcStages;
+        const int s = i % kStages;
+        const int use = i / kStages;
         if (use > 0) mbar_wait(empty + 8 * s, (use - 1) & 1);
-        mbar_expect_tx(full + 8 * s, 2 * L::kKVBytes);
+        mbar_expect_tx(full + 8 * s, (nq + nv) * BK * 128);
         const int k0 = (kt_begin + i) * BK;
-        const uint32_t kdst = base + L::kK + s * L::kKVBytes;
-        const uint32_t vdst = base + L::kV + s * L::kKVBytes;
-        for (int x = 0; x < NB; ++x) {
-          tma_load(kdst + x * BK * 128, &kmap, full + 8 * s, x * kBox, h,
-                   k0, b);
-          tma_load(vdst + x * BK * 128, &vmap, full + 8 * s, x * kBox, h,
-                   k0, b);
-        }
+        const uint32_t kdst = base + L::kK + s * L::kKBytes;
+        const uint32_t vdst = base + L::kV + s * L::kVBytes;
+        for (int x = 0; x < nq; ++x)
+          tma_load(kdst + x * BK * 128, &kmap, full + 8 * s, x * kBox16,
+                   bp.h, k0, bp.b);
+        for (int x = 0; x < nv; ++x)
+          tma_load(vdst + x * BK * 128, &vmap, full + 8 * s,
+                   c0 + x * kBox16, bp.h, k0, bp.b);
       }
     }
     return;
@@ -595,18 +669,18 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
   const long long qpos_a = a.q_off + q0 + r_a;
   const long long qpos_b = qpos_a + 8;
 
-  float o[NB][32];
+  float o[NX][32];
 #pragma unroll
-  for (int x = 0; x < NB; ++x)
+  for (int x = 0; x < NX; ++x)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[x][i] = 0.f;
   float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
 
   if (n > 0) {
-    // this warpgroup's 64 rows of q: scaled, rounded to bf16, in place
+    // this warpgroup's 64 rows of q: scaled, rounded to T, in place
     mbar_wait(qbar, 0);
 #pragma unroll
-    for (int x = 0; x < NB; ++x) {
+    for (int x = 0; x < L::kQBoxes; ++x) {
       uint4* rows = reinterpret_cast<uint4*>(smem + L::kQ + x * kTcBQ * 128 +
                                              wg * 64 * 128);
 #pragma unroll
@@ -615,37 +689,35 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
         uint32_t* w = reinterpret_cast<uint32_t*>(&u);
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          const float2 f = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&w[t]));
-          w[t] = pack_bf16(f.x * a.scale, f.y * a.scale);
+          const float2 f = Pair<T>::unpack(w[t]);
+          w[t] = Pair<T>::pack(f.x * a.scale, f.y * a.scale);
         }
         rows[tid + 128 * e] = u;
       }
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    fence_async_smem();
+    bar_sync(1 + wg, 128);
   }
 
   for (int i = 0; i < n; ++i) {
-    const int s = i % kTcStages;
+    const int s = i % kStages;
     const int k0 = (kt_begin + i) * BK;
-    mbar_wait(full + 8 * s, (i / kTcStages) & 1);
+    mbar_wait(full + 8 * s, (i / kStages) & 1);
     // a tile wholly after this warpgroup's rows adds nothing
     if (!(a.causal && a.k_off + k0 > wg_first + 63)) {
-      const uint32_t kt = base + L::kK + s * L::kKVBytes;
-      const uint32_t vt = base + L::kV + s * L::kKVBytes;
+      const uint32_t kt = base + L::kK + s * L::kKBytes;
+      const uint32_t vt = base + L::kV + s * L::kVBytes;
       float sc[BK / 2];
 #pragma unroll
       for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DMAX / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t col = (kk % 4) * 32;       // bytes into the box row
         const uint32_t qa = base + L::kQ + (kk / 4) * kTcBQ * 128 +
                             wg * 64 * 128 + col;
         const uint32_t kb = kt + (kk / 4) * BK * 128 + col;
-        wgmma_ss(sc, smem_desc(qa, 16, 1024), smem_desc(kb, 16, 1024),
-                 kk > 0);
+        wgmma_ss<T>(sc, kmajor(qa), kmajor(kb), kk > 0);
       }
       wgmma_commit();
       wgmma_wait();
@@ -653,43 +725,12 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
       for (int j = 0; j < BK / 2; ++j) reg_fence(sc[j]);
 
       // only tiles touching the diagonal or the end of KV evaluate the mask
-      if ((a.causal && a.k_off + k0 + BK - 1 > wg_first) ||
-          k0 + BK > a.Tk) {
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int col = k0 + 8 * j + cq + c;
-            const long long kp = a.k_off + col;
-            const bool out = col >= a.Tk;
-            if (out || (a.causal && kp > qpos_a)) sc[4 * j + c] = -INFINITY;
-            if (out || (a.causal && kp > qpos_b))
-              sc[4 * j + 2 + c] = -INFINITY;
-          }
-        }
-      }
+      if ((a.causal && a.k_off + k0 + BK - 1 > wg_first) || k0 + BK > a.Tk)
+        mask_tile<NJ>(sc, a, k0, cq, qpos_a, qpos_b);
+      float al_a, al_b, ms_a, ms_b;
+      softmax_max<NJ>(sc, m_a, m_b, al_a, al_b, ms_a, ms_b);
 
-      float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
-        mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-      }
-      const float mn_a = fmaxf(m_a, mx_a);
-      const float mn_b = fmaxf(m_b, mx_b);
-      const float al_a = ex2((m_a - mn_a) * kLog2e);
-      const float al_b = ex2((m_b - mn_b) * kLog2e);
-      m_a = mn_a;
-      m_b = mn_b;
-      const float ms_a = mn_a * kLog2e;
-      const float ms_b = mn_b * kLog2e;
-
-      // p = exp(s - m) in fp32 for l; rounded to bf16 pairs for P.V: the
+      // p = exp(s - m) in fp32 for l; rounded to T pairs for P.V: the
       // A fragment of k-step kk is registers 8kk .. 8kk + 7 of S
       uint32_t p[NKS][4];
       float rs_a = 0.f, rs_b = 0.f;
@@ -702,13 +743,13 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
           const float x0 = ex2(fmaf(sc[8 * kk + 2 * t], kLog2e, -ms));
           const float x1 = ex2(fmaf(sc[8 * kk + 2 * t + 1], kLog2e, -ms));
           if (row_b) rs_b += x0 + x1; else rs_a += x0 + x1;
-          p[kk][t] = pack_bf16(x0, x1);
+          p[kk][t] = Pair<T>::pack(x0, x1);
         }
       }
       l_a = l_a * al_a + rs_a;
       l_b = l_b * al_b + rs_b;
 #pragma unroll
-      for (int x = 0; x < NB; ++x)
+      for (int x = 0; x < NX; ++x)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           o[x][4 * j] *= al_a;
@@ -721,15 +762,15 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int kk = 0; kk < NKS; ++kk)
 #pragma unroll
-        for (int x = 0; x < NB; ++x) {
+        for (int x = 0; x < NX; ++x) {
           // V: keys x 64 columns, 16 keys (2048 bytes) per k-step
           const uint32_t vb = vt + x * BK * 128 + kk * 16 * 128;
-          wgmma_rs(o[x], p[kk], smem_desc(vb, 1024, 1024));
+          wgmma_rs<T>(o[x], p[kk], smem_desc(vb, 1024, 1024));
         }
       wgmma_commit();
       wgmma_wait();
 #pragma unroll
-      for (int x = 0; x < NB; ++x)
+      for (int x = 0; x < NX; ++x)
 #pragma unroll
         for (int j = 0; j < 32; ++j) reg_fence(o[x][j]);
 #pragma unroll
@@ -740,58 +781,355 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * s);
   }
+  store_rows<T, NX, SPLIT>(a, o, m_a, m_b, l_a, l_b, bp.bh, bp.b, bp.h, q0,
+                           r_a, c0, bp.cg, lane);
+}
 
-  // l: the sum of the 4 lanes that share each row
+// ---- float32 route: 3xTF32 ------------------------------------------------
+
+constexpr int kBox32 = 32;        // fp32 columns per TMA box: 128 bytes
+
+// Shared memory of the fp32 kernel (bytes from a 1024-aligned base): Q in
+// hi and lo (DQK / 32 boxes of BQ rows each), the K/V ring (K tiles of
+// DQK / 32 boxes, V tiles of DV / 32 boxes, BK rows), K_lo of one tile,
+// and V^T in hi and lo: BK / 32 (at least one) key boxes of DV rows, a
+// row holding 32 keys, of which the first BK are used.
+template <int DQK, int DV, int NWG, int BK>
+struct F32Smem {
+  static constexpr int kBQ = 64 * NWG;
+  static constexpr int kQBoxes = DQK / kBox32;
+  static constexpr int kVBoxes = DV / kBox32;
+  static constexpr int kKeyBoxes = (BK + 31) / 32;
+  static constexpr int kQBytes = kQBoxes * kBQ * 128;     // Q hi or lo
+  static constexpr int kKBytes = kQBoxes * BK * 128;      // one K tile
+  static constexpr int kVBytes = kVBoxes * BK * 128;      // one V tile
+  static constexpr int kVtBytes = kKeyBoxes * DV * 128;   // V^T hi or lo
+  static constexpr int kQhi = 0;
+  static constexpr int kQlo = kQhi + kQBytes;
+  static constexpr int kK = kQlo + kQBytes;               // + stage * kKBytes
+  static constexpr int kV = kK + kStages * kKBytes;       // + stage * kVBytes
+  static constexpr int kKlo = kV + kStages * kVBytes;
+  static constexpr int kVthi = kKlo + kKBytes;
+  static constexpr int kVtlo = kVthi + kVtBytes;
+  static constexpr int kBar = kVtlo + kVtBytes;           // full[], empty[], q
+  static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + 1024;
+  static_assert(kBytes <= 232448, "shared memory of one block");
+};
+
+// x (in place) and lo (same offset) = the hi and lo of each fp32 of `n`
+// 16-byte chunks at x, the `first`-th chunk onwards in steps of `step`;
+// scaled by `scale` first
+__device__ __forceinline__ void split_chunks(float4* x, float4* lo, int n,
+                                             int first, int step,
+                                             float scale) {
+  for (int e = first; e < n; e += step) {
+    float4 v = x[e];
+    float* f = reinterpret_cast<float*>(&v);
+    float4 w;
+    float* g = reinterpret_cast<float*>(&w);
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    for (int c = 0; c < 4; ++c) {
+      const float y = f[c] * scale;
+      f[c] = tf32(y);
+      g[c] = tf32(y - f[c]);
+    }
+    x[e] = v;
+    lo[e] = w;
   }
-  const long long rows_all = static_cast<long long>(a.B) * a.H * a.Tq;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = q0 + r_a + 8 * hr;
-    if (row >= a.Tq) continue;
-    const long long r = static_cast<long long>(bh) * a.Tq + row;
-    const float mr = hr ? m_b : m_a;
-    const float lr = hr ? l_b : l_a;
-    if (SPLIT) {
-      // workspace: o [splits][rows][D], then m [splits][rows], l likewise
-      const long long splits = gridDim.z;
-      const long long slot = blockIdx.z * rows_all + r;
-      float* wo = a.ws + slot * a.D;
-#pragma unroll
-      for (int x = 0; x < NB; ++x)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = x * kBox + 8 * j + cq;
-          if (col < a.D)
-            *reinterpret_cast<float2*>(wo + col) =
-                make_float2(o[x][4 * j + 2 * hr], o[x][4 * j + 2 * hr + 1]);
-        }
-      if (lane % 4 == 0) {
-        float* wm = a.ws + splits * rows_all * a.D;
-        wm[slot] = mr;
-        wm[splits * rows_all + slot] = lr;
-      }
-    } else {
-      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o) + b * a.os[0] +
-                           row * a.os[1] + h * a.os[2];
-#pragma unroll
-      for (int x = 0; x < NB; ++x)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = x * kBox + 8 * j + cq;
-          if (col < a.D)
-            *reinterpret_cast<uint32_t*>(out + col) =
-                pack_bf16(o[x][4 * j + 2 * hr], o[x][4 * j + 2 * hr + 1]);
-        }
-      if (lane % 4 == 0) {
-        a.m[r] = mr;
-        a.l[r] = lr;
+}
+
+// The fp32 route of K2 (SPLIT = false) and of K3's first pass (SPLIT =
+// true), see the note at the top of the file.  One block: q tile of 64 x
+// NWG rows and column group (block_pos), head blockIdx.y, KV tiles
+// [split * chunk, min(nk_run, (split + 1) * chunk)) with split =
+// blockIdx.z.  Warps 0 .. 4 NWG - 1 are the consumer warpgroups, the
+// last warp the producer.
+template <int DQK, int DV, int NWG, int BK, bool SPLIT>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+flash_fwd_f32(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap, const Args a) {
+  using L = F32Smem<DQK, DV, NWG, BK>;
+  constexpr int BQ = L::kBQ;
+  constexpr int NT = NWG * 128;    // consumer threads
+  constexpr int NX = DV / 64;      // 64-column fragments of O
+  constexpr int NJ = BK / 8;       // 8-column chunks of S = k8 steps of P.V
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t full = base + L::kBar;             // full[s] at + 8 s
+  const uint32_t empty = full + 8 * kStages;        // empty[s] at + 8 s
+  const uint32_t qbar = empty + 8 * kStages;
+
+  const int groups = (a.D + DV - 1) / DV;
+  const BlockPos bp = block_pos(a, groups);
+  const int q0 = bp.qt * BQ;
+  const int c0 = bp.cg * DV;                        // first column of O, V
+  const int nq = (a.D + kBox32 - 1) / kBox32;       // boxes of Q, K
+  const int nv = min(L::kVBoxes, (a.D - c0 + kBox32 - 1) / kBox32);
+  const int nk_run = tiles_run(bp.qt, a.Tq, a.Tk, a.q_off, a.k_off,
+                               a.causal, BQ, BK);
+  const int kt_begin = blockIdx.z * a.chunk;
+  const int n = min(nk_run, kt_begin + a.chunk) - kt_begin;   // may be <= 0
+
+  // boxes past D are never loaded: Q and K ones (hi and lo) zero, so that
+  // every wgmma runs over all DQK columns (a wgmma behind a runtime branch
+  // makes ptxas serialise); V^T rows past D zero too, though they only
+  // feed columns of O past D
+  if (nq < L::kQBoxes) {
+    const int skip = nq * 128;        // bytes of a row of boxes below D
+    for (int h = 0; h < 2; ++h)
+      zero_smem(smem + (h ? L::kQlo : L::kQhi) + skip * BQ,
+                (L::kQBoxes * 128 - skip) * BQ, threadIdx.x, NT + 32);
+    for (int s = 0; s <= kStages; ++s)   // both K stages and K_lo
+      zero_smem(smem + (s < kStages ? L::kK + s * L::kKBytes : L::kKlo) +
+                    skip * BK,
+                (L::kQBoxes * 128 - skip) * BK, threadIdx.x, NT + 32);
+  }
+  if (nv < L::kVBoxes) {
+    for (int h = 0; h < 2; ++h)
+      for (int kb = 0; kb < L::kKeyBoxes; ++kb)
+        zero_smem(smem + (h ? L::kVtlo : L::kVthi) + kb * DV * 128 +
+                      nv * 32 * 128,
+                  (DV - nv * 32) * 128, threadIdx.x, NT + 32);
+  }
+  fence_async_smem();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * NWG);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp == 4 * NWG) {
+    // producer: Q once, then K/V tiles into the ring
+    if (lane == 0 && n > 0) {
+      mbar_expect_tx(qbar, nq * BQ * 128);
+      for (int x = 0; x < nq; ++x)
+        tma_load(base + L::kQhi + x * BQ * 128, &qmap, qbar, x * kBox32,
+                 bp.h, q0, bp.b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages;
+        const int use = i / kStages;
+        if (use > 0) mbar_wait(empty + 8 * s, (use - 1) & 1);
+        mbar_expect_tx(full + 8 * s, (nq + nv) * BK * 128);
+        const int k0 = (kt_begin + i) * BK;
+        const uint32_t kdst = base + L::kK + s * L::kKBytes;
+        const uint32_t vdst = base + L::kV + s * L::kVBytes;
+        for (int x = 0; x < nq; ++x)
+          tma_load(kdst + x * BK * 128, &kmap, full + 8 * s, x * kBox32,
+                   bp.h, k0, bp.b);
+        for (int x = 0; x < nv; ++x)
+          tma_load(vdst + x * BK * 128, &vmap, full + 8 * s,
+                   c0 + x * kBox32, bp.h, k0, bp.b);
       }
     }
+    return;
   }
+
+  // consumers
+  const int wg = warp / 4;
+  const int r_a = wg * 64 + (warp % 4) * 16 + lane / 4;   // rows r_a, r_a + 8
+  const int cq = 2 * (lane % 4);
+  const long long wg_first = a.q_off + q0 + wg * 64;   // first row's position
+  const long long qpos_a = a.q_off + q0 + r_a;
+  const long long qpos_b = qpos_a + 8;
+
+  float o[NX][32];
+#pragma unroll
+  for (int x = 0; x < NX; ++x)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[x][i] = 0.f;
+  float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
+
+  if (n > 0) {
+    // q * scale split into hi (in place) and lo, by all consumers; the
+    // first barrier of the loop below publishes it
+    mbar_wait(qbar, 0);
+    split_chunks(reinterpret_cast<float4*>(smem + L::kQhi),
+                 reinterpret_cast<float4*>(smem + L::kQlo), nq * BQ * 8,
+                 threadIdx.x, NT, a.scale);
+    fence_async_smem();
+  }
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kStages;
+    const int k0 = (kt_begin + i) * BK;
+    const uint32_t sb = opaque(base);   // descriptors are made per tile
+    const uint32_t kt = sb + L::kK + s * L::kKBytes;
+    mbar_wait(full + 8 * s, (i / kStages) & 1);
+    bar_sync(1, NT);    // every consumer is done with K_lo and V^T
+    // K: hi in place, lo beside it
+    split_chunks(reinterpret_cast<float4*>(smem + L::kK + s * L::kKBytes),
+                 reinterpret_cast<float4*>(smem + L::kKlo), nq * BK * 8,
+                 threadIdx.x, NT, 1.f);
+    // V (keys x DV, swizzled) -> V^T hi and lo (DV x keys, swizzled): a
+    // task is 8 keys (one k8 step, written in the order pi) x 4 columns
+    const uint8_t* vs = smem + L::kV + s * L::kVBytes;
+    for (int e = threadIdx.x; e < NJ * nv * 8; e += NT) {
+      const int g = e % NJ;             // 8-key group
+      const int dq = e / NJ;            // 4-column group
+      const int box = dq / 8;
+      float4 in[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        in[k] = *reinterpret_cast<const float4*>(
+            vs + box * BK * 128 + swz((8 * g + k) * 128 + (dq % 8) * 16));
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int d = 4 * dq + c;
+        float hv[8], lv[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          // position q holds key pi(q) = 2q (q < 4), 2(q - 4) + 1
+          const float4& f = in[q < 4 ? 2 * q : 2 * (q - 4) + 1];
+          const float y = c == 0 ? f.x : c == 1 ? f.y : c == 2 ? f.z : f.w;
+          hv[q] = tf32(y);
+          lv[q] = tf32(y - hv[q]);
+        }
+        const uint32_t off = (g / 4) * DV * 128 +
+                             swz(d * 128 + (g % 4) * 32);
+        const uint32_t off2 = (g / 4) * DV * 128 +
+                              swz(d * 128 + (g % 4) * 32 + 16);
+        *reinterpret_cast<float4*>(smem + L::kVthi + off) =
+            make_float4(hv[0], hv[1], hv[2], hv[3]);
+        *reinterpret_cast<float4*>(smem + L::kVthi + off2) =
+            make_float4(hv[4], hv[5], hv[6], hv[7]);
+        *reinterpret_cast<float4*>(smem + L::kVtlo + off) =
+            make_float4(lv[0], lv[1], lv[2], lv[3]);
+        *reinterpret_cast<float4*>(smem + L::kVtlo + off2) =
+            make_float4(lv[4], lv[5], lv[6], lv[7]);
+      }
+    }
+    fence_async_smem();
+    bar_sync(1, NT);    // the split K and V^T are in place
+
+    // a tile wholly after this warpgroup's rows adds nothing
+    if (!(a.causal && a.k_off + k0 > wg_first + 63)) {
+      float sc[BK / 2];
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+      const uint32_t qhi = sb + L::kQhi + wg * 64 * 128;
+      const uint32_t qlo = sb + L::kQlo + wg * 64 * 128;
+      const uint32_t klo = sb + L::kKlo;
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) reg_fence(sc[j]);
+      wgmma_fence();
+      // the small terms first, then hi x hi
+#pragma unroll
+      for (int kk = 0; kk < DQK / 8; ++kk) {
+        const uint32_t qo = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+        const uint32_t ko = (kk / 4) * BK * 128 + (kk % 4) * 32;
+        wgmma_tf32(sc, kmajor(qlo + qo), kmajor(kt + ko), kk > 0);
+        wgmma_tf32(sc, kmajor(qhi + qo), kmajor(klo + ko), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DQK / 8; ++kk) {
+        const uint32_t qo = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+        const uint32_t ko = (kk / 4) * BK * 128 + (kk % 4) * 32;
+        wgmma_tf32(sc, kmajor(qhi + qo), kmajor(kt + ko), 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) reg_fence(sc[j]);
+
+      // only tiles touching the diagonal or the end of KV evaluate the mask
+      if ((a.causal && a.k_off + k0 + BK - 1 > wg_first) || k0 + BK > a.Tk)
+        mask_tile<NJ>(sc, a, k0, cq, qpos_a, qpos_b);
+      float al_a, al_b, ms_a, ms_b;
+      softmax_max<NJ>(sc, m_a, m_b, al_a, al_b, ms_a, ms_b);
+
+      // p = exp(s - m) in fp32 for l, split into hi and lo for P.V.  The
+      // A fragment of k8 step j is chunk j of S as it lies: a0 = (r, 2t),
+      // a1 = (r + 8, 2t), a2 = (r, 2t + 1), a3 = (r + 8, 2t + 1), i.e.
+      // positions t and t + 4 hold keys 2t and 2t + 1 (V^T's order pi)
+      uint32_t ph[NJ][4], pl[NJ][4];
+      float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool row_b = c >= 2;
+          const float x = ex2(fmaf(sc[4 * j + c], kLog2e,
+                                   -(row_b ? ms_b : ms_a)));
+          if (row_b) rs_b += x; else rs_a += x;
+          const float hi = tf32(x);
+          // the fragment's order: (r, 2t) (r + 8, 2t) (r, 2t + 1) (r + 8, 2t + 1)
+          const int slot = (c & 1) * 2 + (c >> 1);
+          ph[j][slot] = __float_as_uint(hi);
+          pl[j][slot] = __float_as_uint(tf32(x - hi));
+        }
+      }
+      l_a = l_a * al_a + rs_a;
+      l_b = l_b * al_b + rs_b;
+
+      // this tile's P.V in an accumulator of its own, added to o below
+      float t[NX][32];
+#pragma unroll
+      for (int x = 0; x < NX; ++x)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          t[x][j] = 0.f;
+          reg_fence(t[x][j]);
+        }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          reg_fence(ph[j][c]);
+          reg_fence(pl[j][c]);
+        }
+      wgmma_fence();
+      const uint32_t vhi = sb + L::kVthi;
+      const uint32_t vlo = sb + L::kVtlo;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int x = 0; x < NX; ++x) {
+          const uint32_t vo = (j / 4) * DV * 128 + x * 64 * 128 +
+                              (j % 4) * 32;
+          wgmma_tf32_rs(t[x], pl[j], kmajor(vhi + vo));
+          wgmma_tf32_rs(t[x], ph[j], kmajor(vlo + vo));
+        }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int x = 0; x < NX; ++x) {
+          const uint32_t vo = (j / 4) * DV * 128 + x * 64 * 128 +
+                              (j % 4) * 32;
+          wgmma_tf32_rs(t[x], ph[j], kmajor(vhi + vo));
+        }
+      wgmma_commit();
+      wgmma_wait();
+      // o = alpha o + t, rounded to nearest: the tensor cores' fp32 sums
+      // round toward zero, which over a long row's thousands of chained
+      // adds biased |o| low by ~3e-5 of its largest value (H100, T = 8192)
+#pragma unroll
+      for (int x = 0; x < NX; ++x)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          reg_fence(t[x][j]);
+          o[x][j] = fmaf(o[x][j], (j & 2) ? al_b : al_a, t[x][j]);
+        }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          reg_fence(ph[j][c]);
+          reg_fence(pl[j][c]);
+        }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+  store_rows<float, NX, SPLIT>(a, o, m_a, m_b, l_a, l_b, bp.bh, bp.b, bp.h,
+                               q0, r_a, c0, bp.cg, lane);
 }
 
 // K3's second pass.  Merge the split partials of every (row, d): m = max_s m_s,
@@ -827,26 +1165,37 @@ __global__ void merge_splits(const Args a, int splits) {
   }
 }
 
+// ---- host side --------------------------------------------------------------
+
 int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
 
-// (query rows per block, keys per KV tile) of a dtype's route at head
-// size D
+// dtype codes of the C interface
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
+
+// The tiles of a dtype's route at head size D: query rows per block, keys
+// per KV tile, columns of O per column group (see the note at the top)
 struct Tiles {
-  int bq, bk;
+  int bq, bk, dv;
 };
 Tiles route_tiles(int dtype, int D) {
-  if (dtype != 1) return Tiles{kBQ, kBK};
-  return Tiles{kTcBQ, D <= 64 ? kTcBK64 : kTcBK128};
+  if (dtype == kF32) {
+    if (D <= 64) return Tiles{128, 64, 64};
+    if (D <= 128) return Tiles{64, 32, 128};
+    return Tiles{64, 16, 128};
+  }
+  if (D <= 64) return Tiles{kTcBQ, 128, 64};
+  return Tiles{kTcBQ, 64, 128};
 }
 
 // dims = B, H, Tq, Tk, D, q_off, k_off, causal.  False when the shape is
-// outside the kernels' range (D a multiple of 8 up to 128: the wrappers pad
-// other head sizes).
-bool read_dims(const long long* dims, Args* a) {
+// outside the kernels' range (D a multiple of 8 up to 256: the wrappers
+// pad other head sizes) or dtype is not one of the three.
+bool read_dims(const long long* dims, int dtype, Args* a) {
   const long long B = dims[0], H = dims[1], Tq = dims[2], Tk = dims[3],
                   D = dims[4];
+  if (dtype != kF32 && dtype != kBF16 && dtype != kF16) return false;
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) return false;
-  if (D < 8 || D > 128 || D % 8) return false;
+  if (D < 8 || D > kMaxD || D % 8) return false;
   if (B * H > 65535 || Tq > (1LL << 30) || Tk > (1LL << 30)) return false;
   a->B = static_cast<int>(B);
   a->H = static_cast<int>(H);
@@ -865,9 +1214,11 @@ struct StreamPlan {
   long long ws;      // fp32 workspace elements
 };
 
-// Split the KV range so that the work of all q tiles, in the route's tile
-// steps, makes about kBlocksPerSm blocks per SM, and no block's range
-// exceeds that balanced share; at least two ranges when KV has two tiles.
+// Split the KV range so that the work of all q tiles and column groups,
+// in the route's tile steps, makes about kBlocksPerSm blocks per SM, and
+// no block's range exceeds that balanced share; at least two ranges when
+// KV has two tiles.  The workspace holds D + 2 floats per row and range
+// (the column groups write disjoint columns).
 StreamPlan make_stream_plan(const Args& a, Tiles tl, int sm_count) {
   const int nqt = cdiv(a.Tq, tl.bq);
   const int nk = cdiv(a.Tk, tl.bk);
@@ -875,7 +1226,7 @@ StreamPlan make_stream_plan(const Args& a, Tiles tl, int sm_count) {
   for (int qt = 0; qt < nqt; ++qt)
     work += tiles_run(qt, a.Tq, a.Tk, a.q_off, a.k_off, a.causal, tl.bq,
                       tl.bk);
-  work *= static_cast<long long>(a.B) * a.H;
+  work *= static_cast<long long>(a.B) * a.H * cdiv(a.D, tl.dv);
   const long long target =
       static_cast<long long>(kBlocksPerSm) * (sm_count > 0 ? sm_count : 1);
   long long chunk = work > 0 ? (work + target - 1) / target : nk;
@@ -898,19 +1249,6 @@ void read_strides(const long long* st, Args* a) {
   }
 }
 
-template <int DMAX, bool SPLIT>
-cudaError_t launch_fp32(const Args& a, int splits, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<DMAX, SPLIT>;
-  const size_t smem = smem_bytes(DMAX);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(cdiv(a.Tq, kBQ), a.B * a.H, splits);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 // cuTensorMapEncodeTiled from libcuda.so.1, which the CUDA runtime already
 // loaded (the build links only the runtime)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -931,56 +1269,88 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The 4-D map (D, H, T, B) of a bf16 tensor with b, t, h strides st
-// (elements), read in boxes of 64 columns x `rows` rows, 128-byte
-// swizzled; boxes past T or D are zero-filled.
+// The 4-D map (D, H, T, B) of a tensor of `dtype` with b, t, h strides st
+// (elements), read in boxes of 128 bytes of columns x `rows` rows,
+// 128-byte swizzled; boxes past T or D are zero-filled.
 bool tensor_map(CUtensorMap* map, const void* ptr, const long long* st,
-                const Args& a, int T, int rows) {
+                const Args& a, int T, int rows, int dtype) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
+  const int item = dtype == kF32 ? 4 : 2;
+  const CUtensorMapDataType type =
+      dtype == kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   const cuuint64_t dim[4] = {static_cast<cuuint64_t>(a.D),
                              static_cast<cuuint64_t>(a.H),
                              static_cast<cuuint64_t>(T),
                              static_cast<cuuint64_t>(a.B)};
-  const cuuint64_t stride[3] = {static_cast<cuuint64_t>(st[2]) * 2,
-                                static_cast<cuuint64_t>(st[1]) * 2,
-                                static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t stride[3] = {static_cast<cuuint64_t>(st[2]) * item,
+                                static_cast<cuuint64_t>(st[1]) * item,
+                                static_cast<cuuint64_t>(st[0]) * item};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / item), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dim, stride, box, elem,
+  return encode(map, type, 4, const_cast<void*>(ptr), dim, stride, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DMAX, int BK, bool SPLIT>
-cudaError_t launch_tc(const Args& a, int splits, cudaStream_t stream) {
+// the maps of q (boxes of bq rows), k and v (bk rows) and the grid of a
+// route's first pass
+template <typename Kernel>
+cudaError_t launch_maps(Kernel kernel, const Args& a, int dtype, Tiles tl,
+                        int threads, int smem, int splits,
+                        cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  if (!tensor_map(&qm, a.q, a.qs, a, a.Tq, kTcBQ) ||
-      !tensor_map(&km, a.k, a.ks, a, a.Tk, BK) ||
-      !tensor_map(&vm, a.v, a.vs, a, a.Tk, BK))
+  if (!tensor_map(&qm, a.q, a.qs, a, a.Tq, tl.bq, dtype) ||
+      !tensor_map(&km, a.k, a.ks, a, a.Tk, tl.bk, dtype) ||
+      !tensor_map(&vm, a.v, a.vs, a, a.Tk, tl.bk, dtype))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_tc<DMAX, BK, SPLIT>;
-  const int smem = TcSmem<DMAX, BK>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(cdiv(a.Tq, kTcBQ), a.B * a.H, splits);
-  kernel<<<grid, kTcThreads, smem, stream>>>(qm, km, vm, a);
+  const dim3 grid(cdiv(a.Tq, tl.bq) * cdiv(a.D, tl.dv), a.B * a.H, splits);
+  kernel<<<grid, threads, smem, stream>>>(qm, km, vm, a);
   return cudaGetLastError();
 }
 
-// the first pass of the dtype's route (dtype 0 float32, 1 bfloat16)
+template <typename T, int DQK, int DV, int BK, bool SPLIT>
+cudaError_t launch_tc(const Args& a, int dtype, int splits,
+                      cudaStream_t stream) {
+  return launch_maps(flash_fwd_tc<T, DQK, DV, BK, SPLIT>, a, dtype,
+                     Tiles{kTcBQ, BK, DV}, kTcThreads,
+                     TcSmem<DQK, DV, BK>::kBytes, splits, stream);
+}
+
+template <int DQK, int DV, int NWG, int BK, bool SPLIT>
+cudaError_t launch_f32(const Args& a, int splits, cudaStream_t stream) {
+  return launch_maps(flash_fwd_f32<DQK, DV, NWG, BK, SPLIT>, a, kF32,
+                     Tiles{64 * NWG, BK, DV}, NWG * 128 + 32,
+                     F32Smem<DQK, DV, NWG, BK>::kBytes, splits, stream);
+}
+
+template <typename T, bool SPLIT>
+cudaError_t launch_16(const Args& a, int dtype, int splits,
+                      cudaStream_t stream) {
+  if (a.D <= 64) return launch_tc<T, 64, 64, 128, SPLIT>(a, dtype, splits,
+                                                         stream);
+  if (a.D <= 128) return launch_tc<T, 128, 128, 64, SPLIT>(a, dtype, splits,
+                                                           stream);
+  return launch_tc<T, 256, 128, 64, SPLIT>(a, dtype, splits, stream);
+}
+
+// the first pass of the dtype's route (the tiles of route_tiles)
 template <bool SPLIT>
 cudaError_t launch_attend(const Args& a, int dtype, int splits,
                           cudaStream_t stream) {
-  if (dtype == 1)
-    return a.D <= 64 ? launch_tc<64, kTcBK64, SPLIT>(a, splits, stream)
-                     : launch_tc<128, kTcBK128, SPLIT>(a, splits, stream);
-  if (a.D <= 32) return launch_fp32<32, SPLIT>(a, splits, stream);
-  if (a.D <= 64) return launch_fp32<64, SPLIT>(a, splits, stream);
-  return launch_fp32<128, SPLIT>(a, splits, stream);
+  if (dtype == kBF16)
+    return launch_16<__nv_bfloat16, SPLIT>(a, dtype, splits, stream);
+  if (dtype == kF16) return launch_16<__half, SPLIT>(a, dtype, splits, stream);
+  if (a.D <= 64) return launch_f32<64, 64, 2, 64, SPLIT>(a, splits, stream);
+  if (a.D <= 128) return launch_f32<128, 128, 1, 32, SPLIT>(a, splits, stream);
+  return launch_f32<256, 128, 1, 16, SPLIT>(a, splits, stream);
 }
 
 cudaError_t launch_stream(const Args& a, int dtype, const StreamPlan& p,
@@ -989,12 +1359,13 @@ cudaError_t launch_stream(const Args& a, int dtype, const StreamPlan& p,
   if (err != cudaSuccess) return err;
   const long long total = static_cast<long long>(a.B) * a.H * a.Tq * a.D;
   const int threads = 256;
-  if (dtype == 1)
-    merge_splits<__nv_bfloat16>
-        <<<cdiv(total, threads), threads, 0, stream>>>(a, p.splits);
+  const int blocks = cdiv(total, threads);
+  if (dtype == kBF16)
+    merge_splits<__nv_bfloat16><<<blocks, threads, 0, stream>>>(a, p.splits);
+  else if (dtype == kF16)
+    merge_splits<__half><<<blocks, threads, 0, stream>>>(a, p.splits);
   else
-    merge_splits<float><<<cdiv(total, threads), threads, 0, stream>>>(
-        a, p.splits);
+    merge_splits<float><<<blocks, threads, 0, stream>>>(a, p.splits);
   return cudaGetLastError();
 }
 
@@ -1002,15 +1373,15 @@ cudaError_t launch_stream(const Args& a, int dtype, const StreamPlan& p,
 
 // K2: o, m, l of q against the whole of k, v.  dims: B, H, Tq, Tk, D,
 // q_off, k_off, causal.  strides: b, t, h strides (elements) of q, k, v,
-// o.  dtype 0 float32, 1 bfloat16.  Returns the CUDA error of the launch
-// (0 = none), or cudaErrorInvalidValue when the shape or layout is outside
-// the kernel's range.
+// o.  dtype 0 float32, 1 bfloat16, 2 float16.  Returns the CUDA error of
+// the launch (0 = none), or cudaErrorInvalidValue when the shape or
+// layout is outside the kernel's range.
 extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, float* m, float* l,
                             const long long* dims, const long long* strides,
                             float scale, int dtype, void* stream) {
   Args a = {};
-  if (!read_dims(dims, &a) || (dtype != 0 && dtype != 1))
+  if (!read_dims(dims, dtype, &a))
     return static_cast<int>(cudaErrorInvalidValue);
   read_strides(strides, &a);
   a.q = q; a.k = k; a.v = v; a.o = o; a.m = m; a.l = l; a.ws = nullptr;
@@ -1021,13 +1392,14 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // The split-KV plan of mx_flash_fwd_stream for these dims and dtype on
-// sm_count SMs: plan[0..3] = KV ranges, KV tiles per range, fp32 workspace
-// elements, keys per KV tile.  Returns 0, or
-// cudaErrorInvalidValue for a shape outside the kernels' range.
+// sm_count SMs: plan[0..5] = KV ranges, KV tiles per range, fp32 workspace
+// elements, keys per KV tile, query rows per block, column groups.
+// Returns 0, or cudaErrorInvalidValue for a shape outside the kernels'
+// range.
 extern "C" int mx_flash_fwd_stream_plan(const long long* dims, int dtype,
                                         int sm_count, long long* plan) {
   Args a = {};
-  if (!read_dims(dims, &a) || (dtype != 0 && dtype != 1))
+  if (!read_dims(dims, dtype, &a))
     return static_cast<int>(cudaErrorInvalidValue);
   const Tiles tl = route_tiles(dtype, a.D);
   const StreamPlan p = make_stream_plan(a, tl, sm_count);
@@ -1036,6 +1408,8 @@ extern "C" int mx_flash_fwd_stream_plan(const long long* dims, int dtype,
   plan[1] = p.chunk;
   plan[2] = p.ws;
   plan[3] = tl.bk;
+  plan[4] = tl.bq;
+  plan[5] = cdiv(a.D, tl.dv);
   return 0;
 }
 
@@ -1049,7 +1423,7 @@ extern "C" int mx_flash_fwd_stream(const void* q, const void* k,
                                    const long long* strides, float scale,
                                    int dtype, int sm_count, void* stream) {
   Args a = {};
-  if (!read_dims(dims, &a) || (dtype != 0 && dtype != 1))
+  if (!read_dims(dims, dtype, &a))
     return static_cast<int>(cudaErrorInvalidValue);
   read_strides(strides, &a);
   const StreamPlan p =

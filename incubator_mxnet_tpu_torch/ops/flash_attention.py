@@ -20,17 +20,21 @@ design does about it):
 * K3, `flash_fwd_stream`: the KV range split across blocks, then merged
   (replaces the Pallas `_fwd_kernel_stream` behind `_stream_tpu`).
 
-Each has a bf16 route on the tensor cores (``wgmma`` with K/V tiles fed
-by TMA) and an fp32 route on the CUDA cores.  `_route` picks between K2
-and K3 with the JAX package's rule (``MXNET_FLASH_VMEM_MB``, see
-`config`).  On a CUDA tensor a wrapper launches its kernel or raises;
-only a tensor on the CPU takes the plain version `_partial_ref`.  The
-kernels take head sizes that are multiples of 8 up to 128; the wrappers
-zero-pad any other D below 128 to the next multiple of 8 (`_pad_head`),
-scale by 1/sqrt of the original D and slice o back.  On the card ``block_q`` and ``block_k``
-steer only the plain version and the backward's loop: the kernels choose
-their own tiles.  A row that sees no key (causal, ``q_off + row <
-k_off``) gives m = -1e30, l = 0 and o = 0, as the TPU kernel does.
+Both run on the tensor cores (``wgmma``, K/V tiles fed by TMA): bf16 and
+fp16 in one pass, fp32 in three TF32 passes (3xTF32, fp32-accurate).
+`_route` picks between K2 and K3 with the JAX package's rule
+(``MXNET_FLASH_VMEM_MB``, see `config`).  On a CUDA tensor a wrapper
+launches its kernel or raises; only a tensor on the CPU takes the plain
+version `_partial_ref`.  The kernels take head sizes that are multiples
+of 8 up to 256; the wrappers zero-pad any other D below 256 to the next
+multiple of 8 (`_pad_head`), scale by 1/sqrt of the original D and slice
+o back.  On the card ``block_q`` and ``block_k`` steer only the plain
+version and the backward's loop: the kernels choose their own tiles.  A
+row that sees no key (causal, ``q_off + row < k_off``) gives m = -1e30,
+l = 0 and o = 0, as the TPU kernel does.  In float16 the unnormalised o
+of a long row can pass 65504 and become inf, as the TPU kernel's cast of
+its fp32 accumulator does; the normalised output of `flash_attention`
+is then not finite either.
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ __all__ = ["flash_attention", "flash_attention_partial", "flash_fwd",
            "flash_fwd_stream", "stream_plan", "FlashAttention"]
 
 _NEG = -1e30
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MAX_D = 256      # the widest head the kernels take
 
 
 def _partial_ref(q3, k3, v3, q_off, k_off, causal, block_k, scale=None):
@@ -154,21 +159,22 @@ def _pad_head(x):
 
 def _kernel_call(name, q, k, v, q_off, k_off, causal):
     """Validate CUDA operands and pad their head dimension (`_pad_head`);
-    allocate o (padded), m, l; the dims and strides arrays of the C
-    interface.  Returns the padded q, k, v, then o, m, l, dims, strides;
-    None for the arrays when the call has no work (an empty dimension):
-    then o, m, l already hold the result."""
+    allocate o (padded), m, l (uninitialised: the kernels write every
+    row); the dims and strides arrays of the C interface.  Returns the
+    padded q, k, v, then o, m, l, dims, strides; None for the arrays when
+    the call has no work (an empty dimension): then o, m, l already hold
+    the result."""
     if q.device.type != "cuda":
         raise MXNetError(f"{name}: no kernel for device {q.device}")
     if q.dtype not in _DTYPE_CODE:
-        raise MXNetError(f"{name}: kernel takes float32 or bfloat16, got "
-                         f"{q.dtype}")
+        raise MXNetError(f"{name}: kernel takes float32, bfloat16 or "
+                         f"float16, got {q.dtype}")
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    if not 1 <= D <= 128:
+    if not 1 <= D <= _MAX_D:
         raise MXNetError(f"{name}: head size D={D} of q {tuple(q.shape)} is "
-                         "outside the kernel's range 1..128 (the O "
-                         "accumulator of 128 columns fills its registers)")
+                         f"outside the kernel's range 1..{_MAX_D} (Q of a "
+                         "block and a K tile fill its shared memory)")
     q, k, v = (_pad_head(x) for x in (q, k, v))
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         st = t.stride()
@@ -179,11 +185,12 @@ def _kernel_call(name, q, k, v, q_off, k_off, causal):
                 "other strides multiples of 8, 16-byte aligned)")
     Dp = q.shape[3]
     o = torch.empty((B, Tq, H, Dp), dtype=q.dtype, device=q.device)
-    m = torch.full((B, H, Tq), _NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, H, Tq), dtype=torch.float32, device=q.device)
     if B * H * Tq == 0 or Tk == 0:
-        o.zero_()
-        return q, k, v, o, m, l, None, None
+        m = torch.full((B, H, Tq), _NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, H, Tq), dtype=torch.float32, device=q.device)
+        return q, k, v, o.zero_(), m, l, None, None
+    m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     dims = (ctypes.c_longlong * 8)(B, H, Tq, Tk, Dp, int(q_off), int(k_off),
                                    int(bool(causal)))
     strides = (ctypes.c_longlong * 12)(*(q.stride()[:3] + k.stride()[:3]
@@ -227,9 +234,11 @@ flash_fwd.launches = 0
 def stream_plan(q, k, q_off=0, k_off=0, causal=False):
     """K3's split-KV plan for q, k on their CUDA device, as the kernel
     library computes it for q's dtype and head size (padded to a multiple
-    of 8): a dict of KV ranges, KV tiles per range, fp32 workspace
-    elements, keys per KV tile of the dtype's route, and the SM count;
-    None outside the kernel's range."""
+    of 8): a dict of KV ranges (``splits``), KV tiles per range
+    (``chunk``), fp32 workspace elements (``workspace``), the dtype's
+    route's keys per KV tile (``tile``), query rows per block (``rows``)
+    and column groups of O (``groups``, 2 above D = 128), and the SM
+    count; None outside the kernel's range."""
     if q.dtype not in _DTYPE_CODE:
         return None
     lib = _lib()
@@ -237,11 +246,11 @@ def stream_plan(q, k, q_off=0, k_off=0, causal=False):
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     dims = (ctypes.c_longlong * 8)(B, H, Tq, k.shape[1], -(-D // 8) * 8,
                                    int(q_off), int(k_off), int(bool(causal)))
-    plan = (ctypes.c_longlong * 4)()
+    plan = (ctypes.c_longlong * 6)()
     if lib.mx_flash_fwd_stream_plan(dims, _DTYPE_CODE[q.dtype], sms, plan):
         return None
-    return dict(zip(("splits", "chunk", "workspace", "tile"), plan),
-                sm_count=sms)
+    return dict(zip(("splits", "chunk", "workspace", "tile", "rows",
+                     "groups"), plan), sm_count=sms)
 
 
 def flash_fwd_stream(q, k, v, q_off=0, k_off=0, causal=False, block_k=256):

@@ -90,7 +90,7 @@ def test_rows_that_see_no_key_follow_the_kernel(monkeypatch):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [20, 100])
+@pytest.mark.parametrize("D", [20, 100, 130])
 def test_padded_head_matches_the_interpreted_kernel(monkeypatch, D, causal):
     """The CUDA wrappers' head padding, through the plain version: q, k, v
     zero-padded to a multiple of 8 (`_pad_head`), scaled by 1/sqrt of the
@@ -107,6 +107,150 @@ def test_padded_head_matches_the_interpreted_kernel(monkeypatch, D, causal):
                              16), "interpreted kernel")
     same = torch.zeros(1, 4, 1, 24)
     assert tfa._pad_head(same) is same
+
+
+# float16 and head sizes past 128 (the kernels' two column groups of O),
+# through the plain version here.  float16 tolerance: o is rounded to
+# fp16 (2**-11 relative) after fp32 sums taken in other orders, so the two
+# roundings may land one fp16 ulp apart (2**-10 relative); 2e-3.
+WIDE = [("float32", 136), ("float32", 200), ("float32", 256),
+        ("float16", 16), ("float16", 136), ("float16", 256)]
+WIDE_TOL = {"float32": TOL, "float16": dict(rtol=2e-3, atol=2e-3)}
+
+
+def _as_dtype(arrays, dtype):
+    return tuple(a.astype(np.float16 if dtype == "float16" else np.float32)
+                 for a in arrays)
+
+
+@pytest.mark.parametrize("route", ["whole", "stream"])
+@pytest.mark.parametrize("offsets", [(0, 0), (32, 0)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,D", WIDE)
+def test_partial_fp16_and_wide_heads(monkeypatch, dtype, D, causal, offsets,
+                                     route):
+    """K2 and K3's plain version at float16 and D = 136..256 against the
+    JAX package's interpreted kernel of the same route (the stream route
+    under a 0.001 MiB budget)."""
+    if route == "stream":
+        monkeypatch.setenv("MXNET_FLASH_VMEM_MB", "0.001")
+    q, k, v = _as_dtype(_qkv(1, 32, 2, D, seed=D), dtype)
+    assert tfa._route(32, D, getattr(torch, dtype)) == route
+    args = (*offsets, causal, 16, 16)
+    got = _port_partial(q, k, v, *args)
+    assert got[0].dtype == q.dtype
+    want = _jax_partial(monkeypatch, True, q, k, v, *args)
+    for g, w, name in zip(got, want, ("o", "m", "l")):
+        np.testing.assert_allclose(g.astype(np.float32), w.astype(np.float32),
+                                   err_msg=name, **WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,D", [("float16", 16), ("float32", 136),
+                                     ("float16", 200), ("float32", 256)])
+def test_flash_attention_fp16_and_wide_heads(monkeypatch, dtype, D, causal):
+    """Output and gradients of `FlashAttention` at float16 and D past 128
+    against jax.grad through the JAX custom VJP over the interpreted
+    kernel.  float16: out and the gradients are rounded to fp16 after
+    fp32 math that starts from the fp16 out (the same in both), so a few
+    fp16 ulps of the largest value."""
+    monkeypatch.setenv("MXNET_FLASH_INTERPRET", "1")
+    q, k, v = _as_dtype(_qkv(2, 32, 2, D, seed=D + 1), dtype)
+    tgt = _as_dtype([np.random.RandomState(2).randn(*q.shape)], dtype)[0]
+
+    def jloss(q, k, v):
+        out = jfa.flash_attention(q, k, v, causal, 16, 16)
+        return jnp.sum((out.astype(jnp.float32) - tgt.astype(np.float32))
+                       ** 2)
+
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    jout = jfa.flash_attention(jq, jk, jv, causal, 16, 16)
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal, 16, 16)
+    assert out.dtype == tq.dtype
+    ((out.float() - torch.from_numpy(tgt).float()) ** 2).sum().backward()
+    tol = 5e-4 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(jout, np.float32), rtol=tol,
+                               atol=tol)
+    for got, want, name in zip((tq.grad, tk.grad, tv.grad), jgrads, "qkv"):
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                                   atol=tol * max(1.0, np.abs(want).max()),
+                                   err_msg=name)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero, as cvt.rna.tf32.f32), on the bits of the fp32 values."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _emulate_fp32_route(q3, k3, v3, q_off, k_off, causal, passes=3):
+    """The fp32 route of K2 in plain torch on (BH, T, D) float32: the
+    kernel's KV tiles (64 keys at D <= 64, 32 at D <= 128, 16 above), q
+    scaled then split into TF32 hi and lo, K, V and p split the same
+    way, each product as 3 TF32 products summed in fp32 (passes=3) or
+    hi x hi alone (passes=1), exp as 2**(s log2(e) - m log2(e))."""
+    BH, Tq, D = q3.shape
+    Tk = k3.shape[1]
+    bk = 64 if D <= 64 else 32 if D <= 128 else 16
+    log2e = 1.4426950408889634
+    qh, ql = _split(q3 * (1.0 / math.sqrt(D)))
+    m = torch.full((BH, Tq), -1e30)
+    l = torch.zeros(BH, Tq)
+    acc = torch.zeros(BH, Tq, D)
+    q_pos = q_off + torch.arange(Tq)
+
+    def product(ah, al, bh, bl):
+        hi = ah @ bh
+        return hi if passes == 1 else hi + (ah @ bl + al @ bh)
+
+    for i in range(-(-Tk // bk)):
+        kh, kl = _split(k3[:, i * bk:(i + 1) * bk])
+        vh, vl = _split(v3[:, i * bk:(i + 1) * bk])
+        s = product(qh, ql, kh.transpose(1, 2), kl.transpose(1, 2))
+        if causal:
+            k_pos = k_off + i * bk + torch.arange(kh.shape[1])
+            s = s.masked_fill(q_pos[:, None] < k_pos[None, :], -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp2(s * log2e - (m_new * log2e)[..., None])
+        alpha = torch.exp2((m - m_new) * log2e)
+        l = l * alpha + p.sum(dim=-1)
+        ph, pl = _split(p)
+        acc = acc * alpha[..., None] + product(ph, pl, vh, vl)
+        m = m_new
+    return acc, m, l
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_3xtf32_arithmetic_meets_the_fp32_tolerance(monkeypatch, D, causal):
+    """The fp32 route's arithmetic (3xTF32 products on the kernel's tiles),
+    emulated in plain torch, against the JAX package's interpreted kernel
+    at the card's fp32 tolerance (rtol 1e-4, atol 1e-5*max|o|); one TF32
+    pass alone misses it."""
+    q, k, v = _qkv(1, 100, 2, D, seed=D + 2)
+    args = (0, 0, causal, 256, 256)
+    want = _jax_partial(monkeypatch, True, q, k, v, *args)
+    q3, k3, v3 = (tfa._to3(torch.from_numpy(x)) for x in (q, k, v))
+
+    def close(passes):
+        o3, m3, l3 = _emulate_fp32_route(q3, k3, v3, 0, 0, causal, passes)
+        got = (o3.reshape(1, 2, 100, D).permute(0, 2, 1, 3),
+               m3.reshape(1, 2, 100), l3.reshape(1, 2, 100))
+        return all(np.allclose(g.numpy(), w, rtol=1e-4,
+                               atol=1e-5 * np.abs(w).max())
+                   for g, w in zip(got, want))
+    assert close(3)
+    assert not close(1)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -10,6 +10,9 @@ no JAX, so on a machine with a card and no JAX it runs alone:
 
 `chip_smoke.py` covers the full VGG-16 and long-context attention shapes.
 """
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -100,15 +103,18 @@ def _packed_inputs(B, T, H, D, dtype, seed=0):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
-# fp32: kernel and plain version add the same fp32 terms in other orders
-# (about 1e-6 relative at these lengths).  bf16: o is rounded to bf16
-# (2**-8 relative), and every p is rounded to bf16 against a running max
-# that depends on the tiling; where the split-KV kernel's ranges differ
-# from the plain version's blocks, that rounding noise (2**-9 of each
-# p*v term) reaches 0.0044*max|o| at T = 100..128 (a CPU emulation of
-# the split), hence atol 2**-7*max|plain|.
-ATTN_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -6,
-                                                          2.0 ** -7)}
+# fp32: kernel and plain version add the same terms in other orders, the
+# kernel's products 3xTF32 (about 2^-21 relative each; 1e-6 relative at
+# these lengths).  bf16: o is rounded to bf16 (2**-8 relative), and every
+# p is rounded to bf16 against a running max that depends on the tiling;
+# where the split-KV kernel's ranges differ from the plain version's
+# blocks, that rounding noise (2**-9 of each p*v term) reaches
+# 0.0044*max|o| at T = 100..128 (a CPU emulation of the split), hence
+# atol 2**-7*max|plain|.  fp16: the same with 3 more mantissa bits (2**-11
+# rounding of o, 2**-12 of each p*v term): 2**-8, 2**-9*max|plain|.
+ATTN_TOL = {torch.float32: (1e-4, 1e-5),
+            torch.bfloat16: (2.0 ** -6, 2.0 ** -7),
+            torch.float16: (2.0 ** -8, 2.0 ** -9)}
 
 
 def _assert_partial_close(got, want, dtype):
@@ -121,17 +127,20 @@ def _assert_partial_close(got, want, dtype):
             msg=lambda m, name=name: f"{name}: {m}")
 
 
-# (B, Tq, Tk, H, D) of test_flash_kernels_on_card: D 16, 64 and 128 and a
-# ragged T = 100 on both routes; the bf16 (tensor-core) route also every
-# head size the TMA boxes treat differently (8, 24 and 96 zero-filled
-# past D, 100 padded by the wrapper), a ragged T = 1000 over several
-# 128-key tiles, and Tq != Tk both ways
+# (B, Tq, Tk, H, D) of test_flash_kernels_on_card, every dtype: D 16, 64
+# and 128 and a ragged T = 100; every head size the TMA boxes treat
+# differently (8, 24 and 96 zero-filled past D, 100 padded by the
+# wrapper), a ragged T = 1000 over several KV tiles, and Tq != Tk both
+# ways; above D = 128, two column groups of O: 136 (the second group 8
+# columns wide), 200 and 256
 ATTN_SHAPES = [(2, 64, 64, 2, 16), (1, 100, 100, 2, 64), (2, 128, 128, 1, 128),
                (1, 64, 64, 2, 100)]
-ATTN_SHAPES_BF16 = [(1, 130, 130, 2, 8), (1, 200, 200, 1, 24),
+ATTN_SHAPES_EDGE = [(1, 130, 130, 2, 8), (1, 200, 200, 1, 24),
                     (2, 256, 256, 1, 96), (1, 1000, 1000, 2, 64),
                     (1, 100, 100, 1, 128), (1, 64, 320, 2, 64),
                     (1, 320, 64, 1, 64)]
+ATTN_SHAPES_WIDE = [(1, 100, 100, 2, 136), (1, 130, 200, 1, 200),
+                    (2, 96, 96, 1, 256), (1, 300, 300, 1, 256)]
 # (q_off, k_off): 32 and 96 put the diagonal inside a 128-row q tile
 ATTN_OFFSETS = [(0, 0), (64, 0), (32, 0), (96, 0)]
 
@@ -149,17 +158,16 @@ def _check_call(fwd, dt, q, k, v, q_off, k_off, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_fwd_stream"])
 def test_flash_kernels_on_card(wrapper, dtype):
-    """K2 and K3 against `_partial_ref` at small shapes (ATTN_SHAPES, and
-    ATTN_SHAPES_BF16 for bf16), causal and not, at ring offsets; the
-    fully-above shard; q, k, v sliced from one packed tensor."""
+    """K2 and K3 against `_partial_ref` at small shapes (ATTN_SHAPES,
+    ATTN_SHAPES_EDGE, ATTN_SHAPES_WIDE), causal and not, at ring offsets;
+    the fully-above shard; q, k, v sliced from one packed tensor."""
     _need_card()
     dt = getattr(torch, dtype)
     fwd = getattr(fa, wrapper)
-    shapes = ATTN_SHAPES + (ATTN_SHAPES_BF16 if dt == torch.bfloat16 else [])
-    for B, Tq, Tk, H, D in shapes:
+    for B, Tq, Tk, H, D in ATTN_SHAPES + ATTN_SHAPES_EDGE + ATTN_SHAPES_WIDE:
         q, k, v = _attn_inputs(B, Tq, H, D, dt, Tk=Tk)
         for causal in (False, True):
             for q_off, k_off in ATTN_OFFSETS:
@@ -173,6 +181,29 @@ def test_flash_kernels_on_card(wrapper, dtype):
     assert not q.is_contiguous()
     for causal in (False, True):
         _check_call(fwd, dt, q, k, v, 0, 0, causal)
+
+
+@pytest.mark.cuda
+def test_wgmma_tf32_facts_the_fp32_route_relies_on(tmp_path):
+    """tests/cuda/wgmma_tf32_probe.cu: the tf32 A fragment the fp32 route
+    feeds P in (a1 is row + 8, a2 column + 4), and 128-byte-swizzled
+    K-major operands with 32-byte k-steps.  Whatever the card does with an
+    operand's low 13 bits, the route rounds hi and lo itself."""
+    _need_card()
+    from incubator_mxnet_tpu_torch.kernels import _build
+    exe = tmp_path / "probe"
+    subprocess.run([_build._nvcc(), "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-o", str(exe),
+                    str(Path(__file__).parent / "cuda" /
+                        "wgmma_tf32_probe.cu")],
+                   check=True, capture_output=True, timeout=600)
+    out = subprocess.run([str(exe)], check=True, capture_output=True,
+                         text=True, timeout=60).stdout
+    print(out)
+    facts = dict(line.split() for line in out.splitlines())
+    assert facts["a_fragment"] == "rows_plus_8"
+    assert facts["kmajor_swizzled"] == "exact"
+    assert facts["low_bits"] in ("truncate", "round", "keep")
 
 
 @pytest.mark.cuda
@@ -190,37 +221,52 @@ def test_flash_routes_by_budget(monkeypatch):
 @pytest.mark.cuda
 def test_flash_rejects_what_it_cannot_take():
     _need_card()
-    q, k, v = _attn_inputs(1, 64, 2, 160, torch.float32)
+    q, k, v = _attn_inputs(1, 64, 2, 264, torch.float32)
     for fwd in (fa.flash_fwd, fa.flash_fwd_stream):
-        with pytest.raises(MXNetError, match="D=160"):
+        with pytest.raises(MXNetError, match="D=264"):
             fwd(q, k, v)
     q, k, v = _attn_inputs(1, 64, 2, 32, torch.float32)
     strided = q[..., ::2]                      # head dimension not contiguous
     with pytest.raises(MXNetError, match="layout"):
         fa.flash_fwd(strided, k[..., ::2].contiguous(),
                      v[..., ::2].contiguous())
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
-        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        fa.flash_fwd(q.double(), k.double(), v.double())
+    # float16 and every head size up to 256 run
+    before = fa.flash_fwd.launches
+    o, m, l = fa.flash_fwd(q.half(), k.half(), v.half(), causal=True)
+    assert fa.flash_fwd.launches == before + 1 and o.dtype == torch.float16
+    for D in (1, 7, 129, 255, 256):
+        q, k, v = _attn_inputs(1, 40, 1, D, torch.float32, seed=D)
+        _check_call(fa.flash_fwd, torch.float32, q, k, v, 0, 0, True)
 
 
 @pytest.mark.cuda
 def test_stream_plan_covers_kv_and_splits_the_long_causal_shape():
-    """The plan counts in its route's tiles (64 query rows by 64 keys in
-    fp32; 128 by 128 in bf16, 64 keys at D > 64) and cuts the causal
-    triangle into balanced ranges."""
+    """The plan counts in its route's tiles (fp32: 128 query rows by 64
+    keys at D <= 64, 64 by 32 at D <= 128, 64 by 16 above; bf16 and fp16:
+    128 by 128, 64 keys at D > 64), two column groups of O above D = 128,
+    and cuts the causal triangle into balanced ranges."""
     _need_card()
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
         for B, T, H, D, causal in [(1, 32768, 1, 64, True),
                                    (2, 8192, 8, 64, False),
                                    (1, 100, 2, 64, True),
                                    (1, 64, 1, 16, False),
                                    (1, 100, 1, 20, True),
-                                   (1, 1000, 2, 128, True)]:
+                                   (1, 1000, 2, 128, True),
+                                   (2, 8192, 8, 256, True),
+                                   (1, 1000, 2, 136, False)]:
             q = torch.zeros(B, T, H, D, device="cuda", dtype=dt)
             plan = fa.stream_plan(q, q, causal=causal)
             d8 = -(-D // 8) * 8
-            assert plan["tile"] == (
-                (128 if d8 <= 64 else 64) if dt == torch.bfloat16 else 64)
+            if dt == torch.float32:
+                tiles = (128, 64) if d8 <= 64 else \
+                    (64, 32) if d8 <= 128 else (64, 16)
+            else:
+                tiles = (128, 128 if d8 <= 64 else 64)
+            assert (plan["rows"], plan["tile"]) == tiles
+            assert plan["groups"] == (1 if d8 <= 128 else 2)
             nk = -(-T // plan["tile"])
             assert plan["splits"] * plan["chunk"] >= nk > \
                 (plan["splits"] - 1) * plan["chunk"]
@@ -231,5 +277,7 @@ def test_stream_plan_covers_kv_and_splits_the_long_causal_shape():
         q = torch.zeros(1, 32768, 1, 64, device="cuda", dtype=dt)
         plan = fa.stream_plan(q, q, causal=True)
         nk = 32768 // plan["tile"]
-        assert plan["chunk"] <= -(-nk * (nk + 1) // 2 //
-                                  (8 * plan["sm_count"]))
+        nq = 32768 // plan["rows"]
+        work = sum(min(nk, -(-(i + 1) * plan["rows"] // plan["tile"]))
+                   for i in range(nq))
+        assert plan["chunk"] <= -(-work // (8 * plan["sm_count"]))
