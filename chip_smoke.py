@@ -12,10 +12,14 @@ exits non-zero:
    matmuls and cuDNN, so every fp32 comparison below is fp32.
 2. build — every CUDA source of the port, with nvcc, one process each.
 3. kernel K1 (`fc_relu`) against its plain PyTorch version on the card,
-   at the VGG-16 classifier shapes for every serving bucket and a ragged
-   MLP shape, fp32 and bf16;
-   times of the kernel, the plain version and one library call beside the
-   bound, with L2 flushed before every timed launch.
+   at the VGG-16 classifier shapes for every serving bucket and M = 128
+   (the training batch) and a ragged MLP shape, fp32, bf16 and fp16,
+   through the library's route (printed) and each route that takes the
+   shape (tensor_core, cuda_core); times of the library's route, of each
+   route, the plain version and one library call beside the bound, with
+   L2 flushed before every timed launch, and each route's device time
+   (torch.profiler, its kernels only); then the host time per call of
+   each route at fc7, M = 32, beside the library call's.
 4. serve VGG-16 at full width (3x224x224, 1000 classes, fp32, random
    weights from a seed) through `serving.ModelServer`: partition with
    TPU_PALLAS, save a checkpoint pair, load it, answer a closed-loop load
@@ -31,7 +35,9 @@ exits non-zero:
    ring-shard offsets at T = 2048, the fully-masked shard (held to the
    contract m = -1e30, l = 0, o = 0), a ragged T = 1000 at D = 64, 128
    and 136, the wide heads (2, 8192, 8, 128) and (2, 8192, 8, 256) (two
-   column groups of O) and q, k, v sliced from one packed (B, T, 3, H, D)
+   column groups of O), heads past 256 (the CUDA-core route: (2, 2048, 8,
+   512) causal in every dtype through K2 and in fp32 through K3, a ragged
+   (2, 1000, 8, 264)) and q, k, v sliced from one packed (B, T, 3, H, D)
    tensor; each case checks that its route's launch counter moved; times
    of the kernel, the plain version and SDPA (a yardstick only, where it
    computes the same function) beside the bound, with the achieved
@@ -60,6 +66,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -72,6 +79,12 @@ import torch
 SEED = 0
 VGG_FC_SHAPES = ((25088, 4096), (4096, 4096))   # (K, N) of fc6, fc7
 BUCKETS = (1, 2, 4, 8, 16, 32)
+# K1's rows in phase 3: the serving buckets, and the batch a training step
+# of the classifier runs
+K1_ROWS = BUCKETS + (128,)
+# the kernels a K1 call launches (split_tf32 and splitk_epilogue where the
+# plan needs them), for the profiler's device time
+K1_KERNELS = ("fc_relu_kernel", "fc_relu_tc", "split_tf32", "splitk_epilogue")
 IMAGE = (3, 224, 224)
 CLASSES = 1000
 # the load: CLIENTS threads, each sending REQUESTS_PER_CLIENT requests of
@@ -90,19 +103,24 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 165e12, torch.bfloat16: 989e12,
               torch.float16: 989e12}
 # fp32: the kernel and the plain version add the same fp32 products in
-# different orders; with unit-scale outputs over K <= 25088 terms the
+# different orders (the tensor-core route's 3xTF32 products ~2**-21
+# relative each); with unit-scale outputs over K <= 25088 terms the
 # rounding difference is ~1e-5.  bf16: both round an fp32 sum to bf16,
-# which may land one bf16 ulp (2**-8 relative) apart.
-TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -6, 1e-4)}
+# which may land one bf16 ulp (2**-8 relative) apart; fp16 the same with
+# 3 more mantissa bits (2**-11).
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -6, 1e-4),
+       torch.float16: (2.0 ** -9, 1e-4)}
 # serving vs the unpartitioned graph: the padded bucket and the exact
 # request batch let cuDNN pick different fp32 conv algorithms, whose
 # rounding compounds over 16 layers
 SERVE_TOL = (1e-3, 1e-3)
-# the JSON line's shape: fc6 at bucket 32, the bucket of the served load
-REP = (32, 25088, 4096, torch.float32)
 BF16 = torch.bfloat16
 F16 = torch.float16
 F32 = torch.float32
+# the JSON line's shapes: fc6 at bucket 32, the bucket of the served load,
+# in fp32 (the served dtype) and, under keys of its own, bf16
+REP = (32, 25088, 4096, F32)
+REP_BF16 = (32, 25088, 4096, BF16)
 # phase 3b: (label, (B, T, H, D), dtype, causal, (q_off, k_off),
 # MXNET_FLASH_VMEM_MB or None for the default, the route it must take)
 ATTN_CASES = [
@@ -130,6 +148,13 @@ ATTN_CASES = [
     ("ragged", (2, 1000, 8, 136), F32, True, (0, 0), None, "whole"),
     ("long-context", (2, 8192, 8, 64), F16, True, (0, 0), None, "whole"),
     ("long KV", (1, 32768, 1, 64), F16, True, (0, 0), "4", "stream"),
+    # past D = 256: the CUDA-core route, 4 column groups of O at 512
+    ("head 512", (2, 2048, 8, 512), F32, True, (0, 0), None, "whole"),
+    ("head 512", (2, 2048, 8, 512), BF16, True, (0, 0), None, "whole"),
+    ("head 512", (2, 2048, 8, 512), F16, True, (0, 0), None, "whole"),
+    ("head 512", (2, 2048, 8, 512), F32, True, (0, 0), "0.001", "stream"),
+    ("ragged", (2, 1000, 8, 264), F32, True, (0, 0), None, "whole"),
+    ("ragged", (2, 1000, 8, 264), BF16, True, (0, 0), None, "whole"),
 ]
 # the JSON line's cases: the ones phase 5 runs through each kernel
 REP_K2 = ("long-context", (2, 8192, 8, 64), BF16, True, (0, 0), None)
@@ -185,8 +210,11 @@ def within(got, ref, rtol, atol_scale):
 
 
 def time_ms(fn, flush, iters=20):
-    """Mean device time of fn() over `iters` launches, each timed with its
-    own CUDA events after the L2 cache is overwritten."""
+    """Median time of fn() over `iters` launches, each timed with its own
+    CUDA events after the L2 cache is overwritten.  The median, not the
+    mean: a launch the host delays (a host whose cores other work shares)
+    leaves the card idle inside its events, and one such delay can double
+    a mean."""
     for _ in range(3):
         fn()
     events = []
@@ -199,24 +227,35 @@ def time_ms(fn, flush, iters=20):
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / iters
+    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def device_ms(fn, reps=10):
+def device_ms(fn, reps=10, flush=None, names=None, tries=3):
     """Mean device time per call of fn() under torch.profiler: the sum of
     the durations of the kernels it launches, without the host time
-    between launches that CUDA events around a small call also count."""
+    between launches that CUDA events around a small call also count.
+    flush: a buffer overwritten before each call (its kernel is not
+    counted: give `names`, the substrings of the kernels that are).  A
+    profiling session that records no kernel at all (seen once in ~270
+    sessions on an H100, right after the same call ran and was checked)
+    is run again, up to `tries` sessions."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(busy > 0, "the profiler saw no device activity")
-    return busy / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.time_range.end - e.time_range.start
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (names is None or any(n in e.name for n in names)))
+        if busy > 0:
+            return busy / reps / 1e3
+    check(False, f"the profiler saw no device activity in {tries} sessions")
 
 
 def bound(m, k, n, dtype):
@@ -229,56 +268,107 @@ def bound(m, k, n, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k1_case(x, w, b, card, flush):
+    """One K1 shape: parity of the library's route and of each route that
+    takes the shape; the event and device times of each route, the plain
+    version's and the library call's.  Returns them, the library's route
+    and its error."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import ROUTES, \
+        fc_relu, fc_relu_ref, launch_plan
+    (m, k), n, dtype = x.shape, w.shape[0], x.dtype
+    rtol, atol = TOL[dtype]
+    chosen = launch_plan(x, w)["route"]
+    routes = [r for r in ROUTES if launch_plan(x, w, r) is not None]
+    ref = fc_relu_ref(x, w, b)
+    errs = {}
+    for route in [None] + routes:
+        before = fc_relu.launches
+        got = fc_relu(x, w, b, route)
+        torch.cuda.synchronize()
+        check(fc_relu.launches == before + 1,
+              f"fc_relu launch counter did not move at {(m, k, n)}")
+        check(got.dtype == dtype and got.shape == (m, n),
+              f"fc_relu output {got.dtype} {tuple(got.shape)}")
+        err, ok = within(got, ref, rtol, atol)
+        check(ok, f"fc_relu ({route or chosen}) disagrees with its plain "
+                  f"version at {(m, k, n)} {dtype}: max abs err {err:.3e}")
+        errs[route or "chosen"] = err
+    name = f"{str(dtype)[6:]:8s} M={m:<3d} K={k:<6d} N={n:<5d}"
+    print(f"K1 parity {name} route={chosen} max_abs_err={errs['chosen']:.3e}"
+          f" ({', '.join(f'{r} {errs[r]:.3e}' for r in routes)}; rtol "
+          f"{rtol:g}, atol {atol:g}*max|plain|) ok")
+    t_bound, bound_by = bound(m, k, n, dtype)
+    t = {"route": chosen, "max_abs_err": errs["chosen"],
+         "plain_ms": time_ms(lambda: fc_relu_ref(x, w, b), flush),
+         "library_ms": time_ms(
+             lambda: torch.relu(torch.addmm(b, x, w.T)), flush),
+         "bound_ms": t_bound, "bound_by": bound_by}
+    for route in routes:
+        call = lambda: fc_relu(x, w, b, route)
+        t[f"{route}_ms"] = time_ms(call, flush)
+        t[f"{route}_device_ms"] = device_ms(call, flush=flush,
+                                            names=K1_KERNELS)
+    t["ms"] = t[f"{chosen}_ms"]
+    t["device_ms"] = t[f"{chosen}_device_ms"]
+    print(f"K1 time   {name} route={chosen} kernel_ms={t['ms']:.4f} "
+          f"device_ms={t['device_ms']:.4f} "
+          + "".join(f"{r}_ms={t[f'{r}_ms']:.4f} "
+                    f"{r}_device_ms={t[f'{r}_device_ms']:.4f} "
+                    for r in routes)
+          + f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+          f"bound_ms={t_bound:.4f} ({bound_by}) "
+          f"{t_bound / t['device_ms']:.3f} of the bound by device time "
+          f"[{card}]")
+    return t
+
+
 def kernel_phase(card):
-    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu, \
-        fc_relu_ref
+    """Phase 3; returns the JSON numbers of REP and REP_BF16 by dtype."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    cases = [(m, k, n) for k, n in VGG_FC_SHAPES for m in BUCKETS]
+    cases = [(m, k, n) for k, n in VGG_FC_SHAPES for m in K1_ROWS]
     cases.append((5, 784, 128))
-    rep = None
-    for dtype in (torch.float32, torch.bfloat16):
-        rtol, atol = TOL[dtype]
+    reps, slower = {}, []
+    t0 = time.perf_counter()
+    for dtype in (F32, BF16, F16):
         for m, k, n in cases:
             x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
             w = (torch.randn(n, k, generator=gen, device=dev)
                  / math.sqrt(k)).to(dtype)
             b = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype)
-            before = fc_relu.launches
-            got = fc_relu(x, w, b)
-            torch.cuda.synchronize()
-            check(fc_relu.launches == before + 1,
-                  f"fc_relu launch counter did not move at {(m, k, n)}")
-            ref = fc_relu_ref(x, w, b)
-            check(got.dtype == dtype and got.shape == (m, n),
-                  f"fc_relu output {got.dtype} {tuple(got.shape)}")
-            err, ok = within(got, ref, rtol, atol)
-            print(f"K1 parity {str(dtype)[6:]:8s} M={m:<3d} K={k:<6d} "
-                  f"N={n:<5d} max_abs_err={err:.3e} "
-                  f"(rtol {rtol:g}, atol {atol:g}*max|plain|) "
-                  f"{'ok' if ok else 'FAIL'}")
-            check(ok, f"fc_relu disagrees with its plain version at "
-                      f"{(m, k, n)} {dtype}")
-            if (m, k) == (5, 784):
-                continue
-            t_bound, bound_by = bound(m, k, n, dtype)
-            t = {
-                "ms": time_ms(lambda: fc_relu(x, w, b), flush),
-                "plain_ms": time_ms(lambda: fc_relu_ref(x, w, b), flush),
-                "library_ms": time_ms(
-                    lambda: torch.relu(torch.addmm(b, x, w.T)), flush),
-                "bound_ms": t_bound,
-            }
-            print(f"K1 time   {str(dtype)[6:]:8s} M={m:<3d} K={k:<6d} "
-                  f"N={n:<5d} kernel_ms={t['ms']:.4f} "
-                  f"plain_ms={t['plain_ms']:.4f} "
-                  f"library_ms={t['library_ms']:.4f} "
-                  f"bound_ms={t['bound_ms']:.4f} ({bound_by}) [{card}]")
-            if (m, k, n, dtype) == REP:
-                rep = dict(t, bound_by=bound_by, max_abs_err=err)
+            t = k1_case(x, w, b, card, flush)
+            if t["route"] == "tensor_core" and \
+                    t["tensor_core_device_ms"] > t["cuda_core_device_ms"]:
+                slower.append(f"{str(dtype)[6:]} {(m, k, n)} "
+                              f"{t['tensor_core_device_ms']:.4f} > "
+                              f"{t['cuda_core_device_ms']:.4f} ms")
+            if (m, k, n, dtype) in (REP, REP_BF16):
+                reps[dtype] = t
+            del x, w, b
+    print(f"K1 routes: shapes the library gives tensor_core whose device "
+          f"time exceeded cuda_core's in this run: {slower or 'none'}")
+    k1_host_us(card, gen)
+    print(f"phase 3: {time.perf_counter() - t0:.1f} s")
     del flush
-    return rep
+    return reps
+
+
+def k1_host_us(card, gen):
+    """Host time per call of fc_relu at fc7 (4096 -> 4096), M = 32, by
+    route and dtype, beside the library call's: where it exceeds the
+    kernels' device time, a lone call's time is the host's."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import ROUTES, fc_relu
+    for dtype in (F32, BF16):
+        x = torch.randn(32, 4096, generator=gen, device="cuda").to(dtype)
+        w = torch.randn(4096, 4096, generator=gen, device="cuda").to(dtype)
+        b = torch.randn(4096, generator=gen, device="cuda").to(dtype)
+        us = {r: host_us(lambda: fc_relu(x, w, b, r)) for r in ROUTES}
+        lib = host_us(lambda: torch.relu(torch.addmm(b, x, w.T)))
+        print(f"host: fc_relu {str(dtype)[6:]} M=32 K=4096 N=4096 "
+              + ", ".join(f"{r} {us[r]:.1f}" for r in ROUTES)
+              + f" us per call on the host; torch.relu(torch.addmm) "
+              f"{lib:.1f} [{card}]")
 
 
 def vgg_params(sym, rng):
@@ -297,24 +387,28 @@ def vgg_params(sym, rng):
     return params
 
 
-def profile_dispatch(model, card, bucket=32, reps=3):
+def profile_dispatch(model, card, bucket=32, reps=3, tries=3):
     """Device time by kernel over `reps` warm dispatches of one full
-    bucket (torch.profiler), and the device's busy share of that window."""
+    bucket (torch.profiler), and the device's busy share of that window;
+    a session that records no kernel is run again (see device_ms)."""
     from torch.profiler import ProfilerActivity, profile
     arrs = [np.zeros((bucket,) + IMAGE, np.float32)]
     model.run_bucket(arrs, bucket)
     model.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            model.run_bucket(arrs, bucket)
-        model.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(spans, "the profiler saw no device activity")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                model.run_bucket(arrs, bucket)
+            model.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+    check(spans, f"the profiler saw no device activity in {tries} sessions")
     by_name = {}
     busy = 0.0
     edge = -math.inf
@@ -330,8 +424,8 @@ def profile_dispatch(model, card, bucket=32, reps=3):
         print(f"profile: {us / reps / 1e3:9.3f} ms/dispatch "
               f"{us / total:6.3f} {name[:100]}")
     k1 = sum(us for name, us in by_name.items()
-             if "fc_relu_kernel" in name or "splitk_epilogue" in name)
-    print(f"profile: K1 (fc_relu_kernel + splitk_epilogue) "
+             if any(k in name for k in K1_KERNELS))
+    print(f"profile: K1 ({' + '.join(K1_KERNELS)}) "
           f"{k1 / reps / 1e3:.3f} ms/dispatch, {k1 / total:.3f} of device "
           "time")
 
@@ -502,30 +596,32 @@ def sdpa_equivalent(causal, offs, t):
     return None, "a shifted diagonal: SDPA's is_causal has no offset"
 
 
+def host_us(fn, calls=200):
+    """Host time per call of fn(), in microseconds: the enqueue, which is
+    a small call's time when the device keeps up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def host_us_per_call(card):
     """Host time per call of flash_attention_partial at (2, 2048, 8, 64)
     bf16 causal (the enqueue, which is the call's time at this size), and
     of the two fills its m and l took before they were torch.empty."""
     from incubator_mxnet_tpu_torch.ops import flash_attention as fa
     q, k, v = attn_inputs((2, 2048, 8, 64), BF16, 99)
-    calls = 200
-
-    def per_call(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        return (t1 - t0) / calls * 1e6
 
     def fills():
         torch.full((2, 8, 2048), -1e30, dtype=torch.float32, device="cuda")
         torch.zeros((2, 8, 2048), dtype=torch.float32, device="cuda")
 
-    call = per_call(lambda: fa.flash_attention_partial(q, k, v, 0, 0, True))
-    before = per_call(fills)
+    call = host_us(lambda: fa.flash_attention_partial(q, k, v, 0, 0, True))
+    before = host_us(fills)
     print(f"host: flash_attention_partial bf16 2x2048x8x64 causal "
           f"{call:.1f} us per call on the host (m, l by torch.empty); the "
           f"two fills m and l took before (torch.full + torch.zeros of "
@@ -754,9 +850,10 @@ def attention_path_phase(card, flush):
     return launches
 
 
-def fp32_keys(rep):
-    """A kernel's fp32 case under keys of their own in the JSON line."""
-    return {f"fp32_{key}": rep[key] for key in
+def dtype_keys(prefix, rep):
+    """A kernel's case in a second dtype under keys of their own in the
+    JSON line."""
+    return {f"{prefix}_{key}": rep[key] for key in
             ("shape", "ms", "bound_ms", "bound_by", "library_ms",
              "max_abs_err")}
 
@@ -796,7 +893,7 @@ def main():
         print(f"build: {name}: {log.count('Compiling entry')} kernels, "
               f"{sum(spills)} spill bytes in all")
 
-    rep = kernel_phase(card)
+    k1 = kernel_phase(card)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     t0 = time.perf_counter()
     attn = attn_kernel_phase(card, flush)
@@ -807,7 +904,10 @@ def main():
     print(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
-    m, k, n, _ = REP
+    for key, dt in ((REP, F32), (REP_BF16, BF16)):
+        m, k, n, _ = key
+        k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"
+    rep = k1[F32]
     src = "incubator_mxnet_tpu_torch/csrc/flash_attn.cu"
     tpu = "incubator_mxnet_tpu/ops/flash_attention.py"
     print(json.dumps({"kernels": [{
@@ -817,14 +917,14 @@ def main():
         "launches": launches, "max_abs_err": rep["max_abs_err"],
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-        "library_ms": rep["library_ms"],
-        "shape": f"float32 M={m} K={k} N={n}"}, dict(
-            name="flash_fwd", route="cuda", source=src,
-            replaces=f"{tpu}:229", launches=k2_launches, **attn[REP_K2],
-            **fp32_keys(attn[REP_K2_F32])),
+        "library_ms": rep["library_ms"], "shape": rep["shape"],
+        "kernel_route": rep["route"], **dtype_keys("bf16", k1[BF16])},
+        dict(name="flash_fwd", route="cuda", source=src,
+             replaces=f"{tpu}:229", launches=k2_launches, **attn[REP_K2],
+             **dtype_keys("fp32", attn[REP_K2_F32])),
         dict(name="flash_fwd_stream", route="cuda", source=src,
              replaces=f"{tpu}:180", launches=k3_launches,
-             **attn[REP_K3], **fp32_keys(attn[REP_K3_F32]))]}))
+             **attn[REP_K3], **dtype_keys("fp32", attn[REP_K3_F32]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,7 +8,7 @@
 // the global positions of q's and k's first rows, for the causal mask.
 // The scale is the caller's (1/sqrt of the head size before any padding).
 // A row that sees no key ends with m = -1e30, l = 0, o = 0.  D is a
-// multiple of 8 up to 256.
+// multiple of 8 (the wrappers pad other head sizes).
 //
 // Two entries, two TPU kernels replaced:
 //   mx_flash_fwd         K2, `_fwd_kernel` via `_partial_tpu` in
@@ -102,26 +102,32 @@
 //     64 KB, K_lo 16 KB, V^T 32 KB = 176 KB), D <= 128 runs 64 rows (one
 //     consumer warpgroup, 160 threads) by 32 keys (176 KB), and D <= 256
 //     64 rows by 16 keys with 128-column groups (224 KB).
+//
+// Head sizes above 256 (flash_fwd_wide, all three dtypes): Q of one block
+// and a K tile no longer fit shared memory beside the ring, so a simple
+// CUDA-core kernel takes them.  A block is 64 query rows and one column
+// group of 128 columns of O (grid x = q tiles x groups, as above); per KV
+// tile of 64 keys it accumulates S over D in chunks of 64 columns of Q
+// and K staged in shared memory, runs the online softmax on S in
+// registers, and adds P.V from P and a V tile in shared memory.  fp32
+// throughout (67 TFLOP/s of FMAs), the 16-bit rounding points kept; S is
+// computed once per column group, D / 128 times in all.
 // The split-KV plan (mx_flash_fwd_stream_plan) counts in the route's own
 // tiles and column groups, and cuts the KV range so that about
 // kBlocksPerSm blocks of work per SM exist and no block's share exceeds
 // the balanced share of the causal triangle.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <dlfcn.h>
 #include <math.h>
-#include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kBlocksPerSm = 8;   // split-KV target: blocks of work per SM
 constexpr int kStages = 2;        // K/V ring depth
-constexpr int kMaxD = 256;        // the widest head the kernels take
+constexpr int kMaxTcD = 256;      // the widest head of the tensor-core routes
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -140,18 +146,6 @@ struct Args {
   float scale;
   int chunk;          // KV tiles per split
 };
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_float<__half>(float v) {
-  return __float2half_rn(v);
-}
 
 // The 16-bit element types: two values packed in 32 bits (x0 low)
 template <typename T> struct Pair;
@@ -190,49 +184,7 @@ __host__ __device__ inline int tiles_run(int qt, int Tq, int Tk,
   return n < nk ? static_cast<int>(n) : nk;
 }
 
-// ---- barriers, TMA, wgmma -------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the barrier's phase differs from `parity` (its completion
-// number `parity` mod 2 has happened)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// named barrier `id` over `count` threads
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-// generic-proxy writes to shared memory, made visible to wgmma and TMA
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
+// ---- TMA and wgmma of the two tensor-core routes ---------------------------
 
 // one box of a 4-D tensor map at coordinates (d, h, t, b) into dst,
 // completing `bar`'s transaction bytes
@@ -244,50 +196,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d),
       "r"(h), "r"(t), "r"(b) : "memory");
-}
-
-// a wgmma descriptor of a 128-byte-swizzled tile at shared address addr:
-// 8-row groups `sbo` bytes apart; lbo as the layout wants it
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// a K-major swizzled operand at `addr`: 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
-  return smem_desc(addr, 16, 1024);
-}
-
-// the 128-byte swizzle of byte offset `off` in a 1024-aligned tile: the
-// 16-byte chunk of a 128-byte row moves by the row's index mod 8
-__device__ __forceinline__ uint32_t swz(uint32_t off) {
-  return off ^ (((off >> 7) & 7) << 4);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep reads of a wgmma's registers after its wait
-__device__ __forceinline__ void reg_fence(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void reg_fence(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
-// x, opaque to the compiler: what is computed from it inside a loop stays
-// there (wgmma descriptors hoisted out of the KV loop would hold registers)
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
 }
 
 // zero `bytes` (a multiple of 16) of shared memory at p, by threads
@@ -303,36 +211,6 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
-
-// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as fp32
-__device__ __forceinline__ float tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
-#define MX_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define MX_R16 MX_R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
-#define MX_R32 MX_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, " \
-    "%24, %25, %26, %27, %28, %29, %30, %31"
-#define MX_R64 MX_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, " \
-    "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
-    "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-#define MX_A8(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
-    "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-#define MX_A16(d) MX_A8(d), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), \
-    "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-#define MX_A32(d) MX_A16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), \
-    "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), \
-    "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-#define MX_A64(d) MX_A32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
-    "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
-    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
-    "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
-    "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
-    "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
-    "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
 template <typename T>
 constexpr bool kIsHalf = std::is_same<T, __half>::value;
@@ -1132,6 +1010,189 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap qmap,
                                q0, r_a, c0, bp.cg, lane);
 }
 
+// ---- head sizes above 256: CUDA cores, all three dtypes ------------------
+
+constexpr int kWideBQ = 64;        // query rows per block
+constexpr int kWideBK = 64;        // keys per KV tile
+constexpr int kWideDV = 128;       // columns of O per column group
+constexpr int kWideDC = 64;        // columns of Q and K per staged chunk
+constexpr int kWideThreads = 256;
+constexpr int kWidePitch = 65;     // floats per row of Q, K, P in shared
+                                   // memory (65: no bank conflicts)
+// Q chunk, K chunk, P (64 x 64 each, padded), V tile (64 keys x DV)
+constexpr int kWideSmem =
+    (3 * kWideBQ * kWidePitch + kWideBK * kWideDV) * 4;
+
+// The route of K2 (SPLIT = false) and K3's first pass (SPLIT = true) at
+// D > 256, see the note at the top of the file.  One block: q tile of 64
+// rows and column group of 128 (block_pos), head blockIdx.y, KV tiles
+// [split * chunk, min(nk_run, (split + 1) * chunk)).  Thread t owns rows
+// 4 (t / 16) .. + 3, and of each tile keys t % 16 + 16 j (S, P) and
+// columns c0 + t % 16 + 16 x of O; a row's 16 threads are one half-warp.
+// Rounding points as in the tensor-core routes and `_partial_ref`: q
+// scaled in fp32 and rounded to T, fp32 scores and sums, p rounded to T
+// for P.V while l sums the fp32 p.
+template <typename T, bool SPLIT>
+__global__ void __launch_bounds__(kWideThreads)
+flash_fwd_wide(const Args a) {
+  extern __shared__ float wsm[];
+  float* qs = wsm;
+  float* ks = qs + kWideBQ * kWidePitch;
+  float* ps = ks + kWideBK * kWidePitch;
+  float* vs = ps + kWideBQ * kWidePitch;
+  const int groups = (a.D + kWideDV - 1) / kWideDV;
+  const BlockPos bp = block_pos(a, groups);
+  const int q0 = bp.qt * kWideBQ;
+  const int c0 = bp.cg * kWideDV;
+  const int nk_run = tiles_run(bp.qt, a.Tq, a.Tk, a.q_off, a.k_off,
+                               a.causal, kWideBQ, kWideBK);
+  const int kt_begin = blockIdx.z * a.chunk;
+  const int n = min(nk_run, kt_begin + a.chunk) - kt_begin;   // may be <= 0
+  const T* qg = static_cast<const T*>(a.q) + bp.b * a.qs[0] + bp.h * a.qs[2];
+  const T* kg = static_cast<const T*>(a.k) + bp.b * a.ks[0] + bp.h * a.ks[2];
+  const T* vg = static_cast<const T*>(a.v) + bp.b * a.vs[0] + bp.h * a.vs[2];
+  const int tid = threadIdx.x;
+  const int r0 = 4 * (tid / 16);
+  const int lc = tid % 16;
+
+  float o[4][8], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.f;
+#pragma unroll
+    for (int x = 0; x < 8; ++x) o[i][x] = 0.f;
+  }
+
+  for (int it = 0; it < n; ++it) {
+    const int k0 = (kt_begin + it) * kWideBK;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    // S = (q scale) k^T over D, 64 columns at a time
+    for (int d0 = 0; d0 < a.D; d0 += kWideDC) {
+      __syncthreads();    // every thread is done with the last chunk
+      for (int e = tid; e < kWideBQ * kWideDC; e += kWideThreads) {
+        const int r = e / kWideDC;
+        const int d = d0 + e % kWideDC;
+        const int qr = q0 + r, kr = k0 + r;
+        const bool in_d = d < a.D;
+        qs[r * kWidePitch + e % kWideDC] =
+            qr < a.Tq && in_d
+                ? to_float(from_float<T>(to_float(qg[qr * a.qs[1] + d]) *
+                                         a.scale))
+                : 0.f;
+        ks[r * kWidePitch + e % kWideDC] =
+            kr < a.Tk && in_d ? to_float(kg[kr * a.ks[1] + d]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < kWideDC; ++c) {
+        float qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qv[i] = qs[(r0 + i) * kWidePitch + c];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kv[j] = ks[(lc + 16 * j) * kWidePitch + c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+    // mask, online softmax, p into shared memory
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long qpos = a.q_off + q0 + r0 + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + lc + 16 * j;
+        if (key >= a.Tk || (a.causal && a.k_off + key > qpos))
+          s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m[i], mx);
+      const float al = ex2((m[i] - mn) * kLog2e);
+      const float ms = mn * kLog2e;
+      m[i] = mn;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = ex2(fmaf(s[i][j], kLog2e, -ms));
+        rs += p;
+        ps[(r0 + i) * kWidePitch + lc + 16 * j] = to_float(from_float<T>(p));
+      }
+      l[i] = l[i] * al + rs;
+#pragma unroll
+      for (int x = 0; x < 8; ++x) o[i][x] *= al;
+    }
+    // V: the tile's keys x this group's columns
+    for (int e = tid; e < kWideBK * kWideDV; e += kWideThreads) {
+      const int r = e / kWideDV;
+      const int d = c0 + e % kWideDV;
+      const int kr = k0 + r;
+      vs[e] = kr < a.Tk && d < a.D ? to_float(vg[kr * a.vs[1] + d]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kWideBK; ++kk) {
+      float pv[4], vv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = ps[(r0 + i) * kWidePitch + kk];
+#pragma unroll
+      for (int x = 0; x < 8; ++x) vv[x] = vs[kk * kWideDV + lc + 16 * x];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int x = 0; x < 8; ++x) o[i][x] = fmaf(pv[i], vv[x], o[i][x]);
+    }
+    // the next tile's first barrier keeps p and V until every thread is done
+  }
+
+  const long long rows_all = static_cast<long long>(a.B) * a.H * a.Tq;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + r0 + i;
+    if (row >= a.Tq) continue;
+    const long long r = static_cast<long long>(bp.bh) * a.Tq + row;
+    const bool ml = bp.cg == 0 && lc == 0;
+    if (SPLIT) {
+      const long long slot = blockIdx.z * rows_all + r;
+      float* wo = a.ws + slot * a.D;
+#pragma unroll
+      for (int x = 0; x < 8; ++x) {
+        const int col = c0 + lc + 16 * x;
+        if (col < a.D) wo[col] = o[i][x];
+      }
+      if (ml) {
+        float* wm = a.ws + gridDim.z * rows_all * a.D;
+        wm[slot] = m[i];
+        wm[gridDim.z * rows_all + slot] = l[i];
+      }
+    } else {
+      T* out = static_cast<T*>(a.o) + bp.b * a.os[0] + row * a.os[1] +
+               bp.h * a.os[2];
+#pragma unroll
+      for (int x = 0; x < 8; ++x) {
+        const int col = c0 + lc + 16 * x;
+        if (col < a.D) out[col] = from_float<T>(o[i][x]);
+      }
+      if (ml) {
+        a.m[r] = m[i];
+        a.l[r] = l[i];
+      }
+    }
+  }
+}
+
 // K3's second pass.  Merge the split partials of every (row, d): m = max_s m_s,
 // l = sum_s l_s exp(m_s - m), o = sum_s o_s exp(m_s - m), in split order.
 template <typename T>
@@ -1165,12 +1226,9 @@ __global__ void merge_splits(const Args a, int splits) {
   }
 }
 
-// ---- host side --------------------------------------------------------------
+// ---- host side -------------------------------------------------------------
 
 int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
-
-// dtype codes of the C interface
-constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
 
 // The tiles of a dtype's route at head size D: query rows per block, keys
 // per KV tile, columns of O per column group (see the note at the top)
@@ -1178,6 +1236,7 @@ struct Tiles {
   int bq, bk, dv;
 };
 Tiles route_tiles(int dtype, int D) {
+  if (D > kMaxTcD) return Tiles{kWideBQ, kWideBK, kWideDV};
   if (dtype == kF32) {
     if (D <= 64) return Tiles{128, 64, 64};
     if (D <= 128) return Tiles{64, 32, 128};
@@ -1188,14 +1247,14 @@ Tiles route_tiles(int dtype, int D) {
 }
 
 // dims = B, H, Tq, Tk, D, q_off, k_off, causal.  False when the shape is
-// outside the kernels' range (D a multiple of 8 up to 256: the wrappers
+// outside the kernels' range (D a multiple of 8 up to 65536: the wrappers
 // pad other head sizes) or dtype is not one of the three.
 bool read_dims(const long long* dims, int dtype, Args* a) {
   const long long B = dims[0], H = dims[1], Tq = dims[2], Tk = dims[3],
                   D = dims[4];
   if (dtype != kF32 && dtype != kBF16 && dtype != kF16) return false;
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) return false;
-  if (D < 8 || D > kMaxD || D % 8) return false;
+  if (D < 8 || D > (1 << 16) || D % 8) return false;
   if (B * H > 65535 || Tq > (1LL << 30) || Tk > (1LL << 30)) return false;
   a->B = static_cast<int>(B);
   a->H = static_cast<int>(H);
@@ -1249,26 +1308,6 @@ void read_strides(const long long* st, Args* a) {
   }
 }
 
-// cuTensorMapEncodeTiled from libcuda.so.1, which the CUDA runtime already
-// loaded (the build links only the runtime)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(
-                                dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
 // The 4-D map (D, H, T, B) of a tensor of `dtype` with b, t, h strides st
 // (elements), read in boxes of 128 bytes of columns x `rows` rows,
 // 128-byte swizzled; boxes past T or D are zero-filled.
@@ -1277,10 +1316,6 @@ bool tensor_map(CUtensorMap* map, const void* ptr, const long long* st,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const int item = dtype == kF32 ? 4 : 2;
-  const CUtensorMapDataType type =
-      dtype == kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-      : dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   const cuuint64_t dim[4] = {static_cast<cuuint64_t>(a.D),
                              static_cast<cuuint64_t>(a.H),
                              static_cast<cuuint64_t>(T),
@@ -1291,9 +1326,9 @@ bool tensor_map(CUtensorMap* map, const void* ptr, const long long* st,
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / item), 1,
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, type, 4, const_cast<void*>(ptr), dim, stride, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return encode(map, map_type(dtype), 4, const_cast<void*>(ptr), dim, stride,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -1341,10 +1376,28 @@ cudaError_t launch_16(const Args& a, int dtype, int splits,
   return launch_tc<T, 256, 128, 64, SPLIT>(a, dtype, splits, stream);
 }
 
+template <typename T, bool SPLIT>
+cudaError_t launch_wide(const Args& a, int splits, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide<T, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWideSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(a.Tq, kWideBQ) * cdiv(a.D, kWideDV), a.B * a.H,
+                  splits);
+  flash_fwd_wide<T, SPLIT><<<grid, kWideThreads, kWideSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // the first pass of the dtype's route (the tiles of route_tiles)
 template <bool SPLIT>
 cudaError_t launch_attend(const Args& a, int dtype, int splits,
                           cudaStream_t stream) {
+  if (a.D > kMaxTcD) {
+    if (dtype == kBF16)
+      return launch_wide<__nv_bfloat16, SPLIT>(a, splits, stream);
+    if (dtype == kF16) return launch_wide<__half, SPLIT>(a, splits, stream);
+    return launch_wide<float, SPLIT>(a, splits, stream);
+  }
   if (dtype == kBF16)
     return launch_16<__nv_bfloat16, SPLIT>(a, dtype, splits, stream);
   if (dtype == kF16) return launch_16<__half, SPLIT>(a, dtype, splits, stream);

@@ -20,21 +20,23 @@ design does about it):
 * K3, `flash_fwd_stream`: the KV range split across blocks, then merged
   (replaces the Pallas `_fwd_kernel_stream` behind `_stream_tpu`).
 
-Both run on the tensor cores (``wgmma``, K/V tiles fed by TMA): bf16 and
-fp16 in one pass, fp32 in three TF32 passes (3xTF32, fp32-accurate).
+Up to D = 256 both run on the tensor cores (``wgmma``, K/V tiles fed by
+TMA): bf16 and fp16 in one pass, fp32 in three TF32 passes (3xTF32,
+fp32-accurate).
 `_route` picks between K2 and K3 with the JAX package's rule
 (``MXNET_FLASH_VMEM_MB``, see `config`).  On a CUDA tensor a wrapper
 launches its kernel or raises; only a tensor on the CPU takes the plain
 version `_partial_ref`.  The kernels take head sizes that are multiples
-of 8 up to 256; the wrappers zero-pad any other D below 256 to the next
-multiple of 8 (`_pad_head`), scale by 1/sqrt of the original D and slice
-o back.  On the card ``block_q`` and ``block_k`` steer only the plain
-version and the backward's loop: the kernels choose their own tiles.  A
-row that sees no key (causal, ``q_off + row < k_off``) gives m = -1e30,
-l = 0 and o = 0, as the TPU kernel does.  In float16 the unnormalised o
-of a long row can pass 65504 and become inf, as the TPU kernel's cast of
-its fp32 accumulator does; the normalised output of `flash_attention`
-is then not finite either.
+of 8 (above 256 on a CUDA-core kernel of their own); the wrappers
+zero-pad any other D to the next multiple of 8 (`_pad_head`), scale by
+1/sqrt of the original D and slice o back, and copy an operand whose
+layout the kernels cannot read (`_readable`).  On the card ``block_q``
+and ``block_k`` steer only the plain version and the backward's loop:
+the kernels choose their own tiles.  A row that sees no key (causal,
+``q_off + row < k_off``) gives m = -1e30, l = 0 and o = 0, as the TPU
+kernel does.  In float16 the unnormalised o of a long row can pass 65504
+and become inf, as the TPU kernel's cast of its fp32 accumulator does;
+the normalised output of `flash_attention` is then not finite either.
 """
 from __future__ import annotations
 
@@ -51,7 +53,6 @@ __all__ = ["flash_attention", "flash_attention_partial", "flash_fwd",
 
 _NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_MAX_D = 256      # the widest head the kernels take
 
 
 def _partial_ref(q3, k3, v3, q_off, k_off, causal, block_k, scale=None):
@@ -157,13 +158,23 @@ def _pad_head(x):
     return torch.nn.functional.pad(x, (0, pad)) if pad else x
 
 
+def _readable(x):
+    """x, or a fresh contiguous copy of it where the kernels cannot read
+    its layout: the head dimension contiguous, the other strides multiples
+    of 8 elements and the data 16-byte aligned (TMA's rule)."""
+    st = x.stride()
+    if st[3] != 1 or any(s % 8 for s in st[:3]) or x.data_ptr() % 16:
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
 def _kernel_call(name, q, k, v, q_off, k_off, causal):
-    """Validate CUDA operands and pad their head dimension (`_pad_head`);
-    allocate o (padded), m, l (uninitialised: the kernels write every
-    row); the dims and strides arrays of the C interface.  Returns the
-    padded q, k, v, then o, m, l, dims, strides; None for the arrays when
-    the call has no work (an empty dimension): then o, m, l already hold
-    the result."""
+    """Validate CUDA operands, pad their head dimension (`_pad_head`) and
+    copy what the kernels cannot read (`_readable`); allocate o (padded),
+    m, l (uninitialised: the kernels write every row); the dims and
+    strides arrays of the C interface.  Returns the padded q, k, v, then
+    o, m, l, dims, strides; None for the arrays when the call has no work
+    (an empty dimension): then o, m, l already hold the result."""
     if q.device.type != "cuda":
         raise MXNetError(f"{name}: no kernel for device {q.device}")
     if q.dtype not in _DTYPE_CODE:
@@ -171,18 +182,7 @@ def _kernel_call(name, q, k, v, q_off, k_off, causal):
                          f"float16, got {q.dtype}")
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    if not 1 <= D <= _MAX_D:
-        raise MXNetError(f"{name}: head size D={D} of q {tuple(q.shape)} is "
-                         f"outside the kernel's range 1..{_MAX_D} (Q of a "
-                         "block and a K tile fill its shared memory)")
-    q, k, v = (_pad_head(x) for x in (q, k, v))
-    for t, what in ((q, "q"), (k, "k"), (v, "v")):
-        st = t.stride()
-        if st[3] != 1 or any(s % 8 for s in st[:3]) or t.data_ptr() % 16:
-            raise MXNetError(
-                f"{name}: {what} {tuple(t.shape)} with strides {st} is a "
-                "layout the kernel cannot read (head dimension contiguous, "
-                "other strides multiples of 8, 16-byte aligned)")
+    q, k, v = (_readable(_pad_head(x)) for x in (q, k, v))
     Dp = q.shape[3]
     o = torch.empty((B, Tq, H, Dp), dtype=q.dtype, device=q.device)
     if B * H * Tq == 0 or Tk == 0:
@@ -237,8 +237,8 @@ def stream_plan(q, k, q_off=0, k_off=0, causal=False):
     of 8): a dict of KV ranges (``splits``), KV tiles per range
     (``chunk``), fp32 workspace elements (``workspace``), the dtype's
     route's keys per KV tile (``tile``), query rows per block (``rows``)
-    and column groups of O (``groups``, 2 above D = 128), and the SM
-    count; None outside the kernel's range."""
+    and column groups of O (``groups``: D / 128 rounded up above
+    D = 128), and the SM count; None outside the kernel's range."""
     if q.dtype not in _DTYPE_CODE:
         return None
     lib = _lib()

@@ -5,17 +5,20 @@ backend keep their names (`_sg_pallas_fc_relu`, ``TPU_PALLAS``) because
 partitioned symbol JSON and ``MXNET_SUBGRAPH_BACKEND`` values carry them.
 
 Kernel K1 — `fc_relu(x, w, b)` = relu(x @ w.T + b) — replaces the Pallas
-kernel `_fc_relu_pallas` with the hand-written CUDA kernel in
-``csrc/fc_relu.cu`` (see the note there for what bounds it on the card
-and what its design does about that).  On a CUDA tensor the wrapper
-launches that kernel or raises; only a tensor on the CPU goes to the
-plain version `fc_relu_ref`.  `FCRelu` is the autograd Function: its
-backward is plain torch, mirroring the jnp backward of the JAX package's
-custom VJP (which is not a Pallas kernel either).
+kernel `_fc_relu_pallas` with the hand-written CUDA kernels in
+``csrc/fc_relu.cu``: a tensor-core route (``wgmma`` fed by a TMA ring,
+3xTF32 in float32) and a CUDA-core route, chosen by the library's launch
+plan from the shape and alignment (see the note there for what bounds
+them on the card and what their design does about that).  On a CUDA
+tensor the wrapper launches a kernel or raises; only a tensor on the CPU
+goes to the plain version `fc_relu_ref`.  `FCRelu` is the autograd
+Function: its backward is plain torch, mirroring the jnp backward of the
+JAX package's custom VJP (which is not a Pallas kernel either).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,10 +27,12 @@ from ..ops import registry as _reg
 from .subgraph_property import SubgraphProperty, register_subgraph_property
 from .partition import external_inputs
 
-__all__ = ["fc_relu", "fc_relu_ref", "launch_plan", "FCRelu",
+__all__ = ["fc_relu", "fc_relu_ref", "launch_plan", "FCRelu", "ROUTES",
            "PallasFCReluProperty"]
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the kernel library's routes (mx_fc_relu_plan's route codes)
+ROUTES = ("cuda_core", "tensor_core")
 
 
 def fc_relu_ref(x, w, b):
@@ -43,31 +48,49 @@ def _lib():
         p = ctypes.c_void_p
         i = ctypes.c_int
         ll = ctypes.c_longlong
-        lib.mx_fc_relu_plan.argtypes = [p, p, i, i, i, i, i,
+        lib.mx_fc_relu_plan.argtypes = [p, p, i, i, i, i, i, i,
                                         ctypes.POINTER(ll)]
         lib.mx_fc_relu_plan.restype = i
-        lib.mx_fc_relu.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p]
+        lib.mx_fc_relu.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, p]
         lib.mx_fc_relu.restype = i
         lib.mx_cuda_error_string.argtypes = [i]
         lib.mx_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def launch_plan(x, w):
-    """The kernel's launch plan for x (M, K) and w (N, K) on their CUDA
-    device, as the kernel library computes it: a dict of rows per block,
-    K splits, K elements per split, elements per lane load, fp32
-    workspace elements, and the SM count it was planned for; None when
-    the shape is outside the kernel's range."""
+def _route_code(route):
+    if route is None:
+        return -1
+    if route not in ROUTES:
+        raise MXNetError(f"fc_relu: route {route!r} is not one of {ROUTES}")
+    return ROUTES.index(route)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_plan(x, w, route=None):
+    """The kernels' launch plan for x (M, K) and w (N, K) on their CUDA
+    device, as the kernel library computes it: a dict of the ``route``
+    (one of `ROUTES`; None lets the library choose, else the plan is for
+    that route), rows of x per block, K splits, K elements per split, K
+    elements per step (a warp step or a ring stage), elements per lane
+    load (cuda_core; 0 for tensor_core), fp32 workspace elements, and the
+    SM count it was planned for; None when the shape is outside the
+    kernels' range (or the route's)."""
     lib = _lib()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = (ctypes.c_longlong * 5)()
+    sms = _sm_count(x.device)
+    plan = (ctypes.c_longlong * 7)()
     if lib.mx_fc_relu_plan(x.data_ptr(), w.data_ptr(), x.shape[0],
                            w.shape[0], x.shape[1], _DTYPE_CODE[x.dtype],
-                           sms, plan):
+                           sms, _route_code(route), plan):
         return None
-    return dict(zip(("rows", "splits", "k_chunk", "vec", "workspace"), plan),
-                sm_count=sms)
+    out = dict(zip(("route", "rows", "splits", "k_chunk", "step", "vec",
+                    "workspace"), plan), sm_count=sms)
+    out["route"] = ROUTES[out["route"]]
+    return out
 
 
 def _check(x, w, b):
@@ -86,28 +109,30 @@ def _check(x, w, b):
                          f"{x.device}, {w.device}, {b.device}")
 
 
-def fc_relu(x, w, b):
-    """K1: relu(x @ w.T + b).  CUDA tensors launch the kernel (counted in
-    ``fc_relu.launches``); CPU tensors take `fc_relu_ref`."""
+def fc_relu(x, w, b, route=None):
+    """K1: relu(x @ w.T + b).  CUDA tensors launch the kernels of the
+    library's plan, or of ``route`` (one of `ROUTES`) when given, and
+    count one in ``fc_relu.launches`` per call; non-contiguous operands
+    are copied to contiguous ones first.  CPU tensors take
+    `fc_relu_ref`."""
     _check(x, w, b)
     if x.device.type == "cpu":
         return fc_relu_ref(x, w, b)
     if x.device.type != "cuda":
         raise MXNetError(f"fc_relu: no kernel for device {x.device}")
     if x.dtype not in _DTYPE_CODE:
-        raise MXNetError(f"fc_relu: kernel takes float32 or bfloat16, got "
-                         f"{x.dtype}")
-    if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
-        raise MXNetError("fc_relu: x, w and b must be contiguous")
+        raise MXNetError(f"fc_relu: kernel takes float32, bfloat16 or "
+                         f"float16, got {x.dtype}")
+    x, w, b = (t.contiguous() for t in (x, w, b))
     m, k = x.shape
     n = w.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    plan = launch_plan(x, w)
+    plan = launch_plan(x, w, route)
     if plan is None:
         raise MXNetError(f"fc_relu: x {tuple(x.shape)}, w {tuple(w.shape)} "
-                         "are outside the kernel's range")
+                         f"are outside the kernels' range (route {route})")
     ws = (torch.empty(plan["workspace"], dtype=torch.float32,
                       device=x.device) if plan["workspace"] else None)
     lib = _lib()
@@ -116,6 +141,7 @@ def fc_relu(x, w, b):
             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), plan["workspace"],
             m, n, k, _DTYPE_CODE[x.dtype], plan["sm_count"],
+            _route_code(plan["route"]),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise MXNetError("fc_relu: kernel launch failed: "

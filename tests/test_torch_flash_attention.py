@@ -109,12 +109,14 @@ def test_padded_head_matches_the_interpreted_kernel(monkeypatch, D, causal):
     assert tfa._pad_head(same) is same
 
 
-# float16 and head sizes past 128 (the kernels' two column groups of O),
-# through the plain version here.  float16 tolerance: o is rounded to
-# fp16 (2**-11 relative) after fp32 sums taken in other orders, so the two
-# roundings may land one fp16 ulp apart (2**-10 relative); 2e-3.
+# float16 and head sizes past 128 (the kernels' column groups of O) and
+# past 256 (the CUDA-core route), through the plain version here.  float16
+# tolerance: o is rounded to fp16 (2**-11 relative) after fp32 sums taken
+# in other orders, so the two roundings may land one fp16 ulp apart
+# (2**-10 relative); 2e-3.
 WIDE = [("float32", 136), ("float32", 200), ("float32", 256),
-        ("float16", 16), ("float16", 136), ("float16", 256)]
+        ("float16", 16), ("float16", 136), ("float16", 256),
+        ("float32", 264), ("float16", 320), ("float32", 512)]
 WIDE_TOL = {"float32": TOL, "float16": dict(rtol=2e-3, atol=2e-3)}
 
 
@@ -129,7 +131,7 @@ def _as_dtype(arrays, dtype):
 @pytest.mark.parametrize("dtype,D", WIDE)
 def test_partial_fp16_and_wide_heads(monkeypatch, dtype, D, causal, offsets,
                                      route):
-    """K2 and K3's plain version at float16 and D = 136..256 against the
+    """K2 and K3's plain version at float16 and D = 136..512 against the
     JAX package's interpreted kernel of the same route (the stream route
     under a 0.001 MiB budget)."""
     if route == "stream":
@@ -179,6 +181,34 @@ def test_flash_attention_fp16_and_wide_heads(monkeypatch, dtype, D, causal):
         np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
                                    atol=tol * max(1.0, np.abs(want).max()),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_unreadable_layouts_are_copied(monkeypatch, causal):
+    """Operands the kernels cannot read as they lie (a stride of 13
+    elements, a head dimension with stride 2, data 4 bytes past an aligned
+    address) become fresh contiguous copies (`_readable`), and a readable
+    operand is passed through; the partial attention of such operands
+    (the plain version here) matches the interpreted JAX kernel."""
+    q, k, v = _qkv(1, 32, 2, 13, seed=11)
+    tq = torch.from_numpy(q)[..., :12]                   # strides of 13
+    tk = torch.from_numpy(np.repeat(k[..., :12], 2, axis=3))[..., ::2]
+    flat = torch.zeros(v[..., :12].size + 1)
+    tv = flat[1:].view(1, 32, 2, 12).copy_(torch.from_numpy(v[..., :12]))
+    assert tq.stride()[2] == 13 and tk.stride()[3] == 2
+    assert tv.data_ptr() % 16 == 4
+    for t in (tq, tk, tv):
+        c = tfa._readable(t)
+        assert c is not t and c.is_contiguous() and c.data_ptr() % 16 == 0
+        assert torch.equal(c, t)
+    ready = torch.zeros(1, 32, 2, 16)
+    assert tfa._readable(ready) is ready
+    args = (0, 0, causal, 16, 16)
+    got = [x.numpy() for x in tfa.flash_attention_partial(tq, tk, tv,
+                                                          *args)]
+    want = _jax_partial(monkeypatch, True, *(x.numpy() for x in
+                                             (tq, tk, tv)), *args)
+    _close(got, want, "interpreted kernel")
 
 
 def _tf32(x):

@@ -45,6 +45,120 @@ def test_fc_relu_matches_pallas_kernel(m, k, n):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+# float16: both sides sum in fp32 (jnp.dot with preferred_element_type
+# float32, torch on the fp32 copies) and round once to fp16, which may land
+# one fp16 ulp (2**-10 relative) apart
+FP16_TOL = dict(rtol=2.0 ** -9, atol=2.0 ** -9)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 10, 16), (5, 784, 128)])
+def test_fc_relu_fp16_matches_pallas_kernel(m, k, n):
+    """K1's plain version in float16 (the dtype the card's kernels took
+    last) against the interpreted Pallas kernel in float16."""
+    x, w, b = (a.astype(np.float16) for a in _inputs(m, k, n, seed=4))
+    want = np.asarray(_fc_relu_pallas(jnp.asarray(x), jnp.asarray(w),
+                                      jnp.asarray(b)))
+    assert want.dtype == np.float16
+    got = fc_relu(*map(torch.from_numpy, (x, w, b)))
+    assert got.dtype == torch.float16 and got.shape == (m, n)
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
+                               **FP16_TOL)
+
+
+def test_fc_relu_takes_non_contiguous_operands():
+    """x and w as transposed views (strides (1, M) and (1, N)) and b as a
+    strided slice give the contiguous operands' result, as the JAX kernel
+    computes it; on the card the wrapper copies them to contiguous
+    tensors and launches."""
+    x, w, b = _inputs(5, 784, 128, seed=5)
+    want = np.asarray(_fc_relu_pallas(jnp.asarray(x), jnp.asarray(w),
+                                      jnp.asarray(b)))
+    tx = torch.from_numpy(np.ascontiguousarray(x.T)).T
+    tw = torch.from_numpy(np.ascontiguousarray(w.T)).T
+    tb = torch.from_numpy(np.repeat(b, 2))[::2]
+    assert not (tx.is_contiguous() or tw.is_contiguous()
+                or tb.is_contiguous())
+    got = fc_relu(tx, tw, tb)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    got = FCRelu.apply(tx, tw, tb)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL,
+                               atol=ATOL)
+
+
+# -- the tensor-core route's float32 arithmetic, emulated ------------------
+#
+# csrc/fc_relu.cu's tensor_core route in float32: x and w split into TF32
+# hi and lo (cvt.rna: round to nearest, ties away), three TF32 products
+# per k8 step (w_lo x_hi, w_hi x_lo, then w_hi x_hi) added to a tensor-core
+# accumulator whose fp32 sums round toward zero, that accumulator added
+# to a CUDA-core total (round to nearest) every PROMOTE elements of K,
+# the split partials summed in split order, then bias and ReLU.  The
+# tensor core's sum of one k8 step's 8 products is taken as exact.
+
+def _tf32(a):
+    """a (float32) rounded to TF32 as cvt.rna.tf32.f32 does."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _toward_zero(a):
+    """float64 a rounded to float32 toward zero."""
+    f = a.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(a)
+    return np.where(over, np.nextafter(f, np.float32(0)), f)
+
+
+def _emulate_k1_fp32(x, w, b, passes, k_chunk, promote):
+    m, k = x.shape
+    n = w.shape[0]
+    steps = k // 8
+
+    def k8_sums(a, c):           # exact sum of each k8 step: (steps, m, n)
+        return np.einsum("msk,nsk->smn",
+                         a.reshape(m, steps, 8).astype(np.float64),
+                         c.reshape(n, steps, 8).astype(np.float64))
+    xh, wh = _tf32(x), _tf32(w)
+    terms = [k8_sums(xh, wh)]
+    if passes == 3:
+        terms = [k8_sums(xh, _tf32(w - wh)), k8_sums(_tf32(x - xh), wh),
+                 terms[0]]
+    total = np.zeros((m, n), np.float32)
+    for k0 in range(0, k, k_chunk):
+        part = np.zeros((m, n), np.float32)
+        for p0 in range(k0, min(k, k0 + k_chunk), promote):
+            span = range(p0 // 8, min(k, k0 + k_chunk, p0 + promote) // 8)
+            acc = np.zeros((m, n), np.float32)
+            order = [(s, sums) for s in span for sums in terms[:-1]]
+            order += [(s, terms[-1]) for s in span]   # hi x hi last
+            for s, sums in order:
+                acc = _toward_zero(acc.astype(np.float64) + sums[s])
+            part = (part + acc).astype(np.float32)
+        total = (total + part).astype(np.float32)
+    return np.maximum(total + b, 0).astype(np.float32)
+
+
+def test_k1_fp32_route_arithmetic_meets_the_tolerance():
+    """At VGG-16's fc6 (K = 25088), with the plan of M = 32 on 132 SMs (9
+    K ranges of 2816) and the chosen promotion interval (one ring stage,
+    32 of K), 3xTF32 meets chip_smoke's float32 tolerance (rtol 1e-4 +
+    1e-4*max|ref|, against the exact product) at 1e-3 of it; one TF32
+    pass misses it; and one unpromoted K chain of 25088 drifts over 20x
+    further from the exact product than the promoted sums (the
+    accumulator's rounding toward zero)."""
+    x, w, b = _inputs(8, 25088, 32, seed=6)
+    ref = np.maximum(x.astype(np.float64) @ w.astype(np.float64).T + b, 0)
+
+    def err(**plan):
+        got = _emulate_k1_fp32(x, w, b, **plan)
+        d = np.abs(got - ref)
+        bound = 1e-4 * np.abs(ref) + 1e-4 * np.abs(ref).max()
+        return d.max(), (d / bound).max()
+    promoted, share = err(passes=3, k_chunk=2816, promote=32)
+    assert share < 0.01
+    assert err(passes=1, k_chunk=2816, promote=32)[1] > 1
+    assert err(passes=3, k_chunk=25088, promote=25088)[0] > 20 * promoted
+
+
 def test_fc_relu_bf16_plain_version_keeps_dtype():
     x, w, b = (torch.from_numpy(a).to(torch.bfloat16)
                for a in _inputs(5, 784, 128))

@@ -19,7 +19,7 @@ import torch
 
 from incubator_mxnet_tpu_torch.base import MXNetError
 from incubator_mxnet_tpu_torch.ops import flash_attention as fa
-from incubator_mxnet_tpu_torch.subgraph.fused_ops import (fc_relu,
+from incubator_mxnet_tpu_torch.subgraph.fused_ops import (ROUTES, fc_relu,
                                                           fc_relu_ref,
                                                           launch_plan)
 
@@ -35,52 +35,128 @@ def _inputs(m, k, n, seed=0):
 @pytest.mark.cuda
 def test_launch_plan_covers_k_and_fills_the_card():
     """The kernel library's own launch plan (it lives beside the tile
-    constants in csrc/fc_relu.cu)."""
+    constants in csrc/fc_relu.cu), for the library's route and each
+    route asked for: cuda_core blocks of 1-8 rows of x stepping K by
+    32 lane loads; tensor_core M tiles of 8-64 rows stepping K by 128
+    bytes (a ring stage), its float32 workspace holding x_hi and x_lo
+    before the split partials; K covered by the splits; the VGG-16
+    classifier filling the card (tensor_core: in one wave)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; run on the card")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for m, k, n, dt in [(1, 25088, 4096, torch.float32),
                         (8, 4096, 4096, torch.bfloat16),
                         (32, 25088, 4096, torch.float32),
+                        (32, 25088, 4096, torch.bfloat16),
+                        (128, 4096, 4096, torch.float16),
                         (5, 784, 128, torch.float32),
                         (8, 10, 16, torch.float32)]:
         x = torch.zeros(m, k, dtype=dt, device="cuda")
         w = torch.zeros(n, k, dtype=dt, device="cuda")
-        plan = launch_plan(x, w)
-        vec = plan["vec"]
-        assert vec == (16 // x.element_size() if k % (16 // x.element_size())
-                       == 0 else 1)
-        assert plan["rows"] >= min(m, 8) and plan["rows"] in (1, 2, 4, 8)
-        assert plan["k_chunk"] % (32 * vec) == 0
-        splits, k_chunk = plan["splits"], plan["k_chunk"]
-        assert splits * k_chunk >= k > (splits - 1) * k_chunk
-        assert plan["workspace"] == (splits * m * n if splits > 1 else 0)
-        if k == 25088:
-            # the VGG-16 classifier at small buckets: a block per SM
-            assert -(-n // 32) * splits >= sms
+        wide = 16 // x.element_size()
+        chosen = launch_plan(x, w)
+        assert chosen["route"] in ROUTES
+        if k % wide:
+            assert chosen["route"] == "cuda_core"
+            assert launch_plan(x, w, "tensor_core") is None
+        for route in ROUTES:
+            plan = launch_plan(x, w, route)
+            if plan is None:
+                continue
+            assert plan["route"] == route
+            if route == chosen["route"]:
+                assert plan == chosen
+            splits, k_chunk = plan["splits"], plan["k_chunk"]
+            assert k_chunk % plan["step"] == 0
+            assert splits * k_chunk >= k > (splits - 1) * k_chunk
+            partials = splits * m * n if splits > 1 else 0
+            if route == "cuda_core":
+                vec = plan["vec"]
+                assert vec == (wide if k % wide == 0 else 1)
+                assert plan["rows"] >= min(m, 8)
+                assert plan["rows"] in (1, 2, 4, 8)
+                assert plan["step"] == 32 * vec
+                assert plan["workspace"] == partials
+                blocks = -(-m // plan["rows"]) * -(-n // 32) * splits
+                if k == 25088:
+                    assert blocks >= sms    # at least a block per SM
+            else:
+                assert plan["vec"] == 0 and plan["step"] == wide * 8
+                assert plan["rows"] in (8, 16, 32, 64)
+                assert plan["rows"] >= min(m, 32)
+                hilo = 2 * m * k if dt == torch.float32 else 0
+                assert plan["workspace"] == partials + hilo
+                blocks = -(-m // plan["rows"]) * -(-n // 128) * splits
+                if k == 25088:
+                    # one wave of two blocks per SM, at least 90 % full
+                    assert 0.9 * 2 * sms <= blocks <= 2 * sms
     x = torch.zeros(2, 64, device="cuda")
     too_wide = torch.zeros(1, 64, device="cuda").expand(2 ** 21 + 1, 64)
     assert launch_plan(x, too_wide) is None
 
 
+# K1 vs its plain version.  float32: the same fp32 products (3xTF32 on
+# the tensor cores, ~2**-21 relative each) summed in other orders.  16-bit:
+# both round an fp32 sum to the dtype, which may land one ulp apart
+# (2**-8 relative in bf16, 2**-11 in fp16).
+K1_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6,
+          torch.float16: 2.0 ** -9}
+# (M, K, N): every M tile edge of both routes, ragged N, and K % 4 != 0
+# (a row stride TMA cannot read: cuda_core only)
+K1_SHAPES = ([(m, 1024, 256) for m in (1, 7, 8, 9, 16, 32, 33, 128)]
+             + [(5, 784, 128), (8, 10, 16), (3, 4096, 100), (40, 2048, 100),
+                (9, 4098, 64)])
+
+
+def _k1_call(x, w, b, route=None):
+    before = fc_relu.launches
+    got = fc_relu(x, w, b, route)
+    torch.cuda.synchronize()
+    assert fc_relu.launches == before + 1
+    tol = K1_TOL[x.dtype]
+    torch.testing.assert_close(got.float(), fc_relu_ref(x, w, b).float(),
+                               rtol=tol, atol=tol)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_fc_relu_kernel_on_card(dtype):
-    """K1 on the card against its plain version (the chip smoke covers
-    the full VGG-16 shapes)."""
+    """K1 on the card against its plain version, through the library's
+    route and each route that takes the shape; the route the plan
+    reports; non-contiguous operands (copied) and an x 4 bytes past an
+    aligned address (cuda_core in 16-bit, whose TMA reads x directly).
+    The chip smoke covers the full VGG-16 shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; run on the card")
     dt = getattr(torch, dtype)
-    for m, k, n in [(5, 784, 128), (8, 10, 16), (3, 4096, 100)]:
+    wide = 16 // torch.empty((), dtype=dt).element_size()
+    for m, k, n in K1_SHAPES:
         x, w, b = (torch.from_numpy(a).to("cuda", dt)
                    for a in _inputs(m, k, n))
-        before = fc_relu.launches
-        got = fc_relu(x, w, b)
-        torch.cuda.synchronize()
-        assert fc_relu.launches == before + 1
-        tol = 1e-4 if dt == torch.float32 else 2.0 ** -6
-        torch.testing.assert_close(got.float(), fc_relu_ref(x, w, b).float(),
-                                   rtol=tol, atol=tol)
+        plan = launch_plan(x, w)
+        if k % wide:
+            assert plan["route"] == "cuda_core"
+        _k1_call(x, w, b)
+        for route in ROUTES:
+            if launch_plan(x, w, route) is not None:
+                _k1_call(x, w, b, route)
+    x, w, b = (torch.from_numpy(a).to("cuda", dt)
+               for a in _inputs(33, 1024, 256, seed=1))
+    _k1_call(x.T.contiguous().T, w.T.contiguous().T, b)   # strides (1, M)
+    flat = torch.empty(33 * 1024 + wide, dtype=dt, device="cuda")
+    shift = 4 // flat.element_size()
+    xs = flat[shift:shift + 33 * 1024].view(33, 1024).copy_(x)
+    assert xs.data_ptr() % 16 == 4
+    if dt == torch.float32:     # TMA reads x's TF32 halves, not x
+        assert launch_plan(xs, w, "tensor_core") is not None
+    else:
+        assert launch_plan(xs, w, "tensor_core") is None
+        plan = launch_plan(xs, w)
+        assert plan["route"] == "cuda_core" and plan["vec"] == 1
+    _k1_call(xs, w, b)
+    for route in ROUTES:
+        if launch_plan(xs, w, route) is not None:
+            _k1_call(xs, w, b, route)
 
 
 def _need_card():
@@ -132,7 +208,9 @@ def _assert_partial_close(got, want, dtype):
 # differently (8, 24 and 96 zero-filled past D, 100 padded by the
 # wrapper), a ragged T = 1000 over several KV tiles, and Tq != Tk both
 # ways; above D = 128, two column groups of O: 136 (the second group 8
-# columns wide), 200 and 256
+# columns wide), 200 and 256; above 256 (the CUDA-core route), 264 (a
+# third group 8 columns wide and a 64-column chunk of D with 8), 320 and
+# 512, at ragged T
 ATTN_SHAPES = [(2, 64, 64, 2, 16), (1, 100, 100, 2, 64), (2, 128, 128, 1, 128),
                (1, 64, 64, 2, 100)]
 ATTN_SHAPES_EDGE = [(1, 130, 130, 2, 8), (1, 200, 200, 1, 24),
@@ -141,6 +219,8 @@ ATTN_SHAPES_EDGE = [(1, 130, 130, 2, 8), (1, 200, 200, 1, 24),
                     (1, 320, 64, 1, 64)]
 ATTN_SHAPES_WIDE = [(1, 100, 100, 2, 136), (1, 130, 200, 1, 200),
                     (2, 96, 96, 1, 256), (1, 300, 300, 1, 256)]
+ATTN_SHAPES_PAST_256 = [(1, 100, 100, 2, 264), (1, 130, 200, 1, 320),
+                        (1, 200, 70, 1, 512)]
 # (q_off, k_off): 32 and 96 put the diagonal inside a 128-row q tile
 ATTN_OFFSETS = [(0, 0), (64, 0), (32, 0), (96, 0)]
 
@@ -162,12 +242,14 @@ def _check_call(fwd, dt, q, k, v, q_off, k_off, causal):
 @pytest.mark.parametrize("wrapper", ["flash_fwd", "flash_fwd_stream"])
 def test_flash_kernels_on_card(wrapper, dtype):
     """K2 and K3 against `_partial_ref` at small shapes (ATTN_SHAPES,
-    ATTN_SHAPES_EDGE, ATTN_SHAPES_WIDE), causal and not, at ring offsets;
-    the fully-above shard; q, k, v sliced from one packed tensor."""
+    ATTN_SHAPES_EDGE, ATTN_SHAPES_WIDE, ATTN_SHAPES_PAST_256), causal and
+    not, at ring offsets; the fully-above shard; q, k, v sliced from one
+    packed tensor."""
     _need_card()
     dt = getattr(torch, dtype)
     fwd = getattr(fa, wrapper)
-    for B, Tq, Tk, H, D in ATTN_SHAPES + ATTN_SHAPES_EDGE + ATTN_SHAPES_WIDE:
+    for B, Tq, Tk, H, D in (ATTN_SHAPES + ATTN_SHAPES_EDGE + ATTN_SHAPES_WIDE
+                            + ATTN_SHAPES_PAST_256):
         q, k, v = _attn_inputs(B, Tq, H, D, dt, Tk=Tk)
         for causal in (False, True):
             for q_off, k_off in ATTN_OFFSETS:
@@ -208,6 +290,8 @@ def test_wgmma_tf32_facts_the_fp32_route_relies_on(tmp_path):
 
 @pytest.mark.cuda
 def test_flash_routes_by_budget(monkeypatch):
+    """The budget picks K2 or K3, also above D = 256 (K3 forced with
+    MXNET_FLASH_VMEM_MB=0.001), in every dtype, at a ring offset."""
     _need_card()
     q, k, v = _attn_inputs(1, 256, 2, 64, torch.bfloat16)
     for budget, wrapper in [("10", fa.flash_fwd),
@@ -216,27 +300,48 @@ def test_flash_routes_by_budget(monkeypatch):
         before = wrapper.launches
         fa.flash_attention_partial(q, k, v, causal=True)
         assert wrapper.launches == before + 1
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        q, k, v = _attn_inputs(1, 150, 2, 320, dt, seed=3)
+        for budget, wrapper in [("10", fa.flash_fwd),
+                                ("0.001", fa.flash_fwd_stream)]:
+            monkeypatch.setenv("MXNET_FLASH_VMEM_MB", budget)
+            before = wrapper.launches
+            got = fa.flash_attention_partial(q, k, v, 40, 0, causal=True)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1
+            _assert_partial_close(
+                got, fa._ref_bthd(q, k, v, 40, 0, True, 64), dt)
 
 
 @pytest.mark.cuda
 def test_flash_rejects_what_it_cannot_take():
+    """Only a dtype without a kernel raises.  A head dimension that is not
+    contiguous, a stride that is not a multiple of 8 and an operand 4
+    bytes past an aligned address are copied to fresh contiguous tensors
+    and launched; every head size runs."""
     _need_card()
-    q, k, v = _attn_inputs(1, 64, 2, 264, torch.float32)
-    for fwd in (fa.flash_fwd, fa.flash_fwd_stream):
-        with pytest.raises(MXNetError, match="D=264"):
-            fwd(q, k, v)
     q, k, v = _attn_inputs(1, 64, 2, 32, torch.float32)
-    strided = q[..., ::2]                      # head dimension not contiguous
-    with pytest.raises(MXNetError, match="layout"):
-        fa.flash_fwd(strided, k[..., ::2].contiguous(),
-                     v[..., ::2].contiguous())
     with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
         fa.flash_fwd(q.double(), k.double(), v.double())
-    # float16 and every head size up to 256 run
+    for fwd in (fa.flash_fwd, fa.flash_fwd_stream):
+        # head dimension not contiguous
+        _check_call(fwd, torch.float32, q[..., ::2], k[..., ::2],
+                    v[..., ::2], 0, 0, True)
+        # strides of 33 elements: the first 32 columns of a (..., 33) tensor
+        wide = [torch.nn.functional.pad(x, (0, 1)) for x in (q, k, v)]
+        assert wide[0][..., :32].stride()[2] == 33
+        _check_call(fwd, torch.float32, *(x[..., :32] for x in wide), 0, 0,
+                    True)
+        # 4 bytes past an aligned address
+        flat = torch.empty(q.numel() + 4, device="cuda")
+        qs = flat[1:1 + q.numel()].view(q.shape).copy_(q)
+        assert qs.data_ptr() % 16 == 4
+        _check_call(fwd, torch.float32, qs, k, v, 0, 0, True)
+    # float16 and every head size run
     before = fa.flash_fwd.launches
     o, m, l = fa.flash_fwd(q.half(), k.half(), v.half(), causal=True)
     assert fa.flash_fwd.launches == before + 1 and o.dtype == torch.float16
-    for D in (1, 7, 129, 255, 256):
+    for D in (1, 7, 129, 255, 256, 257, 264, 300):
         q, k, v = _attn_inputs(1, 40, 1, D, torch.float32, seed=D)
         _check_call(fa.flash_fwd, torch.float32, q, k, v, 0, 0, True)
 
@@ -244,9 +349,10 @@ def test_flash_rejects_what_it_cannot_take():
 @pytest.mark.cuda
 def test_stream_plan_covers_kv_and_splits_the_long_causal_shape():
     """The plan counts in its route's tiles (fp32: 128 query rows by 64
-    keys at D <= 64, 64 by 32 at D <= 128, 64 by 16 above; bf16 and fp16:
-    128 by 128, 64 keys at D > 64), two column groups of O above D = 128,
-    and cuts the causal triangle into balanced ranges."""
+    keys at D <= 64, 64 by 32 at D <= 128, 64 by 16 to 256; bf16 and
+    fp16: 128 by 128, 64 keys at D > 64; every dtype above 256: 64 by
+    64), a column group of O per 128 columns above D = 128, and cuts the
+    causal triangle into balanced ranges."""
     _need_card()
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         for B, T, H, D, causal in [(1, 32768, 1, 64, True),
@@ -256,17 +362,21 @@ def test_stream_plan_covers_kv_and_splits_the_long_causal_shape():
                                    (1, 100, 1, 20, True),
                                    (1, 1000, 2, 128, True),
                                    (2, 8192, 8, 256, True),
-                                   (1, 1000, 2, 136, False)]:
+                                   (1, 1000, 2, 136, False),
+                                   (1, 1000, 2, 264, True),
+                                   (2, 2048, 8, 512, True)]:
             q = torch.zeros(B, T, H, D, device="cuda", dtype=dt)
             plan = fa.stream_plan(q, q, causal=causal)
             d8 = -(-D // 8) * 8
-            if dt == torch.float32:
+            if d8 > 256:
+                tiles = (64, 64)
+            elif dt == torch.float32:
                 tiles = (128, 64) if d8 <= 64 else \
                     (64, 32) if d8 <= 128 else (64, 16)
             else:
                 tiles = (128, 128 if d8 <= 64 else 64)
             assert (plan["rows"], plan["tile"]) == tiles
-            assert plan["groups"] == (1 if d8 <= 128 else 2)
+            assert plan["groups"] == (1 if d8 <= 128 else -(-d8 // 128))
             nk = -(-T // plan["tile"])
             assert plan["splits"] * plan["chunk"] >= nk > \
                 (plan["splits"] - 1) * plan["chunk"]
