@@ -18,8 +18,10 @@ exits non-zero:
    shape (tensor_core, cuda_core); times of the library's route, of each
    route, the plain version and one library call beside the bound, with
    L2 flushed before every timed launch, and each route's device time
-   (torch.profiler, its kernels only); then the host time per call of
-   each route at fc7, M = 32, beside the library call's.
+   (torch.profiler, its kernels only); then train_mnist's mlp layers,
+   (64, 784 -> 128) and (64, 128 -> 64), in fp32 through both routes;
+   then the host time per call of each route at fc7, M = 32, beside the
+   library call's.
 4. serve VGG-16 at full width (3x224x224, 1000 classes, fp32, random
    weights from a seed) through `serving.ModelServer`: partition with
    TPU_PALLAS, save a checkpoint pair, load it, answer a closed-loop load
@@ -55,6 +57,20 @@ exits non-zero:
    MXNET_FLASH_VMEM_MB=4 (one more K3 launch), checked the same way; then
    forward and forward+backward times beside SDPA's.
 
+6. training: train_mnist's ``mlp`` (under MXNET_SUBGRAPH_BACKEND=
+   TPU_PALLAS, so K1 runs fc1+relu1 and fc2+relu2) and ``lenet`` through
+   the port's `Module.fit` on the card with train_mnist's defaults
+   (synthetic MNIST, 3584 training and 512 validation images, batch 64,
+   SGD lr 0.05 momentum 0.9, Xavier, 10 epochs); first the first 8 steps
+   of each on the card against the same 8 steps on the CPU (same initial
+   parameters and batch order; lenet's max-pool windows that flip between
+   the devices are counted, see `parity_case`); K1's launches exactly 2
+   per mlp train and eval forward and 0 for lenet; validation accuracy
+   above 0.95; the median step ms and samples/s, and K1's share of one
+   profiled mlp step's device time; then the trained mlp's checkpoint
+   served through `serving.ModelServer` in fp32 (held to
+   `Module.predict`) and bf16.
+
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the port's package beside it, the script exits non-zero and
@@ -82,6 +98,23 @@ BUCKETS = (1, 2, 4, 8, 16, 32)
 # K1's rows in phase 3: the serving buckets, and the batch a training step
 # of the classifier runs
 K1_ROWS = BUCKETS + (128,)
+# train_mnist's mlp at batch 64: fc1+relu1 and fc2+relu2, in fp32
+MLP_K1 = ((64, 784, 128), (64, 128, 64))
+# phase 6: train_mnist's defaults (examples/image_classification/
+# train_mnist.py:69-100, :60-66)
+TRAIN_IMAGES, TRAIN_SPLIT, TRAIN_BATCH, TRAIN_EPOCHS = 4096, 3584, 64, 10
+TRAIN_LR, TRAIN_MOMENTUM = 0.05, 0.9
+PARITY_STEPS = 8
+# card vs CPU over 8 steps, TF32 off: fp32 sums in other orders (3xTF32
+# in K1) through momentum SGD; the loss per step and every parameter
+PARITY_TOL = (1e-3, 1e-4)
+# served fp32 answers vs Module.predict: the served graph is the saved,
+# unpartitioned one (cuBLAS FC+ReLU) and predict's runs K1, so fp32 sums
+# in other orders
+SERVE_TRAIN_TOL = (1e-4, 1e-5)
+# bf16 serving vs the fp32 answers: each layer's output rounded to bf16
+# (2**-8 relative), compounding over three layers and the softmax
+SERVE_BF16_TOL = (2.0 ** -5, 2.0 ** -6)
 # the kernels a K1 call launches (split_tf32 and splitk_epilogue where the
 # plan needs them), for the profiler's device time
 K1_KERNELS = ("fc_relu_kernel", "fc_relu_tc", "split_tf32", "splitk_epilogue")
@@ -322,8 +355,21 @@ def k1_case(x, w, b, card, flush):
     return t
 
 
+def note_slower(t, dtype, shape, slower):
+    """Record a shape the library gives tensor_core whose device time
+    exceeded cuda_core's."""
+    if t["route"] == "tensor_core" and \
+            t["tensor_core_device_ms"] > t["cuda_core_device_ms"]:
+        slower.append(f"{str(dtype)[6:]} {shape} "
+                      f"{t['tensor_core_device_ms']:.4f} > "
+                      f"{t['cuda_core_device_ms']:.4f} ms")
+
+
 def kernel_phase(card):
-    """Phase 3; returns the JSON numbers of REP and REP_BF16 by dtype."""
+    """Phase 3; returns the JSON numbers of REP and REP_BF16 by dtype, and
+    of the mlp shapes by (M, K, N, dtype)."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import ROUTES, \
+        launch_plan
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -338,14 +384,18 @@ def kernel_phase(card):
                  / math.sqrt(k)).to(dtype)
             b = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype)
             t = k1_case(x, w, b, card, flush)
-            if t["route"] == "tensor_core" and \
-                    t["tensor_core_device_ms"] > t["cuda_core_device_ms"]:
-                slower.append(f"{str(dtype)[6:]} {(m, k, n)} "
-                              f"{t['tensor_core_device_ms']:.4f} > "
-                              f"{t['cuda_core_device_ms']:.4f} ms")
+            note_slower(t, dtype, (m, k, n), slower)
             if (m, k, n, dtype) in (REP, REP_BF16):
                 reps[dtype] = t
             del x, w, b
+    for m, k, n in MLP_K1:
+        x = torch.randn(m, k, generator=gen, device=dev)
+        w = torch.randn(n, k, generator=gen, device=dev) / math.sqrt(k)
+        b = 0.1 * torch.randn(n, generator=gen, device=dev)
+        check(all(launch_plan(x, w, r) is not None for r in ROUTES),
+              f"a K1 route does not take the mlp shape {(m, k, n)}")
+        reps[(m, k, n, F32)] = k1_case(x, w, b, card, flush)
+        note_slower(reps[(m, k, n, F32)], F32, (m, k, n), slower)
     print(f"K1 routes: shapes the library gives tensor_core whose device "
           f"time exceeded cuda_core's in this run: {slower or 'none'}")
     k1_host_us(card, gen)
@@ -850,6 +900,336 @@ def attention_path_phase(card, flush):
     return launches
 
 
+def mlp_symbol(mx):
+    """train_mnist's ``mlp`` (examples/image_classification/
+    train_mnist.py get_mlp)."""
+    s = mx.sym
+    data = s.Flatten(s.Variable("data"))
+    fc1 = s.FullyConnected(data, name="fc1", num_hidden=128)
+    act1 = s.Activation(fc1, name="relu1", act_type="relu")
+    fc2 = s.FullyConnected(act1, name="fc2", num_hidden=64)
+    act2 = s.Activation(fc2, name="relu2", act_type="relu")
+    fc3 = s.FullyConnected(act2, name="fc3", num_hidden=10)
+    return s.SoftmaxOutput(fc3, name="softmax")
+
+
+def lenet_symbol(mx):
+    """train_mnist's ``lenet`` (get_lenet)."""
+    s = mx.sym
+    x = s.Variable("data")
+    for nf in (20, 50):
+        x = s.Convolution(x, kernel=(5, 5), num_filter=nf)
+        x = s.Activation(x, act_type="tanh")
+        x = s.Pooling(x, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    x = s.Activation(s.FullyConnected(s.Flatten(x), num_hidden=500),
+                     act_type="tanh")
+    return s.SoftmaxOutput(s.FullyConnected(x, num_hidden=10),
+                           name="softmax")
+
+
+def mnist_iters(mx):
+    """train_mnist's synthetic stand-in: 3584 training images (shuffled
+    by np.random, seeded here) and 512 validation images."""
+    x, y = mx.test_utils.get_mnist_like(TRAIN_IMAGES)
+    np.random.seed(SEED)
+    return (mx.io.NDArrayIter(x[:TRAIN_SPLIT], y[:TRAIN_SPLIT], TRAIN_BATCH,
+                              shuffle=True),
+            mx.io.NDArrayIter(x[TRAIN_SPLIT:], y[TRAIN_SPLIT:], TRAIN_BATCH))
+
+
+def cross_entropy(probs, labels):
+    """Mean -log p[label] of one batch's softmax outputs."""
+    p = probs.asnumpy()
+    return float(-np.log(p[np.arange(len(p)),
+                           labels.asnumpy().astype(int)]).mean())
+
+
+def first_steps(mx, sym, ctx, batches, teacher=None):
+    """PARITY_STEPS Module steps (forward_backward, update) on `ctx` from
+    Xavier parameters under mx.random.seed(SEED): the loss of each step
+    and the states, ({name: parameter}, {name: momentum}), before the
+    first step and after each.  With `teacher` (another run's states),
+    step k starts from the teacher's state before it."""
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind([("data", (TRAIN_BATCH, 1, 28, 28))],
+             [("softmax_label", (TRAIN_BATCH,))])
+    mx.random.seed(SEED)
+    mod.init_params(mx.initializer.Xavier())
+    mod.init_optimizer(optimizer_params={"learning_rate": TRAIN_LR,
+                                         "momentum": TRAIN_MOMENTUM})
+    names = mod._exec_group.param_names
+    losses = []
+    states = [({n: v.asnumpy() for n, v in mod.get_params()[0].items()}, {})]
+    for k, batch in enumerate(batches):
+        if teacher is not None and k:
+            params, moms = teacher[k]
+            mod.set_params(params, {})
+            for i, n in enumerate(names):
+                mod._updater.states[i]._set_data(moms[n])
+        mod.forward_backward(batch)
+        mod.update()
+        losses.append(cross_entropy(mod.get_outputs()[0], batch.label[0]))
+        states.append(({n: v.asnumpy()
+                        for n, v in mod.get_params()[0].items()},
+                       {names[i]: m.asnumpy()
+                        for i, m in mod._updater.states.items()}))
+    return losses, states
+
+
+def param_ratio(got, ref, skip=()):
+    """The largest |got - ref| / (rtol |ref| + atol max|ref|) over every
+    array of `ref` whose name does not start with one of `skip`
+    (PARITY_TOL; at most 1 passes), and that array's name."""
+    rtol, atol = PARITY_TOL
+    return max(((float((np.abs(got[n] - c) / (
+        rtol * np.abs(c) + atol * np.abs(c).max())).max()), n)
+        for n, c in ref.items() if not n.startswith(skip)),
+        default=(0.0, "none"))
+
+
+def pool_routes(params, x, ctx):
+    """Which element wins each window of lenet's two max-pool layers at
+    these parameters and images, computed on `ctx` by the torch calls
+    the port's Convolution, tanh and Pooling make."""
+    import torch.nn.functional as F
+    dev = ctx.torch_device
+    p = {n: torch.from_numpy(v).to(dev) for n, v in params.items()}
+    h = torch.from_numpy(x).to(dev)
+    routes = []
+    for i in (0, 1):
+        h = torch.tanh(F.conv2d(h, p[f"convolution_{i}_weight"],
+                                p[f"convolution_{i}_bias"]))
+        h, idx = F.max_pool2d(h, 2, 2, return_indices=True)
+        routes.append(idx.cpu())
+    return routes
+
+
+def flipped(mx, cpu_params, gpu_params, x):
+    """Max-pool windows whose winner differs between the CPU at
+    `cpu_params` and the card at `gpu_params` on images `x`."""
+    return sum(int((a != b).sum()) for a, b in zip(
+        pool_routes(cpu_params, x, mx.cpu()),
+        pool_routes(gpu_params, x, mx.gpu(0))))
+
+
+def parity_case(mx, name, sym):
+    """The first PARITY_STEPS steps on the card against the CPU, from the
+    same initial parameters and batches: free running (the loss of every
+    step within rtol, the parameters after the last within PARITY_TOL),
+    then each card step from the CPU's state before it (parameters and
+    momentum after it within PARITY_TOL).
+
+    A max-pool window whose two largest inputs lie within fp32 rounding
+    of each other may be won by one element on the CPU and by the other
+    on the card; its gradient then reaches the convolutions below through
+    another pixel, a difference of a pixel's whole share of the gradient
+    and not of rounding.  lenet's windows are recomputed on both devices:
+    at a step where a window flipped, the convolutions' parameters and
+    momentum are printed and not held, and the free-running parameters
+    are held only when no window flipped along the way.  Every other
+    array of every step is held."""
+    train, _ = mnist_iters(mx)
+    batches = [next(train) for _ in range(PARITY_STEPS)]
+    xs = [b.data[0].asnumpy() for b in batches]
+    pooled = name == "lenet"
+    cpu_loss, cpu = first_steps(mx, sym, mx.cpu(), batches)
+    gpu_loss, gpu = first_steps(mx, sym, mx.gpu(0), batches)
+    _, forced = first_steps(mx, sym, mx.gpu(0), batches, teacher=cpu)
+    loss_err = max(abs(g - c) / abs(c) for g, c in zip(gpu_loss, cpu_loss))
+    free_flips = sum(flipped(mx, c[0], g[0], x) for c, g, x in
+                     zip(cpu, gpu, xs)) if pooled else 0
+    free, free_at = param_ratio(gpu[-1][0], cpu[-1][0])
+    held, excused, flips = (0.0, "none"), (0.0, "none"), []
+    for k, x in enumerate(xs):
+        n = flipped(mx, cpu[k][0], cpu[k][0], x) if pooled else 0
+        skip = ("convolution",) if n else ()
+        after, ref = forced[k + 1], cpu[k + 1]
+        held = max(held, param_ratio(after[0], ref[0], skip),
+                   param_ratio(after[1], ref[1], skip))
+        if n:
+            flips.append(f"step {k + 1}: {n}")
+            excused = max(excused, param_ratio(after[0], ref[0]),
+                          param_ratio(after[1], ref[1]))
+    ok = loss_err <= PARITY_TOL[0] and held[0] <= 1 and \
+        (free <= 1 or free_flips > 0)
+    free_note = f"; not held: {free_flips} max-pool windows flipped on " \
+        "the way" if free_flips else ""
+    print(f"train {name:5s} first {PARITY_STEPS} steps, card vs CPU: loss "
+          f"{' '.join(f'{v:.4f}' for v in gpu_loss)}; max relative loss "
+          f"err {loss_err:.2e} (rtol {PARITY_TOL[0]:g}); parameters after "
+          f"step {PARITY_STEPS} at {free:.3f} of the tolerance (worst "
+          f"{free_at}{free_note}); each step from the CPU's state: "
+          f"parameters and momentum at {held[0]:.3f} of it (worst "
+          f"{held[1]}) (rtol {PARITY_TOL[0]:g}, atol {PARITY_TOL[1]:g}"
+          f"*max|array|) {'ok' if ok else 'FAIL'}")
+    if pooled:
+        note = f"; at those steps the convolutions at {excused[0]:.3f} " \
+            f"of the tolerance (worst {excused[1]}), not held" \
+            if flips else ""
+        print(f"train {name:5s} max-pool windows flipped between the CPU "
+              f"and the card from the CPU's state: "
+              f"{', '.join(flips) or 'none'}{note}")
+    check(ok, f"{name}: the card's first steps disagree with the CPU's")
+
+
+def profile_step(mx, mod, batch, card):
+    """Device time by kernel of one warm mlp step (fit_step:
+    forward_backward, update, metric); returns K1's share."""
+    from torch.profiler import ProfilerActivity, profile
+    metric = mx.metric.create("acc")
+    mod.fit_step(batch, metric)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mod.fit_step(batch, metric)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+    check(spans, "the profiler saw no device activity in a training step")
+    by_name, busy, edge = {}, 0.0, -math.inf
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        busy += max(0.0, end - max(start, edge))
+        edge = max(edge, end)
+    total = sum(by_name.values())
+    k1 = sum(us for name, us in by_name.items()
+             if any(k in name for k in K1_KERNELS))
+    print(f"train mlp profile: one step {wall_us / 1e3:.3f} ms on the host "
+          f"clock, {len(spans)} kernels, device time {total / 1e3:.3f} ms, "
+          f"busy {busy / wall_us:.3f} of the window; K1 {k1 / 1e3:.4f} ms "
+          f"= {k1 / total:.3f} of device time [{card}]")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"train mlp profile: {us / 1e3:8.4f} ms {us / total:6.3f} "
+              f"{name[:90]}")
+    return k1 / total
+
+
+def fit_case(mx, name, sym, card):
+    """Module.fit on the card with train_mnist's defaults; returns the
+    module, K1's launches and the step numbers."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    train, val = mnist_iters(mx)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    ticks = []
+    mx.random.seed(SEED)
+    fc_relu.launches = 0
+    t0 = time.perf_counter()
+    mod.fit(train, eval_data=val, optimizer="sgd",
+            optimizer_params={"learning_rate": TRAIN_LR,
+                              "momentum": TRAIN_MOMENTUM},
+            initializer=mx.initializer.Xavier(), num_epoch=TRAIN_EPOCHS,
+            batch_end_callback=[
+                lambda p: ticks.append((p.nbatch, time.perf_counter())),
+                mx.callback.Speedometer(TRAIN_BATCH, 50)])
+    wall = time.perf_counter() - t0
+    launches = fc_relu.launches
+    steps = TRAIN_EPOCHS * -(-TRAIN_SPLIT // TRAIN_BATCH)
+    evals = TRAIN_EPOCHS * -(-(TRAIN_IMAGES - TRAIN_SPLIT) // TRAIN_BATCH)
+    expect = 2 * (steps + evals) if name == "mlp" else 0
+    print(f"train {name:5s} K1 launches {launches}, expected "
+          f"{'2 x' if expect else '0 x'} ({steps} train + {evals} eval "
+          f"forwards) = {expect}")
+    check(len(ticks) == steps and launches == expect,
+          f"{name}: {len(ticks)} steps, K1 launched {launches} times, want "
+          f"{steps} steps and {expect} launches")
+    acc = mod.score(val, "acc")[0][1]
+    check(fc_relu.launches - launches == expect // TRAIN_EPOCHS
+          - 2 * (steps // TRAIN_EPOCHS) * bool(expect),
+          f"{name}: score's forwards did not run K1 twice each")
+    step_ms = [(t1 - t0_) * 1e3 for (_, t0_), (n1, t1) in
+               zip(ticks, ticks[1:]) if n1 > 0]
+    med = statistics.median(step_ms)
+    print(f"train {name:5s} {TRAIN_EPOCHS} epochs of {steps // TRAIN_EPOCHS} "
+          f"steps in {wall:.2f} s (eval included); step median {med:.3f} ms "
+          f"(p10 {np.percentile(step_ms, 10):.3f}, p90 "
+          f"{np.percentile(step_ms, 90):.3f}) = {TRAIN_BATCH / med * 1e3:.0f}"
+          f" samples/s; validation accuracy {acc:.4f} (> 0.95) "
+          f"{'ok' if acc > 0.95 else 'FAIL'} [{card}]")
+    check(acc > 0.95, f"{name}: validation accuracy {acc:.4f} <= 0.95")
+    return mod, launches, {"step_ms": med, "samples_s": TRAIN_BATCH / med
+                           * 1e3, "accuracy": acc}
+
+
+def serve_trained(mx, mod, card, workdir):
+    """Serve the trained mlp's checkpoint (its SoftmaxOutput label slot
+    unfilled) in fp32 and bf16 through ModelServer on the card."""
+    _, val = mnist_iters(mx)
+    images = val.data[0][1]
+    want = mod.predict(val).asnumpy()
+    sizes, cuts = (1, 5, 16, 64, 3, 27, 8, 2, 33), [0]
+    while cuts[-1] < len(images):
+        cuts.append(min(len(images), cuts[-1] + sizes[len(cuts) % 9]))
+    buckets = (1, 2, 4, 8, 16, 32, 64)
+    shapes = [("data", (1, 1, 28, 28))]
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        prefix = os.path.join(tmp, "mlp")
+        mod.save_checkpoint(prefix, TRAIN_EPOCHS)
+        srv = mx.serving.ModelServer(max_queue_latency_ms=2.0,
+                                     ctx=mx.gpu(0))
+        srv.load_model("mlp", prefix=prefix, epoch=TRAIN_EPOCHS,
+                       data_shapes=shapes, buckets=buckets)
+        srv.load_model("mlp_bf16", model=mx.serving.ServedModel.load(
+            prefix, TRAIN_EPOCHS, data_shapes=shapes, buckets=buckets,
+            ctx=mx.gpu(0), dtype="bfloat16", name="mlp_bf16"))
+        futs = [(a, b, srv.submit("mlp", {"data": images[a:b]}),
+                 srv.submit("mlp_bf16", {"data": images[a:b]}))
+                for a, b in zip(cuts, cuts[1:])]
+        got32 = np.concatenate([f.result(120)[0].asnumpy()
+                                for _, _, f, _ in futs])
+        outs16 = [g.result(120)[0] for _, _, _, g in futs]
+        srv.shutdown(drain=True)
+    check(all(o.data.dtype == torch.bfloat16 for o in outs16),
+          "bf16 serving did not answer in bf16")
+    got16 = np.concatenate([o.asnumpy() for o in outs16])
+    for label, got, ref, (rtol, atol) in (
+            ("fp32 vs Module.predict", got32, want, SERVE_TRAIN_TOL),
+            ("bf16 vs fp32 served", got16, got32, SERVE_BF16_TOL)):
+        err = np.abs(got - ref)
+        ok = got.shape == ref.shape and np.isfinite(got).all() and bool(
+            (err <= rtol * np.abs(ref) + atol * np.abs(ref).max()).all())
+        agree = float((got.argmax(1) == ref.argmax(1)).mean())
+        print(f"train serve mlp {label}: {len(cuts) - 1} requests of "
+              f"{len(images)} images, max_abs_err {err.max():.3e} (rtol "
+              f"{rtol:g}, atol {atol:g}*max|ref|), argmax agreement "
+              f"{agree:.4f} {'ok' if ok else 'FAIL'}")
+        check(ok, f"served mlp {label} disagrees")
+
+
+def train_phase(card, workdir):
+    """Phase 6; returns K1's launches in the training run and the JSON's
+    training numbers."""
+    import incubator_mxnet_tpu_torch as mx
+    old = os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+    out = {}
+    try:
+        for name, build in (("mlp", mlp_symbol), ("lenet", lenet_symbol)):
+            if name == "mlp":
+                os.environ["MXNET_SUBGRAPH_BACKEND"] = "TPU_PALLAS"
+            else:
+                os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+            sym = build(mx)
+            parity_case(mx, name, sym)
+            mod, launches, nums = fit_case(mx, name, sym, card)
+            out[name] = dict(nums, k1_launches=launches)
+            if name == "mlp":
+                train, _ = mnist_iters(mx)
+                out[name]["k1_share"] = profile_step(mx, mod, next(train),
+                                                    card)
+                serve_trained(mx, mod, card, workdir)
+            del mod
+    finally:
+        os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+        if old is not None:
+            os.environ["MXNET_SUBGRAPH_BACKEND"] = old
+    return out["mlp"]["k1_launches"], out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -902,23 +1282,34 @@ def main():
     t0 = time.perf_counter()
     k2_launches, k3_launches = attention_path_phase(card, flush)
     print(f"phase 5: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_launches, train = train_phase(card, str(_build.BUILD_DIR.parent))
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"
     rep = k1[F32]
+    for (m, k, n), label in zip(MLP_K1, ("fc1", "fc2")):
+        k1[(m, k, n, F32)]["shape"] = f"float32 M={m} K={k} N={n} (mlp " \
+            f"{label})"
     src = "incubator_mxnet_tpu_torch/csrc/flash_attn.cu"
     tpu = "incubator_mxnet_tpu/ops/flash_attention.py"
     print(json.dumps({"kernels": [{
         "name": "fc_relu", "route": "cuda",
         "source": "incubator_mxnet_tpu_torch/csrc/fc_relu.cu",
         "replaces": "incubator_mxnet_tpu/subgraph/fused_ops.py:29",
-        "launches": launches, "max_abs_err": rep["max_abs_err"],
+        "launches": launches + train_launches,
+        "paths": {"serving": launches, "training": train_launches},
+        "max_abs_err": rep["max_abs_err"],
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"], "shape": rep["shape"],
-        "kernel_route": rep["route"], **dtype_keys("bf16", k1[BF16])},
+        "kernel_route": rep["route"], **dtype_keys("bf16", k1[BF16]),
+        **dtype_keys("train_fc1", k1[MLP_K1[0] + (F32,)]),
+        **dtype_keys("train_fc2", k1[MLP_K1[1] + (F32,)]),
+        "train_k1_share": train["mlp"]["k1_share"]},
         dict(name="flash_fwd", route="cuda", source=src,
              replaces=f"{tpu}:229", launches=k2_launches, **attn[REP_K2],
              **dtype_keys("fp32", attn[REP_K2_F32])),

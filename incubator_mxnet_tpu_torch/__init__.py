@@ -11,6 +11,10 @@ and `serving.ModelServer`.  Slice 2 covers attention: `ops.flash_attention`
 (`flash_attention`, `flash_attention_partial`) with the flash-attention
 forward as CUDA kernels (whole-KV and split-KV), `parallel.ring_attention`
 over a `torch.distributed` group, and the ``BlockwiseAttention`` op.
+Slice 4 covers symbolic training: `mod.Module.fit` over an eager
+`executor.Executor` (the ops' backward by autograd, ``SoftmaxOutput``'s
+implicit gradient), `optimizer.SGD`, `initializer`, `metric`, `io`,
+`callback` and `lr_scheduler`.
 
     import incubator_mxnet_tpu_torch as mx
 """
@@ -27,8 +31,22 @@ from .model import save_checkpoint, load_checkpoint
 from . import serving
 from . import model_zoo
 from . import parallel
+from . import random
+from . import initializer
+from . import initializer as init
+from . import lr_scheduler
+from . import optimizer
+from . import metric
+from . import io
+from . import callback
+from . import executor
+from . import module
+from . import module as mod
+from . import test_utils
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "ops", "symbol", "sym", "ndarray", "nd", "subgraph",
            "model", "save_checkpoint", "load_checkpoint", "serving",
-           "model_zoo", "parallel"]
+           "model_zoo", "parallel", "random", "initializer", "init",
+           "lr_scheduler", "optimizer", "metric", "io", "callback",
+           "executor", "module", "mod", "test_utils"]

@@ -13,6 +13,11 @@ packages.  On the TPU it was the VMEM the whole-KV kernel could hold; on
 the card nothing is held whole, and the knob only names the KV length
 past which the split-KV kernel runs.
 
+``MXNET_SUBGRAPH_BACKEND`` (str, default empty) names the subgraph
+backend `Symbol.simple_bind` partitions the graph with at bind time
+(``TPU_PALLAS`` fuses FullyConnected+bias+ReLU into kernel K1), as the
+JAX package's `simple_bind` does.
+
 ``MXNET_FLASH_INTERPRET`` is not carried over: in the port the tensor's
 device decides.  A CPU tensor takes a kernel's plain PyTorch version; a
 CUDA tensor launches the kernel or raises.
@@ -31,6 +36,9 @@ KNOBS = {
     "MXNET_FLASH_VMEM_MB": (float, 10.0,
                             "MiB of one head's K and V past which flash "
                             "attention runs the split-KV kernel"),
+    "MXNET_SUBGRAPH_BACKEND": (str, "",
+                               "subgraph backend Symbol.simple_bind "
+                               "partitions the graph with"),
 }
 
 

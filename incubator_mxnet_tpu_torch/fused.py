@@ -50,11 +50,13 @@ class FusedInference:
                 f"FusedInference: data names {unknown} are not arguments "
                 f"of the symbol (has {self._arg_names})")
         self._data_names = list(data_names)
-        # every non-data argument is a parameter the param dict must fill
-        self._param_names = [n for n in self._arg_names
-                             if n not in self._data_names]
+        # every non-data argument is a slot the param dict fills, except
+        # a loss head's label, which becomes a per-call input
+        self._slot_names = [n for n in self._arg_names
+                            if n not in self._data_names]
+        self._label_slots = _label_slots(symbol)
         self._gfn, _, _ = graph_eval_fn(symbol, False)
-        self._state = None   # ({name: tensor}, [aux tensors])
+        self._state = None   # ({name: tensor}, [aux tensors], extra names)
 
     @property
     def output_names(self):
@@ -64,31 +66,57 @@ class FusedInference:
     def device(self):
         return self._device
 
+    @property
+    def extra_names(self):
+        """Argument slots the param dict left unfilled (loss-head labels),
+        fed per call: `__call__`'s ``extras``, in this order."""
+        return [] if self._state is None else list(self._state[2])
+
     def set_params(self, arg_params, aux_params=None):
-        """Pin the parameter set on the device; every parameter argument
-        and aux state of the symbol must have a value."""
+        """Pin the parameter set on the device.  Every parameter argument
+        and aux state must have a value; an argument that feeds only the
+        ``label`` input of its ops (a loss head's label) may be left out
+        and becomes a per-call input, as in the JAX package (which makes
+        any unfilled slot one)."""
         aux_params = aux_params or {}
-        missing = [n for n in self._param_names if n not in arg_params] + \
+        unfilled = [n for n in self._slot_names if n not in arg_params]
+        missing = [n for n in unfilled if n not in self._label_slots] + \
             [n for n in self._aux_names if n not in aux_params]
         if missing:
             raise MXNetError(f"FusedInference: no value for {missing}")
         params = {n: _as_tensor(arg_params[n], self._device)
-                  for n in self._param_names}
+                  for n in self._slot_names if n in arg_params}
         aux = [_as_tensor(aux_params[n], self._device)
                for n in self._aux_names]
-        self._state = (params, aux)
+        self._state = (params, aux, unfilled)
 
-    def __call__(self, inputs):
-        """Run the graph on `inputs` (arrays ordered like `data_names`);
-        returns the output tensors, on the device, possibly still being
-        computed."""
+    def __call__(self, inputs, extras=()):
+        """Run the graph on `inputs` (arrays ordered like `data_names`)
+        and `extras` (ordered like `extra_names`); returns the output
+        tensors, on the device, possibly still being computed."""
         state = self._state
         if state is None:
             raise MXNetError("FusedInference: set_params before calling")
-        params, aux = state
+        params, aux, extra_names = state
         feed = dict(params)
         feed.update(zip(self._data_names,
                         (_as_tensor(v, self._device) for v in inputs)))
+        feed.update(zip(extra_names,
+                        (_as_tensor(v, self._device) for v in extras)))
         with torch.inference_mode():
             outs, _ = self._gfn([feed[n] for n in self._arg_names], aux)
         return outs
+
+
+def _label_slots(symbol):
+    """Names of the variables that feed only ``label`` input slots."""
+    slots = {}
+    for node in symbol._topo():
+        if node.is_variable:
+            continue
+        names = node.op.list_input_names(node.attrs) or []
+        for i, (src, _) in enumerate(node.inputs):
+            if src.is_variable:
+                slot = names[i] if i < len(names) else None
+                slots.setdefault(src.name, set()).add(slot)
+    return {n for n, s in slots.items() if s == {"label"}}

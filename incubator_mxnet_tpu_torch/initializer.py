@@ -1,0 +1,199 @@
+"""Weight initializers (reference `python/mxnet/initializer.py`).
+
+PyTorch port of `InitDesc`, the `Initializer` dispatch and `Zero`, `One`,
+`Constant`, `Uniform`, `Normal` and `Xavier` from
+`incubator_mxnet_tpu/initializer.py`.  The random ones draw on the host
+from `random.host_rng()`, the JAX package's stream, so under one
+`mx.random.seed(n)` both packages initialise parameters bitwise alike;
+the values are then written into the array in place, cast to its dtype.
+"""
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from .base import MXNetError
+from .ndarray.ndarray import NDArray
+from . import random as _random
+
+__all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
+           "Normal", "Xavier", "register", "create"]
+
+_INIT_REGISTRY = {}
+
+
+class InitDesc(str):
+    """Name + attrs descriptor (reference `initializer.py InitDesc`)."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        ret = super().__new__(cls, name)
+        ret.attrs = attrs or {}
+        ret.global_init = global_init
+        return ret
+
+
+def register(klass):
+    name = klass.__name__.lower()
+    _INIT_REGISTRY[name] = klass
+    # the reference registers plural aliases for Zero/One
+    if name in ("zero", "one"):
+        _INIT_REGISTRY[name + "s"] = klass
+    return klass
+
+
+class Initializer:
+    """Base initializer, callable on (InitDesc, NDArray); dispatches on
+    the desc's ``__init__`` attr, else on the name's suffix (reference
+    `initializer.py:Initializer`)."""
+
+    def __init__(self, **kwargs):
+        self._kwargs = kwargs
+
+    def dumps(self):
+        return json.dumps([self.__class__.__name__.lower(), self._kwargs])
+
+    def __call__(self, desc, arr):
+        if not isinstance(desc, str):
+            raise TypeError("desc must be string or InitDesc")
+        init = getattr(desc, "attrs", {}).get("__init__", "")
+        if init:
+            create(init)._init_weight(desc, arr)
+            return
+        name = str(desc)
+        if name.endswith("weight"):
+            self._init_weight(name, arr)
+        elif name.endswith(("bias", "beta")):
+            self._init_zero(name, arr)
+        elif name.endswith("gamma"):
+            self._init_one(name, arr)
+        elif name.endswith(("moving_mean", "running_mean", "moving_inv_var",
+                            "moving_avg", "min", "max")):
+            self._init_zero(name, arr)
+        elif name.endswith(("moving_var", "running_var")):
+            self._init_one(name, arr)
+        else:
+            self._init_default(name, arr)
+
+    @staticmethod
+    def _set(arr, values):
+        """Write host values into `arr` in place, rounded once to its
+        dtype (numpy's cast where numpy has the dtype, torch's for
+        bfloat16)."""
+        values = np.asarray(values)
+        dt = arr.data.dtype
+        if dt == torch.bfloat16:
+            t = torch.from_numpy(values.astype(np.float64)).to(dt)
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(
+                values.astype(np.dtype(arr.dtype), copy=False)))
+        arr._set_data(t)
+
+    def _init_zero(self, _, arr):
+        self._set(arr, np.zeros(arr.shape))
+
+    def _init_one(self, _, arr):
+        self._set(arr, np.ones(arr.shape))
+
+    def _init_weight(self, name, arr):
+        raise NotImplementedError("Must override it")
+
+    def _init_default(self, name, arr):
+        raise ValueError(
+            f"Unknown initialization pattern for {name}. Default "
+            "initialization is limited to \"weight\", \"bias\", \"gamma\" "
+            "and \"beta\". Please use mx.sym.Variable(init=mx.init.*) to "
+            "set initialization pattern")
+
+
+@register
+class Zero(Initializer):
+    def _init_weight(self, _, arr):
+        self._set(arr, np.zeros(arr.shape))
+
+
+@register
+class One(Initializer):
+    def _init_weight(self, _, arr):
+        self._set(arr, np.ones(arr.shape))
+
+
+@register
+class Constant(Initializer):
+    def __init__(self, value=0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        if isinstance(self.value, NDArray):
+            self._set(arr, self.value.asnumpy())
+        else:
+            self._set(arr, np.full(arr.shape, self.value))
+
+
+@register
+class Uniform(Initializer):
+    def __init__(self, scale=0.07):
+        super().__init__(scale=scale)
+        self.scale = scale
+
+    def _init_weight(self, _, arr):
+        self._set(arr, _random.host_rng().uniform(-self.scale, self.scale,
+                                                  arr.shape))
+
+
+@register
+class Normal(Initializer):
+    def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
+        self.sigma = sigma
+
+    def _init_weight(self, _, arr):
+        self._set(arr, _random.host_rng().normal(0, self.sigma, arr.shape))
+
+
+@register
+class Xavier(Initializer):
+    """Reference `initializer.py Xavier`."""
+
+    def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        super().__init__(rnd_type=rnd_type, factor_type=factor_type,
+                         magnitude=magnitude)
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        if len(shape) < 2:
+            raise ValueError(f"Xavier initializer cannot be applied to "
+                             f"vector {name}. It requires at least 2D.")
+        hw_scale = np.prod(shape[2:]) if len(shape) > 2 else 1.0
+        fan_in, fan_out = shape[1] * hw_scale, shape[0] * hw_scale
+        factor = {"avg": (fan_in + fan_out) / 2.0, "in": fan_in,
+                  "out": fan_out}.get(self.factor_type)
+        if factor is None:
+            raise ValueError("Incorrect factor type")
+        scale = np.sqrt(self.magnitude / factor)
+        if self.rnd_type == "uniform":
+            self._set(arr, _random.host_rng().uniform(-scale, scale, shape))
+        elif self.rnd_type == "gaussian":
+            self._set(arr, _random.host_rng().normal(0, scale, shape))
+        else:
+            raise ValueError("Unknown random type")
+
+
+def create(init, **kwargs):
+    """An initializer from an instance, a callable, a name or the JSON of
+    `Initializer.dumps`."""
+    if isinstance(init, Initializer) or callable(init):
+        return init
+    if isinstance(init, str):
+        if init.startswith("["):
+            name, args = json.loads(init)
+            return _INIT_REGISTRY[name.lower()](**args)
+        if init.lower() not in _INIT_REGISTRY:
+            raise MXNetError(f"Unknown initializer {init}")
+        return _INIT_REGISTRY[init.lower()](**kwargs)
+    raise MXNetError(f"Cannot create initializer from {init!r}")

@@ -1,18 +1,56 @@
-"""Checkpoint pairs: ``prefix-symbol.json`` + ``prefix-%04d.params``.
+"""Training glue and the checkpoint pair.
 
-PyTorch port of `save_checkpoint` / `load_checkpoint` in
-`incubator_mxnet_tpu/model.py` (reference `model.py:383`, `:413`).  Both
-files are committed through a temp file and ``os.replace``, so a crash
-never leaves a torn checkpoint behind.
+PyTorch port of part of `incubator_mxnet_tpu/model.py`: `BatchEndParam`,
+`_create_kvstore` and `_update_params` (what `Module` needs on one
+device), and `save_checkpoint` / `load_checkpoint` (reference
+`model.py:383`, `:413`) for ``prefix-symbol.json`` +
+``prefix-%04d.params``.  Both files are committed through a temp file and
+``os.replace``, so a crash never leaves a torn checkpoint behind.  The
+port has no kvstore yet: on one device ``"local"`` needs none, and a
+distributed store raises.
 """
 from __future__ import annotations
 
 import os
+from collections import namedtuple
 
+from .base import MXNetError
 from . import ndarray as nd
 from . import symbol as sym
 
-__all__ = ["save_checkpoint", "load_checkpoint"]
+__all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint"]
+
+BatchEndParam = namedtuple("BatchEndParams",
+                           ["epoch", "nbatch", "eval_metric", "locals"])
+
+
+def _create_kvstore(kvstore, num_device, arg_params):
+    """(kvstore, update_on_kvstore) (reference `model.py _create_kvstore`):
+    None and False for one device and a non-distributed store name."""
+    if kvstore is None:
+        return None, False
+    if not isinstance(kvstore, str):
+        raise MXNetError("kvstore: the port has no KVStore yet; pass a "
+                         "store name or None")
+    if "dist" in kvstore:
+        raise MXNetError(f"kvstore {kvstore!r}: distributed training is not "
+                         "ported yet")
+    if num_device != 1:
+        raise MXNetError(f"kvstore {kvstore!r}: the port trains on one "
+                         f"device, got {num_device}")
+    return None, False
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device):
+    """Apply `updater` to every parameter that has a gradient, index
+    ``i * num_device + k`` for device k (reference `model.py
+    _update_params`, without a kvstore)."""
+    for i, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                  grad_arrays)):
+        if grad_list[0] is None:
+            continue
+        for k, (w, g) in enumerate(zip(arg_list, grad_list)):
+            updater(i * num_device + k, g, w)
 
 
 def _atomic(path, write):

@@ -2,8 +2,15 @@
 
 Minimal PyTorch port of `incubator_mxnet_tpu/ndarray/ndarray.py`: an
 `NDArray` wraps one torch tensor on its context's device.  The serving
-path returns these; the imperative operator frontends (`nd.<Op>`) and the
-autograd tape come with a later slice.
+path returns these; the training path binds them as an executor's
+argument, gradient and aux arrays, which the optimizer and initializers
+write in place (`_set_data`, `copyto`).  The imperative operator
+frontends (`nd.<Op>`) and the autograd tape come with a later slice.
+
+Writes copy: an NDArray never takes over another's tensor, because the
+optimizer updates its tensor in place and an alias would carry the
+update to a second array (the JAX package's arrays are immutable, so it
+may share them).
 """
 from __future__ import annotations
 
@@ -13,7 +20,7 @@ import torch
 from ..base import MXNetError, torch_dtype
 from ..context import Context, current_context, cpu
 
-__all__ = ["NDArray", "array"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "concatenate"]
 
 
 def _ctx_of(tensor):
@@ -64,11 +71,14 @@ class NDArray:
         return self._data
 
     def asnumpy(self):
-        """Copy to a host numpy array (bfloat16 widens to float32)."""
+        """Copy to a host numpy array (bfloat16 widens to float32); the
+        copy never shares memory with the array, which may be written in
+        place later."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        out = t.cpu().numpy()
+        return out.copy() if t.device.type == "cpu" else out
 
     def as_in_context(self, ctx):
         if ctx == self._ctx:
@@ -76,7 +86,38 @@ class NDArray:
         return NDArray(self._data.to(ctx.torch_device), ctx=ctx)
 
     def astype(self, dtype):
-        return NDArray(self._data.to(torch_dtype(dtype)), ctx=self._ctx)
+        """A copy in `dtype` (a copy even when the dtype is the same)."""
+        return NDArray(self._data.to(torch_dtype(dtype), copy=True),
+                       ctx=self._ctx)
+
+    def copy(self):
+        """A new NDArray holding a copy of this one."""
+        return NDArray(self._data.detach().clone(), ctx=self._ctx)
+
+    def copyto(self, other):
+        """Copy into `other` (an NDArray of the same shape, written in
+        place and keeping its dtype and device) or onto a Context."""
+        if isinstance(other, Context):
+            return NDArray(self._data.detach().to(other.torch_device,
+                                                  copy=True), ctx=other)
+        if not isinstance(other, NDArray):
+            raise MXNetError(f"copyto: target must be NDArray or Context, "
+                             f"got {type(other).__name__}")
+        other._set_data(self._data)
+        return other
+
+    def _set_data(self, value):
+        """Overwrite the elements in place with `value` (a tensor, NDArray
+        or numpy array of this shape), cast to this array's dtype."""
+        if isinstance(value, NDArray):
+            value = value._data
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(_np.ascontiguousarray(value))
+        if tuple(value.shape) != self.shape:
+            raise MXNetError(f"cannot write shape {tuple(value.shape)} into "
+                             f"an NDArray of shape {self.shape}")
+        with torch.no_grad():
+            self._data.copy_(value)
 
     def wait_to_read(self):
         if self._data.is_cuda:
@@ -109,3 +150,39 @@ def array(source, ctx=None, dtype=None):
     if dtype is not None:
         t = t.to(torch_dtype(dtype))
     return NDArray(t.to(ctx.torch_device), ctx=ctx)
+
+
+def _filled(shape, ctx, dtype, value):
+    from ..ops import registry as _reg
+    ctx = ctx if ctx is not None else current_context()
+    if isinstance(shape, int):
+        shape = (shape,)
+    params = {"shape": tuple(shape), "dtype": dtype or "float32"}
+    name = "_zeros" if value == 0 else "_ones" if value == 1 else "_full"
+    if name == "_full":
+        params["value"] = value
+    return NDArray(_reg.get(name).fn(params, device=ctx.torch_device),
+                   ctx=ctx)
+
+
+def zeros(shape, ctx=None, dtype=None, **kwargs):
+    """Zeros of `shape` on `ctx` (default `current_context()`), float32
+    unless `dtype` says otherwise (reference `nd.zeros`)."""
+    return _filled(shape, ctx, dtype, 0)
+
+
+def ones(shape, ctx=None, dtype=None, **kwargs):
+    return _filled(shape, ctx, dtype, 1)
+
+
+def full(shape, val, ctx=None, dtype=None, **kwargs):
+    return _filled(shape, ctx, dtype, val)
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """Join NDArrays along `axis` on the first one's context."""
+    if not arrays:
+        raise MXNetError("concatenate: no arrays")
+    ctx = arrays[0].context
+    return NDArray(torch.cat([a.data.to(ctx.torch_device) for a in arrays],
+                             dim=axis), ctx=ctx)

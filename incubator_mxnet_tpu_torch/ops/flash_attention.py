@@ -120,12 +120,19 @@ def _check(name, q, k, v):
             (B, H, D):
         raise MXNetError(f"{name}: shape mismatch q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise MXNetError(f"{name}: q, k, v must share a dtype; got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise MXNetError(f"{name}: q, k, v must share a device; got "
                          f"{q.device}, {k.device}, {v.device}")
+
+
+def _promote(name, q, k, v):
+    """Validate; returns q, k, v cast to the dtype they promote to
+    (`torch.promote_types`), the dtype whose kernel runs.  The wrappers
+    cast o back to q's dtype, as the JAX kernels' promoted products
+    give it."""
+    _check(name, q, k, v)
+    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    return q.to(dt), k.to(dt), v.to(dt)
 
 
 def _lib():
@@ -207,15 +214,18 @@ def _raise_on(name, lib, err):
 def flash_fwd(q, k, v, q_off=0, k_off=0, causal=False, block_k=256):
     """K2: partial attention with the whole KV range in one block's loop.
     CUDA tensors launch the kernel (counted in ``flash_fwd.launches``);
-    CPU tensors take `_partial_ref` with ``block_k``."""
-    _check("flash_fwd", q, k, v)
+    CPU tensors take `_partial_ref` with ``block_k``.  Operands of mixed
+    dtypes run in their promoted dtype; o comes back in q's."""
+    out_dtype = q.dtype
+    q, k, v = _promote("flash_fwd", q, k, v)
     if q.device.type == "cpu":
-        return _ref_bthd(q, k, v, q_off, k_off, causal, block_k)
+        o, m, l = _ref_bthd(q, k, v, q_off, k_off, causal, block_k)
+        return o.to(out_dtype), m, l
     D = q.shape[3]
     qp, kp, vp, o, m, l, dims, strides = _kernel_call(
         "flash_fwd", q, k, v, q_off, k_off, causal)
     if dims is None:
-        return o[..., :D], m, l
+        return o[..., :D].to(out_dtype), m, l
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.mx_flash_fwd(
@@ -225,7 +235,7 @@ def flash_fwd(q, k, v, q_off=0, k_off=0, causal=False, block_k=256):
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_fwd", lib, err)
     flash_fwd.launches += 1
-    return o[..., :D], m, l
+    return o[..., :D].to(out_dtype), m, l
 
 
 flash_fwd.launches = 0
@@ -256,15 +266,19 @@ def stream_plan(q, k, q_off=0, k_off=0, causal=False):
 def flash_fwd_stream(q, k, v, q_off=0, k_off=0, causal=False, block_k=256):
     """K3: partial attention with the KV range split across blocks and
     merged by a second kernel; both launches count once in
-    ``flash_fwd_stream.launches``.  CPU tensors take `_partial_ref`."""
-    _check("flash_fwd_stream", q, k, v)
+    ``flash_fwd_stream.launches``.  CPU tensors take `_partial_ref`.
+    Operands of mixed dtypes run in their promoted dtype; o comes back in
+    q's."""
+    out_dtype = q.dtype
+    q, k, v = _promote("flash_fwd_stream", q, k, v)
     if q.device.type == "cpu":
-        return _ref_bthd(q, k, v, q_off, k_off, causal, block_k)
+        o, m, l = _ref_bthd(q, k, v, q_off, k_off, causal, block_k)
+        return o.to(out_dtype), m, l
     D = q.shape[3]
     qp, kp, vp, o, m, l, dims, strides = _kernel_call(
         "flash_fwd_stream", q, k, v, q_off, k_off, causal)
     if dims is None:
-        return o[..., :D], m, l
+        return o[..., :D].to(out_dtype), m, l
     plan = stream_plan(qp, kp, q_off, k_off, causal)
     if plan is None:
         raise MXNetError(f"flash_fwd_stream: q {tuple(q.shape)}, k "
@@ -279,7 +293,7 @@ def flash_fwd_stream(q, k, v, q_off=0, k_off=0, causal=False, block_k=256):
             plan["sm_count"], torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_fwd_stream", lib, err)
     flash_fwd_stream.launches += 1
-    return o[..., :D], m, l
+    return o[..., :D].to(out_dtype), m, l
 
 
 flash_fwd_stream.launches = 0
@@ -290,7 +304,8 @@ def flash_attention_partial(q, k, v, q_off=0, k_off=0, causal=False,
     """Unnormalised attention over one KV shard.
 
     q: (B, Tq, H, D), k/v: (B, Tk, H, D).  Returns (o_unnorm, m, l) with
-    o_unnorm (B, Tq, H, D) in q's dtype and m/l (B, H, Tq) in fp32,
+    o_unnorm (B, Tq, H, D) in q's dtype and m/l (B, H, Tq) in fp32 (k
+    and v may have other dtypes: the call runs in the promoted one),
     combinable across shards with the online-softmax merge (ring
     attention's carry).  q_off/k_off are the global sequence offsets for
     the causal mask.  ``block_q`` is kept for the JAX signature; only

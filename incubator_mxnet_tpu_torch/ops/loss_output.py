@@ -1,0 +1,93 @@
+"""Loss-head output ops with implicit gradients.
+
+PyTorch port of `SoftmaxOutput` (alias ``Softmax``) in
+`incubator_mxnet_tpu/ops/loss_output.py` (reference
+`src/operator/softmax_output.cc`): the classic classification head whose
+backward *ignores the incoming gradient* (unless ``out_grad``) and emits
+softmax minus one-hot, scaled by ``grad_scale`` and the normalization.
+The JAX op is a custom VJP; here it is a `torch.autograd.Function`.
+Softmax and its gradient run in fp32 and are cast to the input's dtype;
+the label gets a zero gradient.
+"""
+from __future__ import annotations
+
+import torch
+
+from .registry import register
+
+_SOFTMAX_OUT_PARAMS = {
+    "grad_scale": 1.0, "ignore_label": -1.0, "multi_output": False,
+    "use_ignore": False, "preserve_shape": False, "normalization": "null",
+    "out_grad": False, "smooth_alpha": 0.0,
+}
+
+
+def _one_hot(label, k, axis, dtype):
+    """One-hot of the int labels along `axis` (1 or -1) of the output;
+    labels outside [0, k) give a zero row, as jax.nn.one_hot does."""
+    classes = torch.arange(k, device=label.device)
+    if axis == 1:
+        classes = classes.view((1, k) + (1,) * (label.dim() - 1))
+        return (label.unsqueeze(1) == classes).to(dtype)
+    return (label.unsqueeze(-1) == classes).to(dtype)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, data, label, params):
+        axis = 1 if params["multi_output"] else -1
+        out = torch.softmax(data.float(), dim=axis)
+        ctx.save_for_backward(out, label)
+        ctx.params = params
+        ctx.axis = axis
+        ctx.in_dtype = data.dtype
+        return out.to(data.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        p, axis = ctx.params, ctx.axis
+        k = out.shape[axis]
+        onehot = _one_hot(label.to(torch.int32), k, axis, out.dtype)
+        smooth = float(p["smooth_alpha"])
+        if smooth > 0:
+            onehot = onehot * (1 - smooth) + smooth / (k - 1) * (1 - onehot)
+        grad = out - onehot
+        ignore = float(p["ignore_label"])
+        if p["use_ignore"]:
+            keep = (label != ignore).unsqueeze(axis)
+            grad = grad * keep.to(out.dtype)
+        if p["normalization"] == "batch":
+            grad = grad / out.shape[0]
+        elif p["normalization"] == "valid":
+            if p["use_ignore"]:
+                valid = torch.clamp((label != ignore).to(out.dtype).sum(),
+                                    min=1.0)
+            else:
+                valid = float(label.numel())
+            grad = grad / valid
+        grad = grad * float(p["grad_scale"])
+        if p["out_grad"]:
+            grad = grad * g.to(out.dtype)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad.to(ctx.in_dtype), dlabel, None
+
+
+@register("SoftmaxOutput", nin=2, params=dict(_SOFTMAX_OUT_PARAMS),
+          aliases=("Softmax",), input_names=["data", "label"])
+def _softmax_output(params, data, label):
+    """Forward = softmax; backward = (softmax - onehot(label)) *
+    grad_scale, with ignore-label masking and normalization (reference
+    `softmax_output-inl.h` SoftmaxOutputBackward).  Without
+    ``multi_output`` or ``preserve_shape`` an N-D input is read as
+    (batch, prod(rest)) classes."""
+    orig_shape = data.shape
+    flattened = False
+    if not params["multi_output"] and not params["preserve_shape"] \
+            and data.dim() > 2:
+        data = data.reshape(orig_shape[0], -1)
+        label = label.reshape(orig_shape[0])
+        flattened = True
+    out = _SoftmaxOutput.apply(data, label, params)
+    return out.reshape(orig_shape) if flattened else out

@@ -1,9 +1,16 @@
-"""Core neural-network operators, inference forward.
+"""Core neural-network operators.
 
-PyTorch port of the serving slice of `incubator_mxnet_tpu/ops/nn.py`:
+PyTorch port of part of `incubator_mxnet_tpu/ops/nn.py`:
 FullyConnected, Convolution, Pooling, Activation, softmax and Dropout.
 Data layouts follow the reference (NCHW); the op bodies are
-`torch.nn.functional` calls, as the JAX package leaves these ops to XLA.
+`torch.nn.functional` calls, as the JAX package leaves these ops to XLA,
+and their backward is autograd's through them (the JAX package's is
+`jax.vjp` of its forward).
+
+Mixed operand dtypes (bf16 activations against fp32 parameters, as a
+bf16 server feeds them) compute in the promoted dtype and return the
+data's dtype.  The JAX ops cast the parameters to the data's dtype
+first, so in 16-bit the two differ by that rounding of the parameters.
 """
 from __future__ import annotations
 
@@ -24,11 +31,21 @@ def _with_bias(p):
           params={"num_hidden": REQUIRED, "no_bias": False, "flatten": True},
           input_names=_with_bias)
 def _fully_connected(params, x, weight, *rest):
-    weight = weight.to(x.dtype)  # mixed precision: params may be fp32
+    bias = None if params["no_bias"] else rest[0]
+    dt = _promoted(x, weight, bias)
     if params["flatten"]:
         x = x.reshape(x.shape[0], -1)
-    bias = None if params["no_bias"] else rest[0].to(x.dtype)
-    return F.linear(x, weight, bias)
+    return F.linear(x.to(dt), weight.to(dt),
+                    None if bias is None else bias.to(dt)).to(x.dtype)
+
+
+def _promoted(*tensors):
+    """The dtype the operands promote to (torch.promote_types)."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        if t is not None:
+            dt = torch.promote_types(dt, t.dtype)
+    return dt
 
 
 def _tup(v, n, default):
@@ -54,12 +71,14 @@ def _convolution(params, x, weight, *rest):
     nd = len(kernel)
     if nd not in _CONV_FN:
         raise MXNetError("Convolution supports 1D/2D/3D kernels")
-    bias = None if params["no_bias"] else rest[0].to(x.dtype)
+    bias = None if params["no_bias"] else rest[0]
+    dt = _promoted(x, weight, bias)
     return _CONV_FN[nd](
-        x, weight.to(x.dtype), bias, stride=_tup(params["stride"], nd, 1),
+        x.to(dt), weight.to(dt), None if bias is None else bias.to(dt),
+        stride=_tup(params["stride"], nd, 1),
         padding=_tup(params["pad"], nd, 0),
         dilation=_tup(params["dilate"], nd, 1),
-        groups=int(params["num_group"]))
+        groups=int(params["num_group"])).to(x.dtype)
 
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}

@@ -7,13 +7,23 @@ final row (inference is row-independent, and every read path slices the
 pad rows off).  The JAX package fixes the ladder so that every XLA
 compile happens at `warmup()`; here `warmup()` runs each bucket once so
 the first request does not pay the library's first-call set-up.
+
+``dtype`` is the dtype requests are cast to (float32 by default):
+anything `np.dtype` takes, ``"bfloat16"`` or ``torch.bfloat16``.  numpy
+has no bfloat16 without ml_dtypes, so requests are normalised in float32
+on the host and cast once on the way to the device (the JAX package
+casts on the host with ml_dtypes; both round to nearest even).  The
+parameters stay as loaded, as in the JAX package: the ops promote.
+Argument slots the checkpoint does not fill (a loss head's label, see
+`fused.FusedInference`) are fed zeros of the shape each bucket gives
+them.
 """
 from __future__ import annotations
 
 import numpy as _np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
 from ..context import current_context
 from ..ndarray.ndarray import NDArray
 
@@ -58,8 +68,13 @@ class ServedModel:
         descs = _as_desc_list(data_shapes)
         self.data_names = [n for n, _ in descs]
         self._sample_shapes = {n: s[1:] for n, s in descs}
-        self._dtype = _np.dtype(dtype)
+        self._dtype = torch_dtype(dtype)
+        # the host dtype requests are normalised in
+        self._host_dtype = _np.float32 if self._dtype == torch.bfloat16 \
+            else _np.dtype(str(self._dtype).replace("torch.", ""))
         self.output_names = symbol.list_outputs()
+        self._symbol = symbol
+        self._extra_cache = {}    # bucket -> zeros for the unfilled slots
 
         from .. import fused as _fused
         # resolving the device raises when the card is missing and the
@@ -91,7 +106,7 @@ class ServedModel:
         """Run every bucket once, so no request pays first-call set-up."""
         for b in self.buckets:
             self.run_bucket([_np.zeros((b,) + self._sample_shapes[n],
-                                       self._dtype)
+                                       self._host_dtype)
                              for n in self.data_names], b)
         self.synchronize()
         self.warmed = True
@@ -99,7 +114,27 @@ class ServedModel:
     def run_bucket(self, arrs, bucket):
         """Dispatch one bucket-shaped (already padded) batch; returns the
         output tensors, possibly still being computed."""
-        return self._infer(arrs)
+        dev = self._infer.device
+        inputs = [torch.from_numpy(_np.ascontiguousarray(a)).to(
+            dev, self._dtype) for a in arrs]
+        return self._infer(inputs, self._extras(bucket))
+
+    def _extras(self, bucket):
+        """float32 zeros for the unfilled argument slots, shaped by
+        inference at this bucket (a label's shape follows the batch)."""
+        got = self._extra_cache.get(bucket)
+        if got is None:
+            names = self._infer.extra_names
+            got = ()
+            if names:
+                shapes, _, _ = self._symbol.infer_shape(**{
+                    n: (bucket,) + self._sample_shapes[n]
+                    for n in self.data_names})
+                by_name = dict(zip(self._symbol.list_arguments(), shapes))
+                got = tuple(torch.zeros(by_name[n], device=self._infer.device)
+                            for n in names)
+            self._extra_cache[bucket] = got
+        return got
 
     def synchronize(self):
         """Wait for the work this model queued on its device."""
@@ -133,7 +168,7 @@ class ServedModel:
                 raise MXNetError(
                     f"serving: model '{self.name}' input '{name}' has "
                     f"sample shape {tuple(a.shape[1:])}, expected {sample}")
-            a = a.astype(self._dtype, copy=False)
+            a = a.astype(self._host_dtype, copy=False)
             if rows is None:
                 rows = a.shape[0]
             elif a.shape[0] != rows:
@@ -172,3 +207,4 @@ class ServedModel:
         """(Hot-)swap the parameter set; in-flight dispatches finish against
         the snapshot they captured."""
         self._infer.set_params(arg_params or {}, aux_params)
+        self._extra_cache = {}

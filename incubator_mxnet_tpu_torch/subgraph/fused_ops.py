@@ -94,6 +94,8 @@ def launch_plan(x, w, route=None):
 
 
 def _check(x, w, b):
+    """Validate the operands; returns the dtype they promote to
+    (`torch.promote_types`), one the kernels take."""
     if x.dim() != 2 or w.dim() != 2 or b.dim() != 1:
         raise MXNetError(f"fc_relu: expects x (M, K), w (N, K), b (N,); got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}, "
@@ -101,28 +103,36 @@ def _check(x, w, b):
     if w.shape[1] != x.shape[1] or b.shape[0] != w.shape[0]:
         raise MXNetError(f"fc_relu: shape mismatch x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, b {tuple(b.shape)}")
-    if not (x.dtype == w.dtype == b.dtype):
-        raise MXNetError(f"fc_relu: x, w, b must share a dtype; got "
-                         f"{x.dtype}, {w.dtype}, {b.dtype}")
+    dt = torch.promote_types(torch.promote_types(x.dtype, w.dtype), b.dtype)
+    if dt not in _DTYPE_CODE:
+        raise MXNetError(f"fc_relu: kernel takes float32, bfloat16 or "
+                         f"float16; the operand dtypes {x.dtype}, {w.dtype}, "
+                         f"{b.dtype} promote to {dt}")
     if not (x.device == w.device == b.device):
         raise MXNetError(f"fc_relu: x, w, b must share a device; got "
                          f"{x.device}, {w.device}, {b.device}")
+    return dt
 
 
 def fc_relu(x, w, b, route=None):
-    """K1: relu(x @ w.T + b).  CUDA tensors launch the kernels of the
-    library's plan, or of ``route`` (one of `ROUTES`) when given, and
-    count one in ``fc_relu.launches`` per call; non-contiguous operands
+    """K1: relu(x @ w.T + b) in x's dtype.  CUDA tensors launch the
+    kernels of the library's plan, or of ``route`` (one of `ROUTES`) when
+    given, and count one in ``fc_relu.launches`` per call; operands of
+    mixed dtypes are cast to the dtype they promote to, whose kernel runs,
+    and the result is cast to x's dtype, as the JAX kernel's fp32
+    accumulation of promoted operands gives it; non-contiguous operands
     are copied to contiguous ones first.  CPU tensors take
     `fc_relu_ref`."""
-    _check(x, w, b)
+    dt = _check(x, w, b)
     if x.device.type == "cpu":
         return fc_relu_ref(x, w, b)
     if x.device.type != "cuda":
         raise MXNetError(f"fc_relu: no kernel for device {x.device}")
-    if x.dtype not in _DTYPE_CODE:
-        raise MXNetError(f"fc_relu: kernel takes float32, bfloat16 or "
-                         f"float16, got {x.dtype}")
+    return _launch(x.to(dt), w.to(dt), b.to(dt), route).to(x.dtype)
+
+
+def _launch(x, w, b, route):
+    """K1 on CUDA operands of one dtype."""
     x, w, b = (t.contiguous() for t in (x, w, b))
     m, k = x.shape
     n = w.shape[0]
@@ -161,13 +171,19 @@ class FCRelu(torch.autograd.Function):
     def forward(ctx, x, w, b):
         y = fc_relu(x, w, b)
         ctx.save_for_backward(x, w, y)
+        ctx.b_dtype = b.dtype
         return y
 
     @staticmethod
     def backward(ctx, g):
+        """In the operands' promoted dtype; each gradient in its own
+        input's dtype."""
         x, w, y = ctx.saved_tensors
-        g = torch.where(y > 0, g, torch.zeros_like(g))
-        return g @ w, g.T @ x, g.sum(dim=0)
+        dt = torch.promote_types(torch.promote_types(x.dtype, w.dtype),
+                                 ctx.b_dtype)
+        g = torch.where(y > 0, g, torch.zeros_like(g)).to(dt)
+        return ((g @ w.to(dt)).to(x.dtype), (g.T @ x.to(dt)).to(w.dtype),
+                g.sum(dim=0).to(ctx.b_dtype))
 
 
 def _compute(params, x, w, b):

@@ -16,6 +16,10 @@ Divergences from the JAX package, both deliberate:
 * `infer_shape` evaluates the ops on ``meta`` tensors (no data, no
   device), and reads a ``__shape__`` attribute whether it is a tuple or
   the string a loaded JSON carries.
+
+`simple_bind` and `bind` return an eager `executor.Executor`;
+`simple_bind` partitions the graph with the backend that
+``MXNET_SUBGRAPH_BACKEND`` names, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -23,13 +27,36 @@ import json
 import re
 import threading
 
+import numpy as _np
 import torch
 
 from ..base import MXNetError, py_literal
 from ..ops import registry as _reg
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
-           "graph_eval_fn"]
+           "graph_eval_fn", "check_unique_names"]
+
+
+def check_unique_names(symbol):
+    """Reject graphs whose variable names shadow each other (the bind-time
+    gate of the JAX package's `check_unique_names`): two distinct nodes
+    sharing a name where one is a variable would collapse in `arg_dict`
+    and bind the wrong arrays.  Same-name op pairs are tolerated; empty
+    names always raise."""
+    seen = {}
+    for node in symbol._topo():
+        if not str(node.name).strip():
+            kind = "variable" if node.is_variable else f"op {node.op.name}"
+            raise MXNetError(f"invalid graph: {kind} node has an empty "
+                             "name")
+        first = seen.setdefault(node.name, node)
+        if first is not node and (node.is_variable or first.is_variable):
+            raise MXNetError(
+                f"invalid graph: two distinct nodes share the name "
+                f"'{node.name}' "
+                f"({'variable' if first.is_variable else first.op.name} vs "
+                f"{'variable' if node.is_variable else node.op.name}); "
+                "rename one")
 
 
 class _NameManager:
@@ -169,6 +196,18 @@ class Symbol:
             return self._entries[0][0]._extra_attrs.get(key)
         return None
 
+    def attr_dict(self):
+        """{node name: {attr: str value}} over the graph, user attrs
+        (``__init__``, ``__lr_mult__``, ...) and op params alike."""
+        out = {}
+        for node in self._topo():
+            d = {k: str(v) for k, v in node._extra_attrs.items()}
+            if node.op is not None:
+                d.update({k: str(v) for k, v in node.attrs.items()})
+            if d:
+                out[node.name] = d
+        return out
+
     # -- shape inference -----------------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the given input shapes
@@ -179,6 +218,42 @@ class Symbol:
         known, out_shapes = _infer_graph(self, shapes)
         return ([known.get(n) for n in arg_names], out_shapes,
                 [known.get(n) for n in self.list_auxiliary_states()])
+
+    def infer_type(self, *args, **kwargs):
+        """(arg_types, out_types, aux_types): the given types, float32 for
+        the rest, as the JAX package's `infer_type` reports them."""
+        arg_names = self.list_arguments()
+        dtypes = {n: t for n, t in zip(arg_names, args) if t is not None}
+        dtypes.update(kwargs)
+        return ([_np.dtype(dtypes.get(n, _np.float32)) for n in arg_names],
+                [_np.dtype(_np.float32)] * len(self._entries),
+                [_np.dtype(dtypes.get(n, _np.float32))
+                 for n in self.list_auxiliary_states()])
+
+    # -- binding -------------------------------------------------------------
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    **kwargs):
+        """Allocate argument, gradient and aux arrays from the shapes
+        inferred from ``kwargs`` and return an `Executor` (reference
+        `symbol.py simple_bind`).  With ``MXNET_SUBGRAPH_BACKEND`` set the
+        graph is partitioned with that backend first."""
+        from .. import config as _config
+        from ..context import current_context
+        from ..executor import Executor
+        sym = self
+        backend = _config.get("MXNET_SUBGRAPH_BACKEND")
+        if backend:
+            from ..subgraph import partition_graph
+            sym = partition_graph(self, backend)
+        return Executor._simple_bind(sym, ctx or current_context(), grad_req,
+                                     type_dict, kwargs)
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None):
+        """Bind caller-provided arrays (reference `symbol.py bind`)."""
+        from ..executor import Executor
+        return Executor._bind(self, ctx, args, args_grad, grad_req,
+                              aux_states)
 
     # -- composition ---------------------------------------------------------
     def __call__(self, *args, **kwargs):
@@ -406,6 +481,7 @@ def graph_eval_fn(symbol, is_train):
             uses[id(src)] = uses.get(id(src), 0) + 1
 
     def fn(arg_values, aux_values, generator=None):
+        device = arg_values[0].device if arg_values else None
         env = {}
         for node, v in zip(arg_nodes, arg_values):
             env[id(node)] = (v,)
@@ -421,7 +497,8 @@ def graph_eval_fn(symbol, is_train):
             ins = [env[id(src)][idx] for src, idx in node.inputs]
             if node.op.needs_rng:
                 ins.append(generator)
-            out = node.op.fn(params, *ins)
+            out = node.op.fn(params, *ins) if node.op.nin else \
+                node.op.fn(params, device=device)
             if not isinstance(out, (tuple, list)):
                 out = (out,)
             nout = node.op.num_outputs(params)
@@ -487,7 +564,8 @@ def _infer_graph(symbol, shapes):
             if node.op.needs_rng:
                 ins.append(None)
             try:
-                out = node.op.fn(params, *ins)
+                out = node.op.fn(params, *ins) if node.op.nin else \
+                    node.op.fn(params, device="meta")
             except Exception as e:
                 raise MXNetError(f"infer_shape failed at {node.op.name} "
                                  f"'{node.name}': {e}") from e
@@ -531,3 +609,5 @@ def _solve_param_shapes(node, env, meta):
         setvar(1, (nf, d[1] // g) + tuple(p["kernel"]))
         if not p.get("no_bias"):
             setvar(2, (nf,))
+    elif node.op.name == "SoftmaxOutput":
+        setvar(1, (d[0],) + d[2:] if p.get("multi_output") else d[:-1])

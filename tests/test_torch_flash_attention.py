@@ -313,6 +313,49 @@ def test_stream_route(monkeypatch, causal, offsets):
            "interpreted stream kernel")
 
 
+# Mixed dtypes: a 16-bit q against fp32 k and v.  Both packages run the
+# promoted fp32 arithmetic (the JAX kernel's q.k and p.v promote; the port
+# casts q up and runs the fp32 kernel) and return o in q's dtype.  D = 16:
+# the scale 1/4 is exact in every dtype, so m and l agree to fp32 (TOL)
+# and o up to its one rounding to q's dtype (one ulp: 2**-8 relative in
+# bf16, 2**-11 in fp16).
+MIXED_O_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -8),
+               "float16": (2.0 ** -10, 2.0 ** -11)}
+
+
+@pytest.mark.parametrize("qdt", ["bfloat16", "float16"])
+@pytest.mark.parametrize("budget", [None, "0.001"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_partial_mixed_dtypes_match_both_jax_routes(monkeypatch, qdt, budget,
+                                                    causal):
+    """q in 16 bits, k and v in fp32, through K2's route and (budget
+    0.001 MiB) K3's, against the JAX package's interpreted kernels."""
+    if budget is None:
+        monkeypatch.delenv("MXNET_FLASH_VMEM_MB", raising=False)
+    else:
+        monkeypatch.setenv("MXNET_FLASH_VMEM_MB", budget)
+    q, k, v = _qkv(2, 64, 2, 16, seed=12)
+    tq = torch.from_numpy(q).to(getattr(torch, qdt))
+    jq = jnp.asarray(q).astype(getattr(jnp, qdt))
+    assert tfa._route(64, 16, tq.dtype) == \
+        ("stream" if budget else "whole")
+    args = (32, 0, causal, 16, 16)
+    got = tfa.flash_attention_partial(tq, torch.from_numpy(k),
+                                      torch.from_numpy(v), *args)
+    monkeypatch.setenv("MXNET_FLASH_INTERPRET", "1")
+    want = jfa.flash_attention_partial(jq, jnp.asarray(k), jnp.asarray(v),
+                                       *args)
+    assert got[0].dtype == tq.dtype and want[0].dtype == jq.dtype
+    assert got[1].dtype == got[2].dtype == torch.float32
+    wo = np.asarray(want[0].astype(jnp.float32))
+    rtol, atol = MIXED_O_TOL[qdt]
+    np.testing.assert_allclose(got[0].float().numpy(), wo, rtol=rtol,
+                               atol=atol * np.abs(wo).max())
+    for g, w, name in zip(got[1:], want[1:], ("m", "l")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
+
+
 @pytest.mark.parametrize("budget", [None, "4", "0.001", "64"])
 def test_route_matches_jax_rule(monkeypatch, budget):
     if budget is None:

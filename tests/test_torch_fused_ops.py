@@ -255,3 +255,95 @@ def test_partitioned_mlp_forward_matches_jax():
     feed["data"] = torch.from_numpy(x)
     got = gfn([feed[n.name] for n in arg_nodes], [])[0][0]
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+# -- mixed operand dtypes ----------------------------------------------------
+#
+# The JAX kernel promotes inside (jnp.dot of a bf16 x and an fp32 w sums in
+# fp32) and returns x's dtype; the port casts the operands to their
+# promoted dtype, runs that kernel (here its plain version) and casts the
+# result to x's dtype.  Both round one fp32 sum to x's dtype, which may
+# land one ulp apart: 2**-8 relative in bf16, 2**-11 in fp16.
+MIXED_TOL = {np.float32: (RTOL, ATOL), "bfloat16": (2.0 ** -7, 2.0 ** -8),
+             np.float16: (2.0 ** -10, 2.0 ** -11)}
+
+
+def _as(a, dt):
+    """numpy float32 a -> (torch tensor, jax array) in dtype dt."""
+    t = torch.from_numpy(a)
+    if dt == "bfloat16":
+        t = t.to(torch.bfloat16)
+        return t, jnp.asarray(a).astype(jnp.bfloat16)
+    return t.to(getattr(torch, np.dtype(dt).name)), jnp.asarray(a.astype(dt))
+
+
+@pytest.mark.parametrize("xdt,wdt", [("bfloat16", np.float32),
+                                     (np.float16, np.float32),
+                                     (np.float32, "bfloat16"),
+                                     ("bfloat16", np.float16)])
+def test_fc_relu_mixed_dtypes_match_pallas_kernel(xdt, wdt):
+    """bf16 x against fp32 w and b gives bf16, as the JAX kernel does; an
+    fp32 x against bf16 parameters gives fp32."""
+    x, w, b = _inputs(16, 784, 128, seed=9)
+    tx, jx = _as(x, xdt)
+    (tw, jw), (tb, jb) = _as(w, wdt), _as(b, wdt)
+    want = _fc_relu_pallas(jx, jw, jb)
+    got = fc_relu(tx, tw, tb)
+    assert str(got.dtype).replace("torch.", "") == str(want.dtype)
+    rtol, atol = MIXED_TOL[xdt]
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol,
+                               atol=atol * np.abs(want).max())
+
+
+def test_fc_relu_mixed_dtypes_backward_keeps_each_input_dtype():
+    """FCRelu's gradients come back in each input's own dtype, computed
+    in the promoted dtype: equal to the fp32 gradients of the same
+    (bf16-exact) values, rounded once."""
+    x, w, b = _inputs(8, 64, 32, seed=10)
+    tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    g = torch.from_numpy(np.random.RandomState(1).rand(8, 32)
+                         .astype(np.float32)).to(torch.bfloat16)
+    FCRelu.apply(tx, tw, tb).backward(g)
+    assert (tx.grad.dtype, tw.grad.dtype, tb.grad.dtype) == \
+        (torch.bfloat16, torch.float32, torch.float32)
+    rx = tx.detach().float().requires_grad_()
+    rw, rb = (t.detach().clone().requires_grad_() for t in (tw, tb))
+    FCRelu.apply(rx, rw, rb).backward(g.float())
+    np.testing.assert_allclose(tx.grad.float().numpy(),
+                               rx.grad.to(torch.bfloat16).float().numpy(),
+                               rtol=2.0 ** -7, atol=1e-6)
+    for got, want in ((tw.grad, rw.grad), (tb.grad, rb.grad)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("op,params,wshape", [
+    ("FullyConnected", {"num_hidden": 12}, (12, 48)),
+    ("Convolution", {"kernel": (3, 3), "num_filter": 4, "pad": (1, 1)},
+     (4, 3, 3, 3)),
+])
+def test_fc_and_conv_mixed_dtypes_match_jax(op, params, wshape):
+    """bf16 data against fp32 parameters: the output is bf16 in both.
+    The JAX op rounds the parameters to bf16 first, the port computes in
+    the promoted fp32, so they differ by that rounding (2**-9 relative
+    per parameter, averaging out over the sum) and the output's rounding:
+    rtol 2**-6, atol 2**-7*max."""
+    from incubator_mxnet_tpu.ops import registry as jreg
+    from incubator_mxnet_tpu_torch.ops import registry as treg
+    rng = np.random.RandomState(11)
+    x = rng.normal(0, 1, (2, 3, 4, 4)).astype(np.float32)
+    w = (rng.normal(0, 1, wshape) / np.sqrt(np.prod(wshape[1:]))
+         ).astype(np.float32)
+    b = rng.normal(0, 0.1, wshape[:1]).astype(np.float32)
+    tx, jx = _as(x, "bfloat16")
+    want = jreg.get(op).fn(jreg.get(op).canonicalize_params(params), jx,
+                           jnp.asarray(w), jnp.asarray(b))
+    got = treg.get(op).fn(treg.get(op).canonicalize_params(params), tx,
+                          torch.from_numpy(w), torch.from_numpy(b))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -6,
+                               atol=2.0 ** -7 * np.abs(want).max())

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on a card against their plain PyTorch versions:
 K1 (`fc_relu`, csrc/fc_relu.cu) and its launch plan; K2 and K3
-(`flash_fwd`, `flash_fwd_stream`, csrc/flash_attn.cu) and K3's split plan.
+(`flash_fwd`, `flash_fwd_stream`, csrc/flash_attn.cu) and K3's split plan;
+the kernels on mixed operand dtypes; a few `Module` steps of the MNIST
+mlp on the card against the CPU.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -391,3 +393,107 @@ def test_stream_plan_covers_kv_and_splits_the_long_causal_shape():
         work = sum(min(nk, -(-(i + 1) * plan["rows"] // plan["tile"]))
                    for i in range(nq))
         assert plan["chunk"] <= -(-work // (8 * plan["sm_count"]))
+
+
+# -- the training slice: K1 at the mlp's shapes, mixed dtypes, Module.fit ----
+
+@pytest.mark.cuda
+def test_fc_relu_at_the_mlp_shapes_through_both_routes():
+    """train_mnist's mlp runs K1 at (64, 784 -> 128) and (64, 128 -> 64)
+    in fp32 in every step; fc2's N = 64 is half of one 128-row w slab of
+    the tensor_core route (TMA zero-fills the rest)."""
+    _need_card()
+    for m, k, n in [(64, 784, 128), (64, 128, 64)]:
+        x, w, b = (torch.from_numpy(a).cuda() for a in _inputs(m, k, n))
+        routes = [r for r in ROUTES if launch_plan(x, w, r) is not None]
+        assert routes == list(ROUTES)
+        _k1_call(x, w, b)
+        for route in routes:
+            _k1_call(x, w, b, route)
+
+
+@pytest.mark.cuda
+def test_mixed_dtypes_run_the_promoted_kernel():
+    """A bf16 x against fp32 w and b launches the fp32 K1 and returns
+    bf16; a bf16 q against fp32 k and v launches the fp32 K2 or K3 and
+    returns o in bf16; each against its plain version on the promoted
+    operands, rounded once to bf16 (one bf16 ulp)."""
+    _need_card()
+    x, w, b = (torch.from_numpy(a).cuda() for a in _inputs(64, 784, 128))
+    xb = x.to(torch.bfloat16)
+    before = fc_relu.launches
+    got = fc_relu(xb, w, b)
+    torch.cuda.synchronize()
+    assert fc_relu.launches == before + 1 and got.dtype == torch.bfloat16
+    want = fc_relu_ref(xb.float(), w, b)
+    torch.testing.assert_close(got.float(), want, rtol=2.0 ** -7,
+                               atol=2.0 ** -7 * want.abs().max().item())
+    q, k, v = _attn_inputs(2, 200, 2, 64, torch.float32, seed=5)
+    qb = q.to(torch.bfloat16)
+    for fwd in (fa.flash_fwd, fa.flash_fwd_stream):
+        before = fwd.launches
+        o, m, l = fwd(qb, k, v, 0, 0, True)
+        torch.cuda.synchronize()
+        assert fwd.launches == before + 1 and o.dtype == torch.bfloat16
+        wo, wm, wl = fa._ref_bthd(qb.float(), k, v, 0, 0, True, 64)
+        torch.testing.assert_close(o.float(), wo.to(torch.bfloat16).float(),
+                                   rtol=2.0 ** -7,
+                                   atol=2.0 ** -7 * wo.abs().max().item())
+        for g, r in ((m, wm), (l, wl)):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-5)
+
+
+def _mlp_symbol(mx):
+    s = mx.sym
+    x = s.Flatten(s.Variable("data"))
+    x = s.Activation(s.FullyConnected(x, name="fc1", num_hidden=128),
+                     name="relu1", act_type="relu")
+    x = s.Activation(s.FullyConnected(x, name="fc2", num_hidden=64),
+                     name="relu2", act_type="relu")
+    return s.SoftmaxOutput(s.FullyConnected(x, name="fc3", num_hidden=10),
+                           name="softmax")
+
+
+@pytest.mark.cuda
+def test_module_steps_of_the_mlp_on_card_match_the_cpu(monkeypatch):
+    """4 steps of the mlp (TPU_PALLAS, train_mnist's batch 64, SGD lr 0.05
+    momentum 0.9) on the card and on the CPU from the same parameters and
+    batches, TF32 off: per-step loss within rtol 1e-3 and parameters
+    within rtol 1e-3 + 1e-4 * max|param| (fp32 sums in other orders,
+    through 4 momentum steps); K1 twice per forward on the card."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    monkeypatch.setenv("MXNET_SUBGRAPH_BACKEND", "TPU_PALLAS")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, y = mx.test_utils.get_mnist_like(256, seed=0)
+    batches = [mx.io.DataBatch([mx.nd.array(x[i:i + 64], ctx=mx.cpu())],
+                               [mx.nd.array(y[i:i + 64], ctx=mx.cpu())])
+               for i in range(0, 256, 64)]
+    runs = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        mod = mx.mod.Module(_mlp_symbol(mx), context=ctx)
+        mod.bind([("data", (64, 1, 28, 28))], [("softmax_label", (64,))])
+        mx.random.seed(3)
+        mod.init_params(mx.initializer.Xavier())
+        mod.init_optimizer(optimizer_params={"learning_rate": 0.05,
+                                             "momentum": 0.9})
+        before = fc_relu.launches
+        losses = []
+        for batch in batches:
+            mod.forward_backward(batch)
+            mod.update()
+            p = mod.get_outputs()[0].asnumpy()
+            losses.append(-np.log(p[np.arange(64),
+                                    batch.label[0].asnumpy().astype(int)]
+                                  ).mean())
+        launches = fc_relu.launches - before
+        runs[ctx.device_type] = (np.array(losses), {
+            k: v.asnumpy() for k, v in mod.get_params()[0].items()},
+            launches)
+    (gl, gp, gk), (cl, cp, ck) = runs["gpu"], runs["cpu"]
+    assert (gk, ck) == (2 * len(batches), 0)
+    np.testing.assert_allclose(gl, cl, rtol=1e-3)
+    for k, v in cp.items():
+        np.testing.assert_allclose(gp[k], v, rtol=1e-3,
+                                   atol=1e-4 * np.abs(v).max(), err_msg=k)

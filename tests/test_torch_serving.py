@@ -146,14 +146,22 @@ def test_entry_points_without_ctx_need_the_card(monkeypatch, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """In a fresh interpreter, importing the port (and driving a graph)
-    loads neither jax nor the JAX package."""
+    """In a fresh interpreter, importing the port (every module, through
+    the package) and driving a graph and a Module.fit loads neither jax
+    nor the JAX package."""
     code = textwrap.dedent("""
         import sys
+        import numpy as np
         import incubator_mxnet_tpu_torch as mx
         sym = mx.model_zoo.vgg_symbol(11)
         mx.subgraph.partition_graph(sym, "TPU_PALLAS").infer_shape(
             data=(1, 3, 32, 32))
+        net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+            mx.sym.Variable("data"), num_hidden=3), name="softmax")
+        it = mx.io.NDArrayIter(np.ones((8, 4), "f4"), np.zeros(8, "f4"), 4)
+        mx.mod.Module(net, context=mx.cpu()).fit(
+            it, num_epoch=1, initializer=mx.initializer.Xavier(),
+            batch_end_callback=mx.callback.Speedometer(4, 1))
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "incubator_mxnet_tpu"))
@@ -181,3 +189,94 @@ def test_port_sources_never_import_jax():
                                 "jax", "jaxlib", "incubator_mxnet_tpu"):
                         offenders.append(f"{path}: {line.strip()}")
     assert not offenders, offenders
+
+
+# -- serving what Module.fit saves, and serving in bfloat16 -----------------
+
+MNIST = (1, 28, 28)
+MNIST_SIZES = (1, 3, 8, 2, 5)
+
+
+def _mlp(mod):
+    s = mod.sym
+    x = s.Flatten(s.Variable("data"))
+    for i, n in enumerate((128, 64)):
+        x = s.Activation(s.FullyConnected(x, num_hidden=n, name=f"fc{i}"),
+                         act_type="relu", name=f"relu{i}")
+    return s.SoftmaxOutput(s.FullyConnected(x, num_hidden=10, name="fc2"),
+                           name="softmax")
+
+
+def _mnist_requests(seed=0):
+    x, _ = tmx.test_utils.get_mnist_like(sum(MNIST_SIZES), seed=seed)
+    cuts = np.cumsum((0,) + MNIST_SIZES)
+    return [x[a:b] for a, b in zip(cuts, cuts[1:])]
+
+
+def test_fit_checkpoint_with_softmax_head_serves_like_jax(tmp_path):
+    """A checkpoint the port's Module.fit saves carries the SoftmaxOutput
+    head's label slot, which no parameter fills: both servers feed it
+    zeros and give Module.predict's answers."""
+    x, y = tmx.test_utils.get_mnist_like(128, seed=1)
+    np.random.seed(1)
+    train = tmx.io.NDArrayIter(x, y, 32, shuffle=True)
+    mod = tmx.mod.Module(_mlp(tmx), context=tmx.cpu())
+    mod.fit(train, optimizer_params={"learning_rate": 0.05,
+                                     "momentum": 0.9},
+            initializer=tmx.initializer.Xavier(), num_epoch=1)
+    prefix = str(tmp_path / "mlp")
+    mod.save_checkpoint(prefix, 1)
+    assert "softmax_label" in tmx.sym.load(
+        prefix + "-symbol.json").list_arguments()
+    reqs = _mnist_requests()
+    want = [mod.predict(tmx.nd.array(r, ctx=tmx.cpu())).asnumpy()
+            for r in reqs]
+    answers = {}
+    for name, srv in (("jax", jmx.serving.ModelServer(
+            max_queue_latency_ms=20)), ("port", tmx.serving.ModelServer(
+                max_queue_latency_ms=20, ctx=tmx.cpu()))):
+        srv.load_model("mlp", prefix=prefix, epoch=1,
+                       data_shapes=[("data", (1,) + MNIST)],
+                       buckets=(1, 2, 4, 8))
+        try:
+            answers[name] = _serve(srv, "mlp", reqs)
+        finally:
+            srv.shutdown()
+    for r, got, jgot, w in zip(reqs, answers["port"], answers["jax"], want):
+        assert got.shape == (len(r), 10)
+        np.testing.assert_allclose(got, w, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got, jgot, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", torch.bfloat16])
+def test_bfloat16_serving_matches_jax(tmp_path, dtype):
+    """ServedModel(dtype=bfloat16) on a TPU_PALLAS checkpoint with a
+    label head: requests are cast to bf16, the fp32 parameters stay as
+    loaded, K1 runs on bf16 activations against fp32 weights (promoted, as
+    in the JAX kernel) and the outputs are bf16 in both packages.  The
+    packages differ by roundings to bf16 (the JAX FullyConnected rounds
+    fc2's weights to bf16 first; each layer's output is rounded once in
+    both): rtol 2**-5, atol 2**-6*max, and the same argmax."""
+    sym = tmx.subgraph.partition_graph(_mlp(tmx), "TPU_PALLAS")
+    shapes, _, _ = sym.infer_shape(data=(1,) + MNIST)
+    rng = np.random.RandomState(2)
+    args = {n: (rng.normal(0, 1, s) / np.sqrt(np.prod(s[1:]))
+                ).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), shapes)
+            if n not in ("data", "softmax_label")}
+    targs, _ = params_from_numpy(args, None, ctx=tmx.cpu())
+    prefix = str(tmp_path / "mlp")
+    tmx.save_checkpoint(prefix, 0, sym, targs, {})
+    kw = dict(data_shapes=[("data", (1,) + MNIST)], buckets=(1, 4, 8))
+    jmodel = jmx.serving.ServedModel.load(prefix, dtype="bfloat16", **kw)
+    model = tmx.serving.ServedModel.load(prefix, dtype=dtype, ctx=tmx.cpu(),
+                                         **kw)
+    model.warmup()
+    for r in _mnist_requests(seed=3):
+        got = model.infer({"data": r})[0]
+        want = jmodel.infer({"data": r})[0].asnumpy().astype(np.float32)
+        assert got.data.dtype == torch.bfloat16 and got.shape == want.shape
+        g = got.asnumpy()
+        np.testing.assert_allclose(g, want, rtol=2.0 ** -5,
+                                   atol=2.0 ** -6 * np.abs(want).max())
+        assert (g.argmax(1) == want.argmax(1)).all()
