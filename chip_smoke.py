@@ -70,6 +70,27 @@ exits non-zero:
    profiled mlp step's device time; then the trained mlp's checkpoint
    served through `serving.ModelServer` in fp32 (held to
    `Module.predict`) and bf16.
+7. ResNet-50 v1, the BASELINE lane (bench.py:165-211): gluon
+   `resnet50_v1(classes=1000)` composed on a Symbol + SoftmaxOutput,
+   trained by `Module.fit` through the fused train step (BatchNorm, the
+   multi-tensor SGD, the metric on the card); no TPU kernel is on this
+   path (its one FC has no ReLU).  a. 3 fused steps at batch 4, 3x224x224,
+   on the card against the CPU from the same Xavier parameters and
+   batches, in float64: every step's loss, and from the CPU's state each
+   step's parameters, momenta and 106 aux arrays (max-pool windows that
+   flip between the devices are counted and excuse only conv1 and its
+   BatchNorm at that step); in float32, where rounding grows through
+   the 53 BatchNorms at batch 4, each device's step from the float64
+   state is held to the float64 step: the card as close as the CPU.
+   b. the lane at batch 128 in bf16 with multi_precision on one
+   resident random batch, 8 warm + 48 timed steps:
+   the fused step every step, the loss falling, images/s, step ms, peak
+   memory and `mfu` (989 TFLOP/s); then fp32 at batch 32 for 16 steps
+   (`mfu` of the 67 TFLOP/s CUDA-core peak, TF32 off).  c. one warm bf16
+   step under torch.profiler: busy share, device ms by kernel class,
+   host ms.  d. 4 fp32 steps at batch 8, the checkpoint served by
+   `serving.ModelServer` for requests of 1-8 images, held to
+   `Module.predict`.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -219,6 +240,41 @@ SDPA_TOL = {F32: (2e-3, 2e-3), BF16: (2.0 ** -6, 2.0 ** -7),
 PATH_TOL = {BF16: (2.0 ** -6, 2.0 ** -6), F32: (1e-3, 1e-4)}
 PATH_BLOCK = 512      # block_q, block_k of phase 5 (the repo's long-context
                       # configuration, tests_tpu/test_flash_perf.py)
+# phase 7: the BASELINE lane (bench.py:165-211, defaults :683-687): gluon
+# resnet50_v1(classes=1000) composed on Variable("data") + SoftmaxOutput,
+# 3x224x224, batch 128, bf16 data, SGD lr 0.05 momentum 0.9 with
+# multi_precision and rescale_grad 1/batch, Xavier(gaussian, in, 2), "acc";
+# one device-resident random batch (bench.py:97-134)
+RESNET_BATCH, RESNET_WARM, RESNET_TIMED = 128, 8, 48
+RESNET_FP32 = (32, 16)        # (batch, steps) of the fp32 run of the lane
+RESNET_PARITY = (4, 3)        # (batch, steps) of the card against the CPU
+RESNET_SERVE = (8, 4)         # (batch, steps) of the checkpoint it serves
+RESNET_SERVE_SIZES = (1, 3, 8, 2, 5, 7, 4)
+RESNET_BUCKETS = (1, 2, 4, 8)
+RESNET_OPT = {"learning_rate": 0.05, "momentum": 0.9}
+# a bias that feeds a BatchNorm has a zero gradient in exact arithmetic
+# (the normalisation removes a constant shift): in float64 it and its
+# momentum stay rounding noise (~1e-14), held below this
+RESNET_ZERO = 1e-9
+# phase 7a float32: the card's distance from the float64 step at most
+# this factor times the CPU's, plus this much
+RESNET_ENVELOPE = (3.0, 1e-6)
+# fp32 outside the tensor cores (TF32 is off), the fp32 lane's peak
+FP32_CUDA_CORE_FLOPS = 67e12
+# device kernels by class in the profile of one bf16 step (first match)
+KERNEL_CLASSES = (
+    ("BatchNorm", ("batch_norm",)),
+    ("optimizer update and aux copy (multi-tensor)", ("multi_tensor",)),
+    ("metric (argmax, compare)", ("argmax", "ArgMax")),
+    ("SoftmaxOutput", ("softmax", "Softmax")),
+    ("pooling", ("pool",)),
+    ("convolution and FC (cuDNN, cuBLAS, layout)",
+     ("conv", "xmma", "implicit", "gemm", "cudnn", "cutlass", "nchw",
+      "nhwc", "sm90", "wgrad", "dgrad", "fprop", "nvjet")),
+    ("reductions (bias gradients, sums)", ("reduce_kernel",)),
+    ("elementwise (add, relu, casts, fills)",
+     ("elementwise", "vectorized", "unrolled", "fill", "copy")),
+)
 
 
 def check(cond, msg):
@@ -1073,8 +1129,11 @@ def parity_case(mx, name, sym):
 
 
 def profile_step(mx, mod, batch, card):
-    """Device time by kernel of one warm mlp step (fit_step:
-    forward_backward, update, metric); returns K1's share."""
+    """Device time by kernel of one warm mlp step (fit_step: the fused
+    step's forward, backward, update and metric); returns K1's share.
+    A session that recorded no K1 kernel, though the step launches two
+    (one session recorded only the last 17 of a step's ~50 kernels), is
+    run again, up to 3 sessions."""
     from torch.profiler import ProfilerActivity, profile
     metric = mx.metric.create("acc")
     mod.fit_step(batch, metric)
@@ -1089,7 +1148,7 @@ def profile_step(mx, mod, batch, card):
         spans = sorted((e.time_range.start, e.time_range.end, e.name)
                        for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA)
-        if spans:
+        if any(k in name for _, _, name in spans for k in K1_KERNELS):
             break
     check(spans, "the profiler saw no device activity in a training step")
     by_name, busy, edge = {}, 0.0, -math.inf
@@ -1230,6 +1289,477 @@ def train_phase(card, workdir):
     return out["mlp"]["k1_launches"], out
 
 
+def resnet_symbol(mx):
+    """(net, symbol): gluon resnet50_v1(classes=1000) composed on
+    Variable("data") + SoftmaxOutput, as bench.py's `_build_module`."""
+    net = mx.gluon.model_zoo.vision.resnet50_v1(classes=CLASSES)
+    return net, mx.sym.SoftmaxOutput(net(mx.sym.Variable("data")),
+                                     name="softmax")
+
+
+def resnet_init(mx):
+    return mx.initializer.Xavier(rnd_type="gaussian", factor_type="in",
+                                 magnitude=2)
+
+
+def train_flops(sym, batch):
+    """Operations of one training step at `batch`: 2 x the multiply-adds
+    of every Convolution and FullyConnected forward (output elements x
+    weight elements per output channel), times 3 for the forward and the
+    backward's two products of the same size."""
+    internals = sym.get_internals()
+    shape = (batch,) + IMAGE
+    _, outs, _ = internals.infer_shape(data=shape)
+    args = dict(zip(sym.list_arguments(), sym.infer_shape(data=shape)[0]))
+    macs = 0
+    for (node, _), out in zip(internals._entries, outs):
+        if not node.is_variable and node.op.name in ("Convolution",
+                                                     "FullyConnected"):
+            macs += math.prod(out) * math.prod(args[node.inputs[1][0].name]
+                                               [1:])
+    return 3 * 2 * macs
+
+
+def resident_iter(mx, batch, dtype, n, seed=SEED):
+    """n batches that are all the same random batch on the card, in
+    `dtype` (bench.py `_synthetic_iter`: compute, not data loading)."""
+    rng = np.random.RandomState(seed)
+    ctx = mx.gpu(0)
+    data = mx.nd.array(rng.rand(batch, *IMAGE).astype("f4"),
+                       ctx=ctx).astype(dtype)
+    label = mx.nd.array(rng.randint(0, CLASSES, batch).astype("f4"),
+                        ctx=ctx)
+    provide = ([mx.io.DataDesc("data", (batch,) + IMAGE, dtype=dtype)],
+               [mx.io.DataDesc("softmax_label", (batch,))])
+    one = mx.io.DataBatch([data], [label], pad=0)
+
+    class Resident(mx.io.DataIter):
+        def __init__(self):
+            super().__init__(batch_size=batch)
+            self._i = 0
+
+        @property
+        def provide_data(self):
+            return provide[0]
+
+        @property
+        def provide_label(self):
+            return provide[1]
+
+        def reset(self):
+            self._i = 0
+
+        def next(self):
+            if self._i >= n:
+                raise StopIteration
+            self._i += 1
+            return one
+
+    return Resident()
+
+
+def resnet_state(mod):
+    """({parameter}, {momentum by parameter}, {aux}) as numpy."""
+    args, auxs = mod.get_params()
+    names = mod._exec_group.param_names
+    return ({n: v.asnumpy() for n, v in args.items()},
+            {names[i]: m.asnumpy() for i, m in mod._updater.states.items()},
+            {n: v.asnumpy() for n, v in auxs.items()})
+
+
+def as_float64(mod):
+    """Turn a bound float32 Module's arrays (all but the labels) into
+    float64 ones before init_params, for a check held in float64; the
+    Module binds float32, as the JAX package's does."""
+    exe = mod._exec_group.execs[0]
+    labels = set(mod._exec_group.label_names)
+    arrays = [a for n, a in exe.arg_dict.items() if n not in labels]
+    arrays += [g for g in exe.grad_dict.values() if g is not None]
+    for a in arrays + list(exe.aux_dict.values()):
+        a._data = a.data.double()
+
+
+def resnet_steps(mx, sym, ctx, batches, dtype, teacher=None):
+    """RESNET_PARITY fused steps in `dtype` on `ctx` (Module.fit_step)
+    from Xavier parameters under mx.random.seed(SEED); the loss of each
+    step and the state before the first and after each.  With `teacher`
+    (another run's states), step k starts from the teacher's state
+    before it, cast to `dtype`."""
+    mod = mx.mod.Module(sym, context=ctx)
+    batch = RESNET_PARITY[0]
+    mod.bind([("data", (batch,) + IMAGE)], [("softmax_label", (batch,))])
+    if dtype == "float64":
+        as_float64(mod)
+    mx.random.seed(SEED)
+    mod.init_params(resnet_init(mx))
+    mod.init_optimizer(optimizer_params=RESNET_OPT)
+    losses, states = [], [resnet_state(mod)]
+    for k, b in enumerate(batches):
+        if teacher is not None and k:
+            params, moms, auxs = teacher[k]
+            mod.set_params(params, auxs)
+            for i, n in enumerate(mod._exec_group.param_names):
+                mod._updater.states[i]._set_data(moms[n])
+        mod.fit_step(b, mx.metric.create("acc"))
+        losses.append(cross_entropy(mod.get_outputs()[0], b.label[0]))
+        states.append(resnet_state(mod))
+    check(mod._fused_step is not None and mod._fused_step.steps ==
+          len(batches), f"resnet parity on {ctx}: the fused step did not "
+          "run every step")
+    return losses, states
+
+
+def bn_fed_biases(sym):
+    """Biases of the convolutions whose output goes straight into a
+    BatchNorm: the batch mean removes them, so their gradient is 0 in
+    exact arithmetic and rounding noise in practice."""
+    out = set()
+    for node in sym._topo():
+        if not node.is_variable and node.op.name == "BatchNorm":
+            src = node.inputs[0][0]
+            if not src.is_variable and src.op.name == "Convolution" and \
+                    not src.attrs["no_bias"]:
+                out.add(src.inputs[2][0].name)
+    return out
+
+
+def resnet_ratio(got, ref, zero, skip=()):
+    """param_ratio over every array of `ref` not under `skip`; an array
+    named in `zero` (a BatchNorm-fed bias: 0 plus float64 rounding) is
+    held to |got| < RESNET_ZERO instead, its ratio max|got| /
+    RESNET_ZERO."""
+    worst = param_ratio(got, {n: c for n, c in ref.items()
+                              if n not in zero}, skip)
+    return max([worst] + [(float(np.abs(got[n]).max() / RESNET_ZERO), n)
+                          for n in ref if n in zero
+                          and not n.startswith(skip)])
+
+
+def resnet_pool_routes(net, params, x, ctx):
+    """Which element wins each window of ResNet-50's max-pool at these
+    parameters and images, computed on `ctx` by the torch calls the port
+    makes: conv1 (7x7/2), BatchNorm on the batch's statistics, relu, the
+    3x3/2 max-pool over -inf padding."""
+    import torch.nn.functional as F
+    dev = ctx.torch_device
+    conv, bn = net.features[0], net.features[1]
+    w, g, b = (torch.from_numpy(params[p.name]).to(dev)
+               for p in (conv.weight, bn.gamma, bn.beta))
+    h = F.conv2d(torch.from_numpy(x).to(dev, w.dtype), w, stride=2,
+                 padding=3)
+    h = torch.relu(torch.native_batch_norm(h, g, b, None, None, True, 0.0,
+                                           1e-5)[0])
+    h = F.pad(h, (1, 1, 1, 1), value=-math.inf)
+    return F.max_pool2d(h, 3, 2, return_indices=True)[1].cpu()
+
+
+def resnet_flipped(mx, net, cpu_params, gpu_params, x):
+    return int((resnet_pool_routes(net, cpu_params, x, mx.cpu()) !=
+                resnet_pool_routes(net, gpu_params, x, mx.gpu(0))).sum())
+
+
+def rel_l2(got, ref, zero):
+    """Relative L2 distance of `got` from `ref` over every array of `ref`
+    together, the names in `zero` left out."""
+    keys = [n for n in ref if n not in zero]
+    a = np.concatenate([got[n].ravel().astype(np.float64) for n in keys])
+    b = np.concatenate([ref[n].ravel().astype(np.float64) for n in keys])
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def resnet_parity(mx, net, sym):
+    """Phase 7a: RESNET_PARITY fused steps of ResNet-50 at 224 on the card
+    against the CPU from the same Xavier parameters and batches.
+
+    float64, where the step is well conditioned: free running (the loss
+    of every step within rtol), then each card step from the CPU's state
+    before it (parameters, momenta and the 106 aux arrays after it within
+    PARITY_TOL).  As for lenet (`parity_case`), a max-pool window whose
+    two largest inputs tie within rounding may route its gradient to
+    another pixel on the card: the windows are recomputed on both
+    devices, and only conv1 and the BatchNorm under it are excused, and
+    only at a step where a window flipped.
+
+    float32: at batch 4 each of the 53 BatchNorms divides by a standard
+    deviation taken over few values, so float32 rounding grows through
+    the network to ~1e-4 of the output and ~2e-2 of every gradient (the
+    JAX package's CPU step is as far from float64 as the port's).  No
+    elementwise bound between two float32 devices holds there.  So each
+    device runs each float32 step from the float64 CPU's state: its loss
+    within rtol PARITY_TOL[0] of the float64 loss, and the card's
+    parameters, momenta and aux arrays as close to the float64 step (in
+    relative L2 norm) as the CPU's float32 step is, within a factor
+    RESNET_ENVELOPE[0] plus RESNET_ENVELOPE[1]."""
+    batch, steps = RESNET_PARITY
+    rng = np.random.RandomState(SEED + 7)
+    batches = [mx.io.DataBatch(
+        [mx.nd.array(rng.rand(batch, *IMAGE).astype("f4"), ctx=mx.cpu())],
+        [mx.nd.array(rng.randint(0, CLASSES, batch).astype("f4"),
+                     ctx=mx.cpu())]) for _ in range(steps)]
+    xs = [b.data[0].asnumpy() for b in batches]
+    zero = bn_fed_biases(sym)
+    t0 = time.perf_counter()
+    cpu_loss, cpu = resnet_steps(mx, sym, mx.cpu(), batches, "float64")
+    t_cpu = time.perf_counter() - t0
+    gpu_loss, gpu = resnet_steps(mx, sym, mx.gpu(0), batches, "float64")
+    _, forced = resnet_steps(mx, sym, mx.gpu(0), batches, "float64",
+                             teacher=cpu)
+    loss_err = max(abs(g - c) / abs(c) for g, c in zip(gpu_loss, cpu_loss))
+    free_flips = sum(resnet_flipped(mx, net, c[0], g[0], x)
+                     for c, g, x in zip(cpu, gpu, xs))
+    excusable = (net.features[0].prefix, net.features[1].prefix)
+    held, excused, flips = (0.0, "none"), (0.0, "none"), []
+    for k, x in enumerate(xs):
+        n = resnet_flipped(mx, net, cpu[k][0], cpu[k][0], x)
+        skip = excusable if n else ()
+        after, ref = forced[k + 1], cpu[k + 1]
+        held = max([held] + [resnet_ratio(a, r, zero, skip)
+                             for a, r in zip(after, ref)])
+        if n:
+            flips.append(f"step {k + 1}: {n}")
+            excused = max([excused] + [resnet_ratio(a, r, zero)
+                                       for a, r in zip(after, ref)])
+    ok = loss_err <= PARITY_TOL[0] and held[0] <= 1
+    print(f"resnet parity float64: {steps} fused steps at batch {batch}, "
+          f"card vs CPU (CPU {t_cpu:.1f} s): loss "
+          f"{' '.join(f'{v:.6f}' for v in gpu_loss)}; max relative loss "
+          f"err {loss_err:.2e} (rtol {PARITY_TOL[0]:g}); each step from "
+          f"the CPU's state: parameters, momenta and {len(cpu[0][2])} aux "
+          f"arrays at {held[0]:.3f} of the tolerance (worst {held[1]}) "
+          f"(rtol {PARITY_TOL[0]:g}, atol {PARITY_TOL[1]:g}*max|array|; "
+          f"{len(zero)} BatchNorm-fed biases below {RESNET_ZERO:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    note = f"; at those steps conv1 and its BatchNorm at " \
+        f"{excused[0]:.3f} of the tolerance (worst {excused[1]}), not " \
+        "held" if flips else ""
+    print(f"resnet parity float64: max-pool windows flipped between the "
+          f"CPU and the card from the CPU's state: "
+          f"{', '.join(flips) or 'none'}{note}; along the free-running "
+          f"steps: {free_flips}")
+    check(ok, "resnet: the card's float64 steps disagree with the CPU's")
+
+    c32_loss, c32 = resnet_steps(mx, sym, mx.cpu(), batches, "float32",
+                                 teacher=cpu)
+    g32_loss, g32 = resnet_steps(mx, sym, mx.gpu(0), batches, "float32",
+                                 teacher=cpu)
+    factor, extra = RESNET_ENVELOPE
+    worst, ok = [], True
+    for k in range(steps):
+        for what, i in (("parameters", 0), ("momenta", 1), ("aux", 2)):
+            dc = rel_l2(c32[k + 1][i], cpu[k + 1][i], zero)
+            dg = rel_l2(g32[k + 1][i], cpu[k + 1][i], zero)
+            worst.append((dg / (factor * dc + extra), what, k + 1, dc, dg))
+            ok = ok and dg <= factor * dc + extra
+    loss32 = max(abs(v - c) / abs(c) for run in (c32_loss, g32_loss)
+                 for v, c in zip(run, cpu_loss))
+    ok = ok and loss32 <= PARITY_TOL[0]
+    by_kind = {}
+    for r in worst:
+        by_kind[r[1]] = max(by_kind.get(r[1], r), r)
+    print(f"resnet parity float32, each step from the float64 CPU's state:"
+          f" loss within {loss32:.2e} of float64 on both (rtol "
+          f"{PARITY_TOL[0]:g}); relative L2 distance from the float64 step,"
+          f" card vs CPU: " + "; ".join(
+              f"{what} {dg:.2e} vs {dc:.2e} (step {k})"
+              for _, what, k, dc, dg in by_kind.values()) +
+          f" (card <= {factor:g} x CPU + {extra:g}) {'ok' if ok else 'FAIL'}")
+    check(ok, "resnet: the card's float32 steps are farther from float64 "
+          "than the CPU's")
+
+
+def resnet_lane(mx, sym, dtype, batch, warm, timed, card, peak):
+    """Phase 7b: the lane through the public Module.fit on one resident
+    batch, `warm` + `timed` steps.  images/s over CUDA-synchronised
+    window edges (bench.py `_Probe`), the median step ms between CUDA
+    events recorded at each batch end, the loss of every step (computed
+    on the card), peak memory; returns (module, numbers)."""
+    it = resident_iter(mx, batch, dtype, warm + timed)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    events, losses, edges = [], [], {}
+    ce = mx.metric.create("ce")       # -log(p + 1e-12), on the card
+
+    def probe(p):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        label = mod._exec_group.execs[0].arg_dict["softmax_label"]
+        total, n = ce.device_update([label], mod.get_outputs())
+        losses.append(total / n)
+        if p.nbatch in (warm - 1, warm + timed - 1):
+            torch.cuda.synchronize()
+            edges[p.nbatch] = time.perf_counter()
+            edges["acc"] = p.eval_metric.get()[1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(SEED)
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params=dict(RESNET_OPT, multi_precision=dtype !=
+                                  "float32", rescale_grad=1.0 / batch),
+            eval_metric="acc", initializer=resnet_init(mx),
+            batch_end_callback=probe, kvstore=None)
+    wall = time.perf_counter() - t0
+    steps = warm + timed
+    fused = mod._fused_step
+    check(fused is not None and fused.steps == steps,
+          f"resnet {dtype}: the fused step ran "
+          f"{fused.steps if fused else 0} of {steps} steps")
+    loss = torch.stack(losses).cpu().numpy()
+    images_s = batch * timed / (edges[warm + timed - 1] - edges[warm - 1])
+    step_ms = [a.elapsed_time(b) for a, b in zip(events[warm - 1:],
+                                                 events[warm:])]
+    med = statistics.median(step_ms)
+    flops = train_flops(sym, batch)
+    mfu = images_s * flops / batch / peak
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    acc = edges["acc"]
+    ok = bool(np.isfinite(loss).all()) and loss[-1] < loss[0] and \
+        math.isfinite(acc)
+    print(f"resnet lane {dtype} batch {batch}: {steps} steps through "
+          f"Module.fit in {wall:.2f} s ({warm} warm), fused step every "
+          f"step; {images_s:.1f} images/s over the {timed} timed steps; "
+          f"step median {med:.3f} ms (p10 {np.percentile(step_ms, 10):.3f}"
+          f", p90 {np.percentile(step_ms, 90):.3f}, CUDA events); "
+          f"{flops / batch / 1e9:.2f} GFLOP per image; peak memory "
+          f"{mem:.2f} GiB [{card}]")
+    print(f"resnet lane {dtype} batch {batch}: loss (cross-entropy of "
+          f"the outputs, metric.CrossEntropy) first "
+          f"{loss[0]:.4f}, last {loss[-1]:.4f}, every "
+          f"{' '.join(f'{v:.3f}' for v in loss[::8])}; train acc over the "
+          f"fit {acc:.4f} {'ok' if ok else 'FAIL'}")
+    print(f"mfu {dtype} {mfu:.4f} (of {peak / 1e12:.0f} TFLOP/s) [{card}]")
+    check(ok, f"resnet {dtype}: loss not finite or not falling, or acc "
+          "not finite")
+    return mod, {"images_s": images_s, "step_ms": med, "mfu": mfu,
+                 "peak_gib": mem}
+
+
+def kernel_class(name):
+    for label, keys in KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return label
+    return "other"
+
+
+def resnet_profile(mx, mod, card, tries=3):
+    """Phase 7c: one warm bf16 step (fit_step) under torch.profiler: the
+    device's busy share of the step, device ms by kernel class, and the
+    host ms the step took to enqueue."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = mod._exec_group.batch_size
+    it = resident_iter(mx, batch, "bfloat16", 1)
+    one = next(it)
+    metric = mx.metric.create("acc")
+    mod.fit_step(one, metric)
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mod.fit_step(one, metric)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+    check(spans, "the profiler saw no device activity in a ResNet step")
+    by_class, other, busy, edge = {}, {}, 0.0, -math.inf
+    for start, end, name in spans:
+        cls = kernel_class(name)
+        by_class[cls] = by_class.get(cls, 0.0) + (end - start)
+        if cls == "other":
+            other[name] = other.get(name, 0.0) + (end - start)
+        busy += max(0.0, end - max(start, edge))
+        edge = max(edge, end)
+    total = sum(by_class.values())
+    print(f"resnet profile: one warm bf16 step at batch {batch}: "
+          f"{host_ms:.2f} ms of host time to enqueue, {wall_ms:.2f} ms to "
+          f"finish, {len(spans)} kernels, device time {total / 1e3:.2f} ms, "
+          f"device busy {busy / 1e3 / wall_ms:.3f} of the step [{card}]")
+    for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"resnet profile: {us / 1e3:9.3f} ms {us / total:6.3f} {cls}")
+    for name, us in sorted(other.items(), key=lambda kv: -kv[1])[:3]:
+        print(f"resnet profile: other: {us / 1e3:8.3f} ms {name[:90]}")
+    return {"busy": busy / 1e3 / wall_ms, "host_ms": host_ms,
+            "device_ms": total / 1e3}
+
+
+def resnet_serve(mx, sym, card, workdir):
+    """Phase 7d: RESNET_SERVE fp32 steps through Module.fit, the
+    checkpoint saved, loaded into serving.ModelServer, requests of 1-8
+    images answered and held to Module.predict (BatchNorm in inference
+    mode, on the moving statistics the steps left)."""
+    batch, steps = RESNET_SERVE
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mx.random.seed(SEED)
+    mod.fit(resident_iter(mx, batch, "float32", steps, seed=SEED + 1),
+            num_epoch=1, optimizer="sgd",
+            optimizer_params=dict(RESNET_OPT, rescale_grad=1.0 / batch),
+            eval_metric="acc", initializer=resnet_init(mx), kvstore=None)
+    check(mod._fused_step.steps == steps, "resnet serve: fused step")
+    rng = np.random.RandomState(SEED + 2)
+    reqs = [rng.rand(n, *IMAGE).astype("f4") for n in RESNET_SERVE_SIZES]
+    want = [mod.predict(x).asnumpy() for x in reqs]
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        prefix = os.path.join(tmp, "resnet50")
+        mod.save_checkpoint(prefix, steps)
+        srv = mx.serving.ModelServer(max_queue_latency_ms=2.0,
+                                     ctx=mx.gpu(0))
+        srv.load_model("resnet50", prefix=prefix, epoch=steps,
+                       data_shapes=[("data", (1,) + IMAGE)],
+                       buckets=RESNET_BUCKETS)
+        futs = [srv.submit("resnet50", {"data": x}) for x in reqs]
+        got = [f.result(300)[0].asnumpy() for f in futs]
+        srv.shutdown(drain=True)
+    rtol, atol = SERVE_TRAIN_TOL
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    ok = all(g.shape == w.shape and np.isfinite(g).all() and bool(
+        (np.abs(g - w) <= rtol * np.abs(w) + atol * np.abs(w).max()).all())
+        for g, w in zip(got, want))
+    agree = float(np.mean(np.concatenate([g.argmax(1) == w.argmax(1)
+                                          for g, w in zip(got, want)])))
+    print(f"resnet serve: {steps} fp32 steps at batch {batch}, checkpoint "
+          f"served, {len(reqs)} requests of {sum(RESNET_SERVE_SIZES)} "
+          f"images (buckets {RESNET_BUCKETS}) vs Module.predict: "
+          f"max_abs_err {err:.3e} (rtol {rtol:g}, atol {atol:g}*max|ref|),"
+          f" argmax agreement {agree:.4f} {'ok' if ok else 'FAIL'}")
+    check(ok, "served ResNet-50 disagrees with Module.predict")
+
+
+def resnet_phase(card, workdir):
+    """Phase 7; returns the numbers the summary line prints."""
+    import incubator_mxnet_tpu_torch as mx
+    net, sym = resnet_symbol(mx)
+    args, _, aux = sym.infer_shape(data=(RESNET_BATCH,) + IMAGE)
+    learned = [a for n, a in zip(sym.list_arguments(), args)
+               if n not in ("data", "softmax_label")]
+    print(f"resnet: resnet50_v1 composed: {len(learned)} learned arguments "
+          f"of {sum(math.prod(a) for a in learned)} values, {len(aux)} aux "
+          f"of {sum(math.prod(a) for a in aux)}")
+    out = {}
+    t0 = time.perf_counter()
+    resnet_parity(mx, net, sym)
+    out["parity_s"] = time.perf_counter() - t0
+    mod, out["bf16"] = resnet_lane(mx, sym, "bfloat16", RESNET_BATCH,
+                                   RESNET_WARM, RESNET_TIMED, card,
+                                   PEAK_FLOPS[BF16])
+    out["profile"] = resnet_profile(mx, mod, card)
+    del mod
+    torch.cuda.empty_cache()
+    batch, steps = RESNET_FP32
+    mod, out["fp32"] = resnet_lane(mx, sym, "float32", batch, steps // 2,
+                                   steps - steps // 2, card,
+                                   FP32_CUDA_CORE_FLOPS)
+    del mod
+    torch.cuda.empty_cache()
+    resnet_serve(mx, sym, card, workdir)
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -1285,8 +1815,19 @@ def main():
     t0 = time.perf_counter()
     train_launches, train = train_phase(card, str(_build.BUILD_DIR.parent))
     print(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    resnet = resnet_phase(card, str(_build.BUILD_DIR.parent))
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
+    bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
+    print(f"resnet50 summary: bf16 batch {RESNET_BATCH} "
+          f"{bf16['images_s']:.1f} images/s, step {bf16['step_ms']:.3f} ms, "
+          f"mfu {bf16['mfu']:.4f}, peak {bf16['peak_gib']:.2f} GiB; fp32 "
+          f"batch {RESNET_FP32[0]} {fp32['images_s']:.1f} images/s, mfu "
+          f"{fp32['mfu']:.4f}; profiled bf16 step busy {prof['busy']:.3f}, "
+          f"host {prof['host_ms']:.1f} ms; parity {resnet['parity_s']:.1f} s "
+          f"[{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"

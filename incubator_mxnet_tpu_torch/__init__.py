@@ -14,7 +14,11 @@ over a `torch.distributed` group, and the ``BlockwiseAttention`` op.
 Slice 4 covers symbolic training: `mod.Module.fit` over an eager
 `executor.Executor` (the ops' backward by autograd, ``SoftmaxOutput``'s
 implicit gradient), `optimizer.SGD`, `initializer`, `metric`, `io`,
-`callback` and `lr_scheduler`.
+`callback` and `lr_scheduler`.  Slice 5 trains ResNet-50 v1: the
+`BatchNorm` op, `gluon` (Parameter, Block, HybridBlock, the layers and
+`model_zoo` ResNet/VGG composed on a Symbol), and `Module.fit`'s fused
+train step (`fused.FusedTrainStep`: a multi-tensor SGD update and
+metrics accumulated on the device).
 
     import incubator_mxnet_tpu_torch as mx
 """
@@ -42,6 +46,7 @@ from . import callback
 from . import executor
 from . import module
 from . import module as mod
+from . import gluon
 from . import test_utils
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
@@ -49,4 +54,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "model", "save_checkpoint", "load_checkpoint", "serving",
            "model_zoo", "parallel", "random", "initializer", "init",
            "lr_scheduler", "optimizer", "metric", "io", "callback",
-           "executor", "module", "mod", "test_utils"]
+           "executor", "module", "mod", "gluon", "test_utils"]

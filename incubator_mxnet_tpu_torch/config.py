@@ -18,6 +18,10 @@ backend `Symbol.simple_bind` partitions the graph with at bind time
 (``TPU_PALLAS`` fuses FullyConnected+bias+ReLU into kernel K1), as the
 JAX package's `simple_bind` does.
 
+``MXNET_FUSED_TRAIN_STEP`` (bool, default on) lets `Module.fit` run its
+fused train step (`fused.FusedTrainStep`) where the module allows it;
+``0`` keeps every batch on the per-batch path, as in the JAX package.
+
 ``MXNET_FLASH_INTERPRET`` is not carried over: in the port the tensor's
 device decides.  A CPU tensor takes a kernel's plain PyTorch version; a
 CUDA tensor launches the kernel or raises.
@@ -31,6 +35,8 @@ __all__ = ["KNOBS", "get"]
 
 _LOG = logging.getLogger(__name__)
 
+_BOOL = lambda s: s not in ("0", "false", "False", "")  # noqa: E731
+
 # name -> (parser, default, doc)
 KNOBS = {
     "MXNET_FLASH_VMEM_MB": (float, 10.0,
@@ -39,6 +45,9 @@ KNOBS = {
     "MXNET_SUBGRAPH_BACKEND": (str, "",
                                "subgraph backend Symbol.simple_bind "
                                "partitions the graph with"),
+    "MXNET_FUSED_TRAIN_STEP": (_BOOL, True,
+                               "Module.fit runs the fused train step "
+                               "(fused.py) where it can"),
 }
 
 

@@ -116,10 +116,12 @@ class Executor:
         else:
             with torch.no_grad():
                 outs, new_aux = fn(args, aux, rng)
-        if is_train:
-            for a, v in zip(self.aux_arrays, new_aux):
-                if v is not a.data:
-                    a._set_data(v.detach())
+        if is_train:     # the new aux values, in one multi-tensor copy
+            changed = [(a.data, v.detach()) for a, v in
+                       zip(self.aux_arrays, new_aux) if v is not a.data]
+            if changed:
+                with torch.no_grad():
+                    torch._foreach_copy_(*(list(c) for c in zip(*changed)))
         self.outputs = [NDArray(o.detach(), ctx=self._ctx) for o in outs]
 
     def backward(self, out_grads=None, is_train=True):
@@ -130,6 +132,20 @@ class Executor:
         `graph_executor.cc Backward`)."""
         if not self._wrt:
             return []
+        out = []
+        for i, g in zip(self._wrt, self._grads(out_grads)):
+            tgt = self.grad_arrays[i]
+            if tgt is not None:
+                if self._grad_req[self._arg_names[i]] == "add":
+                    g = tgt.data + g.to(tgt.data.device, tgt.data.dtype)
+                tgt._set_data(g)
+            out.append(NDArray(g.detach(), ctx=self._ctx))
+        return out
+
+    def _grads(self, out_grads=None):
+        """The gradients of the arguments that take one (ordered like
+        ``_wrt``) from the recorded training forward, which is released;
+        a zero tensor for an argument the outputs do not reach."""
         if self._recorded is None:
             self._run(True)
         leaves, outs = self._recorded
@@ -146,17 +162,8 @@ class Executor:
             grads = torch.autograd.grad([o for o, _ in pairs],
                                         leaves, [g for _, g in pairs],
                                         allow_unused=True)
-        out = []
-        for i, leaf, g in zip(self._wrt, leaves, grads):
-            if g is None:
-                g = torch.zeros_like(leaf)
-            tgt = self.grad_arrays[i]
-            if tgt is not None:
-                if self._grad_req[self._arg_names[i]] == "add":
-                    g = tgt.data + g.to(tgt.data.device, tgt.data.dtype)
-                tgt._set_data(g)
-            out.append(NDArray(g.detach(), ctx=self._ctx))
-        return out
+        return [torch.zeros_like(leaf) if g is None else g
+                for leaf, g in zip(leaves, grads)]
 
     def forward_backward(self, out_grads=None, **kwargs):
         """One training forward and its backward (the Module step)."""

@@ -1,4 +1,5 @@
-"""FusedInference: the request path's evaluator over pinned parameters.
+"""FusedInference: the request path's evaluator over pinned parameters;
+FusedTrainStep: `Module.fit`'s training step in one call.
 
 PyTorch port of `FusedInference` in `incubator_mxnet_tpu/fused.py`.  The
 JAX class compiles the Symbol into one XLA program per input signature,
@@ -18,7 +19,7 @@ from .base import MXNetError
 from .ndarray.ndarray import NDArray
 from .symbol.symbol import graph_eval_fn
 
-__all__ = ["FusedInference"]
+__all__ = ["FusedInference", "FusedTrainStep"]
 
 
 def _as_tensor(v, device):
@@ -120,3 +121,81 @@ def _label_slots(symbol):
                 slot = names[i] if i < len(names) else None
                 slots.setdefault(src.name, set()).add(slot)
     return {n for n, s in slots.items() if s == {"label"}}
+
+
+class FusedTrainStep:
+    """`Module.fit`'s step in one call: the training forward, the backward
+    through the executor's autograd graph, the optimizer's multi-tensor
+    update of every parameter in place, the BatchNorm aux write-back and
+    the metric's update on the device (PyTorch port of `FusedTrainStep`
+    in `incubator_mxnet_tpu/fused.py`).
+
+    Nothing in a step waits for the device: the gradients never land in
+    the executor's gradient arrays, the update reads them straight from
+    autograd, and the metric adds to totals that stay on the device until
+    its `get`.  Every write is in place, so nothing is deferred and the
+    module's arrays are current after each call.  The JAX class compiles
+    the step into one program (and K steps into one scan) with donated
+    buffers, a program cache and a guardian; this one runs eagerly, and
+    capturing it as a CUDA graph is ROADMAP work.
+
+    Built by `Module.init_optimizer` when `Module._fusable` allows it;
+    optimizer state lives in the module's updater either way, so the
+    per-batch path and this one share it.
+    """
+
+    def __init__(self, module, updater):
+        group = module._exec_group
+        self._exec = group.execs[0]
+        self._updater = updater
+        self._input_names = group.data_names + group.label_names
+        self._label_names = group.label_names
+        arg_names = self._exec._arg_names
+        wrt = [arg_names[i] for i in self._exec._wrt]
+        # the updated parameters: every argument the executor takes a
+        # gradient for (Module gives inputs no gradient here)
+        self._param_names = [n for n in group.param_names
+                             if group.grad_req.get(n) == "write"]
+        self._grad_pos = [wrt.index(n) for n in self._param_names]
+        self._indices = [group.param_names.index(n)
+                         for n in self._param_names]
+        self._shapes = {n: self._exec.arg_dict[n].shape
+                        for n in self._input_names}
+        self.steps = 0
+
+    def __call__(self, data_batch, eval_metric=None):
+        """Run one step on `data_batch`.  Returns False, having done
+        nothing, when the step cannot take it (a metric without
+        `device_update`, a batch of another shape): the caller then runs
+        the per-batch path."""
+        leaves = _metric_leaves(eval_metric)
+        values = list(data_batch.data) + list(data_batch.label or [])
+        if leaves is None or len(values) != len(self._input_names) or any(
+                tuple(v.shape) != self._shapes[n]
+                for n, v in zip(self._input_names, values)):
+            return False
+        exe = self._exec
+        outs = exe.forward(is_train=True,
+                           **dict(zip(self._input_names, values)))
+        grads = exe._grads()
+        self._updater.update_multi(
+            self._indices, [NDArray(grads[p]) for p in self._grad_pos],
+            [exe.arg_dict[n] for n in self._param_names])
+        labels = [exe.arg_dict[n] for n in self._label_names]
+        for metric in leaves:
+            metric._accumulate(*metric.device_update(labels, outs))
+        self.steps += 1
+        return True
+
+
+def _metric_leaves(eval_metric):
+    """The leaf metrics of `eval_metric`, or None when one of them cannot
+    count on the device."""
+    from . import metric as _metric
+    if eval_metric is None:
+        return []
+    leaves = eval_metric.metrics if isinstance(
+        eval_metric, _metric.CompositeEvalMetric) else [eval_metric]
+    if not all(hasattr(m, "device_update") for m in leaves):
+        return None
+    return leaves

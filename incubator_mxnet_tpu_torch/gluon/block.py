@@ -1,0 +1,345 @@
+"""Gluon Block and HybridBlock (reference `python/mxnet/gluon/block.py`).
+
+PyTorch port of `incubator_mxnet_tpu/gluon/block.py`.  Blocks name
+themselves and their parameters exactly as the JAX package's do (the
+`_BlockScope` prefix counters), so a network composed in either package
+gives the same parameter, aux-state and op-node names and the same
+symbol JSON.
+
+A `HybridBlock` called on a Symbol composes ``hybrid_forward`` with the
+symbolic frontend (``F = mx.sym``): this is how `Module` trains a gluon
+network.  Called on NDArrays it traces that symbol once (the JAX
+package's cached graph) and evaluates it in predict mode with the
+Symbol interpreter (`symbol.graph_eval_fn`) on the parameters' device,
+finishing deferred initialisation from the input's shape first.  The
+port has no autograd tape yet, so that call never trains: training goes
+through `Module`.  `hybridize` only records the flag, since every NDArray
+call already runs the traced graph.  `SymbolBlock`, forward hooks and
+`summary` are not ported.
+"""
+from __future__ import annotations
+
+import re
+import threading
+
+import torch
+
+from ..base import MXNetError
+from ..ndarray.ndarray import NDArray
+from .. import ndarray as nd
+from .parameter import Parameter, ParameterDict, _load_into
+
+__all__ = ["Block", "HybridBlock"]
+
+
+class _BlockScope:
+    """Name manager for Block prefixes (reference `block.py:_BlockScope`):
+    outside any scope a block takes the next global ``{hint}_{n}_``; inside
+    its parent's scope, ``{parent prefix}{hint}{n}_`` with a counter per
+    hint and parent."""
+
+    _current = threading.local()
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+        self._old_scope = None
+
+    @staticmethod
+    def create(prefix, params, hint):
+        current = getattr(_BlockScope._current, "value", None)
+        if current is None:
+            if prefix is None:
+                from ..symbol.symbol import _NameManager
+                prefix = _NameManager.next_name(hint + "_") + "_"
+            if params is None:
+                params = ParameterDict(prefix)
+            else:
+                params = ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            prefix = f"{hint}{count}_"
+            current._counter[hint] = count + 1
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = getattr(_BlockScope._current, "value", None)
+        _BlockScope._current.value = self
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        if self._block._empty_prefix:
+            return
+        _BlockScope._current.value = self._old_scope
+
+
+class Block:
+    """Base building block (reference `block.py:126 Block`)."""
+
+    def __init__(self, prefix=None, params=None):
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _BlockScope.create(prefix, params,
+                                                        self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._children = {}
+        self._reg_params = {}
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    def __repr__(self):
+        modstr = "\n".join(f"  ({key}): {_indent(repr(block), 2)}"
+                           for key, block in self._children.items())
+        return f"{self.__class__.__name__}(\n{modstr}\n)"
+
+    def __setattr__(self, name, value):
+        if hasattr(self, name):
+            existing = getattr(self, name)
+            if isinstance(existing, (Parameter, Block)) and \
+                    not isinstance(value, type(existing)) and \
+                    not isinstance(existing, type(value)):
+                raise TypeError(f"Changing attribute type for {name} from "
+                                f"{type(existing)} to {type(value)} is not "
+                                "allowed.")
+        if isinstance(value, Block):
+            self.register_child(value, name)
+        elif isinstance(value, Parameter):
+            if self._reg_params.get(name, value) is not value:
+                raise MXNetError(f"Overriding Parameter attribute {name} is "
+                                 "not allowed.")
+            self._reg_params[name] = value
+        super().__setattr__(name, value)
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    def name_scope(self):
+        """The scope children created under it are named in."""
+        return self._scope
+
+    @property
+    def params(self):
+        return self._params
+
+    def collect_params(self, select=None):
+        """This block's and its children's parameters, those whose name
+        matches the regular expression `select` if given."""
+        ret = ParameterDict(self._params.prefix)
+        if not select:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({name: value for name, value in self.params.items()
+                        if pattern.match(name)})
+        for cld in self._children.values():
+            ret.update(cld.collect_params(select=select))
+        return ret
+
+    def register_child(self, block, name=None):
+        if name is None:
+            name = str(len(self._children))
+        self._children[name] = block
+
+    def apply(self, fn):
+        for cld in self._children.values():
+            cld.apply(fn)
+        fn(self)
+        return self
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        from .. import initializer as init_mod
+        self.collect_params().initialize(init or init_mod.Uniform(), ctx,
+                                         verbose, force_reinit)
+
+    def hybridize(self, active=True, **kwargs):
+        for cld in self._children.values():
+            cld.hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        for child in self._children.values():
+            child.cast(dtype)
+        for _, param in self.params.items():
+            param.cast(dtype)
+
+    def save_parameters(self, filename, deduplicate=False):
+        """The parameters under their structural names (``features.0.
+        weight``), in the reference's `.params` format."""
+        params = self._collect_params_with_prefix()
+        nd.save(filename, {key: val._reduce() for key, val in
+                           params.items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load `save_parameters`' file (either package's); a file of
+        full parameter names (``ParameterDict.save``) also loads."""
+        loaded = nd.load(filename)
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        if not any("." in k for k in loaded):
+            self.collect_params().load(filename, ctx, allow_missing,
+                                       ignore_extra, self.prefix)
+            return
+        _load_into(params, loaded, f"file '{filename}'", ctx,
+                   allow_missing, ignore_extra)
+
+    save_params = save_parameters
+    load_params = load_parameters
+
+    def _collect_params_with_prefix(self, prefix=""):
+        if prefix:
+            prefix += "."
+        ret = {prefix + key: val for key, val in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def __call__(self, *args):
+        return self.forward(*args)
+
+    def forward(self, *args):
+        raise NotImplementedError
+
+
+def _indent(s, num_spaces):
+    lines = s.split("\n")
+    if len(lines) == 1:
+        return s
+    first = lines.pop(0)
+    return first + "\n" + "\n".join(" " * num_spaces + line
+                                    for line in lines)
+
+
+class _CachedGraph:
+    """A HybridBlock's traced symbol and its predict-mode interpreter (the
+    JAX package's `_CachedGraph`, without the compile)."""
+
+    def __init__(self, symbol, data_names):
+        from ..symbol.symbol import graph_eval_fn
+        self.symbol = symbol
+        self.data_names = data_names
+        self._fn, arg_nodes, aux_nodes = graph_eval_fn(symbol, False)
+        self.arg_names = [n.name for n in arg_nodes]
+        self.aux_names = [n.name for n in aux_nodes]
+
+    def __call__(self, inputs, params, ctx):
+        """Outputs (NDArrays on `ctx`) for `inputs` ({data name: NDArray})
+        and `params` ({parameter name: Parameter})."""
+        def value(name):
+            if name in inputs:
+                return inputs[name].data
+            return params[name].data(ctx).data
+        with torch.no_grad():
+            outs, _ = self._fn([value(n) for n in self.arg_names],
+                               [value(n) for n in self.aux_names])
+        outs = [NDArray(o, ctx=ctx) for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+
+class HybridBlock(Block):
+    """A Block whose ``hybrid_forward`` composes symbolically (reference
+    `block.py:672 HybridBlock`)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._cached_graph = None
+
+    def __setattr__(self, name, value):
+        super().__setattr__(name, value)
+        if isinstance(value, HybridBlock):
+            self._cached_graph = None
+
+    def hybridize(self, active=True, **kwargs):
+        self._active = active
+        super().hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        self._cached_graph = None
+        super().cast(dtype)
+
+    def infer_shape(self, *args):
+        """Fill the parameters' unknown dims from the inputs' shapes."""
+        out, names = self._trace_symbol(len(args))
+        arg_shapes, _, aux_shapes = out.infer_shape(
+            **{n: a.shape for n, a in zip(names, args)})
+        known = dict(zip(out.list_arguments(), arg_shapes))
+        known.update(zip(out.list_auxiliary_states(), aux_shapes))
+        for p in self.collect_params().values():
+            if known.get(p.name) is not None:
+                p.shape = known[p.name]
+
+    def _trace_symbol(self, n_inputs):
+        """``hybrid_forward`` over Variables ``data`` (``data0``, ... for
+        several inputs): (output Symbol, data names)."""
+        from .. import symbol as sym_mod
+        data = [sym_mod.var(f"data{i}" if n_inputs > 1 else "data")
+                for i in range(n_inputs)]
+        params = {name: p.var() for name, p in self._reg_params.items()}
+        out = self.hybrid_forward(sym_mod, *data, **params)
+        if isinstance(out, (list, tuple)):
+            out = sym_mod.Group(list(out))
+        return out, [s.name for s in data]
+
+    def forward(self, x, *args):
+        from .. import symbol as sym_mod
+        if isinstance(x, sym_mod.Symbol):
+            params = {name: p.var() for name, p in self._reg_params.items()}
+            return self.hybrid_forward(sym_mod, x, *args, **params)
+        if not isinstance(x, NDArray):
+            raise MXNetError(f"{type(self).__name__}: call on an NDArray or "
+                             f"a Symbol, got {type(x).__name__}")
+        inputs = [x] + list(args)
+        pending = [p for p in self.collect_params().values()
+                   if p._data is None]
+        if pending:
+            if any(p._deferred_init and (p.shape is None or 0 in p.shape)
+                   for p in pending):
+                self.infer_shape(*inputs)
+            for p in pending:
+                p._finish_deferred_init()
+        if self._cached_graph is None:
+            out, names = self._trace_symbol(len(inputs))
+            self._cached_graph = _CachedGraph(out, names)
+        cg = self._cached_graph
+        return cg(dict(zip(cg.data_names, inputs)),
+                  {p.name: p for p in self.collect_params().values()},
+                  x.context)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+    def export(self, path, epoch=0):
+        """``path-symbol.json`` and ``path-%04d.params`` (``arg:``/``aux:``
+        keys) of the traced graph, for `Module.load` or serving."""
+        if self._cached_graph is None:
+            raise MXNetError("Please first call the block on data at least "
+                             "once before calling export.")
+        sym = self._cached_graph.symbol
+        sym.save(f"{path}-symbol.json")
+        arg_names = set(sym.list_arguments())
+        aux_names = set(sym.list_auxiliary_states())
+        arg_dict = {}
+        for param in self.collect_params().values():
+            if param.name in arg_names:
+                arg_dict[f"arg:{param.name}"] = param._reduce()
+            elif param.name in aux_names:
+                arg_dict[f"aux:{param.name}"] = param._reduce()
+        nd.save("%s-%04d.params" % (path, epoch), arg_dict)

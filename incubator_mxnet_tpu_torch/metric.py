@@ -2,14 +2,18 @@
 
 PyTorch port of `EvalMetric`, `CompositeEvalMetric`, `Accuracy`,
 `CrossEntropy`, `create` and the registry from
-`incubator_mxnet_tpu/metric.py`.  Metrics accumulate on the host from
-numpy copies of the labels and outputs; the JAX package's in-graph
-`device_update` belongs to its fused train step, which the port does not
-have.
+`incubator_mxnet_tpu/metric.py`.  `Accuracy` and `CrossEntropy` count on
+the device of the predictions: `device_update` gives a batch's (sum,
+count) as tensors there (the JAX package's in-graph `device_update`),
+`update` adds them to running totals on that device, and only `get`
+copies the totals to the host, once.  A training step therefore never
+waits for the device to update a metric; the fused train step
+(`fused.FusedTrainStep`) calls `device_update` for each leaf metric.
 """
 from __future__ import annotations
 
 import numpy
+import torch
 
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
@@ -49,8 +53,14 @@ def create(metric, *args, **kwargs):
                      f"a list, got {metric!r}")
 
 
-def _as_numpy(x):
-    return x.asnumpy() if isinstance(x, NDArray) else numpy.asarray(x)
+def _as_tensor(x, device=None):
+    """An NDArray's tensor, a tensor, or a numpy array as a tensor, on
+    `device` when given."""
+    if isinstance(x, NDArray):
+        x = x.data
+    elif not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(numpy.ascontiguousarray(x))
+    return x if device is None else x.to(device, non_blocking=True)
 
 
 def check_label_shapes(labels, preds):
@@ -81,11 +91,33 @@ class EvalMetric:
     def update(self, labels, preds):
         raise NotImplementedError()
 
+    # -- totals on the device ------------------------------------------------
+    # Metrics with `device_update(labels, preds) -> (sum, count)` (tensors
+    # on the predictions' device) keep their running totals there; `get`
+    # adds them to sum_metric / num_inst with one copy to the host.
+    _device_totals = None
+
+    def _accumulate(self, dsum, dnum):
+        dsum, dnum = dsum.double(), dnum.double()
+        if self._device_totals is not None:
+            tsum, tnum = self._device_totals
+            dsum, dnum = tsum + dsum, tnum + dnum
+        self._device_totals = (dsum, dnum)
+
+    def _materialize(self):
+        if self._device_totals is not None:
+            hsum, hnum = torch.stack(self._device_totals).tolist()
+            self.sum_metric += hsum
+            self.num_inst += int(round(hnum))
+            self._device_totals = None
+
     def reset(self):
         self.num_inst = 0
         self.sum_metric = 0.0
+        self._device_totals = None
 
     def get(self):
+        self._materialize()
         if self.num_inst == 0:
             return (self.name, float("nan"))
         return (self.name, self.sum_metric / self.num_inst)
@@ -142,16 +174,23 @@ class Accuracy(EvalMetric):
         self.axis = axis
 
     def update(self, labels, preds):
+        self._accumulate(*self.device_update(labels, preds))
+
+    def device_update(self, labels, preds):
+        """(rows whose argmax equals the label, rows) of one batch, as
+        tensors on the predictions' device."""
         labels, preds = check_label_shapes(labels, preds)
+        dsum = dnum = 0
         for label, pred_label in zip(labels, preds):
-            pred = _as_numpy(pred_label)
-            lab = _as_numpy(label)
+            pred = _as_tensor(pred_label)
+            lab = _as_tensor(label, pred.device)
             if pred.ndim > 1 and pred.shape != lab.shape:
-                pred = pred.argmax(axis=self.axis)
-            lab = lab.astype("int32").reshape(-1)
-            pred = pred.astype("int32").reshape(-1)
-            self.sum_metric += (pred == lab).sum()
-            self.num_inst += len(pred)
+                pred = pred.argmax(dim=self.axis)
+            lab = lab.to(torch.int32).reshape(-1)
+            pred = pred.to(torch.int32).reshape(-1)
+            dsum = dsum + (pred == lab).sum()
+            dnum = dnum + pred.numel()
+        return _pair(dsum, dnum)
 
 
 @register
@@ -165,11 +204,35 @@ class CrossEntropy(EvalMetric):
         self.eps = eps
 
     def update(self, labels, preds):
+        self._accumulate(*self.device_update(labels, preds))
+
+    def device_update(self, labels, preds):
+        """(sum of -log(p[label] + eps), rows) of one batch, as tensors on
+        the predictions' device; p in float32."""
         labels, preds = check_label_shapes(labels, preds)
+        dsum = dnum = 0
         for label, pred in zip(labels, preds):
-            label = _as_numpy(label).ravel()
-            pred = _as_numpy(pred)
-            assert label.shape[0] == pred.shape[0]
-            prob = pred[numpy.arange(label.shape[0]), numpy.int64(label)]
-            self.sum_metric += (-numpy.log(prob + self.eps)).sum()
-            self.num_inst += label.shape[0]
+            pred = _as_tensor(pred)
+            label = _as_tensor(label, pred.device).reshape(-1)
+            if label.shape[0] != pred.shape[0]:
+                raise MXNetError(f"CrossEntropy: {label.shape[0]} labels "
+                                 f"for {pred.shape[0]} predictions")
+            prob = pred.float()[torch.arange(label.shape[0],
+                                             device=pred.device),
+                                label.long()]
+            dsum = dsum + (-torch.log(prob + self.eps)).sum(
+                dtype=torch.float64)
+            dnum = dnum + label.shape[0]
+        return _pair(dsum, dnum)
+
+
+def _pair(dsum, dnum):
+    """(sum, count) as float64 tensors on the sum's device; a Python
+    count is filled in there (no copy from the host)."""
+    device = dsum.device if isinstance(dsum, torch.Tensor) else None
+
+    def f64(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(torch.float64)
+        return torch.full((), float(v), dtype=torch.float64, device=device)
+    return f64(dsum), f64(dnum)

@@ -1,9 +1,9 @@
 """Training glue and the checkpoint pair.
 
 PyTorch port of part of `incubator_mxnet_tpu/model.py`: `BatchEndParam`,
-`_create_kvstore` and `_update_params` (what `Module` needs on one
-device), and `save_checkpoint` / `load_checkpoint` (reference
-`model.py:383`, `:413`) for ``prefix-symbol.json`` +
+`_create_kvstore` (what `Module` needs on one device), and
+`save_checkpoint` / `load_checkpoint` (reference `model.py:383`, `:413`)
+for ``prefix-symbol.json`` +
 ``prefix-%04d.params``.  Both files are committed through a temp file and
 ``os.replace``, so a crash never leaves a torn checkpoint behind.  The
 port has no kvstore yet: on one device ``"local"`` needs none, and a
@@ -39,18 +39,6 @@ def _create_kvstore(kvstore, num_device, arg_params):
         raise MXNetError(f"kvstore {kvstore!r}: the port trains on one "
                          f"device, got {num_device}")
     return None, False
-
-
-def _update_params(param_arrays, grad_arrays, updater, num_device):
-    """Apply `updater` to every parameter that has a gradient, index
-    ``i * num_device + k`` for device k (reference `model.py
-    _update_params`, without a kvstore)."""
-    for i, (arg_list, grad_list) in enumerate(zip(param_arrays,
-                                                  grad_arrays)):
-        if grad_list[0] is None:
-            continue
-        for k, (w, g) in enumerate(zip(arg_list, grad_list)):
-            updater(i * num_device + k, g, w)
 
 
 def _atomic(path, write):

@@ -2,13 +2,13 @@
 `python/mxnet/module/base_module.py`).
 
 PyTorch port of `incubator_mxnet_tpu/module/base_module.py`.  `fit` is the
-plain per-batch loop of the JAX package's `_fit_epochs`: one
-`forward_backward`, `update` and `update_metric` per batch, the batch-end
+per-batch loop of the JAX package's `_fit_epochs`: one `fit_step` per
+batch (`Module`'s runs the fused train step where it can, else
+`forward_backward`, `update` and `update_metric`), the batch-end
 callbacks after each.  The planes the JAX `fit` wraps around that loop
-are not ported (README "Declared divergences"): the fused single-program
-step and its K-step blocks, the training guardian, the h2d staging ring,
-the supervisor, the program cache and elastic checkpoints
-(``checkpoint_dir`` raises).
+are not ported (README "Declared divergences"): the fused step's K-step
+blocks, the training guardian, the h2d staging ring, the supervisor,
+the program cache and elastic checkpoints (``checkpoint_dir`` raises).
 """
 from __future__ import annotations
 

@@ -17,6 +17,8 @@ from ..ndarray.ndarray import NDArray
 def _dtype_name(dtype):
     if isinstance(dtype, torch.dtype):
         return str(dtype).replace("torch.", "")
+    if isinstance(dtype, str):     # "bfloat16", which numpy may not know
+        return dtype
     import numpy as np
     return np.dtype(dtype).name
 

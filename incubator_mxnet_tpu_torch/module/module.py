@@ -6,9 +6,13 @@ PyTorch port of `incubator_mxnet_tpu/module/module.py`.  Divergences
 ``gpu(0)``, where the JAX `Module` defaults to ``cpu()``, and
 constructing one on a machine without the card raises unless
 ``context=mx.cpu()``; one context only, since the port has no kvstore
-yet; no fused train step (every batch runs `forward_backward`, `update`
-and `update_metric`).  The parameters the module holds between steps
-(`get_params`) live on the CPU; the executor's copies on the device.
+yet.  `init_optimizer` builds the fused train step
+(`fused.FusedTrainStep`) when `_fusable` allows it, and `fit_step` runs
+a batch through it, else through `forward_backward`, `update` and
+`update_metric`.  The fused step writes every array in place, so there
+is nothing to flush before the arrays are read.  The parameters the
+module holds between steps (`get_params`) live on the CPU; the
+executor's copies on the device.
 """
 from __future__ import annotations
 
@@ -18,8 +22,7 @@ from ..base import MXNetError
 from ..context import Context, cpu, current_context
 from ..initializer import Uniform, InitDesc
 from .. import optimizer as opt
-from ..model import _create_kvstore, _update_params, load_checkpoint, \
-    save_checkpoint
+from ..model import _create_kvstore, load_checkpoint, save_checkpoint
 from .. import ndarray as nd
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
@@ -58,6 +61,7 @@ class Module(BaseModule):
         self._params_dirty = False
         self._optimizer = None
         self._updater = None
+        self._fused_step = None
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
@@ -185,6 +189,7 @@ class Module(BaseModule):
         if force_rebind:
             self.binded = False
             self._exec_group = None
+            self._fused_step = None
         if self.binded:
             self.logger.warning("Already bound, ignoring bind()")
             return
@@ -232,11 +237,37 @@ class Module(BaseModule):
                 f" vs. {rescale_grad}). Is this intended?")
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
+        self._fused_step = None
+        if self._fusable():
+            from ..fused import FusedTrainStep
+            self._fused_step = FusedTrainStep(self, self._updater)
         self.optimizer_initialized = True
         preload = getattr(self, "_preload_opt_states", None)
         if preload is not None:
             self.load_optimizer_states(preload)
             self._preload_opt_states = None
+
+    def _fusable(self):
+        """Whether `fit` may run the fused train step: the knob
+        ``MXNET_FUSED_TRAIN_STEP`` is on, the module trains, its inputs
+        take no gradient and every gradient is written, not added (the
+        JAX `Module._fusable` on one device)."""
+        from .. import config as _config
+        if not _config.get("MXNET_FUSED_TRAIN_STEP"):
+            return False
+        if self.inputs_need_grad or not self.for_training:
+            return False
+        return all(v in ("write", "null")
+                   for v in self._exec_group.grad_req.values())
+
+    def fit_step(self, data_batch, eval_metric):
+        """One training step and its metric update: the fused step when
+        it takes the batch, else the per-batch path."""
+        if self._fused_step is not None and \
+                self._fused_step(data_batch, eval_metric):
+            self._params_dirty = True
+            return
+        super().fit_step(data_batch, eval_metric)
 
     # -- forward/backward ------------------------------------------------------
     def forward(self, data_batch, is_train=None):
@@ -248,13 +279,18 @@ class Module(BaseModule):
         self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
-        """Apply the optimizer to the gradients of the last backward."""
+        """Apply the optimizer to the gradients of the last backward: one
+        `Updater.update_multi` over every parameter that has one (the
+        multi-tensor update the fused step runs too)."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         self._params_dirty = True
-        _update_params(self._exec_group.param_arrays,
-                       self._exec_group.grad_arrays, updater=self._updater,
-                       num_device=1)
+        group = self._exec_group
+        rows = [(i, g[0], w[0]) for i, (w, g) in
+                enumerate(zip(group.param_arrays, group.grad_arrays))
+                if g[0] is not None]
+        if rows:
+            self._updater.update_multi(*(list(c) for c in zip(*rows)))
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized

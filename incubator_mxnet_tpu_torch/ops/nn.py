@@ -1,7 +1,8 @@
 """Core neural-network operators.
 
 PyTorch port of part of `incubator_mxnet_tpu/ops/nn.py`:
-FullyConnected, Convolution, Pooling, Activation, softmax and Dropout.
+FullyConnected, Convolution, Pooling, Activation, softmax, Dropout and
+BatchNorm.
 Data layouts follow the reference (NCHW); the op bodies are
 `torch.nn.functional` calls, as the JAX package leaves these ops to XLA,
 and their backward is autograd's through them (the JAX package's is
@@ -174,3 +175,95 @@ def _dropout(params, x, generator):
             shape[i] = 1
     keep = torch.rand(shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def _bn_nout(params):
+    return 3 if params.get("output_mean_var") else 1
+
+
+@register("BatchNorm", nin=3, naux=2, nout=_bn_nout, mode_dependent=True,
+          params={"eps": 1e-3, "momentum": 0.9, "fix_gamma": True,
+                  "use_global_stats": False, "output_mean_var": False,
+                  "axis": 1, "cudnn_off": False, "sync": False,
+                  "sync_axis": "dp"},
+          aliases=("BatchNorm_v1",),
+          input_names=["data", "gamma", "beta", "moving_mean", "moving_var"])
+def _batch_norm(params, x, gamma, beta, moving_mean, moving_var):
+    """Reference `src/operator/nn/batch_norm.cc`, with the JAX op's math:
+    statistics in float32 whatever x's dtype (float64 for float64 data;
+    the output cast back to x's dtype), the *biased* batch variance, and
+    in training the moving update ``moving * momentum + batch * (1 -
+    momentum)`` returned after the outputs (the reverse of torch's
+    ``momentum``).  ``fix_gamma`` uses ones for gamma, so gamma's
+    gradient is 0.  ``output_mean_var`` adds the mean and ``rsqrt(var +
+    eps)`` as outputs 2 and 3.
+
+    The normalisation is `torch.native_batch_norm` (one fused kernel each
+    way on the card) without running buffers: torch would update them
+    with the unbiased variance and its own momentum.  The biased variance
+    comes back from the kernel's saved inverse deviation.  With
+    ``output_mean_var`` the statistics are outputs that gradients may
+    reach, so that case runs as plain torch ops.  ``sync`` asks for
+    statistics over every data-parallel replica; the port trains on one
+    device, where those are the batch's own."""
+    axis = int(params["axis"]) % x.ndim
+    eps = float(params["eps"])
+    momentum = float(params["momentum"])
+    train = params.get("_train", False) and not params["use_global_stats"]
+    if params["fix_gamma"]:
+        gamma = torch.ones_like(gamma)
+    xc = x.movedim(axis, 1) if axis != 1 else x
+    # float32 statistics (float64 for float64 data)
+    sdt = torch.promote_types(x.dtype, torch.float32)
+    g, b = gamma.to(sdt), beta.to(sdt)
+    if params.get("_train", False) and params["use_global_stats"]:
+        # autograd and the outputs keep the moving statistics, and the
+        # executor overwrites the aux arrays in place after the forward
+        moving_mean, moving_var = moving_mean.clone(), moving_var.clone()
+    if params["output_mean_var"]:
+        out, mean, var, inv = _bn_plain(xc, g, b, moving_mean, moving_var,
+                                        train, eps, sdt)
+    elif train:
+        out, mean, inv = torch.native_batch_norm(xc, g, b, None, None, True,
+                                                 0.0, eps)
+        with torch.no_grad():   # >= 0 where var << eps cancels
+            var = (inv.pow(-2) - eps).clamp_min_(0)
+    else:
+        mean, var = moving_mean, moving_var
+        out = torch.native_batch_norm(xc, g, b, moving_mean.to(sdt),
+                                      moving_var.to(sdt), False, 0.0,
+                                      eps)[0]
+    out = out.to(x.dtype)
+    if axis != 1:
+        out = out.movedim(1, axis)
+    outs = (out,)
+    if params["output_mean_var"]:
+        outs = (out, mean, inv)
+    if params.get("_train", False):
+        with torch.no_grad():
+            new_mean = moving_mean * momentum + mean * (1 - momentum)
+            new_var = moving_var * momentum + var * (1 - momentum)
+        return outs + (new_mean, new_var)
+    return outs if len(outs) > 1 else out
+
+
+def _bn_plain(x, gamma, beta, moving_mean, moving_var, train, eps, sdt):
+    """BatchNorm over channel axis 1 as differentiable torch ops in
+    `sdt`: (out, mean, biased var, rsqrt(var + eps))."""
+    red = tuple(i for i in range(x.ndim) if i != 1)
+    shape = [1] * x.ndim
+    shape[1] = x.shape[1]
+    xs = x.to(sdt)
+    if train:
+        mean = xs.mean(dim=red)
+        var = (xs - mean.reshape(shape)).square().mean(dim=red)
+    else:
+        mean, var = moving_mean, moving_var
+    inv = torch.rsqrt(var + eps)
+    out = (xs - mean.reshape(shape)) * inv.reshape(shape) \
+        * gamma.reshape(shape) + beta.reshape(shape)
+    return out, mean, var, inv

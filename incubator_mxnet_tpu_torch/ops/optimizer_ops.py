@@ -11,13 +11,19 @@ Two faces: the tensor functions (``*_`` names) and the `nd` frontends
 with the reference's signatures, ``nd.sgd_mom_update(weight, grad, mom,
 momentum=0.9, lr=..., out=weight)``, which write ``out`` (the weight when
 ``out`` is None or is the weight).
+
+`multi_sgd_update_` updates a list of parameters at once with the
+`torch._foreach_*` ops (a few launches for all of them on the card; the
+reference's ``multi_sgd_*`` ops), each with its own lr and wd.  It does
+the per-parameter functions' arithmetic in the same order, so the
+results are bitwise equal.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["sgd_update_", "sgd_mom_update_", "mp_sgd_update_",
-           "mp_sgd_mom_update_", "sgd_update", "sgd_mom_update",
+           "mp_sgd_mom_update_", "multi_sgd_update_", "sgd_update", "sgd_mom_update",
            "mp_sgd_update", "mp_sgd_mom_update"]
 
 
@@ -62,6 +68,40 @@ def mp_sgd_mom_update_(weight, grad, mom, weight32, lr, momentum=0.0,
     mom.mul_(momentum).sub_(lr * (g + wd * weight32))
     weight32.add_(mom)
     weight.copy_(weight32)
+
+
+@torch.no_grad()
+def multi_sgd_update_(weights, grads, lrs, wds, moms=None, weights32=None,
+                      momentum=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """The update of `sgd_update_` (`moms` None) or `sgd_mom_update_` over
+    lists of tensors, parameter i at ``lrs[i]``, ``wds[i]``; with
+    `weights32` (fp32 master copies) that of `mp_sgd_update_` or
+    `mp_sgd_mom_update_`, the weights refreshed from the masters."""
+    if weights32 is not None:
+        gs = [g.float() for g in grads]
+        torch._foreach_mul_(gs, rescale_grad)
+        target = weights32
+    else:
+        gs = torch._foreach_mul(grads, rescale_grad)
+        target = weights
+    if clip_gradient > 0:
+        torch._foreach_clamp_min_(gs, -abs(clip_gradient))
+        torch._foreach_clamp_max_(gs, abs(clip_gradient))
+    # step = lr * (g + wd * w); g + 0 * w is g for finite weights
+    if any(wds):
+        step = torch._foreach_mul(target, list(wds))
+        torch._foreach_add_(step, gs)
+    else:
+        step = gs
+    torch._foreach_mul_(step, list(lrs))
+    if moms is not None:
+        torch._foreach_mul_(moms, momentum)
+        torch._foreach_sub_(moms, step)
+        torch._foreach_add_(target, moms)
+    else:
+        torch._foreach_sub_(target, step)
+    if weights32 is not None:
+        torch._foreach_copy_(weights, weights32)
 
 
 # -- nd frontends ------------------------------------------------------------

@@ -4,8 +4,10 @@ PyTorch port of the `Optimizer` base and registry, `SGD` (with momentum
 and ``multi_precision``: fp32 master weights for fp16/bf16 parameters),
 `Updater`, `get_updater` and `create` from
 `incubator_mxnet_tpu/optimizer.py`.  `SGD.update` runs the in-place update
-ops of `ops/optimizer_ops.py`.  The other optimizers of the JAX package
-are not ported yet.
+ops of `ops/optimizer_ops.py`.  `update_multi` updates many parameters
+in one call (what the fused train step runs); `SGD`'s is the
+multi-tensor update, which gives the per-parameter results.  The other
+optimizers of the JAX package are not ported yet.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 from . import ndarray as nd
+from .ops.optimizer_ops import multi_sgd_update_
 
 __all__ = ["Optimizer", "SGD", "Updater", "get_updater", "create",
            "register"]
@@ -85,6 +88,12 @@ class Optimizer:
             w32.copyto(weight)
         else:
             self.update(index, weight, grad, state)
+
+    def update_multi(self, indices, weights, grads, states):
+        """`update_multi_precision` of every (index, weight, grad, state),
+        in order."""
+        for i, w, g, s in zip(indices, weights, grads, states):
+            self.update_multi_precision(i, w, g, s)
 
     def set_learning_rate(self, lr):
         if self.lr_scheduler is not None:
@@ -179,11 +188,38 @@ class SGD(Optimizer):
         else:
             nd.sgd_update(weight, grad, out=weight, **kw)
 
+    @staticmethod
+    def _has_master(weight, state):
+        """Whether `state` is ``(momentum or None, fp32 master)`` of a
+        low-precision weight."""
+        return isinstance(state, tuple) and len(state) == 2 and \
+            isinstance(state[1], NDArray) and \
+            state[1].data.dtype == torch.float32 and \
+            weight.data.dtype != torch.float32
+
+    def update_multi(self, indices, weights, grads, states):
+        """One multi-tensor update (`ops.optimizer_ops.multi_sgd_update_`)
+        per kind of state (momentum or not, fp32 master or not), each
+        index counted and given its lr and wd as `update` would."""
+        groups = {}
+        for i, w, g, s in zip(indices, weights, grads, states):
+            kw = self._kwargs(i)
+            mom, w32 = s if self._has_master(w, s) else (s, None)
+            rows = groups.setdefault((mom is not None, w32 is not None), [])
+            rows.append((w.data, g.data, None if mom is None else mom.data,
+                         None if w32 is None else w32.data, kw["lr"],
+                         kw["wd"]))
+        for (has_mom, has_master), rows in groups.items():
+            ws, gs, moms, w32s, lrs, wds = (list(c) for c in zip(*rows))
+            multi_sgd_update_(ws, gs, lrs, wds,
+                              moms=moms if has_mom else None,
+                              weights32=w32s if has_master else None,
+                              momentum=self.momentum,
+                              rescale_grad=self.rescale_grad,
+                              clip_gradient=_clip(self.clip_gradient))
+
     def update_multi_precision(self, index, weight, grad, state):
-        if isinstance(state, tuple) and len(state) == 2 and \
-                isinstance(state[1], NDArray) and \
-                state[1].data.dtype == torch.float32 and \
-                weight.data.dtype != torch.float32:
+        if self._has_master(weight, state):
             kw = self._kwargs(index)
             mom, w32 = state
             if mom is not None:
@@ -213,6 +249,15 @@ class Updater:
                 self.optimizer.create_state_multi_precision(index, weight)
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
+
+    def update_multi(self, indices, grads, weights):
+        """The optimizer's `update_multi` over many indices at once."""
+        for i, w in zip(indices, weights):
+            if i not in self.states:
+                self.states[i] = \
+                    self.optimizer.create_state_multi_precision(i, w)
+        self.optimizer.update_multi(indices, weights, grads,
+                                    [self.states[i] for i in indices])
 
     def set_states(self, states):
         states = pickle.loads(states) if isinstance(states, bytes) \

@@ -609,5 +609,9 @@ def _solve_param_shapes(node, env, meta):
         setvar(1, (nf, d[1] // g) + tuple(p["kernel"]))
         if not p.get("no_bias"):
             setvar(2, (nf,))
+    elif node.op.name == "BatchNorm":
+        c = d[int(p.get("axis", 1)) % len(d)]
+        for i in range(1, 5):
+            setvar(i, (c,))
     elif node.op.name == "SoftmaxOutput":
         setvar(1, (d[0],) + d[2:] if p.get("multi_output") else d[:-1])

@@ -2,7 +2,8 @@
 K1 (`fc_relu`, csrc/fc_relu.cu) and its launch plan; K2 and K3
 (`flash_fwd`, `flash_fwd_stream`, csrc/flash_attn.cu) and K3's split plan;
 the kernels on mixed operand dtypes; a few `Module` steps of the MNIST
-mlp on the card against the CPU.
+mlp on the card against the CPU; BatchNorm and fused train steps of a
+thumbnail ResNet on the card against the CPU.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -497,3 +498,165 @@ def test_module_steps_of_the_mlp_on_card_match_the_cpu(monkeypatch):
     for k, v in cp.items():
         np.testing.assert_allclose(gp[k], v, rtol=1e-3,
                                    atol=1e-4 * np.abs(v).max(), err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_on_card_matches_the_cpu(dtype, train):
+    """The BatchNorm op (torch.native_batch_norm on the card) against the
+    same op on the CPU: output, gradients of data, gamma and beta, and
+    the moving update.  fp32: sums in other orders over 2*8*14*14 values,
+    rtol 1e-5 + 1e-5 * max|cpu| (gradients 1e-4); bf16 output and data
+    gradient may round one bf16 ulp apart, 2**-7 + 2**-7 * max|cpu|."""
+    _need_card()
+    from incubator_mxnet_tpu_torch.ops import registry
+    op = registry.get("BatchNorm")
+    params = op.canonicalize_params({"fix_gamma": False, "eps": 1e-5})
+    params["_train"] = train
+    rng = np.random.RandomState(11)
+    host = [rng.normal(0.5, 2, (2, 8, 14, 14)), rng.uniform(0.5, 1.5, 8),
+            rng.normal(0, 0.5, 8), rng.normal(0, 1, 8),
+            rng.uniform(0.5, 2, 8)]
+    ct = torch.from_numpy(rng.normal(0, 1, (2, 8, 14, 14)).astype(
+        np.float32)).to(dtype)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        x, g, b, mm, mv = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                           for a in host)
+        x = x.to(dtype).requires_grad_()
+        g.requires_grad_()
+        b.requires_grad_()
+        out = op.fn(params, x, g, b, mm, mv)
+        out = out if isinstance(out, tuple) else (out,)
+        grads = torch.autograd.grad(out[0], (x, g, b), ct.to(dev))
+        got[dev] = [t.detach().float().cpu().numpy()
+                    for t in tuple(out) + tuple(grads)]
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0 ** -7, 2.0 ** -7)
+    gtol = (1e-4, 1e-4) if dtype == torch.float32 else tol
+    n = 3 if train else 1
+    names = ["out", "moving_mean", "moving_var"][:n] + ["dx", "dgamma",
+                                                        "dbeta"]
+    for k, (a, ref) in enumerate(zip(got["cuda"], got["cpu"])):
+        if k >= n:                  # gradients
+            rtol, atol = gtol
+        elif k:                     # the moving statistics, in fp32
+            rtol, atol = 1e-5, 1e-5
+        else:
+            rtol, atol = tol
+        np.testing.assert_allclose(a, ref, rtol=rtol,
+                                   atol=atol * np.abs(ref).max(),
+                                   err_msg=names[k])
+
+
+def _bn_fed_biases(sym):
+    """Biases of convolutions that feed a BatchNorm: the batch mean
+    removes them, so their gradient is 0 in exact arithmetic."""
+    out = set()
+    for node in sym._topo():
+        if not node.is_variable and node.op.name == "BatchNorm":
+            src = node.inputs[0][0]
+            if not src.is_variable and src.op.name == "Convolution" and \
+                    not src.attrs["no_bias"]:
+                out.add(src.inputs[2][0].name)
+    return out
+
+
+def _as_float64(mod):
+    """A bound float32 Module's arrays, all but the labels, as float64
+    (before init_params): the Module binds float32, as the JAX
+    package's does."""
+    exe = mod._exec_group.execs[0]
+    labels = set(mod._exec_group.label_names)
+    arrays = [a for n, a in exe.arg_dict.items() if n not in labels]
+    arrays += [g for g in exe.grad_dict.values() if g is not None]
+    for a in arrays + list(exe.aux_dict.values()):
+        a._data = a.data.double()
+
+
+def _thumbnail_steps(mx, sym, ctx, dtype, batches):
+    """3 fused steps of `sym` on `ctx` in `dtype` from Xavier parameters
+    under one seed: (per-step losses, {name: array} of parameters,
+    moving statistics and momenta ("name:momentum"))."""
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind([("data", (8, 3, 32, 32))], [("softmax_label", (8,))])
+    if dtype == "float64":
+        _as_float64(mod)
+    mx.random.seed(5)
+    mod.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    mod.init_optimizer(optimizer_params={"learning_rate": 0.05,
+                                         "momentum": 0.9})
+    losses = []
+    for batch in batches:
+        mod.fit_step(batch, mx.metric.create("acc"))
+        p = mod.get_outputs()[0].asnumpy()
+        losses.append(-np.log(p[np.arange(8), batch.label[0].asnumpy()
+                                .astype(int)]).mean())
+    assert mod._fused_step.steps == 3
+    args, auxs = mod.get_params()
+    assert all(a.dtype == np.dtype(dtype) for a in args.values())
+    state = {k: a.asnumpy() for k, a in {**args, **auxs}.items()}
+    for i, n in enumerate(mod._exec_group.param_names):
+        state[n + ":momentum"] = mod._updater.states[i].asnumpy()
+    return np.array(losses), state
+
+
+def _rel_l2(got, ref, keys):
+    a = np.concatenate([got[k].ravel().astype(np.float64) for k in keys])
+    b = np.concatenate([ref[k].ravel().astype(np.float64) for k in keys])
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.cuda
+def test_fused_resnet_steps_on_card_match_the_cpu(monkeypatch):
+    """3 fused train steps of a thumbnail ResNet v1 (15 BatchNorms,
+    batch 8 of 3x32x32, SGD lr 0.05 momentum 0.9) on the card and on the
+    CPU from the same Xavier parameters, TF32 off.  float64: per-step
+    loss within rtol 1e-3; parameters, momenta and moving statistics
+    within rtol 1e-3 + 1e-4 * max|cpu|; a convolution bias that feeds a
+    BatchNorm has a zero gradient in exact arithmetic, so it (initialised
+    at 0) and its momentum are rounding noise, held below 1e-9.  float32,
+    on each device: the
+    loss within rtol 1e-3 of float64's, and the parameters, momenta and
+    moving statistics within 1e-4 of the float64 ones in relative L2
+    norm (the CPU's float32 step is within ~1e-6)."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    v = mx.gluon.model_zoo.vision
+    net = v.ResNetV1(v.BottleneckV1, [1, 1, 1, 1], [16, 16, 32, 64, 128],
+                     classes=10, thumbnail=True)
+    sym = mx.sym.SoftmaxOutput(net(mx.sym.Variable("data")), name="softmax")
+    zero = _bn_fed_biases(sym)
+    assert len(zero) == 8
+    zero |= {n + ":momentum" for n in zero}     # initialised at 0
+    rng = np.random.RandomState(12)
+    batches = [mx.io.DataBatch(
+        [mx.nd.array(rng.uniform(-1, 1, (8, 3, 32, 32)), ctx=mx.cpu())],
+        [mx.nd.array(rng.randint(0, 10, 8), ctx=mx.cpu())])
+        for _ in range(3)]
+    runs = {(ctx.device_type, dt): _thumbnail_steps(mx, sym, ctx, dt,
+                                                    batches)
+            for ctx in (mx.cpu(), mx.gpu(0))
+            for dt in ("float64", "float32")}
+    (gl, gs), (cl, cs) = runs["gpu", "float64"], runs["cpu", "float64"]
+    np.testing.assert_allclose(gl, cl, rtol=1e-3)
+    for k, ref in cs.items():
+        if k in zero:
+            assert np.abs(gs[k]).max() < 1e-9 and \
+                np.abs(ref).max() < 1e-9, k
+            continue
+        np.testing.assert_allclose(gs[k], ref, rtol=1e-3,
+                                   atol=1e-4 * np.abs(ref).max(), err_msg=k)
+    dist = {}
+    for dev in ("cpu", "gpu"):
+        losses, state = runs[dev, "float32"]
+        np.testing.assert_allclose(losses, cl, rtol=1e-3)
+        for kind in ("momentum", "running", "weight"):
+            keys = [k for k in cs if k not in zero and
+                    (kind in k if kind != "weight" else ":" not in k and
+                     "running" not in k)]
+            dist[dev, kind] = _rel_l2(state, cs, keys)
+    assert all(d < 1e-4 for d in dist.values()), dist

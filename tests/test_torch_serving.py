@@ -147,21 +147,31 @@ def test_entry_points_without_ctx_need_the_card(monkeypatch, tmp_path):
 
 def test_port_imports_no_jax():
     """In a fresh interpreter, importing the port (every module, through
-    the package) and driving a graph and a Module.fit loads neither jax
-    nor the JAX package."""
+    the package) and driving a graph, a gluon network (the model zoo's
+    ResNet, imperatively and composed) and a Module.fit through the
+    fused train step loads neither jax nor the JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
         import incubator_mxnet_tpu_torch as mx
+        import incubator_mxnet_tpu_torch.fused
+        import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet
+        import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.vgg
         sym = mx.model_zoo.vgg_symbol(11)
         mx.subgraph.partition_graph(sym, "TPU_PALLAS").infer_shape(
             data=(1, 3, 32, 32))
-        net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
-            mx.sym.Variable("data"), num_hidden=3), name="softmax")
-        it = mx.io.NDArrayIter(np.ones((8, 4), "f4"), np.zeros(8, "f4"), 4)
-        mx.mod.Module(net, context=mx.cpu()).fit(
-            it, num_epoch=1, initializer=mx.initializer.Xavier(),
-            batch_end_callback=mx.callback.Speedometer(4, 1))
+        res = mx.gluon.model_zoo.vision.get_model(
+            "resnet18_v1", classes=3, thumbnail=True)
+        res.initialize(ctx=mx.cpu())
+        res(mx.nd.array(np.ones((1, 3, 8, 8)), ctx=mx.cpu()))
+        net = mx.sym.SoftmaxOutput(res(mx.sym.Variable("data")),
+                                   name="softmax")
+        it = mx.io.NDArrayIter(np.ones((8, 3, 8, 8), "f4"),
+                               np.zeros(8, "f4"), 4)
+        mod = mx.mod.Module(net, context=mx.cpu())
+        mod.fit(it, num_epoch=1, initializer=mx.initializer.Xavier(),
+                batch_end_callback=mx.callback.Speedometer(4, 1))
+        assert mod._fused_step.steps == 2
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "incubator_mxnet_tpu"))
