@@ -91,6 +91,16 @@ exits non-zero:
    host ms.  d. 4 fp32 steps at batch 8, the checkpoint served by
    `serving.ModelServer` for requests of 1-8 images, held to
    `Module.predict`.
+8. gluon's imperative training.  a. BASELINE #3's plain loop (record,
+   backward, Trainer.step) on hybridized resnet50_v2 at batch 4 in
+   float64, card against CPU from the same parameters and momenta
+   (7a's gates), then one card step hybridized against not.  b. at
+   batch 128 in bf16 on one resident batch: bench.py's gluon lane
+   (resnet50_v1 through Estimator.fit, the fused gluon step every
+   batch), the same lane with the fused step off (the eager loop),
+   BASELINE #3 hybridized, and the same loop un-hybridized: images/s,
+   step ms, `mfu`, peak memory, `gluon_vs_module`.  c. one warm
+   profiled step of each lane but the eager Estimator's.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -99,6 +109,7 @@ prints no result.  It takes no arguments.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -259,6 +270,21 @@ RESNET_ZERO = 1e-9
 # phase 7a float32: the card's distance from the float64 step at most
 # this factor times the CPU's, plus this much
 RESNET_ENVELOPE = (3.0, 1e-6)
+# phase 8: gluon's imperative training.  BASELINE config #3 ("Gluon
+# hybridize() ResNet-v2 from gluon.model_zoo.vision") through the plain
+# record / backward / Trainer.step loop, and bench.py's gluon lane
+# (`_run_gluon`, bench.py:214-290, defaults :683-687): resnet50_v1 in bf16
+# through Estimator.fit and the fused gluon step, batch 128, SGD lr 0.05
+# momentum 0.9 multi_precision, rescale_grad 1/batch (on top of step's
+# 1/batch), Xavier(gaussian, in, 2), Accuracy, one resident random batch
+GLUON_WARM, GLUON_TIMED = 8, 48       # the bench lane (Estimator.fit)
+V2_WARM, V2_TIMED = 8, 24             # BASELINE #3 (hybridized, plain loop)
+V2_EAGER = (4, 12)                    # the same loop, not hybridized
+GLUON_PARITY = (4, 3)                 # (batch, steps) card vs CPU, float64
+# one card step hybridized vs eager in float64: the same ops in the same
+# order, so only a fault moves them apart
+HYBRID_TOL = (1e-9, 1e-12)
+V2_PREFIX = "resnetv2_"   # a fixed prefix: every instance, the same names
 # fp32 outside the tensor cores (TF32 is off), the fp32 lane's peak
 FP32_CUDA_CORE_FLOPS = 67e12
 # device kernels by class in the profile of one bf16 step (first match)
@@ -327,7 +353,9 @@ def device_ms(fn, reps=10, flush=None, names=None, tries=3):
     counted: give `names`, the substrings of the kernels that are).  A
     profiling session that records no kernel at all (seen once in ~270
     sessions on an H100, right after the same call ran and was checked)
-    is run again, up to `tries` sessions."""
+    is run again, up to `tries` sessions; when all of them record none
+    (seen once, in phase 3 on an H100), fn() is timed with CUDA events
+    instead (`time_ms`: host gaps between its launches included)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -344,7 +372,10 @@ def device_ms(fn, reps=10, flush=None, names=None, tries=3):
                    and (names is None or any(n in e.name for n in names)))
         if busy > 0:
             return busy / reps / 1e3
-    check(False, f"the profiler saw no device activity in {tries} sessions")
+    print(f"device_ms: the profiler saw no device activity in {tries} "
+          "sessions; timed with CUDA events instead", flush=True)
+    return time_ms(fn, flush if flush is not None else
+                   torch.empty(1, device="cuda"))
 
 
 def bound(m, k, n, dtype):
@@ -1642,22 +1673,31 @@ def kernel_class(name):
     return "other"
 
 
-def resnet_profile(mx, mod, card, tries=3):
+def resnet_profile(mx, mod, card):
     """Phase 7c: one warm bf16 step (fit_step) under torch.profiler: the
     device's busy share of the step, device ms by kernel class, and the
     host ms the step took to enqueue."""
-    from torch.profiler import ProfilerActivity, profile
     batch = mod._exec_group.batch_size
     it = resident_iter(mx, batch, "bfloat16", 1)
     one = next(it)
     metric = mx.metric.create("acc")
-    mod.fit_step(one, metric)
+    return profile_one_step(lambda: mod.fit_step(one, metric), card,
+                            "resnet profile", batch)
+
+
+def profile_one_step(step, card, label, batch, tries=3):
+    """`step()` once to warm, then once under torch.profiler (retried if
+    the profiler recorded no kernel): the host ms to enqueue it, the
+    kernels, device ms by kernel class, the device's busy share; printed
+    on lines starting with `label`."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            mod.fit_step(one, metric)
+            step()
             host_ms = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1666,7 +1706,7 @@ def resnet_profile(mx, mod, card, tries=3):
                        if e.device_type == torch.autograd.DeviceType.CUDA)
         if spans:
             break
-    check(spans, "the profiler saw no device activity in a ResNet step")
+    check(spans, f"{label}: the profiler saw no device activity in a step")
     by_class, other, busy, edge = {}, {}, 0.0, -math.inf
     for start, end, name in spans:
         cls = kernel_class(name)
@@ -1676,16 +1716,16 @@ def resnet_profile(mx, mod, card, tries=3):
         busy += max(0.0, end - max(start, edge))
         edge = max(edge, end)
     total = sum(by_class.values())
-    print(f"resnet profile: one warm bf16 step at batch {batch}: "
+    print(f"{label}: one warm bf16 step at batch {batch}: "
           f"{host_ms:.2f} ms of host time to enqueue, {wall_ms:.2f} ms to "
           f"finish, {len(spans)} kernels, device time {total / 1e3:.2f} ms, "
           f"device busy {busy / 1e3 / wall_ms:.3f} of the step [{card}]")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print(f"resnet profile: {us / 1e3:9.3f} ms {us / total:6.3f} {cls}")
+        print(f"{label}: {us / 1e3:9.3f} ms {us / total:6.3f} {cls}")
     for name, us in sorted(other.items(), key=lambda kv: -kv[1])[:3]:
-        print(f"resnet profile: other: {us / 1e3:8.3f} ms {name[:90]}")
+        print(f"{label}: other: {us / 1e3:8.3f} ms {name[:90]}")
     return {"busy": busy / 1e3 / wall_ms, "host_ms": host_ms,
-            "device_ms": total / 1e3}
+            "device_ms": total / 1e3, "kernels": len(spans)}
 
 
 def resnet_serve(mx, sym, card, workdir):
@@ -1760,6 +1800,489 @@ def resnet_phase(card, workdir):
     return out
 
 
+# -- phase 8: gluon's imperative training ------------------------------------
+
+def gluon_state(mx, net, trainer):
+    """{full parameter name: value, "name:momentum": momentum} as numpy
+    (`compat.weights`: the parameters, BatchNorm's running statistics
+    included, and the trainer's optimizer states)."""
+    from incubator_mxnet_tpu_torch.compat.weights import (
+        block_params_to_numpy, trainer_states_to_numpy)
+    state = block_params_to_numpy(net)
+    names = [p.name for p in trainer._params]
+    for i, mom in trainer_states_to_numpy(trainer).items():
+        state[names[i] + ":momentum"] = mom
+    return state
+
+
+def gluon_load(mx, net, trainer, state):
+    """Start `net` and `trainer` from `state` (`gluon_state`'s form)
+    through `compat.weights`."""
+    from incubator_mxnet_tpu_torch.compat.weights import (
+        block_params_from_numpy, trainer_states_from_numpy)
+    block_params_from_numpy(net, {n: v for n, v in state.items()
+                                  if ":" not in n})
+    index = {p.name: i for i, p in enumerate(trainer._params)}
+    trainer_states_from_numpy(trainer, {
+        index[n[:-len(":momentum")]]: v for n, v in state.items()
+        if n.endswith(":momentum")})
+
+
+def v2_net(mx, ctx, values, dtype):
+    """resnet50_v2 on `ctx` with the parameter `values` (full names: the
+    fixed prefix makes every instance's names the same), cast to
+    `dtype`."""
+    from incubator_mxnet_tpu_torch.compat.weights import (
+        block_params_from_numpy)
+    net = mx.gluon.model_zoo.vision.resnet50_v2(classes=CLASSES,
+                                                prefix=V2_PREFIX)
+    net.initialize(ctx=ctx)
+    block_params_from_numpy(net, values, ctx=ctx)
+    net.cast(dtype)
+    return net
+
+
+def v2_initial_values(mx):
+    """Xavier(gaussian, in, 2) parameters of resnet50_v2 under the seed,
+    the deferred shapes finished by one predict-mode forward on the CPU,
+    as numpy."""
+    from incubator_mxnet_tpu_torch.compat.weights import (
+        block_params_to_numpy)
+    net = mx.gluon.model_zoo.vision.resnet50_v2(classes=CLASSES,
+                                                prefix=V2_PREFIX)
+    mx.random.seed(SEED)
+    net.initialize(resnet_init(mx), ctx=mx.cpu())
+    net(mx.nd.zeros((1,) + IMAGE, ctx=mx.cpu()))
+    return block_params_to_numpy(net)
+
+
+def v2_steps(mx, ctx, values, batches, teacher=None, hybrid=True):
+    """GLUON_PARITY steps of BASELINE #3's plain loop (hybridized
+    resnet50_v2, record / backward / Trainer.step, SGD lr 0.05 momentum
+    0.9) in float64 on `ctx`: the loss of each step and the state before
+    the first and after each.  With `teacher` (another run's states),
+    step k starts from the teacher's state before it."""
+    net = v2_net(mx, ctx, values, "float64")
+    if hybrid:
+        net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", RESNET_OPT)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses, states = [], [gluon_state(mx, net, trainer)]
+    for k, (x, y) in enumerate(batches):
+        if teacher is not None and k:
+            gluon_load(mx, net, trainer, teacher[k])
+        data = mx.nd.array(x, ctx=ctx, dtype="float64")
+        label = mx.nd.array(y, ctx=ctx)
+        with mx.autograd.record():
+            loss = loss_fn(net(data), label)
+        loss.backward()
+        trainer.step(data.shape[0])
+        losses.append(float(loss.asnumpy().mean()))
+        states.append(gluon_state(mx, net, trainer))
+    return losses, states
+
+
+def held_ratio(got, ref, skip=()):
+    """The largest |got - ref| / (rtol |ref| + atol max|ref|) (PARITY_TOL)
+    over every array of `ref` whose name does not start with one of
+    `skip`, and its name; an array that is all zeros must stay zero."""
+    rtol, atol = PARITY_TOL
+    worst = (0.0, "none")
+    for n, c in ref.items():
+        if n.startswith(skip):
+            continue
+        bound = rtol * np.abs(c) + atol * np.abs(c).max()
+        diff = np.abs(got[n] - c)
+        r = float((diff / np.where(bound > 0, bound, 1.0)).max()) \
+            if bound.max() > 0 else (0.0 if not diff.any() else math.inf)
+        worst = max(worst, (r, n))
+    return worst
+
+
+def v2_pool_routes(net, params, x, ctx):
+    """Which element wins each window of resnet50_v2's max-pool, computed
+    on `ctx` by the torch calls the port makes: the data's BatchNorm
+    (gamma fixed at 1), conv0 (7x7/2), BatchNorm on the batch's
+    statistics, relu, the 3x3/2 max-pool over -inf padding."""
+    import torch.nn.functional as F
+    dev = ctx.torch_device
+    f = net.features
+    bn0, conv, bn1 = f[0], f[1], f[2]
+
+    def t(p):
+        return torch.from_numpy(params[p.name]).to(dev, torch.float64)
+    h = torch.from_numpy(x).to(dev, torch.float64)
+    beta0 = t(bn0.beta)
+    h = torch.native_batch_norm(h, torch.ones_like(beta0), beta0, None,
+                                None, True, 0.0, 1e-5)[0]
+    h = F.conv2d(h, t(conv.weight), stride=2, padding=3)
+    h = torch.relu(torch.native_batch_norm(h, t(bn1.gamma), t(bn1.beta),
+                                           None, None, True, 0.0, 1e-5)[0])
+    h = F.pad(h, (1, 1, 1, 1), value=-math.inf)
+    return F.max_pool2d(h, 3, 2, return_indices=True)[1].cpu()
+
+
+def v2_flipped(mx, net, cpu_params, gpu_params, x):
+    return int((v2_pool_routes(net, cpu_params, x, mx.cpu()) !=
+                v2_pool_routes(net, gpu_params, x, mx.gpu(0))).sum())
+
+
+def v2_grads(mx, ctx, values, x, y, hybrid):
+    """One recorded step's loss and gradients of resnet50_v2 in float64
+    from `values`: {name: numpy}."""
+    net = v2_net(mx, ctx, values, "float64")
+    if hybrid:
+        net.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    data = mx.nd.array(x, ctx=ctx, dtype="float64")
+    with mx.autograd.record():
+        loss = loss_fn(net(data), mx.nd.array(y, ctx=ctx))
+    loss.backward()
+    out = {p.name: p.grad().asnumpy() for p in net.collect_params().values()
+           if p.grad_req != "null"}
+    out["loss"] = loss.asnumpy()
+    return out
+
+
+def gluon_parity(mx):
+    """Phase 8a: BASELINE #3's plain loop on hybridized resnet50_v2 at
+    batch 4, 224, float64, the card against the CPU from the same
+    parameters and momenta (`compat.weights`) and batches: free running,
+    every step's loss within rtol; each card step from the CPU's state
+    before it, parameters, momenta and moving statistics after it within
+    PARITY_TOL (7a's gates; a max-pool window that flips between the
+    devices excuses conv0 and the BatchNorm under it at that step, as
+    in 7a).  Then one step on the card hybridized against not, cuDNN in
+    its deterministic algorithms: the loss and every gradient within
+    HYBRID_TOL."""
+    batch, steps = GLUON_PARITY
+    rng = np.random.RandomState(SEED + 8)
+    batches = [(rng.rand(batch, *IMAGE), rng.randint(0, CLASSES, batch)
+                .astype("f4")) for _ in range(steps)]
+    values = v2_initial_values(mx)
+    t0 = time.perf_counter()
+    cpu_loss, cpu = v2_steps(mx, mx.cpu(), values, batches)
+    t_cpu = time.perf_counter() - t0
+    gpu_loss, gpu = v2_steps(mx, mx.gpu(0), values, batches)
+    _, forced = v2_steps(mx, mx.gpu(0), values, batches, teacher=cpu)
+    loss_err = max(abs(g - c) / abs(c) for g, c in zip(gpu_loss, cpu_loss))
+    probe = v2_net(mx, mx.cpu(), values, "float64")
+    free_flips = sum(v2_flipped(mx, probe, c, g, x)
+                     for c, g, (x, _) in zip(cpu, gpu, batches))
+    excusable = (probe.features[1].prefix, probe.features[2].prefix)
+    held, excused, flips = (0.0, "none"), (0.0, "none"), []
+    for k, (x, _) in enumerate(batches):
+        n = v2_flipped(mx, probe, cpu[k], cpu[k], x)
+        held = max(held, held_ratio(forced[k + 1], cpu[k + 1],
+                                    excusable if n else ()))
+        if n:
+            flips.append(f"step {k + 1}: {n}")
+            excused = max(excused, held_ratio(forced[k + 1], cpu[k + 1]))
+    ok = loss_err <= PARITY_TOL[0] and held[0] <= 1
+    n_arrays = len(cpu[-1])
+    print(f"gluon parity float64: hybridized resnet50_v2, {steps} steps of "
+          f"record/backward/Trainer.step at batch {batch}, card vs CPU "
+          f"(CPU {t_cpu:.1f} s): loss "
+          f"{' '.join(f'{v:.6f}' for v in gpu_loss)}; max relative loss "
+          f"err {loss_err:.2e} (rtol {PARITY_TOL[0]:g}); each step from "
+          f"the CPU's state (compat.weights): {n_arrays} parameter, moving "
+          f"statistic and momentum arrays at {held[0]:.3f} of the "
+          f"tolerance (worst {held[1]}) (rtol {PARITY_TOL[0]:g}, atol "
+          f"{PARITY_TOL[1]:g}*max|array|) {'ok' if ok else 'FAIL'}")
+    note = f"; at those steps conv0 and its BatchNorm at " \
+        f"{excused[0]:.3f} of the tolerance (worst {excused[1]}), not " \
+        "held" if flips else ""
+    print(f"gluon parity float64: max-pool windows flipped between the CPU "
+          f"and the card from the CPU's state: {', '.join(flips) or 'none'}"
+          f"{note}; along the free-running steps: {free_flips}")
+    check(ok, "gluon: the card's float64 steps disagree with the CPU's")
+
+    x, y = batches[0]
+    # cuDNN's default backward algorithms add with atomics, so two runs of
+    # one graph differ in the last bits; its deterministic ones do not
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        hyb = v2_grads(mx, mx.gpu(0), values, x, y, True)
+        eager = v2_grads(mx, mx.gpu(0), values, x, y, False)
+    rtol, atol = HYBRID_TOL
+    worst, ok = (0.0, "none"), True
+    for n, ref in eager.items():
+        diff = np.abs(hyb[n] - ref)
+        bound = rtol * np.abs(ref) + atol * np.abs(ref).max()
+        ok = ok and bool((diff <= bound).all())
+        worst = max(worst, (float(diff.max()), n))
+    print(f"gluon hybridize: one card step of resnet50_v2 hybridized vs "
+          f"eager in float64: loss and {len(eager) - 1} gradients, max abs "
+          f"diff {worst[0]:.3e} ({worst[1]}) (rtol {rtol:g}, atol "
+          f"{atol:g}*max|g|) {'ok' if ok else 'FAIL'}")
+    check(ok, "gluon: the hybridized step's gradients differ from eager")
+
+
+def gluon_net_bf16(mx, ctor):
+    """bench.py `_run_gluon`'s net: `ctor(classes=1000)`, Xavier(gaussian,
+    in, 2) on the card under the seed, cast to bfloat16, the deferred
+    shapes finished by one predict-mode forward."""
+    ctx = mx.gpu(0)
+    net = ctor(classes=CLASSES)
+    mx.random.seed(SEED)
+    net.initialize(resnet_init(mx), ctx=ctx)
+    net.cast("bfloat16")
+    net(mx.nd.zeros((1,) + IMAGE, ctx=ctx, dtype="bfloat16"))
+    return net
+
+
+def resident_batch(mx, batch, seed=SEED):
+    """One random batch on the card, the data in bfloat16 (bench.py's
+    gluon lane: compute, not data loading)."""
+    rng = np.random.RandomState(seed)
+    ctx = mx.gpu(0)
+    data = mx.nd.array(rng.rand(batch, *IMAGE).astype("f4"),
+                       ctx=ctx).astype("bfloat16")
+    label = mx.nd.array(rng.randint(0, CLASSES, batch).astype("f4"),
+                        ctx=ctx)
+    return data, label
+
+
+class _LaneProbe:
+    """Estimator handler (bench.py `_run_gluon`'s Probe): a CUDA event and
+    the batch's mean loss (on the card) at every batch end, the window's
+    edges CUDA-synchronised on the host clock.  At the first edge it
+    keeps the peak memory so far (`warm_peak`, GiB) and resets the
+    counter, so `peaks()` tells the warm steps' one-time allocations
+    from a steady step's.  `base`: GiB allocated before the lane built
+    anything, once the earlier phases' garbage is collected (a reference
+    cycle of an earlier net would otherwise count in this lane's
+    peak)."""
+
+    def __init__(self, warm, timed):
+        self.warm, self.timed = warm, timed
+        self.events, self.losses, self.edges = [], [], {}
+        self.warm_peak = 0.0
+        gc.collect()
+        torch.cuda.synchronize()
+        self.base = torch.cuda.memory_allocated() / 2 ** 30
+
+    def peaks(self):
+        """(peak memory over the whole run, over the timed steps), GiB."""
+        timed = torch.cuda.max_memory_allocated() / 2 ** 30
+        return max(self.warm_peak, timed), timed
+
+    def train_begin(self, est):
+        pass
+
+    def epoch_begin(self, est):
+        pass
+
+    def batch_begin(self, est):
+        pass
+
+    def batch_end(self, est):
+        self.mark(est._fused.last_loss.data if est._fused else None)
+
+    def mark(self, losses):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        if losses is not None:      # the eager loop keeps no loss
+            self.losses.append(losses.detach().float().mean())
+        if len(self.events) in (self.warm, self.warm + self.timed):
+            torch.cuda.synchronize()
+            self.edges[len(self.events)] = time.perf_counter()
+            if len(self.events) == self.warm:
+                self.warm_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                torch.cuda.reset_peak_memory_stats()
+
+    def epoch_end(self, est):
+        pass
+
+    def train_end(self, est):
+        pass
+
+
+def lane_numbers(label, probe, batch, flops, steps_run, card, module_s,
+                 acc, wall):
+    """Print a lane's images/s, step median, mfu, peak memory and the
+    ratio to the Module lane; check the loss is finite and falls and the
+    accuracy finite."""
+    warm, timed = probe.warm, probe.timed
+    loss = torch.stack(probe.losses).cpu().numpy()
+    images_s = batch * timed / (probe.edges[warm + timed] -
+                                probe.edges[warm])
+    step_ms = [a.elapsed_time(b) for a, b in
+               zip(probe.events[warm - 1:], probe.events[warm:])]
+    med = statistics.median(step_ms)
+    mfu = images_s * flops / batch / PEAK_FLOPS[BF16]
+    mem, steady = probe.peaks()
+    ok = bool(np.isfinite(loss).all()) and loss[-1] < loss[0] and \
+        math.isfinite(acc)
+    print(f"{label} batch {batch}: {steps_run} steps in {wall:.2f} s "
+          f"({warm} warm); {images_s:.1f} images/s over the {timed} timed "
+          f"steps; step median {med:.3f} ms (p10 "
+          f"{np.percentile(step_ms, 10):.3f}, p90 "
+          f"{np.percentile(step_ms, 90):.3f}, CUDA events); "
+          f"{flops / batch / 1e9:.2f} GFLOP per image; peak memory "
+          f"{mem:.2f} GiB ({steady:.2f} over the timed steps, "
+          f"{probe.base:.2f} allocated before the lane); "
+          f"gluon_vs_module {images_s / module_s:.3f} [{card}]")
+    print(f"{label} batch {batch}: loss (the loss block's mean) first "
+          f"{loss[0]:.4f}, last {loss[-1]:.4f}, every "
+          f"{' '.join(f'{v:.3f}' for v in loss[::8])}; train acc "
+          f"{acc:.4f} {'ok' if ok else 'FAIL'}")
+    print(f"{label} mfu bfloat16 {mfu:.4f} (of "
+          f"{PEAK_FLOPS[BF16] / 1e12:.0f} TFLOP/s) [{card}]")
+    check(ok, f"{label}: loss not finite or not falling, or acc not "
+          "finite")
+    return {"images_s": images_s, "step_ms": med, "mfu": mfu,
+            "peak_gib": mem, "steady_gib": steady,
+            "gluon_vs_module": images_s / module_s}
+
+
+def bench_estimator(mx, batch, steps, probe):
+    """bench.py `_run_gluon`'s Estimator.fit of resnet50_v1 in bfloat16
+    on one resident batch, `steps` batches: (estimator, batch, wall s)."""
+    net = gluon_net_bf16(mx, mx.gluon.model_zoo.vision.resnet50_v1)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(
+        RESNET_OPT, multi_precision=True, rescale_grad=1.0 / batch))
+    est = mx.gluon.contrib.estimator.Estimator(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+        train_metrics=[mx.metric.Accuracy()], trainer=trainer)
+    data, label = resident_batch(mx, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    est.fit(iter([(data, label)] * steps), epochs=1,
+            event_handlers=[probe])
+    return est, (data, label), time.perf_counter() - t0
+
+
+def bench_gluon_eager(mx, card, fused):
+    """Phase 8b: bench.py's gluon lane as `bench_gluon_lane` runs it, with
+    the fused step switched off (MXNET_FUSED_TRAIN_STEP=0), so Estimator
+    runs its eager loop (record, backward, Trainer.step, metric.update):
+    images/s, step median and peak memory beside the fused step's."""
+    batch = RESNET_BATCH
+    probe = _LaneProbe(GLUON_WARM, GLUON_TIMED)
+    prev = os.environ.get("MXNET_FUSED_TRAIN_STEP")
+    os.environ["MXNET_FUSED_TRAIN_STEP"] = "0"
+    try:
+        est, _, wall = bench_estimator(mx, batch, GLUON_WARM + GLUON_TIMED,
+                                       probe)
+    finally:
+        if prev is None:
+            del os.environ["MXNET_FUSED_TRAIN_STEP"]
+        else:
+            os.environ["MXNET_FUSED_TRAIN_STEP"] = prev
+    warm, timed = probe.warm, probe.timed
+    images_s = batch * timed / (probe.edges[warm + timed] -
+                                probe.edges[warm])
+    med = statistics.median(a.elapsed_time(b) for a, b in
+                            zip(probe.events[warm - 1:], probe.events[warm:]))
+    mem, steady = probe.peaks()
+    acc = est.train_metrics[0].get()[1]
+    ok = est._fused is None and math.isfinite(acc)
+    print(f"gluon lane Estimator.fit resnet50_v1 eager loop "
+          f"(MXNET_FUSED_TRAIN_STEP=0) batch {batch}: "
+          f"{GLUON_WARM + GLUON_TIMED} steps in {wall:.2f} s; "
+          f"{images_s:.1f} images/s over the {timed} timed steps; step "
+          f"median {med:.3f} ms (CUDA events); peak memory {mem:.2f} GiB "
+          f"({steady:.2f} over the timed steps, {probe.base:.2f} allocated "
+          f"before the lane); train acc {acc:.4f}; fused "
+          f"step / eager loop images/s {fused['images_s'] / images_s:.3f}, "
+          f"step median {fused['step_ms'] / med:.3f}, timed steps' peak "
+          f"memory {fused['steady_gib'] / steady:.3f} [{card}] "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "gluon lane: the eager loop took the fused step, or its "
+          "accuracy is not finite")
+    return {"images_s": images_s, "step_ms": med, "peak_gib": mem,
+            "steady_gib": steady}
+
+
+def bench_gluon_lane(mx, sym_v1, card, module_s):
+    """Phase 8b, bench.py's gluon lane (`_run_gluon`, defaults :683-687):
+    resnet50_v1 in bfloat16 through the public Estimator.fit on one
+    resident batch of GLUON_BATCH, GLUON_WARM + GLUON_TIMED batches; the
+    gluon fused step must take every one."""
+    batch = RESNET_BATCH
+    probe = _LaneProbe(GLUON_WARM, GLUON_TIMED)
+    steps = GLUON_WARM + GLUON_TIMED
+    est, (data, label), wall = bench_estimator(mx, batch, steps, probe)
+    fused = est._fused
+    check(fused is not None and fused.steps == steps,
+          f"gluon lane: the fused step ran "
+          f"{fused.steps if fused else 0} of {steps} batches")
+    out = lane_numbers("gluon lane Estimator.fit resnet50_v1", probe, batch,
+                       train_flops(sym_v1, batch), steps, card, module_s,
+                       est.train_metrics[0].get()[1], wall)
+    out["profile"] = profile_one_step(
+        lambda: fused(data, label, batch), card,
+        "gluon profile Estimator fused step", batch)
+    return out
+
+
+def baseline3_lane(mx, card, module_s, hybrid, warm, timed):
+    """Phase 8b, BASELINE config #3: hybridized resnet50_v2 in bfloat16
+    through the plain loop (record, backward, Trainer.step; SGD lr 0.05
+    momentum 0.9, multi_precision) on one resident batch of RESNET_BATCH,
+    `warm` + `timed` steps.  With ``hybrid=False`` the same loop on the
+    net as built, op by op through `ndarray.invoke`: gluon's most common
+    path, and the autograd tape's largest."""
+    batch = RESNET_BATCH
+    probe = _LaneProbe(warm, timed)
+    net = gluon_net_bf16(mx, mx.gluon.model_zoo.vision.resnet50_v2)
+    if hybrid:
+        net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(RESNET_OPT, multi_precision=True))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = mx.metric.Accuracy()
+    data, label = resident_batch(mx, batch, seed=SEED + 1)
+
+    def step():
+        with mx.autograd.record():
+            out = net(data)
+            loss = loss_fn(out, label)
+        loss.backward()
+        trainer.step(batch)
+        metric.update([label], [out])
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(warm + timed):
+        probe.mark(step().data)
+    wall = time.perf_counter() - t0
+    sym = mx.sym.SoftmaxOutput(mx.gluon.model_zoo.vision.resnet50_v2(
+        classes=CLASSES)(mx.sym.Variable("data")), name="softmax")
+    what = "hybridized" if hybrid else "un-hybridized"
+    out = lane_numbers(f"gluon lane {what} resnet50_v2 plain loop", probe,
+                       batch, train_flops(sym, batch), warm + timed,
+                       card, module_s, metric.get()[1], wall)
+    out["profile"] = profile_one_step(
+        step, card, f"gluon profile {what} resnet50_v2 step", batch)
+    return out
+
+
+def gluon_phase(card, module_s):
+    """Phase 8; returns the numbers the summary line prints."""
+    import incubator_mxnet_tpu_torch as mx
+    out = {}
+    t0 = time.perf_counter()
+    gluon_parity(mx)
+    out["parity_s"] = time.perf_counter() - t0
+    _, sym_v1 = resnet_symbol(mx)
+    out["bench"] = bench_gluon_lane(mx, sym_v1, card, module_s)
+    torch.cuda.empty_cache()
+    out["bench_eager"] = bench_gluon_eager(mx, card, out["bench"])
+    torch.cuda.empty_cache()
+    out["baseline3"] = baseline3_lane(mx, card, module_s, True, V2_WARM,
+                                      V2_TIMED)
+    torch.cuda.empty_cache()
+    out["eager_v2"] = baseline3_lane(mx, card, module_s, False, *V2_EAGER)
+    torch.cuda.empty_cache()
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -1818,6 +2341,9 @@ def main():
     t0 = time.perf_counter()
     resnet = resnet_phase(card, str(_build.BUILD_DIR.parent))
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gluon = gluon_phase(card, resnet["bf16"]["images_s"])
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -1828,6 +2354,24 @@ def main():
           f"{fp32['mfu']:.4f}; profiled bf16 step busy {prof['busy']:.3f}, "
           f"host {prof['host_ms']:.1f} ms; parity {resnet['parity_s']:.1f} s "
           f"[{card}]")
+    for key, what in (("bench", "Estimator.fit resnet50_v1"),
+                      ("baseline3", "hybridized resnet50_v2 plain loop"),
+                      ("eager_v2", "un-hybridized resnet50_v2 plain loop")):
+        g = gluon[key]
+        print(f"gluon summary: {what} bf16 batch {RESNET_BATCH} "
+              f"{g['images_s']:.1f} images/s, step {g['step_ms']:.3f} ms, "
+              f"mfu {g['mfu']:.4f}, peak {g['peak_gib']:.2f} GiB "
+              f"({g['steady_gib']:.2f} timed), "
+              f"gluon_vs_module {g['gluon_vs_module']:.3f}; profiled step "
+              f"{g['profile']['kernels']} kernels, busy "
+              f"{g['profile']['busy']:.3f}, host "
+              f"{g['profile']['host_ms']:.1f} ms [{card}]")
+    g = gluon["bench_eager"]
+    print(f"gluon summary: Estimator.fit resnet50_v1 eager loop bf16 batch "
+          f"{RESNET_BATCH} {g['images_s']:.1f} images/s, step "
+          f"{g['step_ms']:.3f} ms, peak {g['peak_gib']:.2f} GiB "
+          f"({g['steady_gib']:.2f} timed) [{card}]")
+    print(f"gluon summary: parity {gluon['parity_s']:.1f} s [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"

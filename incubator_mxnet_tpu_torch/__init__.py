@@ -18,12 +18,18 @@ implicit gradient), `optimizer.SGD`, `initializer`, `metric`, `io`,
 `BatchNorm` op, `gluon` (Parameter, Block, HybridBlock, the layers and
 `model_zoo` ResNet/VGG composed on a Symbol), and `Module.fit`'s fused
 train step (`fused.FusedTrainStep`: a multi-tensor SGD update and
-metrics accumulated on the device).
+metrics accumulated on the device).  Slice 6 trains gluon networks
+imperatively: `autograd` (`record`, `backward`, `grad`, `Function`, on
+torch's autograd), one ``nd.<Op>`` per registered op through
+`ndarray.invoke`, eager and hybridized `HybridBlock` calls, `gluon.loss`,
+`gluon.Trainer`, `gluon.data`, `gluon.utils` and
+`gluon.contrib.estimator.Estimator.fit` with its fused step.
 
     import incubator_mxnet_tpu_torch as mx
 """
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context, num_gpus
+from . import autograd
 from . import ops
 from . import symbol
 from . import symbol as sym
@@ -50,7 +56,7 @@ from . import gluon
 from . import test_utils
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "ops", "symbol", "sym", "ndarray", "nd", "subgraph",
+           "num_gpus", "autograd", "ops", "symbol", "sym", "ndarray", "nd", "subgraph",
            "model", "save_checkpoint", "load_checkpoint", "serving",
            "model_zoo", "parallel", "random", "initializer", "init",
            "lr_scheduler", "optimizer", "metric", "io", "callback",

@@ -9,6 +9,12 @@ on `ctx` (the Module and serving route).
 block's parameters, by full name, as numpy: out of a block of either
 package, and into one of the port's (a `.params` file that either
 package's `save_parameters` wrote loads with `Block.load_parameters`).
+
+`trainer_states_to_numpy` and `trainer_states_from_numpy` carry a gluon
+`Trainer`'s optimizer states the same way (``trainer._updaters[0].
+states``, by parameter index: SGD's momentum, or ``(momentum or None,
+fp32 master weight)`` under ``multi_precision``), so both packages can
+start a step from the same parameters and optimizer state.
 """
 from __future__ import annotations
 
@@ -17,7 +23,8 @@ import numpy as _np
 from ..ndarray.ndarray import array
 
 __all__ = ["params_from_numpy", "block_params_to_numpy",
-           "block_params_from_numpy"]
+           "block_params_from_numpy", "trainer_states_to_numpy",
+           "trainer_states_from_numpy"]
 
 
 def _np_of(v):
@@ -52,3 +59,30 @@ def block_params_from_numpy(block, values, ctx=None):
     _load_into(dict(block.collect_params().items()),
                {k: _np_of(v) for k, v in values.items()}, "the given values",
                ctx, False, False)
+
+
+def _map_state(state, fn):
+    if isinstance(state, (tuple, list)):
+        return tuple(None if v is None else fn(v) for v in state)
+    return None if state is None else fn(state)
+
+
+def trainer_states_to_numpy(trainer):
+    """{parameter index: state as numpy} of a gluon Trainer of either
+    package; a state is an array, a tuple of arrays and Nones, or
+    None."""
+    return {i: _map_state(s, _np_of)
+            for i, s in trainer._updaters[0].states.items()}
+
+
+def trainer_states_from_numpy(trainer, states):
+    """Make `states` ({parameter index: state}, as `trainer_states_to_
+    numpy` gives them) the port `trainer`'s optimizer states, each array
+    on its parameter's context in the value's dtype; the next update
+    starts from them."""
+    updater = trainer._updaters[0]
+    for i, state in states.items():
+        ctx = trainer._params[i].list_ctx()[0]
+        updater.states[i] = _map_state(
+            state, lambda v: array(_np_of(v), ctx=ctx,
+                                   dtype=_np_of(v).dtype))

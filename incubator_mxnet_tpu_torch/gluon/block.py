@@ -8,13 +8,15 @@ symbol JSON.
 
 A `HybridBlock` called on a Symbol composes ``hybrid_forward`` with the
 symbolic frontend (``F = mx.sym``): this is how `Module` trains a gluon
-network.  Called on NDArrays it traces that symbol once (the JAX
-package's cached graph) and evaluates it in predict mode with the
-Symbol interpreter (`symbol.graph_eval_fn`) on the parameters' device,
-finishing deferred initialisation from the input's shape first.  The
-port has no autograd tape yet, so that call never trains: training goes
-through `Module`.  `hybridize` only records the flag, since every NDArray
-call already runs the traced graph.  `SymbolBlock`, forward hooks and
+network.  Called on NDArrays it runs ``hybrid_forward(nd, ...)``
+eagerly, op by op through `ndarray.invoke`, so `autograd.record()`
+records it.  After `hybridize()` the same call runs the block's traced
+symbol instead (`_CachedGraph`, the JAX package's cached op): the Symbol
+interpreter (`symbol.graph_eval_fn`) in training or predict mode as
+`autograd` says, recorded as one op whose inputs are the data and every
+parameter, and in training mode the new BatchNorm moving statistics are
+written into their Parameters in place.  Either way deferred shapes are
+finished from the first input.  `SymbolBlock`, forward hooks and
 `summary` are not ported.
 """
 from __future__ import annotations
@@ -27,7 +29,9 @@ import torch
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
 from .. import ndarray as nd
-from .parameter import Parameter, ParameterDict, _load_into
+from .. import autograd as _autograd
+from .parameter import Parameter, ParameterDict, _load_into, \
+    DeferredInitializationError
 
 __all__ = ["Block", "HybridBlock"]
 
@@ -228,28 +232,55 @@ def _indent(s, num_spaces):
 
 
 class _CachedGraph:
-    """A HybridBlock's traced symbol and its predict-mode interpreter (the
-    JAX package's `_CachedGraph`, without the compile)."""
+    """A HybridBlock's traced symbol run by the Symbol interpreter (the JAX
+    package's `_CachedGraph`, without the compile): one interpreter per
+    mode, recorded on the autograd tape as one op."""
 
-    def __init__(self, symbol, data_names):
+    def __init__(self, symbol, data_names, params):
         from ..symbol.symbol import graph_eval_fn
         self.symbol = symbol
         self.data_names = data_names
-        self._fn, arg_nodes, aux_nodes = graph_eval_fn(symbol, False)
+        self.params = params          # {name: Parameter}
+        self._fns = {}
+        fn, arg_nodes, aux_nodes = graph_eval_fn(symbol, False)
+        self._fns[False] = fn
         self.arg_names = [n.name for n in arg_nodes]
         self.aux_names = [n.name for n in aux_nodes]
+        self._needs_rng = any(not n.is_variable and n.op.needs_rng
+                              for n in symbol._topo())
 
-    def __call__(self, inputs, params, ctx):
-        """Outputs (NDArrays on `ctx`) for `inputs` ({data name: NDArray})
-        and `params` ({parameter name: Parameter})."""
-        def value(name):
-            if name in inputs:
-                return inputs[name].data
-            return params[name].data(ctx).data
-        with torch.no_grad():
-            outs, _ = self._fn([value(n) for n in self.arg_names],
-                               [value(n) for n in self.aux_names])
+    def _fn(self, is_train):
+        if is_train not in self._fns:
+            from ..symbol.symbol import graph_eval_fn
+            self._fns[is_train] = graph_eval_fn(self.symbol, True)[0]
+        return self._fns[is_train]
+
+    def __call__(self, inputs, ctx):
+        """Outputs (NDArrays on `ctx`) for `inputs` ({data name:
+        NDArray})."""
+        params = self.params
+        st = _autograd._st()
+        train = st.training
+        args = [inputs[n] if n in inputs else params[n].data(ctx)
+                for n in self.arg_names]
+        auxs = [params[n].data(ctx) for n in self.aux_names]
+        rng = None
+        if train and self._needs_rng:
+            from .. import random as _random
+            rng = _random.generator(ctx.torch_device)
+        fn = self._fn(train)
+        with torch.set_grad_enabled(st.recording):
+            outs, new_aux = fn([a.data for a in args],
+                               [a.data for a in auxs], rng)
+        if train:
+            changed = [(a.data, v) for a, v in zip(auxs, new_aux)
+                       if v is not a.data]
+            if changed:
+                with torch.no_grad():
+                    torch._foreach_copy_(*(list(c) for c in zip(*changed)))
         outs = [NDArray(o, ctx=ctx) for o in outs]
+        if st.recording and any(a.data.requires_grad for a in args):
+            _autograd._record(args + auxs, outs)
         return outs[0] if len(outs) == 1 else outs
 
 
@@ -261,6 +292,7 @@ class HybridBlock(Block):
         super().__init__(prefix=prefix, params=params)
         self._active = False
         self._cached_graph = None
+        self._n_inputs = 0      # inputs of the last NDArray call (export)
 
     def __setattr__(self, name, value):
         super().__setattr__(name, value)
@@ -269,6 +301,7 @@ class HybridBlock(Block):
 
     def hybridize(self, active=True, **kwargs):
         self._active = active
+        self._cached_graph = None
         super().hybridize(active, **kwargs)
 
     def cast(self, dtype):
@@ -306,22 +339,38 @@ class HybridBlock(Block):
         if not isinstance(x, NDArray):
             raise MXNetError(f"{type(self).__name__}: call on an NDArray or "
                              f"a Symbol, got {type(x).__name__}")
-        inputs = [x] + list(args)
-        pending = [p for p in self.collect_params().values()
-                   if p._data is None]
-        if pending:
-            if any(p._deferred_init and (p.shape is None or 0 in p.shape)
-                   for p in pending):
-                self.infer_shape(*inputs)
-            for p in pending:
-                p._finish_deferred_init()
+        ctx = x.context
+        self._n_inputs = 1 + len(args)
+        if self._active:
+            return self._call_cached_op(x, *args)
+        try:
+            params = {name: p.data(ctx)
+                      for name, p in self._reg_params.items()}
+        except DeferredInitializationError:
+            self._finish_deferred(self._reg_params.values(), x, *args)
+            params = {name: p.data(ctx)
+                      for name, p in self._reg_params.items()}
+        return self.hybrid_forward(nd, x, *args, **params)
+
+    def _finish_deferred(self, params, *inputs):
+        """Initialise `params` that wait for a shape, inferring the
+        unknown dims from the inputs' shapes first."""
+        pending = [p for p in params if p._data is None]
+        if any(p._deferred_init and (p.shape is None or 0 in p.shape)
+               for p in pending):
+            self.infer_shape(*[a for a in inputs if isinstance(a, NDArray)])
+        for p in pending:
+            p._finish_deferred_init()
+
+    def _call_cached_op(self, *args):
+        inputs = [a for a in args if isinstance(a, NDArray)]
         if self._cached_graph is None:
+            params = {p.name: p for p in self.collect_params().values()}
+            self._finish_deferred(params.values(), *inputs)
             out, names = self._trace_symbol(len(inputs))
-            self._cached_graph = _CachedGraph(out, names)
+            self._cached_graph = _CachedGraph(out, names, params)
         cg = self._cached_graph
-        return cg(dict(zip(cg.data_names, inputs)),
-                  {p.name: p for p in self.collect_params().values()},
-                  x.context)
+        return cg(dict(zip(cg.data_names, inputs)), inputs[0].context)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
@@ -329,10 +378,13 @@ class HybridBlock(Block):
     def export(self, path, epoch=0):
         """``path-symbol.json`` and ``path-%04d.params`` (``arg:``/``aux:``
         keys) of the traced graph, for `Module.load` or serving."""
-        if self._cached_graph is None:
+        if self._cached_graph is not None:
+            sym = self._cached_graph.symbol
+        elif self._n_inputs:
+            sym = self._trace_symbol(self._n_inputs)[0]
+        else:
             raise MXNetError("Please first call the block on data at least "
                              "once before calling export.")
-        sym = self._cached_graph.symbol
         sym.save(f"{path}-symbol.json")
         arg_names = set(sym.list_arguments())
         aux_names = set(sym.list_auxiliary_states())

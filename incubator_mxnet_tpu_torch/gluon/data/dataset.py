@@ -1,0 +1,99 @@
+"""Datasets (reference `python/mxnet/gluon/data/dataset.py`).
+
+PyTorch port of `Dataset`, `SimpleDataset` and `ArrayDataset` of
+`incubator_mxnet_tpu/gluon/data/dataset.py`, with the lazy transforms
+(`transform`, `transform_first`) and `filter`.
+"""
+from __future__ import annotations
+
+from ...ndarray.ndarray import NDArray
+
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset"]
+
+
+class Dataset:
+    """Abstract dataset: a length and items by index (reference
+    `dataset.py:Dataset`)."""
+
+    def __getitem__(self, idx):
+        raise NotImplementedError
+
+    def __len__(self):
+        raise NotImplementedError
+
+    def filter(self, fn):
+        return SimpleDataset([self[i] for i in range(len(self))
+                              if fn(self[i])])
+
+    def transform(self, fn, lazy=True):
+        trans = _LazyTransformDataset(self, fn)
+        if lazy:
+            return trans
+        return SimpleDataset([trans[i] for i in range(len(trans))])
+
+    def transform_first(self, fn, lazy=True):
+        return self.transform(_TransformFirstClosure(fn), lazy)
+
+
+class SimpleDataset(Dataset):
+    def __init__(self, data):
+        self._data = data
+
+    def __len__(self):
+        return len(self._data)
+
+    def __getitem__(self, idx):
+        return self._data[idx]
+
+
+class _LazyTransformDataset(Dataset):
+    def __init__(self, data, fn):
+        self._data = data
+        self._fn = fn
+
+    def __len__(self):
+        return len(self._data)
+
+    def __getitem__(self, idx):
+        item = self._data[idx]
+        if isinstance(item, tuple):
+            return self._fn(*item)
+        return self._fn(item)
+
+
+class _TransformFirstClosure:
+    def __init__(self, fn):
+        self._fn = fn
+
+    def __call__(self, x, *args):
+        if args:
+            return (self._fn(x),) + args
+        return self._fn(x)
+
+
+class ArrayDataset(Dataset):
+    """Arrays of one length zipped by index (reference
+    `dataset.py:ArrayDataset`); a 1-D NDArray is read as numpy, so its
+    items are scalars."""
+
+    def __init__(self, *args):
+        if not args:
+            raise ValueError("ArrayDataset needs at least one array")
+        self._length = len(args[0])
+        self._data = []
+        for i, data in enumerate(args):
+            if len(data) != self._length:
+                raise ValueError(
+                    f"All arrays must have the same length; got {len(data)} "
+                    f"at position {i} vs {self._length}")
+            if isinstance(data, NDArray) and data.ndim == 1:
+                data = data.asnumpy()
+            self._data.append(data)
+
+    def __getitem__(self, idx):
+        if len(self._data) == 1:
+            return self._data[0][idx]
+        return tuple(data[idx] for data in self._data)
+
+    def __len__(self):
+        return self._length

@@ -6,10 +6,20 @@ holds one NDArray per context and, unless ``grad_req`` is ``"null"``, a
 gradient array beside each; a shape with a 0 in it is not known yet and
 waits for the first forward (deferred initialisation).  `var()` gives
 the Variable a Block's symbolic trace uses, carrying the shape, dtype,
-``lr_mult`` and ``wd_mult``.  The port has no autograd tape yet, so the
-gradient arrays are plain zeros that `zero_grad` resets.
+``lr_mult`` and ``wd_mult``.
+
+Each data array of a parameter that takes a gradient is an autograd
+leaf (``requires_grad``), marked with its gradient array as
+`NDArray.attach_grad` marks one: `autograd.backward` writes or adds the
+gradient there by ``grad_req``, and `grad()`, `list_grad()` and
+`zero_grad()` act on those arrays.  Setting ``grad_req`` re-makes the
+leaves; `cast` makes new ones, with gradients, in the new dtype;
+`set_data` and the optimizer write into the leaves in place, so a later
+`autograd.record()` sees the new values through the same leaves.
 """
 from __future__ import annotations
+
+import torch
 
 from ..base import MXNetError
 from ..context import Context, cpu, current_context
@@ -69,9 +79,7 @@ class Parameter:
         if self._grad_req == req:
             return
         self._grad_req = req
-        if req == "null":
-            self._grad = None
-        elif self._data is not None:
+        if self._data is not None:
             self._init_grad()
 
     @property
@@ -168,11 +176,17 @@ class Parameter:
         self._init_grad()
 
     def _init_grad(self):
+        """Fresh zero gradient arrays, and each data array re-made as a
+        leaf marked with its gradient (no gradient for ``"null"``)."""
         if self.grad_req == "null":
             self._grad = None
+            for d in self._data:
+                d._mark_variable(None, "null")
             return
         self._grad = [nd.zeros(d.shape, dtype=d.data.dtype, ctx=d.context)
                       for d in self._data]
+        for d, g in zip(self._data, self._grad):
+            d._mark_variable(g, self.grad_req)
 
     def _reduce(self):
         """The value averaged over contexts, on the first one's."""
@@ -193,8 +207,10 @@ class Parameter:
             init, ctx, default_init, _ = self._deferred_init
             self._deferred_init = (init, ctx, default_init, data)
             return
-        for d in self._data:
-            d._set_data(data)
+        src = _tensor_of(data, self._data[0].data.dtype)
+        with torch.no_grad():
+            for d in self._data:
+                d.data.copy_(src)
 
     def data(self, ctx=None):
         """The NDArray on `ctx` (default: the first context)."""
@@ -202,6 +218,21 @@ class Parameter:
         if ctx is None:
             return self._data[0]
         return self._data[self._ctx_list.index(ctx)]
+
+    def list_data(self):
+        """The data array on every context."""
+        self._check_initialized()
+        return list(self._data)
+
+    def list_ctx(self):
+        """The contexts the parameter lives on (those it will, while its
+        initialisation is deferred)."""
+        if self._data is None:
+            if self._deferred_init:
+                return self._deferred_init[1]
+            raise MXNetError(f"Parameter '{self.name}' has not been "
+                             "initialized")
+        return self._ctx_list
 
     def grad(self, ctx=None):
         if self._data is not None and self._grad is None:
@@ -212,9 +243,17 @@ class Parameter:
             return self._grad[0]
         return self._grad[self._ctx_list.index(ctx)]
 
+    def list_grad(self):
+        """The gradient array on every context."""
+        self._check_initialized()
+        if self._grad is None:
+            raise MXNetError(f"grad_req='null' for Parameter '{self.name}'")
+        return list(self._grad)
+
     def zero_grad(self):
-        for g in self._grad or ():
-            g.data.zero_()
+        with torch.no_grad():
+            for g in self._grad or ():
+                g.data.zero_()
 
     def var(self):
         """The Variable that stands for this parameter in a trace."""

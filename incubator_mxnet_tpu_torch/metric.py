@@ -55,9 +55,9 @@ def create(metric, *args, **kwargs):
 
 def _as_tensor(x, device=None):
     """An NDArray's tensor, a tensor, or a numpy array as a tensor, on
-    `device` when given."""
+    `device` when given, outside the autograd graph."""
     if isinstance(x, NDArray):
-        x = x.data
+        x = x.data.detach()
     elif not isinstance(x, torch.Tensor):
         x = torch.from_numpy(numpy.ascontiguousarray(x))
     return x if device is None else x.to(device, non_blocking=True)

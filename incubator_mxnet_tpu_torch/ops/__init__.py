@@ -1,6 +1,6 @@
 """Operator registry and the ops the port carries so far."""
 from . import registry
-from . import nn, matrix, elemwise, attention  # noqa: F401  (registration)
+from . import nn, matrix, elemwise, reduce, attention  # noqa: F401
 from . import flash_attention, loss_output, init_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 

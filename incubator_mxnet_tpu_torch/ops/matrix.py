@@ -1,13 +1,20 @@
-"""Shape ops: Reshape (with MXNet's special codes) and Flatten.
+"""Shape, indexing and product ops.
 
-PyTorch port of the serving slice of `incubator_mxnet_tpu/ops/matrix.py`.
+PyTorch port of part of `incubator_mxnet_tpu/ops/matrix.py` (reference
+`src/operator/tensor/matrix_op.cc`, `dot.cc`, `slice_channel.cc`,
+`broadcast_reduce_op_index.cc`): Reshape with MXNet's special codes,
+Flatten, transpose, expand_dims, squeeze, swapaxes, split, Concat,
+stack, add_n, dot, batch_dot, the indexing ops NDArray's ``[]`` records
+(``_index``, ``_index_nd``), reshape_like, pick, where and Cast.
 """
 from __future__ import annotations
 
 import math
 
-from ..base import MXNetError
-from .registry import register
+import torch
+
+from ..base import MXNetError, torch_dtype
+from .registry import register, REQUIRED
 
 
 def infer_reshape(target, src_shape, reverse=False):
@@ -66,3 +73,133 @@ def _reshape(params, x):
 def _flatten(params, x):
     """Collapse all but the first axis (reference matrix_op.cc Flatten)."""
     return x.reshape(x.shape[0], -1)
+
+
+@register("transpose", params={"axes": ()})
+def _transpose(params, x):
+    axes = params["axes"] or tuple(range(x.dim() - 1, -1, -1))
+    return x.permute(*axes)
+
+
+@register("expand_dims", params={"axis": REQUIRED})
+def _expand_dims(params, x):
+    return x.unsqueeze(int(params["axis"]))
+
+
+@register("squeeze", params={"axis": None})
+def _squeeze(params, x):
+    axis = params["axis"]
+    if axis is None:
+        return x.squeeze()
+    return x.squeeze((axis,) if isinstance(axis, int) else tuple(axis))
+
+
+@register("SwapAxis", aliases=("swapaxes",), params={"dim1": 0, "dim2": 0})
+def _swapaxes(params, x):
+    return x.transpose(int(params["dim1"]), int(params["dim2"]))
+
+
+def _split_nout(params):
+    return int(params["num_outputs"])
+
+
+@register("SliceChannel", aliases=("split",), nout=_split_nout,
+          params={"num_outputs": REQUIRED, "axis": 1, "squeeze_axis": False})
+def _split(params, x):
+    """`num_outputs` equal parts along `axis` (reference
+    `slice_channel.cc`)."""
+    n = int(params["num_outputs"])
+    axis = int(params["axis"]) % x.dim()
+    parts = torch.chunk(x, n, dim=axis)
+    if params["squeeze_axis"]:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts)
+
+
+@register("Concat", aliases=("concat",), nin=-1,
+          params={"num_args": 0, "dim": 1})
+def _concat(params, *xs):
+    return torch.cat(xs, dim=int(params["dim"]))
+
+
+@register("stack", nin=-1, params={"num_args": 0, "axis": 0})
+def _stack(params, *xs):
+    return torch.stack(xs, dim=int(params["axis"]))
+
+
+@register("add_n", aliases=("ElementWiseSum", "_sum"), nin=-1,
+          params={"num_args": 0})
+def _add_n(params, *xs):
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return out
+
+
+@register("dot", nin=2, params={"transpose_a": False, "transpose_b": False,
+                                "forward_stype": None})
+def _dot(params, a, b):
+    """The last axis of a against the first of b, after the optional
+    transposes (reference `dot.cc`)."""
+    if params["transpose_a"]:
+        a = a.permute(*range(a.dim() - 1, -1, -1))
+    if params["transpose_b"]:
+        b = b.permute(*range(b.dim() - 1, -1, -1))
+    if a.dim() == 1 and b.dim() == 1:
+        return torch.dot(a, b)
+    return torch.tensordot(a, b, dims=1)
+
+
+@register("batch_dot", nin=2, params={"transpose_a": False,
+                                      "transpose_b": False,
+                                      "forward_stype": None})
+def _batch_dot(params, a, b):
+    if params["transpose_a"]:
+        a = a.transpose(-1, -2)
+    if params["transpose_b"]:
+        b = b.transpose(-1, -2)
+    return torch.matmul(a, b)
+
+
+@register("_index", params={"key": REQUIRED})
+def _index(params, x):
+    """Basic indexing as a differentiable op (what NDArray's ``[]``
+    records)."""
+    return x[params["key"]]
+
+
+@register("_index_nd", nin=2)
+def _index_nd(params, x, idx):
+    """Integer-array indexing along axis 0, differentiable."""
+    return x[idx.long()]
+
+
+@register("reshape_like", nin=2, params={"lhs_begin": None, "lhs_end": None,
+                                         "rhs_begin": None, "rhs_end": None})
+def _reshape_like(params, lhs, rhs):
+    return lhs.reshape(rhs.shape)
+
+
+@register("pick", nin=2, params={"axis": -1, "keepdims": False,
+                                 "mode": "clip"})
+def _pick(params, data, index):
+    """One element along `axis` per position of `index` (reference
+    `broadcast_reduce_op_index.cc` pick); out-of-range indices clip, or
+    wrap with ``mode="wrap"``."""
+    axis = int(params["axis"]) % data.dim()
+    n = data.shape[axis]
+    idx = index.long()
+    idx = torch.remainder(idx, n) if params["mode"] == "wrap" else \
+        idx.clamp(0, n - 1)
+    out = torch.take_along_dim(data, idx.unsqueeze(axis), dim=axis)
+    return out if params["keepdims"] else out.squeeze(axis)
+
+
+@register("where", nin=3)
+def _where(params, cond, x, y):
+    return torch.where(cond != 0, x, y)
+
+
+@register("Cast", aliases=("cast",), params={"dtype": REQUIRED})
+def _cast(params, x):
+    return x.to(torch_dtype(params["dtype"]), copy=True)

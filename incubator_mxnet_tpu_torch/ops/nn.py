@@ -160,6 +160,62 @@ def _softmax(params, x):
     return out
 
 
+@register("log_softmax", params={"axis": -1, "temperature": None,
+                                 "dtype": None})
+def _log_softmax(params, x):
+    t = params["temperature"]
+    if t:
+        x = x / t
+    out = torch.log_softmax(x, dim=int(params["axis"]))
+    if params["dtype"]:
+        from ..base import torch_dtype
+        out = out.to(torch_dtype(params["dtype"]))
+    return out
+
+
+@register("softmin", params={"axis": -1, "temperature": None, "dtype": None})
+def _softmin(params, x):
+    t = params["temperature"]
+    if t:
+        x = x / t
+    return torch.softmax(-x, dim=int(params["axis"]))
+
+
+_SELU = (1.6732632423543772, 1.0507009873554805)
+
+
+@register("LeakyReLU", nin=-1,
+          params={"act_type": "leaky", "slope": 0.25, "lower_bound": 0.125,
+                  "upper_bound": 0.334},
+          input_names=lambda p: ["data"] + (
+              ["gamma"] if p.get("act_type") == "prelu" else []))
+def _leaky_relu(params, x, *rest):
+    """Reference `src/operator/leaky_relu.cc`: leaky, prelu, elu, selu,
+    gelu (exact, erf), rrelu (its inference slope, the bounds' mean, as
+    the JAX op)."""
+    t = params["act_type"]
+    if t == "leaky":
+        return torch.where(x > 0, x, x * params["slope"])
+    if t == "prelu":
+        gamma = rest[0]
+        if gamma.dim() == 1 and x.dim() > 1:
+            shape = [1] * x.dim()
+            shape[1] = gamma.shape[0] if gamma.shape[0] > 1 else 1
+            gamma = gamma.reshape(shape)
+        return torch.where(x > 0, x, x * gamma)
+    if t == "elu":
+        return torch.where(x > 0, x, params["slope"] * torch.expm1(x))
+    if t == "selu":
+        alpha, scale = _SELU
+        return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+    if t == "gelu":
+        return F.gelu(x, approximate="none")
+    if t == "rrelu":
+        slope = (params["lower_bound"] + params["upper_bound"]) / 2
+        return torch.where(x > 0, x, x * slope)
+    raise MXNetError(f"LeakyReLU: unknown act_type {t}")
+
+
 @register("Dropout", needs_rng=True, mode_dependent=True,
           params={"p": 0.5, "mode": "training", "axes": ()})
 def _dropout(params, x, generator):

@@ -43,6 +43,8 @@ class OpDef:
     params : dict name -> default (REQUIRED for mandatory params).
     needs_rng : op consumes randomness; the interpreter appends a
         `torch.Generator` (or None) input.
+    stop_grad : the imperative frontend does not record the op for
+        backward (BlockGrad and friends).
     mode_dependent : op behaves differently in train vs predict mode; the
         interpreter injects boolean param ``_train``.
     input_names : static list or callable(params)->list of input slot
@@ -51,11 +53,12 @@ class OpDef:
     """
 
     __slots__ = ("name", "fn", "nin", "nout", "naux", "params", "needs_rng",
-                 "mode_dependent", "aliases", "input_names", "doc")
+                 "mode_dependent", "stop_grad", "aliases", "input_names",
+                 "doc")
 
     def __init__(self, name, fn, nin=1, nout=1, naux=0, params=None,
-                 needs_rng=False, mode_dependent=False, aliases=(),
-                 input_names=None, doc=None):
+                 needs_rng=False, mode_dependent=False, stop_grad=False,
+                 aliases=(), input_names=None, doc=None):
         self.name = name
         self.fn = fn
         self.nin = nin
@@ -64,6 +67,7 @@ class OpDef:
         self.params = dict(params or {})
         self.needs_rng = needs_rng
         self.mode_dependent = mode_dependent
+        self.stop_grad = stop_grad
         self.aliases = tuple(aliases)
         self.input_names = input_names
         self.doc = doc or (fn.__doc__ if fn else None)

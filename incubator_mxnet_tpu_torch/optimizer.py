@@ -46,7 +46,8 @@ class Optimizer:
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
-                 sym=None, begin_num_update=0, multi_precision=False):
+                 sym=None, begin_num_update=0, multi_precision=False,
+                 param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -61,6 +62,9 @@ class Optimizer:
         self.idx2name = dict(param_idx2name or {})
         self.sym_info = ((sym.attr_dict(), sym.list_arguments())
                          if sym is not None else ())
+        # {index: gluon Parameter}: a Trainer's parameters, whose own
+        # lr_mult / wd_mult take precedence
+        self.param_dict = dict(param_dict or {})
         self.set_lr_mult({})
         self.set_wd_mult({})
 
@@ -136,10 +140,23 @@ class Optimizer:
     def _get_lr(self, index):
         lr = self.lr_scheduler(self.num_update) \
             if self.lr_scheduler is not None else self.lr
+        if index in self.param_dict:
+            return lr * self.param_dict[index].lr_mult
         return lr * self._mult(index, self.lr_mult)
 
     def _get_wd(self, index):
+        if index in self.param_dict:
+            return self.wd * self.param_dict[index].wd_mult
         return self.wd * self._mult(index, self.wd_mult)
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state.pop("param_dict", None)   # the Parameters stay with the caller
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.param_dict = {}
 
 
 register = Optimizer.register

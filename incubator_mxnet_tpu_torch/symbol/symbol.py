@@ -349,6 +349,27 @@ class Symbol:
     def __rtruediv__(self, other):
         return _sym_binary(self, other, None, "_rdiv_scalar")
 
+    def __pow__(self, other):
+        return _sym_binary(self, other, "broadcast_power", "_power_scalar")
+
+    def __neg__(self):
+        return _sym_apply("negative", [self], {})
+
+    def __gt__(self, other):
+        return _sym_binary(self, other, "broadcast_greater",
+                           "_greater_scalar")
+
+    def __ge__(self, other):
+        return _sym_binary(self, other, "broadcast_greater_equal",
+                           "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return _sym_binary(self, other, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return _sym_binary(self, other, "broadcast_lesser_equal",
+                           "_lesser_equal_scalar")
+
     def __hash__(self):
         return id(self)
 

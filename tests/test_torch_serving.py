@@ -148,13 +148,22 @@ def test_entry_points_without_ctx_need_the_card(monkeypatch, tmp_path):
 def test_port_imports_no_jax():
     """In a fresh interpreter, importing the port (every module, through
     the package) and driving a graph, a gluon network (the model zoo's
-    ResNet, imperatively and composed) and a Module.fit through the
-    fused train step loads neither jax nor the JAX package."""
+    ResNet, imperatively and composed), a Module.fit through the fused
+    train step and an Estimator.fit through the gluon fused step loads
+    neither jax nor the JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
         import incubator_mxnet_tpu_torch as mx
+        import incubator_mxnet_tpu_torch.autograd
         import incubator_mxnet_tpu_torch.fused
+        import incubator_mxnet_tpu_torch.gluon.contrib.estimator
+        import incubator_mxnet_tpu_torch.gluon.data
+        import incubator_mxnet_tpu_torch.gluon.fused_step
+        import incubator_mxnet_tpu_torch.gluon.loss
+        import incubator_mxnet_tpu_torch.gluon.trainer
+        import incubator_mxnet_tpu_torch.gluon.utils
+        import incubator_mxnet_tpu_torch.ndarray.register
         import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet
         import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.vgg
         sym = mx.model_zoo.vgg_symbol(11)
@@ -172,6 +181,14 @@ def test_port_imports_no_jax():
         mod.fit(it, num_epoch=1, initializer=mx.initializer.Xavier(),
                 batch_end_callback=mx.callback.Speedometer(4, 1))
         assert mod._fused_step.steps == 2
+        res.hybridize()
+        est = mx.gluon.contrib.estimator.Estimator(
+            res, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+            trainer=mx.gluon.Trainer(res.collect_params(), "sgd"))
+        data = mx.gluon.data.DataLoader(mx.gluon.data.ArrayDataset(
+            np.ones((8, 3, 8, 8), "f4"), np.zeros(8, "f4")), batch_size=4)
+        est.fit(data, event_handlers=[])
+        assert est._fused.steps == 2
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "incubator_mxnet_tpu"))
