@@ -303,6 +303,52 @@ KERNEL_CLASSES = (
 )
 
 
+# phase 9: the transformer LM (llm/) served at GPT-2 small's published
+# widths (Radford et al. 2019; the Hugging Face `gpt2` config: n_layer 12,
+# n_head 12, n_embd 768, n_ctx 1024, vocab_size 50257), ffn_mult 4; the
+# repo's LM has no position embedding and exact gelu, so these are GPT-2
+# small's widths, not GPT-2.  eos outside the vocabulary: every sequence
+# spends its budget (tools/run_lm_bench.py:50-53)
+LM_CFG = dict(vocab_size=50257, num_layers=12, num_heads=12, hidden=768,
+              ffn_mult=4, max_len=1024, eos_id=-1)
+LM_SLOTS = 8
+LM_BUCKETS = (8, 64, 256)
+LM_STD = 0.02                 # GPT-2's initializer range
+LM_PROMPTS = (5, 50, 200)     # 9a: one prompt per bucket, into slots 0-2
+LM_TICKS = 8                  # 9a: teacher-forced decode ticks
+# 9a: card vs CPU in fp32 (TF32 off): sums in other orders through 12
+# layers and a 50257-way head
+LM_TOL = (1e-3, 1e-4)
+# a near tie: a top-2 margin at most this share of max|logit|; argmax is
+# held only where the margin is larger
+LM_TIE = 1e-3
+# 9a bf16 (parameters and cache) vs fp32 on the card: each op's output
+# rounded to bf16 (2**-8) through 12 layers; the relative L2 of the
+# logits, and the margin past which argmax must agree
+LM_BF16 = 2.0 ** -5
+# 9b: tools/run_lm_bench.py's trace (:82-96, seed 17): groups of 8, seven
+# budgets of 3 new tokens and one of 40, prompts of 2-8 tokens; then
+# LM_LONG sequences of 9-256 prompt tokens (buckets 64 and 256) with
+# budgets of 16-64, submitted by LM_CLIENTS threads
+LM_GROUPS, LM_SHORT_NEW, LM_LONG_NEW = 6, 3, 40
+LM_LONG = 16
+LM_CLIENTS = 8
+# 9c: device time by class of one profiled tick, by the inclusive device
+# time of the ops the decode plane calls (first match)
+LM_OP_CLASSES = (
+    ("GEMM (qkv, out_proj, fc1, fc2, head)", ("aten::linear",)),
+    ("attention softmax/einsum", ("aten::einsum", "aten::softmax",
+                                  "aten::masked_fill", "aten::amax",
+                                  "aten::exp", "aten::sub", "aten::sum",
+                                  "aten::maximum", "aten::mul",
+                                  "aten::where", "aten::full",
+                                  "aten::zeros")),
+    ("LayerNorm", ("aten::layer_norm",)),
+    ("gelu", ("aten::gelu",)),
+    ("cache write", ("aten::index_put_", "aten::copy_")),
+)
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
@@ -2283,6 +2329,497 @@ def gluon_phase(card, module_s):
     return out
 
 
+# -- phase 9: the transformer LM served at GPT-2 small's widths -------------
+
+def lm_values(cfg, seed=SEED):
+    """{name: float32 numpy} under the llm.model names, GPT-2's
+    initialisation: N(0, 0.02) for the embedding and the projections,
+    out_proj and fc2 at 0.02 / sqrt(2 L) (GPT-2's residual scaling); so
+    that every parameter takes part, gammas 1 + N(0, 0.02) and betas and
+    biases N(0, 0.02)."""
+    rng = np.random.default_rng(seed)
+    c, f = cfg.hidden, cfg.hidden * cfg.ffn_mult
+    resid = LM_STD / math.sqrt(2 * cfg.num_layers)
+
+    def normal(shape, std=LM_STD, mean=0.0):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= std
+        a += mean
+        return a
+
+    out = {"lm_embed_weight": normal((cfg.vocab_size, c)),
+           "lm_final_ln_gamma": normal((c,), mean=1.0),
+           "lm_final_ln_beta": normal((c,))}
+    for i in range(cfg.num_layers):
+        pre = f"lm_block{i}_"
+        for ln in ("ln1", "ln2"):
+            out[f"{pre}{ln}_gamma"] = normal((c,), mean=1.0)
+            out[f"{pre}{ln}_beta"] = normal((c,))
+        for name, shape, std in (("qkv", (3 * c, c), LM_STD),
+                                 ("out_proj", (c, c), resid),
+                                 ("fc1", (f, c), LM_STD),
+                                 ("fc2", (c, f), resid)):
+            out[f"{pre}{name}_weight"] = normal(shape, std)
+            out[f"{pre}{name}_bias"] = normal(shape[:1])
+    return out
+
+
+def lm_padded(tokens):
+    """(1, bucket) int32 of `tokens` padded with zeros to its bucket of
+    LM_BUCKETS."""
+    n = len(tokens)
+    out = np.zeros((1, next(b for b in LM_BUCKETS if n <= b)), np.int32)
+    out[0, :n] = tokens
+    return out
+
+
+def lm_clear(logits, share):
+    """Per row of `logits` (..., V): whether its top-2 margin exceeds
+    share * max|logit| of the row (a near tie where it does not)."""
+    top2 = logits.float().topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) > \
+        share * logits.float().abs().amax(-1)
+
+
+def held(got, ref, tol, what):
+    """max |got - ref| / (rtol*|ref| + atol*max|ref|), compared on the
+    CPU in float32; fails above 1."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    check(got.shape == ref.shape, f"{what}: shape {tuple(got.shape)} vs "
+          f"{tuple(ref.shape)}")
+    rtol, atol = tol
+    bound = (rtol * ref.abs() + atol * ref.abs().max()).clamp_min(1e-30)
+    ratio = ((got - ref).abs() / bound).max().item()
+    check(ratio <= 1.0, f"{what}: {ratio:.3f} of the tolerance")
+    return ratio
+
+
+def lm_parity(mx, cfg, params, card):
+    """Phase 9a: the decode plane on the card against the port on the
+    CPU from the same parameters: prefills of LM_PROMPTS into slots 0-2
+    (one per bucket), then LM_TICKS decode ticks fed the CPU's tokens;
+    every call's logits, argmax where the CPU's margin is clear, and the
+    caches' written rows.  On the card: the last step against a prefill
+    of the prompt it had seen, and the 200-token prefill against the
+    hybridized gluon TransformerLM's forward at its last position.  Then
+    the same calls in bf16 (parameters and cache) against fp32 on the
+    card."""
+    from incubator_mxnet_tpu_torch.compat.weights import lm_params_from_numpy
+    from incubator_mxnet_tpu_torch.llm import (DecodePrograms, LMConfig,
+                                               TransformerLM, init_kv_cache,
+                                               stack_lm_params)
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in LM_PROMPTS]
+    lanes = {}
+    for name, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+        progs = DecodePrograms(cfg, stack_lm_params(params, cfg, ctx),
+                               label=name)
+        lanes[name] = (progs,) + init_kv_cache(cfg, LM_SLOTS, ctx)
+    out = {"worst": 0.0, "ties": 0, "rows": 0}
+    calls = []   # (kind, args, the card's fp32 logits) for the bf16 replay
+
+    def run(kind, *args):
+        res = {n: getattr(p, kind)(p.params, ck, cv, *args)
+               for n, (p, ck, cv) in lanes.items()}
+        want, got = res["cpu"][3], res["card"][3]
+        out["worst"] = max(out["worst"],
+                           held(got, want, LM_TOL, f"9a {kind} logits"))
+        clear = lm_clear(want, LM_TIE)
+        out["ties"] += int((~clear).sum())
+        out["rows"] += clear.numel()
+        same = res["card"][2].cpu().long() == want.argmax(-1)
+        check(bool(same[clear].all()),
+              f"9a {kind}: the card's argmax differs at a clear margin")
+        calls.append((kind, args, got.float().clone()))
+        return res["cpu"][2].numpy()
+
+    tokens = np.zeros(LM_SLOTS, np.int32)
+    positions = np.zeros(LM_SLOTS, np.int32)
+    seqs = []
+    for slot, p in enumerate(prompts):
+        tok = int(run("prefill", lm_padded(p), slot, len(p)))
+        tokens[slot], positions[slot] = tok, len(p)
+        seqs.append(list(p) + [tok])
+    prefill_last = calls[-1][2]      # the longest prompt's, on the card
+    for _ in range(LM_TICKS):
+        nxt = run("step", tokens.copy(), positions.copy())
+        for slot, seq in enumerate(seqs):
+            tokens[slot] = nxt[slot]
+            positions[slot] += 1
+            seq.append(int(nxt[slot]))
+    step_last = calls[-1][2]
+    (_, ckc, cvc), (pg, ckg, cvg) = lanes["cpu"], lanes["card"]
+    for slot, p in enumerate(prompts):
+        rows = len(p) + LM_TICKS
+        for got, want in ((ckg, ckc), (cvg, cvc)):
+            out["worst"] = max(out["worst"], held(
+                got[:, slot, :rows], want[:, slot, :rows], LM_TOL,
+                f"9a cache rows of slot {slot}"))
+    del lanes, ckc, cvc, ckg, cvg
+    ck1, cv1 = init_kv_cache(cfg, 1, mx.gpu(0))
+    out["extended"] = 0.0
+    for slot, seq in enumerate(seqs):
+        seen = np.asarray(seq[:-1])
+        logits = pg.prefill(pg.params, ck1, cv1, lm_padded(seen), 0,
+                            len(seen))[3]
+        out["extended"] = max(out["extended"], held(
+            step_last[slot], logits, LM_TOL,
+            "9a a step against the prefill of the prompt it had seen"))
+    del ck1, cv1, pg
+    net = TransformerLM(cfg, prefix="lm_")
+    lm_params_from_numpy(params, block=net, ctx=mx.gpu(0))
+    net.hybridize()
+    fwd = net(mx.nd.array(prompts[-1][None], ctx=mx.gpu(0),
+                          dtype="int32")).data[0, -1]
+    out["gluon"] = held(prefill_last, fwd, LM_TOL,
+                        "9a prefill against the hybridized gluon forward")
+    del net, fwd
+    cfg16 = LMConfig(**dict(LM_CFG, param_dtype="bfloat16"))
+    p16 = DecodePrograms(cfg16, stack_lm_params(
+        {k: v.data.to(BF16) for k, v in params.items()}, cfg16, mx.gpu(0)))
+    ck16, cv16 = init_kv_cache(cfg16, LM_SLOTS, mx.gpu(0))
+    out["bf16_l2"], out["bf16_clear"] = 0.0, 0
+    for kind, args, ref in calls:
+        _, _, tok, logits = getattr(p16, kind)(p16.params, ck16, cv16, *args)
+        l2 = ((logits.float() - ref).norm() / ref.norm()).item()
+        out["bf16_l2"] = max(out["bf16_l2"], l2)
+        check(l2 <= LM_BF16, f"9a bf16 {kind}: relative L2 {l2:.4f} of "
+              f"the fp32 logits above {LM_BF16}")
+        clear = lm_clear(ref, LM_BF16)
+        out["bf16_clear"] += int(clear.sum())
+        check(bool((tok.long() == ref.argmax(-1))[clear].all()),
+              f"9a bf16 {kind}: argmax differs at a margin above "
+              f"{LM_BF16} of max|logit|")
+    del p16, ck16, cv16
+    torch.cuda.empty_cache()
+    print(f"lm parity: prefills of {'/'.join(map(str, LM_PROMPTS))} tokens "
+          f"+ {LM_TICKS} teacher-forced ticks, card vs CPU (fp32): worst "
+          f"{out['worst']:.3f} of rtol {LM_TOL[0]} + {LM_TOL[1]}*max|ref| "
+          f"(logits and cache rows), argmax equal at every clear margin, "
+          f"{out['ties']} near ties of {out['rows']} rows; on the card a "
+          f"step vs the prefill of what it had seen {out['extended']:.3f}, "
+          f"the prefill vs the hybridized gluon forward "
+          f"{out['gluon']:.3f}; bf16 vs fp32 relative L2 at most "
+          f"{out['bf16_l2']:.5f} (limit {LM_BF16}), argmax equal at "
+          f"{out['bf16_clear']} rows of clear margin [{card}]")
+    return out
+
+
+def lm_trace(vocab):
+    """Phase 9b's trace: tools/run_lm_bench.py's `_trace` (seed 17,
+    LM_GROUPS groups), then LM_LONG long prompts."""
+    rng = np.random.default_rng(17)
+    trace = []
+    for _ in range(LM_GROUPS):
+        for new in [LM_SHORT_NEW] * (LM_SLOTS - 1) + [LM_LONG_NEW]:
+            toks = [int(t) for t in rng.integers(1, 60,
+                                                 int(rng.integers(2, 9)))]
+            trace.append((toks, new))
+    rng = np.random.default_rng(SEED + 92)
+    for _ in range(LM_LONG):
+        n = int(rng.integers(9, LM_BUCKETS[-1] + 1))
+        trace.append(([int(t) for t in rng.integers(1, vocab, n)],
+                      int(rng.integers(16, 65))))
+    return trace
+
+
+def lm_static(mx, programs, cfg, trace):
+    """tools/run_lm_bench.py's static lane (`_static_lane`) through the
+    same programs: batches of LM_SLOTS in trace order, each slot
+    prefilled into a fresh cache, then every slot stepped until the
+    batch's longest budget is spent.  Returns (continuations, whether
+    each one's chain is clear of near ties, wall s, ticks)."""
+    from incubator_mxnet_tpu_torch.llm import init_kv_cache
+    conts, clear, ticks = [], [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for at in range(0, len(trace), LM_SLOTS):
+        batch = trace[at:at + LM_SLOTS]
+        ck, cv = init_kv_cache(cfg, LM_SLOTS, mx.gpu(0))
+        tokens = np.zeros(LM_SLOTS, np.int32)
+        positions = np.zeros(LM_SLOTS, np.int32)
+        chains = [[] for _ in batch]
+        margins = [[] for _ in batch]
+        for s, (toks, _) in enumerate(batch):
+            _, _, tok, logits = programs.prefill(
+                programs.params, ck, cv, lm_padded(toks), s, len(toks))
+            tokens[s], positions[s] = int(tok), len(toks)
+            chains[s].append(int(tok))
+            margins[s].append(lm_clear(logits, LM_TIE))
+        for _ in range(max(new for _, new in batch) - 1):
+            _, _, nxt, logits = programs.step(programs.params, ck, cv,
+                                              tokens, positions)
+            ok = lm_clear(logits, LM_TIE)
+            tokens = nxt.cpu().numpy()
+            positions += 1
+            ticks += 1
+            for s in range(len(batch)):
+                chains[s].append(int(tokens[s]))
+                margins[s].append(ok[s])
+        for s, (_, new) in enumerate(batch):
+            conts.append(chains[s][:new])
+            clear.append(bool(torch.stack(margins[s][:new]).all()))
+        del ck, cv
+    torch.cuda.synchronize()
+    return conts, clear, time.perf_counter() - t0, ticks
+
+
+def lm_traffic(mx, cfg, params, card, trace):
+    """Phase 9b in one dtype: `serving.DecodeEngine` on the card
+    (LM_SLOTS slots, LM_BUCKETS), the trace submitted by LM_CLIENTS
+    threads at priorities spread over the three classes; every future
+    resolves, the continuations equal the static lane's through the same
+    programs wherever its chain has no near tie, and no new signature
+    appears.  Then the prefill per bucket and the step alone, timed."""
+    from incubator_mxnet_tpu_torch.llm import init_kv_cache
+    from incubator_mxnet_tpu_torch.serving.router import PRIORITIES
+    dt = cfg.param_dtype
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = mx.serving.DecodeEngine(cfg, params, slots=LM_SLOTS,
+                                  buckets=LM_BUCKETS, name=f"lm-{dt}",
+                                  start=False, ctx=mx.gpu(0))
+    tick_s = []
+    step = eng.step
+
+    def timed_step():
+        t = time.perf_counter()
+        n = step()
+        if n:
+            tick_s.append(time.perf_counter() - t)
+        return n
+
+    eng.step = timed_step
+    programs = eng.warmup()
+    check(programs == eng.programs.program_count() == len(LM_BUCKETS) + 1,
+          f"9b {dt}: warmup prepared {programs} signatures, expected "
+          f"{len(LM_BUCKETS) + 1}")
+    eng.start()
+    futs = [None] * len(trace)
+
+    def client(k):
+        for i in range(k, len(trace), LM_CLIENTS):
+            toks, new = trace[i]
+            futs[i] = eng.submit(toks, max_new_tokens=new, rid=f"lm-{i}",
+                                 priority=PRIORITIES[i % len(PRIORITIES)])
+
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(k,))
+               for k in range(LM_CLIENTS)]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(60)
+        check(not t.is_alive(), f"9b {dt}: a client thread hung")
+    results = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    stats = eng.stats()
+    classes = eng.metrics.snapshot()["classes"]
+    eng.close(drain=False)
+    got = [r["tokens"] for r in results]
+    check([len(g) for g in got] == [new for _, new in trace],
+          f"9b {dt}: a continuation is not its budget's length")
+    static, clear, static_s, static_ticks = lm_static(mx, eng.programs, cfg,
+                                                      trace)
+    check(eng.programs.program_count() == programs and
+          eng.programs.compile_count() == programs,
+          f"9b {dt}: the traffic added a signature")
+    bad = [i for i, c in enumerate(clear) if c and static[i] != got[i]]
+    check(not bad, f"9b {dt}: sequences {bad} differ from the static lane")
+    tied = [(i, static[i] == got[i]) for i, c in enumerate(clear) if not c]
+    useful = sum(new for _, new in trace)
+    rng = np.random.default_rng(SEED + 94)
+    ck, cv = init_kv_cache(cfg, LM_SLOTS, mx.gpu(0))
+    prefill_ms = {}
+    for b in LM_BUCKETS:
+        padded = rng.integers(1, cfg.vocab_size, (1, b)).astype(np.int32)
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.programs.prefill(eng.programs.params, ck, cv, padded, 0, b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        prefill_ms[b] = statistics.median(times[1:])
+    tokens = rng.integers(1, cfg.vocab_size, LM_SLOTS).astype(np.int32)
+    positions = (np.arange(LM_SLOTS) * 37 + 64).astype(np.int32)
+    times = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.programs.step(eng.programs.params, ck, cv, tokens, positions)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    del ck, cv
+    out = {
+        "tokens_s": useful / wall, "static_tokens_s": useful / static_s,
+        "ticks": stats["ticks"], "static_ticks": static_ticks,
+        "tick_ms": statistics.median(tick_s) * 1e3,
+        "tick_p99_ms": float(np.percentile(tick_s, 99)) * 1e3,
+        "step_ms": statistics.median(times[1:]), "prefill_ms": prefill_ms,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "classes": classes, "programs": eng.programs}
+    out["ratio"] = out["tokens_s"] / out["static_tokens_s"]
+    print(f"lm serve {dt}: {len(trace)} sequences from {LM_CLIENTS} "
+          f"clients, {useful} tokens: continuous {out['tokens_s']:.1f} "
+          f"tokens/s in {stats['ticks']} ticks ({wall:.2f} s), static "
+          f"{out['static_tokens_s']:.1f} tokens/s in {static_ticks} ticks "
+          f"({static_s:.2f} s), ratio {out['ratio']:.3f}; every future "
+          f"resolved; {len(trace) - len(tied)} continuations equal the "
+          f"static lane's, {len(tied)} with a near tie in the chain "
+          f"(rid, equal): {tied}; signatures {programs} before and after "
+          f"[{card}]")
+    print(f"lm serve {dt}: tick median {out['tick_ms']:.3f} ms, p99 "
+          f"{out['tick_p99_ms']:.3f} ms; the step alone (8 slots) "
+          f"{out['step_ms']:.3f} ms; prefill "
+          + ", ".join(f"bucket {b} {ms:.3f} ms"
+                      for b, ms in prefill_ms.items())
+          + f"; peak {out['peak_gib']:.2f} GiB [{card}]")
+    for cls in PRIORITIES:
+        c = classes.get(cls, {})
+        print(f"lm serve {dt}: {cls}: {c.get('responses')} responses, "
+              f"latency p50 {c.get('p50_ms') or 0:.1f} ms p99 "
+              f"{c.get('p99_ms') or 0:.1f} ms [{card}]")
+    return out
+
+
+def _device_us(event):
+    """Inclusive device time (us) of a profiler CPU event (the name
+    changed across torch versions)."""
+    if hasattr(event, "device_time_total"):
+        return event.device_time_total
+    return event.cuda_time_total
+
+
+def lm_profile(mx, cfg, programs, card, tries=3):
+    """Phase 9c, in cfg's dtype: one warm tick under torch.profiler, a
+    bucket-256 prefill into slot 0 and a decode step of LM_SLOTS active
+    slots: kernels, device ms by class (the inclusive device time of the ops the decode
+    plane calls), host ms to enqueue, the device's busy share, and the
+    step's bytes bound (parameters and the live cache read once)."""
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch.llm import init_kv_cache
+    rng = np.random.default_rng(SEED + 93)
+    ck, cv = init_kv_cache(cfg, LM_SLOTS, mx.gpu(0))
+    n = LM_BUCKETS[-1] - 16
+    prompt = lm_padded(rng.integers(1, cfg.vocab_size, n))
+    tokens = rng.integers(1, cfg.vocab_size, LM_SLOTS).astype(np.int32)
+    positions = (np.arange(LM_SLOTS) * 37 + n).astype(np.int32)
+
+    def tick():
+        programs.prefill(programs.params, ck, cv, prompt, 0, n)
+        programs.step(programs.params, ck, cv, tokens, positions)
+
+    tick()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tick()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+    check(spans, f"lm profile {cfg.param_dtype}: the profiler saw no "
+          "device activity")
+    busy, edge, kernels = 0.0, -math.inf, {}
+    for start, end, name in spans:
+        busy += max(0.0, end - max(start, edge))
+        edge = max(edge, end)
+        kernels[name] = kernels.get(name, 0.0) + (end - start)
+    device_us = sum(kernels.values())
+    by_class, other = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or \
+                e.cpu_parent is not None:
+            continue
+        us = _device_us(e)
+        cls = next((label for label, names in LM_OP_CLASSES
+                    if e.name in names), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + us
+        if cls == "other":
+            other[e.name] = other.get(e.name, 0.0) + us
+    item = ck.element_size()
+    p = programs.params
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      [p["embed"], p["final_ln_gamma"], p["final_ln_beta"]]
+                      + list(p["layers"].values()))
+    live = 2 * cfg.num_layers * int((positions + 1).sum()) * cfg.hidden * item
+    bound_ms = (param_bytes + live) / HBM_BYTES_S * 1e3
+    label = f"lm profile {cfg.param_dtype}"
+    print(f"{label}: one warm tick (prefill of {n} tokens in bucket "
+          f"{LM_BUCKETS[-1]}, step of {LM_SLOTS} slots at rows "
+          f"{positions.min()}-{positions.max()}): {host_ms:.2f} ms of host "
+          f"time to enqueue, {wall_ms:.2f} ms to finish, {len(spans)} "
+          f"kernels, device time {device_us / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3 / wall_ms:.3f}; the step's bytes bound "
+          f"{bound_ms:.3f} ms ({param_bytes / 1e9:.3f} GB of parameters + "
+          f"{live / 1e9:.3f} GB of live cache at {HBM_BYTES_S / 1e12:.2f} "
+          f"TB/s) [{card}]")
+    total = sum(by_class.values())
+    for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"{label}: {us / 1e3:9.3f} ms "
+              f"{us / total if total else 0.0:6.3f} {cls}")
+    for name, us in sorted(other.items(), key=lambda kv: -kv[1])[:4]:
+        print(f"{label}: other: {us / 1e3:8.3f} ms {name[:80]}")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"{label}: kernel: {us / 1e3:8.3f} ms {name[:90]}")
+    del ck, cv
+    return {"busy": busy / 1e3 / wall_ms, "host_ms": host_ms,
+            "device_ms": device_us / 1e3, "kernels": len(spans),
+            "bound_ms": bound_ms}
+
+
+def lm_phase(card, workdir):
+    """Phase 9; returns the numbers of the summary line.  The counts of
+    K1, K2 and K3 are set to 0 before it and must stay 0: no TPU kernel
+    is on the LM's serving path."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.llm import LMConfig
+    from incubator_mxnet_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_stream)
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    counted = (fc_relu, flash_fwd, flash_fwd_stream)
+    for wrapper in counted:
+        wrapper.launches = 0
+    cfg = LMConfig(**LM_CFG)
+    t0 = time.perf_counter()
+    path = os.path.join(workdir, "lm-gpt2-small-widths.params")
+    values = lm_values(cfg)
+    count = sum(v.size for v in values.values())
+    mx.nd.save(path, {k: mx.nd.array(v, ctx=mx.cpu())
+                      for k, v in values.items()})
+    del values
+    params = mx.nd.load(path)
+    os.remove(path)
+    print(f"lm: {count / 1e6:.2f} M parameters (seed {SEED}) through "
+          f"nd.save / nd.load in {time.perf_counter() - t0:.1f} s")
+    out = {"parity": lm_parity(mx, cfg, params, card)}
+    trace = lm_trace(cfg.vocab_size)
+    out["fp32"] = lm_traffic(mx, cfg, params, card, trace)
+    out["profile"] = lm_profile(mx, cfg, out["fp32"].pop("programs"), card)
+    cfg16 = LMConfig(**dict(LM_CFG, param_dtype="bfloat16"))
+    out["bf16"] = lm_traffic(mx, cfg16, {k: v.data.to(BF16)
+                                         for k, v in params.items()},
+                             card, trace)
+    out["profile_bf16"] = lm_profile(mx, cfg16, out["bf16"].pop("programs"),
+                                     card)
+    launches = [w.launches for w in counted]
+    print(f"lm: K1/K2/K3 launches over phase 9: {launches} (no TPU kernel "
+          f"is on the LM's serving path)")
+    check(launches == [0, 0, 0], "a K1/K2/K3 kernel ran on the LM path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -2344,6 +2881,9 @@ def main():
     t0 = time.perf_counter()
     gluon = gluon_phase(card, resnet["bf16"]["images_s"])
     print(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm = lm_phase(card, str(_build.BUILD_DIR.parent))
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -2372,6 +2912,24 @@ def main():
           f"{g['step_ms']:.3f} ms, peak {g['peak_gib']:.2f} GiB "
           f"({g['steady_gib']:.2f} timed) [{card}]")
     print(f"gluon summary: parity {gluon['parity_s']:.1f} s [{card}]")
+    par = lm["parity"]
+    for dt in ("fp32", "bf16"):
+        g, prof = lm[dt], lm["profile" if dt == "fp32" else "profile_bf16"]
+        print(f"lm summary: {dt} GPT-2-small widths, {LM_SLOTS} slots: "
+              f"continuous {g['tokens_s']:.1f} tokens/s, static "
+              f"{g['static_tokens_s']:.1f} (ratio {g['ratio']:.3f}), "
+              f"{g['ticks']} ticks, tick median {g['tick_ms']:.3f} ms p99 "
+              f"{g['tick_p99_ms']:.3f} ms, step {g['step_ms']:.3f} ms, "
+              f"prefill " + "/".join(f"{ms:.2f}" for ms in
+                                     g["prefill_ms"].values())
+              + f" ms (buckets {'/'.join(map(str, LM_BUCKETS))}), peak "
+              f"{g['peak_gib']:.2f} GiB; profiled tick {prof['kernels']} "
+              f"kernels, device {prof['device_ms']:.3f} ms, busy "
+              f"{prof['busy']:.3f}, host {prof['host_ms']:.2f} ms, step "
+              f"bytes bound {prof['bound_ms']:.3f} ms [{card}]")
+    print(f"lm summary: parity worst {par['worst']:.3f} of the tolerance, "
+          f"{par['ties']} near ties, bf16 relative L2 {par['bf16_l2']:.5f} "
+          f"[{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"

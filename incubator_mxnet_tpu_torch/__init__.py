@@ -23,7 +23,11 @@ imperatively: `autograd` (`record`, `backward`, `grad`, `Function`, on
 torch's autograd), one ``nd.<Op>`` per registered op through
 `ndarray.invoke`, eager and hybridized `HybridBlock` calls, `gluon.loss`,
 `gluon.Trainer`, `gluon.data`, `gluon.utils` and
-`gluon.contrib.estimator.Estimator.fit` with its fused step.
+`gluon.contrib.estimator.Estimator.fit` with its fused step.  Slice 7
+serves the transformer LM: `llm` (the gluon `TransformerLM`,
+`lm_symbol`, the decode plane's prefill and step over a KV cache), the
+``LayerNorm``, ``Embedding`` and ``slice_axis`` ops, and
+`serving.DecodeEngine`, continuous batching over the decode plane.
 
     import incubator_mxnet_tpu_torch as mx
 """
@@ -53,6 +57,7 @@ from . import executor
 from . import module
 from . import module as mod
 from . import gluon
+from . import llm
 from . import test_utils
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
@@ -60,4 +65,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "model", "save_checkpoint", "load_checkpoint", "serving",
            "model_zoo", "parallel", "random", "initializer", "init",
            "lr_scheduler", "optimizer", "metric", "io", "callback",
-           "executor", "module", "mod", "gluon", "test_utils"]
+           "executor", "module", "mod", "gluon", "llm", "test_utils"]

@@ -10,6 +10,11 @@ block's parameters, by full name, as numpy: out of a block of either
 package, and into one of the port's (a `.params` file that either
 package's `save_parameters` wrote loads with `Block.load_parameters`).
 
+`lm_params_from_numpy` carries a transformer LM's parameters (a JAX
+`TransformerLM`'s, a Module arg dict, or a `.params` file's ``arg:``
+keys) into the port's `TransformerLM`, or into the arg dict
+`DecodeEngine` and `Module.set_params` take.
+
 `trainer_states_to_numpy` and `trainer_states_from_numpy` carry a gluon
 `Trainer`'s optimizer states the same way (``trainer._updaters[0].
 states``, by parameter index: SGD's momentum, or ``(momentum or None,
@@ -23,8 +28,8 @@ import numpy as _np
 from ..ndarray.ndarray import array
 
 __all__ = ["params_from_numpy", "block_params_to_numpy",
-           "block_params_from_numpy", "trainer_states_to_numpy",
-           "trainer_states_from_numpy"]
+           "block_params_from_numpy", "lm_params_from_numpy",
+           "trainer_states_to_numpy", "trainer_states_from_numpy"]
 
 
 def _np_of(v):
@@ -59,6 +64,20 @@ def block_params_from_numpy(block, values, ctx=None):
     _load_into(dict(block.collect_params().items()),
                {k: _np_of(v) for k, v in values.items()}, "the given values",
                ctx, False, False)
+
+
+def lm_params_from_numpy(values, block=None, ctx=None):
+    """An LM's parameters, {name: array} under the `llm.model` names
+    (``lm_embed_weight``, ``lm_block0_qkv_weight``, ...; a ``arg:``
+    prefix, as a Module checkpoint's `.params` file has, is dropped),
+    into the port's `TransformerLM` `block`, which is returned; without
+    a block, the port's {name: NDArray} arg dict on `ctx`."""
+    arrays = {k[4:] if k.startswith("arg:") else k: v
+              for k, v in values.items() if not k.startswith("aux:")}
+    if block is not None:
+        block_params_from_numpy(block, arrays, ctx)
+        return block
+    return params_from_numpy(arrays, ctx=ctx)[0]
 
 
 def _map_state(state, fn):

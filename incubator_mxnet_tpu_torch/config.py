@@ -22,6 +22,13 @@ JAX package's `simple_bind` does.
 fused train step (`fused.FusedTrainStep`) where the module allows it;
 ``0`` keeps every batch on the per-batch path, as in the JAX package.
 
+``MXNET_DECODE_SLOTS`` (int, 8), ``MXNET_DECODE_BUCKETS`` (str,
+"8,16,32"), ``MXNET_DECODE_ADMIT_PER_TICK`` (int, 2) and
+``MXNET_DECODE_MAX_NEW`` (int, 32) are `serving.decode.DecodeEngine`'s
+defaults, as in the JAX package: the KV-cache rows a decode tick
+advances, the prompt-length ladder, the sequences admitted per tick and
+the generation budget of a request that sets none.
+
 ``MXNET_FLASH_INTERPRET`` is not carried over: in the port the tensor's
 device decides.  A CPU tensor takes a kernel's plain PyTorch version; a
 CUDA tensor launches the kernel or raises.
@@ -48,6 +55,22 @@ KNOBS = {
     "MXNET_FUSED_TRAIN_STEP": (_BOOL, True,
                                "Module.fit runs the fused train step "
                                "(fused.py) where it can"),
+    "MXNET_DECODE_SLOTS": (int, 8,
+                           "KV-cache rows the continuous-batching "
+                           "DecodeEngine advances per tick (the decode "
+                           "step's fixed batch dimension)"),
+    "MXNET_DECODE_BUCKETS": (str, "8,16,32",
+                             "prompt-length bucket ladder for decode "
+                             "prefill: one signature per bucket, prompts "
+                             "padded up"),
+    "MXNET_DECODE_ADMIT_PER_TICK": (int, 2,
+                                    "most sequences admitted (prefilled) "
+                                    "per decode tick, so a burst of long "
+                                    "prefills never stalls the running "
+                                    "slots' decode step"),
+    "MXNET_DECODE_MAX_NEW": (int, 32,
+                             "default generation budget of a sequence "
+                             "whose request sets no max_new_tokens"),
 }
 
 

@@ -1,7 +1,7 @@
 """Basic layers (reference `python/mxnet/gluon/nn/basic_layers.py`).
 
 PyTorch port of `Sequential`, `HybridSequential`, `Dense`, `Dropout`,
-`BatchNorm` and `Flatten` from `incubator_mxnet_tpu/gluon/nn/
+`BatchNorm`, `LayerNorm` and `Flatten` from `incubator_mxnet_tpu/gluon/nn/
 basic_layers.py`, with the same parameter names, defaults and op
 attributes.  The JAX `HybridSequential` can lower runs of equal children
 to one `lax.scan` inside its fused step; an eager interpreter has no
@@ -13,7 +13,7 @@ from .activations import Activation
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "BatchNorm", "Flatten"]
+           "BatchNorm", "LayerNorm", "Flatten"]
 
 
 class _Stack:
@@ -164,6 +164,35 @@ class BatchNorm(HybridBlock):
 
     def __repr__(self):
         return f"BatchNorm(axis={self._axis}, " \
+               f"in_channels={self.gamma.shape[0]})"
+
+
+class LayerNorm(HybridBlock):
+    """The `LayerNorm` op over learned gamma and beta (reference
+    `basic_layers.py:532 LayerNorm`); ``in_channels=0`` defers their
+    shape to the first input."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._kwargs = {"eps": epsilon, "axis": axis}
+        self._axis = axis
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, name="fwd", **self._kwargs)
+
+    def __repr__(self):
+        return f"LayerNorm(axis={self._axis}, " \
                f"in_channels={self.gamma.shape[0]})"
 
 

@@ -2,10 +2,11 @@
 
 PyTorch port of part of `incubator_mxnet_tpu/ops/matrix.py` (reference
 `src/operator/tensor/matrix_op.cc`, `dot.cc`, `slice_channel.cc`,
-`broadcast_reduce_op_index.cc`): Reshape with MXNet's special codes,
-Flatten, transpose, expand_dims, squeeze, swapaxes, split, Concat,
-stack, add_n, dot, batch_dot, the indexing ops NDArray's ``[]`` records
-(``_index``, ``_index_nd``), reshape_like, pick, where and Cast.
+`broadcast_reduce_op_index.cc`, `indexing_op.cc`): Reshape with MXNet's
+special codes, Flatten, transpose, expand_dims, squeeze, swapaxes,
+slice_axis, split, Concat, stack, add_n, dot, batch_dot, the indexing
+ops NDArray's ``[]`` records (``_index``, ``_index_nd``), reshape_like,
+pick, Embedding, where and Cast.
 """
 from __future__ import annotations
 
@@ -97,6 +98,17 @@ def _squeeze(params, x):
 @register("SwapAxis", aliases=("swapaxes",), params={"dim1": 0, "dim2": 0})
 def _swapaxes(params, x):
     return x.transpose(int(params["dim1"]), int(params["dim2"]))
+
+
+@register("slice_axis", params={"axis": REQUIRED, "begin": REQUIRED,
+                               "end": None})
+def _slice_axis(params, x):
+    """``x[begin:end]`` along `axis` (reference `matrix_op.cc`
+    slice_axis); ``end=None`` runs to the end."""
+    axis = int(params["axis"]) % x.dim()
+    sl = [slice(None)] * x.dim()
+    sl[axis] = slice(params["begin"], params["end"])
+    return x[tuple(sl)]
 
 
 def _split_nout(params):
@@ -193,6 +205,21 @@ def _pick(params, data, index):
         idx.clamp(0, n - 1)
     out = torch.take_along_dim(data, idx.unsqueeze(axis), dim=axis)
     return out if params["keepdims"] else out.squeeze(axis)
+
+
+@register("Embedding", nin=2,
+          params={"input_dim": REQUIRED, "output_dim": REQUIRED,
+                  "dtype": "float32", "sparse_grad": False},
+          input_names=["data", "weight"])
+def _embedding(params, data, weight):
+    """``weight[data]`` in the weight's dtype (reference `indexing_op.cc`
+    Embedding).  Indices clip into ``[0, input_dim - 1]`` first, as the
+    JAX op's clip before `jnp.take`: on the card an index out of range
+    would be a device-side assert that ends the process's CUDA context.
+    Float indices (an `NDArrayIter` gives float32 tokens) truncate to
+    integers after the clip."""
+    idx = data.clamp(0, int(params["input_dim"]) - 1).long()
+    return torch.nn.functional.embedding(idx, weight)
 
 
 @register("where", nin=3)

@@ -1,8 +1,8 @@
 """Core neural-network operators.
 
 PyTorch port of part of `incubator_mxnet_tpu/ops/nn.py`:
-FullyConnected, Convolution, Pooling, Activation, softmax, Dropout and
-BatchNorm.
+FullyConnected, Convolution, Pooling, Activation, softmax, LeakyReLU,
+Dropout, BatchNorm and LayerNorm.
 Data layouts follow the reference (NCHW); the op bodies are
 `torch.nn.functional` calls, as the JAX package leaves these ops to XLA,
 and their backward is autograd's through them (the JAX package's is
@@ -323,3 +323,37 @@ def _bn_plain(x, gamma, beta, moving_mean, moving_var, train, eps, sdt):
     out = (xs - mean.reshape(shape)) * inv.reshape(shape) \
         * gamma.reshape(shape) + beta.reshape(shape)
     return out, mean, var, inv
+
+
+def _ln_nout(params):
+    return 3 if params.get("output_mean_var") else 1
+
+
+@register("LayerNorm", nin=3, nout=_ln_nout,
+          params={"axis": -1, "eps": 1e-5, "output_mean_var": False},
+          input_names=["data", "gamma", "beta"])
+def _layer_norm(params, x, gamma, beta):
+    """Reference `src/operator/nn/layer_norm.cc`, with the JAX op's math:
+    over `axis`, ``(x - mean) * rsqrt(var + eps) * gamma + beta`` with
+    the biased variance.  ``output_mean_var`` adds the mean and
+    ``rsqrt(var + eps)``, `axis` squeezed, as outputs 2 and 3; that case
+    runs as plain torch ops so gradients reach them, the other as
+    `F.layer_norm` (one kernel each way on the card) over the last axis.
+    Mixed operand dtypes compute in the promoted dtype and return the
+    data's."""
+    axis = int(params["axis"]) % x.dim()
+    eps = float(params["eps"])
+    dt = _promoted(x, gamma, beta)
+    xs, g, b = x.to(dt), gamma.to(dt), beta.to(dt)
+    if params["output_mean_var"]:
+        mean = xs.mean(dim=axis, keepdim=True)
+        var = (xs - mean).square().mean(dim=axis, keepdim=True)
+        inv = torch.rsqrt(var + eps)
+        shape = [1] * x.dim()
+        shape[axis] = x.shape[axis]
+        out = (xs - mean) * inv * g.reshape(shape) + b.reshape(shape)
+        return (out.to(x.dtype), mean.squeeze(axis).to(x.dtype),
+                inv.squeeze(axis).to(x.dtype))
+    xs = xs.movedim(axis, -1)
+    out = F.layer_norm(xs, (xs.shape[-1],), g, b, eps)
+    return out.movedim(-1, axis).to(x.dtype)

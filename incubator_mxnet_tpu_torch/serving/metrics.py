@@ -3,7 +3,11 @@
 PyTorch port of `incubator_mxnet_tpu/serving/metrics.py`.  One
 `ServingMetrics` per served model, updated by the micro-batching worker
 under a plain lock.  Latency lands in a `LatencyReservoir`, a fixed-size
-uniform sample (algorithm R) over every response since start.  The JAX
+uniform sample (algorithm R) over every response since start.  Traffic
+that carries a priority class (``interactive``, ``batch``,
+``best_effort``: the decode engine's, and the router's once it is
+ported) also lands in per-class counters and reservoirs, reported under
+``classes`` in `snapshot()`.  The JAX
 package's hooks into the telemetry plane, the profiler trace and the
 concurrency sanitizer are not ported (ROADMAP.md).
 """
@@ -12,6 +16,7 @@ from __future__ import annotations
 import random
 import threading
 import time
+import zlib
 
 import numpy as _np
 
@@ -58,6 +63,10 @@ class ServingMetrics:
         self.model_name = model_name
         self._lock = threading.Lock()
         self._lat_ms = LatencyReservoir(window)
+        self._window = int(window)
+        # class -> {"responses", "lat"}; created on a class's first
+        # record, so classless serving pays nothing
+        self._classes = {}
         self._t0 = time.monotonic()
         self.requests = 0        # accepted into the queue
         self.responses = 0       # completed with a result
@@ -89,10 +98,24 @@ class ServingMetrics:
         with self._lock:
             return self._ewma_batch_s
 
-    def record_response(self, latency_s):
+    def _class_locked(self, cls):
+        rec = self._classes.get(cls)
+        if rec is None:
+            # stable per-class seed (str hash is randomized per process)
+            rec = self._classes[cls] = {
+                "responses": 0,
+                "lat": LatencyReservoir(max(self._window // 4, 256),
+                                        seed=zlib.crc32(cls.encode()))}
+        return rec
+
+    def record_response(self, latency_s, cls=None):
         with self._lock:
             self.responses += 1
             self._lat_ms.add(latency_s * 1e3)
+            if cls is not None:
+                rec = self._class_locked(cls)
+                rec["responses"] += 1
+                rec["lat"].add(latency_s * 1e3)
 
     def record_timeout(self):
         with self._lock:
@@ -113,10 +136,11 @@ class ServingMetrics:
     def snapshot(self):
         """One coherent metrics dict: counts, QPS since start, p50/p99
         latency (ms, reservoir-sampled over the whole run), mean batch
-        occupancy."""
+        occupancy, and a ``classes`` block (per class: responses, p50/p99
+        ms) once traffic carried classes."""
         with self._lock:
             elapsed = max(time.monotonic() - self._t0, 1e-9)
-            return {
+            snap = {
                 "model": self.model_name,
                 "requests": self.requests,
                 "responses": self.responses,
@@ -136,3 +160,10 @@ class ServingMetrics:
                 "p50_ms": self._lat_ms.percentile(50),
                 "p99_ms": self._lat_ms.percentile(99),
             }
+            if self._classes:
+                snap["classes"] = {
+                    cls: {"responses": rec["responses"],
+                          "p50_ms": rec["lat"].percentile(50),
+                          "p99_ms": rec["lat"].percentile(99)}
+                    for cls, rec in self._classes.items()}
+        return snap

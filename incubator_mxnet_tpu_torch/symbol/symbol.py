@@ -634,5 +634,11 @@ def _solve_param_shapes(node, env, meta):
         c = d[int(p.get("axis", 1)) % len(d)]
         for i in range(1, 5):
             setvar(i, (c,))
+    elif node.op.name == "LayerNorm":
+        c = d[int(p.get("axis", -1)) % len(d)]
+        setvar(1, (c,))
+        setvar(2, (c,))
+    elif node.op.name == "Embedding":
+        setvar(1, (int(p["input_dim"]), int(p["output_dim"])))
     elif node.op.name == "SoftmaxOutput":
         setvar(1, (d[0],) + d[2:] if p.get("multi_output") else d[:-1])

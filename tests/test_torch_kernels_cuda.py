@@ -907,3 +907,84 @@ def test_gluon_fused_step_on_card_matches_the_eager_loop(monkeypatch):
     for k, ref in eager.items():
         np.testing.assert_allclose(fused[k], ref, rtol=1e-6,
                                    atol=1e-7 * np.abs(ref).max(), err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_decode_plane_on_card_matches_the_cpu(dtype):
+    """The decode plane of a small LM (vocab 40, 2 layers, 2 heads,
+    hidden 16) on the card against the CPU, from the same parameters:
+    two prefills (buckets 8 and 16) and 4 decode steps fed the CPU's
+    tokens; logits and the caches' written rows within rtol 1e-4 +
+    1e-5 * max|cpu| in float32 (TF32 off), relative L2 2**-6 in
+    bfloat16 (parameters and cache), whose argmax must agree wherever
+    the CPU's top-2 margin exceeds 2**-5 * max|logit|."""
+    _need_card()
+    from incubator_mxnet_tpu_torch import cpu, gpu
+    from incubator_mxnet_tpu_torch.llm import (DecodePrograms, LMConfig,
+                                               init_kv_cache,
+                                               stack_lm_params)
+    cfg = LMConfig(vocab_size=40, num_layers=2, num_heads=2, hidden=16,
+                   max_len=48, param_dtype=dtype)
+    rng = np.random.RandomState(12)
+    c, f = cfg.hidden, cfg.hidden * cfg.ffn_mult
+    shapes = {"embed_weight": (40, c), "final_ln_gamma": (c,),
+              "final_ln_beta": (c,)}
+    for i in range(cfg.num_layers):
+        for name, shape in (("ln1_gamma", (c,)), ("ln1_beta", (c,)),
+                            ("qkv_weight", (3 * c, c)), ("qkv_bias", (3 * c,)),
+                            ("out_proj_weight", (c, c)),
+                            ("out_proj_bias", (c,)), ("ln2_gamma", (c,)),
+                            ("ln2_beta", (c,)), ("fc1_weight", (f, c)),
+                            ("fc1_bias", (f,)), ("fc2_weight", (c, f)),
+                            ("fc2_bias", (c,))):
+            shapes[f"block{i}_{name}"] = shape
+    values = {f"lm_{k}": torch.from_numpy(
+        (rng.normal(0, 0.3, s) + (1.0 if k.endswith("gamma") else 0.0))
+        .astype("f4")).to(getattr(torch, dtype))
+        for k, s in shapes.items()}
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        planes = []
+        for ctx in (cpu(), gpu(0)):
+            progs = DecodePrograms(cfg, stack_lm_params(values, cfg, ctx))
+            planes.append((progs,) + init_kv_cache(cfg, 3, ctx))
+        tokens = np.zeros(3, np.int32)
+        positions = np.zeros(3, np.int32)
+        calls = []
+        for slot, n, tb in ((0, 5, 8), (2, 11, 16)):
+            prompt = np.zeros((1, tb), np.int32)
+            prompt[0, :n] = rng.randint(1, 40, n)
+            outs = [p.prefill(p.params, ck, cv, prompt, slot, n)
+                    for p, ck, cv in planes]
+            calls.append(outs)
+            tokens[slot], positions[slot] = int(outs[0][2]), n
+        for _ in range(4):
+            outs = [p.step(p.params, ck, cv, tokens, positions)
+                    for p, ck, cv in planes]
+            calls.append(outs)
+            tokens = outs[0][2].numpy().astype(np.int32)
+            positions = positions + 1
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    for (_, _, _, want), (_, _, got_tok, got) in calls:
+        want, got = want.float(), got.float().cpu()
+        if dtype == "float32":
+            np.testing.assert_allclose(
+                got.numpy(), want.numpy(), rtol=1e-4,
+                atol=1e-5 * want.abs().max().item())
+            continue
+        assert (got - want).norm() <= 2.0 ** -6 * want.norm()
+        top2 = want.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2.0 ** -5 * want.abs().max()
+        assert (want.argmax(-1) == got_tok.long().cpu())[clear].all()
+    rows = positions.max()
+    for a, b in zip(planes[0][1:], planes[1][1:]):
+        a, b = a[:, :, :rows].float(), b[:, :, :rows].float().cpu()
+        if dtype == "float32":
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
+                                       atol=1e-5 * a.abs().max().item())
+        else:
+            assert (b - a).norm() <= 2.0 ** -6 * a.norm()
