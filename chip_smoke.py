@@ -101,6 +101,35 @@ exits non-zero:
    BASELINE #3 hybridized, and the same loop un-hybridized: images/s,
    step ms, `mfu`, peak memory, `gluon_vs_module`.  c. one warm
    profiled step of each lane but the eager Estimator's.
+9. the transformer LM served at GPT-2 small's widths (12 layers, 12
+   heads, 768, vocab 50257, max_len 1024; random weights, GPT-2's
+   initialisation), the counts of K1, K2 and K3 set to 0 before it and
+   required 0 after it.  a. the decode plane on the card against the
+   CPU: prefills of 5, 50 and 200 tokens and 8 teacher-forced ticks
+   (logits, caches, argmax at clear margins), a step against the prefill
+   of what it had seen, a prefill against the hybridized gluon forward,
+   bf16 against fp32.  b. `serving.DecodeEngine` (8 slots, buckets 8, 64,
+   256) on a mixed trace from 8 client threads in fp32 and bf16, every
+   continuation equal to a lockstep lane's; tokens/s, ticks, prefill
+   ms.  c. one warm tick under torch.profiler.
+10. the LM at the same widths trained through `Module.fit` (SGD lr 0.05,
+   momentum 0.9, the gradient per token, Xavier, "acc"), K1/K2/K3 held
+   at 0 launches as in 9.  a. 3 fused steps at batch 2 x T 128 in
+   float64, card vs CPU: the losses, the embed_weight gradient (lookup
+   plus tied head), each step's parameters and momenta from the CPU's
+   state; in fp32 each device's step from the float64 state (the card
+   as close as the CPU).  b. the lane at batch 8 x T 1024 (n_ctx) in
+   fp32, TF32 off, one resident batch, 4 warm + 16 timed steps: tokens/s,
+   step ms, peak memory, `mfu` (67 TFLOP/s); then the same with elastic
+   checkpoints every 4 batches: the snapshot call's ms, the background
+   write's seconds and bytes, the slowdown.  d. one warm step under
+   torch.profiler by kernel class, and attention, the head with
+   SoftmaxOutput and the one-hot timed alone.  e. the checkpoint served
+   by `DecodeEngine`, prefills held to the trained Module's forward.
+   c. child processes at 2 layers, batch 4 x 256, deterministic
+   algorithms: an uninterrupted fit, one SIGKILLed after batch 8, one
+   sent SIGTERM at batch 5 (exit 143, a final snapshot), and resumes
+   from both, equal to the uninterrupted fit bit for bit.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -114,6 +143,8 @@ import json
 import math
 import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -346,6 +377,38 @@ LM_OP_CLASSES = (
     ("LayerNorm", ("aten::layer_norm",)),
     ("gelu", ("aten::gelu",)),
     ("cache write", ("aten::index_put_", "aten::copy_")),
+)
+# phase 10: the LM at LM_CFG's widths trained through Module.fit as
+# tests/test_llm.py `_fit_lm` trains it (SGD lr 0.05, momentum 0.9,
+# Xavier, "acc"), with elastic checkpoints.  SoftmaxOutput sums the
+# gradient over the B*T tokens (normalization "null"), so the gradient is
+# rescaled by 1/(B*T), the per-token mean (`lm_opt`): the Module's
+# default 1/B is T times larger, 85x _fit_lm's T = 12 at n_ctx, and
+# diverged to NaN within 10 steps in a CPU rehearsal at T = 256
+LM_TRAIN_OPT = {"learning_rate": 0.05, "momentum": 0.9}
+LM_TRAIN_PARITY = (2, 128, 3)       # 10a: batch, T, steps (float64)
+LM_TRAIN_LANE = (8, 1024, 4, 16)    # 10b: batch, T (n_ctx), warm, timed
+LM_CKPT_PERIOD = 4                  # 10b: processed batches per snapshot
+# 10a float32: each device's step from the float64 CPU state, at most
+# this factor times the CPU's distance from the float64 step, plus this
+LM_TRAIN_ENVELOPE = (3.0, 1e-6)
+# 10c: reduced depth (2 layers at width 768, the full vocabulary), batch
+# 4 x 256, 2 epochs of 6 shuffled batches, a snapshot every 2 batches;
+# SIGKILL after batch 8 (mid epoch 1), SIGTERM once batch 5 is done
+LM_RESUME = dict(layers=2, batch=4, t=256, batches=6, epochs=2, period=2,
+                 kill_after=8, term_after=5)
+LM_RESUME_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+# 10d: device kernels of one training step by class (first match)
+LM_TRAIN_CLASSES = (
+    ("GEMM (the FCs, the head, attention's einsum)",
+     ("gemm", "sgemm", "xmma", "cutlass", "nvjet", "gemv", "splitK")),
+    ("softmax (attention and the head)", ("softmax", "SoftMax")),
+    ("LayerNorm", ("layer_norm", "LayerNorm")),
+    ("the update (multi-tensor SGD)", ("multi_tensor", "foreach")),
+    ("reductions (bias gradients, sums, argmax)", ("reduce_kernel",)),
+    ("elementwise (one-hot, masks, gelu, casts, copies)",
+     ("elementwise", "vectorized", "unrolled", "fill", "copy", "index",
+      "gelu", "embedding", "Embedding", "where", "masked")),
 )
 
 
@@ -1406,13 +1469,19 @@ def resident_iter(mx, batch, dtype, n, seed=SEED):
                        ctx=ctx).astype(dtype)
     label = mx.nd.array(rng.randint(0, CLASSES, batch).astype("f4"),
                         ctx=ctx)
-    provide = ([mx.io.DataDesc("data", (batch,) + IMAGE, dtype=dtype)],
-               [mx.io.DataDesc("softmax_label", (batch,))])
+    return resident(mx, data, label, n)
+
+
+def resident(mx, data, label, n):
+    """A DataIter that yields the one batch (`data`, `label`, NDArrays on
+    the card) n times per epoch."""
+    provide = ([mx.io.DataDesc("data", data.shape, dtype=data.dtype)],
+               [mx.io.DataDesc("softmax_label", label.shape)])
     one = mx.io.DataBatch([data], [label], pad=0)
 
     class Resident(mx.io.DataIter):
         def __init__(self):
-            super().__init__(batch_size=batch)
+            super().__init__(batch_size=data.shape[0])
             self._i = 0
 
         @property
@@ -1712,8 +1781,8 @@ def resnet_lane(mx, sym, dtype, batch, warm, timed, card, peak):
                  "peak_gib": mem}
 
 
-def kernel_class(name):
-    for label, keys in KERNEL_CLASSES:
+def kernel_class(name, classes=KERNEL_CLASSES):
+    for label, keys in classes:
         if any(k in name for k in keys):
             return label
     return "other"
@@ -1731,11 +1800,12 @@ def resnet_profile(mx, mod, card):
                             "resnet profile", batch)
 
 
-def profile_one_step(step, card, label, batch, tries=3):
+def profile_one_step(step, card, label, batch, tries=3, dtype="bf16",
+                     classes=KERNEL_CLASSES):
     """`step()` once to warm, then once under torch.profiler (retried if
     the profiler recorded no kernel): the host ms to enqueue it, the
-    kernels, device ms by kernel class, the device's busy share; printed
-    on lines starting with `label`."""
+    kernels, device ms by kernel class (`classes`), the device's busy
+    share; printed on lines starting with `label`."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -1755,14 +1825,14 @@ def profile_one_step(step, card, label, batch, tries=3):
     check(spans, f"{label}: the profiler saw no device activity in a step")
     by_class, other, busy, edge = {}, {}, 0.0, -math.inf
     for start, end, name in spans:
-        cls = kernel_class(name)
+        cls = kernel_class(name, classes)
         by_class[cls] = by_class.get(cls, 0.0) + (end - start)
         if cls == "other":
             other[name] = other.get(name, 0.0) + (end - start)
         busy += max(0.0, end - max(start, edge))
         edge = max(edge, end)
     total = sum(by_class.values())
-    print(f"{label}: one warm bf16 step at batch {batch}: "
+    print(f"{label}: one warm {dtype} step at batch {batch}: "
           f"{host_ms:.2f} ms of host time to enqueue, {wall_ms:.2f} ms to "
           f"finish, {len(spans)} kernels, device time {total / 1e3:.2f} ms, "
           f"device busy {busy / 1e3 / wall_ms:.3f} of the step [{card}]")
@@ -1771,7 +1841,8 @@ def profile_one_step(step, card, label, batch, tries=3):
     for name, us in sorted(other.items(), key=lambda kv: -kv[1])[:3]:
         print(f"{label}: other: {us / 1e3:8.3f} ms {name[:90]}")
     return {"busy": busy / 1e3 / wall_ms, "host_ms": host_ms,
-            "device_ms": total / 1e3, "kernels": len(spans)}
+            "device_ms": total / 1e3, "kernels": len(spans),
+            "by_class": {cls: us / 1e3 for cls, us in by_class.items()}}
 
 
 def resnet_serve(mx, sym, card, workdir):
@@ -2820,6 +2891,662 @@ def lm_phase(card, workdir):
     return out
 
 
+# -- phase 10: training the LM at GPT-2 small's widths ------------------------
+
+def lm_opt(batch, t):
+    """LM_TRAIN_OPT with the gradient rescaled to the per-token mean."""
+    return dict(LM_TRAIN_OPT, rescale_grad=1.0 / (batch * t))
+
+
+def lm_train_cfg(**kw):
+    from incubator_mxnet_tpu_torch.llm import LMConfig
+    return LMConfig(**dict(LM_CFG, **kw))
+
+
+def lm_tokens(mx, batch, t, vocab, ctx, seed):
+    """A DataBatch of random next-token pairs: data (batch, t) tokens as
+    float32, label the same stream shifted by one."""
+    x = np.random.RandomState(seed).randint(1, vocab, (batch, t + 1))
+    return mx.io.DataBatch(
+        [mx.nd.array(x[:, :-1].astype("f4"), ctx=ctx)],
+        [mx.nd.array(x[:, 1:].astype("f4"), ctx=ctx)])
+
+
+def lm_train_flops(n_params, cfg, batch, t):
+    """Operations of one training step: 6 per parameter per token (the
+    forward's multiply-add and the backward's two), plus attention's
+    Q.K^T and P.V (4 B T^2 C a layer forward, x3 with the backward)."""
+    return 6 * n_params * batch * t + \
+        3 * cfg.num_layers * 4 * batch * t * t * cfg.hidden
+
+
+def lm_ce(probs, labels):
+    """Mean -log p[label] of one batch's (B*T, V) softmax outputs."""
+    p = probs.asnumpy()
+    y = labels.asnumpy().reshape(-1).astype(int)
+    return float(-np.log(p[np.arange(len(p)), y]).mean())
+
+
+def lm_train_steps(mx, sym, ctx, batches, dtype, teacher=None, keep=False,
+                   after=None):
+    """The LM's fused steps (Module.fit_step) in `dtype` on `ctx` from
+    Xavier parameters under mx.random.seed(SEED).  Returns the first
+    batch's embed_weight gradient at the initial state
+    (Module.forward_backward; None with `teacher`), the loss of each
+    step, and with `keep` the states ({parameter}, {momentum}) before the
+    first step and after each.  With `teacher` (another run's states),
+    step k starts from the teacher's state before it; `after(k, state)`
+    sees the state after step k."""
+    mod = mx.mod.Module(sym, context=ctx)
+    batch, t = batches[0].data[0].shape
+    mod.bind([("data", (batch, t))], [("softmax_label", (batch, t))])
+    if dtype == "float64":
+        as_float64(mod)
+    mx.random.seed(SEED)
+    mod.init_params(mx.initializer.Xavier())
+    mod.init_optimizer(optimizer_params=lm_opt(batch, t))
+    names = mod._exec_group.param_names
+
+    def state():
+        return ({n: v.asnumpy() for n, v in mod.get_params()[0].items()},
+                {names[i]: m.asnumpy()
+                 for i, m in mod._updater.states.items()})
+
+    grad = None
+    if teacher is None:
+        mod.forward_backward(batches[0])
+        exe = mod._exec_group.execs[0]
+        grad = exe.grad_dict["lm_embed_weight"].asnumpy()
+    losses, states = [], [state()] if keep else []
+    for k, b in enumerate(batches):
+        if teacher is not None and k:
+            params, moms = teacher[k]
+            mod.set_params(params, {})
+            for i, n in enumerate(names):
+                mod._updater.states[i]._set_data(moms[n])
+        mod.fit_step(b, mx.metric.create("acc"))
+        losses.append(lm_ce(mod.get_outputs()[0], b.label[0]))
+        if keep or after is not None:
+            st = state()
+            if keep:
+                states.append(st)
+            if after is not None:
+                after(k + 1, st)
+    check(mod._fused_step is not None and mod._fused_step.steps ==
+          len(batches), f"lm train parity on {ctx}: the fused step did "
+          "not run every step")
+    del mod
+    gc.collect()
+    return grad, losses, states
+
+
+def lm_train_parity(mx, sym, card):
+    """Phase 10a: LM_TRAIN_PARITY fused steps of the full-width LM on the
+    card against the CPU from the same Xavier parameters and batches, in
+    float64: every step's loss free running; the first batch's
+    embed_weight gradient (the lookup's scatter plus the tied head's
+    product); and each card step from the CPU's state before it, its
+    parameters and momenta within PARITY_TOL.  Then float32 (TF32 off):
+    each device's step from the float64 CPU state, the card's relative
+    L2 distance from the float64 step at most LM_TRAIN_ENVELOPE times
+    the CPU's."""
+    batch, t, steps = LM_TRAIN_PARITY
+    vocab = LM_CFG["vocab_size"]
+    batches = [lm_tokens(mx, batch, t, vocab, mx.cpu(), SEED + 20 + k)
+               for k in range(steps)]
+    t0 = time.perf_counter()
+    g_cpu, cpu_loss, cpu = lm_train_steps(mx, sym, mx.cpu(), batches,
+                                          "float64", keep=True)
+    t_cpu = time.perf_counter() - t0
+    g_card, card_loss, _ = lm_train_steps(mx, sym, mx.gpu(0), batches,
+                                          "float64")
+    loss_err = max(abs(g - c) / abs(c) for g, c in zip(card_loss, cpu_loss))
+    grad = param_ratio({"embed": g_card}, {"embed": g_cpu})[0]
+    worst = [(0.0, "none")]
+
+    def hold(k, st):
+        for got, ref in zip(st, cpu[k]):
+            worst.append(param_ratio(got, ref))
+    lm_train_steps(mx, sym, mx.gpu(0), batches, "float64", teacher=cpu,
+                   after=hold)
+    held_ = max(worst)
+    ok = loss_err <= PARITY_TOL[0] and held_[0] <= 1 and grad <= 1
+    print(f"lm train parity float64: {steps} fused steps at batch {batch} "
+          f"x T {t}, full width, card vs CPU (CPU {t_cpu:.1f} s): loss "
+          f"{' '.join(f'{v:.6f}' for v in card_loss)}; max relative loss "
+          f"err {loss_err:.2e} (rtol {PARITY_TOL[0]:g}); embed_weight "
+          f"gradient (lookup + tied head) at {grad:.3f} of the tolerance; "
+          f"each step from the CPU's state: parameters and momenta at "
+          f"{held_[0]:.3f} of the tolerance (worst {held_[1]}) (rtol "
+          f"{PARITY_TOL[0]:g}, atol {PARITY_TOL[1]:g}*max|array|) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "lm train: the card's float64 steps disagree with the CPU's")
+
+    factor, extra = LM_TRAIN_ENVELOPE
+    dist = {}
+
+    def l2(device):
+        def f(k, st):
+            for what, got, ref in zip(("parameters", "momenta"), st,
+                                      cpu[k]):
+                dist[(device, what, k)] = rel_l2(got, ref, ())
+        return f
+    losses32 = {}
+    for device, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+        _, losses32[device], _ = lm_train_steps(
+            mx, sym, ctx, batches, "float32", teacher=cpu, after=l2(device))
+    ok, lines = True, []
+    for (device, what, k), dc in sorted(dist.items()):
+        if device != "cpu":
+            continue
+        dg = dist[("card", what, k)]
+        ok = ok and dg <= factor * dc + extra
+        lines.append(f"{what} step {k} {dg:.2e} vs {dc:.2e}")
+    loss32 = max(abs(v - c) / abs(c) for run in losses32.values()
+                 for v, c in zip(run, cpu_loss))
+    ok = ok and loss32 <= PARITY_TOL[0]
+    print(f"lm train parity float32, each step from the float64 CPU's "
+          f"state: loss within {loss32:.2e} of float64 on both (rtol "
+          f"{PARITY_TOL[0]:g}); relative L2 distance from the float64 "
+          f"step, card vs CPU: {'; '.join(lines)} (card <= {factor:g} x "
+          f"CPU + {extra:g}) {'ok' if ok else 'FAIL'}")
+    check(ok, "lm train: the card's float32 steps are farther from float64"
+          " than the CPU's")
+    del cpu
+    gc.collect()
+    return {"loss_err": loss_err, "held": held_[0], "grad": grad}
+
+
+class _SnapshotProbe:
+    """Times CheckpointManager.snapshot (the synchronous phase, on the
+    host) and each background write (seconds, bytes) while active."""
+
+    def __init__(self):
+        from incubator_mxnet_tpu_torch.checkpoint import manager, snapshot
+        self._targets = ((manager.CheckpointManager, "snapshot", self.sync),
+                         (snapshot.SnapshotJob, "write", self.write))
+        self.sync_ms, self.writes = [], []
+
+    def sync(self, orig):
+        def f(mgr, *a, **k):
+            t0 = time.perf_counter()
+            out = orig(mgr, *a, **k)
+            self.sync_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return f
+
+    def write(self, orig):
+        def f(job):
+            t0 = time.perf_counter()
+            orig(job)
+            self.writes.append((time.perf_counter() - t0,
+                                job.bytes_written, job.seconds))
+        return f
+
+    def __enter__(self):
+        self._saved = [(cls, name, getattr(cls, name))
+                       for cls, name, _ in self._targets]
+        for cls, name, wrap in self._targets:
+            setattr(cls, name, wrap(getattr(cls, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in self._saved:
+            setattr(cls, name, orig)
+
+
+def lm_train_lane(mx, sym, cfg, card, ckpt_dir=None):
+    """Phase 10b: the LM at LM_TRAIN_LANE (8 x 1024 tokens a step, fp32,
+    TF32 off) through the public Module.fit on one resident random
+    batch, the fused step every step; tokens/s over CUDA-synchronised
+    window edges, the median step ms between CUDA events at each batch
+    end, the loss of every step (computed on the card), peak memory,
+    mfu against the fp32 CUDA-core peak.  With `ckpt_dir`: the same run
+    with elastic checkpoints every LM_CKPT_PERIOD batches, and the
+    snapshot's synchronous ms, each background write's seconds and
+    bytes.  Returns (module, numbers)."""
+    batch, t, warm, timed = LM_TRAIN_LANE
+    one = lm_tokens(mx, batch, t, cfg.vocab_size, mx.gpu(0), SEED + 30)
+    it = resident(mx, one.data[0], one.label[0], warm + timed)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    events, losses, edges = [], [], {}
+    ce = mx.metric.create("ce")
+
+    def probe(p):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        label = mod._exec_group.execs[0].arg_dict["softmax_label"]
+        total, n = ce.device_update([label], mod.get_outputs())
+        losses.append(total / n)
+        if p.nbatch in (warm - 1, warm + timed - 1):
+            torch.cuda.synchronize()
+            edges[p.nbatch] = time.perf_counter()
+            edges["acc"] = p.eval_metric.get()[1]
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(SEED)
+    kw = {} if ckpt_dir is None else dict(
+        checkpoint_dir=ckpt_dir, checkpoint_period=LM_CKPT_PERIOD,
+        checkpoint_keep_last=2)
+    with _SnapshotProbe() as snaps:
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params=lm_opt(batch, t), eval_metric="acc",
+                initializer=mx.initializer.Xavier(),
+                batch_end_callback=probe, kvstore=None, **kw)
+        wall = time.perf_counter() - t0
+    steps = warm + timed
+    fused = mod._fused_step
+    check(fused is not None and fused.steps == steps,
+          f"lm lane: the fused step ran {fused.steps if fused else 0} of "
+          f"{steps} steps")
+    loss = torch.stack(losses).cpu().numpy()
+    tokens_s = batch * t * timed / (edges[warm + timed - 1] -
+                                    edges[warm - 1])
+    step_ms = [a.elapsed_time(b) for a, b in zip(events[warm - 1:],
+                                                 events[warm:])]
+    med = statistics.median(step_ms)
+    n_params = sum(v.size for v in mod.get_params()[0].values())
+    flops = lm_train_flops(n_params, cfg, batch, t)
+    mfu = tokens_s * flops / (batch * t) / FP32_CUDA_CORE_FLOPS
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    ok = bool(np.isfinite(loss).all()) and loss[-1] < loss[0]
+    what = "no checkpoints" if ckpt_dir is None else \
+        f"checkpoints every {LM_CKPT_PERIOD} batches"
+    print(f"lm train lane fp32 batch {batch} x T {t} ({what}): {steps} "
+          f"steps through Module.fit in {wall:.2f} s ({warm} warm), fused "
+          f"step every step; {tokens_s:.1f} tokens/s over the {timed} "
+          f"timed steps; step median {med:.3f} ms (p10 "
+          f"{np.percentile(step_ms, 10):.3f}, p90 "
+          f"{np.percentile(step_ms, 90):.3f}, CUDA events); "
+          f"{n_params / 1e6:.2f} M parameters, {flops / 1e12:.3f} TFLOP a "
+          f"step; peak memory {mem:.2f} GiB [{card}]")
+    print(f"lm train lane fp32 ({what}): loss first {loss[0]:.4f}, last "
+          f"{loss[-1]:.4f}, every {' '.join(f'{v:.3f}' for v in loss[::4])}"
+          f"; train acc {edges['acc']:.4f} {'ok' if ok else 'FAIL'}")
+    print(f"mfu lm fp32{'' if ckpt_dir is None else ' checkpointed'} "
+          f"{mfu:.4f} (of {FP32_CUDA_CORE_FLOPS / 1e12:.0f} TFLOP/s) "
+          f"[{card}]")
+    check(ok, f"lm lane ({what}): loss not finite or not falling")
+    out = {"tokens_s": tokens_s, "step_ms": med, "mfu": mfu,
+           "peak_gib": mem, "flops": flops, "n_params": n_params,
+           "loss": (float(loss[0]), float(loss[-1]))}
+    if ckpt_dir is not None:
+        check(snaps.writes and snaps.sync_ms, "lm lane: no snapshot taken")
+        secs = [w[0] for w in snaps.writes]
+        nbytes = snaps.writes[-1][1]
+        parts = {k: statistics.median(w[2][k] for w in snaps.writes)
+                 for k in ("wait", "blobs", "write")}
+        out.update(sync_ms=statistics.median(snaps.sync_ms),
+                   sync_first_ms=snaps.sync_ms[0], write_s=max(secs),
+                   write_bytes=nbytes, snapshots=len(snaps.writes),
+                   write_parts=parts)
+        print(f"lm train lane checkpoints: {len(snaps.writes)} snapshots "
+              f"(every {LM_CKPT_PERIOD} batches and the epoch's end); "
+              f"the snapshot call on the host median {out['sync_ms']:.2f} "
+              f"ms (first {out['sync_first_ms']:.2f} ms, pinned buffers "
+              f"allocated; a call waits while the previous write is in "
+              f"flight); background write {min(secs):.2f}-{max(secs):.2f} "
+              f"s for {nbytes / 1e9:.3f} GB ({nbytes / 1e9 / max(secs):.2f}"
+              f" GB/s at the slowest), median parts: copies landing "
+              f"{parts['wait']:.3f} s, optimizer blob pickled "
+              f"{parts['blobs']:.3f} s, shards written and committed "
+              f"{parts['write']:.3f} s [{card}]")
+    return mod, out
+
+
+def lm_component_ms(mx, cfg, card, step_ms):
+    """Phase 10d, the parts of a step timed alone at the lane's shapes
+    (CUDA events, median of 5 after a warm call): one layer's
+    BlockwiseAttention forward and backward (x num_layers), the tied
+    head's FullyConnected and SoftmaxOutput forward and backward, and
+    the one-hot SoftmaxOutput's backward builds."""
+    from incubator_mxnet_tpu_torch.ops import registry
+    from incubator_mxnet_tpu_torch.ops.loss_output import _one_hot
+    batch, t = LM_TRAIN_LANE[:2]
+    c, v = cfg.hidden, cfg.vocab_size
+    dev = mx.gpu(0).torch_device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=gen,
+                           requires_grad=True)
+
+    attn = registry.get("BlockwiseAttention")
+    ap = attn.canonicalize_params({"num_heads": cfg.num_heads,
+                                   "causal": True})
+    fc, so = registry.get("FullyConnected"), registry.get("SoftmaxOutput")
+    fp = fc.canonicalize_params({"num_hidden": v, "no_bias": True})
+    sp = so.canonicalize_params({})
+    q, k, vv = rand(batch, t, c), rand(batch, t, c), rand(batch, t, c)
+    h, w = rand(batch * t, c), rand(v, c)
+    label = torch.randint(0, v, (batch * t,), device=dev,
+                          generator=gen).float()
+    ct = torch.randn(batch, t, c, device=dev, generator=gen)
+
+    def attention():
+        out = attn.fn(ap, q, k, vv)
+        torch.autograd.grad(out, (q, k, vv), ct)
+
+    def head():
+        out = so.fn(sp, fc.fn(fp, h, w), label)
+        torch.autograd.grad(out, (h, w), torch.ones_like(out))
+
+    def one_hot():
+        _one_hot(label.to(torch.int32), v, -1, torch.float32)
+
+    out = {}
+    for name, fn in (("attention", attention), ("head", head),
+                     ("one_hot", one_hot)):
+        fn()
+        times = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        out[name] = statistics.median(times)
+    attn_ms = out["attention"] * cfg.num_layers
+    print(f"lm train parts, alone at batch {batch} x T {t}: attention "
+          f"(BlockwiseAttention forward + backward) {out['attention']:.3f} "
+          f"ms a layer, {attn_ms:.3f} ms for {cfg.num_layers} "
+          f"({attn_ms / step_ms:.3f} of the step); the tied head and "
+          f"SoftmaxOutput forward + backward {out['head']:.3f} ms "
+          f"({out['head'] / step_ms:.3f}), of which building the "
+          f"({batch * t}, {v}) fp32 one-hot {out['one_hot']:.3f} ms "
+          f"({out['one_hot'] / step_ms:.3f}) [{card}]")
+    del q, k, vv, h, w, ct
+    torch.cuda.empty_cache()
+    return dict(out, attention_all=attn_ms)
+
+
+
+def lm_resume_child(mode, ckpt_dir, out_path):
+    """Phase 10c's child process (`python -c`): the reduced-depth LM
+    (LM_RESUME) through Module.fit on the card under
+    torch.use_deterministic_algorithms(True), from Xavier under one
+    seed, over a shuffled NDArrayIter.  `mode`: "full" (no
+    checkpoints), "kill" (SIGKILL itself once batch kill_after is done),
+    "term" (waits at batch term_after for SIGTERM, whose hook takes the
+    final snapshot and exits 143), "resume" (resume=True).  Prints
+    "STEP n" after each batch; writes the sha256 of every parameter's
+    and momentum's bytes to `out_path`."""
+    import hashlib
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.llm import lm_symbol
+    r = LM_RESUME
+    cfg = lm_train_cfg(num_layers=r["layers"])
+    n = r["batch"] * r["batches"]
+    x = np.random.RandomState(SEED + 50).randint(
+        1, cfg.vocab_size, (n, r["t"] + 1))
+    mx.random.seed(SEED)
+    np.random.seed(SEED)     # NDArrayIter shuffles with numpy's generator
+    it = mx.io.NDArrayIter(x[:, :-1].astype("f4"), x[:, 1:].astype("f4"),
+                           batch_size=r["batch"], shuffle=True,
+                           label_name="softmax_label")
+    mod = mx.mod.Module(lm_symbol(cfg), context=mx.gpu(0))
+    done = {"n": 0}
+
+    def cb(p):
+        done["n"] += 1
+        step = p.epoch * r["batches"] + p.nbatch + 1
+        print(f"STEP {step}", flush=True)
+        if mode == "kill" and step == r["kill_after"]:
+            torch.cuda.synchronize()
+            os.kill(os.getpid(), signal.SIGKILL)
+        if mode == "term" and step == r["term_after"]:
+            mgr = p.locals["ckpt_mgr"]
+            deadline = time.time() + 120
+            while not mgr.preempt_requested and time.time() < deadline:
+                time.sleep(0.02)
+
+    mod.fit(it, num_epoch=r["epochs"], optimizer="sgd",
+            optimizer_params=lm_opt(r["batch"], r["t"]), eval_metric="acc",
+            initializer=mx.initializer.Xavier(),
+            checkpoint_dir=None if mode == "full" else ckpt_dir,
+            checkpoint_period=r["period"], checkpoint_keep_last=2,
+            resume=mode == "resume", batch_end_callback=cb, kvstore=None)
+    names = mod._exec_group.param_names
+
+    def digest(a):
+        return hashlib.sha256(a.data.detach().contiguous().cpu().numpy()
+                              .tobytes()).hexdigest()
+    out = {"param:" + k: digest(v)
+           for k, v in mod.get_params()[0].items()}
+    out.update({"momentum:" + names[i]: digest(s)
+                for i, s in mod._updater.states.items()})
+    out["num_update"] = mod._optimizer.num_update
+    out["batches_run"] = done["n"]
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def lm_resume(card, workdir):
+    """Phase 10c: bitwise resume on the card across processes.  Three
+    children at once: an uninterrupted fit, a fit SIGKILLed after batch
+    kill_after, and a fit sent SIGTERM at batch term_after (it must exit
+    143 and leave a valid snapshot marked preempted); then two children
+    resume from those directories.  Every parameter and momentum of each
+    resumed fit must equal the uninterrupted fit's bit for bit."""
+    from incubator_mxnet_tpu_torch import checkpoint as ckpt
+    r = LM_RESUME
+    env = dict(os.environ, **LM_RESUME_ENV)
+    root = tempfile.mkdtemp(dir=workdir, prefix="lm-resume-")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.lm_resume_child(*sys.argv[1:]))")
+    procs = {}
+
+    def spawn(name, mode, d):
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", code, mode, d,
+             os.path.join(root, name + ".json")], cwd=here, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(name, timeout=600):
+        out, err = procs[name].communicate(timeout=timeout)
+        return procs[name].returncode, out, err
+
+    kill_dir, term_dir = (os.path.join(root, "kill"),
+                          os.path.join(root, "term"))
+    t0 = time.perf_counter()
+    try:
+        spawn("full", "full", "-")
+        spawn("kill", "kill", kill_dir)
+        spawn("term", "term", term_dir)
+        term = procs["term"]
+        seen = []
+        for line in term.stdout:
+            seen.append(line)
+            if line.strip() == f"STEP {r['term_after']}":
+                term.send_signal(signal.SIGTERM)
+                break
+        codes = {name: finish(name) for name in ("full", "kill", "term")}
+        codes["term"] = (codes["term"][0], "".join(seen) + codes["term"][1],
+                         codes["term"][2])
+        for name, want in (("full", 0), ("kill", -signal.SIGKILL),
+                           ("term", 143)):
+            rc, out, err = codes[name]
+            check(rc == want, f"10c {name}: exit {rc}, expected {want}: "
+                  f"{out[-800:]} {err[-2000:]}")
+        for d in (kill_dir, term_dir):
+            check(ckpt.latest(d) is not None, f"10c: no valid snapshot in "
+                  f"{d}")
+        last_kill = ckpt.load(ckpt.latest(kill_dir))
+        last_term = ckpt.load(ckpt.latest(term_dir))
+        check(last_term.meta.get("preempted") is True and
+              last_term.step == r["term_after"],
+              f"10c: SIGTERM's snapshot is step {last_term.step}, meta "
+              f"{last_term.meta}")
+        t1 = time.perf_counter()
+        spawn("resume_kill", "resume", kill_dir)
+        spawn("resume_term", "resume", term_dir)
+        for name in ("resume_kill", "resume_term"):
+            rc, out, err = finish(name)
+            check(rc == 0, f"10c {name}: exit {rc}: {err[-2000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = {}
+    for name in ("full", "resume_kill", "resume_term"):
+        with open(os.path.join(root, name + ".json")) as f:
+            res[name] = json.load(f)
+    total = r["batches"] * r["epochs"]
+    check(res["full"]["num_update"] == total, "10c: the full fit ran "
+          f"{res['full']['num_update']} updates")
+    arrays = [k for k in res["full"] if ":" in k]
+    for name in ("resume_kill", "resume_term"):
+        diff = [k for k in arrays if res[name][k] != res["full"][k]]
+        check(not diff and res[name]["num_update"] == total,
+              f"10c {name}: {len(diff)} of {len(arrays)} arrays differ "
+              f"from the uninterrupted fit bitwise ({diff[:4]})")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"lm resume: {r['layers']} layers at width "
+          f"{LM_CFG['hidden']} (vocab {LM_CFG['vocab_size']}), batch "
+          f"{r['batch']} x {r['t']}, {r['epochs']} epochs of "
+          f"{r['batches']} shuffled batches, snapshots every "
+          f"{r['period']} batches, deterministic algorithms "
+          f"({LM_RESUME_ENV}): SIGKILL after batch {r['kill_after']} "
+          f"(newest valid snapshot: step {last_kill.step}), resumed for "
+          f"{res['resume_kill']['batches_run']} batches; SIGTERM at batch "
+          f"{r['term_after']}: exit 143, final snapshot step "
+          f"{last_term.step} marked preempted, resumed for "
+          f"{res['resume_term']['batches_run']} batches; {len(arrays)} "
+          f"parameters and momenta of both resumed fits equal the "
+          f"uninterrupted fit's bitwise; children {t1 - t0:.1f} s + "
+          f"{time.perf_counter() - t1:.1f} s [{card}]")
+    return {"kill_step": last_kill.step, "arrays": len(arrays)}
+
+
+def lm_serve_trained(mx, cfg, mod, ckpt_dir, card):
+    """Phase 10e: the newest checkpoint of the checkpointed lane loaded
+    (`checkpoint.load`, `compat.weights.lm_params_from_numpy`) into
+    `serving.DecodeEngine`; prefills of three prompts held to the
+    trained Module's forward at each prompt's last position (the log
+    softmax, centred), and one greedy token each through the engine
+    equal to the Module's argmax where its margin is clear."""
+    from incubator_mxnet_tpu_torch import checkpoint as ckpt
+    from incubator_mxnet_tpu_torch.compat.weights import lm_params_from_numpy
+    from incubator_mxnet_tpu_torch.llm import init_kv_cache
+    data = ckpt.load(ckpt.latest(ckpt_dir))
+    params = lm_params_from_numpy(data.arrays, ctx=mx.gpu(0))
+    trained = mod.get_params()[0]
+    check(all(np.array_equal(params[k].asnumpy(), v.asnumpy())
+              for k, v in trained.items()),
+          "10e: the newest checkpoint is not the trained parameters")
+    batch, t = LM_TRAIN_LANE[:2]
+    rng = np.random.default_rng(SEED + 60)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in LM_PROMPTS]
+    x = np.zeros((batch, t), np.float32)
+    for i, p in enumerate(prompts):
+        x[i, :len(p)] = p
+    mod.forward(mx.io.DataBatch([mx.nd.array(x, ctx=mx.gpu(0))],
+                                [mx.nd.zeros((batch, t), ctx=mx.gpu(0))]),
+                is_train=False)
+    probs = mod.get_outputs()[0].data.reshape(batch, t, -1)
+    eng = mx.serving.DecodeEngine(cfg, params, slots=4, buckets=LM_BUCKETS,
+                                  name="lm-trained", ctx=mx.gpu(0))
+    worst = 0.0
+    try:
+        progs = eng.programs
+        ck, cv = init_kv_cache(cfg, 1, mx.gpu(0))
+        futs = [eng.submit(p, max_new_tokens=1) for p in prompts]
+        toks = [f.result(300)["tokens"][0] for f in futs]
+        clear = 0
+        for i, p in enumerate(prompts):
+            logits = progs.prefill(progs.params, ck, cv, lm_padded(p), 0,
+                                   len(p))[3].float().reshape(-1)
+            got = torch.log_softmax(logits, -1)
+            want = torch.log(probs[i, len(p) - 1].float() + 1e-30)
+            worst = max(worst, held(got - got.mean(), want - want.mean(),
+                                    LM_TOL, f"10e prefill of {len(p)}"))
+            if bool(lm_clear(want[None], LM_TIE)[0]):
+                clear += 1
+                check(toks[i] == int(want.argmax()),
+                      f"10e: greedy token {toks[i]} vs the Module's "
+                      f"{int(want.argmax())}")
+    finally:
+        eng.close(drain=True)
+    print(f"lm serve trained: the checkpoint of step {data.step} (equal "
+          f"to the trained parameters) in DecodeEngine; prefills of "
+          f"{'/'.join(map(str, LM_PROMPTS))} tokens vs the trained "
+          f"Module's forward: worst {worst:.3f} of rtol {LM_TOL[0]} + "
+          f"{LM_TOL[1]}*max|ref| (log softmax), greedy token equal at "
+          f"{clear} of {len(prompts)} clear margins [{card}]")
+    return worst
+
+
+def lm_train_phase(card, workdir):
+    """Phase 10; returns the numbers of the summary line.  The counts of
+    K1, K2 and K3 are set to 0 before it and must stay 0: no TPU kernel
+    is on the LM's training path."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.llm import lm_symbol
+    from incubator_mxnet_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_stream)
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    counted = (fc_relu, flash_fwd, flash_fwd_stream)
+    for wrapper in counted:
+        wrapper.launches = 0
+    cfg = lm_train_cfg()
+    sym = lm_symbol(cfg)
+    out = {}
+    t0 = time.perf_counter()
+    out["parity"] = lm_train_parity(mx, sym, card)
+    print(f"phase 10a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mod, out["lane"] = lm_train_lane(mx, sym, cfg, card)
+    one = lm_tokens(mx, *LM_TRAIN_LANE[:2], cfg.vocab_size, mx.gpu(0),
+                    SEED + 31)
+    metric = mx.metric.create("acc")
+    prof = profile_one_step(lambda: mod.fit_step(one, metric), card,
+                            "lm train profile", LM_TRAIN_LANE[0],
+                            dtype="fp32", classes=LM_TRAIN_CLASSES)
+    out["profile"] = prof
+    out["parts"] = lm_component_ms(mx, cfg, card, out["lane"]["step_ms"])
+    del mod
+    ckpt_dir = tempfile.mkdtemp(dir=workdir, prefix="lm-ckpt-")
+    try:
+        mod, out["ckpt"] = lm_train_lane(mx, sym, cfg, card,
+                                         ckpt_dir=ckpt_dir)
+        out["ckpt"]["slowdown"] = out["ckpt"]["step_ms"] / \
+            out["lane"]["step_ms"]
+        print(f"lm train lane: checkpointed step median "
+              f"{out['ckpt']['step_ms']:.3f} ms vs {out['lane']['step_ms']:.3f}"
+              f" ms without ({out['ckpt']['slowdown']:.3f}x); tokens/s "
+              f"{out['ckpt']['tokens_s']:.1f} vs {out['lane']['tokens_s']:.1f}"
+              f" [{card}]")
+        out["serve"] = lm_serve_trained(mx, cfg, mod, ckpt_dir, card)
+        del mod
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 10b/d/e: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["resume"] = lm_resume(card, workdir)
+    print(f"phase 10c: {time.perf_counter() - t0:.1f} s")
+    launches = [w.launches for w in counted]
+    print(f"lm train: K1/K2/K3 launches over phase 10: {launches} (no TPU "
+          f"kernel is on the LM's training path)")
+    check(launches == [0, 0, 0], "a K1/K2/K3 kernel ran on the LM "
+          "training path")
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -2884,6 +3611,9 @@ def main():
     t0 = time.perf_counter()
     lm = lm_phase(card, str(_build.BUILD_DIR.parent))
     print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lmt = lm_train_phase(card, str(_build.BUILD_DIR.parent))
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -2930,6 +3660,20 @@ def main():
     print(f"lm summary: parity worst {par['worst']:.3f} of the tolerance, "
           f"{par['ties']} near ties, bf16 relative L2 {par['bf16_l2']:.5f} "
           f"[{card}]")
+    lane, ck, prof = lmt["lane"], lmt["ckpt"], lmt["profile"]
+    parts = lmt["parts"]
+    print(f"lm train summary: fp32 GPT-2-small widths, batch "
+          f"{LM_TRAIN_LANE[0]} x T {LM_TRAIN_LANE[1]}: "
+          f"{lane['tokens_s']:.1f} tokens/s, step {lane['step_ms']:.3f} ms, "
+          f"mfu {lane['mfu']:.4f}, peak {lane['peak_gib']:.2f} GiB; "
+          f"checkpointed every {LM_CKPT_PERIOD}: {ck['tokens_s']:.1f} "
+          f"tokens/s ({ck['slowdown']:.3f}x step), snapshot sync "
+          f"{ck['sync_ms']:.2f} ms, write {ck['write_s']:.2f} s for "
+          f"{ck['write_bytes'] / 1e9:.3f} GB; profiled step busy "
+          f"{prof['busy']:.3f}, host {prof['host_ms']:.1f} ms; attention "
+          f"{parts['attention_all']:.2f} ms, head+SoftmaxOutput "
+          f"{parts['head']:.2f} ms (one-hot {parts['one_hot']:.2f} ms); "
+          f"resume bitwise over {lmt['resume']['arrays']} arrays [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"

@@ -28,6 +28,11 @@ serves the transformer LM: `llm` (the gluon `TransformerLM`,
 `lm_symbol`, the decode plane's prefill and step over a KV cache), the
 ``LayerNorm``, ``Embedding`` and ``slice_axis`` ops, and
 `serving.DecodeEngine`, continuous batching over the decode plane.
+Slice 8 trains the LM through `Module.fit` with elastic checkpoints:
+`checkpoint` (async snapshots through the pinned host pool of
+`storage`, atomic manifests, mid-epoch resume, the SIGTERM hook),
+`optimizer.Adam`, and the optimizer, iterator and random-stream state a
+resumed fit restores.
 
     import incubator_mxnet_tpu_torch as mx
 """
@@ -58,6 +63,8 @@ from . import module
 from . import module as mod
 from . import gluon
 from . import llm
+from . import storage
+from . import checkpoint
 from . import test_utils
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
@@ -65,4 +72,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "model", "save_checkpoint", "load_checkpoint", "serving",
            "model_zoo", "parallel", "random", "initializer", "init",
            "lr_scheduler", "optimizer", "metric", "io", "callback",
-           "executor", "module", "mod", "gluon", "llm", "test_utils"]
+           "executor", "module", "mod", "gluon", "llm", "storage",
+           "checkpoint", "test_utils"]

@@ -19,7 +19,11 @@ keys) into the port's `TransformerLM`, or into the arg dict
 `Trainer`'s optimizer states the same way (``trainer._updaters[0].
 states``, by parameter index: SGD's momentum, or ``(momentum or None,
 fp32 master weight)`` under ``multi_precision``), so both packages can
-start a step from the same parameters and optimizer state.
+start a step from the same parameters and optimizer state;
+`module_states_to_numpy` and `module_states_from_numpy` do so for a
+`Module`'s (``mod._updater.states``), which is how momenta cross between
+the packages' checkpoints (each package pickles its optimizer blob in
+its own format).
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ from ..ndarray.ndarray import array
 
 __all__ = ["params_from_numpy", "block_params_to_numpy",
            "block_params_from_numpy", "lm_params_from_numpy",
-           "trainer_states_to_numpy", "trainer_states_from_numpy"]
+           "trainer_states_to_numpy", "trainer_states_from_numpy",
+           "module_states_to_numpy", "module_states_from_numpy"]
 
 
 def _np_of(v):
@@ -103,5 +108,22 @@ def trainer_states_from_numpy(trainer, states):
     for i, state in states.items():
         ctx = trainer._params[i].list_ctx()[0]
         updater.states[i] = _map_state(
+            state, lambda v: array(_np_of(v), ctx=ctx,
+                                   dtype=_np_of(v).dtype))
+
+
+def module_states_to_numpy(mod):
+    """{parameter index: state as numpy} of a Module of either package
+    (its updater's states, indexed like its parameter names)."""
+    return {i: _map_state(s, _np_of) for i, s in mod._updater.states.items()}
+
+
+def module_states_from_numpy(mod, states):
+    """Make `states` (as `module_states_to_numpy` gives them) the port
+    Module `mod`'s optimizer states, each on its parameter's device."""
+    arrays = mod._exec_group.param_arrays
+    for i, state in states.items():
+        ctx = arrays[i][0].context
+        mod._updater.states[i] = _map_state(
             state, lambda v: array(_np_of(v), ctx=ctx,
                                    dtype=_np_of(v).dtype))

@@ -8,9 +8,11 @@ STEP=0`` turns it off) where it can take the batch, else the eager
 ``record`` / ``backward`` / ``trainer.step`` / metric update; every
 cross-cutting concern (logging, checkpoints, early stopping) is an
 `EventHandler` called at train, epoch and batch begin and end.  Batches
-move to the net's context first.  The JAX package's K-batch blocks
-(``MXNET_FUSED_STEP_BLOCK``), its h2d staging ring and its elastic
-checkpoint resume are not ported: every batch is one call.
+move to the net's context first.  `checkpoint.ElasticCheckpointHandler`
+resumes a fit mid-epoch (it sets ``_epochs_done``, ``_resume_batches``
+and ``_resume_total_epochs`` in ``train_begin``).  The JAX package's
+K-batch blocks (``MXNET_FUSED_STEP_BLOCK``) and its h2d staging ring are
+not ported: every batch is one call.
 """
 from __future__ import annotations
 
@@ -179,6 +181,7 @@ class Estimator:
         self.epoch = 0
         self.batch_idx = 0
         self._epochs_done = 0
+        self._resume_batches = 0  # set by checkpoint.ElasticCheckpointHandler
         self._fused = None
 
     def _ctx(self):
@@ -238,14 +241,27 @@ class Estimator:
         try:
             for h in handlers:
                 h.train_begin(self)
-            for self.epoch in range(self._epochs_done,
-                                    self._epochs_done + epochs):
+            end_epoch = self._epochs_done + epochs
+            if getattr(self, "_resume_total_epochs", False):
+                # a resumed run relaunches the same command: `epochs` is
+                # the total, not more epochs on top of the restored ones
+                self._resume_total_epochs = False
+                end_epoch = max(epochs, self._epochs_done)
+            for self.epoch in range(self._epochs_done, end_epoch):
                 for m in self.train_metrics:
                     m.reset()
                 for h in handlers:
                     h.epoch_begin(self)
                 self.batch_idx = 0
-                for data, label in train_data:
+                data_iter = iter(train_data)
+                # mid-epoch resume: skip the batches the restored state
+                # already trained on
+                skip, self._resume_batches = int(self._resume_batches), 0
+                for _ in range(skip):
+                    if next(data_iter, None) is None:
+                        break
+                    self.batch_idx += 1
+                for data, label in data_iter:
                     data, label = self._place(data, label)
                     for h in handlers:
                         h.batch_begin(self)

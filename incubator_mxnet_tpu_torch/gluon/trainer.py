@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from ..base import MXNetError
 from .. import optimizer as opt
+from ..optimizer import states_on_ctx as _on_ctx
 from .parameter import ParameterDict, Parameter
 
 __all__ = ["Trainer"]
@@ -110,16 +111,29 @@ class Trainer:
                 [i for i, _ in live], [p.list_grad()[0] for _, p in live],
                 [p.list_data()[0] for _, p in live])
 
+    def get_checkpoint_state(self):
+        """The updater's states (host arrays) and the pickled optimizer
+        (update counts, learning-rate schedule) as one bytes blob, what an
+        elastic checkpoint stores per Trainer (`checkpoint/state.py`)."""
+        return self._updaters[0].get_states(dump_optimizer=True)
+
+    def set_checkpoint_state(self, blob):
+        """Restore a `get_checkpoint_state` blob: its states, each on its
+        parameter's context, and its optimizer replace the trainer's."""
+        updater = self._updaters[0]
+        updater.set_states(blob)
+        for i, state in updater.states.items():
+            updater.states[i] = _on_ctx(state,
+                                        self._params[i].list_ctx()[0])
+        self._optimizer = updater.optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))
+
     def save_states(self, fname):
-        """The updater's states and the optimizer (update counts, learning
-        rate schedule) to `fname`."""
+        """`get_checkpoint_state` to `fname`."""
         with open(fname, "wb") as f:
-            f.write(self._updaters[0].get_states(dump_optimizer=True))
+            f.write(self.get_checkpoint_state())
 
     def load_states(self, fname):
-        """Restore `save_states`' file: the states and the optimizer it
-        holds replace the trainer's."""
+        """Restore `save_states`' file."""
         with open(fname, "rb") as f:
-            self._updaters[0].set_states(f.read())
-        self._optimizer = self._updaters[0].optimizer
-        self._optimizer.param_dict = dict(enumerate(self._params))
+            self.set_checkpoint_state(f.read())

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as _np
 
+from .base import MXNetError
 from .context import cpu
 from .ndarray.ndarray import NDArray, array
 
@@ -97,6 +98,22 @@ class DataIter:
     def getpad(self):
         raise NotImplementedError
 
+    # -- checkpoint/resume support (checkpoint/state.py) -----------------------
+    def seek(self, nbatch):
+        """Position so the next batch is batch `nbatch` of the epoch:
+        reset, then skip."""
+        self.reset()
+        for _ in range(int(nbatch)):
+            self.next()
+
+    def checkpoint_state(self):
+        """Epoch-internal state a checkpoint must carry beyond the batch
+        counter (a shuffle permutation); empty: resume uses `seek`."""
+        return {}
+
+    def set_checkpoint_state(self, state, nbatch=0):
+        self.seek(nbatch)
+
 
 class NDArrayIter(DataIter):
     """Iterate over in-memory arrays (reference `io.py NDArrayIter`):
@@ -139,6 +156,10 @@ class NDArrayIter(DataIter):
             self.cursor = self.num_data + self.cursor
         else:
             self.cursor = -self.batch_size
+        # batch n of this epoch starts at _epoch_cursor0 + (n + 1) *
+        # batch_size: a roll_over epoch begins mid-stride, with the
+        # samples the last one carried, and `seek` anchors here
+        self._epoch_cursor0 = self.cursor
 
     def iter_next(self):
         self.cursor += self.batch_size
@@ -175,6 +196,31 @@ class NDArrayIter(DataIter):
                 self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+    def seek(self, nbatch):
+        """Cursor arithmetic from the epoch-start cursor; no data is
+        touched."""
+        self.cursor = self._epoch_cursor0 + int(nbatch) * self.batch_size
+
+    def checkpoint_state(self):
+        # the shuffle permutation is the epoch's batch order; the
+        # epoch-start cursor carries roll_over's alignment
+        return {"idx": self.idx.copy(),
+                "epoch_cursor0": int(self._epoch_cursor0)}
+
+    def set_checkpoint_state(self, state, nbatch=0):
+        idx = state.get("idx")
+        if idx is not None:
+            idx = _np.asarray(idx)
+            if idx.shape != self.idx.shape:
+                raise MXNetError(
+                    f"checkpoint iterator order has {idx.shape[0]} samples, "
+                    f"this iterator has {self.idx.shape[0]} — resuming "
+                    "against a different dataset?")
+            self.idx = idx
+        if "epoch_cursor0" in state:
+            self._epoch_cursor0 = int(state["epoch_cursor0"])
+        self.seek(nbatch)
 
 
 def _init_data(data, allow_empty, default_name):

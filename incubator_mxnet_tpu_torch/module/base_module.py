@@ -5,10 +5,13 @@ PyTorch port of `incubator_mxnet_tpu/module/base_module.py`.  `fit` is the
 per-batch loop of the JAX package's `_fit_epochs`: one `fit_step` per
 batch (`Module`'s runs the fused train step where it can, else
 `forward_backward`, `update` and `update_metric`), the batch-end
-callbacks after each.  The planes the JAX `fit` wraps around that loop
-are not ported (README "Declared divergences"): the fused step's K-step
-blocks, the training guardian, the h2d staging ring, the supervisor,
-the program cache and elastic checkpoints (``checkpoint_dir`` raises).
+callbacks after each, and the elastic checkpoints of `_fit_attempt`
+(``checkpoint_dir``, ``checkpoint_period``, ``checkpoint_keep_last``,
+``resume``; `checkpoint/`).  The other planes the JAX `fit` wraps around
+that loop are not ported (README "Declared divergences"): the fused
+step's K-step blocks, the training guardian and its rollback, the h2d
+staging ring, the supervisor, the program cache, failover after a lost
+server and shrink-and-resume (``max_restarts``, ``mesh``).
 """
 from __future__ import annotations
 
@@ -130,19 +133,57 @@ class BaseModule:
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
-            monitor=None, checkpoint_dir=None):
+            monitor=None, checkpoint_dir=None, checkpoint_period=100,
+            checkpoint_keep_last=5, resume=False):
         """The classic training loop (reference `base_module.py fit`):
         bind, init_params, init_optimizer, then per epoch one
         `fit_step` and the batch-end callbacks per batch, the epoch-end
-        callbacks, and `score` on `eval_data`."""
+        callbacks, and `score` on `eval_data`.
+
+        Elastic checkpoints (`checkpoint/`): with a ``checkpoint_dir``
+        the loop snapshots the parameters, aux states, optimizer states,
+        iterator position and random streams every ``checkpoint_period``
+        processed batches and at each epoch's end, asynchronously,
+        keeping the newest ``checkpoint_keep_last``; SIGTERM takes one
+        final synchronous snapshot at the next batch boundary and exits
+        143.  ``resume=True`` restarts from the newest valid checkpoint
+        in that directory, mid-epoch, bit-identical to a run that was
+        never stopped; a fresh run refuses a directory that holds
+        another run's checkpoints."""
         assert num_epoch is not None, "please specify number of epochs"
-        if checkpoint_dir is not None:
-            raise MXNetError("fit: elastic checkpoints (checkpoint_dir) are "
-                             "not ported; save with epoch_end_callback="
-                             "callback.do_checkpoint(prefix)")
         if monitor is not None:
             raise MXNetError("fit: monitors are not ported")
         from ..initializer import Uniform
+        ckpt_resume = None
+        resume_nbatch = 0
+        gstep = 0
+        if checkpoint_dir is not None:
+            from .. import checkpoint as _ckpt
+            if resume:
+                path = _ckpt.latest(checkpoint_dir)
+                ckpt_resume = _ckpt.load(path) if path is not None else None
+            elif _ckpt.latest(checkpoint_dir, deep=False,
+                              include_rejected=True) is not None:
+                # the old run's higher step numbers would win latest()
+                # after this run's first crash, and resume would silently
+                # continue the abandoned run
+                raise MXNetError(
+                    f"checkpoint_dir {checkpoint_dir!r} already holds "
+                    "checkpoints from a previous run; pass resume=True to "
+                    "continue it, or point a fresh run at a fresh "
+                    "directory (or delete the old checkpoints)")
+            if ckpt_resume is not None:
+                self.logger.info("resuming from %s (step %d, epoch %d, "
+                                 "batch %d)", ckpt_resume.path,
+                                 ckpt_resume.step, ckpt_resume.epoch,
+                                 ckpt_resume.nbatch)
+                arg_params, aux_params = _ckpt.state.split_params(
+                    ckpt_resume.arrays)
+                allow_missing = False
+                force_init = True
+                begin_epoch = ckpt_resume.epoch
+                resume_nbatch = ckpt_resume.nbatch
+                gstep = ckpt_resume.step
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -151,15 +192,56 @@ class BaseModule:
                          allow_missing=allow_missing, force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        ckpt_mgr = None
+        if checkpoint_dir is not None:
+            ckpt_mgr = _ckpt.CheckpointManager(
+                checkpoint_dir, keep_last=checkpoint_keep_last)
+        if ckpt_resume is not None:
+            # rebuilds the fused step around the restored optimizer
+            _ckpt.state.restore_module_optimizer(
+                self, ckpt_resume.blobs.get(_ckpt.state.OPTIMIZER_BLOB))
+            _ckpt.state.restore_rng(ckpt_resume.rng)
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
+        if ckpt_mgr is not None:
+            ckpt_mgr.install_preemption_hook()
+        try:
+            self._fit_epochs(
+                train_data, eval_data, eval_metric, validation_metric,
+                epoch_end_callback, batch_end_callback, eval_end_callback,
+                eval_batch_end_callback, begin_epoch, num_epoch, ckpt_mgr,
+                ckpt_resume, resume_nbatch, gstep, checkpoint_period)
+        finally:
+            if ckpt_mgr is not None:
+                try:
+                    ckpt_mgr.flush()
+                finally:
+                    ckpt_mgr.close()
 
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, epoch_end_callback,
+                    batch_end_callback, eval_end_callback,
+                    eval_batch_end_callback, begin_epoch, num_epoch,
+                    ckpt_mgr, ckpt_resume, resume_nbatch, gstep,
+                    checkpoint_period):
+        last_snap_step = gstep
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
-            for nbatch, data_batch in enumerate(train_data):
+            nbatch = 0
+            if ckpt_resume is not None and epoch == begin_epoch:
+                # continue mid-epoch: the iterator's own order and
+                # position where it has them, reset + skip otherwise;
+                # the train metric counts from here
+                from .. import checkpoint as _ckpt
+                _ckpt.state.restore_iterator(
+                    train_data,
+                    ckpt_resume.blobs.get(_ckpt.state.ITERATOR_BLOB),
+                    resume_nbatch)
+                nbatch = resume_nbatch
+            for data_batch in train_data:
                 self.fit_step(data_batch, eval_metric)
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
@@ -167,6 +249,19 @@ class BaseModule:
                                            locals=locals())
                     for callback in _as_list(batch_end_callback):
                         callback(params)
+                nbatch += 1
+                gstep += 1
+                if ckpt_mgr is not None:
+                    # batch boundary: parameters and (epoch, nbatch, step)
+                    # agree, the only place a snapshot may be taken
+                    ckpt_mgr.honor_preemption(
+                        lambda: self._elastic_snapshot(
+                            ckpt_mgr, train_data, epoch, nbatch, gstep,
+                            sync=True, meta={"preempted": True}))
+                    if gstep - last_snap_step >= checkpoint_period:
+                        self._elastic_snapshot(ckpt_mgr, train_data, epoch,
+                                               nbatch, gstep)
+                        last_snap_step = gstep
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -184,6 +279,31 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+            if ckpt_mgr is not None:
+                # after the reset, so the next epoch's shuffle order
+                # travels with the snapshot
+                self._elastic_snapshot(ckpt_mgr, train_data, epoch + 1, 0,
+                                       gstep)
+                last_snap_step = gstep
+                ckpt_mgr.honor_preemption(
+                    lambda: self._elastic_snapshot(
+                        ckpt_mgr, train_data, epoch + 1, 0, gstep,
+                        sync=True, meta={"preempted": True}))
+
+    def _elastic_snapshot(self, mgr, train_data, epoch, nbatch, step,
+                          sync=False, meta=None):
+        """Stage one elastic checkpoint: device-to-host copies queued on
+        the train step's stream, serialization and the atomic commit in
+        the background (`checkpoint/`)."""
+        from .. import checkpoint as _ckpt
+        arrays, blobs, staged = _ckpt.state.capture_module(self,
+                                                           train_data)
+        meta = dict(meta or {})
+        optimizer = getattr(self, "_optimizer", None)
+        if optimizer is not None:
+            meta["optimizer"] = optimizer.state_dict()
+        mgr.snapshot(arrays=arrays, blobs=blobs, step=step, epoch=epoch,
+                     nbatch=nbatch, sync=sync, meta=meta, staged=staged)
 
     # -- properties / abstract -------------------------------------------------
     @property

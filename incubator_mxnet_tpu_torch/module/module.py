@@ -22,6 +22,7 @@ from ..base import MXNetError
 from ..context import Context, cpu, current_context
 from ..initializer import Uniform, InitDesc
 from .. import optimizer as opt
+from ..optimizer import states_on_ctx as _on_ctx
 from ..model import _create_kvstore, load_checkpoint, save_checkpoint
 from .. import ndarray as nd
 from .base_module import BaseModule
@@ -311,14 +312,33 @@ class Module(BaseModule):
         self._params_dirty = False
 
     def save_optimizer_states(self, fname):
-        assert self.optimizer_initialized
         with open(fname, "wb") as fout:
-            fout.write(self._updater.get_states(dump_optimizer=True))
+            fout.write(self.get_optimizer_states_blob())
 
     def load_optimizer_states(self, fname):
-        assert self.optimizer_initialized
         with open(fname, "rb") as fin:
-            self._updater.set_states(fin.read())
+            self.set_optimizer_states_blob(fin.read())
+
+    def get_optimizer_states_blob(self):
+        """The updater's states and the pickled optimizer (update counts,
+        the learning-rate schedule's position) as one bytes blob, the
+        states as host arrays."""
+        assert self.optimizer_initialized
+        return self._updater.get_states(dump_optimizer=True)
+
+    def set_optimizer_states_blob(self, blob):
+        """Restore a `get_optimizer_states_blob` blob: each state moves to
+        its parameter's device, the optimizer it carries becomes the
+        module's, and the fused step is rebuilt around it."""
+        assert self.optimizer_initialized
+        self._updater.set_states(blob)
+        group = self._exec_group
+        for i, state in self._updater.states.items():
+            self._updater.states[i] = _on_ctx(
+                state, group.param_arrays[i][0].context)
         restored = self._updater.optimizer
         if isinstance(restored, opt.Optimizer):
             self._optimizer = restored
+        if self._fused_step is not None:
+            from ..fused import FusedTrainStep
+            self._fused_step = FusedTrainStep(self, self._updater)

@@ -7,7 +7,7 @@ from .ndarray import (NDArray, invoke, imperative_invoke, array, zeros, ones,
                       full, empty, arange, concatenate, waitall)
 from .utils import save, load
 from ..ops.optimizer_ops import (sgd_update, sgd_mom_update, mp_sgd_update,
-                                 mp_sgd_mom_update)
+                                 mp_sgd_mom_update, adam_update)
 from . import register as _register
 
 _register.populate(_sys.modules[__name__])
@@ -15,4 +15,4 @@ _register.populate(_sys.modules[__name__])
 __all__ = ["NDArray", "invoke", "imperative_invoke", "array", "zeros",
            "ones", "full", "empty", "arange", "concatenate", "waitall",
            "save", "load", "sgd_update", "sgd_mom_update", "mp_sgd_update",
-           "mp_sgd_mom_update"]
+           "mp_sgd_mom_update", "adam_update"]

@@ -42,6 +42,21 @@ def _ctx_of(tensor):
     return cpu()
 
 
+def _unpickle(data, device_type, device_id):
+    """An unpickled NDArray (`data`: a numpy array or a CPU tensor) on its
+    recorded context, or on the CPU when this machine lacks that card."""
+    ctx = Context(device_type, device_id)
+    if device_type == "gpu" and not (
+            torch.cuda.is_available() and
+            device_id < torch.cuda.device_count()):
+        ctx = cpu()
+    if isinstance(data, _np.ndarray):
+        # an out-of-band buffer may be a read-only view of the blob
+        data = torch.from_numpy(data if data.flags.writeable
+                                else data.copy())
+    return NDArray(data.to(ctx.torch_device), ctx=ctx)
+
+
 class NDArray:
     __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "__weakref__")
 
@@ -119,6 +134,16 @@ class NDArray:
             raise ValueError("The truth value of an NDArray with multiple "
                              "elements is ambiguous.")
         return bool(self.asscalar())
+
+    def __reduce__(self):
+        # the elements on the host and the context's name: a pickle
+        # written on the card (optimizer states, checkpoints) loads where
+        # there is no card, on the CPU (`_unpickle`).  A numpy array
+        # pickles its elements in one copy; bfloat16, which numpy lacks,
+        # goes as a compact CPU tensor
+        t = self._data.detach().cpu()
+        data = t.clone() if t.dtype == torch.bfloat16 else t.numpy()
+        return _unpickle, (data, self._ctx.device_type, self._ctx.device_id)
 
     def as_in_context(self, ctx):
         if ctx == self._ctx:

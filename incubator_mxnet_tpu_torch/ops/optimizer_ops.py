@@ -1,7 +1,8 @@
 """Optimizer update ops (reference `src/operator/optimizer_op.cc`).
 
-PyTorch port of `sgd_update`, `sgd_mom_update`, `mp_sgd_update` and
-`mp_sgd_mom_update` in `incubator_mxnet_tpu/ops/optimizer_ops.py`.  The
+PyTorch port of `sgd_update`, `sgd_mom_update`, `mp_sgd_update`,
+`mp_sgd_mom_update` and `adam_update` in
+`incubator_mxnet_tpu/ops/optimizer_ops.py`.  The
 JAX ops return new arrays that the caller writes back; here each runs in
 place under `torch.no_grad()`: the weight and the state tensors
 (momentum, the fp32 master weight) are overwritten.  The gradient is
@@ -23,8 +24,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["sgd_update_", "sgd_mom_update_", "mp_sgd_update_",
-           "mp_sgd_mom_update_", "multi_sgd_update_", "sgd_update", "sgd_mom_update",
-           "mp_sgd_update", "mp_sgd_mom_update"]
+           "mp_sgd_mom_update_", "multi_sgd_update_", "adam_update_",
+           "sgd_update", "sgd_mom_update", "mp_sgd_update",
+           "mp_sgd_mom_update", "adam_update"]
 
 
 def _prep_grad(grad, rescale, clip):
@@ -104,6 +106,20 @@ def multi_sgd_update_(weights, grads, lrs, wds, moms=None, weights32=None,
         torch._foreach_copy_(weights, weights32)
 
 
+@torch.no_grad()
+def adam_update_(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """g = grad + wd * weight; mean = beta1 * mean + (1 - beta1) * g;
+    var = beta2 * var + (1 - beta2) * g^2; weight -= lr * mean /
+    (sqrt(var) + epsilon) (the caller folds the bias correction into
+    `lr`, as `optimizer.Adam` does)."""
+    g = _prep_grad(grad, rescale_grad, clip_gradient).to(weight.dtype) + \
+        wd * weight
+    mean.mul_(beta1).add_((1 - beta1) * g)
+    var.mul_(beta2).add_((1 - beta2) * g.square())
+    weight.sub_(lr * mean / (var.sqrt() + epsilon))
+
+
 # -- nd frontends ------------------------------------------------------------
 
 def _out(weight, out):
@@ -144,4 +160,13 @@ def mp_sgd_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
     out = _out(weight, out)
     mp_sgd_mom_update_(out.data, grad.data, mom.data, weight32.data, lr,
                        momentum, wd, rescale_grad, clip_gradient)
+    return out
+
+
+def adam_update(weight, grad, mean, var, lr=0.01, beta1=0.9, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                lazy_update=True, out=None):
+    out = _out(weight, out)
+    adam_update_(out.data, grad.data, mean.data, var.data, lr, beta1, beta2,
+                 epsilon, wd, rescale_grad, clip_gradient)
     return out

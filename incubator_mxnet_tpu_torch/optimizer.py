@@ -2,17 +2,26 @@
 
 PyTorch port of the `Optimizer` base and registry, `SGD` (with momentum
 and ``multi_precision``: fp32 master weights for fp16/bf16 parameters),
-`Updater`, `get_updater` and `create` from
-`incubator_mxnet_tpu/optimizer.py`.  `SGD.update` runs the in-place update
-ops of `ops/optimizer_ops.py`.  `update_multi` updates many parameters
-in one call (what the fused train step runs); `SGD`'s is the
+`Adam` (dense gradients; the JAX package's lazy row-sparse update has no
+counterpart, the port has no sparse gradients), `Updater`, `get_updater`
+and `create` from `incubator_mxnet_tpu/optimizer.py`.  `SGD.update` and
+`Adam.update` run the in-place update ops of `ops/optimizer_ops.py`.
+`state_dict` / `load_state_dict` carry the scalar position (update
+counts, the learning-rate schedule) a checkpoint's manifest records;
+`Updater.get_states` pickles the states as host arrays that load on a
+machine without the card (`NDArray.__reduce__`), and `dumps_states` /
+`loads_states` write and read them with the arrays out of band (the
+elastic checkpoint's optimizer blob).  `update_multi` updates many
+parameters in one call (what the fused train step runs); `SGD`'s is the
 multi-tensor update, which gives the per-parameter results.  The other
 optimizers of the JAX package are not ported yet.
 """
 from __future__ import annotations
 
 import pickle
+import struct
 
+import numpy as _np
 import torch
 
 from .base import MXNetError
@@ -20,7 +29,7 @@ from .ndarray.ndarray import NDArray
 from . import ndarray as nd
 from .ops.optimizer_ops import multi_sgd_update_
 
-__all__ = ["Optimizer", "SGD", "Updater", "get_updater", "create",
+__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
            "register"]
 
 
@@ -149,6 +158,29 @@ class Optimizer:
             return self.wd * self.param_dict[index].wd_mult
         return self.wd * self._mult(index, self.wd_mult)
 
+    def state_dict(self):
+        """The optimizer's scalar state: update counts and the schedule's
+        position (the tensors live in `Updater.states`)."""
+        d = {"num_update": int(self.num_update),
+             "begin_num_update": int(self.begin_num_update),
+             "index_update_count": {str(k): int(v) for k, v in
+                                    self._index_update_count.items()}}
+        if self.lr_scheduler is not None:
+            d["lr_scheduler"] = self.lr_scheduler.state_dict()
+        return d
+
+    def load_state_dict(self, d):
+        self.num_update = int(d.get("num_update", self.num_update))
+        self.begin_num_update = int(d.get("begin_num_update",
+                                          self.begin_num_update))
+        counts = d.get("index_update_count")
+        if counts is not None:
+            self._index_update_count = {
+                (int(k) if str(k).lstrip("-").isdigit() else k): int(v)
+                for k, v in counts.items()}
+        if self.lr_scheduler is not None and d.get("lr_scheduler"):
+            self.lr_scheduler.load_state_dict(d["lr_scheduler"])
+
     def __getstate__(self):
         state = self.__dict__.copy()
         state.pop("param_dict", None)   # the Parameters stay with the caller
@@ -249,6 +281,38 @@ class SGD(Optimizer):
             self.update(index, weight, grad, state)
 
 
+@register
+class Adam(Optimizer):
+    """Adam with the bias correction folded into the learning rate
+    (reference `optimizer.py Adam`)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        return (nd.zeros(weight.shape, ctx=weight.context,
+                         dtype=weight.data.dtype),
+                nd.zeros(weight.shape, ctx=weight.context,
+                         dtype=weight.data.dtype))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        t = self._index_update_count[index]
+        lr = lr * (1.0 - self.beta2 ** t) ** 0.5 / (1.0 - self.beta1 ** t)
+        mean, var = state
+        nd.adam_update(weight, grad, mean, var, lr=lr, wd=wd,
+                       beta1=self.beta1, beta2=self.beta2,
+                       epsilon=self.epsilon, rescale_grad=self.rescale_grad,
+                       clip_gradient=_clip(self.clip_gradient), out=weight)
+
+
 create = Optimizer.create_optimizer
 
 
@@ -277,8 +341,8 @@ class Updater:
                                     [self.states[i] for i in indices])
 
     def set_states(self, states):
-        states = pickle.loads(states) if isinstance(states, bytes) \
-            else states
+        states = loads_states(states) if isinstance(
+            states, (bytes, bytearray, memoryview)) else states
         if isinstance(states, tuple) and len(states) == 2:
             self.states, self.optimizer = states
         else:
@@ -287,6 +351,66 @@ class Updater:
     def get_states(self, dump_optimizer=False):
         return pickle.dumps((self.states, self.optimizer) if dump_optimizer
                             else self.states)
+
+
+_OOB_MAGIC = b"MXOOB1\n"
+_OOB_HDR = struct.Struct("<Q")
+
+
+def dumps_states(obj, payload=None):
+    """`obj` (an updater's (states, optimizer)) as blob parts: a pickle
+    whose arrays go out of band, ``MAGIC | u64 n | pickle((lengths,
+    stream)) of n bytes | the arrays' bytes``.  `payload`, when it holds
+    exactly those bytes back to back (`checkpoint.snapshot.Staged`), is
+    the last part itself; else each array's buffer is.  `loads_states`
+    reads it, and plain pickles."""
+    bufs = []
+    stream = pickle.dumps(obj, protocol=5, buffer_callback=bufs.append)
+    raws = [b.raw() for b in bufs]
+    lengths = [len(r) for r in raws]
+    head = pickle.dumps((lengths, stream), protocol=5)
+    if payload is not None and _back_to_back(raws, payload):
+        raws = [payload]
+    return [_OOB_MAGIC, _OOB_HDR.pack(len(head)), head] + raws
+
+
+def _back_to_back(views, payload):
+    """Whether the non-empty `views` lie in `payload` one after another,
+    filling it."""
+    def addr(v):
+        return _np.frombuffer(v, _np.uint8).ctypes.data
+    at, end = addr(payload), addr(payload) + len(payload)
+    for v in views:
+        if len(v):
+            if addr(v) != at:
+                return False
+            at += len(v)
+    return at == end
+
+
+def loads_states(blob):
+    """Read a `dumps_states` blob or a plain pickle."""
+    if bytes(blob[:len(_OOB_MAGIC)]) != _OOB_MAGIC:
+        return pickle.loads(blob)
+    view = memoryview(blob)
+    at = len(_OOB_MAGIC)
+    n = _OOB_HDR.unpack(view[at:at + _OOB_HDR.size])[0]
+    at += _OOB_HDR.size
+    lengths, stream = pickle.loads(view[at:at + n])
+    at += n
+    bufs = []
+    for length in lengths:
+        bufs.append(view[at:at + length])
+        at += length
+    return pickle.loads(stream, buffers=bufs)
+
+
+def states_on_ctx(state, ctx):
+    """An optimizer state (an NDArray, a tuple of them and Nones, or
+    None) on `ctx`."""
+    if isinstance(state, (tuple, list)):
+        return type(state)(states_on_ctx(s, ctx) for s in state)
+    return state.as_in_context(ctx) if state is not None else None
 
 
 def get_updater(optimizer):

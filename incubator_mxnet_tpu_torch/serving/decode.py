@@ -27,8 +27,8 @@ engine fails its queued and in-flight futures with `ReplicaLostError`,
 the router's failover trigger.  Declared divergences from the JAX
 package: plain `threading` locks for `analysis.locks`; no `obs` spans
 and no telemetry producer; the signature counts of `DecodePrograms` for
-the recompile auditor; ``swap(checkpoint_dir=...)`` raises (elastic
-checkpoints are not ported), ``swap(arg_params=...)`` works.
+the recompile auditor.  ``swap`` takes ``arg_params`` or an elastic
+``checkpoint_dir`` (the newest valid checkpoint's ``arg:`` arrays).
 """
 from __future__ import annotations
 
@@ -464,10 +464,9 @@ class DecodeReplica(Replica):
 
     def swap(self, arg_params=None, aux_params=None, checkpoint_dir=None):
         from ..llm import stack_lm_params
+        from .replica import _load_checkpoint_params
         if checkpoint_dir is not None:
-            raise MXNetError(
-                "DecodeReplica.swap: elastic checkpoint directories "
-                "(checkpoint/) are not ported; pass arg_params")
+            arg_params, _ = _load_checkpoint_params(checkpoint_dir)
         if arg_params is None:
             raise MXNetError("DecodeReplica.swap: no parameter source")
         stacked = stack_lm_params(arg_params, self._cfg, ctx=self.engine.ctx)

@@ -3,8 +3,9 @@
 PyTorch port of the contract part of `incubator_mxnet_tpu/serving/
 replica.py`: the `Replica` base and `ReplicaLostError`, which the decode
 engine's `DecodeReplica` implements and raises.  The concrete replicas
-(`LocalReplica`, `RemoteReplica` over worker processes) and checkpoint
-swaps wait for the router and fleet (ROADMAP.md, Queue 1 item 14).
+(`LocalReplica`, `RemoteReplica` over worker processes) wait for the
+router and fleet (ROADMAP.md, Queue 1 item 14); `_load_checkpoint_params`
+is the checkpoint swap's parameter source.
 
 The contract a router relies on:
 
@@ -20,6 +21,8 @@ The contract a router relies on:
   dispatch and priority shedding.
 """
 from __future__ import annotations
+
+import os
 
 from ..base import MXNetError
 
@@ -71,3 +74,20 @@ class Replica:
 
     def close(self, drain=True):
         pass
+
+
+def _load_checkpoint_params(checkpoint_dir):
+    """(arg_params, aux_params) of the newest VALID elastic checkpoint
+    under `checkpoint_dir`, or of that checkpoint directory itself (torn
+    checkpoints are never selected)."""
+    from ..checkpoint import load as _load, latest as _latest
+    from ..checkpoint.state import split_params
+    path = checkpoint_dir
+    if not os.path.exists(os.path.join(path, "manifest.json")):
+        found = _latest(path)
+        if found is None:
+            raise MXNetError(
+                f"replica swap: no valid checkpoint under "
+                f"{checkpoint_dir!r} (torn checkpoints are never selected)")
+        path = found
+    return split_params(_load(path).arrays)

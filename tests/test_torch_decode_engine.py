@@ -214,7 +214,7 @@ def test_close_drains_then_refuses():
         eng.submit([1], max_new_tokens=2)
 
 
-def test_replica_swap_adds_no_signature_and_bumps_version():
+def test_replica_swap_adds_no_signature_and_bumps_version(tmp_path):
     cfg = _cfg()
     rep = DecodeReplica(cfg, _params(cfg), replica_id="swap0",
                         slots=2, buckets=BUCKETS, ctx=CPU)
@@ -227,9 +227,18 @@ def test_replica_swap_adds_no_signature_and_bumps_version():
         assert rep.probe()["tokens"]   # serves on the new weights
         assert rep.engine.programs.compile_count() == before
         assert rep.stats()["version"] == 1
-        with pytest.raises(tmx.MXNetError, match="checkpoint/"):
+        with pytest.raises(tmx.MXNetError, match="no valid checkpoint"):
             rep.swap(checkpoint_dir="/nonexistent")
         assert first and rep.version == 1
+        # an elastic checkpoint directory: its newest valid arg: arrays
+        from incubator_mxnet_tpu_torch import checkpoint
+        arrays = {"arg:" + k: v for k, v in _params(cfg, seed=7).items()}
+        mgr = checkpoint.CheckpointManager(str(tmp_path))
+        mgr.snapshot(arrays=arrays, step=3, sync=True)
+        mgr.close()
+        assert rep.swap(checkpoint_dir=str(tmp_path)) == 2
+        assert rep.probe()["tokens"]
+        assert rep.engine.programs.compile_count() == before
     finally:
         rep.close(drain=False)
     with pytest.raises(ReplicaLostError):

@@ -5,7 +5,9 @@ the kernels on mixed operand dtypes; a few `Module` steps of the MNIST
 mlp on the card against the CPU; BatchNorm and fused train steps of a
 thumbnail ResNet on the card against the CPU; the plain gluon loop on a
 hybridized thumbnail ResNet v2 on the card against the CPU, and the
-fused gluon step against the eager loop on the card.
+fused gluon step against the eager loop on the card; the checkpoint
+plane's pinned staging ordered before the next in-place update, and an
+optimizer blob written on the card loading where there is none.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -988,3 +990,63 @@ def test_lm_decode_plane_on_card_matches_the_cpu(dtype):
                                        atol=1e-5 * a.abs().max().item())
         else:
             assert (b - a).norm() <= 2.0 ** -6 * a.norm()
+
+
+@pytest.mark.cuda
+def test_snapshot_staging_is_ordered_before_the_next_update():
+    """`checkpoint.snapshot.gather_to_pool` copies card tensors into
+    pinned host buffers on the current stream: an in-place update queued
+    right after it (as the next train step's SGD is) cannot reach the
+    staged bytes, and `wait()` returns once they landed."""
+    _need_card()
+    from incubator_mxnet_tpu_torch.checkpoint.snapshot import gather_to_pool
+    from incubator_mxnet_tpu_torch.storage import HostStagingPool
+    pool = HostStagingPool(pin=True)
+    w = torch.randn(4096, 4096, device="cuda")
+    big = torch.randn(8192, 8192, device="cuda")
+    want = w.cpu()
+    big @ big                       # keep the stream busy
+    staged = gather_to_pool({"w": w, "b": w.to(torch.bfloat16)}, pool)
+    w.mul_(-3.0).add_(1.0)          # the next step's in-place update
+    staged.wait()
+    assert staged.arrays["w"].is_pinned()
+    assert torch.equal(staged.arrays["w"], want)
+    assert torch.equal(staged.arrays["b"], want.to(torch.bfloat16))
+    staged.release()
+    assert pool.stats()["held_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_card_optimizer_blob_loads_without_a_card(tmp_path):
+    """A Module's optimizer blob written on the card unpickles in a
+    process that sees no card, its states on the CPU."""
+    _need_card()
+    import os
+    import sys
+    import incubator_mxnet_tpu_torch as mx
+    s = mx.sym
+    net = s.SoftmaxOutput(s.FullyConnected(s.Variable("data"),
+                                           num_hidden=4, name="fc"),
+                          name="softmax")
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind([("data", (8, 6))], [("softmax_label", (8,))])
+    mod.init_params()
+    mod.init_optimizer(optimizer_params={"learning_rate": 0.1,
+                                         "momentum": 0.9})
+    batch = mx.io.DataBatch([mx.nd.ones((8, 6), ctx=mx.gpu(0))],
+                            [mx.nd.zeros((8,), ctx=mx.gpu(0))])
+    mod.forward_backward(batch)
+    mod.update()
+    path = tmp_path / "opt.bin"
+    path.write_bytes(mod.get_optimizer_states_blob())
+    code = ("import pickle, sys; states, opt = pickle.loads(open(sys.argv[1],"
+            " 'rb').read()); print(sorted({str(s.context) for s in "
+            "states.values()}), opt.num_update)")
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-c", "import incubator_mxnet_tpu_torch; " + code,
+         str(path)], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                 PYTHONPATH=str(root)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["['cpu(0)']", "1"]

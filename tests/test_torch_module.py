@@ -274,10 +274,12 @@ def test_module_without_context_needs_the_card(monkeypatch):
 
 
 def test_fit_rejects_what_is_not_ported():
+    """Monitors and a distributed kvstore raise (elastic checkpoints are
+    ported: tests/test_torch_checkpoint.py)."""
     mod = tmx.mod.Module(mlp(), context=tmx.cpu())
     train, _ = _iters(tmx, n=32)
-    with pytest.raises(tmx.MXNetError, match="checkpoint_dir"):
-        mod.fit(train, num_epoch=1, checkpoint_dir="ckpt")
+    with pytest.raises(tmx.MXNetError, match="monitors"):
+        mod.fit(train, num_epoch=1, monitor=object())
     with pytest.raises(tmx.MXNetError, match="distributed"):
         mod.fit(train, num_epoch=1, kvstore="dist_sync")
 
