@@ -130,6 +130,23 @@ exits non-zero:
    algorithms: an uninterrupted fit, one SIGKILLed after batch 8, one
    sent SIGTERM at batch 5 (exit 143, a final snapshot), and resumes
    from both, equal to the uninterrupted fit bit for bit.
+11. BASELINE config #4, lstm_bucketing.py's bucketed LSTM language model
+   (2 layers of 200, embed 200, vocab 10000, batch 32, buckets 10-60,
+   SGD lr 0.01 wd 1e-5, Xavier, Perplexity(0)) on its synthetic corpus
+   of 2000 sentences, through `BucketingModule.fit`; K1/K2/K3 held at 0
+   launches as in 9.  a. 6 steps over buckets 60, 20, 40, 20, 60, 10
+   through every bucket's fused step, card against the CPU from the
+   same parameters and batches (fp32, TF32 off, momentum 0.9 so the
+   shared momenta count): losses, and every bucket's parameters, begin
+   states and the momenta, free running and each step from the CPU's
+   state.  b. the RNN op (FusedRNNCell, `--fused`) at T 60: cuDNN's
+   route against the plain loop on the card, forward and the gradient
+   of every input, both timed; one fused-cell step counted on cuDNN's
+   route.  c. one epoch of the config: tokens/s, step ms per bucket,
+   peak memory, the fused step's declines, perplexity falling; then
+   bench.py's fixed-35 LSTM lane through `Module.fit`.  d. one warm
+   bucket-60 step under torch.profiler.  e. `_while_loop` (padded, and
+   stopping early) and `_cond`, card against CPU.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -142,6 +159,7 @@ import gc
 import json
 import math
 import os
+import random
 import re
 import shutil
 import signal
@@ -410,6 +428,39 @@ LM_TRAIN_CLASSES = (
      ("elementwise", "vectorized", "unrolled", "fill", "copy", "index",
       "gelu", "embedding", "Embedding", "where", "masked")),
 )
+
+# phase 11: BASELINE config #4 (BASELINE.json configs[3];
+# examples/rnn/lstm_bucketing.py): 2 LSTM layers of 200 over an embedding
+# of 200, PTB's 10 000-word vocabulary (bench.py:297 `_LSTM_CFG`), batch
+# 32, buckets 10-60, SGD lr 0.01 wd 1e-5 rescale 1/32, Xavier(in, 2.34),
+# Perplexity(0); the example's synthetic power-law corpus (2000 sentences
+# of 8-59 tokens, :31-40) stands in for PTB: the only cut
+LSTM_CFG = dict(vocab=10000, embed=200, hidden=200, layers=2, batch=32,
+                buckets=(10, 20, 30, 40, 50, 60), sentences=2000)
+LSTM_OPT = {"learning_rate": 0.01, "momentum": 0.0, "wd": 1e-5,
+            "rescale_grad": 1.0 / 32}
+LSTM_PARITY_KEYS = (60, 20, 40, 20, 60, 10)   # 11a: a batch of each, in turn
+LSTM_PARITY_MOMENTUM = 0.9    # 11a: the shared momenta are held too
+LSTM_FIXED = dict(seq=35, warm=4, timed=20)   # bench.py's lane (:290-375)
+LSTM_FIXED_OPT = {"learning_rate": 0.1, "momentum": 0.9,
+                  "rescale_grad": 1.0 / 32}
+# 11d: device kernels of one bucket-60 step by class (first match)
+LSTM_CLASSES = (
+    ("GEMM (the gates' FCs, the 10k-way head)",
+     ("gemm", "sgemm", "xmma", "cutlass", "nvjet", "gemv", "splitK")),
+    ("softmax (the head)", ("softmax", "SoftMax")),
+    ("the update (multi-tensor SGD)", ("multi_tensor", "foreach")),
+    ("reductions (bias gradients, sums, perplexity)", ("reduce_kernel",)),
+    ("elementwise (gates, stack, slices, one-hot, casts, copies)",
+     ("elementwise", "vectorized", "unrolled", "fill", "copy", "index",
+      "embedding", "Embedding", "where", "cat", "Cat", "gather",
+      "scatter")),
+)
+
+
+def lstm_init(mx):
+    """The example's initializer."""
+    return mx.initializer.Xavier(factor_type="in", magnitude=2.34)
 
 
 def check(cond, msg):
@@ -3547,6 +3598,447 @@ def lm_train_phase(card, workdir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: BASELINE config #4, the bucketed LSTM language model
+# ---------------------------------------------------------------------------
+
+def lstm_corpus(cfg, seed=SEED):
+    """lstm_bucketing.py:31-40 `synthetic_corpus`: a power-law token
+    stream, sentence lengths in [8, 60), from the example's
+    RandomState(0)."""
+    rng = np.random.RandomState(seed)
+    probs = 1.0 / np.arange(1, cfg["vocab"] + 1)
+    probs /= probs.sum()
+    out = []
+    for _ in range(cfg["sentences"]):
+        length = int(rng.randint(8, 60))
+        out.append(rng.choice(cfg["vocab"], size=length, p=probs).tolist())
+    return out
+
+
+def lstm_sym_gen(mx, cfg, fused=False):
+    """lstm_bucketing.py's `sym_gen` over its stack (`--fused`: one
+    FusedRNNCell, the RNN op)."""
+    if fused:
+        stack = mx.rnn.FusedRNNCell(cfg["hidden"], num_layers=cfg["layers"],
+                                    mode="lstm")
+    else:
+        stack = mx.rnn.SequentialRNNCell()
+        for i in range(cfg["layers"]):
+            stack.add(mx.rnn.LSTMCell(cfg["hidden"], prefix=f"lstm_l{i}_"))
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data, input_dim=cfg["vocab"],
+                                 output_dim=cfg["embed"], name="embed")
+        stack.reset()
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, cfg["hidden"]))
+        pred = mx.sym.FullyConnected(pred, num_hidden=cfg["vocab"],
+                                     name="pred")
+        lab = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(pred, lab, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def lstm_iter(mx, corpus, cfg):
+    """The example's BucketSentenceIter (invalid_label 0); its shuffles
+    draw from Python's and numpy's global streams, seeded here."""
+    random.seed(SEED)
+    np.random.seed(SEED)
+    return mx.rnn.BucketSentenceIter(corpus, cfg["batch"],
+                                     buckets=list(cfg["buckets"]),
+                                     invalid_label=0)
+
+
+def lstm_module(mx, cfg, ctx, values=None, opt=None, fused=False):
+    """A BucketingModule of the example's sym_gen bound at the default
+    bucket, its parameters from `values` (numpy, through compat.weights)
+    or the example's Xavier under mx.random.seed(SEED), SGD `opt`."""
+    from incubator_mxnet_tpu_torch.compat import weights
+    key = max(cfg["buckets"])
+    mod = mx.mod.BucketingModule(lstm_sym_gen(mx, cfg, fused),
+                                 default_bucket_key=key, context=ctx)
+    shape = (cfg["batch"], key)
+    mod.bind([mx.io.DataDesc("data", shape)],
+             [mx.io.DataDesc("softmax_label", shape)])
+    mx.random.seed(SEED)
+    if values is None:
+        mod.init_params(initializer=lstm_init(mx))
+    else:
+        mod.init_params(arg_params=weights.params_from_numpy(
+            values, ctx=mx.cpu())[0])
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params=dict(opt or LSTM_OPT))
+    return mod
+
+
+def lstm_state(mx, mod):
+    """Every bucket's parameters (each bucket's own begin states
+    included) and the shared momenta, as numpy."""
+    from incubator_mxnet_tpu_torch.compat import weights
+    default = mod._buckets[mod._default_bucket_key]
+    moms = weights.module_states_to_numpy(default)
+    state = weights.bucketing_params_to_numpy(mod)
+    state.update({("momentum", i): m for i, m in moms.items()
+                  if m is not None})
+    return state
+
+
+def lstm_set_state(mx, mod, state):
+    from incubator_mxnet_tpu_torch.compat import weights
+    default = mod._buckets[mod._default_bucket_key]
+    weights.bucketing_params_from_numpy(
+        mod, {k: v for k, v in state.items() if isinstance(k, str)})
+    weights.module_states_from_numpy(default, {
+        k[1]: v for k, v in state.items() if not isinstance(k, str)})
+
+
+def lstm_ratio(got, ref, tol=PARITY_TOL):
+    """(worst |got - ref| / (rtol |ref| + atol max|ref|), its name) over
+    the arrays of `ref`; at most 1 passes."""
+    rtol, atol = tol
+    worst = (0.0, "none")
+    for name, want in ref.items():
+        want = np.asarray(want, np.float64)
+        bound = np.maximum(rtol * np.abs(want) + atol * np.abs(want).max(),
+                           1e-30)
+        r = float((np.abs(np.asarray(got[name], np.float64) - want) /
+                   bound).max())
+        worst = max(worst, (r, str(name)))
+    return worst
+
+
+def lstm_loss(mod, batch):
+    """The step's mean -log p(label) over the labels that are not padding
+    (Perplexity(0)'s quantity), from the module's outputs."""
+    probs = mod.get_outputs()[0].data.double()
+    lab = batch.label[0].data.to(probs.device).reshape(-1).long()
+    p = probs.gather(1, lab[:, None])[:, 0].clamp_min(1e-10)
+    keep = lab != 0
+    return float((-p.log() * keep).sum() / keep.sum())
+
+
+def lstm_parity(mx, cfg, corpus, card):
+    """Phase 11a: LSTM_PARITY_KEYS' steps (a batch of each listed bucket,
+    in that order) through the fused step of every bucket, card against
+    the port on the CPU from the same parameters (the example's Xavier,
+    bitwise the JAX package's under one seed, carried as numpy by
+    compat.weights) and batches, fp32, TF32 off; free running and each
+    step from the CPU's state.  SGD with momentum, so the shared momenta
+    are held too."""
+    pool = {}
+    for b in lstm_iter(mx, corpus, cfg):
+        pool.setdefault(b.bucket_key, []).append(b)
+    batches = [pool[k].pop(0) for k in LSTM_PARITY_KEYS]
+    values = lstm_state(mx, lstm_module(mx, cfg, mx.cpu()))
+    opt = dict(LSTM_OPT, momentum=LSTM_PARITY_MOMENTUM)
+    runs = {}
+    for name, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0)),
+                      ("teacher", mx.gpu(0))):
+        mod = lstm_module(mx, cfg, ctx, values, opt)
+        metric = mx.metric.Perplexity(0)
+        losses, states, ratios = [], [], []
+        for k, b in enumerate(batches):
+            if name == "teacher":
+                mod.switch_bucket(b.bucket_key, b.provide_data,
+                                  b.provide_label)
+                lstm_set_state(mx, mod, runs["cpu"][1][k - 1] if k
+                               else values)
+            mod.fit_step(b, metric)
+            losses.append(lstm_loss(mod, b))
+            if name != "card" or k == len(batches) - 1:
+                states.append(lstm_state(mx, mod))
+            if name == "teacher":
+                ratios.append(lstm_ratio(states[-1], runs["cpu"][1][k]))
+        steps = {key: m._fused_step.steps for key, m in mod._buckets.items()}
+        check(sum(steps.values()) == len(batches), f"11a {name}: the fused "
+              f"step declined a batch ({steps})")
+        runs[name] = (losses, states, ratios)
+    cpu_losses, cpu_states, _ = runs["cpu"]
+    held_worst, loss_worst = 0.0, 0.0
+    for name in ("card", "teacher"):
+        losses, states, ratios = runs[name]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                         cpu_losses))
+        check(loss_err <= PARITY_TOL[0], f"11a {name}: loss rel err "
+              f"{loss_err:.3g}")
+        if name == "card":
+            ratios = [lstm_ratio(states[-1], cpu_states[-1])]
+        worst = max(ratios)
+        print(f"lstm parity: {name}: {len(batches)} steps (buckets "
+              f"{'/'.join(map(str, LSTM_PARITY_KEYS))}), losses "
+              f"{' '.join(f'{x:.6f}' for x in losses)} (cpu "
+              f"{' '.join(f'{x:.6f}' for x in cpu_losses)}), loss rel err "
+              f"{loss_err:.3g}; parameters, begin states and momenta "
+              f"worst {worst[0]:.4f} of the tolerance ({worst[1]}) [{card}]")
+        check(worst[0] <= 1.0, f"11a {name}: {worst[1]} off by "
+              f"{worst[0]:.3f} of the tolerance")
+        held_worst = max(held_worst, worst[0])
+        loss_worst = max(loss_worst, loss_err)
+    return {"worst": held_worst, "loss_err": loss_worst,
+            "losses": cpu_losses}
+
+
+def lstm_rnn_op(mx, cfg, card):
+    """Phase 11b: the RNN op as FusedRNNCell runs it at the config's
+    widths (bucket 60: T 60, batch 32, 2 layers of 200 over embed 200):
+    the card's route (cuDNN, `ops.nn.rnn_cudnn`) against the plain loop
+    (`rnn_plain`) on the card, fp32, forward and the gradient of every
+    input under a random cotangent; both timed; then one fused-cell
+    BucketingModule step at bucket 60, counted on the cuDNN route."""
+    from incubator_mxnet_tpu_torch.ops import nn as ops_nn
+    T, B, H, L = max(cfg["buckets"]), cfg["batch"], cfg["hidden"], \
+        cfg["layers"]
+    rng = np.random.RandomState(SEED + 11)
+    n = ops_nn.rnn_param_size("lstm", cfg["embed"], H, L, False)
+    scale = math.sqrt(2.34 / H)
+    vals = [rng.uniform(-1, 1, (T, B, cfg["embed"])),
+            rng.uniform(-scale, scale, n), rng.uniform(-1, 1, (L, B, H)),
+            rng.uniform(-1, 1, (L, B, H))]
+    cots = [rng.normal(0, 1, s) for s in ((T, B, H), (L, B, H), (L, B, H))]
+    params = {"mode": "lstm", "num_layers": L, "state_size": H,
+              "bidirectional": False, "p": 0.0, "_train": True}
+    dev = mx.gpu(0).torch_device
+    cuda = [torch.tensor(c, dtype=torch.float32, device=dev) for c in cots]
+    results, times = {}, {}
+    for name, route in (("cudnn", ops_nn.rnn_cudnn),
+                        ("plain", ops_nn.rnn_plain)):
+        ins = [torch.tensor(v, dtype=torch.float32, device=dev,
+                            requires_grad=True) for v in vals]
+
+        def run():
+            outs = route(params, *ins)
+            loss = sum((o * c).sum() for o, c in zip(outs, cuda))
+            return outs, torch.autograd.grad(loss, ins)
+
+        outs, grads = run()
+        results[name] = [o.detach() for o in outs] + list(grads)
+        # the recurrence re-reads its 0.64 M weights every step: no flush
+        times[name] = time_ms(run, torch.empty(0, device=dev), iters=5)
+    worst = max(held(g, r, PARITY_TOL, f"11b {what}")
+                for g, r, what in zip(results["cudnn"], results["plain"],
+                                      ("out", "h_n", "c_n", "d data",
+                                       "d parameters", "d state",
+                                       "d state_cell")))
+    print(f"lstm rnn op: T {T} batch {B} 2x{H} fp32, cuDNN route against "
+          f"the plain loop on the card: output, states and the gradients "
+          f"of data, parameters, state, state_cell worst {worst:.4f} of "
+          f"the tolerance; forward+backward {times['cudnn']:.3f} ms "
+          f"(plain loop {times['plain']:.3f} ms) [{card}]")
+    before = dict(ops_nn.rnn_routes)
+    mod = lstm_module(mx, cfg, mx.gpu(0), fused=True)
+    it = lstm_iter(mx, lstm_corpus(cfg), cfg)
+    batch = next(b for b in it if b.bucket_key == T)
+    metric = mx.metric.Perplexity(0)
+    mod.fit_step(batch, metric)
+    loss = lstm_loss(mod, batch)
+    routes = {k: ops_nn.rnn_routes[k] - before[k] for k in before}
+    check(routes == {"cudnn": 1, "plain": 0}, f"11b: the fused cell's "
+          f"step took routes {routes}")
+    check(mod._curr_module._fused_step.steps == 1, "11b: the fused cell's "
+          "step did not run the fused train step")
+    check(math.isfinite(loss), "11b: the fused cell's loss is not finite")
+    print(f"lstm rnn op: FusedRNNCell (--fused) BucketingModule step at "
+          f"bucket {T}: RNN op routes {routes}, loss {loss:.4f} [{card}]")
+    return {"worst": worst, "ms": times["cudnn"],
+            "plain_ms": times["plain"]}
+
+
+def lstm_bucket_lane(mx, cfg, corpus, card):
+    """Phase 11c, config #4: `BucketingModule.fit` over one epoch of the
+    corpus on the card, the example's optimizer and initializer, each
+    batch's end synchronised and timed: tokens/s (every position of the
+    padded batches, and the words alone) over the steps that are not a
+    bucket's first (that one binds the bucket), the median step ms per
+    bucket, peak memory, batches the fused step declined, perplexity."""
+    it = lstm_iter(mx, corpus, cfg)
+    mod = mx.mod.BucketingModule(lstm_sym_gen(mx, cfg),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=mx.gpu(0))
+    rows, curve = [], []
+    last = [None]
+
+    def on_batch(p):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        batch = p.locals["data_batch"]
+        words = int((batch.data[0].asnumpy() != 0).sum())
+        rows.append((mod._curr_bucket_key, now - last[0], words))
+        curve.append(p.eval_metric.get()[1])
+        last[0] = time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(SEED)
+    t0 = last[0] = time.perf_counter()
+    mod.fit(it, eval_metric=mx.metric.Perplexity(0), optimizer="sgd",
+            optimizer_params=dict(LSTM_OPT), initializer=lstm_init(mx),
+            num_epoch=1, batch_end_callback=on_batch)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    seen, steady = set(), []
+    for key, dt, words in rows:
+        if key in seen:
+            steady.append((key, dt, words))
+        seen.add(key)
+    B = cfg["batch"]
+    step_ms = {k: statistics.median(dt for kk, dt, _ in steady if kk == k)
+               * 1e3 for k in sorted({k for k, _, _ in steady})}
+    tokens_s = sum(B * k for k, _, _ in steady) / sum(dt for _, dt, _ in
+                                                       steady)
+    words_s = sum(w for _, _, w in steady) / sum(dt for _, dt, _ in steady)
+    fused = sum(m._fused_step.steps for m in mod._buckets.values())
+    declined = len(rows) - fused
+    out = {"tokens_s": tokens_s, "words_s": words_s, "step_ms": step_ms,
+           "peak_gib": peak, "declined": declined, "batches": len(rows),
+           "wall_s": wall, "ppl_first": curve[0], "ppl_last": curve[-1],
+           "epoch_tokens_s": sum(B * k for k, _, _ in rows) / wall}
+    print(f"lstm bucket lane: BucketingModule.fit, config #4, one epoch: "
+          f"{len(rows)} batches in {wall:.2f} s ({out['epoch_tokens_s']:.1f}"
+          f" tokens/s with binds), steady {tokens_s:.1f} tokens/s "
+          f"({words_s:.1f} words/s); step ms by bucket "
+          + ", ".join(f"{k}: {v:.2f}" for k, v in step_ms.items())
+          + f"; peak {peak:.2f} GiB; fused step declined {declined}; "
+          f"perplexity {curve[0]:.1f} after the first batch, "
+          f"{curve[-1]:.1f} over the epoch [{card}]")
+    check(declined == 0, f"11c: the fused step declined {declined} batches")
+    check(all(math.isfinite(v) for v in curve), "11c: perplexity not finite")
+    check(curve[-1] < curve[0], "11c: perplexity did not fall")
+    return mod, out
+
+
+def lstm_fixed_lane(mx, cfg, card):
+    """Phase 11c, bench.py's LSTM lane (:290-375): `_lstm_symbol` at a
+    fixed 35 steps through `Module.fit` on one resident random batch
+    (SGD lr 0.1, momentum 0.9, Perplexity(0), Xavier in/2.34), the fused
+    step every step; a CUDA-synchronised window of timed steps after the
+    warm ones: tokens/s, step ms, peak memory, perplexity."""
+    seq, warm, timed = (LSTM_FIXED[k] for k in ("seq", "warm", "timed"))
+    B = cfg["batch"]
+    sym, _, _ = lstm_sym_gen(mx, cfg)(seq)
+    n_scan = sum(1 for n in sym._topo()
+                 if not n.is_variable and n.op.name == "_foreach")
+    check(n_scan == 1, "the LSTM lane's graph must hold ONE _foreach")
+    rng = np.random.RandomState(SEED)
+    data = mx.nd.array(rng.randint(0, cfg["vocab"], (B, seq)), ctx=mx.cpu())
+    label = mx.nd.array(rng.randint(0, cfg["vocab"], (B, seq)),
+                        ctx=mx.cpu())
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    marks, curve = {}, []
+
+    def on_batch(p):
+        if p.nbatch in (warm - 1, warm + timed - 1):
+            torch.cuda.synchronize()
+            marks[p.nbatch] = time.perf_counter()
+        curve.append(p.eval_metric.get()[1])
+
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(SEED)
+    mod.fit(resident(mx, data, label, warm + timed), num_epoch=1,
+            optimizer="sgd", optimizer_params=dict(LSTM_FIXED_OPT),
+            eval_metric=mx.metric.Perplexity(0), initializer=lstm_init(mx),
+            batch_end_callback=on_batch)
+    dt = marks[warm + timed - 1] - marks[warm - 1]
+    out = {"tokens_s": timed * B * seq / dt, "step_ms": dt / timed * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "declined": warm + timed - mod._fused_step.steps,
+           "ppl_first": curve[0], "ppl_last": curve[-1]}
+    print(f"lstm fixed lane: bench.py's LSTM lane (Module.fit, T {seq}, "
+          f"batch {B}): {out['tokens_s']:.1f} tokens/s, step "
+          f"{out['step_ms']:.3f} ms, peak {out['peak_gib']:.2f} GiB, fused "
+          f"step declined {out['declined']}, perplexity {curve[0]:.1f} -> "
+          f"{curve[-1]:.1f} [{card}]")
+    check(out["declined"] == 0, "11c: the fixed lane's fused step declined")
+    check(all(math.isfinite(v) for v in curve) and curve[-1] < curve[0],
+          "11c: the fixed lane's perplexity is not finite and falling")
+    return out
+
+
+def lstm_control_flow(mx, card):
+    """Phase 11e: `_while_loop` (padded outputs; and without outputs,
+    stopping at the first false condition) and `_cond` on both branches,
+    forward and gradients, card against CPU at a small size."""
+    s = mx.sym
+    i, v, w = s.Variable("i"), s.Variable("v"), s.Variable("w")
+    padded, pfin = s.contrib.while_loop(
+        cond=lambda i, v: i < 4,
+        func=lambda i, v: ([s.tanh(s.broadcast_mul(v, w)) * i],
+                           [i + 1, v + i]),
+        loop_vars=[i, v], max_iterations=7)
+    _, early = s.contrib.while_loop(
+        cond=lambda i, v: i < 4, func=lambda i, v: ([], [i + 1, v * 2.0]),
+        loop_vars=[i, v], max_iterations=1_000_000)
+    c = s.contrib.cond(s.sum(v) > 1.0, lambda: s.exp(v) * w,
+                       lambda: v - w)
+    graph = s.Group([s.sum(padded[0]), pfin[1]] + list(early) + [c])
+    worst = 0.0
+    for vv in (0.3, 1.7):
+        res = []
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            args = {"i": mx.nd.array([0.0], ctx=ctx),
+                    "v": mx.nd.array([vv / 3] * 3, ctx=ctx),
+                    "w": mx.nd.array([0.5, -1.0, 2.0], ctx=ctx)}
+            grads = {k: mx.nd.zeros((3,), ctx=ctx) for k in ("v", "w")}
+            ex = graph.bind(ctx, args, args_grad=grads)
+            outs = [o.data.cpu() for o in ex.forward(is_train=True)]
+            ex.backward([mx.nd.ones(o.shape, ctx=ctx) for o in ex.outputs])
+            res.append(outs + [g.data.cpu() for g in grads.values()])
+        check(res[0][2].item() == 4.0, "11e: the early-stopping loop ran "
+              f"{res[0][2].item()} iterations, not 4")
+        for got, ref in zip(res[1], res[0]):
+            worst = max(worst, held(got, ref, (1e-5, 1e-6), "11e"))
+    print(f"lstm control flow: _while_loop (padded to 7; no outputs, "
+          f"1,000,000 max iterations, stopped at 4) and _cond (both "
+          f"branches), outputs and gradients card against CPU: worst "
+          f"{worst:.4f} of rtol 1e-5 + 1e-6*max [{card}]")
+    return worst
+
+
+def lstm_phase(card):
+    """Phase 11; returns the numbers of the summary line.  The counts of
+    K1, K2 and K3 are set to 0 before it and must stay 0: no TPU kernel
+    is on the LSTM's paths."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_stream)
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    counted = (fc_relu, flash_fwd, flash_fwd_stream)
+    for wrapper in counted:
+        wrapper.launches = 0
+    cfg = LSTM_CFG
+    corpus = lstm_corpus(cfg)
+    out = {}
+    t0 = time.perf_counter()
+    out["parity"] = lstm_parity(mx, cfg, corpus, card)
+    print(f"phase 11a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["rnn"] = lstm_rnn_op(mx, cfg, card)
+    print(f"phase 11b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mod, out["bucket"] = lstm_bucket_lane(mx, cfg, corpus, card)
+    batch = next(b for b in lstm_iter(mx, corpus, cfg)
+                 if b.bucket_key == max(cfg["buckets"]))
+    metric = mx.metric.Perplexity(0)
+    out["profile"] = profile_one_step(
+        lambda: mod.fit_step(batch, metric), card, "lstm profile",
+        cfg["batch"], dtype="fp32", classes=LSTM_CLASSES)
+    del mod
+    out["fixed"] = lstm_fixed_lane(mx, cfg, card)
+    print(f"phase 11c/d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["control_flow"] = lstm_control_flow(mx, card)
+    print(f"phase 11e: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = [w.launches for w in counted]
+    print(f"lstm: K1/K2/K3 launches over phase 11: {launches} (no TPU "
+          f"kernel is on the LSTM's paths)")
+    check(launches == [0, 0, 0], "a K1/K2/K3 kernel ran on the LSTM paths")
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -3614,6 +4106,9 @@ def main():
     t0 = time.perf_counter()
     lmt = lm_train_phase(card, str(_build.BUILD_DIR.parent))
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lstm = lstm_phase(card)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -3674,6 +4169,19 @@ def main():
           f"{parts['attention_all']:.2f} ms, head+SoftmaxOutput "
           f"{parts['head']:.2f} ms (one-hot {parts['one_hot']:.2f} ms); "
           f"resume bitwise over {lmt['resume']['arrays']} arrays [{card}]")
+    bl, fl, prof = lstm["bucket"], lstm["fixed"], lstm["profile"]
+    print(f"lstm summary: config #4 (2x200 LSTM, vocab 10000, batch 32, "
+          f"buckets 10-60) BucketingModule.fit one epoch: "
+          f"{bl['tokens_s']:.1f} tokens/s steady ({bl['words_s']:.1f} "
+          f"words/s), peak {bl['peak_gib']:.2f} GiB, fused step declined "
+          f"{bl['declined']}, perplexity {bl['ppl_first']:.1f} -> "
+          f"{bl['ppl_last']:.1f}; bench.py's fixed-35 lane "
+          f"{fl['tokens_s']:.1f} tokens/s, step {fl['step_ms']:.3f} ms; "
+          f"profiled bucket-60 step {prof['kernels']} kernels, busy "
+          f"{prof['busy']:.3f}, host {prof['host_ms']:.1f} ms; parity "
+          f"worst {lstm['parity']['worst']:.4f}, RNN op cuDNN "
+          f"{lstm['rnn']['ms']:.3f} ms vs plain {lstm['rnn']['plain_ms']:.3f}"
+          f" ms [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"

@@ -32,7 +32,12 @@ Slice 8 trains the LM through `Module.fit` with elastic checkpoints:
 `checkpoint` (async snapshots through the pinned host pool of
 `storage`, atomic manifests, mid-epoch resume, the SIGTERM hook),
 `optimizer.Adam`, and the optimizer, iterator and random-stream state a
-resumed fit restores.
+resumed fit restores.  Slice 9 trains the bucketed LSTM language
+model (BASELINE config #4) through `mod.BucketingModule.fit`: the
+control-flow ops (`_foreach`, `_while_loop`, `_cond`; `sym.contrib`,
+`nd.contrib`), the ``RNN`` op (cuDNN's on the card), `rnn` (the symbolic
+cells, `BucketSentenceIter`), `gluon.rnn`, `initializer.LSTMBias` and
+`metric.Perplexity`.
 
     import incubator_mxnet_tpu_torch as mx
 """
@@ -65,6 +70,7 @@ from . import gluon
 from . import llm
 from . import storage
 from . import checkpoint
+from . import rnn
 from . import test_utils
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
@@ -73,4 +79,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "model_zoo", "parallel", "random", "initializer", "init",
            "lr_scheduler", "optimizer", "metric", "io", "callback",
            "executor", "module", "mod", "gluon", "llm", "storage",
-           "checkpoint", "test_utils"]
+           "checkpoint", "rnn", "test_utils"]

@@ -24,17 +24,32 @@ start a step from the same parameters and optimizer state;
 `Module`'s (``mod._updater.states``), which is how momenta cross between
 the packages' checkpoints (each package pickles its optimizer blob in
 its own format).
+
+`bucketing_params_to_numpy` and `bucketing_params_from_numpy` carry a
+`BucketingModule`'s parameters: the set its buckets share and each
+bucket's own begin states (the cells name them per unroll, so every
+bucket has its own), one {name: array} dict over all bound buckets.
+
+`rnn_pack` and `rnn_unpack` convert between the `RNN` op's flat
+cuDNN-order vector (`FusedRNNCell`'s ``{prefix}parameters``) and the
+per-layer cell weights (``{prefix}l0_i2h_weight``, ``r0_`` for the
+reverse direction, the names `FusedRNNCell.unfuse` and the gluon layers
+use).  A gluon RNN layer's parameters carry with
+`block_params_to_numpy` / `block_params_from_numpy`, as any block's.
 """
 from __future__ import annotations
 
 import numpy as _np
 
+from ..context import cpu as _cpu
 from ..ndarray.ndarray import array
 
 __all__ = ["params_from_numpy", "block_params_to_numpy",
            "block_params_from_numpy", "lm_params_from_numpy",
            "trainer_states_to_numpy", "trainer_states_from_numpy",
-           "module_states_to_numpy", "module_states_from_numpy"]
+           "module_states_to_numpy", "module_states_from_numpy",
+           "bucketing_params_to_numpy", "bucketing_params_from_numpy",
+           "rnn_pack", "rnn_unpack"]
 
 
 def _np_of(v):
@@ -127,3 +142,74 @@ def module_states_from_numpy(mod, states):
         mod._updater.states[i] = _map_state(
             state, lambda v: array(_np_of(v), ctx=ctx,
                                    dtype=_np_of(v).dtype))
+
+
+def bucketing_params_to_numpy(mod):
+    """{name: numpy array} of every parameter and aux state of every bound
+    bucket of a `BucketingModule` of either package."""
+    out = {}
+    for bucket in mod._buckets.values():
+        bucket._params_dirty = True    # read each bucket from its device
+        args, auxs = bucket.get_params()
+        out.update({k: _np_of(v) for k, v in {**args, **auxs}.items()})
+    return out
+
+
+def bucketing_params_from_numpy(mod, values):
+    """Write `values` ({name: array}) into every bound bucket of the port
+    `BucketingModule` `mod` that has the name (shared tensors take the
+    value once per bucket)."""
+    for bucket in mod._buckets.values():
+        group = bucket._exec_group
+        args = {k: array(_np_of(v), ctx=_cpu(), dtype=_np_of(v).dtype)
+                for k, v in values.items() if k in group.param_names}
+        auxs = {k: array(_np_of(v), ctx=_cpu(), dtype=_np_of(v).dtype)
+                for k, v in values.items() if k in group.aux_names}
+        group.set_params(args, auxs)
+        bucket._params_dirty = True
+    mod._params_dirty = True
+
+
+def _rnn_layout(mode, input_size, state_size, num_layers, bidirectional):
+    """[(name, shape)] of the per-layer weights in the flat vector's
+    order: every weight (layer-major, direction-minor, i2h then h2h),
+    then every bias in the same order."""
+    g = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}[mode]
+    dirs = ["l", "r"][:2 if bidirectional else 1]
+    weights, biases = [], []
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else state_size * len(dirs)
+        for d in dirs:
+            weights += [(f"{d}{layer}_i2h_weight", (g * state_size, in_sz)),
+                        (f"{d}{layer}_h2h_weight",
+                         (g * state_size, state_size))]
+            biases += [(f"{d}{layer}_i2h_bias", (g * state_size,)),
+                       (f"{d}{layer}_h2h_bias", (g * state_size,))]
+    return weights + biases
+
+
+def rnn_pack(values, mode, input_size, state_size, num_layers,
+             bidirectional=False, prefix=""):
+    """The flat `RNN` parameter vector (numpy) from per-layer weights
+    ``{prefix}l0_i2h_weight``, ... (arrays of either package or numpy)."""
+    return _np.concatenate([
+        _np_of(values[prefix + name]).reshape(-1) for name, _ in
+        _rnn_layout(mode, input_size, state_size, num_layers,
+                    bidirectional)])
+
+
+def rnn_unpack(flat, mode, input_size, state_size, num_layers,
+               bidirectional=False, prefix=""):
+    """{``{prefix}l0_i2h_weight``: numpy array, ...} of a flat `RNN`
+    parameter vector; `rnn_pack`'s inverse."""
+    flat = _np_of(flat).reshape(-1)
+    out, off = {}, 0
+    for name, shape in _rnn_layout(mode, input_size, state_size,
+                                   num_layers, bidirectional):
+        n = int(_np.prod(shape))
+        out[prefix + name] = flat[off:off + n].reshape(shape)
+        off += n
+    if off != flat.size:
+        raise ValueError(f"rnn_unpack: {flat.size} values for a layout of "
+                         f"{off}")
+    return out

@@ -208,23 +208,39 @@ class Executor:
 
     # -- construction --------------------------------------------------------
     @staticmethod
-    def _simple_bind(symbol, ctx, grad_req, type_dict, shape_kwargs):
+    def _simple_bind(symbol, ctx, grad_req, type_dict, shape_kwargs,
+                     shared_exec=None, shared_arg_names=None):
         check_unique_names(symbol)
         arg_names = symbol.list_arguments()
         arg_shapes, _, aux_shapes = symbol.infer_shape(**shape_kwargs)
         type_dict = type_dict or {}
         device = ctx.torch_device
         reqs = _req_dict(grad_req, arg_names)
+        shared = set(shared_arg_names or ())
 
-        def make(shape, name):
+        def make(shape, name, table=None):
+            if table is not None and name in table:
+                arr = table[name]
+                if arr is not None and arr.shape != tuple(shape):
+                    raise MXNetError(
+                        f"simple_bind: shared array {name} is "
+                        f"{arr.shape}, this graph needs {tuple(shape)}")
+                return arr
             dt = torch_dtype(type_dict.get(name, "float32"))
             return NDArray(torch.zeros(shape, dtype=dt, device=device),
                            ctx=ctx)
 
-        args = [make(s, n) for n, s in zip(arg_names, arg_shapes)]
-        grads = [make(s, n) if reqs.get(n, "null") != "null" else None
-                 for n, s in zip(arg_names, arg_shapes)]
-        auxs = [make(s, n) for n, s in
+        arg_table = grad_table = aux_table = None
+        if shared_exec is not None:
+            arg_table = {n: a for n, a in shared_exec.arg_dict.items()
+                         if n in shared}
+            grad_table = {n: a for n, a in shared_exec.grad_dict.items()
+                          if n in shared}
+            aux_table = shared_exec.aux_dict
+        args = [make(s, n, arg_table) for n, s in zip(arg_names, arg_shapes)]
+        grads = [make(s, n, grad_table) if reqs.get(n, "null") != "null"
+                 else None for n, s in zip(arg_names, arg_shapes)]
+        auxs = [make(s, n, aux_table) for n, s in
                 zip(symbol.list_auxiliary_states(), aux_shapes)]
         return Executor(symbol, ctx, args, grads, reqs, auxs)
 

@@ -1,7 +1,7 @@
 """Weight initializers (reference `python/mxnet/initializer.py`).
 
 PyTorch port of `InitDesc`, the `Initializer` dispatch and `Zero`, `One`,
-`Constant`, `Uniform`, `Normal` and `Xavier` from
+`Constant`, `Uniform`, `Normal`, `Xavier` and `LSTMBias` from
 `incubator_mxnet_tpu/initializer.py`.  The random ones draw on the host
 from `random.host_rng()`, the JAX package's stream, so under one
 `mx.random.seed(n)` both packages initialise parameters bitwise alike;
@@ -19,7 +19,7 @@ from .ndarray.ndarray import NDArray
 from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "register", "create"]
+           "Normal", "Xavier", "LSTMBias", "register", "create"]
 
 _INIT_REGISTRY = {}
 
@@ -64,7 +64,9 @@ class Initializer:
         name = str(desc)
         if name.endswith("weight"):
             self._init_weight(name, arr)
-        elif name.endswith(("bias", "beta")):
+        elif name.endswith("bias"):
+            self._init_bias(name, arr)
+        elif name.endswith("beta"):
             self._init_zero(name, arr)
         elif name.endswith("gamma"):
             self._init_one(name, arr)
@@ -73,6 +75,15 @@ class Initializer:
             self._init_zero(name, arr)
         elif name.endswith(("moving_var", "running_var")):
             self._init_one(name, arr)
+        elif name.endswith("parameters"):
+            # FusedRNNCell's flat parameter vector: the initializer where
+            # it takes a vector, else U(-0.07, 0.07) from the host stream
+            # (a fan-in scheme such as Xavier cannot), as the JAX package
+            try:
+                self._init_weight(name, arr)
+            except ValueError:
+                self._set(arr, _random.host_rng().uniform(-0.07, 0.07,
+                                                          arr.shape))
         else:
             self._init_default(name, arr)
 
@@ -95,6 +106,9 @@ class Initializer:
 
     def _init_one(self, _, arr):
         self._set(arr, np.ones(arr.shape))
+
+    def _init_bias(self, _, arr):
+        self._set(arr, np.zeros(arr.shape))
 
     def _init_weight(self, name, arr):
         raise NotImplementedError("Must override it")
@@ -182,6 +196,25 @@ class Xavier(Initializer):
             self._set(arr, _random.host_rng().normal(0, scale, shape))
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class LSTMBias(Initializer):
+    """An LSTM bias: zeros but the forget gate's quarter, `forget_bias`
+    (gate order i, f, g, o; reference `initializer.py LSTMBias`)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = np.zeros(arr.shape, dtype="float32")
+        num_hidden = arr.shape[0] // 4
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        self._set(arr, b)
+
+    def _init_bias(self, name, arr):
+        self._init_weight(name, arr)
 
 
 def create(init, **kwargs):

@@ -1,8 +1,8 @@
 """Evaluation metrics (reference `python/mxnet/metric.py`).
 
 PyTorch port of `EvalMetric`, `CompositeEvalMetric`, `Accuracy`,
-`CrossEntropy`, `create` and the registry from
-`incubator_mxnet_tpu/metric.py`.  `Accuracy` and `CrossEntropy` count on
+`CrossEntropy`, `Perplexity`, `create` and the registry from
+`incubator_mxnet_tpu/metric.py`.  The three count on
 the device of the predictions: `device_update` gives a batch's (sum,
 count) as tensors there (the JAX package's in-graph `device_update`),
 `update` adds them to running totals on that device, and only `get`
@@ -12,6 +12,8 @@ waits for the device to update a metric; the fused train step
 """
 from __future__ import annotations
 
+import math
+
 import numpy
 import torch
 
@@ -19,7 +21,7 @@ from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "CrossEntropy",
-           "create", "register", "check_label_shapes"]
+           "Perplexity", "create", "register", "check_label_shapes"]
 
 _METRIC_REGISTRY = {}
 
@@ -224,6 +226,49 @@ class CrossEntropy(EvalMetric):
                 dtype=torch.float64)
             dnum = dnum + label.shape[0]
         return _pair(dsum, dnum)
+
+
+@register
+class Perplexity(EvalMetric):
+    """exp of the mean of -log(max(p[label], 1e-10)) over the labels
+    that are not `ignore_label` (reference `metric.py:Perplexity`)."""
+
+    def __init__(self, ignore_label=None, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names,
+                         ignore_label=ignore_label, axis=axis)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        self._accumulate(*self.device_update(labels, preds))
+
+    def device_update(self, labels, preds):
+        """(sum of -log(max(p[label], 1e-10)), labels counted) of one
+        batch, as tensors on the predictions' device; p in float32, a
+        prediction of more than 2 dims flattened to (-1, classes)."""
+        labels, preds = check_label_shapes(labels, preds)
+        dsum = dnum = 0
+        for label, pred in zip(labels, preds):
+            pred = _as_tensor(pred).float()
+            if pred.ndim > 2:
+                pred = pred.reshape(-1, pred.shape[-1])
+            lab = _as_tensor(label, pred.device).reshape(-1).to(torch.int32)
+            probs = pred.gather(1, lab.long()[:, None])[:, 0]
+            if self.ignore_label is not None:
+                ignore = lab == int(self.ignore_label)
+                probs = torch.where(ignore, torch.ones_like(probs), probs)
+                dnum = dnum - ignore.sum()
+            dsum = dsum - torch.log(torch.clamp(probs, min=1e-10)).sum(
+                dtype=torch.float64)
+            dnum = dnum + lab.shape[0]
+        return _pair(dsum, dnum)
+
+    def get(self):
+        self._materialize()
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
 
 
 def _pair(dsum, dnum):

@@ -2,5 +2,6 @@
 `python/mxnet/module/`)."""
 from .base_module import BaseModule
 from .module import Module
+from .bucketing_module import BucketingModule
 
-__all__ = ["BaseModule", "Module"]
+__all__ = ["BaseModule", "Module", "BucketingModule"]

@@ -26,7 +26,8 @@ def _dtype_name(dtype):
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 fixed_param_names=None, grad_req="write"):
+                 fixed_param_names=None, grad_req="write",
+                 shared_group=None):
         self.symbol = symbol
         self.contexts = contexts
         self.param_names = param_names
@@ -72,9 +73,14 @@ class DataParallelExecutorGroup:
 
         shapes = {d.name: d.shape for d in self.data_shapes}
         shapes.update({l.name: l.shape for l in self.label_shapes})
+        # with a shared group (`Module.bind(shared_module=)`), the
+        # parameters, their gradients and the aux states are its arrays
+        shared_exec = shared_group.execs[0] if shared_group else None
         self.execs = [symbol.simple_bind(ctx=contexts[0],
                                          grad_req=self.grad_req,
-                                         type_dict=type_dict, **shapes)]
+                                         type_dict=type_dict,
+                                         shared_arg_names=param_names,
+                                         shared_exec=shared_exec, **shapes)]
         self.param_arrays = [[e.arg_dict[n] for e in self.execs]
                              for n in self.param_names]
         self.grad_arrays = [[e.grad_dict.get(n) for e in self.execs]

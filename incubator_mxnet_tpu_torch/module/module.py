@@ -186,7 +186,15 @@ class Module(BaseModule):
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
         """Bind one executor for the given shapes (`Symbol.simple_bind`,
-        which partitions by ``MXNET_SUBGRAPH_BACKEND``)."""
+        which partitions by ``MXNET_SUBGRAPH_BACKEND``).  With a bound,
+        initialized `shared_module` (a `BucketingModule`'s default
+        bucket), the executor binds that module's parameter, gradient
+        and aux arrays themselves wherever this graph has the same name,
+        so an update through either module is seen by both, with no
+        copy; a parameter the shared module lacks (a bucket's own begin
+        state: the cells name them per unroll) gets arrays of its own,
+        initialized as the JAX package's `switch_bucket` initializes it
+        (`Uniform(0.01)` under the variable's ``__init__``)."""
         if force_rebind:
             self.binded = False
             self._exec_group = None
@@ -194,6 +202,21 @@ class Module(BaseModule):
         if self.binded:
             self.logger.warning("Already bound, ignoring bind()")
             return
+        shared_group = None
+        if shared_module is not None:
+            if not (shared_module.binded and
+                    shared_module.params_initialized):
+                raise MXNetError("bind: the shared module must be bound "
+                                 "and its parameters initialized")
+            # the updater's states are keyed by position: a shared
+            # parameter must sit where it sits in the shared module
+            moved = [n for i, n in enumerate(self._param_names)
+                     if n in shared_module._param_names and
+                     shared_module._param_names.index(n) != i]
+            if moved:
+                raise MXNetError(f"bind: parameters {moved} are not where "
+                                 "the shared module has them")
+            shared_group = shared_module._exec_group
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.binded = True
@@ -202,9 +225,34 @@ class Module(BaseModule):
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, data_shapes, label_shapes,
             self._param_names, for_training, inputs_need_grad,
-            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
-        if self.params_initialized:
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req,
+            shared_group=shared_group)
+        if shared_module is not None:
+            self._init_unshared(shared_module)
+        elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
+
+    def _init_unshared(self, shared_module):
+        """Host copies of every parameter and aux state (read from the
+        device at the next `get_params`), and the initial values of those
+        the shared module lacks, in sorted name order."""
+        exe = self._exec_group.execs[0]
+        self._arg_params = {n: nd.zeros(exe.arg_dict[n].shape, ctx=cpu(),
+                                        dtype=exe.arg_dict[n].data.dtype)
+                            for n in self._param_names}
+        self._aux_params = {n: nd.zeros(exe.aux_dict[n].shape, ctx=cpu(),
+                                        dtype=exe.aux_dict[n].data.dtype)
+                            for n in self._aux_names}
+        attrs = self._symbol.attr_dict()
+        initializer = Uniform(0.01)
+        for params, table, known in (
+                (self._arg_params, exe.arg_dict, shared_module._param_names),
+                (self._aux_params, exe.aux_dict, shared_module._aux_names)):
+            for name in sorted(set(params) - set(known)):
+                initializer(InitDesc(name, attrs.get(name)), params[name])
+                table[name]._set_data(params[name].data)
+        self._params_dirty = True
+        self.params_initialized = True
 
     # -- optimizer -------------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -247,6 +295,18 @@ class Module(BaseModule):
         if preload is not None:
             self.load_optimizer_states(preload)
             self._preload_opt_states = None
+
+    def _share_optimizer(self, src):
+        """Take `src`'s optimizer and updater (its states included), and
+        build this module's fused train step around them: a
+        `BucketingModule`'s buckets update one set of states."""
+        self._optimizer = src._optimizer
+        self._updater = src._updater
+        self._fused_step = None
+        if self._fusable():
+            from ..fused import FusedTrainStep
+            self._fused_step = FusedTrainStep(self, self._updater)
+        self.optimizer_initialized = True
 
     def _fusable(self):
         """Whether `fit` may run the fused train step: the knob

@@ -11,6 +11,7 @@ from ..ops.optimizer_ops import (sgd_update, sgd_mom_update, mp_sgd_update,
 from . import register as _register
 
 _register.populate(_sys.modules[__name__])
+from . import contrib  # noqa: E402
 
 __all__ = ["NDArray", "invoke", "imperative_invoke", "array", "zeros",
            "ones", "full", "empty", "arange", "concatenate", "waitall",

@@ -95,7 +95,10 @@ def _ones_like(params, x):
 
 @register("clip", params={"a_min": None, "a_max": None})
 def _clip(params, x):
-    """Reference `matrix_op.cc` clip."""
+    """Reference `matrix_op.cc` clip; with neither bound, `x` (as
+    `jnp.clip` returns it; `torch.clamp` refuses two Nones)."""
+    if params["a_min"] is None and params["a_max"] is None:
+        return x
     return torch.clamp(x, params["a_min"], params["a_max"])
 
 

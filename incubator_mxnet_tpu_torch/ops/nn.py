@@ -2,7 +2,7 @@
 
 PyTorch port of part of `incubator_mxnet_tpu/ops/nn.py`:
 FullyConnected, Convolution, Pooling, Activation, softmax, LeakyReLU,
-Dropout, BatchNorm and LayerNorm.
+Dropout, BatchNorm, LayerNorm and RNN.
 Data layouts follow the reference (NCHW); the op bodies are
 `torch.nn.functional` calls, as the JAX package leaves these ops to XLA,
 and their backward is autograd's through them (the JAX package's is
@@ -357,3 +357,199 @@ def _layer_norm(params, x, gamma, beta):
     xs = xs.movedim(axis, -1)
     out = F.layer_norm(xs, (xs.shape[-1],), g, b, eps)
     return out.movedim(-1, axis).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Fused RNN (reference src/operator/rnn.cc, cudnn_rnn-inl.h): multi-layer,
+# optionally bidirectional vanilla/LSTM/GRU over (T, B, I) inputs with the
+# cuDNN flat parameter packing.  PyTorch port of `RNN` in
+# `incubator_mxnet_tpu/ops/nn.py`.
+# ---------------------------------------------------------------------------
+
+def _gates(mode):
+    return {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}[mode]
+
+
+def rnn_param_size(mode, input_size, state_size, num_layers, bidirectional):
+    """Total flat parameter count (the cuDNN packing; reference
+    rnn-inl.h GetParamSize)."""
+    g = _gates(mode)
+    d = 2 if bidirectional else 1
+    size = 0
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else state_size * d
+        size += d * g * state_size * (in_sz + state_size)  # Wx + Wh
+    size += num_layers * d * g * state_size * 2  # bx + bh
+    return size
+
+
+def _unpack_rnn_params(flat, mode, input_size, state_size, num_layers,
+                       bidir):
+    """Views of the flat cuDNN-layout vector: ``[layer][direction]`` lists
+    of (Wx, Wh) and of (bx, bh).  Layout (reference cudnn GetParams): all
+    weight matrices, layer-major and direction-minor, Wx then Wh; then
+    all biases in the same order, bx then bh."""
+    g = _gates(mode)
+    d = 2 if bidir else 1
+    gh = g * state_size
+    off = 0
+
+    def take(n, *shape):
+        nonlocal off
+        v = flat[off:off + n].view(*shape)
+        off += n
+        return v
+
+    ws = []
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else state_size * d
+        ws.append([(take(gh * in_sz, gh, in_sz),
+                    take(gh * state_size, gh, state_size))
+                   for _ in range(d)])
+    bs = [[(take(gh, gh), take(gh, gh)) for _ in range(d)]
+          for _ in range(num_layers)]
+    return ws, bs
+
+
+def _cell_step(mode):
+    """``step(carry, xw_t, wh, bh) -> (carry, h)``: one time step given
+    the input's projection ``xw_t = x_t Wx^T + bx``."""
+    if mode == "lstm":
+        def step(carry, xw, wh, bh):
+            h, c = carry
+            i, f, g, o = (xw + h @ wh.t() + bh).chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            return (h, c), h
+    elif mode == "gru":
+        def step(carry, xw, wh, bh):
+            (h,) = carry
+            xr, xz, xn = xw.chunk(3, dim=-1)
+            hr, hz, hn = (h @ wh.t() + bh).chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * hn)
+            h = (1 - z) * n + z * h
+            return (h,), h
+    else:
+        act = torch.relu if mode == "rnn_relu" else torch.tanh
+
+        def step(carry, xw, wh, bh):
+            h = act(xw + carry[0] @ wh.t() + bh)
+            return (h,), h
+    return step
+
+
+def rnn_plain(params, data, flat, state, state_cell=None, generator=None):
+    """The `RNN` op's plain path: the JAX op's math in torch, one input
+    GEMM per layer and direction, then the step loop; returns
+    ``(out, h_n, c_n or None)``.  The CPU's route and the card's oracle."""
+    mode = params["mode"]
+    L, H = int(params["num_layers"]), int(params["state_size"])
+    bidir = bool(params["bidirectional"])
+    d = 2 if bidir else 1
+    p = float(params["p"])
+    train = params.get("_train", False)
+    ws, bs = _unpack_rnn_params(flat, mode, data.shape[2], H, L, bidir)
+    step = _cell_step(mode)
+    x = data
+    hs, cs = [], []
+    for layer in range(L):
+        outs = []
+        for dr in range(d):
+            (wx, wh), (bx, bh) = ws[layer][dr], bs[layer][dr]
+            k = layer * d + dr
+            carry = (state[k], state_cell[k]) if mode == "lstm" \
+                else (state[k],)
+            xw = (x if dr == 0 else x.flip(0)) @ wx.t() + bx
+            seq = []
+            for t in range(xw.shape[0]):
+                carry, h = step(carry, xw[t], wh, bh)
+                seq.append(h)
+            seq = torch.stack(seq)
+            outs.append(seq if dr == 0 else seq.flip(0))
+            hs.append(carry[0])
+            if mode == "lstm":
+                cs.append(carry[1])
+        x = outs[0] if d == 1 else torch.cat(outs, dim=-1)
+        if train and p > 0 and layer < L - 1:
+            keep = torch.rand(x.shape, generator=generator,
+                              device=x.device) >= p
+            x = torch.where(keep, x / (1 - p), torch.zeros_like(x))
+    return x, torch.stack(hs), torch.stack(cs) if cs else None
+
+
+def rnn_cudnn(params, data, flat, state, state_cell=None):
+    """The `RNN` op on the card: cuDNN's fused RNN through `torch.lstm`,
+    `torch.gru`, `torch.rnn_tanh` or `torch.rnn_relu`, as the
+    reference's GPU backend runs it (`cudnn_rnn-inl.h`); the flat vector
+    sliced into torch's per-layer (w_ih, w_hh, b_ih, b_hh) list.  The
+    gate orders agree (LSTM i,f,g,o; GRU r,z,n with n = tanh(xn + r (W_hn
+    h + b_hn))).  Dropout between layers draws from torch's own stream."""
+    mode = params["mode"]
+    L, H = int(params["num_layers"]), int(params["state_size"])
+    bidir = bool(params["bidirectional"])
+    train = bool(params.get("_train", False))
+    p = float(params["p"]) if train else 0.0
+    ws, bs = _unpack_rnn_params(flat, mode, data.shape[2], H, L, bidir)
+    weights = [t for layer in range(L) for dr in range(len(ws[layer]))
+               for t in ws[layer][dr] + bs[layer][dr]]
+    args = (weights, True, L, p, train, bidir, False)
+    if mode == "lstm":
+        return torch.lstm(data, (state, state_cell), *args)
+    fn = {"gru": torch.gru, "rnn_tanh": torch.rnn_tanh,
+          "rnn_relu": torch.rnn_relu}[mode]
+    out, h_n = fn(data, state, *args)
+    return out, h_n, None
+
+
+# launches of the op by route, over the process (phase 11 reads them)
+rnn_routes = {"cudnn": 0, "plain": 0}
+
+
+def _rnn_nout(params):
+    if not params.get("state_outputs"):
+        return 1
+    return 3 if params.get("mode") == "lstm" else 2
+
+
+@register("RNN", nin=-1, nout=_rnn_nout, mode_dependent=True, needs_rng=True,
+          input_names=lambda p: ["data", "parameters", "state"] + (
+              ["state_cell"] if p.get("mode") == "lstm" else []),
+          params={"state_size": REQUIRED, "num_layers": REQUIRED,
+                  "bidirectional": False, "mode": REQUIRED, "p": 0.0,
+                  "state_outputs": False, "projection_size": None,
+                  "lstm_state_clip_min": None, "lstm_state_clip_max": None,
+                  "lstm_state_clip_nan": False})
+def _rnn(params, *args):
+    """Fused multi-layer RNN.  Inputs: data (T, B, I), the flat parameter
+    vector, state (L*D, B, H) [, state_cell for lstm], the generator.
+    A CUDA tensor takes cuDNN's RNN (`rnn_cudnn`), any other the plain
+    loop (`rnn_plain`).  As in the JAX op, the projection and state-clip
+    params are accepted and not applied."""
+    mode = params["mode"]
+    generator = args[-1]
+    data, flat, state = args[0], args[1], args[2]
+    cell = args[3] if mode == "lstm" else None
+    dt = _promoted(data, flat)
+    ins = [t.to(dt) for t in (data, flat, state)] + \
+        ([cell.to(dt)] if cell is not None else [])
+    L, H = int(params["num_layers"]), int(params["state_size"])
+    d = 2 if params["bidirectional"] else 1
+    if data.device.type == "meta":
+        T, B = data.shape[:2]
+        h = torch.empty((L * d, B, H), dtype=dt, device="meta")
+        out, h_n, c_n = torch.empty((T, B, d * H), dtype=dt,
+                                    device="meta"), h, h
+    elif data.is_cuda:
+        rnn_routes["cudnn"] += 1
+        out, h_n, c_n = rnn_cudnn(params, *ins)
+    else:
+        rnn_routes["plain"] += 1
+        out, h_n, c_n = rnn_plain(params, *ins, generator=generator)
+    out = out.to(data.dtype)
+    if not params["state_outputs"]:
+        return out
+    if mode == "lstm":
+        return out, h_n.to(data.dtype), c_n.to(data.dtype)
+    return out, h_n.to(data.dtype)

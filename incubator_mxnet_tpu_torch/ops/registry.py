@@ -50,15 +50,18 @@ class OpDef:
     input_names : static list or callable(params)->list of input slot
         names; the symbolic frontend auto-creates Variables for trailing
         missing inputs (``fc1_weight``, ``fc1_bias``).
+    param_types : dict name -> converter applied to a param's value
+        after `py_literal` (a control-flow subgraph's JSON stays a
+        string even when `py_literal` parsed it).
     """
 
     __slots__ = ("name", "fn", "nin", "nout", "naux", "params", "needs_rng",
                  "mode_dependent", "stop_grad", "aliases", "input_names",
-                 "doc")
+                 "param_types", "doc")
 
     def __init__(self, name, fn, nin=1, nout=1, naux=0, params=None,
                  needs_rng=False, mode_dependent=False, stop_grad=False,
-                 aliases=(), input_names=None, doc=None):
+                 aliases=(), input_names=None, param_types=None, doc=None):
         self.name = name
         self.fn = fn
         self.nin = nin
@@ -70,6 +73,7 @@ class OpDef:
         self.stop_grad = stop_grad
         self.aliases = tuple(aliases)
         self.input_names = input_names
+        self.param_types = dict(param_types or {})
         self.doc = doc or (fn.__doc__ if fn else None)
 
     def canonicalize_params(self, kwargs):
@@ -77,7 +81,9 @@ class OpDef:
         out = {}
         for k, default in self.params.items():
             if k in kwargs and kwargs[k] is not None:
-                out[k] = _hashable(py_literal(kwargs[k]))
+                v = py_literal(kwargs[k])
+                conv = self.param_types.get(k)
+                out[k] = _hashable(v if conv is None else conv(v))
             elif default is REQUIRED:
                 raise MXNetError(
                     f"Operator {self.name}: required parameter '{k}' missing")

@@ -232,11 +232,14 @@ class Symbol:
 
     # -- binding -------------------------------------------------------------
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
-                    **kwargs):
+                    shared_arg_names=None, shared_exec=None, **kwargs):
         """Allocate argument, gradient and aux arrays from the shapes
         inferred from ``kwargs`` and return an `Executor` (reference
         `symbol.py simple_bind`).  With ``MXNET_SUBGRAPH_BACKEND`` set the
-        graph is partitioned with that backend first."""
+        graph is partitioned with that backend first.  The arguments named
+        in `shared_arg_names`, their gradients, and every aux state take
+        `shared_exec`'s arrays themselves (of the same shape) instead of
+        new ones."""
         from .. import config as _config
         from ..context import current_context
         from ..executor import Executor
@@ -246,7 +249,8 @@ class Symbol:
             from ..subgraph import partition_graph
             sym = partition_graph(self, backend)
         return Executor._simple_bind(sym, ctx or current_context(), grad_req,
-                                     type_dict, kwargs)
+                                     type_dict, kwargs, shared_exec,
+                                     shared_arg_names)
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None):
@@ -549,11 +553,41 @@ def _declared_shape(node):
     return tuple(int(d) for d in py_literal(shape))
 
 
-def _infer_graph(symbol, shapes):
+def _infer_graph(symbol, shapes, partial=False):
     """Shape inference by evaluating every op on meta tensors; parameter
     variables without a known shape are solved from their consumer's
     attrs (`_solve_param_shapes`).  Returns ({var name: shape}, [output
-    shapes])."""
+    shapes]); with `partial`, what cannot be inferred is left out (an
+    output's shape is then None) instead of raising.
+
+    A variable declared with a 0 batch dim and a ``__layout__`` (an RNN
+    cell's begin state) takes the batch size: the N of a bound input
+    with a layout first, else each of the first two dims of the first
+    bound shape in turn, the first that infers cleanly (the JAX
+    package's `_infer_graph` hints)."""
+    hints = []
+    for n in symbol._topo():
+        if n.is_variable and shapes.get(n.name):
+            layout = n._extra_attrs.get("__layout__")
+            bound = tuple(shapes[n.name])
+            if layout:
+                bpos = str(layout).find("N")
+                if 0 <= bpos < len(bound) and bound[bpos] > 0:
+                    hints.append(bound[bpos])
+    first = next((tuple(v) for v in shapes.values()
+                  if v and tuple(v)[0] > 0), None)
+    if first:
+        hints += [d for d in first[:2] if d > 0]
+    last_err = None
+    for hint in list(dict.fromkeys(hints)) or [None]:
+        try:
+            return _infer_graph_with_hint(symbol, shapes, partial, hint)
+        except MXNetError as e:
+            last_err = e
+    raise last_err
+
+
+def _infer_graph_with_hint(symbol, shapes, partial, batch_hint):
     env = {}
 
     def meta(shape):
@@ -565,6 +599,12 @@ def _infer_graph(symbol, shapes):
                 cand = shapes.get(node.name)
                 if cand is None:
                     cand = _declared_shape(node)
+                    layout = node._extra_attrs.get("__layout__")
+                    if cand and batch_hint is not None and layout:
+                        bpos = str(layout).find("N")
+                        if 0 <= bpos < len(cand) and cand[bpos] == 0:
+                            cand = cand[:bpos] + (batch_hint,) + \
+                                cand[bpos + 1:]
                 # dims of 0 are unknown (deferred init): solve them later
                 if cand is not None and all(d > 0 for d in cand):
                     env[id(node)] = (meta(cand),)
@@ -575,6 +615,9 @@ def _infer_graph(symbol, shapes):
                 _solve_param_shapes(node, env, meta)
             bad = [src.name for src, _ in node.inputs if env[id(src)] is None]
             if bad:
+                if partial:
+                    env[id(node)] = None
+                    continue
                 raise MXNetError(
                     f"infer_shape: cannot determine shape of {bad} for op "
                     f"{node.name}; provide them")
@@ -595,14 +638,65 @@ def _infer_graph(symbol, shapes):
             env[id(node)] = tuple(out[:node.op.num_outputs(params)])
     known = {n.name: tuple(env[id(n)][0].shape) for n in symbol._topo()
              if n.is_variable and env[id(n)] is not None}
-    outs = [tuple(env[id(n)][i].shape) for n, i in symbol._entries]
+    outs = [None if env[id(n)] is None else tuple(env[id(n)][i].shape)
+            for n, i in symbol._entries]
     return known, outs
+
+
+def _solve_subgraph_shapes(node, env, meta):
+    """Shapes of a control-flow node's unknown inputs from its subgraphs:
+    each subgraph's own inference with the shapes known at the node's
+    inputs (a `_foreach` data slice loses its axis 0), the variables it
+    solves written back to the outer graph (the JAX package's
+    `_solve_subgraph_shapes`; reference ForeachShape/WhileLoopShape)."""
+    from ..ops import control_flow as _cf
+    p = node.attrs
+    op_name = node.op.name
+    ins = node.inputs
+    if op_name == "_foreach":
+        nd_, ns = int(p["num_data"]), int(p["num_states"])
+        base = {"d": 0, "s": nd_, "c": nd_ + ns}
+        graphs = [(p["subgraph"], p["arg_map"])]
+    elif op_name == "_while_loop":
+        base = {"v": 0, "c": int(p["num_vars"])}
+        graphs = [(p["cond_subgraph"], p["cond_arg_map"]),
+                  (p["func_subgraph"], p["func_arg_map"])]
+    else:
+        base = {"c": 1}
+        graphs = [(p["then_subgraph"], p["then_arg_map"]),
+                  (p["else_subgraph"], p["else_arg_map"])]
+
+    def slot(tag):
+        return base[tag[0]] + int(tag[1:])
+
+    for gjson, amap in graphs:
+        sub = _cf._subgraph(_cf._json_str(gjson))
+        known = {}
+        for name, tag in amap:
+            src, oi = ins[slot(tag)]
+            if env[id(src)] is not None:
+                shp = tuple(env[id(src)][oi].shape)
+                known[name] = shp[1:] if (op_name == "_foreach" and
+                                          tag[0] == "d") else shp
+        try:
+            solved, _ = _infer_graph(sub, known, partial=True)
+        except MXNetError:
+            continue
+        for name, tag in amap:
+            shp = solved.get(name)
+            src, _ = ins[slot(tag)]
+            if shp and all(d > 0 for d in shp) and src.is_variable and \
+                    env[id(src)] is None:
+                env[id(src)] = (meta(shp),)
 
 
 def _solve_param_shapes(node, env, meta):
     """Infer unbound parameter-variable shapes from op attrs and the known
     data shape (the rules of the JAX package's `_solve_param_shapes` for
     the ops the port carries)."""
+    if node.op.name in ("_foreach", "_while_loop", "_cond"):
+        _solve_subgraph_shapes(node, env, meta)
+        return
     src0, oi0 = node.inputs[0]
     if env[id(src0)] is None:
         return
@@ -640,5 +734,12 @@ def _solve_param_shapes(node, env, meta):
         setvar(2, (c,))
     elif node.op.name == "Embedding":
         setvar(1, (int(p["input_dim"]), int(p["output_dim"])))
+    elif node.op.name == "RNN":
+        from ..ops.nn import rnn_param_size
+        h, layers = int(p["state_size"]), int(p["num_layers"])
+        bidir = bool(p.get("bidirectional"))
+        setvar(1, (rnn_param_size(p["mode"], d[2], h, layers, bidir),))
+        for i in range(2, len(node.inputs)):
+            setvar(i, (layers * (2 if bidir else 1), d[1], h))
     elif node.op.name == "SoftmaxOutput":
         setvar(1, (d[0],) + d[2:] if p.get("multi_output") else d[:-1])

@@ -7,7 +7,10 @@ thumbnail ResNet on the card against the CPU; the plain gluon loop on a
 hybridized thumbnail ResNet v2 on the card against the CPU, and the
 fused gluon step against the eager loop on the card; the checkpoint
 plane's pinned staging ordered before the next in-place update, and an
-optimizer blob written on the card loading where there is none.
+optimizer blob written on the card loading where there is none; the
+`RNN` op's cuDNN route against its plain loop, control flow, and the
+bucketed LSTM language model's `BucketingModule.fit` on the card
+against the CPU.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -1050,3 +1053,152 @@ def test_card_optimizer_blob_loads_without_a_card(tmp_path):
                  PYTHONPATH=str(root)))
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["['cpu(0)']", "1"]
+
+
+# -- slice 9: the RNN op, control flow, the bucketed LSTM LM ------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bidir", [False, True])
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_rnn_cudnn_route_matches_the_plain_loop(mode, bidir):
+    """The `RNN` op on the card (cuDNN's fused RNN through torch.lstm and
+    friends) against its plain loop on the card, fp32 with TF32 off:
+    outputs, final states and the gradient of every input, rtol 1e-4 +
+    1e-5 * max|ref|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card")
+    from incubator_mxnet_tpu_torch.ops import nn as ops_nn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    T, B, I, H, L = 7, 3, 5, 8, 2
+    d = 2 if bidir else 1
+    rng = np.random.RandomState(0)
+    n = ops_nn.rnn_param_size(mode, I, H, L, bidir)
+    vals = [rng.rand(T, B, I), rng.uniform(-0.4, 0.4, n),
+            rng.rand(L * d, B, H) - 0.5]
+    if mode == "lstm":
+        vals.append(rng.rand(L * d, B, H) - 0.5)
+    params = {"mode": mode, "num_layers": L, "state_size": H,
+              "bidirectional": bidir, "p": 0.0, "_train": True}
+    results = []
+    for route in (ops_nn.rnn_cudnn, ops_nn.rnn_plain):
+        ins = [torch.tensor(v, dtype=torch.float32, device="cuda",
+                            requires_grad=True) for v in vals]
+        outs = [o for o in route(params, *ins) if o is not None]
+        sum(o.sum() for o in outs).backward()
+        results.append([o.detach().cpu().numpy() for o in outs] +
+                       [t.grad.cpu().numpy() for t in ins])
+    for got, want in zip(*results):
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want).max())
+    before = dict(ops_nn.rnn_routes)
+    ops_nn._rnn(dict(params, state_outputs=True),
+                *[torch.tensor(v, dtype=torch.float32, device="cuda")
+                  for v in vals], None)
+    assert ops_nn.rnn_routes["cudnn"] == before["cudnn"] + 1
+
+
+@pytest.mark.cuda
+def test_control_flow_on_card_matches_the_cpu():
+    """`_foreach` with its gradient, `_while_loop` (padded, and without
+    outputs) and `_cond` on both branches, card against CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card")
+    import incubator_mxnet_tpu_torch as mx
+    s = mx.sym
+    x, st, w = s.Variable("x"), s.Variable("st"), s.Variable("w")
+    outs, fin = s.contrib.foreach(
+        lambda d, h: (s.tanh(s.broadcast_mul(d, w) + h), h * 0.5 + d),
+        x, st)
+    i, v = s.Variable("i"), s.Variable("v")
+    wl, wfin = s.contrib.while_loop(
+        cond=lambda i, v: i < 4, func=lambda i, v: ([v * i], [i + 1, v + i]),
+        loop_vars=[i, v], max_iterations=7)
+    _, nfin = s.contrib.while_loop(
+        cond=lambda i, v: i < 4, func=lambda i, v: ([], [i + 1, v * 2.0]),
+        loop_vars=[i, v], max_iterations=1000)
+    c = s.contrib.cond(s.sum(v) > 1.0, lambda: v * w, lambda: v - w)
+    graph = s.Group([s.sum(outs) + s.sum(fin)] + list(wl) + list(wfin) +
+                    list(nfin) + [c])
+    rng = np.random.RandomState(1)
+    results = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        for vv in (np.array([0.3], "f4"), np.array([1.7], "f4")):
+            args = {"x": rng.rand(6, 3), "st": rng.rand(3), "w": rng.rand(3),
+                    "i": np.array([0.0]), "v": vv}
+            args = {k: mx.nd.array(a, ctx=ctx) for k, a in args.items()}
+            grads = {"x": mx.nd.zeros((6, 3), ctx=ctx),
+                     "w": mx.nd.zeros((3,), ctx=ctx)}
+            ex = graph.bind(ctx, args, args_grad=grads)
+            out = [o.asnumpy() for o in ex.forward(is_train=True)]
+            ex.backward([mx.nd.ones(o.shape, ctx=ctx) for o in
+                         ex.outputs])
+            results.append(out + [g.asnumpy() for g in grads.values()])
+        rng = np.random.RandomState(1)
+    for got, want in zip(results[2:], results[:2]):
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, rtol=1e-5,
+                                       atol=1e-6 * max(np.abs(b).max(), 1))
+
+
+@pytest.mark.cuda
+def test_bucketed_lstm_fit_on_card_matches_the_cpu():
+    """Two epochs of the bucketed 2-layer LSTM LM (`lstm_bucketing.py`'s
+    sym_gen, vocab 40, 16 hidden, buckets 4/8/12) through
+    `BucketingModule.fit`, card against CPU from the same seed: every
+    batch's perplexity and every bucket's parameters, rtol 1e-4 + 1e-5 *
+    max|ref| (fp32, TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card")
+    import random
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.compat import weights
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    V, E, H = 40, 8, 16
+    rng = np.random.RandomState(0)
+    probs = 1.0 / np.arange(1, V + 1)
+    probs /= probs.sum()
+    corpus = [rng.choice(V, size=int(rng.randint(3, 13)), p=probs).tolist()
+              for _ in range(120)]
+    runs = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        random.seed(0)
+        np.random.seed(0)
+        mx.random.seed(0)
+        it = mx.rnn.BucketSentenceIter(corpus, 8, buckets=[4, 8, 12],
+                                       invalid_label=0)
+        stack = mx.rnn.SequentialRNNCell()
+        for i in range(2):
+            stack.add(mx.rnn.LSTMCell(H, prefix=f"lstm_l{i}_"))
+
+        def sym_gen(t):
+            emb = mx.sym.Embedding(mx.sym.Variable("data"), input_dim=V,
+                                   output_dim=E, name="embed")
+            stack.reset()
+            out, _ = stack.unroll(t, inputs=emb, merge_outputs=True)
+            pred = mx.sym.FullyConnected(mx.sym.Reshape(out, shape=(-1, H)),
+                                         num_hidden=V, name="pred")
+            lab = mx.sym.Reshape(mx.sym.Variable("softmax_label"),
+                                 shape=(-1,))
+            return mx.sym.SoftmaxOutput(pred, lab, name="softmax"), \
+                ("data",), ("softmax_label",)
+
+        mod = mx.mod.BucketingModule(sym_gen, default_bucket_key=12,
+                                     context=ctx)
+        curve = []
+        mod.fit(it, eval_metric=mx.metric.Perplexity(0), optimizer="sgd",
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                                  "wd": 1e-5, "rescale_grad": 1.0 / 8},
+                initializer=mx.initializer.Xavier(factor_type="in",
+                                                  magnitude=2.34),
+                num_epoch=2, batch_end_callback=lambda p: curve.append(
+                    p.eval_metric.get()[1]))
+        runs.append((curve, weights.bucketing_params_to_numpy(mod)))
+    (curve, params), (gcurve, gparams) = runs
+    np.testing.assert_allclose(gcurve, curve, rtol=1e-4)
+    assert sorted(gparams) == sorted(params)
+    for k, want in params.items():
+        np.testing.assert_allclose(gparams[k], want, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=k)

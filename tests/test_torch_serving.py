@@ -149,8 +149,9 @@ def test_port_imports_no_jax():
     """In a fresh interpreter, importing the port (every module, through
     the package) and driving a graph, a gluon network (the model zoo's
     ResNet, imperatively and composed), a Module.fit through the fused
-    train step and an Estimator.fit through the gluon fused step loads
-    neither jax nor the JAX package."""
+    train step, an Estimator.fit through the gluon fused step, a
+    bucketed LSTM's BucketingModule.fit and a gluon LSTM loads neither
+    jax nor the JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -166,6 +167,12 @@ def test_port_imports_no_jax():
         import incubator_mxnet_tpu_torch.ndarray.register
         import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet
         import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.vgg
+        import incubator_mxnet_tpu_torch.gluon.rnn
+        import incubator_mxnet_tpu_torch.module.bucketing_module
+        import incubator_mxnet_tpu_torch.ndarray.contrib
+        import incubator_mxnet_tpu_torch.ops.control_flow
+        import incubator_mxnet_tpu_torch.rnn
+        import incubator_mxnet_tpu_torch.symbol.contrib
         sym = mx.model_zoo.vgg_symbol(11)
         mx.subgraph.partition_graph(sym, "TPU_PALLAS").infer_shape(
             data=(1, 3, 32, 32))
@@ -189,6 +196,23 @@ def test_port_imports_no_jax():
             np.ones((8, 3, 8, 8), "f4"), np.zeros(8, "f4")), batch_size=4)
         est.fit(data, event_handlers=[])
         assert est._fused.steps == 2
+        cell = mx.rnn.LSTMCell(4, prefix="l_")
+        def sym_gen(t):
+            out, _ = cell.unroll(t, mx.sym.Embedding(
+                mx.sym.Variable("data"), input_dim=5, output_dim=3,
+                name="e"), merge_outputs=True)
+            return mx.sym.SoftmaxOutput(
+                mx.sym.FullyConnected(mx.sym.Reshape(out, shape=(-1, 4)),
+                                      num_hidden=5, name="p"),
+                mx.sym.Reshape(mx.sym.Variable("softmax_label"),
+                               shape=(-1,))), ("data",), ("softmax_label",)
+        it = mx.rnn.BucketSentenceIter([[1, 2, 3]] * 4 + [[1, 2]] * 4, 4,
+                                       buckets=[2, 3], invalid_label=0)
+        bm = mx.mod.BucketingModule(sym_gen, 3, context=mx.cpu())
+        bm.fit(it, num_epoch=1, eval_metric=mx.metric.Perplexity(0))
+        lstm = mx.gluon.rnn.LSTM(4, input_size=3)
+        lstm.initialize(ctx=mx.cpu())
+        lstm(mx.nd.array(np.ones((2, 1, 3)), ctx=mx.cpu()))
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "incubator_mxnet_tpu"))
