@@ -148,6 +148,29 @@ exits non-zero:
    bucket-60 step under torch.profiler.  e. `_while_loop` (padded, and
    stopping early) and `_cond`, card against CPU.
 
+12. BASELINE config #2, train_imagenet.py's ResNet-50 (symbols/resnet.py:
+   pre-activation v2, bn_data with fix_gamma, copied onto mx.sym) fed
+   from a .rec by `ImageRecordIter` and the h2d ring (`io_plane`); K1/K2/
+   K3 held at 0 launches as in 9.  a. a corpus of 2048 images at 256 x
+   320 (labels i % 1000) packed by the port's recordio, JPEG where a
+   codec imports (else PPM, said so); the native IO library built from
+   src/io_native.cc (a failed build fails the phase); bit for bit: the
+   native finish against the numpy finish (fp32 and uint8), the ring's
+   card batches against the iterator's host batches, uint8 + the
+   ImageNormalize op on the card against the host fp32 finish.  b. 3
+   fused steps at batch 4, 224, float64, on the iterator's batches, card
+   vs CPU (7a's gates and max-pool excuse).  c. the config at the
+   example's defaults (fp32, batch 128, SGD lr 0.1 momentum 0.9 wd 1e-4,
+   Xavier, acc + top-5, Speedometer, kvstore "device", resize 256,
+   rand_crop, rand_mirror, shuffle, the mean, preprocess_threads = the
+   host's cores) through `Module.fit` for 2 epochs of 16 batches, the
+   second timed, with the fp32 wire, the uint8 wire (ImageNormalize in
+   the graph) and one resident batch: images/s, `real_vs_resident`, ring
+   stalls, h2d bytes a batch, peak memory; the iterator alone over 2
+   epochs.  d. two warm steps on ring batches under torch.profiler: busy
+   share, host ms, the h2d copies, their streams and how much of them
+   overlaps the steps' kernels.
+
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the port's package beside it, the script exits non-zero and
@@ -456,6 +479,27 @@ LSTM_CLASSES = (
       "embedding", "Embedding", "where", "cat", "Cat", "gather",
       "scatter")),
 )
+
+# phase 12: BASELINE config #2 (BASELINE.json configs[1]; examples/
+# image_classification/train_imagenet.py with symbols/resnet.py): the
+# pre-activation ResNet-50 v2 (bn_data with fix_gamma), 3x224x224, 1000
+# classes, fed by ImageRecordIter(resize=256, rand_crop, rand_mirror,
+# shuffle, the example's mean_r/g/b) through the h2d ring, fp32, batch
+# 128, SGD lr 0.1 momentum 0.9 wd 1e-4 rescale 1/128, Xavier(gaussian,
+# in, 2), acc + TopKAccuracy(5), Speedometer(128, 20), kvstore "device"
+# (train_imagenet.py:60-113).  The corpus is synthetic (no ImageNet .rec
+# is in the repository): 2048 images at 256 x 320 (short side = resize),
+# labels i % 1000, blurred noise (tools/bench_io.py `build_corpus`) as
+# JPEG (PIL, quality 95) where a codec imports, else PPM
+IMAGENET_CORPUS = dict(n=2048, h=256, w=320)
+IMAGENET_LAYERS = 50
+IMAGENET_RESIZE = 256
+IMAGENET_MEAN = dict(mean_r=123.68, mean_g=116.78, mean_b=103.94)
+IMAGENET_STD = dict(std_r=58.4, std_g=57.1, std_b=57.4)   # 12a only
+IMAGENET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+IMAGENET_BATCH = 128
+IMAGENET_PARITY = (4, 3)        # 12b: (batch, steps), float64
+IMAGENET_CHECK = (32, 2)        # 12a: (batch, batches) held bit for bit
 
 
 def lstm_init(mx):
@@ -4039,6 +4083,589 @@ def lstm_phase(card):
     return out
 
 
+# -- phase 12: BASELINE config #2 from a .rec -------------------------------
+
+def imagenet_unit(mx, data, num_filter, stride, dim_match, name,
+                  bottle_neck=True, bn_mom=0.9):
+    """symbols/resnet.py `residual_unit` on the port's mx.sym: the
+    pre-activation unit (reference resnet.py residual_unit)."""
+    sym = mx.sym
+    if bottle_neck:
+        bn1 = sym.BatchNorm(data, fix_gamma=False, eps=2e-5,
+                            momentum=bn_mom, name=name + "_bn1")
+        act1 = sym.Activation(bn1, act_type="relu", name=name + "_relu1")
+        conv1 = sym.Convolution(act1, num_filter=int(num_filter * 0.25),
+                                kernel=(1, 1), stride=(1, 1), pad=(0, 0),
+                                no_bias=True, name=name + "_conv1")
+        bn2 = sym.BatchNorm(conv1, fix_gamma=False, eps=2e-5,
+                            momentum=bn_mom, name=name + "_bn2")
+        act2 = sym.Activation(bn2, act_type="relu", name=name + "_relu2")
+        conv2 = sym.Convolution(act2, num_filter=int(num_filter * 0.25),
+                                kernel=(3, 3), stride=stride, pad=(1, 1),
+                                no_bias=True, name=name + "_conv2")
+        bn3 = sym.BatchNorm(conv2, fix_gamma=False, eps=2e-5,
+                            momentum=bn_mom, name=name + "_bn3")
+        act3 = sym.Activation(bn3, act_type="relu", name=name + "_relu3")
+        conv3 = sym.Convolution(act3, num_filter=num_filter, kernel=(1, 1),
+                                stride=(1, 1), pad=(0, 0), no_bias=True,
+                                name=name + "_conv3")
+        shortcut = data if dim_match else sym.Convolution(
+            act1, num_filter=num_filter, kernel=(1, 1), stride=stride,
+            no_bias=True, name=name + "_sc")
+        return conv3 + shortcut
+    bn1 = sym.BatchNorm(data, fix_gamma=False, momentum=bn_mom, eps=2e-5,
+                        name=name + "_bn1")
+    act1 = sym.Activation(bn1, act_type="relu", name=name + "_relu1")
+    conv1 = sym.Convolution(act1, num_filter=num_filter, kernel=(3, 3),
+                            stride=stride, pad=(1, 1), no_bias=True,
+                            name=name + "_conv1")
+    bn2 = sym.BatchNorm(conv1, fix_gamma=False, momentum=bn_mom, eps=2e-5,
+                        name=name + "_bn2")
+    act2 = sym.Activation(bn2, act_type="relu", name=name + "_relu2")
+    conv2 = sym.Convolution(act2, num_filter=num_filter, kernel=(3, 3),
+                            stride=(1, 1), pad=(1, 1), no_bias=True,
+                            name=name + "_conv2")
+    shortcut = data if dim_match else sym.Convolution(
+        act1, num_filter=num_filter, kernel=(1, 1), stride=stride,
+        no_bias=True, name=name + "_sc")
+    return conv2 + shortcut
+
+
+def imagenet_symbol(mx, num_classes, num_layers, image_shape, bn_mom=0.9):
+    """symbols/resnet.py `get_symbol` (its `resnet`, the ImageNet branch
+    and the CIFAR branch) on the port's mx.sym."""
+    sym = mx.sym
+    nchannel, height, _ = image_shape
+    if height <= 28:
+        num_stages = 3
+        if (num_layers - 2) % 9 == 0 and num_layers >= 164:
+            units = [(num_layers - 2) // 9] * num_stages
+            filter_list, bottle_neck = [16, 64, 128, 256], True
+        elif (num_layers - 2) % 6 == 0 and num_layers < 164:
+            units = [(num_layers - 2) // 6] * num_stages
+            filter_list, bottle_neck = [16, 16, 32, 64], False
+        else:
+            raise ValueError(f"no experiments done on num_layers "
+                             f"{num_layers}")
+    else:
+        num_stages = 4
+        filter_list, bottle_neck = (
+            ([64, 256, 512, 1024, 2048], True) if num_layers >= 50 else
+            ([64, 64, 128, 256, 512], False))
+        units = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
+                 101: [3, 4, 23, 3], 152: [3, 8, 36, 3],
+                 200: [3, 24, 36, 3]}[num_layers]
+    body = sym.BatchNorm(sym.Variable(name="data"), fix_gamma=True,
+                         eps=2e-5, momentum=bn_mom, name="bn_data")
+    if height <= 32:
+        body = sym.Convolution(body, num_filter=filter_list[0],
+                               kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                               no_bias=True, name="conv0")
+    else:
+        body = sym.Convolution(body, num_filter=filter_list[0],
+                               kernel=(7, 7), stride=(2, 2), pad=(3, 3),
+                               no_bias=True, name="conv0")
+        body = sym.BatchNorm(body, fix_gamma=False, eps=2e-5,
+                             momentum=bn_mom, name="bn0")
+        body = sym.Activation(body, act_type="relu", name="relu0")
+        body = sym.Pooling(body, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                           pool_type="max")
+    for i in range(num_stages):
+        stride = (1, 1) if i == 0 and height > 32 else (2, 2) if i > 0 \
+            else (1, 1)
+        body = imagenet_unit(mx, body, filter_list[i + 1], stride, False,
+                             f"stage{i + 1}_unit1", bottle_neck, bn_mom)
+        for j in range(units[i] - 1):
+            body = imagenet_unit(mx, body, filter_list[i + 1], (1, 1), True,
+                                 f"stage{i + 1}_unit{j + 2}", bottle_neck,
+                                 bn_mom)
+    bn1 = sym.BatchNorm(body, fix_gamma=False, eps=2e-5, momentum=bn_mom,
+                        name="bn1")
+    relu1 = sym.Activation(bn1, act_type="relu", name="relu1")
+    pool1 = sym.Pooling(relu1, global_pool=True, kernel=(7, 7),
+                        pool_type="avg", name="pool1")
+    fc1 = sym.FullyConnected(sym.Flatten(pool1), num_hidden=num_classes,
+                             name="fc1")
+    return sym.SoftmaxOutput(fc1, name="softmax")
+
+
+def imagenet_iter(mx, rec, batch, **kw):
+    """train_imagenet.py's training iterator over `rec` (`rec_iters`,
+    :42-52), preprocess_threads = the host's cores."""
+    args = dict(path_imgrec=rec, data_shape=IMAGE, batch_size=batch,
+                resize=IMAGENET_RESIZE, rand_crop=True, rand_mirror=True,
+                shuffle=True, preprocess_threads=os.cpu_count(), seed=SEED,
+                **IMAGENET_MEAN)
+    args.update(kw)
+    return mx.io.ImageRecordIter(**args)
+
+
+def first_batches(it, k):
+    """The first `k` batches of `it`, then its workers stopped."""
+    out = []
+    for b in it:
+        out.append(b)
+        if len(out) == k:
+            break
+    it.close()
+    return out
+
+
+def imagenet_corpus(mx, tmp):
+    """Phase 12a's corpus: IMAGENET_CORPUS images packed by the port's
+    recordio (JPEG through a codec that imports, else PPM), encoded on
+    every core.  Returns (.rec path, format)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from incubator_mxnet_tpu_torch import image, recordio
+    n, h, w = (IMAGENET_CORPUS[k] for k in ("n", "h", "w"))
+    route = image.decode_route()
+    fmt = ".jpg" if route in ("cv2", "pil") else ".ppm"
+    cv2 = image.cv2_module()
+
+    def encode(i):
+        rng = np.random.RandomState(SEED + i)
+        img = rng.randint(0, 256, (h, w, 3), np.uint8)
+        if cv2 is not None:      # noise compresses badly: blur it
+            img = cv2.GaussianBlur(img, (9, 9), 4)
+        return recordio.pack_img(
+            recordio.IRHeader(0, float(i % CLASSES), i, 0), img,
+            img_fmt=fmt)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count()) as ex:
+        packed = list(ex.map(encode, range(n)))
+    rec = os.path.join(tmp, "train.rec")
+    w_ = recordio.MXIndexedRecordIO(os.path.join(tmp, "train.idx"), rec,
+                                    "w")
+    for i, s in enumerate(packed):
+        w_.write_idx(i, s)
+    w_.close()
+    size = os.path.getsize(rec)
+    print(f"imagenet 12a: corpus of {n} images {h}x{w}, labels i % "
+          f"{CLASSES}, packed as {fmt[1:].upper()} (decode route {route}) "
+          f"in {time.perf_counter() - t0:.1f} s: {size / 1e6:.1f} MB, "
+          f"{size / n / 1e3:.1f} kB an image; host cores "
+          f"{os.cpu_count()}")
+    if fmt == ".ppm":
+        print("imagenet 12a: no codec imports on this machine: the corpus "
+              "is PPM and the card's JPEG decode rate is not measured")
+    return rec, fmt
+
+
+def imagenet_data_checks(mx, rec):
+    """Phase 12a: IMAGENET_CHECK batches (mean and std both set), each
+    held bit for bit: the native library's finish against the numpy
+    finish (fp32 NCHW and uint8 NHWC); the ring's card batches against
+    the iterator's host batches; the uint8 batches through ImageNormalize
+    (normalize_symbol) on the card against the host fp32 finish."""
+    from incubator_mxnet_tpu_torch import io_plane, native
+    batch, k = IMAGENET_CHECK
+    check(native.lib() is not None, "the native IO library did not build "
+          f"on this machine: {native.unavailable_reason()}")
+
+    def host(u8, use_native=True):
+        lib = native.lib
+        if not use_native:
+            native.lib = lambda: None
+        try:
+            return [(b.data[0].asnumpy(), b.label[0].asnumpy()) for b in
+                    first_batches(imagenet_iter(mx, rec, batch,
+                                                device_augment=u8,
+                                                **IMAGENET_STD), k)]
+        finally:
+            native.lib = lib
+
+    def same(a, b):
+        return len(a) == len(b) == k and all(
+            x.dtype == y.dtype and np.array_equal(x, y) and
+            np.array_equal(lx, ly) for (x, lx), (y, ly) in zip(a, b))
+
+    out = {}
+    for u8 in (False, True):
+        wire = "uint8" if u8 else "float32"
+        nat, plain = host(u8), host(u8, use_native=False)
+        check(same(nat, plain), f"12a: the native and numpy finishes "
+              f"({wire}) give different batches")
+        ring = io_plane.DevicePrefetchIter(
+            imagenet_iter(mx, rec, batch, device_augment=u8,
+                          **IMAGENET_STD),
+            placement=io_plane.RingPlacement(
+                ctx=mx.gpu(0),
+                dtypes=[torch.uint8 if u8 else torch.float32, None]))
+        card_batches = [ring.next() for _ in range(k)]
+        ring.close()
+        on_card = all(d.data.device.type == mx.gpu(0).torch_device.type
+                      for b in card_batches for d in b.data + b.label)
+        got = [(b.data[0].asnumpy(), b.label[0].asnumpy())
+               for b in card_batches]
+        check(on_card and same(got, nat), f"12a: the ring's card batches "
+              f"({wire}) differ from the iterator's host batches")
+        out[wire] = (nat, card_batches)
+    wire_it = imagenet_iter(mx, rec, batch, device_augment=True,
+                            **IMAGENET_STD)
+    norm = wire_it.normalize_symbol(mx.sym.Variable("data"))
+    wire_it.close()
+    equal = 0
+    for b, (want, _) in zip(out["uint8"][1], out["float32"][0]):
+        exe = norm.bind(mx.gpu(0), {"data": b.data[0]})
+        got = exe.forward()[0]
+        equal += int(np.array_equal(got.asnumpy(), want))
+    check(equal == k, "12a: uint8 wire + ImageNormalize on the card "
+          "differs from the host fp32 finish")
+    print(f"imagenet 12a: native vs numpy finish (fp32 NCHW, uint8 NHWC), "
+          f"ring's card batches vs the host batches (both wires), uint8 + "
+          f"ImageNormalize on the card vs the host fp32 finish: {k} "
+          f"batches of {batch} each, all bit for bit ok; native IO "
+          f"library {native.lib_path().name}")
+
+
+def imagenet_steps(mx, sym, ctx, batches, teacher=None):
+    """The fused steps of the config's SGD (IMAGENET_OPT, rescale
+    1/batch) in float64 on `ctx`, from Xavier parameters under
+    mx.random.seed(SEED), on `batches`: the loss of each step and the
+    states before the first and after each; with `teacher`, step k
+    starts from the teacher's state before it (as `resnet_steps`)."""
+    batch = batches[0].data[0].shape[0]
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind([("data", (batch,) + IMAGE)], [("softmax_label", (batch,))])
+    as_float64(mod)
+    mx.random.seed(SEED)
+    mod.init_params(resnet_init(mx))
+    mod.init_optimizer(optimizer_params=dict(IMAGENET_OPT,
+                                             rescale_grad=1.0 / batch))
+    losses, states = [], [resnet_state(mod)]
+    for k, b in enumerate(batches):
+        if teacher is not None and k:
+            params, moms, auxs = teacher[k]
+            mod.set_params(params, auxs)
+            for i, n in enumerate(mod._exec_group.param_names):
+                mod._updater.states[i]._set_data(moms[n])
+        mod.fit_step(b, mx.metric.create(["acc", mx.metric.TopKAccuracy(
+            top_k=5)]))
+        losses.append(cross_entropy(mod.get_outputs()[0], b.label[0]))
+        states.append(resnet_state(mod))
+    check(mod._fused_step is not None and mod._fused_step.steps ==
+          len(batches), f"imagenet parity on {ctx}: the fused step did "
+          "not run every step")
+    return losses, states
+
+
+def imagenet_pool_routes(params, x, ctx):
+    """Which element wins each window of the v2 network's max-pool at
+    these parameters and images, on `ctx`, by the torch calls the port
+    makes: bn_data (fix_gamma, the batch's statistics), conv0 (7x7/2),
+    bn0, relu, the 3x3/2 max-pool over -inf padding."""
+    import torch.nn.functional as F
+    dev = ctx.torch_device
+
+    def t(name):
+        return torch.from_numpy(params[name]).to(dev)
+
+    beta = t("bn_data_beta")
+    h = torch.native_batch_norm(
+        torch.from_numpy(x).to(dev, beta.dtype), torch.ones_like(beta),
+        beta, None, None, True, 0.0, 2e-5)[0]
+    h = F.conv2d(h, t("conv0_weight"), stride=2, padding=3)
+    h = torch.relu(torch.native_batch_norm(h, t("bn0_gamma"), t("bn0_beta"),
+                                           None, None, True, 0.0, 2e-5)[0])
+    h = F.pad(h, (1, 1, 1, 1), value=-math.inf)
+    return F.max_pool2d(h, 3, 2, return_indices=True)[1].cpu()
+
+
+def imagenet_flipped(mx, cpu_params, gpu_params, x):
+    return int((imagenet_pool_routes(cpu_params, x, mx.cpu()) !=
+                imagenet_pool_routes(gpu_params, x, mx.gpu(0))).sum())
+
+
+def imagenet_parity(mx, sym, rec):
+    """Phase 12b: IMAGENET_PARITY fused steps of the full-width network
+    at 224 on the card against the CPU in float64, on the iterator's
+    batches, from the same Xavier parameters: 7a's gates (the loss of
+    every free-running step within rtol; each card step from the CPU's
+    state: parameters, momenta and aux arrays within PARITY_TOL; bn_data,
+    conv0 and bn0 excused only at a step where a max-pool window flipped
+    between the devices)."""
+    batch, steps = IMAGENET_PARITY
+    batches = first_batches(imagenet_iter(mx, rec, batch), steps)
+    xs = [b.data[0].asnumpy() for b in batches]
+    t0 = time.perf_counter()
+    cpu_loss, cpu = imagenet_steps(mx, sym, mx.cpu(), batches)
+    t_cpu = time.perf_counter() - t0
+    gpu_loss, gpu = imagenet_steps(mx, sym, mx.gpu(0), batches)
+    _, forced = imagenet_steps(mx, sym, mx.gpu(0), batches, teacher=cpu)
+    loss_err = max(abs(g - c) / abs(c) for g, c in zip(gpu_loss, cpu_loss))
+    free_flips = sum(imagenet_flipped(mx, c[0], g[0], x)
+                     for c, g, x in zip(cpu, gpu, xs))
+    zero = bn_fed_biases(sym)
+    excusable = ("bn_data", "conv0", "bn0")
+    held, excused, flips = (0.0, "none"), (0.0, "none"), []
+    for k, x in enumerate(xs):
+        n = imagenet_flipped(mx, cpu[k][0], cpu[k][0], x)
+        skip = excusable if n else ()
+        after, ref = forced[k + 1], cpu[k + 1]
+        held = max([held] + [resnet_ratio(a, r, zero, skip)
+                             for a, r in zip(after, ref)])
+        if n:
+            flips.append(f"step {k + 1}: {n}")
+            excused = max([excused] + [resnet_ratio(a, r, zero)
+                                       for a, r in zip(after, ref)])
+    ok = loss_err <= PARITY_TOL[0] and held[0] <= 1 and \
+        all(np.isfinite(gpu_loss))
+    print(f"imagenet 12b: {steps} fused steps of the ResNet-{IMAGENET_LAYERS}"
+          f" v2 at batch {batch}, {IMAGE[1]}x{IMAGE[2]}, float64, on the "
+          f"iterator's batches, card vs CPU (CPU {t_cpu:.1f} s): loss "
+          f"{' '.join(f'{v:.6f}' for v in gpu_loss)}; max relative loss err "
+          f"{loss_err:.2e} (rtol {PARITY_TOL[0]:g}); each step from the "
+          f"CPU's state: parameters, momenta and {len(cpu[0][2])} aux "
+          f"arrays at {held[0]:.3f} of the tolerance (worst {held[1]}) "
+          f"(rtol {PARITY_TOL[0]:g}, atol {PARITY_TOL[1]:g}*max|array|) "
+          f"{'ok' if ok else 'FAIL'}")
+    note = f"; at those steps bn_data, conv0 and bn0 at {excused[0]:.3f} " \
+        f"of the tolerance (worst {excused[1]}), not held" if flips else ""
+    print(f"imagenet 12b: max-pool windows flipped between the CPU and the "
+          f"card from the CPU's state: {', '.join(flips) or 'none'}{note}; "
+          f"along the free-running steps: {free_flips}")
+    check(ok, "imagenet: the card's float64 steps disagree with the CPU's")
+    return {"worst": held[0], "loss_err": loss_err, "cpu_s": t_cpu}
+
+
+def imagenet_lane(mx, sym, rec, card, wire):
+    """Phase 12c: the config through the public Module.fit for 2 epochs
+    of 16 batches (epoch 0 warms up; epoch 1 is timed), fed by the .rec
+    through the ring (`wire` "float32" or "uint8"), or by one resident
+    batch on the card (`wire` "resident").  images/s over epoch 1 (its
+    first batch waits on the epoch-end work and the ring's restart) and
+    over its batches 1-15 (steady), the median step ms (CUDA events at
+    batch ends), ring stalls over epoch 1, the h2d bytes a batch and the
+    ring's put rate, peak memory.  Returns (module, numbers)."""
+    batch = IMAGENET_BATCH
+    per_epoch = IMAGENET_CORPUS["n"] // batch
+    if wire == "resident":
+        it = resident_iter(mx, batch, "float32", per_epoch)
+        net = sym
+    else:
+        it = imagenet_iter(mx, rec, batch, device_augment=wire == "uint8")
+        net = sym
+        if wire == "uint8":
+            net = sym.__copy__()
+            net._compose(data=it.normalize_symbol(mx.sym.Variable("data")))
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    events, edges, rings = [], {}, {}
+
+    def probe(p):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        key = (p.epoch, p.nbatch)
+        if key in ((0, per_epoch - 1), (1, 0), (1, per_epoch - 1)):
+            torch.cuda.synchronize()
+            edges[key] = time.perf_counter()
+            ring = p.locals.get("train_data")
+            if hasattr(ring, "ring_stats"):
+                rings[key] = ring.ring_stats()
+            if p.epoch == 1 and p.nbatch == per_epoch - 1:
+                edges["metrics"] = p.eval_metric.get()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(SEED)
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=2, optimizer="sgd",
+            optimizer_params=dict(IMAGENET_OPT, rescale_grad=1.0 / batch),
+            initializer=resnet_init(mx), kvstore="device",
+            eval_metric=["acc", mx.metric.TopKAccuracy(top_k=5)],
+            batch_end_callback=[mx.callback.Speedometer(batch, 20), probe])
+    wall = time.perf_counter() - t0
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = 2 * per_epoch
+    check(mod._fused_step is not None and mod._fused_step.steps == steps,
+          f"imagenet {wire}: the fused step ran "
+          f"{getattr(mod._fused_step, 'steps', 0)} of {steps} steps")
+    start, first, end = (0, per_epoch - 1), (1, 0), (1, per_epoch - 1)
+    images_s = batch * per_epoch / (edges[end] - edges[start])
+    steady = batch * (per_epoch - 1) / (edges[end] - edges[first])
+    step_ms = [a.elapsed_time(b) for a, b in
+               zip(events[per_epoch + 1:], events[per_epoch + 2:])]
+    names, values = edges["metrics"]
+    out = {"images_s": images_s, "steady_images_s": steady,
+           "step_ms": statistics.median(step_ms), "peak_gib": mem,
+           "metrics": dict(zip(names, values))}
+    line = (f"imagenet 12c {wire}: {steps} steps through Module.fit in "
+            f"{wall:.1f} s (epoch 0 warm), fused step every step; epoch 1 "
+            f"{images_s:.1f} images/s, batches 1-{per_epoch - 1} "
+            f"{steady:.1f} images/s, step median {out['step_ms']:.3f} ms "
+            f"(CUDA events); peak memory {mem:.2f} GiB; epoch-1 train "
+            + ", ".join(f"{n} {v:.4f}" for n, v in zip(names, values)))
+    if wire != "resident":
+        r0, r1 = rings[start], rings[end]
+        batches = r1["batches"] - r0["batches"]
+        nbytes = r1["bytes"] - r0["bytes"]
+        out.update(stalls=r1["stalls"] - r0["stalls"],
+                   stall_s=r1["stall_s"] - r0["stall_s"],
+                   bytes_batch=nbytes / max(batches, 1),
+                   put_GBps=nbytes / max(r1["h2d_s"] - r0["h2d_s"], 1e-9)
+                   / 1e9)
+        line += (f"; ring over epoch 1: {out['stalls']} stalls "
+                 f"({out['stall_s'] * 1e3:.1f} ms), "
+                 f"{out['bytes_batch'] / 1e6:.2f} MB h2d a batch, "
+                 f"{out['put_GBps']:.2f} GB/s staged+copied a put")
+    print(line + f" [{card}]")
+    check(all(np.isfinite(v) for v in values),
+          f"imagenet {wire}: a training metric is not finite")
+    return mod, out
+
+
+def imagenet_iter_rate(mx, rec, card, u8):
+    """Phase 12c: the iterator alone over 2 epochs on every core."""
+    it = imagenet_iter(mx, rec, IMAGENET_BATCH, device_augment=u8)
+    t0 = time.perf_counter()
+    n = 0
+    for epoch in range(2):
+        if epoch:
+            it.reset()
+        for b in it:
+            n += b.data[0].shape[0] - (b.pad or 0)
+    dt = time.perf_counter() - t0
+    it.close()
+    rate = n / dt
+    print(f"imagenet 12c: ImageRecordIter alone ({'uint8 NHWC' if u8 else 'fp32 NCHW'}"
+          f" finish), {os.cpu_count()} threads: {n} images in {dt:.2f} s, "
+          f"{rate:.1f} images/s [{card}]")
+    return rate
+
+
+def imagenet_profile(mx, mod, rec, card, tries=3):
+    """Phase 12d: two warm fp32 steps of the lane's module back to back
+    on ring batches, under torch.profiler, as `fit` runs them: the second
+    `next()` pops while the card still runs the first step, and the
+    feeder copies the next batch then.  The host ms to enqueue the two
+    steps, the device's busy share, the ring's h2d copies in the window,
+    the time they overlap the steps' kernels (a copy on the compute
+    stream could overlap none) and the streams (CUPTI's ids) of the
+    copies and the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch import io_plane
+    ring = io_plane.DevicePrefetchIter(
+        imagenet_iter(mx, rec, IMAGENET_BATCH),
+        placement=mod._fused_step.ring_placement)
+    metric = mx.metric.create(["acc", mx.metric.TopKAccuracy(top_k=5)])
+
+    def step():
+        check(mod._fused_step(ring.next(), metric), "12d: the fused step "
+              "declined a ring batch")
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    time.sleep(0.5)            # the queue refills before the window
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            step()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end, e.name,
+                        getattr(e, "device_resource_id", None))
+                       for e in events)
+        copies = [s for s in spans if "HtoD" in s[2]]
+        if spans and copies:
+            break
+    ring.close()
+    check(spans, "12d: the profiler saw no device activity in the steps")
+    kernels = [s for s in spans if "Memcpy" not in s[2] and
+               "Memset" not in s[2]]
+    busy, edge = 0.0, -math.inf
+    for start, end, _, _ in spans:
+        busy += max(0.0, end - max(start, edge))
+        edge = max(edge, end)
+    merged = []
+    for start, end, _, _ in kernels:
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    copy_us = sum(e - s for s, e, _, _ in copies)
+    overlap_us = sum(max(0.0, min(e, me) - max(s, ms))
+                     for s, e, _, _ in copies for ms, me in merged)
+    out = {"busy": busy / 1e3 / wall_ms, "host_ms": host_ms,
+           "wall_ms": wall_ms, "copies": len(copies),
+           "copy_ms": copy_us / 1e3, "overlap_ms": overlap_us / 1e3}
+    first = spans[0][0]
+    for s0, e0, name, stream in copies:
+        print(f"imagenet 12d: {name[:40]} at {(s0 - first) / 1e3:.2f} ms "
+              f"into the window's device work, {(e0 - s0) / 1e3:.3f} ms, "
+              f"stream {stream}")
+    streams = sorted({k[3] for k in kernels}, key=str)
+    print(f"imagenet 12d: two warm fp32 steps at batch {IMAGENET_BATCH} on "
+          f"ring batches: {host_ms:.2f} ms of host time to enqueue, "
+          f"{wall_ms:.2f} ms to finish, {len(kernels)} kernels on streams "
+          f"{streams}, device busy {out['busy']:.3f}; {len(copies)} h2d "
+          f"copies, {out['copy_ms']:.3f} ms, {out['overlap_ms']:.3f} ms of "
+          f"it under the steps' kernels [{card}]")
+    return out
+
+
+def imagenet_phase(card, workdir):
+    """Phase 12; returns the numbers of the summary line.  The counts of
+    K1, K2 and K3 are set to 0 before it and must stay 0: no TPU kernel
+    is on this path (the network's one FC has no ReLU)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_stream)
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    counted = (fc_relu, flash_fwd, flash_fwd_stream)
+    for wrapper in counted:
+        wrapper.launches = 0
+    sym = imagenet_symbol(mx, CLASSES, IMAGENET_LAYERS, IMAGE)
+    args, _, aux = sym.infer_shape(data=(IMAGENET_BATCH,) + IMAGE)
+    learned = [a for n, a in zip(sym.list_arguments(), args)
+               if n not in ("data", "softmax_label")]
+    print(f"imagenet: symbols/resnet.py ResNet-{IMAGENET_LAYERS} v2 on "
+          f"mx.sym: {len(learned)} learned arguments of "
+          f"{sum(math.prod(a) for a in learned)} values, {len(aux)} aux")
+    out = {}
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        t0 = time.perf_counter()
+        rec, out["format"] = imagenet_corpus(mx, tmp)
+        imagenet_data_checks(mx, rec)
+        print(f"phase 12a: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["parity"] = imagenet_parity(mx, sym, rec)
+        print(f"phase 12b: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["iter_f32"] = imagenet_iter_rate(mx, rec, card, False)
+        out["iter_u8"] = imagenet_iter_rate(mx, rec, card, True)
+        mod, out["float32"] = imagenet_lane(mx, sym, rec, card, "float32")
+        out["profile"] = imagenet_profile(mx, mod, rec, card)
+        del mod
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, out["uint8"] = imagenet_lane(mx, sym, rec, card, "uint8")
+        _, out["resident"] = imagenet_lane(mx, sym, rec, card, "resident")
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = out["resident"]
+        for wire in ("float32", "uint8"):
+            lane = out[wire]
+            lane["real_vs_resident"] = lane["images_s"] / res["images_s"]
+            lane["steady_vs_resident"] = \
+                lane["steady_images_s"] / res["steady_images_s"]
+            print(f"imagenet 12c {wire}: real_vs_resident "
+                  f"{lane['real_vs_resident']:.3f} (epoch 1), "
+                  f"{lane['steady_vs_resident']:.3f} (steady) [{card}]")
+        print(f"phase 12c/d: {time.perf_counter() - t0:.1f} s")
+    launches = [w.launches for w in counted]
+    print(f"imagenet: K1/K2/K3 launches over phase 12: {launches} (no TPU "
+          f"kernel is on this path)")
+    check(launches == [0, 0, 0], "a K1/K2/K3 kernel ran on config #2's path")
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -4109,6 +4736,9 @@ def main():
     t0 = time.perf_counter()
     lstm = lstm_phase(card)
     print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    imagenet = imagenet_phase(card, str(_build.BUILD_DIR.parent))
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -4182,6 +4812,28 @@ def main():
           f"worst {lstm['parity']['worst']:.4f}, RNN op cuDNN "
           f"{lstm['rnn']['ms']:.3f} ms vs plain {lstm['rnn']['plain_ms']:.3f}"
           f" ms [{card}]")
+    f32, u8, res = imagenet["float32"], imagenet["uint8"], \
+        imagenet["resident"]
+    print(f"imagenet summary: config #2 (train_imagenet.py ResNet-"
+          f"{IMAGENET_LAYERS} v2, fp32, batch {IMAGENET_BATCH}, "
+          f"{imagenet['format'][1:].upper()} .rec, {os.cpu_count()} host "
+          f"cores) through Module.fit + the h2d ring: fp32 wire "
+          f"{f32['images_s']:.1f} images/s (steady "
+          f"{f32['steady_images_s']:.1f}), real_vs_resident "
+          f"{f32['real_vs_resident']:.3f}, {f32['stalls']} stalls, "
+          f"{f32['bytes_batch'] / 1e6:.2f} MB a batch; uint8 wire "
+          f"{u8['images_s']:.1f} images/s (steady "
+          f"{u8['steady_images_s']:.1f}), real_vs_resident "
+          f"{u8['real_vs_resident']:.3f}, {u8['stalls']} stalls, "
+          f"{u8['bytes_batch'] / 1e6:.2f} MB a batch; resident "
+          f"{res['images_s']:.1f} images/s; iterator alone "
+          f"{imagenet['iter_f32']:.1f} (fp32) / {imagenet['iter_u8']:.1f} "
+          f"(uint8) images/s; peak {f32['peak_gib']:.2f} GiB; profiled "
+          f"step busy {imagenet['profile']['busy']:.3f}, host "
+          f"{imagenet['profile']['host_ms']:.1f} ms, h2d overlap "
+          f"{imagenet['profile']['overlap_ms']:.3f} of "
+          f"{imagenet['profile']['copy_ms']:.3f} ms; 12b worst "
+          f"{imagenet['parity']['worst']:.3f} of the tolerance [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"

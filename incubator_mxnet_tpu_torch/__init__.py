@@ -37,7 +37,13 @@ model (BASELINE config #4) through `mod.BucketingModule.fit`: the
 control-flow ops (`_foreach`, `_while_loop`, `_cond`; `sym.contrib`,
 `nd.contrib`), the ``RNN`` op (cuDNN's on the card), `rnn` (the symbolic
 cells, `BucketSentenceIter`), `gluon.rnn`, `initializer.LSTMBias` and
-`metric.Perplexity`.
+`metric.Perplexity`.  Slice 10 trains BASELINE config #2
+(train_imagenet.py's ResNet-50) from a RecordIO pack: `recordio`, the
+native IO library (`native`, built from ``src/io_native.cc``), `image`
+(the augmenters, `ImageIter`, `ImageRecordIter`'s engine), the `io`
+iterators, the ``ImageNormalize`` op, `io_plane` (the h2d staging ring
+`Module.fit` wraps its training iterator in) and
+`metric.TopKAccuracy`.
 
     import incubator_mxnet_tpu_torch as mx
 """
@@ -71,6 +77,10 @@ from . import llm
 from . import storage
 from . import checkpoint
 from . import rnn
+from . import recordio
+from . import native
+from . import image
+from . import io_plane
 from . import test_utils
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
@@ -79,4 +89,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "model_zoo", "parallel", "random", "initializer", "init",
            "lr_scheduler", "optimizer", "metric", "io", "callback",
            "executor", "module", "mod", "gluon", "llm", "storage",
-           "checkpoint", "rnn", "test_utils"]
+           "checkpoint", "rnn", "recordio", "native", "image", "io_plane",
+           "test_utils"]

@@ -29,6 +29,19 @@ defaults, as in the JAX package: the KV-cache rows a decode tick
 advances, the prompt-length ladder, the sequences admitted per tick and
 the generation budget of a request that sets none.
 
+The data plane's knobs, as in the JAX package: ``MXNET_CPU_WORKER_NTHREADS``
+(int, 4) is `ImageRecordIter`'s default ``preprocess_threads``;
+``MXNET_USE_NATIVE_IO`` (bool, on) lets the iterators use the native IO
+library (`native.py`); ``MXNET_IO_RING`` (bool, on) makes `Module.fit`
+wrap its training iterator in the h2d staging ring
+(`io_plane.DevicePrefetchIter`), ``MXNET_IO_PREFETCH`` (int, 3) is the
+ring's device-resident depth (floor 2) and ``MXNET_IO_STAGING`` (bool, on)
+stages each batch in a reusable pinned buffer before its copy;
+``MXNET_IO_UINT8_WIRE`` (bool, on) resolves `ImageRecordIter(
+device_augment="auto")` to uint8 NHWC batches; ``MXNET_IO_AUTO_SHARD``
+(bool, on) lets an explicit ``num_parts="auto"`` shard by
+``DMLC_RANK``/``DMLC_NUM_WORKER``.
+
 ``MXNET_FLASH_INTERPRET`` is not carried over: in the port the tensor's
 device decides.  A CPU tensor takes a kernel's plain PyTorch version; a
 CUDA tensor launches the kernel or raises.
@@ -71,6 +84,29 @@ KNOBS = {
     "MXNET_DECODE_MAX_NEW": (int, 32,
                              "default generation budget of a sequence "
                              "whose request sets no max_new_tokens"),
+    "MXNET_CPU_WORKER_NTHREADS": (int, 4,
+                                  "default preprocess_threads of "
+                                  "ImageRecordIter"),
+    "MXNET_USE_NATIVE_IO": (_BOOL, True,
+                            "the iterators use the native IO library "
+                            "(native.py) where it builds"),
+    "MXNET_IO_RING": (_BOOL, True,
+                      "Module.fit wraps its training iterator in the h2d "
+                      "staging ring (io_plane.DevicePrefetchIter)"),
+    "MXNET_IO_PREFETCH": (int, 3,
+                          "device-resident depth of the h2d ring (floor "
+                          "2)"),
+    "MXNET_IO_STAGING": (_BOOL, True,
+                         "the ring stages each batch in a reusable pinned "
+                         "host buffer (with the dtype cast) before its "
+                         "copy; 0 copies from the producer's arrays"),
+    "MXNET_IO_UINT8_WIRE": (_BOOL, True,
+                            "ImageRecordIter(device_augment='auto') ships "
+                            "uint8 NHWC batches (normalize_symbol does the "
+                            "rest on the device)"),
+    "MXNET_IO_AUTO_SHARD": (_BOOL, True,
+                            "an explicit num_parts='auto' shards by "
+                            "DMLC_RANK/DMLC_NUM_WORKER; 0 keeps one part"),
 }
 
 

@@ -187,6 +187,14 @@ class FusedTrainStep:
         self.steps += 1
         return True
 
+    def ring_placement(self):
+        """Where the h2d ring lands this step's batches
+        (`io_plane.RingPlacement`): the executor's device and, per input,
+        the bound argument's dtype (labels uncast), so the executor takes
+        each one with a device-to-device copy and no cast."""
+        from .io_plane import RingPlacement
+        return RingPlacement.for_fused_step(self)
+
 
 def _metric_leaves(eval_metric):
     """The leaf metrics of `eval_metric`, or None when one of them cannot

@@ -1,12 +1,19 @@
 """Data iterators (reference `python/mxnet/io.py`).
 
-PyTorch port of `DataDesc`, `DataBatch`, `DataIter` and `NDArrayIter`
-from `incubator_mxnet_tpu/io.py`.  Batches are NDArrays
-on the CPU; an executor copies them to its device.  `NDArrayIter`
-shuffles with the global ``np.random``, as the JAX package's does, so
-one numpy seed gives both packages the same batch order.
+PyTorch port of `incubator_mxnet_tpu/io.py`: `DataDesc`, `DataBatch`,
+`DataIter`, `NDArrayIter`, `ResizeIter`, `PrefetchingIter`, `CSVIter`,
+`MNISTIter`, `LibSVMIter` and the `ImageRecordIter` factory (its engine
+is `image.ImageRecordIterImpl`).  Batches are NDArrays on the CPU; the
+h2d ring (`io_plane`) or an executor copies them to its device.
+`NDArrayIter` shuffles with the global ``np.random``, as the JAX
+package's does, so one numpy seed gives both packages the same batch
+order.
 """
 from __future__ import annotations
+
+import queue as _queue
+import struct
+import threading
 
 import numpy as _np
 
@@ -14,7 +21,9 @@ from .base import MXNetError
 from .context import cpu
 from .ndarray.ndarray import NDArray, array
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
+           "PrefetchingIter", "CSVIter", "MNISTIter", "LibSVMIter",
+           "ImageRecordIter", "ImageRecordIter_v1"]
 
 
 class DataDesc:
@@ -242,3 +251,361 @@ def _init_data(data, allow_empty, default_name):
         raise TypeError("Input must be NDArray, numpy.ndarray, list or dict")
     return [(k, v.asnumpy() if isinstance(v, NDArray) else _np.asarray(v))
             for k, v in data.items()]
+
+
+class ResizeIter(DataIter):
+    """Resize an iterator to a fixed number of batches per epoch
+    (reference `io.py:ResizeIter`); the inner iterator restarts when it
+    runs out."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__()
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+        self.batch_size = data_iter.batch_size
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class PrefetchingIter(DataIter):
+    """A producer thread pulls batches from the inner iterators while the
+    consumer trains (reference `io.py PrefetchingIter`, C++
+    `iter_prefetcher.h`); several iterators' batches join into one."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None,
+                 prefetch_depth=2):
+        super().__init__()
+        if not isinstance(iters, list):
+            iters = [iters]
+        self.n_iter = len(iters)
+        self.iters = iters
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self.batch_size = self.provide_data[0].shape[0]
+        self._queue = _queue.Queue(maxsize=prefetch_depth)
+        self._stop = threading.Event()
+        self._thread = None
+        self._start()
+
+    @property
+    def provide_data(self):
+        if self.rename_data is None:
+            return sum([i.provide_data for i in self.iters], [])
+        return sum([[DataDesc(r[x.name], x.shape, x.dtype)
+                     if isinstance(r, dict) else x
+                     for x in i.provide_data]
+                    for r, i in zip(self.rename_data, self.iters)], [])
+
+    @property
+    def provide_label(self):
+        if self.rename_label is None:
+            return sum([i.provide_label for i in self.iters], [])
+        return sum([[DataDesc(r[x.name], x.shape, x.dtype)
+                     if isinstance(r, dict) else x
+                     for x in i.provide_label]
+                    for r, i in zip(self.rename_label, self.iters)], [])
+
+    def _producer(self, stop):
+        while not stop.is_set():
+            try:
+                batches = [i.next() for i in self.iters]
+            except StopIteration:
+                self._queue.put(None)
+                return
+            self._queue.put(batches)
+
+    def _start(self):
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._producer,
+                                        args=(self._stop,), daemon=True,
+                                        name="mx-io-prefetch")
+        self._thread.start()
+
+    def reset(self):
+        self._stop.set()
+        # drain until the producer has left (it may be blocked on a full
+        # queue, or about to put its end marker)
+        while self._thread is not None and self._thread.is_alive():
+            try:
+                self._queue.get(timeout=0.05)
+            except _queue.Empty:
+                pass
+        while True:
+            try:
+                self._queue.get_nowait()
+            except _queue.Empty:
+                break
+        for i in self.iters:
+            i.reset()
+        self._start()
+
+    def next(self):
+        batches = self._queue.get()
+        if batches is None:
+            self._queue.put(None)   # stay exhausted until reset
+            raise StopIteration
+        data = sum([b.data for b in batches], [])
+        label = sum([(b.label or []) for b in batches], [])
+        return DataBatch(data=data, label=label, pad=batches[0].pad,
+                         index=batches[0].index,
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+    def iter_next(self):
+        try:
+            self._cached = self.next()
+            return True
+        except StopIteration:
+            return False
+
+
+class CSVIter(DataIter):
+    """Reference `src/io/iter_csv.cc`: batches from CSV text."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None,
+                 label_shape=(1,), batch_size=1, round_batch=True,
+                 **kwargs):
+        super().__init__(batch_size)
+        data = _np.loadtxt(data_csv, delimiter=",", ndmin=2, dtype="float32")
+        data = data.reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = _np.loadtxt(label_csv, delimiter=",", ndmin=2,
+                                dtype="float32")
+            label = label.reshape((-1,) + tuple(label_shape))
+            if label_shape == (1,):
+                label = label.reshape(-1)
+        else:
+            label = _np.zeros(data.shape[0], dtype="float32")
+        self._inner = NDArrayIter(data, label, batch_size,
+                                  last_batch_handle="pad" if round_batch
+                                  else "discard", label_name="label")
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+
+class MNISTIter(DataIter):
+    """Reference `src/io/iter_mnist.cc`: reads idx-format MNIST files
+    (optionally gzipped); pixels scaled to [0, 1]."""
+
+    def __init__(self, image, label, batch_size=128, shuffle=True,
+                 flat=False, silent=False, seed=None, **kwargs):
+        super().__init__(batch_size)
+        imgs = _read_idx_images(image).astype("float32") / 255.0
+        lbls = _read_idx_labels(label)
+        if flat:
+            imgs = imgs.reshape(imgs.shape[0], -1)
+        else:
+            imgs = imgs.reshape(imgs.shape[0], 1, imgs.shape[1],
+                                imgs.shape[2])
+        self._inner = NDArrayIter(imgs, lbls.astype("float32"), batch_size,
+                                  shuffle=shuffle,
+                                  last_batch_handle="discard")
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+
+def _open_maybe_gz(path):
+    import gzip
+    return (gzip.open if path.endswith(".gz") else open)(path, "rb")
+
+
+def _read_idx_images(path):
+    with _open_maybe_gz(path) as f:
+        magic, n, rows, cols = struct.unpack(">IIII", f.read(16))
+        if magic != 2051:
+            raise MXNetError(f"bad MNIST image magic {magic}")
+        return _np.frombuffer(f.read(n * rows * cols),
+                              dtype=_np.uint8).reshape(n, rows, cols)
+
+
+def _read_idx_labels(path):
+    with _open_maybe_gz(path) as f:
+        magic, n = struct.unpack(">II", f.read(8))
+        if magic != 2049:
+            raise MXNetError(f"bad MNIST label magic {magic}")
+        return _np.frombuffer(f.read(n), dtype=_np.uint8)
+
+
+def ImageRecordIter(**kwargs):
+    """Reference `src/io/iter_image_recordio_2.cc` (param-compatible
+    factory) over `image.ImageRecordIterImpl`."""
+    from .image import ImageRecordIterImpl
+    return ImageRecordIterImpl(**kwargs)
+
+
+def ImageRecordIter_v1(**kwargs):
+    return ImageRecordIter(**kwargs)
+
+
+class LibSVMIter(DataIter):
+    """Reference `src/io/iter_libsvm.cc`: batches from libsvm-format text
+    (``label idx:val idx:val ...``).  Data batches are CSR
+    (`ndarray.sparse.CSRNDArray`); labels are dense unless a separate
+    `label_libsvm` file is given, in which case they are CSR too."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=(1,), batch_size=1, round_batch=True,
+                 **kwargs):
+        super().__init__(batch_size)
+        self._data_shape = tuple(data_shape)
+        self._label_shape = tuple(label_shape) \
+            if not isinstance(label_shape, int) else (int(label_shape),)
+        self._round_batch = round_batch
+        vals, idxs, ptr, labels = self._parse(data_libsvm,
+                                              self._data_shape[0])
+        self._vals, self._idxs, self._ptr = vals, idxs, ptr
+        if label_libsvm is not None:
+            lv, li, lp, _ = self._parse(label_libsvm, self._label_shape[0])
+            self._lvals, self._lidxs, self._lptr = lv, li, lp
+            self._labels = None
+        else:
+            # inline labels: every leading non-feature field, laid out to
+            # label_shape's width
+            k = 1 if self._label_shape == (1,) else self._label_shape[0]
+            lab = _np.zeros((len(labels), k), dtype="float32")
+            for i, row in enumerate(labels):
+                if row:
+                    lab[i, :min(len(row), k)] = row[:k]
+            self._labels = lab[:, 0] if k == 1 else lab
+            self._lvals = None
+        self._n = len(ptr) - 1
+        self._cur = 0
+
+    @staticmethod
+    def _parse(path, width):
+        vals, idxs, ptr, labels = [], [], [0], []
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                parts = line.split()
+                i = 0
+                lab = []
+                while i < len(parts) and ":" not in parts[i]:
+                    lab.append(float(parts[i]))
+                    i += 1
+                labels.append(lab)
+                for tok in parts[i:]:
+                    k, v = tok.split(":")
+                    if int(k) >= width:
+                        raise MXNetError(
+                            f"LibSVMIter: feature index {k} >= data_shape "
+                            f"width {width}")
+                    idxs.append(int(k))
+                    vals.append(float(v))
+                ptr.append(len(vals))
+        return (_np.asarray(vals, "float32"), _np.asarray(idxs, _np.int64),
+                _np.asarray(ptr, _np.int64), labels)
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self._data_shape[0]))]
+
+    @property
+    def provide_label(self):
+        shape = (self.batch_size,) if self._label_shape == (1,) else \
+            (self.batch_size,) + self._label_shape
+        return [DataDesc("softmax_label", shape)]
+
+    def reset(self):
+        self._cur = 0
+
+    @staticmethod
+    def _csr_rows(vals, idxs, ptr, ranges, width):
+        """CSR batch over concatenated [lo, hi) row ranges, never
+        densified."""
+        from .ndarray.sparse import CSRNDArray
+        v_parts, i_parts, new_ptr = [], [], [0]
+        n = 0
+        for lo, hi in ranges:
+            seg = ptr[lo:hi + 1]
+            v_parts.append(vals[seg[0]:seg[-1]])
+            i_parts.append(idxs[seg[0]:seg[-1]])
+            base = new_ptr[-1] - seg[0]
+            new_ptr.extend((seg[1:] + base).tolist())
+            n += hi - lo
+        return CSRNDArray(
+            _np.concatenate(v_parts) if v_parts else vals[:0],
+            _np.concatenate(i_parts) if i_parts else idxs[:0],
+            _np.asarray(new_ptr, _np.int64), (n, width))
+
+    def next(self):
+        if self._cur >= self._n:
+            raise StopIteration
+        lo = self._cur
+        hi = min(lo + self.batch_size, self._n)
+        pad = self.batch_size - (hi - lo)
+        if pad and not self._round_batch:
+            raise StopIteration
+        self._cur = hi
+        # round_batch: the tail wraps rows from the epoch start
+        ranges = [(lo, hi)] + ([(0, pad)] if pad else [])
+        data = self._csr_rows(self._vals, self._idxs, self._ptr, ranges,
+                              self._data_shape[0])
+        if self._labels is not None:
+            lab = self._labels[lo:hi]
+            if pad:
+                lab = _np.concatenate([lab, self._labels[:pad]])
+            label = array(lab, ctx=cpu())
+        else:
+            label = self._csr_rows(self._lvals, self._lidxs, self._lptr,
+                                   ranges, self._label_shape[0])
+        return DataBatch(data=[data], label=[label], pad=pad,
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)

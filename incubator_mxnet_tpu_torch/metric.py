@@ -1,8 +1,8 @@
 """Evaluation metrics (reference `python/mxnet/metric.py`).
 
 PyTorch port of `EvalMetric`, `CompositeEvalMetric`, `Accuracy`,
-`CrossEntropy`, `Perplexity`, `create` and the registry from
-`incubator_mxnet_tpu/metric.py`.  The three count on
+`TopKAccuracy`, `CrossEntropy`, `Perplexity`, `create` and the registry
+from `incubator_mxnet_tpu/metric.py`.  The metrics count on
 the device of the predictions: `device_update` gives a batch's (sum,
 count) as tensors there (the JAX package's in-graph `device_update`),
 `update` adds them to running totals on that device, and only `get`
@@ -20,8 +20,9 @@ import torch
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
-__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "CrossEntropy",
-           "Perplexity", "create", "register", "check_label_shapes"]
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
+           "CrossEntropy", "Perplexity", "create", "register",
+           "check_label_shapes"]
 
 _METRIC_REGISTRY = {}
 
@@ -192,6 +193,56 @@ class Accuracy(EvalMetric):
             pred = pred.to(torch.int32).reshape(-1)
             dsum = dsum + (pred == lab).sum()
             dnum = dnum + pred.numel()
+        return _pair(dsum, dnum)
+
+
+@register
+@alias("top_k_accuracy", "top_k_acc")
+class TopKAccuracy(EvalMetric):
+    """Share of rows whose label is among the `top_k` largest predictions
+    (reference `metric.py:TopKAccuracy`)."""
+
+    def __init__(self, top_k=1, name="top_k_accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names, top_k=top_k)
+        self.top_k = top_k
+        assert self.top_k > 1, "Please use Accuracy if top_k is no more than 1"
+        self.name += f"_{self.top_k}"
+
+    def update(self, labels, preds):
+        """The batch's counts added to the totals on the device; a 1-D
+        prediction compares its argsort with the labels, as the
+        reference's host update does."""
+        labels, preds = check_label_shapes(labels, preds)
+        dsum = dnum = 0
+        for label, pred_label in zip(labels, preds):
+            pred = _as_tensor(pred_label)
+            if pred.ndim == 1:
+                lab = _as_tensor(label, pred.device).to(torch.int32)
+                order = torch.argsort(pred.float(), stable=True)
+                s, n = (order.to(torch.int32) == lab.reshape(-1)).sum(), \
+                    pred.shape[0]
+            else:
+                s, n = self.device_update([label], [pred_label])
+            dsum, dnum = dsum + s, dnum + n
+        self._accumulate(*_pair(dsum, dnum))
+
+    def device_update(self, labels, preds):
+        """(rows whose label is in the top k, rows) of one batch, as
+        tensors on the predictions' device: a stable argsort in float32,
+        as the JAX package's in-graph update sorts, so ties rank alike."""
+        labels, preds = check_label_shapes(labels, preds)
+        dsum = dnum = 0
+        for label, pred_label in zip(labels, preds):
+            pred = _as_tensor(pred_label)
+            if pred.ndim != 2:
+                raise ValueError(f"TopKAccuracy expects 2-D predictions, "
+                                 f"got {tuple(pred.shape)}")
+            top_k = min(pred.shape[1], self.top_k)
+            top = torch.argsort(pred.float(), dim=1, stable=True)[:, -top_k:]
+            lab = _as_tensor(label, pred.device).reshape(-1).to(torch.int64)
+            dsum = dsum + (top == lab[:, None]).sum()
+            dnum = dnum + pred.shape[0]
         return _pair(dsum, dnum)
 
 

@@ -7,10 +7,11 @@ batch (`Module`'s runs the fused train step where it can, else
 `forward_backward`, `update` and `update_metric`), the batch-end
 callbacks after each, and the elastic checkpoints of `_fit_attempt`
 (``checkpoint_dir``, ``checkpoint_period``, ``checkpoint_keep_last``,
-``resume``; `checkpoint/`).  The other planes the JAX `fit` wraps around
-that loop are not ported (README "Declared divergences"): the fused
-step's K-step blocks, the training guardian and its rollback, the h2d
-staging ring, the supervisor, the program cache, failover after a lost
+``resume``; `checkpoint/`), and the h2d staging ring around the training
+iterator (`_wrap_io_ring`, ``MXNET_IO_RING``).  The other planes the JAX
+`fit` wraps around that loop are not ported (README "Declared
+divergences"): the fused step's K-step blocks, the training guardian and
+its rollback, the supervisor, the program cache, failover after a lost
 server and shrink-and-resume (``max_restarts``, ``mesh``).
 """
 from __future__ import annotations
@@ -207,6 +208,9 @@ class BaseModule:
             eval_metric = _metric.create(eval_metric)
         if ckpt_mgr is not None:
             ckpt_mgr.install_preemption_hook()
+        # after init_optimizer (and the restore, which may rebuild the
+        # fused step): the step's placement binds the ring
+        train_data, io_ring = self._wrap_io_ring(train_data)
         try:
             self._fit_epochs(
                 train_data, eval_data, eval_metric, validation_metric,
@@ -214,6 +218,10 @@ class BaseModule:
                 eval_batch_end_callback, begin_epoch, num_epoch, ckpt_mgr,
                 ckpt_resume, resume_nbatch, gstep, checkpoint_period)
         finally:
+            if io_ring is not None:
+                # stop the feeder and drop the read-ahead; the inner
+                # iterator stays usable for the caller
+                io_ring._pause()
             if ckpt_mgr is not None:
                 try:
                     ckpt_mgr.flush()
@@ -289,6 +297,24 @@ class BaseModule:
                     lambda: self._elastic_snapshot(
                         ckpt_mgr, train_data, epoch + 1, 0, gstep,
                         sync=True, meta={"preempted": True}))
+
+    def _wrap_io_ring(self, train_data):
+        """The training iterator wrapped in the h2d staging ring
+        (`io_plane.DevicePrefetchIter`) when ``MXNET_IO_RING`` is on and
+        a fused train step supplies the placement; returns ``(iterator,
+        ring or None)``, the caller pausing the ring when fit ends."""
+        from .. import config as _config
+        from .. import io_plane as _io_plane
+        fs = getattr(self, "_fused_step", None)
+        if fs is None or not _config.get("MXNET_IO_RING") or \
+                isinstance(train_data, _io_plane.DevicePrefetchIter) or \
+                not hasattr(train_data, "next") or \
+                not hasattr(train_data, "reset"):
+            return train_data, None
+        wrapped = _io_plane.DevicePrefetchIter(
+            train_data, placement=lambda: self._fused_step.ring_placement(),
+            name="fit")
+        return wrapped, wrapped
 
     def _elastic_snapshot(self, mgr, train_data, epoch, nbatch, step,
                           sync=False, meta=None):

@@ -23,6 +23,12 @@ def _dtype_name(dtype):
     return np.dtype(dtype).name
 
 
+def _consumers(symbol, name):
+    """Names of the ops that read variable `name`."""
+    return {node.op.name for node in symbol._topo() if not node.is_variable
+            for src, _ in node.inputs if src.is_variable and src.name == name}
+
+
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
@@ -70,6 +76,15 @@ class DataParallelExecutorGroup:
                          if n not in self.label_names}
             for l in self.label_shapes:
                 type_dict[l.name] = _dtype_name(l.dtype)
+
+        # a uint8 image input read only by ImageNormalize binds as uint8,
+        # so the bytes that cross to the device are uint8 (the JAX group
+        # binds it float32 and the cast happens on the host)
+        for d in self.data_shapes:
+            if _dtype_name(d.dtype) == "uint8" and \
+                    _consumers(symbol, d.name) == {"ImageNormalize"}:
+                type_dict = dict(type_dict or {})
+                type_dict[d.name] = "uint8"
 
         shapes = {d.name: d.shape for d in self.data_shapes}
         shapes.update({l.name: l.shape for l in self.label_shapes})

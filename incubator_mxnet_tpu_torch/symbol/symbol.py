@@ -221,12 +221,16 @@ class Symbol:
 
     def infer_type(self, *args, **kwargs):
         """(arg_types, out_types, aux_types): the given types, float32 for
-        the rest, as the JAX package's `infer_type` reports them."""
+        the rest, as the JAX package's `infer_type` reports them, except
+        that an output of ImageNormalize has the op's ``dtype``."""
         arg_names = self.list_arguments()
         dtypes = {n: t for n, t in zip(arg_names, args) if t is not None}
         dtypes.update(kwargs)
+        out_types = [_out_dtype(n.attrs.get("dtype", "float32"))
+                     if not n.is_variable and n.op.name == "ImageNormalize"
+                     else _np.dtype(_np.float32) for n, _ in self._entries]
         return ([_np.dtype(dtypes.get(n, _np.float32)) for n in arg_names],
-                [_np.dtype(_np.float32)] * len(self._entries),
+                out_types,
                 [_np.dtype(dtypes.get(n, _np.float32))
                  for n in self.list_auxiliary_states()])
 
@@ -542,6 +546,13 @@ def graph_eval_fn(symbol, is_train):
         return outputs, tuple(new_aux[id(n)] for n in aux_nodes)
 
     return fn, arg_nodes, aux_nodes
+
+
+def _out_dtype(name):
+    """numpy dtype of a dtype param; bfloat16, which numpy lacks, as the
+    torch dtype (as `NDArray.dtype` reports it)."""
+    name = str(name)
+    return torch.bfloat16 if name == "bfloat16" else _np.dtype(name)
 
 
 def _declared_shape(node):

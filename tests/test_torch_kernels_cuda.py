@@ -10,7 +10,9 @@ plane's pinned staging ordered before the next in-place update, and an
 optimizer blob written on the card loading where there is none; the
 `RNN` op's cuDNN route against its plain loop, control flow, and the
 bucketed LSTM language model's `BucketingModule.fit` on the card
-against the CPU.
+against the CPU; the native IO library's build, the h2d ring's card
+batches against the host batches, ImageNormalize on the card against
+the host fp32 finish and `TopKAccuracy.device_update` on the card.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -1202,3 +1204,111 @@ def test_bucketed_lstm_fit_on_card_matches_the_cpu():
         np.testing.assert_allclose(gparams[k], want, rtol=1e-4,
                                    atol=1e-5 * np.abs(want).max(),
                                    err_msg=k)
+
+
+# -- slice 10: the data plane of config #2 on the card ------------------------
+
+def _rec_corpus(tmp_path, n=12, fmt=".jpg"):
+    from incubator_mxnet_tpu_torch import recordio
+    rng = np.random.RandomState(0)
+    rec = str(tmp_path / "c.rec")
+    w = recordio.MXIndexedRecordIO(str(tmp_path / "c.idx"), rec, "w")
+    for i in range(n):
+        img = rng.randint(0, 256, (40 + i % 3, 44, 3), np.uint8)
+        w.write_idx(i, recordio.pack_img(recordio.IRHeader(0, float(i), i, 0),
+                                         img, img_fmt=fmt))
+    w.close()
+    return rec
+
+
+@pytest.mark.cuda
+def test_native_io_library_builds_from_the_source():
+    """The native IO library compiles from src/io_native.cc into build/
+    on this machine (the prebuilt src/libmxtpu_io.so is never read)."""
+    _need_card()
+    from incubator_mxnet_tpu_torch import native
+    lib = native.lib()
+    assert lib is not None, native.unavailable_reason()
+    assert native.lib_path().exists()
+    assert native.lib_path().parent.parent.name == "build"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "uint8"])
+def test_ring_batches_on_the_card_equal_the_host_batches(tmp_path, wire):
+    """The ring's card batches (pinned staging, the copy stream, the
+    event the current stream waits on) equal the iterator's host batches
+    bit for bit, and every staging buffer went back to its pool."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import io_plane, storage
+    rec = _rec_corpus(tmp_path)
+    kw = dict(path_imgrec=rec, data_shape=(3, 32, 32), batch_size=4,
+              rand_crop=True, rand_mirror=True, resize=36, shuffle=True,
+              device_augment=wire == "uint8", mean_r=123.68, std_g=57.1)
+    host = [(b.data[0].asnumpy(), b.label[0].asnumpy())
+            for b in mx.io.ImageRecordIter(**kw)]
+    pool = storage.default_pool()
+    assert pool.pinned
+    hits = pool.stats()["hits"]
+    dtypes = [torch.uint8 if wire == "uint8" else torch.float32, None]
+    ring = io_plane.DevicePrefetchIter(
+        mx.io.ImageRecordIter(**kw),
+        placement=io_plane.RingPlacement(ctx=mx.gpu(0), dtypes=dtypes))
+    got = []
+    for b in ring:
+        assert b.data[0].data.is_cuda and b.label[0].data.is_cuda
+        got.append((b.data[0].asnumpy(), b.label[0].asnumpy()))
+    torch.cuda.synchronize()
+    assert len(got) == len(host) == 3
+    for (gd, gl), (hd, hl) in zip(got, host):
+        assert gd.dtype == hd.dtype and np.array_equal(gd, hd)
+        assert np.array_equal(gl, hl)
+    stats = ring.ring_stats()
+    per_batch = 4 * 32 * 32 * 3 * (1 if wire == "uint8" else 4) + 4 * 4
+    assert stats["bytes"] == stats["batches"] * per_batch
+    # each batch's buffers came back before the next batch took them
+    assert pool.stats()["hits"] - hits >= 2 * (stats["batches"] - 1)
+    ring.close()
+
+
+@pytest.mark.cuda
+def test_image_normalize_on_the_card_equals_the_host_fp32_path(tmp_path):
+    """uint8 batches through ImageNormalize on the card equal the
+    iterator's fp32 host finish (the native library) bit for bit."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    rec = _rec_corpus(tmp_path)
+    kw = dict(path_imgrec=rec, data_shape=(3, 32, 32), batch_size=4,
+              rand_crop=True, rand_mirror=True, resize=36, seed=2,
+              mean_r=123.68, mean_g=116.78, mean_b=103.94, std_r=58.4,
+              std_g=57.1, std_b=57.4)
+    host = mx.io.ImageRecordIter(device_augment=False, **kw)
+    wire = mx.io.ImageRecordIter(device_augment=True, **kw)
+    sym = wire.normalize_symbol(mx.sym.Variable("data"))
+    for hb, wb in zip(host, wire):
+        u8 = wb.data[0].as_in_context(mx.gpu(0))
+        exe = sym.bind(mx.gpu(0), {"data": u8})
+        got = exe.forward()[0]
+        assert got.data.is_cuda
+        assert np.array_equal(got.asnumpy(), hb.data[0].asnumpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,classes", [(5, 1000), (8, 6)])
+def test_topk_device_update_on_the_card_equals_update(k, classes):
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    rng = np.random.RandomState(k)
+    host, dev = mx.metric.TopKAccuracy(top_k=k), \
+        mx.metric.TopKAccuracy(top_k=k)
+    for _ in range(3):
+        pred = rng.rand(128, classes).astype(np.float32)
+        lab = rng.randint(0, classes, 128).astype(np.float32)
+        host.update([mx.nd.array(lab, ctx=mx.cpu())],
+                    [mx.nd.array(pred, ctx=mx.cpu())])
+        s, n = dev.device_update([mx.nd.array(lab, ctx=mx.gpu(0))],
+                                 [mx.nd.array(pred, ctx=mx.gpu(0))])
+        assert s.is_cuda and n.is_cuda
+        dev._accumulate(s, n)
+    assert dev.get() == host.get()

@@ -150,9 +150,11 @@ def test_port_imports_no_jax():
     the package) and driving a graph, a gluon network (the model zoo's
     ResNet, imperatively and composed), a Module.fit through the fused
     train step, an Estimator.fit through the gluon fused step, a
-    bucketed LSTM's BucketingModule.fit and a gluon LSTM loads neither
-    jax nor the JAX package."""
+    Module.fit from a .rec through ImageRecordIter, ImageNormalize and
+    the h2d ring, a bucketed LSTM's BucketingModule.fit and a gluon LSTM
+    loads neither jax nor the JAX package."""
     code = textwrap.dedent("""
+        import os
         import sys
         import numpy as np
         import incubator_mxnet_tpu_torch as mx
@@ -173,6 +175,30 @@ def test_port_imports_no_jax():
         import incubator_mxnet_tpu_torch.ops.control_flow
         import incubator_mxnet_tpu_torch.rnn
         import incubator_mxnet_tpu_torch.symbol.contrib
+        import incubator_mxnet_tpu_torch.recordio
+        import incubator_mxnet_tpu_torch.native
+        import incubator_mxnet_tpu_torch.image
+        import incubator_mxnet_tpu_torch.io_plane
+        import incubator_mxnet_tpu_torch.ndarray.sparse
+        import incubator_mxnet_tpu_torch.ops.image_ops
+        import tempfile
+        rec = os.path.join(tempfile.mkdtemp(), "a.rec")
+        w = mx.recordio.MXRecordIO(rec, "w")
+        for i in range(4):
+            w.write(mx.recordio.pack_img(
+                mx.recordio.IRHeader(0, float(i), i, 0),
+                np.full((10, 10, 3), i, np.uint8), img_fmt=".ppm"))
+        w.close()
+        it = mx.io.ImageRecordIter(path_imgrec=rec, data_shape=(3, 8, 8),
+                                   batch_size=2, rand_crop=True,
+                                   device_augment=True)
+        data = it.normalize_symbol(mx.sym.Variable("data"))
+        net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+            data, num_hidden=4), name="softmax")
+        mod = mx.mod.Module(net, context=mx.cpu())
+        mod.fit(it, num_epoch=1, eval_metric=["acc",
+                mx.metric.TopKAccuracy(top_k=2)])
+        assert mod._fused_step.steps == 2
         sym = mx.model_zoo.vgg_symbol(11)
         mx.subgraph.partition_graph(sym, "TPU_PALLAS").infer_shape(
             data=(1, 3, 32, 32))
