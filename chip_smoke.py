@@ -170,6 +170,31 @@ exits non-zero:
    epochs.  d. two warm steps on ring batches under torch.profiler: busy
    share, host ms, the h2d copies, their streams and how much of them
    overlaps the steps' kernels.
+13. BASELINE config #5, train_ssd.py's SSD-VGG16 (VGG16-reduced at full
+   width, 4 feature scales, MultiBoxPrior/MultiBoxTarget, SoftmaxOutput
+   and MakeLoss(smooth_l1) heads, MultiBoxDetection in every forward;
+   copied onto mx.sym); K1/K2/K3 held at 0 launches as in 9.  a. every
+   ported detection, spatial and deformable op on the card against the
+   CPU at the SSD's shapes (anchors within 1 ulp; MultiBoxTarget and
+   MultiBoxDetection/box_nms equal outside counted near ties; ROI,
+   spatial and deformable ops and their gradients within rtol 1e-5 +
+   1e-6*max), the NMS route against the per-box loop on the card,
+   bitwise, at N = 1108 and 5936 and on chains.  b. 3 steps at batch 4,
+   128, card vs CPU, in float64 (fp32, TF32 off, printed, not held: the
+   early convolutions' gradients part by more than the tolerance):
+   readouts rtol 1e-3, parameters and momenta from the CPU's state (a
+   flipped max-pool window excuses the blocks up to it).  c. the config
+   at the example's defaults through Module.fit (3 epochs of 16 batches
+   of 16, the example's metric: the fused step declines every batch),
+   images/s over epochs 2-3, step ms, peak memory, CrossEntropy
+   falling, the closing decode (>= 1 detection); the same with the
+   metric on the card; the symbol at 300x300, batch 16 (images/s, step
+   ms, peak memory).  d. one warm
+   step of each lane under torch.profiler; MultiBoxTarget and
+   MultiBoxDetection alone at N = 1108 and 5936 (host ms, device ms,
+   launches, NMS rounds).  e. 256 rectangle images packed as JPEG with
+   [2, 5, objects] labels, read back through ImageDetIter bit for bit,
+   then one epoch from the pack with CreateDetAugmenter.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -4666,6 +4691,975 @@ def imagenet_phase(card, workdir):
     return out
 
 
+# phase 13: BASELINE config #5, examples/ssd/train_ssd.py's SSD-VGG16 at
+# the example's defaults (:142-151): the full-width VGG16-reduced SSD, 3
+# classes, 128x128, batch 16, 256 synthetic images, 3 epochs, SGD lr 0.01
+# momentum 0.9 wd 5e-4 rescale 1/16, Xavier, MultiBoxMetric,
+# Speedometer(16, 10)
+SSD_CFG = dict(classes=3, image=128, batch=16, n=256, epochs=3)
+SSD_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 5e-4}
+SSD_SIZES = [(0.1, 0.14), (0.27, 0.38), (0.54, 0.66), (0.78, 0.9)]
+SSD_RATIOS = [(1.0, 2.0, 0.5)] * 4
+SSD_PARITY = (4, 3)           # 13b: (batch, steps) card vs CPU, fp32
+SSD_OPS_BATCH300 = 4          # 13a: the batch at 300x300 (the CPU's IoUs)
+SSD300 = dict(image=300, batch=16, warm=2, timed=8)   # 13c: SSD300's input
+SSD_REC = 256                 # 13e: images packed as JPEG at 128x128
+SSD_CHAINS = (1108, 5936)     # 13a: suppression chains (N at 128, 300)
+SSD_NEAR = 1e-6               # 13a/b: a near tie
+SSD_OP_TOL = (1e-5, 1e-6)     # 13a: rtol, atol * max|ref|
+SSD_DEV = "cuda"              # the card's torch device (a CPU rehearsal
+                              # of phase 13 points it at "cpu")
+# phase 13d's kernel classes: the NMS rounds' batched products are cuBLAS
+# gemv kernels; cuDNN picks FFT algorithms for some of the 3x3 convolutions
+SSD_OP_CLASSES = (("sort (MultiBoxDetection)", ("sort", "Sort")),
+                  ("NMS rounds (batched gemv)", ("gemv",)),
+                  ("convolution (cuDNN FFT)", ("fft", "complex"))) + \
+    KERNEL_CLASSES
+
+
+def ssd_conv_block(mx, data, name, num_filter, n_convs):
+    """train_ssd.py `_conv_block` (:33), on the port's mx.sym."""
+    sym = mx.sym
+    for i in range(n_convs):
+        data = sym.Convolution(data, kernel=(3, 3), pad=(1, 1),
+                               num_filter=num_filter,
+                               name=f"{name}_conv{i}")
+        data = sym.Activation(data, act_type="relu")
+    return sym.Pooling(data, kernel=(2, 2), stride=(2, 2), pool_type="max",
+                       name=f"{name}_pool"), data
+
+
+def ssd_vgg16_reduced(mx, data, small=False):
+    """train_ssd.py `vgg16_reduced` (:43): the feature maps SSD taps
+    (conv4_3, fc7 as a dilated conv, two extra layers)."""
+    sym = mx.sym
+    f = 0.25 if small else 1.0
+    p1, _ = ssd_conv_block(mx, data, "b1", int(64 * f), 2)
+    p2, _ = ssd_conv_block(mx, p1, "b2", int(128 * f), 2)
+    p3, _ = ssd_conv_block(mx, p2, "b3", int(256 * f), 3)
+    p4, c4 = ssd_conv_block(mx, p3, "b4", int(512 * f), 3)
+    p5, _ = ssd_conv_block(mx, p4, "b5", int(512 * f), 3)
+    fc6 = sym.Convolution(p5, kernel=(3, 3), pad=(3, 3), dilate=(3, 3),
+                          num_filter=int(1024 * f), name="fc6")
+    fc6 = sym.Activation(fc6, act_type="relu")
+    fc7 = sym.Convolution(fc6, kernel=(1, 1), num_filter=int(1024 * f),
+                          name="fc7")
+    fc7 = sym.Activation(fc7, act_type="relu")
+    e1 = sym.Convolution(fc7, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                         num_filter=int(256 * f), name="extra1")
+    e1 = sym.Activation(e1, act_type="relu")
+    e2 = sym.Convolution(e1, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                         num_filter=int(128 * f), name="extra2")
+    e2 = sym.Activation(e2, act_type="relu")
+    return [c4, fc7, e1, e2]
+
+
+def ssd_symbol(mx, num_classes, small=False):
+    """train_ssd.py `ssd_symbol` (:68): per-scale anchors and class/box
+    predictors, MultiBoxTarget, SoftmaxOutput and MakeLoss(smooth_l1)
+    heads, MultiBoxDetection; outputs [cls_prob, loc_loss,
+    BlockGrad(cls_target), BlockGrad(det)]."""
+    sym = mx.sym
+    data = sym.Variable("data")
+    label = sym.Variable("label")
+    feats = ssd_vgg16_reduced(mx, data, small=small)
+    cls_preds, loc_preds, anchors = [], [], []
+    for i, (feat, sz, rt) in enumerate(zip(feats, SSD_SIZES, SSD_RATIOS)):
+        na = len(sz) + len(rt) - 1
+        cls = sym.Convolution(feat, kernel=(3, 3), pad=(1, 1),
+                              num_filter=na * (num_classes + 1),
+                              name=f"cls_pred{i}")
+        loc = sym.Convolution(feat, kernel=(3, 3), pad=(1, 1),
+                              num_filter=na * 4, name=f"loc_pred{i}")
+        cls = sym.transpose(cls, axes=(0, 2, 3, 1))
+        cls_preds.append(sym.Reshape(cls, shape=(0, -1, num_classes + 1)))
+        loc = sym.transpose(loc, axes=(0, 2, 3, 1))
+        loc_preds.append(sym.Reshape(loc, shape=(0, -1)))
+        anchors.append(sym.MultiBoxPrior(feat, sizes=sz, ratios=rt,
+                                         clip=True))
+    cls_concat = sym.concat(*cls_preds, dim=1)
+    cls_concat = sym.transpose(cls_concat, axes=(0, 2, 1))
+    loc_concat = sym.concat(*loc_preds, dim=1)
+    anchor_concat = sym.concat(*anchors, dim=1)
+    tmp = sym.MultiBoxTarget(anchor_concat, label, cls_concat,
+                             overlap_threshold=0.5,
+                             negative_mining_ratio=3,
+                             variances=(0.1, 0.1, 0.2, 0.2),
+                             name="multibox_target")
+    loc_target, loc_mask, cls_target = tmp[0], tmp[1], tmp[2]
+    cls_prob = sym.SoftmaxOutput(cls_concat, cls_target,
+                                 ignore_label=-1, use_ignore=True,
+                                 multi_output=True,
+                                 normalization="valid", name="cls_prob")
+    loc_diff = loc_mask * (loc_concat - loc_target)
+    loc_loss = sym.MakeLoss(sym.smooth_l1(loc_diff, scalar=1.0),
+                            grad_scale=1.0, normalization="valid",
+                            name="loc_loss")
+    det = sym.MultiBoxDetection(cls_prob, loc_concat, anchor_concat,
+                                nms_threshold=0.45, force_suppress=False,
+                                variances=(0.1, 0.1, 0.2, 0.2),
+                                name="detection")
+    det = sym.BlockGrad(det)
+    return sym.Group([cls_prob, loc_loss, sym.BlockGrad(cls_target), det])
+
+
+def ssd_synthetic(n, image=128, num_classes=3, max_obj=3):
+    """train_ssd.py `SyntheticDetIter`'s arrays (:120): images with 1-3
+    coloured rectangles, labels (n, max_obj, 5), -1 padded."""
+    rng = np.random.RandomState(0)
+    x = rng.normal(0, 0.1, (n, 3, image, image)).astype("f4")
+    y = np.full((n, max_obj, 5), -1.0, "f4")
+    for i in range(n):
+        for j in range(rng.randint(1, max_obj + 1)):
+            cls = rng.randint(0, num_classes)
+            w, h = rng.uniform(0.2, 0.5, 2)
+            x1 = rng.uniform(0, 1 - w)
+            y1 = rng.uniform(0, 1 - h)
+            y[i, j] = [cls, x1, y1, x1 + w, y1 + h]
+            xa, ya = int(x1 * image), int(y1 * image)
+            xb, yb = int((x1 + w) * image), int((y1 + h) * image)
+            x[i, cls % 3, ya:yb, xa:xb] += 1.0
+    return x, y
+
+
+def ssd_iter(mx, n, batch, image=128, num_classes=3):
+    """`SyntheticDetIter(n, batch, image, num_classes)`: the arrays in a
+    shuffled NDArrayIter (np.random seeded first, as the JAX one
+    shuffles with it)."""
+    x, y = ssd_synthetic(n, image, num_classes)
+    np.random.seed(SEED)
+    return mx.io.NDArrayIter(x, y, batch_size=batch, shuffle=True,
+                             label_name="label")
+
+
+def ssd_metric(mx, on_device=False):
+    """train_ssd.py's `MultiBoxMetric` (:160): mean cross-entropy of the
+    class targets that are not -1, mean smooth-L1; with `on_device`, a
+    copy that also counts on the card (`device_update`), so the fused
+    step takes its batches."""
+
+    class MultiBoxMetric(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("MultiBox")
+            self.num = 2
+            self.reset()
+
+        def reset(self):
+            self.sum_ce, self.n_ce = 0.0, 0
+            self.sum_l1, self.n_l1 = 0.0, 0
+
+        def update(self, labels, preds):
+            cls_prob = preds[0].asnumpy()
+            loc_loss = preds[1].asnumpy()
+            cls_target = preds[2].asnumpy()
+            valid = cls_target >= 0
+            idx = np.maximum(cls_target.astype(int), 0)
+            b, n = np.indices(idx.shape)
+            p = cls_prob[b, idx, n]
+            ce = -np.log(np.maximum(p, 1e-12))[valid].sum()
+            self.sum_ce += ce
+            self.n_ce += int(valid.sum())
+            self.sum_l1 += float(loc_loss.sum())
+            self.n_l1 += loc_loss.size
+
+        def get(self):
+            return (["CrossEntropy", "SmoothL1"],
+                    [self.sum_ce / max(1, self.n_ce),
+                     self.sum_l1 / max(1, self.n_l1)])
+
+    class DeviceMultiBoxMetric(MultiBoxMetric):
+        def device_update(self, labels, preds):
+            cls_prob, loc_loss, cls_target = (p.data for p in preds[:3])
+            valid = cls_target >= 0
+            p = torch.gather(cls_prob, 1,
+                             cls_target.clamp(min=0).long()[:, None])[:, 0]
+            ce = torch.where(valid, -torch.log(torch.clamp(p, min=1e-12)),
+                             0.0)
+            return (ce.sum(), valid.sum(), loc_loss.sum(),
+                    torch.tensor(loc_loss.numel(), device=p.device))
+
+        def _accumulate(self, *totals):
+            totals = tuple(t.double() for t in totals)
+            prev = getattr(self, "_dev", None)
+            self._dev = totals if prev is None else \
+                tuple(a + b for a, b in zip(prev, totals))
+
+        def get(self):
+            if getattr(self, "_dev", None) is not None:
+                ce, n_ce, l1, n_l1 = torch.stack(self._dev).tolist()
+                self.sum_ce += ce
+                self.n_ce += int(n_ce)
+                self.sum_l1 += l1
+                self.n_l1 += int(n_l1)
+                self._dev = None
+            return super().get()
+
+        def reset(self):
+            super().reset()
+            self._dev = None
+
+    return DeviceMultiBoxMetric() if on_device else MultiBoxMetric()
+
+
+def ssd_feature_shapes(mx, image, batch=1):
+    """The (B, C, H, W) shapes of the four maps SSD taps at `image`."""
+    feats = ssd_vgg16_reduced(mx, mx.sym.Variable("data"))
+    _, outs, _ = mx.sym.Group(feats).infer_shape(
+        data=(batch, 3, image, image))
+    return outs
+
+
+def op_fn(name, params, *tensors):
+    """One registered op of the port called on tensors (the wrapper the
+    graph interpreter calls)."""
+    from incubator_mxnet_tpu_torch.ops import registry
+    op = registry.get(name)
+    return op.fn(op.canonicalize_params(params), *tensors)
+
+
+def ssd_anchors(mx, image, dev):
+    """The SSD's anchors at `image`: MultiBoxPrior on each tapped map's
+    shape (clip, the example's sizes and ratios), concatenated: (1, N,
+    4)."""
+    maps = ssd_feature_shapes(mx, image)
+    return torch.cat([op_fn("MultiBoxPrior", {"sizes": sz, "ratios": rt,
+                                              "clip": True},
+                            torch.empty(shape, device=dev))
+                      for shape, sz, rt in zip(maps, SSD_SIZES, SSD_RATIOS)],
+                     dim=1)
+
+
+def nms_loop(sup, valid):
+    """The JAX ops' greedy suppression box by box (their `fori_loop`
+    body), the plain version the NMS route is held to."""
+    n = valid.shape[-1]
+    alive = valid.clone()
+    later = torch.arange(n, device=valid.device)
+    for i in range(n):
+        row = sup[:, i] & alive[:, i:i + 1] & (later > i)
+        alive = alive & ~row
+    return alive
+
+
+def ssd_head_inputs(mx, image, batch, seed=SEED):
+    """Seeded head outputs at the SSD's shapes on the CPU: cls_prob (a
+    softmax of logits at scale 2), loc_pred (normal, 0.5), the anchors
+    and the synthetic labels of the first `batch` images."""
+    anchors = ssd_anchors(mx, image, "cpu")
+    n = anchors.shape[1]
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy(rng.normal(
+        0, 2, (batch, SSD_CFG["classes"] + 1, n)).astype("f4"))
+    loc = torch.from_numpy(rng.normal(0, 0.5, (batch, 4 * n)).astype("f4"))
+    _, labels = ssd_synthetic(batch, image)
+    return torch.softmax(logits, 1), loc, anchors, torch.from_numpy(labels)
+
+
+def target_near_ties(anchors, labels, thresh):
+    """(B, N) anchors whose MultiBoxTarget outcome rounding may tip: best
+    IoU within SSD_NEAR of the threshold or above the runner-up label by
+    less than SSD_NEAR, or a label's best anchor ahead of the next by
+    less than SSD_NEAR (both anchors), by the CPU's IoU."""
+    from incubator_mxnet_tpu_torch.ops.detection import box_iou_xyxy
+    valid = labels[:, :, 0] >= 0
+    ious = torch.where(valid[:, None, :],
+                       box_iou_xyxy(anchors[0][None], labels[:, :, 1:5]),
+                       -1.0)
+    near = (ious.amax(2) - thresh).abs() < SSD_NEAR
+    top2 = ious.topk(2, dim=2).values
+    gap = top2[..., 0] - top2[..., 1]
+    near |= (gap > 0) & (gap < SSD_NEAR)
+    col = ious.topk(2, dim=1)
+    gap = col.values[:, 0] - col.values[:, 1]                   # (B, M)
+    close = (gap > 0) & (gap < SSD_NEAR) & valid
+    for k in (0, 1):
+        hit = torch.zeros_like(near)
+        hit.scatter_(1, col.indices[:, k], close)
+        near |= hit
+    return near
+
+
+def nms_near_rows(boxes, cls, score, thresh, force=False):
+    """Rows of a batch with a pair of candidates whose IoU lies within
+    SSD_NEAR of the NMS threshold (same class unless `force`): their
+    suppression may tip between devices."""
+    from incubator_mxnet_tpu_torch.ops.detection import box_iou_xyxy
+    ious = box_iou_xyxy(boxes, boxes)
+    near = ((ious - thresh).abs() < SSD_NEAR) & \
+        (score[:, :, None] > 0) & (score[:, None, :] > 0)
+    if not force:
+        near &= cls[:, :, None] == cls[:, None, :]
+    return near.flatten(1).any(1)
+
+
+def op_pair(name, params, inputs, grad_idx=(), seed=SEED):
+    """`name` on the CPU and on the card on the same inputs; with
+    `grad_idx`, the gradients of those inputs under one seeded
+    cotangent of the first output.  Returns ((outs, grads) CPU, (outs,
+    grads) card), numpy."""
+    res = []
+    for dev in ("cpu", SSD_DEV):
+        xs = [t.to(dev).clone() for t in inputs]
+        for i in grad_idx:
+            xs[i].requires_grad_()
+        with torch.set_grad_enabled(bool(grad_idx)):
+            out = op_fn(name, params, *xs)
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        grads = []
+        if grad_idx:
+            ct = torch.from_numpy(np.random.RandomState(seed + 7).normal(
+                0, 1, tuple(outs[0].shape)).astype("f4")).to(dev)
+            grads = torch.autograd.grad(outs[0], [xs[i] for i in grad_idx],
+                                        ct, allow_unused=True)
+            grads = [torch.zeros_like(xs[i]) if g is None else g
+                     for i, g in zip(grad_idx, grads)]
+        res.append(([o.detach().cpu().numpy() for o in outs],
+                    [g.detach().cpu().numpy() for g in grads]))
+    return res
+
+
+def op_ratio(got, ref, tol=SSD_OP_TOL):
+    """max |got - ref| / (rtol |ref| + atol max|ref|) (at most 1 passes)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    scale = tol[1] * max(np.abs(ref).max(), 1e-30)
+    return float((np.abs(got - ref) / (tol[0] * np.abs(ref) + scale)).max())
+
+
+def ssd_ops(mx, card):
+    """Phase 13a: every ported detection, spatial and deformable op on
+    the card against the CPU at the SSD's shapes; the NMS route against
+    the per-box loop on the card, bitwise."""
+    from incubator_mxnet_tpu_torch.ops.detection import (
+        detection_candidates, greedy_nms)
+    worst = {}
+    # MultiBoxPrior: within 1 ulp
+    for image in (SSD_CFG["image"], SSD300["image"]):
+        a_cpu = ssd_anchors(mx, image, "cpu").numpy()
+        a_gpu = ssd_anchors(mx, image, SSD_DEV).cpu().numpy()
+        ulps = np.abs(a_gpu - a_cpu) / np.spacing(np.abs(a_cpu).max())
+        print(f"ssd 13a: MultiBoxPrior at {image}x{image}: "
+              f"{a_cpu.shape[1]} anchors, max |card - CPU| "
+              f"{ulps.max():.2f} ulp of the largest coordinate")
+        check(ulps.max() <= 1, f"MultiBoxPrior at {image}: card and CPU "
+              "differ by more than 1 ulp")
+    mt_params = {"overlap_threshold": 0.5, "negative_mining_ratio": 3,
+                 "variances": (0.1, 0.1, 0.2, 0.2)}
+    det_params = {"nms_threshold": 0.45, "force_suppress": False,
+                  "variances": (0.1, 0.1, 0.2, 0.2)}
+    full = {"clip": True, "threshold": 0.01, "background_id": 0,
+            "nms_topk": -1, **det_params}
+    for image, batch in ((SSD_CFG["image"], SSD_CFG["batch"]),
+                         (SSD300["image"], SSD_OPS_BATCH300)):
+        prob, loc, anchors, labels = ssd_head_inputs(mx, image, batch)
+        n = anchors.shape[1]
+        (c, _), (g, _) = op_pair("MultiBoxTarget", mt_params,
+                                 [anchors, labels, prob])
+        near = target_near_ties(anchors, labels, 0.5).numpy()
+        diff = (c[2] != g[2]) | (c[1] != g[1]).reshape(
+            c[2].shape + (4,)).any(-1)
+        unexcused = int((diff & ~near).sum())
+        pos = c[1].reshape(c[2].shape + (4,))[..., 0] > 0
+        loc_r = op_ratio(np.where(pos[..., None], g[0].reshape(
+            pos.shape + (4,)), 0), np.where(pos[..., None], c[0].reshape(
+                pos.shape + (4,)), 0))
+        worst[f"target{image}"] = loc_r
+        print(f"ssd 13a: MultiBoxTarget at N={n}, batch "
+              f"{batch}: {int(pos.sum())} positive anchors; "
+              f"class targets and masks differ at {int(diff.sum())} "
+              f"anchors, {int(near.sum())} near ties, {unexcused} "
+              f"unexcused; loc targets at {loc_r:.3f} of the tolerance")
+        check(unexcused == 0 and loc_r <= 1, f"MultiBoxTarget at N={n}: "
+              "card and CPU disagree")
+        (c, _), (g, _) = op_pair("MultiBoxDetection", det_params,
+                                 [prob, loc, anchors])
+        boxes, score, cls, sup = detection_candidates(
+            full, prob, loc, anchors)
+        near = nms_near_rows(boxes, cls, score, 0.45).numpy()
+        rows = ~(c[0][..., :2] == g[0][..., :2]).all((1, 2))
+        unexcused = int((rows & ~near).sum())
+        box_r = op_ratio(g[0][..., 2:], c[0][..., 2:])
+        worst[f"det{image}"] = box_r
+        print(f"ssd 13a: MultiBoxDetection at N={n}, batch "
+              f"{batch}: {int((c[0][..., 0] >= 0).sum())} kept "
+              f"on the CPU, {int((g[0][..., 0] >= 0).sum())} on the card; "
+              f"{int(rows.sum())} rows differ, {int(near.sum())} rows with "
+              f"a near tie, {unexcused} unexcused; boxes at {box_r:.3f} of "
+              f"the tolerance")
+        check(unexcused == 0 and box_r <= 1, f"MultiBoxDetection at N={n}: "
+              "card and CPU disagree")
+        # box_nms on the detection rows (a second NMS, one id per class)
+        rows_in = torch.from_numpy(c[0])
+        (cn, _), (gn, _) = op_pair("_contrib_box_nms",
+                                   {"overlap_thresh": 0.3, "id_index": 0,
+                                    "valid_thresh": 0.05}, [rows_in])
+        near = nms_near_rows(rows_in[..., 2:], rows_in[..., 0],
+                             rows_in[..., 1], 0.3).numpy()
+        rows = ~(cn[0] == gn[0]).all((1, 2))
+        print(f"ssd 13a: box_nms (threshold 0.3, by class) on the CPU's "
+              f"detections: {int((cn[0][..., 1] >= 0).sum())} kept; "
+              f"{int(rows.sum())} rows differ, {int(near.sum())} with a "
+              f"near tie, {int((rows & ~near).sum())} unexcused")
+        check(not (rows & ~near).any(), "box_nms: card and CPU disagree")
+        # the route against the loop on the card, bitwise
+        boxes, score, cls, sup = detection_candidates(
+            full, prob.to(SSD_DEV), loc.to(SSD_DEV), anchors.to(SSD_DEV))
+        valid = score > 0
+        t0 = time.perf_counter()
+        route = greedy_nms(sup, valid)
+        torch.cuda.synchronize()
+        t_route = time.perf_counter() - t0
+        rounds = greedy_nms.rounds
+        t0 = time.perf_counter()
+        loop = nms_loop(sup, valid)
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter() - t0
+        check(torch.equal(route, loop), f"the NMS route differs from the "
+              f"per-box loop on the card at N={n}")
+        print(f"ssd 13a: NMS route = per-box loop on the card, bitwise, at "
+              f"N={n} x batch {batch}: {rounds} rounds, "
+              f"{t_route * 1e3:.2f} ms; the loop {t_loop * 1e3:.1f} ms "
+              f"[{card}]")
+    # adversarial chains on the card: each box suppresses only the next
+    for n in SSD_CHAINS:
+        sup = torch.zeros(2, n, n, dtype=torch.bool, device=SSD_DEV)
+        i = torch.arange(n - 1, device=SSD_DEV)
+        sup[:, i, i + 1] = True
+        valid = torch.ones(2, n, dtype=torch.bool, device=SSD_DEV)
+        valid[1, ::7] = False
+        route = greedy_nms(sup, valid)
+        check(torch.equal(route, nms_loop(sup, valid)),
+              f"the NMS route differs from the loop on a chain of {n}")
+        print(f"ssd 13a: chain of {n} (the worst case): route = loop, "
+              f"bitwise, in {greedy_nms.rounds} rounds")
+    # ROI, spatial and deformable ops with their gradients at the SSD's
+    # conv4_3 map (batch 4, 512 x 16 x 16 at 128x128)
+    rng = np.random.RandomState(SEED)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(0, 1, shape)).astype(
+            "f4"))
+
+    rois = np.zeros((8, 5), "f4")
+    rois[:, 0] = rng.randint(0, 4, 8)
+    xy = rng.uniform(0, 80, (8, 2))
+    rois[:, 1:3], rois[:, 3:5] = xy, xy + rng.uniform(8, 48, (8, 2))
+    rois = torch.from_numpy(rois)
+    feat = rand(4, 512, 16, 16)
+    grid = torch.from_numpy(rng.uniform(-1.1, 1.1, (4, 2, 16, 16))
+                            .astype("f4"))
+    theta = torch.tensor([[0.9, 0.1, 0.05, -0.1, 0.8, -0.05]] * 4) + \
+        rand(4, 6, scale=0.05)
+    cases = [
+        ("ROIPooling", {"pooled_size": (7, 7), "spatial_scale": 0.125},
+         [feat, rois], [0]),
+        ("_contrib_ROIAlign", {"pooled_size": (7, 7),
+                               "spatial_scale": 0.125}, [feat, rois], [0]),
+        ("BilinearSampler", {}, [feat, grid], [0, 1]),
+        ("GridGenerator", {"transform_type": "affine",
+                           "target_shape": (16, 16)}, [theta], [0]),
+        ("GridGenerator", {"transform_type": "warp"},
+         [rand(4, 2, 16, 16)], [0]),
+        ("SpatialTransformer", {"target_shape": (16, 16)}, [feat, theta],
+         [0, 1]),
+        ("Correlation", {"max_displacement": 4, "pad_size": 4,
+                         "stride2": 2}, [feat[:, :256], rand(4, 256, 16, 16)],
+         [0, 1]),
+        ("Crop", {"num_args": 1, "h_w": (8, 8), "center_crop": True},
+         [feat], [0]),
+        ("_contrib_DeformableConvolution",
+         {"kernel": (3, 3), "num_filter": 256, "pad": (1, 1),
+          "num_deformable_group": 2},
+         [feat, rand(4, 36, 16, 16, scale=0.7),
+          rand(256, 512, 3, 3, scale=0.02), rand(256)], [0, 1, 2, 3]),
+        ("_contrib_DeformablePSROIPooling",
+         {"spatial_scale": 0.125, "output_dim": 4, "group_size": 7,
+          "pooled_size": 7, "sample_per_part": 4, "trans_std": 0.1},
+         [rand(4, 196, 16, 16), rois, rand(8, 8, 7, 7)], [0, 2]),
+    ]
+    for name, params, inputs, grad_idx in cases:
+        (c, cg), (g, gg) = op_pair(name, params, inputs, grad_idx)
+        r = max([op_ratio(a, b) for a, b in zip(g, c)] +
+                [op_ratio(a, b) for a, b in zip(gg, cg)])
+        worst[name] = max(worst.get(name, 0.0), r)
+        print(f"ssd 13a: {name} {tuple(c[0].shape)} and the gradients of "
+              f"inputs {list(grad_idx)}: {r:.3f} of the tolerance (rtol "
+              f"{SSD_OP_TOL[0]:g} + {SSD_OP_TOL[1]:g}*max|ref|)")
+        check(r <= 1, f"{name}: card and CPU disagree")
+    return worst
+
+
+def ssd_state(mod):
+    """({parameter}, {momentum by parameter}) as numpy."""
+    args, _ = mod.get_params()
+    names = mod._exec_group.param_names
+    return ({n: v.asnumpy() for n, v in args.items()},
+            {names[i]: m.asnumpy() for i, m in mod._updater.states.items()})
+
+
+def ssd_module(mx, sym, ctx, batch, image):
+    mod = mx.mod.Module(sym, context=ctx, data_names=("data",),
+                        label_names=("label",))
+    mod.bind([("data", (batch, 3, image, image))],
+             [("label", (batch, 3, 5))])
+    return mod
+
+
+def ssd_steps(mx, sym, ctx, batches, teacher=None, dtype="float32"):
+    """Phase 13b: the config's steps (SSD_OPT, rescale 1/batch) in
+    `dtype` on `ctx` from Xavier parameters under mx.random.seed(SEED),
+    on `batches`, through `fit_step` with the example's metric (the
+    per-batch path): each step's readouts and the states before the
+    first and after each; with `teacher`, step k starts from the
+    teacher's state before it."""
+    batch = batches[0].data[0].shape[0]
+    mod = ssd_module(mx, sym, ctx, batch, SSD_CFG["image"])
+    if dtype == "float64":
+        as_float64(mod)
+    mx.random.seed(SEED)
+    mod.init_params(mx.initializer.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+        SSD_OPT, rescale_grad=1.0 / batch))
+    reads, states = [], [ssd_state(mod)]
+    for k, b in enumerate(batches):
+        if teacher is not None and k:
+            params, moms = teacher[k]
+            mod.set_params(params, {})
+            for i, n in enumerate(mod._exec_group.param_names):
+                mod._updater.states[i]._set_data(moms[n])
+        metric = ssd_metric(mx)
+        mod.fit_step(b, metric)
+        reads.append(metric.get()[1])
+        states.append(ssd_state(mod))
+    return reads, states
+
+
+def ssd_ratio(got, ref, skip=()):
+    """`param_ratio`, with an array that is all zeros in `ref` (a
+    momentum whose gradient was 0) held to |got| <= 1e-12 instead."""
+    zero = {n for n, c in ref.items() if not np.abs(c).max()}
+    worst = param_ratio(got, {n: c for n, c in ref.items()
+                              if n not in zero}, skip)
+    return max([worst] + [(float(np.abs(got[n]).max() / 1e-12), n)
+                          for n in zero if not n.startswith(skip)])
+
+
+def ssd_pool_routes(params, x, ctx):
+    """Which element wins each window of the backbone's five 2x2
+    max-pools at these parameters and images, on `ctx`, by the torch
+    calls the port makes (3x3 convs, relu)."""
+    import torch.nn.functional as F
+    dev = ctx.torch_device
+    h = torch.from_numpy(x).to(dev, torch.from_numpy(
+        params["b1_conv0_weight"]).dtype)
+    routes = []
+    for blk, convs in (("b1", 2), ("b2", 2), ("b3", 3), ("b4", 3),
+                       ("b5", 3)):
+        for i in range(convs):
+            w = torch.from_numpy(params[f"{blk}_conv{i}_weight"]).to(dev)
+            b = torch.from_numpy(params[f"{blk}_conv{i}_bias"]).to(dev)
+            h = torch.relu(F.conv2d(h, w, b, padding=1))
+        h, idx = F.max_pool2d(h, 2, 2, return_indices=True)
+        routes.append(idx.cpu())
+    return routes
+
+
+def ssd_flipped(mx, params, x):
+    """The deepest backbone pool (1-5) with a window whose winner
+    differs between the CPU and the card at `params` on `x`, 0 for
+    none; and the count of such windows."""
+    cpu = ssd_pool_routes(params, x, mx.cpu())
+    gpu = ssd_pool_routes(params, x, mx.gpu(0))
+    counts = [int((c != g).sum()) for c, g in zip(cpu, gpu)]
+    deepest = max([k + 1 for k, n in enumerate(counts) if n] or [0])
+    return deepest, sum(counts)
+
+
+def ssd_parity(mx, sym, dtype="float64"):
+    """Phase 13b: SSD_PARITY steps of the full-width SSD at 128 in
+    `dtype` (TF32 off) on the card against the CPU, from the same Xavier
+    parameters and batches: the readouts (CrossEntropy, SmoothL1) of
+    every free-running step within rtol 1e-3; each card step from the
+    CPU's state: parameters and momenta within PARITY_TOL.  A step where
+    a backbone max-pool window flips between the devices excuses the
+    blocks up to that pool (printed, not held), as phase 6 excuses
+    lenet's convolutions.  Held in float64: in fp32 the gradients of the
+    early convolutions part between the devices by more than the
+    tolerance (13b's fp32 lane, printed, not held)."""
+    batch, steps = SSD_PARITY
+    it = ssd_iter(mx, batch * steps, batch)
+    batches = [b for _, b in zip(range(steps), it)]
+    xs = [b.data[0].asnumpy() for b in batches]
+    t0 = time.perf_counter()
+    cpu_reads, cpu = ssd_steps(mx, sym, mx.cpu(), batches, dtype=dtype)
+    t_cpu = time.perf_counter() - t0
+    gpu_reads, gpu = ssd_steps(mx, sym, mx.gpu(0), batches, dtype=dtype)
+    _, forced = ssd_steps(mx, sym, mx.gpu(0), batches, teacher=cpu,
+                          dtype=dtype)
+    read_err = max(abs(g - c) / abs(c) for gr, cr in zip(gpu_reads,
+                                                         cpu_reads)
+                   for g, c in zip(gr, cr))
+    held, excused, flips = (0.0, "none"), (0.0, "none"), []
+    for k, x in enumerate(xs):
+        deepest, n = ssd_flipped(mx, cpu[k][0], x)
+        skip = tuple(f"b{i}_" for i in range(1, deepest + 1))
+        after, ref = forced[k + 1], cpu[k + 1]
+        held = max([held] + [ssd_ratio(a, r, skip)
+                             for a, r in zip(after, ref)])
+        if n:
+            flips.append(f"step {k + 1}: {n} (blocks 1-{deepest})")
+            excused = max([excused] + [ssd_ratio(a, r)
+                                       for a, r in zip(after, ref)])
+    ok = read_err <= PARITY_TOL[0] and held[0] <= 1 and \
+        all(np.isfinite(v) for r in gpu_reads for v in r)
+    gated = dtype == "float64"
+    verdict = ("ok" if ok else "FAIL") if gated else "(not held)"
+    print(f"ssd 13b: {steps} steps of the full-width SSD at batch {batch}, "
+          f"{SSD_CFG['image']}x{SSD_CFG['image']}, {dtype} (TF32 off), "
+          f"card vs CPU (CPU {t_cpu:.1f} s): CrossEntropy "
+          f"{' '.join(f'{r[0]:.6f}' for r in gpu_reads)}, SmoothL1 "
+          f"{' '.join(f'{r[1]:.6f}' for r in gpu_reads)}; max relative "
+          f"readout err {read_err:.2e} (rtol {PARITY_TOL[0]:g}); each step "
+          f"from the CPU's state: parameters and momenta at "
+          f"{held[0]:.3f} of the tolerance (worst {held[1]}) (rtol "
+          f"{PARITY_TOL[0]:g}, atol {PARITY_TOL[1]:g}*max|array|) {verdict}")
+    note = f"; at those steps the excused blocks at {excused[0]:.3f} of " \
+        f"the tolerance (worst {excused[1]}), not held" if flips else ""
+    print(f"ssd 13b: {dtype}: max-pool windows flipped between the CPU and "
+          f"the card from the CPU's state: {', '.join(flips) or 'none'}"
+          f"{note}")
+    if gated:
+        check(ok, "ssd: the card's float64 steps disagree with the CPU's")
+    return {"worst": held[0], "read_err": read_err, "cpu_s": t_cpu,
+            "flips": len(flips)}
+
+
+class _BatchClock:
+    """Batch-end callback: the time of every batch end and the metric at
+    each epoch's last batch."""
+
+    def __init__(self, per_epoch):
+        self.per_epoch = per_epoch
+        self.times, self.epochs = [], []
+
+    def __call__(self, param):
+        self.times.append(time.perf_counter())
+        if param.nbatch == self.per_epoch - 1:
+            self.epochs.append(dict(zip(*param.eval_metric.get())))
+
+
+def ssd_fit(mx, sym, card, on_device=False):
+    """Phase 13c: the config through Module.fit at the example's
+    defaults; images/s over epochs 2-3, the median step ms, peak memory,
+    batches the fused step declined; CrossEntropy falling from epoch 1
+    to 3; then the example's decode of one batch.  Returns (module,
+    iterator, numbers)."""
+    cfg = SSD_CFG
+    batch, per_epoch = cfg["batch"], cfg["n"] // cfg["batch"]
+    train = ssd_iter(mx, cfg["n"], batch, cfg["image"], cfg["classes"])
+    mod = mx.mod.Module(sym, context=mx.gpu(0), data_names=("data",),
+                        label_names=("label",))
+    clock = _BatchClock(per_epoch)
+    metric = ssd_metric(mx, on_device)
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(SEED)
+    t0 = time.perf_counter()
+    mod.fit(train, num_epoch=cfg["epochs"], optimizer="sgd",
+            optimizer_params=dict(SSD_OPT, rescale_grad=1.0 / batch),
+            initializer=mx.initializer.Xavier(), eval_metric=metric,
+            batch_end_callback=[mx.callback.Speedometer(batch, 10), clock])
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    total_s = t_end - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t = clock.times
+    steps_ms = np.diff(t[per_epoch:]) * 1e3
+    images_s = batch * (len(t) - per_epoch) / (t_end - t[per_epoch - 1])
+    batches = cfg["epochs"] * per_epoch
+    declined = batches - mod._fused_step.steps
+    ce = [e["CrossEntropy"] for e in clock.epochs]
+    l1 = [e["SmoothL1"] for e in clock.epochs]
+    lane = "the metric on the card (device_update)" if on_device else \
+        "the example's metric"
+    print(f"ssd 13c: config #5 through Module.fit with {lane}: "
+          f"{cfg['epochs']} epochs of {per_epoch} batches of {batch} at "
+          f"{cfg['image']}x{cfg['image']}, {total_s:.1f} s; epochs 2-3 "
+          f"{images_s:.1f} images/s, step median "
+          f"{statistics.median(steps_ms):.2f} ms; peak "
+          f"{peak:.2f} GiB; the fused step declined {declined} of "
+          f"{batches} batches; CrossEntropy by epoch "
+          f"{' '.join(f'{v:.4f}' for v in ce)}, SmoothL1 "
+          f"{' '.join(f'{v:.5f}' for v in l1)} [{card}]")
+    check(len(ce) == cfg["epochs"] and ce[-1] < ce[0] and
+          all(np.isfinite(ce + l1)), "ssd 13c: CrossEntropy did not fall "
+          "from epoch 1 to the last")
+    return mod, train, {"images_s": images_s,
+                        "step_ms": statistics.median(steps_ms),
+                        "peak_gib": peak, "declined": declined,
+                        "ce": ce, "l1": l1, "total_s": total_s}
+
+
+def ssd_decode(mx, mod, train):
+    """train_ssd.py's closing decode (:197-205): the first batch after a
+    reset, forward in inference mode, detections kept."""
+    train.reset()
+    batch = next(iter(train))
+    mod.forward(batch, is_train=False)
+    det = mod.get_outputs()[3].asnumpy()
+    kept = int((det[:, :, 0] >= 0).sum())
+    print(f"ssd 13c: decoded {kept} detections on a {det.shape[0]}-image "
+          f"batch ({det.shape[1]} anchors an image); classes "
+          f"{sorted(set(det[det[:, :, 0] >= 0][:, 0].astype(int)))}")
+    check(kept >= 1 and np.isfinite(det).all(), "ssd 13c: the decode kept "
+          "no detection")
+    return kept
+
+
+def ssd300_lane(mx, sym, card):
+    """Phase 13c: the same symbol at 300x300 (SSD300's input), batch 16,
+    on one resident synthetic batch: SSD300["warm"] steps, then
+    SSD300["timed"] timed (per-batch path with the example's metric):
+    images/s, step ms, peak memory.  Not gated.  Returns (module, batch,
+    numbers)."""
+    cfg = SSD300
+    batch, image = cfg["batch"], cfg["image"]
+    x, y = ssd_synthetic(batch, image)
+    one = mx.io.DataBatch([mx.nd.array(x, ctx=mx.gpu(0))],
+                          [mx.nd.array(y, ctx=mx.gpu(0))], pad=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mod = ssd_module(mx, sym, mx.gpu(0), batch, image)
+    mx.random.seed(SEED)
+    mod.init_params(mx.initializer.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+        SSD_OPT, rescale_grad=1.0 / batch))
+    metric = ssd_metric(mx)
+    for _ in range(cfg["warm"]):
+        mod.fit_step(one, metric)
+    torch.cuda.synchronize()
+    times = [time.perf_counter()]
+    for _ in range(cfg["timed"]):
+        mod.fit_step(one, metric)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+    steps_ms = np.diff(times) * 1e3
+    out = {"images_s": batch * cfg["timed"] / (times[-1] - times[0]),
+           "step_ms": statistics.median(steps_ms),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "anchors": mod.get_outputs()[3].shape[1]}
+    ce, l1 = metric.get()[1]
+    print(f"ssd 13c: the symbol at {image}x{image} (SSD300's input, "
+          f"{out['anchors']} anchors), batch {batch}, resident batch, "
+          f"{cfg['warm']} warm + {cfg['timed']} timed steps: "
+          f"{out['images_s']:.1f} images/s, step median "
+          f"{out['step_ms']:.2f} ms, peak {out['peak_gib']:.2f} GiB; "
+          f"CrossEntropy {ce:.4f} [{card}]")
+    check(np.isfinite([ce, l1]).all(), "ssd 13c: the 300x300 lane's "
+          "readouts are not finite")
+    return mod, one, out
+
+
+def ssd_op_alone(mx, card, image, batch):
+    """Phase 13d: MultiBoxTarget and MultiBoxDetection alone on the card
+    at `image` (N anchors), batch `batch`: host ms a call (it returns
+    after the NMS rounds' host reads), device ms and kernel launches
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch.ops.detection import greedy_nms
+    prob, loc, anchors, labels = (t.to(SSD_DEV) for t in ssd_head_inputs(
+        mx, image, batch))
+    calls = {
+        "MultiBoxTarget": lambda: op_fn(
+            "MultiBoxTarget", {"overlap_threshold": 0.5}, anchors, labels,
+            prob),
+        "MultiBoxDetection": lambda: op_fn(
+            "MultiBoxDetection", {"nms_threshold": 0.45}, prob, loc,
+            anchors)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev = sum(e.time_range.end - e.time_range.start
+                  for e in kernels) / 1e3
+        launches = sum(1 for e in kernels if "Memcpy" not in e.name and
+                       "Memset" not in e.name)
+        rounds = greedy_nms.rounds if name == "MultiBoxDetection" else 0
+        n = anchors.shape[1]
+        out[name] = {"host_ms": statistics.median(host), "device_ms": dev,
+                     "launches": launches, "rounds": rounds, "n": n}
+        extra = f", {rounds} NMS rounds" if rounds else ""
+        print(f"ssd 13d: {name} alone at N={n}, batch {batch}: "
+              f"{statistics.median(host):.3f} ms of host time a call, "
+              f"{dev:.3f} ms of device time, {launches} kernel launches"
+              f"{extra} [{card}]")
+    return out
+
+
+def ssd_rec(mx, tmp):
+    """Phase 13e: SSD_REC synthetic rectangle images at 128x128 (the
+    SyntheticDetIter pattern, mapped to uint8) packed as JPEG by the
+    port's recordio, labels [A=2, B=5, objects...]; returns (.rec path,
+    the packed labels (n, 3, 5), -1 padded)."""
+    from incubator_mxnet_tpu_torch import recordio
+    x, y = ssd_synthetic(SSD_REC, SSD_CFG["image"])
+    imgs = np.clip(x.transpose(0, 2, 3, 1) * 100 + 60, 0, 255).astype(
+        np.uint8)
+    rec = os.path.join(tmp, "det.rec")
+    w = recordio.MXIndexedRecordIO(os.path.join(tmp, "det.idx"), rec, "w")
+    for i in range(SSD_REC):
+        objs = y[i][y[i, :, 0] >= 0]
+        label = np.concatenate([[2.0, 5.0], objs.ravel()]).astype("f4")
+        w.write_idx(i, recordio.pack_img(recordio.IRHeader(0, label, i, 0),
+                                         imgs[i], img_fmt=".jpg"))
+    w.close()
+    return rec, y
+
+
+def ssd_data_path(mx, sym, card, workdir):
+    """Phase 13e: the pack read back through ImageDetIter with no
+    augmenter, labels equal to the packed ones and images to the
+    records' decodes, bit for bit; then one epoch of the SSD from the
+    pack with CreateDetAugmenter(rand_crop=0.5, rand_mirror=True, mean,
+    std) through Module.fit: images/s, the readouts finite."""
+    from incubator_mxnet_tpu_torch import image, recordio
+    cfg = SSD_CFG
+    shape = (3, cfg["image"], cfg["image"])
+    out = {}
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        t0 = time.perf_counter()
+        rec, labels = ssd_rec(mx, tmp)
+        size = os.path.getsize(rec)
+        it = image.ImageDetIter(cfg["batch"], shape, path_imgrec=rec,
+                                aug_list=[], max_objects=3)
+        reader = recordio.MXIndexedRecordIO(
+            os.path.join(tmp, "det.idx"), rec, "r")
+        seen = 0
+        for b in it:
+            got_x, got_y = b.data[0].asnumpy(), b.label[0].asnumpy()
+            for k in range(cfg["batch"] - b.pad):
+                _, payload = recordio.unpack(reader.read_idx(seen + k))
+                want = image.imdecode(payload).asnumpy().transpose(2, 0, 1)
+                check(np.array_equal(got_x[k], want.astype("f4")),
+                      f"13e: image {seen + k} differs from its decode")
+            check(np.array_equal(got_y[:cfg["batch"] - b.pad],
+                                 labels[seen:seen + cfg["batch"] - b.pad]),
+                  "13e: ImageDetIter's labels differ from the packed ones")
+            seen += cfg["batch"] - b.pad
+        reader.close()
+        check(seen == SSD_REC, f"13e: read {seen} of {SSD_REC} images")
+        print(f"ssd 13e: {SSD_REC} images packed as JPEG ({size / 1e6:.2f} "
+              f"MB) with [2, 5, objects] labels, read back through "
+              f"ImageDetIter: labels and images equal, bit for bit "
+              f"({time.perf_counter() - t0:.1f} s)")
+        random.seed(SEED)
+        train = image.ImageDetIter(
+            cfg["batch"], shape, path_imgrec=rec, shuffle=True,
+            max_objects=3, rand_crop=0.5, rand_mirror=True, mean=True,
+            std=True)
+        mod = mx.mod.Module(sym, context=mx.gpu(0), data_names=("data",),
+                            label_names=("label",))
+        per_epoch = SSD_REC // cfg["batch"]
+        clock = _BatchClock(per_epoch)
+        metric = ssd_metric(mx)
+        mx.random.seed(SEED)
+        t0 = time.perf_counter()
+        mod.fit(train, num_epoch=1, optimizer="sgd",
+                optimizer_params=dict(SSD_OPT,
+                                      rescale_grad=1.0 / cfg["batch"]),
+                initializer=mx.initializer.Xavier(), eval_metric=metric,
+                batch_end_callback=clock)
+        wall = time.perf_counter() - t0
+        ce, l1 = metric.get()[1]
+        out["images_s"] = SSD_REC / wall
+        out["steady_images_s"] = cfg["batch"] * (len(clock.times) - 1) / (
+            clock.times[-1] - clock.times[0])
+        print(f"ssd 13e: one epoch from the pack (CreateDetAugmenter "
+              f"rand_crop 0.5, rand_mirror, mean, std; {per_epoch} batches "
+              f"of {cfg['batch']}) through Module.fit: "
+              f"{out['images_s']:.1f} images/s over the epoch, "
+              f"{out['steady_images_s']:.1f} after its first batch; "
+              f"CrossEntropy {ce:.4f}, SmoothL1 {l1:.5f} [{card}]")
+        check(np.isfinite([ce, l1]).all(), "13e: the readouts are not "
+              "finite")
+    return out
+
+
+def ssd_phase(card, workdir):
+    """Phase 13; returns the numbers of the summary line.  The counts of
+    K1, K2 and K3 are set to 0 before it and must stay 0: no TPU kernel
+    is on this path (convolutions only; nothing runs attention)."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_stream)
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    counted = (fc_relu, flash_fwd, flash_fwd_stream)
+    for wrapper in counted:
+        wrapper.launches = 0
+    sym = ssd_symbol(mx, SSD_CFG["classes"])
+    img = SSD_CFG["image"]
+    args, outs, _ = sym.infer_shape(data=(SSD_CFG["batch"], 3, img, img),
+                                    label=(SSD_CFG["batch"], 3, 5))
+    learned = [a for n, a in zip(sym.list_arguments(), args)
+               if n not in ("data", "label")]
+    print(f"ssd: train_ssd.py's SSD-VGG16 on mx.sym: {len(learned)} learned "
+          f"arguments of {sum(math.prod(a) for a in learned)} values; "
+          f"outputs {outs}")
+    out = {}
+    t0 = time.perf_counter()
+    out["ops"] = ssd_ops(mx, card)
+    print(f"phase 13a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["parity32"] = ssd_parity(mx, sym, "float32")
+    out["parity"] = ssd_parity(mx, sym, "float64")
+    print(f"phase 13b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mod, train, out["fit"] = ssd_fit(mx, sym, card)
+    out["kept"] = ssd_decode(mx, mod, train)
+    batch = next(iter(train))
+    metric = ssd_metric(mx)
+    out["profile"] = profile_one_step(
+        lambda: mod.fit_step(batch, metric), card, "ssd 13d 128",
+        SSD_CFG["batch"], dtype="fp32", classes=SSD_OP_CLASSES)
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fit_device"] = ssd_fit(mx, sym, card, on_device=True)[2]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mod300, one, out["ssd300"] = ssd300_lane(mx, sym, card)
+    metric = ssd_metric(mx)
+    out["profile300"] = profile_one_step(
+        lambda: mod300.fit_step(one, metric), card, "ssd 13d 300",
+        SSD300["batch"], dtype="fp32", classes=SSD_OP_CLASSES)
+    del mod300, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 13c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["alone"] = {img: ssd_op_alone(mx, card, img, SSD_CFG["batch"])
+                    for img in (SSD_CFG["image"], SSD300["image"])}
+    print(f"phase 13d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["rec"] = ssd_data_path(mx, sym, card, workdir)
+    print(f"phase 13e: {time.perf_counter() - t0:.1f} s")
+    launches = [w.launches for w in counted]
+    print(f"ssd: K1/K2/K3 launches over phase 13: {launches} (no TPU "
+          f"kernel is on this path)")
+    check(launches == [0, 0, 0], "a K1/K2/K3 kernel ran on config #5's path")
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -4739,6 +5733,9 @@ def main():
     t0 = time.perf_counter()
     imagenet = imagenet_phase(card, str(_build.BUILD_DIR.parent))
     print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ssd = ssd_phase(card, str(_build.BUILD_DIR.parent))
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -4834,6 +5831,26 @@ def main():
           f"{imagenet['profile']['overlap_ms']:.3f} of "
           f"{imagenet['profile']['copy_ms']:.3f} ms; 12b worst "
           f"{imagenet['parity']['worst']:.3f} of the tolerance [{card}]")
+    fit, dev, s300 = ssd["fit"], ssd["fit_device"], ssd["ssd300"]
+    alone = ssd["alone"]
+    print(f"ssd summary: config #5 (train_ssd.py SSD-VGG16, 3 classes, "
+          f"fp32, batch {SSD_CFG['batch']}, {SSD_CFG['image']}x"
+          f"{SSD_CFG['image']}) through Module.fit: {fit['images_s']:.1f} "
+          f"images/s over epochs 2-3, step {fit['step_ms']:.2f} ms, peak "
+          f"{fit['peak_gib']:.2f} GiB, fused step declined "
+          f"{fit['declined']}, CrossEntropy {fit['ce'][0]:.4f} -> "
+          f"{fit['ce'][-1]:.4f}, {ssd['kept']} detections decoded; the "
+          f"metric on the card: {dev['images_s']:.1f} images/s, declined "
+          f"{dev['declined']}; 300x300: {s300['images_s']:.1f} images/s, "
+          f"step {s300['step_ms']:.2f} ms, peak {s300['peak_gib']:.2f} GiB; "
+          f"profiled step busy {ssd['profile']['busy']:.3f} (128) / "
+          f"{ssd['profile300']['busy']:.3f} (300); MultiBoxDetection alone "
+          + " / ".join(f"N={a['MultiBoxDetection']['n']} "
+                       f"{a['MultiBoxDetection']['device_ms']:.2f} ms device"
+                       f" {a['MultiBoxDetection']['launches']} launches"
+                       for a in alone.values())
+          + f"; from the .rec {ssd['rec']['images_s']:.1f} images/s; 13b "
+          f"worst {ssd['parity']['worst']:.3f} of the tolerance [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"

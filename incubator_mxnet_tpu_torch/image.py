@@ -20,7 +20,9 @@ want of a codec raises `CodecUnavailableError`; it is never counted as a
 corrupt record.  Without cv2 the iterator's resize is `resize_linear`,
 the fixed-point arithmetic of cv2's INTER_LINEAR for uint8, and
 ``fast_decode`` (libjpeg's reduced decode) falls back to a full decode.
-The detection pipeline (`image_detection`) is not ported.
+The detection pipeline (`image_detection`: the Det augmenters,
+`CreateDetAugmenter`, `ImageDetIter`) shares this namespace, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -1194,3 +1196,10 @@ def _index_records_tolerant(buf):
 def _index_records(buf):
     """`_index_records_tolerant`'s records only."""
     return _index_records_tolerant(buf)[0]
+
+
+# the detection pipeline shares this namespace in the reference (mx.image.*)
+from .image_detection import (DetAugmenter, DetBorrowAug,   # noqa: E402
+                              DetRandomSelectAug, DetHorizontalFlipAug,
+                              DetRandomCropAug, DetRandomPadAug,
+                              CreateDetAugmenter, ImageDetIter)

@@ -10,8 +10,16 @@ from __future__ import annotations
 
 from .ndarray import invoke
 from ..ops import registry as _reg
+from . import register as _register
 
 __all__ = ["foreach", "while_loop", "cond"]
+
+# the registry's ``_contrib_*`` ops under their short names
+# (``contrib.MultiBoxPrior``, ``contrib.box_nms``), as in the JAX package
+for _name in _reg.list_ops():
+    if _name.startswith("_contrib_"):
+        _short = _name[len("_contrib_"):]
+        globals()[_short] = _register._make_function(_reg.get(_name), _short)
 
 
 def _stack(rows):

@@ -16,13 +16,9 @@ import types
 from ..ops import registry as _reg
 from .ndarray import NDArray, invoke
 
-# variadic ops whose count param the frontend fills from the inputs
-_COUNT_PARAM = {"Concat": "num_args", "stack": "num_args",
-                "add_n": "num_args"}
-
 
 def _make_function(op, public_name):
-    count = _COUNT_PARAM.get(op.name)
+    count = op.variadic_param     # filled from the inputs
 
     def fn(*args, **kwargs):
         out = kwargs.pop("out", None)

@@ -3,5 +3,6 @@ from . import registry
 from . import nn, matrix, elemwise, reduce, attention  # noqa: F401
 from . import flash_attention, loss_output, init_ops  # noqa: F401
 from . import optimizer_ops, control_flow, image_ops  # noqa: F401
+from . import detection, spatial, contrib_tail  # noqa: F401
 
 __all__ = ["registry"]

@@ -17,6 +17,11 @@ from .registry import register, REQUIRED
 # Unary
 # ---------------------------------------------------------------------------
 
+def _cbrt(x):
+    """The real cube root (torch has none): sign(x) * |x|^(1/3)."""
+    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+
+
 _UNARY = {
     "abs": (torch.abs, ("_abs",)),
     "sign": (torch.sign, ()),
@@ -29,6 +34,8 @@ _UNARY = {
     "square": (torch.square, ()),
     "sqrt": (torch.sqrt, ()),
     "rsqrt": (torch.rsqrt, ()),
+    "cbrt": (_cbrt, ()),
+    "rcbrt": (lambda x: 1.0 / _cbrt(x), ()),
     "exp": (torch.exp, ()),
     "log": (torch.log, ()),
     "log10": (torch.log10, ()),
@@ -47,11 +54,15 @@ _UNARY = {
     "arcsinh": (torch.arcsinh, ()),
     "arccosh": (torch.arccosh, ()),
     "arctanh": (torch.arctanh, ()),
+    "degrees": (torch.rad2deg, ()),
+    "radians": (torch.deg2rad, ()),
     "sigmoid": (torch.sigmoid, ()),
     "softsign": (torch.nn.functional.softsign, ()),
     "relu": (torch.relu, ()),
     "reciprocal": (torch.reciprocal, ()),
     "erf": (torch.erf, ()),
+    "erfinv": (torch.erfinv, ()),
+    "gammaln": (torch.lgamma, ()),
     "logical_not": (lambda x: (x == 0).to(x.dtype), ()),
     "negative": (torch.neg, ("_np_negative",)),
 }
@@ -63,6 +74,16 @@ def _unary(f):
 
 for _name, (_f, _aliases) in _UNARY.items():
     register(_name, aliases=_aliases)(_unary(_f))
+
+
+@register("gamma")
+def _gamma(params, x):
+    """tgamma (reference `elemwise_unary_op_basic.cc` gamma), as
+    `jax.scipy.special.gamma`: exp(lgamma(x)) with the sign of Gamma,
+    negative on (-1, 0), (-3, -2), ..."""
+    neg = (x < 0) & (torch.remainder(torch.floor(x), 2) != 0)
+    return torch.exp(torch.lgamma(x)) * torch.where(neg, -1.0, 1.0).to(
+        x.dtype)
 
 
 @register("_copy", aliases=("identity",))
@@ -145,6 +166,16 @@ for _name, (_f, _aliases) in _BINARY.items():
     register(_name, nin=2, aliases=_aliases)(_binary(_f))
 
 
+@register("smooth_l1", params={"scalar": 1.0})
+def _smooth_l1(params, x):
+    """Reference `elemwise_binary_scalar_op_extended.cc` smooth_l1:
+    0.5 (s x)^2 where |x| < 1/s^2, else |x| - 0.5/s^2."""
+    s2 = float(params["scalar"]) ** 2
+    ax = torch.abs(x)
+    return torch.where(ax < 1.0 / s2, 0.5 * s2 * torch.square(x),
+                       ax - 0.5 / s2)
+
+
 # ---------------------------------------------------------------------------
 # Scalar ops (`elemwise_binary_scalar_op_*.cc`): the scalar is a static
 # param, as in the reference
@@ -167,6 +198,7 @@ _SCALAR = {
     "_rpower_scalar": lambda x, s: torch.pow(s, x),
     "_maximum_scalar": lambda x, s: torch.clamp(x, min=s),
     "_minimum_scalar": lambda x, s: torch.clamp(x, max=s),
+    "_hypot_scalar": lambda x, s: torch.hypot(x, torch.full_like(x, s)),
     "_equal_scalar": lambda x, s: _as(x, x == s),
     "_not_equal_scalar": lambda x, s: _as(x, x != s),
     "_greater_scalar": lambda x, s: _as(x, x > s),
@@ -176,6 +208,8 @@ _SCALAR = {
     "_logical_and_scalar": lambda x, s: _as(x, torch.logical_and(
         x, torch.tensor(bool(s)))),
     "_logical_or_scalar": lambda x, s: _as(x, torch.logical_or(
+        x, torch.tensor(bool(s)))),
+    "_logical_xor_scalar": lambda x, s: _as(x, torch.logical_xor(
         x, torch.tensor(bool(s)))),
 }
 

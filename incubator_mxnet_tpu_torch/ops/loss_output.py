@@ -7,7 +7,9 @@ backward *ignores the incoming gradient* (unless ``out_grad``) and emits
 softmax minus one-hot, scaled by ``grad_scale`` and the normalization.
 The JAX op is a custom VJP; here it is a `torch.autograd.Function`.
 Softmax and its gradient run in fp32 and are cast to the input's dtype;
-the label gets a zero gradient.
+the label gets a zero gradient.  The same for the rest of the file:
+the regression outputs, `MakeLoss` (the SSD's box loss head), `SVMOutput`
+and `IdentityAttachKLSparseReg`.
 """
 from __future__ import annotations
 
@@ -91,3 +93,122 @@ def _softmax_output(params, data, label):
         flattened = True
     out = _SoftmaxOutput.apply(data, label, params)
     return out.reshape(orig_shape) if flattened else out
+
+
+class _Regression(torch.autograd.Function):
+    """Forward = link(data); backward = grad_fn(out, label) *
+    grad_scale / num_output, the incoming gradient ignored (reference
+    `regression_output-inl.h`)."""
+
+    @staticmethod
+    def forward(ctx, data, label, link, grad_fn, grad_scale):
+        out = link(data)
+        ctx.save_for_backward(out, label)
+        ctx.grad_fn = grad_fn
+        ctx.grad_scale = grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        num_out = max(out.numel() // out.shape[0], 1)
+        grad = ctx.grad_fn(out, label.reshape(out.shape)) * \
+            (ctx.grad_scale / num_out)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad.to(out.dtype), dlabel, None, None, None
+
+
+def _regression(link, grad_fn):
+    def fn(params, data, label):
+        return _Regression.apply(data, label, link, grad_fn,
+                                 float(params["grad_scale"]))
+    return fn
+
+
+# grad = (pred - label) for linear and logistic, sign(pred - label) for
+# MAE; scaled by grad_scale / num_output
+for _name, _link, _grad in (
+        ("LinearRegressionOutput", lambda d: d, lambda o, l: o - l),
+        ("LogisticRegressionOutput", torch.sigmoid, lambda o, l: o - l),
+        ("MAERegressionOutput", lambda d: d,
+         lambda o, l: torch.sign(o - l))):
+    register(_name, nin=2, params={"grad_scale": 1.0},
+             input_names=["data", "label"])(_regression(_link, _grad))
+
+
+class _MakeLoss(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, data, params):
+        ctx.save_for_backward(data)
+        ctx.params = params
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        (d,) = ctx.saved_tensors
+        p = ctx.params
+        grad = torch.full_like(d, float(p["grad_scale"]))
+        if p["normalization"] == "batch":
+            grad = grad / d.shape[0]
+        elif p["normalization"] == "valid":
+            valid = torch.clamp(
+                (d > float(p["valid_thresh"])).to(d.dtype).sum(), min=1.0)
+            grad = grad / valid
+        return grad, None
+
+
+@register("MakeLoss",
+          params={"grad_scale": 1.0, "valid_thresh": 0.0,
+                  "normalization": "null"})
+def _make_loss_op(params, data):
+    """Reference `make_loss.cc`: forward the identity; backward
+    ``grad_scale``, divided by the batch size (``batch``) or by the
+    count of elements above ``valid_thresh`` (``valid``, at least 1);
+    the incoming gradient is ignored."""
+    return _MakeLoss.apply(data, params)
+
+
+class _SVMOutput(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, data, label, params):
+        ctx.save_for_backward(data, label)
+        ctx.params = params
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        d, label = ctx.saved_tensors
+        p = ctx.params
+        margin = float(p["margin"])
+        reg = float(p["regularization_coefficient"])
+        target = 2 * _one_hot(label.to(torch.int64), d.shape[1], -1,
+                              d.dtype) - 1
+        gap = margin - target * d
+        viol = gap > 0
+        if p["use_linear"]:
+            grad = torch.where(viol, -target * reg, 0.0)
+        else:
+            grad = torch.where(viol, -2 * gap * target * reg, 0.0)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad.to(d.dtype), dlabel, None
+
+
+@register("SVMOutput", nin=2,
+          params={"margin": 1.0, "regularization_coefficient": 1.0,
+                  "use_linear": False}, input_names=["data", "label"])
+def _svm_output(params, data, label):
+    """Reference `svm_output.cc`: forward the identity; backward the
+    hinge loss's gradient (squared, or linear with ``use_linear``) for
+    the one-vs-rest targets +1 (the label's class) and -1."""
+    return _SVMOutput.apply(data, label, params)
+
+
+@register("IdentityAttachKLSparseReg",
+          params={"sparseness_target": 0.1, "penalty": 0.001,
+                  "momentum": 0.9})
+def _identity_kl(params, data):
+    """The identity, as in the JAX package (which attaches no KL
+    penalty to the gradient)."""
+    return data + 0

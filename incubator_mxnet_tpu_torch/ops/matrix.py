@@ -128,19 +128,20 @@ def _split(params, x):
     return tuple(parts)
 
 
-@register("Concat", aliases=("concat",), nin=-1,
+@register("Concat", aliases=("concat",), nin=-1, variadic_param="num_args",
           params={"num_args": 0, "dim": 1})
 def _concat(params, *xs):
     return torch.cat(xs, dim=int(params["dim"]))
 
 
-@register("stack", nin=-1, params={"num_args": 0, "axis": 0})
+@register("stack", nin=-1, variadic_param="num_args",
+          params={"num_args": 0, "axis": 0})
 def _stack(params, *xs):
     return torch.stack(xs, dim=int(params["axis"]))
 
 
 @register("add_n", aliases=("ElementWiseSum", "_sum"), nin=-1,
-          params={"num_args": 0})
+          variadic_param="num_args", params={"num_args": 0})
 def _add_n(params, *xs):
     out = xs[0]
     for x in xs[1:]:

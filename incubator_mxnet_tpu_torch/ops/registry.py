@@ -38,6 +38,9 @@ class OpDef:
     name : canonical op name (kept from MXNet so symbol JSON interchanges).
     fn : ``fn(params: dict, *tensors) -> tensor | tuple``.
     nin : number of tensor inputs; -1 = variadic.
+    variadic_param : the param a variadic op's symbolic and NDArray
+        frontends set to the number of inputs (``num_args``), as the
+        JAX package's frontends do.
     nout : number of outputs, or callable ``(params) -> int``.
     naux : trailing inputs that are auxiliary states.
     params : dict name -> default (REQUIRED for mandatory params).
@@ -57,11 +60,12 @@ class OpDef:
 
     __slots__ = ("name", "fn", "nin", "nout", "naux", "params", "needs_rng",
                  "mode_dependent", "stop_grad", "aliases", "input_names",
-                 "param_types", "doc")
+                 "param_types", "variadic_param", "doc")
 
     def __init__(self, name, fn, nin=1, nout=1, naux=0, params=None,
                  needs_rng=False, mode_dependent=False, stop_grad=False,
-                 aliases=(), input_names=None, param_types=None, doc=None):
+                 aliases=(), input_names=None, param_types=None,
+                 variadic_param=None, doc=None):
         self.name = name
         self.fn = fn
         self.nin = nin
@@ -74,6 +78,7 @@ class OpDef:
         self.aliases = tuple(aliases)
         self.input_names = input_names
         self.param_types = dict(param_types or {})
+        self.variadic_param = variadic_param
         self.doc = doc or (fn.__doc__ if fn else None)
 
     def canonicalize_params(self, kwargs):

@@ -13,8 +13,18 @@ from __future__ import annotations
 
 from ..base import MXNetError
 from .symbol import Symbol, Variable, Group, _sym_apply
+from ..ops import registry as _reg
+from . import register as _register
 
 __all__ = ["foreach", "while_loop", "cond", "foreach_unroll"]
+
+# the registry's ``_contrib_*`` ops under their short names
+# (``contrib.MultiBoxPrior``, ``contrib.box_nms``), as in the JAX package
+for _name in _reg.list_ops():
+    if _name.startswith("_contrib_"):
+        _short = _name[len("_contrib_"):]
+        globals()[_short] = _register._make_function(_reg.get(_name), _short)
+
 
 _cf_uid = [0]
 

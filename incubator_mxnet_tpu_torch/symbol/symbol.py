@@ -389,6 +389,8 @@ def _sym_apply(op_name, inputs, kwargs):
     if name is not None and not str(name).strip():
         raise MXNetError(f"Operator {op_name}: node name must be a "
                          "non-empty string")
+    if op.variadic_param and op.variadic_param not in kwargs:
+        kwargs[op.variadic_param] = len(inputs)
     params = op.canonicalize_params(kwargs)
     params.pop("ctx", None)
     if name is None:

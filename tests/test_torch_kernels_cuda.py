@@ -12,7 +12,9 @@ optimizer blob written on the card loading where there is none; the
 bucketed LSTM language model's `BucketingModule.fit` on the card
 against the CPU; the native IO library's build, the h2d ring's card
 batches against the host batches, ImageNormalize on the card against
-the host fp32 finish and `TopKAccuracy.device_update` on the card.
+the host fp32 finish and `TopKAccuracy.device_update` on the card; the
+detection, spatial and deformable ops on the card against the CPU, the
+NMS route against its per-box loop, and two steps of a small SSD.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -1312,3 +1314,142 @@ def test_topk_device_update_on_the_card_equals_update(k, classes):
         assert s.is_cuda and n.is_cuda
         dev._accumulate(s, n)
     assert dev.get() == host.get()
+
+
+def _chip_smoke():
+    import importlib.util
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _det_case(name):
+    """(op, params, inputs, indices of the inputs to differentiate) at a
+    small SSD's shapes (64x64: 280 anchors), seeded."""
+    import incubator_mxnet_tpu_torch as mx
+    cs = _chip_smoke()
+    prob, loc, anchors, labels = cs.ssd_head_inputs(mx, 64, 4)
+    rng = np.random.RandomState(3)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(0, 1, shape))
+                                .astype("f4"))
+
+    rois = np.zeros((5, 5), "f4")
+    rois[:, 0] = rng.randint(0, 2, 5)
+    xy = rng.uniform(0, 40, (5, 2))
+    rois[:, 1:3], rois[:, 3:5] = xy, xy + rng.uniform(4, 20, (5, 2))
+    rois = torch.from_numpy(rois)
+    feat = rand(2, 16, 8, 8)
+    return {
+        "MultiBoxTarget": ("MultiBoxTarget", {}, [anchors, labels, prob],
+                           []),
+        "MultiBoxDetection": ("MultiBoxDetection", {"nms_threshold": 0.45},
+                              [prob, loc, anchors], []),
+        "ROIPooling": ("ROIPooling", {"pooled_size": (3, 3),
+                                      "spatial_scale": 0.125},
+                       [feat, rois], [0]),
+        "ROIAlign": ("_contrib_ROIAlign", {"pooled_size": (3, 3),
+                                           "spatial_scale": 0.125},
+                     [feat, rois], [0]),
+        "BilinearSampler": ("BilinearSampler", {}, [
+            feat, torch.from_numpy(rng.uniform(-1.1, 1.1, (2, 2, 5, 6))
+                                   .astype("f4"))], [0, 1]),
+        "DeformableConvolution": (
+            "_contrib_DeformableConvolution",
+            {"kernel": (3, 3), "num_filter": 8, "pad": (1, 1)},
+            [feat, rand(2, 18, 8, 8, scale=0.7),
+             rand(8, 16, 3, 3, scale=0.2), rand(8)], [0, 1, 2, 3]),
+        "DeformablePSROIPooling": (
+            "_contrib_DeformablePSROIPooling",
+            {"spatial_scale": 0.125, "output_dim": 4, "group_size": 2,
+             "pooled_size": 2, "sample_per_part": 2, "trans_std": 0.1},
+            [feat, rois, rand(5, 8, 2, 2)], [0, 2]),
+    }[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "MultiBoxTarget", "MultiBoxDetection", "ROIPooling", "ROIAlign",
+    "BilinearSampler", "DeformableConvolution", "DeformablePSROIPooling"])
+def test_detection_ops_on_the_card_match_the_cpu(name):
+    """The detection, spatial and deformable ops on the card against the
+    CPU on the same inputs (chip_smoke's `op_pair`): the discrete
+    outputs of MultiBoxTarget (class targets, masks) and
+    MultiBoxDetection (classes, scores) equal, the rest and every
+    gradient within rtol 1e-5 + 1e-6 * max|ref| (chip_smoke 13a's gate;
+    the seeded inputs hold no near tie)."""
+    _need_card()
+    cs = _chip_smoke()
+    op, params, inputs, grad_idx = _det_case(name)
+    (c, cg), (g, gg) = cs.op_pair(op, params, inputs, grad_idx)
+    if name == "MultiBoxTarget":
+        assert np.array_equal(c[1], g[1]) and np.array_equal(c[2], g[2])
+        assert cs.op_ratio(g[0], c[0]) <= 1
+    elif name == "MultiBoxDetection":
+        assert np.array_equal(c[0][..., :2], g[0][..., :2])
+        assert cs.op_ratio(g[0][..., 2:], c[0][..., 2:]) <= 1
+    else:
+        for a, b in zip(g + gg, c + cg):
+            assert a.shape == b.shape and cs.op_ratio(a, b) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["decoded", "chain", "random"])
+def test_nms_route_equals_the_loop_on_the_card(case):
+    """`greedy_nms` on the card is bitwise the per-box loop: on a small
+    SSD's decoded candidates, on a chain (the worst case) and on a
+    random suppression matrix."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops.detection import (
+        detection_candidates, greedy_nms)
+    cs = _chip_smoke()
+    if case == "decoded":
+        prob, loc, anchors, _ = cs.ssd_head_inputs(mx, 64, 4)
+        params = {"clip": True, "threshold": 0.01, "nms_threshold": 0.45,
+                  "force_suppress": False,
+                  "variances": (0.1, 0.1, 0.2, 0.2)}
+        _, score, _, sup = detection_candidates(
+            params, prob.cuda(), loc.cuda(), anchors.cuda())
+        valid = score > 0
+    elif case == "chain":
+        n = 300
+        sup = torch.zeros(2, n, n, dtype=torch.bool, device="cuda")
+        i = torch.arange(n - 1, device="cuda")
+        sup[:, i, i + 1] = True
+        valid = torch.ones(2, n, dtype=torch.bool, device="cuda")
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        sup = torch.rand(3, 200, 200, generator=gen, device="cuda") < 0.2
+        valid = torch.rand(3, 200, generator=gen, device="cuda") < 0.8
+    assert torch.equal(greedy_nms(sup, valid), cs.nms_loop(sup, valid))
+
+
+@pytest.mark.cuda
+def test_ssd_steps_on_the_card_match_the_cpu():
+    """Two steps of the quarter-width SSD at 64x64, batch 4, fp32 (TF32
+    off), on the card against the CPU from the same Xavier parameters
+    and batches (chip_smoke's `ssd_steps`): readouts rtol 1e-3,
+    parameters and momenta rtol 1e-3 + 1e-4 * max|array|."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    cs = _chip_smoke()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        sym = cs.ssd_symbol(mx, 3, small=True)
+        cs.SSD_CFG = dict(cs.SSD_CFG, image=64)
+        batches = [b for _, b in zip(range(2), cs.ssd_iter(mx, 8, 4, 64))]
+        cpu_reads, cpu = cs.ssd_steps(mx, sym, mx.cpu(), batches)
+        gpu_reads, gpu = cs.ssd_steps(mx, sym, mx.gpu(0), batches)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    np.testing.assert_allclose(gpu_reads, cpu_reads, rtol=1e-3)
+    for got, ref in zip(gpu[-1], cpu[-1]):
+        assert cs.ssd_ratio(got, ref)[0] <= 1

@@ -151,8 +151,10 @@ def test_port_imports_no_jax():
     ResNet, imperatively and composed), a Module.fit through the fused
     train step, an Estimator.fit through the gluon fused step, a
     Module.fit from a .rec through ImageRecordIter, ImageNormalize and
-    the h2d ring, a bucketed LSTM's BucketingModule.fit and a gluon LSTM
-    loads neither jax nor the JAX package."""
+    the h2d ring, a bucketed LSTM's BucketingModule.fit, a gluon LSTM,
+    and the SSD's graph (detection ops, MakeLoss, smooth_l1) bound and
+    stepped, with ImageDetIter over a .rec, loads neither jax nor the
+    JAX package."""
     code = textwrap.dedent("""
         import os
         import sys
@@ -181,6 +183,11 @@ def test_port_imports_no_jax():
         import incubator_mxnet_tpu_torch.io_plane
         import incubator_mxnet_tpu_torch.ndarray.sparse
         import incubator_mxnet_tpu_torch.ops.image_ops
+        import incubator_mxnet_tpu_torch.ops.detection
+        import incubator_mxnet_tpu_torch.ops.spatial
+        import incubator_mxnet_tpu_torch.ops.contrib_tail
+        import incubator_mxnet_tpu_torch.image_detection
+        import chip_smoke
         import tempfile
         rec = os.path.join(tempfile.mkdtemp(), "a.rec")
         w = mx.recordio.MXRecordIO(rec, "w")
@@ -239,6 +246,21 @@ def test_port_imports_no_jax():
         lstm = mx.gluon.rnn.LSTM(4, input_size=3)
         lstm.initialize(ctx=mx.cpu())
         lstm(mx.nd.array(np.ones((2, 1, 3)), ctx=mx.cpu()))
+        ssd = chip_smoke.ssd_symbol(mx, 3, small=True)
+        det = os.path.join(tempfile.mkdtemp(), "d.rec")
+        w = mx.recordio.MXRecordIO(det, "w")
+        for i in range(4):
+            w.write(mx.recordio.pack_img(mx.recordio.IRHeader(
+                0, [2.0, 5.0, i % 3, 0.1, 0.2, 0.6, 0.7], i, 0),
+                np.full((64, 64, 3), 40 * i, np.uint8), img_fmt=".ppm"))
+        w.close()
+        it = mx.image.ImageDetIter(2, (3, 64, 64), path_imgrec=det,
+                                   max_objects=3, rand_mirror=True)
+        mod = mx.mod.Module(ssd, context=mx.cpu(), data_names=("data",),
+                            label_names=("label",))
+        mod.fit(it, num_epoch=1, eval_metric=chip_smoke.ssd_metric(mx),
+                initializer=mx.initializer.Xavier())
+        assert mod.get_outputs()[3].shape == (2, 280, 6)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "incubator_mxnet_tpu"))
