@@ -195,6 +195,32 @@ exits non-zero:
    launches, NMS rounds).  e. 256 rectangle images packed as JPEG with
    [2, 5, objects] labels, read back through ImageDetIter bit for bit,
    then one epoch from the pack with CreateDetAugmenter.
+14. the kvstore and the parameter server, under TPU_PALLAS.  a. every
+   single-process case of tests/test_kvstore.py with its values on the
+   card (local and device stores, two values on the one card,
+   set_updater, set_optimizer with SGD and Adam, pushpull,
+   row_sparse_pull, a multi-key push, 2-bit compression over 20 pushes)
+   against the same calls on the CPU: reductions, codes and residuals
+   bit for bit, optimizer results rtol 1e-6 + 1e-6*max.  b. train_mnist's
+   mlp on contexts [gpu(0), gpu(0)] through kvstore='device': 8 steps
+   against the one-context step on the card (loss rtol 1e-5; parameters
+   and momenta rtol 1e-5 + 1e-6*max; K1 4 launches a step); the same
+   lane with 2-bit compression against the CPU (codes equal outside
+   counted near ties, parameters rtol 1e-4 + 1e-5*max); 10 epochs
+   through Module.fit (accuracy > 0.95, images/s, step ms).  c. one
+   ParameterServer and two workers on the card through the port's
+   launcher, Module.fit(kvstore='dist_sync') at batch 32 each for 8
+   steps, SGD on the server: the workers' parameters equal bit for bit
+   and within rtol 1e-5 + 1e-6*max of one process at batch 64; the same
+   with 2-bit compression (the push's wire bytes 1/16 of fp32's);
+   steps/s, push and pull ms, the server's update ms.  d.
+   examples/recommender/wide_deep.py at its defaults (copied onto the
+   port: 2 shard servers, a 200000 x 16 table, batch 64, 4096 samples,
+   2 epochs, lr 0.1, 4096 cache rows on the card) against the port on
+   the CPU: epoch-1 losses rtol 1e-4, the tower and the whole table rtol
+   1e-4 + 1e-5*max, pushes, rows, hits, misses and evictions equal;
+   samples/s, the hit rate, the lookup's host and device ms, the push's
+   round trip, K1's launches (1 a forward), one profiled batch.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -229,6 +255,12 @@ BUCKETS = (1, 2, 4, 8, 16, 32)
 K1_ROWS = BUCKETS + (128,)
 # train_mnist's mlp at batch 64: fc1+relu1 and fc2+relu2, in fp32
 MLP_K1 = ((64, 784, 128), (64, 128, 64))
+# K1 on phase 14's paths, in fp32: the mlp's fc1 and fc2 in each executor
+# of 14b (batch 64 over two contexts) and in each 14c worker (batch 32),
+# and the wide_deep tower's deep1 (14d)
+PATH_K1 = (((32, 784, 128), "dp_fc1", "executor fc1"),
+           ((32, 128, 64), "dp_fc2", "executor fc2"),
+           ((64, 32, 32), "wd_deep1", "wide_deep deep1"))
 # phase 6: train_mnist's defaults (examples/image_classification/
 # train_mnist.py:69-100, :60-66)
 TRAIN_IMAGES, TRAIN_SPLIT, TRAIN_BATCH, TRAIN_EPOCHS = 4096, 3584, 64, 10
@@ -683,7 +715,7 @@ def note_slower(t, dtype, shape, slower):
 
 def kernel_phase(card):
     """Phase 3; returns the JSON numbers of REP and REP_BF16 by dtype, and
-    of the mlp shapes by (M, K, N, dtype)."""
+    of the mlp's and phase 14's shapes by (M, K, N, dtype)."""
     from incubator_mxnet_tpu_torch.subgraph.fused_ops import ROUTES, \
         launch_plan
     dev = torch.device("cuda", 0)
@@ -704,11 +736,12 @@ def kernel_phase(card):
             if (m, k, n, dtype) in (REP, REP_BF16):
                 reps[dtype] = t
             del x, w, b
-    for m, k, n in MLP_K1:
+    for m, k, n in MLP_K1 + tuple(shape for shape, _, _ in PATH_K1):
         x = torch.randn(m, k, generator=gen, device=dev)
         w = torch.randn(n, k, generator=gen, device=dev) / math.sqrt(k)
         b = 0.1 * torch.randn(n, generator=gen, device=dev)
-        check(all(launch_plan(x, w, r) is not None for r in ROUTES),
+        check((m, k, n) not in MLP_K1 or
+              all(launch_plan(x, w, r) is not None for r in ROUTES),
               f"a K1 route does not take the mlp shape {(m, k, n)}")
         reps[(m, k, n, F32)] = k1_case(x, w, b, card, flush)
         note_slower(reps[(m, k, n, F32)], F32, (m, k, n), slower)
@@ -1216,16 +1249,16 @@ def attention_path_phase(card, flush):
     return launches
 
 
-def mlp_symbol(mx):
+def mlp_symbol(mx, prefix=""):
     """train_mnist's ``mlp`` (examples/image_classification/
-    train_mnist.py get_mlp)."""
+    train_mnist.py get_mlp); `prefix` before every layer's name."""
     s = mx.sym
     data = s.Flatten(s.Variable("data"))
-    fc1 = s.FullyConnected(data, name="fc1", num_hidden=128)
-    act1 = s.Activation(fc1, name="relu1", act_type="relu")
-    fc2 = s.FullyConnected(act1, name="fc2", num_hidden=64)
-    act2 = s.Activation(fc2, name="relu2", act_type="relu")
-    fc3 = s.FullyConnected(act2, name="fc3", num_hidden=10)
+    fc1 = s.FullyConnected(data, name=prefix + "fc1", num_hidden=128)
+    act1 = s.Activation(fc1, name=prefix + "relu1", act_type="relu")
+    fc2 = s.FullyConnected(act1, name=prefix + "fc2", num_hidden=64)
+    act2 = s.Activation(fc2, name=prefix + "relu2", act_type="relu")
+    fc3 = s.FullyConnected(act2, name=prefix + "fc3", num_hidden=10)
     return s.SoftmaxOutput(fc3, name="softmax")
 
 
@@ -5660,6 +5693,744 @@ def ssd_phase(card, workdir):
     return out
 
 
+# -- phase 14d: examples/recommender/wide_deep.py, copied onto the port ------
+
+# the example's defaults (wide_deep.py:72-79, its table's cache rows from
+# MXNET_EMBED_CACHE_ROWS)
+WD_CFG = dict(rows=200_000, dim=16, shards=2, epochs=2, batch=64,
+              samples=4096, lr=0.1, cache_rows=4096)
+WD_SLOTS = 2   # (user id, item id)
+
+
+def wd_clicks(n, num_rows, rng):
+    """wide_deep.py `synthetic_clicks` (:51): power-law (user, item) pairs
+    and a planted preference rule."""
+    probs = 1.0 / np.arange(1, num_rows + 1) ** 1.1
+    probs /= probs.sum()
+    ids = rng.choice(num_rows, size=(n, WD_SLOTS), p=probs).astype(np.int64)
+    dense = rng.randn(n, 4).astype(np.float32)
+    label = ((ids[:, 0] + ids[:, 1]) % 3 == 0).astype(np.float32)
+    return ids, dense, label
+
+
+def wd_tower(mx, embed_width, dense_width, hidden=32):
+    """wide_deep.py `tower` (:61): wide (linear over dense) + deep (MLP
+    over the embeddings)."""
+    emb = mx.sym.Variable("emb")
+    den = mx.sym.Variable("dense")
+    deep = mx.sym.FullyConnected(emb, num_hidden=hidden, name="deep1")
+    deep = mx.sym.Activation(deep, act_type="relu")
+    wide = mx.sym.FullyConnected(den, num_hidden=hidden, name="wide1")
+    both = deep + wide
+    out = mx.sym.FullyConnected(both, num_hidden=2, name="head")
+    return mx.sym.SoftmaxOutput(out, name="softmax")
+
+
+def wide_deep(mx, cfg, ctx, arg_params=None, batch_end=None, epochs=None):
+    """wide_deep.py `main` (:72) on the port at `cfg`, the tower and the
+    table's cache on `ctx`: `cfg["shards"]` parameter servers as threads
+    of this process, the `ShardedEmbedding` on them (seed 7, SGD at
+    ``lr / batch`` on the shards), the `EmbeddingFitAdapter`, the tower
+    bound with ``inputs_need_grad`` and fitted with the row-sparse push
+    at each batch's end.  `arg_params` (numpy) sets the tower's start,
+    else the example's default initializer draws it.  -> dict of the
+    module, table, adapter and servers (the caller closes the table and
+    shuts the servers down: `wide_deep_close`)."""
+    from incubator_mxnet_tpu_torch import embedding as mxembed
+    from incubator_mxnet_tpu_torch.dist.server import ParameterServer
+    servers = [ParameterServer(num_workers=1).start()
+               for _ in range(cfg["shards"])]
+    run = {"servers": servers}
+    try:
+        table = mxembed.ShardedEmbedding(
+            "user_item", cfg["rows"], cfg["dim"],
+            [("127.0.0.1", s.port) for s in servers], seed=7,
+            cache_rows=cfg["cache_rows"], ctx=ctx,
+            optimizer=mx.optimizer.SGD(learning_rate=cfg["lr"],
+                                       rescale_grad=1.0 / cfg["batch"]))
+        run["table"] = table
+        ids, dense, label = wd_clicks(cfg["samples"], cfg["rows"],
+                                      np.random.RandomState(0))
+        base = mx.io.NDArrayIter({"emb": ids.astype(np.float32),
+                                  "dense": dense},
+                                 {"softmax_label": label},
+                                 batch_size=cfg["batch"])
+        adapter = mxembed.EmbeddingFitAdapter(table, base, id_field=0)
+        mod = mx.mod.Module(wd_tower(mx, WD_SLOTS * cfg["dim"], 4),
+                            data_names=("emb", "dense"),
+                            label_names=("softmax_label",), context=ctx)
+        mod.bind(data_shapes=adapter.provide_data,
+                 label_shapes=adapter.provide_label,
+                 for_training=True, inputs_need_grad=True)
+        push = adapter.make_callback(mod)
+        callbacks = [push] + ([batch_end] if batch_end else [])
+        mod.fit(adapter, num_epoch=epochs or cfg["epochs"], optimizer="sgd",
+                optimizer_params={"learning_rate": cfg["lr"],
+                                  "rescale_grad": 1.0 / cfg["batch"]},
+                arg_params=None if arg_params is None else
+                {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in
+                 arg_params.items()},
+                batch_end_callback=callbacks, eval_metric="acc")
+        run.update(mod=mod, adapter=adapter)
+        return run
+    except BaseException:
+        wide_deep_close(run)
+        raise
+
+
+def wide_deep_close(run):
+    """Close a `wide_deep` run's table and shut its servers down."""
+    if run.get("table") is not None:
+        run["table"].close()
+    for s in run["servers"]:
+        s.shutdown()
+
+
+# -- phase 14: the kvstore, the parameter server, wide_deep.py ---------------
+
+KV_OPT_RTOL = 1e-6           # 14a: optimizer results, card vs CPU (rtol,
+                             # and atol * max|array|)
+DP_TOL = (1e-5, 1e-6)        # 14b/14c: loss rtol; rtol, atol * max|array|
+DP_2BIT = {"type": "2bit", "threshold": 0.5}
+DP_2BIT_TOL = (1e-4, 1e-5)   # 14b compressed, card vs CPU
+DP_NEAR = 1e-5               # 14b: |g + residual| within this of the
+                             # threshold (relative) is a near tie
+DIST_WORKERS, DIST_STEPS = 2, 8   # 14c: batch 64 / 2 workers = 32 each
+WD_TOL = (1e-4, 1e-5)        # 14d: loss rtol; rtol, atol * max|array|
+WD_PARAMS_SEED = 1
+
+
+def kv_cases(mx, ctx, cpu_store=False):
+    """tests/test_kvstore.py's single-process cases with every value on
+    `ctx` (a ``device`` store on the CPU, `cpu_store`, is the reference's
+    host twin); -> {case: numpy results}."""
+    nd = mx.nd
+    rng = np.random.RandomState(SEED)
+
+    def arr(x):
+        return nd.array(np.asarray(x, np.float32), ctx=ctx)
+
+    def store(kind):
+        kv = mx.kv.create(kind)
+        if cpu_store:
+            kv._store_ctx = mx.cpu()
+        return kv
+
+    out = {}
+    shape = (64, 33)
+    vals = [rng.randn(*shape).astype("f4") for _ in range(5)]
+    for kind in ("local", "device"):
+        kv = store(kind)
+        kv.init(3, arr(np.ones(shape)))
+        o = nd.zeros(shape, ctx=ctx)
+        kv.pull(3, out=o)
+        kv.push(3, arr(vals[0]))
+        kv.pull(3, out=o)
+        out[f"{kind} push/pull"] = o.asnumpy()
+        kv.init(4, arr(np.zeros(shape)))
+        kv.push(4, [arr(vals[0]), arr(vals[1])])     # two values, one card
+        outs = [nd.zeros(shape, ctx=ctx) for _ in range(2)]
+        kv.pull(4, out=outs)
+        out[f"{kind} list of two"] = np.stack([x.asnumpy() for x in outs])
+        keys = ["a", "b", "c"]
+        kv.init(keys, [arr(np.zeros(shape))] * 3)
+        kv.push(keys, [[arr(v), arr(w)] for v, w in zip(vals, vals[2:])])
+        outs = [nd.zeros(shape, ctx=ctx) for _ in keys]
+        kv.pull(keys, out=outs)
+        out[f"{kind} multi-key push"] = np.stack([x.asnumpy() for x in outs])
+        o = nd.zeros(shape, ctx=ctx)
+        kv.pushpull(3, [arr(vals[3]), arr(vals[4])], out=o)
+        out[f"{kind} pushpull"] = o.asnumpy()
+        o = nd.zeros(shape, ctx=ctx)
+        kv.row_sparse_pull(3, out=o, row_ids=arr([5, 0, 17]))
+        out[f"{kind} row_sparse_pull"] = o.asnumpy()
+    kv = store("device")
+    kv.init(3, arr(np.ones(shape)))
+    kv.set_updater(lambda key, recv, stored: stored.__iadd__(recv * 2))
+    kv.push(3, [arr(vals[0]), arr(vals[1])])
+    o = nd.zeros(shape, ctx=ctx)
+    kv.pull(3, out=o)
+    out["set_updater"] = o.asnumpy()
+    for name, opt in (("sgd", mx.optimizer.SGD(learning_rate=0.1,
+                                                momentum=0.9, wd=1e-4)),
+                      ("adam", mx.optimizer.Adam(learning_rate=0.01))):
+        kv = store("device")
+        kv.init("w", arr(vals[4]))
+        kv.set_optimizer(opt)
+        for v in vals:
+            kv.push("w", [arr(v), arr(v * 0.5)])
+        kv.pull("w", out=o)
+        out[f"set_optimizer {name}"] = o.asnumpy()
+    kv = store("device")
+    kv.set_gradient_compression(DP_2BIT)
+    kv.init("g", arr(np.zeros(shape)))
+    codes, resid = [], []
+    for _ in range(20):
+        kv.push("g", [arr(rng.randn(*shape) * 0.3) for _ in range(2)])
+        kv.pull("g", out=o)
+        codes.append(o.asnumpy())
+        resid.append(kv._residuals["g"].cpu().numpy())
+    out["2-bit codes over 20 pushes"] = np.stack(codes)
+    out["2-bit residuals over 20 pushes"] = np.stack(resid)
+    return out
+
+
+def kv_card(mx, card):
+    """14a: each case on the card against the same calls on the CPU;
+    reductions and 2-bit codes equal bit for bit, optimizer results
+    within rtol KV_OPT_RTOL."""
+    t0 = time.perf_counter()
+    got = kv_cases(mx, mx.gpu(0))
+    want = kv_cases(mx, mx.cpu(), cpu_store=True)
+    worst = 0.0
+    for name, ref in want.items():
+        g = got[name]
+        if name.startswith("set_optimizer"):
+            bound = KV_OPT_RTOL * (np.abs(ref) + np.abs(ref).max())
+            err = float((np.abs(g - ref) / bound).max())
+            worst = max(worst, err)
+            ok = err <= 1
+            what = (f"at {err:.3f} of the tolerance (rtol {KV_OPT_RTOL:g}, "
+                    f"atol {KV_OPT_RTOL:g}*max|ref|)")
+        else:
+            ok = np.array_equal(g, ref)
+            what = "bit for bit" if ok else \
+                f"max |diff| {np.abs(g - ref).max():.3e}"
+        print(f"kvstore 14a: {name}: {what} {'ok' if ok else 'FAIL'}")
+        check(ok, f"14a {name}: the card disagrees with the CPU")
+    print(f"phase 14a: {len(want)} cases in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return worst
+
+
+def dp_init(mx, sym):
+    """Xavier parameters of train_mnist's mlp drawn on the CPU under
+    mx.random.seed(SEED), as numpy."""
+    mod = mx.mod.Module(sym, context=mx.cpu())
+    mod.bind([("data", (TRAIN_BATCH, 1, 28, 28))],
+             [("softmax_label", (TRAIN_BATCH,))])
+    mx.random.seed(SEED)
+    mod.init_params(mx.initializer.Xavier())
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def dp_steps(mx, sym, contexts, batches, init, kvstore, compression=None):
+    """Module steps (forward_backward, update) over `contexts` from `init`:
+    the loss of each step, the parameters and the momenta after the last
+    (from the store's updater when the update runs there), and each
+    step's 2-bit (g + residual, code) per key under `compression`."""
+    mod = mx.mod.Module(sym, context=contexts,
+                        compression_params=compression)
+    mod.bind([("data", (TRAIN_BATCH, 1, 28, 28))],
+             [("softmax_label", (TRAIN_BATCH,))])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in init.items()})
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
+                       optimizer_params={"learning_rate": TRAIN_LR,
+                                         "momentum": TRAIN_MOMENTUM})
+    codes = []
+    if compression is not None:
+        kv = mod._kvstore
+        orig = kv._compress
+
+        def spy(sk, merged):
+            r = kv._residuals.get(sk)
+            g = merged.asnumpy() + (0 if r is None else r.cpu().numpy())
+            q = orig(sk, merged)
+            codes[-1][sk] = (g, q.asnumpy())
+            return q
+        kv._compress = spy
+    losses = []
+    for batch in batches:
+        codes.append({})
+        mod.forward_backward(batch)
+        mod.update()
+        losses.append(cross_entropy(mod.get_outputs()[0], batch.label[0]))
+    names = mod._exec_group.param_names
+    if mod._update_on_kvstore:
+        moms = {n: mod._kvstore._updater.states[n].asnumpy() for n in names}
+    else:
+        ndev = len(contexts)
+        moms = {n: mod._updater.states[i * ndev].asnumpy()
+                for i, n in enumerate(names)}
+    params = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    return mod, losses, params, moms, codes
+
+
+def held_worst(got, ref, tol, keep=None):
+    """The largest |got - ref| / (rtol |ref| + atol max|ref|) over the
+    arrays of `ref` (the elements `keep` selects), and its name."""
+    rtol, atol = tol
+    worst, at = -1.0, "none"
+    for n, r in ref.items():
+        m = np.ones(r.shape, bool) if keep is None else keep[n]
+        if not m.any():
+            continue
+        bound = rtol * np.abs(r) + atol * np.abs(r).max() + 1e-30
+        v = float((np.abs(got[n] - r) / bound)[m].max())
+        if v > worst:
+            worst, at = v, n
+    return max(worst, 0.0), at
+
+
+def dp_free(mx, sym, card):
+    """14b free running: 8 steps on [gpu(0), gpu(0)] through
+    kvstore='device' against the one-context unfused step on the card,
+    from the same parameters and batches.  Returns K1's launches."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    train, _ = mnist_iters(mx)
+    batches = [next(train) for _ in range(PARITY_STEPS)]
+    init = dp_init(mx, sym)
+    _, ref_loss, ref_p, ref_m, _ = dp_steps(mx, sym, [mx.gpu(0)], batches,
+                                            init, "local")
+    fc_relu.launches = 0
+    mod, loss, p, m, _ = dp_steps(mx, sym, [mx.gpu(0), mx.gpu(0)], batches,
+                                  init, "device")
+    launches = fc_relu.launches
+    check(len(mod._exec_group.execs) == 2 and mod._fused_step is None and
+          mod._update_on_kvstore, "14b: not two executors updating on the "
+          "kvstore")
+    a = mod._exec_group.param_arrays[0]
+    check(a[0].data.data_ptr() != a[1].data.data_ptr(),
+          "14b: the two contexts share their arrays")
+    loss_err = max(abs(g - c) / abs(c) for g, c in zip(loss, ref_loss))
+    pw, pn = held_worst(p, ref_p, DP_TOL)
+    mw, mn = held_worst(m, ref_m, DP_TOL)
+    ok = loss_err <= DP_TOL[0] and pw <= 1 and mw <= 1 and \
+        launches == 4 * PARITY_STEPS
+    print(f"dp 14b free running: {PARITY_STEPS} steps on [gpu(0), gpu(0)], "
+          f"kvstore='device' (update on the store), vs one context: loss "
+          f"{' '.join(f'{v:.4f}' for v in loss)}; max rel loss err "
+          f"{loss_err:.2e} (rtol {DP_TOL[0]:g}); parameters at {pw:.3f} "
+          f"(worst {pn}), momenta at {mw:.3f} (worst {mn}) of the "
+          f"tolerance (rtol {DP_TOL[0]:g}, atol {DP_TOL[1]:g}*max|array|); "
+          f"K1 launches {launches} (4 a step) {'ok' if ok else 'FAIL'} "
+          f"[{card}]")
+    check(ok, "14b: two contexts on the card disagree with one")
+    return launches
+
+
+def dp_compressed(mx, sym, card):
+    """14b compressed: the 2-context lane with 2-bit compression on the
+    card against the same lane on the CPU (a local store there): codes
+    equal outside counted near ties; parameters within DP_2BIT_TOL where
+    no code differed."""
+    train, _ = mnist_iters(mx)
+    batches = [next(train) for _ in range(PARITY_STEPS)]
+    init = dp_init(mx, sym)
+    _, closs, cp, _, ccodes = dp_steps(
+        mx, sym, [mx.cpu(), mx.cpu()], batches, init, "local", DP_2BIT)
+    mod, gloss, gp, _, gcodes = dp_steps(
+        mx, sym, [mx.gpu(0), mx.gpu(0)], batches, init, "device", DP_2BIT)
+    check(mod._update_on_kvstore and len(mod._kvstore._residuals) == 6,
+          "14b compressed: not updating on the kvstore, one residual a key")
+    thr = DP_2BIT["threshold"]
+    flipped = {k: np.zeros(v.shape, bool) for k, v in init.items()}
+    ties = far = nonzero = 0
+    for step_c, step_g in zip(ccodes, gcodes):
+        for k, (cg, cq) in step_c.items():
+            _, gq = step_g[k]
+            near = np.abs(np.abs(cg) - thr) <= DP_NEAR * thr
+            differ = cq != gq
+            ties += int(near.sum())
+            far += int((differ & ~near).sum())
+            flipped[k] |= differ.reshape(flipped[k].shape)
+            nonzero += int((cq != 0).sum())
+    keep = {k: ~f for k, f in flipped.items()}
+    pw, pn = held_worst(gp, cp, DP_2BIT_TOL, keep)
+    loss_err = max(abs(g - c) / abs(c) for g, c in zip(gloss, closs))
+    n_flip = sum(int(f.sum()) for f in flipped.values())
+    ok = far == 0 and pw <= 1
+    print(f"dp 14b compressed (2bit, threshold {thr}): {PARITY_STEPS} steps "
+          f"card vs CPU: {nonzero} nonzero codes, {ties} near ties "
+          f"(|g+r| within {DP_NEAR:g} of the threshold), {n_flip} codes "
+          f"differ at near ties, {far} elsewhere; parameters where no code "
+          f"differed at {pw:.3f} of the tolerance (worst {pn}; rtol "
+          f"{DP_2BIT_TOL[0]:g}, atol {DP_2BIT_TOL[1]:g}*max|array|); loss "
+          f"max rel diff {loss_err:.2e} (printed) {'ok' if ok else 'FAIL'} "
+          f"[{card}]")
+    check(ok, "14b compressed: the card's codes or parameters disagree")
+    return {"ties": ties, "flipped": n_flip}
+
+
+def dp_fit(mx, sym, card):
+    """14b full fit: train_mnist's defaults on [gpu(0), gpu(0)] through
+    kvstore='device', 10 epochs; validation accuracy > 0.95."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    train, val = mnist_iters(mx)
+    mod = mx.mod.Module(sym, context=[mx.gpu(0), mx.gpu(0)])
+    ticks = []
+    mx.random.seed(SEED)
+    fc_relu.launches = 0
+    t0 = time.perf_counter()
+    mod.fit(train, eval_data=val, kvstore="device", optimizer="sgd",
+            optimizer_params={"learning_rate": TRAIN_LR,
+                              "momentum": TRAIN_MOMENTUM},
+            initializer=mx.initializer.Xavier(), num_epoch=TRAIN_EPOCHS,
+            batch_end_callback=lambda p: ticks.append(
+                (p.nbatch, time.perf_counter())))
+    wall = time.perf_counter() - t0
+    launches = fc_relu.launches
+    steps = TRAIN_EPOCHS * -(-TRAIN_SPLIT // TRAIN_BATCH)
+    evals = TRAIN_EPOCHS * -(-(TRAIN_IMAGES - TRAIN_SPLIT) // TRAIN_BATCH)
+    acc = mod.score(val, "acc")[0][1]
+    step_ms = [(t1 - t0_) * 1e3 for (_, t0_), (n1, t1) in
+               zip(ticks, ticks[1:]) if n1 > 0]
+    med = statistics.median(step_ms)
+    ok = acc > 0.95 and launches == 4 * (steps + evals) and \
+        mod._kvstore.stats()["fallback_reduces"] == steps
+    print(f"dp 14b fit: {TRAIN_EPOCHS} epochs on [gpu(0), gpu(0)] "
+          f"kvstore='device' in {wall:.2f} s (eval included); step median "
+          f"{med:.3f} ms (p10 {np.percentile(step_ms, 10):.3f}, p90 "
+          f"{np.percentile(step_ms, 90):.3f}) = {TRAIN_BATCH / med * 1e3:.0f}"
+          f" images/s; K1 launches {launches} = 4 x ({steps} train + "
+          f"{evals} eval forwards); validation accuracy {acc:.4f} (> 0.95) "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "14b fit: accuracy, K1's launches or the store's reduces")
+    return launches, {"step_ms": med, "images_s": TRAIN_BATCH / med * 1e3,
+                      "accuracy": acc}
+
+
+def dist_data(mx):
+    """The first DIST_STEPS global batches of 64 of train_mnist's images,
+    in order: -> (x, y) numpy."""
+    x, y = mx.test_utils.get_mnist_like(TRAIN_IMAGES)
+    n = DIST_STEPS * TRAIN_BATCH
+    return np.asarray(x[:n], np.float32), np.asarray(y[:n], np.float32)
+
+
+def dist_worker():
+    """One 14c worker (started by the port's launcher, on the card unless
+    DIST_WORKER_DEVICE says "cpu"): train_mnist's mlp at batch 32 (its
+    half of each global batch of 64) through Module.fit with
+    kvstore='dist_sync', SGD on the server, from DIST_OUT's initial
+    parameters; then the same with 2-bit compression under other names.
+    Writes its parameters, K1's launches, step and wire numbers to
+    DIST_OUT."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = os.environ["DIST_OUT"]
+    ctx = mx.cpu() if os.environ.get("DIST_WORKER_DEVICE") == "cpu" \
+        else mx.gpu(0)
+    rank = int(os.environ["DMLC_RANK"])
+    per = TRAIN_BATCH // DIST_WORKERS
+    x, y = dist_data(mx)
+    rows = np.concatenate([np.arange(j * TRAIN_BATCH + rank * per,
+                                     j * TRAIN_BATCH + (rank + 1) * per)
+                           for j in range(DIST_STEPS)])
+    init = dict(np.load(os.path.join(out_dir, "init.npz")))
+    result, stores, updates_before = {}, [], 0
+    for lane, prefix, comp in (("plain", "", None), ("2bit", "c_", DP_2BIT)):
+        sym = mlp_symbol(mx, prefix)
+        mod = mx.mod.Module(sym, context=ctx, compression_params=comp)
+        ticks = []
+        fc_relu.launches = 0
+        t0 = time.perf_counter()
+        mod.fit(mx.io.NDArrayIter(x[rows], y[rows], per), num_epoch=1,
+                kvstore="dist_sync", optimizer="sgd",
+                optimizer_params={"learning_rate": TRAIN_LR,
+                                  "momentum": TRAIN_MOMENTUM},
+                arg_params={prefix + k: mx.nd.array(v, ctx=mx.cpu())
+                            for k, v in init.items()},
+                batch_end_callback=lambda p: ticks.append(
+                    time.perf_counter()))
+        wall = time.perf_counter() - t0
+        launches = fc_relu.launches
+        kv = mod._kvstore
+        check(kv.num_workers == DIST_WORKERS and mod._update_on_kvstore
+              and mod._optimizer.rescale_grad == 1.0 / TRAIN_BATCH,
+              "14c: not a dist_sync store updating on the server")
+        args, _ = mod.get_params()
+        np.savez(os.path.join(out_dir, f"{lane}{rank}.npz"),
+                 **{k[len(prefix):]: v.asnumpy() for k, v in args.items()})
+        # every round of the fit has applied once this worker's last pull
+        # returned: the server's counters are the fit's
+        server = kv.server_metrics()[0]
+        wire = kv.wire_bytes
+        names = mod._exec_group.param_names
+        grads = mod._exec_group.grad_arrays[0]
+        tgt = mod._exec_group.param_arrays[0]
+        t1 = time.perf_counter()
+        for _ in range(5):
+            kv.push(names[0], grads)
+        push_ms = (time.perf_counter() - t1) * 1e3 / 5
+        t1 = time.perf_counter()
+        for _ in range(5):
+            kv.pull(names[0], tgt)
+        pull_ms = (time.perf_counter() - t1) * 1e3 / 5
+        kv._barrier()
+        result[lane] = {
+            "launches": launches, "steps": len(ticks),
+            "steps_s": (len(ticks) - 1) / (ticks[-1] - ticks[0]),
+            "wall_s": wall, "wire_bytes": wire,
+            "push_ms": push_ms, "pull_ms": pull_ms,
+            "server_update_ms": server["server.update_ms"],
+            "server_updates": server["server.updates"] - updates_before}
+        updates_before = server["server.updates"] + 5
+        stores.append(kv)
+    # one stop per worker: the server stops once both sent theirs
+    stores[0].close(send_stop=False)
+    stores[1].close()
+    with open(os.path.join(out_dir, f"result{rank}.json"), "w") as f:
+        json.dump(result, f)
+    print(f"dist worker {rank} OK", flush=True)
+
+
+def dist_phase(mx, sym, card, workdir, device="cuda"):
+    """14c: one ParameterServer and two workers (`dist_worker`) started by
+    the port's launcher; after 8 steps both workers' parameters equal bit
+    for bit and match one process fitting the global batch of 64 on the
+    card within DP_TOL; the 2-bit lane's push is 1/16 of fp32's bytes."""
+    t0 = time.perf_counter()
+    init = dp_init(mx, sym)
+    with tempfile.TemporaryDirectory(dir=workdir) as out:
+        np.savez(os.path.join(out, "init.npz"), **init)
+        env = dict(os.environ, DIST_OUT=out, MXNET_PS_REQUEST_TIMEOUT="120",
+                   DIST_WORKER_DEVICE="cpu" if device == "cpu" else "cuda")
+        here = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.run(
+            [sys.executable, "-m", "incubator_mxnet_tpu_torch.dist.launch",
+             "-n", str(DIST_WORKERS), sys.executable, "-c",
+             "import chip_smoke; chip_smoke.dist_worker()"],
+            cwd=here, env=env, capture_output=True, text=True, timeout=300)
+        tail = (proc.stdout + proc.stderr)[-3000:]
+        check(proc.returncode == 0, f"14c: the launched job failed "
+              f"(rc {proc.returncode}):\n{tail}")
+        res = [json.load(open(os.path.join(out, f"result{r}.json")))
+               for r in range(DIST_WORKERS)]
+        params = {lane: [dict(np.load(os.path.join(out, f"{lane}{r}.npz")))
+                         for r in range(DIST_WORKERS)]
+                  for lane in ("plain", "2bit")}
+    launch_s = time.perf_counter() - t0
+    x, y = dist_data(mx)
+    ctx = mx.gpu(0)
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.fit(mx.io.NDArrayIter(x, y, TRAIN_BATCH), num_epoch=1,
+            optimizer="sgd", optimizer_params={"learning_rate": TRAIN_LR,
+                                               "momentum": TRAIN_MOMENTUM},
+            arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in init.items()})
+    want = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    same = all(np.array_equal(params["plain"][0][k], params["plain"][1][k])
+               and np.array_equal(params["2bit"][0][k], params["2bit"][1][k])
+               for k in want)
+    pw, pn = held_worst(params["plain"][0], want, DP_TOL)
+    plain, comp = res[0]["plain"], res[0]["2bit"]
+    ratio = comp["wire_bytes"] / plain["wire_bytes"]
+    launches = [r[lane]["launches"] for r in res for lane in r]
+    k1_ok = device != "cuda" or all(n == 2 * DIST_STEPS for n in launches)
+    ok = same and pw <= 1 and abs(ratio - 1 / 16) < 1e-3 and k1_ok and \
+        all(r[lane]["steps"] == DIST_STEPS for r in res for lane in r) and \
+        plain["server_updates"] == comp["server_updates"] == 6 * DIST_STEPS
+    print(f"dist 14c: {DIST_WORKERS} workers x batch "
+          f"{TRAIN_BATCH // DIST_WORKERS}, Module.fit(kvstore='dist_sync') "
+          f"{DIST_STEPS} steps through the launcher ({launch_s:.1f} s with "
+          f"process starts): workers equal bit for bit {same}; vs one "
+          f"process at batch {TRAIN_BATCH} on the card at {pw:.3f} of the "
+          f"tolerance (worst {pn}; rtol {DP_TOL[0]:g}, atol "
+          f"{DP_TOL[1]:g}*max|array|); {plain['steps_s']:.1f} steps/s "
+          f"(2bit {comp['steps_s']:.1f}), push {plain['push_ms']:.3f} ms, "
+          f"pull {plain['pull_ms']:.3f} ms (fc1_weight, 100352 floats; "
+          f"2bit push {comp['push_ms']:.3f} ms), server update "
+          f"{plain['server_update_ms']:.3f} ms over "
+          f"{plain['server_updates']} updates; push wire {comp['wire_bytes']}"
+          f" bytes 2bit vs {plain['wire_bytes']} fp32 = {ratio:.5f} (1/16 = "
+          f"0.0625); K1 launches per worker and lane {launches} "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "14c: the dist_sync workers disagree")
+    return {"steps_s": plain["steps_s"], "push_ms": plain["push_ms"],
+            "pull_ms": plain["pull_ms"], "wire_ratio": ratio,
+            "server_update_ms": plain["server_update_ms"],
+            "launches": sum(launches)}
+
+
+def wd_losses(mx, losses):
+    """A batch-end callback appending each batch's mean -log p[label]."""
+    def cb(param):
+        mod = param.locals["self"]
+        batch = param.locals["data_batch"]
+        losses.append(cross_entropy(mod.get_outputs()[0], batch.label[0]))
+    return cb
+
+
+def wd_state(run):
+    table = run["table"]
+    st = table.stats()
+    return {"tower": {k: v.asnumpy() for k, v in
+                      run["mod"].get_params()[0].items()},
+            "table": table.checkpoint_rows(),
+            "counters": {"pushes": run["adapter"].pushes,
+                         "shards": [(s["rows_pushed"], s["rows_pulled"])
+                                    for s in st["shards"].values()],
+                         "cache": {k: st["cache"][k] for k in
+                                   ("hits", "misses", "evictions", "rows")}}}
+
+
+def wd_profile(mx, run, card, tries=3):
+    """One profiled batch of the trained example: the adapter's lookup,
+    the module's step, the row-sparse push; -> (host ms, busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+    adapter, mod = run["adapter"], run["mod"]
+    metric = mx.metric.create("acc")
+    adapter.reset()
+    batch = adapter.next()
+    mod.fit_step(batch, metric)
+    adapter.push_from(mod)
+    for _ in range(tries):
+        batch = adapter.next()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mod.fit_step(batch, metric)
+            adapter.push_from(mod)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+    check(spans, "14d: the profiler saw no device activity in a batch")
+    busy, edge = 0.0, -math.inf
+    for start, end in spans:
+        busy += max(0.0, end - max(start, edge))
+        edge = max(edge, end)
+    print(f"wide_deep 14d profile: one batch (step + push) "
+          f"{wall_us / 1e3:.3f} ms on the host clock, {len(spans)} kernels, "
+          f"device busy {busy / 1e3:.3f} ms = {busy / wall_us:.3f} of the "
+          f"window [{card}]")
+    return wall_us / 1e3, busy / wall_us
+
+
+def wd_phase(mx, card):
+    """14d: examples/recommender/wide_deep.py at its defaults on the card
+    (TPU_PALLAS: K1 in the tower's deep1) against the port on the CPU
+    from the same seeds: every epoch-1 batch's loss, the final tower and
+    the whole table, and the tier's counters."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    cfg = WD_CFG
+    sym = wd_tower(mx, WD_SLOTS * cfg["dim"], 4)
+    shapes, _, _ = sym.infer_shape(emb=(cfg["batch"], WD_SLOTS * cfg["dim"]),
+                                   dense=(cfg["batch"], 4))
+    rng = np.random.RandomState(WD_PARAMS_SEED)
+    init = {n: rng.uniform(-0.1, 0.1, s).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), shapes)
+            if n not in ("emb", "dense", "softmax_label")}
+    batches = cfg["samples"] // cfg["batch"]
+    closs = []
+    t0 = time.perf_counter()
+    run = wide_deep(mx, cfg, mx.cpu(), arg_params=init,
+                    batch_end=wd_losses(mx, closs))
+    cpu_s = time.perf_counter() - t0
+    try:
+        ref = wd_state(run)
+    finally:
+        wide_deep_close(run)
+    gloss, ticks = [], []
+    fc_relu.launches = 0
+    t0 = time.perf_counter()
+
+    def tick(param):
+        ticks.append(time.perf_counter())
+    cb = wd_losses(mx, gloss)
+    run = wide_deep(mx, cfg, mx.gpu(0), arg_params=init,
+                    batch_end=lambda p: (cb(p), tick(p)))
+    try:
+        wall = time.perf_counter() - t0
+        launches = fc_relu.launches
+        got = wd_state(run)
+        srv = [s.stats() for s in run["servers"]]
+        table = run["table"]
+        ids = np.asarray(run["adapter"]._last_ids)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(20):
+            table.lookup(ids)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t1) * 1e3 / 20
+        dev_ms = device_ms(lambda: table.lookup(ids), reps=10)
+        grads = np.ones((ids.size, cfg["dim"]), np.float32) * 1e-3
+        t1 = time.perf_counter()
+        for _ in range(10):
+            table.push_grad(ids.ravel(), grads)
+        push_ms = (time.perf_counter() - t1) * 1e3 / 10
+        prof_ms, busy = wd_profile(mx, run, card)
+    finally:
+        wide_deep_close(run)
+    loss_err = max(abs(g - c) / abs(c) for g, c in zip(gloss[:batches],
+                                                        closs[:batches]))
+    tw, tn = held_worst(got["tower"], ref["tower"], WD_TOL)
+    table_w, _ = held_worst({"table": got["table"]}, {"table": ref["table"]},
+                            WD_TOL)
+    steps = cfg["epochs"] * batches
+    ok = loss_err <= WD_TOL[0] and tw <= 1 and table_w <= 1 and \
+        got["counters"] == ref["counters"] and launches == steps and \
+        len(gloss) == steps
+    cache = got["counters"]["cache"]
+    hit_rate = cache["hits"] / max(cache["hits"] + cache["misses"], 1)
+    upd_ms = sum(s["update_s"] for s in srv) * 1e3 / max(
+        sum(s["updates"] for s in srv), 1)
+    step_ms = statistics.median(np.diff(ticks) * 1e3)
+    print(f"wide_deep 14d: {cfg['rows']}x{cfg['dim']} table on "
+          f"{cfg['shards']} shard servers, batch {cfg['batch']}, "
+          f"{cfg['samples']} samples x {cfg['epochs']} epochs on the card vs "
+          f"the CPU: epoch-1 loss max rel err {loss_err:.2e} (rtol "
+          f"{WD_TOL[0]:g}); tower at {tw:.3f} (worst {tn}), table at "
+          f"{table_w:.3f} of the tolerance (rtol {WD_TOL[0]:g}, atol "
+          f"{WD_TOL[1]:g}*max|array|); counters equal "
+          f"{got['counters'] == ref['counters']} ({got['counters']}); "
+          f"K1 launches {launches} (1 a forward, {steps} forwards) "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    print(f"wide_deep 14d: {cfg['samples'] * cfg['epochs'] / wall:.1f} "
+          f"samples/s ({wall:.2f} s with set-up; the same run with the "
+          f"tower and the cache on this host's CPU "
+          f"{cfg['samples'] * cfg['epochs'] / cpu_s:.1f}), step median "
+          f"{step_ms:.3f} "
+          f"ms; cache hit rate {hit_rate:.4f}; lookup of a batch "
+          f"({ids.size} ids, all hot) {host_ms:.3f} ms host, {dev_ms:.4f} ms"
+          f" device; push_grad round trip {push_ms:.3f} ms; the servers' "
+          f"lazy update {upd_ms:.3f} ms a push (the server threads' share "
+          f"of a step {upd_ms / step_ms:.3f}); profiled batch "
+          f"{prof_ms:.3f} ms, busy {busy:.3f} [{card}]")
+    check(ok, "14d: wide_deep on the card disagrees with the CPU")
+    return launches, {"samples_s": cfg["samples"] * cfg["epochs"] / wall,
+                      "hit_rate": hit_rate, "lookup_host_ms": host_ms,
+                      "lookup_device_ms": dev_ms, "push_ms": push_ms,
+                      "busy": busy}
+
+
+def kv_phase(card, workdir):
+    """Phase 14; returns K1's launches on the 14b and 14d paths and the
+    numbers of the summary."""
+    import incubator_mxnet_tpu_torch as mx
+    old = os.environ.get("MXNET_SUBGRAPH_BACKEND")
+    os.environ["MXNET_SUBGRAPH_BACKEND"] = "TPU_PALLAS"
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["kv_worst"] = kv_card(mx, card)
+        sym = mlp_symbol(mx)
+        out["dp_launches"] = dp_free(mx, sym, card)
+        out["dp_2bit"] = dp_compressed(mx, sym, card)
+        fit_launches, out["dp_fit"] = dp_fit(mx, sym, card)
+        out["dp_launches"] += fit_launches
+        print(f"phase 14b: {time.perf_counter() - t0:.1f} s (with 14a)")
+        t0 = time.perf_counter()
+        out["dist"] = dist_phase(mx, sym, card, workdir)
+        print(f"phase 14c: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["wd_launches"], out["wd"] = wd_phase(mx, card)
+        print(f"phase 14d: {time.perf_counter() - t0:.1f} s")
+    finally:
+        os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+        if old is not None:
+            os.environ["MXNET_SUBGRAPH_BACKEND"] = old
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -5736,6 +6507,9 @@ def main():
     t0 = time.perf_counter()
     ssd = ssd_phase(card, str(_build.BUILD_DIR.parent))
     print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kvp = kv_phase(card, str(_build.BUILD_DIR.parent))
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -5851,6 +6625,19 @@ def main():
                        for a in alone.values())
           + f"; from the .rec {ssd['rec']['images_s']:.1f} images/s; 13b "
           f"worst {ssd['parity']['worst']:.3f} of the tolerance [{card}]")
+    fit, dist, wd = kvp["dp_fit"], kvp["dist"], kvp["wd"]
+    print(f"kvstore summary: 14b train_mnist's mlp on [gpu(0), gpu(0)] "
+          f"through kvstore='device': {fit['images_s']:.1f} images/s, step "
+          f"{fit['step_ms']:.3f} ms, accuracy {fit['accuracy']:.4f}, 2-bit "
+          f"{kvp['dp_2bit']['ties']} near ties; 14c dist_sync 2 workers: "
+          f"{dist['steps_s']:.1f} steps/s, push {dist['push_ms']:.3f} ms, "
+          f"pull {dist['pull_ms']:.3f} ms, server update "
+          f"{dist['server_update_ms']:.3f} ms, 2-bit wire "
+          f"{dist['wire_ratio']:.5f} of fp32; 14d wide_deep "
+          f"{wd['samples_s']:.1f} samples/s, hit rate {wd['hit_rate']:.4f},"
+          f" lookup {wd['lookup_host_ms']:.3f} ms host / "
+          f"{wd['lookup_device_ms']:.4f} ms device, push "
+          f"{wd['push_ms']:.3f} ms, busy {wd['busy']:.3f} [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"
@@ -5858,14 +6645,21 @@ def main():
     for (m, k, n), label in zip(MLP_K1, ("fc1", "fc2")):
         k1[(m, k, n, F32)]["shape"] = f"float32 M={m} K={k} N={n} (mlp " \
             f"{label})"
+    for (m, k, n), _, label in PATH_K1:
+        k1[(m, k, n, F32)]["shape"] = f"float32 M={m} K={k} N={n} " \
+            f"({label})"
     src = "incubator_mxnet_tpu_torch/csrc/flash_attn.cu"
     tpu = "incubator_mxnet_tpu/ops/flash_attention.py"
     print(json.dumps({"kernels": [{
         "name": "fc_relu", "route": "cuda",
         "source": "incubator_mxnet_tpu_torch/csrc/fc_relu.cu",
         "replaces": "incubator_mxnet_tpu/subgraph/fused_ops.py:29",
-        "launches": launches + train_launches,
-        "paths": {"serving": launches, "training": train_launches},
+        "launches": launches + train_launches + kvp["dp_launches"]
+        + kvp["wd_launches"],
+        "paths": {"serving": launches, "training": train_launches,
+                  "data_parallel": kvp["dp_launches"],
+                  "wide_deep": kvp["wd_launches"],
+                  "dist_sync_workers": dist["launches"]},
         "max_abs_err": rep["max_abs_err"],
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -5873,6 +6667,8 @@ def main():
         "kernel_route": rep["route"], **dtype_keys("bf16", k1[BF16]),
         **dtype_keys("train_fc1", k1[MLP_K1[0] + (F32,)]),
         **dtype_keys("train_fc2", k1[MLP_K1[1] + (F32,)]),
+        **{k: v for shape, prefix, _ in PATH_K1
+           for k, v in dtype_keys(prefix, k1[shape + (F32,)]).items()},
         "train_k1_share": train["mlp"]["k1_share"]},
         dict(name="flash_fwd", route="cuda", source=src,
              replaces=f"{tpu}:229", launches=k2_launches, **attn[REP_K2],

@@ -43,7 +43,12 @@ native IO library (`native`, built from ``src/io_native.cc``), `image`
 (the augmenters, `ImageIter`, `ImageRecordIter`'s engine), the `io`
 iterators, the ``ImageNormalize`` op, `io_plane` (the h2d staging ring
 `Module.fit` wraps its training iterator in) and
-`metric.TopKAccuracy`.
+`metric.TopKAccuracy`.  Slice 12 trains data-parallel: `kvstore`
+(``local``, ``device`` and the dist stores, 2-bit compression),
+`Module` over several contexts, the parameter server (`dist`: the socket
+data plane, the server, the launcher), `resilience`'s retry and breaker,
+row-sparse gradients with lazy optimizer updates (`ndarray.sparse`),
+and `embedding` (the sharded table and its hot-row cache on the card).
 
     import incubator_mxnet_tpu_torch as mx
 """
@@ -81,6 +86,11 @@ from . import recordio
 from . import native
 from . import image
 from . import io_plane
+from . import kvstore
+from . import kvstore as kv
+from . import kvstore_server
+from . import resilience
+from . import embedding
 from . import test_utils
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
@@ -90,4 +100,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "lr_scheduler", "optimizer", "metric", "io", "callback",
            "executor", "module", "mod", "gluon", "llm", "storage",
            "checkpoint", "rnn", "recordio", "native", "image", "io_plane",
+           "kvstore", "kv", "kvstore_server", "resilience", "embedding",
            "test_utils"]

@@ -135,16 +135,20 @@ def stage_updater_states(updater):
 def capture_module(mod, data_iter=None):
     """(arrays, blobs, staged) for a bound, initialized Module: the
     executor's parameters and aux states under the ``arg:``/``aux:``
-    prefixes, the optimizer's states as a staged blob callable, the
-    iterator's native state when given.  `staged` lists the optimizer's
-    staging (its buffers go back to the pool once the callable ran)."""
+    prefixes, the optimizer's states as a staged blob callable (with the
+    update on the kvstore, the store's blob from
+    `get_optimizer_states_blob`), the iterator's native state when
+    given.  `staged` lists the optimizer's staging (its buffers go back
+    to the pool once the callable ran)."""
     group = mod._exec_group
     arrays = {f"arg:{n}": blk[0] for n, blk in
               zip(group.param_names, group.param_arrays)}
     arrays.update({f"aux:{n}": blk[0] for n, blk in
                    zip(group.aux_names, group.aux_arrays)})
     blobs, staged = {}, []
-    if mod.optimizer_initialized:
+    if mod.optimizer_initialized and mod._update_on_kvstore:
+        blobs[OPTIMIZER_BLOB] = mod.get_optimizer_states_blob()
+    elif mod.optimizer_initialized:
         build, st = stage_updater_states(mod._updater)
         blobs[OPTIMIZER_BLOB] = build
         staged.append(st)

@@ -30,6 +30,12 @@ its own format).
 bucket's own begin states (the cells name them per unroll, so every
 bucket has its own), one {name: array} dict over all bound buckets.
 
+`table_rows_to_numpy` and `table_rows_from_numpy` carry a sharded
+embedding table's rows (either package's `ShardedEmbedding`, through
+its `checkpoint_rows` / `restore_rows`) as one numpy array, so both
+packages start from the same table; a recommender's tower crosses as
+any symbol's parameters do, with `params_from_numpy`.
+
 `rnn_pack` and `rnn_unpack` convert between the `RNN` op's flat
 cuDNN-order vector (`FusedRNNCell`'s ``{prefix}parameters``) and the
 per-layer cell weights (``{prefix}l0_i2h_weight``, ``r0_`` for the
@@ -49,6 +55,7 @@ __all__ = ["params_from_numpy", "block_params_to_numpy",
            "trainer_states_to_numpy", "trainer_states_from_numpy",
            "module_states_to_numpy", "module_states_from_numpy",
            "bucketing_params_to_numpy", "bucketing_params_from_numpy",
+           "table_rows_to_numpy", "table_rows_from_numpy",
            "rnn_pack", "rnn_unpack"]
 
 
@@ -213,3 +220,15 @@ def rnn_unpack(flat, mode, input_size, state_size, num_layers,
         raise ValueError(f"rnn_unpack: {flat.size} values for a layout of "
                          f"{off}")
     return out
+
+
+def table_rows_to_numpy(table):
+    """A sharded embedding table's rows, [num_rows, dim], read back from
+    its shards (either package's `ShardedEmbedding`)."""
+    return _np.asarray(table.checkpoint_rows())
+
+
+def table_rows_from_numpy(table, rows):
+    """Write `rows` ([num_rows, dim], numpy or anything with
+    ``asnumpy()``) over a sharded table's rows (either package's)."""
+    table.restore_rows(_np_of(rows))

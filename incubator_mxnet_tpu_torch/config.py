@@ -42,6 +42,26 @@ device_augment="auto")` to uint8 NHWC batches; ``MXNET_IO_AUTO_SHARD``
 (bool, on) lets an explicit ``num_parts="auto"`` shard by
 ``DMLC_RANK``/``DMLC_NUM_WORKER``.
 
+The kvstore's and the parameter server's knobs, with the JAX package's
+defaults: ``MXNET_KVSTORE_BIGARRAY_BOUND`` (int, 1000000)
+is the element count past which a dist key splits into one range per
+server; ``MXNET_KVSTORE_COLLECTIVE`` (bool, default off in the port, on
+in the JAX package) asks for the collective data plane, which the port
+does not have: a dist_sync store raises when it is on.
+``MXNET_PS_REQUEST_TIMEOUT`` (330 s), ``MXNET_PS_CONNECT_WAIT`` (90 s),
+``MXNET_PS_RECONNECT_WAIT`` (5 s), ``MXNET_PS_MAX_RETRIES`` (3),
+``MXNET_PS_BREAKER_THRESHOLD`` (2) and ``MXNET_PS_BREAKER_RESET_S`` (30 s)
+drive `dist.transport.Channel` and the per-server circuit breakers;
+``MXNET_SUPERVISOR_EPOCH`` (0) is the membership epoch a worker registers
+at, ``MXNET_SUPERVISOR_DEADLINE_S`` (10 s) the membership table's
+heartbeat deadline, and the shrink barrier's deadline is the larger of
+``MXNET_SUPERVISOR_SHRINK_BARRIER_S`` (30 s) and
+``MXNET_SUPERVISOR_COLLECTIVE_TIMEOUT_S`` (120 s) plus two heartbeat
+deadlines.  ``MXNET_EMBED_PARTITION`` ("range"),
+``MXNET_EMBED_CACHE_ROWS`` (4096), ``MXNET_EMBED_HBM_BUDGET_MB`` (64),
+``MXNET_EMBED_PULL_CHUNK`` (65536), ``MXNET_EMBED_BREAKER_THRESHOLD`` (2)
+and ``MXNET_EMBED_BREAKER_RESET_S`` (30 s) are `embedding`'s.
+
 ``MXNET_FLASH_INTERPRET`` is not carried over: in the port the tensor's
 device decides.  A CPU tensor takes a kernel's plain PyTorch version; a
 CUDA tensor launches the kernel or raises.
@@ -107,6 +127,58 @@ KNOBS = {
     "MXNET_IO_AUTO_SHARD": (_BOOL, True,
                             "an explicit num_parts='auto' shards by "
                             "DMLC_RANK/DMLC_NUM_WORKER; 0 keeps one part"),
+    "MXNET_KVSTORE_BIGARRAY_BOUND": (int, 1000000,
+                                     "dist keys with more elements split "
+                                     "into one contiguous range per server"),
+    "MXNET_KVSTORE_COLLECTIVE": (_BOOL, False,
+                                 "asks dist_sync for the collective data "
+                                 "plane, which the port does not have "
+                                 "(raises); off: the socket plane"),
+    "MXNET_PS_REQUEST_TIMEOUT": (float, 330.0,
+                                 "dist transport per-request timeout; "
+                                 "exceeds the server's 300 s waits"),
+    "MXNET_PS_CONNECT_WAIT": (float, 90.0,
+                              "dist transport initial-connect window"),
+    "MXNET_PS_RECONNECT_WAIT": (float, 5.0,
+                                "dist transport mid-request reconnect "
+                                "window"),
+    "MXNET_PS_MAX_RETRIES": (int, 3, "dist transport request attempts"),
+    "MXNET_PS_BREAKER_THRESHOLD": (int, 2,
+                                   "consecutive failures before a "
+                                   "parameter server is declared lost"),
+    "MXNET_PS_BREAKER_RESET_S": (float, 30.0,
+                                 "open -> half-open window of a "
+                                 "server's circuit breaker"),
+    "MXNET_SUPERVISOR_EPOCH": (int, 0,
+                               "membership epoch a worker registers at"),
+    "MXNET_SUPERVISOR_DEADLINE_S": (float, 10.0,
+                                    "heartbeat silence before a host is "
+                                    "dead in the membership view"),
+    "MXNET_SUPERVISOR_SHRINK_BARRIER_S": (float, 30.0,
+                                          "least deadline of the shrink "
+                                          "barrier"),
+    "MXNET_SUPERVISOR_COLLECTIVE_TIMEOUT_S": (float, 120.0,
+                                              "a hung collective's "
+                                              "deadline, which the shrink "
+                                              "barrier outlasts"),
+    "MXNET_EMBED_PARTITION": (str, "range",
+                              "ShardedEmbedding's row partition: 'range' "
+                              "or 'hash'"),
+    "MXNET_EMBED_CACHE_ROWS": (int, 4096,
+                               "hot-row cache capacity in rows (0: no "
+                               "cache)"),
+    "MXNET_EMBED_HBM_BUDGET_MB": (int, 64,
+                                  "modelled one-device budget a sharded "
+                                  "table is measured against"),
+    "MXNET_EMBED_PULL_CHUNK": (int, 65536,
+                               "rows per embed_pull when a whole table "
+                               "streams back"),
+    "MXNET_EMBED_BREAKER_THRESHOLD": (int, 2,
+                                      "consecutive failures before an "
+                                      "embedding shard is declared lost"),
+    "MXNET_EMBED_BREAKER_RESET_S": (float, 30.0,
+                                    "open -> half-open window of a "
+                                    "shard's circuit breaker"),
 }
 
 

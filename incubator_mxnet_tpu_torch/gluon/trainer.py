@@ -10,8 +10,13 @@ under ``multi_precision``), reading the gradient arrays `autograd`
 filled.  The update runs in place on the parameters' autograd leaves,
 outside the graph, so the next `autograd.record()` sees the new values.
 
-With one context there is no kvstore to reduce over (the JAX package
-creates none either); `allreduce_grads` has nothing to do.  ZeRO state
+A ``dist_*`` kvstore on one context is created and its keys initialized
+at the first step, with the compression asked for, as the JAX package
+does (`trainer.py:105-118`); `allreduce_grads` sums only gradients held
+on several contexts (`:145-166`), so on one context it pushes nothing,
+as there.  Without ``dist`` one context needs no kvstore (the JAX
+package creates none either).  Parameters on several contexts are not
+ported yet (ROADMAP).  ZeRO state
 partitioning (``zero=``) and a device mesh (``mesh=``) need more than
 one card and raise.  `save_states` / `load_states` pickle the updater's
 states and the optimizer in the port's own format.
@@ -19,6 +24,7 @@ states and the optimizer in the port's own format.
 from __future__ import annotations
 
 from ..base import MXNetError
+from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..optimizer import states_on_ctx as _on_ctx
 from .parameter import ParameterDict, Parameter
@@ -58,6 +64,25 @@ class Trainer:
             raise MXNetError("Trainer: the port trains on one context; the "
                              f"parameters live on {self._contexts}")
         self._init_optimizer(optimizer, optimizer_params)
+        self._kvstore_type = kvstore
+        self._compression_params = compression_params
+        self._kvstore = None
+        self._update_on_kvstore = False
+        self._kv_initialized = False
+
+    def _init_kvstore(self):
+        """A ``dist`` store (a name, or a dist store) with every live
+        parameter's key initialized; else none."""
+        kind = self._kvstore_type
+        if "dist" in str(kind):
+            kv = kvs.create(kind) if isinstance(kind, str) else kind
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
+            for i, param in enumerate(self._params):
+                if param.grad_req != "null":
+                    kv.init(i, param.list_data()[0])
+            self._kvstore = kv
+        self._kv_initialized = True
 
     def _check_contexts(self):
         contexts = None
@@ -97,12 +122,23 @@ class Trainer:
         self.update(batch_size, ignore_stale_grad)
 
     def allreduce_grads(self):
-        """Sum the gradients over the contexts: one context, nothing to
-        do."""
+        """Sum through the kvstore the gradients held on several contexts
+        (on one context, none)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is None:
+            return
+        live = [(i, p.list_grad()) for i, p in enumerate(self._params)
+                if p.grad_req != "null" and len(p.list_grad()) > 1]
+        for i, grads in live:
+            self._kvstore.push(i, grads, priority=-i)
+            self._kvstore.pull(i, grads, priority=-i)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Set ``rescale_grad`` to the trainer's scale over `batch_size`
         and update every parameter that takes a gradient."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         live = [(i, p) for i, p in enumerate(self._params)
                 if p.grad_req != "null"]

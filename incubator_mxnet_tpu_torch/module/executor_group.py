@@ -2,9 +2,15 @@
 `python/mxnet/module/executor_group.py`).
 
 PyTorch port of `DataParallelExecutorGroup` in
-`incubator_mxnet_tpu/module/executor_group.py` for one context: one
-`Executor` bound to the whole batch.  The arrays keep the JAX group's
-layout, ``[n_params][n_devices]``, with one device.
+`incubator_mxnet_tpu/module/executor_group.py`: one `Executor` per
+context, each bound to its slice of the batch (`decide_slices`: an even
+split, or one by ``work_load_list``).  A context may repeat:
+``[gpu(0), gpu(0)]`` binds two executors with arrays of their own on the
+one card (the contexts are a list, never a set or a dict key).  The
+arrays keep the JAX group's layout, ``[n_params][n_devices]``;
+`get_outputs` and `get_input_grads` concatenate the executors' along the
+batch, on the first context, and `update_metric` hands each executor its
+slice of the labels.
 """
 from __future__ import annotations
 
@@ -23,6 +29,30 @@ def _dtype_name(dtype):
     return np.dtype(dtype).name
 
 
+def _split_input_slice(batch_size, work_load_list):
+    """Batch slices per context, in proportion to the work loads
+    (reference `executor_group.py decide_slices`)."""
+    total = sum(work_load_list)
+    slices, start = [], 0
+    for i, w in enumerate(work_load_list):
+        end = batch_size if i == len(work_load_list) - 1 else \
+            start + int(round(batch_size * w / total))
+        slices.append(slice(start, end))
+        start = end
+    return slices
+
+
+def _rows(arr, shard):
+    """Rows `shard` of a batch input (NDArray, tensor or numpy array);
+    the whole input for a shard of None (one context: a batch of another
+    size than the bound one runs at its own size)."""
+    if shard is None or (shard.start, shard.stop) == (0, arr.shape[0]):
+        return arr
+    if isinstance(arr, NDArray):
+        return NDArray(arr.data[shard], ctx=arr.context)
+    return arr[shard]
+
+
 def _consumers(symbol, name):
     """Names of the ops that read variable `name`."""
     return {node.op.name for node in symbol._topo() if not node.is_variable
@@ -33,9 +63,10 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
                  fixed_param_names=None, grad_req="write",
-                 shared_group=None):
+                 shared_group=None, work_load_list=None):
         self.symbol = symbol
-        self.contexts = contexts
+        self.contexts = list(contexts)
+        self.workload = list(work_load_list or [1] * len(self.contexts))
         self.param_names = param_names
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
@@ -49,6 +80,7 @@ class DataParallelExecutorGroup:
         self.data_names = [d.name for d in self.data_shapes]
         self.label_names = [l.name for l in self.label_shapes]
         self.batch_size = self.data_shapes[0].shape[0]
+        self.decide_slices()
 
         if isinstance(grad_req, str):
             self.grad_req = {}
@@ -86,16 +118,20 @@ class DataParallelExecutorGroup:
                 type_dict = dict(type_dict or {})
                 type_dict[d.name] = "uint8"
 
-        shapes = {d.name: d.shape for d in self.data_shapes}
-        shapes.update({l.name: l.shape for l in self.label_shapes})
         # with a shared group (`Module.bind(shared_module=)`), the
         # parameters, their gradients and the aux states are its arrays
-        shared_exec = shared_group.execs[0] if shared_group else None
-        self.execs = [symbol.simple_bind(ctx=contexts[0],
-                                         grad_req=self.grad_req,
-                                         type_dict=type_dict,
-                                         shared_arg_names=param_names,
-                                         shared_exec=shared_exec, **shapes)]
+        shared = shared_group.execs if shared_group else \
+            [None] * len(self.contexts)
+        self.execs = []
+        for ctx, shard, shared_exec in zip(self.contexts, self.slices,
+                                           shared):
+            n = shard.stop - shard.start
+            shapes = {d.name: (n,) + tuple(d.shape[1:])
+                      for d in self.data_shapes + self.label_shapes}
+            self.execs.append(symbol.simple_bind(
+                ctx=ctx, grad_req=self.grad_req, type_dict=type_dict,
+                shared_arg_names=param_names, shared_exec=shared_exec,
+                **shapes))
         self.param_arrays = [[e.arg_dict[n] for e in self.execs]
                              for n in self.param_names]
         self.grad_arrays = [[e.grad_dict.get(n) for e in self.execs]
@@ -103,19 +139,35 @@ class DataParallelExecutorGroup:
         self.aux_arrays = [[e.aux_dict[n] for e in self.execs]
                            for n in self.aux_names]
 
+    def decide_slices(self):
+        """Each context's rows of the batch (``self.slices``)."""
+        if len(self.workload) != len(self.contexts):
+            raise ValueError("work_load_list must give one load per "
+                             "context")
+        self.slices = _split_input_slice(self.batch_size, self.workload)
+        if any(s.stop <= s.start for s in self.slices):
+            raise ValueError(f"batch {self.batch_size} leaves a context "
+                             f"no rows: {self.slices}")
+        return self.slices
+
     def set_params(self, arg_params, aux_params, allow_extra=False):
         for e in self.execs:
             e.copy_params_from(arg_params, aux_params,
                                allow_extra_params=allow_extra)
 
     def get_params(self, arg_params, aux_params):
-        """Copy the bound parameters and aux states into the given dicts
-        (new CPU NDArrays for names they lack)."""
+        """Copy the bound parameters and aux states, averaged over the
+        contexts, into the given dicts (new CPU NDArrays for names they
+        lack)."""
         for names, blocks, table in (
                 (self.param_names, self.param_arrays, arg_params),
                 (self.aux_names, self.aux_arrays, aux_params)):
             for name, block in zip(names, blocks):
                 val = block[0].data
+                if len(block) > 1:
+                    for b in block[1:]:
+                        val = val + b.data.to(val.device)
+                    val = val / len(block)
                 if name in table:
                     table[name]._set_data(val)
                 else:
@@ -124,22 +176,40 @@ class DataParallelExecutorGroup:
     def forward(self, data_batch, is_train=None):
         if is_train is None:
             is_train = self.for_training
-        inputs = dict(zip(self.data_names, data_batch.data))
-        inputs.update(zip(self.label_names, data_batch.label or []))
-        for e in self.execs:
-            e.forward(is_train=is_train, **inputs)
+        names = self.data_names + self.label_names
+        arrays = list(data_batch.data) + list(data_batch.label or [])
+        for e, shard in zip(self.execs, self._shards()):
+            e.forward(is_train=is_train,
+                      **{n: _rows(a, shard) for n, a in zip(names, arrays)})
 
     def backward(self, out_grads=None):
         for e in self.execs:
             e.backward(out_grads)
 
+    @staticmethod
+    def _merge(parts):
+        if len(parts) == 1:
+            return parts[0]
+        ctx = parts[0].context
+        return NDArray(torch.cat([p.data.to(ctx.torch_device)
+                                  for p in parts]), ctx=ctx)
+
     def get_outputs(self, merge_multi_context=True):
-        outs = self.execs[0].outputs
-        return list(outs) if merge_multi_context else [[o] for o in outs]
+        outs = [[e.outputs[i] for e in self.execs]
+                for i in range(len(self.execs[0].outputs))]
+        return [self._merge(o) for o in outs] if merge_multi_context \
+            else outs
 
     def get_input_grads(self, merge_multi_context=True):
-        return [self.execs[0].grad_dict.get(n) for n in self.data_names]
+        grads = [[e.grad_dict.get(n) for e in self.execs]
+                 for n in self.data_names]
+        return [self._merge(g) if g[0] is not None else None
+                for g in grads] if merge_multi_context else grads
+
+    def _shards(self):
+        return self.slices if len(self.execs) > 1 else [None]
 
     def update_metric(self, eval_metric, labels):
-        for e in self.execs:
-            eval_metric.update(labels, e.outputs)
+        for e, shard in zip(self.execs, self._shards()):
+            eval_metric.update([_rows(l, shard) for l in labels],
+                               e.outputs)

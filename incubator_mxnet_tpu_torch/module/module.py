@@ -1,18 +1,24 @@
-"""Module: symbolic training on one device (reference
-`python/mxnet/module/module.py`).
+"""Module: symbolic training (reference `python/mxnet/module/module.py`).
 
 PyTorch port of `incubator_mxnet_tpu/module/module.py`.  Divergences
 (README "Declared divergences"): the default context is the card,
 ``gpu(0)``, where the JAX `Module` defaults to ``cpu()``, and
 constructing one on a machine without the card raises unless
-``context=mx.cpu()``; one context only, since the port has no kvstore
-yet.  `init_optimizer` builds the fused train step
-(`fused.FusedTrainStep`) when `_fusable` allows it, and `fit_step` runs
-a batch through it, else through `forward_backward`, `update` and
-`update_metric`.  The fused step writes every array in place, so there
-is nothing to flush before the arrays are read.  The parameters the
-module holds between steps (`get_params`) live on the CPU; the
-executor's copies on the device.
+``context=mx.cpu()``.  Several contexts (data parallelism, one executor
+each; a context may repeat, so two executors can share one card) train
+through a kvstore with the JAX wiring (`init_optimizer`,
+`module.py:254-310`): ``rescale_grad`` over the batch times the workers
+of a ``dist_*sync`` store, the update on the store (its optimizer, or
+the server's) or on each device's copy (``update_on_kvstore``), 2-bit
+``compression_params``.  `init_optimizer` builds the fused train step
+(`fused.FusedTrainStep`) when `_fusable` allows it — one context, no
+kvstore but ``local``/``device``, no compression — and `fit_step` runs a
+batch through it, else through `forward_backward`, `update` and
+`update_metric`; with several contexts the port takes that unfused path
+where the JAX package builds its fused mesh step.  The fused step writes
+every array in place, so there is nothing to flush before the arrays are
+read.  The parameters the module holds between steps (`get_params`) live
+on the CPU; the executors' copies on their devices.
 """
 from __future__ import annotations
 
@@ -23,7 +29,9 @@ from ..context import Context, cpu, current_context
 from ..initializer import Uniform, InitDesc
 from .. import optimizer as opt
 from ..optimizer import states_on_ctx as _on_ctx
-from ..model import _create_kvstore, load_checkpoint, save_checkpoint
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore, load_checkpoint,
+                     save_checkpoint)
 from .. import ndarray as nd
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
@@ -32,20 +40,24 @@ from .executor_group import DataParallelExecutorGroup
 class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, fixed_param_names=None, state_names=None):
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 state_names=None, compression_params=None):
         super().__init__(logger=logger)
         if context is None:
             context = current_context()
         if isinstance(context, Context):
             context = [context]
-        if len(context) != 1:
-            raise MXNetError(f"Module: the port trains on one context, got "
-                             f"{len(context)} (data parallelism needs a "
-                             "kvstore, not ported yet)")
-        context[0].torch_device      # raises when the card is missing
+        if not context:
+            raise MXNetError("Module: no context")
+        for ctx in context:
+            ctx.torch_device         # raises when the card is missing
         if state_names:
             raise MXNetError("Module: state_names are not ported")
         self._context = list(context)
+        self._work_load_list = list(work_load_list or [1] * len(context))
+        self._compression_params = compression_params
+        self._kvstore = None
+        self._update_on_kvstore = False
         self._symbol = symbol
         data_names = list(data_names) if data_names is not None else []
         label_names = list(label_names) if label_names is not None else []
@@ -115,8 +127,11 @@ class Module(BaseModule):
     @property
     def output_shapes(self):
         assert self.binded
-        outs = self._exec_group.execs[0].outputs
-        return list(zip(self._output_names, [o.shape for o in outs]))
+        execs = self._exec_group.execs
+        shapes = [(sum(e.outputs[i].shape[0] for e in execs),) +
+                  tuple(o.shape[1:])
+                  for i, o in enumerate(execs[0].outputs)]
+        return list(zip(self._output_names, shapes))
 
     # -- params ----------------------------------------------------------------
     def get_params(self):
@@ -226,7 +241,7 @@ class Module(BaseModule):
             self._symbol, self._context, data_shapes, label_shapes,
             self._param_names, for_training, inputs_need_grad,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
-            shared_group=shared_group)
+            shared_group=shared_group, work_load_list=self._work_load_list)
         if shared_module is not None:
             self._init_unshared(shared_module)
         elif self.params_initialized:
@@ -250,7 +265,9 @@ class Module(BaseModule):
                 (self._aux_params, exe.aux_dict, shared_module._aux_names)):
             for name in sorted(set(params) - set(known)):
                 initializer(InitDesc(name, attrs.get(name)), params[name])
-                table[name]._set_data(params[name].data)
+                for e in self._exec_group.execs:
+                    (e.arg_dict if table is exe.arg_dict
+                     else e.aux_dict)[name]._set_data(params[name].data)
         self._params_dirty = True
         self.params_initialized = True
 
@@ -258,18 +275,32 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """The optimizer (by name, with ``rescale_grad = 1 / batch``
-        unless given, or an instance) and its updater (reference
-        `module.py init_optimizer`)."""
+        """The kvstore, the optimizer (by name, with ``rescale_grad = 1 /
+        (batch * workers of a dist sync store)`` unless given, or an
+        instance) and where it runs: on the store (`set_optimizer`) or in
+        the module's updater, whose states are per device (index ``i *
+        n_contexts + k``) (reference `module.py init_optimizer`)."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
         if self._params_dirty:
             self._sync_params_from_devices()
-        _create_kvstore(kvstore, len(self._context), self._arg_params)
-        rescale_grad = 1.0 / self._exec_group.batch_size
-        idx2name = dict(enumerate(self._exec_group.param_names))
+        kvstore, update_on_kvstore = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
+        batch_size = self._exec_group.batch_size
+        if kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
+        if self._fusable(kvstore):
+            update_on_kvstore = False
+        ndev = len(self._context)
+        names = self._exec_group.param_names
+        if update_on_kvstore:
+            idx2name = dict(enumerate(names))
+        else:
+            idx2name = {i * ndev + k: n for k in range(ndev)
+                        for i, n in enumerate(names)}
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params)
             optimizer_params.setdefault("rescale_grad", rescale_grad)
@@ -282,12 +313,27 @@ class Module(BaseModule):
         elif optimizer.rescale_grad != rescale_grad:
             self.logger.warning(
                 "Optimizer created manually outside Module but rescale_grad "
-                f"is not normalized to 1.0/batch_size ({optimizer.rescale_grad}"
-                f" vs. {rescale_grad}). Is this intended?")
+                "is not normalized to 1.0/batch_size/num_workers "
+                f"({optimizer.rescale_grad} vs. {rescale_grad}). Is this "
+                "intended?")
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kvstore:
+            if self._compression_params:
+                kvstore.set_gradient_compression(self._compression_params)
+            _initialize_kvstore(kvstore=kvstore,
+                                param_arrays=self._exec_group.param_arrays,
+                                arg_params=self._arg_params,
+                                param_names=self._param_names,
+                                update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self._fused_step = None
-        if self._fusable():
+        if self._fusable(kvstore):
             from ..fused import FusedTrainStep
             self._fused_step = FusedTrainStep(self, self._updater)
         self.optimizer_initialized = True
@@ -308,15 +354,22 @@ class Module(BaseModule):
             self._fused_step = FusedTrainStep(self, self._updater)
         self.optimizer_initialized = True
 
-    def _fusable(self):
+    def _fusable(self, kvstore=None):
         """Whether `fit` may run the fused train step: the knob
-        ``MXNET_FUSED_TRAIN_STEP`` is on, the module trains, its inputs
-        take no gradient and every gradient is written, not added (the
-        JAX `Module._fusable` on one device)."""
+        ``MXNET_FUSED_TRAIN_STEP`` is on, one context, the module trains,
+        its inputs take no gradient, no compression, no kvstore but
+        ``local``/``device``, and every gradient is written, not added
+        (the JAX `Module._fusable` on one device)."""
         from .. import config as _config
         if not _config.get("MXNET_FUSED_TRAIN_STEP"):
             return False
+        if len(self._context) != 1 or self._compression_params:
+            return False
         if self.inputs_need_grad or not self.for_training:
+            return False
+        if kvstore is not None and \
+                getattr(kvstore, "type", "") not in ("local", "device",
+                                                     "tpu"):
             return False
         return all(v in ("write", "null")
                    for v in self._exec_group.grad_req.values())
@@ -340,18 +393,25 @@ class Module(BaseModule):
         self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
-        """Apply the optimizer to the gradients of the last backward: one
-        `Updater.update_multi` over every parameter that has one (the
-        multi-tensor update the fused step runs too)."""
+        """Apply the optimizer to the gradients of the last backward
+        (reference `module.py:644 update`): through the kvstore when the
+        update runs there, else the gradients summed through the kvstore
+        (when there is one) and one `Updater.update_multi` over every
+        device's parameters (the multi-tensor update the fused step runs
+        too)."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         self._params_dirty = True
         group = self._exec_group
-        rows = [(i, g[0], w[0]) for i, (w, g) in
-                enumerate(zip(group.param_arrays, group.grad_arrays))
-                if g[0] is not None]
-        if rows:
-            self._updater.update_multi(*(list(c) for c in zip(*rows)))
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(group.param_arrays, group.grad_arrays,
+                                      self._kvstore, group.param_names)
+        else:
+            _update_params(group.param_arrays, group.grad_arrays,
+                           updater=self._updater,
+                           num_device=len(self._context),
+                           kvstore=self._kvstore,
+                           param_names=group.param_names)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
@@ -369,6 +429,9 @@ class Module(BaseModule):
         if self._exec_group is None or not self._params_dirty:
             return
         self._exec_group.get_params(self._arg_params, self._aux_params)
+        if self._kvstore and self._update_on_kvstore:
+            for name, value in sorted(self._arg_params.items()):
+                self._kvstore.pull(name, value)
         self._params_dirty = False
 
     def save_optimizer_states(self, fname):
@@ -382,8 +445,11 @@ class Module(BaseModule):
     def get_optimizer_states_blob(self):
         """The updater's states and the pickled optimizer (update counts,
         the learning-rate schedule's position) as one bytes blob, the
-        states as host arrays."""
+        states as host arrays; with the update on the kvstore, its
+        states (a dist store pulls them back from its servers)."""
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            return self._kvstore.get_optimizer_states(dump_optimizer=True)
         return self._updater.get_states(dump_optimizer=True)
 
     def set_optimizer_states_blob(self, blob):
@@ -391,11 +457,15 @@ class Module(BaseModule):
         its parameter's device, the optimizer it carries becomes the
         module's, and the fused step is rebuilt around it."""
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.set_optimizer_states(blob)
+            return
         self._updater.set_states(blob)
         group = self._exec_group
+        ndev = len(self._context)
         for i, state in self._updater.states.items():
             self._updater.states[i] = _on_ctx(
-                state, group.param_arrays[i][0].context)
+                state, group.param_arrays[i // ndev][i % ndev].context)
         restored = self._updater.optimizer
         if isinstance(restored, opt.Optimizer):
             self._optimizer = restored

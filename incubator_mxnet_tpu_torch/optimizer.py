@@ -2,9 +2,14 @@
 
 PyTorch port of the `Optimizer` base and registry, `SGD` (with momentum
 and ``multi_precision``: fp32 master weights for fp16/bf16 parameters),
-`Adam` (dense gradients; the JAX package's lazy row-sparse update has no
-counterpart, the port has no sparse gradients), `Updater`, `get_updater`
-and `create` from `incubator_mxnet_tpu/optimizer.py`.  `SGD.update` and
+`Adam`, `Updater`, `get_updater` and `create` from
+`incubator_mxnet_tpu/optimizer.py`.  Given a `ndarray.sparse.
+RowSparseNDArray` gradient (an embedding table's), `SGD` and `Adam` run
+the JAX package's lazy update (`optimizer.py:204-270`): duplicate row ids
+are summed on the host (`aggregate_row_sparse`), then only the touched
+rows of the weight and the state are gathered, updated and written back
+with `index_copy_` on unique rows; an empty gradient changes nothing.
+With ``lazy_update=False`` the gradient densifies and every row updates.  `SGD.update` and
 `Adam.update` run the in-place update ops of `ops/optimizer_ops.py`.
 `state_dict` / `load_state_dict` carry the scalar position (update
 counts, the learning-rate schedule) a checkpoint's manifest records;
@@ -198,6 +203,43 @@ def _clip(og):
     return og if og is not None and og > 0 else -1.0
 
 
+_EMPTY_ROWS = object()
+
+
+def _row_sparse_grad(grad, weight):
+    """(unique row ids as a tensor on the weight's device, their summed
+    rows in the weight's dtype there) of a row-sparse gradient,
+    `_EMPTY_ROWS` when it touches no row, or None for a dense one."""
+    from .ndarray.sparse import RowSparseNDArray, aggregate_row_sparse
+    if not isinstance(grad, RowSparseNDArray):
+        return None
+    if len(grad._np_indices) == 0:
+        return _EMPTY_ROWS
+    idx, vals = aggregate_row_sparse(grad._np_indices, grad._np_data)
+    dev = weight.data.device
+    # copies: the rows may be a read-only wire buffer
+    return (torch.from_numpy(_np.array(idx)).to(dev),
+            torch.from_numpy(_np.array(vals)).to(dev, weight.data.dtype))
+
+
+def _dense_grad(grad, weight):
+    """A row-sparse gradient densified on the weight's context (the
+    ``lazy_update=False`` route); a dense one as it is."""
+    from .ndarray.sparse import RowSparseNDArray
+    if isinstance(grad, RowSparseNDArray):
+        return grad.tostype("default").as_in_context(weight.context)
+    return grad
+
+
+def _lazy_grad_rows(w_rows, vals, lr_dtype, wd, rescale, clip):
+    """The rows' gradient as the dense update sees it: rescaled,
+    clipped, plus weight decay (the JAX package's lazy kernels)."""
+    g = vals * rescale
+    if clip > 0:
+        g = torch.clamp(g, -clip, clip)
+    return (g + wd * w_rows).to(lr_dtype)
+
+
 @register
 class SGD(Optimizer):
     """SGD with momentum and multi-precision (reference
@@ -231,11 +273,35 @@ class SGD(Optimizer):
 
     def update(self, index, weight, grad, state):
         kw = self._kwargs(index)
+        rs = _row_sparse_grad(grad, weight) if self.lazy_update else None
+        if rs is _EMPTY_ROWS:
+            return                     # no touched row: the lazy no-op
+        if rs is not None:
+            self._lazy_update(weight, state, rs, kw)
+            return
+        grad = _dense_grad(grad, weight)
         if state is not None:
             nd.sgd_mom_update(weight, grad, state, momentum=self.momentum,
                               out=weight, **kw)
         else:
             nd.sgd_update(weight, grad, out=weight, **kw)
+
+    def _lazy_update(self, weight, state, rows, kw):
+        """SGD on the touched rows only (unique ids: `index_copy_`)."""
+        idx, vals = rows
+        w = weight.data
+        with torch.no_grad():
+            w_rows = w.index_select(0, idx)
+            g = _lazy_grad_rows(w_rows, vals, w.dtype, kw["wd"],
+                                kw["rescale_grad"], kw["clip_gradient"])
+            if state is not None:
+                m = state.data
+                new_m = self.momentum * m.index_select(0, idx) - \
+                    kw["lr"] * g
+                w.index_copy_(0, idx, w_rows + new_m)
+                m.index_copy_(0, idx, new_m)
+            else:
+                w.index_copy_(0, idx, w_rows + -kw["lr"] * g)
 
     @staticmethod
     def _has_master(weight, state):
@@ -249,7 +315,11 @@ class SGD(Optimizer):
     def update_multi(self, indices, weights, grads, states):
         """One multi-tensor update (`ops.optimizer_ops.multi_sgd_update_`)
         per kind of state (momentum or not, fp32 master or not), each
-        index counted and given its lr and wd as `update` would."""
+        index counted and given its lr and wd as `update` would; a
+        row-sparse gradient takes `update`."""
+        from .ndarray.sparse import RowSparseNDArray
+        if any(isinstance(g, RowSparseNDArray) for g in grads):
+            return super().update_multi(indices, weights, grads, states)
         groups = {}
         for i, w, g, s in zip(indices, weights, grads, states):
             kw = self._kwargs(i)
@@ -269,6 +339,7 @@ class SGD(Optimizer):
 
     def update_multi_precision(self, index, weight, grad, state):
         if self._has_master(weight, state):
+            grad = _dense_grad(grad, weight)
             kw = self._kwargs(index)
             mom, w32 = state
             if mom is not None:
@@ -307,6 +378,27 @@ class Adam(Optimizer):
         t = self._index_update_count[index]
         lr = lr * (1.0 - self.beta2 ** t) ** 0.5 / (1.0 - self.beta1 ** t)
         mean, var = state
+        rs = _row_sparse_grad(grad, weight) if self.lazy_update else None
+        if rs is _EMPTY_ROWS:
+            return                     # no touched row: the lazy no-op
+        if rs is not None:
+            idx, vals = rs
+            w, m, v = weight.data, mean.data, var.data
+            with torch.no_grad():
+                w_rows = w.index_select(0, idx)
+                g = _lazy_grad_rows(w_rows, vals, w.dtype, wd,
+                                    self.rescale_grad,
+                                    _clip(self.clip_gradient))
+                new_m = self.beta1 * m.index_select(0, idx) + \
+                    (1 - self.beta1) * g
+                new_v = self.beta2 * v.index_select(0, idx) + \
+                    (1 - self.beta2) * torch.square(g)
+                upd = lr * new_m / (torch.sqrt(new_v) + self.epsilon)
+                w.index_copy_(0, idx, w_rows + -upd)
+                m.index_copy_(0, idx, new_m)
+                v.index_copy_(0, idx, new_v)
+            return
+        grad = _dense_grad(grad, weight)
         nd.adam_update(weight, grad, mean, var, lr=lr, wd=wd,
                        beta1=self.beta1, beta2=self.beta2,
                        epsilon=self.epsilon, rescale_grad=self.rescale_grad,

@@ -14,7 +14,10 @@ against the CPU; the native IO library's build, the h2d ring's card
 batches against the host batches, ImageNormalize on the card against
 the host fp32 finish and `TopKAccuracy.device_update` on the card; the
 detection, spatial and deformable ops on the card against the CPU, the
-NMS route against its per-box loop, and two steps of a small SSD.
+NMS route against its per-box loop, and two steps of a small SSD; the
+kvstore's cases with their values on the card against the CPU, two
+contexts on the one card against one (K1 in each executor), and
+wide_deep.py's copy at 2 000 rows on the card against the CPU.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -1453,3 +1456,90 @@ def test_ssd_steps_on_the_card_match_the_cpu():
     np.testing.assert_allclose(gpu_reads, cpu_reads, rtol=1e-3)
     for got, ref in zip(gpu[-1], cpu[-1]):
         assert cs.ssd_ratio(got, ref)[0] <= 1
+
+
+@pytest.mark.cuda
+def test_kvstore_cases_on_the_card_equal_the_cpu():
+    """chip_smoke's 14a cases at its shapes: reductions, 2-bit codes and
+    residuals bit for bit; optimizer results rtol 1e-6 + 1e-6 * max."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    cs = _chip_smoke()
+    got = cs.kv_cases(mx, mx.gpu(0))
+    want = cs.kv_cases(mx, mx.cpu(), cpu_store=True)
+    for name, ref in want.items():
+        if name.startswith("set_optimizer"):
+            np.testing.assert_allclose(got[name], ref, rtol=1e-6,
+                                       atol=1e-6 * np.abs(ref).max(),
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(got[name], ref, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_two_contexts_on_one_card_match_one_context(monkeypatch):
+    """train_mnist's mlp on [gpu(0), gpu(0)] through kvstore='device',
+    3 steps, against one context on the card (TF32 off): loss rtol 1e-5,
+    parameters and momenta rtol 1e-5 + 1e-6 * max|array|; K1 launches
+    twice in each executor's forward."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.subgraph import fused_ops
+    cs = _chip_smoke()
+    monkeypatch.setenv("MXNET_SUBGRAPH_BACKEND", "TPU_PALLAS")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        sym = cs.mlp_symbol(mx)
+        train, _ = cs.mnist_iters(mx)
+        batches = [next(train) for _ in range(3)]
+        init = cs.dp_init(mx, sym)
+        _, ref_loss, ref_p, ref_m, _ = cs.dp_steps(
+            mx, sym, [mx.gpu(0)], batches, init, "local")
+        fused_ops.fc_relu.launches = 0
+        _, loss, p, m, _ = cs.dp_steps(mx, sym, [mx.gpu(0), mx.gpu(0)],
+                                       batches, init, "device")
+        launches = fused_ops.fc_relu.launches
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+    assert cs.held_worst(p, ref_p, cs.DP_TOL)[0] <= 1
+    assert cs.held_worst(m, ref_m, cs.DP_TOL)[0] <= 1
+    assert launches == 4 * len(batches)
+
+
+@pytest.mark.cuda
+def test_wide_deep_small_on_the_card_matches_the_cpu(monkeypatch):
+    """wide_deep.py's copy at 2 000 rows, 512 samples, one epoch, on the
+    card (TPU_PALLAS, the cache on the card) against the CPU: the tower
+    and the table rtol 1e-4 + 1e-5 * max|array|; the tier's counters
+    equal; K1 once a forward."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.subgraph import fused_ops
+    cs = _chip_smoke()
+    monkeypatch.setenv("MXNET_SUBGRAPH_BACKEND", "TPU_PALLAS")
+    cfg = dict(cs.WD_CFG, rows=2000, samples=512, epochs=1)
+    sym = cs.wd_tower(mx, cs.WD_SLOTS * cfg["dim"], 4)
+    shapes, _, _ = sym.infer_shape(emb=(64, 32), dense=(64, 4))
+    rng = np.random.RandomState(0)
+    init = {n: rng.uniform(-0.1, 0.1, s).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), shapes)
+            if n not in ("emb", "dense", "softmax_label")}
+    states = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        fused_ops.fc_relu.launches = 0
+        run = cs.wide_deep(mx, cfg, ctx, arg_params=init)
+        try:
+            states.append((cs.wd_state(run), fused_ops.fc_relu.launches))
+        finally:
+            cs.wide_deep_close(run)
+    (ref, _), (got, launches) = states
+    assert cs.held_worst(got["tower"], ref["tower"], cs.WD_TOL)[0] <= 1
+    assert cs.held_worst({"t": got["table"]}, {"t": ref["table"]},
+                         cs.WD_TOL)[0] <= 1
+    assert got["counters"] == ref["counters"]
+    assert launches == 512 // 64

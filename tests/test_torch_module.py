@@ -269,19 +269,35 @@ def test_module_without_context_needs_the_card(monkeypatch):
     with pytest.raises(tmx.MXNetError, match="no such CUDA device"):
         tmx.mod.Module(mlp())
     tmx.mod.Module(mlp(), context=tmx.cpu())
-    with pytest.raises(tmx.MXNetError, match="one context"):
-        tmx.mod.Module(mlp(), context=[tmx.cpu(), tmx.cpu(1)])
+    # several contexts are data parallelism through the kvstore; each
+    # context must exist
+    assert len(tmx.mod.Module(mlp(), context=[tmx.cpu(), tmx.cpu(1)])
+               ._context) == 2
+    with pytest.raises(tmx.MXNetError, match="no such CUDA device"):
+        tmx.mod.Module(mlp(), context=[tmx.cpu(), tmx.gpu(0)])
 
 
-def test_fit_rejects_what_is_not_ported():
-    """Monitors and a distributed kvstore raise (elastic checkpoints are
-    ported: tests/test_torch_checkpoint.py)."""
+def test_fit_rejects_what_is_not_ported(monkeypatch):
+    """Monitors raise, and so does a dist_sync kvstore asked for the
+    collective data plane (the parameter server's socket plane is
+    ported: tests/test_torch_dist.py; elastic checkpoints too:
+    tests/test_torch_checkpoint.py)."""
+    from incubator_mxnet_tpu_torch.dist.server import ParameterServer
     mod = tmx.mod.Module(mlp(), context=tmx.cpu())
     train, _ = _iters(tmx, n=32)
     with pytest.raises(tmx.MXNetError, match="monitors"):
         mod.fit(train, num_epoch=1, monitor=object())
-    with pytest.raises(tmx.MXNetError, match="distributed"):
-        mod.fit(train, num_epoch=1, kvstore="dist_sync")
+    server = ParameterServer(num_workers=1).start()
+    try:
+        for k, v in {"DMLC_PS_ROOT_URI": "127.0.0.1",
+                     "DMLC_PS_ROOT_PORT": str(server.port),
+                     "DMLC_RANK": "0", "MXNET_KVSTORE_COLLECTIVE": "1",
+                     "MXNET_PS_REQUEST_TIMEOUT": "30"}.items():
+            monkeypatch.setenv(k, v)
+        with pytest.raises(tmx.MXNetError, match="collective data plane"):
+            mod.fit(train, num_epoch=1, kvstore="dist_sync")
+    finally:
+        server.shutdown()
 
 
 @pytest.mark.parametrize("net", ["mlp", "lenet"])

@@ -153,8 +153,10 @@ def test_port_imports_no_jax():
     Module.fit from a .rec through ImageRecordIter, ImageNormalize and
     the h2d ring, a bucketed LSTM's BucketingModule.fit, a gluon LSTM,
     and the SSD's graph (detection ops, MakeLoss, smooth_l1) bound and
-    stepped, with ImageDetIter over a .rec, loads neither jax nor the
-    JAX package."""
+    stepped, with ImageDetIter over a .rec, and a one-worker dist_sync
+    round trip and a sharded embedding table's lookup and push on the
+    port's parameter servers (kvstore, dist, embedding, kvstore_server),
+    loads neither jax nor the JAX package."""
     code = textwrap.dedent("""
         import os
         import sys
@@ -187,6 +189,20 @@ def test_port_imports_no_jax():
         import incubator_mxnet_tpu_torch.ops.spatial
         import incubator_mxnet_tpu_torch.ops.contrib_tail
         import incubator_mxnet_tpu_torch.image_detection
+        import incubator_mxnet_tpu_torch.kvstore
+        import incubator_mxnet_tpu_torch.kvstore_server
+        import incubator_mxnet_tpu_torch.dist
+        import incubator_mxnet_tpu_torch.dist.compression
+        import incubator_mxnet_tpu_torch.dist.transport
+        import incubator_mxnet_tpu_torch.dist.membership
+        import incubator_mxnet_tpu_torch.dist.server
+        import incubator_mxnet_tpu_torch.dist.kvstore_dist
+        import incubator_mxnet_tpu_torch.dist.launch
+        import incubator_mxnet_tpu_torch.embedding
+        import incubator_mxnet_tpu_torch.embedding.cache
+        import incubator_mxnet_tpu_torch.embedding.sharded
+        import incubator_mxnet_tpu_torch.embedding.fit
+        import incubator_mxnet_tpu_torch.resilience
         import chip_smoke
         import tempfile
         rec = os.path.join(tempfile.mkdtemp(), "a.rec")
@@ -261,6 +277,30 @@ def test_port_imports_no_jax():
         mod.fit(it, num_epoch=1, eval_metric=chip_smoke.ssd_metric(mx),
                 initializer=mx.initializer.Xavier())
         assert mod.get_outputs()[3].shape == (2, 280, 6)
+        from incubator_mxnet_tpu_torch.dist.server import ParameterServer
+        servers = [ParameterServer(num_workers=1).start() for _ in range(2)]
+        os.environ.update(DMLC_PS_ROOT_URI="127.0.0.1",
+                          DMLC_PS_ROOT_PORT=str(servers[0].port),
+                          DMLC_RANK="0", MXNET_PS_REQUEST_TIMEOUT="30")
+        kv = mx.kv.create("dist_sync")
+        kv.init("w", mx.nd.ones((3,), ctx=mx.cpu()))
+        kv.set_optimizer(mx.optimizer.SGD(learning_rate=0.5))
+        kv.push("w", [mx.nd.ones((3,), ctx=mx.cpu(i)) for i in range(2)])
+        w = mx.nd.zeros((3,), ctx=mx.cpu())
+        kv.pull("w", out=w)
+        assert np.allclose(w.asnumpy(), 0.0), w.asnumpy()
+        kv.close()
+        table = mx.embedding.ShardedEmbedding(
+            "t", 10, 2, [("127.0.0.1", s.port) for s in servers], seed=1,
+            cache_rows=4, optimizer=mx.optimizer.SGD(learning_rate=1.0),
+            ctx=mx.cpu())
+        before = table.lookup(np.array([1, 8]), out_np=True)
+        table.push_grad(np.array([1, 8]), np.ones((2, 2), np.float32))
+        after = table.lookup(np.array([1, 8]), out_np=True)
+        assert np.allclose(after, before - 1.0)
+        table.close()
+        for srv in servers:
+            srv.shutdown()
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "incubator_mxnet_tpu"))
