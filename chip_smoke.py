@@ -222,6 +222,48 @@ exits non-zero:
    samples/s, the hit rate, the lookup's host and device ms, the push's
    round trip, K1's launches (1 a forward), one profiled batch.
 
+15. the rest of the op registry and of the training API (slice 13); K2
+   and K3 held at 0 launches.  a. every op name this slice registered
+   (110) on the card against the port on the CPU, forward and the
+   gradient of its differentiable inputs, at its users' shapes
+   (Deconvolution: DCGAN's generator, batch 64, 512->256->128->64->3 to
+   64x64; LRN at AlexNet's conv1 output; L2Normalization at SSD's
+   conv4_3; UpSampling x2 at (16, 256, 38, 38); InstanceNorm (8, 64,
+   128, 128); linalg at (16, 64, 64) in float64; others ~10^6
+   elements): indexing, reshaping and ordering ops bit for bit (their
+   gradients rtol 1e-5 + 1e-6*max), arithmetic rtol 1e-5 + 1e-6*max,
+   products and decompositions rtol 1e-4 + 1e-5*max (gelqf and syevd by
+   their products and rows up to sign); the 10 update ops with sign and
+   threshold near ties counted; ctc_loss at lstm_ocr's shapes (T 80,
+   batch 128, 11 classes, 4 labels), F.ctc_loss against the plain loop;
+   histogram (10^6 values, 100 bins) with edge near ties counted; 10^6
+   draws of every random op (mean and variance within 5 sigma, KS p >
+   1e-4, the same seed the same draws, shuffle a permutation); every new
+   metric's device_update on the card against its host update.  b.
+   BASELINE config #4 (phase 11's copy of lstm_bucketing.py) under nag,
+   signum, dcasgd and lbsgd (the example's params, --mom 0.9) and
+   rmsprop (also centered), adagrad, adadelta, adamax, nadam, ftml, ftrl
+   and sgld (fit's optimizer name, the example's params less momentum,
+   which the nine refuse): 6 fused steps over buckets
+   60/20/40/20/60/10, card vs CPU free running and from the CPU's state
+   (11a's gate: in fp32 for nag, signum, dcasgd, lbsgd, adadelta and
+   ftrl, in float64 for the other adaptive ones, with the fp32 reading
+   printed, and for rmsprop centered with SoftmaxOutput's softmax in
+   float64 too, beside a witness of what parts the float64 lane as
+   shipped; near ties excused and counted: Signum's momentum and Ftrl's
+   z at their flip; SGLD, declined by the fused step, by each step's
+   gradient in float64 from the CPU's state and its noise's moments),
+   the bucket-60 step's ms and tokens/s, the states through
+   dumps_states/loads_states.  c. train_mnist's mlp as a SequentialModule (data ->
+   fc1 -> relu1 | fc2 -> relu2 -> fc3 -> SoftmaxOutput) under TPU_PALLAS,
+   initialised with Mixed(Orthogonal, MSRAPrelu), fc1 under
+   AttrScope(lr_mult=0.5), a Monitor(interval=1), acc + nll_loss + a
+   CustomMetric: 8 steps on the card against one Module on the card
+   (rtol 1e-5 + 1e-6*max), against the CPU (phase 6's gate), the
+   monitor's statistics against the CPU's (rtol 1e-4 + 1e-5*max), K1
+   twice a train forward, fc1 at half rate; 10 epochs through fit to
+   accuracy > 0.95; a PythonLossModule stage for one epoch.
+
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the port's package beside it, the script exits non-zero and
@@ -3755,10 +3797,13 @@ def lstm_iter(mx, corpus, cfg):
                                      invalid_label=0)
 
 
-def lstm_module(mx, cfg, ctx, values=None, opt=None, fused=False):
+def lstm_module(mx, cfg, ctx, values=None, opt=None, fused=False,
+                optimizer="sgd", f64=False):
     """A BucketingModule of the example's sym_gen bound at the default
     bucket, its parameters from `values` (numpy, through compat.weights)
-    or the example's Xavier under mx.random.seed(SEED), SGD `opt`."""
+    or the example's Xavier under mx.random.seed(SEED), `optimizer`
+    with `opt`; with `f64` the default bucket's arrays in float64
+    (`opt15_module` turns the other buckets')."""
     from incubator_mxnet_tpu_torch.compat import weights
     key = max(cfg["buckets"])
     mod = mx.mod.BucketingModule(lstm_sym_gen(mx, cfg, fused),
@@ -3766,36 +3811,48 @@ def lstm_module(mx, cfg, ctx, values=None, opt=None, fused=False):
     shape = (cfg["batch"], key)
     mod.bind([mx.io.DataDesc("data", shape)],
              [mx.io.DataDesc("softmax_label", shape)])
+    if f64:
+        as_float64(mod._buckets[key])
     mx.random.seed(SEED)
     if values is None:
         mod.init_params(initializer=lstm_init(mx))
     else:
         mod.init_params(arg_params=weights.params_from_numpy(
             values, ctx=mx.cpu())[0])
-    mod.init_optimizer(optimizer="sgd",
+    mod.init_optimizer(optimizer=optimizer,
                        optimizer_params=dict(opt or LSTM_OPT))
     return mod
 
 
 def lstm_state(mx, mod):
     """Every bucket's parameters (each bucket's own begin states
-    included) and the shared momenta, as numpy."""
+    included) and the default bucket's optimizer states, as numpy:
+    {name or ("state", parameter name, k): array} (k: the state's place
+    in a tuple state)."""
     from incubator_mxnet_tpu_torch.compat import weights
     default = mod._buckets[mod._default_bucket_key]
-    moms = weights.module_states_to_numpy(default)
+    names = default._exec_group.param_names
     state = weights.bucketing_params_to_numpy(mod)
-    state.update({("momentum", i): m for i, m in moms.items()
-                  if m is not None})
+    for i, s in weights.module_states_to_numpy(default).items():
+        for k, v in enumerate(s if isinstance(s, tuple) else (s,)):
+            if v is not None:
+                state[("state", names[i], k)] = v
     return state
 
 
 def lstm_set_state(mx, mod, state):
+    """Write `state` (as `lstm_state` gives it) into every bucket's
+    parameters and the optimizer states that exist."""
     from incubator_mxnet_tpu_torch.compat import weights
     default = mod._buckets[mod._default_bucket_key]
+    names = default._exec_group.param_names
     weights.bucketing_params_from_numpy(
         mod, {k: v for k, v in state.items() if isinstance(k, str)})
-    weights.module_states_from_numpy(default, {
-        k[1]: v for k, v in state.items() if not isinstance(k, str)})
+    for i, s in default._updater.states.items():
+        for k, arr in enumerate(s if isinstance(s, tuple) else (s,)):
+            if arr is not None:
+                arr._set_data(torch.from_numpy(state[("state", names[i],
+                                                      k)]))
 
 
 def lstm_ratio(got, ref, tol=PARITY_TOL):
@@ -6431,6 +6488,1360 @@ def kv_phase(card, workdir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the registry's tail and the rest of the training API
+# ---------------------------------------------------------------------------
+
+# 15a: tolerances by family (rtol, atol * max|ref|); "exact" is bit for bit
+OPS15_TOL = {"exact": None, "arith": (1e-5, 1e-6), "prod": (1e-4, 1e-5)}
+OPS15_NEAR = 1e-4      # 15a/b: a sign or threshold within this * max|x|
+HIST15_NEAR = 1e-6     # 15a: a value within this * max|edge| of an edge
+FTRL15_L1 = 0.01       # Ftrl's default lamda1, its threshold
+REFUSE15 = ("rmsprop", "adagrad", "adadelta", "adam", "adamax", "nadam",
+            "ftml", "ftrl", "sgld")   # no momentum argument
+RANDOM15_DRAWS = 10 ** 6
+# 15b: lstm_bucketing.py's optimizer params with --optimizer <name>
+# (momentum only where the optimizer takes it: --mom 0.9)
+LSTM15_OPT = {"learning_rate": 0.01, "wd": 1e-5, "rescale_grad": 1.0 / 32}
+LSTM15_LANES = (                # (label, optimizer, its params, flag)
+    ("nag", "nag", {"momentum": 0.9}, True),
+    ("signum", "signum", {"momentum": 0.9}, True),
+    ("dcasgd", "dcasgd", {"momentum": 0.9}, True),
+    ("lbsgd", "lbsgd", {"momentum": 0.9}, True),
+    ("rmsprop", "rmsprop", {}, False),
+    ("rmsprop centered", "rmsprop", {"centered": True}, False),
+    ("adagrad", "adagrad", {}, False),
+    ("adadelta", "adadelta", {}, False),
+    ("adamax", "adamax", {}, False),
+    ("nadam", "nadam", {}, False),
+    ("ftml", "ftml", {}, False),
+    ("ftrl", "ftrl", {}, False),
+    ("sgld", "sgld", {}, False),
+)
+# 15b: the dtype each lane is held in (11a's gate): fp32 where it holds
+# there; float64 (the default) for the adaptive ones that scale a
+# gradient near 0 by lr / (its running size + eps) and SGLD; RMSProp
+# centered with SoftmaxOutput's softmax in float64 too (`opt15_witness`)
+OPT15_GATE = {"nag": "fp32", "signum": "fp32", "dcasgd": "fp32",
+              "lbsgd": "fp32", "adadelta": "fp32", "ftrl": "fp32",
+              "rmsprop centered": "float64 softmax"}
+LSTM15_TIMED = 5                # 15b: bucket-60 steps timed after parity
+# 15c: train_mnist's mlp as a SequentialModule
+SEQ15_STEPS = 8
+SEQ15_TOL = (1e-5, 1e-6)        # 15c: the split against one Module
+MON15_TOL = (1e-4, 1e-5)        # 15c: the monitor's statistics, card vs CPU
+SEQ15_LR_MULT = 0.5
+CARD15 = "cuda"                 # the card's torch device (a CPU rehearsal
+                                # points it at "cpu")
+
+
+def r15(shape, seed=0, dtype=np.float32, scale=1.0):
+    return torch.from_numpy((np.random.RandomState(seed).normal(
+        0, scale, shape)).astype(dtype))
+
+
+def ties15(shape, seed=0):
+    """Values on a grid of 0.5, so many tie."""
+    return torch.round(r15(shape, seed) * 2) / 2
+
+
+def ints15(values):
+    return torch.as_tensor(np.asarray(values, np.float32))
+
+
+def spd15(n, batch, seed=0):
+    a = r15((batch, n, n), seed, np.float64)
+    return a @ a.transpose(1, 2) + n * torch.eye(n, dtype=torch.float64)
+
+
+def lower15(n, batch, seed=0):
+    return torch.linalg.cholesky(spd15(n, batch, seed))
+
+
+def ops15_cases():
+    """Phase 15a's cases: (op, params, CPU inputs, differentiated inputs,
+    family), at the shapes of the ops' users (DCGAN's generator,
+    AlexNet's conv1 output, SSD's conv4_3, lstm_ocr's CTC; else the sizes
+    of tests/test_operator.py scaled to ~10^6 elements)."""
+    rng = np.random.RandomState(SEED)
+    x3 = r15((100, 100, 100))
+    seq = r15((50, 128, 160))
+    lens = ints15(rng.randint(1, 51, 128))
+    flat = rng.permutation(100 * 100)[:10000]
+    qkv = r15((128, 32, 3 * 8 * 64), scale=0.3)
+    cases = [
+        ("slice", {"begin": (10, None, 0), "end": (90, None, 100),
+                   "step": (1, None, 2)}, [x3], (0,), "exact"),
+        ("slice", {"begin": (90,), "end": (10,), "step": (-2,)}, [x3], (0,),
+         "exact"),
+        ("slice_like", {"axes": (0, 1)}, [x3, r15((50, 60, 100))], (0,),
+         "exact"),
+        ("reverse", {"axis": 1}, [x3], (0,), "exact"),
+        ("tile", {"reps": (2, 2)}, [r15((250, 400))], (0,), "exact"),
+        ("repeat", {"repeats": 2, "axis": 1}, [r15((500, 1000))], (0,),
+         "exact"),
+        ("Pad", {"mode": "constant", "pad_width": (0, 0, 0, 0, 1, 2, 2, 1),
+                 "constant_value": 0.5}, [r15((16, 64, 32, 32))], (0,),
+         "exact"),
+        ("Pad", {"mode": "edge", "pad_width": (0, 0, 0, 0, 2, 1, 1, 3)},
+         [r15((16, 64, 32, 32))], (0,), "exact"),
+        ("Pad", {"mode": "reflect", "pad_width": (0, 0, 0, 0, 3, 1, 1, 2)},
+         [r15((16, 64, 32, 32))], (0,), "exact"),
+        ("take", {}, [r15((1000, 1000)),
+                      ints15(rng.randint(-50, 1050, (200, 50)))], (0,),
+         "exact"),
+        ("take", {"mode": "wrap", "axis": 1},
+         [r15((1000, 1000)), ints15(rng.randint(-2000, 2000, 1000))], (0,),
+         "exact"),
+        ("batch_take", {}, [r15((1000, 1000)),
+                            ints15(rng.randint(0, 1100, 1000))], (0,),
+         "exact"),
+        ("one_hot", {"depth": 100, "on_value": 2.0, "off_value": -1.0},
+         [ints15(rng.randint(-5, 105, 10000))], (), "exact"),
+        ("gather_nd", {}, [x3, ints15(rng.randint(0, 100, (2, 10000)))],
+         (0,), "exact"),
+        ("scatter_nd", {"shape": (100, 100, 100)},
+         [r15((10000, 100)), ints15(np.stack([flat // 100, flat % 100]))],
+         (0,), "exact"),
+        ("topk", {"k": 10, "ret_typ": "both"}, [ties15((1000, 1000))], (0,),
+         "exact"),
+        ("topk", {"k": 5, "ret_typ": "mask", "axis": 0},
+         [ties15((1000, 1000))], (), "exact"),
+        ("topk", {"k": 7, "ret_typ": "value", "is_ascend": True},
+         [ties15((1000, 1000))], (0,), "exact"),
+        ("sort", {}, [ties15((1000, 1000))], (0,), "exact"),
+        ("sort", {"axis": 0, "is_ascend": False}, [ties15((1000, 1000))],
+         (0,), "exact"),
+        ("argsort", {}, [ties15((1000, 1000))], (), "exact"),
+        ("argsort", {"axis": 0, "is_ascend": False},
+         [ties15((1000, 1000))], (), "exact"),
+        ("shape_array", {}, [x3], (), "exact"),
+        ("size_array", {}, [x3], (), "exact"),
+        ("diag", {"k": 1}, [r15((1000, 1000))], (0,), "exact"),
+        ("diag", {"k": -1}, [r15((1000,))], (0,), "exact"),
+        ("depth_to_space", {"block_size": 2}, [r15((16, 256, 16, 16))],
+         (0,), "exact"),
+        ("space_to_depth", {"block_size": 2}, [r15((16, 64, 32, 32))],
+         (0,), "exact"),
+        ("SequenceLast", {"use_sequence_length": True}, [seq, lens], (0,),
+         "exact"),
+        ("SequenceMask", {"use_sequence_length": True, "value": -1.0},
+         [seq, lens], (0,), "exact"),
+        ("SequenceMask", {"use_sequence_length": True, "axis": 1},
+         [seq.transpose(0, 1).contiguous(), lens],
+         (0,), "exact"),
+        ("SequenceReverse", {"use_sequence_length": True}, [seq, lens],
+         (0,), "exact"),
+        ("InstanceNorm", {}, [r15((8, 64, 128, 128)), r15((64,), 1),
+                              r15((64,), 2)], (0, 1, 2), "arith"),
+        ("L2Normalization", {"mode": "channel"}, [r15((16, 512, 38, 38))],
+         (0,), "arith"),
+        ("L2Normalization", {}, [r15((64, 128, 128))], (0,), "arith"),
+        ("L2Normalization", {"mode": "spatial"}, [r15((16, 64, 32, 32))],
+         (0,), "arith"),
+        ("LRN", {"nsize": 5}, [r15((128, 96, 55, 55))], (0,), "arith"),
+        ("SoftmaxActivation", {}, [r15((1000, 1000))], (0,), "arith"),
+        ("SoftmaxActivation", {"mode": "channel"}, [r15((16, 64, 32, 32))],
+         (0,), "arith"),
+        ("UpSampling", {"scale": 2, "sample_type": "nearest"},
+         [r15((16, 256, 38, 38))], (0,), "exact"),
+        ("UpSampling", {"scale": 2, "sample_type": "bilinear"},
+         [r15((16, 256, 38, 38))], (0,), "prod"),
+        ("_arange", {"start": 1.0, "stop": 1e6, "step": 1.0, "repeat": 1},
+         [], (), "exact"),
+        ("_eye", {"N": 1000, "M": 1000, "k": 1}, [], (), "exact"),
+        ("_linspace", {"start": -3.0, "stop": 7.0, "num": 10 ** 6}, [], (),
+         "exact"),
+        ("_contrib_quadratic", {"a": 0.5, "b": -1.0, "c": 2.0},
+         [r15((1000, 1000))], (0,), "arith"),
+        ("_contrib_arange_like", {"start": 1.0, "step": 0.5, "repeat": 2},
+         [r15((1000, 1000))], (), "arith"),
+        ("_contrib_AdaptiveAvgPooling2D", {"output_size": (8, 8)},
+         [r15((16, 64, 64, 64))], (0,), "arith"),
+        ("_contrib_AdaptiveAvgPooling2D", {"output_size": (7, 7)},
+         [r15((16, 64, 64, 64))], (0,), "prod"),
+        ("_contrib_BilinearResize2D", {"height": 96, "width": 80},
+         [r15((16, 64, 64, 64))], (0,), "prod"),
+        ("_contrib_div_sqrt_dim", {}, [r15((1000, 1024))], (0,), "arith"),
+        ("_contrib_interleaved_matmul_selfatt_qk", {"heads": 8}, [qkv],
+         (0,), "prod"),
+        ("_contrib_interleaved_matmul_selfatt_valatt", {"heads": 8},
+         [qkv, torch.softmax(r15((256, 128, 128), 1), -1)], (0, 1), "prod"),
+        ("_contrib_boolean_mask_supported", {}, [], (), "exact"),
+        ("_contrib_index_copy", {},
+         [r15((1000, 1000)), ints15(rng.permutation(1000)[:100]),
+          r15((100, 1000), 1)], (0, 2), "exact"),
+        ("_contrib_index_array", {}, [r15((1000, 500))], (), "exact"),
+        ("_contrib_getnnz", {"axis": 0},
+         [torch.relu(r15((1000, 1000)))], (), "exact"),
+        ("_contrib_fft", {}, [r15((1000, 1024))], (0,), "prod"),
+        ("_contrib_ifft", {}, [r15((500, 2048))], (0,), "prod"),
+        ("_contrib_count_sketch", {"out_dim": 256},
+         [r15((1000, 1000)), ints15(rng.randint(0, 256, 1000)),
+          ints15(rng.choice([-1.0, 1.0], 1000))], (0,), "arith"),
+        ("khatri_rao", {"num_args": 3}, [r15((100, 64)), r15((50, 64), 1),
+                                         r15((20, 64), 2)], (0, 1, 2),
+         "prod"),
+        ("_ravel_multi_index", {"shape": (100, 100, 100)},
+         [ints15(rng.randint(0, 100, (3, 10 ** 6)))], (), "exact"),
+        ("_unravel_index", {"shape": (100, 100, 100)},
+         [ints15(rng.randint(0, 10 ** 6, 10 ** 6))], (), "exact"),
+        ("_square_sum", {"axis": 1, "keepdims": True}, [r15((1000, 1000))],
+         (0,), "arith"),
+        ("cast_storage", {"stype": "csr"}, [r15((1000, 1000))], (0,),
+         "exact"),
+        ("sparse_retain", {}, [r15((1000, 1000)),
+                               ints15(rng.permutation(1000)[:300])], (0,),
+         "exact"),
+        ("_contrib_SyncBatchNorm", {"fix_gamma": False},
+         [r15((32, 64, 32, 32)), r15((64,), 1), r15((64,), 2),
+          torch.zeros(64), torch.ones(64)], (0, 1, 2), "arith"),
+    ]
+    # train_dcgan's generator: 4x4, stride 2, pad 1, batch 64, 512 -> 256
+    # -> 128 -> 64 -> 3, up to 64 x 64 (Radford et al. 2016)
+    for k, (cin, cout, hw) in enumerate(((512, 256, 4), (256, 128, 8),
+                                         (128, 64, 16), (64, 3, 32))):
+        cases.append(("Deconvolution", {"kernel": (4, 4), "stride": (2, 2),
+                                        "pad": (1, 1), "num_filter": cout,
+                                        "no_bias": True},
+                      [r15((64, cin, hw, hw), k),
+                       r15((cin, cout, 4, 4), k + 10, scale=0.02)],
+                      (0, 1), "prod"))
+    cases.append(("Deconvolution", {"kernel": (3, 3), "stride": (2, 2),
+                                    "pad": (1, 1), "adj": (1, 1),
+                                    "num_filter": 64, "num_group": 2},
+                  [r15((16, 64, 32, 32)), r15((64, 32, 3, 3), 1, scale=0.05),
+                   r15((64,), 2)], (0, 1, 2), "prod"))
+    lin = [
+        ("linalg_gemm", {"transpose_a": True, "alpha": 0.5, "beta": 2.0},
+         [r15((16, 64, 64), 0, np.float64), r15((16, 64, 64), 1, np.float64),
+          r15((16, 64, 64), 2, np.float64)], (0, 1, 2)),
+        ("linalg_gemm2", {"transpose_b": True},
+         [r15((16, 64, 64), 0, np.float64),
+          r15((16, 64, 64), 1, np.float64)], (0, 1)),
+        ("linalg_potrf", {}, [spd15(64, 16)], (0,)),
+        ("linalg_potri", {}, [lower15(64, 16)], (0,)),
+        ("linalg_trsm", {"alpha": 1.5}, [lower15(64, 16),
+                                         r15((16, 64, 64), 1, np.float64)],
+         (0, 1)),
+        ("linalg_trsm", {"transpose": True, "rightside": True},
+         [lower15(64, 16), r15((16, 64, 64), 1, np.float64)], (0, 1)),
+        ("linalg_trmm", {"lower": False},
+         [lower15(64, 16).transpose(1, 2).contiguous(),
+          r15((16, 64, 64), 1, np.float64)], (0, 1)),
+        ("linalg_syrk", {"alpha": 0.5}, [r15((16, 64, 64), 0, np.float64)],
+         (0,)),
+        ("linalg_sumlogdiag", {}, [lower15(64, 16)], (0,)),
+        ("linalg_extractdiag", {"offset": 1},
+         [r15((16, 64, 64), 0, np.float64)], (0,)),
+        ("linalg_makediag", {}, [r15((16, 64), 0, np.float64)], (0,)),
+        ("linalg_extracttrian", {}, [r15((16, 64, 64), 0, np.float64)],
+         (0,)),
+        ("linalg_inverse", {}, [spd15(64, 16)], (0,)),
+        ("linalg_det", {}, [spd15(8, 16)], (0,)),
+        ("linalg_slogdet", {}, [r15((16, 64, 64), 0, np.float64)], (0,)),
+    ]
+    cases += [(op, p, x, g, "prod") for op, p, x, g in lin]
+    return cases
+
+
+def pair15(name, params, inputs, grad_idx=(), seed=SEED):
+    """`name` on the CPU and on the card on the same inputs, and the
+    gradients of inputs `grad_idx` under one seeded cotangent of the
+    first output (in its dtype).  Returns [(outs, grads) CPU, (outs,
+    grads) card] as CPU tensors."""
+    from incubator_mxnet_tpu_torch.ops import registry
+    op = registry.get(name)
+    p = op.canonicalize_params(params)
+    p.pop("ctx", None)
+    if op.mode_dependent:
+        p["_train"] = True
+    res = []
+    for dev in ("cpu", CARD15):
+        xs = [t.to(dev).clone() for t in inputs]
+        for i in grad_idx:
+            xs[i].requires_grad_()
+        with torch.set_grad_enabled(bool(grad_idx)):
+            out = op.fn(p, *xs) if op.nin else op.fn(p, device=dev)
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        grads = []
+        if grad_idx:
+            ct = torch.from_numpy(np.random.RandomState(seed + 7).normal(
+                0, 1, tuple(outs[0].shape))).to(dev, outs[0].dtype)
+            grads = torch.autograd.grad(outs[0], [xs[i] for i in grad_idx],
+                                        ct, allow_unused=True)
+            grads = [torch.zeros_like(xs[i]) if g is None else g
+                     for i, g in zip(grad_idx, grads)]
+        res.append(([o.detach().cpu() for o in outs],
+                    [g.detach().cpu() for g in grads]))
+    return res
+
+
+def ratio15(got, ref, tol, what, excuse=None):
+    """max |got - ref| / (rtol |ref| + atol max|ref|) outside `excuse`
+    (0 for "exact" when bit for bit, else inf), checked <= 1."""
+    got, ref = got.double(), ref.double()
+    check(got.shape == ref.shape, f"{what}: shape {tuple(got.shape)} vs "
+          f"{tuple(ref.shape)}")
+    if tol is None:
+        diff = got != ref
+        if excuse is not None:
+            diff &= ~excuse
+        r = 0.0 if not bool(diff.any()) else math.inf
+    else:
+        bound = (tol[0] * ref.abs() + tol[1] * ref.abs().max()).clamp_min(
+            1e-300)
+        err = (got - ref).abs() / bound
+        if excuse is not None:
+            err = torch.where(excuse, torch.zeros_like(err), err)
+        r = float(err.max()) if err.numel() else 0.0
+    check(r <= 1.0, f"{what}: {r:.3g} of the tolerance")
+    return r
+
+
+def ops15_registry(mx, card):
+    """15a: every op this PR registered, on the card against the port on
+    the CPU; returns (names covered, worst share of the tolerance)."""
+    from incubator_mxnet_tpu_torch.ops import registry
+    done, worst, rows = set(), (0.0, ""), {}
+    t0 = time.perf_counter()
+    for op, params, inputs, gidx, fam in ops15_cases():
+        (c_out, c_g), (g_out, g_g) = pair15(op, params, inputs, gidx)
+        what = f"15a {op} {params}"
+        r = max([ratio15(g, c, OPS15_TOL[fam], what + f" out {k}")
+                 for k, (g, c) in enumerate(zip(g_out, c_out))] +
+                [ratio15(g, c, OPS15_TOL["arith" if fam == "exact" else
+                                         fam], what + f" grad {i}")
+                 for i, g, c in zip(gidx, g_g, c_g)])
+        worst = max(worst, (r, op))
+        done.add(registry.get(op))
+        rows.setdefault(fam, []).append(r)
+    # the update ops, one step on (1000, 1000): sign and threshold near
+    # ties (within OPS15_NEAR * max of the CPU's value) counted, excused
+    upd, ties = ops15_updates(mx)
+    worst = max(worst, upd)
+    done |= {registry.get(n) for n in OPS15_UPDATES}
+    done |= {registry.get(n) for n in ops15_ctc(mx, card)}
+    done |= {registry.get(n) for n in ops15_histogram(mx, card)}
+    done |= {registry.get(n) for n in ops15_random(mx, card)}
+    done |= {registry.get(n) for n in ops15_decompositions(mx, card)}
+    names = sorted(n for n in registry.list_ops()
+                   if registry.get(n) in done)
+    ported = set(SLICE13_OPS)
+    missing = sorted(ported - set(names))
+    check(not missing, f"15a: ops not run on the card: {missing}")
+    print(f"ops15: {len(ported)} op names of this slice on the card against "
+          f"the CPU ({len(done)} distinct ops): worst "
+          f"{worst[0]:.3f} of the tolerance ({worst[1]}); by family "
+          + ", ".join(f"{fam} {len(v)} cases worst {max(v):.3f}"
+                      for fam, v in rows.items())
+          + f"; {ties} update-op near ties excused; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return len(ported), worst
+
+
+# the names this slice registered (the JAX registry's less the 9
+# quantization ops, less what the port had before)
+SLICE13_OPS = (
+    "CTCLoss", "Deconvolution", "InstanceNorm", "L2Normalization", "LRN",
+    "Pad", "SequenceLast", "SequenceMask", "SequenceReverse",
+    "SoftmaxActivation", "SyncBatchNorm", "UpSampling", "_arange",
+    "_contrib_AdaptiveAvgPooling2D", "_contrib_BilinearResize2D",
+    "_contrib_CTCLoss", "_contrib_SyncBatchNorm", "_contrib_arange_like",
+    "_contrib_boolean_mask_supported", "_contrib_count_sketch",
+    "_contrib_ctc_loss", "_contrib_div_sqrt_dim", "_contrib_fft",
+    "_contrib_getnnz", "_contrib_ifft", "_contrib_index_array",
+    "_contrib_index_copy", "_contrib_interleaved_matmul_selfatt_qk",
+    "_contrib_interleaved_matmul_selfatt_valatt", "_contrib_quadratic",
+    "_eye", "_histogram", "_linspace", "_random_exponential",
+    "_random_gamma", "_random_generalized_negative_binomial",
+    "_random_negative_binomial", "_random_normal", "_random_poisson",
+    "_random_randint", "_random_uniform", "_ravel_multi_index",
+    "_sample_gamma", "_sample_multinomial", "_sample_normal",
+    "_sample_uniform", "_shuffle", "_square_sum", "_unravel_index",
+    "adam_update", "argsort", "batch_take", "cast_storage", "crop",
+    "ctc_loss", "depth_to_space", "diag", "fft", "flip", "ftrl_update",
+    "gamma_sample", "gather_nd", "histogram", "ifft", "khatri_rao",
+    "linalg_det", "linalg_extractdiag", "linalg_extracttrian",
+    "linalg_gelqf", "linalg_gemm", "linalg_gemm2", "linalg_inverse",
+    "linalg_makediag", "linalg_potrf", "linalg_potri", "linalg_slogdet",
+    "linalg_sumlogdiag", "linalg_syevd", "linalg_syrk", "linalg_trmm",
+    "linalg_trsm", "mp_sgd_mom_update", "mp_sgd_update", "normal",
+    "one_hot", "pad", "quadratic", "ravel_multi_index", "repeat", "reverse",
+    "rmsprop_update", "rmspropalex_update", "scatter_nd", "sgd_mom_update",
+    "sgd_update", "shape_array", "shuffle", "signsgd_update",
+    "signum_update", "size_array", "slice", "slice_like", "sort",
+    "space_to_depth", "sparse_retain", "take", "tile", "topk", "uniform",
+    "unravel_index")
+
+OPS15_UPDATES = {   # op: (states, params)
+    "sgd_update": ((), {}),
+    "sgd_mom_update": (("mom",), {"momentum": 0.9}),
+    "mp_sgd_update": (("w32",), {}),
+    "mp_sgd_mom_update": (("mom", "w32"), {"momentum": 0.9}),
+    "adam_update": (("mean", "var"), {"beta1": 0.9, "beta2": 0.999}),
+    "rmsprop_update": (("n",), {"gamma1": 0.9}),
+    "rmspropalex_update": (("n", "g_avg", "delta"), {"gamma1": 0.9,
+                                                      "gamma2": 0.9}),
+    "ftrl_update": (("z", "n"), {"lamda1": 0.01}),
+    "signsgd_update": ((), {}),
+    "signum_update": (("mom",), {"momentum": 0.9, "wd_lh": 0.01}),
+}
+
+
+def ops15_updates(mx):
+    """The 10 update ops through their nd frontends (out=weight, states
+    in place), card against CPU on (1000, 1000): weight and states at
+    the arithmetic tolerance; an element whose sign (signsgd: of the
+    rescaled gradient; signum: of the new momentum) or Ftrl threshold
+    |z| - lamda1 lies within OPS15_NEAR * max|.| of the flip is counted
+    and excused.  Returns ((worst, op), the excused elements that were
+    off)."""
+    worst, ties = (0.0, ""), 0
+    kw = dict(lr=0.05, wd=1e-3, rescale_grad=0.5, clip_gradient=2.0)
+    for op, (states, extra) in OPS15_UPDATES.items():
+        rng = np.random.RandomState(SEED + len(op))
+        shape = (1000, 1000)
+        low = op.startswith("mp_")
+        vals = {"w": rng.normal(0, 1, shape), "g": rng.normal(0, 3, shape)}
+        for s in states:
+            vals[s] = np.abs(rng.normal(0, 0.5, shape)) + 0.1 \
+                if s in ("n", "var") else rng.normal(0, 0.3, shape)
+        if "g_avg" in vals:
+            vals["n"] = vals["n"] + vals["g_avg"] ** 2
+        res = []
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            arrs = {k: mx.nd.array(v, ctx=ctx, dtype="float16" if low and
+                                   k in ("w", "g") else "float32")
+                    for k, v in vals.items()}
+            if "w32" in arrs:
+                arrs["w32"] = arrs["w"].astype("float32")
+            getattr(mx.nd, op)(*(arrs[a] for a in ("w", "g") + states),
+                               out=arrs["w"], **kw, **extra)
+            res.append({k: arrs[k].data.cpu() for k in ("w",) + states})
+        cpu, card = res
+        near = None
+        if op == "signsgd_update":
+            g = torch.from_numpy(vals["g"]).float() * kw["rescale_grad"]
+            near = g.abs() <= OPS15_NEAR * g.abs().max()
+        elif op == "signum_update":
+            near = cpu["mom"].abs() <= OPS15_NEAR * cpu["mom"].abs().max()
+        elif op == "ftrl_update":
+            z = cpu["z"].abs()
+            near = (z - extra["lamda1"]).abs() <= OPS15_NEAR * z.max()
+        if near is not None:
+            err = (card["w"].double() - cpu["w"].double()).abs()
+            ties += int((near & (err > OPS15_TOL["arith"][0] *
+                                 cpu["w"].double().abs() +
+                                 OPS15_TOL["arith"][1] *
+                                 cpu["w"].double().abs().max())).sum())
+        for k in ("w",) + states:
+            worst = max(worst, (ratio15(card[k], cpu[k], OPS15_TOL["arith"],
+                                        f"15a {op} {k}",
+                                        near if k == "w" else None), op))
+    return worst, ties
+
+
+def ops15_ctc(mx, card):
+    """ctc_loss at upstream's lstm_ocr shapes (T 80, batch 128, 11
+    classes, 4 labels), one row unable to fit: the card route (the
+    library's F.ctc_loss, the plain loop for that row) against the port
+    on the CPU, and against `ctc_plain` on the card; loss and gradient
+    at the product tolerance."""
+    from incubator_mxnet_tpu_torch.ops import ctc
+    rng = np.random.RandomState(SEED)
+    data = r15((80, 128, 11))
+    label = rng.randint(1, 11, (128, 4)).astype(np.float32)
+    label[5] = [3, 3, 3, 3]
+    lens = np.full(128, 80, np.float32)
+    lens[5] = 5                       # 4 repeated labels need 7 steps
+    inputs = [data, torch.from_numpy(label), torch.from_numpy(lens)]
+    before = dict(ctc.ctc_routes)
+    (c_out, c_g), (g_out, g_g) = pair15(
+        "ctc_loss", {"use_data_lengths": True}, inputs, (0,))
+    lib = ctc.ctc_routes["library"] - before["library"]
+    plain = ctc.ctc_routes["plain"] - before["plain"] - 128
+    check(lib == 127 and plain == 1, f"15a ctc: routes library {lib}, "
+          f"plain {plain} rows on the card (want 127, 1)")
+    fits = torch.ones(128, dtype=torch.bool)
+    fits[5] = False       # its ~1e30 loss would set every row's atol
+    r_loss = max(ratio15(g_out[0][fits], c_out[0][fits], OPS15_TOL["prod"],
+                         "15a ctc loss"),
+                 ratio15(g_out[0][~fits], c_out[0][~fits], (1e-6, 0.0),
+                         "15a ctc loss of the row that cannot fit"))
+    r_grad = ratio15(g_g[0], c_g[0], OPS15_TOL["prod"], "15a ctc grad")
+    check(bool(torch.isfinite(g_out[0]).all()), "15a ctc: loss not finite")
+    dev = torch.device(CARD15)
+    logp = torch.log_softmax(data.to(dev), -1)
+    lab = torch.from_numpy(label).long().to(dev)
+    in_len = torch.from_numpy(lens).long().to(dev)
+    lab_len = (lab > 0).sum(1)
+    t0 = time.perf_counter()
+    loop = ctc.ctc_plain(logp, lab, in_len, lab_len)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    r2 = max(ratio15(g_out[0][fits], loop.cpu()[fits], OPS15_TOL["prod"],
+                     "15a ctc route vs loop"),
+             ratio15(g_out[0][~fits], loop.cpu()[~fits], (0.0, 0.0),
+                     "15a ctc route vs loop, the row that cannot fit"))
+    print(f"ops15 ctc: (80, 128, 11), 4 labels: the card route (F.ctc_loss "
+          f"127 rows, the plain loop the row that cannot fit) vs the CPU: "
+          f"loss {r_loss:.3f}, gradient {r_grad:.3f}; loss vs the plain loop "
+          f"on the card {r2:.3f} of rtol 1e-4 + 1e-5*max; the loop alone "
+          f"{loop_ms:.1f} ms [{card}]")
+    return ("ctc_loss",)
+
+
+def ops15_histogram(mx, card):
+    """10^6 values in 100 bins, and in given edges: counts equal but
+    for values within OPS15_NEAR of an edge (counted), edges at the
+    arithmetic tolerance."""
+    x = r15((10 ** 6,))
+    ties, moves = 0, 0
+    for params, inputs in (({"bin_cnt": 100, "range": (-3.0, 3.0)}, [x]),
+                           ({"num_args": 2},
+                            [x, torch.linspace(-4, 4, 41)])):
+        (c_out, _), (g_out, _) = pair15("_histogram", params, inputs)
+        edges = c_out[1].double()
+        xd = x.double()
+        at = torch.searchsorted(edges, xd).clamp(1, len(edges) - 1)
+        gap = torch.minimum((xd - edges[at - 1]).abs(),
+                            (xd - edges[at]).abs())
+        near = int((gap <= HIST15_NEAR * edges.abs().max()).sum())
+        moved = int((g_out[0] - c_out[0]).abs().sum())
+        check(moved <= 2 * near, f"15a histogram: {moved} counts moved, "
+              f"{near} values near an edge")
+        ties += near
+        moves += moved
+        ratio15(g_out[1], c_out[1], OPS15_TOL["arith"], "15a histogram edges")
+    print(f"ops15 histogram: 10^6 values, 100 bins and 40 given edges: "
+          f"{moves} counts moved between bins (allowed: 2 x the {ties} "
+          f"values within 1e-6 * max|edge| of an edge) [{card}]")
+    return ("_histogram",)
+
+
+def ops15_decompositions(mx, card):
+    """gelqf and syevd at (16, 64, 64) in float64: L Q = A, Q Qt = I,
+    U A Ut = diag(lambda), eigenvalues against the CPU's, and each row
+    against the CPU's up to its sign (cuSOLVER and LAPACK may choose
+    either)."""
+    from incubator_mxnet_tpu_torch.ops import registry
+    a = r15((16, 64, 64), 0, np.float64)
+    s = spd15(64, 16)
+    out = {}
+    for dev in ("cpu", CARD15):
+        low, q = registry.get("linalg_gelqf").fn({}, a.to(dev))
+        u, lam = registry.get("linalg_syevd").fn({}, s.to(dev))
+        out[dev] = [t.cpu() for t in (low, q, u, lam)]
+    low, q, u, lam = out[CARD15]
+    eye = torch.eye(64, dtype=torch.float64).expand(16, 64, 64)
+    tol = OPS15_TOL["prod"]
+    r = max(ratio15(low @ q, a, tol, "15a gelqf L Q"),
+            ratio15(q @ q.transpose(1, 2), eye, tol, "15a gelqf Q Qt"),
+            ratio15((q * out["cpu"][1]).sum(-1).abs(), torch.ones(16, 64),
+                    tol, "15a gelqf rows"),
+            ratio15(lam, out["cpu"][3], tol, "15a syevd eigenvalues"),
+            ratio15(u @ s @ u.transpose(1, 2), torch.diag_embed(lam), tol,
+                    "15a syevd U A Ut"),
+            ratio15((u * out["cpu"][2]).sum(-1).abs(), torch.ones(16, 64),
+                    tol, "15a syevd rows"))
+    flips = int(((q * out["cpu"][1]).sum(-1) < 0).sum())
+    print(f"ops15 gelqf/syevd: (16, 64, 64) float64, products and rows up "
+          f"to sign within {r:.3f} of the tolerance; {flips} of 1024 "
+          f"gelqf rows have the other sign than LAPACK's [{card}]")
+    return ("linalg_gelqf", "linalg_syevd")
+
+
+def ops15_random(mx, card):
+    """10^6 draws of each random op on the card: mean and variance
+    within 5 sigma of the distribution's, a KS test p > 1e-4 for the
+    continuous ones, the same seed the same draws, shuffle a
+    permutation."""
+    from scipy import stats
+    n = RANDOM15_DRAWS
+    cases = [  # (nd.random name, params, mean, variance, scipy (dist, args))
+        ("uniform", dict(low=-1.0, high=3.0), 1.0, 16 / 12,
+         ("uniform", (-1.0, 4.0))),
+        ("normal", dict(loc=2.0, scale=0.5), 2.0, 0.25, ("norm", (2.0, 0.5))),
+        ("gamma", dict(alpha=2.5, beta=1.5), 3.75, 2.5 * 2.25,
+         ("gamma", (2.5, 0, 1.5))),
+        ("exponential", dict(lam=2.0), 0.5, 0.25, ("expon", (0, 0.5))),
+        ("poisson", dict(lam=3.0), 3.0, 3.0, None),
+        ("negative_binomial", dict(k=3, p=0.4), 4.5, 4.5 / 0.4, None),
+        ("generalized_negative_binomial", dict(mu=2.0, alpha=0.5), 2.0, 4.0,
+         None),
+        ("randint", dict(low=-3, high=5), 0.5, 63 / 12, None),
+    ]
+    worst_z, worst_p = 0.0, 1.0
+    for name, kw, mean, var, dist in cases:
+        mx.random.seed(11)
+        a = getattr(mx.nd.random, name)(shape=(n,), ctx=mx.gpu(0), **kw)
+        mx.random.seed(11)
+        b = getattr(mx.nd.random, name)(shape=(n,), ctx=mx.gpu(0), **kw)
+        check(torch.equal(a.data, b.data), f"15a {name}: the same seed "
+              "drew different values")
+        x = a.data.double().cpu().numpy()
+        z = moments15(x, mean, var, f"15a {name}")
+        worst_z = max(worst_z, z)
+        if dist is not None:
+            # a frozen distribution's cdf: some scipy versions take a
+            # named cdf's fast path and drop `args`
+            p = stats.kstest(x, getattr(stats, dist[0])(*dist[1]).cdf).pvalue
+            check(p > 1e-4, f"15a {name}: KS p {p:.3g}")
+            worst_p = min(worst_p, p)
+    ctx = mx.gpu(0)
+    mu = mx.nd.array([0.0, 10.0], ctx=ctx)
+    out = mx.nd.random.normal(mu, mx.nd.array([1.0, 0.1], ctx=ctx),
+                              shape=(n // 2,))
+    worst_z = max(worst_z, moments15(out.asnumpy()[1], 10.0, 0.01,
+                                     "15a _sample_normal"))
+    u = mx.nd.random.uniform(mx.nd.array([0.0, 2.0], ctx=ctx),
+                             mx.nd.array([1.0, 6.0], ctx=ctx),
+                             shape=(n // 2,))
+    worst_z = max(worst_z, moments15(u.asnumpy()[1], 4.0, 16 / 12,
+                                     "15a _sample_uniform"))
+    g = mx.nd.random.gamma(mx.nd.array([2.0], ctx=ctx),
+                           mx.nd.array([3.0], ctx=ctx), shape=(n,))
+    worst_z = max(worst_z, moments15(g.asnumpy(), 6.0, 18.0,
+                                     "15a _sample_gamma"))
+    probs = np.array([[0.1, 0.6, 0.3], [0.5, 0.0, 0.5]], np.float32)
+    s = mx.nd.random.multinomial(mx.nd.array(probs, ctx=ctx),
+                                 shape=(n // 2,)).asnumpy()
+    for row in range(2):
+        for k in range(3):
+            hit = (s[row] == k).astype(np.float64)
+            worst_z = max(worst_z, moments15(hit, probs[row, k], probs[row, k]
+                                             * (1 - probs[row, k]),
+                                             "15a _sample_multinomial"))
+    perm = mx.nd.random.shuffle(mx.nd.array(np.arange(n, dtype=np.float32),
+                                            ctx=ctx)).asnumpy()
+    check(np.array_equal(np.sort(perm), np.arange(n)),
+          "15a shuffle: not a permutation")
+    check(not np.array_equal(perm, np.arange(n)), "15a shuffle: identity")
+    print(f"ops15 random: 12 samplers, 10^6 draws each on the card: worst "
+          f"moment {worst_z:.2f} sigma (limit 5), lowest KS p {worst_p:.3g} "
+          f"(limit 1e-4), the same seed the same draws, shuffle a "
+          f"permutation [{card}]")
+    return ("_random_uniform", "_random_normal", "_random_gamma",
+            "_random_exponential", "_random_poisson",
+            "_random_negative_binomial",
+            "_random_generalized_negative_binomial", "_random_randint",
+            "_sample_normal", "_sample_uniform", "_sample_gamma",
+            "_sample_multinomial", "_shuffle")
+
+
+def moments15(x, mean, var, what):
+    """The larger of the mean's and the variance's distance from the
+    distribution's, in standard errors; checked <= 5."""
+    x = np.asarray(x, np.float64).ravel()
+    n = x.size
+    if var <= 0:
+        check(x.mean() == mean, f"{what}: mean {x.mean()} vs {mean}")
+        return 0.0
+    zm = abs(x.mean() - mean) / math.sqrt(var / n)
+    m4 = ((x - x.mean()) ** 4).mean()
+    zv = abs(x.var() - var) / math.sqrt(max(m4 - var ** 2, 1e-300) / n) \
+        if var > 0 else 0.0
+    check(max(zm, zv) <= 5.0, f"{what}: mean {x.mean():.5g} var "
+          f"{x.var():.5g} vs {mean:.5g} {var:.5g} ({max(zm, zv):.2f} sigma)")
+    return max(zm, zv)
+
+
+def metrics15(mx, card):
+    """Each new metric's device_update on the card against its update on
+    the CPU (F1's and MCC's on the host; the others' is device_update
+    there) (rtol 1e-5: float32 sums in another order), three batches at
+    10^4 rows."""
+    rng = np.random.RandomState(SEED)
+    worst = 0.0
+    names = ("f1", "mcc", "mae", "mse", "rmse", "nll_loss", "pearsonr",
+             "loss", "torch", "caffe")
+    for name in names:
+        host, dev = mx.metric.create(name), mx.metric.create(name)
+        for _ in range(3):
+            if name in ("f1", "mcc"):
+                pred = rng.rand(10000, 2).astype(np.float32)
+                label = rng.randint(0, 2, 10000).astype(np.float32)
+            elif name == "nll_loss":
+                p = rng.rand(10000, 10) + 0.01
+                pred = (p / p.sum(1, keepdims=True)).astype(np.float32)
+                label = rng.randint(0, 10, 10000).astype(np.float32)
+            else:
+                pred = rng.normal(0, 1, (10000, 4)).astype(np.float32)
+                label = (pred + rng.normal(0, 0.5, pred.shape)).astype(
+                    np.float32)
+            host.update([mx.nd.array(label, ctx=mx.cpu())],
+                        [mx.nd.array(pred, ctx=mx.cpu())])
+            dev._accumulate(*dev.device_update(
+                [torch.from_numpy(label).to(CARD15)],
+                [torch.from_numpy(pred).to(CARD15)]))
+        h, d = host.get()[1], dev.get()[1]
+        r = abs(d - h) / (1e-5 * abs(h) + 1e-12)
+        check(r <= 1.0, f"15a metric {name}: card {d!r} vs CPU {h!r}")
+        worst = max(worst, r)
+    print(f"ops15 metrics: {', '.join(names)}: device_update on the card "
+          f"against update on the CPU, worst {worst:.3f} of rtol "
+          f"1e-5 [{card}]")
+    return worst
+
+
+# -- 15b: BASELINE config #4 under every new optimizer -----------------------
+
+def opt15_near(optimizer, state, prev_excuse):
+    """{array key: elements excused}, unioned with `prev_excuse`, from
+    the CPU's state after a step: the near ties of Signum (its new
+    momentum within OPS15_NEAR * its max of 0: its sign sets the step)
+    and Ftrl (|z| within that of lamda1: the weight is 0 below it), the
+    weight excused."""
+    out = dict(prev_excuse)
+    if optimizer not in ("signum", "ftrl"):
+        return out
+    for key, v in state.items():
+        if isinstance(key, str) or key[2] != 0:
+            continue
+        mag = np.abs(np.asarray(v, np.float64))
+        edge = FTRL15_L1 if optimizer == "ftrl" else 0.0
+        mask = np.abs(mag - edge) <= OPS15_NEAR * mag.max()
+        out[key[1]] = mask | out.get(key[1], np.zeros_like(mask))
+    return out
+
+
+def opt15_ratio(got, ref, excuse):
+    """(lstm_ratio outside the excused elements of each array, its name,
+    the excused elements that were off by more than the tolerance, the
+    elements excused, the elements compared, the elements off by more
+    than the tolerance before the excuse)."""
+    rtol, atol = PARITY_TOL
+    worst, off, masked, total, over = (0.0, "none"), 0, 0, 0, 0
+    for name, want in ref.items():
+        want = np.asarray(want, np.float64)
+        total += want.size
+        bound = np.maximum(rtol * np.abs(want) + atol * np.abs(want).max(),
+                           1e-30)
+        err = np.abs(np.asarray(got[name], np.float64) - want) / bound
+        over += int((err > 1.0).sum())
+        mask = excuse.get(name)
+        if mask is not None and mask.shape == err.shape:
+            off += int((mask & (err > 1.0)).sum())
+            masked += int(mask.sum())
+            err = np.where(mask, 0.0, err)
+        worst = max(worst, (float(err.max()), str(name)))
+    return worst + (off, masked, total, over)
+
+
+class opt15_float64:
+    """A context in which RMSProp keeps its states in the weight's dtype
+    (`states`; the optimizer keeps them in float32, as the JAX package's
+    does) and SoftmaxOutput takes the softmax in its input's dtype
+    (`softmax`; float32 for float64 data, as the JAX op does)."""
+
+    def __init__(self, states=False, softmax=False):
+        self.states, self.softmax = states, softmax
+
+    def __enter__(self):
+        from incubator_mxnet_tpu_torch import optimizer as topt
+        from incubator_mxnet_tpu_torch.ops import loss_output
+        self.saved = (vars(topt.RMSProp)["create_state"],
+                      vars(loss_output._SoftmaxOutput)["forward"])
+        if self.states:
+            def create_state(opt, index, weight):
+                return tuple(topt._zeros_like(weight)
+                             for _ in range(3 if opt.centered else 1))
+            topt.RMSProp.create_state = create_state
+        if self.softmax:
+            def forward(ctx, data, label, params):
+                axis = 1 if params["multi_output"] else -1
+                out = torch.softmax(data, dim=axis)
+                ctx.save_for_backward(out, label)
+                ctx.params, ctx.axis, ctx.in_dtype = params, axis, data.dtype
+                return out
+            loss_output._SoftmaxOutput.forward = staticmethod(forward)
+        return self
+
+    def __exit__(self, *exc):
+        from incubator_mxnet_tpu_torch import optimizer as topt
+        from incubator_mxnet_tpu_torch.ops import loss_output
+        topt.RMSProp.create_state = self.saved[0]
+        loss_output._SoftmaxOutput.forward = self.saved[1]
+        return False
+
+
+def opt15_module(mx, cfg, batches, values, optimizer, params, ctx, f64):
+    """lstm_module for a 15b lane; with `f64` every bucket the batches
+    reach bound and turned to float64 before a state is written in."""
+    mod = lstm_module(mx, cfg, ctx, values, dict(LSTM15_OPT, **params),
+                      optimizer=optimizer, f64=f64)
+    for b in batches if f64 else ():
+        mod.switch_bucket(b.bucket_key, b.provide_data, b.provide_label)
+        as_float64(mod._curr_module)
+    return mod
+
+
+def opt15_run(mx, cfg, batches, values, optimizer, params, ctx, gate,
+              teach=None):
+    """One optimizer's parity steps on `ctx` in `gate`'s dtype (fp32,
+    float64, or float64 with SoftmaxOutput's softmax in float64 too):
+    (losses, the state after each step, the module).  With `teach` (the
+    CPU run's states) each step starts from the CPU's state after the
+    step before, 11a's teacher."""
+    with opt15_float64(softmax=gate == "float64 softmax"):
+        mod = opt15_module(mx, cfg, batches, values, optimizer, params, ctx,
+                           gate != "fp32")
+        metric = mx.metric.Perplexity(0)
+        losses, states = [], []
+        for k, b in enumerate(batches):
+            mod.switch_bucket(b.bucket_key, b.provide_data, b.provide_label)
+            if teach is not None and k:
+                lstm_set_state(mx, mod, teach[k - 1])
+            mod.fit_step(b, metric)
+            losses.append(lstm_loss(mod, b))
+            states.append(lstm_state(mx, mod))
+    steps = sum(m._fused_step.steps for m in mod._buckets.values())
+    check(steps == len(batches), f"15b {optimizer}: the fused step took "
+          f"{steps} of {len(batches)} steps")
+    return losses, states, mod
+
+
+def opt15_compare(optimizer, run, ref, teacher):
+    """(loss rel err, opt15_ratio) of `run` against the CPU's run `ref`:
+    free running the last step's state under the near ties of every
+    step, or (`teacher`) each step's state under that step's (the worst
+    share and its array; the elements off summed over the steps, the
+    elements excused in the step that excused most, the elements
+    compared in a step, the elements off before the excuse summed)."""
+    losses, states = run[:2]
+    cpu_losses, cpu_states = ref[:2]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    if teacher:
+        rs = [opt15_ratio(s, r, opt15_near(optimizer, r, {}))
+              for s, r in zip(states, cpu_states)]
+        return loss_err, max(r[:2] for r in rs) + (
+            sum(r[2] for r in rs), max(r[3] for r in rs), rs[0][4],
+            sum(r[5] for r in rs))
+    excuse = {}
+    for r in cpu_states:
+        excuse = opt15_near(optimizer, r, excuse)
+    return loss_err, opt15_ratio(states[-1], cpu_states[-1], excuse)
+
+
+def opt15_lane(mx, cfg, batches, values, label, optimizer, params, card):
+    """One optimizer through config #4's 6 parity steps under 11a's gate,
+    card vs CPU from the same parameters and batches, free running and
+    each step from the CPU's state, in fp32 (TF32 off) and, unless the
+    lane is held in fp32 (OPT15_GATE), in the dtype that holds it: the
+    fp32 reading printed beside.  Then the fp32 card run: LSTM15_TIMED
+    bucket-60 steps timed, the state round trip.  SGLD: `sgld15`."""
+    from incubator_mxnet_tpu_torch import optimizer as topt
+    gate = OPT15_GATE.get(label, "float64")
+    out = {"gate": gate, "ties": 0, "masked": 0}
+    if optimizer == "sgld":
+        mod = lstm_module(mx, cfg, mx.gpu(0), values, dict(LSTM15_OPT),
+                          optimizer="sgld")
+        metric = mx.metric.Perplexity(0)
+        lane_losses = []
+        for b in batches:
+            mod.fit_step(b, metric)
+            lane_losses.append(lstm_loss(mod, b))
+        steps = sum(m._fused_step.steps for m in mod._buckets.values())
+        check(steps == 0, f"15b {label}: the fused step took {steps} "
+              f"steps of an optimizer that draws")
+        out.update(sgld15(mx, cfg, batches, values, card),
+                   declined=len(batches))
+    else:
+        # fp32, and the float64 lanes as shipped and as held
+        for dtype in dict.fromkeys(("fp32",) if gate == "fp32" else
+                                   ("fp32", "float64", gate)):
+            ref = opt15_run(mx, cfg, batches, values, optimizer, params,
+                            mx.cpu(), dtype)
+            free = opt15_run(mx, cfg, batches, values, optimizer, params,
+                             mx.gpu(0), dtype)
+            teacher = opt15_run(mx, cfg, batches, values, optimizer, params,
+                                mx.gpu(0), dtype, teach=ref[1])
+            out[dtype] = {"card": opt15_compare(optimizer, free, ref, False),
+                          "teacher": opt15_compare(optimizer, teacher, ref,
+                                                   True)}
+            if dtype == "fp32":
+                lane_losses, mod = free[0], free[2]
+        for name, (loss_err, worst) in out[gate].items():
+            check(loss_err <= PARITY_TOL[0], f"15b {label} {gate} {name}: "
+                  f"loss rel err {loss_err:.3g}")
+            check(worst[0] <= 1.0, f"15b {label} {gate} {name}: {worst[1]} "
+                  f"off by {worst[0]:.3f} of the tolerance")
+            out["ties"] = max(out["ties"], worst[2])
+            out["masked"] = max(out["masked"], worst[3])
+        out["declined"] = 0
+    check(all(math.isfinite(x) for x in lane_losses), f"15b {label}: fp32 "
+          "loss not finite")
+    b60 = next(b for b in batches if b.bucket_key == max(cfg["buckets"]))
+    metric = mx.metric.Perplexity(0)
+    ms = []
+    for _ in range(LSTM15_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.fit_step(b60, metric)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = statistics.median(ms)
+    out["tokens_s"] = cfg["batch"] * max(cfg["buckets"]) / out["step_ms"] \
+        * 1e3
+    upd = mod._buckets[mod._default_bucket_key]._updater
+    blob = b"".join(bytes(p) for p in topt.dumps_states(
+        (upd.states, upd.optimizer)))
+    states, opt = topt.loads_states(blob)
+    same = all(torch.equal(a.data.cpu(), b.data.cpu())
+               for i in upd.states
+               for a, b in zip(*(s if isinstance(s, tuple) else (s,)
+                                 for s in (upd.states[i], states[i])))
+               if a is not None)
+    check(same and type(opt) is type(upd.optimizer) and
+          getattr(opt, "m_schedule", None) == getattr(upd.optimizer,
+                                                      "m_schedule", None),
+          f"15b {label}: the state round trip changed the states")
+    out["blob_mb"] = len(blob) / 1e6
+    return out
+
+
+def opt15_witness(mx, cfg, batches, values, params):
+    """RMSProp's float64 lane card vs CPU free running, with its float32
+    states (`opt15_float64`) made float64, and with its states and the
+    softmax: {variant: (worst share, its array, elements off)}, beside
+    the lanes as shipped and with the float64 softmax alone."""
+    out = {}
+    for variant, softmax in (("float64 states", False), ("both", True)):
+        with opt15_float64(states=True):
+            runs = [opt15_run(mx, cfg, batches, values, "rmsprop", params,
+                              ctx, "float64 softmax" if softmax else
+                              "float64") for ctx in (mx.cpu(), mx.gpu(0))]
+        out[variant] = opt15_ratio(runs[1][1][-1], runs[0][1][-1], {})
+    return out
+
+
+def sgld15(mx, cfg, batches, values, card):
+    """SGLD over the 6 parity steps: the CPU free running, the card each
+    step from the CPU's parameters after the step before (11a's
+    teacher), in fp32 (a reading) and in float64 (held).  Each step's
+    gradient to 11a's tolerance, and the update less its deterministic
+    part, lr / 2 (g + wd w), held to N(0, lr) by mean and variance over
+    every parameter, on both devices."""
+    out = {"z": 0.0}
+    lr = LSTM15_OPT["learning_rate"]
+    for dtype in ("fp32", "float64"):
+        grads, cpu_states = {}, []
+        for dev_name, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+            mod = opt15_module(mx, cfg, batches, values, "sgld", {}, ctx,
+                               dtype == "float64")
+            noise, gs = [], []
+            for k, b in enumerate(batches):
+                mod.switch_bucket(b.bucket_key, b.provide_data,
+                                  b.provide_label)
+                if dev_name == "card" and k:
+                    lstm_set_state(mx, mod, cpu_states[k - 1])
+                mod.forward_backward(b)
+                cur = mod._curr_module
+                group = cur._exec_group
+                before = [w[0].data.detach().double().cpu().clone()
+                          for w in group.param_arrays]
+                g = [gr[0].data.detach().double().cpu() * LSTM15_OPT[
+                    "rescale_grad"] for gr in group.grad_arrays]
+                wds = [cur._optimizer._get_wd(i)
+                       for i in range(len(group.param_names))]
+                mod.update()
+                after = [w[0].data.detach().double().cpu()
+                         for w in group.param_arrays]
+                for w0, w1, gg, wdi in zip(before, after, g, wds):
+                    noise.append((w1 - (w0 - lr / 2 * (gg + wdi * w0))
+                                  ).ravel())
+                gs.append({n: x.numpy()
+                           for n, x in zip(group.param_names, g)})
+                if dev_name == "cpu":
+                    cpu_states.append(lstm_state(mx, mod))
+            grads[dev_name] = gs
+            x = torch.cat(noise).numpy()
+            out["z"] = max(out["z"], moments15(
+                x, 0.0, lr, f"15b sgld noise ({dtype}, {dev_name})"))
+            out[f"noise_{dev_name}"] = (float(x.mean()), float(x.var()))
+        out[dtype] = max(lstm_ratio(c, r) + (k + 1,) for k, (c, r) in
+                         enumerate(zip(grads["card"], grads["cpu"])))
+    worst = out["float64"]
+    check(worst[0] <= 1.0, f"15b sgld: step {worst[2]} float64 gradient "
+          f"{worst[1]} off by {worst[0]:.3f} of the tolerance")
+    return out
+
+
+def opt15_reading(res, dtype):
+    """One dtype's parity, as printed."""
+    (lc, wc), (lt, wt) = res[dtype]["card"], res[dtype]["teacher"]
+    line = (f"{dtype} loss rel err {lc:.2e} free / {lt:.2e} from the CPU's "
+            f"state; parameters and states worst {wc[0]:.2e} free / "
+            f"{wt[0]:.2e} each step "
+            f"({wt[1] if wt[0] >= wc[0] else wc[1]})")
+    if wc[3] or wt[3]:
+        line += (f"; near ties: {wc[3]} of {wc[4]} elements excused free / "
+                 f"{wt[3]} in a step, {wc[2]} / {wt[2]} of them off")
+    return line
+
+
+def lstm15(mx, card):
+    """15b: BASELINE config #4 at its published widths under every new
+    optimizer; the four that take ``momentum`` through the example's own
+    params with --mom 0.9, the others through `fit`'s optimizer name
+    with the example's params less momentum (which they refuse, as the
+    JAX package's do)."""
+    from incubator_mxnet_tpu_torch import optimizer as topt
+    cfg = LSTM_CFG
+    corpus = lstm_corpus(cfg)
+    pool = {}
+    for b in lstm_iter(mx, corpus, cfg):
+        pool.setdefault(b.bucket_key, []).append(b)
+    batches = [pool[k].pop(0) for k in LSTM_PARITY_KEYS]
+    values = lstm_state(mx, lstm_module(mx, cfg, mx.cpu()))
+    for name in REFUSE15:
+        try:
+            topt.create(name, momentum=0.9)
+        except TypeError as e:
+            check(str(e) == "Optimizer.__init__() got an unexpected "
+                  "keyword argument 'momentum'", f"15b {name}: {e}")
+        else:
+            check(False, f"15b: {name} took momentum")
+    out = {}
+    for label, name, params, flag in LSTM15_LANES:
+        t0 = time.perf_counter()
+        res = opt15_lane(mx, cfg, batches, values, label, name, params, card)
+        out[label] = res
+        if name == "sgld":
+            parity = (f"6 steps from the CPU's state: gradients held in "
+                      f"float64, worst {res['float64'][0]:.2e} of the "
+                      f"tolerance (step {res['float64'][2]}, "
+                      f"{res['float64'][1]}); fp32 reading "
+                      f"{res['fp32'][0]:.4f} (step {res['fp32'][2]}, "
+                      f"{res['fp32'][1]}); noise N(0, lr) within "
+                      f"{res['z']:.2f} sigma (card mean "
+                      f"{res['noise_card'][0]:.2e} var "
+                      f"{res['noise_card'][1]:.5f}, lr "
+                      f"{LSTM15_OPT['learning_rate']})")
+        else:
+            parity = f"6 steps, held in {res['gate']}: " + opt15_reading(
+                res, res["gate"])
+            if res["gate"] != "fp32":
+                parity += "; fp32 reading: " + opt15_reading(res, "fp32")
+        print(f"lstm15 {label}: {'--optimizer ' if flag else 'fit(optimizer='}"
+              f"{name}{' --mom 0.9' if flag else ')'}: card vs CPU: "
+              f"{parity}; fused step declined {res['declined']}; bucket-60 "
+              f"step {res['step_ms']:.2f} ms = {res['tokens_s']:.0f} "
+              f"tokens/s; state round trip {res['blob_mb']:.1f} MB equal; "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        if label == "rmsprop centered":
+            t0 = time.perf_counter()
+            w = opt15_witness(mx, cfg, batches, values, params)
+            w = {"as shipped (float32 states and softmax)":
+                 res["float64"]["card"][1],
+                 "float64 softmax": res["float64 softmax"]["card"][1], **w}
+            print(f"lstm15 {label} witness, float64 free running card vs "
+                  f"CPU, elements off 11a's tolerance: " + "; ".join(
+                      f"{k} {v[5]} (worst {v[0]:.3g}, {v[1]})"
+                      for k, v in w.items())
+                  + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+            res["witness"] = w
+    return out
+
+
+# -- 15c: train_mnist's mlp as a SequentialModule -----------------------------
+
+def seq15_modules(mx, ctx, lr_mult=SEQ15_LR_MULT):
+    """(SequentialModule of the split mlp, one Module of the whole): the
+    split of upstream's example/module/sequential_module.py, fc1 and its
+    input made under AttrScope(lr_mult)."""
+    s = mx.sym
+    with mx.AttrScope(lr_mult=lr_mult):
+        data = s.Flatten(s.Variable("data"))
+        fc1 = s.FullyConnected(data, name="fc1", num_hidden=128)
+    act1 = s.Activation(fc1, name="relu1", act_type="relu")
+
+    def head(x):
+        fc2 = s.FullyConnected(x, name="fc2", num_hidden=64)
+        act2 = s.Activation(fc2, name="relu2", act_type="relu")
+        fc3 = s.FullyConnected(act2, name="fc3", num_hidden=10)
+        return s.SoftmaxOutput(fc3, name="softmax")
+    seq = mx.mod.SequentialModule()
+    seq.add(mx.mod.Module(act1, label_names=[], context=ctx))
+    seq.add(mx.mod.Module(head(s.Variable("data")), context=ctx),
+            take_labels=True, auto_wiring=True)
+    return seq, mx.mod.Module(head(act1), context=ctx)
+
+
+def seq15_init(mx):
+    return mx.init.Mixed([".*fc1.*", ".*"],
+                         [mx.init.Orthogonal(), mx.init.MSRAPrelu()])
+
+
+def seq15_metric(mx):
+    def err(label, pred):
+        return float((pred.argmax(1) != label).mean())
+    return mx.metric.create(["acc", "nll_loss", err])
+
+
+def seq15_setup(mx, mod, shapes):
+    mod.bind(*shapes)
+    mx.random.seed(SEED)
+    mod.init_params(initializer=seq15_init(mx))
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": TRAIN_LR, "momentum": TRAIN_MOMENTUM})
+
+
+def seq15_state(mod):
+    """({name: parameter}, {name: momentum}) of a Module or of every
+    module of a SequentialModule, as numpy."""
+    mods = getattr(mod, "_modules", [mod])
+    params, moms = {}, {}
+    for m in mods:
+        names = m._exec_group.param_names
+        params.update({n: v.asnumpy() for n, v in m.get_params()[0].items()})
+        moms.update({names[i]: s.asnumpy()
+                     for i, s in m._updater.states.items()})
+    return params, moms
+
+
+def seq15_set_state(mod, state):
+    params, moms = state
+    for m in getattr(mod, "_modules", [mod]):
+        names = m._exec_group.param_names
+        m.set_params({n: params[n] for n in names}, {})
+        for i, n in enumerate(names):
+            m._updater.states[i]._set_data(torch.from_numpy(moms[n]))
+
+
+def seq15_steps(mx, ctx, batches, split=True, teacher=None, monitor=None):
+    """SEQ15_STEPS steps of the mlp (split or whole) on `ctx` from the
+    Mixed initializer under mx.random.seed(SEED), through the per-batch
+    path with `monitor` (tic, forward_backward, update, metric, toc) as
+    fit runs it; with `teacher`, step k from its state before it.
+    Returns (losses, states before and after each step, monitor rows,
+    the fc1 weight after and before the first step and its gradient)."""
+    seq, one = seq15_modules(mx, ctx)
+    mod = seq if split else one
+    shapes = ([("data", (TRAIN_BATCH, 1, 28, 28))],
+              [("softmax_label", (TRAIN_BATCH,))])
+    seq15_setup(mx, mod, shapes)
+    rows = {}
+    if monitor is not None:
+        mod.install_monitor(monitor)
+        monitor.toc_print = lambda: [
+            rows.setdefault((n, k), float(v.strip()))
+            for n, k, v in monitor.toc()]
+    metric = seq15_metric(mx)
+    losses, states, first = [], [seq15_state(mod)], None
+    for k, batch in enumerate(batches):
+        if teacher is not None and k:
+            seq15_set_state(mod, teacher[k])
+        if monitor is not None:
+            monitor.tic()
+        mod.forward_backward(batch)
+        if k == 0:
+            m1 = mod._modules[0] if split else mod
+            i = m1._exec_group.param_names.index("fc1_weight")
+            grad = m1._exec_group.grad_arrays[i][0].asnumpy()
+            w0 = states[0][0]["fc1_weight"]
+        mod.update()
+        mod.update_metric(metric, batch.label)
+        if monitor is not None:
+            monitor.toc_print()
+        losses.append(cross_entropy(mod.get_outputs()[0], batch.label[0]))
+        states.append(seq15_state(mod))
+        if k == 0:
+            first = (states[1][0]["fc1_weight"], w0, grad)
+    return losses, states, rows, first
+
+
+def seq15_ratio(got, ref, tol):
+    rtol, atol = tol
+    return max(((float((np.abs(got[n] - c) / np.maximum(
+        rtol * np.abs(c) + atol * np.abs(c).max(), 1e-30)).max()), n)
+        for n, c in ref.items()), default=(0.0, "none"))
+
+
+def seq15(mx, card):
+    """15c: the mlp as a SequentialModule under TPU_PALLAS: K1 in both
+    modules, parity with one Module and with the CPU, the monitor, the
+    AttrScope's half rate, the Mixed initializer bitwise, then 10 epochs
+    through fit; a PythonLossModule stage for one epoch."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    train, val = mnist_iters(mx)
+    batches = [next(train) for _ in range(SEQ15_STEPS)]
+    cpu_mon, card_mon = mx.Monitor(1), mx.Monitor(1)
+    fc_relu.launches = 0
+    g_loss, g_states, g_rows, first = seq15_steps(
+        mx, mx.gpu(0), batches, monitor=card_mon)
+    launches = fc_relu.launches
+    check(launches == 2 * SEQ15_STEPS, f"15c: K1 launched {launches} times "
+          f"in {SEQ15_STEPS} steps, want 2 a train forward")
+    c_loss, c_states, c_rows, _ = seq15_steps(mx, mx.cpu(), batches,
+                                              monitor=cpu_mon)
+    o_loss, o_states, _, _ = seq15_steps(mx, mx.gpu(0), batches,
+                                         split=False)
+    _, t_states, _, _ = seq15_steps(mx, mx.gpu(0), batches,
+                                    teacher=c_states)
+    init_equal = all(np.array_equal(g_states[0][0][n], c_states[0][0][n])
+                     for n in c_states[0][0])
+    check(init_equal, "15c: the Mixed initializer drew other parameters on "
+          "the card than on the CPU")
+    # the split against the whole, on the card
+    split_err = max(abs(a - b) / abs(b) for a, b in zip(g_loss, o_loss))
+    split_w = max(max(seq15_ratio(g[0], o[0], SEQ15_TOL),
+                      seq15_ratio(g[1], o[1], SEQ15_TOL))
+                  for g, o in zip(g_states, o_states))
+    check(split_err <= SEQ15_TOL[0] and split_w[0] <= 1.0,
+          f"15c: the SequentialModule vs one Module: loss {split_err:.3g}, "
+          f"{split_w[1]} at {split_w[0]:.3f} of the tolerance")
+    # card against CPU (phase 6's gate)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(g_loss, c_loss))
+    free = param_ratio(g_states[-1][0], c_states[-1][0])
+    held_ = max(max(param_ratio(t[0], c[0]), param_ratio(t[1], c[1]))
+                for t, c in zip(t_states[1:], c_states[1:]))
+    check(loss_err <= PARITY_TOL[0] and free[0] <= 1 and held_[0] <= 1,
+          f"15c: card vs CPU loss {loss_err:.3g}, free {free}, held {held_}")
+    # the monitor: every output and argument statistic of every step
+    check(set(g_rows) == set(c_rows) and len(g_rows) > 0,
+          "15c: the card's and the CPU's monitors saw other names")
+    keys = sorted(c_rows)
+    mon = op_ratio([g_rows[k] for k in keys], [c_rows[k] for k in keys],
+                   MON15_TOL)
+    check(mon <= 1.0, f"15c: monitor statistics at {mon:.3f} of the "
+          "tolerance")
+    outs = sorted({n for _, n in c_rows if n.endswith("_output")})
+    # the AttrScope: fc1's first update is -lr * 0.5 * rescale * g (SGD
+    # with momentum starts from a zero momentum; wd 0), held on the
+    # weight (a full-rate step would be off by ~1e-3 of it)
+    w1, w0, grad = first
+    want = w0 - TRAIN_LR * SEQ15_LR_MULT * grad / TRAIN_BATCH
+    half = op_ratio(w1, want, SEQ15_TOL)
+    check(half <= 1.0, f"15c: fc1's first update is not half the rate "
+          f"({half:.3f} of the tolerance)")
+    print(f"seq15 mlp as SequentialModule (TPU_PALLAS): {SEQ15_STEPS} steps "
+          f"K1 launches {launches} (2 a train forward: fc1+relu1 in module "
+          f"1, fc2+relu2 in module 2); vs one Module on the card: loss rel "
+          f"err {split_err:.2e}, parameters and momenta {split_w[0]:.3f} of "
+          f"rtol 1e-5 + 1e-6*max; vs the CPU: loss {loss_err:.2e}, free "
+          f"{free[0]:.3f}, each step from the CPU's state {held_[0]:.3f} of "
+          f"the tolerance; Mixed(Orthogonal, MSRAPrelu) parameters bitwise "
+          f"the CPU's; monitor {len(keys)} statistics ({', '.join(outs)} "
+          f"and the arguments) at {mon:.3f} of rtol 1e-4 + 1e-5*max; fc1 "
+          f"under AttrScope(lr_mult=0.5) updated at half rate "
+          f"({half:.3f}) [{card}]")
+    # 10 epochs through fit, no monitor
+    train, val = mnist_iters(mx)
+    seq, _ = seq15_modules(mx, mx.gpu(0))
+    fc_relu.launches = 0
+    ticks = []
+    mx.random.seed(SEED)
+    t0 = time.perf_counter()
+    seq.fit(train, eval_data=val, optimizer="sgd",
+            optimizer_params={"learning_rate": TRAIN_LR,
+                              "momentum": TRAIN_MOMENTUM},
+            initializer=seq15_init(mx), num_epoch=TRAIN_EPOCHS,
+            eval_metric=seq15_metric(mx),
+            batch_end_callback=lambda p: ticks.append(time.perf_counter()))
+    wall = time.perf_counter() - t0
+    fit_launches = fc_relu.launches
+    acc = seq.score(val, "acc")[0][1]
+    steps = len(ticks)
+    step_ms = statistics.median(np.diff(ticks)) * 1e3
+    evals = TRAIN_EPOCHS * -(-(TRAIN_IMAGES - TRAIN_SPLIT) // TRAIN_BATCH)
+    check(fit_launches == 2 * (steps + evals), f"15c fit: K1 launched "
+          f"{fit_launches} times for {steps} train and {evals} eval "
+          "forwards")
+    check(acc > 0.95, f"15c: validation accuracy {acc:.4f} <= 0.95")
+    print(f"seq15 fit: {TRAIN_EPOCHS} epochs ({steps} steps) in {wall:.1f} "
+          f"s, step median {step_ms:.3f} ms = {TRAIN_BATCH / step_ms * 1e3:.0f}"
+          f" samples/s, K1 {fit_launches} launches, validation accuracy "
+          f"{acc:.4f} (> 0.95) [{card}]")
+    loss_curve = pyloss15(mx, card)
+    return {"k1_launches": launches + fit_launches, "accuracy": acc,
+            "step_ms": step_ms, "split_worst": split_w[0],
+            "monitor_worst": mon, "pyloss": loss_curve}
+
+
+def pyloss15(mx, card):
+    """A PythonLossModule (squared error against the one-hot label, its
+    gradient from numpy) as the last stage of a SequentialModule after
+    the mlp's layers, one epoch on the card: finite and falling."""
+    s = mx.sym
+    data = s.Flatten(s.Variable("data"))
+    net = s.Activation(s.FullyConnected(data, num_hidden=128, name="fc1"),
+                       act_type="relu")
+    net = s.FullyConnected(net, num_hidden=10, name="fc2")
+
+    def grad(scores, labels):
+        sc = scores.asnumpy()
+        one = np.zeros_like(sc)
+        one[np.arange(len(sc)), labels.asnumpy().astype(int)] = 1.0
+        return (sc - one) / len(sc)
+
+    seq = mx.mod.SequentialModule()
+    seq.add(mx.mod.Module(net, label_names=[], context=mx.gpu(0)))
+    seq.add(mx.mod.PythonLossModule(grad_func=grad), take_labels=True,
+            auto_wiring=True)
+    train, _ = mnist_iters(mx)
+    curve = []
+
+    def sq_err(label, pred):
+        one = np.zeros_like(pred)
+        one[np.arange(len(pred)), label.astype(int)] = 1.0
+        return float(0.5 * ((pred - one) ** 2).sum(1).mean())
+    metric = mx.metric.np(sq_err)
+
+    def on_batch(p):
+        curve.append(p.eval_metric.get()[1])
+        p.eval_metric.reset()
+
+    mx.random.seed(SEED)
+    seq.fit(train, num_epoch=1, optimizer="sgd", eval_metric=metric,
+            optimizer_params={"learning_rate": 0.5},
+            initializer=mx.init.Xavier(), batch_end_callback=on_batch)
+    first, last = np.mean(curve[:5]), np.mean(curve[-5:])
+    check(all(math.isfinite(v) for v in curve) and last < first,
+          f"15c PythonLossModule: loss {first:.4f} -> {last:.4f}")
+    print(f"seq15 PythonLossModule stage: one epoch ({len(curve)} batches) "
+          f"on the card, 0.5 |scores - one-hot|^2 over the first 5 batches "
+          f"{first:.4f} -> last 5 {last:.4f} [{card}]")
+    return (first, last)
+
+
+def registry_phase(card):
+    """Phase 15; returns the numbers of the summary line and K1's
+    launches on 15c.  K2 and K3 must not run; K1 runs only in 15c."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_stream)
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    for wrapper in (fc_relu, flash_fwd, flash_fwd_stream):
+        wrapper.launches = 0
+    out = {}
+    t0 = time.perf_counter()
+    out["ops"] = ops15_registry(mx, card)
+    out["metrics"] = metrics15(mx, card)
+    print(f"phase 15a: {time.perf_counter() - t0:.1f} s")
+    check([fc_relu.launches, flash_fwd.launches, flash_fwd_stream.launches]
+          == [0, 0, 0], "15a: a K1/K2/K3 kernel ran")
+    t0 = time.perf_counter()
+    out["lstm"] = lstm15(mx, card)
+    print(f"phase 15b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    old = os.environ.get("MXNET_SUBGRAPH_BACKEND")
+    os.environ["MXNET_SUBGRAPH_BACKEND"] = "TPU_PALLAS"
+    try:
+        out["seq"] = seq15(mx, card)
+    finally:
+        os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+        if old is not None:
+            os.environ["MXNET_SUBGRAPH_BACKEND"] = old
+    print(f"phase 15c: {time.perf_counter() - t0:.1f} s")
+    check([flash_fwd.launches, flash_fwd_stream.launches] == [0, 0],
+          "phase 15: K2/K3 ran")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -6510,6 +7921,9 @@ def main():
     t0 = time.perf_counter()
     kvp = kv_phase(card, str(_build.BUILD_DIR.parent))
     print(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    reg = registry_phase(card)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -6638,6 +8052,18 @@ def main():
           f" lookup {wd['lookup_host_ms']:.3f} ms host / "
           f"{wd['lookup_device_ms']:.4f} ms device, push "
           f"{wd['push_ms']:.3f} ms, busy {wd['busy']:.3f} [{card}]")
+    n_ops, worst = reg["ops"]
+    seq = reg["seq"]
+    print(f"registry summary: 15a {n_ops} op names of slice 13 on the card "
+          f"vs the CPU, worst {worst[0]:.3f} of the tolerance ({worst[1]}), "
+          f"metrics {reg['metrics']:.3f}; 15b config #4 under "
+          f"{len(reg['lstm'])} optimizers, bucket-60 tokens/s "
+          + ", ".join(f"{k} {v['tokens_s']:.0f}"
+                      for k, v in reg["lstm"].items())
+          + f"; 15c SequentialModule mlp K1 {seq['k1_launches']} launches, "
+          f"vs one Module {seq['split_worst']:.3f}, monitor "
+          f"{seq['monitor_worst']:.3f}, accuracy {seq['accuracy']:.4f}, "
+          f"step {seq['step_ms']:.3f} ms [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"
@@ -6655,10 +8081,11 @@ def main():
         "source": "incubator_mxnet_tpu_torch/csrc/fc_relu.cu",
         "replaces": "incubator_mxnet_tpu/subgraph/fused_ops.py:29",
         "launches": launches + train_launches + kvp["dp_launches"]
-        + kvp["wd_launches"],
+        + kvp["wd_launches"] + seq["k1_launches"],
         "paths": {"serving": launches, "training": train_launches,
                   "data_parallel": kvp["dp_launches"],
                   "wide_deep": kvp["wd_launches"],
+                  "sequential_module": seq["k1_launches"],
                   "dist_sync_workers": dist["launches"]},
         "max_abs_err": rep["max_abs_err"],
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],

@@ -49,6 +49,13 @@ iterators, the ``ImageNormalize`` op, `io_plane` (the h2d staging ring
 data plane, the server, the launcher), `resilience`'s retry and breaker,
 row-sparse gradients with lazy optimizer updates (`ndarray.sparse`),
 and `embedding` (the sharded table and its hot-row cache on the card).
+Slice 13 completes the op registry (every JAX op but the quantization
+ones: `ops/matrix.py`, `nn.py`, `linalg_ops.py`, `random_ops.py`,
+`ctc.py`, `contrib_ops.py`, `contrib_tail.py`, `optimizer_ops.py` as
+registry ops; `nd.random`, `nd.linalg`, `sym.random`, `sym.linalg`) and
+the training API: every optimizer, metric and initializer of the JAX
+package, `monitor.Monitor`, `attribute.AttrScope`,
+`mod.SequentialModule`, `mod.PythonModule` and `mod.PythonLossModule`.
 
     import incubator_mxnet_tpu_torch as mx
 """
@@ -92,6 +99,10 @@ from . import kvstore_server
 from . import resilience
 from . import embedding
 from . import test_utils
+from . import monitor
+from .monitor import Monitor
+from . import attribute
+from .attribute import AttrScope
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "ops", "symbol", "sym", "ndarray", "nd", "subgraph",
@@ -101,4 +112,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "executor", "module", "mod", "gluon", "llm", "storage",
            "checkpoint", "rnn", "recordio", "native", "image", "io_plane",
            "kvstore", "kv", "kvstore_server", "resilience", "embedding",
-           "test_utils"]
+           "test_utils", "monitor", "Monitor", "attribute", "AttrScope"]

@@ -71,6 +71,7 @@ class Executor:
                               for n in symbol._topo())
         self._rng = None        # the generator of the last training forward
         self._recorded = None   # (leaves, outputs) awaiting backward
+        self._monitor_callback = None
 
     def _graph_fn(self, is_train):
         if is_train not in self._fns:
@@ -98,7 +99,15 @@ class Executor:
             self._rng = _random.generator(self._device) \
                 if self._needs_rng else None
         self._run(bool(is_train))
+        if self._monitor_callback is not None:
+            for name, arr in zip(self._symbol.list_outputs(), self.outputs):
+                self._monitor_callback(name, arr)
         return self.outputs
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Call ``callback(name, array)`` on each output after every
+        forward (reference `MXExecutorSetMonitorCallback`)."""
+        self._monitor_callback = callback
 
     def _run(self, is_train):
         fn = self._graph_fn(is_train)

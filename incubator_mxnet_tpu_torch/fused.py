@@ -166,10 +166,14 @@ class FusedTrainStep:
     def __call__(self, data_batch, eval_metric=None):
         """Run one step on `data_batch`.  Returns False, having done
         nothing, when the step cannot take it (a metric without
-        `device_update`, a batch of another shape): the caller then runs
-        the per-batch path."""
+        `device_update`, a batch of another shape, an optimizer that
+        draws random numbers, as `SGLD` does: the JAX step declines one
+        whose update draws while it traces): the caller then runs the
+        per-batch path."""
         leaves = _metric_leaves(eval_metric)
         values = list(data_batch.data) + list(data_batch.label or [])
+        if getattr(self._updater.optimizer, "draws_rng", False):
+            return False
         if leaves is None or len(values) != len(self._input_names) or any(
                 tuple(v.shape) != self._shapes[n]
                 for n, v in zip(self._input_names, values)):
@@ -204,6 +208,7 @@ def _metric_leaves(eval_metric):
         return []
     leaves = eval_metric.metrics if isinstance(
         eval_metric, _metric.CompositeEvalMetric) else [eval_metric]
-    if not all(hasattr(m, "device_update") for m in leaves):
+    if not all(getattr(m, "device_update", None) is not None
+               for m in leaves):
         return None
     return leaves

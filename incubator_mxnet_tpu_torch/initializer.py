@@ -1,8 +1,9 @@
 """Weight initializers (reference `python/mxnet/initializer.py`).
 
-PyTorch port of `InitDesc`, the `Initializer` dispatch and `Zero`, `One`,
-`Constant`, `Uniform`, `Normal`, `Xavier` and `LSTMBias` from
-`incubator_mxnet_tpu/initializer.py`.  The random ones draw on the host
+PyTorch port of `incubator_mxnet_tpu/initializer.py`: `InitDesc`, the
+`Initializer` dispatch, `Zero`, `One`, `Constant`, `Uniform`, `Normal`,
+`Xavier`, `MSRAPrelu`, `Orthogonal`, `Bilinear`, `LSTMBias`, `Load` and
+`Mixed`.  The random ones draw on the host
 from `random.host_rng()`, the JAX package's stream, so under one
 `mx.random.seed(n)` both packages initialise parameters bitwise alike;
 the values are then written into the array in place, cast to its dtype.
@@ -10,6 +11,7 @@ the values are then written into the array in place, cast to its dtype.
 from __future__ import annotations
 
 import json
+import re
 
 import numpy as np
 import torch
@@ -19,7 +21,8 @@ from .ndarray.ndarray import NDArray
 from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "LSTMBias", "register", "create"]
+           "Normal", "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear",
+           "LSTMBias", "Load", "Mixed", "register", "create"]
 
 _INIT_REGISTRY = {}
 
@@ -199,6 +202,59 @@ class Xavier(Initializer):
 
 
 @register
+class MSRAPrelu(Xavier):
+    """He et al. (2015): Gaussian Xavier with magnitude 2 / (1 +
+    slope^2) (reference `initializer.py MSRAPrelu`)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Orthogonal(Initializer):
+    """Saxe et al. (2014): the orthonormal factor of the SVD of a random
+    (out, in) matrix, times `scale` (reference `initializer.py
+    Orthogonal`).  The SVD is numpy's on the host, as in the JAX
+    package, so both give the same bits."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = _random.host_rng().uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = _random.host_rng().normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else v
+        self._set(arr, (self.scale * res).reshape(arr.shape))
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of a Deconvolution weight
+    (reference `initializer.py Bilinear`)."""
+
+    def _init_weight(self, _, arr):
+        shape = arr.shape
+        size = int(np.prod(shape))
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(size)
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight = ((1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))).astype(
+            np.float32)
+        self._set(arr, weight.reshape(shape))
+
+
+@register
 class LSTMBias(Initializer):
     """An LSTM bias: zeros but the forget gate's quarter, `forget_bias`
     (gate order i, f, g, o; reference `initializer.py LSTMBias`)."""
@@ -215,6 +271,51 @@ class LSTMBias(Initializer):
 
     def _init_bias(self, name, arr):
         self._init_weight(name, arr)
+
+
+class Load:
+    """Values from a saved parameter dict (``arg:``/``aux:`` prefixes
+    dropped), `default_init` for the names it lacks (reference
+    `initializer.py Load`)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {k[4:] if k.startswith(("arg:", "aux:")) else k: v
+                      for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            src = self.param[name]
+            if tuple(src.shape) != tuple(arr.shape):
+                raise ValueError(f"Parameter {name} cannot be initialized "
+                                 "from loading. Shape mismatch, target "
+                                 f"{arr.shape} vs loaded {src.shape}")
+            arr._set_data(src.data if isinstance(src, NDArray) else src)
+        else:
+            if self.default_init is None:
+                raise ValueError(f"Cannot Initialize {name}. Not found in "
+                                 "loaded param and no default Initializer "
+                                 "is provided.")
+            self.default_init(name, arr)
+
+
+class Mixed:
+    """The first initializer whose pattern matches the name (reference
+    `initializer.py Mixed`)."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("patterns and initializers mismatch")
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError(f"Parameter name {name} did not match any pattern")
 
 
 def create(init, **kwargs):

@@ -1,14 +1,30 @@
 """Evaluation metrics (reference `python/mxnet/metric.py`).
 
-PyTorch port of `EvalMetric`, `CompositeEvalMetric`, `Accuracy`,
-`TopKAccuracy`, `CrossEntropy`, `Perplexity`, `create` and the registry
-from `incubator_mxnet_tpu/metric.py`.  The metrics count on
-the device of the predictions: `device_update` gives a batch's (sum,
-count) as tensors there (the JAX package's in-graph `device_update`),
-`update` adds them to running totals on that device, and only `get`
-copies the totals to the host, once.  A training step therefore never
-waits for the device to update a metric; the fused train step
-(`fused.FusedTrainStep`) calls `device_update` for each leaf metric.
+PyTorch port of `incubator_mxnet_tpu/metric.py`: `EvalMetric`,
+`CompositeEvalMetric`, `Accuracy`, `TopKAccuracy`, `F1`, `MCC`,
+`Perplexity`, `MAE`, `MSE`, `RMSE`, `CrossEntropy`,
+`NegativeLogLikelihood`, `PearsonCorrelation`, `Loss`, `Torch`,
+`Caffe`, `CustomMetric`, `np`, `create` and the registry.
+
+A metric that is a running (sum, count) has a `device_update(labels,
+preds)` that gives one batch's (sum, count) as tensors on the
+predictions' device; `_accumulate` adds them to totals that stay there,
+and only `get` copies them to the host, once.  The fused train step
+(`fused.FusedTrainStep`) calls it for each leaf metric, so a step never
+waits for the device; a metric without one makes the step decline the
+batch, which then takes the per-batch path.  Which path each takes:
+
+* on the device, `update` too (``update`` is ``device_update`` added to
+  the totals): Accuracy, TopKAccuracy, CrossEntropy, Perplexity, MAE,
+  MSE, RMSE, NegativeLogLikelihood, PearsonCorrelation, Loss (Torch,
+  Caffe).
+* a host `update` and a `device_update` the fused step uses: F1 and MCC
+  with ``average="macro"`` (one batch's confusion counts make its score;
+  the host update also checks that the labels are binary, which the
+  device path skips so as not to wait for the device).
+* the host only: F1 and MCC with another average (their score comes
+  from the counts of every batch so far, not a sum), CustomMetric and
+  `np` (a Python function of numpy arrays).
 """
 from __future__ import annotations
 
@@ -21,7 +37,9 @@ from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "Perplexity", "create", "register",
+           "F1", "MCC", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
+           "NegativeLogLikelihood", "PearsonCorrelation", "Loss", "Torch",
+           "Caffe", "CustomMetric", "np", "create", "register",
            "check_label_shapes"]
 
 _METRIC_REGISTRY = {}
@@ -41,8 +59,10 @@ def alias(*aliases):
 
 
 def create(metric, *args, **kwargs):
-    """A metric from an instance, a name or a list of them (reference
-    `metric.py create`)."""
+    """A metric from an instance, a name, a function (a `CustomMetric`)
+    or a list of them (reference `metric.py create`)."""
+    if callable(metric) and not isinstance(metric, EvalMetric):
+        return CustomMetric(metric, *args, **kwargs)
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, list):
@@ -332,3 +352,359 @@ def _pair(dsum, dnum):
             return v.to(torch.float64)
         return torch.full((), float(v), dtype=torch.float64, device=device)
     return f64(dsum), f64(dnum)
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """A `CustomMetric` over ``numpy_feval(label, pred)``."""
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+    feval.__name__ = name if name else numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)
+
+
+def _as_numpy(x):
+    if isinstance(x, NDArray):
+        return x.asnumpy()
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return numpy.asarray(x)
+
+
+def _rows(x, device):
+    """A label or prediction as float32 (rows, -1) on `device`."""
+    t = _as_tensor(x, device).float()
+    return t.reshape(t.shape[0], -1)
+
+
+# -- binary classification: F1 and MCC ----------------------------------------
+
+class _BinaryClassificationMetrics:
+    """Confusion counts of binary predictions (argmax of 2-D scores, or
+    a 1-D probability above 0.5)."""
+
+    def __init__(self):
+        self.reset_stats()
+
+    def reset_stats(self):
+        self.true_positives = 0
+        self.false_positives = 0
+        self.true_negatives = 0
+        self.false_negatives = 0
+
+    def update_binary_stats(self, label, pred):
+        pred = _as_numpy(pred)
+        label = _as_numpy(label).astype("int32")
+        pred_label = numpy.argmax(pred, axis=1) if pred.ndim > 1 else \
+            (pred > 0.5).astype("int32")
+        if len(numpy.unique(label)) > 2:
+            raise ValueError("F1 currently only supports binary "
+                             "classification.")
+        lab = label.reshape(-1)
+        self.true_positives += ((pred_label == 1) & (lab == 1)).sum()
+        self.false_positives += ((pred_label == 1) & (lab == 0)).sum()
+        self.false_negatives += ((pred_label == 0) & (lab == 1)).sum()
+        self.true_negatives += ((pred_label == 0) & (lab == 0)).sum()
+
+    @property
+    def precision(self):
+        tp_fp = self.true_positives + self.false_positives
+        return self.true_positives / tp_fp if tp_fp else 0.0
+
+    @property
+    def recall(self):
+        tp_fn = self.true_positives + self.false_negatives
+        return self.true_positives / tp_fn if tp_fn else 0.0
+
+    @property
+    def fscore(self):
+        if self.precision + self.recall > 0:
+            return 2 * self.precision * self.recall / (self.precision +
+                                                       self.recall)
+        return 0.0
+
+    @property
+    def total_examples(self):
+        return (self.false_negatives + self.false_positives +
+                self.true_negatives + self.true_positives)
+
+
+def _device_counts(labels, preds):
+    """(tp, fp, fn, tn) of a batch as float64 tensors on the
+    predictions' device."""
+    tp = fp = fn = tn = 0
+    for label, pred in zip(labels, preds):
+        pred = _as_tensor(pred)
+        lab = _as_tensor(label, pred.device).to(torch.int32).reshape(-1)
+        p = pred.argmax(dim=1) if pred.ndim > 1 else (pred > 0.5)
+        p = p.to(torch.int32).reshape(-1)
+        tp = tp + ((p == 1) & (lab == 1)).sum(dtype=torch.float64)
+        fp = fp + ((p == 1) & (lab == 0)).sum(dtype=torch.float64)
+        fn = fn + ((p == 0) & (lab == 1)).sum(dtype=torch.float64)
+        tn = tn + ((p == 0) & (lab == 0)).sum(dtype=torch.float64)
+    return tp, fp, fn, tn
+
+
+def _ratio(num, den):
+    """num / den, 0 where den is 0."""
+    return torch.where(den > 0, num / torch.where(den > 0, den, 1.0),
+                       torch.zeros_like(den))
+
+
+@register
+class F1(EvalMetric):
+    """Binary F1 (reference `metric.py:F1`): with ``average="macro"``
+    the mean of the batches' scores, else the score of every batch's
+    counts together."""
+
+    def __init__(self, name="f1", output_names=None, label_names=None,
+                 average="macro"):
+        self.average = average
+        self.metrics = _BinaryClassificationMetrics()
+        super().__init__(name, output_names, label_names)
+        if average != "macro":
+            self.device_update = None
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            self.metrics.update_binary_stats(label, pred)
+        if self.average == "macro":
+            self.sum_metric += self.metrics.fscore
+            self.num_inst += 1
+            self.metrics.reset_stats()
+        else:
+            self.sum_metric = self.metrics.fscore * \
+                self.metrics.total_examples
+            self.num_inst = self.metrics.total_examples
+
+    def device_update(self, labels, preds):
+        """(the batch's F1, 1) on the predictions' device."""
+        labels, preds = check_label_shapes(labels, preds)
+        tp, fp, fn, _ = _device_counts(labels, preds)
+        precision, recall = _ratio(tp, tp + fp), _ratio(tp, tp + fn)
+        return _pair(_ratio(2 * precision * recall, precision + recall), 1)
+
+    def reset(self):
+        super().reset()
+        if hasattr(self, "metrics"):
+            self.metrics.reset_stats()
+
+
+@register
+class MCC(EvalMetric):
+    """Matthews correlation coefficient (reference `metric.py:MCC`), the
+    averages of `F1`."""
+
+    def __init__(self, name="mcc", output_names=None, label_names=None,
+                 average="macro"):
+        self._average = average
+        self._metrics = _BinaryClassificationMetrics()
+        super().__init__(name, output_names, label_names)
+        if average != "macro":
+            self.device_update = None
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            self._metrics.update_binary_stats(label, pred)
+        m = self._metrics
+        terms = ((m.true_positives + m.false_positives) *
+                 (m.true_positives + m.false_negatives) *
+                 (m.true_negatives + m.false_positives) *
+                 (m.true_negatives + m.false_negatives))
+        denom = math.sqrt(terms) if terms else 1.0
+        mcc = (m.true_positives * m.true_negatives -
+               m.false_positives * m.false_negatives) / (denom or 1.0)
+        if self._average == "macro":
+            self.sum_metric += mcc
+            self.num_inst += 1
+            self._metrics.reset_stats()
+        else:
+            self.sum_metric = mcc * m.total_examples
+            self.num_inst = m.total_examples
+
+    def device_update(self, labels, preds):
+        """(the batch's MCC, 1) on the predictions' device."""
+        labels, preds = check_label_shapes(labels, preds)
+        tp, fp, fn, tn = _device_counts(labels, preds)
+        terms = (tp + fp) * (tp + fn) * (tn + fp) * (tn + fn)
+        denom = torch.where(terms > 0, torch.sqrt(terms),
+                            torch.ones_like(terms))
+        return _pair((tp * tn - fp * fn) / denom, 1)
+
+    def reset(self):
+        super().reset()
+        if hasattr(self, "_metrics"):
+            self._metrics.reset_stats()
+
+
+# -- regression ----------------------------------------------------------------
+
+def _device_batches(labels, preds, per_pair):
+    """(sum of ``per_pair(label, pred)``, pairs) over float32 (rows, -1)
+    tensors on the predictions' device."""
+    labels, preds = check_label_shapes(labels, preds)
+    dsum = dnum = 0
+    for label, pred in zip(labels, preds):
+        p = _rows(pred, None)
+        dsum = dsum + per_pair(_rows(label, p.device), p).double()
+        dnum = dnum + 1
+    return _pair(dsum, dnum)
+
+
+@register
+class MAE(EvalMetric):
+    """Mean absolute error, averaged over batches."""
+
+    def __init__(self, name="mae", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        self._accumulate(*self.device_update(labels, preds))
+
+    def device_update(self, labels, preds):
+        return _device_batches(labels, preds,
+                               lambda y, p: (y - p).abs().mean())
+
+
+@register
+class MSE(EvalMetric):
+    """Mean squared error, averaged over batches."""
+
+    def __init__(self, name="mse", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        self._accumulate(*self.device_update(labels, preds))
+
+    def device_update(self, labels, preds):
+        return _device_batches(labels, preds,
+                               lambda y, p: ((y - p) ** 2.0).mean())
+
+
+@register
+class RMSE(EvalMetric):
+    """Root mean squared error, averaged over batches."""
+
+    def __init__(self, name="rmse", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        self._accumulate(*self.device_update(labels, preds))
+
+    def device_update(self, labels, preds):
+        return _device_batches(
+            labels, preds, lambda y, p: torch.sqrt(((y - p) ** 2.0).mean()))
+
+
+@register
+@alias("nll_loss")
+class NegativeLogLikelihood(EvalMetric):
+    """Mean of -log(p[label] + eps) over the rows."""
+
+    def __init__(self, eps=1e-12, name="nll-loss", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names, eps=eps)
+        self.eps = eps
+
+    def update(self, labels, preds):
+        self._accumulate(*self.device_update(labels, preds))
+
+    def device_update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds)
+        dsum = dnum = 0
+        for label, pred in zip(labels, preds):
+            pred = _as_tensor(pred).float()
+            lab = _as_tensor(label, pred.device).reshape(-1).long()
+            if lab.shape[0] != pred.shape[0]:
+                raise MXNetError(f"NegativeLogLikelihood: {lab.shape[0]} "
+                                 f"labels for {pred.shape[0]} predictions")
+            prob = pred.gather(1, lab[:, None])[:, 0]
+            dsum = dsum + (-torch.log(prob + self.eps)).sum(
+                dtype=torch.float64)
+            dnum = dnum + pred.shape[0]
+        return _pair(dsum, dnum)
+
+
+@register
+@alias("pearsonr")
+class PearsonCorrelation(EvalMetric):
+    """Pearson's r of predictions and labels, averaged over batches."""
+
+    def __init__(self, name="pearsonr", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        self._accumulate(*self.device_update(labels, preds))
+
+    def device_update(self, labels, preds):
+        """r in float64 on the predictions' device."""
+        def r(y, p):
+            y, p = y.reshape(-1).double(), p.reshape(-1).double()
+            y, p = y - y.mean(), p - p.mean()
+            return (p * y).sum() / torch.sqrt((p * p).sum() * (y * y).sum())
+        return _device_batches(labels, preds, r)
+
+
+@register
+class Loss(EvalMetric):
+    """Mean of a loss output's elements (reference `metric.py:Loss`)."""
+
+    def __init__(self, name="loss", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        self._accumulate(*self.device_update(labels, preds))
+
+    def device_update(self, labels, preds):
+        if isinstance(preds, NDArray):
+            preds = [preds]
+        dsum = dnum = 0
+        for pred in preds:
+            pred = _as_tensor(pred)
+            dsum = dsum + pred.float().sum(dtype=torch.float64)
+            dnum = dnum + pred.numel()
+        return _pair(dsum, dnum)
+
+
+@register
+class Torch(Loss):
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class Caffe(Loss):
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class CustomMetric(EvalMetric):
+    """``feval(label, pred)`` on numpy arrays, a value or a (sum, count)
+    per pair (reference `metric.py:CustomMetric`); host only."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False,
+                 output_names=None, label_names=None):
+        if name is None:
+            name = feval.__name__
+            if name.find("<") != -1:
+                name = f"custom({name})"
+        super().__init__(name, output_names, label_names, feval=feval,
+                         allow_extra_outputs=allow_extra_outputs)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            labels, preds = check_label_shapes(labels, preds)
+        for pred, label in zip(preds, labels):
+            reval = self._feval(_as_numpy(label), _as_numpy(pred))
+            if isinstance(reval, tuple):
+                sum_metric, num_inst = reval
+                self.sum_metric += sum_metric
+                self.num_inst += num_inst
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1

@@ -3,5 +3,8 @@
 from .base_module import BaseModule
 from .module import Module
 from .bucketing_module import BucketingModule
+from .sequential_module import SequentialModule
+from .python_module import PythonModule, PythonLossModule
 
-__all__ = ["BaseModule", "Module", "BucketingModule"]
+__all__ = ["BaseModule", "Module", "BucketingModule", "SequentialModule",
+           "PythonModule", "PythonLossModule"]

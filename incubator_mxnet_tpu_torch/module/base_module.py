@@ -5,7 +5,10 @@ PyTorch port of `incubator_mxnet_tpu/module/base_module.py`.  `fit` is the
 per-batch loop of the JAX package's `_fit_epochs`: one `fit_step` per
 batch (`Module`'s runs the fused train step where it can, else
 `forward_backward`, `update` and `update_metric`), the batch-end
-callbacks after each, and the elastic checkpoints of `_fit_attempt`
+callbacks after each (with a ``monitor``, `Monitor.tic`, forward,
+backward, update, the metric and `Monitor.toc_print` instead, as the
+JAX loop, so the monitor sees every forward's outputs), and the elastic
+checkpoints of `_fit_attempt`
 (``checkpoint_dir``, ``checkpoint_period``, ``checkpoint_keep_last``,
 ``resume``; `checkpoint/`), and the h2d staging ring around the training
 iterator (`_wrap_io_ring`, ``MXNET_IO_RING``).  The other planes the JAX
@@ -152,8 +155,6 @@ class BaseModule:
         never stopped; a fresh run refuses a directory that holds
         another run's checkpoints."""
         assert num_epoch is not None, "please specify number of epochs"
-        if monitor is not None:
-            raise MXNetError("fit: monitors are not ported")
         from ..initializer import Uniform
         ckpt_resume = None
         resume_nbatch = 0
@@ -193,6 +194,8 @@ class BaseModule:
                          allow_missing=allow_missing, force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        if monitor is not None:
+            self.install_monitor(monitor)
         ckpt_mgr = None
         if checkpoint_dir is not None:
             ckpt_mgr = _ckpt.CheckpointManager(
@@ -216,7 +219,8 @@ class BaseModule:
                 train_data, eval_data, eval_metric, validation_metric,
                 epoch_end_callback, batch_end_callback, eval_end_callback,
                 eval_batch_end_callback, begin_epoch, num_epoch, ckpt_mgr,
-                ckpt_resume, resume_nbatch, gstep, checkpoint_period)
+                ckpt_resume, resume_nbatch, gstep, checkpoint_period,
+                monitor)
         finally:
             if io_ring is not None:
                 # stop the feeder and drop the read-ahead; the inner
@@ -233,7 +237,7 @@ class BaseModule:
                     batch_end_callback, eval_end_callback,
                     eval_batch_end_callback, begin_epoch, num_epoch,
                     ckpt_mgr, ckpt_resume, resume_nbatch, gstep,
-                    checkpoint_period):
+                    checkpoint_period, monitor=None):
         last_snap_step = gstep
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
@@ -250,7 +254,14 @@ class BaseModule:
                     resume_nbatch)
                 nbatch = resume_nbatch
             for data_batch in train_data:
-                self.fit_step(data_batch, eval_metric)
+                if monitor is not None:
+                    monitor.tic()
+                    self.forward_backward(data_batch)
+                    self.update()
+                    self.update_metric(eval_metric, data_batch.label)
+                    monitor.toc_print()
+                else:
+                    self.fit_step(data_batch, eval_metric)
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,
@@ -335,6 +346,9 @@ class BaseModule:
     @property
     def symbol(self):
         return self._symbol
+
+    def install_monitor(self, mon):
+        raise NotImplementedError()
 
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True, allow_extra=False):

@@ -10,8 +10,8 @@ tensor whichever bucket ran.  The JAX package gives each bucket arrays
 of its own and copies every parameter into every other bucket after
 each `update` (a host round trip a step); the numbers are the same.
 Each bucket's `fit_step` runs its own fused train step
-(`fused.FusedTrainStep`).  `state_names`, monitors and the elastic
-checkpoints of `fit` are not ported for bucketing.
+(`fused.FusedTrainStep`).  `state_names` and the elastic checkpoints
+of `fit` are not ported for bucketing.
 """
 from __future__ import annotations
 
@@ -41,6 +41,7 @@ class BucketingModule(BaseModule):
         self._curr_module = None
         self._curr_bucket_key = None
         self._params_dirty = False
+        self._monitor = None
 
     def _reset_bind(self):
         self.binded = False
@@ -156,6 +157,8 @@ class BucketingModule(BaseModule):
                         default.inputs_need_grad, shared_module=default)
             if self.optimizer_initialized:
                 module._share_optimizer(default)
+            if self._monitor is not None:
+                module.install_monitor(self._monitor)
             self._buckets[bucket_key] = module
         self._curr_module = self._buckets[bucket_key]
         self._curr_bucket_key = bucket_key
@@ -228,3 +231,11 @@ class BucketingModule(BaseModule):
     def update_metric(self, eval_metric, labels):
         assert self.binded and self.params_initialized
         self._curr_module.update_metric(eval_metric, labels)
+
+    def install_monitor(self, mon):
+        """Install `mon` on every bucket's Module, and on those bound
+        later."""
+        assert self.binded
+        self._monitor = mon
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)

@@ -126,8 +126,17 @@ class Module(BaseModule):
 
     @property
     def output_shapes(self):
+        """(name, shape) of each output over the whole batch: from the
+        last forward, or before the first from `infer_shape` of the
+        bound shapes (what `SequentialModule.bind` chains on)."""
         assert self.binded
         execs = self._exec_group.execs
+        if not execs[0].outputs:
+            group = self._exec_group
+            _, shapes, _ = self._symbol.infer_shape(**{
+                d.name: d.shape for d in group.data_shapes +
+                group.label_shapes})
+            return list(zip(self._output_names, shapes))
         shapes = [(sum(e.outputs[i].shape[0] for e in execs),) +
                   tuple(o.shape[1:])
                   for i, o in enumerate(execs[0].outputs)]
@@ -424,6 +433,12 @@ class Module(BaseModule):
 
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
+
+    def install_monitor(self, mon):
+        """Install `mon` (a `Monitor`) on every executor."""
+        assert self.binded
+        for exe in self._exec_group.execs:
+            mon.install(exe)
 
     def _sync_params_from_devices(self):
         if self._exec_group is None or not self._params_dirty:

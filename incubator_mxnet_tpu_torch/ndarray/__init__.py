@@ -4,16 +4,20 @@ save/load (`mx.nd`)."""
 import sys as _sys
 
 from .ndarray import (NDArray, invoke, imperative_invoke, array, zeros, ones,
-                      full, empty, arange, concatenate, waitall)
+                      full, empty, arange, eye, linspace, concatenate,
+                      moveaxis, waitall, maximum, minimum, add, subtract,
+                      multiply, divide, modulo, power)
 from .utils import save, load
-from ..ops.optimizer_ops import (sgd_update, sgd_mom_update, mp_sgd_update,
-                                 mp_sgd_mom_update, adam_update)
 from . import register as _register
 
 _register.populate(_sys.modules[__name__])
 from . import contrib  # noqa: E402
+from . import linalg, random  # noqa: E402
 
 __all__ = ["NDArray", "invoke", "imperative_invoke", "array", "zeros",
-           "ones", "full", "empty", "arange", "concatenate", "waitall",
+           "ones", "full", "empty", "arange", "eye", "linspace",
+           "concatenate", "moveaxis", "waitall", "maximum", "minimum", "add",
+           "subtract", "multiply", "divide", "modulo", "power", "linalg",
+           "random",
            "save", "load", "sgd_update", "sgd_mom_update", "mp_sgd_update",
            "mp_sgd_mom_update", "adam_update"]

@@ -439,7 +439,7 @@ def invoke(op, data, kwargs, out=None):
                            if isinstance(t, torch.Tensor))
     with torch.set_grad_enabled(graph):
         res = op.fn(params, *tensors) if op.nin else \
-            op.fn(params, device=out_ctx.torch_device)
+            op.fn(params, *tensors, device=out_ctx.torch_device)
     if not isinstance(res, (tuple, list)):
         res = (res,)
     nout = op.num_outputs(params)
@@ -536,6 +536,81 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
         t = t.repeat_interleave(int(repeat))
     return NDArray(t.to(ctx.torch_device, torch_dtype(dtype or "float32")),
                    ctx=ctx)
+
+
+def eye(N, M=0, k=0, ctx=None, dtype=None):
+    """An N x M (M = N when 0) array with ones on diagonal `k`."""
+    return _apply("_eye", [], {"N": N, "M": M, "k": k,
+                               "dtype": dtype or "float32",
+                               "ctx": ctx or current_context()})
+
+
+def linspace(start, stop, num, endpoint=True, ctx=None, dtype=None):
+    """`num` evenly spaced values from `start` to `stop`."""
+    return _apply("_linspace", [], {"start": start, "stop": stop,
+                                    "num": num, "endpoint": endpoint,
+                                    "dtype": dtype or "float32",
+                                    "ctx": ctx or current_context()})
+
+
+def moveaxis(tensor, source, destination):
+    """`tensor` with axis `source` moved to `destination`."""
+    axes = list(range(tensor.ndim))
+    axes.remove(source % tensor.ndim)
+    axes.insert(destination % tensor.ndim, source % tensor.ndim)
+    return _apply("transpose", [tensor], {"axes": tuple(axes)})
+
+
+def _scalar_or_tensor(lhs, rhs, tensor_op, lscalar_op, rscalar_op):
+    """The broadcast op of two NDArrays, or the scalar op of one and a
+    number on either side (reference `nd.maximum` and friends)."""
+    if isinstance(lhs, NDArray) and isinstance(rhs, NDArray):
+        return _apply(tensor_op, [lhs, rhs], {})
+    if isinstance(lhs, NDArray):
+        return _apply(lscalar_op, [lhs], {"scalar": float(rhs)})
+    if isinstance(rhs, NDArray):
+        return _apply(rscalar_op, [rhs], {"scalar": float(lhs)})
+    raise TypeError("at least one argument must be NDArray")
+
+
+def maximum(lhs, rhs):
+    return _scalar_or_tensor(lhs, rhs, "broadcast_maximum",
+                             "_maximum_scalar", "_maximum_scalar")
+
+
+def minimum(lhs, rhs):
+    return _scalar_or_tensor(lhs, rhs, "broadcast_minimum",
+                             "_minimum_scalar", "_minimum_scalar")
+
+
+def add(lhs, rhs):
+    return _scalar_or_tensor(lhs, rhs, "broadcast_add", "_plus_scalar",
+                             "_plus_scalar")
+
+
+def subtract(lhs, rhs):
+    return _scalar_or_tensor(lhs, rhs, "broadcast_sub", "_minus_scalar",
+                             "_rminus_scalar")
+
+
+def multiply(lhs, rhs):
+    return _scalar_or_tensor(lhs, rhs, "broadcast_mul", "_mul_scalar",
+                             "_mul_scalar")
+
+
+def divide(lhs, rhs):
+    return _scalar_or_tensor(lhs, rhs, "broadcast_div", "_div_scalar",
+                             "_rdiv_scalar")
+
+
+def modulo(lhs, rhs):
+    return _scalar_or_tensor(lhs, rhs, "broadcast_mod", "_mod_scalar",
+                             "_rmod_scalar")
+
+
+def power(lhs, rhs):
+    return _scalar_or_tensor(lhs, rhs, "broadcast_power", "_power_scalar",
+                             "_rpower_scalar")
 
 
 def concatenate(arrays, axis=0, always_copy=True):

@@ -1,17 +1,22 @@
-"""The deformable detection ops of the contrib tail.
+"""The contrib/tensor op tail (reference `src/operator/contrib/`,
+`src/operator/tensor/`).
 
-PyTorch port of `_contrib_DeformableConvolution` and
-`_contrib_DeformablePSROIPooling` in `incubator_mxnet_tpu/ops/
-contrib_tail.py` (reference `contrib/deformable_convolution-inl.h`,
-`contrib/deformable_psroi_pooling-inl.h`: Deformable ConvNets v1 and the
-R-FCN head).  Both are a bilinear gather and a contraction, with the JAX
-ops' sampling grids and gradients by autograd.  The file's other ops
-(fft, count_sketch, histogram, SyncBatchNorm, ...) are not ported yet.
+PyTorch port of `incubator_mxnet_tpu/ops/contrib_tail.py`: fft/ifft
+(`torch.fft`, cuFFT on the card), count_sketch, khatri_rao, histogram,
+ravel_multi_index/unravel_index, _square_sum, cast_storage,
+sparse_retain, SyncBatchNorm, DeformableConvolution and
+DeformablePSROIPooling (Deformable ConvNets v1 and the R-FCN head: a
+bilinear gather and a contraction, with the JAX ops' sampling grids).
+Gradients are autograd's.  As in the JAX package, cast_storage and
+sparse_retain are their dense semantics (the sparse NDArrays of
+`ndarray/sparse.py` convert with `tostype`), and SyncBatchNorm is
+BatchNorm over the batch it sees: one device's.
 """
 from __future__ import annotations
 
 import torch
 
+from ..base import MXNetError
 from .detection import true_div
 from .registry import register, REQUIRED
 
@@ -184,3 +189,183 @@ def _deformable_psroi_pooling(params, data, rois, *rest):
     total = acc.sum((-1, -2))
     out = torch.where(count > 0, total / torch.clamp(count, min=1), 0.0)
     return out.to(dt), count
+
+
+# ---------------------------------------------------------------------------
+# FFT family (reference `contrib/fft-inl.h`, `ifft-inl.h`)
+# ---------------------------------------------------------------------------
+
+@register("_contrib_fft", aliases=("fft",), params={"compute_size": 128})
+def _fft(params, x):
+    """The FFT over the last axis of a real input; the output's last
+    axis is 2d with (re, im) interleaved (cuFFT's complex layout).
+    ``compute_size`` (a sub-batching knob) is accepted and ignored."""
+    c = torch.fft.fft(x.to(torch.float32))
+    out = torch.stack([c.real, c.imag], dim=-1)
+    return out.reshape(tuple(x.shape[:-1]) + (2 * x.shape[-1],)).to(x.dtype)
+
+
+@register("_contrib_ifft", aliases=("ifft",), params={"compute_size": 128})
+def _ifft(params, x):
+    """The unnormalised inverse FFT (cuFFT's CUFFT_INVERSE: never divided
+    by d) of an interleaved-complex input (..., 2d); the real part,
+    (..., d)."""
+    d = x.shape[-1] // 2
+    pairs = x.reshape(tuple(x.shape[:-1]) + (d, 2)).to(torch.float32)
+    c = torch.complex(pairs[..., 0], pairs[..., 1])
+    return (torch.fft.ifft(c).real * d).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# count_sketch / khatri_rao (reference `contrib/count_sketch-inl.h`,
+# `contrib/krprod.cc`)
+# ---------------------------------------------------------------------------
+
+@register("_contrib_count_sketch", nin=3,
+          params={"out_dim": REQUIRED, "processing_batch_size": 32})
+def _count_sketch(params, data, h, s):
+    """out[:, h[i]] += s[i] * x[:, i], the Count Sketch projection of
+    compact bilinear pooling (an atomic add on the card, so the order of
+    a bucket's sum is not fixed)."""
+    idx = h.reshape(-1).to(torch.int64)
+    vals = data * s.reshape(-1).to(data.dtype)[None, :]
+    out = torch.zeros((data.shape[0], int(params["out_dim"])),
+                      dtype=data.dtype, device=data.device)
+    return out.index_add(1, idx, vals)
+
+
+@register("khatri_rao", nin=-1, variadic_param="num_args",
+          params={"num_args": REQUIRED})
+def _khatri_rao(params, *mats):
+    """The column-wise Khatri-Rao product: inputs (M_i, N) -> (prod M_i,
+    N), column k the Kronecker product of the inputs' k-th columns."""
+    if not mats:
+        raise MXNetError("khatri_rao needs at least one matrix")
+    out = mats[0]
+    for m in mats[1:]:
+        out = (out[:, None, :] * m[None, :, :]).reshape(-1, out.shape[-1])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# histogram / ravel / unravel / square_sum (reference `tensor/histogram.cc`,
+# `tensor/ravel.cc`, `tensor/square_sum-inl.h`)
+# ---------------------------------------------------------------------------
+
+def histogram_counts(data, edges):
+    """`jnp.histogram`'s counts of float32 `data` in bins with `edges`:
+    bin i holds edges[i] <= x < edges[i + 1], the last bin closed;
+    values outside the edges are not counted.  Float32 counts."""
+    idx = torch.searchsorted(edges, data, right=True)
+    nb = edges.shape[0]
+    idx = torch.where(data == edges[-1], nb - 1, idx)
+    return torch.bincount(idx, minlength=nb + 1)[1:nb].to(torch.float32)
+
+
+@register("_histogram", nin=-1, variadic_param="num_args", nout=2,
+          aliases=("histogram",),
+          params={"num_args": 1, "bin_cnt": None, "range": None})
+def _histogram(params, *arrays):
+    """(counts, bin edges): ``bin_cnt`` equal bins over ``range``, or
+    the edges given as a second input."""
+    data = arrays[0].reshape(-1).to(torch.float32)
+    bin_cnt = params.get("bin_cnt")
+    if bin_cnt is not None:
+        lo, hi = (float(v) for v in params["range"])
+        if lo == hi:
+            lo, hi = lo - 0.5, hi + 0.5
+        edges = torch.linspace(lo, hi, int(bin_cnt) + 1,
+                               dtype=torch.float64,
+                               device=data.device).to(torch.float32)
+        out_dt = torch.float32
+    else:
+        if len(arrays) < 2:
+            raise MXNetError("_histogram: provide bins input or bin_cnt")
+        edges = arrays[1].to(torch.float32)
+        out_dt = arrays[-1].dtype
+    if data.device.type == "meta":
+        return (torch.empty((edges.shape[0] - 1,), device="meta"),
+                edges.to(out_dt))
+    return histogram_counts(data, edges), edges.to(out_dt)
+
+
+@register("_ravel_multi_index", aliases=("ravel_multi_index",),
+          params={"shape": REQUIRED})
+def _ravel_multi_index(params, idx):
+    """(ndim, n) index columns -> (n,) flat positions in `shape`."""
+    flat = torch.zeros(tuple(idx.shape[1:]), dtype=torch.int64,
+                       device=idx.device)
+    for d, s in enumerate(int(v) for v in params["shape"]):
+        flat = flat * s + idx[d].to(torch.int64)
+    return flat.to(idx.dtype)
+
+
+@register("_unravel_index", aliases=("unravel_index",),
+          params={"shape": REQUIRED})
+def _unravel_index(params, flat):
+    """(n,) flat positions -> (ndim, n) index columns in `shape`."""
+    rows = []
+    rem = flat.to(torch.int64)
+    for s in reversed([int(v) for v in params["shape"]]):
+        rows.append(torch.remainder(rem, s))
+        rem = torch.div(rem, s, rounding_mode="floor")
+    return torch.stack(rows[::-1], dim=0).to(flat.dtype)
+
+
+@register("_square_sum", params={"axis": None, "keepdims": False,
+                                 "exclude": False})
+def _square_sum(params, x):
+    """sum(x * x) over `axis` (every axis but those with ``exclude``)."""
+    axis = params["axis"]
+    if axis is not None and not isinstance(axis, (tuple, list)):
+        axis = (int(axis),)
+    if axis is not None and params.get("exclude"):
+        axis = tuple(i for i in range(x.dim())
+                     if i not in tuple(a % x.dim() for a in axis))
+    sq = x.square()
+    if axis is None:
+        return sq.sum().reshape((1,) * x.dim()) if params["keepdims"] \
+            else sq.sum()
+    return sq.sum(dim=tuple(axis), keepdim=bool(params["keepdims"]))
+
+
+@register("cast_storage", params={"stype": REQUIRED})
+def _cast_storage(params, x):
+    """The identity on a dense tensor, for every target stype."""
+    if params["stype"] not in ("default", "row_sparse", "csr"):
+        raise MXNetError(f"cast_storage: unknown stype {params['stype']}")
+    return x
+
+
+@register("sparse_retain", nin=2)
+def _sparse_retain(params, data, indices):
+    """The rows listed in `indices` kept, the others zero."""
+    idx = indices.reshape(-1).to(torch.int64)
+    return torch.zeros_like(data).index_copy(0, idx,
+                                             data.index_select(0, idx))
+
+
+# ---------------------------------------------------------------------------
+# SyncBatchNorm (reference `contrib/sync_batch_norm-inl.h`)
+# ---------------------------------------------------------------------------
+
+def _sbn_nout(params):
+    return 3 if params.get("output_mean_var") else 1
+
+
+@register("_contrib_SyncBatchNorm", nin=3, naux=2, nout=_sbn_nout,
+          mode_dependent=True, aliases=("SyncBatchNorm",),
+          params={"eps": 1e-3, "momentum": 0.9, "fix_gamma": True,
+                  "use_global_stats": False, "output_mean_var": False,
+                  "ndev": 1, "key": ""},
+          input_names=["data", "gamma", "beta", "moving_mean", "moving_var"])
+def _sync_batch_norm(params, x, gamma, beta, moving_mean, moving_var):
+    """BatchNorm (`nn._batch_norm`) with statistics over the batch it is
+    given; ``ndev`` and ``key`` are accepted.  Statistics across several
+    cards need a process group: ROADMAP item 14."""
+    from .nn import _batch_norm
+    sub = {k: params[k] for k in ("eps", "momentum", "fix_gamma",
+                                  "use_global_stats", "output_mean_var")}
+    sub.update(axis=1, cudnn_off=False, sync=False, sync_axis="dp",
+               _train=params.get("_train", False))
+    return _batch_norm(sub, x, gamma, beta, moving_mean, moving_var)

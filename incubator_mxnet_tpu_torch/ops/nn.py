@@ -1,8 +1,9 @@
 """Core neural-network operators.
 
-PyTorch port of part of `incubator_mxnet_tpu/ops/nn.py`:
-FullyConnected, Convolution, Pooling, Activation, softmax, LeakyReLU,
-Dropout, BatchNorm, LayerNorm and RNN.
+PyTorch port of `incubator_mxnet_tpu/ops/nn.py`: FullyConnected,
+Convolution, Deconvolution, Pooling, Activation, softmax,
+SoftmaxActivation, LeakyReLU, Dropout, BatchNorm, LayerNorm,
+InstanceNorm, L2Normalization, LRN, RNN and UpSampling.
 Data layouts follow the reference (NCHW); the op bodies are
 `torch.nn.functional` calls, as the JAX package leaves these ops to XLA,
 and their backward is autograd's through them (the JAX package's is
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -553,3 +555,203 @@ def _rnn(params, *args):
     if mode == "lstm":
         return out, h_n.to(data.dtype), c_n.to(data.dtype)
     return out, h_n.to(data.dtype)
+
+
+
+# ---------------------------------------------------------------------------
+# Deconvolution (reference deconvolution-inl.h)
+# ---------------------------------------------------------------------------
+
+_DECONV_PARAMS = dict(_CONV_PARAMS)
+_DECONV_PARAMS.update({"adj": (), "target_shape": ()})
+_DECONV_FN = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+              3: F.conv_transpose3d}
+
+
+def _deconv_geometry(params, x):
+    """(stride, dilate, pad, adj, groups) of a Deconvolution on `x`;
+    ``target_shape`` sets adj so the output has that spatial shape."""
+    kernel = tuple(params["kernel"])
+    nd = len(kernel)
+    stride = _tup(params["stride"], nd, 1)
+    dilate = _tup(params["dilate"], nd, 1)
+    pad = _tup(params["pad"], nd, 0)
+    adj = _tup(params["adj"], nd, 0)
+    if params["target_shape"]:
+        tgt = _tup(params["target_shape"], nd, 0)
+        adj = tuple(tgt[i] - ((x.shape[2 + i] - 1) * stride[i] + (
+            (kernel[i] - 1) * dilate[i] + 1) - 2 * pad[i]) for i in range(nd))
+    return stride, dilate, pad, adj, int(params["num_group"])
+
+
+def deconv_plain(params, x, weight, bias=None):
+    """The transposed convolution as the JAX op computes it: the input
+    dilated by the stride (zeros between its elements), padded by
+    ``dilate * (k - 1) - pad`` (plus adj after), convolved with the
+    kernel flipped and its in/out axes swapped per group.  The plain
+    version the library route (`F.conv_transpose*d`) is held to."""
+    kernel = tuple(params["kernel"])
+    nd = len(kernel)
+    stride, dilate, pad, adj, groups = _deconv_geometry(params, x)
+    w = torch.flip(weight, tuple(range(2, 2 + nd)))
+    cin, cog = w.shape[0], w.shape[1]
+    w = w.reshape((groups, cin // groups, cog) + kernel).transpose(1, 2)
+    w = w.reshape((groups * cog, cin // groups) + kernel)
+    n, c = x.shape[:2]
+    size = [(x.shape[2 + i] - 1) * stride[i] + 1 for i in range(nd)]
+    xd = x.new_zeros((n, c) + tuple(size))
+    xd[(slice(None), slice(None)) + tuple(slice(None, None, s)
+                                          for s in stride)] = x
+    flat = []
+    for i in reversed(range(nd)):
+        lo = dilate[i] * (kernel[i] - 1) - pad[i]
+        flat += [lo, lo + adj[i]]
+    xd = F.pad(xd, flat)   # a negative pad crops, as lax's padding does
+    out = _CONV_FN[nd](xd, w, bias, dilation=dilate, groups=groups)
+    return out
+
+
+@register("Deconvolution", nin=-1, params=_DECONV_PARAMS,
+          input_names=_with_bias)
+def _deconvolution(params, x, weight, *rest):
+    """Transposed convolution, the gradient of Convolution with respect
+    to its input (reference `deconvolution-inl.h`); weight (Cin,
+    Cout/groups, *kernel).  `F.conv_transpose*d` (cuDNN on the card),
+    whose plain version is `deconv_plain`."""
+    kernel = tuple(params["kernel"])
+    nd = len(kernel)
+    if nd not in _DECONV_FN:
+        raise MXNetError("Deconvolution supports 1D/2D/3D kernels")
+    bias = None if params["no_bias"] else rest[0]
+    dt = _promoted(x, weight, bias)
+    stride, dilate, pad, adj, groups = _deconv_geometry(params, x)
+    return _DECONV_FN[nd](
+        x.to(dt), weight.to(dt), None if bias is None else bias.to(dt),
+        stride=stride, padding=pad, output_padding=adj, groups=groups,
+        dilation=dilate).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Normalisations (reference instance_norm.cc, l2_normalization.cc, lrn.cc)
+# ---------------------------------------------------------------------------
+
+@register("InstanceNorm", nin=3, params={"eps": 1e-3},
+          input_names=["data", "gamma", "beta"])
+def _instance_norm(params, x, gamma, beta):
+    """Normalised over the spatial axes per (n, c), biased variance."""
+    eps = float(params["eps"])
+    axes = tuple(range(2, x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = (x - mean).square().mean(dim=axes, keepdim=True)
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    return (x - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape) \
+        + beta.reshape(bshape)
+
+
+@register("L2Normalization", params={"eps": 1e-10, "mode": "instance"})
+def _l2_normalization(params, x):
+    """x / sqrt(sum(x^2) + eps) over every axis but the batch
+    ("instance"), the channel axis ("channel") or the spatial axes
+    ("spatial")."""
+    eps = float(params["eps"])
+    axes = {"instance": tuple(range(1, x.dim())), "channel": (1,),
+            "spatial": tuple(range(2, x.dim()))}.get(params["mode"])
+    if axes is None:
+        raise MXNetError("bad L2Normalization mode")
+    return x / torch.sqrt(x.square().sum(dim=axes, keepdim=True) + eps)
+
+
+@register("LRN", params={"alpha": 1e-4, "beta": 0.75, "knorm": 2.0,
+                         "nsize": REQUIRED})
+def _lrn(params, x):
+    """Local response normalisation across channels: x * (knorm + alpha
+    / nsize * the sum of x^2 over the nsize channels around)^-beta."""
+    n = int(params["nsize"])
+    alpha, beta = float(params["alpha"]), float(params["beta"])
+    k = float(params["knorm"])
+    half = n // 2
+    sq = x.square()
+    flat = [0, 0] * (x.dim() - 2) + [half, half]
+    sq_p = F.pad(sq, flat)
+    acc = torch.zeros_like(x)
+    for i in range(n):
+        acc = acc + sq_p.narrow(1, i, x.shape[1])
+    return x * torch.pow(k + (alpha / n) * acc, -beta)
+
+
+@register("SoftmaxActivation", params={"mode": "instance"})
+def _softmax_activation(params, x):
+    if params["mode"] == "channel":
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# UpSampling (reference upsampling.cc)
+# ---------------------------------------------------------------------------
+
+def _linear_weights(n_in, n_out):
+    """`jax.image.resize`'s weights for one axis ("linear", antialiased),
+    as an (n_in, n_out) float32 array: the triangle kernel at the output
+    pixel centres, stretched by the scale when shrinking, each column
+    normalised to sum 1 and zeroed where its centre falls outside the
+    input (computed in float64, then rounded once)."""
+    inv_scale = 1.0 / (n_out / n_in)
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[None, :] - np.arange(n_in)[:, None]) / max(inv_scale,
+                                                                 1.0)
+    w = np.maximum(0.0, 1.0 - x)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+def resize_linear(x, out_hw):
+    """`jax.image.resize(x, (n, c, *out_hw), "linear")` on an NCHW tensor:
+    one contraction per axis whose size changes.  `F.interpolate`'s
+    bilinear mode clamps its source coordinate at the edges and does not
+    low-pass when shrinking, so it differs from this at the borders and
+    on every downsample."""
+    out = x
+    for axis, n_out in ((2, int(out_hw[0])), (3, int(out_hw[1]))):
+        n_in = out.shape[axis]
+        if n_in == n_out:
+            continue
+        w = torch.from_numpy(_linear_weights(n_in, n_out)).to(
+            device=out.device, dtype=out.dtype)
+        out = torch.tensordot(out, w, dims=([axis], [0])).movedim(-1, axis)
+    return out
+
+
+@register("UpSampling", nin=-1, variadic_param="num_args",
+          params={"scale": REQUIRED, "num_filter": 0, "sample_type": REQUIRED,
+                  "multi_input_mode": "concat", "num_args": 1,
+                  "workspace": 512})
+def _upsampling(params, *xs):
+    """Each input scaled up `scale` times: "nearest" repeats pixels,
+    "bilinear" is `resize_linear` of the input, as the JAX op, which
+    takes no weight (upstream MXNet runs a Deconvolution with a weight
+    input instead).  Several inputs are concatenated on the channels or
+    summed (``multi_input_mode``)."""
+    scale = int(params["scale"])
+    stype = params["sample_type"]
+    outs = []
+    for x in xs:
+        if stype == "nearest":
+            out = x.repeat_interleave(scale, dim=2).repeat_interleave(
+                scale, dim=3)
+        elif stype == "bilinear":
+            out = resize_linear(x, (x.shape[2] * scale, x.shape[3] * scale))
+        else:
+            raise MXNetError("UpSampling: bad sample_type")
+        outs.append(out)
+    if len(outs) == 1:
+        return outs[0]
+    if params["multi_input_mode"] == "sum":
+        o = outs[0]
+        for t in outs[1:]:
+            o = o + t
+        return o
+    return torch.cat(outs, dim=1)

@@ -1,17 +1,20 @@
 """Optimizer update ops (reference `src/operator/optimizer_op.cc`).
 
-PyTorch port of `sgd_update`, `sgd_mom_update`, `mp_sgd_update`,
-`mp_sgd_mom_update` and `adam_update` in
-`incubator_mxnet_tpu/ops/optimizer_ops.py`.  The
-JAX ops return new arrays that the caller writes back; here each runs in
-place under `torch.no_grad()`: the weight and the state tensors
-(momentum, the fp32 master weight) are overwritten.  The gradient is
-rescaled, then clipped when ``clip_gradient > 0`` (`_prep_grad`).
+PyTorch port of `incubator_mxnet_tpu/ops/optimizer_ops.py`: sgd_update,
+sgd_mom_update, mp_sgd_update, mp_sgd_mom_update, adam_update,
+rmsprop_update, rmspropalex_update, ftrl_update, signsgd_update and
+signum_update.  The gradient is rescaled, then clipped when
+``clip_gradient > 0`` (`_prep_grad`).
 
-Two faces: the tensor functions (``*_`` names) and the `nd` frontends
-with the reference's signatures, ``nd.sgd_mom_update(weight, grad, mom,
-momentum=0.9, lr=..., out=weight)``, which write ``out`` (the weight when
-``out`` is None or is the weight).
+Each formula is written once, as an in-place tensor function (the
+``*_`` names) under `torch.no_grad()` that overwrites the weight and its
+state tensors (momentum, means, the fp32 master weight).  The optimizers
+(`optimizer.py`) call those.  The registry ops wrap them with the JAX
+ops' face: ``fn(params, weight, grad, *states)`` returns the new weight,
+computed on a copy, and the updated states, which are the state tensors
+themselves, updated in place (the aux outputs the frontends write back),
+so ``nd.sgd_mom_update(weight, grad, mom, momentum=0.9, lr=..,
+out=weight)`` writes ``out`` and ``mom`` as the reference's does.
 
 `multi_sgd_update_` updates a list of parameters at once with the
 `torch._foreach_*` ops (a few launches for all of them on the card; the
@@ -23,10 +26,15 @@ from __future__ import annotations
 
 import torch
 
+from .registry import register
+
 __all__ = ["sgd_update_", "sgd_mom_update_", "mp_sgd_update_",
            "mp_sgd_mom_update_", "multi_sgd_update_", "adam_update_",
-           "sgd_update", "sgd_mom_update", "mp_sgd_update",
-           "mp_sgd_mom_update", "adam_update"]
+           "rmsprop_update_", "rmspropalex_update_", "ftrl_update_",
+           "signsgd_update_", "signum_update_"]
+
+_COMMON = {"lr": 0.01, "wd": 0.0, "rescale_grad": 1.0, "clip_gradient": -1.0,
+           "lazy_update": True}
 
 
 def _prep_grad(grad, rescale, clip):
@@ -120,53 +128,151 @@ def adam_update_(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
     weight.sub_(lr * mean / (var.sqrt() + epsilon))
 
 
-# -- nd frontends ------------------------------------------------------------
-
-def _out(weight, out):
-    """The NDArray the new weight goes to, holding the weight's values."""
-    if out is None or out is weight:
-        return weight
-    out._set_data(weight.data)
-    return out
-
-
-def sgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
-               clip_gradient=-1.0, lazy_update=True, out=None):
-    out = _out(weight, out)
-    sgd_update_(out.data, grad.data, lr, wd, rescale_grad, clip_gradient)
-    return out
+@torch.no_grad()
+def rmsprop_update_(weight, grad, n, lr, gamma1=0.95, epsilon=1e-8, wd=0.0,
+                    rescale_grad=1.0, clip_gradient=-1.0):
+    """g = grad + wd * weight; n = (1 - gamma1) * g^2 + gamma1 * n;
+    weight -= lr * g / sqrt(n + epsilon) (Tieleman and Hinton)."""
+    g = _prep_grad(grad, rescale_grad, clip_gradient) + wd * weight
+    n.mul_(gamma1).add_((1 - gamma1) * g.square())
+    weight.sub_(lr * g / (n + epsilon).sqrt())
 
 
-def sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
-                   rescale_grad=1.0, clip_gradient=-1.0, lazy_update=True,
-                   out=None):
-    out = _out(weight, out)
-    sgd_mom_update_(out.data, grad.data, mom.data, lr, momentum, wd,
-                    rescale_grad, clip_gradient)
-    return out
+@torch.no_grad()
+def rmspropalex_update_(weight, grad, n, g_avg, delta, lr, gamma1=0.95,
+                        gamma2=0.9, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                        clip_gradient=-1.0):
+    """The centered RMSProp of Graves (2013): n and g_avg the running
+    means of g^2 and g, delta = gamma2 * delta - lr * g / sqrt(n - g_avg^2
+    + epsilon), weight += delta."""
+    g = _prep_grad(grad, rescale_grad, clip_gradient) + wd * weight
+    n.mul_(gamma1).add_((1 - gamma1) * g.square())
+    g_avg.mul_(gamma1).add_((1 - gamma1) * g)
+    delta.mul_(gamma2).sub_(lr * g / (n - g_avg.square() + epsilon).sqrt())
+    weight.add_(delta)
 
 
-def mp_sgd_update(weight, grad, weight32, lr=0.01, wd=0.0, rescale_grad=1.0,
-                  clip_gradient=-1.0, lazy_update=True, out=None):
-    out = _out(weight, out)
-    mp_sgd_update_(out.data, grad.data, weight32.data, lr, wd, rescale_grad,
-                   clip_gradient)
-    return out
+@torch.no_grad()
+def ftrl_update_(weight, grad, z, n, lr, lamda1=0.01, beta=1.0, wd=0.0,
+                 rescale_grad=1.0, clip_gradient=-1.0):
+    """FTRL-Proximal (McMahan et al. 2013): n += g^2, z += g - (sqrt(n) -
+    sqrt(n_old)) / lr * weight, and the weight the closed-form solution,
+    0 where |z| <= lamda1."""
+    g = _prep_grad(grad, rescale_grad, clip_gradient)
+    sqrt_old = n.sqrt()
+    n.add_(g.square())
+    sqrt_new = n.sqrt()
+    z.add_(g - (sqrt_new - sqrt_old) / lr * weight)
+    solved = -(z - torch.sign(z) * lamda1) / ((beta + sqrt_new) / lr + wd)
+    weight.copy_(torch.where(z.abs() > lamda1, solved,
+                             torch.zeros_like(weight)))
 
 
-def mp_sgd_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
-                      wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
-                      lazy_update=True, out=None):
-    out = _out(weight, out)
-    mp_sgd_mom_update_(out.data, grad.data, mom.data, weight32.data, lr,
-                       momentum, wd, rescale_grad, clip_gradient)
-    return out
+@torch.no_grad()
+def signsgd_update_(weight, grad, lr, wd=0.0, rescale_grad=1.0,
+                    clip_gradient=-1.0):
+    """weight -= lr * (sign(g) + wd * weight)."""
+    g = _prep_grad(grad, rescale_grad, clip_gradient)
+    weight.sub_(lr * (torch.sign(g) + wd * weight))
 
 
-def adam_update(weight, grad, mean, var, lr=0.01, beta1=0.9, beta2=0.999,
-                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
-                lazy_update=True, out=None):
-    out = _out(weight, out)
-    adam_update_(out.data, grad.data, mean.data, var.data, lr, beta1, beta2,
-                 epsilon, wd, rescale_grad, clip_gradient)
-    return out
+@torch.no_grad()
+def signum_update_(weight, grad, mom, lr, momentum=0.0, wd=0.0, wd_lh=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0):
+    """mom = momentum * mom - (1 - momentum) * (g + wd * weight); weight =
+    (1 - lr * wd_lh) * weight + lr * sign(mom) (Bernstein et al. 2018)."""
+    g = _prep_grad(grad, rescale_grad, clip_gradient)
+    mom.mul_(momentum).sub_((1 - momentum) * (g + wd * weight))
+    weight.mul_(1 - lr * wd_lh).add_(lr * torch.sign(mom))
+
+
+# -- registry ops --------------------------------------------------------------
+
+def _kw(params, *names):
+    """The update function's keywords from the op's params."""
+    return {k: params[k] for k in ("wd", "rescale_grad", "clip_gradient")
+            + names}
+
+
+@register("sgd_update", nin=2, params=dict(_COMMON))
+def _sgd_update(params, weight, grad):
+    w = weight.clone()
+    sgd_update_(w, grad, params["lr"], **_kw(params))
+    return w
+
+
+@register("sgd_mom_update", nin=3, naux=1,
+          params={**_COMMON, "momentum": 0.0})
+def _sgd_mom_update(params, weight, grad, mom):
+    w = weight.clone()
+    sgd_mom_update_(w, grad, mom, params["lr"], **_kw(params, "momentum"))
+    return w, mom
+
+
+@register("mp_sgd_update", nin=3, naux=1, params=dict(_COMMON))
+def _mp_sgd_update(params, weight, grad, weight32):
+    w = weight.clone()
+    mp_sgd_update_(w, grad, weight32, params["lr"], **_kw(params))
+    return w, weight32
+
+
+@register("mp_sgd_mom_update", nin=4, naux=2,
+          params={**_COMMON, "momentum": 0.0})
+def _mp_sgd_mom_update(params, weight, grad, mom, weight32):
+    w = weight.clone()
+    mp_sgd_mom_update_(w, grad, mom, weight32, params["lr"],
+                       **_kw(params, "momentum"))
+    return w, mom, weight32
+
+
+@register("adam_update", nin=4, naux=2,
+          params={**_COMMON, "beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8})
+def _adam_update(params, weight, grad, mean, var):
+    w = weight.clone()
+    adam_update_(w, grad, mean, var, params["lr"],
+                 **_kw(params, "beta1", "beta2", "epsilon"))
+    return w, mean, var
+
+
+@register("rmsprop_update", nin=3, naux=1,
+          params={**_COMMON, "gamma1": 0.95, "epsilon": 1e-8})
+def _rmsprop_update(params, weight, grad, n):
+    w = weight.clone()
+    rmsprop_update_(w, grad, n, params["lr"],
+                    **_kw(params, "gamma1", "epsilon"))
+    return w, n
+
+
+@register("rmspropalex_update", nin=5, naux=3,
+          params={**_COMMON, "gamma1": 0.95, "gamma2": 0.9,
+                  "epsilon": 1e-8})
+def _rmspropalex_update(params, weight, grad, n, g_avg, delta):
+    w = weight.clone()
+    rmspropalex_update_(w, grad, n, g_avg, delta, params["lr"],
+                        **_kw(params, "gamma1", "gamma2", "epsilon"))
+    return w, n, g_avg, delta
+
+
+@register("ftrl_update", nin=4, naux=2,
+          params={**_COMMON, "lamda1": 0.01, "beta": 1.0})
+def _ftrl_update(params, weight, grad, z, n):
+    w = weight.clone()
+    ftrl_update_(w, grad, z, n, params["lr"], **_kw(params, "lamda1",
+                                                     "beta"))
+    return w, z, n
+
+
+@register("signsgd_update", nin=2, params=dict(_COMMON))
+def _signsgd_update(params, weight, grad):
+    w = weight.clone()
+    signsgd_update_(w, grad, params["lr"], **_kw(params))
+    return w
+
+
+@register("signum_update", nin=3, naux=1,
+          params={**_COMMON, "momentum": 0.0, "wd_lh": 0.0})
+def _signum_update(params, weight, grad, mom):
+    w = weight.clone()
+    signum_update_(w, grad, mom, params["lr"],
+                   **_kw(params, "momentum", "wd_lh"))
+    return w, mom

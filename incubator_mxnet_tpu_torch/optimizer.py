@@ -1,25 +1,37 @@
 """Optimizers (reference `python/mxnet/optimizer.py`).
 
-PyTorch port of the `Optimizer` base and registry, `SGD` (with momentum
-and ``multi_precision``: fp32 master weights for fp16/bf16 parameters),
-`Adam`, `Updater`, `get_updater` and `create` from
-`incubator_mxnet_tpu/optimizer.py`.  Given a `ndarray.sparse.
-RowSparseNDArray` gradient (an embedding table's), `SGD` and `Adam` run
-the JAX package's lazy update (`optimizer.py:204-270`): duplicate row ids
-are summed on the host (`aggregate_row_sparse`), then only the touched
-rows of the weight and the state are gathered, updated and written back
-with `index_copy_` on unique rows; an empty gradient changes nothing.
-With ``lazy_update=False`` the gradient densifies and every row updates.  `SGD.update` and
-`Adam.update` run the in-place update ops of `ops/optimizer_ops.py`.
+PyTorch port of `incubator_mxnet_tpu/optimizer.py`: the `Optimizer` base
+and registry, `SGD` (with momentum and ``multi_precision``: fp32 master
+weights for fp16/bf16 parameters), `Signum`, `FTML`, `DCASGD`, `NAG`,
+`SGLD`, `Adam`, `AdaGrad`, `AdaDelta`, `RMSProp` (``centered``), `Ftrl`,
+`Adamax`, `Nadam`, `LBSGD`, `Test`, `Updater`, `get_updater` and
+`create`.  Where the JAX classes call an update op (SGD, Signum, Adam,
+RMSProp, Ftrl) these run its in-place tensor function
+(`ops/optimizer_ops.py`); the others write the JAX classes' formulas as
+in-place torch arithmetic.  As in the JAX package only the optimizers
+with a ``momentum`` argument (SGD, NAG, Signum, DCASGD, LBSGD) take one:
+the others raise the base class's TypeError for it.  `SGLD` draws its
+noise on the weight's device (`nd.random.normal`, the device stream), so
+the fused train step declines it (``draws_rng``), as the JAX fused step
+declines an optimizer that draws randomness while it traces.
+
+Given a `ndarray.sparse.RowSparseNDArray` gradient (an embedding
+table's), `SGD` and `Adam` run the JAX package's lazy update
+(`optimizer.py:204-270`): duplicate row ids are summed on the host
+(`aggregate_row_sparse`), then only the touched rows of the weight and
+the state are gathered, updated and written back with `index_copy_` on
+unique rows; an empty gradient changes nothing.  With
+``lazy_update=False`` the gradient densifies and every row updates.
 `state_dict` / `load_state_dict` carry the scalar position (update
 counts, the learning-rate schedule) a checkpoint's manifest records;
 `Updater.get_states` pickles the states as host arrays that load on a
 machine without the card (`NDArray.__reduce__`), and `dumps_states` /
 `loads_states` write and read them with the arrays out of band (the
-elastic checkpoint's optimizer blob).  `update_multi` updates many
-parameters in one call (what the fused train step runs); `SGD`'s is the
-multi-tensor update, which gives the per-parameter results.  The other
-optimizers of the JAX package are not ported yet.
+elastic checkpoint's optimizer blob); an optimizer's own scalars
+(`Nadam`'s ``m_schedule``) travel with the pickled optimizer.
+`update_multi` updates many parameters in one call (what the fused
+train step runs); `SGD`'s is the multi-tensor update, which gives the
+per-parameter results.
 """
 from __future__ import annotations
 
@@ -32,9 +44,11 @@ import torch
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 from . import ndarray as nd
-from .ops.optimizer_ops import multi_sgd_update_
+from .ops import optimizer_ops as _ops
 
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
+__all__ = ["Optimizer", "SGD", "Signum", "FTML", "DCASGD", "NAG", "SGLD",
+           "Adam", "AdaGrad", "AdaDelta", "RMSProp", "Ftrl", "Adamax",
+           "Nadam", "LBSGD", "Test", "Updater", "get_updater", "create",
            "register"]
 
 
@@ -279,12 +293,13 @@ class SGD(Optimizer):
         if rs is not None:
             self._lazy_update(weight, state, rs, kw)
             return
-        grad = _dense_grad(grad, weight)
+        grad = _dense_grad(grad, weight).data
+        lr = kw.pop("lr")
         if state is not None:
-            nd.sgd_mom_update(weight, grad, state, momentum=self.momentum,
-                              out=weight, **kw)
+            _ops.sgd_mom_update_(weight.data, grad, state.data, lr,
+                                 momentum=self.momentum, **kw)
         else:
-            nd.sgd_update(weight, grad, out=weight, **kw)
+            _ops.sgd_update_(weight.data, grad, lr, **kw)
 
     def _lazy_update(self, weight, state, rows, kw):
         """SGD on the touched rows only (unique ids: `index_copy_`)."""
@@ -330,24 +345,25 @@ class SGD(Optimizer):
                          kw["wd"]))
         for (has_mom, has_master), rows in groups.items():
             ws, gs, moms, w32s, lrs, wds = (list(c) for c in zip(*rows))
-            multi_sgd_update_(ws, gs, lrs, wds,
-                              moms=moms if has_mom else None,
-                              weights32=w32s if has_master else None,
-                              momentum=self.momentum,
-                              rescale_grad=self.rescale_grad,
-                              clip_gradient=_clip(self.clip_gradient))
+            _ops.multi_sgd_update_(ws, gs, lrs, wds,
+                                   moms=moms if has_mom else None,
+                                   weights32=w32s if has_master else None,
+                                   momentum=self.momentum,
+                                   rescale_grad=self.rescale_grad,
+                                   clip_gradient=_clip(self.clip_gradient))
 
     def update_multi_precision(self, index, weight, grad, state):
         if self._has_master(weight, state):
-            grad = _dense_grad(grad, weight)
+            grad = _dense_grad(grad, weight).data
             kw = self._kwargs(index)
+            lr = kw.pop("lr")
             mom, w32 = state
             if mom is not None:
-                nd.mp_sgd_mom_update(weight, grad, mom, w32,
-                                     momentum=self.momentum, out=weight,
-                                     **kw)
+                _ops.mp_sgd_mom_update_(weight.data, grad, mom.data,
+                                        w32.data, lr,
+                                        momentum=self.momentum, **kw)
             else:
-                nd.mp_sgd_update(weight, grad, w32, out=weight, **kw)
+                _ops.mp_sgd_update_(weight.data, grad, w32.data, lr, **kw)
         else:
             self.update(index, weight, grad, state)
 
@@ -399,10 +415,375 @@ class Adam(Optimizer):
                 v.index_copy_(0, idx, new_v)
             return
         grad = _dense_grad(grad, weight)
-        nd.adam_update(weight, grad, mean, var, lr=lr, wd=wd,
-                       beta1=self.beta1, beta2=self.beta2,
-                       epsilon=self.epsilon, rescale_grad=self.rescale_grad,
-                       clip_gradient=_clip(self.clip_gradient), out=weight)
+        _ops.adam_update_(weight.data, grad.data, mean.data, var.data, lr,
+                          beta1=self.beta1, beta2=self.beta2,
+                          epsilon=self.epsilon, wd=wd,
+                          rescale_grad=self.rescale_grad,
+                          clip_gradient=_clip(self.clip_gradient))
+
+
+def _zeros_like(weight, dtype=None):
+    return nd.zeros(weight.shape, ctx=weight.context,
+                    dtype=dtype or weight.data.dtype)
+
+
+def _scaled(opt, grad, weight=None, wd=0.0):
+    """grad * rescale_grad (+ wd * weight when `weight` is given, the
+    order of the JAX class), clipped to +-clip_gradient when that is
+    set: the gradient most of the optimizers below start from."""
+    g = grad.data * opt.rescale_grad
+    if weight is not None:
+        g = g + wd * weight.data
+    if opt.clip_gradient:
+        g = torch.clamp(g, -opt.clip_gradient, opt.clip_gradient)
+    return g
+
+
+@register
+class Signum(Optimizer):
+    """signSGD with momentum (reference `optimizer.py Signum`): the
+    `signum_update` op, or `signsgd_update` without momentum."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight) if self.momentum != 0.0 else None
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = dict(wd=self._get_wd(index), rescale_grad=self.rescale_grad,
+                  clip_gradient=_clip(self.clip_gradient))
+        lr = self._get_lr(index)
+        if state is not None:
+            _ops.signum_update_(weight.data, grad.data, state.data, lr,
+                                momentum=self.momentum, wd_lh=self.wd_lh,
+                                **kw)
+        else:
+            _ops.signsgd_update_(weight.data, grad.data, lr, **kw)
+
+
+@register
+class FTML(Optimizer):
+    """Follow the Moving Leader (Zheng and Kwok 2017; reference
+    `optimizer.py FTML`): states (d, v, z)."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return tuple(_zeros_like(weight) for _ in range(3))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        t = self._index_update_count[index]
+        d, v, z = (s.data for s in state)
+        w = weight.data
+        g = _scaled(self, grad, weight, wd)
+        v_new = self.beta2 * v + (1 - self.beta2) * g * g
+        d_new = (1 - pow(self.beta1, t)) / lr * (
+            (v_new / (1 - pow(self.beta2, t))).sqrt() + self.epsilon)
+        sigma = d_new - self.beta1 * d
+        z_new = self.beta1 * z + (1 - self.beta1) * g - sigma * w
+        d.copy_(d_new)
+        v.copy_(v_new)
+        z.copy_(z_new)
+        w.copy_(-z_new / d_new)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated SGD (Zheng et al. 2017; reference `optimizer.py
+    DCASGD`): states (momentum or None, the previous weight)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return (None, weight.copy())
+        return (_zeros_like(weight), weight.copy())
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        g = _scaled(self, grad)
+        mom, previous = state
+        w, prev = weight.data, previous.data
+        d = g + wd * w + self.lamda * g * g * (w - prev)
+        if mom is not None:
+            mom.data.mul_(self.momentum).sub_(lr * d)
+            delta = mom.data
+        else:
+            delta = -lr * d
+        w.add_(delta)
+        prev.copy_(w)
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated SGD (reference `optimizer.py NAG`)."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight) if self.momentum != 0.0 else None
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        g = _scaled(self, grad)
+        w = weight.data
+        if state is not None:
+            mom = state.data
+            mom.mul_(self.momentum).add_(g + wd * w)
+            w.sub_(lr * (g + self.momentum * mom + wd * w))
+        else:
+            w.sub_(lr * (g + wd * w))
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (Welling and Teh 2011;
+    reference `optimizer.py SGLD`): half an SGD step plus N(0, lr) noise
+    drawn on the weight's device."""
+
+    draws_rng = True
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        g = _scaled(self, grad)
+        noise = nd.random.normal(0, lr ** 0.5, shape=weight.shape,
+                                 dtype="float32", ctx=weight.context).data
+        w = weight.data
+        w.copy_(w - lr / 2 * (g + wd * w) + noise)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (Duchi et al. 2011; reference `optimizer.py AdaGrad`)."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        w = weight.data
+        g = _scaled(self, grad) + wd * w
+        hist = state.data
+        hist.add_(g * g)
+        w.sub_(lr * g / (hist + self.float_stable_eps).sqrt())
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (Zeiler 2012; reference `optimizer.py AdaDelta`): no
+    learning rate; states (E[g^2], E[delta^2])."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight, torch.float32),
+                _zeros_like(weight, torch.float32))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        g = _scaled(self, grad)
+        acc_g, acc_delta = (s.data for s in state)
+        acc_g.mul_(self.rho).add_((1 - self.rho) * g * g)
+        delta = ((acc_delta + self.epsilon).sqrt() /
+                 (acc_g + self.epsilon).sqrt()) * g
+        acc_delta.mul_(self.rho).add_((1 - self.rho) * delta * delta)
+        w = weight.data
+        w.copy_(w - wd * w - delta)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp (reference `optimizer.py RMSProp`): the `rmsprop_update`
+    op, or `rmspropalex_update` with ``centered``.  ``clip_weights`` is
+    accepted and, as in the JAX class, not applied."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        n = 3 if self.centered else 1
+        return tuple(_zeros_like(weight, torch.float32) for _ in range(n))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = dict(wd=self._get_wd(index), rescale_grad=self.rescale_grad,
+                  clip_gradient=_clip(self.clip_gradient),
+                  gamma1=self.gamma1, epsilon=self.epsilon)
+        lr = self._get_lr(index)
+        if not self.centered:
+            _ops.rmsprop_update_(weight.data, grad.data, state[0].data, lr,
+                                 **kw)
+        else:
+            n, g, delta = (s.data for s in state)
+            _ops.rmspropalex_update_(weight.data, grad.data, n, g, delta, lr,
+                                     gamma2=self.gamma2, **kw)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-Proximal (reference `optimizer.py Ftrl`): the `ftrl_update`
+    op; states (z, n)."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight, torch.float32),
+                _zeros_like(weight, torch.float32))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        z, n = state
+        _ops.ftrl_update_(weight.data, grad.data, z.data, n.data,
+                          self._get_lr(index), lamda1=self.lamda1,
+                          beta=self.beta, wd=self._get_wd(index),
+                          rescale_grad=self.rescale_grad,
+                          clip_gradient=_clip(self.clip_gradient))
+
+
+@register
+class Adamax(Optimizer):
+    """Adamax, Adam under the infinity norm (Kingma and Ba 2015;
+    reference `optimizer.py Adamax`)."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        t = self._index_update_count[index]
+        lr /= (1.0 - self.beta1 ** t)
+        g = _scaled(self, grad, weight, wd)
+        m_t, u_t = (s.data for s in state)
+        m_t.mul_(self.beta1).add_((1.0 - self.beta1) * g)
+        u_t.copy_(torch.maximum(self.beta2 * u_t, g.abs()))
+        w = weight.data
+        w.sub_(lr * m_t / u_t)
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum (Dozat 2016; reference `optimizer.py
+    Nadam`).  ``m_schedule`` is the optimizer's, multiplied at every
+    update of every parameter, as in the JAX class."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        t = self._index_update_count[index]
+        g = _scaled(self, grad, weight, wd)
+        momentum_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            t * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            (t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        m_t, v_t = (s.data for s in state)
+        m_t.mul_(self.beta1).add_((1.0 - self.beta1) * g)
+        v_t.mul_(self.beta2).add_((1.0 - self.beta2) * g * g)
+        grad_prime = g / (1.0 - self.m_schedule)
+        m_t_prime = m_t / (1.0 - m_schedule_next)
+        v_t_prime = v_t / (1.0 - self.beta2 ** t)
+        m_t_bar = (1.0 - momentum_t) * grad_prime + momentum_t_1 * m_t_prime
+        w = weight.data
+        w.sub_(lr * m_t_bar / (v_t_prime.sqrt() + self.epsilon))
+
+
+@register
+class LBSGD(SGD):
+    """Large-batch SGD (reference `optimizer.py LBSGD`): as in the JAX
+    class, the warmup arguments are accepted and the update is SGD's
+    (the warmup belongs to the learning-rate scheduler)."""
+
+    def __init__(self, warmup_strategy="linear", warmup_epochs=5,
+                 batch_scale=1, updates_per_epoch=32, begin_epoch=0,
+                 num_epochs=60, **kwargs):
+        super().__init__(**kwargs)
+
+
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: weight += rescaled grad; the
+    state holds the new weight."""
+
+    def create_state(self, index, weight):
+        return nd.zeros(weight.shape, ctx=weight.context)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        weight.data.add_(grad.data * self.rescale_grad)
+        state.data.copy_(weight.data)
 
 
 create = Optimizer.create_optimizer

@@ -30,6 +30,7 @@ import threading
 import numpy as _np
 import torch
 
+from ..attribute import current_attrs
 from ..base import MXNetError, py_literal
 from ..ops import registry as _reg
 
@@ -407,12 +408,17 @@ def _sym_apply(op_name, inputs, kwargs):
                              "select one output first")
         entries.append(s._entries[0])
     # auto-create variables for missing trailing inputs (weights, biases):
-    # the canonical `{name}_weight` / `{name}_bias` argument names
+    # the canonical `{name}_weight` / `{name}_bias` argument names; they
+    # and the node take the attributes of the active `AttrScope`s
+    scope_attrs = current_attrs()
     slot_names = op.list_input_names(params)
     if slot_names is not None:
         for slot in slot_names[len(entries):]:
-            entries.append((_Node(None, f"{name}_{slot}", {}, []), 0))
+            vnode = _Node(None, f"{name}_{slot}", {}, [])
+            vnode._extra_attrs.update(scope_attrs)
+            entries.append((vnode, 0))
     node = _Node(op, name, params, entries)
+    node._extra_attrs.update(scope_attrs)
     if attr:
         node._extra_attrs.update(attr)
     nout = node.num_outputs()
@@ -437,6 +443,7 @@ def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
     if not name.strip():
         raise MXNetError("variable name must be a non-empty string")
     node = _Node(None, name, {}, [])
+    node._extra_attrs.update(current_attrs())
     extra = {"__shape__": None if shape is None else tuple(shape),
              "__dtype__": dtype, "__lr_mult__": lr_mult,
              "__wd_mult__": wd_mult, "__init__": init}
@@ -529,7 +536,7 @@ def graph_eval_fn(symbol, is_train):
             if node.op.needs_rng:
                 ins.append(generator)
             out = node.op.fn(params, *ins) if node.op.nin else \
-                node.op.fn(params, device=device)
+                node.op.fn(params, *ins, device=device)
             if not isinstance(out, (tuple, list)):
                 out = (out,)
             nout = node.op.num_outputs(params)
@@ -642,7 +649,7 @@ def _infer_graph_with_hint(symbol, shapes, partial, batch_hint):
                 ins.append(None)
             try:
                 out = node.op.fn(params, *ins) if node.op.nin else \
-                    node.op.fn(params, device="meta")
+                    node.op.fn(params, *ins, device="meta")
             except Exception as e:
                 raise MXNetError(f"infer_shape failed at {node.op.name} "
                                  f"'{node.name}': {e}") from e

@@ -16,8 +16,11 @@ the host fp32 finish and `TopKAccuracy.device_update` on the card; the
 detection, spatial and deformable ops on the card against the CPU, the
 NMS route against its per-box loop, and two steps of a small SSD; the
 kvstore's cases with their values on the card against the CPU, two
-contexts on the one card against one (K1 in each executor), and
-wide_deep.py's copy at 2 000 rows on the card against the CPU.
+contexts on the one card against one (K1 in each executor),
+wide_deep.py's copy at 2 000 rows on the card against the CPU; the
+registry's tail (phase 15a's cases), the CTC and Deconvolution routes
+against their plain versions, random draws on the card, and the mlp as
+a SequentialModule under a Monitor (K1 in both modules).
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -1543,3 +1546,122 @@ def test_wide_deep_small_on_the_card_matches_the_cpu(monkeypatch):
                          cs.WD_TOL)[0] <= 1
     assert got["counters"] == ref["counters"]
     assert launches == 512 // 64
+
+
+@pytest.mark.cuda
+def test_registry_tail_on_the_card_matches_the_cpu():
+    """chip_smoke's 15a cases at a tenth of their sizes' rows where they
+    are large: every op this slice registered, forward and gradients,
+    card against CPU within its family's tolerance (exact, arith,
+    prod); the update ops with their near ties counted."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    cs = _chip_smoke()
+    for op, params, inputs, gidx, fam in cs.ops15_cases():
+        if op in ("LRN", "Deconvolution", "InstanceNorm"):
+            inputs = [inputs[0][:4]] + list(inputs[1:])
+        (c_out, c_g), (g_out, g_g) = cs.pair15(op, params, inputs, gidx)
+        for g, c in zip(g_out, c_out):
+            assert cs.ratio15(g, c, cs.OPS15_TOL[fam], op) <= 1
+        for g, c in zip(g_g, c_g):
+            assert cs.ratio15(g, c, cs.OPS15_TOL["arith" if fam == "exact"
+                                                 else fam], op) <= 1
+    assert cs.ops15_updates(mx)[0][0] <= 1
+
+
+@pytest.mark.cuda
+def test_ctc_and_deconvolution_routes_equal_their_plain_versions():
+    """On the card: `F.ctc_loss` for the rows it computes alike and the
+    plain loop for a row that cannot fit, against `ctc_plain`; cuDNN's
+    transposed convolution against `deconv_plain`."""
+    _need_card()
+    from incubator_mxnet_tpu_torch.ops import ctc, nn, registry
+    rng = np.random.RandomState(0)
+    data = torch.from_numpy(rng.normal(0, 1, (30, 8, 6)).astype("f4"))
+    label = rng.randint(1, 6, (8, 3)).astype("f4")
+    label[2] = [4, 4, 4]
+    lens = np.full(8, 30, "f4")
+    lens[2] = 4
+    dev = torch.device("cuda")
+    op = registry.get("ctc_loss")
+    p = op.canonicalize_params({"use_data_lengths": True})
+    before = dict(ctc.ctc_routes)
+    got = op.fn(p, data.to(dev), torch.from_numpy(label).to(dev),
+                torch.from_numpy(lens).to(dev))
+    assert ctc.ctc_routes["library"] - before["library"] == 7
+    assert ctc.ctc_routes["plain"] - before["plain"] == 1
+    logp = torch.log_softmax(data.to(dev), -1)
+    lab = torch.from_numpy(label).long().to(dev)
+    want = ctc.ctc_plain(logp, lab, torch.from_numpy(lens).long().to(dev),
+                         (lab > 0).sum(1))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4)
+    dp = registry.get("Deconvolution").canonicalize_params(
+        {"kernel": (4, 4), "stride": (2, 2), "pad": (1, 1),
+         "num_filter": 16, "no_bias": True})
+    x = torch.from_numpy(rng.normal(0, 1, (4, 32, 8, 8)).astype("f4"))
+    w = torch.from_numpy(rng.normal(0, 0.05, (32, 16, 4, 4)).astype("f4"))
+    lib = registry.get("Deconvolution").fn(dp, x.to(dev), w.to(dev))
+    plain = nn.deconv_plain(dp, x.to(dev), w.to(dev))
+    np.testing.assert_allclose(lib.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5 * plain.abs().max()
+                               .item())
+
+
+@pytest.mark.cuda
+def test_random_draws_on_the_card():
+    """The same seed draws the same values on the card; the draws'
+    moments within 5 sigma; shuffle permutes."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    cs = _chip_smoke()
+    draws = []
+    for _ in range(2):
+        mx.random.seed(3)
+        draws.append(mx.nd.random.normal(1.0, 2.0, shape=(200000,),
+                                         ctx=mx.gpu(0)).asnumpy())
+    np.testing.assert_array_equal(draws[0], draws[1])
+    assert cs.moments15(draws[0], 1.0, 4.0, "normal") <= 5
+    x = mx.nd.array(np.arange(1000, dtype="f4"), ctx=mx.gpu(0))
+    perm = mx.nd.random.shuffle(x).asnumpy()
+    assert sorted(perm.tolist()) == list(range(1000))
+
+
+@pytest.mark.cuda
+def test_sequential_mlp_on_the_card_matches_the_cpu(monkeypatch):
+    """chip_smoke's 15c at 3 steps: the mlp as a SequentialModule under
+    TPU_PALLAS on the card against the CPU (phase 6's gate) and against
+    one Module on the card (rtol 1e-5 + 1e-6 * max), the monitor's
+    statistics rtol 1e-4 + 1e-5 * max, K1 twice a train forward."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.subgraph import fused_ops
+    cs = _chip_smoke()
+    monkeypatch.setenv("MXNET_SUBGRAPH_BACKEND", "TPU_PALLAS")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        train, _ = cs.mnist_iters(mx)
+        batches = [next(train) for _ in range(3)]
+        fused_ops.fc_relu.launches = 0
+        g_loss, g_st, g_rows, _ = cs.seq15_steps(mx, mx.gpu(0), batches,
+                                                 monitor=mx.Monitor(1))
+        launches = fused_ops.fc_relu.launches
+        c_loss, c_st, c_rows, _ = cs.seq15_steps(mx, mx.cpu(), batches,
+                                                 monitor=mx.Monitor(1))
+        o_loss, o_st, _, _ = cs.seq15_steps(mx, mx.gpu(0), batches,
+                                            split=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    assert launches == 2 * len(batches)
+    np.testing.assert_allclose(g_loss, c_loss, rtol=cs.PARITY_TOL[0])
+    np.testing.assert_allclose(g_loss, o_loss, rtol=cs.SEQ15_TOL[0])
+    assert cs.param_ratio(g_st[-1][0], c_st[-1][0])[0] <= 1
+    assert cs.seq15_ratio(g_st[-1][0], o_st[-1][0], cs.SEQ15_TOL)[0] <= 1
+    keys = sorted(c_rows)
+    assert sorted(g_rows) == keys
+    assert cs.op_ratio([g_rows[k] for k in keys], [c_rows[k] for k in keys],
+                       cs.MON15_TOL) <= 1

@@ -278,15 +278,22 @@ def test_module_without_context_needs_the_card(monkeypatch):
 
 
 def test_fit_rejects_what_is_not_ported(monkeypatch):
-    """Monitors raise, and so does a dist_sync kvstore asked for the
-    collective data plane (the parameter server's socket plane is
-    ported: tests/test_torch_dist.py; elastic checkpoints too:
-    tests/test_torch_checkpoint.py)."""
+    """A dist_sync kvstore asked for the collective data plane raises
+    (the parameter server's socket plane is ported:
+    tests/test_torch_dist.py; elastic checkpoints too:
+    tests/test_torch_checkpoint.py).  Monitors, which raised before
+    they were ported, now run: fit takes the per-batch path and the
+    monitor sees every batch's outputs (tests/test_torch_sequential.py
+    holds their values to the JAX package's)."""
     from incubator_mxnet_tpu_torch.dist.server import ParameterServer
     mod = tmx.mod.Module(mlp(), context=tmx.cpu())
     train, _ = _iters(tmx, n=32)
-    with pytest.raises(tmx.MXNetError, match="monitors"):
-        mod.fit(train, num_epoch=1, monitor=object())
+    mon = tmx.Monitor(1, pattern=".*output")
+    seen = []
+    mon.toc_print = lambda: seen.extend(mon.toc())
+    mod.fit(train, num_epoch=1, monitor=mon)
+    assert mon.step == len(seen) > 0
+    assert mod._fused_step.steps == 0
     server = ParameterServer(num_workers=1).start()
     try:
         for k, v in {"DMLC_PS_ROOT_URI": "127.0.0.1",
@@ -295,7 +302,8 @@ def test_fit_rejects_what_is_not_ported(monkeypatch):
                      "MXNET_PS_REQUEST_TIMEOUT": "30"}.items():
             monkeypatch.setenv(k, v)
         with pytest.raises(tmx.MXNetError, match="collective data plane"):
-            mod.fit(train, num_epoch=1, kvstore="dist_sync")
+            tmx.mod.Module(mlp(), context=tmx.cpu()).fit(
+                train, num_epoch=1, kvstore="dist_sync")
     finally:
         server.shutdown()
 
