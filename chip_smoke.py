@@ -19,8 +19,9 @@ exits non-zero:
    route, the plain version and one library call beside the bound, with
    L2 flushed before every timed launch, and each route's device time
    (torch.profiler, its kernels only); then train_mnist's mlp layers,
-   (64, 784 -> 128) and (64, 128 -> 64), in fp32 through both routes;
-   then the host time per call of each route at fc7, M = 32, beside the
+   (64, 784 -> 128) and (64, 128 -> 64), in fp32 through both routes,
+   and the shapes K1 takes on phases 14 and 16's paths (PATH_K1: the
+   mlp's layers at M = 1-32, wide_deep's deep1); then the host time per call of each route at fc7, M = 32, beside the
    library call's.
 4. serve VGG-16 at full width (3x224x224, 1000 classes, fp32, random
    weights from a seed) through `serving.ModelServer`: partition with
@@ -263,6 +264,37 @@ exits non-zero:
    monitor's statistics against the CPU's (rtol 1e-4 + 1e-5*max), K1
    twice a train forward, fc1 at half rate; 10 epochs through fit to
    accuracy > 0.95; a PythonLossModule stage for one epoch.
+16. the training API's stragglers and the serving path's edges (slice
+   14), K2 and K3 held at 0 launches.  a. train_mnist's mlp under
+   TPU_PALLAS through `model.FeedForward`: 8 steps on the card against
+   `Module.fit` on the card from the same parameters and batches (rtol
+   1e-5 + 1e-6*max) and against the CPU (phase 6's gate), K1 twice a
+   train forward; save, load and predict against `Module.predict`; a
+   ragged 500 rows (a tail of 52) against row-by-row answers (rtol 1e-4
+   + 1e-5*max).  b. the mlp trained through `Module.fit(checkpoint_dir=)`,
+   a torn checkpoint newer than the valid ones beside it, served through
+   `ModelServer.load_model(symbol_file=, checkpoint_dir=)` partitioned:
+   the parameters the newest valid snapshot's, requests of 1-32 rows
+   against `Module.predict` (rtol 1e-4 + 1e-5*max), K1 twice a served
+   batch.  c. the JAX scripts of tests/test_resilience.py:467 and :489
+   on the card through `resilience.faults`: two failed batches open the
+   breaker, submit fails fast, the probe closes it; retries {1: 1, 2: 1};
+   the counters equal the CPU's, the answers 16b's.  d. the C predict
+   ABI: the shim (csrc/c_predict_api.cc) built from the checkout, a C
+   program compiled with g++, run with dev_type 2 on the partitioned mlp
+   at batch 32 against an in-process `c_predict` predictor (rtol 1e-6;
+   K1 twice a forward), dev_type 1 against the card (rtol 1e-4 +
+   1e-5*max), dev_type 7 refused.  e. config #4 at its published widths
+   through `BucketingModule.fit(checkpoint_dir=)` in child processes, as
+   10c: SIGKILL after batch 10 and SIGTERM at batch 24 (exit 143),
+   both resumed sha256-equal to the uninterrupted fit (every bucket's
+   parameters, begin states and momenta); a `Module(state_names=)` step
+   on the card against the CPU (11a's gates).  f. `test_utils` on the
+   card: `check_consistency` over [cpu(0), gpu(0)] on the partitioned
+   mlp (K1) and lenet at the default tolerances, `check_numeric_gradient`
+   in float64 for FullyConnected and Convolution, its refusal of
+   SoftmaxOutput (an implicit gradient) as on the CPU, and SoftmaxOutput's
+   gradient by `check_symbolic_backward`.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -303,6 +335,18 @@ MLP_K1 = ((64, 784, 128), (64, 128, 64))
 PATH_K1 = (((32, 784, 128), "dp_fc1", "executor fc1"),
            ((32, 128, 64), "dp_fc2", "executor fc2"),
            ((64, 32, 32), "wd_deep1", "wide_deep deep1"))
+# phase 16's mlp paths: 16b/16c serve it at these buckets, 16d's predictor
+# runs it at C16_BATCH and 16f's check_consistency at UTILS16_BATCH; fc1
+# and fc2 at each of these batches not held above join PATH_K1
+SERVE16_BUCKETS = (1, 2, 4, 8, 16, 32)
+C16_BATCH = 32
+UTILS16_BATCH = 16
+MLP_LAYERS = (((784, 128), "fc1"), ((128, 64), "fc2"))
+PATH_K1 += tuple(
+    ((m, k, n), f"mlp{m}_{layer}", f"mlp {layer} at batch {m}")
+    for m in sorted(set(SERVE16_BUCKETS) | {C16_BATCH, UTILS16_BATCH})
+    for (k, n), layer in MLP_LAYERS
+    if (m, k, n) not in MLP_K1 + tuple(shape for shape, _, _ in PATH_K1))
 # phase 6: train_mnist's defaults (examples/image_classification/
 # train_mnist.py:69-100, :60-66)
 TRAIN_IMAGES, TRAIN_SPLIT, TRAIN_BATCH, TRAIN_EPOCHS = 4096, 3584, 64, 10
@@ -757,7 +801,7 @@ def note_slower(t, dtype, shape, slower):
 
 def kernel_phase(card):
     """Phase 3; returns the JSON numbers of REP and REP_BF16 by dtype, and
-    of the mlp's and phase 14's shapes by (M, K, N, dtype)."""
+    of the mlp's and phases 14 and 16's shapes by (M, K, N, dtype)."""
     from incubator_mxnet_tpu_torch.subgraph.fused_ops import ROUTES, \
         launch_plan
     dev = torch.device("cuda", 0)
@@ -7842,6 +7886,701 @@ def registry_phase(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the training API's stragglers and the serving path's edges
+# ---------------------------------------------------------------------------
+
+FF16_STEPS = 8                  # 16a: FeedForward's steps (one epoch)
+FF16_TOL = (1e-5, 1e-6)         # 16a: the adapter against one Module
+FF16_RAGGED = 500               # 16a: predict's rows (a tail of 52 of 64)
+CKPT16 = dict(epochs=2, period=20)   # 16b: Module.fit's elastic snapshots
+SERVE16_SIZES = (1, 7, 32, 3, 16, 2, 29, 8, 5, 12)   # 16b: request rows
+C16_EXACT = 1e-6                # 16d: the C program against in-process
+RESUME16 = dict(sentences=600, buckets=(10, 20, 40, 60), epochs=2,
+                period=4, kill_after=10, term_after=24)   # 16e
+GRAD16 = {"fc": (2, 4, 3), "conv": (1, 2, 5, 5, 2, 3)}   # 16f's small ops
+
+
+def k1_held(m, where):
+    """Fail unless phase 3 held K1 against fc_relu_ref at the mlp's fc1
+    and fc2 with M = m."""
+    held = set(MLP_K1) | {shape for shape, _, _ in PATH_K1}
+    check(all((m, k, n) in held for (k, n), _ in MLP_LAYERS),
+          f"{where}: K1's mlp shapes at M={m} were not held against "
+          "fc_relu_ref in phase 3")
+
+
+def ff16_data(mx):
+    """The first FF16_STEPS batches' images of train_mnist's training
+    set, and the validation images."""
+    x, y = mx.test_utils.get_mnist_like(TRAIN_IMAGES)
+    n = FF16_STEPS * TRAIN_BATCH
+    return x[:n], y[:n], x[TRAIN_SPLIT:]
+
+
+def ff16_fit(mx, ctx, x, y, feedforward=True):
+    """One epoch (FF16_STEPS steps) of the mlp from Xavier under one
+    seed, shuffled by numpy seeded the same: through FeedForward.fit, or
+    through Module.fit on the iterator FeedForward builds.  Returns
+    (model or module, the loss of each step, parameters after)."""
+    losses = []
+
+    def on_batch(p):
+        losses.append(p.eval_metric.get()[1])
+        p.eval_metric.reset()
+    opt = {"learning_rate": TRAIN_LR, "momentum": TRAIN_MOMENTUM}
+    np.random.seed(SEED)
+    mx.random.seed(SEED)
+    if feedforward:
+        model = mx.model.FeedForward(
+            mlp_symbol(mx), ctx=ctx, num_epoch=1, optimizer="sgd",
+            initializer=mx.initializer.Xavier(),
+            numpy_batch_size=TRAIN_BATCH, **opt)
+        model.fit(x, y, eval_metric="ce", batch_end_callback=on_batch)
+        params = model.arg_params
+    else:
+        model = mx.mod.Module(mlp_symbol(mx), context=ctx)
+        model.fit(mx.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH,
+                                    shuffle=True),
+                  num_epoch=1, optimizer="sgd", optimizer_params=opt,
+                  initializer=mx.initializer.Xavier(), eval_metric="ce",
+                  batch_end_callback=on_batch)
+        params = model.get_params()[0]
+    return model, losses, {k: v.asnumpy() for k, v in params.items()}
+
+
+def ff16(mx, card, workdir):
+    """16a: FeedForward on config #1's mlp under TPU_PALLAS."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    x, y, val = ff16_data(mx)
+    k1_held(TRAIN_BATCH, "16a")
+    fc_relu.launches = 0
+    model, g_loss, g_params = ff16_fit(mx, mx.gpu(0), x, y)
+    launches = fc_relu.launches
+    check(launches == 2 * FF16_STEPS, f"16a: K1 launched {launches} times "
+          f"in {FF16_STEPS} FeedForward steps, want 2 a train forward")
+    mod, m_loss, m_params = ff16_fit(mx, mx.gpu(0), x, y, feedforward=False)
+    _, c_loss, c_params = ff16_fit(mx, mx.cpu(), x, y)
+    vs_mod = max(op_ratio(g_loss, m_loss, FF16_TOL),
+                 lstm_ratio(g_params, m_params, FF16_TOL)[0])
+    check(vs_mod <= 1.0, f"16a: FeedForward vs Module on the card at "
+          f"{vs_mod:.3f} of rtol 1e-5 + 1e-6*max")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(g_loss, c_loss))
+    free = param_ratio(g_params, c_params)
+    check(loss_err <= PARITY_TOL[0] and free[0] <= 1.0,
+          f"16a: card vs CPU loss {loss_err:.3g}, parameters {free}")
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        prefix = os.path.join(tmp, "ff")
+        model.save(prefix, 1)
+        loaded = mx.model.FeedForward.load(prefix, 1, ctx=mx.gpu(0),
+                                           numpy_batch_size=TRAIN_BATCH)
+        fc_relu.launches = 0
+        got = loaded.predict(val)
+        pred_launches = fc_relu.launches
+    want = mod.predict(mx.io.NDArrayIter(val, batch_size=TRAIN_BATCH))
+    saved = op_ratio(got, want.asnumpy(), FF16_TOL)
+    check(saved <= 1.0, f"16a: loaded FeedForward.predict vs "
+          f"Module.predict at {saved:.3f} of the tolerance")
+    ragged = loaded.predict(val[:FF16_RAGGED])
+    rows = np.concatenate([loaded._module.predict(val[i:i + 1]).asnumpy()
+                           for i in range(FF16_RAGGED)])
+    tail = op_ratio(ragged, rows, SERVE_TRAIN_TOL)
+    check(ragged.shape == (FF16_RAGGED, 10) and tail <= 1.0,
+          f"16a: ragged predict {ragged.shape} vs row by row at "
+          f"{tail:.3f} of rtol 1e-4 + 1e-5*max")
+    batches = -(-len(val) // TRAIN_BATCH)
+    check(pred_launches == 2 * batches, f"16a: K1 launched {pred_launches} "
+          f"times in {batches} predict batches")
+    print(f"ff16 FeedForward mlp (TPU_PALLAS): {FF16_STEPS} steps K1 "
+          f"{launches} launches (2 a train forward); vs Module.fit on the "
+          f"card {vs_mod:.3f} of rtol 1e-5 + 1e-6*max; vs the CPU loss "
+          f"{loss_err:.2e}, parameters {free[0]:.3f} of phase 6's gate; "
+          f"save/load/predict vs Module.predict {saved:.3f}; a ragged "
+          f"{FF16_RAGGED} rows (tail {FF16_RAGGED % TRAIN_BATCH} of "
+          f"{TRAIN_BATCH}) vs row by row {tail:.3f} of rtol 1e-4 + "
+          f"1e-5*max [{card}]")
+    return {"k1_launches": launches + pred_launches, "vs_module": vs_mod}
+
+
+def serve16_requests(images):
+    cuts, k = [0], 0
+    while cuts[-1] < len(images):
+        cuts.append(min(len(images),
+                        cuts[-1] + SERVE16_SIZES[k % len(SERVE16_SIZES)]))
+        k += 1
+    return [images[a:b] for a, b in zip(cuts, cuts[1:])]
+
+
+def serve16_train(mx, root):
+    """The mlp trained through Module.fit(checkpoint_dir=) on the card,
+    then a torn checkpoint newer than every valid one (a copy of the
+    newest with its arrays shard damaged).  Returns (module, newest
+    valid step)."""
+    from incubator_mxnet_tpu_torch import checkpoint as ckpt
+    train, _ = mnist_iters(mx)
+    mod = mx.mod.Module(mlp_symbol(mx), context=mx.gpu(0))
+    mx.random.seed(SEED)
+    mod.fit(train, num_epoch=CKPT16["epochs"], optimizer="sgd",
+            optimizer_params={"learning_rate": TRAIN_LR,
+                              "momentum": TRAIN_MOMENTUM},
+            initializer=mx.initializer.Xavier(), checkpoint_dir=root,
+            checkpoint_period=CKPT16["period"])
+    newest = ckpt.latest(root)
+    step = ckpt.load(newest).step
+    torn = os.path.join(root, ckpt.manifest.checkpoint_dirname(step + 1000))
+    shutil.copytree(newest, torn)
+    with open(os.path.join(torn, ckpt.snapshot.ARRAYS_SHARD), "r+b") as f:
+        f.seek(256)
+        f.write(b"\xa5" * 64)
+    check(ckpt.latest(root) == newest, "16b: latest() took the torn "
+          "checkpoint")
+    return mod, step
+
+
+def serve16(mx, card, workdir):
+    """16b: the trained mlp served from its checkpoint directory (a torn
+    newer one beside it) through ModelServer.load_model(symbol_file=,
+    checkpoint_dir=), partitioned by TPU_PALLAS; 16c: the breaker and
+    retry scripts on the card; returns the numbers and the server's
+    answers."""
+    from incubator_mxnet_tpu_torch import checkpoint as ckpt
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    root = tempfile.mkdtemp(dir=workdir, prefix="ckpt16-")
+    out = {}
+    try:
+        mod, step = serve16_train(mx, root)
+        symbol_file = os.path.join(root, "mlp-symbol.json")
+        mx.subgraph.partition_graph(mlp_symbol(mx), "TPU_PALLAS").save(
+            symbol_file)
+        _, val = mnist_iters(mx)
+        images = val.data[0][1]
+        want = mod.predict(val).asnumpy()
+        reqs = serve16_requests(images)
+        for m in SERVE16_BUCKETS:
+            k1_held(m, "16b")
+        srv = mx.serving.ModelServer(max_queue_latency_ms=2.0,
+                                     ctx=mx.gpu(0))
+        try:
+            srv.load_model("mlp", symbol_file=symbol_file,
+                           checkpoint_dir=root,
+                           data_shapes=[("data", (1, 1, 28, 28))],
+                           buckets=SERVE16_BUCKETS)
+            snap = ckpt.load(ckpt.latest(root))
+            held_ = srv.model("mlp")._infer._state[0]
+            equal = all(np.array_equal(held_[k[4:]].cpu().numpy(), v)
+                        for k, v in snap.arrays.items())
+            check(equal and snap.step == step, "16b: the served parameters "
+                  "are not the newest valid snapshot's")
+            fc_relu.launches = 0
+            futs = [srv.submit("mlp", {"data": r}) for r in reqs]
+            got = np.concatenate([f.result(120)[0].asnumpy() for f in futs])
+            batches = srv.stats()["mlp"]["batches"]
+            launches = fc_relu.launches
+        finally:
+            srv.shutdown(drain=True)
+        worst = op_ratio(got, want, SERVE_TRAIN_TOL)
+        check(worst <= 1.0, f"16b: served answers vs Module.predict at "
+              f"{worst:.3f} of rtol 1e-4 + 1e-5*max")
+        check(launches == 2 * batches, f"16b: K1 launched {launches} times "
+              f"for {batches} served batches")
+        print(f"serve16 checkpoint dir: newest valid snapshot step {step} "
+              f"(a torn step {step + 1000} beside it), loaded parameters "
+              f"equal it; {len(reqs)} requests of 1-32 rows in {batches} "
+              f"batches vs Module.predict {worst:.3f} of rtol 1e-4 + "
+              f"1e-5*max; K1 {launches} launches (2 a batch) [{card}]")
+        out.update(k1_launches=launches, batches=batches, worst=worst)
+        out["breaker"] = breaker16(mx, card, symbol_file, root, images)
+        out["k1_launches"] += out["breaker"]["k1_launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def breaker16_run(mx, ctx, symbol_file, root, x):
+    """The JAX scripts of tests/test_resilience.py:467 and :489 on one
+    device: two failed batches open the breaker, submit fails fast,
+    the probe after the reset window closes it; then two failed
+    attempts under RetryPolicy(max_attempts=3) and the third answers.
+    Returns (counters, the two answers)."""
+    from incubator_mxnet_tpu_torch import resilience
+    res, answers = {}, []
+    common = dict(symbol_file=symbol_file, checkpoint_dir=root,
+                  data_shapes=[("data", (1, 1, 28, 28))], buckets=(1, 2))
+    resilience.clear()
+    try:
+        with mx.serving.ModelServer(max_queue_latency_ms=0.0,
+                                    ctx=ctx) as srv:
+            srv.load_model("brk", breaker_threshold=2, breaker_reset_s=0.25,
+                           **common)
+            resilience.inject("serving.execute", "error", n=2)
+            fails = 0
+            for _ in range(2):
+                try:
+                    srv.predict("brk", {"data": x})
+                except mx.MXNetError as e:
+                    fails += "fault-injected" in str(e)
+            try:
+                srv.submit("brk", {"data": x})
+                fast = False
+            except mx.MXNetError as e:
+                fast = "circuit breaker is open" in str(e)
+            s = srv.stats()["brk"]
+            res["open"] = (fails, fast, s["breaker_state"],
+                           s["breaker_rejects"])
+            time.sleep(0.3)
+            answers.append(srv.predict("brk", {"data": x})[0].asnumpy())
+            s = srv.stats()["brk"]
+            res["closed"] = (s["breaker_state"], s["breaker_rejects"],
+                             s["responses"], len(resilience.trace()))
+        resilience.clear()
+        with mx.serving.ModelServer(max_queue_latency_ms=0.0,
+                                    ctx=ctx) as srv:
+            srv.load_model("rty", retry_policy=resilience.RetryPolicy(
+                max_attempts=3, base_delay=0.01, jitter=0.0), **common)
+            resilience.inject("serving.execute", "error", n=2)
+            answers.append(srv.predict("rty", {"data": x})[0].asnumpy())
+            s = srv.stats()["rty"]
+            res["retry"] = (s["retry_histogram"], s["breaker_state"],
+                            s["responses"])
+    finally:
+        resilience.clear()
+    return res, answers
+
+
+def breaker16(mx, card, symbol_file, root, images):
+    """16c: the breaker and retry scripts on the card against the CPU:
+    the counters equal, the answers equal the 16b server's."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    x = images[:1]
+    fc_relu.launches = 0
+    g_res, g_ans = breaker16_run(mx, mx.gpu(0), symbol_file, root, x)
+    launches = fc_relu.launches
+    c_res, c_ans = breaker16_run(mx, mx.cpu(), symbol_file, root, x)
+    check(g_res == c_res, f"16c: the card's counters {g_res} differ from "
+          f"the CPU's {c_res}")
+    check(g_res["open"] == (2, True, "open", 1) and
+          g_res["closed"] == ("closed", 1, 1, 2) and
+          g_res["retry"] == ({1: 1, 2: 1}, "closed", 1),
+          f"16c: the scripts saw {g_res}")
+    with mx.serving.ModelServer(ctx=mx.gpu(0)) as srv:
+        srv.load_model("mlp", symbol_file=symbol_file, checkpoint_dir=root,
+                       data_shapes=[("data", (1, 1, 28, 28))], buckets=(1,))
+        ref = srv.predict("mlp", {"data": x})[0].asnumpy()
+    same = all(np.array_equal(a, ref) for a in g_ans)
+    cpu = max(op_ratio(a, ref, SERVE_TRAIN_TOL) for a in c_ans)
+    check(same and cpu <= 1.0, f"16c: answers equal 16b's {same}, the CPU's "
+          f"at {cpu:.3f} of the tolerance")
+    print(f"breaker16 on the card: 2 failed batches opened the breaker, "
+          f"submit failed fast (breaker_rejects {g_res['open'][3]}), the "
+          f"probe after 0.25 s closed it; RetryPolicy(max_attempts=3) "
+          f"histogram {g_res['retry'][0]}; counters equal the CPU's; "
+          f"answers equal 16b's bit for bit, the CPU's at {cpu:.3f} of rtol "
+          f"1e-4 + 1e-5*max; K1 {launches} launches [{card}]")
+    return {"k1_launches": launches, "counters": g_res}
+
+
+def c16_input(shape):
+    """The C program's input: element i is ((i * 7919) % 1000) / 1000."""
+    i = np.arange(int(np.prod(shape)), dtype=np.uint64)
+    return ((i * 7919) % 1000).astype(np.float32).reshape(shape) * \
+        np.float32(0.001)
+
+
+def c16(mx, card, workdir):
+    """16d: the C predict ABI on the card: the shim built from the
+    checkout, a C program compiled with g++ against it, run with dev_type
+    2 on the TPU_PALLAS-partitioned mlp at batch 32, against an
+    in-process predictor; dev_type 1 against the card; dev_type 7
+    refused."""
+    from incubator_mxnet_tpu_torch import c_predict, native
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    t0 = time.perf_counter()
+    k1_held(C16_BATCH, "16d")
+    lib = native.build_predict()
+    tmp = tempfile.mkdtemp(dir=workdir, prefix="c16-")
+    try:
+        exe = os.path.join(tmp, "main")
+        proc = subprocess.run(["g++", "-x", "c++",
+                               str(native.PREDICT_EXAMPLE), "-o", exe,
+                               *native.predict_flags(lib)],
+                              capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"16d: g++ failed: {proc.stderr[-2000:]}")
+        build_s = time.perf_counter() - t0
+        sym = mx.subgraph.partition_graph(mlp_symbol(mx), "TPU_PALLAS")
+        rng = np.random.RandomState(SEED + 16)
+        shapes, _, _ = sym.infer_shape(data=(C16_BATCH, 1, 28, 28))
+        params = {n: mx.nd.array(rng.normal(0, 0.05, s).astype("f4"),
+                                 ctx=mx.cpu())
+                  for n, s in zip(sym.list_arguments(), shapes)
+                  if n not in ("data", "softmax_label")}
+        prefix = os.path.join(tmp, "mlp")
+        mx.model.save_checkpoint(prefix, 0, sym, params, {})
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=here)
+        dims = [str(C16_BATCH), "1", "28", "28"]
+        runs = {}
+        procs = {dt: subprocess.Popen(
+            [exe, prefix + "-symbol.json", prefix + "-0000.params", str(dt),
+             *dims], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env, cwd=tmp) for dt in (2, 1, 7)}
+        try:
+            for dt, p in procs.items():
+                o, e = p.communicate(timeout=600)
+                runs[dt] = (p.returncode, o, e)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for dt in (2, 1):
+            rc, o, e = runs[dt]
+            check(rc == 0, f"16d: the C program (dev_type {dt}) exit {rc}: "
+                  f"{o[-500:]} {e[-2000:]}")
+        rc7, o7, _ = runs[7]
+        check(rc7 == 3 and "dev_type 7" in o7, f"16d: dev_type 7 exit {rc7}, "
+              f"{o7[-300:]}")
+
+        def parsed(o):
+            lines = o.strip().splitlines()
+            check(lines[0] == f"shape {C16_BATCH}x10", f"16d: {lines[0]}")
+            return np.array([float(v) for v in lines[1].split()],
+                            np.float32).reshape(C16_BATCH, 10)
+        g_c, c_c = parsed(runs[2][1]), parsed(runs[1][1])
+        with open(prefix + "-symbol.json") as f:
+            js = f.read()
+        with open(prefix + "-0000.params", "rb") as f:
+            pb = f.read()
+        pred = c_predict.create(js, pb, 2, 0, ["data"],
+                                [(C16_BATCH, 1, 28, 28)])
+        pred.set_input("data", c16_input((C16_BATCH, 1, 28, 28)).ravel())
+        fc_relu.launches = 0
+        pred.forward()
+        launches = fc_relu.launches
+        inproc = np.frombuffer(pred.output(0), np.float32).reshape(
+            C16_BATCH, 10)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    exact = lstm_ratio({"out": g_c}, {"out": inproc},
+                       (C16_EXACT, 0.0))[0]
+    cpu = op_ratio(c_c, g_c, SERVE_TRAIN_TOL)
+    check(exact <= 1.0, f"16d: the C program vs in process at {exact:.3f} "
+          "of rtol 1e-6")
+    check(launches == 2, f"16d: K1 launched {launches} times in one forward")
+    check(cpu <= 1.0, f"16d: dev_type 1 vs 2 at {cpu:.3f} of rtol 1e-4 + "
+          "1e-5*max")
+    print(f"c16 C predict ABI: shim + C program built in {build_s:.1f} s "
+          f"({os.path.relpath(lib, here)}); dev_type 2, mlp (TPU_PALLAS) "
+          f"at batch {C16_BATCH}: the C program's outputs vs an in-process "
+          f"predictor {exact:.3f} of rtol 1e-6; K1 {launches} launches a "
+          f"forward; dev_type 1 vs 2 {cpu:.3f} of rtol 1e-4 + 1e-5*max; "
+          f"dev_type 7 refused ({o7.strip()[:80]!r}) [{card}]")
+    return {"k1_launches": launches, "build_s": build_s}
+
+
+def resume16_child(mode, ckpt_dir, out_path):
+    """Phase 16e's child process (`python -c`): config #4 at its
+    published widths (LSTM_CFG) on RESUME16's corpus and buckets through
+    BucketingModule.fit on the card under
+    torch.use_deterministic_algorithms(True), momentum 0.9.  `mode`:
+    "full", "kill" (SIGKILL itself after batch kill_after), "term"
+    (waits at batch term_after for SIGTERM: a final snapshot and exit
+    143), "resume".  Prints "STEP n"; writes the sha256 of every bucket's
+    parameters, every momentum and the update count to `out_path`."""
+    import hashlib
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.compat import weights
+    r = RESUME16
+    cfg = dict(LSTM_CFG, sentences=r["sentences"], buckets=r["buckets"])
+    it = lstm_iter(mx, lstm_corpus(cfg), cfg)
+    mx.random.seed(SEED)
+    mod = mx.mod.BucketingModule(lstm_sym_gen(mx, cfg),
+                                 default_bucket_key=max(cfg["buckets"]),
+                                 context=mx.gpu(0))
+    done = {"n": 0}
+
+    def cb(p):
+        done["n"] += 1
+        step = p.locals["gstep"] + 1
+        print(f"STEP {step}", flush=True)
+        if mode == "kill" and step == r["kill_after"]:
+            torch.cuda.synchronize()
+            os.kill(os.getpid(), signal.SIGKILL)
+        if mode == "term" and step == r["term_after"]:
+            mgr = p.locals["ckpt_mgr"]
+            deadline = time.time() + 120
+            while not mgr.preempt_requested and time.time() < deadline:
+                time.sleep(0.02)
+
+    mod.fit(it, num_epoch=r["epochs"], optimizer="sgd",
+            optimizer_params=dict(LSTM_OPT, momentum=0.9),
+            eval_metric=mx.metric.Perplexity(0), initializer=lstm_init(mx),
+            checkpoint_dir=None if mode == "full" else ckpt_dir,
+            checkpoint_period=r["period"], checkpoint_keep_last=2,
+            resume=mode == "resume", batch_end_callback=cb, kvstore=None)
+    default = mod._buckets[max(cfg["buckets"])]
+    names = default._exec_group.param_names
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    out = {"param:" + k: digest(v) for k, v in
+           weights.bucketing_params_to_numpy(mod).items()}
+    out.update({"momentum:" + names[i]: digest(s.asnumpy())
+                for i, s in default._updater.states.items()})
+    out["num_update"] = default._optimizer.num_update
+    out["batches_run"] = done["n"]
+    out["buckets"] = sorted(mod._buckets)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def resume16(mx, card, workdir):
+    """16e: BucketingModule.fit(checkpoint_dir=) on config #4 across
+    processes, as 10c: uninterrupted; SIGKILL after batch kill_after;
+    SIGTERM at batch term_after (exit 143, a final snapshot marked
+    preempted); both resumed; every parameter, begin state and momentum
+    sha256-equal to the uninterrupted fit's."""
+    from incubator_mxnet_tpu_torch import checkpoint as ckpt
+    r = RESUME16
+    env = dict(os.environ, **LM_RESUME_ENV)
+    root = tempfile.mkdtemp(dir=workdir, prefix="resume16-")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.resume16_child(*sys.argv[1:]))")
+    procs = {}
+
+    def spawn(name, mode, d):
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", code, mode, d,
+             os.path.join(root, name + ".json")], cwd=here, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(name, timeout=600):
+        out, err = procs[name].communicate(timeout=timeout)
+        return procs[name].returncode, out, err
+
+    kill_dir, term_dir = os.path.join(root, "kill"), os.path.join(root,
+                                                                  "term")
+    t0 = time.perf_counter()
+    try:
+        spawn("full", "full", "-")
+        spawn("kill", "kill", kill_dir)
+        spawn("term", "term", term_dir)
+        term, seen = procs["term"], []
+        for line in term.stdout:
+            seen.append(line)
+            if line.strip() == f"STEP {r['term_after']}":
+                term.send_signal(signal.SIGTERM)
+                break
+        codes = {name: finish(name) for name in ("full", "kill", "term")}
+        codes["term"] = (codes["term"][0], "".join(seen) + codes["term"][1],
+                         codes["term"][2])
+        for name, want in (("full", 0), ("kill", -signal.SIGKILL),
+                           ("term", 143)):
+            rc, out, err = codes[name]
+            check(rc == want, f"16e {name}: exit {rc}, expected {want}: "
+                  f"{out[-800:]} {err[-2000:]}")
+        last_term = ckpt.load(ckpt.latest(term_dir))
+        check(last_term.meta.get("preempted") is True and
+              last_term.step == r["term_after"],
+              f"16e: SIGTERM's snapshot is step {last_term.step}, meta "
+              f"{last_term.meta}")
+        kill_step = ckpt.load(ckpt.latest(kill_dir)).step
+        spawn("resume_kill", "resume", kill_dir)
+        spawn("resume_term", "resume", term_dir)
+        for name in ("resume_kill", "resume_term"):
+            rc, out, err = finish(name)
+            check(rc == 0, f"16e {name}: exit {rc}: {err[-2000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = {}
+    for name in ("full", "resume_kill", "resume_term"):
+        with open(os.path.join(root, name + ".json")) as f:
+            res[name] = json.load(f)
+    shutil.rmtree(root, ignore_errors=True)
+    arrays = [k for k in res["full"] if ":" in k]
+    for name in ("resume_kill", "resume_term"):
+        off = [k for k in arrays if res[name].get(k) != res["full"][k]]
+        check(not off and res[name]["num_update"] ==
+              res["full"]["num_update"], f"16e {name}: {len(off)} of "
+              f"{len(arrays)} arrays differ from the uninterrupted fit "
+              f"({off[:4]})")
+    begin = sum("begin_state" in k for k in arrays if k.startswith("param:"))
+    cfg = LSTM_CFG
+    print(f"resume16 config #4 ({cfg['layers']}x{cfg['hidden']} LSTM, vocab "
+          f"{cfg['vocab']}, batch {cfg['batch']}, buckets "
+          f"{'/'.join(map(str, r['buckets']))}, {r['sentences']} sentences, "
+          f"{res['full']['num_update']} batches over {r['epochs']} epochs) "
+          f"through BucketingModule.fit(checkpoint_dir=): SIGKILL after "
+          f"batch {r['kill_after']} (resumed from step {kill_step}) and "
+          f"SIGTERM at batch {r['term_after']} (exit 143, preempted "
+          f"snapshot) both resumed sha256-equal to the uninterrupted fit "
+          f"over {len(arrays)} arrays ({begin} begin states, the momenta) "
+          f"in {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"arrays": len(arrays), "batches": res["full"]["num_update"]}
+
+
+def state16_net(mx):
+    """An RNN-like step with a carried state input: tanh(W x + U s)."""
+    s = mx.sym
+    h = s.FullyConnected(s.Variable("data"), num_hidden=200, name="wx") + \
+        s.FullyConnected(s.Variable("state", shape=(32, 200)),
+                         num_hidden=200, no_bias=True, name="us")
+    out = s.FullyConnected(s.tanh(h), num_hidden=10, name="out")
+    return s.SoftmaxOutput(out, name="softmax")
+
+
+def state16_step(mx, ctx, x, y, state):
+    mod = mx.mod.Module(state16_net(mx), state_names=["state"], context=ctx)
+    mod.bind([("data", x.shape)], [("softmax_label", y.shape)])
+    mx.random.seed(SEED)
+    mod.init_params(mx.initializer.Xavier())
+    mod.init_optimizer(optimizer_params={"learning_rate": TRAIN_LR,
+                                         "momentum": TRAIN_MOMENTUM})
+    check(mod._fused_step is None and "state" not in mod._param_names,
+          "16e: a state input became a parameter or took the fused step")
+    mod.set_states(states=[state])
+    batch = mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu())],
+                            [mx.nd.array(y, ctx=mx.cpu())])
+    mod.fit_step(batch, mx.metric.create("acc"))
+    names = mod._exec_group.param_names
+    return ({k: v.asnumpy() for k, v in mod.get_params()[0].items()},
+            {names[i]: s.asnumpy() for i, s in mod._updater.states.items()},
+            mod.get_states()[0].asnumpy())
+
+
+def state16(mx, card):
+    """16e: a Module(state_names=["state"]) step on the card against the
+    CPU at 11a's gates; the state comes back as it was written."""
+    rng = np.random.RandomState(SEED + 160)
+    x = rng.normal(0, 1, (32, 200)).astype("f4")
+    y = rng.randint(0, 10, 32).astype("f4")
+    state = rng.normal(0, 1, (32, 200)).astype("f4")
+    g = state16_step(mx, mx.gpu(0), x, y, state)
+    c = state16_step(mx, mx.cpu(), x, y, state)
+    worst = max(lstm_ratio(g[0], c[0])[0], lstm_ratio(g[1], c[1])[0])
+    check(worst <= 1.0 and np.array_equal(g[2], state),
+          f"16e: state_names step card vs CPU at {worst:.3f}")
+    print(f"state16 Module(state_names=['state']): one step on the card vs "
+          f"the CPU, parameters and momenta {worst:.3f} of rtol 1e-3 + "
+          f"1e-4*max; the state bound, untrained, as written [{card}]")
+    return worst
+
+
+def utils16(mx, card):
+    """16f: test_utils on the card: check_consistency over [cpu(0),
+    gpu(0)] on the partitioned mlp (K1 forward) and on lenet at the
+    default per-dtype tolerances; check_numeric_gradient in float64 for
+    FullyConnected and Convolution, and its refusal of SoftmaxOutput
+    (whose implicit gradient is not its output's) as on the CPU, with
+    SoftmaxOutput's gradient held by check_symbolic_backward."""
+    from incubator_mxnet_tpu_torch import test_utils as tu
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    batch = UTILS16_BATCH
+    k1_held(batch, "16f")
+    labels = {"softmax_label": np.arange(batch) % 10}
+    shapes = {"data": (batch, 1, 28, 28)}
+    ctx_list = [dict(ctx=mx.cpu(0), **shapes), dict(ctx=mx.gpu(0), **shapes)]
+    os.environ["MXNET_SUBGRAPH_BACKEND"] = "TPU_PALLAS"
+    try:
+        fc_relu.launches = 0
+        tu.check_consistency(mlp_symbol(mx), ctx_list, scale=0.1,
+                             arg_params=labels)
+        launches = fc_relu.launches
+    finally:
+        os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+    check(launches == 2, f"16f: K1 launched {launches} times in the card's "
+          "check_consistency forward")
+    lenet_list = [dict(ctx=mx.cpu(0), data=(4, 1, 28, 28)),
+                  dict(ctx=mx.gpu(0), data=(4, 1, 28, 28))]
+    tu.check_consistency(lenet_symbol(mx), lenet_list, scale=0.1,
+                         arg_params={"softmax_label": np.arange(4)})
+    rng = np.random.RandomState(SEED + 161)
+    d = mx.sym.Variable("data")
+    m, k, n = GRAD16["fc"]
+    tu.check_numeric_gradient(
+        mx.sym.FullyConnected(d, num_hidden=n, name="fc"),
+        {"data": rng.randn(m, k), "fc_weight": rng.randn(n, k),
+         "fc_bias": rng.randn(n)}, ctx=mx.gpu(0))
+    b, c, h, w, f, kk = GRAD16["conv"]
+    tu.check_numeric_gradient(
+        mx.sym.Convolution(d, kernel=(kk, kk), num_filter=f, name="cv"),
+        {"data": rng.randn(b, c, h, w), "cv_weight": rng.randn(f, c, kk, kk),
+         "cv_bias": rng.randn(f)}, ctx=mx.gpu(0))
+    sm = mx.sym.SoftmaxOutput(d, mx.sym.Variable("softmax_label"), name="sm")
+    z, lab = rng.randn(3, 4), np.array([0.0, 1.0, 3.0])
+    verdicts = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        try:
+            tu.check_numeric_gradient(sm, {"data": z, "softmax_label": lab},
+                                      grad_nodes=["data"], ctx=ctx)
+            verdicts.append("passed")
+        except AssertionError:
+            verdicts.append("rejected")
+    check(verdicts == ["rejected", "rejected"], f"16f: SoftmaxOutput's "
+          f"numeric check {verdicts} on (card, CPU)")
+    p = np.exp(z - z.max(1, keepdims=True))
+    p /= p.sum(1, keepdims=True)
+    tu.check_symbolic_backward(sm, {"data": z, "softmax_label": lab}, None,
+                               {"data": p - np.eye(4)[lab.astype(int)]},
+                               rtol=1e-5, atol=1e-6, ctx=mx.gpu(0))
+    print(f"utils16 test_utils on the card: check_consistency [cpu(0), "
+          f"gpu(0)] on the mlp (TPU_PALLAS, K1 {launches} launches) and "
+          f"lenet at the default tolerances; check_numeric_gradient float64 "
+          f"FullyConnected {GRAD16['fc']} and Convolution {GRAD16['conv']} "
+          f"passed, SoftmaxOutput rejected on both devices, its gradient "
+          f"p - onehot held by check_symbolic_backward [{card}]")
+    return {"k1_launches": launches}
+
+
+def api_phase(card, workdir):
+    """Phase 16; returns K1's launches on each of its new paths.  K2 and
+    K3 must not run."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_stream)
+    for wrapper in (flash_fwd, flash_fwd_stream):
+        wrapper.launches = 0
+    out, times = {}, {}
+    old = os.environ.get("MXNET_SUBGRAPH_BACKEND")
+    os.environ["MXNET_SUBGRAPH_BACKEND"] = "TPU_PALLAS"
+    try:
+        for key, fn in (("16a", lambda: ff16(mx, card, workdir)),
+                        ("16b", lambda: serve16(mx, card, workdir)),
+                        ("16d", lambda: c16(mx, card, workdir))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            times[key] = time.perf_counter() - t0
+            print(f"phase {key}: {times[key]:.1f} s")
+    finally:
+        os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+        if old is not None:
+            os.environ["MXNET_SUBGRAPH_BACKEND"] = old
+    for key, fn in (("16e", lambda: (resume16(mx, card, workdir),
+                                     state16(mx, card))),
+                    ("16f", lambda: utils16(mx, card))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        times[key] = time.perf_counter() - t0
+        print(f"phase {key}: {time.perf_counter() - t0:.1f} s")
+    check([flash_fwd.launches, flash_fwd_stream.launches] == [0, 0],
+          "phase 16: K2/K3 ran")
+    out["times"] = times
+    out["k1"] = {"feedforward": out["16a"]["k1_launches"],
+                 "checkpoint_serving": out["16b"]["k1_launches"],
+                 "c_predict": out["16d"]["k1_launches"],
+                 "check_consistency": out["16f"]["k1_launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -7924,6 +8663,9 @@ def main():
     t0 = time.perf_counter()
     reg = registry_phase(card)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    api = api_phase(card, str(_build.BUILD_DIR.parent))
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -8064,6 +8806,15 @@ def main():
           f"vs one Module {seq['split_worst']:.3f}, monitor "
           f"{seq['monitor_worst']:.3f}, accuracy {seq['accuracy']:.4f}, "
           f"step {seq['step_ms']:.3f} ms [{card}]")
+    print(f"api summary: 16a FeedForward vs Module {api['16a']['vs_module']:.3f}"
+          f" of the tolerance; 16b {api['16b']['batches']} served batches "
+          f"from the checkpoint dir, worst {api['16b']['worst']:.3f}; 16c "
+          f"counters {api['16b']['breaker']['counters']}; 16d shim built in "
+          f"{api['16d']['build_s']:.1f} s; 16e {api['16e'][0]['arrays']} "
+          f"arrays sha256-equal over {api['16e'][0]['batches']} batches; K1 "
+          f"launches {api['k1']}; " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in api["times"].items())
+          + f" [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"
@@ -8081,12 +8832,12 @@ def main():
         "source": "incubator_mxnet_tpu_torch/csrc/fc_relu.cu",
         "replaces": "incubator_mxnet_tpu/subgraph/fused_ops.py:29",
         "launches": launches + train_launches + kvp["dp_launches"]
-        + kvp["wd_launches"] + seq["k1_launches"],
+        + kvp["wd_launches"] + seq["k1_launches"] + sum(api["k1"].values()),
         "paths": {"serving": launches, "training": train_launches,
                   "data_parallel": kvp["dp_launches"],
                   "wide_deep": kvp["wd_launches"],
                   "sequential_module": seq["k1_launches"],
-                  "dist_sync_workers": dist["launches"]},
+                  "dist_sync_workers": dist["launches"], **api["k1"]},
         "max_abs_err": rep["max_abs_err"],
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

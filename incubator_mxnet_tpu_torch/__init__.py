@@ -56,6 +56,13 @@ registry ops; `nd.random`, `nd.linalg`, `sym.random`, `sym.linalg`) and
 the training API: every optimizer, metric and initializer of the JAX
 package, `monitor.Monitor`, `attribute.AttrScope`,
 `mod.SequentialModule`, `mod.PythonModule` and `mod.PythonLossModule`.
+Slice 14 adds the training API's stragglers (`model.FeedForward`,
+`callback.ProgressBar`, `callback.elastic_checkpoint`,
+`io.pad_to_bucket`, the `test_utils` checks, ``state_names`` and
+`BucketingModule.fit(checkpoint_dir=)`) and the serving path's edges
+(`resilience.faults`, the batcher's circuit breaker and retries,
+checkpoint-directory serving, a `Monitor` on the request path, and the
+C predict ABI: `c_predict` and the shim ``csrc/c_predict_api.cc``).
 
     import incubator_mxnet_tpu_torch as mx
 """

@@ -7,8 +7,11 @@ resumable checkpoint holds beyond the weights: the optimizer's states
 schedule's position travel along; the data iterator's position; and
 every random stream the port consumes (`random.py`'s host SeedSequence
 counter, its torch Generator chain, numpy's global generator, which
-`NDArrayIter` shuffles with).  Restoring all of it makes a resumed run
-bit-for-bit identical to an uninterrupted one on the same device.
+`NDArrayIter` shuffles with, and Python's `random`, which
+`BucketSentenceIter` shuffles its batch order with).  A
+`BucketingModule`'s snapshot also lists the buckets bound so far and
+holds each bucket's own arrays beside the shared ones.  Restoring all
+of it makes a resumed run bit-for-bit identical to an uninterrupted one on the same device.
 
 A Module's parameters are staged from the executor's arrays on the
 device (`capture_module`), not from the host copies `get_params`
@@ -22,6 +25,7 @@ divergence.
 from __future__ import annotations
 
 import pickle
+import random as _pyrandom
 
 import numpy as np
 
@@ -31,6 +35,7 @@ from . import snapshot as _snapshot
 OPTIMIZER_BLOB = "optimizer"
 ITERATOR_BLOB = "iterator"
 TRAINER_BLOB = "trainer"
+BUCKETS_BLOB = "buckets"
 NET_ARRAYS_PREFIX = "param:"
 
 
@@ -46,6 +51,8 @@ def capture_rng():
     name, keys, pos, has_gauss, cached = np.random.get_state()
     state["numpy"] = [name, np.asarray(keys).tolist(), int(pos),
                       int(has_gauss), float(cached)]
+    version, internal, gauss = _pyrandom.getstate()
+    state["python"] = [version, list(internal), gauss]
     return state
 
 
@@ -62,6 +69,9 @@ def restore_rng(state):
         name, keys, pos, has_gauss, cached = state["numpy"]
         np.random.set_state((name, np.asarray(keys, dtype=np.uint32),
                              int(pos), int(has_gauss), float(cached)))
+    if "python" in state:
+        version, internal, gauss = state["python"]
+        _pyrandom.setstate((version, tuple(internal), gauss))
 
 
 # -- data iterators ----------------------------------------------------------
@@ -139,7 +149,8 @@ def capture_module(mod, data_iter=None):
     update on the kvstore, the store's blob from
     `get_optimizer_states_blob`), the iterator's native state when
     given.  `staged` lists the optimizer's staging (its buffers go back
-    to the pool once the callable ran)."""
+    to the pool once the callable ran).  Modules call it through their
+    `_checkpoint_capture`, which `BucketingModule` extends."""
     group = mod._exec_group
     arrays = {f"arg:{n}": blk[0] for n, blk in
               zip(group.param_names, group.param_arrays)}

@@ -2,8 +2,9 @@
 
 PyTorch port of `incubator_mxnet_tpu/io.py`: `DataDesc`, `DataBatch`,
 `DataIter`, `NDArrayIter`, `ResizeIter`, `PrefetchingIter`, `CSVIter`,
-`MNISTIter`, `LibSVMIter` and the `ImageRecordIter` factory (its engine
-is `image.ImageRecordIterImpl`).  Batches are NDArrays on the CPU; the
+`MNISTIter`, `LibSVMIter`, the `ImageRecordIter` factory (its engine
+is `image.ImageRecordIterImpl`) and `pad_to_bucket`, which pads a short
+batch up to a bound batch size.  Batches are NDArrays on the CPU; the
 h2d ring (`io_plane`) or an executor copies them to its device.
 `NDArrayIter` shuffles with the global ``np.random``, as the JAX
 package's does, so one numpy seed gives both packages the same batch
@@ -23,7 +24,7 @@ from .ndarray.ndarray import NDArray, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "CSVIter", "MNISTIter", "LibSVMIter",
-           "ImageRecordIter", "ImageRecordIter_v1"]
+           "ImageRecordIter", "ImageRecordIter_v1", "pad_to_bucket"]
 
 
 class DataDesc:
@@ -69,6 +70,46 @@ class DataBatch:
         label_shapes = [l.shape for l in self.label] if self.label else None
         return f"{self.__class__.__name__}: data shapes: {data_shapes} " \
                f"label shapes: {label_shapes}"
+
+    def pad_to_bucket(self, buckets):
+        """This batch padded up to the nearest bucket (`pad_to_bucket`)."""
+        return pad_to_bucket(self, buckets)
+
+
+def _pad_rows(arr, pad):
+    """`arr` (NDArray or numpy) with `pad` copies of its final row
+    appended."""
+    if isinstance(arr, NDArray):
+        import torch
+        t = arr.data
+        return NDArray(torch.cat([t, t[-1:].expand(pad, *t.shape[1:])]),
+                       ctx=arr.context)
+    arr = _np.asarray(arr)
+    return _np.concatenate([arr, _np.repeat(arr[-1:], pad, axis=0)])
+
+
+def pad_to_bucket(batch, buckets):
+    """`batch` padded along the batch axis to the smallest of `buckets`
+    that holds it, the pad rows (copies of the final sample) counted in
+    ``pad`` (JAX `io.py:106`).  A batch that already
+    fills a bucket, or exceeds them all, comes back as it is; otherwise
+    a new DataBatch (the input is not changed).  `BaseModule.predict`
+    pads a ragged final batch to the bound batch this way, so the tail
+    runs on the bound executor and its pad rows are sliced off."""
+    if not batch.data:
+        return batch
+    n = int(batch.data[0].shape[0])
+    target = next((b for b in sorted(int(x) for x in buckets) if n <= b),
+                  None)
+    if target is None or target == n:
+        return batch
+    pad = target - n
+    return DataBatch(
+        data=[_pad_rows(d, pad) for d in batch.data],
+        label=[_pad_rows(l, pad) for l in (batch.label or [])] or None,
+        pad=(batch.pad or 0) + pad, index=batch.index,
+        bucket_key=batch.bucket_key, provide_data=batch.provide_data,
+        provide_label=batch.provide_label)
 
 
 class DataIter:
@@ -189,8 +230,11 @@ class NDArrayIter(DataIter):
         elif self.last_batch_handle == "discard":
             raise StopIteration
         else:
+            # wrap to the epoch's start, cyclically: a dataset smaller
+            # than the batch still fills it (the JAX iterator wraps once
+            # and returns a short batch whose pad exceeds its rows)
             sel = _np.concatenate([self.idx[self.cursor:],
-                                   self.idx[:end - self.num_data]])
+                                   _np.resize(self.idx, end - self.num_data)])
         return [array(v[sel], ctx=cpu(), dtype=v.dtype)
                 for _, v in data_source]
 

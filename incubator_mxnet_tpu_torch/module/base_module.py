@@ -86,16 +86,35 @@ class BaseModule:
                 cb(params)
         return eval_metric.get_name_value()
 
+    def _infer_buckets(self, eval_data):
+        """The batch sizes an inference batch pads up to: the iterator's
+        batch size and the bound batch (JAX `base_module.py:109`)."""
+        buckets = set()
+        bs = getattr(eval_data, "batch_size", 0) or 0
+        if bs:
+            buckets.add(int(bs))
+        shapes = getattr(self, "_data_shapes", None) if self.binded else None
+        if shapes:
+            d = shapes[0]
+            shape = d.shape if hasattr(d, "shape") else d[1]
+            if shape:
+                buckets.add(int(shape[0]))
+        return sorted(buckets)
+
     def iter_predict(self, eval_data, num_batch=None, reset=True):
         """Yield (outputs without pad rows, nbatch, batch) per batch.  A
-        batch of another size runs at its own size (the JAX package pads
-        it to a compiled bucket instead, to spare XLA a compile)."""
+        ragged final batch is padded up to the iterator's (or the bound)
+        batch size first (`io.pad_to_bucket`), so it runs on the bound
+        executor: no rebind, no second executor."""
         assert self.binded and self.params_initialized
         if reset:
             eval_data.reset()
+        buckets = self._infer_buckets(eval_data)
         for nbatch, eval_batch in enumerate(eval_data):
             if num_batch is not None and nbatch == num_batch:
                 break
+            if buckets:
+                eval_batch = _io.pad_to_bucket(eval_batch, buckets)
             self.forward(eval_batch, is_train=False)
             pad = eval_batch.pad or 0
             yield ([out[0:out.shape[0] - pad] for out in self.get_outputs()],
@@ -192,6 +211,9 @@ class BaseModule:
         self.init_params(initializer=initializer or Uniform(0.01),
                          arg_params=arg_params, aux_params=aux_params,
                          allow_missing=allow_missing, force_init=force_init)
+        if ckpt_resume is not None:
+            # a BucketingModule binds the buckets the snapshot had bound
+            self._restore_checkpoint_layout(ckpt_resume)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
         if monitor is not None:
@@ -327,14 +349,23 @@ class BaseModule:
             name="fit")
         return wrapped, wrapped
 
+    def _checkpoint_capture(self, data_iter=None):
+        """(arrays, blobs, staged) of one elastic snapshot
+        (`checkpoint.state.capture_module`)."""
+        from ..checkpoint import state as _state
+        return _state.capture_module(self, data_iter)
+
+    def _restore_checkpoint_layout(self, ckpt):
+        """Rebuild what `_checkpoint_capture` records beyond the arrays,
+        the optimizer, the iterator and the random streams (nothing
+        here; `BucketingModule` binds its buckets)."""
+
     def _elastic_snapshot(self, mgr, train_data, epoch, nbatch, step,
                           sync=False, meta=None):
         """Stage one elastic checkpoint: device-to-host copies queued on
         the train step's stream, serialization and the atomic commit in
         the background (`checkpoint/`)."""
-        from .. import checkpoint as _ckpt
-        arrays, blobs, staged = _ckpt.state.capture_module(self,
-                                                           train_data)
+        arrays, blobs, staged = self._checkpoint_capture(train_data)
         meta = dict(meta or {})
         optimizer = getattr(self, "_optimizer", None)
         if optimizer is not None:

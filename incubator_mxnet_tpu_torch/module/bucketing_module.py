@@ -10,12 +10,21 @@ tensor whichever bucket ran.  The JAX package gives each bucket arrays
 of its own and copies every parameter into every other bucket after
 each `update` (a host round trip a step); the numbers are the same.
 Each bucket's `fit_step` runs its own fused train step
-(`fused.FusedTrainStep`).  `state_names` and the elastic checkpoints
-of `fit` are not ported for bucketing.
+(`fused.FusedTrainStep`).  ``state_names`` pass to every bucket's
+Module (`Module` says what they are).  `fit(checkpoint_dir=, resume=)`
+is `BaseModule.fit`'s elastic path: a snapshot
+(`_checkpoint_capture`) holds each shared array once, each
+bucket's own arrays (its begin states), the buckets bound so far, the
+shared optimizer's states, the iterator's position and order and the
+random streams; resume binds those buckets again in their order, writes
+their arrays, rebuilds every bucket's fused step around the restored
+optimizer, and only then restores the random streams, so a resumed fit
+is bit for bit the uninterrupted one.
 """
 from __future__ import annotations
 
 import logging
+import pickle
 
 from ..base import MXNetError
 from .base_module import BaseModule
@@ -31,8 +40,7 @@ class BucketingModule(BaseModule):
         if default_bucket_key is None:
             raise MXNetError("BucketingModule: default_bucket_key is "
                              "required")
-        if state_names:
-            raise MXNetError("BucketingModule: state_names are not ported")
+        self._state_names = state_names
         self._default_bucket_key = default_bucket_key
         self._sym_gen = sym_gen
         self._context = context
@@ -85,7 +93,8 @@ class BucketingModule(BaseModule):
         symbol, data_names, label_names = self._sym_gen(bucket_key)
         return Module(symbol, data_names, label_names, logger=self.logger,
                       context=self._context,
-                      fixed_param_names=self._fixed_param_names)
+                      fixed_param_names=self._fixed_param_names,
+                      state_names=self._state_names)
 
     # -- params ----------------------------------------------------------------
     def get_params(self):
@@ -213,11 +222,80 @@ class BucketingModule(BaseModule):
         self._params_dirty = True
         self._curr_module.fit_step(data_batch, eval_metric)
 
-    def fit(self, train_data, *args, **kwargs):
-        if kwargs.get("checkpoint_dir") is not None:
-            raise MXNetError("BucketingModule.fit: elastic checkpoints are "
-                             "not ported for bucketing")
-        super().fit(train_data, *args, **kwargs)
+    # -- state inputs ----------------------------------------------------------
+    def get_states(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        return self._curr_module.get_states(merge_multi_context)
+
+    def set_states(self, states=None, value=None):
+        assert self.binded and self.params_initialized
+        self._curr_module.set_states(states, value)
+
+    # -- elastic checkpoints -----------------------------------------------------
+    @property
+    def _default(self):
+        return self._buckets[self._default_bucket_key]
+
+    @property
+    def _optimizer(self):
+        return self._default._optimizer if self.binded else None
+
+    def _checkpoint_capture(self, data_iter=None):
+        """The default bucket's capture (its arrays are the shared ones,
+        its updater the shared optimizer's), each other bucket's own
+        arrays, and every bound bucket's (key, data shapes, label shapes)
+        in binding order (the ``buckets`` blob)."""
+        from ..checkpoint import state as _state
+        arrays, blobs, staged = self._default._checkpoint_capture(data_iter)
+        layout = []
+        for key, mod in self._buckets.items():
+            group = mod._exec_group
+            for prefix, names, blocks in (
+                    ("arg:", group.param_names, group.param_arrays),
+                    ("aux:", group.aux_names, group.aux_arrays)):
+                for n, blk in zip(names, blocks):
+                    arrays.setdefault(prefix + n, blk[0])
+            layout.append((key, [(d.name, tuple(d.shape))
+                                 for d in group.data_shapes],
+                           [(d.name, tuple(d.shape))
+                            for d in group.label_shapes]))
+        blobs[_state.BUCKETS_BLOB] = pickle.dumps(layout, protocol=4)
+        return arrays, blobs, staged
+
+    def _restore_checkpoint_layout(self, ckpt):
+        """Bind the buckets a checkpoint had bound, in its order, and
+        write each one's own arrays from it (the shared ones are the
+        default bucket's, already written)."""
+        from ..checkpoint import state as _state
+        blob = ckpt.blobs.get(_state.BUCKETS_BLOB)
+        if not blob:
+            return
+        arg_params, aux_params = _state.split_params(ckpt.arrays)
+        default = self._default
+        for key, data_shapes, label_shapes in pickle.loads(blob):
+            if key == self._default_bucket_key:
+                continue
+            self.switch_bucket(key, data_shapes, label_shapes or None)
+            mod = self._buckets[key]
+            for names, known, params, table in (
+                    (mod._param_names, default._param_names, arg_params,
+                     "arg_dict"),
+                    (mod._aux_names, default._aux_names, aux_params,
+                     "aux_dict")):
+                for name in set(names) - set(known):
+                    for e in mod._exec_group.execs:
+                        getattr(e, table)[name]._set_data(params[name])
+            mod._params_dirty = True
+        self.switch_bucket(self._default_bucket_key, None, None)
+
+    def set_optimizer_states_blob(self, blob):
+        """Restore the shared optimizer's states, then rebuild every other
+        bucket's fused step around the restored optimizer."""
+        default = self._default
+        default.set_optimizer_states_blob(blob)
+        for mod in self._buckets.values():
+            if mod is not default:
+                mod._share_optimizer(default)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized

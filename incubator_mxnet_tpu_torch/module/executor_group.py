@@ -10,7 +10,8 @@ one card (the contexts are a list, never a set or a dict key).  The
 arrays keep the JAX group's layout, ``[n_params][n_devices]``;
 `get_outputs` and `get_input_grads` concatenate the executors' along the
 batch, on the first context, and `update_metric` hands each executor its
-slice of the labels.
+slice of the labels.  State inputs (``state_names``) are bound like
+data, take no gradient, and are written only by `set_states`.
 """
 from __future__ import annotations
 
@@ -63,7 +64,7 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
                  fixed_param_names=None, grad_req="write",
-                 shared_group=None, work_load_list=None):
+                 shared_group=None, work_load_list=None, state_names=None):
         self.symbol = symbol
         self.contexts = list(contexts)
         self.workload = list(work_load_list or [1] * len(self.contexts))
@@ -71,6 +72,7 @@ class DataParallelExecutorGroup:
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.fixed_param_names = set(fixed_param_names or [])
+        self.state_names = list(state_names or [])
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.data_shapes = [d if isinstance(d, DataDesc) else DataDesc(*d)
@@ -138,6 +140,8 @@ class DataParallelExecutorGroup:
                             for n in self.param_names]
         self.aux_arrays = [[e.aux_dict[n] for e in self.execs]
                            for n in self.aux_names]
+        self.state_arrays = [[e.arg_dict[n] for e in self.execs]
+                             for n in self.state_names]
 
     def decide_slices(self):
         """Each context's rows of the batch (``self.slices``)."""
@@ -172,6 +176,26 @@ class DataParallelExecutorGroup:
                     table[name]._set_data(val)
                 else:
                     table[name] = NDArray(val.detach().to("cpu", copy=True))
+
+    def get_states(self, merge_multi_context=True):
+        return [self._merge(s) for s in self.state_arrays] \
+            if merge_multi_context else self.state_arrays
+
+    def set_states(self, states=None, value=None):
+        """Each state from `states` (an array, or one per context), or
+        every element to `value`."""
+        if states is not None:
+            assert value is None, "only one of states and value"
+            for block, src in zip(self.state_arrays, states):
+                srcs = src if isinstance(src, (list, tuple)) else \
+                    [_rows(src, shard) for shard in self._shards()]
+                for dst, v in zip(block, srcs):
+                    dst._set_data(v)
+        else:
+            assert value is not None, "give states or value"
+            for block in self.state_arrays:
+                for dst in block:
+                    dst.data.fill_(value)
 
     def forward(self, data_batch, is_train=None):
         if is_train is None:

@@ -17,7 +17,13 @@ batch through it, else through `forward_backward`, `update` and
 `update_metric`; with several contexts the port takes that unfused path
 where the JAX package builds its fused mesh step.  The fused step writes
 every array in place, so there is nothing to flush before the arrays are
-read.  The parameters the module holds between steps (`get_params`) live
+read.  ``state_names`` name inputs that are neither parameters nor data
+(an RNN's carried state, reference `module.py`): they are bound, never
+initialized or updated, take no gradient and keep what the user writes
+with `set_states` across forwards; the fused step declines a module that
+has them, as the JAX one does (`module.py:341`).  The JAX `Module` keeps
+the name but counts such inputs among the parameters (ROADMAP.md,
+Queue 3).  The parameters the module holds between steps (`get_params`) live
 on the CPU; the executors' copies on their devices.
 """
 from __future__ import annotations
@@ -51,8 +57,6 @@ class Module(BaseModule):
             raise MXNetError("Module: no context")
         for ctx in context:
             ctx.torch_device         # raises when the card is missing
-        if state_names:
-            raise MXNetError("Module: state_names are not ported")
         self._context = list(context)
         self._work_load_list = list(work_load_list or [1] * len(context))
         self._compression_params = compression_params
@@ -61,7 +65,8 @@ class Module(BaseModule):
         self._symbol = symbol
         data_names = list(data_names) if data_names is not None else []
         label_names = list(label_names) if label_names is not None else []
-        inputs = data_names + label_names
+        self._state_names = list(state_names or [])
+        inputs = data_names + label_names + self._state_names
         self._param_names = [x for x in symbol.list_arguments()
                              if x not in inputs]
         self._fixed_param_names = list(fixed_param_names or [])
@@ -250,7 +255,8 @@ class Module(BaseModule):
             self._symbol, self._context, data_shapes, label_shapes,
             self._param_names, for_training, inputs_need_grad,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
-            shared_group=shared_group, work_load_list=self._work_load_list)
+            shared_group=shared_group, work_load_list=self._work_load_list,
+            state_names=self._state_names)
         if shared_module is not None:
             self._init_unshared(shared_module)
         elif self.params_initialized:
@@ -365,12 +371,12 @@ class Module(BaseModule):
 
     def _fusable(self, kvstore=None):
         """Whether `fit` may run the fused train step: the knob
-        ``MXNET_FUSED_TRAIN_STEP`` is on, one context, the module trains,
-        its inputs take no gradient, no compression, no kvstore but
-        ``local``/``device``, and every gradient is written, not added
-        (the JAX `Module._fusable` on one device)."""
+        ``MXNET_FUSED_TRAIN_STEP`` is on, one context, no state inputs,
+        the module trains, its inputs take no gradient, no compression,
+        no kvstore but ``local``/``device``, and every gradient is
+        written, not added (the JAX `Module._fusable` on one device)."""
         from .. import config as _config
-        if not _config.get("MXNET_FUSED_TRAIN_STEP"):
+        if not _config.get("MXNET_FUSED_TRAIN_STEP") or self._state_names:
             return False
         if len(self._context) != 1 or self._compression_params:
             return False
@@ -433,6 +439,18 @@ class Module(BaseModule):
 
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
+
+    def get_states(self, merge_multi_context=True):
+        """The state inputs' arrays (reference `module.py get_states`)."""
+        assert self.binded and self.params_initialized
+        return self._exec_group.get_states(merge_multi_context)
+
+    def set_states(self, states=None, value=None):
+        """Write the state inputs: `states` (one array per state name,
+        or per state a list per context) or every element to the number
+        `value` (reference `module.py set_states`)."""
+        assert self.binded and self.params_initialized
+        self._exec_group.set_states(states, value)
 
     def install_monitor(self, mon):
         """Install `mon` (a `Monitor`) on every executor."""

@@ -1,21 +1,27 @@
-"""Retry and failover primitives of the parameter-server tier.
+"""Fault injection, retry and failover primitives.
 
 PyTorch port of the part of `incubator_mxnet_tpu/resilience/` that the
-dist kvstore and the sharded embedding table use: `RetryPolicy` and
-`RetryBudget` (exponential backoff with jitter, deadlines, a shared
-budget), `CircuitBreaker` (consecutive-failure trip, half-open probes)
-and `ServerLostError`, the structured error a permanently lost parameter
-server raises.  Fault injection (`faults`), the elastic supervisor and
-the training guardian are not ported (README, "Declared divergences").
+dist kvstore, the sharded embedding table and the serving batcher use:
+`RetryPolicy` and `RetryBudget` (exponential backoff with jitter,
+deadlines, a shared budget), `CircuitBreaker` (consecutive-failure trip,
+half-open probes), `ServerLostError`, the structured error a permanently
+lost parameter server raises, and `faults`, the deterministic fault
+injection registry (``MXNET_FAULTS``; `inject`, `configure`, `fire`,
+`trace`).  The elastic supervisor and the training guardian are not
+ported (README, "Declared divergences").
 """
 from __future__ import annotations
 
 from ..base import MXNetError
+from . import faults
+from .faults import (FaultInjected, TornWrite, configure, inject, clear,
+                     reset, trace, fire, active)
 from .retry import RetryPolicy, RetryBudget
 from .breaker import CircuitBreaker
 
-__all__ = ["RetryPolicy", "RetryBudget", "CircuitBreaker",
-           "ServerLostError"]
+__all__ = ["faults", "FaultInjected", "TornWrite", "configure", "inject",
+           "clear", "reset", "trace", "fire", "active", "RetryPolicy",
+           "RetryBudget", "CircuitBreaker", "ServerLostError"]
 
 
 class ServerLostError(MXNetError):

@@ -4,7 +4,8 @@ one executor per bucket (`module/bucketing_module.py`).
 
 PyTorch port of `incubator_mxnet_tpu/rnn/io.py`: the same buckets,
 padding, shuffles (Python's `random` for the batch order, numpy's for
-each bucket) and batches; the batches are host arrays."""
+each bucket) and batches; the batches are host arrays.  An elastic
+checkpoint carries the epoch's order (`checkpoint_state`)."""
 from __future__ import annotations
 
 import random as _pyrandom
@@ -92,6 +93,26 @@ class BucketSentenceIter(DataIter):
         _pyrandom.shuffle(self.idx)
         for buck in self.data:
             np.random.shuffle(buck)
+
+    def checkpoint_state(self):
+        """The epoch's order, which `reset` draws from Python's and
+        numpy's streams: the batch order and each bucket's rows (an
+        elastic checkpoint carries them, so resume needs no replay)."""
+        return {"idx": [tuple(i) for i in self.idx],
+                "data": [b.copy() for b in self.data]}
+
+    def set_checkpoint_state(self, state, nbatch=0):
+        """Take a `checkpoint_state` order and stand before batch
+        `nbatch` of the epoch; no draw from the random streams."""
+        if "idx" not in state:
+            self.seek(nbatch)
+            return
+        if [b.shape for b in state["data"]] != [b.shape for b in self.data]:
+            raise MXNetError("checkpoint iterator buckets do not match this "
+                             "iterator's — resuming against another corpus?")
+        self.idx = [tuple(i) for i in state["idx"]]
+        self.data = [np.array(b) for b in state["data"]]
+        self.curr_idx = int(nbatch)
 
     def next(self):
         if self.curr_idx == len(self.idx):

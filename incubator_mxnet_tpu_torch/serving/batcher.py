@@ -12,9 +12,25 @@ per-request futures by row range.
 Unhappy paths kept from the JAX package: per-request deadlines (a request
 still queued past its deadline fails and never reaches the device),
 deadline-aware shedding before queueing, backpressure on a full queue
-(with the top fifth reserved for rank < 2), and graceful drain.  The
-circuit breaker, execution retries, fault injection, trace spans, monitor
-hook and sanitizer instrumentation are not ported (ROADMAP.md).
+(with the top fifth reserved for rank < 2), graceful drain, and overload
+control:
+
+* a per-model circuit breaker (`resilience.CircuitBreaker`) — consecutive
+  failed batches open it, and while it is open `submit` fails fast; after
+  the reset window one half-open probe batch tests recovery.  A probe
+  token taken by a request that is rejected before it queues, or whose
+  whole batch dies before it executes, is handed back;
+* bounded execution retries under a `resilience.RetryPolicy`, recorded
+  in the metrics' retry histogram.  The card's synchronisation sits
+  inside the retried block, so an asynchronous CUDA error is retried like
+  a raised one;
+* the ``serving.execute`` fault site (`resilience.faults`) before every
+  attempt, and a `monitor.Monitor` driven tic/toc once around each
+  batch, its retries included (`install_monitor`; the JAX batcher tics
+  every attempt, so its sampling interval shifts with each retry).
+
+The trace spans and the sanitizer instrumentation are not ported
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -28,6 +44,7 @@ import numpy as _np
 
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
+from ..resilience import CircuitBreaker, faults as _faults
 
 __all__ = ["MicroBatcher"]
 
@@ -52,7 +69,9 @@ class MicroBatcher:
     """The per-model request queue + coalescing worker."""
 
     def __init__(self, model, metrics, max_batch_size=None,
-                 max_queue_latency_ms=2.0, max_queue=256):
+                 max_queue_latency_ms=2.0, max_queue=256,
+                 breaker_threshold=5, breaker_reset_s=30.0,
+                 retry_policy=None):
         self._model = model
         self._metrics = metrics
         self.max_batch_size = min(int(max_batch_size or model.max_batch_size),
@@ -68,6 +87,12 @@ class MicroBatcher:
         self._idle = threading.Condition(self._lock)
         self._stop = threading.Event()
         self._draining = threading.Event()
+        self._paused = threading.Event()
+        self._monitor = None       # a monitor.Monitor driven per batch
+        self._breaker = CircuitBreaker(
+            failure_threshold=int(breaker_threshold),
+            reset_timeout=float(breaker_reset_s))
+        self._retry = retry_policy     # None: a failed batch is not retried
         self._rid_counter = 0
         self._pending = {}             # rid -> _Request (admitted, unresolved)
         self._thread = threading.Thread(
@@ -92,6 +117,33 @@ class MicroBatcher:
         if self._draining.is_set() or self._stop.is_set():
             raise MXNetError(f"serving: model '{self._model.name}' is "
                              "draining; not accepting requests")
+        if not self._breaker.allow():
+            self._metrics.record_breaker_reject()
+            self._metrics.set_breaker_state(self._breaker.state)
+            raise MXNetError(
+                f"serving: model '{self._model.name}' circuit breaker is "
+                f"{self._breaker.state} after "
+                f"{self._breaker.failure_threshold} consecutive batch "
+                "failures — failing fast; recovery probes run every "
+                f"{self._breaker.reset_timeout:g}s")
+        # a rejection below hands back the half-open probe token allow()
+        # may just have taken, or the breaker wedges half-open
+        queued = False
+        try:
+            req = self._admit(inputs, timeout_ms, priority)
+            queued = True
+        finally:
+            if not queued:
+                self._breaker.release_probe()
+        if self._stop.is_set():
+            # raced with close(): sweep so no future is left unresolved
+            self._sweep_failed()
+        self._metrics.record_request(self._q.qsize())
+        return req.future
+
+    def _admit(self, inputs, timeout_ms, priority):
+        """Shed, validate and queue one request; raises when it is
+        refused."""
         if timeout_ms is not None:
             est = self.estimated_wait_s()
             if est is not None and est > timeout_ms / 1e3:
@@ -130,11 +182,21 @@ class MicroBatcher:
             raise MXNetError(
                 f"serving: model '{self._model.name}' queue is full "
                 f"({self.max_queue} pending) — backpressure, retry later")
-        if self._stop.is_set():
-            # raced with close(): sweep so no future is left unresolved
-            self._sweep_failed()
-        self._metrics.record_request(self._q.qsize())
-        return req.future
+        return req
+
+    def pause(self):
+        """Stop dispatching (queued requests wait), as while swapping
+        weights, or in a test that needs a full queue."""
+        self._paused.set()
+
+    def resume(self):
+        self._paused.clear()
+
+    def install_monitor(self, mon):
+        """Drive a `monitor.Monitor` tic/toc around every executed batch;
+        its statistics see each batch's outputs (`ServedModel`)."""
+        self._model.install_monitor(mon)
+        self._monitor = mon
 
     def pending_request_ids(self):
         """Ids of admitted-but-unresolved requests (drain diagnostics)."""
@@ -147,6 +209,7 @@ class MicroBatcher:
         drain that outlives ``timeout`` seconds stops anyway and raises,
         listing the request ids still pending."""
         self._draining.set()
+        self._paused.clear()   # a paused worker could never drain
         drained = True
         if drain:
             with self._idle:
@@ -202,6 +265,8 @@ class MicroBatcher:
                 if self._stop.is_set():
                     return
                 continue
+            while self._paused.is_set() and not self._stop.is_set():
+                time.sleep(0.001)
             batch = [first]
             rows = first.rows
             t_close = first.t_enqueue + self.max_queue_latency_ms / 1e3
@@ -246,22 +311,54 @@ class MicroBatcher:
                 live.append(req)
                 rows += req.rows
         if not live:
+            # the whole batch died before executing: a half-open probe
+            # among it never had its trial, so its token goes back
+            self._breaker.release_probe()
             return
         bucket = model.bucket_for(rows)
         arrs = [_np.concatenate(parts) if len(parts) > 1 else parts[0]
                 for parts in zip(*(r.arrs for r in live))]
-        t0 = time.monotonic()
-        try:
-            outs = model.run_bucket(model.pad_rows(arrs, rows, bucket),
-                                    bucket)
-            model.synchronize()
-        except Exception as exc:   # the worker serves every client: report
-            err = exc if isinstance(exc, MXNetError) else MXNetError(
-                f"serving: model '{model.name}' batch execution failed: "
-                f"{exc!r}")
-            for req in live:
-                self._fail(req, err)
-            return
+        mon = self._monitor
+        if mon is not None:
+            mon.tic()   # once a batch, whatever its attempts
+        delays = self._retry.delays() if self._retry is not None \
+            else iter(())
+        attempt = 0
+        while True:
+            t0 = time.monotonic()   # per attempt: the EWMA sheds by it
+            try:
+                _faults.fire("serving.execute", model=model.name,
+                             attempt=attempt)
+                outs = model.run_bucket(model.pad_rows(arrs, rows, bucket),
+                                        bucket)
+                # inside the try: an asynchronous device error surfaces
+                # here and is retried like a raised one
+                model.synchronize()
+                break
+            except Exception as exc:   # the worker serves every client
+                delay = next(delays, None)
+                if delay is None:
+                    # retries spent: every future fails, the breaker
+                    # counts one failed batch
+                    self._breaker.record_failure()
+                    self._metrics.set_breaker_state(self._breaker.state)
+                    err = exc if isinstance(exc, MXNetError) else \
+                        MXNetError(f"serving: model '{model.name}' batch "
+                                   f"execution failed: {exc!r}")
+                    for req in live:
+                        self._fail(req, err)
+                    if mon is not None:
+                        mon.toc()   # closes the batch; nothing to log
+                    return
+                attempt += 1
+                self._metrics.record_retry(attempt)
+                _faults.note("retry", site="serving.execute",
+                             model=model.name, attempt=attempt)
+                time.sleep(delay)
+        if mon is not None:
+            mon.toc_print()
+        self._breaker.record_success()
+        self._metrics.set_breaker_state(self._breaker.state)
         done = time.monotonic()
         self._metrics.record_batch(rows, bucket, done - t0)
         off = 0

@@ -7,13 +7,18 @@ uniform sample (algorithm R) over every response since start.  Traffic
 that carries a priority class (``interactive``, ``batch``,
 ``best_effort``: the decode engine's, and the router's once it is
 ported) also lands in per-class counters and reservoirs, reported under
-``classes`` in `snapshot()`.  The JAX
+``classes`` in `snapshot()`.  The degraded-mode counters of the
+resilience layer ride along: ``breaker_rejects`` (requests failed fast
+while the model's circuit breaker was open), ``breaker_state`` (a gauge
+the batcher sets) and ``retry_histogram`` (attempt number -> count).
+The JAX
 package's hooks into the telemetry plane, the profiler trace and the
 concurrency sanitizer are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
 import random
+import collections
 import threading
 import time
 import zlib
@@ -77,6 +82,9 @@ class ServingMetrics:
         self.rows = 0            # live request rows executed
         self.capacity = 0        # bucket rows executed (rows + padding)
         self.queue_depth = 0     # gauge, set by the batcher
+        self.breaker_rejects = 0  # failed fast while the breaker was open
+        self.breaker_state = "closed"   # gauge, set by the batcher
+        self.retries = collections.Counter()   # attempt number -> count
         self._ewma_batch_s = None    # recent batch execution time
 
     def record_request(self, queue_depth):
@@ -129,6 +137,18 @@ class ServingMetrics:
         with self._lock:
             self.shed += 1
 
+    def record_breaker_reject(self):
+        with self._lock:
+            self.breaker_rejects += 1
+
+    def record_retry(self, attempt):
+        with self._lock:
+            self.retries[int(attempt)] += 1
+
+    def set_breaker_state(self, state):
+        with self._lock:
+            self.breaker_state = state
+
     def set_queue_depth(self, depth):
         with self._lock:
             self.queue_depth = depth
@@ -147,6 +167,9 @@ class ServingMetrics:
                 "timeouts": self.timeouts,
                 "rejected": self.rejected,
                 "shed": self.shed,
+                "breaker_rejects": self.breaker_rejects,
+                "breaker_state": self.breaker_state,
+                "retry_histogram": dict(self.retries),
                 "batches": self.batches,
                 "rows": self.rows,
                 "queue_depth": self.queue_depth,

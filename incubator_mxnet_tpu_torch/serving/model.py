@@ -16,7 +16,13 @@ casts on the host with ml_dtypes; both round to nearest even).  The
 parameters stay as loaded, as in the JAX package: the ops promote.
 Argument slots the checkpoint does not fill (a loss head's label, see
 `fused.FusedInference`) are fed zeros of the shape each bucket gives
-them.
+them.  `from_checkpoint_dir` loads the newest valid elastic checkpoint
+under a root (`checkpoint.latest` validates the manifest and every
+shard's CRC, so a torn checkpoint is never taken); the JAX method also
+registers the checkpoint's compiled-program payload, which the port,
+compiling nothing, has no use for.  `infer_exact` runs at exactly the
+declared shapes (the C predict ABI's path), and a `monitor.Monitor`
+installed on the model sees the batched outputs of every dispatch.
 """
 from __future__ import annotations
 
@@ -67,6 +73,7 @@ class ServedModel:
                              "positive ints")
         descs = _as_desc_list(data_shapes)
         self.data_names = [n for n, _ in descs]
+        self._declared_shapes = dict(descs)      # as given (the C ABI's)
         self._sample_shapes = {n: s[1:] for n, s in descs}
         self._dtype = torch_dtype(dtype)
         # the host dtype requests are normalised in
@@ -74,7 +81,8 @@ class ServedModel:
             else _np.dtype(str(self._dtype).replace("torch.", ""))
         self.output_names = symbol.list_outputs()
         self._symbol = symbol
-        self._extra_cache = {}    # bucket -> zeros for the unfilled slots
+        self._extra_cache = {}    # input shapes -> zeros for the unfilled
+        self._monitor = None      # callback(name, NDArray) per output
 
         from .. import fused as _fused
         # resolving the device raises when the card is missing and the
@@ -91,6 +99,15 @@ class ServedModel:
         from ..model import load_checkpoint
         sym, args, auxs = load_checkpoint(prefix, epoch)
         return cls(sym, args, auxs, **kwargs)
+
+    @classmethod
+    def from_checkpoint_dir(cls, symbol_file, checkpoint_path, **kwargs):
+        """From a symbol JSON file and an elastic `checkpoint/` directory,
+        or a root of them: the newest valid one, never a torn one."""
+        from .. import symbol as _sym
+        from .replica import _load_checkpoint_params
+        args, auxs = _load_checkpoint_params(checkpoint_path)
+        return cls(_sym.load(symbol_file), args, auxs, **kwargs)
 
     # -- buckets -------------------------------------------------------------
     @property
@@ -114,26 +131,35 @@ class ServedModel:
     def run_bucket(self, arrs, bucket):
         """Dispatch one bucket-shaped (already padded) batch; returns the
         output tensors, possibly still being computed."""
+        return self._run(arrs, {n: (bucket,) + self._sample_shapes[n]
+                                for n in self.data_names})
+
+    def _run(self, arrs, shapes):
         dev = self._infer.device
         inputs = [torch.from_numpy(_np.ascontiguousarray(a)).to(
             dev, self._dtype) for a in arrs]
-        return self._infer(inputs, self._extras(bucket))
+        outs = self._infer(inputs, self._extras(shapes))
+        mon = self._monitor
+        if mon is not None:
+            for name, out in zip(self.output_names, outs):
+                mon(name, NDArray(out, ctx=self.ctx))
+        return outs
 
-    def _extras(self, bucket):
+    def _extras(self, shapes):
         """float32 zeros for the unfilled argument slots, shaped by
-        inference at this bucket (a label's shape follows the batch)."""
-        got = self._extra_cache.get(bucket)
+        inference at these input shapes (a label's follows the batch)."""
+        key = tuple(shapes[n] for n in self.data_names)
+        got = self._extra_cache.get(key)
         if got is None:
             names = self._infer.extra_names
             got = ()
             if names:
-                shapes, _, _ = self._symbol.infer_shape(**{
-                    n: (bucket,) + self._sample_shapes[n]
-                    for n in self.data_names})
-                by_name = dict(zip(self._symbol.list_arguments(), shapes))
+                arg_shapes, _, _ = self._symbol.infer_shape(**shapes)
+                by_name = dict(zip(self._symbol.list_arguments(),
+                                   arg_shapes))
                 got = tuple(torch.zeros(by_name[n], device=self._infer.device)
                             for n in names)
-            self._extra_cache[bucket] = got
+            self._extra_cache[key] = got
         return got
 
     def synchronize(self):
@@ -203,8 +229,34 @@ class ServedModel:
         self.synchronize()
         return [NDArray(o[:rows], ctx=self.ctx) for o in outs]
 
+    def infer_exact(self, inputs):
+        """Run at exactly the declared `data_shapes`: no batch axis, no
+        padding, outputs whole (the C predict ABI's path; its inputs need
+        not share a leading dimension)."""
+        arrs = []
+        for i, n in enumerate(self.data_names):
+            v = inputs[n] if isinstance(inputs, dict) else inputs[i]
+            arrs.append(_np.asarray(v, self._host_dtype).reshape(
+                self._declared_shapes[n]))
+        outs = self._run(arrs, dict(self._declared_shapes))
+        self.synchronize()
+        return [NDArray(o, ctx=self.ctx) for o in outs]
+
     def set_params(self, arg_params, aux_params=None):
         """(Hot-)swap the parameter set; in-flight dispatches finish against
         the snapshot they captured."""
         self._infer.set_params(arg_params or {}, aux_params)
         self._extra_cache = {}
+
+    # -- monitoring ----------------------------------------------------------
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """``callback(name, NDArray)`` fires on each output of every
+        dispatched batch, over the whole batch."""
+        self._monitor = callback
+
+    def install_monitor(self, mon):
+        """Feed a `monitor.Monitor`'s statistics from the request path;
+        whoever dispatches drives its tic/toc (the batcher: once a
+        batch)."""
+        self.set_monitor_callback(mon.stat_helper)
+        return mon

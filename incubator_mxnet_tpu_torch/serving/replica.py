@@ -5,7 +5,8 @@ replica.py`: the `Replica` base and `ReplicaLostError`, which the decode
 engine's `DecodeReplica` implements and raises.  The concrete replicas
 (`LocalReplica`, `RemoteReplica` over worker processes) wait for the
 router and fleet (ROADMAP.md, Queue 1 item 14); `_load_checkpoint_params`
-is the checkpoint swap's parameter source.
+is the parameter source of the checkpoint swap and of
+`ServedModel.from_checkpoint_dir`.
 
 The contract a router relies on:
 
@@ -87,7 +88,7 @@ def _load_checkpoint_params(checkpoint_dir):
         found = _latest(path)
         if found is None:
             raise MXNetError(
-                f"replica swap: no valid checkpoint under "
-                f"{checkpoint_dir!r} (torn checkpoints are never selected)")
+                f"serving: no valid checkpoint under {checkpoint_dir!r} "
+                "(torn checkpoints are never selected)")
         path = found
     return split_params(_load(path).arrays)

@@ -2,13 +2,16 @@
 
 PyTorch port of `incubator_mxnet_tpu/serving/server.py`.  Owns a registry
 of ``name -> (ServedModel, MicroBatcher, ServingMetrics)``.  Models load
-from classic checkpoint pairs, an in-memory symbol + params, or pre-built
-`ServedModel`s; every load warms the bucket ladder by default.  Loading
-over an existing name hot-swaps: the new model starts taking requests
-first, then the old batcher drains — none are dropped.
-`shutdown(drain=True)` drains every model.  Elastic ``checkpoint/``
-directories, the telemetry producer and the monitor hook are not ported
-(ROADMAP.md).
+from classic checkpoint pairs, a symbol file + an elastic ``checkpoint/``
+directory (the newest valid snapshot under a root), an in-memory symbol
++ params, or pre-built `ServedModel`s; every load warms the bucket ladder
+by default.  The batcher's knobs (``breaker_threshold``,
+``breaker_reset_s``, ``retry_policy``, the batching ones) pass through
+per model.  Loading over an existing name hot-swaps: the new model
+starts taking requests first, then the old batcher drains — none are
+dropped.  `install_monitor` puts a `monitor.Monitor` on a model's
+request path.  `shutdown(drain=True)` drains every model.  The telemetry
+producer is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -37,13 +40,13 @@ class ModelServer:
 
     # -- model lifecycle -----------------------------------------------------
     def load_model(self, name, model=None, *, prefix=None, epoch=0,
-                   symbol=None, arg_params=None, aux_params=None,
-                   data_shapes=None, buckets=DEFAULT_BUCKETS, warmup=True,
-                   **knobs):
+                   symbol_file=None, checkpoint_dir=None, symbol=None,
+                   arg_params=None, aux_params=None, data_shapes=None,
+                   buckets=DEFAULT_BUCKETS, warmup=True, **knobs):
         """Register `name`.  Exactly one source: a `ServedModel`, a classic
-        ``prefix``/``epoch`` pair, or an in-memory ``symbol`` + params.
-        ``knobs`` override the server's batching defaults for this
-        model."""
+        ``prefix``/``epoch`` pair, a ``symbol_file`` + ``checkpoint_dir``,
+        or an in-memory ``symbol`` + params.  ``knobs`` override the
+        server's batching defaults for this model (`MicroBatcher`)."""
         if self._closed:
             raise MXNetError("serving: server is shut down")
         if model is None:
@@ -51,11 +54,18 @@ class ModelServer:
                           ctx=self._ctx, name=name)
             if prefix is not None:
                 model = ServedModel.load(prefix, epoch, **common)
+            elif checkpoint_dir is not None:
+                if symbol_file is None:
+                    raise MXNetError(
+                        "serving: checkpoint_dir loading needs symbol_file")
+                model = ServedModel.from_checkpoint_dir(
+                    symbol_file, checkpoint_dir, **common)
             elif symbol is not None:
                 model = ServedModel(symbol, arg_params, aux_params, **common)
             else:
                 raise MXNetError(
-                    "serving: load_model needs model=, prefix=, or symbol=")
+                    "serving: load_model needs model=, prefix=, "
+                    "checkpoint_dir=, or symbol=")
         if warmup and not model.warmed:
             model.warmup()
         cfg = dict(self._defaults)
@@ -130,6 +140,11 @@ class ModelServer:
         with self._lock:
             entries = dict(self._models)
         return {name: m.snapshot() for name, (_, _, m) in entries.items()}
+
+    def install_monitor(self, name, mon):
+        """Per-layer monitoring on `name`'s request path."""
+        self._entry(name)[1].install_monitor(mon)
+        return mon
 
     def shutdown(self, drain=True):
         """Stop every model; with ``drain`` in-flight work completes."""

@@ -233,12 +233,21 @@ def test_bucketing_params_carry_from_jax_and_score():
 
 
 def test_bucketing_fit_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(tmx.MXNetError):
-        tmx.mod.BucketingModule(_lstm_sym_gen(tmx), default_bucket_key=12,
-                                context=tmx.cpu(), state_names=["h"])
+    """`bind(shared_module=)` is not ported for bucketing, and an elastic
+    fit refuses a directory that holds another run's checkpoints (state
+    names and `fit(checkpoint_dir=)` are ported: see
+    tests/test_torch_training_api.py)."""
     mod = tmx.mod.BucketingModule(_lstm_sym_gen(tmx), default_bucket_key=12,
-                                  context=tmx.cpu())
+                                  context=tmx.cpu(), state_names=[])
+    other = tmx.mod.BucketingModule(_lstm_sym_gen(tmx),
+                                    default_bucket_key=12, context=tmx.cpu())
+    with pytest.raises(tmx.MXNetError):
+        mod.bind([("data", (BATCH, 12))], [("softmax_label", (BATCH, 12))],
+                 shared_module=other)
     it = tmx.rnn.BucketSentenceIter(_corpus(), BATCH, buckets=list(BUCKETS),
                                     invalid_label=0)
-    with pytest.raises(tmx.MXNetError):
-        mod.fit(it, num_epoch=1, checkpoint_dir=str(tmp_path))
+    mod.fit(it, num_epoch=1, checkpoint_dir=str(tmp_path), kvstore=None)
+    again = tmx.mod.BucketingModule(_lstm_sym_gen(tmx),
+                                    default_bucket_key=12, context=tmx.cpu())
+    with pytest.raises(tmx.MXNetError, match="previous run"):
+        again.fit(it, num_epoch=1, checkpoint_dir=str(tmp_path))

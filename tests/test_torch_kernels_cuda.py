@@ -20,7 +20,10 @@ contexts on the one card against one (K1 in each executor),
 wide_deep.py's copy at 2 000 rows on the card against the CPU; the
 registry's tail (phase 15a's cases), the CTC and Deconvolution routes
 against their plain versions, random draws on the card, and the mlp as
-a SequentialModule under a Monitor (K1 in both modules).
+a SequentialModule under a Monitor (K1 in both modules); the mlp
+through `model.FeedForward` (K1), the C predict ABI's shim and
+`c_predict` with dev_type 2, `test_utils.check_consistency` over
+[cpu(0), gpu(0)] and a `Module(state_names=)` step.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -1665,3 +1668,67 @@ def test_sequential_mlp_on_the_card_matches_the_cpu(monkeypatch):
     assert sorted(g_rows) == keys
     assert cs.op_ratio([g_rows[k] for k in keys], [c_rows[k] for k in keys],
                        cs.MON15_TOL) <= 1
+
+
+def _tf32_off():
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return old
+
+
+def _tf32_restore(old):
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = old
+
+
+@pytest.mark.cuda
+def test_feedforward_mlp_on_the_card(monkeypatch, tmp_path):
+    """chip_smoke's 16a: FeedForward against Module.fit on the card (rtol
+    1e-5 + 1e-6 * max) and the CPU, K1 twice a train forward, save/load,
+    a ragged predict against row-by-row answers."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    cs = _chip_smoke()
+    monkeypatch.setenv("MXNET_SUBGRAPH_BACKEND", "TPU_PALLAS")
+    old = _tf32_off()
+    try:
+        out = cs.ff16(mx, "card", str(tmp_path))
+    finally:
+        _tf32_restore(old)
+    assert out["vs_module"] <= 1.0 and out["k1_launches"] > 0
+
+
+@pytest.mark.cuda
+def test_c_predict_on_the_card(monkeypatch, tmp_path):
+    """chip_smoke's 16d: the C program through the shim with dev_type 2
+    against an in-process predictor (rtol 1e-6), K1 twice a forward,
+    dev_type 1 against the card, dev_type 7 refused."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    cs = _chip_smoke()
+    monkeypatch.setenv("MXNET_SUBGRAPH_BACKEND", "TPU_PALLAS")
+    old = _tf32_off()
+    try:
+        out = cs.c16(mx, "card", str(tmp_path))
+    finally:
+        _tf32_restore(old)
+    assert out["k1_launches"] == 2
+
+
+@pytest.mark.cuda
+def test_test_utils_and_state_names_on_the_card():
+    """chip_smoke's 16f and 16e's state step: check_consistency over
+    [cpu(0), gpu(0)] (K1 in the card's forward), check_numeric_gradient
+    in float64, a Module(state_names=) step against the CPU."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    cs = _chip_smoke()
+    old = _tf32_off()
+    try:
+        out = cs.utils16(mx, "card")
+        worst = cs.state16(mx, "card")
+    finally:
+        _tf32_restore(old)
+    assert out["k1_launches"] == 2 and worst <= 1.0

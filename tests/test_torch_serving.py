@@ -156,7 +156,9 @@ def test_port_imports_no_jax():
     stepped, with ImageDetIter over a .rec, and a one-worker dist_sync
     round trip and a sharded embedding table's lookup and push on the
     port's parameter servers (kvstore, dist, embedding, kvstore_server),
-    loads neither jax nor the JAX package."""
+    and the C predict ABI's Python side, fault injection and the test
+    utilities, loads neither jax nor the JAX package (the C shim's
+    embedded interpreter is checked in tests/test_torch_serving_edges.py)."""
     code = textwrap.dedent("""
         import os
         import sys
@@ -203,6 +205,9 @@ def test_port_imports_no_jax():
         import incubator_mxnet_tpu_torch.embedding.sharded
         import incubator_mxnet_tpu_torch.embedding.fit
         import incubator_mxnet_tpu_torch.resilience
+        import incubator_mxnet_tpu_torch.resilience.faults
+        import incubator_mxnet_tpu_torch.c_predict
+        import incubator_mxnet_tpu_torch.test_utils
         import chip_smoke
         import tempfile
         rec = os.path.join(tempfile.mkdtemp(), "a.rec")
