@@ -12,8 +12,9 @@ exits non-zero:
    matmuls and cuDNN, so every fp32 comparison below is fp32.
 2. build — every CUDA source of the port, with nvcc, one process each.
 3. kernel K1 (`fc_relu`) against its plain PyTorch version on the card,
-   at the VGG-16 classifier shapes for every serving bucket and M = 128
-   (the training batch) and a ragged MLP shape, fp32, bf16 and fp16,
+   at the VGG-16 classifier shapes and AlexNet's fc6 (9216 -> 4096) for
+   every serving bucket and M = 128 (the training batch) and a ragged
+   MLP shape, fp32, bf16 and fp16,
    through the library's route (printed) and each route that takes the
    shape (tensor_core, cuda_core); times of the library's route, of each
    route, the plain version and one library call beside the bound, with
@@ -295,6 +296,29 @@ exits non-zero:
    in float64 for FullyConnected and Convolution, its refusal of
    SoftmaxOutput (an implicit gradient) as on the CPU, and SoftmaxOutput's
    gradient by `check_symbolic_backward`.
+17. gluon's remaining layers and the model zoo (slice 15), K2 and K3
+   held at 0 launches.  AlexNet (`alexnet(classes=1000)`, 224x224)
+   composed on a Symbol with a SoftmaxOutput under TPU_PALLAS, so fc6
+   (9216 -> 4096) and fc7 (4096 -> 4096) run K1.  a. 3 fused Module.fit
+   steps at batch 8, fp32 (TF32 off), Dropout at 0, card vs CPU (phase
+   6's gates; a max-pool window that flips between the devices excuses
+   the convolutions at that step); one train forward at Dropout(0.5)
+   through forward hooks: the kept share 0.5 +- 0.02, kept values x 2.
+   b. phase 7's lane on AlexNet (bf16, fp32 master weights, batch 128,
+   one resident batch, 4 warm + 16 timed steps, Dropout 0.5): images/s,
+   step ms, peak memory, K1 2 a train forward, K1's share of one
+   profiled step.  c. the trained parameters in the gluon block,
+   hybridized and exported, the export partitioned and served through
+   ModelServer at buckets 1-32 (K1 2 a batch), answers held to
+   Module.predict of the export; SymbolBlock.imports of it on the card
+   against the block.  d. densenet121, inception_v3 (299x299),
+   mobilenet1.0, mobilenetv2_1.0, squeezenet1.0 and 1.1 at 1000 classes:
+   2 hybridized Trainer steps at batch 2 in float64 card vs CPU, then a
+   fp32 batch-32 lane on the card (images/s; K1 0 launches).  e. every
+   new block on the card vs the CPU in fp32 (activations, Embedding,
+   InstanceNorm, the transposed convolutions, ReflectionPad2D, the pixel
+   shuffles, CTCLoss with gradients, LSTMPCell, the nine conv RNN cells,
+   SyncBatchNorm), and the one-card SyncBatchNorm against BatchNorm.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -801,13 +825,15 @@ def note_slower(t, dtype, shape, slower):
 
 def kernel_phase(card):
     """Phase 3; returns the JSON numbers of REP and REP_BF16 by dtype, and
-    of the mlp's and phases 14 and 16's shapes by (M, K, N, dtype)."""
+    of the mlp's, phases 14 and 16's and AlexNet's fc6 (phase 17) shapes
+    by (M, K, N, dtype)."""
     from incubator_mxnet_tpu_torch.subgraph.fused_ops import ROUTES, \
         launch_plan
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    cases = [(m, k, n) for k, n in VGG_FC_SHAPES for m in K1_ROWS]
+    cases = [(m, k, n) for k, n in VGG_FC_SHAPES + (ALEX_FC6,)
+             for m in K1_ROWS]
     cases.append((5, 784, 128))
     reps, slower = {}, []
     t0 = time.perf_counter()
@@ -821,6 +847,8 @@ def kernel_phase(card):
             note_slower(t, dtype, (m, k, n), slower)
             if (m, k, n, dtype) in (REP, REP_BF16):
                 reps[dtype] = t
+            if (m, k, n, dtype) in (ALEX_REP, ALEX_REP_BF16):
+                reps[(m, k, n, dtype)] = t
             del x, w, b
     for m, k, n in MLP_K1 + tuple(shape for shape, _, _ in PATH_K1):
         x = torch.randn(m, k, generator=gen, device=dev)
@@ -1764,20 +1792,22 @@ def as_float64(mod):
         a._data = a.data.double()
 
 
-def resnet_steps(mx, sym, ctx, batches, dtype, teacher=None):
-    """RESNET_PARITY fused steps in `dtype` on `ctx` (Module.fit_step)
-    from Xavier parameters under mx.random.seed(SEED); the loss of each
-    step and the state before the first and after each.  With `teacher`
-    (another run's states), step k starts from the teacher's state
-    before it, cast to `dtype`."""
+def resnet_steps(mx, sym, ctx, batches, dtype, teacher=None, batch=None,
+                 opt=None):
+    """Fused steps (Module.fit_step) at `batch` in `dtype` on `ctx`, one
+    per batch, from Xavier parameters under mx.random.seed(SEED); the loss
+    of each step and the state before the first and after each.  With
+    `teacher` (another run's states), step k starts from the teacher's
+    state before it, cast to `dtype`.  `batch` and the optimizer's
+    parameters `opt` default to RESNET_PARITY's and RESNET_OPT."""
+    batch = batch or RESNET_PARITY[0]
     mod = mx.mod.Module(sym, context=ctx)
-    batch = RESNET_PARITY[0]
     mod.bind([("data", (batch,) + IMAGE)], [("softmax_label", (batch,))])
     if dtype == "float64":
         as_float64(mod)
     mx.random.seed(SEED)
     mod.init_params(resnet_init(mx))
-    mod.init_optimizer(optimizer_params=RESNET_OPT)
+    mod.init_optimizer(optimizer_params=opt or RESNET_OPT)
     losses, states = [], [resnet_state(mod)]
     for k, b in enumerate(batches):
         if teacher is not None and k:
@@ -1952,7 +1982,8 @@ def resnet_parity(mx, net, sym):
           "than the CPU's")
 
 
-def resnet_lane(mx, sym, dtype, batch, warm, timed, card, peak):
+def resnet_lane(mx, sym, dtype, batch, warm, timed, card, peak,
+                label="resnet", opt=None):
     """Phase 7b: the lane through the public Module.fit on one resident
     batch, `warm` + `timed` steps.  images/s over CUDA-synchronised
     window edges (bench.py `_Probe`), the median step ms between CUDA
@@ -1980,15 +2011,16 @@ def resnet_lane(mx, sym, dtype, batch, warm, timed, card, peak):
     mx.random.seed(SEED)
     t0 = time.perf_counter()
     mod.fit(it, num_epoch=1, optimizer="sgd",
-            optimizer_params=dict(RESNET_OPT, multi_precision=dtype !=
-                                  "float32", rescale_grad=1.0 / batch),
+            optimizer_params=dict(opt or RESNET_OPT,
+                                  multi_precision=dtype != "float32",
+                                  rescale_grad=1.0 / batch),
             eval_metric="acc", initializer=resnet_init(mx),
             batch_end_callback=probe, kvstore=None)
     wall = time.perf_counter() - t0
     steps = warm + timed
     fused = mod._fused_step
     check(fused is not None and fused.steps == steps,
-          f"resnet {dtype}: the fused step ran "
+          f"{label} {dtype}: the fused step ran "
           f"{fused.steps if fused else 0} of {steps} steps")
     loss = torch.stack(losses).cpu().numpy()
     images_s = batch * timed / (edges[warm + timed - 1] - edges[warm - 1])
@@ -2001,20 +2033,21 @@ def resnet_lane(mx, sym, dtype, batch, warm, timed, card, peak):
     acc = edges["acc"]
     ok = bool(np.isfinite(loss).all()) and loss[-1] < loss[0] and \
         math.isfinite(acc)
-    print(f"resnet lane {dtype} batch {batch}: {steps} steps through "
+    print(f"{label} lane {dtype} batch {batch}: {steps} steps through "
           f"Module.fit in {wall:.2f} s ({warm} warm), fused step every "
           f"step; {images_s:.1f} images/s over the {timed} timed steps; "
           f"step median {med:.3f} ms (p10 {np.percentile(step_ms, 10):.3f}"
           f", p90 {np.percentile(step_ms, 90):.3f}, CUDA events); "
           f"{flops / batch / 1e9:.2f} GFLOP per image; peak memory "
           f"{mem:.2f} GiB [{card}]")
-    print(f"resnet lane {dtype} batch {batch}: loss (cross-entropy of "
+    print(f"{label} lane {dtype} batch {batch}: loss (cross-entropy of "
           f"the outputs, metric.CrossEntropy) first "
           f"{loss[0]:.4f}, last {loss[-1]:.4f}, every "
           f"{' '.join(f'{v:.3f}' for v in loss[::8])}; train acc over the "
           f"fit {acc:.4f} {'ok' if ok else 'FAIL'}")
-    print(f"mfu {dtype} {mfu:.4f} (of {peak / 1e12:.0f} TFLOP/s) [{card}]")
-    check(ok, f"resnet {dtype}: loss not finite or not falling, or acc "
+    print(f"{'' if label == 'resnet' else label + ' '}mfu {dtype} "
+          f"{mfu:.4f} (of {peak / 1e12:.0f} TFLOP/s) [{card}]")
+    check(ok, f"{label} {dtype}: loss not finite or not falling, or acc "
           "not finite")
     return mod, {"images_s": images_s, "step_ms": med, "mfu": mfu,
                  "peak_gib": mem}
@@ -8581,6 +8614,708 @@ def api_phase(card, workdir):
     return out
 
 
+# -- phase 17: gluon's remaining layers and the model zoo (slice 15) ---------
+
+# AlexNet (model_zoo/vision/alexnet.py) at 224x224: fc6 is 256 x 6 x 6 ->
+# 4096; its fc7 is VGG-16's (4096 -> 4096).  Both feed a ReLU, so under
+# TPU_PALLAS each is one K1 node.
+ALEX_FC6 = (9216, 4096)
+# the JSON line's AlexNet keys: fc6 at the lane's batch, fp32 and bf16
+ALEX_REP = (128, 9216, 4096, F32)
+ALEX_REP_BF16 = (128, 9216, 4096, BF16)
+ALEX_PREFIX = "alexnet_"        # a fixed prefix: every instance, one name
+ALEX_PARITY = (8, 3)            # 17a: (batch, steps), fp32, card vs CPU
+# 17b: phase 7's BASELINE lane (bf16 with fp32 master weights, batch 128,
+# Xavier) on AlexNet with its Dropout(0.5)
+ALEX_LANE = dict(batch=128, warm=4, timed=16)
+# phase 17's SGD, AlexNet's own (Krizhevsky et al. 2012, section 5: lr
+# 0.01, momentum 0.9, weight decay 5e-4): at phase 7's lr 0.05 AlexNet,
+# without BatchNorm, reached a loss of inf after one step, and SqueezeNet
+# went from 1.4 to 814 (runs on the CPU at 10 classes; 18 at lr 0.01)
+OPT17 = {"learning_rate": 0.01, "momentum": 0.9, "wd": 5e-4}
+ALEX_SERVE_SIZES = (1, 2, 3, 5, 12, 27, 32)   # 17c: buckets 1, 2, 4, .. 32
+ALEX_IMPORT_BATCH = 8           # 17c: SymbolBlock.imports vs the block
+DROP_RATE, DROP_BAND = 0.5, 0.02    # 17a: kept share within 0.5 +- 0.02
+# 17d: the other families at full width (1000 classes; Inception v3 at
+# 299x299, as its AvgPool2D(8) needs), each run hybridized through a
+# gluon Trainer
+ZOO17 = (("densenet121", 224), ("inceptionv3", 299), ("mobilenet1.0", 224),
+         ("mobilenetv2_1.0", 224), ("squeezenet1.0", 224),
+         ("squeezenet1.1", 224))
+ZOO17_PARITY = (2, 2)           # 17d: (batch, steps), float64, card vs CPU
+ZOO17_LANE = dict(batch=32, warm=2, timed=6)   # 17d: fp32 on the card
+ZOO17_PREFIX = "zoo_"
+# 17e: a block on the card against the CPU in fp32 (TF32 off): products
+# (cuDNN, cuBLAS) and sums in other orders, as phase 15's products
+BLOCK17_TOL = (1e-4, 1e-5)
+# SymbolBlock.imports against the block on the card: the same graph, the
+# same device and kernels, so only a reordered sum may differ
+IMPORT17_TOL = (1e-6, 1e-7)
+
+
+def set_dropout(block, rate):
+    """Every Dropout block under `block` to `rate`; returns how many.
+    The parities set 0: the card's and the CPU's generators draw
+    different masks."""
+    n = 0
+    if type(block).__name__ == "Dropout":
+        block._rate = rate
+        n = 1
+    return n + sum(set_dropout(c, rate) for c in block._children.values())
+
+
+def alex_net(mx, rate=DROP_RATE):
+    """gluon alexnet(CLASSES) under ALEX_PREFIX with its two Dropout
+    layers at `rate`."""
+    net = mx.gluon.model_zoo.vision.alexnet(classes=CLASSES,
+                                            prefix=ALEX_PREFIX)
+    check(set_dropout(net, rate) == 2, "alexnet: not two Dropout layers")
+    return net
+
+
+def alex_symbol(mx, rate=DROP_RATE):
+    """(net, AlexNet composed on Variable("data") + SoftmaxOutput), as
+    `resnet_symbol` composes ResNet-50."""
+    net = alex_net(mx, rate)
+    return net, mx.sym.SoftmaxOutput(net(mx.sym.Variable("data")),
+                                     name="softmax")
+
+
+def alex_k1_held(m, dtype, where):
+    """Fail unless phase 3 held K1 against fc_relu_ref at AlexNet's fc6
+    and fc7 with M = m in `dtype`."""
+    held = {(mm, k, n, dt) for k, n in VGG_FC_SHAPES + (ALEX_FC6,)
+            for mm in K1_ROWS for dt in (F32, BF16, F16)}
+    check((m,) + ALEX_FC6 + (dtype,) in held
+          and (m, 4096, 4096, dtype) in held,
+          f"{where}: AlexNet's K1 shapes at M={m} {dtype} were not held "
+          "against fc_relu_ref in phase 3")
+
+
+# AlexNet's layers in order, by their parameters' prefixes (fc6 and fc7
+# are dense0 and dense1; dense2, the classifier, feeds no ReLU)
+ALEX_LAYERS = tuple(f"{ALEX_PREFIX}conv2d{i}_" for i in range(5)) + \
+    (f"{ALEX_PREFIX}dense0_", f"{ALEX_PREFIX}dense1_")
+
+
+def alex_routes(params, x, ctx):
+    """{layer: routes} of AlexNet at these parameters and images on `ctx`:
+    which units each ReLU passes, and which element wins each window of
+    the max-pool after it, from the torch calls the port's Convolution,
+    relu and Pooling make and, for fc6 and fc7, from K1 on the card and
+    its plain version on the CPU (the calls the path makes)."""
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import (
+        fc_relu, fc_relu_ref)
+    dev = ctx.torch_device
+    p = {n: torch.from_numpy(v).to(dev) for n, v in params.items()}
+    h = torch.from_numpy(x).to(dev)
+    routes = {}
+    for i, (stride, pad) in enumerate(((4, 2), (1, 2), (1, 1), (1, 1),
+                                       (1, 1))):
+        layer = ALEX_LAYERS[i]
+        h = F.relu(F.conv2d(h, p[layer + "weight"], p[layer + "bias"],
+                            stride, pad))
+        routes[layer] = [(h > 0).cpu()]
+        if i in (0, 1, 4):
+            h, idx = F.max_pool2d(h, 3, 2, return_indices=True)
+            routes[layer].append(idx.cpu())
+    h = h.flatten(1)
+    fc = fc_relu if dev.type == "cuda" else fc_relu_ref
+    for layer in ALEX_LAYERS[5:]:
+        h = fc(h.contiguous(), p[layer + "weight"], p[layer + "bias"])
+        routes[layer] = [(h > 0).cpu()]
+    return routes
+
+
+def alex_flips(mx, cpu_params, gpu_params, x):
+    """{layer: units or windows routed differently on the CPU at
+    `cpu_params` and on the card at `gpu_params`}, the layers with any."""
+    cpu = alex_routes(cpu_params, x, mx.cpu())
+    gpu = alex_routes(gpu_params, x, mx.gpu(0))
+    flips = {layer: sum(int((a != b).sum())
+                        for a, b in zip(cpu[layer], gpu[layer]))
+             for layer in ALEX_LAYERS}
+    return {k: v for k, v in flips.items() if v}
+
+
+def alex_excused(flips):
+    """The layers whose gradients a flip reroutes: every layer up to the
+    deepest one with a flip (the backward passes through it)."""
+    if not flips:
+        return ()
+    deepest = max(ALEX_LAYERS.index(k) for k in flips)
+    return ALEX_LAYERS[:deepest + 1]
+
+
+def alex_dropout_check(mx, values, x, card):
+    """One train forward of the gluon AlexNet at p = 0.5 on the card,
+    forward hooks on its two Dropout blocks: among the units the ReLU
+    left non-zero, the kept share within 0.5 +- DROP_BAND and each kept
+    value exactly twice its input."""
+    from incubator_mxnet_tpu_torch.compat.weights import (
+        block_params_from_numpy)
+    net = alex_net(mx, DROP_RATE)
+    net.initialize(ctx=mx.gpu(0))
+    block_params_from_numpy(net, values, ctx=mx.gpu(0))
+    seen = []
+    for b in net.features:
+        if type(b).__name__ == "Dropout":
+            b.register_forward_hook(
+                lambda blk, inp, out: seen.append(
+                    (inp[0].asnumpy(), out.asnumpy())))
+    with mx.autograd.train_mode():
+        net(mx.nd.array(x, ctx=mx.gpu(0)))
+    check(len(seen) == 2, f"dropout hooks fired {len(seen)} times, want 2")
+    for k, (inp, out) in enumerate(seen):
+        live = inp != 0
+        kept = out[live] != 0
+        share = float(kept.mean())
+        scale = out[live][kept] / inp[live][kept]
+        ok = abs(share - 0.5) <= DROP_BAND and bool(
+            np.allclose(scale, 2.0, rtol=1e-6, atol=0))
+        print(f"17a dropout {k}: p = {DROP_RATE} train forward on the card: "
+              f"{int(live.sum())} live units, kept share {share:.4f} (0.5 "
+              f"+- {DROP_BAND}), kept values x {scale.min():.6f}.."
+              f"{scale.max():.6f} (2) {'ok' if ok else 'FAIL'} [{card}]")
+        check(ok, "alexnet: Dropout(0.5) kept share or scale is wrong")
+
+
+def alex_parity(mx, card):
+    """17a: ALEX_PARITY fused Module.fit steps of AlexNet (Dropout at 0,
+    OPT17) under TPU_PALLAS, fp32 with TF32 off, the card against the
+    CPU from the same Xavier parameters and batches (`resnet_steps`):
+    every step's loss within rtol and the parameters after every step
+    within PARITY_TOL; then each card step from the CPU's state,
+    parameters and momenta within PARITY_TOL.  A ReLU unit whose input
+    lies within fp32 rounding of 0, or a max-pool window whose top two
+    do, may be routed one way on the CPU and the other on the card; the
+    gradient of every layer up to it then moves by that unit's share,
+    not by rounding: at such a step those layers are printed, not held
+    (phase 6's rule, `alex_flips`).  Then the Dropout(0.5) train forward
+    (`alex_dropout_check`)."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    batch, steps = ALEX_PARITY
+    alex_k1_held(batch, F32, "17a")
+    _, sym = alex_symbol(mx, 0.0)
+    rng = np.random.RandomState(SEED + 17)
+    batches = [mx.io.DataBatch(
+        [mx.nd.array(rng.rand(batch, *IMAGE).astype("f4"), ctx=mx.cpu())],
+        [mx.nd.array(rng.randint(0, CLASSES, batch).astype("f4"),
+                     ctx=mx.cpu())]) for _ in range(steps)]
+    xs = [b.data[0].asnumpy() for b in batches]
+    cpu_loss, cpu = resnet_steps(mx, sym, mx.cpu(), batches, "float32",
+                                 batch=batch, opt=OPT17)
+    fc_relu.launches = 0
+    gpu_loss, gpu = resnet_steps(mx, sym, mx.gpu(0), batches, "float32",
+                                 batch=batch, opt=OPT17)
+    launches = fc_relu.launches
+    _, forced = resnet_steps(mx, sym, mx.gpu(0), batches, "float32",
+                             teacher=cpu, batch=batch, opt=OPT17)
+    check(launches == 2 * steps, f"17a: K1 launched {launches} times in "
+          f"{steps} card steps, want 2 a step")
+    loss_err = max(abs(g - c) / abs(c) for g, c in zip(gpu_loss, cpu_loss))
+    free = max(param_ratio(g[0], c[0]) for g, c in zip(gpu[1:], cpu[1:]))
+    held, excused, flips = (0.0, "none"), (0.0, "none"), []
+    for k, x in enumerate(xs):
+        f = alex_flips(mx, cpu[k][0], cpu[k][0], x)
+        skip = alex_excused(f)
+        after, ref = forced[k + 1], cpu[k + 1]
+        held = max(held, param_ratio(after[0], ref[0], skip),
+                   param_ratio(after[1], ref[1], skip))
+        if f:
+            flips.append(f"step {k + 1}: {f}")
+            excused = max(excused, param_ratio(after[0], ref[0]),
+                          param_ratio(after[1], ref[1]))
+    ok = loss_err <= PARITY_TOL[0] and free[0] <= 1 and held[0] <= 1
+    print(f"17a alexnet parity fp32: {steps} fused Module.fit steps at batch "
+          f"{batch}, {IMAGE[1]}x{IMAGE[2]}, Dropout 0, card vs CPU: loss "
+          f"{' '.join(f'{v:.5f}' for v in gpu_loss)}; max relative loss err "
+          f"{loss_err:.2e} (rtol {PARITY_TOL[0]:g}); parameters after each "
+          f"step at {free[0]:.3f} of the tolerance (worst {free[1]}); each "
+          f"step from the CPU's state: parameters and momenta at "
+          f"{held[0]:.3f} of it (worst {held[1]}) (rtol {PARITY_TOL[0]:g}, "
+          f"atol {PARITY_TOL[1]:g}*max|array|); K1 {launches} launches "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    note = f"; the layers up to the deepest flip at those steps at " \
+        f"{excused[0]:.3f} of the tolerance (worst {excused[1]}), not held" \
+        if flips else ""
+    print(f"17a alexnet ReLU units and max-pool windows routed differently "
+          f"by the CPU and the card from the CPU's state: "
+          f"{'; '.join(flips) or 'none'}{note}")
+    check(ok, "17a: the card's AlexNet steps disagree with the CPU's")
+    alex_dropout_check(mx, cpu[0][0], xs[0], card)
+    return {"worst": max(held[0], loss_err / PARITY_TOL[0]),
+            "flips": len(flips)}
+
+
+def alex_lane(mx, card):
+    """17b: `resnet_lane` (phase 7's lane through the public Module.fit
+    on one resident batch) on AlexNet with Dropout(0.5) and OPT17,
+    bf16 with fp32 master weights at ALEX_LANE's batch, K1's count set
+    to 0 just before
+    the fit and read just after (2 a train forward); then one warm step
+    under torch.profiler with K1 as a kernel class of its own."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    batch, warm, timed = (ALEX_LANE[k] for k in ("batch", "warm", "timed"))
+    alex_k1_held(batch, BF16, "17b")
+    _, sym = alex_symbol(mx, DROP_RATE)
+    fc_relu.launches = 0
+    mod, out = resnet_lane(mx, sym, "bfloat16", batch, warm, timed, card,
+                           PEAK_FLOPS[BF16], label="alexnet", opt=OPT17)
+    launches = fc_relu.launches
+    steps = warm + timed
+    kdt = mod._exec_group.execs[0].arg_dict[f"{ALEX_PREFIX}dense0_weight"] \
+        .data.dtype
+    print(f"17b alexnet lane: K1 {launches} launches over {steps} train "
+          f"forwards (2 each: fc6 at ({batch}, {ALEX_FC6[0]} -> "
+          f"{ALEX_FC6[1]}), fc7 at ({batch}, 4096 -> 4096)), in "
+          f"{str(kdt)[6:]} [{card}]")
+    check(launches == 2 * steps, f"17b: K1 launched {launches} times, want "
+          f"{2 * steps}")
+    it = resident_iter(mx, batch, "bfloat16", 1)
+    one = next(it)
+    metric = mx.metric.create("acc")
+    classes = (("K1 (fc_relu)", K1_KERNELS),) + KERNEL_CLASSES
+    # a session can record only part of a step's kernels (147 of 197 once
+    # on an H100, K1's among those lost): up to 3 sessions until K1 shows
+    for tries in range(1, 4):
+        prof = profile_one_step(lambda: mod.fit_step(one, metric), card,
+                                "17b alexnet profile", batch,
+                                classes=classes)
+        k1_ms = prof["by_class"].get("K1 (fc_relu)", 0.0)
+        if k1_ms > 0:
+            break
+    out["k1_share"] = k1_ms / prof["device_ms"] if k1_ms else None
+    out["profile"] = prof
+    out["launches"] = launches
+    share = f"{out['k1_share']:.4f} of the step's device time" if k1_ms \
+        else "not recorded"
+    print(f"17b alexnet profile: K1 {share} ({tries} profiler sessions) "
+          f"[{card}]")
+    return mod, out
+
+
+def alex_serve(mx, mod, card, workdir):
+    """17c: the trained lane's parameters (widened to fp32) into the
+    gluon AlexNet, hybridized and exported; the export partitioned by
+    TPU_PALLAS (a served model never partitions itself) and served
+    through ModelServer at buckets 1-32 on the card, K1's count set to 0
+    just before the load and read after the last answer (2 per warm-up
+    and per batch); every answer held to Module.predict of the exported
+    pair (SERVE_TOL: cuDNN picks other fp32 algorithms for the padded
+    bucket than for predict's batch); then SymbolBlock.imports of the
+    export, by default on current_context(), the card, against the
+    block's forward (IMPORT17_TOL)."""
+    from incubator_mxnet_tpu_torch.compat.weights import (
+        block_params_from_numpy)
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    for m in BUCKETS:
+        alex_k1_held(m, F32, "17c")
+    args, _ = mod.get_params()
+    values = {n: v.asnumpy().astype("f4") for n, v in args.items()}
+    net = alex_net(mx, DROP_RATE)
+    net.initialize(ctx=mx.gpu(0))
+    block_params_from_numpy(net, values, ctx=mx.gpu(0))
+    net.hybridize()
+    rng = np.random.RandomState(SEED + 18)
+    x8 = rng.rand(ALEX_IMPORT_BATCH, *IMAGE).astype("f4")
+    ref8 = net(mx.nd.array(x8, ctx=mx.gpu(0))).asnumpy()
+    reqs = [rng.rand(n, *IMAGE).astype("f4") for n in ALEX_SERVE_SIZES]
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        prefix = os.path.join(tmp, "alexnet")
+        net.export(prefix)
+        part = mx.subgraph.partition_graph(
+            mx.sym.load(prefix + "-symbol.json"), "TPU_PALLAS")
+        fused = [n["op"] for n in json.loads(part.tojson())["nodes"]
+                 ].count("_sg_pallas_fc_relu")
+        check(fused == 2, f"17c: the export partitions to {fused} K1 nodes")
+        served = os.path.join(tmp, "alexnet_k1")
+        part.save(served + "-symbol.json")
+        shutil.copy(prefix + "-0000.params", served + "-0000.params")
+        pm = mx.mod.Module.load(prefix, 0, data_names=("data",),
+                                label_names=None, context=mx.gpu(0))
+        pm.bind([("data", (max(BUCKETS),) + IMAGE)], for_training=False)
+        want = [pm.predict(x).asnumpy() for x in reqs]
+        srv = mx.serving.ModelServer(max_queue_latency_ms=2.0,
+                                     ctx=mx.gpu(0))
+        fc_relu.launches = 0
+        srv.load_model("alexnet", prefix=served, epoch=0,
+                       data_shapes=[("data", (1,) + IMAGE)], buckets=BUCKETS)
+        got = [srv.predict("alexnet", {"data": x},
+                           timeout_ms=600_000)[0].asnumpy() for x in reqs]
+        launches = fc_relu.launches
+        batches = srv.stats()["alexnet"]["batches"]
+        srv.shutdown(drain=True)
+        sb = mx.gluon.SymbolBlock.imports(prefix + "-symbol.json", "data",
+                                          prefix + "-0000.params")
+        ctxs = {str(c) for p in sb.collect_params().values()
+                for c in p.list_ctx()}
+        imported = sb(mx.nd.array(x8, ctx=mx.gpu(0))).asnumpy()
+    expect = 2 * (len(BUCKETS) + batches)
+    check(batches == len(reqs) and launches == expect,
+          f"17c: {batches} batches for {len(reqs)} lone requests, K1 "
+          f"{launches} launches, want {expect}")
+    worst = max(op_ratio(g, w, SERVE_TOL) for g, w in zip(got, want))
+    shapes_ok = all(g.shape == (len(x), CLASSES) and np.isfinite(g).all()
+                    for g, x in zip(got, reqs))
+    agree = float(np.mean(np.concatenate([g.argmax(1) == w.argmax(1)
+                                          for g, w in zip(got, want)])))
+    ok = shapes_ok and worst <= 1
+    print(f"17c alexnet serve: export partitioned (2 K1 nodes), "
+          f"{len(reqs)} requests of {sum(ALEX_SERVE_SIZES)} images one at "
+          f"a time (buckets {BUCKETS}), K1 {launches} launches = 2 x "
+          f"({len(BUCKETS)} warm-up + {batches} batches); answers vs "
+          f"Module.predict at {worst:.3f} of the tolerance (rtol "
+          f"{SERVE_TOL[0]:g}, atol {SERVE_TOL[1]:g}*max|ref|), argmax "
+          f"agreement {agree:.4f} {'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "17c: served AlexNet answers disagree with Module.predict")
+    imp = op_ratio(imported, ref8, IMPORT17_TOL)
+    ok = imp <= 1 and ctxs == {str(mx.gpu(0))}
+    print(f"17c alexnet SymbolBlock.imports: parameters on {sorted(ctxs)} "
+          f"(current_context()), forward at batch {ALEX_IMPORT_BATCH} vs "
+          f"the hybridized block at {imp:.3f} of the tolerance (rtol "
+          f"{IMPORT17_TOL[0]:g}, atol {IMPORT17_TOL[1]:g}*max|ref|) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "17c: the imported SymbolBlock disagrees with the block")
+    return {"launches": launches, "batches": batches, "worst": worst,
+            "import": imp}
+
+
+def zoo_values(mx, name, side):
+    """Xavier(gaussian, in, 2) parameters of `name` (1000 classes, its
+    Dropout at 0) under the seed, the deferred shapes finished by one
+    predict-mode forward on the CPU, as numpy; every BatchNorm's beta
+    drawn from U(-0.1, 0.1).  At beta 0, a channel that a ReLU6 zeroed
+    hands the next ReLU6 its BatchNorm's beta, exactly the kink, where a
+    rounding's sign on either device decides whether the gradient passes
+    (MobileNet v2 at beta 0 on an H100: a beta's momentum 9785x the
+    tolerance apart, card vs CPU in float64)."""
+    from incubator_mxnet_tpu_torch.compat.weights import (
+        block_params_to_numpy)
+    net = zoo_net(mx, name)
+    mx.random.seed(SEED)
+    net.initialize(resnet_init(mx), ctx=mx.cpu())
+    net(mx.nd.zeros((1, 3, side, side), ctx=mx.cpu()))
+    values = block_params_to_numpy(net)
+    rng = np.random.RandomState(SEED + 24)
+    for k in sorted(values):
+        if k.endswith("_beta"):
+            values[k] = rng.uniform(-0.1, 0.1, values[k].shape).astype(
+                values[k].dtype)
+    return values
+
+
+def zoo_net(mx, name, ctx=None, values=None, dtype="float32"):
+    """get_model(name, classes=1000) under ZOO17_PREFIX, every Dropout at
+    0; with `values`, initialized from them on `ctx` and cast to
+    `dtype`."""
+    from incubator_mxnet_tpu_torch.compat.weights import (
+        block_params_from_numpy)
+    net = mx.gluon.model_zoo.vision.get_model(name, classes=CLASSES,
+                                              prefix=ZOO17_PREFIX)
+    set_dropout(net, 0.0)
+    if values is not None:
+        net.initialize(ctx=ctx)
+        block_params_from_numpy(net, values, ctx=ctx)
+        net.cast(dtype)
+    return net
+
+
+def zoo_steps(mx, name, ctx, values, batches):
+    """ZOO17_PARITY steps of the plain loop (record, backward,
+    Trainer.step; SGD with OPT17) on the hybridized net in float64 on
+    `ctx`: each step's loss and the state after the last."""
+    net = zoo_net(mx, name, ctx, values, "float64")
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", OPT17)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    for x, y in batches:
+        with mx.autograd.record():
+            loss = loss_fn(net(mx.nd.array(x, ctx=ctx, dtype="float64")),
+                           mx.nd.array(y, ctx=ctx))
+        loss.backward()
+        trainer.step(x.shape[0])
+        losses.append(float(loss.asnumpy().mean()))
+    return losses, gluon_state(mx, net, trainer)
+
+
+def zoo_lane(mx, name, side, values, card):
+    """One fp32 lane of the hybridized net on the card (TF32 off): the
+    plain loop on one resident batch, ZOO17_LANE's warm and timed steps,
+    the timed ones between CUDA-synchronised edges; K1's count set to 0
+    before and read after (no FC of these nets feeds a ReLU)."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    batch, warm, timed = (ZOO17_LANE[k] for k in ("batch", "warm", "timed"))
+    ctx = mx.gpu(0)
+    net = zoo_net(mx, name, ctx, values, "float32")
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", OPT17)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    rng = np.random.RandomState(SEED + 19)
+    x = mx.nd.array(rng.rand(batch, 3, side, side).astype("f4"), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, CLASSES, batch).astype("f4"), ctx=ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fc_relu.launches = 0
+    losses = []
+    for k in range(warm + timed):
+        if k == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(batch)
+        losses.append(loss.data.detach().mean())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fc_relu.launches
+    loss = torch.stack(losses).cpu().numpy()
+    ok = bool(np.isfinite(loss).all()) and launches == 0
+    out = {"images_s": batch * timed / wall,
+           "step_ms": wall / timed * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "k1": launches}
+    print(f"17d {name} lane fp32 batch {batch}, {side}x{side}: "
+          f"{out['images_s']:.1f} images/s, step {out['step_ms']:.2f} ms "
+          f"over {timed} timed steps ({warm} warm), peak "
+          f"{out['peak_gib']:.2f} GiB, loss {loss[0]:.4f} -> {loss[-1]:.4f}, "
+          f"K1 launches {launches} (none by design) "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, f"17d {name}: loss not finite, or K1 ran")
+    return out
+
+
+def zoo_families(mx, card):
+    """17d: each of ZOO17's families, card against CPU in float64 (the
+    plain loop, hybridized, ZOO17_PARITY steps from the same Xavier
+    values and batches; every step's loss within rtol, the parameters,
+    moving statistics and momenta after the last within PARITY_TOL),
+    then its fp32 lane on the card."""
+    out = {}
+    batch, steps = ZOO17_PARITY
+    for name, side in ZOO17:
+        t0 = time.perf_counter()
+        values = zoo_values(mx, name, side)
+        rng = np.random.RandomState(SEED + 20)
+        batches = [(rng.rand(batch, 3, side, side),
+                    rng.randint(0, CLASSES, batch).astype("f4"))
+                   for _ in range(steps)]
+        cpu_loss, cpu = zoo_steps(mx, name, mx.cpu(), values, batches)
+        gpu_loss, gpu = zoo_steps(mx, name, mx.gpu(0), values, batches)
+        loss_err = max(abs(g - c) / abs(c)
+                       for g, c in zip(gpu_loss, cpu_loss))
+        held = held_ratio(gpu, cpu)
+        ok = loss_err <= PARITY_TOL[0] and held[0] <= 1
+        print(f"17d {name} parity float64: {steps} hybridized Trainer steps "
+              f"at batch {batch}, {side}x{side}, card vs CPU: loss "
+              f"{' '.join(f'{v:.6f}' for v in gpu_loss)}; max relative loss "
+              f"err {loss_err:.2e}; {len(cpu)} parameter, moving statistic "
+              f"and momentum arrays after step {steps} at {held[0]:.3f} of "
+              f"the tolerance (worst {held[1]}) (rtol {PARITY_TOL[0]:g}, "
+              f"atol {PARITY_TOL[1]:g}*max|array|) "
+              f"{'ok' if ok else 'FAIL'} [{card}]")
+        check(ok, f"17d {name}: the card's float64 steps disagree with the "
+              "CPU's")
+        out[name] = zoo_lane(mx, name, side, values, card)
+        out[name]["worst"] = max(held[0], loss_err / PARITY_TOL[0])
+        out[name]["s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def block_run(mx, build, inputs, ctx, values=None, fwd=None, grad=None):
+    """`build(mx)` on `ctx` (initialized under the seed, or from
+    `values`), run on `inputs` (numpy) under record in train mode, then
+    backward from one seeded head per output; returns (values, outputs,
+    input gradients, parameter gradients) as numpy.  `fwd(block, xs)`
+    gives the outputs (default: the block's call); `grad` the inputs
+    that take a gradient (default: every float input)."""
+    from incubator_mxnet_tpu_torch.compat.weights import (
+        block_params_from_numpy, block_params_to_numpy)
+    block = build(mx)
+    mx.random.seed(SEED)
+    block.initialize(ctx=ctx)
+    xs = [mx.nd.array(a, ctx=ctx, dtype=a.dtype) for a in inputs]
+    which = [i for i, a in enumerate(inputs) if a.dtype.kind == "f"] \
+        if grad is None else grad
+    for i in which:
+        xs[i].attach_grad()
+    call = fwd or (lambda b, a: b(*a))
+    if values is not None:
+        with mx.autograd.predict_mode():
+            call(block, xs)                 # deferred shapes
+        block_params_from_numpy(block, values, ctx=ctx)
+    with mx.autograd.record():
+        out = call(block, xs)
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    rng = np.random.RandomState(SEED + 21)
+    heads = [mx.nd.array(rng.standard_normal(o.shape).astype("f4"),
+                         ctx=ctx) for o in outs]
+    mx.autograd.backward(outs, heads)
+    return (block_params_to_numpy(block), [o.asnumpy() for o in outs],
+            [xs[i].grad.asnumpy() for i in which],
+            {n: p.grad().asnumpy() for n, p in
+             block.collect_params().items() if p.grad_req != "null"})
+
+
+def blocks17_cases(mx):
+    """(label, build, inputs, fwd, grad inputs) of 17e, at the shapes the
+    blocks' users give them.  Each block is named ``b17_`` on both
+    devices."""
+    r = np.random.RandomState(SEED + 22)
+
+    def f(*shape, scale=1.0):
+        return (scale * r.standard_normal(shape)).astype("f4")
+
+    def unroll(t):
+        def fwd(cell, xs):
+            out, states = cell.unroll(t, xs[0], merge_outputs=True)
+            return [out] + list(states)
+        return fwd
+
+    def make(path, *args, **kw):
+        def build(mx):
+            obj = mx.gluon
+            for part in path.split("."):
+                obj = getattr(obj, part)
+            return obj(*args, prefix="b17_", **kw)
+        return build
+    act = f(32, 256, 28, 28, scale=2.0)
+    cases = [(name + (f"({args[0]})" if args else ""),
+              make(f"nn.{name}", *args), [act], None, None)
+             for name, args in (
+                 ("LeakyReLU", (0.1,)), ("PReLU", ()), ("ELU", ()),
+                 ("SELU", ()), ("GELU", ()), ("Swish", ()))]
+    pred = f(128, 80, 11)                      # lstm_ocr's shapes (15a)
+    label = r.randint(1, 11, (128, 4)).astype("f4")
+    cases += [
+        ("Embedding(10000, 200)", make("nn.Embedding", 10000, 200),
+         [r.randint(0, 10000, (32, 35)).astype("f4")], None, []),
+        ("InstanceNorm", make("nn.InstanceNorm", scale=True),
+         [f(8, 64, 56, 56, scale=3.0)], None, None),
+        ("Conv1DTranspose", make("nn.Conv1DTranspose", 32, 3, strides=2,
+                                 padding=1, output_padding=1),
+         [f(16, 64, 100)], None, None),
+        ("Conv2DTranspose", make("nn.Conv2DTranspose", 128, 4, strides=2,
+                                 padding=1), [f(64, 256, 16, 16)], None,
+         None),
+        ("Conv3DTranspose", make("nn.Conv3DTranspose", 16, 3, strides=2,
+                                 padding=1, output_padding=1),
+         [f(2, 16, 8, 16, 16)], None, None),
+        ("ReflectionPad2D(3)", make("nn.ReflectionPad2D", 3),
+         [f(8, 64, 64, 64)], None, None),
+        ("PixelShuffle1D(4)", make("contrib.nn.PixelShuffle1D", 4),
+         [f(16, 64, 256)], None, None),
+        ("PixelShuffle2D(2)", make("contrib.nn.PixelShuffle2D", 2),
+         [f(8, 64, 64, 64)], None, None),
+        ("PixelShuffle3D(2)", make("contrib.nn.PixelShuffle3D", 2),
+         [f(2, 64, 8, 16, 16)], None, None),
+        ("CTCLoss NTC/NT", make("loss.CTCLoss"), [pred, label], None, [0]),
+        ("CTCLoss TNC/TN", make("loss.CTCLoss", "TNC", "TN"),
+         [np.ascontiguousarray(pred.transpose(1, 0, 2)),
+          np.ascontiguousarray(label.T)], None, [0]),
+        ("LSTMPCell(512, 128) x20", make("contrib.rnn.LSTMPCell", 512, 128),
+         [f(32, 20, 200)], unroll(20), None),
+        ("SyncBatchNorm", make("nn.SyncBatchNorm"),
+         [f(32, 64, 28, 28, scale=2.0)], None, None)]
+    for kind in ("RNN", "LSTM", "GRU"):
+        for dims, spatial in ((1, (64,)), (2, (32, 32)), (3, (8, 16, 16))):
+            name = f"Conv{dims}D{kind}Cell"
+            cases.append((f"{name} x4", make(f"contrib.rnn.{name}",
+                                            (16,) + spatial, 32, 3, 3,
+                                            i2h_pad=1),
+                          [f(4, 4, 16, *spatial)], unroll(4), None))
+    return cases
+
+
+def blocks17(mx, card):
+    """17e: every block slice 15 added, on the card against the CPU in
+    fp32 (TF32 off) from the same values and inputs: the outputs, the
+    inputs' gradients and the parameters' gradients within each case's
+    tolerance; the one-card SyncBatchNorm equals BatchNorm on the card
+    (outputs, gradients, moving statistics)."""
+    worst, tol = (0.0, "none"), BLOCK17_TOL
+    for label, build, inputs, fwd, grad in blocks17_cases(mx):
+        values, c_out, c_g, c_pg = block_run(mx, build, inputs, mx.cpu(),
+                                             fwd=fwd, grad=grad)
+        _, g_out, g_g, g_pg = block_run(mx, build, inputs, mx.gpu(0),
+                                        values, fwd=fwd, grad=grad)
+        ratios = [op_ratio(g, c, tol) for g, c in zip(g_out, c_out)] + \
+            [op_ratio(g, c, tol) for g, c in zip(g_g, c_g)] + \
+            [op_ratio(g_pg[n], c_pg[n], tol) for n in c_pg]
+        w = max(ratios)
+        finite = all(np.isfinite(o).all() for o in g_out)
+        ok = w <= 1 and finite and len(g_out) == len(c_out)
+        print(f"17e {label:28s} card vs CPU: {len(c_out)} outputs "
+              f"{[tuple(o.shape) for o in c_out][:2]}, {len(c_g)} input and "
+              f"{len(c_pg)} parameter gradients at {w:.3f} of the tolerance "
+              f"(rtol {tol[0]:g}, atol {tol[1]:g}*max|ref|) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"17e {label}: the card disagrees with the CPU")
+        worst = max(worst, (w, label))
+    x = [np.random.RandomState(SEED + 23).standard_normal(
+        (32, 64, 28, 28)).astype("f4")]
+    sync = block_run(mx, lambda mx: mx.gluon.nn.SyncBatchNorm(prefix="bn_"),
+                     x, mx.gpu(0))
+    plain = block_run(mx, lambda mx: mx.gluon.nn.BatchNorm(prefix="bn_"), x,
+                      mx.gpu(0))
+    same = all(np.array_equal(a, b) for a, b in zip(
+        sync[1] + sync[2] + list(sync[0].values()) + list(sync[3].values()),
+        plain[1] + plain[2] + list(plain[0].values())
+        + list(plain[3].values())))
+    print(f"17e SyncBatchNorm on one card vs BatchNorm on the card: outputs, "
+          f"gradients and moving statistics {'equal' if same else 'DIFFER'}")
+    check(same, "17e: the one-card SyncBatchNorm is not BatchNorm")
+    return worst
+
+
+def zoo_phase(card, workdir):
+    """Phase 17; returns K1's launches on its two paths and the numbers
+    of the summary line.  K2 and K3 must not run."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_stream)
+    for wrapper in (flash_fwd, flash_fwd_stream):
+        wrapper.launches = 0
+    out, times = {}, {}
+    old = os.environ.get("MXNET_SUBGRAPH_BACKEND")
+    os.environ["MXNET_SUBGRAPH_BACKEND"] = "TPU_PALLAS"
+    try:
+        for key, fn in (("17a", lambda: alex_parity(mx, card)),
+                        ("17b", lambda: alex_lane(mx, card)),
+                        ("17c", lambda: alex_serve(mx, out["17b"][0], card,
+                                                   workdir))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            times[key] = time.perf_counter() - t0
+            print(f"phase {key}: {times[key]:.1f} s")
+    finally:
+        os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+        if old is not None:
+            os.environ["MXNET_SUBGRAPH_BACKEND"] = old
+    out["17b"] = out["17b"][1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, fn in (("17d", lambda: zoo_families(mx, card)),
+                    ("17e", lambda: blocks17(mx, card))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        times[key] = time.perf_counter() - t0
+        print(f"phase {key}: {times[key]:.1f} s")
+    check([flash_fwd.launches, flash_fwd_stream.launches] == [0, 0],
+          "phase 17: K2/K3 ran")
+    out["times"] = times
+    out["k1"] = {"alexnet_fit": out["17b"]["launches"],
+                 "alexnet_serve": out["17c"]["launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -8666,6 +9401,9 @@ def main():
     t0 = time.perf_counter()
     api = api_phase(card, str(_build.BUILD_DIR.parent))
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    zoo = zoo_phase(card, str(_build.BUILD_DIR.parent))
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -8815,9 +9553,30 @@ def main():
           f"launches {api['k1']}; " + ", ".join(
               f"{k} {v:.1f} s" for k, v in api["times"].items())
           + f" [{card}]")
+    lane, srv = zoo["17b"], zoo["17c"]
+    zoo_worst = max(v["worst"] for v in zoo["17d"].values())
+    k1_share = "not recorded" if lane["k1_share"] is None else \
+        f"{lane['k1_share']:.4f}"
+    print(f"zoo summary: 17a AlexNet card vs CPU at "
+          f"{zoo['17a']['worst']:.3f} of the tolerance; 17b AlexNet bf16 "
+          f"batch {ALEX_LANE['batch']} through Module.fit "
+          f"{lane['images_s']:.1f} images/s, step {lane['step_ms']:.3f} ms, "
+          f"peak {lane['peak_gib']:.2f} GiB, K1's share of the profiled "
+          f"step's device time {k1_share}; 17c served answers at "
+          f"{srv['worst']:.3f} of the tolerance; 17d fp32 batch "
+          f"{ZOO17_LANE['batch']} images/s "
+          + ", ".join(f"{n} {v['images_s']:.1f}" for n, v in
+                      zoo["17d"].items())
+          + f", card vs CPU worst {zoo_worst:.3f}; 17e worst {zoo['17e'][0]:.3f} ({zoo['17e'][1]}); K1 launches "
+          f"{zoo['k1']}; " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                       zoo["times"].items())
+          + f" [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"
+    for key in (ALEX_REP, ALEX_REP_BF16):
+        m, k, n, dt = key
+        k1[key]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n} (AlexNet fc6)"
     rep = k1[F32]
     for (m, k, n), label in zip(MLP_K1, ("fc1", "fc2")):
         k1[(m, k, n, F32)]["shape"] = f"float32 M={m} K={k} N={n} (mlp " \
@@ -8832,12 +9591,14 @@ def main():
         "source": "incubator_mxnet_tpu_torch/csrc/fc_relu.cu",
         "replaces": "incubator_mxnet_tpu/subgraph/fused_ops.py:29",
         "launches": launches + train_launches + kvp["dp_launches"]
-        + kvp["wd_launches"] + seq["k1_launches"] + sum(api["k1"].values()),
+        + kvp["wd_launches"] + seq["k1_launches"] + sum(api["k1"].values())
+        + sum(zoo["k1"].values()),
         "paths": {"serving": launches, "training": train_launches,
                   "data_parallel": kvp["dp_launches"],
                   "wide_deep": kvp["wd_launches"],
                   "sequential_module": seq["k1_launches"],
-                  "dist_sync_workers": dist["launches"], **api["k1"]},
+                  "dist_sync_workers": dist["launches"], **api["k1"],
+                  **zoo["k1"]},
         "max_abs_err": rep["max_abs_err"],
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -8847,7 +9608,10 @@ def main():
         **dtype_keys("train_fc2", k1[MLP_K1[1] + (F32,)]),
         **{k: v for shape, prefix, _ in PATH_K1
            for k, v in dtype_keys(prefix, k1[shape + (F32,)]).items()},
-        "train_k1_share": train["mlp"]["k1_share"]},
+        **dtype_keys("alexnet_fc6", k1[ALEX_REP]),
+        **dtype_keys("alexnet_fc6_bf16", k1[ALEX_REP_BF16]),
+        "train_k1_share": train["mlp"]["k1_share"],
+        "alexnet_k1_share": lane["k1_share"]},
         dict(name="flash_fwd", route="cuda", source=src,
              replaces=f"{tpu}:229", launches=k2_launches, **attn[REP_K2],
              **dtype_keys("fp32", attn[REP_K2_F32])),

@@ -30,7 +30,8 @@ arithmetic:
 
 A fresh outermost `record()` starts a new tape.  `Function` is a
 `torch.autograd.Function` around the user's `forward` and `backward`.
-`get_symbol` is not ported.
+`get_symbol` raises, as the JAX package's does: a block's graph comes
+from `hybridize()` and `export`.
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode",
            "mark_variables", "backward", "grad", "is_recording",
-           "is_training", "set_recording", "set_training", "Function"]
+           "is_training", "set_recording", "set_training", "get_symbol",
+           "Function"]
 
 _state = threading.local()
 
@@ -304,6 +306,13 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     if create_graph and is_recording():
         _record(list(heads) + list(variables), out)
     return out[0] if single else out
+
+
+def get_symbol(x):
+    """The Symbol of the recorded computation of `x`: not available, as
+    in the JAX package; trace a block with `hybridize()` instead."""
+    raise MXNetError("autograd.get_symbol: use hybridize()/CachedOp "
+                     "tracing instead")
 
 
 class Function:

@@ -16,8 +16,16 @@ interpreter (`symbol.graph_eval_fn`) in training or predict mode as
 `autograd` says, recorded as one op whose inputs are the data and every
 parameter, and in training mode the new BatchNorm moving statistics are
 written into their Parameters in place.  Either way deferred shapes are
-finished from the first input.  `SymbolBlock`, forward hooks and
-`summary` are not ported.
+finished from the first input.
+
+`Block.__call__` runs the forward pre-hooks and hooks around `forward`,
+and `summary` prints one row per block a forward reaches through them
+(a hybridized block's children run inside its graph and have no rows),
+as the JAX package does.  `SymbolBlock` wraps a Symbol as a block whose
+forward is that graph's `_CachedGraph`; `SymbolBlock.imports` loads an
+`export`ed pair onto ``ctx``, by default `current_context()`, the card,
+as `Module()` does (the JAX one defaults to the CPU).  Its parameters
+are registered once each, under their names in the symbol.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ from .. import autograd as _autograd
 from .parameter import Parameter, ParameterDict, _load_into, \
     DeferredInitializationError
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
 class _BlockScope:
@@ -97,6 +105,8 @@ class Block:
         self._scope = _BlockScope(self)
         self._children = {}
         self._reg_params = {}
+        self._forward_hooks = {}
+        self._forward_pre_hooks = {}
 
     def _alias(self):
         return self.__class__.__name__.lower()
@@ -159,6 +169,20 @@ class Block:
             name = str(len(self._children))
         self._children[name] = block
 
+    def register_forward_hook(self, hook):
+        """Call ``hook(block, inputs, output)`` after every forward;
+        returns the handle that keys it in ``_forward_hooks``."""
+        handle = len(self._forward_hooks)
+        self._forward_hooks[handle] = hook
+        return handle
+
+    def register_forward_pre_hook(self, hook):
+        """Call ``hook(block, inputs)`` before every forward; returns the
+        handle that keys it in ``_forward_pre_hooks``."""
+        handle = len(self._forward_pre_hooks)
+        self._forward_pre_hooks[handle] = hook
+        return handle
+
     def apply(self, fn):
         for cld in self._children.values():
             cld.apply(fn)
@@ -216,10 +240,52 @@ class Block:
         return ret
 
     def __call__(self, *args):
-        return self.forward(*args)
+        for hook in self._forward_pre_hooks.values():
+            hook(self, args)
+        out = self.forward(*args)
+        for hook in self._forward_hooks.values():
+            hook(self, args, out)
+        return out
 
     def forward(self, *args):
         raise NotImplementedError
+
+    def summary(self, *inputs):
+        """Run a forward on `inputs` with a hook on every block and print
+        a row per block it reached, in the order they finished: name,
+        type, the (first) output's shape and the count of the block's own
+        initialized parameter values; then the total."""
+        rows = []
+
+        def hook(blk, inp, out):
+            o = out[0] if isinstance(out, (list, tuple)) else out
+            n_params = sum(int(p.data().size)
+                           for p in blk._reg_params.values()
+                           if p._data is not None)
+            rows.append((blk.name, type(blk).__name__,
+                         tuple(o.shape) if hasattr(o, "shape") else "?",
+                         n_params))
+
+        handles = []
+
+        def walk(b):
+            handles.append((b, b.register_forward_hook(hook)))
+            for c in b._children.values():
+                walk(c)
+        walk(self)
+        try:
+            self(*inputs)
+        finally:
+            for b, h in handles:
+                b._forward_hooks.pop(h, None)
+        print(f"{'Layer':<30}{'Type':<20}{'Output Shape':<24}{'Params':<12}")
+        print("-" * 86)
+        total = 0
+        for name, typ, shape, n in rows:
+            print(f"{name:<30}{typ:<20}{str(shape):<24}{n:<12}")
+            total += n
+        print("-" * 86)
+        print(f"Total params: {total}")
 
 
 def _indent(s, num_spaces):
@@ -395,3 +461,71 @@ class HybridBlock(Block):
             elif param.name in aux_names:
                 arg_dict[f"aux:{param.name}"] = param._reduce()
         nd.save("%s-%04d.params" % (path, epoch), arg_dict)
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol as a block (reference `block.py:953 SymbolBlock`): every
+    argument of `outputs` that is not one of `inputs` is a parameter,
+    every auxiliary state one with ``grad_req="null"``, each registered
+    once under its name in the symbol; the forward runs the graph as a
+    hybridized block's `_CachedGraph` does."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix=None, params=params)
+        from ..symbol.symbol import Symbol, Group
+        if isinstance(outputs, (list, tuple)):
+            outputs = Group(list(outputs))
+        if isinstance(inputs, Symbol):
+            inputs = [inputs]
+        self._output_symbol = outputs
+        self._input_names = [i.name for i in inputs]
+        for name in outputs.list_arguments():
+            if name not in self._input_names:
+                self._add_param(name)
+        for name in outputs.list_auxiliary_states():
+            self._add_param(name, grad_req="null")
+        # the graph stays when hybridize() or cast() drops _cached_graph
+        self._graph = self._cached_graph = _CachedGraph(
+            outputs, self._input_names, self._reg_params)
+
+    def _add_param(self, name, **kwargs):
+        param = Parameter(name, allow_deferred_init=True, **kwargs)
+        self.params._params[name] = param
+        self._reg_params[name] = param
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock of ``symbol_file`` with data `input_names` (a
+        name or a list), its parameters (``arg:``/``aux:`` keys, or bare
+        names) loaded from `param_file` onto `ctx`, by default
+        `current_context()` (reference `block.py:986`)."""
+        from .. import symbol as sym_mod
+        from ..context import current_context
+        output = sym_mod.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(output, [sym_mod.var(n) for n in input_names])
+        if param_file is not None:
+            loaded = {k.split(":", 1)[1] if ":" in k else k: v
+                      for k, v in nd.load(param_file).items()}
+            for name, param in ret._reg_params.items():
+                if name in loaded:
+                    param.shape = loaded[name].shape
+                    param.initialize(ctx=ctx or [current_context()])
+                    param.set_data(loaded[name])
+        return ret
+
+    def forward(self, x, *args):
+        if not isinstance(x, NDArray):
+            raise MXNetError("SymbolBlock requires NDArray inputs")
+        inputs = [x] + [a for a in args if isinstance(a, NDArray)]
+        ctx = x.context
+        for p in self._reg_params.values():
+            if p._data is None and not p._deferred_init:
+                p.initialize(ctx=ctx)
+            elif p._deferred_init:
+                p._finish_deferred_init()
+        return self._graph(dict(zip(self._input_names, inputs)), ctx)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError

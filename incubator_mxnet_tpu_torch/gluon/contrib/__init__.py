@@ -1,4 +1,7 @@
-"""`gluon.contrib` (reference `python/mxnet/gluon/contrib/`): the
-`Estimator` training loop."""
-from . import estimator  # noqa: F401
+"""`gluon.contrib` (reference `python/mxnet/gluon/contrib/`): `nn`
+(concurrent containers, `Identity`, `SparseEmbedding`, `SyncBatchNorm`,
+pixel shuffles), `rnn` (convolutional cells, `VariationalDropoutCell`,
+`LSTMPCell`), `data` (`IntervalSampler`) and the `Estimator` training
+loop."""
+from . import data, estimator, nn, rnn  # noqa: F401
 from .estimator import Estimator  # noqa: F401

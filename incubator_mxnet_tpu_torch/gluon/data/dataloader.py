@@ -43,7 +43,7 @@ class DataLoader:
                  thread_pool=False):
         if num_workers:
             raise MXNetError("DataLoader: worker threads are not ported "
-                             "yet (ROADMAP Queue 1, item 11); use "
+                             "yet (ROADMAP Queue 1, item 11b); use "
                              "num_workers=0")
         self._dataset = dataset
         if batch_sampler is None:

@@ -2,11 +2,12 @@
 
 PyTorch port of `incubator_mxnet_tpu/gluon/loss.py`: L2, L1, sigmoid
 binary cross-entropy, softmax cross-entropy, KL divergence, Huber,
-hinge, squared hinge, logistic and triplet losses, with the JAX
+hinge, squared hinge, logistic, triplet and CTC losses, with the JAX
 package's math (each a `HybridBlock`, so it runs eagerly on NDArrays,
 recorded by `autograd`, or composes on Symbols).  Each returns one loss
-per sample: the mean over every axis but ``batch_axis``.  `CTCLoss` is
-not ported (it needs the CTC op).
+per sample: the mean over every axis but ``batch_axis`` (`CTCLoss`: the
+sequence's negative log-likelihood from the `ctc_loss` op, which takes
+label 0 as the blank, whatever ``blank_label`` says).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from .block import HybridBlock
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
            "KLDivLoss", "HuberLoss", "HingeLoss",
-           "SquaredHingeLoss", "LogisticLoss", "TripletLoss"]
+           "SquaredHingeLoss", "LogisticLoss", "TripletLoss", "CTCLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -210,3 +211,35 @@ class TripletLoss(Loss):
                      axis=self._batch_axis, exclude=True)
         loss = F.relu(loss + self._margin)
         return _apply_weighting(F, loss, self._weight, None)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification loss over the `ctc_loss` op
+    (reference `loss.py:207 CTCLoss`): ``pred`` in ``layout`` NTC or TNC,
+    ``label`` in ``label_layout`` NT or TN, with optional lengths."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        if layout not in ("NTC", "TNC"):
+            raise ValueError(f"CTCLoss: layout {layout!r} is not NTC or TNC")
+        if label_layout not in ("NT", "TN"):
+            raise ValueError(f"CTCLoss: label_layout {label_layout!r} is "
+                             "not NT or TN")
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        args = [pred, label]
+        if pred_lengths is not None:
+            args.append(pred_lengths)
+        if label_lengths is not None:
+            args.append(label_lengths)
+        loss = F.ctc_loss(*args, use_data_lengths=pred_lengths is not None,
+                          use_label_lengths=label_lengths is not None)
+        return _apply_weighting(F, loss, self._weight, sample_weight)

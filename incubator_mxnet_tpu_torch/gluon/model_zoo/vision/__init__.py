@@ -1,17 +1,43 @@
-"""The model zoo's vision networks the port carries: ResNet v1/v2 and VGG
-(reference `python/mxnet/gluon/model_zoo/vision/__init__.py`).  Weights
-are random; ``pretrained=True`` raises, since nothing is downloaded."""
+"""The model zoo's vision networks (reference `python/mxnet/gluon/
+model_zoo/vision/__init__.py`): ResNet v1/v2, VGG, AlexNet, DenseNet,
+SqueezeNet, Inception v3 and MobileNet v1/v2, with the JAX package's
+name table.  Weights are random; ``pretrained=True`` raises, since
+nothing is downloaded."""
+from .alexnet import *  # noqa: F401,F403
+from .densenet import *  # noqa: F401,F403
+from .inception import *  # noqa: F401,F403
 from .resnet import *  # noqa: F401,F403
+from .squeezenet import *  # noqa: F401,F403
 from .vgg import *  # noqa: F401,F403
-from . import resnet as _resnet, vgg as _vgg
+from .mobilenet import *  # noqa: F401,F403
+
+_MODELS = {
+    "resnet18_v1": resnet18_v1, "resnet34_v1": resnet34_v1,
+    "resnet50_v1": resnet50_v1, "resnet101_v1": resnet101_v1,
+    "resnet152_v1": resnet152_v1, "resnet18_v2": resnet18_v2,
+    "resnet34_v2": resnet34_v2, "resnet50_v2": resnet50_v2,
+    "resnet101_v2": resnet101_v2, "resnet152_v2": resnet152_v2,
+    "vgg11": vgg11, "vgg13": vgg13, "vgg16": vgg16, "vgg19": vgg19,
+    "vgg11_bn": vgg11_bn, "vgg13_bn": vgg13_bn, "vgg16_bn": vgg16_bn,
+    "vgg19_bn": vgg19_bn, "alexnet": alexnet,
+    "densenet121": densenet121, "densenet161": densenet161,
+    "densenet169": densenet169, "densenet201": densenet201,
+    "squeezenet1.0": squeezenet1_0, "squeezenet1.1": squeezenet1_1,
+    "inceptionv3": inception_v3,
+    "mobilenet1.0": mobilenet1_0, "mobilenet0.75": mobilenet0_75,
+    "mobilenet0.5": mobilenet0_5, "mobilenet0.25": mobilenet0_25,
+    "mobilenetv2_1.0": mobilenet_v2_1_0,
+    "mobilenetv2_0.75": mobilenet_v2_0_75,
+    "mobilenetv2_0.5": mobilenet_v2_0_5,
+    "mobilenetv2_0.25": mobilenet_v2_0_25,
+}
 
 
 def get_model(name, **kwargs):
-    """A network by its model-zoo name (``resnet50_v1``, ``vgg16_bn``)."""
-    models = {n: getattr(mod, n) for mod in (_resnet, _vgg)
-              for n in mod.__all__ if n.startswith(("resnet", "vgg"))}
+    """A network by its model-zoo name (``resnet50_v1``, ``alexnet``,
+    ``squeezenet1.1``, ``mobilenetv2_0.5``, ...)."""
     name = name.lower()
-    if name not in models:
+    if name not in _MODELS:
         raise ValueError(f"Model {name} is not supported. Available: "
-                         f"{sorted(models)}")
-    return models[name](**kwargs)
+                         f"{sorted(_MODELS)}")
+    return _MODELS[name](**kwargs)

@@ -1,21 +1,23 @@
 """Convolution and pooling layers (reference
 `python/mxnet/gluon/nn/conv_layers.py`).
 
-PyTorch port of the `_Conv` and `_Pooling` bases, `Conv1D`-`Conv3D` and
-the max, average and global pooling blocks in 1-3 D from
-`incubator_mxnet_tpu/gluon/nn/conv_layers.py`.  The transposed
-convolutions and `ReflectionPad2D` wait for the `Deconvolution` and
-`Pad` ops.
+PyTorch port of `incubator_mxnet_tpu/gluon/nn/conv_layers.py`: the
+`_Conv` and `_Pooling` bases, `Conv1D`-`Conv3D` (the `Convolution` op),
+`Conv1DTranspose`-`Conv3DTranspose` (the `Deconvolution` op, whose weight
+is (in_channels, channels / groups, *kernel) and whose ``adj`` is the
+output padding), the max, average and global pooling blocks in 1-3 D
+and `ReflectionPad2D` (the `Pad` op).
 """
 from __future__ import annotations
 
 from .activations import Activation
 from ..block import HybridBlock
 
-__all__ = ["Conv1D", "Conv2D", "Conv3D", "MaxPool1D", "MaxPool2D",
-           "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
-           "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
-           "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
+           "Conv3DTranspose", "MaxPool1D", "MaxPool2D", "MaxPool3D",
+           "AvgPool1D", "AvgPool2D", "AvgPool3D", "GlobalMaxPool1D",
+           "GlobalMaxPool2D", "GlobalMaxPool3D", "GlobalAvgPool1D",
+           "GlobalAvgPool2D", "GlobalAvgPool3D", "ReflectionPad2D"]
 
 
 def _to_tuple(v, n):
@@ -26,14 +28,16 @@ def _to_tuple(v, n):
 
 class _Conv(HybridBlock):
     """`Convolution` over a weight of (channels, in_channels / groups,
-    *kernel) and an optional bias (reference `conv_layers.py:_Conv`);
-    ``in_channels=0`` defers the weight's second dim to the first
+    *kernel), or `Deconvolution` over one of (in_channels, channels /
+    groups, *kernel), and an optional bias (reference `conv_layers.py:
+    _Conv`); ``in_channels=0`` defers the weight's input dim to the first
     input."""
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", prefix=None, params=None):
+                 bias_initializer="zeros", op_name="Convolution", adj=None,
+                 prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         with self.name_scope():
             self._channels = channels
@@ -45,7 +49,13 @@ class _Conv(HybridBlock):
                 "pad": _to_tuple(padding, ndim), "num_filter": channels,
                 "num_group": groups, "no_bias": not use_bias,
                 "layout": layout}
-            wshape = (channels, in_channels // groups) + kernel_size
+            self._op_name = op_name
+            if adj is not None:
+                self._kwargs["adj"] = adj
+            if op_name == "Convolution":
+                wshape = (channels, in_channels // groups) + kernel_size
+            else:
+                wshape = (in_channels, channels // groups) + kernel_size
             self.weight = self.params.get(
                 "weight", shape=wshape, init=weight_initializer,
                 allow_deferred_init=True)
@@ -61,10 +71,11 @@ class _Conv(HybridBlock):
                 self.act = None
 
     def hybrid_forward(self, F, x, weight, bias=None):
+        op = getattr(F, self._op_name)
         if bias is None:
-            out = F.Convolution(x, weight, name="fwd", **self._kwargs)
+            out = op(x, weight, name="fwd", **self._kwargs)
         else:
-            out = F.Convolution(x, weight, bias, name="fwd", **self._kwargs)
+            out = op(x, weight, bias, name="fwd", **self._kwargs)
         if self.act is not None:
             out = self.act(out)
         return out
@@ -95,6 +106,31 @@ def _conv_class(ndim, layout):
 Conv1D = _conv_class(1, "NCW")
 Conv2D = _conv_class(2, "NCHW")
 Conv3D = _conv_class(3, "NCDHW")
+
+
+def _deconv_class(ndim, layout):
+    class ConvTranspose(_Conv):
+        def __init__(self, channels, kernel_size, strides=(1,) * ndim,
+                     padding=(0,) * ndim, output_padding=(0,) * ndim,
+                     dilation=(1,) * ndim, groups=1, layout=layout,
+                     activation=None, use_bias=True, weight_initializer=None,
+                     bias_initializer="zeros", in_channels=0, **kwargs):
+            super().__init__(channels, _to_tuple(kernel_size, ndim),
+                             strides, padding, dilation, groups, layout,
+                             in_channels, activation, use_bias,
+                             weight_initializer, bias_initializer,
+                             op_name="Deconvolution",
+                             adj=_to_tuple(output_padding, ndim), **kwargs)
+    name = f"Conv{ndim}DTranspose"
+    ConvTranspose.__name__ = ConvTranspose.__qualname__ = name
+    ConvTranspose.__doc__ = f"{ndim}-D transposed convolution, {layout} " \
+        f"(reference `conv_layers.py:{name}`)."
+    return ConvTranspose
+
+
+Conv1DTranspose = _deconv_class(1, "NCW")
+Conv2DTranspose = _deconv_class(2, "NCHW")
+Conv3DTranspose = _deconv_class(3, "NCDHW")
 
 
 class _Pooling(HybridBlock):
@@ -164,3 +200,18 @@ GlobalMaxPool1D, GlobalMaxPool2D, GlobalMaxPool3D = (
     _global_pool_class(n, "max", _LAYOUTS[n]) for n in (1, 2, 3))
 GlobalAvgPool1D, GlobalAvgPool2D, GlobalAvgPool3D = (
     _global_pool_class(n, "avg", _LAYOUTS[n]) for n in (1, 2, 3))
+
+
+class ReflectionPad2D(HybridBlock):
+    """Reflection padding of the last two dims by ``padding`` (an int, or
+    the `Pad` op's 8-entry ``pad_width``) (reference `conv_layers.py:281
+    ReflectionPad2D`)."""
+
+    def __init__(self, padding=0, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        self._padding = padding
+
+    def hybrid_forward(self, F, x):
+        return F.Pad(x, mode="reflect", pad_width=self._padding)

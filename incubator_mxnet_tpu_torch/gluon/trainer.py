@@ -43,7 +43,7 @@ class Trainer:
             raise MXNetError(
                 "Trainer(zero=..., mesh=...) shards optimizer state over "
                 "several cards; the port trains on one (ROADMAP Queue 1, "
-                "item 11)")
+                "item 14)")
         if isinstance(params, (dict, ParameterDict)):
             params = list(params.values())
         if not isinstance(params, (list, tuple)):

@@ -744,6 +744,12 @@ def _solve_param_shapes(node, env, meta):
         setvar(1, (nf, d[1] // g) + tuple(p["kernel"]))
         if not p.get("no_bias"):
             setvar(2, (nf,))
+    elif node.op.name == "Deconvolution":
+        nf = int(p["num_filter"])
+        g = int(p.get("num_group", 1))
+        setvar(1, (d[1], nf // g) + tuple(p["kernel"]))
+        if not p.get("no_bias"):
+            setvar(2, (nf,))
     elif node.op.name == "BatchNorm":
         c = d[int(p.get("axis", 1)) % len(d)]
         for i in range(1, 5):
@@ -752,8 +758,14 @@ def _solve_param_shapes(node, env, meta):
         c = d[int(p.get("axis", -1)) % len(d)]
         setvar(1, (c,))
         setvar(2, (c,))
+    elif node.op.name == "InstanceNorm":
+        setvar(1, (d[1],))
+        setvar(2, (d[1],))
     elif node.op.name == "Embedding":
         setvar(1, (int(p["input_dim"]), int(p["output_dim"])))
+    elif node.op.name == "LeakyReLU" and p.get("act_type") == "prelu" \
+            and len(node.inputs) > 1:
+        setvar(1, (d[1],))
     elif node.op.name == "RNN":
         from ..ops.nn import rnn_param_size
         h, layers = int(p["state_size"]), int(p["num_layers"])

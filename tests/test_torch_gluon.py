@@ -1,5 +1,6 @@
 """The port's gluon (Parameter, Block, HybridBlock, nn layers, the model
-zoo's ResNet and VGG) against the JAX package's on the CPU.
+zoo's ResNet and VGG; the other families are in test_torch_gluon_zoo.py)
+against the JAX package's on the CPU.
 
 Networks are built in a fresh thread in each package, so the per-thread
 name counters start at 0 in both and composition gives the same names.
@@ -259,12 +260,22 @@ def test_deferred_initialization_and_parameter_api():
 
 
 def test_pretrained_raises_and_get_model_names():
+    """pretrained=True raises (nothing is downloaded); a name neither
+    package has is refused by both; the port's get_model takes exactly
+    the JAX package's names, in any case."""
     with pytest.raises(tmx.MXNetError, match="pretrained"):
         _zoo(tmx, "resnet50_v1", pretrained=True)
-    with pytest.raises(ValueError, match="not supported"):
-        _zoo(tmx, "squeezenet1.1")
+    for pkg in (tmx, jmx):
+        with pytest.raises(ValueError, match="not supported") as e:
+            _zoo(pkg, "resnet7_v3")
+        names = sorted(eval(str(e.value).split("Available: ", 1)[1]))
+        if pkg is tmx:
+            port_names = names
+    assert port_names == names and "squeezenet1.1" in names
     assert isinstance(_fresh(lambda: _zoo(tmx, "ResNet152_V2")),
                       tmx.gluon.model_zoo.vision.ResNetV2)
+    assert isinstance(_fresh(lambda: _zoo(tmx, "SqueezeNet1.1")),
+                      tmx.gluon.model_zoo.vision.SqueezeNet)
 
 
 def test_export_serves_through_module(tmp_path):

@@ -23,7 +23,9 @@ against their plain versions, random draws on the card, and the mlp as
 a SequentialModule under a Monitor (K1 in both modules); the mlp
 through `model.FeedForward` (K1), the C predict ABI's shim and
 `c_predict` with dev_type 2, `test_utils.check_consistency` over
-[cpu(0), gpu(0)] and a `Module(state_names=)` step.
+[cpu(0), gpu(0)] and a `Module(state_names=)` step; K1 at AlexNet's fc6
+(9216 -> 4096) and AlexNet's first Module.fit steps on the card against
+the CPU.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -1732,3 +1734,38 @@ def test_test_utils_and_state_names_on_the_card():
     finally:
         _tf32_restore(old)
     assert out["k1_launches"] == 2 and worst <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_fc_relu_at_alexnet_fc6_on_card(dtype):
+    """K1 at AlexNet's fc6, (M, 9216 -> 4096), for the served buckets'
+    edges and the training batch, through the library's route and each
+    route that takes the shape, against its plain version."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    for m in (1, 8, 32, 128):
+        x, w, b = (torch.from_numpy(a).to("cuda", dt)
+                   for a in _inputs(m, 9216, 4096, seed=m))
+        _k1_call(x, w, b)
+        for route in ROUTES:
+            if launch_plan(x, w, route) is not None:
+                _k1_call(x, w, b, route)
+
+
+@pytest.mark.cuda
+def test_alexnet_steps_on_the_card_match_the_cpu(monkeypatch):
+    """chip_smoke's 17a: AlexNet composed on a Symbol under TPU_PALLAS,
+    3 fused Module.fit steps at batch 8, 224x224, fp32, card against the
+    CPU (phase 6's gates, K1 twice a step on the card), and the
+    Dropout(0.5) train forward's kept share and scale."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    cs = _chip_smoke()
+    monkeypatch.setenv("MXNET_SUBGRAPH_BACKEND", "TPU_PALLAS")
+    old = _tf32_off()
+    try:
+        out = cs.alex_parity(mx, "card")
+    finally:
+        _tf32_restore(old)
+    assert out["worst"] <= 1.0

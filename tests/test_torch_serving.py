@@ -157,8 +157,11 @@ def test_port_imports_no_jax():
     round trip and a sharded embedding table's lookup and push on the
     port's parameter servers (kvstore, dist, embedding, kvstore_server),
     and the C predict ABI's Python side, fault injection and the test
-    utilities, loads neither jax nor the JAX package (the C shim's
-    embedded interpreter is checked in tests/test_torch_serving_edges.py)."""
+    utilities, and slice 15's gluon (AlexNet through Module.fit with K1
+    nodes, SqueezeNet exported and imported as a SymbolBlock, CTCLoss, a
+    contrib conv-LSTM cell), loads neither jax nor the JAX package (the
+    C shim's embedded interpreter is checked in
+    tests/test_torch_serving_edges.py)."""
     code = textwrap.dedent("""
         import os
         import sys
@@ -208,6 +211,16 @@ def test_port_imports_no_jax():
         import incubator_mxnet_tpu_torch.resilience.faults
         import incubator_mxnet_tpu_torch.c_predict
         import incubator_mxnet_tpu_torch.test_utils
+        import incubator_mxnet_tpu_torch.gluon.nn.sparse
+        import incubator_mxnet_tpu_torch.gluon.contrib.nn
+        import incubator_mxnet_tpu_torch.gluon.contrib.rnn
+        import incubator_mxnet_tpu_torch.gluon.contrib.data
+        import incubator_mxnet_tpu_torch.gluon.model_zoo.model_store
+        import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.alexnet
+        import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.densenet
+        import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.inception
+        import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.mobilenet
+        import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.squeezenet
         import chip_smoke
         import tempfile
         rec = os.path.join(tempfile.mkdtemp(), "a.rec")
@@ -306,6 +319,35 @@ def test_port_imports_no_jax():
         table.close()
         for srv in servers:
             srv.shutdown()
+        alex = mx.gluon.model_zoo.vision.get_model("alexnet", classes=4)
+        for b in (alex.features[10], alex.features[12]):
+            b._rate = 0.0
+        net = mx.sym.SoftmaxOutput(alex(mx.sym.Variable("data")),
+                                   name="softmax")
+        os.environ["MXNET_SUBGRAPH_BACKEND"] = "TPU_PALLAS"
+        mod = mx.mod.Module(net, context=mx.cpu())
+        mod.fit(mx.io.NDArrayIter(np.ones((4, 3, 63, 63), "f4"),
+                                  np.zeros(4, "f4"), 2), num_epoch=1)
+        os.environ.pop("MXNET_SUBGRAPH_BACKEND")
+        assert mod._exec_group.execs[0]._symbol.tojson().count(
+            '"_sg_pallas_fc_relu"') == 2
+        sq = mx.gluon.model_zoo.vision.get_model("squeezenet1.1", classes=3)
+        sq.initialize(ctx=mx.cpu())
+        sq.hybridize()
+        sq(mx.nd.array(np.ones((1, 3, 64, 64)), ctx=mx.cpu()))
+        prefix = os.path.join(tempfile.mkdtemp(), "sq")
+        sq.export(prefix)
+        sb = mx.gluon.SymbolBlock.imports(prefix + "-symbol.json", "data",
+                                          prefix + "-0000.params",
+                                          ctx=mx.cpu())
+        sb(mx.nd.array(np.ones((1, 3, 64, 64)), ctx=mx.cpu()))
+        ctc = mx.gluon.loss.CTCLoss()(
+            mx.nd.array(np.ones((2, 5, 4)), ctx=mx.cpu()),
+            mx.nd.array(np.ones((2, 2)), ctx=mx.cpu()))
+        cell = mx.gluon.contrib.rnn.Conv2DLSTMCell((2, 4, 4), 3, 3, 3,
+                                                   i2h_pad=1)
+        cell.initialize(ctx=mx.cpu())
+        cell.unroll(2, mx.nd.array(np.ones((1, 2, 2, 4, 4)), ctx=mx.cpu()))
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "incubator_mxnet_tpu"))
@@ -318,14 +360,28 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# modules of the port the scan must reach (slice 15's among them)
+PORT_MODULES = (
+    "gluon/block.py", "gluon/loss.py", "gluon/nn/activations.py",
+    "gluon/nn/basic_layers.py", "gluon/nn/conv_layers.py",
+    "gluon/nn/sparse.py", "gluon/contrib/nn/basic_layers.py",
+    "gluon/contrib/rnn/rnn_cell.py", "gluon/contrib/rnn/conv_rnn_cell.py",
+    "gluon/contrib/data/sampler.py", "gluon/model_zoo/model_store.py",
+    "gluon/model_zoo/vision/alexnet.py", "gluon/model_zoo/vision/densenet.py",
+    "gluon/model_zoo/vision/inception.py",
+    "gluon/model_zoo/vision/mobilenet.py",
+    "gluon/model_zoo/vision/squeezenet.py", "autograd.py")
+
+
 def test_port_sources_never_import_jax():
     root = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "incubator_mxnet_tpu_torch")
-    offenders = []
+    offenders, scanned = [], set()
     for dirpath, _, files in os.walk(root):
         for f in files:
             if f.endswith(".py"):
                 path = os.path.join(dirpath, f)
+                scanned.add(os.path.relpath(path, root))
                 for line in open(path):
                     words = line.split()
                     if words[:1] in (["import"], ["from"]) and \
@@ -333,6 +389,7 @@ def test_port_sources_never_import_jax():
                                 "jax", "jaxlib", "incubator_mxnet_tpu"):
                         offenders.append(f"{path}: {line.strip()}")
     assert not offenders, offenders
+    assert set(PORT_MODULES) <= scanned, set(PORT_MODULES) - scanned
 
 
 # -- serving what Module.fit saves, and serving in bfloat16 -----------------
