@@ -301,9 +301,11 @@ exits non-zero:
    composed on a Symbol with a SoftmaxOutput under TPU_PALLAS, so fc6
    (9216 -> 4096) and fc7 (4096 -> 4096) run K1.  a. 3 fused Module.fit
    steps at batch 8, fp32 (TF32 off), Dropout at 0, card vs CPU (phase
-   6's gates; a max-pool window that flips between the devices excuses
-   the convolutions at that step); one train forward at Dropout(0.5)
-   through forward hooks: the kept share 0.5 +- 0.02, kept values x 2.
+   6's gates; a ReLU unit or max-pool window that flips between the
+   devices excuses the layers up to it at that step, and the
+   free-running states after it are not held); one train forward at
+   Dropout(0.5) through forward hooks: the kept share 0.5 +- 0.02, kept
+   values x 2.
    b. phase 7's lane on AlexNet (bf16, fp32 master weights, batch 128,
    one resident batch, 4 warm + 16 timed steps, Dropout 0.5): images/s,
    step ms, peak memory, K1 2 a train forward, K1's share of one
@@ -319,6 +321,43 @@ exits non-zero:
    InstanceNorm, the transposed convolutions, ReflectionPad2D, the pixel
    shuffles, CTCLoss with gradients, LSTMPCell, the nine conv RNN cells,
    SyncBatchNorm), and the one-card SyncBatchNorm against BatchNorm.
+18. gluon's data plane and `mx.contrib` (slice 16), K2 and K3 held at 0
+   launches.  a. a JPEG .rec of 1280 images at 256x256 (phase 12's
+   writer) through `ImageRecordDataset`, the evaluation pipeline
+   (Resize(256, keep_ratio), CenterCrop(224), ToTensor, Normalize with
+   ImageNet's mean and std) and `DataLoader(batch 128)`: 8 workers = 0
+   workers bit for bit, in order; through
+   `io_plane.DevicePrefetchLoader(ctx=gpu(0))` the card's batches = the
+   host's; an `ImageFolderDataset` tree of 64 PNGs decodes to its pixels
+   and labels; a sample that raises surfaces at its batch within 5 s; no
+   worker alive 10 s after an iterator dropped mid-epoch; the training
+   pipeline's images/s over a whole epoch (RandomResizedCrop(224),
+   RandomFlipLeftRight, the three jitters of 0.4) at 0, 4 and 8
+   workers, with the first batch's wait and the host cores kept busy,
+   beside phase 12's `ImageRecordIter`.  b. AlexNet composed under TPU_PALLAS fed by
+   `contrib.io.DataLoaderIter` into `Module.fit`: 3 fp32 steps at batch
+   8 against `NDArrayIter` over the same host batches (cuDNN
+   deterministic: bit for bit, else 17a's gate); then 17b's lane (bf16,
+   Dropout 0.5) for 2 epochs at batch 128 with the data cast to bf16 on
+   the workers: K1 2 a train forward, images/s and `loader_vs_resident`
+   against 17b.  c. the gluon AlexNet (Dropout 0), bf16, hybridized,
+   through `Estimator.fit` over the loader with MXNET_IO_RING on: the
+   fused gluon step and the ring take every batch; images/s.  d. the
+   gluon `TransformerLM` at GPT-2 small's widths (phase 10's Xavier):
+   3 plain-loop steps (record, backward, `Trainer.step`, SGD lr 0.05
+   momentum 0.9) at 2 x T 128 in float64 card vs CPU (the losses, the
+   tied embed_weight gradient, every parameter and momentum, 10a's
+   gates); `Estimator.fit` with the fused step on the card = the plain
+   loop; the 8 x 1024 lane fed by a `DataLoader(num_workers=2)` of
+   seeded token windows through `DevicePrefetchLoader`, fp32 fused and
+   eager and bf16 fused: tokens/s, step ms, mfu, peak memory,
+   `fused_vs_eager` and `gluon_vs_module` against 10b; K1/K2/K3 0
+   launches.  e. train_mnist's mlp under TPU_PALLAS through
+   `contrib.svrg_optimization.SVRGModule` (batch 64, update_freq 2,
+   SGD without momentum): 8 steps card vs CPU (phase 6's gate), then 4 epochs with
+   `contrib.tensorboard.LogMetricsCallback`: the loss falls, K1 exactly 2
+   a forward (two forward-backward passes a step, one a batch in each
+   snapshot pass), one metric record a batch.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -4403,13 +4442,13 @@ def first_batches(it, k):
     return out
 
 
-def imagenet_corpus(mx, tmp):
-    """Phase 12a's corpus: IMAGENET_CORPUS images packed by the port's
-    recordio (JPEG through a codec that imports, else PPM), encoded on
-    every core.  Returns (.rec path, format)."""
+def imagenet_corpus(mx, tmp, corpus=None, label="imagenet 12a"):
+    """Phase 12a's corpus: IMAGENET_CORPUS images (or `corpus`'s n, h,
+    w) packed by the port's recordio (JPEG through a codec that imports,
+    else PPM), encoded on every core.  Returns (.rec path, format)."""
     from concurrent.futures import ThreadPoolExecutor
     from incubator_mxnet_tpu_torch import image, recordio
-    n, h, w = (IMAGENET_CORPUS[k] for k in ("n", "h", "w"))
+    n, h, w = ((corpus or IMAGENET_CORPUS)[k] for k in ("n", "h", "w"))
     route = image.decode_route()
     fmt = ".jpg" if route in ("cv2", "pil") else ".ppm"
     cv2 = image.cv2_module()
@@ -4433,14 +4472,14 @@ def imagenet_corpus(mx, tmp):
         w_.write_idx(i, s)
     w_.close()
     size = os.path.getsize(rec)
-    print(f"imagenet 12a: corpus of {n} images {h}x{w}, labels i % "
+    print(f"{label}: corpus of {n} images {h}x{w}, labels i % "
           f"{CLASSES}, packed as {fmt[1:].upper()} (decode route {route}) "
           f"in {time.perf_counter() - t0:.1f} s: {size / 1e6:.1f} MB, "
           f"{size / n / 1e3:.1f} kB an image; host cores "
           f"{os.cpu_count()}")
     if fmt == ".ppm":
-        print("imagenet 12a: no codec imports on this machine: the corpus "
-              "is PPM and the card's JPEG decode rate is not measured")
+        print(f"{label}: no codec imports on this machine: the corpus is "
+              "PPM and the card's JPEG decode rate is not measured")
     return rec, fmt
 
 
@@ -8792,7 +8831,12 @@ def alex_parity(mx, card):
     do, may be routed one way on the CPU and the other on the card; the
     gradient of every layer up to it then moves by that unit's share,
     not by rounding: at such a step those layers are printed, not held
-    (phase 6's rule, `alex_flips`).  Then the Dropout(0.5) train forward
+    (phase 6's rule, `alex_flips`).  Along the free-running steps the
+    same holds of the card's state against the CPU's: at the first step
+    with a flip the layers up to it are excused, and the states after it
+    are printed, not held, since every layer then steps from other
+    activations (phase 6 holds the free-running parameters only when
+    nothing flipped on the way).  Then the Dropout(0.5) train forward
     (`alex_dropout_check`)."""
     from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
     batch, steps = ALEX_PARITY
@@ -8815,7 +8859,16 @@ def alex_parity(mx, card):
     check(launches == 2 * steps, f"17a: K1 launched {launches} times in "
           f"{steps} card steps, want 2 a step")
     loss_err = max(abs(g - c) / abs(c) for g, c in zip(gpu_loss, cpu_loss))
-    free = max(param_ratio(g[0], c[0]) for g, c in zip(gpu[1:], cpu[1:]))
+    free, free_flips, loose = (0.0, "none"), [], (0.0, "none")
+    for k, x in enumerate(xs):
+        f = alex_flips(mx, cpu[k][0], gpu[k][0], x)
+        free = max(free, param_ratio(gpu[k + 1][0], cpu[k + 1][0],
+                                     alex_excused(f)))
+        if f:
+            free_flips.append(f"step {k + 1}: {f}")
+            loose = max(param_ratio(g[0], c[0])
+                        for g, c in zip(gpu[k + 1:], cpu[k + 1:]))
+            break
     held, excused, flips = (0.0, "none"), (0.0, "none"), []
     for k, x in enumerate(xs):
         f = alex_flips(mx, cpu[k][0], cpu[k][0], x)
@@ -8832,7 +8885,8 @@ def alex_parity(mx, card):
           f"{batch}, {IMAGE[1]}x{IMAGE[2]}, Dropout 0, card vs CPU: loss "
           f"{' '.join(f'{v:.5f}' for v in gpu_loss)}; max relative loss err "
           f"{loss_err:.2e} (rtol {PARITY_TOL[0]:g}); parameters after each "
-          f"step at {free[0]:.3f} of the tolerance (worst {free[1]}); each "
+          f"step at {free[0]:.3f} of the tolerance (worst {free[1]}"
+          f"{'; the flip below excused' if free_flips else ''}); each "
           f"step from the CPU's state: parameters and momenta at "
           f"{held[0]:.3f} of it (worst {held[1]}) (rtol {PARITY_TOL[0]:g}, "
           f"atol {PARITY_TOL[1]:g}*max|array|); K1 {launches} launches "
@@ -8842,7 +8896,10 @@ def alex_parity(mx, card):
         if flips else ""
     print(f"17a alexnet ReLU units and max-pool windows routed differently "
           f"by the CPU and the card from the CPU's state: "
-          f"{'; '.join(flips) or 'none'}{note}")
+          f"{'; '.join(flips) or 'none'}{note}; along the free-running "
+          f"steps: {'; '.join(free_flips) or 'none'}"
+          + (f" (from it on every layer at {loose[0]:.3f} of the tolerance "
+             f"(worst {loose[1]}), not held)" if free_flips else ""))
     check(ok, "17a: the card's AlexNet steps disagree with the CPU's")
     alex_dropout_check(mx, cpu[0][0], xs[0], card)
     return {"worst": max(held[0], loss_err / PARITY_TOL[0]),
@@ -8879,6 +8936,7 @@ def alex_lane(mx, card):
     classes = (("K1 (fc_relu)", K1_KERNELS),) + KERNEL_CLASSES
     # a session can record only part of a step's kernels (147 of 197 once
     # on an H100, K1's among those lost): up to 3 sessions until K1 shows
+    before = fc_relu.launches
     for tries in range(1, 4):
         prof = profile_one_step(lambda: mod.fit_step(one, metric), card,
                                 "17b alexnet profile", batch,
@@ -8886,13 +8944,33 @@ def alex_lane(mx, card):
         k1_ms = prof["by_class"].get("K1 (fc_relu)", 0.0)
         if k1_ms > 0:
             break
+    moved = fc_relu.launches - before
     out["k1_share"] = k1_ms / prof["device_ms"] if k1_ms else None
-    out["profile"] = prof
-    out["launches"] = launches
     share = f"{out['k1_share']:.4f} of the step's device time" if k1_ms \
         else "not recorded"
-    print(f"17b alexnet profile: K1 {share} ({tries} profiler sessions) "
-          f"[{card}]")
+    print(f"17b alexnet profile: K1 {share} ({tries} profiler sessions; "
+          f"K1 launched {moved} times in the profiled calls) [{card}]")
+    if not k1_ms:
+        # the sessions kept the step's other kernels and lost K1's: K1's
+        # device time at the step's two shapes (`device_ms`, names
+        # K1_KERNELS; CUDA events if the profiler loses them again) over
+        # the step's device time with them added
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        calls = []
+        for k, n in ((ALEX_FC6[0], ALEX_FC6[1]), (4096, 4096)):
+            x, w, b = (torch.randn(shape, generator=g, device="cuda",
+                                   dtype=BF16)
+                       for shape in ((batch, k), (n, k), (n,)))
+            calls.append(lambda x=x, w=w, b=b: fc_relu(x, w, b))
+        k1_ms = sum(device_ms(c, names=K1_KERNELS) for c in calls)
+        out["k1_share"] = k1_ms / (prof["device_ms"] + k1_ms)
+        out["k1_share_estimated"] = True
+        print(f"17b alexnet profile: K1 estimated at {out['k1_share']:.4f} "
+              f"of the step's device time ({k1_ms:.4f} ms at fc6 and fc7 "
+              f"timed alone, {prof['device_ms']:.2f} ms of the step's "
+              f"other kernels) [{card}]")
+    out["profile"] = prof
+    out["launches"] = launches
     return mod, out
 
 
@@ -9316,6 +9394,784 @@ def zoo_phase(card, workdir):
     return out
 
 
+# -- phase 18: gluon's data plane, DataLoaderIter, the gluon LM, SVRG --------
+
+# 18a: a JPEG .rec at ImageNet's training size (phase 12's writer), read
+# through gluon.data.vision as a gluon image script reads ImageNet: the
+# deterministic pipeline of evaluation (Resize 256 keeping the ratio,
+# CenterCrop 224, ToTensor, Normalize with ImageNet's mean and std) and
+# the random one of training (RandomResizedCrop 224, a left-right flip,
+# brightness, contrast and saturation jitter of 0.4)
+LOADER18_CORPUS = dict(n=1280, h=256, w=256)
+LOADER18_RESIZE = 256           # the evaluation pipeline's short side
+LOADER18_FOLDER = 64            # PNGs of an ImageFolderDataset tree
+LOADER18_BATCH = 128
+LOADER18_WORKERS = 8
+LOADER18_RATES = (0, 4, 8)      # workers of the timed random pipeline,
+                                # a whole epoch each (a worker builds a
+                                # whole batch, so a window shorter than
+                                # the pipeline's fill reads low)
+LOADER18_MEAN = (0.485, 0.456, 0.406)
+LOADER18_STD = (0.229, 0.224, 0.225)
+LOADER18_BAD = 300              # 18a: the sample that raises (batch 2)
+LOADER18_RAISE_S = 5.0          # ... surfaced within this many seconds
+                                # of the batch before it
+LOADER18_DRAIN_S = 10.0         # workers gone this long after a break
+# 18b: the bridge's fp32 steps at batch 8 (17a's batch), then 17b's lane
+# (bf16, fp32 master weights, OPT17, Dropout 0.5) for 2 epochs of the
+# corpus at batch 128
+BRIDGE18 = (8, 3)
+LANE18_EPOCHS = 2
+# 18d: the gluon LM at LM_CFG's widths; parity as 10a (batch 2 x T 128,
+# 3 steps, float64), the lane as 10b (8 x 1024, 4 warm + 16 timed steps,
+# fp32 with TF32 off), each step's batch from a DataLoader of seeded
+# token windows with 2 workers through the h2d ring
+GLM18_PREFIX = "glm18_"
+GLM18_LOADER_WORKERS = 2
+# 18e: train_mnist's mlp through SVRGModule at phase 6's batch and
+# learning rate without momentum (as the reference's SVRG examples run
+# it: with phase 6's momentum 0.9 the trajectory is chaotic, a 1e-4
+# relative change of the initial weights ending at chance), a snapshot
+# every 2 epochs, 4 epochs; the card against the CPU over the first 8
+# batches (one epoch with its snapshot pass)
+SVRG18 = dict(update_freq=2, epochs=4, parity_batches=8)
+
+
+def transforms18(mx, random_aug=False, dtype=None):
+    """18a's pipelines as `transforms.Compose`: evaluation's, or
+    training's with `random_aug`; a `Cast` to `dtype` at the end."""
+    T = mx.gluon.data.vision.transforms
+    size = IMAGE[1]
+    if random_aug:
+        steps = [T.RandomResizedCrop(size), T.RandomFlipLeftRight(),
+                 T.RandomBrightness(0.4), T.RandomContrast(0.4),
+                 T.RandomSaturation(0.4)]
+    else:
+        steps = [T.Resize(LOADER18_RESIZE, keep_ratio=True),
+                 T.CenterCrop(size)]
+    steps += [T.ToTensor(), T.Normalize(LOADER18_MEAN, LOADER18_STD)]
+    if dtype is not None:
+        steps.append(T.Cast(dtype))
+    return T.Compose(steps)
+
+
+def dataset18(mx, rec, random_aug=False, dtype=None):
+    return mx.gluon.data.vision.ImageRecordDataset(rec).transform_first(
+        transforms18(mx, random_aug, dtype))
+
+
+class Head18:
+    """The first `n` samples of a dataset (a gluon Dataset by duck type:
+    a length and items by index); with `bad`, sample `bad` raises."""
+
+    def __init__(self, ds, n=None, bad=None):
+        self.ds, self.n, self.bad = ds, len(ds) if n is None else n, bad
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        if i == self.bad:
+            raise ValueError(f"sample {i} is unreadable")
+        return self.ds[i]
+
+
+def host18(loader):
+    """Every batch of `loader` as numpy arrays, in order."""
+    return [[a.asnumpy() for a in b] for b in loader]
+
+
+def same18(got, want):
+    return len(got) == len(want) and all(
+        len(g) == len(w) and all(a.dtype == b.dtype and a.shape == b.shape
+                                 and np.array_equal(a, b)
+                                 for a, b in zip(g, w))
+        for g, w in zip(got, want))
+
+
+def workers18():
+    return [t for t in threading.enumerate()
+            if t.name.startswith("mx-dataloader-worker")]
+
+
+def folder18(mx, tmp):
+    """An ImageFolderDataset tree of LOADER18_FOLDER PNGs (4 classes) of
+    seeded pixels; returns (root, {path: pixels})."""
+    from incubator_mxnet_tpu_torch import image
+    pil, cv2 = image.pil_module(), image.cv2_module()
+    root = os.path.join(tmp, "folder")
+    pixels = {}
+    for i in range(LOADER18_FOLDER):
+        d = os.path.join(root, f"class{i % 4}")
+        os.makedirs(d, exist_ok=True)
+        img = np.random.RandomState(SEED + 1800 + i).randint(
+            0, 256, (200 + i, 240, 3), np.uint8)
+        path = os.path.join(d, f"{i:03d}.png")
+        if pil is not None:
+            pil.fromarray(img).save(path)
+        else:
+            check(cv2 is not None, "18a: no PNG codec (neither PIL nor "
+                  "cv2 imports)")
+            cv2.imwrite(path, img[:, :, ::-1])
+        pixels[path] = img
+    return root, pixels
+
+
+def data18(mx, card, tmp, iter_rate):
+    """18a: the data plane alone; returns the .rec and the rates."""
+    from incubator_mxnet_tpu_torch import io_plane
+    rec, fmt = imagenet_corpus(mx, tmp, LOADER18_CORPUS, "18a")
+    ds = dataset18(mx, rec)
+    loader = mx.gluon.data.DataLoader
+    t0 = time.perf_counter()
+    serial = host18(loader(ds, batch_size=LOADER18_BATCH))
+    t_serial = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    threaded = host18(loader(ds, batch_size=LOADER18_BATCH,
+                             num_workers=LOADER18_WORKERS))
+    t_threaded = time.perf_counter() - t0
+    ok = same18(threaded, serial) and len(serial) == \
+        LOADER18_CORPUS["n"] // LOADER18_BATCH
+    print(f"18a loader: {len(serial)} batches of {LOADER18_BATCH} from the "
+          f"{fmt[1:].upper()} .rec through Resize(256, keep_ratio), "
+          f"CenterCrop(224), ToTensor, Normalize: {LOADER18_WORKERS} workers "
+          f"= 0 workers bit for bit, in order ({t_threaded:.2f} s against "
+          f"{t_serial:.2f} s) {'ok' if ok else 'FAIL'}")
+    check(ok, "18a: the threaded loader's batches differ from one thread's")
+    ring = io_plane.DevicePrefetchLoader(
+        loader(ds, batch_size=LOADER18_BATCH, num_workers=LOADER18_WORKERS),
+        ctx=mx.gpu(0))
+    placed = [[a for a in b] for b in ring]
+    on_card = all(a.context == mx.gpu(0) for b in placed for a in b)
+    carried = ring.ring_stats()["batches"]
+    ok = on_card and carried == len(serial) and same18(
+        [[a.asnumpy() for a in b] for b in placed], serial)
+    del placed
+    print(f"18a DevicePrefetchLoader(ctx=gpu(0)): {carried} batches carried "
+          f"by the ring, on the card bit for bit the host batches "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "18a: the ring's card batches differ from the host batches")
+
+    root, pixels = folder18(mx, tmp)
+    fds = mx.gluon.data.vision.ImageFolderDataset(root)
+    items_ok = len(fds) == LOADER18_FOLDER and all(
+        np.array_equal(fds[i][0].asnumpy(), pixels[path])
+        and fds[i][1] == fds.synsets.index(os.path.basename(
+            os.path.dirname(path)))
+        for i, (path, _) in enumerate(fds.items))
+    fds = fds.transform_first(transforms18(mx))
+    ok = items_ok and same18(
+        host18(loader(fds, batch_size=16, num_workers=LOADER18_WORKERS)),
+        host18(loader(fds, batch_size=16)))
+    print(f"18a ImageFolderDataset: {LOADER18_FOLDER} PNGs in 4 class "
+          f"folders decode to their pixels and labels; the pipeline's "
+          f"batches at {LOADER18_WORKERS} workers = 0 workers "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "18a: ImageFolderDataset's images or batches are wrong")
+
+    bad = loader(Head18(ds, bad=LOADER18_BAD), batch_size=LOADER18_BATCH,
+                 num_workers=LOADER18_WORKERS)
+    got, err = 0, None
+    t0 = last = time.perf_counter()
+    try:
+        for _ in bad:
+            got += 1
+            last = time.perf_counter()
+    except ValueError as e:
+        err = e
+    end = time.perf_counter()
+    want = LOADER18_BAD // LOADER18_BATCH
+    ok = err is not None and got == want and end - last <= LOADER18_RAISE_S
+    print(f"18a a sample that raises (index {LOADER18_BAD}): {err!r} at "
+          f"batch {got} (want {want}), {end - last:.2f} s after batch "
+          f"{got - 1} came (at most {LOADER18_RAISE_S:g}; {end - t0:.2f} s "
+          f"from the start) {'ok' if ok else 'FAIL'}")
+    check(ok, "18a: a worker's exception did not surface at its batch")
+    it = iter(loader(ds, batch_size=LOADER18_BATCH,
+                     num_workers=LOADER18_WORKERS))
+    next(it)
+    next(it)
+    live = len(workers18())
+    del it
+    t0 = time.perf_counter()
+    while workers18() and time.perf_counter() - t0 < LOADER18_DRAIN_S:
+        time.sleep(0.05)
+    left = len(workers18())
+    print(f"18a break after 2 batches: {live} workers running, "
+          f"{left} alive {time.perf_counter() - t0:.2f} s after the "
+          f"iterator was dropped {'ok' if not left else 'FAIL'}")
+    check(not left, "18a: loader workers outlived their iterator")
+
+    rds = dataset18(mx, rec, random_aug=True)
+    rates, first, cores = {}, {}, {}
+    n = LOADER18_CORPUS["n"]
+    for workers in LOADER18_RATES:
+        it = iter(loader(rds, batch_size=LOADER18_BATCH,
+                         num_workers=workers))
+        c0, t0 = time.process_time(), time.perf_counter()
+        for k, _ in enumerate(it):
+            if k == 0:
+                first[workers] = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        rates[workers] = n / wall
+        # the process's CPU seconds a wall second: how many host cores
+        # the loader kept busy (its threads and torch's intra-op pool)
+        cores[workers] = (time.process_time() - c0) / wall
+    print(f"18a random pipeline (RandomResizedCrop 224, RandomFlipLeftRight, "
+          f"Brightness/Contrast/Saturation 0.4, ToTensor, Normalize), "
+          f"a whole epoch of {n} images: " + ", ".join(
+              f"{w} workers {rates[w]:.1f} images/s (first batch after "
+              f"{first[w]:.2f} s, {cores[w]:.2f} cores busy)"
+              for w in rates)
+          + f"; phase 12's ImageRecordIter alone {iter_rate:.1f} images/s "
+          f"({os.cpu_count()} host cores) [{card}]")
+    return rec, {"rates": rates, "first_s": first, "cores": cores,
+                 "serial_s": t_serial, "threaded_s": t_threaded,
+                 "format": fmt}
+
+
+def bridge18(mx, card, rec):
+    """18b, first: BRIDGE18 fp32 Module.fit steps of AlexNet (Dropout 0,
+    OPT17) fed by DataLoaderIter over a threaded loader, against the
+    same steps fed by NDArrayIter over the same host batches, from the
+    same Xavier parameters, with cuDNN deterministic: bit for bit, or
+    else within 17a's gate."""
+    from incubator_mxnet_tpu_torch.contrib.io import DataLoaderIter
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    batch, steps = BRIDGE18
+    alex_k1_held(batch, F32, "18b")
+    _, sym = alex_symbol(mx, 0.0)
+    ds = Head18(dataset18(mx, rec), batch * steps)
+    host = host18(mx.gluon.data.DataLoader(ds, batch_size=batch))
+    x = np.concatenate([b[0] for b in host])
+    y = np.concatenate([b[1] for b in host])
+
+    def fit(it):
+        mod = mx.mod.Module(sym, context=mx.gpu(0))
+        mx.random.seed(SEED)
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params=dict(OPT17, rescale_grad=1.0 / batch),
+                initializer=resnet_init(mx), kvstore=None)
+        check(mod._fused_step is not None and mod._fused_step.steps ==
+              steps, "18b: the fused step did not take every bridge step")
+        return {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fc_relu.launches = 0
+        got = fit(DataLoaderIter(mx.gluon.data.DataLoader(
+            ds, batch_size=batch, num_workers=LOADER18_WORKERS)))
+        launches = fc_relu.launches
+        want = fit(mx.io.NDArrayIter(x, y, batch))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    bitwise = all(np.array_equal(got[n], want[n]) for n in want)
+    ratio = param_ratio(got, want)
+    ok = (bitwise or ratio[0] <= 1) and launches == 2 * steps
+    print(f"18b bridge: {steps} fp32 Module.fit steps of AlexNet at batch "
+          f"{batch} fed by DataLoaderIter ({LOADER18_WORKERS} workers) vs "
+          f"NDArrayIter over the same host batches, cuDNN deterministic: "
+          f"parameters {'bit for bit' if bitwise else 'not bitwise'}, "
+          f"{ratio[0]:.3f} of 17a's gate (worst {ratio[1]}); K1 {launches} "
+          f"launches = 2 x {steps} {'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "18b: DataLoaderIter's steps differ from NDArrayIter's")
+    return {"bitwise": bitwise, "ratio": ratio[0], "launches": launches}
+
+
+def lane18(mx, card, rec, resident_images_s):
+    """18b: AlexNet (17b's net, dtype and settings) through Module.fit
+    fed by DataLoaderIter over the 18a loader (the deterministic
+    pipeline cast to bf16 on the workers, LOADER18_WORKERS threads), for
+    LANE18_EPOCHS epochs; K1's count set to 0 before the fit and read
+    after (2 a train forward, no eval); images/s over the last epoch
+    (its first batch's wait included) against 17b's resident rate."""
+    from incubator_mxnet_tpu_torch.contrib.io import DataLoaderIter
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    batch = LOADER18_BATCH
+    alex_k1_held(batch, BF16, "18b")
+    _, sym = alex_symbol(mx, DROP_RATE)
+    it = DataLoaderIter(mx.gluon.data.DataLoader(
+        dataset18(mx, rec, dtype="bfloat16"), batch_size=batch,
+        num_workers=LOADER18_WORKERS))
+    per_epoch = LOADER18_CORPUS["n"] // batch
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    ce = mx.metric.create("ce")
+    losses, edges, events = [], {}, []
+
+    def probe(p):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        label = mod._exec_group.execs[0].arg_dict["softmax_label"]
+        total, n = ce.device_update([label], mod.get_outputs())
+        losses.append(total / n)
+        if p.nbatch == per_epoch - 1:
+            torch.cuda.synchronize()
+            edges[p.epoch] = time.perf_counter()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fc_relu.launches = 0
+    mx.random.seed(SEED)
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=LANE18_EPOCHS, optimizer="sgd",
+            optimizer_params=dict(OPT17, multi_precision=True,
+                                  rescale_grad=1.0 / batch),
+            eval_metric="acc", initializer=resnet_init(mx),
+            batch_end_callback=probe, kvstore=None)
+    wall = time.perf_counter() - t0
+    launches = fc_relu.launches
+    steps = per_epoch * LANE18_EPOCHS
+    fused = mod._fused_step
+    dt = mod._exec_group.execs[0].arg_dict["data"].data.dtype
+    loss = torch.stack(losses).float().cpu().numpy()
+    images_s = batch * per_epoch / (edges[LANE18_EPOCHS - 1] -
+                                    edges[LANE18_EPOCHS - 2])
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in
+                                zip(events, events[1:]))
+    ok = fused is not None and fused.steps == steps and \
+        launches == 2 * steps and np.isfinite(loss).all() and \
+        dt == torch.bfloat16
+    print(f"18b alexnet from the loader: {LANE18_EPOCHS} epochs of "
+          f"{per_epoch} batches of {batch} ({str(dt)[6:]} data cast on the "
+          f"workers) through DataLoaderIter + Module.fit in {wall:.2f} s, "
+          f"fused step {fused.steps if fused else 0} of {steps}; K1 "
+          f"{launches} launches = 2 x {steps} train forwards + 0 (no eval) "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    ratio = images_s / resident_images_s
+    print(f"18b alexnet from the loader: {images_s:.1f} images/s over "
+          f"epoch {LANE18_EPOCHS} (its first batch's wait included), step "
+          f"median {step_ms:.3f} ms (CUDA events), peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"loader_vs_resident {ratio:.3f} (17b resident "
+          f"{resident_images_s:.1f} images/s); loss first {loss[0]:.4f} "
+          f"last {loss[-1]:.4f} [{card}]")
+    check(ok, "18b: the loader-fed AlexNet lane failed")
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"images_s": images_s, "step_ms": step_ms, "launches": launches,
+            "loader_vs_resident": ratio, "steps": steps}
+
+
+def est18(mx, card, rec):
+    """18c: the gluon AlexNet (Dropout 0: the fused gluon step declines
+    a net that draws), bf16 with fp32 master weights, hybridized, through
+    Estimator.fit over the 18a loader with ``MXNET_IO_RING`` on: the
+    fused step takes every batch and the ring carries every batch."""
+    from incubator_mxnet_tpu_torch import config as _config
+    from incubator_mxnet_tpu_torch.gluon.contrib.estimator import Estimator
+    check(_config.get("MXNET_IO_RING"), "18c: MXNET_IO_RING is off")
+    batch = LOADER18_BATCH
+    net = alex_net(mx, 0.0)
+    mx.random.seed(SEED)
+    net.initialize(resnet_init(mx), ctx=mx.gpu(0))
+    with mx.autograd.pause():          # the deferred shapes, then bf16
+        net(mx.nd.zeros((2,) + IMAGE, ctx=mx.gpu(0)))
+    net.cast("bfloat16")
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(OPT17, multi_precision=True))
+    loader = mx.gluon.data.DataLoader(
+        dataset18(mx, rec, dtype="bfloat16"), batch_size=batch,
+        num_workers=LOADER18_WORKERS)
+    est = Estimator(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                    train_metrics=[mx.metric.Accuracy()], trainer=trainer,
+                    context=mx.gpu(0))
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.fit(loader, epochs=1, event_handlers=[])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = len(loader)
+    steps = est._fused.steps if est._fused is not None else 0
+    carried = est.io_loader.ring_stats().get("batches", 0) \
+        if est.io_loader is not None else 0
+    images_s = LOADER18_CORPUS["n"] / wall
+    ok = steps == n and carried == n
+    print(f"18c Estimator.fit: hybridized gluon AlexNet (Dropout 0), bf16, "
+          f"one epoch of {n} batches of {batch} from the loader: fused "
+          f"gluon step {steps} of {n}, the ring carried {carried}; "
+          f"{images_s:.1f} images/s over the epoch (first batch's wait "
+          f"included) {'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "18c: the fused step or the ring missed a batch")
+    del est, net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"images_s": images_s, "steps": steps, "carried": carried}
+
+
+def glm18_net(mx, ctx, values=None, dtype="float32", init=True):
+    """The gluon TransformerLM at LM_CFG's widths under GLM18_PREFIX on
+    `ctx`: `values` loaded, or phase 10's initialisation (Xavier under
+    mx.random.seed(SEED)); `dtype` float64 casts it, bfloat16 builds it
+    with bf16 parameters."""
+    from incubator_mxnet_tpu_torch.compat.weights import (
+        block_params_from_numpy)
+    from incubator_mxnet_tpu_torch.llm import TransformerLM
+    cfg = lm_train_cfg(param_dtype="bfloat16" if dtype == "bfloat16"
+                       else "float32")
+    net = TransformerLM(cfg, prefix=GLM18_PREFIX)
+    mx.random.seed(SEED)
+    net.initialize(mx.initializer.Xavier(), ctx=ctx)
+    if dtype == "float64":
+        net.cast("float64")
+    if values is not None:
+        block_params_from_numpy(net, values, ctx=ctx)
+    return net
+
+
+def glm18_windows(n, t, seed):
+    """`n` seeded token windows: (n, t) int32 inputs, the next tokens as
+    float32 labels."""
+    x = np.random.RandomState(seed).randint(1, LM_CFG["vocab_size"],
+                                            (n, t + 1))
+    return x[:, :-1].astype(np.int32), x[:, 1:].astype(np.float32)
+
+
+def glm18_state(net, trainer):
+    params = {k: v.data().asnumpy() for k, v in
+              net.collect_params().items()}
+    moms = {trainer._params[i].name: st.asnumpy()
+            for i, st in trainer._updaters[0].states.items()
+            if st is not None}
+    return params, moms
+
+
+def glm18_plain(mx, ctx, values, xs, ys):
+    """10a's steps through gluon's plain loop in float64 on `ctx`: per
+    step the mean loss, the embed_weight gradient, the state after."""
+    net = glm18_net(mx, ctx, values, "float64")
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(LM_TRAIN_OPT))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    out = []
+    for x, y in zip(xs, ys):
+        with mx.autograd.record():
+            loss = loss_fn(net(mx.nd.array(x, ctx=ctx, dtype="int32")),
+                           mx.nd.array(y, ctx=ctx, dtype="float64"))
+        loss.backward()
+        grad = net.collect_params()[GLM18_PREFIX + "embed_weight"].grad() \
+            .asnumpy()
+        trainer.step(x.shape[0])
+        out.append((float(loss.asnumpy().mean()), grad,
+                    glm18_state(net, trainer)))
+    del net, trainer
+    gc.collect()
+    return out
+
+
+def glm18_parity(mx, card):
+    """18d (i) and (ii): LM_TRAIN_PARITY's steps of the plain loop in
+    float64, card against CPU from the same Xavier parameters and
+    batches: each step's loss, the first step's tied embed_weight
+    gradient, every parameter and momentum after each step (10a's
+    gates); then Estimator.fit with the fused gluon step on the card over
+    a loader of the same batches against the card's plain loop."""
+    from incubator_mxnet_tpu_torch.compat.weights import block_params_to_numpy
+    from incubator_mxnet_tpu_torch.gluon.contrib.estimator import Estimator
+    batch, t, steps = LM_TRAIN_PARITY
+    x, y = glm18_windows(batch * steps, t, SEED + 180)
+    xs, ys = x.reshape(steps, batch, t), y.reshape(steps, batch, t)
+    values = block_params_to_numpy(glm18_net(mx, mx.cpu(), dtype="float64"))
+    cpu = glm18_plain(mx, mx.cpu(), values, xs, ys)
+    gpu = glm18_plain(mx, mx.gpu(0), values, xs, ys)
+    loss_err = max(abs(g[0] - c[0]) / abs(c[0]) for g, c in zip(gpu, cpu))
+    grad = param_ratio({"g": gpu[0][1]}, {"g": cpu[0][1]})[0]
+    worst = max(max(param_ratio(g[2][0], c[2][0]),
+                    param_ratio(g[2][1], c[2][1])) for g, c in zip(gpu, cpu))
+    ok = loss_err <= PARITY_TOL[0] and grad <= 1 and worst[0] <= 1
+    print(f"18d gluon LM parity float64: {steps} plain-loop steps (record, "
+          f"backward, Trainer.step; SGD lr {LM_TRAIN_OPT['learning_rate']} "
+          f"momentum {LM_TRAIN_OPT['momentum']}) at batch {batch} x T {t}, "
+          f"{LM_CFG['num_layers']} layers x {LM_CFG['hidden']}, vocab "
+          f"{LM_CFG['vocab_size']}, card vs CPU: loss "
+          f"{' '.join(f'{g[0]:.6f}' for g in gpu)}, max relative err "
+          f"{loss_err:.2e} (rtol {PARITY_TOL[0]:g}); tied embed_weight "
+          f"gradient at {grad:.3f} of the tolerance; parameters and momenta "
+          f"after each step at {worst[0]:.3f} of it (worst {worst[1]}) "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "18d: the gluon LM's card steps disagree with the CPU's")
+    net = glm18_net(mx, mx.gpu(0), values, "float64")
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(LM_TRAIN_OPT))
+    est = Estimator(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                    train_metrics=[mx.metric.Accuracy(axis=-1)],
+                    trainer=trainer, context=mx.gpu(0))
+    est.fit(mx.gluon.data.DataLoader(mx.gluon.data.ArrayDataset(
+        x, y.astype(np.float64)), batch_size=batch), epochs=1,
+        event_handlers=[])
+    fused = est._fused.steps if est._fused is not None else 0
+    got = glm18_state(net, trainer)
+    est_worst = max(param_ratio(got[0], gpu[-1][2][0]),
+                    param_ratio(got[1], gpu[-1][2][1]))
+    ok = fused == steps and est_worst[0] <= 1
+    print(f"18d gluon LM Estimator.fit float64 on the card: fused gluon step "
+          f"{fused} of {steps}; parameters and momenta against the card's "
+          f"plain loop at {est_worst[0]:.3f} of 10a's tolerance (worst "
+          f"{est_worst[1]}) {'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "18d: Estimator's fused LM steps differ from the plain loop")
+    del est, net, trainer, cpu, gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"worst": max(worst[0], loss_err / PARITY_TOL[0], grad),
+            "estimator": est_worst[0]}
+
+
+def glm18_lane(mx, card, dtype, fused_on):
+    """18d (iii): LM_TRAIN_LANE's steps of the gluon LM through
+    Estimator.fit, fed by a DataLoader of seeded token windows
+    (GLM18_LOADER_WORKERS workers) through DevicePrefetchLoader: fused
+    gluon step (or the eager loop), tokens/s over CUDA-synchronised
+    edges, the median step ms between CUDA events, peak memory."""
+    from incubator_mxnet_tpu_torch import io_plane
+    from incubator_mxnet_tpu_torch.gluon.contrib.estimator import (
+        Estimator, EventHandler)
+    batch, t, warm, timed = LM_TRAIN_LANE
+    steps = warm + timed
+    x, y = glm18_windows(batch * steps, t, SEED + 181)
+    old = os.environ.get("MXNET_FUSED_TRAIN_STEP")
+    os.environ["MXNET_FUSED_TRAIN_STEP"] = "1" if fused_on else "0"
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        net = glm18_net(mx, mx.gpu(0), dtype=dtype)
+        trainer = mx.gluon.Trainer(
+            net.collect_params(), "sgd",
+            dict(LM_TRAIN_OPT, multi_precision=dtype == "bfloat16"))
+        loader = io_plane.DevicePrefetchLoader(mx.gluon.data.DataLoader(
+            mx.gluon.data.ArrayDataset(x, y), batch_size=batch,
+            num_workers=GLM18_LOADER_WORKERS), ctx=mx.gpu(0))
+        events, edges, losses = [], {}, []
+
+        class Probe(EventHandler):
+            def batch_end(self, est):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+                last = est._fused.last_loss if est._fused is not None \
+                    else None
+                if last is not None:
+                    losses.append(last.data.float().mean())
+                if est.batch_idx in (warm - 1, steps - 1):
+                    torch.cuda.synchronize()
+                    edges[est.batch_idx] = time.perf_counter()
+
+        est = Estimator(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                        train_metrics=[mx.metric.Accuracy(axis=-1)],
+                        trainer=trainer, context=mx.gpu(0))
+        est.fit(loader, epochs=1, event_handlers=[Probe()])
+        fused = est._fused.steps if est._fused is not None else 0
+        carried = loader.ring_stats()["batches"]
+        n_params = sum(p.data().size for p in
+                       net.collect_params().values())
+    finally:
+        os.environ.pop("MXNET_FUSED_TRAIN_STEP", None)
+        if old is not None:
+            os.environ["MXNET_FUSED_TRAIN_STEP"] = old
+    tokens_s = batch * t * timed / (edges[steps - 1] - edges[warm - 1])
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in
+                                zip(events[warm - 1:], events[warm:]))
+    cfg = lm_train_cfg()
+    flops = lm_train_flops(n_params, cfg, batch, t)
+    peak = FP32_CUDA_CORE_FLOPS if dtype == "float32" else PEAK_FLOPS[BF16]
+    mfu = tokens_s * flops / (batch * t) / peak
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = [float(v) for v in torch.stack(losses).cpu()] if losses else []
+    ok = fused == (steps if fused_on else 0) and carried == steps and \
+        bool(np.isfinite(loss).all())
+    label = f"{dtype} {'fused' if fused_on else 'eager'}"
+    print(f"18d gluon LM lane {label}: {steps} steps at batch {batch} x T "
+          f"{t} through Estimator.fit, the loader's {carried} batches "
+          f"through the ring, fused gluon step {fused}; {tokens_s:.1f} "
+          f"tokens/s over the {timed} timed steps, step median "
+          f"{step_ms:.3f} ms, mfu {mfu:.4f} (of {peak / 1e12:.0f} TFLOP/s), "
+          f"peak {mem:.2f} GiB"
+          + (f"; loss first {loss[0]:.4f} last {loss[-1]:.4f}" if loss
+             else "") + f" {'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, f"18d: the gluon LM lane ({label}) failed")
+    del est, net, trainer, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tokens_s": tokens_s, "step_ms": step_ms, "mfu": mfu,
+            "peak_gib": mem}
+
+
+def glm18(mx, card, module_tokens_s):
+    """18d: the gluon LM's parity and lanes; K1, K2, K3 at 0 launches."""
+    from incubator_mxnet_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_stream)
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    wrappers = (fc_relu, flash_fwd, flash_fwd_stream)
+    for w in wrappers:
+        w.launches = 0
+    out = {"parity": glm18_parity(mx, card)}
+    out["fp32"] = glm18_lane(mx, card, "float32", True)
+    out["eager"] = glm18_lane(mx, card, "float32", False)
+    out["bf16"] = glm18_lane(mx, card, "bfloat16", True)
+    launches = [w.launches for w in wrappers]
+    out["fused_vs_eager"] = out["fp32"]["tokens_s"] / out["eager"]["tokens_s"]
+    out["gluon_vs_module"] = out["fp32"]["tokens_s"] / module_tokens_s
+    print(f"18d gluon LM: fp32 fused {out['fp32']['tokens_s']:.1f} tokens/s, "
+          f"eager {out['eager']['tokens_s']:.1f} (fused_vs_eager "
+          f"{out['fused_vs_eager']:.3f}), bf16 fused "
+          f"{out['bf16']['tokens_s']:.1f}; gluon_vs_module "
+          f"{out['gluon_vs_module']:.3f} (phase 10b's Module.fit "
+          f"{module_tokens_s:.1f} tokens/s); K1/K2/K3 launches {launches} "
+          f"[{card}]")
+    check(launches == [0, 0, 0], "18d: a K1/K2/K3 kernel ran on the LM path")
+    return out
+
+
+def svrg18_fit(mx, ctx, x, y, epochs, callbacks=(), shuffle=False):
+    """SVRGModule.fit of train_mnist's mlp on `ctx` (phase 6's batch,
+    SGD at its learning rate without momentum, Xavier, under
+    mx.random.seed(SEED)); the ce of each batch."""
+    from incubator_mxnet_tpu_torch.contrib.svrg_optimization import (
+        SVRGModule)
+    np.random.seed(SEED)
+    it = mx.io.NDArrayIter(x, y, TRAIN_BATCH, shuffle=shuffle)
+    mod = SVRGModule(mlp_symbol(mx), update_freq=SVRG18["update_freq"],
+                     context=ctx)
+    seen = []
+
+    def read(p):
+        seen.append(p.eval_metric.get()[1])
+
+    mx.random.seed(SEED)
+    mod.fit(it, num_epoch=epochs, eval_metric="ce", optimizer="sgd",
+            optimizer_params={"learning_rate": TRAIN_LR},
+            initializer=mx.initializer.Xavier(),
+            batch_end_callback=[read] + list(callbacks))
+    return mod, seen
+
+
+def svrg18(mx, card, tmp):
+    """18e: train_mnist's mlp under TPU_PALLAS through SVRGModule on
+    phase 6's synthetic MNIST: the card against the CPU over the first
+    SVRG18 parity batches (phase 6's gate), then SVRG18's epochs on the
+    card with a LogMetricsCallback; K1 2 a forward, each step two
+    forward-backward passes and each snapshot pass one per batch."""
+    from incubator_mxnet_tpu_torch.contrib.tensorboard import (
+        LogMetricsCallback)
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    k1_held(TRAIN_BATCH, "18e")
+    x, y = mx.test_utils.get_mnist_like(TRAIN_IMAGES)
+    x, y = x[:TRAIN_SPLIT], y[:TRAIN_SPLIT]
+    n = SVRG18["parity_batches"] * TRAIN_BATCH
+    cpu_mod, cpu_ce = svrg18_fit(mx, mx.cpu(), x[:n], y[:n], 1)
+    fc_relu.launches = 0
+    gpu_mod, gpu_ce = svrg18_fit(mx, mx.gpu(0), x[:n], y[:n], 1)
+    parity_launches = fc_relu.launches
+    cpu_p = {k: v.asnumpy() for k, v in cpu_mod.get_params()[0].items()}
+    gpu_p = {k: v.asnumpy() for k, v in gpu_mod.get_params()[0].items()}
+    ratio = param_ratio(gpu_p, cpu_p)
+    ce_err = max(abs(g - c) / abs(c) for g, c in zip(gpu_ce, cpu_ce))
+    steps = SVRG18["parity_batches"]
+    want = 2 * (steps * 2 + steps)
+    ok = ratio[0] <= 1 and ce_err <= PARITY_TOL[0] and \
+        parity_launches == want
+    print(f"18e svrg parity: {steps} SVRG steps (update_freq "
+          f"{SVRG18['update_freq']}, a snapshot pass of {steps} batches) "
+          f"of train_mnist's mlp at batch {TRAIN_BATCH}, card vs CPU: "
+          f"running ce max relative err {ce_err:.2e} (rtol "
+          f"{PARITY_TOL[0]:g}); parameters at {ratio[0]:.3f} of phase 6's "
+          f"tolerance (worst {ratio[1]}); K1 {parity_launches} launches = "
+          f"2 x ({steps} steps x 2 + {steps} snapshot batches) "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "18e: the card's SVRG steps disagree with the CPU's")
+    del cpu_mod, gpu_mod
+    logdir = os.path.join(tmp, "svrg_tb")
+    board = LogMetricsCallback(logdir, prefix="svrg")
+    records = []
+    add = board._writer.add_scalar
+
+    def counted(tag, value, step=None):
+        records.append((tag, step))
+        add(tag, value, step)
+
+    board._writer.add_scalar = counted
+    epochs = SVRG18["epochs"]
+    nb = TRAIN_SPLIT // TRAIN_BATCH
+    fc_relu.launches = 0
+    t0 = time.perf_counter()
+    mod, ce = svrg18_fit(mx, mx.gpu(0), x, y, epochs, callbacks=[board],
+                         shuffle=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fc_relu.launches
+    board.close()
+    jsonl = os.path.join(logdir, "events.jsonl")
+    lines = sum(1 for _ in open(jsonl)) if os.path.exists(jsonl) else None
+    snapshots = len(range(0, epochs, SVRG18["update_freq"]))
+    want = 2 * (epochs * nb * 2 + snapshots * nb)
+    first, last = ce[nb - 1], ce[-1]
+    ok = launches == want and len(records) == epochs * nb and \
+        lines in (None, epochs * nb) and last < first and \
+        all(math.isfinite(v) for v in ce)
+    print(f"18e svrg fit: {epochs} epochs of {nb} batches in {wall:.2f} s; "
+          f"ce over epoch 1 {first:.4f}, over epoch {epochs} {last:.4f}; "
+          f"K1 {launches} launches = 2 x ({epochs} epochs x {nb} steps x 2 "
+          f"+ {snapshots} snapshots x {nb} batches) = {want}; "
+          f"LogMetricsCallback wrote {len(records)} records ("
+          f"{type(board._writer).__name__}"
+          + (f", {lines} lines in events.jsonl" if lines is not None
+             else "") + f") for {epochs * nb} batches "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "18e: SVRGModule.fit's count, metric log or loss is wrong")
+    return {"launches": launches, "parity_launches": parity_launches,
+            "ratio": ratio[0], "ce": (first, last), "wall_s": wall}
+
+
+def loader_phase(card, workdir, refs):
+    """Phase 18; `refs` holds phase 12's iterator rate (``iter_rate``),
+    17b's resident AlexNet rate (``resident``) and 10b's Module.fit LM
+    rate (``lm_tokens_s``).  Returns K1's launches on its two paths and
+    the numbers of the summary line.  K2 and K3 must not run."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_stream)
+    for wrapper in (flash_fwd, flash_fwd_stream):
+        wrapper.launches = 0
+    out, times = {}, {}
+    old = os.environ.get("MXNET_SUBGRAPH_BACKEND")
+    os.environ["MXNET_SUBGRAPH_BACKEND"] = "TPU_PALLAS"
+    tmp = tempfile.mkdtemp(dir=workdir)
+    try:
+        steps = (("18a", lambda: data18(mx, card, tmp, refs["iter_rate"])),
+                 ("18b", lambda: (bridge18(mx, card, out["18a"][0]),
+                                  lane18(mx, card, out["18a"][0],
+                                         refs["resident"]))),
+                 ("18c", lambda: est18(mx, card, out["18a"][0])),
+                 ("18d", lambda: glm18(mx, card, refs["lm_tokens_s"])),
+                 ("18e", lambda: svrg18(mx, card, tmp)))
+        for key, fn in steps:
+            t0 = time.perf_counter()
+            out[key] = fn()
+            times[key] = time.perf_counter() - t0
+            print(f"phase {key}: {times[key]:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+        if old is not None:
+            os.environ["MXNET_SUBGRAPH_BACKEND"] = old
+    check([flash_fwd.launches, flash_fwd_stream.launches] == [0, 0],
+          "phase 18: K2/K3 ran")
+    bridge, lane = out["18b"]
+    out["times"] = times
+    out["k1"] = {"loader_fit": bridge["launches"] + lane["launches"],
+                 "svrg": out["18e"]["parity_launches"]
+                 + out["18e"]["launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -9404,6 +10260,12 @@ def main():
     t0 = time.perf_counter()
     zoo = zoo_phase(card, str(_build.BUILD_DIR.parent))
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    loaders = loader_phase(card, str(_build.BUILD_DIR.parent), {
+        "iter_rate": imagenet["iter_f32"],
+        "resident": zoo["17b"]["images_s"],
+        "lm_tokens_s": lmt["lane"]["tokens_s"]})
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -9556,7 +10418,9 @@ def main():
     lane, srv = zoo["17b"], zoo["17c"]
     zoo_worst = max(v["worst"] for v in zoo["17d"].values())
     k1_share = "not recorded" if lane["k1_share"] is None else \
-        f"{lane['k1_share']:.4f}"
+        f"{lane['k1_share']:.4f}" + (" (estimated: the profiler lost K1)"
+                                     if lane.get("k1_share_estimated")
+                                     else "")
     print(f"zoo summary: 17a AlexNet card vs CPU at "
           f"{zoo['17a']['worst']:.3f} of the tolerance; 17b AlexNet bf16 "
           f"batch {ALEX_LANE['batch']} through Module.fit "
@@ -9570,6 +10434,26 @@ def main():
           + f", card vs CPU worst {zoo_worst:.3f}; 17e worst {zoo['17e'][0]:.3f} ({zoo['17e'][1]}); K1 launches "
           f"{zoo['k1']}; " + ", ".join(f"{k} {v:.1f} s" for k, v in
                                        zoo["times"].items())
+          + f" [{card}]")
+    ld, (lb, ll) = loaders["18a"][1], loaders["18b"]
+    lg, ls = loaders["18d"], loaders["18e"]
+    print(f"loader summary: 18a gluon loader of the {ld['format'][1:]} "
+          f".rec, random pipeline over an epoch " + ", ".join(
+              f"{w} workers {r:.1f} ({ld['cores'][w]:.2f} cores)"
+              for w, r in ld["rates"].items())
+          + f" images/s (ImageRecordIter {imagenet['iter_f32']:.1f}); 18b "
+          f"AlexNet bf16 fed by DataLoaderIter {ll['images_s']:.1f} "
+          f"images/s, loader_vs_resident {ll['loader_vs_resident']:.3f}, "
+          f"bridge {'bit for bit' if lb['bitwise'] else 'in tolerance'};"
+          f" 18c Estimator.fit {loaders['18c']['images_s']:.1f} images/s; "
+          f"18d gluon LM fp32 {lg['fp32']['tokens_s']:.1f} tokens/s (mfu "
+          f"{lg['fp32']['mfu']:.4f}, fused_vs_eager "
+          f"{lg['fused_vs_eager']:.3f}, gluon_vs_module "
+          f"{lg['gluon_vs_module']:.3f}), bf16 {lg['bf16']['tokens_s']:.1f}"
+          f", parity worst {lg['parity']['worst']:.3f}; 18e SVRG ce "
+          f"{ls['ce'][0]:.4f} -> {ls['ce'][1]:.4f}; K1 launches "
+          f"{loaders['k1']}; " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in loaders["times"].items())
           + f" [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
@@ -9592,13 +10476,13 @@ def main():
         "replaces": "incubator_mxnet_tpu/subgraph/fused_ops.py:29",
         "launches": launches + train_launches + kvp["dp_launches"]
         + kvp["wd_launches"] + seq["k1_launches"] + sum(api["k1"].values())
-        + sum(zoo["k1"].values()),
+        + sum(zoo["k1"].values()) + sum(loaders["k1"].values()),
         "paths": {"serving": launches, "training": train_launches,
                   "data_parallel": kvp["dp_launches"],
                   "wide_deep": kvp["wd_launches"],
                   "sequential_module": seq["k1_launches"],
                   "dist_sync_workers": dist["launches"], **api["k1"],
-                  **zoo["k1"]},
+                  **zoo["k1"], **loaders["k1"]},
         "max_abs_err": rep["max_abs_err"],
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

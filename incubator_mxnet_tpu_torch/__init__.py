@@ -63,6 +63,11 @@ Slice 14 adds the training API's stragglers (`model.FeedForward`,
 (`resilience.faults`, the batcher's circuit breaker and retries,
 checkpoint-directory serving, a `Monitor` on the request path, and the
 C predict ABI: `c_predict` and the shim ``csrc/c_predict_api.cc``).
+Slice 15 adds gluon's remaining layers and the model zoo.  Slice 16 adds
+gluon's data plane (`DataLoader`'s worker threads, `RecordFileDataset`,
+`gluon.data.vision`, `nd.image`, `io_plane.DevicePrefetchLoader`) and
+`contrib`: `DataLoaderIter`, `SVRGModule`, the legacy autograd names,
+`text` and `tensorboard`.
 
     import incubator_mxnet_tpu_torch as mx
 """
@@ -110,6 +115,7 @@ from . import monitor
 from .monitor import Monitor
 from . import attribute
 from .attribute import AttrScope
+from . import contrib
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "ops", "symbol", "sym", "ndarray", "nd", "subgraph",
@@ -119,4 +125,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "executor", "module", "mod", "gluon", "llm", "storage",
            "checkpoint", "rnn", "recordio", "native", "image", "io_plane",
            "kvstore", "kv", "kvstore_server", "resilience", "embedding",
-           "test_utils", "monitor", "Monitor", "attribute", "AttrScope"]
+           "test_utils", "monitor", "Monitor", "attribute", "AttrScope",
+           "contrib"]

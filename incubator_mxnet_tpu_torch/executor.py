@@ -67,7 +67,7 @@ class Executor:
                      if self._grad_req.get(n, "null") != "null"]
         self.outputs = []
         self._fns = {}          # is_train -> graph function
-        self._needs_rng = any(not n.is_variable and n.op.needs_rng
+        self._needs_rng = any(not n.is_variable and n.op.draws(n.attrs)
                               for n in symbol._topo())
         self._rng = None        # the generator of the last training forward
         self._recorded = None   # (leaves, outputs) awaiting backward

@@ -312,7 +312,7 @@ class _CachedGraph:
         self._fns[False] = fn
         self.arg_names = [n.name for n in arg_nodes]
         self.aux_names = [n.name for n in aux_nodes]
-        self._needs_rng = any(not n.is_variable and n.op.needs_rng
+        self._needs_rng = any(not n.is_variable and n.op.draws(n.attrs)
                               for n in symbol._topo())
 
     def _fn(self, is_train):

@@ -10,9 +10,14 @@ cross-cutting concern (logging, checkpoints, early stopping) is an
 `EventHandler` called at train, epoch and batch begin and end.  Batches
 move to the net's context first.  `checkpoint.ElasticCheckpointHandler`
 resumes a fit mid-epoch (it sets ``_epochs_done``, ``_resume_batches``
-and ``_resume_total_epochs`` in ``train_begin``).  The JAX package's
-K-batch blocks (``MXNET_FUSED_STEP_BLOCK``) and its h2d staging ring are
-not ported: every batch is one call.
+and ``_resume_total_epochs`` in ``train_begin``).  Where the fused
+step runs and ``MXNET_IO_RING`` is on (the default), the training loader
+is wrapped in `io_plane.DevicePrefetchLoader` on the net's context, so
+the pairs reach the step already on the card; the wrapper is kept as
+``io_loader`` (its `ring_stats` count the batches it carried).  Unlike
+the JAX package, which trains unwrapped when the wrap raises, an error
+of the ring rises.  The JAX package's K-batch blocks
+(``MXNET_FUSED_STEP_BLOCK``) are not ported: every batch is one call.
 """
 from __future__ import annotations
 
@@ -183,6 +188,7 @@ class Estimator:
         self._epochs_done = 0
         self._resume_batches = 0  # set by checkpoint.ElasticCheckpointHandler
         self._fused = None
+        self.io_loader = None
 
     def _ctx(self):
         if self.context is not None:
@@ -237,6 +243,7 @@ class Estimator:
             self.trainer = Trainer(self.net.collect_params(), "sgd",
                                    {"learning_rate": 0.01})
         fused = self._fused_step()
+        train_data = self._io_wrap(train_data, fused)
         handlers = list(event_handlers or [LoggingHandler()])
         try:
             for h in handlers:
@@ -284,6 +291,25 @@ class Estimator:
                     h.epoch_end(self)
         except StopTraining as e:
             logging.getLogger("Estimator").info(str(e))
+        finally:
+            if self.io_loader is not None:
+                self.io_loader.close()
         for h in handlers:
             h.train_end(self)
         return self
+
+    def _io_wrap(self, train_data, fused):
+        """`train_data` in the h2d staging ring on the net's context
+        where the fused step runs and ``MXNET_IO_RING`` is on (kept as
+        ``io_loader``), else as it came."""
+        from ... import config as _config
+        from ... import io_plane
+        self.io_loader = None
+        ctx = self._ctx()
+        if fused is None or ctx is None or \
+                not _config.get("MXNET_IO_RING"):
+            return train_data
+        if not isinstance(train_data, io_plane.DevicePrefetchLoader):
+            train_data = io_plane.DevicePrefetchLoader(train_data, ctx=ctx)
+        self.io_loader = train_data
+        return train_data

@@ -1,14 +1,17 @@
 """Datasets (reference `python/mxnet/gluon/data/dataset.py`).
 
-PyTorch port of `Dataset`, `SimpleDataset` and `ArrayDataset` of
-`incubator_mxnet_tpu/gluon/data/dataset.py`, with the lazy transforms
-(`transform`, `transform_first`) and `filter`.
+PyTorch port of `incubator_mxnet_tpu/gluon/data/dataset.py`: `Dataset`
+with the lazy transforms (`transform`, `transform_first`) and `filter`,
+`SimpleDataset`, `ArrayDataset` and `RecordFileDataset`.
 """
 from __future__ import annotations
 
+import os
+import threading
+
 from ...ndarray.ndarray import NDArray
 
-__all__ = ["Dataset", "SimpleDataset", "ArrayDataset"]
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
 
 
 class Dataset:
@@ -97,3 +100,25 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """The raw records of an indexed RecordIO file, by position in its
+    ``.idx`` (reference `dataset.py:RecordFileDataset`).  Reads hold a
+    lock: the seek and the read share one file handle, and a
+    `DataLoader`'s worker threads read concurrently."""
+
+    def __init__(self, filename):
+        from ... import recordio
+        self.idx_file = os.path.splitext(filename)[0] + ".idx"
+        self.filename = filename
+        self._record = recordio.MXIndexedRecordIO(self.idx_file,
+                                                  self.filename, "r")
+        self._lock = threading.Lock()
+
+    def __getitem__(self, idx):
+        with self._lock:
+            return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

@@ -23,16 +23,18 @@ it:
   fused train step's placement (`fused.FusedTrainStep.ring_placement`).
   Checkpoint capture, seek, quarantine and record ranges delegate to the
   inner iterator, the feeder paused around each.
+* `DevicePrefetchLoader` -- the ring over a gluon ``DataLoader`` (any
+  iterable of ``(data, label)`` pairs): iteration yields the pairs on
+  the card.  `Estimator.fit` wraps its training loader with it when the
+  fused gluon step runs and ``MXNET_IO_RING`` is on.
 * `auto_shard` -- this process's ``(part_index, num_parts)`` from
   ``DMLC_RANK``/``DMLC_NUM_WORKER`` or an initialized
   `torch.distributed` group.
 
 On a CPU target a host batch of the target dtype passes through (the JAX
 ring adopts it zero-copy); a cast is staged, then copied out of the
-staging buffer.  The JAX module's `DevicePrefetchLoader`
-(the ring over a gluon ``DataLoader``) waits for the port's DataLoader
-workers; its trace spans and metrics registry are not ported (`stats()`
-returns the same counts).
+staging buffer.  The JAX module's trace spans and metrics registry are
+not ported (`stats()` returns the same counts).
 """
 from __future__ import annotations
 
@@ -49,8 +51,8 @@ from .base import torch_dtype
 from .io import DataBatch, DataIter
 from .ndarray.ndarray import NDArray
 
-__all__ = ["H2DRing", "RingPlacement", "DevicePrefetchIter", "auto_shard",
-           "stats"]
+__all__ = ["H2DRing", "RingPlacement", "DevicePrefetchIter",
+           "DevicePrefetchLoader", "auto_shard", "stats"]
 
 
 def auto_shard(part_index=None, num_parts=None):
@@ -494,5 +496,95 @@ class DevicePrefetchIter(DataIter):
     def __del__(self):
         try:
             self._pause()
+        except Exception:   # noqa: BLE001 - interpreter shutdown
+            pass
+
+
+class DevicePrefetchLoader:
+    """The staging ring over a gluon ``DataLoader`` (or any iterable of
+    tuples of arrays): iterating yields each tuple as NDArrays on `ctx`
+    (default `current_context()`), staged and copied by an ``mx-io-h2d``
+    feeder thread with `depth` batches of read-ahead; dtypes are kept.
+    A loader error reaches the consumer at its batch.  Closing the
+    iteration (or `close`) stops the feeder, which closes the loader's
+    iterator, so a threaded loader's workers leave too."""
+
+    def __init__(self, loader, ctx=None, depth=None, name="io.gluon"):
+        self._loader = loader
+        self._ctx = ctx
+        self._depth = depth
+        self._name = name
+        self._ring = None
+        self._thread = None
+        self._stop = threading.Event()
+
+    def __len__(self):
+        return len(self._loader)
+
+    @staticmethod
+    def _feed(loader, ring, stop, token):
+        it = None
+        try:
+            it = iter(loader)
+            while not stop.is_set():
+                try:
+                    pair = next(it)
+                except StopIteration:
+                    ring.put_end(token=token)
+                    return
+                if not ring.put(list(pair), len(pair), token=token):
+                    return               # closed or restarted under us
+        except Exception as e:   # noqa: BLE001 - re-raised by get()
+            ring.put_end(e, token=token)
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+    def _stop_feeder(self, thread=None):
+        """Stop the running feeder (only `thread`'s, when given) and
+        drop its read-ahead."""
+        if self._thread is None or thread not in (None, self._thread):
+            return
+        self._stop.set()
+        self._ring.close()
+        self._thread.join(timeout=30)
+        self._thread = None
+
+    def close(self):
+        self._stop_feeder()
+
+    def ring_stats(self):
+        return self._ring.ring_stats() if self._ring is not None else {}
+
+    def __iter__(self):
+        self._stop_feeder()
+        if self._ring is None:
+            self._ring = H2DRing(RingPlacement(self._ctx), depth=self._depth,
+                                 name=self._name)
+        ring = self._ring
+        token = ring.reopen()
+        self._stop = threading.Event()   # per start, as DevicePrefetchIter
+        thread = self._thread = threading.Thread(
+            target=self._feed, args=(self._loader, ring, self._stop, token),
+            daemon=True, name="mx-io-h2d")
+        thread.start()
+        return self._batches(ring, thread)
+
+    def _batches(self, ring, thread):
+        ctx = ring._placement.ctx
+        try:
+            while True:
+                try:
+                    outs, _ = ring.get()
+                except StopIteration:
+                    return
+                yield tuple(NDArray(t, ctx=ctx) for t in outs)
+        finally:
+            self._stop_feeder(thread)
+
+    def __del__(self):
+        try:
+            self._stop_feeder()
         except Exception:   # noqa: BLE001 - interpreter shutdown
             pass

@@ -4,10 +4,11 @@
 PyTorch port of `incubator_mxnet_tpu/module/base_module.py`.  `fit` is the
 per-batch loop of the JAX package's `_fit_epochs`: one `fit_step` per
 batch (`Module`'s runs the fused train step where it can, else
-`forward_backward`, `update` and `update_metric`), the batch-end
-callbacks after each (with a ``monitor``, `Monitor.tic`, forward,
-backward, update, the metric and `Monitor.toc_print` instead, as the
-JAX loop, so the monitor sees every forward's outputs), and the elastic
+`_batch_step`: `forward_backward`, `update` and `update_metric`), the
+batch-end callbacks after each (with a ``monitor``, `Monitor.tic`,
+`_batch_step` and `Monitor.toc_print` instead, as the JAX loop, so the
+monitor sees every forward's outputs), `_fit_epoch_begin` before each
+epoch, and the elastic
 checkpoints of `_fit_attempt`
 (``checkpoint_dir``, ``checkpoint_period``, ``checkpoint_keep_last``,
 ``resume``; `checkpoint/`), and the h2d staging ring around the training
@@ -52,9 +53,18 @@ class BaseModule:
 
     def fit_step(self, data_batch, eval_metric):
         """One training step and its metric update."""
+        self._batch_step(data_batch, eval_metric)
+
+    def _batch_step(self, data_batch, eval_metric):
+        """One step on the per-batch path (forward_backward, update, the
+        metric): `fit_step`'s fallback, and the step a Monitor watches."""
         self.forward_backward(data_batch)
         self.update()
         self.update_metric(eval_metric, data_batch.label)
+
+    def _fit_epoch_begin(self, epoch, train_data):
+        """Called by `fit` before each epoch's first batch (nothing here;
+        `SVRGModule` takes its snapshot)."""
 
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, score_end_callback=None, reset=True,
@@ -262,6 +272,7 @@ class BaseModule:
                     checkpoint_period, monitor=None):
         last_snap_step = gstep
         for epoch in range(begin_epoch, num_epoch):
+            self._fit_epoch_begin(epoch, train_data)
             tic = time.time()
             eval_metric.reset()
             nbatch = 0
@@ -278,9 +289,7 @@ class BaseModule:
             for data_batch in train_data:
                 if monitor is not None:
                     monitor.tic()
-                    self.forward_backward(data_batch)
-                    self.update()
-                    self.update_metric(eval_metric, data_batch.label)
+                    self._batch_step(data_batch, eval_metric)
                     monitor.toc_print()
                 else:
                     self.fit_step(data_batch, eval_metric)

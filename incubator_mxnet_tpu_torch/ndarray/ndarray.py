@@ -433,7 +433,8 @@ def invoke(op, data, kwargs, out=None):
         out_ctx = ctx if isinstance(ctx, Context) else current_context()
     if op.needs_rng:
         from .. import random as _random
-        tensors.append(_random.generator(out_ctx.torch_device))
+        tensors.append(_random.generator(out_ctx.torch_device)
+                       if op.draws(params) else None)
     graph = st.recording and not op.stop_grad
     record = graph and any(t.requires_grad for t in tensors
                            if isinstance(t, torch.Tensor))

@@ -218,7 +218,7 @@ def _leaky_relu(params, x, *rest):
     raise MXNetError(f"LeakyReLU: unknown act_type {t}")
 
 
-@register("Dropout", needs_rng=True, mode_dependent=True,
+@register("Dropout", needs_rng=True, rate_param="p", mode_dependent=True,
           params={"p": 0.5, "mode": "training", "axes": ()})
 def _dropout(params, x, generator):
     """Reference `src/operator/nn/dropout.cc`: inverted dropout; the
@@ -516,6 +516,7 @@ def _rnn_nout(params):
 
 
 @register("RNN", nin=-1, nout=_rnn_nout, mode_dependent=True, needs_rng=True,
+          rate_param="p",
           input_names=lambda p: ["data", "parameters", "state"] + (
               ["state_cell"] if p.get("mode") == "lstm" else []),
           params={"state_size": REQUIRED, "num_layers": REQUIRED,

@@ -46,6 +46,8 @@ class OpDef:
     params : dict name -> default (REQUIRED for mandatory params).
     needs_rng : op consumes randomness; the interpreter appends a
         `torch.Generator` (or None) input.
+    rate_param : for such an op, the name of a rate parameter: a call
+        whose rate is 0 draws nothing (`draws`) and gets None.
     stop_grad : the imperative frontend does not record the op for
         backward (BlockGrad and friends).
     mode_dependent : op behaves differently in train vs predict mode; the
@@ -59,13 +61,13 @@ class OpDef:
     """
 
     __slots__ = ("name", "fn", "nin", "nout", "naux", "params", "needs_rng",
-                 "mode_dependent", "stop_grad", "aliases", "input_names",
-                 "param_types", "variadic_param", "doc")
+                 "rate_param", "mode_dependent", "stop_grad", "aliases",
+                 "input_names", "param_types", "variadic_param", "doc")
 
     def __init__(self, name, fn, nin=1, nout=1, naux=0, params=None,
                  needs_rng=False, mode_dependent=False, stop_grad=False,
                  aliases=(), input_names=None, param_types=None,
-                 variadic_param=None, doc=None):
+                 variadic_param=None, doc=None, rate_param=None):
         self.name = name
         self.fn = fn
         self.nin = nin
@@ -73,6 +75,7 @@ class OpDef:
         self.naux = naux
         self.params = dict(params or {})
         self.needs_rng = needs_rng
+        self.rate_param = rate_param
         self.mode_dependent = mode_dependent
         self.stop_grad = stop_grad
         self.aliases = tuple(aliases)
@@ -80,6 +83,13 @@ class OpDef:
         self.param_types = dict(param_types or {})
         self.variadic_param = variadic_param
         self.doc = doc or (fn.__doc__ if fn else None)
+
+    def draws(self, params):
+        """Whether a call with `params` draws random numbers."""
+        if self.rate_param is None:
+            return self.needs_rng
+        return float(params.get(self.rate_param,
+                                self.params.get(self.rate_param))) > 0
 
     def canonicalize_params(self, kwargs):
         """Coerce/validate kwargs against the param table; returns plain dict."""

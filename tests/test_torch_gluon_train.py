@@ -635,9 +635,24 @@ def test_split_and_load_and_clip_global_norm():
 
 
 def test_dataloader_workers_raise():
-    with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-        tmx.gluon.data.DataLoader(tmx.gluon.data.SimpleDataset([1, 2]),
-                                  batch_size=1, num_workers=2)
+    """A worker's exception reaches the consumer at its batch's turn
+    (the worker threads, `tests/test_torch_gluon_data.py`, hold the
+    rest)."""
+    class Broken(tmx.gluon.data.Dataset):
+        def __len__(self):
+            return 4
+
+        def __getitem__(self, i):
+            if i == 2:
+                raise KeyError("sample 2")
+            return np.float32(i)
+
+    got = []
+    with pytest.raises(KeyError, match="sample 2"):
+        for b in tmx.gluon.data.DataLoader(Broken(), batch_size=1,
+                                           num_workers=2):
+            got.append(b.asnumpy())
+    assert [g.tolist() for g in got] == [[0.0], [1.0]]
 
 
 def test_optimizer_pickles_without_its_parameters():
