@@ -358,6 +358,33 @@ exits non-zero:
    `contrib.tensorboard.LogMetricsCallback`: the loss falls, K1 exactly 2
    a forward (two forward-backward passes a step, one a batch in each
    snapshot pass), one metric record a batch.
+19. sparse storage, ONNX and INT8 (slice 17), K2 and K3 held at 0
+   launches.  a. 1024 seeded LibSVM rows at 1 000 000 features (the
+   width of upstream MXNet's example/sparse/linear_classification, 15
+   a row) through `LibSVMIter`: a CSR batch of 256 densified on the card
+   from its parts = the generator's rows bit for bit; FullyConnected(2)
+   + SoftmaxOutput through `Module.fit` for 4 steps on the card (the h2d
+   ring carries the parts: bytes a batch printed) against the CPU (rtol
+   1e-5 + 1e-6*max), the bound input after the last step = its rows;
+   `sparse.dot(csr, w^T)` on the card against the dense product; the
+   weight's touched rows as row_sparse through a .params bit for bit.
+   b. VGG-16 at full width (phase 4's symbol with its nodes named,
+   seeded weights) exported to ONNX and imported by the port (seconds,
+   bytes), partitioned with TPU_PALLAS, saved as a checkpoint pair and
+   served through ModelServer: answers held to the original symbol on
+   the card with phase 4's gate, K1 2 a dispatched batch; ResNet-50 v1
+   (BatchNorm with seeded statistics, the adds, global pooling) round
+   trip forward on the card against the original, K1 0 launches.  c. the
+   int8 FC route (a float64 GEMM) at M = 1, 8, 17, 32, K = 4096 exact,
+   beside an fp32 GEMM and `torch._int_mm`; the same VGG-16 through
+   `quantize_model(calib_mode="naive")` over 32 seeded images with fc6
+   and fc7 excluded (13 convolutions, 5 poolings and fc8 int8), served
+   under TPU_PALLAS (K1 2 a batch at fc6 and fc7) and held to the CPU's
+   int8 graph: the answers may differ only by what flipping fc8's
+   inputs within 1e-3 of a .5 step could move (counted; K1 and the CPU
+   sum fc6 and fc7 in other orders); the int8 tensors of one request
+   card vs CPU counted; int8 vs fp32 logits and top-1, calibration
+   seconds, bucket-32 images/s of the fp32 and int8 servers.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -10172,6 +10199,571 @@ def loader_phase(card, workdir, refs):
     return out
 
 
+# -- phase 19: sparse storage, ONNX and INT8 (slice 17) -------------------------
+
+# 19a: upstream MXNet's example/sparse/linear_classification reads avazu
+# at 1 000 000 features; its rows hold ~15 one-hot fields.  The batch is
+# cut from the example's 8192 to 256, so the dense input the port binds
+# (its operators densify, as the JAX package's do) stays <= 1 GiB.
+SPARSE19 = dict(features=1_000_000, nnz=15, batch=256, batches=4)
+SPARSE19_OPT = {"learning_rate": 0.1, "momentum": 0.9}
+SPARSE19_TOL = DP_TOL          # 4 steps card vs CPU: sums in other orders
+SERVE19_SIZES = SOLO_ROWS      # 19b/19c requests, one per bucket
+RESNET19_BATCH = 8             # 19b: ResNet-50 v1 round trip
+ROUNDTRIP19_TOL = (1e-4, 1e-5)
+CALIB19 = dict(images=32, batch=16)   # 19c: naive calibration batches
+RATE19 = dict(warm=2, timed=10)       # 19b/19c: bucket-32 images/s
+INT8_TIE = 1e-3       # 19c: a pre-round value this near a .5 may flip
+INT8_FC_ROWS = (1, 8, 17, 32)          # 19c: the int8 FC route, K = 4096
+DEV19 = "cuda"        # the card's torch device (a CPU rehearsal sets "cpu")
+
+
+def unique_names(mx, sym, prefix):
+    """`sym` with every op node named ``fwd`` (gluon's traced names)
+    renamed: after its weight (``vgg0_dense0_fwd``), else after its op
+    and a count; variables keep theirs.  quantize_model's
+    ``excluded_sym_names`` and ONNX's output names need one node a
+    name."""
+    js = json.loads(sym.tojson())
+    names = [n["name"] for n in js["nodes"]]
+    seen = {}
+    for node in js["nodes"]:
+        if node["op"] == "null" or node["name"] != "fwd":
+            continue
+        weights = [names[i] for i, _, _ in node["inputs"]
+                   if names[i].endswith("_weight")]
+        if weights:
+            node["name"] = weights[0][:-len("weight")] + "fwd"
+        else:
+            k = node["op"].lower()
+            seen[k] = seen.get(k, -1) + 1
+            node["name"] = f"{prefix}{k}{seen[k]}_fwd"
+    return mx.sym.load_json(json.dumps(js))
+
+
+def vgg_k1_held(where):
+    """Fail unless phase 3 held K1 against fc_relu_ref at VGG-16's fc6
+    and fc7 for every serving bucket in fp32."""
+    held = {(mm, k, n, dt) for k, n in VGG_FC_SHAPES
+            for mm in K1_ROWS for dt in (F32, BF16, F16)}
+    check(all((m, k, n, F32) in held for m in BUCKETS
+              for k, n in VGG_FC_SHAPES),
+          f"{where}: VGG-16's K1 shapes were not held in phase 3")
+
+
+def libsvm19(path, cfg, seed):
+    """Seeded LibSVM rows at the linear_classification example's width:
+    -> (labels, per-row sorted feature ids, per-row values)."""
+    rng = np.random.RandomState(seed)
+    n = cfg["batch"] * cfg["batches"]
+    labels = rng.randint(0, 2, n)
+    ids = np.sort(rng.randint(0, cfg["features"], (n, cfg["nnz"])), axis=1)
+    while True:         # a row's features are distinct: redraw repeats
+        dup = (np.diff(ids, axis=1) == 0).any(axis=1)
+        if not dup.any():
+            break
+        ids[dup] = np.sort(rng.randint(0, cfg["features"],
+                                       (int(dup.sum()), cfg["nnz"])), axis=1)
+    vals = rng.rand(n, cfg["nnz"]).astype(np.float32)
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write(f"{labels[i]} " + " ".join(
+                f"{c}:{v!r}" for c, v in zip(ids[i], vals[i].tolist()))
+                + "\n")
+    return labels.astype(np.float32), ids, vals
+
+
+def rows19(ids, vals, lo, hi, features, device):
+    """Rows [lo, hi) dense, built from the generator's arrays (not through
+    the port's CSR), on `device`."""
+    out = torch.zeros((hi - lo, features), dtype=torch.float32,
+                      device=device)
+    r = torch.arange(hi - lo, device=device).repeat_interleave(ids.shape[1])
+    out[r, torch.from_numpy(ids[lo:hi].reshape(-1)).to(device)] = \
+        torch.from_numpy(vals[lo:hi].reshape(-1)).to(device)
+    return out
+
+
+def sparse19(mx, card, tmp):
+    """19a: LibSVM batches through Module.fit on the card."""
+    from incubator_mxnet_tpu_torch import io_plane
+    from incubator_mxnet_tpu_torch.ndarray import sparse
+    cfg = SPARSE19
+    F, B = cfg["features"], cfg["batch"]
+    path = os.path.join(tmp, "avazu.libsvm")
+    t0 = time.perf_counter()
+    labels, ids, vals = libsvm19(path, cfg, SEED + 19)
+    gen_s = time.perf_counter() - t0
+    dev = torch.device(DEV19)
+
+    # the first CSR batch densified on the card = the generator's rows
+    it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(F,), batch_size=B)
+    batch = it.next()
+    csr = batch.data[0]
+    check(isinstance(csr, sparse.CSRNDArray) and csr.shape == (B, F),
+          f"19a: LibSVMIter yields {type(csr).__name__} {csr.shape}")
+    parts = sum(t.nbytes for t in csr._parts.values())
+    dense = sparse.dense_tensor(csr, dev)
+    truth = rows19(ids, vals, 0, B, F, dev)
+    bitwise = torch.equal(dense, truth)
+    print(f"19a sparse: {B * cfg['batches']} LibSVM rows of {F} features "
+          f"({cfg['nnz']} a row) written in {gen_s:.1f} s; a batch of {B} "
+          f"densified on the card from its parts ({parts} bytes, "
+          f"{dense.nbytes / 2 ** 30:.3f} GiB dense) = the generator's "
+          f"rows {'bit for bit' if bitwise else 'FAIL'}")
+    check(bitwise, "19a: the CSR batch densified on the card differs")
+    del dense
+
+    # 4 steps through Module.fit, card (the h2d ring on) vs CPU
+    w0 = (np.random.RandomState(SEED + 20).randn(2, F) * 0.01).astype(
+        np.float32)
+
+    def fit(ctx):
+        it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(F,),
+                              batch_size=B)
+        h = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=2,
+                                  name="fc")
+        mod = mx.mod.Module(mx.sym.SoftmaxOutput(h, name="softmax"),
+                            context=ctx)
+        before = io_plane.stats()
+        stamps = [time.perf_counter()]
+        mod.fit(it, num_epoch=1, eval_metric="acc", arg_params={
+            "fc_weight": mx.nd.array(w0, ctx=ctx),
+            "fc_bias": mx.nd.zeros((2,), ctx=ctx)}, optimizer="sgd",
+            optimizer_params=dict(SPARSE19_OPT),
+            batch_end_callback=lambda p: stamps.append(
+                time.perf_counter()))
+        if ctx.device_type == "gpu":
+            torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        after = io_plane.stats()
+        moved = {k: after[k] - before[k] for k in ("bytes", "batches")}
+        return mod, np.diff(stamps), moved
+
+    gmod, gsecs, moved = fit(mx.gpu(0))
+    cmod, csecs, _ = fit(mx.cpu())
+    bound = gmod._exec_group.execs[0].arg_dict["data"].data
+    match = []
+    for k in range(cfg["batches"]):
+        rows = rows19(ids, vals, B * k, B * (k + 1), F, dev)
+        if bound.device.type == dev.type and torch.equal(bound, rows):
+            match.append(k)
+        del rows
+    bound_ok = match == [cfg["batches"] - 1]
+    print(f"19a sparse: step and fit times on the card "
+          f"{', '.join(f'{t:.3f}' for t in gsecs)} s, on the CPU "
+          f"{', '.join(f'{t:.3f}' for t in csecs)} s; the bound input "
+          f"equals batch {match} of {cfg['batches']}")
+    gsecs, csecs = float(gsecs.sum()), float(csecs.sum())
+    gargs, _ = gmod.get_params()
+    cargs, _ = cmod.get_params()
+    worst = max(op_ratio(gargs[k].asnumpy(), cargs[k].asnumpy(),
+                         SPARSE19_TOL) for k in ("fc_weight", "fc_bias"))
+    per_batch = moved["bytes"] / max(moved["batches"], 1)
+    print(f"19a sparse: Module.fit of FullyConnected(2) + SoftmaxOutput, "
+          f"{cfg['batches']} steps at batch {B}: card {gsecs:.2f} s "
+          f"(ring: {moved['batches']} batches, {per_batch:.0f} bytes a "
+          f"batch crossed, the CSR parts and labels, against "
+          f"{B * F * 4} dense), CPU {csecs:.2f} s; the bound input after "
+          f"the last step = its rows on the card "
+          f"{'bit for bit' if bound_ok else 'FAIL'}; parameters card vs "
+          f"CPU at {worst:.3f} of the tolerance (rtol {SPARSE19_TOL[0]:g},"
+          f" atol {SPARSE19_TOL[1]:g}*max|ref|) [{card}]")
+    check(bound_ok, "19a: the bound input is not the batch's rows")
+    check(moved["batches"] >= cfg["batches"] and
+          per_batch <= B * cfg["nnz"] * 12 + 8 * (B + 1) + 4 * B,
+          "19a: the ring moved more than the CSR parts")
+    check(worst <= 1, "19a: 4 steps on the card disagree with the CPU")
+
+    # sparse.dot on the card against the dense product
+    w = gargs["fc_weight"].as_in_context(mx.gpu(0))
+    gcsr = csr.as_in_context(mx.gpu(0))
+    got = sparse.dot(gcsr, w, transpose_b=True).data
+    dense = sparse.dense_tensor(csr, dev)
+    ref = dense @ w.data.t()
+    err, ok = within(got, ref, *SPARSE19_TOL)
+    sp_ms = time_ms(lambda: sparse.dot(gcsr, w, transpose_b=True),
+                    torch.empty(1, device=dev), iters=10)
+    dense_ms = time_ms(lambda: dense @ w.data.t(),
+                       torch.empty(1, device=dev), iters=10)
+    del dense, ref
+    print(f"19a sparse: sparse.dot(csr ({B}, {F}), weight^T) on the card "
+          f"max_abs_err {err:.3e} against the dense product "
+          f"{'ok' if ok else 'FAIL'}; {sp_ms:.4f} ms against "
+          f"{dense_ms:.4f} ms dense (event times)")
+    check(ok, "19a: sparse.dot disagrees with the dense product")
+
+    # the touched rows of the weight as row_sparse, through a .params
+    touched = np.unique(ids)
+    rows = w.data.t()[torch.from_numpy(touched).to(dev)].contiguous()
+    rs = sparse.RowSparseNDArray(rows, touched, (F, 2), ctx=mx.gpu(0))
+    ppath = os.path.join(tmp, "touched.params")
+    mx.nd.save(ppath, {"fc_weight_rows": rs})
+    back = mx.nd.load(ppath)["fc_weight_rows"]
+    same = isinstance(back, sparse.RowSparseNDArray) and \
+        back.shape == (F, 2) and \
+        np.array_equal(back._np_indices, touched) and \
+        back._np_data.tobytes() == rows.cpu().numpy().tobytes()
+    print(f"19a sparse: the weight's {len(touched)} touched rows as "
+          f"row_sparse ({os.path.getsize(ppath)} bytes in the .params) "
+          f"loaded back {'bit for bit' if same else 'FAIL'}")
+    check(same, "19a: the row_sparse round trip differs")
+    return {"worst": worst, "bytes_batch": per_batch, "dot_ms": sp_ms,
+            "dense_dot_ms": dense_ms, "card_s": gsecs}
+
+
+def resnet19_params(sym, shape, rng):
+    """He-scaled convolution and dense weights, BatchNorm at gamma 1,
+    beta 0 and seeded running statistics."""
+    shapes, _, aux_shapes = sym.infer_shape(data=shape)
+    args = {}
+    for name, s in zip(sym.list_arguments(), shapes):
+        if name == "data":
+            continue
+        if name.endswith(("_bias", "_beta")):
+            args[name] = np.zeros(s, np.float32)
+        elif name.endswith("_gamma"):
+            args[name] = np.ones(s, np.float32)
+        else:
+            args[name] = (rng.standard_normal(s) * math.sqrt(
+                2.0 / int(np.prod(s[1:])))).astype(np.float32)
+    auxs = {}
+    for name, s in zip(sym.list_auxiliary_states(), aux_shapes):
+        auxs[name] = (rng.uniform(0.5, 2.0, s) if name.endswith("var")
+                      else rng.normal(0, 0.1, s)).astype(np.float32)
+    return args, auxs
+
+
+def eval19(mx, sym, args, auxs, x, device):
+    """One inference forward of `sym` on `device` (the graph interpreter,
+    no partitioning); the first output as a numpy array."""
+    fn, arg_nodes, aux_nodes = mx.sym.graph_eval_fn(sym, False)
+    feed = {k: torch.as_tensor(np.asarray(v.asnumpy() if hasattr(
+        v, "asnumpy") else v)).to(device) for k, v in args.items()}
+    feed["data"] = torch.from_numpy(x).to(device)
+    aux = [torch.as_tensor(np.asarray(auxs[n.name].asnumpy() if hasattr(
+        auxs[n.name], "asnumpy") else auxs[n.name])).to(device)
+        for n in aux_nodes]
+    with torch.inference_mode():
+        outs, _ = fn([feed[n.name] for n in arg_nodes], aux)
+    return [o.cpu().numpy() for o in outs]
+
+
+def serve19(mx, name, sym, args, auxs, tmp, reqs):
+    """Partition `sym` with TPU_PALLAS, save the pair, serve it through
+    ModelServer at BUCKETS on the card, ask `reqs` one at a time; ->
+    (answers, K1 launches, batches, images/s at bucket 32)."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    part = mx.subgraph.partition_graph(sym, "TPU_PALLAS")
+    fused = [n["op"] for n in json.loads(part.tojson())["nodes"]
+             ].count("_sg_pallas_fc_relu")
+    check(fused == 2, f"{name}: TPU_PALLAS fused {fused} FC+ReLU chains")
+    prefix = os.path.join(tmp, name)
+    mx.save_checkpoint(prefix, 0, part, args, auxs)
+    srv = mx.serving.ModelServer(max_queue_latency_ms=2.0, ctx=mx.gpu(0))
+    fc_relu.launches = 0
+    srv.load_model(name, prefix=prefix, epoch=0,
+                   data_shapes=[("data", (1,) + IMAGE)], buckets=BUCKETS)
+    got = [srv.predict(name, {"data": x}, timeout_ms=600_000)[0].asnumpy()
+           for x in reqs]
+    launches = fc_relu.launches
+    batches = srv.stats()[name]["batches"]
+    model = srv.model(name)
+    arrs = [np.zeros((32,) + IMAGE, np.float32)]
+    for _ in range(RATE19["warm"]):
+        model.run_bucket(arrs, 32)
+    model.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RATE19["timed"]):
+        model.run_bucket(arrs, 32)
+    model.synchronize()
+    rate = 32 * RATE19["timed"] / (time.perf_counter() - t0)
+    srv.shutdown(drain=True)
+    expect = 2 * (len(BUCKETS) + batches)
+    check(batches == len(reqs) and launches == expect,
+          f"{name}: {batches} batches for {len(reqs)} requests, K1 "
+          f"{launches} launches, want {expect}")
+    return got, launches, batches, rate
+
+
+def onnx19(mx, card, tmp, sym, params, reqs):
+    """19b: VGG-16 exported, imported, served; ResNet-50 v1 round trip."""
+    from incubator_mxnet_tpu_torch.contrib import onnx
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    path = os.path.join(tmp, "vgg16.onnx")
+    nd_params = {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in params.items()}
+    t0 = time.perf_counter()
+    onnx.export_model(sym, nd_params, in_shapes=[(1,) + IMAGE],
+                      onnx_file_path=path)
+    export_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    isym, iargs, iauxs = onnx.import_model(path)
+    import_s = time.perf_counter() - t0
+    same = sorted(iargs) == sorted(params) and not iauxs and all(
+        iargs[k].asnumpy().tobytes() == v.tobytes()
+        for k, v in params.items())
+    check(same, "19b: the imported parameters differ from the exported")
+    got, launches, batches, rate = serve19(mx, "vgg16_onnx", isym, iargs,
+                                           iauxs, tmp, reqs)
+    dev = torch.device(DEV19)
+    worst = 0.0
+    refs = []
+    for x, g in zip(reqs, got):
+        ref = eval19(mx, sym, params, {}, x, dev)[0]
+        refs.append(ref)
+        check(g.shape == (len(x), CLASSES) and np.isfinite(g).all(),
+              f"19b: answer shape {g.shape} or non-finite values")
+        err, ok = within(torch.from_numpy(g), torch.from_numpy(ref),
+                         *SERVE_TOL)
+        worst = max(worst, err)
+        check(ok, f"19b: the served ONNX VGG-16 disagrees with the "
+                  f"original (max abs err {err:.3e})")
+    print(f"19b onnx: VGG-16 exported in {export_s:.2f} s ({size} bytes, "
+          f"opset 13), imported in {import_s:.2f} s, the parameters bit "
+          f"for bit; served from the checkpoint pair under TPU_PALLAS: "
+          f"{len(reqs)} requests of {sum(len(x) for x in reqs)} images, K1 "
+          f"{launches} launches = 2 x ({len(BUCKETS)} warm-up + {batches} "
+          f"batches); answers vs the original symbol on the card, "
+          f"max_abs_err {worst:.3e} (rtol {SERVE_TOL[0]:g}, atol "
+          f"{SERVE_TOL[1]:g}*max|ref|); bucket 32 {rate:.1f} images/s "
+          f"[{card}]")
+
+    # ResNet-50 v1 (BatchNorm, the residual adds, global pooling)
+    net = mx.gluon.model_zoo.vision.resnet50_v1(classes=CLASSES,
+                                                prefix="rn19_")
+    rsym = unique_names(mx, net(mx.sym.Variable("data")), "rn19_")
+    rng = np.random.RandomState(SEED + 21)
+    shape = (RESNET19_BATCH,) + IMAGE
+    rargs, rauxs = resnet19_params(rsym, shape, rng)
+    rpath = os.path.join(tmp, "resnet50.onnx")
+    t0 = time.perf_counter()
+    onnx.export_model(rsym, {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in
+                             {**rargs, **rauxs}.items()},
+                      in_shapes=[shape], onnx_file_path=rpath)
+    rsym2, rargs2, rauxs2 = onnx.import_model(rpath)
+    rt_s = time.perf_counter() - t0
+    x = rng.rand(*shape).astype(np.float32)
+    ref = eval19(mx, rsym, rargs, rauxs, x, dev)[0]
+    part = mx.subgraph.partition_graph(rsym2, "TPU_PALLAS")
+    fc_relu.launches = 0
+    out = eval19(mx, part, rargs2, rauxs2, x, dev)[0]
+    rn_launches = fc_relu.launches
+    ratio = op_ratio(out, ref, ROUNDTRIP19_TOL)
+    ok = out.shape == ref.shape and np.isfinite(out).all() and \
+        ratio <= 1 and rn_launches == 0 and set(rauxs2) == set(rauxs)
+    print(f"19b onnx: ResNet-50 v1 ({len(rauxs)} BatchNorm statistics) "
+          f"exported and imported in {rt_s:.2f} s "
+          f"({os.path.getsize(rpath)} bytes); forward at batch "
+          f"{RESNET19_BATCH} on the card vs the original at {ratio:.4f} of "
+          f"the tolerance (rtol {ROUNDTRIP19_TOL[0]:g}, atol "
+          f"{ROUNDTRIP19_TOL[1]:g}*max|ref|), K1 {rn_launches} launches "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "19b: the ResNet-50 round trip disagrees with the original")
+    return {"launches": launches, "batches": batches, "worst": worst,
+            "rate": rate, "export_s": export_s, "import_s": import_s,
+            "bytes": size, "refs": refs, "resnet": ratio}
+
+
+def int8_fc_routes(card):
+    """19c: the int8 FC route (float64 GEMM) at fc8's K and N for the
+    served rows against the exact integer product, beside an fp32 GEMM
+    of the same operands and `torch._int_mm` where it takes the shape."""
+    from incubator_mxnet_tpu_torch.ops.quantization import _int_dot
+    dev = torch.device(DEV19)
+    rng = np.random.RandomState(SEED + 22)
+    w = torch.from_numpy(rng.randint(-127, 128, (CLASSES, 4096)).astype(
+        np.int8)).to(dev)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    lines = []
+    for m in INT8_FC_ROWS:
+        x = torch.from_numpy(rng.randint(-127, 128, (m, 4096)).astype(
+            np.int8)).to(dev)
+        exact = x.cpu().long() @ w.cpu().long().t()
+        got = _int_dot(x, w)
+        ok = torch.equal(got.cpu().long(), exact)
+        fp32 = (x.float() @ w.float().t()).cpu().double()
+        fp32_off = int((fp32 != exact.double()).sum())
+        ms = time_ms(lambda: _int_dot(x, w), flush, iters=10)
+        f32_ms = time_ms(lambda: x.float() @ w.float().t(), flush, iters=10)
+        try:
+            im = torch._int_mm(x, w.t())
+            im_ok = torch.equal(im.cpu().long(), exact)
+            im_ms = time_ms(lambda: torch._int_mm(x, w.t()), flush,
+                            iters=10)
+            im_txt = f"_int_mm {im_ms:.4f} ms ({'exact' if im_ok else 'WRONG'})"
+        except RuntimeError as e:
+            im_txt = f"_int_mm refuses ({str(e).splitlines()[0][:60]})"
+        lines.append((m, ok, ms))
+        print(f"19c int8 fc route: M={m} K=4096 N={CLASSES}: float64 GEMM "
+              f"{'exact' if ok else 'FAIL'} {ms:.4f} ms; fp32 GEMM "
+              f"{f32_ms:.4f} ms, {fp32_off} sums off; {im_txt} [{card}]")
+        check(ok, f"19c: the int8 FC route is not exact at M={m}")
+    return lines
+
+
+def int8_19(mx, card, tmp, sym, params, reqs, fp32_refs):
+    """19c: VGG-16 quantized (naive calibration, fc6/fc7 excluded),
+    served; held to the CPU's int8 graph."""
+    from incubator_mxnet_tpu_torch.contrib.quantization import (
+        quantize_model)
+    rng = np.random.RandomState(SEED + 23)
+    calib = mx.io.NDArrayIter(rng.rand(CALIB19["images"], *IMAGE).astype(
+        np.float32), batch_size=CALIB19["batch"])
+    gparams = {k: mx.nd.array(v, ctx=mx.gpu(0)) for k, v in params.items()}
+    excluded = ["vgg0_dense0_fwd", "vgg0_dense1_fwd"]
+    t0 = time.perf_counter()
+    qsym, qargs, qauxs = quantize_model(
+        sym, gparams, {}, ctx=mx.gpu(0), excluded_sym_names=excluded,
+        calib_mode="naive", calib_data=calib,
+        num_calib_examples=CALIB19["images"])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    ops = [n["op"] for n in json.loads(qsym.tojson())["nodes"]]
+    counts = {op: ops.count(op) for op in (
+        "_contrib_quantized_conv", "_contrib_quantized_pooling",
+        "_contrib_quantized_fully_connected", "FullyConnected",
+        "Convolution", "Pooling")}
+    check(counts == {"_contrib_quantized_conv": 13,
+                     "_contrib_quantized_pooling": 5,
+                     "_contrib_quantized_fully_connected": 1,
+                     "FullyConnected": 2, "Convolution": 0, "Pooling": 0},
+          f"19c: the quantized graph holds {counts}")
+    check(all(qargs[f"vgg0_conv2d{i}_weight"].asnumpy().dtype == np.int8
+              for i in range(13)) and
+          qargs["vgg0_dense2_weight"].asnumpy().dtype == np.int8 and
+          qargs["vgg0_dense0_weight"].asnumpy().dtype == np.float32,
+          "19c: the weights are not int8 where quantized")
+    print(f"19c int8: quantize_model(calib_mode='naive') over "
+          f"{CALIB19['images']} images at batch {CALIB19['batch']} on the "
+          f"card in {calib_s:.2f} s: 13 convolutions, 5 poolings and fc8 "
+          f"int8, fc6/fc7 excluded (FullyConnected -> ReLU) [{card}]")
+    host = {k: v.as_in_context(mx.cpu()) for k, v in qargs.items()}
+    got, launches, batches, rate = serve19(mx, "vgg16_int8", qsym, host,
+                                           {}, tmp, reqs)
+    # the CPU's int8 graph on the same images; the input of fc8's
+    # quantize_v2, to find the values that sit at a .5 of its step
+    js = json.loads(qsym.tojson())
+    names = [n["name"] for n in js["nodes"]]
+    fc8 = next(n for n in js["nodes"]
+               if n["op"] == "_contrib_quantized_fully_connected")
+    qv2 = js["nodes"][fc8["inputs"][0][0]]
+    src = names[qv2["inputs"][0][0]]
+    scale = max(abs(float(qv2["attrs"]["min_calib_range"])),
+                abs(float(qv2["attrs"]["max_calib_range"])))
+    probe = mx.sym.Group([qsym.get_internals()[f"{src}_output"], qsym])
+    wq = host["vgg0_dense2_weight"].asnumpy().astype(np.float64)
+    wmax = float(host["vgg0_dense2_weight_max"].asnumpy()[0])
+    step = (np.float32(scale) / np.float32(127.0)) * \
+        (np.float32(wmax) / np.float32(127.0))
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    ties = flipped_rows = 0
+    worst = 0.0
+    cpu_out = []
+    for x, g in zip(reqs, got):
+        pre, out = eval19(mx, probe, host, {}, x, cpu)
+        cpu_out.append(out)
+        v = (torch.from_numpy(pre) / torch.tensor(scale, dtype=torch.float32)
+             * 127.0).numpy().reshape(len(x), -1)
+        near = np.abs(v - np.floor(v) - 0.5) < INT8_TIE
+        ties += int(near.sum())
+        excuse = (near.astype(np.float64) @ np.abs(wq).T) * float(step)
+        diff = np.abs(g.astype(np.float64) - out)
+        slack = 1e-6 * np.abs(out).max()
+        flipped_rows += int((diff > slack).any(axis=1).sum())
+        worst = max(worst, float((diff / (excuse * (1 + 1e-6) + slack)).max()))
+    cpu_s = time.perf_counter() - t0
+    ok = worst <= 1 and all(g.shape == (len(x), CLASSES) and
+                            np.isfinite(g).all() for g, x in zip(got, reqs))
+    print(f"19c int8: served from the checkpoint pair under TPU_PALLAS: "
+          f"{len(reqs)} requests, K1 {launches} launches = 2 x "
+          f"({len(BUCKETS)} warm-up + {batches} batches) at fc6 (M, 25088 "
+          f"-> 4096) and fc7; card vs the CPU's int8 graph ({cpu_s:.1f} s "
+          f"on the CPU): {ties} of fc8's inputs within {INT8_TIE:g} of a .5 "
+          f"step (may round either way: K1 and the CPU sum fc7 in other "
+          f"orders), {flipped_rows} rows differ, worst {worst:.3f} of what "
+          f"flipping them all could move (+ 1e-6*max|ref|) "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "19c: the card's int8 graph disagrees with the CPU's "
+              "beyond its .5 ties")
+    # where the two devices part inside the graph: every int8 activation
+    # and int32 accumulator of one request, free running
+    layer_ops = ("_contrib_quantize_v2", "_contrib_quantized_conv",
+                 "_contrib_quantized_pooling",
+                 "_contrib_quantized_fully_connected")
+    picks = [f"{n['name']}_output0" for n in js["nodes"]
+             if n["op"] in layer_ops]
+    group = mx.sym.Group([qsym.get_internals()[k] for k in picks])
+    x = reqs[1]
+    on_card = eval19(mx, group, host, {}, x, torch.device(DEV19))
+    on_cpu = eval19(mx, group, host, {}, x, cpu)
+    parted = [(k, int((a != b).sum()), a.size)
+              for k, a, b in zip(picks, on_card, on_cpu)]
+    first = next((k for k, d, _ in parted if d), None)
+    print(f"19c int8: {len(picks)} int8/int32 tensors of a {len(x)}-image "
+          f"request, card vs CPU free running: "
+          f"{sum(d for _, d, _ in parted)} of "
+          f"{sum(n for _, _, n in parted)} elements differ; the first "
+          f"tensor that differs: {first} (fc8's quantize is "
+          f"{qv2['name']})")
+    allg = np.concatenate(got)
+    allf = np.concatenate(fp32_refs)
+    rel = float(np.linalg.norm(allg - allf) / np.linalg.norm(allf))
+    top1 = float(np.mean(allg.argmax(1) == allf.argmax(1)))
+    print(f"19c int8: against the fp32 VGG-16 on the card: logits relative "
+          f"L2 {rel:.4f}, top-1 agreement {top1:.4f} over "
+          f"{len(allg)} images; bucket 32 {rate:.1f} images/s [{card}]")
+    return {"launches": launches, "batches": batches, "worst": worst,
+            "ties": ties, "rate": rate, "calib_s": calib_s, "rel": rel,
+            "top1": top1}
+
+
+def slice17_phase(card, workdir):
+    """Phase 19; returns K1's launches on its two serving paths and the
+    numbers of the summary line.  K2 and K3 must not run."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_stream)
+    vgg_k1_held("phase 19")
+    for wrapper in (flash_fwd, flash_fwd_stream):
+        wrapper.launches = 0
+    out, times = {}, {}
+    tmp = tempfile.mkdtemp(dir=workdir)
+    try:
+        t0 = time.perf_counter()
+        out["19a"] = sparse19(mx, card, tmp)
+        times["19a"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        sym = unique_names(mx, mx.model_zoo.vgg_symbol(16, classes=CLASSES),
+                           "vgg0_")
+        params = vgg_params(sym, np.random.RandomState(SEED + 19))
+        rng = np.random.RandomState(SEED + 24)
+        reqs = [rng.rand(r, *IMAGE).astype(np.float32) for r in
+                SERVE19_SIZES]
+        out["19b"] = onnx19(mx, card, tmp, sym, params, reqs)
+        times["19b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["routes"] = int8_fc_routes(card)
+        out["19c"] = int8_19(mx, card, tmp, sym, params, reqs,
+                             out["19b"].pop("refs"))
+        times["19c"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for key, secs in times.items():
+        print(f"phase {key}: {secs:.1f} s")
+    check([flash_fwd.launches, flash_fwd_stream.launches] == [0, 0],
+          "phase 19: K2/K3 ran")
+    out["times"] = times
+    out["k1"] = {"onnx_serving": out["19b"]["launches"],
+                 "int8_serving": out["19c"]["launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -10266,6 +10858,9 @@ def main():
         "resident": zoo["17b"]["images_s"],
         "lm_tokens_s": lmt["lane"]["tokens_s"]})
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    s17 = slice17_phase(card, str(_build.BUILD_DIR.parent))
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -10455,6 +11050,20 @@ def main():
           f"{loaders['k1']}; " + ", ".join(
               f"{k} {v:.1f} s" for k, v in loaders["times"].items())
           + f" [{card}]")
+    sa, sb, sc = s17["19a"], s17["19b"], s17["19c"]
+    print(f"slice 17 summary: 19a LibSVM at {SPARSE19['features']} "
+          f"features through Module.fit, {sa['bytes_batch']:.0f} bytes a "
+          f"batch crossed, card vs CPU {sa['worst']:.3f} of the tolerance, "
+          f"sparse.dot {sa['dot_ms']:.4f} ms (dense {sa['dense_dot_ms']:.4f})"
+          f"; 19b ONNX VGG-16 export {sb['export_s']:.2f} s, import "
+          f"{sb['import_s']:.2f} s, {sb['bytes']} bytes, served worst "
+          f"{sb['worst']:.3e}, ResNet-50 round trip {sb['resnet']:.4f}; "
+          f"19c int8 calibration {sc['calib_s']:.2f} s, {sc['ties']} ties, "
+          f"worst {sc['worst']:.3f}, vs fp32 L2 {sc['rel']:.4f} top-1 "
+          f"{sc['top1']:.4f}; bucket 32 fp32 {sb['rate']:.1f} / int8 "
+          f"{sc['rate']:.1f} images/s; K1 launches {s17['k1']}; "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in s17["times"].items())
+          + f" [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"
@@ -10476,13 +11085,14 @@ def main():
         "replaces": "incubator_mxnet_tpu/subgraph/fused_ops.py:29",
         "launches": launches + train_launches + kvp["dp_launches"]
         + kvp["wd_launches"] + seq["k1_launches"] + sum(api["k1"].values())
-        + sum(zoo["k1"].values()) + sum(loaders["k1"].values()),
+        + sum(zoo["k1"].values()) + sum(loaders["k1"].values())
+        + sum(s17["k1"].values()),
         "paths": {"serving": launches, "training": train_launches,
                   "data_parallel": kvp["dp_launches"],
                   "wide_deep": kvp["wd_launches"],
                   "sequential_module": seq["k1_launches"],
                   "dist_sync_workers": dist["launches"], **api["k1"],
-                  **zoo["k1"], **loaders["k1"]},
+                  **zoo["k1"], **loaders["k1"], **s17["k1"]},
         "max_abs_err": rep["max_abs_err"],
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

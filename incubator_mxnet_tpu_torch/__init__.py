@@ -67,7 +67,10 @@ Slice 15 adds gluon's remaining layers and the model zoo.  Slice 16 adds
 gluon's data plane (`DataLoader`'s worker threads, `RecordFileDataset`,
 `gluon.data.vision`, `nd.image`, `io_plane.DevicePrefetchLoader`) and
 `contrib`: `DataLoaderIter`, `SVRGModule`, the legacy autograd names,
-`text` and `tensorboard`.
+`text` and `tensorboard`.  Slice 17 adds sparse storage (`nd.sparse`:
+CSR and row_sparse `NDArray`s, sparse `dot`, both in `.params`, LibSVM
+batches through `Module`), the quantization ops with
+`contrib.quantization.quantize_model`, and `contrib.onnx`.
 
     import incubator_mxnet_tpu_torch as mx
 """

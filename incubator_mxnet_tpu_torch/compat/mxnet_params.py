@@ -1,8 +1,10 @@
 """Reference `.params` binary container — reader and writer.
 
 PyTorch-port copy of `incubator_mxnet_tpu/compat/mxnet_params.py`: the
-same bytes in both directions.  Dense arrays only: a sparse array in a
-file raises until the port carries sparse arrays.
+same bytes in both directions, for dense arrays of every reference type
+flag (int8, flag 5, is what quantized parameters hold) and for the two
+sparse storage types, `row_sparse` (its rows and row ids) and `csr`
+(its values, indptr and column indices).  Arrays read land on the CPU.
 
 Byte layout (from `src/ndarray/ndarray.cc`):
 
@@ -42,7 +44,8 @@ _TYPE_TO_NP = {0: "<f4", 1: "<f8", 2: "<f2", 3: "|u1", 4: "<i4", 5: "|i1",
                6: "<i8"}
 _NP_TO_TYPE = {np.dtype(v): k for k, v in _TYPE_TO_NP.items()}
 
-_STYPE_DENSE = 0
+_STYPE_DENSE, _STYPE_ROW_SPARSE, _STYPE_CSR = 0, 1, 2
+_NUM_AUX = {_STYPE_DENSE: 0, _STYPE_ROW_SPARSE: 1, _STYPE_CSR: 2}
 
 
 class _Reader:
@@ -76,9 +79,10 @@ def _read_ndarray(r: _Reader):
     if magic != V2_MAGIC:
         return _read_legacy(r, magic)
     stype = r.i32()
-    if stype != _STYPE_DENSE:
-        raise MXNetError(f"storage type {stype} in .params file: the port "
-                         "reads dense arrays only")
+    nad = _NUM_AUX.get(stype)
+    if nad is None:
+        raise MXNetError(f"Unknown storage type {stype} in .params file")
+    sshape = r.shape() if nad > 0 else None
     shape = r.shape()
     if len(shape) == 0:
         return None
@@ -87,9 +91,22 @@ def _read_ndarray(r: _Reader):
     dt = _TYPE_TO_NP.get(type_flag)
     if dt is None:
         raise MXNetError(f"Unsupported dtype flag {type_flag}")
-    n = int(np.prod(shape))
-    return np.frombuffer(r.read(n * np.dtype(dt).itemsize),
-                         dtype=dt).reshape(shape)
+    aux = []
+    for _ in range(nad):
+        at = r.i32()
+        aux.append((_TYPE_TO_NP[at], r.shape()))
+    data_shape = sshape if nad else shape
+    n = int(np.prod(data_shape)) if data_shape else 1
+    data = np.frombuffer(r.read(n * np.dtype(dt).itemsize),
+                         dtype=dt).reshape(data_shape)
+    aux_arrays = []
+    for at, ashape in aux:
+        an = int(np.prod(ashape)) if ashape else 1
+        aux_arrays.append(np.frombuffer(
+            r.read(an * np.dtype(at).itemsize), dtype=at).reshape(ashape))
+    if stype == _STYPE_DENSE:
+        return data
+    return _to_sparse(stype, shape, data, aux_arrays)
 
 
 def _read_legacy(r: _Reader, magic):
@@ -108,6 +125,19 @@ def _read_legacy(r: _Reader, magic):
     n = int(np.prod(shape))
     return np.frombuffer(r.read(n * np.dtype(dt).itemsize),
                          dtype=dt).reshape(shape)
+
+
+def _to_sparse(stype, shape, data, aux_arrays):
+    from ..context import cpu
+    from ..ndarray import sparse as sp
+    data = np.array(data)                 # a writable copy of the buffer
+    if stype == _STYPE_ROW_SPARSE:
+        return sp.RowSparseNDArray(data, aux_arrays[0].astype("int64"),
+                                   shape, ctx=cpu())
+    # csr aux order in the container: indptr then indices (`ndarray.cc`
+    # kIndPtr=0, kIdx=1 for CSR)
+    return sp.CSRNDArray(data, aux_arrays[1].astype("int64"),
+                         aux_arrays[0].astype("int64"), shape, ctx=cpu())
 
 
 def load_params(fname_or_bytes):
@@ -130,10 +160,10 @@ def load_params(fname_or_bytes):
         raise MXNetError("Invalid NDArray file format (name/array mismatch)")
 
     from ..context import cpu
-    from ..ndarray.ndarray import array
+    from ..ndarray.ndarray import NDArray, array
     # a file's arrays land in host memory; callers move them
-    wrapped = [None if a is None else array(a, ctx=cpu(), dtype=a.dtype)
-               for a in arrays]
+    wrapped = [a if a is None or isinstance(a, NDArray) else
+               array(a, ctx=cpu(), dtype=a.dtype) for a in arrays]
     if not names:
         return wrapped
     return dict(zip(names, wrapped))
@@ -145,19 +175,36 @@ def _shape_bytes(shape):
 
 
 def _write_ndarray(out, arr):
+    from ..ndarray import sparse as sp
     from ..ndarray.ndarray import NDArray
-    data = arr.asnumpy() if isinstance(arr, NDArray) else np.asarray(arr)
+    if isinstance(arr, sp.RowSparseNDArray):
+        data, aux = arr._np_data, [arr._np_indices.astype("<i8")]
+        stype, shape = _STYPE_ROW_SPARSE, arr.shape
+    elif isinstance(arr, sp.CSRNDArray):
+        data = arr._np_data
+        aux = [arr._np_indptr.astype("<i8"), arr._np_indices.astype("<i8")]
+        stype, shape = _STYPE_CSR, arr.shape
+    else:
+        data = arr.asnumpy() if isinstance(arr, NDArray) else np.asarray(arr)
+        aux, stype, shape = [], _STYPE_DENSE, data.shape
     dt = np.dtype(data.dtype)
     if dt not in _NP_TO_TYPE:
         # bf16 & friends have no reference type flag: save as f4
         data = data.astype("<f4")
         dt = np.dtype("<f4")
     out.append(struct.pack("<I", V2_MAGIC))
-    out.append(struct.pack("<i", _STYPE_DENSE))
-    out.append(_shape_bytes(data.shape))
+    out.append(struct.pack("<i", stype))
+    if stype != _STYPE_DENSE:
+        out.append(_shape_bytes(data.shape))
+    out.append(_shape_bytes(shape))
     out.append(struct.pack("<ii", 1, 0))  # Context: cpu(0)
     out.append(struct.pack("<i", _NP_TO_TYPE[dt]))
+    for a in aux:
+        out.append(struct.pack("<i", _NP_TO_TYPE[np.dtype(a.dtype)]))
+        out.append(_shape_bytes(a.shape))
     out.append(np.ascontiguousarray(data).tobytes())
+    for a in aux:
+        out.append(np.ascontiguousarray(a).tobytes())
 
 
 def save_params(fname, data, names=None):

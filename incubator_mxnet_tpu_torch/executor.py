@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from .base import MXNetError, torch_dtype
+from .ndarray import sparse as _sparse
 from .ndarray.ndarray import NDArray
 from .symbol.symbol import check_unique_names, graph_eval_fn
 
@@ -88,7 +89,11 @@ class Executor:
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError(f"Unknown argument {k}")
-            tgt, t = self.arg_dict[k], _tensor(v)
+            tgt = self.arg_dict[k]
+            # a sparse input (a LibSVM batch) crosses as its parts and is
+            # densified on the device
+            t = _sparse.dense_tensor(v, self._device, tgt.data.dtype) \
+                if isinstance(v, _sparse.BaseSparseNDArray) else _tensor(v)
             if tuple(t.shape) == tgt.shape:
                 tgt._set_data(t)
             else:   # another batch size: the argument takes the new shape

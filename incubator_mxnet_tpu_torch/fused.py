@@ -16,6 +16,7 @@ import numpy as _np
 import torch
 
 from .base import MXNetError
+from .ndarray import sparse as _sparse
 from .ndarray.ndarray import NDArray
 from .symbol.symbol import graph_eval_fn
 
@@ -23,7 +24,10 @@ __all__ = ["FusedInference", "FusedTrainStep"]
 
 
 def _as_tensor(v, device):
-    """NDArray / tensor / numpy -> tensor on `device`."""
+    """NDArray / tensor / numpy -> tensor on `device` (a sparse array
+    densified there)."""
+    if isinstance(v, _sparse.BaseSparseNDArray):
+        return _sparse.dense_tensor(v, device)
     if isinstance(v, NDArray):
         v = v.data
     if not isinstance(v, torch.Tensor):

@@ -50,6 +50,7 @@ import torch
 from .base import torch_dtype
 from .io import DataBatch, DataIter
 from .ndarray.ndarray import NDArray
+from .ndarray.sparse import BaseSparseNDArray
 
 __all__ = ["H2DRing", "RingPlacement", "DevicePrefetchIter",
            "DevicePrefetchLoader", "auto_shard", "stats"]
@@ -192,9 +193,25 @@ class H2DRing:
         """Stage and copy one batch; returns (device tensors, event or
         None, bytes copied, staging copies, resident inputs)."""
         device = self._placement.device
-        outs, raws, host = [None] * len(arrays), [], []
+        outs, raws, host, sparse = [None] * len(arrays), [], [], []
         nbytes = copies = resident = 0
         for j, a in enumerate(arrays):
+            if isinstance(a, BaseSparseNDArray):
+                # its parts cross (nnz-sized), and it is densified on the
+                # device, in the copy stream
+                parts = {}
+                for key, t in a._parts.items():
+                    if t.device.type == "cpu" and self._staging and \
+                            self._cuda:
+                        buf, raw = self._pool.acquire(t.shape, t.dtype)
+                        buf.copy_(t)
+                        raws.append(raw)
+                        copies += 1
+                        t = buf
+                    parts[key] = t
+                    nbytes += t.nbytes
+                sparse.append((j, a._with_parts(parts, a.context)))
+                continue
             t = _as_tensor(a)
             tgt = self._placement.target_dtype(j, t)
             if t.device == device and t.dtype == tgt:
@@ -216,11 +233,15 @@ class H2DRing:
             nbytes += buf.nbytes
         event = None
         try:
-            if self._cuda and host:
+            if self._cuda and (host or sparse):
                 stream = self._copy_stream()
                 with torch.cuda.device(device), torch.cuda.stream(stream):
                     for j, buf in host:
                         outs[j] = buf.to(device, non_blocking=True)
+                    for j, sp in sparse:
+                        outs[j] = sp._dense_on(
+                            device, self._placement.target_dtype(
+                                j, sp._parts["data"]), non_blocking=True)
                     event = torch.cuda.Event()
                     event.record(stream)
                 # a pinned buffer is refilled only after its copy is done
@@ -228,6 +249,9 @@ class H2DRing:
             else:
                 for j, buf in host:
                     outs[j] = buf.clone() if self._staging else buf
+                for j, sp in sparse:
+                    outs[j] = sp._dense_on(device, self._placement
+                                           .target_dtype(j, sp._parts["data"]))
         finally:
             for raw in raws:
                 self._pool.release(raw)

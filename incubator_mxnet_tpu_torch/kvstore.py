@@ -155,8 +155,7 @@ class KVStore:
                 rows = rids.asnumpy().astype("int64")
                 vals = src[rows]
                 if isinstance(tgt, RowSparseNDArray):
-                    tgt._np_data = vals
-                    tgt._np_indices = rows
+                    tgt._set_rows(vals, rows)
                 else:
                     full = _np.zeros(src.shape, vals.dtype)
                     full[rows] = vals

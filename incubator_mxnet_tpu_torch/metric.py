@@ -34,6 +34,7 @@ import numpy
 import torch
 
 from .base import MXNetError
+from .ndarray import sparse as _sparse
 from .ndarray.ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
@@ -78,7 +79,11 @@ def create(metric, *args, **kwargs):
 
 def _as_tensor(x, device=None):
     """An NDArray's tensor, a tensor, or a numpy array as a tensor, on
-    `device` when given, outside the autograd graph."""
+    `device` when given, outside the autograd graph (a sparse array
+    densified there)."""
+    if isinstance(x, _sparse.BaseSparseNDArray):
+        return _sparse.dense_tensor(
+            x, device if device is not None else x.context.torch_device)
     if isinstance(x, NDArray):
         x = x.data.detach()
     elif not isinstance(x, torch.Tensor):

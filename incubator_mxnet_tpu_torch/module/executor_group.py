@@ -19,6 +19,7 @@ import torch
 
 from ..io import DataDesc
 from ..ndarray.ndarray import NDArray
+from ..ndarray.sparse import CSRNDArray
 
 
 def _dtype_name(dtype):
@@ -49,6 +50,8 @@ def _rows(arr, shard):
     size than the bound one runs at its own size)."""
     if shard is None or (shard.start, shard.stop) == (0, arr.shape[0]):
         return arr
+    if isinstance(arr, CSRNDArray):
+        return arr._slice_rows(shard.start, shard.stop)
     if isinstance(arr, NDArray):
         return NDArray(arr.data[shard], ctx=arr.context)
     return arr[shard]

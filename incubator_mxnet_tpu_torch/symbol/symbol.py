@@ -723,10 +723,11 @@ def _solve_param_shapes(node, env, meta):
     d = tuple(env[id(src0)][oi0].shape)
     p = node.attrs
 
-    def setvar(i, shape):
+    def setvar(i, shape, dtype=None):
         src, _ = node.inputs[i]
         if src.is_variable and env[id(src)] is None:
-            env[id(src)] = (meta(shape),)
+            env[id(src)] = (meta(shape) if dtype is None else
+                            torch.empty(shape, dtype=dtype, device="meta"),)
 
     if node.op.name in ("FullyConnected", "_sg_pallas_fc_relu"):
         num_hidden = int(p["num_hidden"])
@@ -744,6 +745,25 @@ def _solve_param_shapes(node, env, meta):
         setvar(1, (nf, d[1] // g) + tuple(p["kernel"]))
         if not p.get("no_bias"):
             setvar(2, (nf,))
+    elif node.op.name in ("_contrib_quantized_conv",
+                          "_contrib_quantized_fully_connected"):
+        if node.op.name == "_contrib_quantized_conv":
+            nf = int(p["num_filter"])
+            shape = (nf, d[1] // int(p.get("num_group", 1))) + \
+                tuple(p["kernel"])
+        else:
+            nf = int(p["num_hidden"])
+            in_units = 1
+            for s in d[1:]:
+                in_units *= s
+            shape = (nf, in_units if p.get("flatten", True) else d[-1])
+        setvar(1, shape, torch.int8)
+        first_minmax = 2
+        if not p.get("no_bias"):
+            setvar(2, (nf,), torch.int8)
+            first_minmax = 3
+        for i in range(first_minmax, len(node.inputs)):
+            setvar(i, (1,))
     elif node.op.name == "Deconvolution":
         nf = int(p["num_filter"])
         g = int(p.get("num_group", 1))

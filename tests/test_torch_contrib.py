@@ -4,7 +4,8 @@
 `SVRGModule` (the JAX package's three tests ported, the JAX class's
 swap-back fault, and a fit held to the JAX class with that fault
 repaired), `autograd`'s legacy names, `text` and the JSONL sink of
-`tensorboard`; `quantization` and `onnx` raise naming ROADMAP item 14.
+`tensorboard`; `quantization` and `onnx` are there (their own tests:
+`test_torch_quantization.py`, `test_torch_onnx.py`).
 
 Tolerances: the same batches through the same module in one package,
 bit for bit; one forward or step in the two packages, rtol 1e-5 + 1e-6 *
@@ -462,7 +463,13 @@ def test_tensorboard_jsonl_sink_matches_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", ["quantization", "onnx"])
 def test_unported_contrib_modules_name_their_item(name):
-    with pytest.raises(tmx.MXNetError, match="item 14"):
-        getattr(tmx.contrib, name)
+    """`quantization` and `onnx`, which raised naming ROADMAP item 14
+    until they were ported, are modules of `mx.contrib` with the JAX
+    package's entry points; an unknown name raises AttributeError."""
+    mod = getattr(tmx.contrib, name)
+    jmod = importlib.import_module(f"incubator_mxnet_tpu.contrib.{name}")
+    for entry in {"quantization": ["quantize_model"],
+                  "onnx": ["export_model", "import_model"]}[name]:
+        assert callable(getattr(mod, entry)) and hasattr(jmod, entry)
     with pytest.raises(AttributeError):
         tmx.contrib.no_such_module  # noqa: B018

@@ -25,7 +25,8 @@ through `model.FeedForward` (K1), the C predict ABI's shim and
 `c_predict` with dev_type 2, `test_utils.check_consistency` over
 [cpu(0), gpu(0)] and a `Module(state_names=)` step; K1 at AlexNet's fc6
 (9216 -> 4096) and AlexNet's first Module.fit steps on the card against
-the CPU.
+the CPU; the quantized FC's float64 route exact at fc8's K, and a LibSVM
+CSR batch densified on the card.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -1769,3 +1770,67 @@ def test_alexnet_steps_on_the_card_match_the_cpu(monkeypatch):
     finally:
         _tf32_restore(old)
     assert out["worst"] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 17, 32])
+def test_int8_fc_route_exact_on_card(m):
+    """The quantized FC's route (a float64 GEMM) at fc8's K = 4096 gives
+    the exact integer sums on the card, as on the CPU, at every served
+    M; the whole op's outputs equal the CPU's."""
+    _need_card()
+    from incubator_mxnet_tpu_torch.ops import registry
+    from incubator_mxnet_tpu_torch.ops.quantization import _int_dot
+    rng = np.random.RandomState(m)
+    x = rng.randint(-127, 128, (m, 4096)).astype(np.int8)
+    w = rng.randint(-127, 128, (1000, 4096)).astype(np.int8)
+    x[0] = 127
+    w[0] = 127                          # a sum of 4096 * 127^2 > 2^24
+    exact = x.astype(np.int64) @ w.astype(np.int64).T
+    got = _int_dot(torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda())
+    np.testing.assert_array_equal(got.cpu().numpy(), exact)
+    op = registry.get("_contrib_quantized_fully_connected")
+    params = op.canonicalize_params({"num_hidden": 1000, "no_bias": True})
+    r = np.array([1.5], np.float32)
+    ins = [x, w, -r, r, -r * 0.5, r * 0.5]
+    card = op.fn(params, *[torch.from_numpy(a).cuda() for a in ins])
+    host = op.fn(params, *[torch.from_numpy(a) for a in ins])
+    for c, h in zip(card, host):
+        np.testing.assert_array_equal(c.cpu().numpy(), h.numpy())
+
+
+@pytest.mark.cuda
+def test_csr_batch_densified_on_card(tmp_path):
+    """A LibSVM CSR batch crosses to the card as its parts and is
+    densified there, by `dense_tensor` and by the h2d ring, equal to its
+    rows bit for bit."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import io_plane
+    from incubator_mxnet_tpu_torch.ndarray import sparse
+    rng = np.random.RandomState(0)
+    dense = np.zeros((32, 5000), np.float32)
+    lines = []
+    for i in range(32):
+        cols = np.sort(rng.choice(5000, 7, replace=False))
+        vals = rng.rand(7).astype(np.float32)
+        dense[i, cols] = vals
+        lines.append("1 " + " ".join(f"{c}:{v!r}"
+                                     for c, v in zip(cols, vals.tolist())))
+    path = tmp_path / "rows.libsvm"
+    path.write_text("\n".join(lines) + "\n")
+    it = mx.io.LibSVMIter(data_libsvm=str(path), data_shape=(5000,),
+                          batch_size=16)
+    batches = list(it)
+    for i, b in enumerate(batches):
+        got = sparse.dense_tensor(b.data[0], torch.device("cuda", 0))
+        assert got.is_cuda
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      dense[16 * i:16 * (i + 1)])
+    it.reset()
+    ring = io_plane.DevicePrefetchIter(
+        it, placement=io_plane.RingPlacement(ctx=mx.gpu(0)))
+    for i, b in enumerate(ring):
+        assert b.data[0].data.is_cuda
+        np.testing.assert_array_equal(b.data[0].asnumpy(),
+                                      dense[16 * i:16 * (i + 1)])

@@ -89,10 +89,77 @@ def test_checkpoint_pair_crosses_packages(tmp_path):
 
 
 def test_sparse_array_in_file_raises(tmp_path):
+    """Sparse arrays in a file no longer raise: a row_sparse and a csr
+    array written by the JAX package load in the port as the same
+    storage types, and the port writes the same bytes."""
     from incubator_mxnet_tpu.ndarray import sparse
+    from incubator_mxnet_tpu_torch.ndarray import sparse as tsparse
+    rows = np.ones((2, 3), np.float32)
     path = tmp_path / "sparse.params"
-    rs = sparse.RowSparseNDArray(data=np.ones((2, 3), np.float32),
-                                 indices=np.array([0, 4]), shape=(6, 3))
+    rs = sparse.RowSparseNDArray(data=rows, indices=np.array([0, 4]),
+                                 shape=(6, 3))
     jmx.nd.save(str(path), {"w": rs})
-    with pytest.raises(tmx.MXNetError, match="dense arrays only"):
-        tmx.nd.load(str(path))
+    got = tmx.nd.load(str(path))["w"]
+    assert isinstance(got, tsparse.RowSparseNDArray)
+    np.testing.assert_array_equal(got.asnumpy(), rs.asnumpy())
+    tmx.nd.save(str(tmp_path / "port.params"), {"w": got})
+    assert (tmp_path / "port.params").read_bytes() == path.read_bytes()
+
+
+def _sparse_pair(kind, mx, sparse, rng_seed=1):
+    rng = np.random.RandomState(rng_seed)
+    dense = ((rng.rand(5, 8) < 0.3) * rng.randn(5, 8)).astype(np.float32)
+    ctx = {"ctx": tmx.cpu()} if mx is tmx else {}
+    if kind == "csr":
+        return sparse.csr_matrix(dense, **ctx), dense
+    rows = rng.randn(3, 8).astype(np.float32)
+    dense = np.zeros((7, 8), np.float32)
+    dense[[1, 4, 6]] = rows
+    return sparse.RowSparseNDArray(rows, np.array([1, 4, 6]), (7, 8),
+                                   **ctx), dense
+
+
+@pytest.mark.parametrize("kind", ["csr", "row_sparse"])
+def test_sparse_bytes_equal_jax_bytes(tmp_path, kind):
+    """A sparse array beside dense ones (int8 among them): the port's
+    file is the JAX writer's byte for byte, and each package loads the
+    other's file to the same storage type and values."""
+    from incubator_mxnet_tpu.ndarray import sparse as jsparse
+    from incubator_mxnet_tpu_torch.ndarray import sparse as tsparse
+    q = np.random.RandomState(2).randint(-127, 128, (4, 5)).astype(np.int8)
+    jarr, dense = _sparse_pair(kind, jmx, jsparse)
+    tarr, _ = _sparse_pair(kind, tmx, tsparse)
+    jmx.nd.save(str(tmp_path / "j.params"),
+                {"s": jarr, "q": jmx.nd.array(q, dtype="int8")})
+    tmx.nd.save(str(tmp_path / "t.params"),
+                {"s": tarr, "q": tmx.nd.array(q, ctx=tmx.cpu(),
+                                              dtype="int8")})
+    assert (tmp_path / "t.params").read_bytes() == \
+        (tmp_path / "j.params").read_bytes()
+    mine = tmx.nd.load(str(tmp_path / "j.params"))
+    theirs = jmx.nd.load(str(tmp_path / "t.params"))
+    assert type(mine["s"]).__name__ == type(theirs["s"]).__name__ == \
+        type(tarr).__name__
+    for got in (mine, theirs):
+        np.testing.assert_array_equal(got["s"].asnumpy(), dense)
+        assert got["q"].asnumpy().dtype == np.int8
+        np.testing.assert_array_equal(got["q"].asnumpy(), q)
+
+
+def test_sparse_values_in_a_checkpoint_pair(tmp_path):
+    """`save_checkpoint`/`load_checkpoint` carry a row_sparse and a csr
+    value with the dense ones."""
+    from incubator_mxnet_tpu_torch.ndarray import sparse as tsparse
+    rs, rs_dense = _sparse_pair("row_sparse", tmx, tsparse)
+    c, c_dense = _sparse_pair("csr", tmx, tsparse)
+    sym = tmx.sym.FullyConnected(tmx.sym.Variable("data"), num_hidden=2,
+                                 name="fc")
+    w = tmx.nd.array(np.ones((2, 8), np.float32), ctx=tmx.cpu())
+    tmx.model.save_checkpoint(str(tmp_path / "m"), 1, sym,
+                              {"fc_weight": w, "rows": rs}, {"c": c})
+    _, args, auxs = tmx.model.load_checkpoint(str(tmp_path / "m"), 1)
+    assert isinstance(args["rows"], tsparse.RowSparseNDArray)
+    assert isinstance(auxs["c"], tsparse.CSRNDArray)
+    np.testing.assert_array_equal(args["rows"].asnumpy(), rs_dense)
+    np.testing.assert_array_equal(auxs["c"].asnumpy(), c_dense)
+    np.testing.assert_array_equal(args["fc_weight"].asnumpy(), 1.0)
