@@ -385,6 +385,41 @@ exits non-zero:
    sum fc6 and fc7 in other orders); the int8 tensors of one request
    card vs CPU counted; int8 vs fp32 logits and top-1, calibration
    seconds, bucket-32 images/s of the fp32 and int8 servers.
+20. the serving fleet (slice 18), K2 and K3 held at 0 launches; worker
+   processes and host daemons start after the build (READY builds=0)
+   with TF32 off (NVIDIA_TF32_OVERRIDE=0) and MXNET_PS_RECONNECT_WAIT
+   0.5 s.  a. phase 4's VGG-16 and weights as a checkpoint pair behind
+   a `ReplicaRouter` over two `LocalReplica`s on gpu(0) and two
+   `RemoteReplica.spawn` workers on the card (shed thresholds out of
+   reach): 4 clients x 40 requests of 1-4 images, the classes in turn,
+   one worker SIGKILLed after the 40th accepted: all 160 answered, one
+   replica lost, no rid executed twice among the survivors, each answer
+   against an in-process `ServedModel` (phase 4's gate), K1 2 a served
+   batch and deepcheck in process and in the surviving worker (its
+   stats); requests/s, p50/p99 by class, the time to declare the worker
+   dead.  b. `swap_weights(checkpoint_dir=)` from an elastic checkpoint
+   of a second seeded weight set over the three survivors under 2
+   clients: none dropped, each answer wholly the old or the new
+   weights', every survivor swapped, ladders unchanged, builds 0.  c. a
+   `FleetManager` over two `AgentHost.launch_local` daemons (min 1, max
+   3; tick 0.2 s, up after 1 s, down after 2 s, cooldown 1 s; heartbeat
+   0.25 s, deadline 2 s; SLO 3x a lone 4-image request): a ramp of 8
+   clients scales up onto the emptier host, one host's process group is
+   SIGKILLed under 2 light clients: declared dead within the deadline +
+   a tick, its replicas lost, the survivor backfills, idleness retires a
+   replica through the drain, no admitted interactive request lost,
+   every spawn builds=0; the actions, backfill latency and findings.
+   d. two `DecodeReplica`s at phase 9's widths under a router, 12
+   sequences, one replica killed with its slots active: every sequence
+   completes once, equal to phase 9's static lane through the survivor's
+   programs where its chain is clear of near ties.  e. wide_deep's table
+   at its defaults on 2 shard-server processes, 4096 cache rows on the
+   card, through `EmbeddingServingPath` in front of its tower (K1 at
+   deep1) served by a router over two `LocalReplica`s: 4 clients x 25
+   requests of 64, one shard server SIGKILLed after the 30th and
+   respawned by ``on_shard_lost``: none lost, answers against the
+   in-process tower on the same rows (rtol 1e-5 + 1e-6*max), K1 1 a
+   tower forward.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -401,6 +436,7 @@ import random
 import re
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -10764,6 +10800,810 @@ def slice17_phase(card, workdir):
     return out
 
 
+# -- phase 20: the serving fleet (slice 18) ----------------------------------
+
+# 20a: 4 client threads x 40 requests of 1-4 images over 12 seeded inputs,
+# the classes in turn; one worker SIGKILLed after the 40th accepted request
+VGG20 = dict(clients=4, requests=40, rows=(1, 2, 3, 4), inputs=12,
+             kill_after=40)
+SWAP20_CLIENTS = 2        # 20b: client threads running through the roll
+# 20c: the autoscaler's windows shortened through its constructor; the SLO
+# is 3x a lone 4-image request's round trip to a worker (20a), the ramp
+# 8 clients of 4 images, then 2 clients of 1 image (the dead band)
+FLEET20 = dict(min=1, max=3, tick=0.2, up_after=1.0, down_after=2.0,
+               cooldown=1.0, heartbeat=0.25, deadline=2.0, slo_x=3.0,
+               ramp=(8, 4), light=(2, 1))
+DECODE20 = dict(seqs=12, new=8, slots=4, prompt=(4, 8))   # 20d
+# 20e: 4 clients x 25 requests of 64 samples; shard 1 SIGKILLed after the
+# 30th accepted request
+EMBED20 = dict(clients=4, requests=25, kill_after=30)
+CTX20 = "gpu"             # the workers' --ctx (a CPU rehearsal: "cpu")
+K1_COUNTED20 = True       # workers count K1 (a CPU rehearsal's count none)
+# the workers' fp32 as this process's (TF32 off in cuBLAS and cuDNN), and a
+# dead peer's socket diagnosed in ~0.5 s instead of the 5 s default
+ENV20 = {"NVIDIA_TF32_OVERRIDE": "0"}
+KNOBS20 = {"MXNET_PS_RECONNECT_WAIT": "0.5", "MXNET_PS_MAX_RETRIES": "2",
+           "MXNET_PS_REQUEST_TIMEOUT": "60"}
+
+
+def quiesce20(router):
+    """Park the router's health loop (an hour's interval) and wait out a
+    sweep in progress, so K1's counter and the replicas' batch and probe
+    counts can be read together."""
+    router.health_interval_s = 3600.0
+    time.sleep(3 * 0.2 + 0.3)
+
+
+def local_k1_20(reps, base):
+    """K1 launches the in-process replicas `reps` owe since `base` (their
+    (batches, probes) then): 2 a served batch and 2 a deepcheck."""
+    owed = 0
+    for r in reps:
+        b0, p0 = base[r.replica_id]
+        owed += 2 * (r.stats()["batches"] - b0 + r.probes - p0)
+    return owed
+
+
+def worker_k1_20(st, what):
+    """A worker's stats: its K1 launches are 2 a forward (its ladder's
+    warm-up, each executed request and each deepcheck); -> launches."""
+    k1 = st["cache"]["k1_launches"]
+    owed = 2 * (st["programs"] + st["executed"] + st["probes"])
+    check(not K1_COUNTED20 or k1 == owed,
+          f"{what}: worker K1 launches {k1}, expected 2 x ({st['programs']}"
+          f" warm-up + {st['executed']} requests + {st['probes']} "
+          f"deepchecks) = {owed}")
+    check(st["cache"]["builds"] == 0, f"{what}: the worker built kernels")
+    return k1
+
+
+def traffic20(router, requests, kill=None, kill_after=None, ask=None):
+    """Run `requests` (per client: [(key, inputs, priority)]) through
+    `router` (or `ask(inputs, priority, key)`) from one thread per
+    client; `kill()` runs once the `kill_after`-th request is accepted.
+    -> (answers {key: (outputs, latency s)}, errors, wall s, the kill's
+    time.monotonic())."""
+    answers, errors = {}, []
+    lock = threading.Lock()
+    accepted = [0]
+    killed = [None]
+    gate = threading.Barrier(len(requests) + 1)
+
+    def client(reqs):
+        gate.wait()
+        for key, inputs, prio in reqs:
+            try:
+                t = time.perf_counter()
+                fut = router.submit(inputs, timeout_ms=600_000,
+                                    priority=prio, request_id=key) \
+                    if ask is None else ask(inputs, prio, key)
+                with lock:
+                    accepted[0] += 1
+                    if accepted[0] == kill_after and kill is not None:
+                        killed[0] = time.monotonic()
+                        kill()
+                out = fut.result(600)
+                answers[key] = (out, time.perf_counter() - t)
+            except Exception as exc:   # counted below; fails the run
+                errors.append(f"{key}: {exc!r}")
+
+    threads = [threading.Thread(target=client, args=(r,), daemon=True)
+               for r in requests]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(900)
+    check(not any(t.is_alive() for t in threads), "phase 20: a client hung")
+    return answers, errors, time.perf_counter() - t0, killed[0]
+
+
+def classes20(router):
+    """'class: responses at p50/p99' of a router's answered requests."""
+    classes = router.stats()["classes"]
+    return ", ".join(f"{c} {classes[c]['responses']} at p50 "
+                     f"{classes[c]['p50_ms']:.1f} p99 "
+                     f"{classes[c]['p99_ms']:.1f} ms"
+                     for c in ("interactive", "batch", "best_effort")
+                     if c in classes)
+
+
+def router20(mx, card, tmp):
+    """20a and 20b: VGG-16 at full width (phase 4's symbol and seeded
+    weights, TPU_PALLAS, buckets 1-32) behind a `ReplicaRouter` over two
+    `LocalReplica`s on gpu(0) and two worker processes on the card
+    (`RemoteReplica.spawn`); the traffic and one worker's SIGKILL, then a
+    rolling swap from an elastic checkpoint under traffic."""
+    from incubator_mxnet_tpu_torch import checkpoint as ckpt
+    from incubator_mxnet_tpu_torch.serving.router import PRIORITIES
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    t0 = time.perf_counter()
+    sym = mx.model_zoo.vgg_symbol(16, classes=CLASSES)
+    part = mx.subgraph.partition_graph(sym, "TPU_PALLAS")
+    params = vgg_params(sym, np.random.RandomState(SEED))
+    prefix = os.path.join(tmp, "vgg20")
+    mx.save_checkpoint(prefix, 0, part, params, {})
+    kw = dict(data_shapes=[("data", (1,) + IMAGE)], buckets=BUCKETS)
+    remote, errors = [None, None], []
+    root = os.path.join(tmp, "vgg20-ckpt")
+    second = {}
+
+    def checkpoint():
+        """20b's elastic checkpoint of a second seeded weight set, written
+        while the workers start and 20a runs."""
+        try:
+            second["params"] = vgg_params(sym,
+                                          np.random.RandomState(SEED + 21))
+            mgr = ckpt.CheckpointManager(root, async_snapshots=False)
+            mgr.snapshot(arrays={f"arg:{k}": v for k, v in
+                                 second["params"].items()}, step=1)
+            mgr.close()
+        except Exception as exc:
+            second["error"] = repr(exc)
+
+    writer = threading.Thread(target=checkpoint, daemon=True)
+    writer.start()
+
+    def spawn(i):
+        try:
+            remote[i] = mx.serving.RemoteReplica.spawn(
+                prefix=prefix, epoch=0, name="vgg", replica_id=f"w{i}",
+                ctx=CTX20, env=ENV20, ready_timeout=300.0, **kw)
+        except Exception as exc:
+            errors.append(repr(exc))
+
+    spawners = [threading.Thread(target=spawn, args=(i,)) for i in range(2)]
+    for t in spawners:
+        t.start()
+    out = {}
+    router = None
+    try:
+        local = [mx.serving.LocalReplica(mx.serving.ServedModel.load(
+            prefix, 0, ctx=mx.gpu(0), name="vgg", **kw),
+            replica_id=f"l{i}") for i in range(2)]
+        ref = mx.serving.ServedModel.load(prefix, 0, ctx=mx.gpu(0),
+                                          name="ref", **kw)
+        rng = np.random.RandomState(SEED + 20)
+        inputs = [rng.rand(VGG20["rows"][i % len(VGG20["rows"])], *IMAGE)
+                  .astype(np.float32) for i in range(VGG20["inputs"])]
+        old = [ref.infer({"data": x})[0].data for x in inputs]
+        for t in spawners:
+            t.join()
+        check(not errors, f"20a: a worker did not start: {errors}")
+        spin = time.perf_counter() - t0
+        loads = [(r.ready_info.get("load_ms"), r.ready_info.get("warmup_ms"))
+                 for r in remote]
+        for r in remote:
+            check(r.ready_info.get("builds") == 0 and
+                  r.ready_info.get("programs") == len(BUCKETS),
+                  f"20a: worker {r.replica_id} READY {r.ready_info}, "
+                  f"want programs={len(BUCKETS)} builds=0")
+        pre = {r.replica_id: worker_k1_20(r.stats(), f"20a {r.replica_id}")
+               for r in remote}
+        solo = []
+        for _ in range(6):
+            t = time.perf_counter()
+            remote[0].submit({"data": inputs[3]}).result(60)
+            solo.append((time.perf_counter() - t) * 1e3)
+        out["solo_ms"] = statistics.median(solo[1:])
+        print(f"20a: 2 workers READY programs={len(BUCKETS)} builds=0 "
+              f"(K1 {sorted(pre.values())} in their warm-ups; load, "
+              f"warm-up ms {loads}) and 2 local replicas in {spin:.1f} s; "
+              f"a lone 4-image request to a worker {out['solo_ms']:.2f} ms "
+              f"[{card}]")
+        router = mx.serving.ReplicaRouter(
+            local + remote, name="vgg20", health_interval_s=0.2,
+            health_deadline_s=3.0,
+            shed_ms={c: 600_000.0 for c in PRIORITIES})
+        n = VGG20["clients"] * VGG20["requests"]
+        reqs = [[(f"a{c * VGG20['requests'] + i}",
+                  {"data": inputs[(c * VGG20["requests"] + i)
+                                  % len(inputs)]},
+                  PRIORITIES[(c * VGG20["requests"] + i) % 3])
+                 for i in range(VGG20["requests"])]
+                for c in range(VGG20["clients"])]
+        base = {r.replica_id: (r.stats()["batches"], r.probes)
+                for r in local}
+        fc_relu.launches = 0
+        lost_at = []
+
+        def watch():
+            end = time.monotonic() + 600
+            while router.replicas_lost == 0 and time.monotonic() < end:
+                time.sleep(0.002)
+            lost_at.append(time.monotonic())
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        answers, errs, wall, t_kill = traffic20(
+            router, reqs, kill=remote[1].kill, kill_after=VGG20["kill_after"])
+        quiesce20(router)
+        k1_local = fc_relu.launches
+        owed = local_k1_20(local, base)
+        watcher.join(30)
+        check(not errs, f"20a: requests failed: {errs[:3]}")
+        check(len(answers) == n, f"20a: {len(answers)} of {n} answered")
+        st = router.stats()
+        check(st["replicas_lost"] == 1, f"20a: replicas_lost "
+              f"{st['replicas_lost']}, want 1")
+        check(st["duplicates_suppressed"] == 0, "20a: a duplicate answer")
+        check(remote[1].process.wait(30) == -signal.SIGKILL,
+              "20a: w1 was not SIGKILLed")
+        wst = remote[0].stats()
+        rids = list(wst["executed_rids"]) + [
+            rid for r in local for rid in r.executed_rids]
+        check(len(rids) == len(set(rids)),
+              "20a: a request id executed twice among the survivors")
+        worst = 0.0
+        rtol, atol = SERVE_TOL
+        for key, (outs, _) in answers.items():
+            got = outs[0].data.cpu()
+            want = old[int(key[1:]) % len(inputs)].cpu()
+            check(got.shape == want.shape and
+                  bool(torch.isfinite(got).all()),
+                  f"20a: answer {key} shape {tuple(got.shape)}")
+            err, ok = within(got, want, rtol, atol)
+            worst = max(worst, err)
+            check(ok, f"20a: answer {key} disagrees with the in-process "
+                      f"model (max abs err {err:.3e})")
+        check(k1_local == owed, f"20a: in-process K1 launches {k1_local}, "
+              f"expected 2 a served batch and deepcheck = {owed}")
+        k1_w0 = worker_k1_20(wst, "20a w0")
+        images = sum(len(inputs[int(k[1:]) % len(inputs)]) for k in answers)
+        per = {r.replica_id: r.stats()["batches"] - base[r.replica_id][0]
+               for r in local}
+        out["20a"] = {"rps": n / wall, "images_s": images / wall,
+                      "failover_s": lost_at[0] - t_kill,
+                      "failovers": st["failovers"], "worst": worst,
+                      "classes": st["classes"]}
+        print(f"20a: {n} requests ({images} images) from "
+              f"{VGG20['clients']} clients in {wall:.2f} s: "
+              f"{out['20a']['rps']:.1f} requests/s, "
+              f"{out['20a']['images_s']:.1f} images/s; {classes20(router)}"
+              f"; w1 SIGKILLed after the {VGG20['kill_after']}th: declared "
+              f"dead {out['20a']['failover_s']:.3f} s later, "
+              f"{st['failovers']} failovers, 0 lost, no rid twice; answers "
+              f"vs the in-process model worst {worst:.3e}; local batches "
+              f"{per} (K1 {k1_local} = 2 a batch and deepcheck), w0 "
+              f"{wst['executed']} requests (K1 {k1_w0}) [{card}]")
+        out["k1_local"] = k1_local
+        out["k1_workers"] = k1_w0 + pre["w1"]
+
+        # 20b: the rolling swap over the N-1 fleet, under traffic
+        t0 = time.perf_counter()
+        router.health_interval_s = 0.2
+        writer.join()
+        check("error" not in second, f"20b: the checkpoint: {second}")
+        ref.set_params(second.pop("params"))
+        new = [ref.infer({"data": x})[0].data for x in inputs]
+        for a, b in zip(old, new):
+            check(not within(b.cpu(), a.cpu(), rtol, atol)[1],
+                  "20b: the two weight sets answer alike")
+        programs = [r._model.program_count() for r in local]
+        base = {r.replica_id: (r.stats()["batches"], r.probes)
+                for r in local}
+        fc_relu.launches = 0
+        stop = threading.Event()
+        seen, errs = [], []
+
+        def client(c):
+            i = 0
+            while not stop.is_set():
+                key = f"b{c}-{i}"
+                try:
+                    seen.append((i % len(inputs), router.predict(
+                        {"data": inputs[i % len(inputs)]},
+                        timeout_ms=600_000, request_id=key)[0].data))
+                except Exception as exc:
+                    errs.append(f"{key}: {exc!r}")
+                i += 1
+
+        clients = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(SWAP20_CLIENTS)]
+        for t in clients:
+            t.start()
+        t_swap = time.perf_counter()
+        result = router.swap_weights(checkpoint_dir=root)
+        swap_s = time.perf_counter() - t_swap
+        time.sleep(0.5)
+        stop.set()
+        for t in clients:
+            t.join(120)
+        check(not errs, f"20b: requests dropped during the roll: {errs[:3]}")
+        check(sorted(result["swapped"]) == ["l0", "l1", "w0"],
+              f"20b: swapped {result['swapped']}, want every survivor")
+        versions = [0, 0]
+        for i, got in seen:
+            got = got.cpu()
+            hits = [within(got, ref_[i].cpu(), rtol, atol)[1]
+                    for ref_ in (old, new)]
+            check(any(hits), "20b: an answer is neither version's")
+            versions[hits.index(True)] += 1
+        check(versions[1] > 0, "20b: no answer at the new version")
+        quiesce20(router)
+        k1_swap = fc_relu.launches
+        check(k1_swap == local_k1_20(local, base),
+              f"20b: in-process K1 launches {k1_swap}, expected 2 a batch "
+              "and deepcheck")
+        wst = remote[0].stats()
+        check([r._model.program_count() for r in local] == programs and
+              wst["programs"] == len(BUCKETS) and wst["version"] == 1,
+              "20b: the swap changed a ladder or missed a worker")
+        k1_w0b = worker_k1_20(wst, "20b w0")
+        out["20b"] = {"swap_s": swap_s, "answers": len(seen),
+                      "versions": versions}
+        out["k1_local"] += k1_swap
+        out["k1_workers"] += k1_w0b - k1_w0
+        print(f"20b: swap_weights(checkpoint_dir=) over l0, l1, w0 in "
+              f"{swap_s:.2f} s under {SWAP20_CLIENTS} clients: "
+              f"{len(seen)} answers, {versions[0]} old and {versions[1]} "
+              f"new, none mixed, none dropped; ladders "
+              f"{programs} and {wst['programs']} unchanged, worker builds 0"
+              f" [{card}]")
+    finally:
+        if router is not None:
+            router.shutdown(drain=False)
+        for r in remote:
+            if r is not None and r.process.poll() is None:
+                r.process.kill()
+                r.process.wait(30)
+        writer.join()
+    return out
+
+
+def hosts20(mx):
+    """Start 20c's two host daemons (`AgentHost.launch_local`, each in its
+    own session) in a thread: -> (the thread, [hosts], [errors])."""
+    hosts, errors = [None, None], []
+
+    def launch():
+        def one(i):
+            try:
+                hosts[i] = mx.serving.AgentHost.launch_local(
+                    f"host-{i}", env=ENV20, ctx=CTX20)
+            except Exception as exc:
+                errors.append(repr(exc))
+
+        ts = [threading.Thread(target=one, args=(i,)) for i in range(2)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+
+    thread = threading.Thread(target=launch, daemon=True)
+    thread.start()
+    return thread, hosts, errors
+
+
+def kill_hosts20(hosts):
+    for h in hosts:
+        if h is not None:
+            try:
+                os.killpg(h.process.pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+            h.process.wait(30)
+
+
+def fleet20(mx, card, hosts, prefix, solo_ms):
+    """20c: a `FleetManager` over two `AgentHost`s (two `hostd` processes
+    on this machine, each in its own session) serving 20a's VGG-16 on the
+    card: a load ramp spawns a second replica on the emptier host, one
+    host's process group is SIGKILLed, the survivor backfills, idleness
+    retires a replica through the drain."""
+    from incubator_mxnet_tpu_torch.serving import fleet as _fleet
+    f = FLEET20
+    _fleet.reset_findings()
+    fm = None
+    out = {}
+    try:
+        slo = f["slo_x"] * solo_ms
+        spec = mx.serving.ReplicaSpec(
+            data_shapes=[("data", (1,) + IMAGE)], name="vgg", prefix=prefix,
+            epoch=0, buckets=BUCKETS, env=ENV20)
+        t0 = time.perf_counter()
+        fm = mx.serving.FleetManager(
+            hosts, spec, name="vgg20", target_replicas=f["min"],
+            min_replicas=f["min"], max_replicas=f["max"], slo_ms=slo,
+            tick_s=f["tick"], up_after_s=f["up_after"],
+            down_after_s=f["down_after"], cooldown_s=f["cooldown"],
+            host_heartbeat_s=f["heartbeat"],
+            host_deadline_s=f["deadline"])
+        print(f"20c: the first replica ({fm.stats()['placement']}) in "
+              f"{time.perf_counter() - t0:.1f} s; SLO {slo:.2f} ms "
+              f"({f['slo_x']:g} x a lone request)")
+        rng = np.random.RandomState(SEED + 22)
+        xs = {r: rng.rand(r, *IMAGE).astype(np.float32)
+              for r in (f["ramp"][1], f["light"][1])}
+        stop = {"ramp": threading.Event(), "light": threading.Event()}
+        tally = {"admitted": 0, "answered": 0, "shed": 0}
+        errs = []
+        lock = threading.Lock()
+
+        def client(kind, rows):
+            while not stop[kind].is_set():
+                try:
+                    fut = fm.router.submit({"data": xs[rows]},
+                                           timeout_ms=600_000)
+                except Exception as exc:
+                    with lock:
+                        if "shed threshold" in str(exc):
+                            tally["shed"] += 1
+                        else:
+                            errs.append(f"submit: {exc!r}")
+                    time.sleep(0.01)
+                    continue
+                with lock:
+                    tally["admitted"] += 1
+                try:
+                    fut.result(600)
+                    with lock:
+                        tally["answered"] += 1
+                except Exception as exc:
+                    errs.append(f"lost: {exc!r}")
+
+        def start(kind):
+            n, rows = f[kind]
+            ts = [threading.Thread(target=client, args=(kind, rows),
+                                   daemon=True) for _ in range(n)]
+            for t in ts:
+                t.start()
+            return ts
+
+        def wait_for(pred, what, timeout=180.0):
+            end = time.monotonic() + timeout
+            while not pred():
+                check(time.monotonic() < end, f"20c: {what} timed out")
+                time.sleep(0.02)
+
+        t_ramp = time.perf_counter()
+        ramp = start("ramp")
+        wait_for(lambda: fm.stats()["live_replicas"] >= 2,
+                 "the ramp's scale-up")
+        up_s = time.perf_counter() - t_ramp
+        light = start("light")
+        stop["ramp"].set()
+        for t in ramp:
+            t.join(600)
+        placed = fm.stats()["placement"]
+        on_dead = [rid for rid, h in placed.items() if h == "host-1"]
+        check(on_dead, f"20c: the scale-up did not land on the emptier "
+              f"host: {placed}")
+        before = fm.router.replicas_lost
+        t_kill = time.monotonic()
+        hosts[1].kill()
+        wait_for(lambda: fm.stats()["hosts_lost"] == 1, "host death")
+        down = [e for e in fm.stats()["events"]
+                if e["action"] == "host_down"][-1]
+        declared_s = down["t"] - t_kill
+        check(declared_s <= f["deadline"] + f["tick"],
+              f"20c: host declared dead {declared_s:.3f} s after the kill, "
+              f"past the {f['deadline']:g} s deadline + a {f['tick']:g} s "
+              f"tick")
+        wait_for(lambda: fm.stats()["backfills"] >= 1, "the backfill")
+        st = fm.stats()
+        check(set(st["placement"].values()) == {"host-0"},
+              f"20c: capacity not backfilled on the survivor: "
+              f"{st['placement']}")
+        check(fm.router.replicas_lost - before >= len(on_dead),
+              f"20c: {len(on_dead)} replica(s) on the dead host, "
+              f"{fm.router.replicas_lost - before} lost in the router")
+        stop["light"].set()
+        for t in light:
+            t.join(600)
+        t_idle = time.perf_counter()
+        wait_for(lambda: fm.stats()["scale_downs"] >= 1, "the idle retire")
+        idle_s = time.perf_counter() - t_idle
+        check(not errs, f"20c: admitted requests lost: {errs[:3]}")
+        check(tally["admitted"] == tally["answered"],
+              f"20c: {tally['admitted']} admitted, {tally['answered']} "
+              "answered")
+        st = fm.stats()
+        ups = [e for e in st["events"] if e["action"] == "scale_up"]
+        check(ups and all(e["spinup_builds"] == 0 for e in ups),
+              f"20c: a spawn built kernels: {ups}")
+        # the load and warm-up of each replica alive now (READY's ms)
+        loads = [(slot.replica.ready_info.get("load_ms"),
+                  slot.replica.ready_info.get("warmup_ms"))
+                 for slot in fm._router_slots().values()]
+        k1 = 0
+        for rid, slot in fm._router_slots().items():
+            if slot.state != "dead":
+                k1 += worker_k1_20(slot.replica.stats(), f"20c {rid}")
+        actions = [e["action"] + (f"@{e['host']}" if e.get("host") else "")
+                   for e in st["events"]]
+        out = {"declared_s": declared_s, "backfill_s":
+               st["backfill_latency_s"], "up_s": up_s, "idle_s": idle_s,
+               "spinup_s": [e["duration_s"] for e in ups],
+               "tally": dict(tally), "actions": actions, "k1": k1}
+        print(f"20c: actions {' -> '.join(actions)}; the ramp's scale-up "
+              f"live {up_s:.1f} s after it began; host-1 SIGKILLed, "
+              f"declared dead {declared_s:.3f} s later (deadline "
+              f"{f['deadline']:g} s, tick {f['tick']:g} s); backfill "
+              f"{st['backfill_latency_s']} s; idle retire "
+              f"{idle_s:.1f} s; spawns {out['spinup_s']} s, all builds=0 "
+              f"(load, warm-up ms of the live ones {loads}); "
+              f"{tally['admitted']} interactive admitted, all answered, "
+              f"{tally['shed']} shed; K1 {k1} in the live workers [{card}]")
+        for finding in _fleet.findings():
+            print(f"20c: finding {finding.format()}")
+    finally:
+        if fm is not None:
+            fm.shutdown(drain=False, close_hosts=True)
+        kill_hosts20(hosts)
+    return out
+
+
+def decode20(mx, card):
+    """20d: two `DecodeReplica`s at phase 9's GPT-2-small widths (fp32,
+    seeded weights) under a router; one killed once its slots are
+    active: every sequence completes once, each equal to a lone engine's
+    greedy tokens (phase 9's static lane through the survivor's programs)
+    wherever its chain is clear of near ties."""
+    from incubator_mxnet_tpu_torch.llm import LMConfig
+    d = DECODE20
+    cfg = LMConfig(**LM_CFG)
+    values = lm_values(cfg)
+    reps = [mx.serving.DecodeReplica(cfg, values, replica_id=f"d{i}",
+                                     slots=d["slots"], buckets=LM_BUCKETS,
+                                     ctx=mx.gpu(0)) for i in range(2)]
+    del values
+    rng = np.random.default_rng(SEED + 23)
+    trace = [([int(t) for t in rng.integers(
+        1, cfg.vocab_size, int(rng.integers(d["prompt"][0],
+                                            d["prompt"][1] + 1)))],
+              d["new"]) for _ in range(d["seqs"])]
+    router = mx.serving.ReplicaRouter(reps, name="decode20",
+                                      health_interval_s=0.05,
+                                      max_dispatches=4)
+    try:
+        t0 = time.perf_counter()
+        futs = [router.submit({"tokens": p, "max_new_tokens": n},
+                              request_id=f"d20-{i}", timeout_ms=600_000)
+                for i, (p, n) in enumerate(trace)]
+        end = time.monotonic() + 120
+        while reps[0].engine.stats()["slots_active"] == 0 and \
+                not all(f.done() for f in futs):
+            check(time.monotonic() < end, "20d: no slot became active")
+            time.sleep(0.002)
+        reps[0].kill()
+        got = [f.result(600)["tokens"] for f in futs]
+        wall = time.perf_counter() - t0
+        st = router.stats()
+        survivor = reps[1].engine.stats()["executed_rids"]
+    finally:
+        router.shutdown(drain=False)
+    check(st["replicas_lost"] == 1 and st["duplicates_suppressed"] == 0,
+          f"20d: replicas_lost {st['replicas_lost']}, duplicates "
+          f"{st['duplicates_suppressed']}")
+    check([len(g) for g in got] == [n for _, n in trace],
+          "20d: a sequence did not complete its budget")
+    check(len(survivor) == len(set(survivor)),
+          "20d: a sequence ran twice on the survivor")
+    static, clear, _, _ = lm_static(mx, reps[1].engine.programs, cfg, trace)
+    bad = [i for i, c in enumerate(clear) if c and static[i] != got[i]]
+    check(not bad, f"20d: sequences {bad} differ from a lone engine's")
+    tied = [i for i, c in enumerate(clear) if not c]
+    print(f"20d: {len(trace)} sequences over 2 DecodeReplicas, d0 killed "
+          f"with its slots active: all completed in {wall:.2f} s, "
+          f"{st['failovers']} failed over and replayed on d1, each rid "
+          f"once; {len(trace) - len(tied)} equal a lone engine's greedy "
+          f"tokens, {len(tied)} with a near tie in the chain {tied} "
+          f"[{card}]")
+    del reps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"failovers": st["failovers"], "wall_s": wall, "ties": len(tied)}
+
+
+def shard20():
+    """One parameter-server process (`python -m
+    incubator_mxnet_tpu_torch.dist.server`) on a free port, in its own
+    session: -> (Popen, port)."""
+    from incubator_mxnet_tpu_torch.serving.replica import child_env
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "incubator_mxnet_tpu_torch.dist.server"],
+        env=child_env({"DMLC_SERVER_ID": "0",
+                       "DMLC_PS_ROOT_URI": "127.0.0.1",
+                       "DMLC_PS_ROOT_PORT": str(port)}),
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        start_new_session=True)
+    return proc, port
+
+
+def embed20(mx, card, tmp, procs):
+    """20e: wide_deep's table at its defaults (200 000 x 16 on 2 shard
+    server processes, 4096 cache rows on the card) in front of its tower
+    (K1 at deep1, (64, 32 -> 32)) served by a router over two
+    `LocalReplica`s, through `EmbeddingServingPath`; one shard server
+    SIGKILLed mid-traffic, respawned by ``on_shard_lost``
+    (`replace_shard` from the table's rows).  `procs`: the shard servers
+    (`shard20`), started when phase 20 began."""
+    from incubator_mxnet_tpu_torch import embedding as mxembed
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    cfg, e = WD_CFG, EMBED20
+    procs = list(procs)       # each shard's server
+    spawned = list(procs)     # every one, to stop
+    table = router = None
+    out = {}
+    try:
+        table = mxembed.ShardedEmbedding(
+            "user_item", cfg["rows"], cfg["dim"],
+            [("127.0.0.1", port) for _, port in procs], seed=7,
+            cache_rows=cfg["cache_rows"], ctx=mx.gpu(0))
+        rows = table.checkpoint_rows()
+        sym = mx.subgraph.partition_graph(
+            wd_tower(mx, WD_SLOTS * cfg["dim"], 4), "TPU_PALLAS")
+        check(sym.tojson().count('"_sg_pallas_fc_relu"') == 1,
+              "20e: deep1 is not K1's node")
+        shapes, _, _ = sym.infer_shape(emb=(cfg["batch"], 32),
+                                       dense=(cfg["batch"], 4))
+        rng = np.random.RandomState(SEED + 25)
+        params = {n: rng.uniform(-0.3, 0.3, s).astype(np.float32)
+                  for n, s in zip(sym.list_arguments(), shapes)
+                  if n not in ("emb", "dense", "softmax_label")}
+        prefix = os.path.join(tmp, "tower20")
+        mx.save_checkpoint(prefix, 0, sym, params, {})
+        kw = dict(data_shapes=[("emb", (1, WD_SLOTS * cfg["dim"])),
+                               ("dense", (1, 4))],
+                  buckets=(cfg["batch"],), ctx=mx.gpu(0), name="tower")
+        local = [mx.serving.LocalReplica(mx.serving.ServedModel.load(
+            prefix, 0, **kw), replica_id=f"t{i}") for i in range(2)]
+        ref = mx.serving.ServedModel.load(prefix, 0, **kw)
+        router = mx.serving.ReplicaRouter(local, name="embed20",
+                                          health_interval_s=0.2)
+        lock = threading.Lock()
+        healed = []
+
+        def on_shard_lost(err):
+            with lock:
+                chan = table._chans[err.server]
+                if err.addr != f"{chan.host}:{chan.port}":
+                    return True          # another request already healed it
+                t = time.monotonic()
+                procs[err.server] = shard20()
+                spawned.append(procs[err.server])
+                table.replace_shard(err.server, "127.0.0.1",
+                                    procs[err.server][1], restore=rows)
+                healed.append(time.monotonic() - t)
+                return True
+
+        path = mxembed.EmbeddingServingPath(table, router, embed_input="emb",
+                                            on_shard_lost=on_shard_lost)
+        reqs = []
+        for c in range(e["clients"]):
+            crng = np.random.RandomState(SEED + 30 + c)
+            reqs.append([(f"e{c}-{i}",) + wd_clicks(cfg["batch"],
+                                                    cfg["rows"], crng)[:2]
+                         for i in range(e["requests"])])
+        base = {r.replica_id: (r.stats()["batches"], r.probes)
+                for r in local}
+        fc_relu.launches = 0
+        dead = procs[1][0]
+        answers, errs, wall, _ = traffic20(
+            router, [[(k, (ids, d), "interactive") for k, ids, d in r]
+                     for r in reqs],
+            kill=dead.kill, kill_after=e["kill_after"],
+            ask=lambda inputs, prio, key: path.submit(
+                inputs[0], dense={"dense": inputs[1]}, timeout_ms=600_000,
+                priority=prio, request_id=key))
+        quiesce20(router)
+        k1 = fc_relu.launches
+        owed = local_k1_20(local, base) // 2
+        check(not errs, f"20e: admitted requests lost: {errs[:3]}")
+        n = e["clients"] * e["requests"]
+        check(len(answers) == n, f"20e: {len(answers)} of {n} answered")
+        st = path.stats()
+        check(st["shard_failovers"] >= 1 and table.failovers >= 1,
+              f"20e: the shard's death went unnoticed ({st['shard_failovers']}"
+              f" shard failovers)")
+        check(st["requests"] == st["completed"] == n,
+              f"20e: {st['requests']} requests, {st['completed']} completed")
+        check(dead.wait(30) == -signal.SIGKILL, "20e: shard 1 was not killed")
+        worst = 0.0
+        for key, ids, d in (q for r in reqs for q in r):
+            want = ref.infer({"emb": rows[ids].reshape(len(ids), -1),
+                              "dense": d})[0].data.cpu()
+            got = answers[key][0][0].data.cpu()
+            err, ok = within(got, want, 1e-5, 1e-6)
+            worst = max(worst, err)
+            check(ok, f"20e: answer {key} disagrees with the in-process "
+                      f"tower (max abs err {err:.3e})")
+        check(k1 == owed, f"20e: K1 launches {k1}, expected 1 a tower "
+              f"forward = {owed}")
+        cache = table.stats().get("cache") or {}
+        out = {"samples_s": n * cfg["batch"] / wall, "worst": worst,
+               "heal_s": healed, "shard_failovers": st["shard_failovers"],
+               "k1": k1}
+        print(f"20e: {n} requests of {cfg['batch']} samples from "
+              f"{e['clients']} clients in {wall:.2f} s "
+              f"({out['samples_s']:.1f} samples/s; {classes20(router)}); "
+              f"shard 1 SIGKILLed after the {e['kill_after']}th: "
+              f"{st['shard_failovers']} shard failovers, respawn + "
+              f"replace_shard {[round(h, 3) for h in healed]} s, 0 lost; "
+              f"answers vs the in-process tower worst {worst:.3e}; cache "
+              f"{json.dumps(cache, default=str)}; K1 {k1} = 1 a tower "
+              f"forward [{card}]")
+    finally:
+        if router is not None:
+            router.shutdown(drain=False)
+        if table is not None:
+            table.close()
+        for proc, _ in spawned:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(30)
+    return out
+
+
+def fleet_phase(card, workdir):
+    """Phase 20: the serving fleet (slice 18), 20a-20e; returns K1's
+    launches on its paths and the numbers of the summary line.  K2 and
+    K3 must not run."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_stream)
+    vgg_k1_held("phase 20")
+    for wrapper in (flash_fwd, flash_fwd_stream):
+        wrapper.launches = 0
+    saved = {k: os.environ.get(k) for k in KNOBS20}
+    os.environ.update(KNOBS20)
+    out, times = {}, {}
+    tmp = tempfile.mkdtemp(dir=workdir)
+    # the host daemons (20c) and shard servers (20e) start now, idle
+    # until their sub-phase
+    launcher, hosts, host_errors = hosts20(mx)
+    shards = [shard20() for _ in range(WD_CFG["shards"])]
+    try:
+        t0 = time.perf_counter()
+        out["router"] = router20(mx, card, tmp)
+        times["20ab"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launcher.join()
+        check(not host_errors, f"20c: a host daemon did not start: "
+              f"{host_errors}")
+        out["20c"] = fleet20(mx, card, hosts, os.path.join(tmp, "vgg20"),
+                             out["router"]["solo_ms"])
+        times["20c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["20d"] = decode20(mx, card)
+        times["20d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["20e"] = embed20(mx, card, tmp, shards)
+        times["20e"] = time.perf_counter() - t0
+    finally:
+        launcher.join()
+        kill_hosts20(hosts)
+        for proc, _ in shards:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(30)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    for key, secs in times.items():
+        print(f"phase {key}: {secs:.1f} s")
+    check([flash_fwd.launches, flash_fwd_stream.launches] == [0, 0],
+          "phase 20: K2/K3 ran")
+    out["times"] = times
+    out["k1"] = {"router_local": out["router"]["k1_local"],
+                 "router_workers": out["router"]["k1_workers"],
+                 "fleet_workers": out["20c"]["k1"],
+                 "embedding_serving": out["20e"]["k1"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def dtype_keys(prefix, rep):
     """A kernel's case in a second dtype under keys of their own in the
     JSON line."""
@@ -10861,6 +11701,9 @@ def main():
     t0 = time.perf_counter()
     s17 = slice17_phase(card, str(_build.BUILD_DIR.parent))
     print(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    f20 = fleet_phase(card, str(_build.BUILD_DIR.parent))
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -11064,6 +11907,24 @@ def main():
           f"{sc['rate']:.1f} images/s; K1 launches {s17['k1']}; "
           + ", ".join(f"{k} {v:.1f} s" for k, v in s17["times"].items())
           + f" [{card}]")
+    ra, rb = f20["router"]["20a"], f20["router"]["20b"]
+    fc, fd, fe = f20["20c"], f20["20d"], f20["20e"]
+    print(f"fleet summary: 20a VGG-16 over 2 local + 2 worker replicas "
+          f"{ra['rps']:.1f} requests/s ({ra['images_s']:.1f} images/s), "
+          + ", ".join(f"{c} p50 {v['p50_ms']:.1f} p99 {v['p99_ms']:.1f} ms"
+                      for c, v in ra["classes"].items())
+          + f", worker declared dead {ra['failover_s']:.3f} s after its "
+          f"SIGKILL, {ra['failovers']} failovers; 20b rolling swap "
+          f"{rb['swap_s']:.2f} s, {rb['versions'][0]} old / "
+          f"{rb['versions'][1]} new answers; 20c host declared dead "
+          f"{fc['declared_s']:.3f} s after its SIGKILL, backfill "
+          f"{fc['backfill_s']} s, spin-ups {fc['spinup_s']} s with builds=0;"
+          f" 20d {fd['failovers']} sequences replayed, {fd['ties']} near "
+          f"ties; 20e {fe['samples_s']:.1f} samples/s, "
+          f"{fe['shard_failovers']} shard failovers; K1 launches "
+          f"{f20['k1']}; " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                       f20["times"].items())
+          + f" [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"
@@ -11086,13 +11947,14 @@ def main():
         "launches": launches + train_launches + kvp["dp_launches"]
         + kvp["wd_launches"] + seq["k1_launches"] + sum(api["k1"].values())
         + sum(zoo["k1"].values()) + sum(loaders["k1"].values())
-        + sum(s17["k1"].values()),
+        + sum(s17["k1"].values()) + sum(f20["k1"].values()),
         "paths": {"serving": launches, "training": train_launches,
                   "data_parallel": kvp["dp_launches"],
                   "wide_deep": kvp["wd_launches"],
                   "sequential_module": seq["k1_launches"],
                   "dist_sync_workers": dist["launches"], **api["k1"],
-                  **zoo["k1"], **loaders["k1"], **s17["k1"]},
+                  **zoo["k1"], **loaders["k1"], **s17["k1"],
+                  **f20["k1"]},
         "max_abs_err": rep["max_abs_err"],
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

@@ -62,6 +62,19 @@ deadlines.  ``MXNET_EMBED_PARTITION`` ("range"),
 ``MXNET_EMBED_PULL_CHUNK`` (65536), ``MXNET_EMBED_BREAKER_THRESHOLD`` (2)
 and ``MXNET_EMBED_BREAKER_RESET_S`` (30 s) are `embedding`'s.
 
+The serving fleet's knobs, with the JAX package's defaults:
+``MXNET_SERVING_BREAKER_THRESHOLD`` (5) and ``_RESET_S`` (30 s) are a
+served model's circuit breaker (the batcher's, and a router's per replica
+and a fleet's per host); ``MXNET_ROUTER_HEALTH_INTERVAL_S`` (0.5 s),
+``_HEALTH_DEADLINE_S`` (5 s), ``_DEEPCHECK_EVERY`` (8),
+``_MAX_DISPATCHES`` (3) and the shed thresholds
+``MXNET_ROUTER_SHED_{BEST_EFFORT,BATCH,INTERACTIVE}_MS`` (25, 100, 1000)
+are `serving.router.ReplicaRouter`'s; ``MXNET_FLEET_TICK_S`` (0.5 s),
+``_SLO_MS`` (100), ``_UP_AFTER_S`` (3 s), ``_DOWN_AFTER_S`` (30 s),
+``_IDLE_FRACTION`` (0.1), ``_COOLDOWN_S`` (10 s), ``_MIN_REPLICAS`` (1),
+``_MAX_REPLICAS`` (8), ``_HOST_HEARTBEAT_S`` (1 s) and
+``_HOST_DEADLINE_S`` (5 s) are `serving.fleet.FleetManager`'s.
+
 ``MXNET_FLASH_INTERPRET`` is not carried over: in the port the tensor's
 device decides.  A CPU tensor takes a kernel's plain PyTorch version; a
 CUDA tensor launches the kernel or raises.
@@ -179,6 +192,59 @@ KNOBS = {
     "MXNET_EMBED_BREAKER_RESET_S": (float, 30.0,
                                     "open -> half-open window of a "
                                     "shard's circuit breaker"),
+    "MXNET_SERVING_BREAKER_THRESHOLD": (int, 5,
+                                        "consecutive failed batches before "
+                                        "a served model's breaker opens"),
+    "MXNET_SERVING_BREAKER_RESET_S": (float, 30.0,
+                                      "serving breaker open -> half-open "
+                                      "probe window"),
+    "MXNET_ROUTER_HEALTH_INTERVAL_S": (float, 0.5,
+                                       "router health probe interval per "
+                                       "replica (every k-th a deepcheck)"),
+    "MXNET_ROUTER_HEALTH_DEADLINE_S": (float, 5.0,
+                                       "probe silence before a replica is "
+                                       "declared dead and its in-flight "
+                                       "requests fail over"),
+    "MXNET_ROUTER_DEEPCHECK_EVERY": (int, 8,
+                                     "every Nth health probe is a real "
+                                     "bucket-1 inference (0: never)"),
+    "MXNET_ROUTER_MAX_DISPATCHES": (int, 3,
+                                    "dispatch attempts per request across "
+                                    "replica deaths"),
+    "MXNET_ROUTER_SHED_BEST_EFFORT_MS": (float, 25.0,
+                                         "estimated fleet wait beyond which "
+                                         "best_effort requests are shed"),
+    "MXNET_ROUTER_SHED_BATCH_MS": (float, 100.0,
+                                   "estimated fleet wait beyond which "
+                                   "batch requests are shed"),
+    "MXNET_ROUTER_SHED_INTERACTIVE_MS": (float, 1000.0,
+                                         "estimated fleet wait beyond which "
+                                         "interactive requests are shed"),
+    "MXNET_FLEET_TICK_S": (float, 0.5,
+                           "FleetManager control-loop tick"),
+    "MXNET_FLEET_SLO_MS": (float, 100.0,
+                           "the autoscaler's SLO on the router's "
+                           "estimated wait"),
+    "MXNET_FLEET_UP_AFTER_S": (float, 3.0,
+                               "breach of the SLO sustained this long "
+                               "before a scale-up"),
+    "MXNET_FLEET_DOWN_AFTER_S": (float, 30.0,
+                                 "idleness sustained this long before a "
+                                 "scale-down through the drain"),
+    "MXNET_FLEET_IDLE_FRACTION": (float, 0.1,
+                                  "idle threshold as a fraction of the SLO "
+                                  "(between it and the SLO: the dead band)"),
+    "MXNET_FLEET_COOLDOWN_S": (float, 10.0,
+                               "least spacing between scale events"),
+    "MXNET_FLEET_MIN_REPLICAS": (int, 1,
+                                 "scale-down floor and default target"),
+    "MXNET_FLEET_MAX_REPLICAS": (int, 8, "scale-up ceiling"),
+    "MXNET_FLEET_HOST_HEARTBEAT_S": (float, 1.0,
+                                     "interval of the fleet's host "
+                                     "heartbeats"),
+    "MXNET_FLEET_HOST_DEADLINE_S": (float, 5.0,
+                                    "heartbeat silence before a host is "
+                                    "declared dead with all its replicas"),
 }
 
 

@@ -41,7 +41,7 @@ import struct
 import time
 
 __all__ = ["Channel", "send_msg", "recv_msg", "SafeUnpickler",
-           "loads_port_blob"]
+           "loads_port_blob", "parse_endpoint"]
 
 _LEN = struct.Struct(">Q")
 _TAG_LEN = 32
@@ -112,6 +112,22 @@ def loads_port_blob(blob):
 def _hmac_key():
     k = os.environ.get("MXNET_PS_HMAC_KEY", "")
     return k.encode() if k else None
+
+
+def parse_endpoint(spec, default_host="127.0.0.1"):
+    """``"host:port"`` / ``":port"`` / ``"port"`` -> ``(host, port)``: the
+    spellings a serving fleet's host registry names its ``hostd`` agents
+    by, as in the JAX package."""
+    text = str(spec).strip()
+    host, sep, port = text.rpartition(":")
+    if not sep:
+        host, port = "", text
+    host = host or default_host
+    try:
+        return host, int(port)
+    except ValueError:
+        raise ValueError(f"invalid endpoint {spec!r} (want host:port)") \
+            from None
 
 
 def send_msg(sock: socket.socket, obj) -> None:

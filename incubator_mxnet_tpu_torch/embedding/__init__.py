@@ -10,13 +10,13 @@ card.
   `ServerLostError` diagnosis, checkpoint capture and restore)
 - `HotRowCache`       — the device-resident LRU row cache
 - `EmbeddingFitAdapter` — trains a table through `Module.fit`
-
-The JAX package's `EmbeddingServingPath` needs the serving fleet's
-`ReplicaRouter` and is not ported yet (ROADMAP).
+- `EmbeddingServingPath` — fans a request's ids out to the shards, then
+  submits the dense tower through a `ReplicaRouter`
 """
 from .cache import HotRowCache
 from .sharded import ShardedEmbedding, shard_of_ids
 from .fit import EmbeddingFitAdapter
+from .serving import EmbeddingServingPath
 
 __all__ = ["HotRowCache", "ShardedEmbedding", "shard_of_ids",
-           "EmbeddingFitAdapter"]
+           "EmbeddingFitAdapter", "EmbeddingServingPath"]

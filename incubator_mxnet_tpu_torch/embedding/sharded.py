@@ -335,8 +335,11 @@ class ShardedEmbedding:
         """Re-attach a respawned shard server: reconnect the channel,
         reset its breaker, re-init the shard's rows (from ``restore``, a
         full-table np array, when given — else the seeded init), and
-        drop every cached row it owns.  The chaos-certified recovery."""
-        with self._lock:
+        drop every cached row it owns.  The chaos-certified recovery.
+        The swap holds the shard's request lock, so no concurrent lookup
+        is mid-request on the channel it closes (the JAX method closes it
+        under the table's lock only)."""
+        with self._shard_locks[shard], self._lock:
             try:
                 self._chans[shard].close()
             except Exception:

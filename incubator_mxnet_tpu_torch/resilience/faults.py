@@ -5,7 +5,9 @@ registry, spec grammar, firing controls, trace and log.  Failure modes
 are injected at NAMED SITES on the failure-prone paths; a site is one
 `fire(site, **ctx)` call, which costs a function call and one global
 read when no fault is configured.  The port wires the ``serving.execute``
-site (the micro-batcher's batch execution); the transport, server and
+site (the micro-batcher's batch execution), the router's
+``router.dispatch``, ``replica.health`` and ``replica.swap`` and the
+fleet's ``fleet.spawn`` and ``host.down``; the transport, server and
 ``checkpoint.commit`` sites come with their subsystems (ROADMAP.md).
 
 Faults come from the ``MXNET_FAULTS`` environment spec or the

@@ -12,14 +12,16 @@ per-request futures by row range.
 Unhappy paths kept from the JAX package: per-request deadlines (a request
 still queued past its deadline fails and never reaches the device),
 deadline-aware shedding before queueing, backpressure on a full queue
-(with the top fifth reserved for rank < 2), graceful drain, and overload
-control:
+(with the top fifth reserved for rank < 2), graceful drain, abrupt death
+(`kill`, a replica's failure), and overload control:
 
 * a per-model circuit breaker (`resilience.CircuitBreaker`) — consecutive
-  failed batches open it, and while it is open `submit` fails fast; after
-  the reset window one half-open probe batch tests recovery.  A probe
-  token taken by a request that is rejected before it queues, or whose
-  whole batch dies before it executes, is handed back;
+  failed batches (``MXNET_SERVING_BREAKER_THRESHOLD``, unless the
+  ``breaker_threshold`` knob is given) open it, and while it is open
+  `submit` fails fast; after the reset window
+  (``MXNET_SERVING_BREAKER_RESET_S``) one half-open probe batch tests
+  recovery.  A probe token taken by a request that is rejected before it
+  queues, or whose whole batch dies before it executes, is handed back;
 * bounded execution retries under a `resilience.RetryPolicy`, recorded
   in the metrics' retry histogram.  The card's synchronisation sits
   inside the retried block, so an asynchronous CUDA error is retried like
@@ -70,8 +72,9 @@ class MicroBatcher:
 
     def __init__(self, model, metrics, max_batch_size=None,
                  max_queue_latency_ms=2.0, max_queue=256,
-                 breaker_threshold=5, breaker_reset_s=30.0,
+                 breaker_threshold=None, breaker_reset_s=None,
                  retry_policy=None):
+        from .. import config as _config
         self._model = model
         self._metrics = metrics
         self.max_batch_size = min(int(max_batch_size or model.max_batch_size),
@@ -86,12 +89,18 @@ class MicroBatcher:
         self._lock = threading.Lock()
         self._idle = threading.Condition(self._lock)
         self._stop = threading.Event()
+        self._killed = False       # abrupt death: sweep, don't execute
         self._draining = threading.Event()
         self._paused = threading.Event()
         self._monitor = None       # a monitor.Monitor driven per batch
+        # an explicit knob wins over MXNET_SERVING_BREAKER_*
         self._breaker = CircuitBreaker(
-            failure_threshold=int(breaker_threshold),
-            reset_timeout=float(breaker_reset_s))
+            failure_threshold=int(
+                breaker_threshold if breaker_threshold is not None
+                else _config.get("MXNET_SERVING_BREAKER_THRESHOLD")),
+            reset_timeout=float(
+                breaker_reset_s if breaker_reset_s is not None
+                else _config.get("MXNET_SERVING_BREAKER_RESET_S")))
         self._retry = retry_policy     # None: a failed batch is not retried
         self._rid_counter = 0
         self._pending = {}             # rid -> _Request (admitted, unresolved)
@@ -226,6 +235,17 @@ class MicroBatcher:
                 f"pending: {', '.join(stuck[:16])}"
                 + (" ..." if len(stuck) > 16 else ""))
 
+    def kill(self):
+        """Abrupt death, as a killed replica's: the worker stops without
+        executing queued requests, which fail with the shutdown error; a
+        batch already on the device completes."""
+        self._killed = True
+        self._draining.set()
+        self._stop.set()
+        self._paused.clear()
+        self._thread.join(10)
+        self._sweep_failed()
+
     def _sweep_failed(self):
         while True:
             try:
@@ -290,6 +310,13 @@ class MicroBatcher:
                 batch.append(nxt)
                 rows += nxt.rows
             self._metrics.set_queue_depth(self._q.qsize())
+            if self._killed:
+                # killed mid-coalesce: nothing more executes here
+                for req in batch:
+                    self._fail(req, MXNetError(
+                        f"serving: model '{self._model.name}' shut down "
+                        "before this request ran"))
+                continue
             self._execute(batch)
 
     def _execute(self, batch):

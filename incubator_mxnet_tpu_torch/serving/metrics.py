@@ -5,15 +5,16 @@ PyTorch port of `incubator_mxnet_tpu/serving/metrics.py`.  One
 under a plain lock.  Latency lands in a `LatencyReservoir`, a fixed-size
 uniform sample (algorithm R) over every response since start.  Traffic
 that carries a priority class (``interactive``, ``batch``,
-``best_effort``: the decode engine's, and the router's once it is
-ported) also lands in per-class counters and reservoirs, reported under
-``classes`` in `snapshot()`.  The degraded-mode counters of the
-resilience layer ride along: ``breaker_rejects`` (requests failed fast
-while the model's circuit breaker was open), ``breaker_state`` (a gauge
-the batcher sets) and ``retry_histogram`` (attempt number -> count).
-The JAX
-package's hooks into the telemetry plane, the profiler trace and the
-concurrency sanitizer are not ported (ROADMAP.md).
+``best_effort``: the decode engine's and the router's) also lands in
+per-class counters (responses, shed, rejected) and reservoirs, reported
+under ``classes`` in `snapshot()`.  `avg_latency_s` is the EWMA of the
+end-to-end response latency, the floor a replica's wait estimate takes.
+The degraded-mode counters of the resilience layer ride along:
+``breaker_rejects`` (requests failed fast while the model's circuit
+breaker was open), ``breaker_state`` (a gauge the batcher sets) and
+``retry_histogram`` (attempt number -> count).  The JAX package's hooks
+into the telemetry plane, the profiler trace and the concurrency
+sanitizer are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -86,6 +87,7 @@ class ServingMetrics:
         self.breaker_state = "closed"   # gauge, set by the batcher
         self.retries = collections.Counter()   # attempt number -> count
         self._ewma_batch_s = None    # recent batch execution time
+        self._ewma_lat_s = None      # recent end-to-end response latency
 
     def record_request(self, queue_depth):
         with self._lock:
@@ -111,7 +113,7 @@ class ServingMetrics:
         if rec is None:
             # stable per-class seed (str hash is randomized per process)
             rec = self._classes[cls] = {
-                "responses": 0,
+                "responses": 0, "shed": 0, "rejected": 0,
                 "lat": LatencyReservoir(max(self._window // 4, 256),
                                         seed=zlib.crc32(cls.encode()))}
         return rec
@@ -120,10 +122,18 @@ class ServingMetrics:
         with self._lock:
             self.responses += 1
             self._lat_ms.add(latency_s * 1e3)
+            self._ewma_lat_s = latency_s if self._ewma_lat_s is None \
+                else 0.8 * self._ewma_lat_s + 0.2 * latency_s
             if cls is not None:
                 rec = self._class_locked(cls)
                 rec["responses"] += 1
                 rec["lat"].add(latency_s * 1e3)
+
+    def avg_latency_s(self):
+        """Recent end-to-end response latency (EWMA), or None before the
+        first response; unlike `avg_batch_s` it includes the queueing."""
+        with self._lock:
+            return self._ewma_lat_s
 
     def record_timeout(self):
         with self._lock:
@@ -133,9 +143,15 @@ class ServingMetrics:
         with self._lock:
             self.rejected += 1
 
-    def record_shed(self):
+    def record_shed(self, cls=None):
         with self._lock:
             self.shed += 1
+            if cls is not None:
+                self._class_locked(cls)["shed"] += 1
+
+    def record_class_reject(self, cls):
+        with self._lock:
+            self._class_locked(cls)["rejected"] += 1
 
     def record_breaker_reject(self):
         with self._lock:
@@ -186,6 +202,8 @@ class ServingMetrics:
             if self._classes:
                 snap["classes"] = {
                     cls: {"responses": rec["responses"],
+                          "shed": rec["shed"],
+                          "rejected": rec["rejected"],
                           "p50_ms": rec["lat"].percentile(50),
                           "p99_ms": rec["lat"].percentile(99)}
                     for cls, rec in self._classes.items()}

@@ -23,6 +23,8 @@ registers the checkpoint's compiled-program payload, which the port,
 compiling nothing, has no use for.  `infer_exact` runs at exactly the
 declared shapes (the C predict ABI's path), and a `monitor.Monitor`
 installed on the model sees the batched outputs of every dispatch.
+`program_count` is the number of input signatures the model has run
+(its ladder after `warmup`, unchanged by a weight swap).
 """
 from __future__ import annotations
 
@@ -83,6 +85,7 @@ class ServedModel:
         self._symbol = symbol
         self._extra_cache = {}    # input shapes -> zeros for the unfilled
         self._monitor = None      # callback(name, NDArray) per output
+        self._signatures = set()  # input shapes this model has run
 
         from .. import fused as _fused
         # resolving the device raises when the card is missing and the
@@ -135,6 +138,7 @@ class ServedModel:
                                 for n in self.data_names})
 
     def _run(self, arrs, shapes):
+        self._signatures.add(tuple(shapes[n] for n in self.data_names))
         dev = self._infer.device
         inputs = [torch.from_numpy(_np.ascontiguousarray(a)).to(
             dev, self._dtype) for a in arrs]
@@ -161,6 +165,12 @@ class ServedModel:
                             for n in names)
             self._extra_cache[key] = got
         return got
+
+    def program_count(self):
+        """The number of input signatures this model has run: its bucket
+        ladder after `warmup`.  A weight swap keeps it (same shapes); the
+        JAX package counts its compiled XLA programs."""
+        return len(self._signatures)
 
     def synchronize(self):
         """Wait for the work this model queued on its device."""

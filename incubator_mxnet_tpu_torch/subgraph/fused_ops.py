@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -156,11 +157,13 @@ def _launch(x, w, b, route):
     if err:
         raise MXNetError("fc_relu: kernel launch failed: "
                          + lib.mx_cuda_error_string(err).decode())
-    fc_relu.launches += 1
+    with _launches_lock:   # replicas launch K1 from several threads
+        fc_relu.launches += 1
     return out
 
 
 fc_relu.launches = 0
+_launches_lock = threading.Lock()
 
 
 class FCRelu(torch.autograd.Function):

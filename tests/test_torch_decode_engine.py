@@ -3,8 +3,9 @@ against the JAX package's on the CPU: continuations on one trace,
 admission and eviction, priority order, the signature counts after
 warmup, kill semantics, weight swaps and the load signals; and the
 serving pieces it rests on, the per-class `ServingMetrics` counters and
-the ``MXNET_DECODE_*`` knobs.  (The router's failover over
-`DecodeReplica`s waits for the port's router.)
+the ``MXNET_DECODE_*`` knobs; and the router's failover over two
+`DecodeReplica`s, each replayed sequence's tokens equal to the JAX
+engine's.
 
 Continuations are token ids: held equal, no tolerance.
 """
@@ -24,7 +25,8 @@ import incubator_mxnet_tpu_torch as tmx
 from incubator_mxnet_tpu_torch import config as tconfig
 from incubator_mxnet_tpu_torch import llm as tllm
 from incubator_mxnet_tpu_torch.serving import (DecodeEngine, DecodeReplica,
-                                               ReplicaLostError)
+                                               ReplicaLostError,
+                                               ReplicaRouter)
 from incubator_mxnet_tpu_torch.serving.metrics import ServingMetrics
 
 BUCKETS = (4, 8)
@@ -312,3 +314,49 @@ def test_engine_defaults_to_the_card():
     cfg = _cfg()
     with pytest.raises(tmx.MXNetError, match="CUDA"):
         DecodeEngine(cfg, _params(cfg), buckets=BUCKETS, start=False)
+
+
+def test_router_failover_replays_decode_on_survivor():
+    """`tests/test_decode_engine.py:161` on the port: a decode replica is
+    killed once its slots are active; every admitted sequence is replayed
+    on the survivor (prefill re-derives the lost KV), each rid resolves
+    once, and every sequence's tokens equal the JAX engine's greedy
+    tokens for its prompt."""
+    cfg = _cfg()
+    params = _params(cfg)
+    prompts = [[1 + (i % 5), 2] for i in range(12)]
+    ref = jserving.DecodeEngine(_cfg(jllm), params, slots=2,
+                                buckets=BUCKETS, name="fo-ref")
+    try:
+        want = [f.result(60)["tokens"] for f in
+                [ref.submit(p, max_new_tokens=6) for p in prompts]]
+    finally:
+        ref.close(drain=False)
+    reps = [DecodeReplica(cfg, params, replica_id="d%d" % i, slots=2,
+                          buckets=BUCKETS, ctx=CPU) for i in range(2)]
+    router = ReplicaRouter(reps, name="decode-rt", health_interval_s=0.05,
+                           max_dispatches=4)
+    try:
+        futs = [router.submit({"tokens": p, "max_new_tokens": 6},
+                              request_id="fo%d" % i, timeout_ms=60000)
+                for i, p in enumerate(prompts)]
+        deadline = time.monotonic() + 30.0
+        while reps[0].engine.stats()["slots_active"] == 0 \
+                and not all(f.done() for f in futs):
+            assert time.monotonic() < deadline
+            time.sleep(0.005)
+        reps[0].kill()
+        done, not_done = _wait(futs, timeout=60.0)
+        assert not not_done
+        outs = [f.result(0) for f in futs]
+        assert [o["tokens"] for o in outs] == want
+        st = router.stats()
+        assert st["replicas_lost"] >= 1
+        assert st["responses"] == 12 and st["duplicates_suppressed"] == 0
+        executed = [r for rep in reps
+                    for r in rep.engine.stats()["executed_rids"]]
+        assert set("fo%d" % i for i in range(12)) <= set(executed)
+        survivor = reps[1].engine.stats()["executed_rids"]
+        assert len(survivor) == len(set(survivor))
+    finally:
+        router.shutdown(drain=False)

@@ -7,7 +7,9 @@ packages on the same inputs: the partition rule, seeded shard init, the
 hot-row cache (hits, misses, evictions, LRU order, rows returned),
 lookups, the shard-side lazy SGD and Adam on pushed rows (rtol 1e-6),
 failure diagnosis, `replace_shard`, the chunked checkpoint round trip,
-and `Module.fit` through the `EmbeddingFitAdapter`.  Then
+and `Module.fit` through the `EmbeddingFitAdapter`; the
+`EmbeddingServingPath` in front of a tower served by a `ReplicaRouter`,
+through a shard's death.  Then
 `examples/recommender/wide_deep.py`'s copy on the port (`chip_smoke`'s
 `wide_deep`): its tower is the example's, and one epoch at 2 000 rows
 from the same tower parameters and table seed ends with the table and
@@ -575,3 +577,220 @@ def test_wide_deep_one_epoch_matches_jax(monkeypatch):
     for k in want:
         _close(got[k], want[k], FIT_TOL, k)
     _close(got_table, want_table, FIT_TOL, "table")
+
+
+# -- the serving path ---------------------------------------------------------
+
+def _tower_prefix(tmp_path, dim):
+    """wide_deep's tower under TPU_PALLAS (deep1 is K1's node), seeded,
+    as a checkpoint pair written by the port."""
+    sym = tmx.subgraph.partition_graph(
+        _in_thread(lambda: cs.wd_tower(tmx, cs.WD_SLOTS * dim, 4,
+                                       hidden=8)), "TPU_PALLAS")
+    assert sym.tojson().count('"_sg_pallas_fc_relu"') == 1
+    shapes, _, _ = sym.infer_shape(emb=(1, cs.WD_SLOTS * dim),
+                                   dense=(1, 4))
+    rng = np.random.RandomState(3)
+    params = {n: rng.normal(0, 0.5, s).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("emb", "dense", "softmax_label")}
+    prefix = str(tmp_path / "tower")
+    tmx.save_checkpoint(prefix, 0, sym, params_from_numpy(
+        params, None, ctx=tmx.cpu())[0], {})
+    return prefix
+
+
+def test_serving_path_equals_jax_and_survives_shard_kill(tmp_path):
+    """Both packages' paths on their own shard servers (the same seeded
+    rows) and the same tower behind a router of two `LocalReplica`s:
+    answers equal within 1e-5 + 1e-6; a shard killed mid-traffic is
+    respawned by ``on_shard_lost`` (`replace_shard` from the checkpoint
+    rows) and no admitted request is lost."""
+    from incubator_mxnet_tpu.serving import LocalReplica as JLocal
+    from incubator_mxnet_tpu.serving import ReplicaRouter as JRouter
+    from incubator_mxnet_tpu_torch.serving import LocalReplica, ReplicaRouter
+    rows, dim = 40, 4
+    prefix = _tower_prefix(tmp_path, dim)
+    rng = np.random.RandomState(4)
+    reqs = [(rng.randint(0, rows, (n, cs.WD_SLOTS)),
+             rng.randn(n, 4).astype(np.float32)) for n in (1, 3, 2, 4)]
+    answers, stats = {}, {}
+    for jax, mx, local, router_cls in ((True, jmx, JLocal, JRouter),
+                                       (False, tmx, LocalReplica,
+                                        ReplicaRouter)):
+        emb = jemb if jax else temb
+        servers = _spawn(2, jax=jax)
+        spawned = []
+        table = _table(jax, "serve", rows, dim, servers, seed=9,
+                       cache_rows=8)
+        ckpt = table.checkpoint_rows()
+
+        def on_shard_lost(err, table=table, ckpt=ckpt, jax=jax,
+                          spawned=spawned):
+            spawned.append(_spawn(1, jax=jax)[0])
+            table.replace_shard(err.server, "127.0.0.1", spawned[-1].port,
+                                restore=ckpt)
+            return True
+
+        reps = [local(mx.serving.ServedModel.load(
+            prefix, 0, data_shapes=[("emb", (1, cs.WD_SLOTS * dim)),
+                                    ("dense", (1, 4))],
+            buckets=(1, 2, 4), ctx=mx.cpu(), name="tower"),
+            replica_id=f"r{i}") for i in range(2)]
+        try:
+            with router_cls(reps, health_interval_s=0.2) as router:
+                path = emb.EmbeddingServingPath(
+                    table, router, embed_input="emb",
+                    on_shard_lost=on_shard_lost)
+                got = [path.predict(ids, dense={"dense": d},
+                                    timeout_ms=10000)[0].asnumpy()
+                       for ids, d in reqs]
+                servers[0]._simulate_crash()   # shard 0 dies mid-traffic
+                got += [path.predict(ids, dense={"dense": d},
+                                     timeout_ms=10000)[0].asnumpy()
+                        for ids, d in reqs]
+                stats[jax] = path.stats()
+            answers[jax] = got
+        finally:
+            table.close()
+            for srv in servers + spawned:
+                try:
+                    srv.shutdown()
+                except Exception:
+                    pass
+    for g, w in zip(answers[False], answers[True]):
+        _close(g, w, (1e-5, 1e-6))
+    for g, w in zip(answers[False][4:], answers[False][:4]):
+        np.testing.assert_array_equal(g, w)   # the same rows after heal
+    st = stats[False]
+    assert st["shard_failovers"] >= 1
+    assert st["completed"] == st["requests"] == 8   # zero lost
+    assert st["table"]["failovers"] == 1
+    assert stats[True]["completed"] == 8
+
+
+def test_serving_path_without_hook_propagates():
+    from incubator_mxnet_tpu_torch.serving import LocalReplica, ReplicaRouter
+    servers = _spawn(1)
+    table = _table(False, "nohook", 8, 4, servers, cache_rows=0)
+    sym = tmx.sym.SoftmaxOutput(tmx.sym.FullyConnected(
+        tmx.sym.Variable("emb"), num_hidden=3, name="head"), name="softmax")
+    model = tmx.serving.ServedModel(
+        sym, {"head_weight": np.ones((3, 4), np.float32),
+              "head_bias": np.zeros(3, np.float32)},
+        data_shapes=[("emb", (1, 4))], buckets=(1, 2), ctx=tmx.cpu())
+    try:
+        with ReplicaRouter([LocalReplica(model, replica_id="r0")],
+                           health_interval_s=0.2) as router:
+            path = temb.EmbeddingServingPath(table, router)
+            servers[0]._simulate_crash()
+            with pytest.raises(ServerLostError):
+                path.predict(np.array([[1], [2]]), timeout_ms=2000)
+    finally:
+        table.close()
+        servers[0].shutdown()
+
+
+class _HeldChannel:
+    """Wraps a shard's channel: `request` holds until released, and a
+    `close` that arrives while a request is inside is recorded."""
+
+    def __init__(self, chan):
+        self.chan, self.host, self.port = chan, chan.host, chan.port
+        self.inside = threading.Event()
+        self.release = threading.Event()
+        self.closed_inside = False
+
+    def request(self, msg):
+        self.inside.set()
+        try:
+            self.release.wait(30)
+            return self.chan.request(msg)
+        finally:
+            self.inside.clear()
+
+    def resend_last(self):
+        return self.chan.resend_last()
+
+    def close(self):
+        self.closed_inside = self.closed_inside or self.inside.is_set()
+        self.chan.close()
+
+
+@pytest.mark.parametrize("jax", [True, False])
+def test_replace_shard_waits_for_a_request_in_flight(jax):
+    """A lookup is mid-request on shard 1 when `replace_shard` re-attaches
+    it: the port's swap takes the shard's request lock and waits, so the
+    request ends on the channel it started on; the JAX method closes that
+    channel under it (ROADMAP Queue 3), which a serving path's concurrent
+    lookups hit as a dead socket."""
+    servers = _spawn(2, jax=jax)
+    fresh = []
+    t = _table(jax, "inflight", 20, 2, servers, seed=2, cache_rows=0)
+    try:
+        rows = t.checkpoint_rows()
+        held = t._chans[1] = _HeldChannel(t._chans[1])
+        got, errors = [], []
+
+        def lookup():
+            try:
+                got.append(t.pull_rows(np.array([15])))
+            except Exception as exc:
+                errors.append(exc)
+
+        reader = threading.Thread(target=lookup)
+        reader.start()
+        assert held.inside.wait(10)
+        fresh = _spawn(1, jax=jax)
+        swap = threading.Thread(target=t.replace_shard, args=(
+            1, "127.0.0.1", fresh[0].port), kwargs={"restore": rows})
+        swap.start()
+        swap.join(0.5)
+        held.release.set()
+        reader.join(30)
+        swap.join(30)
+        assert not reader.is_alive() and not swap.is_alive()
+        assert held.closed_inside is jax
+        if not jax:
+            assert not errors
+            np.testing.assert_array_equal(got[0], rows[[15]])
+        np.testing.assert_array_equal(t.pull_rows(np.array([15])),
+                                      rows[[15]])
+    finally:
+        t.close()
+        for s in servers + fresh:
+            s.shutdown()
+
+
+def test_serving_path_counts_every_request_across_threads():
+    """16 threads submit through one path with the interpreter switching
+    threads every microsecond: the request and completion counts are
+    exact (the port counts under a lock)."""
+    import sys
+    from concurrent.futures import Future
+
+    class _Table:
+        def lookup(self, ids, out_np=False):
+            return np.zeros(ids.shape + (2,), np.float32)
+
+    class _Router:
+        def submit(self, inputs, **kw):
+            f = Future()
+            f.set_result([inputs["emb"]])
+            return f
+
+    path = temb.EmbeddingServingPath(_Table(), _Router())
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            path.submit(np.array([[1, 2]])) for _ in range(200)])
+            for _ in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert path.requests == path.completed == 16 * 200

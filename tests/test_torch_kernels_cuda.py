@@ -26,7 +26,9 @@ through `model.FeedForward` (K1), the C predict ABI's shim and
 [cpu(0), gpu(0)] and a `Module(state_names=)` step; K1 at AlexNet's fc6
 (9216 -> 4096) and AlexNet's first Module.fit steps on the card against
 the CPU; the quantized FC's float64 route exact at fc8's K, and a LibSVM
-CSR batch densified on the card.
+CSR batch densified on the card; K1's launch counter exact across
+threads, and a router over two LocalReplicas on the card against the
+CPU.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -1834,3 +1836,69 @@ def test_csr_batch_densified_on_card(tmp_path):
         assert b.data[0].data.is_cuda
         np.testing.assert_array_equal(b.data[0].asnumpy(),
                                       dense[16 * i:16 * (i + 1)])
+
+
+@pytest.mark.cuda
+def test_fc_relu_launch_count_exact_across_threads():
+    """`fc_relu.launches` counts every launch when 4 threads launch K1 at
+    once (LocalReplicas' batcher threads): 4 x 50 calls count 200."""
+    _need_card()
+    import threading
+    from incubator_mxnet_tpu_torch.subgraph import fused_ops
+    x, w, b = (torch.from_numpy(a).cuda() for a in _inputs(4, 64, 32))
+    fused_ops.fc_relu.launches = 0
+    start = threading.Barrier(4)
+
+    def calls():
+        start.wait()
+        for _ in range(50):
+            fc_relu(x, w, b)
+
+    threads = [threading.Thread(target=calls) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert fused_ops.fc_relu.launches == 200
+
+
+@pytest.mark.cuda
+def test_router_over_local_replicas_on_the_card(tmp_path):
+    """A partitioned FC->ReLU mlp (6 -> 16 -> 3) served by a router over
+    two LocalReplicas on gpu(0): answers within rtol 1e-4 + 1e-5 of the
+    CPU's, both replicas served, and K1 launched once a served batch."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.compat.weights import params_from_numpy
+    from incubator_mxnet_tpu_torch.subgraph import fused_ops
+    s = mx.sym
+    net = s.SoftmaxOutput(s.FullyConnected(s.Activation(s.FullyConnected(
+        s.Variable("data"), num_hidden=16, name="fc0"), act_type="relu"),
+        num_hidden=3, name="head"), name="softmax")
+    sym = mx.subgraph.partition_graph(net, "TPU_PALLAS")
+    rng = np.random.RandomState(0)
+    params = {"fc0_weight": rng.normal(0, .5, (16, 6)).astype("f4"),
+              "fc0_bias": rng.normal(0, .1, 16).astype("f4"),
+              "head_weight": rng.normal(0, .5, (3, 16)).astype("f4"),
+              "head_bias": rng.normal(0, .1, 3).astype("f4")}
+    prefix = str(tmp_path / "mlp")
+    mx.save_checkpoint(prefix, 0, sym,
+                       params_from_numpy(params, None, ctx=mx.cpu())[0], {})
+    kw = dict(data_shapes=[("data", (1, 6))], buckets=(1, 2, 4))
+    host = mx.serving.ServedModel.load(prefix, 0, ctx=mx.cpu(), **kw)
+    reps = [mx.serving.LocalReplica(mx.serving.ServedModel.load(
+        prefix, 0, ctx=mx.gpu(0), **kw), replica_id=f"r{i}")
+        for i in range(2)]
+    reqs = [rng.randn(1 + i % 4, 6).astype("f4") for i in range(40)]
+    fused_ops.fc_relu.launches = 0
+    with mx.serving.ReplicaRouter(reps, health_interval_s=1e3) as router:
+        futs = [router.submit({"data": x}) for x in reqs]
+        got = [f.result(60)[0].asnumpy() for f in futs]
+        batches = [r.stats()["batches"] for r in reps]
+    assert fused_ops.fc_relu.launches == sum(batches)
+    assert all(n > 0 for n in batches)
+    for x, g in zip(reqs, got):
+        want = host.infer({"data": x})[0].asnumpy()
+        np.testing.assert_allclose(g, want, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want).max())

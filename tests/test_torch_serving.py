@@ -159,7 +159,9 @@ def test_port_imports_no_jax():
     and the C predict ABI's Python side, fault injection and the test
     utilities, and slice 15's gluon (AlexNet through Module.fit with K1
     nodes, SqueezeNet exported and imported as a SymbolBlock, CTCLoss, a
-    contrib conv-LSTM cell), loads neither jax nor the JAX package (the
+    contrib conv-LSTM cell), and slice 18's serving fleet (router,
+    replicas, worker, hostd, fleet, the embedding serving path), loads
+    neither jax nor the JAX package (the
     C shim's embedded interpreter is checked in
     tests/test_torch_serving_edges.py)."""
     code = textwrap.dedent("""
@@ -207,6 +209,12 @@ def test_port_imports_no_jax():
         import incubator_mxnet_tpu_torch.embedding.cache
         import incubator_mxnet_tpu_torch.embedding.sharded
         import incubator_mxnet_tpu_torch.embedding.fit
+        import incubator_mxnet_tpu_torch.embedding.serving
+        import incubator_mxnet_tpu_torch.serving.router
+        import incubator_mxnet_tpu_torch.serving.replica
+        import incubator_mxnet_tpu_torch.serving.worker
+        import incubator_mxnet_tpu_torch.serving.hostd
+        import incubator_mxnet_tpu_torch.serving.fleet
         import incubator_mxnet_tpu_torch.resilience
         import incubator_mxnet_tpu_torch.resilience.faults
         import incubator_mxnet_tpu_torch.c_predict
@@ -360,7 +368,8 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-# modules of the port the scan must reach (slice 15's among them)
+# modules of the port the scan must reach (slices 15's and 18's among
+# them)
 PORT_MODULES = (
     "gluon/block.py", "gluon/loss.py", "gluon/nn/activations.py",
     "gluon/nn/basic_layers.py", "gluon/nn/conv_layers.py",
@@ -370,7 +379,9 @@ PORT_MODULES = (
     "gluon/model_zoo/vision/alexnet.py", "gluon/model_zoo/vision/densenet.py",
     "gluon/model_zoo/vision/inception.py",
     "gluon/model_zoo/vision/mobilenet.py",
-    "gluon/model_zoo/vision/squeezenet.py", "autograd.py")
+    "gluon/model_zoo/vision/squeezenet.py", "autograd.py",
+    "serving/router.py", "serving/replica.py", "serving/worker.py",
+    "serving/hostd.py", "serving/fleet.py", "embedding/serving.py")
 
 
 def test_port_sources_never_import_jax():
