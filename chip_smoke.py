@@ -15,15 +15,18 @@ exits non-zero:
    at the VGG-16 classifier shapes and AlexNet's fc6 (9216 -> 4096) for
    every serving bucket and M = 128 (the training batch) and a ragged
    MLP shape, fp32, bf16 and fp16,
-   through the library's route (printed) and each route that takes the
+   through the library's route and each route that takes the
    shape (tensor_core, cuda_core); times of the library's route, of each
    route, the plain version and one library call beside the bound, with
    L2 flushed before every timed launch, and each route's device time
    (torch.profiler, its kernels only); then train_mnist's mlp layers,
    (64, 784 -> 128) and (64, 128 -> 64), in fp32 through both routes,
    and the shapes K1 takes on phases 14 and 16's paths (PATH_K1: the
-   mlp's layers at M = 1-32, wide_deep's deep1); then the host time per call of each route at fc7, M = 32, beside the
-   library call's.
+   mlp's layers at M = 1-32, wide_deep's deep1); at every shape both
+   routes take, the route the library takes spends at most K1_ROUTE_GATE
+   (1.10x the other's device time + 0.001 ms), and VGG-16's and
+   AlexNet's fc6/fc7 keep the kTcMinRows rule; then the host time per call of
+   each route at fc7, M = 32, beside the library call's.
 4. serve VGG-16 at full width (3x224x224, 1000 classes, fp32, random
    weights from a seed) through `serving.ModelServer`: partition with
    TPU_PALLAS, save a checkpoint pair, load it, answer a closed-loop load
@@ -117,7 +120,8 @@ exits non-zero:
 10. the LM at the same widths trained through `Module.fit` (SGD lr 0.05,
    momentum 0.9, the gradient per token, Xavier, "acc"), K1/K2/K3 held
    at 0 launches as in 9.  a. 3 fused steps at batch 2 x T 128 in
-   float64, card vs CPU: the losses, the embed_weight gradient (lookup
+   float64, at LM_TRAIN_PARITY_LAYERS of the 12 layers (full width and
+   vocabulary), card vs CPU: the losses, the embed_weight gradient (lookup
    plus tied head), each step's parameters and momenta from the CPU's
    state; in fp32 each device's step from the float64 state (the card
    as close as the CPU).  b. the lane at batch 8 x T 1024 (n_ctx) in
@@ -249,14 +253,14 @@ exits non-zero:
    which the nine refuse): 6 fused steps over buckets
    60/20/40/20/60/10, card vs CPU free running and from the CPU's state
    (11a's gate: in fp32 for nag, signum, dcasgd, lbsgd, adadelta and
-   ftrl, in float64 for the other adaptive ones, with the fp32 reading
-   printed, and for rmsprop centered with SoftmaxOutput's softmax in
+   ftrl, in float64 for the other adaptive ones, and for rmsprop
+   centered with SoftmaxOutput's softmax in
    float64 too, beside a witness of what parts the float64 lane as
    shipped; near ties excused and counted: Signum's momentum and Ftrl's
    z at their flip; SGLD, declined by the fused step, by each step's
    gradient in float64 from the CPU's state and its noise's moments),
-   the bucket-60 step's ms and tokens/s, the states through
-   dumps_states/loads_states.  c. train_mnist's mlp as a SequentialModule (data ->
+   the bucket-60 step's ms and tokens/s of the lanes held in fp32 and
+   SGLD's, the states through dumps_states/loads_states.  c. train_mnist's mlp as a SequentialModule (data ->
    fc1 -> relu1 | fc2 -> relu2 -> fc3 -> SoftmaxOutput) under TPU_PALLAS,
    initialised with Mixed(Orthogonal, MSRAPrelu), fc1 under
    AttrScope(lr_mult=0.5), a Monitor(interval=1), acc + nll_loss + a
@@ -419,7 +423,28 @@ exits non-zero:
    requests of 64, one shard server SIGKILLed after the 30th and
    respawned by ``on_shard_lost``: none lost, answers against the
    in-process tower on the same rows (rtol 1e-5 + 1e-6*max), K1 1 a
-   tower forward.
+   tower forward.  Phase 20 runs traced: MXNET_OBS_TRACE names one span
+   file that this process and every worker, host daemon and shard server
+   appends to.
+21. the telemetry plane (slice 19), on phase 20's processes.  a. the span
+   file merged by tools/mxtrace.py: zero orphans; each of 20a's answered
+   requests one `router.request` root whose tree holds the answering
+   replica's span (`worker.infer` in that worker's pid, or the
+   in-process replica's `batcher.execute`, or the batch that lists the
+   request's rid when it was coalesced into another's); the requests
+   that failed over off the SIGKILLed worker end ok under their original
+   trace ids.  b. inside 20c, with one host down and the traffic stopped:
+   `FleetManager.scrape()` does not raise, lists the dead host and its
+   replicas under ``unreachable``; the survivors' ``worker.executed``
+   equal their stats(), every Prometheus text parses, and K1 is 2 a
+   forward in each.  c. phase 4's server (20a's checkpoint) under
+   `profiler.set_state("run")` for 4 bucket-32 batches with a Task, a
+   Frame, a Counter and a Marker: the dumped chrome trace loads as JSON
+   with the custom events and CUDA kernels, `dumps()` holds the per-op
+   table, `record_memory` reads bytes in use; K1's kernels in the trace
+   against its launches, printed.  d. the same server's requests/s and
+   p50/p99 with tracing off and on (lanes off, on, on, off), and
+   `calibrate_span_cost()`, printed.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -428,6 +453,7 @@ prints no result.  It takes no arguments.
 """
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import math
@@ -453,6 +479,9 @@ BUCKETS = (1, 2, 4, 8, 16, 32)
 # K1's rows in phase 3: the serving buckets, and the batch a training step
 # of the classifier runs
 K1_ROWS = BUCKETS + (128,)
+# phase 3's route gate: the route the library takes may spend at most this
+# factor times the other route's profiler device time, plus this many ms
+K1_ROUTE_GATE = (1.10, 0.001)
 # train_mnist's mlp at batch 64: fc1+relu1 and fc2+relu2, in fp32
 MLP_K1 = ((64, 784, 128), (64, 128, 64))
 # K1 on phase 14's paths, in fp32: the mlp's fc1 and fc2 in each executor
@@ -523,6 +552,9 @@ SERVE_TOL = (1e-3, 1e-3)
 BF16 = torch.bfloat16
 F16 = torch.float16
 F32 = torch.float32
+# fc_relu.cu's kTcMinRows: the rows from which the library takes
+# tensor_core at VGG-16's and AlexNet's classifier weights
+K1_TC_MIN_ROWS = {F32: 8, BF16: 2, F16: 2}
 # the JSON line's shapes: fc6 at bucket 32, the bucket of the served load,
 # in fp32 (the served dtype) and, under keys of its own, bf16
 REP = (32, 25088, 4096, F32)
@@ -697,6 +729,10 @@ LM_OP_CLASSES = (
 # diverged to NaN within 10 steps in a CPU rehearsal at T = 256
 LM_TRAIN_OPT = {"learning_rate": 0.05, "momentum": 0.9}
 LM_TRAIN_PARITY = (2, 128, 3)       # 10a: batch, T, steps (float64)
+# 10a's and 18d's float64 parities run this many of GPT-2 small's 12
+# layers, at its full width and vocabulary (a cut of depth: the CPU's
+# float64 steps took 62 s of 10a and 53.4 s of 18d at 12 layers)
+LM_TRAIN_PARITY_LAYERS = 1
 LM_TRAIN_LANE = (8, 1024, 4, 16)    # 10b: batch, T (n_ctx), warm, timed
 LM_CKPT_PERIOD = 4                  # 10b: processed batches per snapshot
 # 10a float32: each device's step from the float64 CPU state, at most
@@ -915,14 +951,23 @@ def k1_case(x, w, b, card, flush):
     return t
 
 
-def note_slower(t, dtype, shape, slower):
-    """Record a shape the library gives tensor_core whose device time
-    exceeded cuda_core's."""
-    if t["route"] == "tensor_core" and \
-            t["tensor_core_device_ms"] > t["cuda_core_device_ms"]:
-        slower.append(f"{str(dtype)[6:]} {shape} "
-                      f"{t['tensor_core_device_ms']:.4f} > "
-                      f"{t['cuda_core_device_ms']:.4f} ms")
+def route_gate(t, dtype, shape, routes):
+    """K1's route rule, gated: where both routes take the shape, the one
+    the library takes spends at most K1_ROUTE_GATE's factor times the
+    other's profiler device time, plus its slack.  Returns the line that
+    the run prints for the shape."""
+    chosen = t["route"]
+    others = [r for r in routes if r != chosen]
+    if not others:
+        return None
+    factor, slack = K1_ROUTE_GATE
+    mine, other = t[f"{chosen}_device_ms"], t[f"{others[0]}_device_ms"]
+    line = (f"{str(dtype)[6:]} {shape} {chosen} {mine:.4f} ms vs "
+            f"{others[0]} {other:.4f} ms ({mine / other:.3f}x)")
+    check(mine <= factor * other + slack,
+          f"K1 takes the slower route at {shape} {dtype}: {line}; the gate "
+          f"is {factor:g}x the other's device time + {slack:g} ms")
+    return line
 
 
 def kernel_phase(card):
@@ -937,7 +982,7 @@ def kernel_phase(card):
     cases = [(m, k, n) for k, n in VGG_FC_SHAPES + (ALEX_FC6,)
              for m in K1_ROWS]
     cases.append((5, 784, 128))
-    reps, slower = {}, []
+    reps, gated = {}, []
     t0 = time.perf_counter()
     for dtype in (F32, BF16, F16):
         for m, k, n in cases:
@@ -946,7 +991,14 @@ def kernel_phase(card):
                  / math.sqrt(k)).to(dtype)
             b = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype)
             t = k1_case(x, w, b, card, flush)
-            note_slower(t, dtype, (m, k, n), slower)
+            gated.append(route_gate(t, dtype, (m, k, n), ROUTES))
+            if k >= 4096 and n == 4096:
+                # VGG-16's and AlexNet's fc6/fc7 keep the kTcMinRows rule
+                check(t["route"] == ("tensor_core"
+                                     if m >= K1_TC_MIN_ROWS[dtype]
+                                     else "cuda_core"),
+                      f"K1's route at {(m, k, n)} {dtype} is "
+                      f"{t['route']}, not the kTcMinRows rule's")
             if (m, k, n, dtype) in (REP, REP_BF16):
                 reps[dtype] = t
             if (m, k, n, dtype) in (ALEX_REP, ALEX_REP_BF16):
@@ -960,9 +1012,15 @@ def kernel_phase(card):
               all(launch_plan(x, w, r) is not None for r in ROUTES),
               f"a K1 route does not take the mlp shape {(m, k, n)}")
         reps[(m, k, n, F32)] = k1_case(x, w, b, card, flush)
-        note_slower(reps[(m, k, n, F32)], F32, (m, k, n), slower)
-    print(f"K1 routes: shapes the library gives tensor_core whose device "
-          f"time exceeded cuda_core's in this run: {slower or 'none'}")
+        gated.append(route_gate(reps[(m, k, n, F32)], F32, (m, k, n),
+                                ROUTES))
+    gated = [g for g in gated if g is not None]
+    print(f"K1 routes: the route taken held to "
+          f"{K1_ROUTE_GATE[0]:g}x the other's device time + "
+          f"{K1_ROUTE_GATE[1]:g} ms at all {len(gated)} shapes both "
+          f"routes take ok [{card}]")
+    for line in gated:
+        print(f"K1 route  {line}")
     k1_host_us(card, gen)
     print(f"phase 3: {time.perf_counter() - t0:.1f} s")
     del flush
@@ -3355,7 +3413,8 @@ def lm_train_steps(mx, sym, ctx, batches, dtype, teacher=None, keep=False,
 
 
 def lm_train_parity(mx, sym, card):
-    """Phase 10a: LM_TRAIN_PARITY fused steps of the full-width LM on the
+    """Phase 10a: LM_TRAIN_PARITY fused steps of the full-width LM, cut to
+    LM_TRAIN_PARITY_LAYERS layers, on the
     card against the CPU from the same Xavier parameters and batches, in
     float64: every step's loss free running; the first batch's
     embed_weight gradient (the lookup's scatter plus the tied head's
@@ -3386,7 +3445,9 @@ def lm_train_parity(mx, sym, card):
     held_ = max(worst)
     ok = loss_err <= PARITY_TOL[0] and held_[0] <= 1 and grad <= 1
     print(f"lm train parity float64: {steps} fused steps at batch {batch} "
-          f"x T {t}, full width, card vs CPU (CPU {t_cpu:.1f} s): loss "
+          f"x T {t}, full width, {LM_TRAIN_PARITY_LAYERS} of "
+          f"{LM_CFG['num_layers']} layers, card vs CPU (CPU {t_cpu:.1f} s): "
+          f"loss "
           f"{' '.join(f'{v:.6f}' for v in card_loss)}; max relative loss "
           f"err {loss_err:.2e} (rtol {PARITY_TOL[0]:g}); embed_weight "
           f"gradient (lookup + tied head) at {grad:.3f} of the tolerance; "
@@ -3879,7 +3940,9 @@ def lm_train_phase(card, workdir):
     sym = lm_symbol(cfg)
     out = {}
     t0 = time.perf_counter()
-    out["parity"] = lm_train_parity(mx, sym, card)
+    out["parity"] = lm_train_parity(
+        mx, lm_symbol(lm_train_cfg(num_layers=LM_TRAIN_PARITY_LAYERS)),
+        card)
     print(f"phase 10a: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     mod, out["lane"] = lm_train_lane(mx, sym, cfg, card)
@@ -6402,9 +6465,9 @@ def dist_worker():
             "steps_s": (len(ticks) - 1) / (ticks[-1] - ticks[0]),
             "wall_s": wall, "wire_bytes": wire,
             "push_ms": push_ms, "pull_ms": pull_ms,
-            "server_update_ms": server["server.update_ms"],
-            "server_updates": server["server.updates"] - updates_before}
-        updates_before = server["server.updates"] + 5
+            "server_update_ms": server["update_ms"],
+            "server_updates": server["updates"] - updates_before}
+        updates_before = server["updates"] + 5
         stores.append(kv)
     # one stop per worker: the server stops once both sent theirs
     stores[0].close(send_stop=False)
@@ -6704,7 +6767,10 @@ LSTM15_LANES = (                # (label, optimizer, its params, flag)
 OPT15_GATE = {"nag": "fp32", "signum": "fp32", "dcasgd": "fp32",
               "lbsgd": "fp32", "adadelta": "fp32", "ftrl": "fp32",
               "rmsprop centered": "float64 softmax"}
-LSTM15_TIMED = 5                # 15b: bucket-60 steps timed after parity
+# 15b: bucket-60 steps timed after parity, on the fp32 card run of each
+# lane held in fp32 (the lanes held in float64 have no fp32 run: a cut,
+# with their printed fp32 reading, of 15b's 142 s)
+LSTM15_TIMED = 3
 # 15c: train_mnist's mlp as a SequentialModule
 SEQ15_STEPS = 8
 SEQ15_TOL = (1e-5, 1e-6)        # 15c: the split against one Module
@@ -7507,9 +7573,10 @@ def opt15_lane(mx, cfg, batches, values, label, optimizer, params, card):
     """One optimizer through config #4's 6 parity steps under 11a's gate,
     card vs CPU from the same parameters and batches, free running and
     each step from the CPU's state, in fp32 (TF32 off) and, unless the
-    lane is held in fp32 (OPT15_GATE), in the dtype that holds it: the
-    fp32 reading printed beside.  Then the fp32 card run: LSTM15_TIMED
-    bucket-60 steps timed, the state round trip.  SGLD: `sgld15`."""
+    lane is held in fp32 (OPT15_GATE), in the dtype that holds it (and,
+    for RMSProp centered, float64 as shipped, printed).  Then, on a lane
+    held in fp32, its card run's LSTM15_TIMED bucket-60 steps timed; the
+    state round trip of the card run.  SGLD: `sgld15`."""
     from incubator_mxnet_tpu_torch import optimizer as topt
     gate = OPT15_GATE.get(label, "float64")
     out = {"gate": gate, "ties": 0, "masked": 0}
@@ -7527,9 +7594,9 @@ def opt15_lane(mx, cfg, batches, values, label, optimizer, params, card):
         out.update(sgld15(mx, cfg, batches, values, card),
                    declined=len(batches))
     else:
-        # fp32, and the float64 lanes as shipped and as held
+        # fp32, or the float64 lanes as shipped and as held
         for dtype in dict.fromkeys(("fp32",) if gate == "fp32" else
-                                   ("fp32", "float64", gate)):
+                                   ("float64", gate)):
             ref = opt15_run(mx, cfg, batches, values, optimizer, params,
                             mx.cpu(), dtype)
             free = opt15_run(mx, cfg, batches, values, optimizer, params,
@@ -7539,7 +7606,7 @@ def opt15_lane(mx, cfg, batches, values, label, optimizer, params, card):
             out[dtype] = {"card": opt15_compare(optimizer, free, ref, False),
                           "teacher": opt15_compare(optimizer, teacher, ref,
                                                    True)}
-            if dtype == "fp32":
+            if dtype == gate:
                 lane_losses, mod = free[0], free[2]
         for name, (loss_err, worst) in out[gate].items():
             check(loss_err <= PARITY_TOL[0], f"15b {label} {gate} {name}: "
@@ -7549,20 +7616,23 @@ def opt15_lane(mx, cfg, batches, values, label, optimizer, params, card):
             out["ties"] = max(out["ties"], worst[2])
             out["masked"] = max(out["masked"], worst[3])
         out["declined"] = 0
-    check(all(math.isfinite(x) for x in lane_losses), f"15b {label}: fp32 "
+    check(all(math.isfinite(x) for x in lane_losses), f"15b {label}: "
           "loss not finite")
-    b60 = next(b for b in batches if b.bucket_key == max(cfg["buckets"]))
-    metric = mx.metric.Perplexity(0)
-    ms = []
-    for _ in range(LSTM15_TIMED):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mod.fit_step(b60, metric)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    out["step_ms"] = statistics.median(ms)
-    out["tokens_s"] = cfg["batch"] * max(cfg["buckets"]) / out["step_ms"] \
-        * 1e3
+    out["step_ms"] = out["tokens_s"] = None
+    if gate == "fp32" or optimizer == "sgld":
+        b60 = next(b for b in batches
+                   if b.bucket_key == max(cfg["buckets"]))
+        metric = mx.metric.Perplexity(0)
+        ms = []
+        for _ in range(LSTM15_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.fit_step(b60, metric)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["step_ms"] = statistics.median(ms)
+        out["tokens_s"] = cfg["batch"] * max(cfg["buckets"]) \
+            / out["step_ms"] * 1e3
     upd = mod._buckets[mod._default_bucket_key]._updater
     blob = b"".join(bytes(p) for p in topt.dumps_states(
         (upd.states, upd.optimizer)))
@@ -7701,14 +7771,13 @@ def lstm15(mx, card):
         else:
             parity = f"6 steps, held in {res['gate']}: " + opt15_reading(
                 res, res["gate"])
-            if res["gate"] != "fp32":
-                parity += "; fp32 reading: " + opt15_reading(res, "fp32")
+        timed = "not timed (no fp32 run)" if res["step_ms"] is None else \
+            f"{res['step_ms']:.2f} ms = {res['tokens_s']:.0f} tokens/s"
         print(f"lstm15 {label}: {'--optimizer ' if flag else 'fit(optimizer='}"
               f"{name}{' --mom 0.9' if flag else ')'}: card vs CPU: "
               f"{parity}; fused step declined {res['declined']}; bucket-60 "
-              f"step {res['step_ms']:.2f} ms = {res['tokens_s']:.0f} "
-              f"tokens/s; state round trip {res['blob_mb']:.1f} MB equal; "
-              f"{time.perf_counter() - t0:.1f} s [{card}]")
+              f"step {timed}; state round trip {res['blob_mb']:.1f} MB "
+              f"equal; {time.perf_counter() - t0:.1f} s [{card}]")
         if label == "rmsprop centered":
             t0 = time.perf_counter()
             w = opt15_witness(mx, cfg, batches, values, params)
@@ -9867,16 +9936,17 @@ def est18(mx, card, rec):
     return {"images_s": images_s, "steps": steps, "carried": carried}
 
 
-def glm18_net(mx, ctx, values=None, dtype="float32", init=True):
-    """The gluon TransformerLM at LM_CFG's widths under GLM18_PREFIX on
-    `ctx`: `values` loaded, or phase 10's initialisation (Xavier under
-    mx.random.seed(SEED)); `dtype` float64 casts it, bfloat16 builds it
-    with bf16 parameters."""
+def glm18_net(mx, ctx, values=None, dtype="float32", init=True,
+              layers=LM_CFG["num_layers"]):
+    """The gluon TransformerLM at LM_CFG's widths, `layers` deep, under
+    GLM18_PREFIX on `ctx`: `values` loaded, or phase 10's initialisation
+    (Xavier under mx.random.seed(SEED)); `dtype` float64 casts it,
+    bfloat16 builds it with bf16 parameters."""
     from incubator_mxnet_tpu_torch.compat.weights import (
         block_params_from_numpy)
     from incubator_mxnet_tpu_torch.llm import TransformerLM
     cfg = lm_train_cfg(param_dtype="bfloat16" if dtype == "bfloat16"
-                       else "float32")
+                       else "float32", num_layers=layers)
     net = TransformerLM(cfg, prefix=GLM18_PREFIX)
     mx.random.seed(SEED)
     net.initialize(mx.initializer.Xavier(), ctx=ctx)
@@ -9907,7 +9977,8 @@ def glm18_state(net, trainer):
 def glm18_plain(mx, ctx, values, xs, ys):
     """10a's steps through gluon's plain loop in float64 on `ctx`: per
     step the mean loss, the embed_weight gradient, the state after."""
-    net = glm18_net(mx, ctx, values, "float64")
+    net = glm18_net(mx, ctx, values, "float64",
+                    layers=LM_TRAIN_PARITY_LAYERS)
     trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
                                dict(LM_TRAIN_OPT))
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
@@ -9939,7 +10010,8 @@ def glm18_parity(mx, card):
     batch, t, steps = LM_TRAIN_PARITY
     x, y = glm18_windows(batch * steps, t, SEED + 180)
     xs, ys = x.reshape(steps, batch, t), y.reshape(steps, batch, t)
-    values = block_params_to_numpy(glm18_net(mx, mx.cpu(), dtype="float64"))
+    values = block_params_to_numpy(glm18_net(
+        mx, mx.cpu(), dtype="float64", layers=LM_TRAIN_PARITY_LAYERS))
     cpu = glm18_plain(mx, mx.cpu(), values, xs, ys)
     gpu = glm18_plain(mx, mx.gpu(0), values, xs, ys)
     loss_err = max(abs(g[0] - c[0]) / abs(c[0]) for g, c in zip(gpu, cpu))
@@ -9950,7 +10022,8 @@ def glm18_parity(mx, card):
     print(f"18d gluon LM parity float64: {steps} plain-loop steps (record, "
           f"backward, Trainer.step; SGD lr {LM_TRAIN_OPT['learning_rate']} "
           f"momentum {LM_TRAIN_OPT['momentum']}) at batch {batch} x T {t}, "
-          f"{LM_CFG['num_layers']} layers x {LM_CFG['hidden']}, vocab "
+          f"{LM_TRAIN_PARITY_LAYERS} of GPT-2 small's {LM_CFG['num_layers']}"
+          f" layers x {LM_CFG['hidden']}, vocab "
           f"{LM_CFG['vocab_size']}, card vs CPU: loss "
           f"{' '.join(f'{g[0]:.6f}' for g in gpu)}, max relative err "
           f"{loss_err:.2e} (rtol {PARITY_TOL[0]:g}); tied embed_weight "
@@ -9958,7 +10031,8 @@ def glm18_parity(mx, card):
           f"after each step at {worst[0]:.3f} of it (worst {worst[1]}) "
           f"{'ok' if ok else 'FAIL'} [{card}]")
     check(ok, "18d: the gluon LM's card steps disagree with the CPU's")
-    net = glm18_net(mx, mx.gpu(0), values, "float64")
+    net = glm18_net(mx, mx.gpu(0), values, "float64",
+                    layers=LM_TRAIN_PARITY_LAYERS)
     trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
                                dict(LM_TRAIN_OPT))
     est = Estimator(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
@@ -11069,6 +11143,16 @@ def router20(mx, card, tmp):
               f"{wst['executed']} requests (K1 {k1_w0}) [{card}]")
         out["k1_local"] = k1_local
         out["k1_workers"] = k1_w0 + pre["w1"]
+        # 21a's key: who executed each answered request, and the pids
+        by = {rid: "w0" for rid in wst["executed_rids"] if rid in answers}
+        for r in local:
+            by.update({rid: r.replica_id for rid in r.executed_rids
+                       if rid in answers})
+        out["spans21"] = {
+            "answered": sorted(answers), "by": by,
+            "pids": {"main": os.getpid(), "w0": remote[0].process.pid,
+                     "w1": remote[1].process.pid},
+            "failovers": st["failovers"]}
 
         # 20b: the rolling swap over the N-1 fleet, under traffic
         t0 = time.perf_counter()
@@ -11292,6 +11376,11 @@ def fleet20(mx, card, hosts, prefix, solo_ms):
         stop["light"].set()
         for t in light:
             t.join(600)
+        # 21b: the fleet scraped with host-1 down and the traffic stopped
+        # (the idle retire parked meanwhile, so every leg is still placed)
+        fm.autoscaler.down_after_s = 3600.0
+        out21b = scrape21(fm, card, "host-1", on_dead)
+        fm.autoscaler.down_after_s = f["down_after"]
         t_idle = time.perf_counter()
         wait_for(lambda: fm.stats()["scale_downs"] >= 1, "the idle retire")
         idle_s = time.perf_counter() - t_idle
@@ -11316,7 +11405,8 @@ def fleet20(mx, card, hosts, prefix, solo_ms):
         out = {"declared_s": declared_s, "backfill_s":
                st["backfill_latency_s"], "up_s": up_s, "idle_s": idle_s,
                "spinup_s": [e["duration_s"] for e in ups],
-               "tally": dict(tally), "actions": actions, "k1": k1}
+               "tally": dict(tally), "actions": actions, "k1": k1,
+               "21b": out21b}
         print(f"20c: actions {' -> '.join(actions)}; the ramp's scale-up "
               f"live {up_s:.1f} s after it began; host-1 SIGKILLed, "
               f"declared dead {declared_s:.3f} s later (deadline "
@@ -11540,20 +11630,324 @@ def embed20(mx, card, tmp, procs):
     return out
 
 
+# -- phase 21: the telemetry plane (slice 19) --------------------------------
+
+# 21d: each lane is CLIENTS closed-loop clients of REQUESTS21 requests of
+# phase 4's shape; the lanes run off, on, on, off (one card, in turns)
+REQUESTS21 = 8
+PROFILE21_BATCHES = 4           # 21c: bucket-32 batches under the profiler
+
+
+def mxtrace_tool():
+    """tools/mxtrace.py, the repo's merge tool (it imports no JAX)."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import mxtrace
+    return mxtrace
+
+
+def scrape21(fm, card, dead, on_dead):
+    """21b: `FleetManager.scrape()` while host `dead` is down: it must not
+    raise, must list the host and the replicas that were on it under
+    ``unreachable``; the survivors' ``worker.executed`` must equal their
+    stats() counts, every ``prom`` text must parse, and each survivor's
+    K1 count must be 2 a forward (phase 20's rule)."""
+    from incubator_mxnet_tpu_torch.obs import parse_prometheus
+    t0 = time.perf_counter()
+    snap = fm.scrape()
+    ms = (time.perf_counter() - t0) * 1e3
+    gone = [u for u in [f"host:{dead}"] + [f"replica:{r}" for r in on_dead]
+            if u not in snap["unreachable"]]
+    check(not gone, f"21b: {gone} not under unreachable: "
+          f"{snap['unreachable']}")
+    check(snap["replicas"], "21b: no live worker answered the scrape")
+    series = 0
+    for text in [snap["local"]["prom"]] + [
+            leg["prom"] for leg in list(snap["hosts"].values())
+            + list(snap["replicas"].values())]:
+        series += len(parse_prometheus(text))
+    slots = fm._router_slots()
+    scraped = stated = k1 = 0
+    for rid, leg in snap["replicas"].items():
+        st = slots[rid].replica.stats()
+        scraped += leg["values"]["worker.executed"]
+        stated += st["executed"]
+        k1 += worker_k1_20(st, f"21b {rid}")
+    check(scraped == stated, f"21b: the survivors' worker.executed sum "
+          f"{scraped}, their stats() {stated}")
+    print(f"21b: FleetManager.scrape() with {dead} down in {ms:.1f} ms: "
+          f"hosts {sorted(snap['hosts'])}, workers {sorted(snap['replicas'])}"
+          f", unreachable {snap['unreachable']}; {series} Prometheus series "
+          f"parsed; the survivors' worker.executed {scraped} = their stats()"
+          f"; K1 {k1} = 2 a forward in each [{card}]")
+    return {"ms": ms, "unreachable": snap["unreachable"],
+            "replicas": len(snap["replicas"]), "series": series}
+
+
+def spans21(span_path, info, card):
+    """21a: every process of phase 20 appended its spans to `span_path`;
+    merged by tools/mxtrace.py: zero orphans; each answered request of
+    20a is one ``router.request`` root whose tree holds the answering
+    replica's span (``worker.infer`` in that worker's pid, or the
+    in-process replica's ``batcher.execute``, parented into the request
+    or listing its rid when the request was coalesced into another's
+    batch); a request that failed over off the SIGKILLed worker ends
+    under its original trace id."""
+    from incubator_mxnet_tpu_torch.obs import trace
+    mxtrace = mxtrace_tool()
+    t0 = time.perf_counter()
+    trace.flush()
+    spans, events, chrome = mxtrace.load_inputs([span_path])
+    merged, summary = mxtrace.merge(spans, events, chrome)
+    merge_s = time.perf_counter() - t0
+    check(summary["orphan_spans"] == 0,
+          f"21a: {summary['orphan_spans']} orphan spans: "
+          f"{summary['orphans'][:3]}")
+    kids, roots, batch_of = {}, {}, {}
+    for sp in spans:
+        if sp.get("pa"):
+            kids.setdefault(sp["pa"], []).append(sp)
+        if sp["name"] == "router.request":
+            roots.setdefault(sp["args"].get("rid"), []).append(sp)
+        elif sp["name"] == "batcher.execute":
+            for rid in str(sp["args"].get("rids", "")).split(","):
+                batch_of[rid] = sp
+    pids = info["pids"]
+    tally = {"l0": 0, "l1": 0, "w0": 0, "w1": 0, "w1_spans": 0,
+             "coalesced": 0}
+    failed_over = []
+    for rid in info["answered"]:
+        found = roots.get(rid, [])
+        check(len(found) == 1, f"21a: request {rid}: {len(found)} "
+              "router.request roots")
+        root = found[0]
+        reached, frontier = [], [root]
+        while frontier:
+            cur = frontier.pop()
+            reached.append(cur)
+            frontier += kids.get(cur["sp"], [])
+        check(all(sp["tr"] == root["tr"] for sp in reached),
+              f"21a: request {rid}: a span of its tree left its trace")
+        who = info["by"].get(rid, "w1")
+        check(root["args"].get("outcome") == "ok" and
+              root["args"].get("replica") == who,
+              f"21a: request {rid}: root args {root['args']}, executed by "
+              f"{who}")
+        tally[who] += 1
+        if root["args"].get("dispatches", 1) > 1:
+            failed_over.append(rid)
+        if who in ("w0", "w1"):
+            held = any(sp["name"] == "worker.infer" and
+                       sp["pid"] == pids[who] for sp in reached)
+            if who == "w0":
+                check(held, f"21a: request {rid}: no worker.infer in w0's "
+                      f"pid {pids['w0']} in its tree")
+            tally["w1_spans"] += who == "w1" and held
+            continue
+        batch = next((sp for sp in reached
+                      if sp["name"] == "batcher.execute"), None)
+        if batch is None:
+            batch = batch_of.get(rid)
+            tally["coalesced"] += batch is not None
+        check(batch is not None and batch["pid"] == pids["main"],
+              f"21a: request {rid}: no batcher.execute of {who}")
+    check(len(failed_over) >= 1 and info["failovers"] >= 1,
+          f"21a: no request failed over ({info['failovers']} failovers)")
+    for rid in failed_over:
+        check(info["by"].get(rid, "w1") != "w1",
+              f"21a: request {rid} failed over yet answered by w1")
+    print(f"21a: {summary['spans']} spans in {summary['traces']} traces "
+          f"from {summary['processes']} processes merged by "
+          f"tools/mxtrace.py in {merge_s:.2f} s, 0 orphans; each of 20a's "
+          f"{len(info['answered'])} answered requests one router.request "
+          f"tree holding its replica's span (l0 {tally['l0']}, l1 "
+          f"{tally['l1']} in batcher.execute, {tally['coalesced']} of them "
+          f"coalesced into another request's batch; w0 {tally['w0']} in its "
+          f"worker.infer at pid {pids['w0']}); w1 answered {tally['w1']} "
+          f"before its SIGKILL, {tally['w1_spans']} of whose worker.infer "
+          f"spans it had flushed (a killed process loses its unflushed "
+          f"buffer); {len(failed_over)} failed over, each ended ok under "
+          f"its original trace id [{card}]")
+    return {"spans": summary["spans"], "traces": summary["traces"],
+            "processes": summary["processes"], "merge_s": merge_s,
+            "failed_over": len(failed_over), "w1_flushed":
+            (tally["w1_spans"], tally["w1"])}
+
+
+def load21(mx, srv, loads):
+    """One closed-loop lane of 21d over ModelServer `srv`: -> requests/s,
+    p50 and p99 ms of the clients' own latencies."""
+    lat, errors = [], []
+    lock = threading.Lock()
+    gate = threading.Barrier(len(loads) + 1)
+
+    def client(xs):
+        gate.wait()
+        for x in xs:
+            t = time.perf_counter()
+            try:
+                srv.predict("vgg", {"data": x}, timeout_ms=600_000)
+            except Exception as exc:   # fails the run below
+                errors.append(repr(exc))
+                return
+            with lock:
+                lat.append((time.perf_counter() - t) * 1e3)
+
+    threads = [threading.Thread(target=client, args=(xs,), daemon=True)
+               for xs in loads]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"21d: requests failed: {errors[:3]}")
+    return {"rps": len(lat) / wall, "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+def telemetry21(mx, card, prefix, workdir):
+    """21c and 21d on phase 4's server (VGG-16, TPU_PALLAS, buckets 1-32,
+    phase 4's seeded weights from 20a's checkpoint `prefix`): the
+    profiler around PROFILE21_BATCHES bucket-32 batches with a Task, a
+    Frame, a Counter and a Marker, the dumped chrome trace and the
+    tables; then requests/s and p50/p99 with tracing off and on, and the
+    span's calibrated cost.  -> the numbers and K1's launches."""
+    from incubator_mxnet_tpu_torch import profiler
+    from incubator_mxnet_tpu_torch.obs import trace
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    out = {}
+    srv = mx.serving.ModelServer(max_queue_latency_ms=5.0, ctx=mx.gpu(0))
+    k1_0 = fc_relu.launches
+    try:
+        srv.load_model("vgg", prefix=prefix,
+                       data_shapes=[("data", (1,) + IMAGE)], buckets=BUCKETS)
+        rng = np.random.RandomState(SEED + 210)
+        x = rng.rand(max(BUCKETS), *IMAGE).astype(np.float32)
+        dump = os.path.join(workdir, "profile21.json")
+        profiler.set_config(filename=dump)
+        for tries in range(1, 4):
+            profiler.dumps(reset=True)
+            launches = fc_relu.launches
+            profiler.set_state("run")
+            counter = profiler.Counter("21c.batches", value=0)
+            with profiler.Task("21c.serve"):
+                for _ in range(PROFILE21_BATCHES):
+                    with profiler.Frame("21c.batch"):
+                        srv.predict("vgg", {"data": x}, timeout_ms=600_000)
+                    counter += 1
+                profiler.Marker("21c.done").mark()
+            torch.cuda.synchronize()
+            mem = profiler.record_memory("21c", ctx=mx.gpu(0))
+            profiler.set_state("stop")
+            launches = fc_relu.launches - launches
+            profiler.dump()
+            with open(dump) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            if kernels:
+                break
+        check(kernels, "21c: the profiler recorded no CUDA kernel in "
+              f"{tries} sessions")
+        names = {e.get("name") for e in events}
+        want = ("21c.serve", "21c.batch", "21c.batches", "21c.done",
+                "Memory:21c", "serving:vgg")
+        check(all(w in names for w in want), f"21c: custom events missing "
+              f"from the chrome trace: {[w for w in want if w not in names]}")
+        table = profiler.dumps()
+        check("21c.serve: count=1" in table and "21c.batch: count="
+              f"{PROFILE21_BATCHES}" in table and
+              "torch.profiler (last session):" in table,
+              "21c: dumps() lacks the per-op table")
+        check(mem is not None and mem["bytes_in_use"] > 0,
+              f"21c: record_memory read {mem}")
+        k1_seen = collections.Counter(
+            next(k for k in K1_KERNELS if k in e["name"]) for e in kernels
+            if any(k in e["name"] for k in K1_KERNELS))
+        out["21c"] = {"kernels": len(kernels), "events": len(events),
+                      "k1_seen": dict(k1_seen), "k1": launches,
+                      "bytes_in_use": mem["bytes_in_use"], "tries": tries}
+        print(f"21c: profiler.set_state('run') around {PROFILE21_BATCHES} "
+              f"bucket-32 batches (session {tries}): the dumped chrome "
+              f"trace loads as JSON, {len(events)} events, {len(kernels)} "
+              f"CUDA kernels, the Task, Frame, Counter, Marker, memory and "
+              f"serving events; dumps() {len(table.splitlines())} lines "
+              f"with the per-op table; record_memory bytes_in_use "
+              f"{mem['bytes_in_use']} peak {mem['peak_bytes_in_use']}; K1 "
+              f"kernels in the trace {dict(k1_seen)} against "
+              f"fc_relu.launches {launches} (printed, not held: a session "
+              f"can drop kernels) [{card}]")
+        profiler.dumps(reset=True)
+        # 21d: the same load with tracing off and on, in turns
+        loads = [[rng.rand(rng.randint(1, 9), *IMAGE).astype(np.float32)
+                  for _ in range(REQUESTS21)] for _ in range(CLIENTS)]
+        load21(mx, srv, loads)                   # warm
+        span_file = os.path.join(workdir, "spans21d.jsonl")
+        lanes = {"off": [], "on": []}
+        spans = 0
+        for mode in ("off", "on", "on", "off"):
+            if mode == "on":
+                trace.enable(span_file)
+                ended = trace.stats()["ended"]
+            lanes[mode].append(load21(mx, srv, loads))
+            if mode == "on":
+                spans += trace.stats()["ended"] - ended
+                trace.flush()
+                trace.disable()
+        trace.enable(span_file)
+        cost_s = trace.calibrate_span_cost()
+        trace.disable()
+        n = 2 * CLIENTS * REQUESTS21
+        agg = {m: {k: statistics.mean(r[k] for r in runs)
+                   for k in ("rps", "p50_ms", "p99_ms")}
+               for m, runs in lanes.items()}
+        out["21d"] = dict(agg, span_ns=cost_s * 1e9,
+                          spans_per_request=spans / n)
+        print(f"21d: {CLIENTS} clients x {REQUESTS21} requests a lane, "
+              f"lanes off/on/on/off: tracing off " + ", ".join(
+                  f"{r['rps']:.1f} requests/s p50 {r['p50_ms']:.1f} p99 "
+                  f"{r['p99_ms']:.1f} ms" for r in lanes["off"])
+              + "; on " + ", ".join(
+                  f"{r['rps']:.1f} requests/s p50 {r['p50_ms']:.1f} p99 "
+                  f"{r['p99_ms']:.1f} ms" for r in lanes["on"])
+              + f"; on/off requests/s {agg['on']['rps'] / agg['off']['rps']:.3f}"
+              f"; {spans / n:.3f} spans a request; calibrate_span_cost "
+              f"{cost_s * 1e9:.0f} ns a span (printed, not held) [{card}]")
+    finally:
+        trace.disable()
+        if profiler.state() == "run":
+            profiler.set_state("stop")
+        profiler.set_config(filename="profile.json")
+        srv.shutdown(drain=True)
+    out["k1"] = fc_relu.launches - k1_0
+    return out
+
+
 def fleet_phase(card, workdir):
-    """Phase 20: the serving fleet (slice 18), 20a-20e; returns K1's
-    launches on its paths and the numbers of the summary line.  K2 and
-    K3 must not run."""
+    """Phase 20: the serving fleet (slice 18), 20a-20e, traced: every
+    process appends its spans to one file (MXNET_OBS_TRACE, which the
+    worker, host daemon and shard server processes inherit); 21b scrapes
+    the fleet inside 20c; then phase 21's 21a (the merged spans), 21c and
+    21d (`telemetry21`).  Returns K1's launches on its paths and the
+    numbers of the summary lines.  K2 and K3 must not run."""
     import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.obs import trace
     from incubator_mxnet_tpu_torch.ops.flash_attention import (
         flash_fwd, flash_fwd_stream)
     vgg_k1_held("phase 20")
     for wrapper in (flash_fwd, flash_fwd_stream):
         wrapper.launches = 0
-    saved = {k: os.environ.get(k) for k in KNOBS20}
-    os.environ.update(KNOBS20)
-    out, times = {}, {}
     tmp = tempfile.mkdtemp(dir=workdir)
+    span_path = os.path.join(tmp, "spans.jsonl")
+    knobs = dict(KNOBS20, MXNET_OBS_TRACE=span_path)
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    trace.enable(span_path)
+    out, times = {}, {}
     # the host daemons (20c) and shard servers (20e) start now, idle
     # until their sub-phase
     launcher, hosts, host_errors = hosts20(mx)
@@ -11577,7 +11971,13 @@ def fleet_phase(card, workdir):
         t0 = time.perf_counter()
         out["20e"] = embed20(mx, card, tmp, shards)
         times["20e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["21a"] = spans21(span_path, out["router"]["spans21"], card)
+        trace.disable()
+        out["21cd"] = telemetry21(mx, card, os.path.join(tmp, "vgg20"), tmp)
+        times["21acd"] = time.perf_counter() - t0
     finally:
+        trace.disable()
         launcher.join()
         kill_hosts20(hosts)
         for proc, _ in shards:
@@ -11598,7 +11998,8 @@ def fleet_phase(card, workdir):
     out["k1"] = {"router_local": out["router"]["k1_local"],
                  "router_workers": out["router"]["k1_workers"],
                  "fleet_workers": out["20c"]["k1"],
-                 "embedding_serving": out["20e"]["k1"]}
+                 "embedding_serving": out["20e"]["k1"],
+                 "telemetry_server": out["21cd"]["k1"]}
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -11703,7 +12104,10 @@ def main():
     print(f"phase 19: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     f20 = fleet_phase(card, str(_build.BUILD_DIR.parent))
-    print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    t21 = f20["times"]["21acd"] + f20["20c"]["21b"]["ms"] / 1e3
+    print(f"phase 20: {time.perf_counter() - t0 - t21:.1f} s")
+    print(f"phase 21: {t21:.1f} s (21a, 21c, 21d, and 21b's scrape inside "
+          f"20c)")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -11839,7 +12243,8 @@ def main():
           f"metrics {reg['metrics']:.3f}; 15b config #4 under "
           f"{len(reg['lstm'])} optimizers, bucket-60 tokens/s "
           + ", ".join(f"{k} {v['tokens_s']:.0f}"
-                      for k, v in reg["lstm"].items())
+                      for k, v in reg["lstm"].items()
+                      if v["tokens_s"] is not None)
           + f"; 15c SequentialModule mlp K1 {seq['k1_launches']} launches, "
           f"vs one Module {seq['split_worst']:.3f}, monitor "
           f"{seq['monitor_worst']:.3f}, accuracy {seq['accuracy']:.4f}, "
@@ -11925,6 +12330,19 @@ def main():
           f"{f20['k1']}; " + ", ".join(f"{k} {v:.1f} s" for k, v in
                                        f20["times"].items())
           + f" [{card}]")
+    ta, tb, tc, td = (f20["21a"], f20["20c"]["21b"], f20["21cd"]["21c"],
+                      f20["21cd"]["21d"])
+    print(f"telemetry summary: 21a {ta['spans']} spans, {ta['traces']} "
+          f"traces, {ta['processes']} processes, 0 orphans, "
+          f"{ta['failed_over']} failed over under their trace ids, merged "
+          f"in {ta['merge_s']:.2f} s; 21b scrape with a host down "
+          f"{tb['ms']:.1f} ms, {tb['series']} series, unreachable "
+          f"{tb['unreachable']}; 21c {tc['kernels']} kernels in the trace, "
+          f"K1 {tc['k1_seen']} vs {tc['k1']} launches; 21d requests/s off "
+          f"{td['off']['rps']:.1f} on {td['on']['rps']:.1f}, p50 "
+          f"{td['off']['p50_ms']:.1f}/{td['on']['p50_ms']:.1f} ms, p99 "
+          f"{td['off']['p99_ms']:.1f}/{td['on']['p99_ms']:.1f} ms, "
+          f"{td['span_ns']:.0f} ns a span [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"

@@ -70,7 +70,11 @@ gluon's data plane (`DataLoader`'s worker threads, `RecordFileDataset`,
 `text` and `tensorboard`.  Slice 17 adds sparse storage (`nd.sparse`:
 CSR and row_sparse `NDArray`s, sparse `dot`, both in `.params`, LibSVM
 batches through `Module`), the quantization ops with
-`contrib.quantization.quantize_model`, and `contrib.onnx`.
+`contrib.quantization.quantize_model`, and `contrib.onnx`.  Slice 18
+adds the serving fleet (`serving.ReplicaRouter`, worker processes, host
+daemons, `serving.fleet.FleetManager`).  Slice 19 adds the telemetry
+plane: `obs` (metrics, cross-process trace spans, the ``metrics`` scrape
+frame, the shared JSONL sink) and `profiler` over `torch.profiler`.
 
     import incubator_mxnet_tpu_torch as mx
 """
@@ -119,6 +123,8 @@ from .monitor import Monitor
 from . import attribute
 from .attribute import AttrScope
 from . import contrib
+from . import obs
+from . import profiler
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "ops", "symbol", "sym", "ndarray", "nd", "subgraph",
@@ -129,4 +135,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "checkpoint", "rnn", "recordio", "native", "image", "io_plane",
            "kvstore", "kv", "kvstore_server", "resilience", "embedding",
            "test_utils", "monitor", "Monitor", "attribute", "AttrScope",
-           "contrib"]
+           "contrib", "obs", "profiler"]

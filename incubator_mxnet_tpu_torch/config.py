@@ -75,6 +75,15 @@ are `serving.router.ReplicaRouter`'s; ``MXNET_FLEET_TICK_S`` (0.5 s),
 ``_MAX_REPLICAS`` (8), ``_HOST_HEARTBEAT_S`` (1 s) and
 ``_HOST_DEADLINE_S`` (5 s) are `serving.fleet.FleetManager`'s.
 
+The telemetry plane's knobs, with the JAX package's defaults:
+``MXNET_OBS_TRACE`` (str, empty) names the shared span file and turns
+tracing on (`obs.trace`), ``MXNET_OBS_TRACE_BUFFER`` (65536) caps each
+process's span buffer and ``MXNET_OBS_METRICS`` (on) lets a scrape call
+the registered producers; ``MXNET_PROFILER_AUTOSTART`` (off) starts
+`profiler` at import, ``MXNET_PROFILER_MAX_EVENTS`` (250000) caps its
+custom-event buffer and ``MXNET_PROFILER_MODE`` (0) is accepted and
+ignored, as in the JAX package.
+
 ``MXNET_FLASH_INTERPRET`` is not carried over: in the port the tensor's
 device decides.  A CPU tensor takes a kernel's plain PyTorch version; a
 CUDA tensor launches the kernel or raises.
@@ -245,6 +254,26 @@ KNOBS = {
     "MXNET_FLEET_HOST_DEADLINE_S": (float, 5.0,
                                     "heartbeat silence before a host is "
                                     "declared dead with all its replicas"),
+    "MXNET_OBS_TRACE": (str, "",
+                        "shared span JSONL file; set, every process of a "
+                        "run (router, workers, host daemons, parameter "
+                        "servers) appends its finished spans there "
+                        "(obs/trace.py)"),
+    "MXNET_OBS_TRACE_BUFFER": (int, 65536,
+                               "in-memory span buffer cap per process "
+                               "(drop-oldest past it, counted in "
+                               "'trace.dropped')"),
+    "MXNET_OBS_METRICS": (_BOOL, True,
+                          "collect() invokes the registered stats() "
+                          "producers; off: the instruments only"),
+    "MXNET_PROFILER_AUTOSTART": (_BOOL, False,
+                                 "profiler.py starts a trace at import"),
+    "MXNET_PROFILER_MODE": (int, 0, "accepted, no effect (as in the JAX "
+                                    "package)"),
+    "MXNET_PROFILER_MAX_EVENTS": (int, 250000,
+                                  "profiler.py custom-event buffer cap "
+                                  "(drop-oldest past it, counted in "
+                                  "'profiler.dropped_events')"),
 }
 
 

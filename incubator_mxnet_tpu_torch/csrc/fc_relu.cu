@@ -50,8 +50,8 @@
 //   for fp32: 40 us), under the 123 us of bytes.
 //
 // cuda_core (fc_relu_kernel): split-K tiles of CUDA-core FMAs, for shapes
-// the tensor-core route does not take (a row stride TMA cannot read) and
-// the smallest buckets (kTcMinRows):
+// the tensor-core route does not take (a row stride TMA cannot read), the
+// smallest buckets (kTcMinRows) and small weights (kTcMinWeights):
 //   * each warp owns kCols output columns and walks K with 16-byte
 //     vector loads of w (neighbouring lanes on neighbouring addresses),
 //     one w load feeding ROWS (at most 8) rows of x from L1/L2;
@@ -474,6 +474,17 @@ constexpr int kTcMinSteps = 4;      // tensor_core: stages per K range, at least
 // at fc6; 16-bit at M = 1 the two were within 3 %.
 constexpr int kTcMinRows[3] = {8, 2, 2};
 
+// ... and from this many weights (N * K) up.  Below, the tensor-core
+// route's fixed costs (the TMA maps' fetch, the ring's fill, and in fp32
+// the split of x) outweigh its arithmetic: on an H100 (700 W,
+// chip_smoke.py phase 3) cuda_core took 0.0020-0.0031 ms of device time
+// at the mlp's fc2 (128 x 64) and wide_deep's deep1 (32 x 32) where
+// tensor_core took 0.0048-0.0070 ms.  At the mlp's fc1 (784 x 128)
+// tensor_core stays: in 16-bit it is the faster (0.0045 against 0.0063
+// ms at M = 5), in fp32 within 1.1x of cuda_core (0.0094 against 0.0086
+// at M = 64).
+constexpr long long kTcMinWeights = 1LL << 16;
+
 enum Route { kCudaCore = 0, kTensorCore = 1 };
 
 struct Plan {
@@ -502,12 +513,12 @@ bool tc_readable(const void* x, const void* w, int N, int K, int dtype) {
 }
 
 // The launch of one call.  route: -1 lets the library choose (tensor_core
-// where it can read the operands and M reaches kTcMinRows, else
-// cuda_core); 0 or 1 asks for that route.  cuda_core splits K until about
-// kBlocksPerSm blocks per SM are in flight; tensor_core into the most
-// ranges whose blocks fit the card's kTcBlocksPerSm slots per SM at once.
-// Returns false when the shape, dtype or requested route is outside the
-// kernels' range.
+// where it can read the operands, M reaches kTcMinRows and N * K reaches
+// kTcMinWeights, else cuda_core); 0 or 1 asks for that route.  cuda_core
+// splits K until about kBlocksPerSm blocks per SM are in flight;
+// tensor_core into the most ranges whose blocks fit the card's
+// kTcBlocksPerSm slots per SM at once.  Returns false when the shape,
+// dtype or requested route is outside the kernels' range.
 bool make_plan(const void* x, const void* w, int M, int N, int K, int dtype,
                int sm_count, int route, Plan* p) {
   if (M <= 0 || N <= 0 || K <= 0 || dtype < kF32 || dtype > kF16 ||
@@ -516,7 +527,10 @@ bool make_plan(const void* x, const void* w, int M, int N, int K, int dtype,
   if (static_cast<long long>(M) * N >= (1LL << 31)) return false;
   const bool tc_ok = tc_readable(x, w, N, K, dtype);
   if (route == -1)
-    route = tc_ok && M >= kTcMinRows[dtype] ? kTensorCore : kCudaCore;
+    route = tc_ok && M >= kTcMinRows[dtype] &&
+                    static_cast<long long>(N) * K >= kTcMinWeights
+                ? kTensorCore
+                : kCudaCore;
   if (route == kTensorCore && !tc_ok) return false;
   const int sms = sm_count > 0 ? sm_count : 1;
   p->route = route;

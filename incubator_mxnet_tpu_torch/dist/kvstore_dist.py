@@ -87,6 +87,13 @@ class KVStoreDist(KVStoreDevice):
         self._push_count = {}    # (server, key) -> completed sync pushes
         self.wire_bytes = 0      # bytes of gradient payload pushed
         self._closed = False
+        # route profiler(profile_process='server') commands through us
+        from .. import profiler as _profiler
+        _profiler.set_kvstore_handle(self)
+        # telemetry plane: the dist retry counters under their own
+        # namespace (the base class registers 'kvstore')
+        from ..obs import metrics as _obs_metrics
+        _obs_metrics.register_producer("kvstore.dist", self.stats)
 
     # -- identity ------------------------------------------------------------
     @property
@@ -305,10 +312,32 @@ class KVStoreDist(KVStoreDevice):
         self._barrier()
 
     def server_metrics(self):
-        """Each server's counters (``metrics``): pushes, pulls, rounds,
-        optimizer updates and their ms."""
-        return [self._request(srv, {"cmd": "metrics"})["values"]
-                for srv in range(len(self._chans))]
+        """Each server's counters from its ``metrics`` scrape: pushes,
+        pulls, rounds, optimizer updates and their ms (the server's
+        ``ps.<port>`` producer, the prefix taken off)."""
+        out = []
+        for srv, chan in enumerate(self._chans):
+            values = self._request(srv, {"cmd": "metrics"})["values"]
+            pfx = f"ps.{chan.port}."
+            out.append({k[len(pfx):]: v for k, v in values.items()
+                        if k.startswith(pfx)})
+        return out
+
+    def server_profiler_command(self, action, **kw):
+        """Drive every parameter server's profiler (reference
+        `mx.profiler.set_config/set_state/dump(profile_process='server')`
+        forwarded through MXKVStoreSendCommmandToServers).  Every server
+        is attempted; the failures are raised together."""
+        errors = []
+        for i, chan in enumerate(self._chans):
+            try:
+                _check(chan.request(dict({"cmd": "profiler",
+                                          "action": action}, **kw)))
+            except Exception as e:
+                errors.append(f"server {i}: {e}")
+        if errors:
+            raise MXNetError("server profiler command failed on: " +
+                             "; ".join(errors))
 
     def _barrier(self):
         _check(self._chan.request({"cmd": "barrier"}))
@@ -319,6 +348,9 @@ class KVStoreDist(KVStoreDevice):
         if self._closed:
             return
         self._closed = True
+        from .. import profiler as _profiler
+        if _profiler._kvstore_handle[0] is self:
+            _profiler.set_kvstore_handle(None)
         for chan in self._chans:
             if send_stop:
                 try:

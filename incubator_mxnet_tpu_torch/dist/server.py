@@ -18,10 +18,13 @@ memory).  A pickled optimizer or optimizer state is unpickled through an
 allowlist (`transport.loads_port_blob`): the port's optimizer and
 schedule classes, its arrays and numpy's; a blob from the JAX package is
 refused, never unpickled into it.  ``MXNET_PS_HMAC_KEY`` is the guard
-against an untrusted peer.  ``metrics`` answers the server's own counters
-(pushes, pulls, rounds applied, optimizer updates and their time) where
-the JAX server answers its telemetry registry; ``profiler`` drives
-`torch.profiler` in this process.
+against an untrusted peer.  ``metrics`` answers this process's telemetry
+registry (`obs.scrape.metrics_reply`), as the JAX server does; the
+server's own counters (pushes, pulls, rounds applied, optimizer updates
+and their time) are its producer under ``ps.<port>``, which the JAX
+server does not register.  ``profiler`` drives the port's `profiler` in
+this process.  Every command runs inside a ``server.<cmd>`` span that
+adopts the request frame's trace context.
 
 Sync semantics (``dist_sync``): each key carries a version, the number
 of completed rounds; a worker's n-th push joins round n, which applies
@@ -40,6 +43,9 @@ import time
 
 import numpy as np
 
+from ..obs import metrics as _obs_metrics
+from ..obs import trace as _obs_trace
+from ..obs.scrape import metrics_reply
 from .membership import MembershipTable
 from .transport import loads_port_blob, recv_msg, send_msg
 
@@ -85,8 +91,6 @@ class _State:
         self.counters = {"pushes": 0, "pulls": 0, "rounds": 0,
                          "updates": 0, "update_s": 0.0,
                          "embed_pushes": 0, "embed_pulls": 0}
-        self.profiler = None
-        self.profiler_config = {}
 
 
 class ParameterServer:
@@ -148,6 +152,8 @@ class ParameterServer:
                 "or 0.0.0.0 explicitly if you mean all interfaces.") from e
         self.port = self._server.server_address[1]
         self._thread = None
+        self.namespace = f"ps.{self.port}"
+        _obs_metrics.register_producer(self.namespace, self.stats)
 
     # -- lifecycle -----------------------------------------------------------
     def start(self):
@@ -168,6 +174,7 @@ class ParameterServer:
     def shutdown(self):
         self._server.shutdown()
         self._server.server_close()
+        _obs_metrics.unregister_producer(self.namespace)
 
     def _simulate_crash(self):
         """Die in place: refuse new connections and close every live one
@@ -228,7 +235,11 @@ class ParameterServer:
                 st.client_inflight.add((client, seq))
         reply = None
         try:
-            reply = self._dispatch(msg)
+            # the cross-process trace edge: the handling span adopts the
+            # frame's ``tr`` context
+            with _obs_trace.server_span(msg, f"server.{cmd}",
+                                        cat="kvstore"):
+                reply = self._dispatch(msg)
         finally:
             if dedup:
                 with st.cond:
@@ -298,10 +309,9 @@ class ParameterServer:
             step_time=msg.get("step_time"))
 
     def _cmd_metrics(self, msg):
-        values = {f"server.{k}": v for k, v in self.stats().items()}
-        prom = "".join(f"mx_{k.replace('.', '_')} {v}\n"
-                       for k, v in sorted(values.items()))
-        return {"ok": True, "values": values, "prom": prom}
+        # the scrape plane: this process's registry snapshot, this
+        # server's counters under its ``ps.<port>`` namespace among them
+        return metrics_reply()
 
     def _cmd_members(self, msg):
         return {"ok": True, "view": self._membership().view()}
@@ -491,37 +501,27 @@ class ParameterServer:
         return {"ok": True}
 
     def _cmd_profiler(self, msg):
-        """`torch.profiler` in this process: ``set_config`` (its
-        ``filename``), ``set_state`` ("run"/"stop"), ``dump`` (a Chrome
-        trace to the configured file)."""
-        st = self._state
+        """The port's `profiler` in this process (reference kvstore.py
+        set_server_profiler_state/dump, forwarded by
+        `KVStoreDist.server_profiler_command`): ``set_config``,
+        ``set_state`` ("run"/"stop"), ``dump`` (its chrome trace to the
+        configured file)."""
+        from .. import profiler as _profiler
         action = msg.get("action")
         try:
             if action == "set_config":
-                st.profiler_config.update(msg.get("config", {}))
+                _profiler.set_config(**msg.get("config", {}))
             elif action == "set_state":
-                want = msg.get("state", "stop")
-                if want == "run" and st.profiler is None:
-                    import torch.profiler as tp
-                    st.profiler = tp.profile(
-                        activities=[tp.ProfilerActivity.CPU])
-                    st.profiler.__enter__()
-                elif want == "stop" and st.profiler is not None:
-                    st.profiler.__exit__(None, None, None)
-                    st.profiler_done, st.profiler = st.profiler, None
+                _profiler.set_state(msg.get("state", "stop"))
             elif action == "dump":
-                prof = getattr(st, "profiler_done", None)
-                if prof is None:
-                    return {"error": "server profiler: nothing recorded "
-                                     "(set_state run, then stop)"}
-                prof.export_chrome_trace(st.profiler_config.get(
-                    "filename", "server_profile.json"))
+                _profiler.dump()
             else:
                 return {"error": f"unknown profiler action {action!r}"}
         except Exception as e:
+            # every command replies: a raise would leave the worker
+            # without an answer
             return {"error": f"server profiler {action} failed: {e!r}"}
-        return {"ok": True,
-                "state": "run" if st.profiler is not None else "stop"}
+        return {"ok": True, "state": _profiler.state()}
 
     # -- sharded embedding tier ----------------------------------------------
     def _cmd_embed_init(self, msg):

@@ -40,6 +40,8 @@ import socket
 import struct
 import time
 
+from ..obs import trace as _obs_trace
+
 __all__ = ["Channel", "send_msg", "recv_msg", "SafeUnpickler",
            "loads_port_blob", "parse_endpoint"]
 
@@ -273,8 +275,15 @@ class Channel:
         policy (the server dedups by client and seq); a timeout raises
         and leaves the channel consistent."""
         msg = self._frame(obj)
+        # with tracing on (MXNET_OBS_TRACE) the frame carries a ``tr``
+        # span context the server's handling span parents to; a resend
+        # reuses the frame, so a deduplicated replay joins the same trace
+        sp = _obs_trace.rpc_span(msg, f"{self.host}:{self.port}")
         self._last_frame = msg
-        return self._send_framed(msg)
+        try:
+            return self._send_framed(msg)
+        finally:
+            sp.end()
 
     def resend_last(self):
         """Retry the last request with its original sequence number, so
@@ -317,8 +326,12 @@ class Channel:
         if self._closed or self._sock is None:
             raise ConnectionError(
                 f"channel to {self.host}:{self.port} is closed")
-        send_msg(self._sock, msg)
-        return self._read_reply(msg["seq"])
+        sp = _obs_trace.rpc_span(msg, f"{self.host}:{self.port}")
+        try:
+            send_msg(self._sock, msg)
+            return self._read_reply(msg["seq"])
+        finally:
+            sp.end()
 
     def close(self):
         """Close for good: later requests fail fast."""

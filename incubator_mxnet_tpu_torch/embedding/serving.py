@@ -11,8 +11,10 @@ fails queued work over).  An embedding SHARD dying surfaces here as
 `ServerLostError` during the fan-out; every admitted request retries
 through the ``on_shard_lost`` recovery hook (respawn + `replace_shard`,
 or a standby address) until its deadline, so a shard kill mid-traffic
-loses no admitted request.  Declared divergences: no trace span and no
-telemetry producer (`obs/` is not ported).
+loses no admitted request.  Each request is an ``embedding.serve`` span
+(the router's ``router.request`` parents into it), and the path's own
+counters are the ``embedding.serve.<table>`` producer, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import time
 
 import numpy as np
 
+from ..obs import metrics as _obs_metrics
+from ..obs import trace as _trace
 from ..resilience import ServerLostError
 
 __all__ = ["EmbeddingServingPath"]
@@ -42,6 +46,11 @@ class EmbeddingServingPath:
         self.requests = 0
         self.completed = 0
         self.shard_failovers = 0
+        # the path-local counters only: the table and the router register
+        # their own producers
+        self._name = getattr(table, "name", "table")
+        self._ns = f"embedding.serve.{self._name}"
+        _obs_metrics.register_producer(self._ns, self._scrape)
 
     def _fan_out(self, ids):
         """The looked-up vectors of the request's ids (host numpy),
@@ -67,12 +76,15 @@ class EmbeddingServingPath:
         ids = np.asarray(ids, dtype=np.int64)
         with self._lock:
             self.requests += 1
-        vecs = self._fan_out(ids)
-        inputs = {self.embed_input: vecs.reshape(ids.shape[0], -1)}
-        if dense:
-            inputs.update(dense)
-        fut = self.router.submit(inputs, timeout_ms=timeout_ms,
-                                 priority=priority, request_id=request_id)
+        with _trace.span("embedding.serve", cat="embedding",
+                         table=self._name, rows=int(ids.size)):
+            vecs = self._fan_out(ids)
+            inputs = {self.embed_input: vecs.reshape(ids.shape[0], -1)}
+            if dense:
+                inputs.update(dense)
+            fut = self.router.submit(inputs, timeout_ms=timeout_ms,
+                                     priority=priority,
+                                     request_id=request_id)
         with self._lock:
             self.completed += 1
         return fut
@@ -83,11 +95,14 @@ class EmbeddingServingPath:
         budget = (timeout_ms / 1e3) if timeout_ms else 30.0
         return fut.result(budget)
 
+    def _scrape(self):
+        with self._lock:
+            return {"requests": self.requests, "completed": self.completed,
+                    "shard_failovers": self.shard_failovers}
+
     def stats(self):
-        return {"requests": self.requests, "completed": self.completed,
-                "shard_failovers": self.shard_failovers,
-                "table": self.table.stats(),
-                "router": self.router.stats()}
+        return dict(self._scrape(), table=self.table.stats(),
+                    router=self.router.stats())
 
     def close(self):
-        pass
+        _obs_metrics.unregister_producer(self._ns)

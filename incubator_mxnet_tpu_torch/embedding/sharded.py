@@ -3,8 +3,9 @@
 PyTorch port of `incubator_mxnet_tpu/embedding/sharded.py`, on the
 port's parameter servers (`dist.server`) and wire (`dist.transport`).
 The hot-row cache lives on the table's context (``ctx``, the card by
-default); `lookup` returns a tensor there.  The JAX package's telemetry
-producer and trace spans are not ported.
+default); `lookup` returns a tensor there.  `stats()` is the
+``embedding.<name>`` telemetry producer and each lookup an
+``embedding.lookup`` span, as in the JAX package.
 
 One `ShardedEmbedding` names a logical table of ``num_rows x dim`` that
 NEVER materializes densely: its rows are range- or hash-partitioned into
@@ -34,6 +35,7 @@ from .. import config as _config
 from ..base import MXNetError
 from ..context import current_context
 from ..dist.transport import Channel
+from ..obs import metrics as _obs_metrics, trace as _trace
 from ..resilience import CircuitBreaker, ServerLostError
 from .cache import HotRowCache
 
@@ -123,6 +125,8 @@ class ShardedEmbedding:
         self.lookup_rows = 0
         self.failovers = 0
         self._t0 = time.monotonic()
+        _obs_metrics.register_producer(f"embedding.{self.name}",
+                                       self.stats)
         self._init_shards(init_values)
         if optimizer is not None:
             self.set_optimizer(optimizer)
@@ -260,11 +264,13 @@ class ShardedEmbedding:
         shards in one batch per shard and are pinned for next time."""
         ids = np.asarray(ids, dtype=np.int64)
         flat = ids.ravel()
-        if self.cache is not None:
-            rows, _h, _m = self.cache.lookup(flat, self.pull_rows)
-        else:                              # no cache: one copy to the device
-            rows = torch.from_numpy(self.pull_rows(flat)).to(
-                self.ctx.torch_device)
+        with _trace.span("embedding.lookup", cat="embedding",
+                         table=self.name, rows=int(flat.size)):
+            if self.cache is not None:
+                rows, _h, _m = self.cache.lookup(flat, self.pull_rows)
+            else:                          # no cache: one copy to the device
+                rows = torch.from_numpy(self.pull_rows(flat)).to(
+                    self.ctx.torch_device)
         with self._lock:
             self.lookups += 1
             self.lookup_rows += int(flat.size)

@@ -38,6 +38,8 @@ import torch
 from .base import MXNetError
 from .context import cpu
 from .io import DataIter, DataBatch, DataDesc
+from .obs import metrics as _obs_metrics
+from .obs import trace as _obs_trace
 from .ndarray.ndarray import NDArray, array
 from . import native as _native
 from . import recordio as _recordio
@@ -1032,7 +1034,9 @@ class _WorkerError:
 
 
 class _BatchPool:
-    """N workers building whole batches; results handed out in order."""
+    """N workers building whole batches; results handed out in order.
+    Each build is an ``io.decode`` span and the finished-but-unread
+    batches the ``io.decode.queue_depth`` gauge, as in the JAX package."""
 
     def __init__(self, build, n_batches, n_threads, prefetch):
         self._build = build
@@ -1064,11 +1068,14 @@ class _BatchPool:
                 if self._stop_evt.is_set():
                     return
             try:
-                out = self._build(bidx)
+                with _obs_trace.span("io.decode", cat="io", batch=bidx):
+                    out = self._build(bidx)
             except BaseException as e:   # noqa: BLE001 - re-raised by next()
                 out = _WorkerError(e)
             with self._cond:
                 self._results[bidx] = out
+                _obs_metrics.gauge("io.decode.queue_depth").set(
+                    len(self._results))
                 self._cond.notify_all()
 
     def next(self):

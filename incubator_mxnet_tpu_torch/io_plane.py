@@ -33,8 +33,10 @@ it:
 
 On a CPU target a host batch of the target dtype passes through (the JAX
 ring adopts it zero-copy); a cast is staged, then copied out of the
-staging buffer.  The JAX module's trace spans and metrics registry are
-not ported (`stats()` returns the same counts).
+staging buffer.  Telemetry, as in the JAX package: `stats()` is the
+``io`` producer, each transfer an ``io.h2d`` span, and the registry
+carries ``io.h2d.batches``/``io.h2d.bytes``, ``io.ring.stalls`` and the
+``io.ring.occupancy``/``io.ring.depth`` gauges.
 """
 from __future__ import annotations
 
@@ -49,6 +51,8 @@ import torch
 
 from .base import torch_dtype
 from .io import DataBatch, DataIter
+from .obs import metrics as _obs_metrics
+from .obs import trace as _obs_trace
 from .ndarray.ndarray import NDArray
 from .ndarray.sparse import BaseSparseNDArray
 
@@ -87,8 +91,19 @@ def _totals_add(**kw):
             _TOTALS[k] += v
 
 
+_registered = []
+
+
+def _register_producer():
+    """Register the ``io`` producer once (a module-level function: the
+    registry holds it strongly, and the module never dies)."""
+    if not _registered:
+        _registered.append(True)
+        _obs_metrics.register_producer("io", stats)
+
+
 def stats():
-    """Process-lifetime totals (stalls, batches, bytes, h2d seconds,
+    """The ``io`` telemetry producer: process-lifetime totals (stalls, batches, bytes, h2d seconds,
     staging copies, resident pass-throughs) plus the live rings' count,
     depth and occupancy."""
     with _totals_lock:
@@ -182,6 +197,7 @@ class H2DRing:
         self._stats = dict.fromkeys(_STAT_KEYS, 0)
         self._stats_lock = threading.Lock()
         _rings.add(self)
+        _register_producer()
 
     # -- producer side -------------------------------------------------------
     def _copy_stream(self):
@@ -269,7 +285,10 @@ class H2DRing:
                 return False
         with self._put_lock:
             t0 = time.perf_counter()
-            outs, event, nbytes, copies, resident = self._transfer(arrays)
+            with _obs_trace.span("io.h2d", cat="io", ring=self.name) as sp:
+                outs, event, nbytes, copies, resident = \
+                    self._transfer(arrays)
+                sp.note(bytes=nbytes)
             dt = time.perf_counter() - t0
         counts = dict(batches=1, bytes=nbytes, h2d_s=dt,
                       staging_copies=copies, resident=resident)
@@ -277,10 +296,13 @@ class H2DRing:
             for k, v in counts.items():
                 self._stats[k] += v
         _totals_add(**counts)
+        _obs_metrics.counter("io.h2d.batches").inc()
+        _obs_metrics.counter("io.h2d.bytes").inc(nbytes)
         with self._cond:
             if self._closed or token not in (None, self._token):
                 return False
             self._q.append((outs, event, meta))
+            _obs_metrics.gauge("io.ring.occupancy").set(len(self._q))
             self._cond.notify_all()
         return True
 
@@ -312,6 +334,7 @@ class H2DRing:
             item = self._q.popleft()
             if isinstance(item, _EndOfData):
                 self._ended = item
+            _obs_metrics.gauge("io.ring.occupancy").set(len(self._q))
             self._cond.notify_all()
         if isinstance(item, _EndOfData):
             if item.exc is not None:
@@ -323,6 +346,7 @@ class H2DRing:
                 self._stats["stalls"] += 1
                 self._stats["stall_s"] += dt
             _totals_add(stalls=1, stall_s=dt)
+            _obs_metrics.counter("io.ring.stalls").inc()
         outs, event, meta = item
         if event is not None:
             stream = torch.cuda.current_stream(self._placement.device)
@@ -455,6 +479,7 @@ class DevicePrefetchIter(DataIter):
             self._ring = H2DRing(_resolve_placement(self._placement_src),
                                  depth=self._depth,
                                  staging=self._staging_req, name=self._name)
+            _obs_metrics.gauge("io.ring.depth").set(self._ring.depth)
         token = self._ring.reopen()
         self._stop = threading.Event()   # per start: never shared with a
         self._cached = None              # feeder that outlived its join

@@ -266,6 +266,10 @@ class KVStoreDevice(KVStore):
         super().__init__(kind)
         self._counters = {"pushes": 0, "batched_pushes": 0,
                           "fallback_reduces": 0, "bytes_reduced": 0}
+        # telemetry plane: the counters under the 'kvstore' namespace
+        # (weakly held; the newest live store answers scrapes)
+        from .obs import metrics as _obs_metrics
+        _obs_metrics.register_producer("kvstore", self.stats)
 
     def _reduce_ctx(self, vals):
         return vals[0].context
@@ -284,6 +288,16 @@ class KVStoreDevice(KVStore):
             # one device, and in the port everywhere, it falls back to
             # the per-key reduce
             self._counters["fallback_reduces"] += 1
+            bytes_before = self._counters["bytes_reduced"]
+            from .obs import trace as _obs_trace
+            with _obs_trace.span("kvstore.push", cat="kvstore",
+                                 keys=len(keys)):
+                super().push(keys, values, priority)
+            from . import profiler as _profiler
+            _profiler.record_kvstore(
+                "fallback_push", keys=len(keys),
+                bytes=self._counters["bytes_reduced"] - bytes_before)
+            return
         super().push(keys, values, priority)
 
     def stats(self):

@@ -24,7 +24,10 @@ with `set_states` across forwards; the fused step declines a module that
 has them, as the JAX one does (`module.py:341`).  The JAX `Module` keeps
 the name but counts such inputs among the parameters (ROADMAP.md,
 Queue 3).  The parameters the module holds between steps (`get_params`) live
-on the CPU; the executors' copies on their devices.
+on the CPU; the executors' copies on their devices.  `fit_step` is one
+``fit.step`` trace span, as in the JAX package (the kvstore's rpc spans
+parent into it); the port has no K-step block dispatch, so no
+``fit.step_block`` span.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import logging
 
 from ..base import MXNetError
 from ..context import Context, cpu, current_context
+from ..obs import trace as _obs_trace
 from ..initializer import Uniform, InitDesc
 from .. import optimizer as opt
 from ..optimizer import states_on_ctx as _on_ctx
@@ -391,12 +395,14 @@ class Module(BaseModule):
 
     def fit_step(self, data_batch, eval_metric):
         """One training step and its metric update: the fused step when
-        it takes the batch, else the per-batch path."""
-        if self._fused_step is not None and \
-                self._fused_step(data_batch, eval_metric):
-            self._params_dirty = True
-            return
-        super().fit_step(data_batch, eval_metric)
+        it takes the batch, else the per-batch path.  One trace span:
+        the kvstore's push and pull rpc spans parent into it."""
+        with _obs_trace.span("fit.step", cat="train"):
+            if self._fused_step is not None and \
+                    self._fused_step(data_batch, eval_metric):
+                self._params_dirty = True
+                return
+            super().fit_step(data_batch, eval_metric)
 
     # -- forward/backward ------------------------------------------------------
     def forward(self, data_batch, is_train=None):

@@ -25,12 +25,15 @@ package's functional views).
 """
 from __future__ import annotations
 
+import time
+
 import numpy as _np
 import torch
 
 from ..base import MXNetError, torch_dtype
 from ..context import Context, current_context, cpu
 from .. import autograd as _autograd
+from .. import profiler as _profiler
 
 __all__ = ["NDArray", "invoke", "imperative_invoke", "array", "zeros",
            "ones", "full", "empty", "arange", "concatenate", "waitall"]
@@ -439,8 +442,11 @@ def invoke(op, data, kwargs, out=None):
     record = graph and any(t.requires_grad for t in tensors
                            if isinstance(t, torch.Tensor))
     with torch.set_grad_enabled(graph):
-        res = op.fn(params, *tensors) if op.nin else \
-            op.fn(params, *tensors, device=out_ctx.torch_device)
+        if _profiler._imperative_active():
+            res = _timed_call(op, params, tensors, out_ctx)
+        else:
+            res = op.fn(params, *tensors) if op.nin else \
+                op.fn(params, *tensors, device=out_ctx.torch_device)
     if not isinstance(res, (tuple, list)):
         res = (res,)
     nout = op.num_outputs(params)
@@ -464,6 +470,24 @@ def invoke(op, data, kwargs, out=None):
             tgt._set_data(o._data)
         return out
     return outputs[0] if len(outputs) == 1 else outputs
+
+
+def _timed_call(op, params, tensors, out_ctx):
+    """One op call timed for the profiler's per-op table: the card is
+    synchronized before the clock is read (launches return before the
+    work is done).  Paid only while a profile runs with
+    ``profile_imperative``."""
+    dev = out_ctx.torch_device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else None
+    if sync is not None:
+        sync(dev)
+    t0 = time.perf_counter()
+    res = op.fn(params, *tensors) if op.nin else \
+        op.fn(params, *tensors, device=dev)
+    if sync is not None:
+        sync(dev)
+    _profiler.record_op(op.name, (time.perf_counter() - t0) * 1e6)
+    return res
 
 
 def imperative_invoke(op_name, *data, **kwargs):

@@ -32,18 +32,22 @@ payload at a payload site; the port has no such site, and `fire` skips
 ``corrupt`` clauses.  Every fired fault appends an event to an
 in-process trace (`trace()`), and, when ``MXNET_FAULTS_LOG`` names a
 file, one JSON line per event, stamped with the process id, the
-``DMLC_RANK``, the thread and the time, written with one ``O_APPEND``
-write, so the processes of one run share a log.  The same seed always
-gives the same schedule.
+``DMLC_RANK``, the thread and the time and written through the shared
+line-atomic sink (`obs.jsonl_sink`), so the processes of one run share a
+log; each event is also a `profiler.record_fault` instant while a
+profile runs, as in the JAX package.  The same seed always gives the
+same schedule.
 """
 from __future__ import annotations
 
-import json
 import os
 import random
 import re
 import threading
 import time
+
+from .. import profiler as _profiler
+from ..obs import jsonl_sink as _jsonl
 
 from ..base import MXNetError
 
@@ -242,30 +246,19 @@ def trace():
         return [dict(e) for e in _trace]
 
 
-def _stamp(event):
-    """Add pid / rank / thread / time to `event` in place."""
-    event.setdefault("pid", os.getpid())
-    event.setdefault("thread", threading.current_thread().name)
-    rank = os.environ.get("DMLC_RANK")
-    event.setdefault("rank", int(rank) if rank is not None and
-                     rank.isdigit() else None)
-    event.setdefault("time", round(time.time(), 3))
-    return event
-
-
 def _record(event):
-    _trace.append(_stamp(event))
+    # every event names its process, rank and thread (the shared sink's
+    # stamping), and lands in the log through the sink: O_APPEND and one
+    # write() a line, so every process of a run appends to one file
+    _jsonl.stamp(event)
+    _trace.append(event)
     if _log_path is not None:
-        # O_APPEND and one write() a line: the processes of a run append
-        # to one file without interleaving inside a line
-        line = (json.dumps(event, sort_keys=True, default=str) + "\n"
-                ).encode()
-        fd = os.open(_log_path, os.O_WRONLY | os.O_APPEND | os.O_CREAT,
-                     0o644)
-        try:
-            os.write(fd, line)
-        finally:
-            os.close(fd)
+        _jsonl.sink(_log_path).write(event)
+    try:
+        _profiler.record_fault(event.get("site"), event.get("kind"),
+                               **event.get("ctx", {}))
+    except Exception:
+        pass   # a fault event must never take the injected code path down
 
 
 def note(event, **ctx):

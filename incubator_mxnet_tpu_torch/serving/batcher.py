@@ -31,8 +31,10 @@ deadline-aware shedding before queueing, backpressure on a full queue
   batch, its retries included (`install_monitor`; the JAX batcher tics
   every attempt, so its sampling interval shifts with each retry).
 
-The trace spans and the sanitizer instrumentation are not ported
-(ROADMAP.md).
+Each executed batch records one ``batcher.execute`` span, parented into
+the first coalesced request's trace context (captured on the submitting
+thread), as in the JAX package.  The sanitizer instrumentation is not
+ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ import numpy as _np
 
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
+from ..obs import trace as _obs_trace
 from ..resilience import CircuitBreaker, faults as _faults
 
 __all__ = ["MicroBatcher"]
@@ -53,7 +56,7 @@ __all__ = ["MicroBatcher"]
 
 class _Request:
     __slots__ = ("arrs", "rows", "deadline", "timeout_ms", "future",
-                 "t_enqueue", "rid", "prio")
+                 "t_enqueue", "rid", "prio", "tr")
 
     def __init__(self, arrs, rows, timeout_ms, rid, prio=1):
         self.arrs = arrs
@@ -65,6 +68,9 @@ class _Request:
         self.deadline = (self.t_enqueue + timeout_ms / 1e3
                          if timeout_ms is not None else None)
         self.future = Future()
+        # trace context captured on the SUBMITTING thread: the batch
+        # executes on the worker thread, where contextvars are blind
+        self.tr = _obs_trace.current_frame()
 
 
 class MicroBatcher:
@@ -388,6 +394,18 @@ class MicroBatcher:
         self._metrics.set_breaker_state(self._breaker.state)
         done = time.monotonic()
         self._metrics.record_batch(rows, bucket, done - t0)
+        if _obs_trace.enabled():
+            # ONE span per executed batch, parented into the first
+            # coalesced request's trace; the other requests' rids ride in
+            # args and their trees stay rooted at their own requests
+            dur_us = int((done - t0) * 1e6)
+            _obs_trace.record_span(
+                "batcher.execute", time.time_ns() // 1000 - dur_us,
+                dur_us, parent=next((r.tr for r in live
+                                     if r.tr is not None), None),
+                cat="serving", model=model.name, bucket=bucket,
+                batch_rows=rows, requests=len(live),
+                rids=",".join(str(r.rid) for r in live[:8]))
         off = 0
         for req in live:
             lo, hi = off, off + req.rows

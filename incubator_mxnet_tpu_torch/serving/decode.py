@@ -25,9 +25,12 @@ written in place by both programs: one copy on the card.
 `DecodeReplica` wraps the engine in the `Replica` contract: a killed
 engine fails its queued and in-flight futures with `ReplicaLostError`,
 the router's failover trigger.  Declared divergences from the JAX
-package: plain `threading` locks for `analysis.locks`; no `obs` spans
-and no telemetry producer; the signature counts of `DecodePrograms` for
-the recompile auditor.  ``swap`` takes ``arg_params`` or an elastic
+package: plain `threading` locks for `analysis.locks`; the signature
+counts of `DecodePrograms` for the recompile auditor; the
+``decode.prefill`` and ``decode.step`` spans are stamped on the wall
+clock, as every other span, where the JAX engine stamps them with
+`time.monotonic` (ROADMAP.md, Queue 3).  `stats()` is the
+``decode.<name>`` telemetry producer.  ``swap`` takes ``arg_params`` or an elastic
 ``checkpoint_dir`` (the newest valid checkpoint's ``arg:`` arrays).
 """
 from __future__ import annotations
@@ -38,6 +41,9 @@ import time
 from concurrent.futures import Future
 
 import numpy as _np
+
+from ..obs import metrics as _obs_metrics
+from ..obs import trace as _obs_trace
 
 from ..base import MXNetError
 from .metrics import ServingMetrics
@@ -55,6 +61,12 @@ def _knob(name, default):
     from .. import config as _config
     v = _config.get(name)
     return default if v in (None, "") else v
+
+
+def _wall_start_us(dur_s):
+    """The wall-clock start (us) of work that took `dur_s` and just ended:
+    spans of every process share the wall clock's time axis."""
+    return time.time_ns() // 1000 - int(dur_s * 1e6)
 
 
 def _norm_priority(priority):
@@ -139,6 +151,9 @@ class DecodeEngine:
         self.metrics = metrics or ServingMetrics(name)
         self.programs = DecodePrograms(
             cfg, stack_lm_params(arg_params, cfg, ctx=self.ctx), label=name)
+        # telemetry plane: this engine's stats() under 'decode.<name>'
+        # (weakly held: a closed engine drops out)
+        _obs_metrics.register_producer("decode.%s" % name, self.stats)
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._queue = []            # sorted pending list (rank, seq)
@@ -327,6 +342,11 @@ class DecodeEngine:
             slot = _Slot(p.rid, int(tok), len(p.tokens), p.max_new,
                          p.future, p.cls, p.t_submit)
             dur = time.monotonic() - t0
+            if _obs_trace.enabled():
+                _obs_trace.record_span(
+                    "decode.prefill", _wall_start_us(dur), dur * 1e6,
+                    cat="serving", rid=p.rid, bucket=bucket,
+                    prompt_len=len(p.tokens))
             with self._lock:
                 if self._dead:
                     if not p.future.done():
@@ -357,6 +377,11 @@ class DecodeEngine:
             self.programs.params, self._ck, self._cv, tokens, positions)
         next_tokens = next_tokens.cpu().numpy()
         dur = time.monotonic() - t0
+        if _obs_trace.enabled():
+            _obs_trace.record_span(
+                "decode.step", _wall_start_us(dur), dur * 1e6,
+                cat="serving", slots_active=len(live),
+                slots_total=self.slots)
         self.metrics.record_batch(len(live), self.slots, dur)
         produced = 0
         for i, s in live:

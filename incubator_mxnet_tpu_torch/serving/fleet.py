@@ -23,12 +23,19 @@ the REPLICA the unit of redundancy; this module makes the HOST one.
   a ``cold-spinup`` WARN finding.
 
 Fault sites (`resilience.faults`): ``fleet.spawn`` (per spawn) and
-``host.down`` (per host probe).  Declared divergences: fleet events are
-kept in this module's bounded log only (no `profiler.record_serving`),
-no telemetry scrape (`FleetManager.scrape` and the hosts' ``metrics``
-frame wait for `obs/`), `findings()` returns this module's small
-`Finding` copy, and plain `threading` locks stand in for
-`analysis.locks`.
+``host.down`` (per host probe).  Telemetry, as in the JAX package: every
+fleet event is also a `profiler.record_serving` event, `stats()` is the
+``fleet`` producer (``fleet.<name>`` for another name), and `scrape()`
+aggregates this process's registry, every host daemon's and every remote
+replica's ``metrics`` frame, a dead leg recorded under ``unreachable``;
+a replica the fleet lost since the previous scrape is listed there too,
+though the router no longer holds it (the JAX scrape lists only the
+replicas still in the router).
+Declared divergences: `findings()` returns this module's small `Finding`
+copy; plain `threading` locks stand in for `analysis.locks`; an
+`AgentHost` serializes its control channel's requests under a lock (the
+JAX host lets a scrape race the prober's heartbeat on that one serial
+channel).
 """
 from __future__ import annotations
 
@@ -40,8 +47,10 @@ import sys
 import threading
 import time
 
+from .. import profiler as _profiler
 from ..base import MXNetError
 from ..dist.membership import MembershipTable
+from ..obs import metrics as _obs_metrics
 from ..resilience import faults as _faults
 
 __all__ = ["FleetManager", "Autoscaler", "ReplicaSpec", "FleetHost",
@@ -52,6 +61,8 @@ WARN, HINT = "warn", "hint"
 
 # every scale and host event of every live FleetManager, bounded
 _EVENTS = collections.deque(maxlen=512)
+# replicas a fleet lost and no scrape has reported yet, at most
+_LOST_LEGS_CAP = 512
 _EVENTS_LOCK = threading.Lock()
 
 
@@ -80,6 +91,9 @@ def _note_event(fleet, action, **ctx):
     entry = {"fleet": fleet, "action": action, **ctx}
     with _EVENTS_LOCK:
         _EVENTS.append(entry)
+    _profiler.record_serving(f"fleet:{fleet}", 0.0, event=action,
+                             **{k: v for k, v in ctx.items()
+                                if isinstance(v, (str, int, float, bool))})
     return entry
 
 
@@ -193,6 +207,12 @@ class FleetHost:
     def spawn_replica(self, spec, replica_id):
         raise NotImplementedError
 
+    def scrape(self):
+        """The host's telemetry snapshot ({"values", "prom"}), or None
+        when this host kind has no scrape leg (in-process hosts share
+        the manager's own registry)."""
+        return None
+
     def close(self):
         pass
 
@@ -240,6 +260,9 @@ class AgentHost(FleetHost):
         self.host, self.port = str(host), int(port)
         self.process = process       # Popen when launch_local()ed
         self._control = self._make_channel(control_timeout)
+        # one request at a time on the serial control channel: the
+        # prober's heartbeats and scrapes share it
+        self._control_lock = threading.Lock()
         self._spawn_chan = self._make_channel(spawn_timeout)
 
     def _make_channel(self, timeout):
@@ -290,7 +313,16 @@ class AgentHost(FleetHost):
         return reply
 
     def heartbeat(self):
-        return self._request(self._control, {"cmd": "hb"})
+        with self._control_lock:
+            return self._request(self._control, {"cmd": "hb"})
+
+    def scrape(self):
+        """The daemon process's registry snapshot over the control
+        channel (the fleet-wide scrape's per-host leg)."""
+        with self._control_lock:
+            reply = self._request(self._control, {"cmd": "metrics"})
+        return {"values": dict(reply.get("values") or {}),
+                "prom": reply.get("prom", "")}
 
     def spawn_replica(self, spec, replica_id):
         from .replica import RemoteReplica
@@ -495,7 +527,13 @@ class FleetManager:
                 f"fleet '{self.name}': target {self.target} outside the "
                 f"replica budget [{min_r}, {max_r}]")
         self._lock = threading.Lock()
+        _obs_metrics.register_producer(
+            "fleet" if self.name == "fleet" else f"fleet.{self.name}",
+            self.stats)
         self._placement = {}          # replica_id -> host_id
+        # replicas lost since the last scrape -> their host: a scrape
+        # lists them as dead legs even once the router has let them go
+        self._lost_legs = {}
         self._rid_seq = itertools.count(1)
         # host liveness in the elastic trainer's MembershipTable: rank =
         # registry index, deadline = host death
@@ -771,6 +809,7 @@ class FleetManager:
                     if hid == host_id]
             for rid in lost:
                 self._placement.pop(rid, None)
+                self._note_lost_locked(rid, host_id)
         reason = (f"heartbeat silence {age_s:.1f}s > deadline "
                   f"{self.host_deadline_s:g}s"
                   if age_s is not None else "heartbeat silence")
@@ -805,6 +844,7 @@ class FleetManager:
                     pass
             with self._lock:
                 self._placement.pop(rid, None)
+                self._note_lost_locked(rid, host_id)
                 if self._backfill_started is None:
                     self._backfill_started = self._clock()
             self._event("replica_lost", host=host_id, replica=rid)
@@ -918,3 +958,53 @@ class FleetManager:
         snap["placement"] = placement
         snap["events"] = events[-32:]
         return snap
+
+    def _note_lost_locked(self, rid, host_id):
+        """Remember a lost replica for the next scrape (bounded: the
+        oldest go first when no scrape comes)."""
+        self._lost_legs[rid] = host_id
+        while len(self._lost_legs) > _LOST_LEGS_CAP:
+            self._lost_legs.pop(next(iter(self._lost_legs)))
+
+    def scrape(self):
+        """The fleet-wide telemetry aggregate: this process's registry
+        (router, fleet, serving.* producers), every host daemon's
+        snapshot and every placed remote replica's worker snapshot.  A
+        dead or unreachable leg is recorded under ``unreachable``
+        instead of failing the scrape (a half-dead fleet is when the
+        numbers are needed), as is every replica the fleet lost since the
+        previous scrape."""
+        from ..obs.scrape import metrics_reply
+        # the replicas placed when the scrape begins: a host leg's
+        # connect timeout must not let a dead host's replicas be swept
+        # out of the router before their legs are tried
+        slots = self._router_slots()
+        local = metrics_reply()
+        out = {"fleet": self.name,
+               "local": {"values": local["values"],
+                         "prom": local["prom"]},
+               "hosts": {}, "replicas": {}, "unreachable": []}
+        with self._lock:
+            hosts = {hid: hs.handle for hid, hs in self._hosts.items()}
+            lost, self._lost_legs = self._lost_legs, {}
+        for hid, handle in hosts.items():
+            try:
+                snap = handle.scrape()
+            except Exception:
+                out["unreachable"].append(f"host:{hid}")
+                continue
+            if snap is not None:
+                out["hosts"][hid] = snap
+        for rid, slot in slots.items():
+            scrape_fn = getattr(slot.replica, "scrape", None)
+            if scrape_fn is None:
+                continue
+            try:
+                out["replicas"][rid] = scrape_fn()
+            except Exception:
+                out["unreachable"].append(f"replica:{rid}")
+        for rid in lost:
+            if f"replica:{rid}" not in out["unreachable"] and \
+                    rid not in out["replicas"]:
+                out["unreachable"].append(f"replica:{rid}")
+        return out

@@ -19,8 +19,10 @@ fleet host protocol over the parameter server's length-prefixed frames:
 it spawns serves on; the `ReplicaSpec` wire dict stays the JAX
 package's.  `AgentHost.launch_local` starts the daemon in its own
 session, so a SIGKILL of its process group powers off the daemon and its
-workers together.  The ``metrics`` frame answers a structured error
-until `obs/` is ported (ROADMAP.md, Queue 1 item 14).
+workers together.  ``metrics`` answers this process's telemetry registry
+(the ``hostd`` producer: live workers, spawns); a ``spawn`` runs inside a
+``hostd.spawn`` span that adopts the frame's trace context; ``stop``
+flushes the buffered spans before the exit, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -29,6 +31,10 @@ import os
 import socketserver
 import sys
 import threading
+
+from ..obs import metrics as _obs_metrics
+from ..obs import trace as _obs_trace
+from ..obs.scrape import metrics_reply
 
 __all__ = ["HostDaemon", "main"]
 
@@ -44,6 +50,7 @@ class HostDaemon:
         self._workers = {}    # replica_id -> {"proc", "port", "ready"}
         self._spawning = {}   # replica_id -> Event (first spawn running)
         self.spawns = 0
+        _obs_metrics.register_producer("hostd", self._obs_stats)
         outer = self
 
         class Handler(socketserver.BaseRequestHandler):
@@ -65,6 +72,8 @@ class HostDaemon:
                         break
                     if msg.get("cmd") == "stop":
                         outer._kill_workers()
+                        # os._exit skips atexit: flush buffered spans
+                        _obs_trace.flush()
                         os._exit(0)
 
         class Server(socketserver.ThreadingTCPServer):
@@ -80,6 +89,11 @@ class HostDaemon:
             if self._workers[rid]["proc"].poll() is not None:
                 del self._workers[rid]
 
+    def _obs_stats(self):
+        with self._lock:
+            self._reap_locked()
+            return {"workers": len(self._workers), "spawns": self.spawns}
+
     def _handle(self, msg):
         cmd = msg.get("cmd")
         seq = msg.get("seq")
@@ -89,11 +103,12 @@ class HostDaemon:
                 return {"ok": True, "host_id": self.host_id,
                         "workers": len(self._workers),
                         "pid": os.getpid(), "seq": seq}
-        if cmd == "spawn":
-            return dict(self._spawn(msg), seq=seq)
         if cmd == "metrics":
-            from .worker import METRICS_UNPORTED
-            return {"error": f"hostd: {METRICS_UNPORTED}", "seq": seq}
+            return metrics_reply(seq=seq)
+        if cmd == "spawn":
+            with _obs_trace.server_span(msg, "hostd.spawn", cat="fleet",
+                                        replica=msg.get("replica_id")):
+                return dict(self._spawn(msg), seq=seq)
         if cmd == "stop":
             return {"ok": True, "seq": seq}
         return {"error": f"hostd: unknown cmd {cmd!r}", "seq": seq}

@@ -12,9 +12,11 @@ end-to-end response latency, the floor a replica's wait estimate takes.
 The degraded-mode counters of the resilience layer ride along:
 ``breaker_rejects`` (requests failed fast while the model's circuit
 breaker was open), ``breaker_state`` (a gauge the batcher sets) and
-``retry_histogram`` (attempt number -> count).  The JAX package's hooks
-into the telemetry plane, the profiler trace and the concurrency
-sanitizer are not ported (ROADMAP.md).
+``retry_histogram`` (attempt number -> count).  Each instance is the
+``serving.<model>`` telemetry producer (its `snapshot`), and every
+executed batch is a `profiler.record_serving` event while a profile
+runs, as in the JAX package; the concurrency sanitizer's hooks are not
+ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -25,6 +27,9 @@ import time
 import zlib
 
 import numpy as _np
+
+from .. import profiler as _profiler
+from ..obs import metrics as _obs_metrics
 
 __all__ = ["ServingMetrics", "LatencyReservoir"]
 
@@ -68,6 +73,10 @@ class ServingMetrics:
     def __init__(self, model_name, window=4096):
         self.model_name = model_name
         self._lock = threading.Lock()
+        # telemetry plane: a producer under 'serving.<model>' (weakly
+        # held: a retired replica's metrics drop out of scrapes with it)
+        _obs_metrics.register_producer(f"serving.{model_name}",
+                                       self.snapshot)
         self._lat_ms = LatencyReservoir(window)
         self._window = int(window)
         # class -> {"responses", "lat"}; created on a class's first
@@ -101,6 +110,8 @@ class ServingMetrics:
             self.capacity += bucket
             self._ewma_batch_s = dur_s if self._ewma_batch_s is None \
                 else 0.8 * self._ewma_batch_s + 0.2 * dur_s
+        _profiler.record_serving(f"serving:{self.model_name}",
+                                 dur_s * 1e6, rows=rows, bucket=bucket)
 
     def avg_batch_s(self):
         """Recent batch execution time (EWMA), or None before the first

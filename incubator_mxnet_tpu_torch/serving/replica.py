@@ -36,9 +36,10 @@ spawned with ``ctx="cpu"`` (``--ctx cpu``).  Their READY line reads
 ``REPLICA_READY programs=N builds=B load_ms=L warmup_ms=W``: ``builds``
 counts the ``nvcc`` runs the worker made (`kernels/_build.build_log`),
 the port's counterpart of the JAX worker's XLA compiles.  A worker's results come
-back as CPU `NDArray`s.  Declared divergences: no trace context rides a
-frame and no telemetry scrape (`obs/` is not ported); plain `threading`
-locks stand in for `analysis.locks`.
+back as CPU `NDArray`s.  An ``infer`` frame carries the submitting
+thread's trace context (``tr``), and `RemoteReplica.scrape` reads the
+worker's ``metrics`` frame, as in the JAX package.  Declared divergence:
+plain `threading` locks stand in for `analysis.locks`.
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ from concurrent.futures import Future
 import numpy as _np
 
 from ..base import MXNetError
+from ..obs import trace as _obs_trace
 
 __all__ = ["Replica", "LocalReplica", "RemoteReplica", "ReplicaLostError",
            "worker_argv", "launch_worker"]
@@ -478,8 +480,15 @@ class RemoteReplica(Replica):
 
         arrs = {k: to_np(v) for k, v in inputs.items()} \
             if isinstance(inputs, dict) else [to_np(v) for v in inputs]
-        pend = self._Pending({"cmd": "infer", "rid": rid, "inputs": arrs,
-                              "timeout_ms": timeout_ms}, rid)
+        msg = {"cmd": "infer", "rid": rid, "inputs": arrs,
+               "timeout_ms": timeout_ms}
+        tr = _obs_trace.current_frame()
+        if tr is not None:
+            # captured on the SUBMITTING thread: the dispatch loop that
+            # puts this frame on the wire runs where contextvars are
+            # blind; the channel's rpc span parents to it instead
+            msg["tr"] = tr
+        pend = self._Pending(msg, rid)
         with self._lock:
             self._seq_counter += 1
             seq = self._seq_counter
@@ -608,6 +617,13 @@ class RemoteReplica(Replica):
             age = 0.0 if last is None else time.monotonic() - last
             return ewma * 0.5 ** age
         return ewma * (outstanding + 1) / max(len(self._chans), 1)
+
+    def scrape(self):
+        """The worker process's telemetry snapshot ({"values", "prom"})
+        over the control channel: the fleet's per-replica scrape leg."""
+        reply = self._control_request({"cmd": "metrics"})
+        return {"values": dict(reply.get("values") or {}),
+                "prom": reply.get("prom", "")}
 
     def stats(self):
         """The worker's ``stats`` reply (executed rids, ``cache``), or

@@ -29,9 +29,14 @@ weight reload, costs capacity, not the model.
 
 Fault sites (`resilience.faults`): ``router.dispatch`` (per dispatch),
 ``replica.health`` (per probe), ``replica.swap`` (per replica swap).
-Declared divergences: no trace spans and no telemetry producer (`obs/`
-is not ported); plain `threading` locks stand in for `analysis.locks`
-and `analysis.tsan`.
+Telemetry, as in the JAX package: each request is a ``router.request``
+span (the trace root its dispatches and the replica's execution parent
+into, in this process or a worker's; it also records the replica that
+answered and the dispatch count, which the JAX span leaves out), and
+`stats()` is the ``router`` producer (``router.<name>`` for another
+name).  Declared divergence:
+plain `threading` locks stand in for `analysis.locks` and
+`analysis.tsan`.
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ import uuid
 from concurrent.futures import Future
 
 from ..base import MXNetError
+from ..obs import metrics as _obs_metrics
+from ..obs import trace as _obs_trace
 from ..resilience import CircuitBreaker, faults as _faults
 from .metrics import ServingMetrics
 from .replica import ReplicaLostError
@@ -94,7 +101,7 @@ class _Slot:
 
 class _RouterRequest:
     __slots__ = ("rid", "inputs", "timeout_ms", "priority", "future",
-                 "dispatches", "replica_id", "t0", "lock", "done")
+                 "dispatches", "replica_id", "t0", "lock", "done", "span")
 
     def __init__(self, rid, inputs, timeout_ms, priority, now):
         self.rid = rid
@@ -108,6 +115,10 @@ class _RouterRequest:
         self.t0 = now
         self.lock = threading.Lock()
         self.done = False
+        # the request's trace root: dispatch attempts and the replica's
+        # execution parent into it (ends at _resolve)
+        self.span = _obs_trace.start_span("router.request", cat="serving",
+                                          rid=rid, priority=priority)
 
 
 class ReplicaRouter:
@@ -138,6 +149,9 @@ class ReplicaRouter:
             "interactive": float(
                 _config.get("MXNET_ROUTER_SHED_INTERACTIVE_MS"))}
         self.metrics = ServingMetrics(self.name)
+        _obs_metrics.register_producer(
+            "router" if self.name == "router" else f"router.{self.name}",
+            self.stats)
         self._lock = threading.Lock()
         self._slots = {}               # replica_id -> _Slot
         self._inflight = {}            # rid -> _RouterRequest
@@ -273,6 +287,7 @@ class ReplicaRouter:
             # request_id is refused forever
             with self._lock:
                 self._inflight.pop(rid, None)
+            req.span.end(outcome="rejected")
             raise
         return req.future
 
@@ -307,9 +322,12 @@ class ReplicaRouter:
             _faults.fire("router.dispatch", replica=req.replica_id,
                          rid=req.rid, attempt=req.dispatches)
             try:
-                inner = slot.replica.submit(
-                    req.inputs, timeout_ms=req.timeout_ms, rid=req.rid,
-                    priority=PRIORITY_RANK[req.priority])
+                # the replica's submit path (batcher enqueue, transport
+                # frame) parents into this request's span
+                with _obs_trace.activate(req.span):
+                    inner = slot.replica.submit(
+                        req.inputs, timeout_ms=req.timeout_ms, rid=req.rid,
+                        priority=PRIORITY_RANK[req.priority])
             except ReplicaLostError:
                 self._on_replica_lost(slot)
                 return self._failover(req, exclude + (req.replica_id,))
@@ -380,6 +398,8 @@ class ReplicaRouter:
             self._completed[req.rid] = True
             while len(self._completed) > self._completed_cap:
                 self._completed.pop(next(iter(self._completed)))
+        req.span.end(outcome="error" if error is not None else "ok",
+                     replica=req.replica_id, dispatches=req.dispatches)
         try:
             if error is not None:
                 req.future.set_exception(error)

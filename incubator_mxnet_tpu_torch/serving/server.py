@@ -10,8 +10,9 @@ by default.  The batcher's knobs (``breaker_threshold``,
 per model.  Loading over an existing name hot-swaps: the new model
 starts taking requests first, then the old batcher drains — none are
 dropped.  `install_monitor` puts a `monitor.Monitor` on a model's
-request path.  `shutdown(drain=True)` drains every model.  The telemetry
-producer is not ported (ROADMAP.md).
+request path.  `shutdown(drain=True)` drains every model.  `stats()` is the
+``server`` telemetry producer, as in the JAX package (each model's
+`ServingMetrics` also registers under ``serving.<name>``).
 """
 from __future__ import annotations
 
@@ -37,6 +38,9 @@ class ModelServer:
         self._models = {}
         self._lock = threading.Lock()
         self._closed = False
+        # telemetry plane: the whole-server view under 'server'
+        from ..obs import metrics as _obs_metrics
+        _obs_metrics.register_producer("server", self.stats)
 
     # -- model lifecycle -----------------------------------------------------
     def load_model(self, name, model=None, *, prefix=None, epoch=0,

@@ -21,13 +21,16 @@ length-prefixed frames:
   ``{"builds": B, "k1_launches": L}``, the ``nvcc`` runs of this process
   and its K1 launches (`fused_ops.fc_relu.launches`), where the JAX
   worker reports its XLA program cache.
-* ``stop`` — reply, then exit.
+* ``metrics`` — this process's telemetry registry
+  (`obs.scrape.metrics_reply`), the ``worker`` producer among it.
+* ``stop`` — reply, flush the buffered trace spans, then exit.
 
 ``builds`` counts the kernel builds this process ran
 (`kernels/_build.build_log`): 0 when the parent built the kernels into
-``build/`` before spawning.  The ``metrics`` frame answers a structured
-error until `obs/` is ported (ROADMAP.md, Queue 1 item 14); plain
-`threading` locks stand in for `analysis.locks`.  Thread-per-connection
+``build/`` before spawning.  An ``infer`` runs inside a ``worker.infer``
+span that adopts the frame's trace context (``MXNET_OBS_TRACE``, which a
+spawned worker inherits); plain `threading` locks stand in for
+`analysis.locks`.  Thread-per-connection
 (`ThreadingTCPServer`): the router owns spreading and batching, a worker
 just executes.
 """
@@ -43,13 +46,12 @@ import time
 
 import numpy as _np
 
+from ..obs import metrics as _obs_metrics
+from ..obs import trace as _obs_trace
+from ..obs.scrape import metrics_reply
 from .model import ServedModel
 
-__all__ = ["ReplicaWorker", "main", "METRICS_UNPORTED"]
-
-METRICS_UNPORTED = ("the 'metrics' frame needs the telemetry plane (obs/), "
-                    "which the port has not ported yet (ROADMAP.md, Queue 1, "
-                    "item 14: obs/)")
+__all__ = ["ReplicaWorker", "main"]
 
 
 def kernel_counters():
@@ -67,6 +69,9 @@ class ReplicaWorker:
         self.model = model
         self.version = 0
         self._lock = threading.Lock()
+        # telemetry plane: this worker's counters under 'worker', served
+        # by the 'metrics' frame
+        _obs_metrics.register_producer("worker", self._obs_stats)
         self._outstanding = 0
         self._executed = 0
         self._probes = 0
@@ -99,6 +104,9 @@ class ReplicaWorker:
                     except (ConnectionError, OSError):
                         break
                     if msg.get("cmd") == "stop":
+                        # os._exit skips atexit: flush buffered spans
+                        # first or the merged trace loses this worker
+                        _obs_trace.flush()
                         os._exit(0)
 
         class Server(socketserver.ThreadingTCPServer):
@@ -109,12 +117,24 @@ class ReplicaWorker:
         self.port = self._server.server_address[1]
         self._thread = None
 
+    def _obs_stats(self):
+        with self._lock:
+            return {"executed": self._executed,
+                    "dedup_hits": self._dedup_hits,
+                    "outstanding": self._outstanding,
+                    "version": self.version,
+                    "programs": self.model.program_count()}
+
     # -- command dispatch ----------------------------------------------------
     def _handle(self, msg):
         cmd = msg.get("cmd")
         seq = msg.get("seq")
         if cmd == "infer":
-            return dict(self._infer(msg), seq=seq)
+            # the cross-process trace edge: this execution is a child of
+            # the dispatch that sent it
+            with _obs_trace.server_span(msg, "worker.infer",
+                                        cat="serving", rid=msg.get("rid")):
+                return dict(self._infer(msg), seq=seq)
         if cmd == "hb":
             with self._lock:
                 return {"ok": True, "outstanding": self._outstanding,
@@ -150,8 +170,7 @@ class ReplicaWorker:
                         "cache": kernel_counters(),
                         "seq": seq}
         if cmd == "metrics":
-            return {"error": f"replica worker: {METRICS_UNPORTED}",
-                    "seq": seq}
+            return metrics_reply(seq=seq)
         if cmd == "stop":
             return {"ok": True, "seq": seq}
         return {"error": f"replica worker: unknown cmd {cmd!r}", "seq": seq}

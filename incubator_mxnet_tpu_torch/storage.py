@@ -8,8 +8,13 @@ torch ``uint8`` tensors, pinned (page-locked) when a card is present so
 a device-to-host copy into them can run asynchronously on the stream
 that produced the data.  Sizes round up to the next power of two (the
 reference's bucket rounding, the JAX pool's size classes), so a few
-classes serve every shape.  The JAX pool's lock-order instrumentation
-(`analysis.locks`) and its telemetry registration are not ported.
+classes serve every shape.  The default pool registers its `stats()` as
+the ``storage`` telemetry producer, as in the JAX package; its
+lock-order instrumentation (`analysis.locks`) is not ported.
+
+`memory_stats` and `device_memory_info` are the counterparts of the JAX
+package's PJRT counters: the card's from `torch.cuda.memory_stats` and
+`torch.cuda.mem_get_info`, ``{}`` and ``(0, 0)`` for a CPU context.
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ import torch
 
 from .base import torch_dtype
 
-__all__ = ["HostStagingPool", "default_pool"]
+__all__ = ["HostStagingPool", "default_pool", "memory_stats",
+           "device_memory_info"]
 
 
 class HostStagingPool:
@@ -99,4 +105,37 @@ def default_pool():
     with _default_lock:
         if _default is None:
             _default = HostStagingPool()
+            # the staging pool's hit economy under the 'storage' namespace
+            from .obs import metrics as _obs_metrics
+            _obs_metrics.register_producer("storage", _default.stats)
     return _default
+
+
+def memory_stats(ctx=None):
+    """The device's memory counters (the `gpu_memory_info` role):
+    ``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_reserved`` and
+    ``bytes_limit`` of a card context (PyTorch's caching allocator and the
+    device's capacity); ``{}`` for a CPU context, and where no card is
+    present, as the JAX package's CPU backend reports none."""
+    from .context import current_context
+    ctx = ctx or current_context()
+    if ctx.device_type != "gpu" or not torch.cuda.is_available():
+        return {}
+    dev = ctx.torch_device
+    st = torch.cuda.memory_stats(dev)
+    _, total = torch.cuda.mem_get_info(dev)
+    return {"bytes_in_use": int(st.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(st.get("allocated_bytes.all.peak", 0)),
+            "bytes_reserved": int(st.get("reserved_bytes.all.current", 0)),
+            "bytes_limit": int(total)}
+
+
+def device_memory_info(ctx=None):
+    """(free, total) bytes, reference `mx.context.gpu_memory_info`; (0, 0)
+    when the device reports no capacity figure (a CPU context)."""
+    stats = memory_stats(ctx)
+    total = stats.get("bytes_limit", 0)
+    used = stats.get("bytes_in_use", 0)
+    if not total:
+        return (0, 0)
+    return (max(0, total - used), total)

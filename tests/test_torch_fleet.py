@@ -450,7 +450,9 @@ def test_hostd_spawn_is_idempotent_by_rid(monkeypatch):
         other = daemon._handle({"cmd": "spawn", "spec": spec.to_msg(),
                                 "replica_id": "r2"})
         assert other["port"] == 9002 and len(launches) == 2
-        assert "obs/" in daemon._handle({"cmd": "metrics"})["error"]
+        metrics = daemon._handle({"cmd": "metrics", "seq": 5})
+        assert metrics["ok"] and metrics["seq"] == 5
+        assert metrics["values"]["hostd.spawns"] == 2
     finally:
         daemon._server.server_close()
 

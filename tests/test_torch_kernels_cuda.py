@@ -28,7 +28,8 @@ through `model.FeedForward` (K1), the C predict ABI's shim and
 the CPU; the quantized FC's float64 route exact at fc8's K, and a LibSVM
 CSR batch densified on the card; K1's launch counter exact across
 threads, and a router over two LocalReplicas on the card against the
-CPU.
+CPU; a traced LocalReplica whose batch spans and K1 count agree, and K1
+at the mlp's small weights on cuda_core against `fc_relu_ref`.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -1902,3 +1903,74 @@ def test_router_over_local_replicas_on_the_card(tmp_path):
         want = host.infer({"data": x})[0].asnumpy()
         np.testing.assert_allclose(g, want, rtol=1e-4,
                                    atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_traced_local_replica_batch_spans_match_k1(tmp_path):
+    """A traced LocalReplica on gpu(0): one ``batcher.execute`` span per
+    executed batch, each parented into a ``router.request`` trace, and K1
+    launched once per span (the mlp has one K1 node)."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.compat.weights import params_from_numpy
+    from incubator_mxnet_tpu_torch.obs import trace
+    from incubator_mxnet_tpu_torch.subgraph import fused_ops
+    s = mx.sym
+    net = s.SoftmaxOutput(s.FullyConnected(s.Activation(s.FullyConnected(
+        s.Variable("data"), num_hidden=16, name="fc0"), act_type="relu"),
+        num_hidden=3, name="head"), name="softmax")
+    sym = mx.subgraph.partition_graph(net, "TPU_PALLAS")
+    rng = np.random.RandomState(0)
+    params = {"fc0_weight": rng.normal(0, .5, (16, 6)).astype("f4"),
+              "fc0_bias": rng.normal(0, .1, 16).astype("f4"),
+              "head_weight": rng.normal(0, .5, (3, 16)).astype("f4"),
+              "head_bias": rng.normal(0, .1, 3).astype("f4")}
+    prefix = str(tmp_path / "mlp")
+    mx.save_checkpoint(prefix, 0, sym,
+                       params_from_numpy(params, None, ctx=mx.cpu())[0], {})
+    rep = mx.serving.LocalReplica(mx.serving.ServedModel.load(
+        prefix, 0, ctx=mx.gpu(0), data_shapes=[("data", (1, 6))],
+        buckets=(1, 2, 4)), replica_id="r0")
+    trace.enable()
+    trace.reset()
+    try:
+        fused_ops.fc_relu.launches = 0
+        with mx.serving.ReplicaRouter([rep], health_interval_s=1e3) as r:
+            futs = [r.submit({"data": rng.randn(1 + i % 3, 6).astype("f4")})
+                    for i in range(24)]
+            for f in futs:
+                f.result(60)
+        spans = trace.buffered()
+    finally:
+        trace.disable()
+        trace.reset()
+    batches = [sp for sp in spans if sp["name"] == "batcher.execute"]
+    roots = {sp["sp"]: sp for sp in spans if sp["name"] == "router.request"}
+    assert len(roots) == 24
+    assert batches and fused_ops.fc_relu.launches == len(batches)
+    assert all(b["pa"] in roots and b["tr"] == roots[b["pa"]]["tr"]
+               for b in batches)
+    assert sum(b["args"]["requests"] for b in batches) == 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,route", [
+    ((64, 128, 64), "cuda_core"), ((32, 128, 64), "cuda_core"),
+    ((16, 128, 64), "cuda_core"), ((8, 128, 64), "cuda_core"),
+    ((64, 32, 32), "cuda_core"), ((64, 784, 128), "tensor_core"),
+    ((32, 784, 128), "tensor_core"), ((4, 784, 128), "cuda_core")])
+def test_fc_relu_route_at_the_mlp_shapes(shape, route):
+    """The library sends small fp32 weights (the mlp's fc2, wide_deep's
+    deep1: N * K below fc_relu.cu's kTcMinWeights) to cuda_core and fc1
+    by its kTcMinRows rule; each route agrees with `fc_relu_ref`."""
+    _need_card()
+    m, k, n = shape
+    x, w, b = (torch.from_numpy(a).cuda() for a in _inputs(m, k, n))
+    assert launch_plan(x, w)["route"] == route
+    before = fc_relu.launches
+    got = fc_relu(x, w, b)
+    torch.cuda.synchronize()
+    assert fc_relu.launches == before + 1
+    ref = fc_relu_ref(x, w, b)
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-4 * ref.abs().max().item())

@@ -479,11 +479,11 @@ def test_worker_processes_sigkill_and_checkpoint_swap(prefix, tmp_path,
                 r.kill()
 
 
-def test_worker_main_needs_the_card_and_metrics_is_unported(prefix,
-                                                            monkeypatch):
+def test_worker_main_needs_the_card_and_answers_metrics(prefix,
+                                                        monkeypatch):
     """Without ``--ctx cpu`` the worker serves on the card, and with no
     card it raises instead of running on the CPU; the ``metrics`` frame
-    names the unported telemetry plane."""
+    answers the telemetry registry in `metrics_reply`'s shape."""
     import torch
     from incubator_mxnet_tpu_torch.serving import worker
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -495,12 +495,18 @@ def test_worker_main_needs_the_card_and_metrics_is_unported(prefix,
     w = worker.ReplicaWorker(model)
     try:
         reply = w._handle({"cmd": "metrics", "seq": 3})
-        assert "obs/" in reply["error"] and reply["seq"] == 3
+        assert reply["ok"] and reply["seq"] == 3
+        assert set(reply) == {"ok", "values", "prom", "seq"}
         x = np.ones((1, 6), "f4")
         first = w._handle({"cmd": "infer", "rid": "a", "inputs": [x]})
         again = w._handle({"cmd": "infer", "rid": "a", "inputs": [x]})
         assert again["deduped"] and w._executed == 1
         np.testing.assert_array_equal(first["outs"][0], again["outs"][0])
+        values = w._handle({"cmd": "metrics"})["values"]
+        assert values["worker.executed"] == 1
+        assert values["worker.dedup_hits"] == 1
+        parsed = tmx.obs.parse_prometheus(reply["prom"])
+        assert ("mx_worker_executed", ()) in parsed
     finally:
         w._server.server_close()
 

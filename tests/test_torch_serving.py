@@ -160,7 +160,9 @@ def test_port_imports_no_jax():
     utilities, and slice 15's gluon (AlexNet through Module.fit with K1
     nodes, SqueezeNet exported and imported as a SymbolBlock, CTCLoss, a
     contrib conv-LSTM cell), and slice 18's serving fleet (router,
-    replicas, worker, hostd, fleet, the embedding serving path), loads
+    replicas, worker, hostd, fleet, the embedding serving path), and
+    slice 19's telemetry plane (obs: a span, a counter, a scrape reply;
+    a profiler session dumped), loads
     neither jax nor the JAX package (the
     C shim's embedded interpreter is checked in
     tests/test_torch_serving_edges.py)."""
@@ -215,6 +217,12 @@ def test_port_imports_no_jax():
         import incubator_mxnet_tpu_torch.serving.worker
         import incubator_mxnet_tpu_torch.serving.hostd
         import incubator_mxnet_tpu_torch.serving.fleet
+        import incubator_mxnet_tpu_torch.obs
+        import incubator_mxnet_tpu_torch.obs.jsonl_sink
+        import incubator_mxnet_tpu_torch.obs.metrics
+        import incubator_mxnet_tpu_torch.obs.trace
+        import incubator_mxnet_tpu_torch.obs.scrape
+        import incubator_mxnet_tpu_torch.profiler
         import incubator_mxnet_tpu_torch.resilience
         import incubator_mxnet_tpu_torch.resilience.faults
         import incubator_mxnet_tpu_torch.c_predict
@@ -356,6 +364,16 @@ def test_port_imports_no_jax():
                                                    i2h_pad=1)
         cell.initialize(ctx=mx.cpu())
         cell.unroll(2, mx.nd.array(np.ones((1, 2, 2, 4, 4)), ctx=mx.cpu()))
+        mx.obs.trace.enable()
+        with mx.obs.trace.span("probe"):
+            mx.obs.registry().counter("probe.hits").inc()
+        mx.obs.parse_prometheus(mx.obs.scrape.metrics_reply()["prom"])
+        mx.profiler.set_config(filename=os.path.join(tempfile.mkdtemp(),
+                                                     "p.json"))
+        mx.profiler.set_state("run")
+        mx.profiler.Marker("m").mark()
+        mx.profiler.set_state("stop")
+        mx.profiler.dump()
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "incubator_mxnet_tpu"))
@@ -368,7 +386,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-# modules of the port the scan must reach (slices 15's and 18's among
+# modules of the port the scan must reach (slices 15, 18 and 19 among
 # them)
 PORT_MODULES = (
     "gluon/block.py", "gluon/loss.py", "gluon/nn/activations.py",
@@ -381,7 +399,9 @@ PORT_MODULES = (
     "gluon/model_zoo/vision/mobilenet.py",
     "gluon/model_zoo/vision/squeezenet.py", "autograd.py",
     "serving/router.py", "serving/replica.py", "serving/worker.py",
-    "serving/hostd.py", "serving/fleet.py", "embedding/serving.py")
+    "serving/hostd.py", "serving/fleet.py", "embedding/serving.py",
+    "obs/__init__.py", "obs/jsonl_sink.py", "obs/metrics.py",
+    "obs/trace.py", "obs/scrape.py", "profiler.py")
 
 
 def test_port_sources_never_import_jax():
