@@ -88,7 +88,7 @@ exits non-zero:
    the 53 BatchNorms at batch 4, each device's step from the float64
    state is held to the float64 step: the card as close as the CPU.
    b. the lane at batch 128 in bf16 with multi_precision on one
-   resident random batch, 8 warm + 48 timed steps:
+   resident random batch, 8 warm + 24 timed steps:
    the fused step every step, the loss falling, images/s, step ms, peak
    memory and `mfu` (989 TFLOP/s); then fp32 at batch 32 for 16 steps
    (`mfu` of the 67 TFLOP/s CUDA-core peak, TF32 off).  c. one warm bf16
@@ -157,7 +157,7 @@ exits non-zero:
 12. BASELINE config #2, train_imagenet.py's ResNet-50 (symbols/resnet.py:
    pre-activation v2, bn_data with fix_gamma, copied onto mx.sym) fed
    from a .rec by `ImageRecordIter` and the h2d ring (`io_plane`); K1/K2/
-   K3 held at 0 launches as in 9.  a. a corpus of 2048 images at 256 x
+   K3 held at 0 launches as in 9.  a. a corpus of 1024 images at 256 x
    320 (labels i % 1000) packed by the port's recordio, JPEG where a
    codec imports (else PPM, said so); the native IO library built from
    src/io_native.cc (a failed build fails the phase); bit for bit: the
@@ -169,7 +169,7 @@ exits non-zero:
    example's defaults (fp32, batch 128, SGD lr 0.1 momentum 0.9 wd 1e-4,
    Xavier, acc + top-5, Speedometer, kvstore "device", resize 256,
    rand_crop, rand_mirror, shuffle, the mean, preprocess_threads = the
-   host's cores) through `Module.fit` for 2 epochs of 16 batches, the
+   host's cores) through `Module.fit` for 2 epochs of 8 batches, the
    second timed, with the fp32 wire, the uint8 wire (ImageNormalize in
    the graph) and one resident batch: images/s, `real_vs_resident`, ring
    stalls, h2d bytes a batch, peak memory; the iterator alone over 2
@@ -326,7 +326,7 @@ exits non-zero:
    shuffles, CTCLoss with gradients, LSTMPCell, the nine conv RNN cells,
    SyncBatchNorm), and the one-card SyncBatchNorm against BatchNorm.
 18. gluon's data plane and `mx.contrib` (slice 16), K2 and K3 held at 0
-   launches.  a. a JPEG .rec of 1280 images at 256x256 (phase 12's
+   launches.  a. a JPEG .rec of 640 images at 256x256 (phase 12's
    writer) through `ImageRecordDataset`, the evaluation pipeline
    (Resize(256, keep_ratio), CenterCrop(224), ToTensor, Normalize with
    ImageNet's mean and std) and `DataLoader(batch 128)`: 8 workers = 0
@@ -445,6 +445,41 @@ exits non-zero:
    against its launches, printed.  d. the same server's requests/s and
    p50/p99 with tracing off and on (lanes off, on, on, off), and
    `calibrate_span_cost()`, printed.
+22. the training guardian and the train-to-serve loop (slice 20).  The
+   guardian is on by default, so every Module.fit above runs it.  a.
+   train_mnist's mlp (K1 at fc1 and fc2) through Module.fit with
+   checkpoints, the guardian polling every 4 steps: an injected
+   ``grad.nonfinite`` step skipped (two seeded runs sha256-equal, the
+   parameters finite); a NaN batch refused with the guardian on and
+   poisoning the parameters with MXNET_GUARDIAN=0; an injected
+   ``loss.spike`` rolled back (sha256-equal to a clean run over the same
+   quarantine); `TrainingDivergedError` past MAX_FAILURES naming step,
+   signal and shard; a resumed run skipping the quarantined position;
+   the skips, the rollback and its window, the quarantine and the
+   divergence equal to the same runs on the CPU.  b. 17b's AlexNet lane
+   (bf16, batch 128, K1 at fc6/fc7) through Module.fit with the
+   guardian off, on, on, off, and phase 6's mlp fit off and on:
+   images/s, step median and peak memory; one warm AlexNet step
+   profiled unguarded and guarded; each part of the added device time
+   (copy, norms, select, displacement) timed with CUDA events beside
+   the bytes it moves; the guarded fused step's synchronizing calls
+   between polls (torch.cuda.set_sync_debug_mode('warn')) no more than
+   the unguarded step's.  c. a trainer thread fine-tuning AlexNet's fc6,
+   fc7 and classifier (fp32, K1 at fc6/fc7) through Module.fit with
+   checkpoints and a `CheckpointPublisher` into a `ModelRegistry`, from
+   a boot model below the task's ceiling; a `LoopController` canarying
+   each version (the mean log-likelihood of the true class on 128
+   holdout images, tol 0.02) on one of two `LocalReplica`s behind a
+   `ReplicaRouter` (AlexNet, K1, buckets 1-32 and 128) and promoting it
+   with `swap_weights` while 2 clients send requests; the last
+   promotion above the boot model's score; a torn ``publish.commit``
+   invisible and published again; a degraded version (the classifier
+   scaled by 0.25) and a poisoned one (negated) rejected, swapped back
+   and stamped, never on the other replica; no admitted request lost;
+   ``loop.freshness_lag_s`` within its SLO in a scrape of this
+   process.  d. K1's launches on each
+   path (guardian_fit, alexnet_guarded, loop_trainer and loop_replicas by
+   the launching thread) into the kernels line.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -629,7 +664,7 @@ PATH_BLOCK = 512      # block_q, block_k of phase 5 (the repo's long-context
 # 3x224x224, batch 128, bf16 data, SGD lr 0.05 momentum 0.9 with
 # multi_precision and rescale_grad 1/batch, Xavier(gaussian, in, 2), "acc";
 # one device-resident random batch (bench.py:97-134)
-RESNET_BATCH, RESNET_WARM, RESNET_TIMED = 128, 8, 48
+RESNET_BATCH, RESNET_WARM, RESNET_TIMED = 128, 8, 24
 RESNET_FP32 = (32, 16)        # (batch, steps) of the fp32 run of the lane
 RESNET_PARITY = (4, 3)        # (batch, steps) of the card against the CPU
 RESNET_SERVE = (8, 4)         # (batch, steps) of the checkpoint it serves
@@ -793,10 +828,10 @@ LSTM_CLASSES = (
 # 128, SGD lr 0.1 momentum 0.9 wd 1e-4 rescale 1/128, Xavier(gaussian,
 # in, 2), acc + TopKAccuracy(5), Speedometer(128, 20), kvstore "device"
 # (train_imagenet.py:60-113).  The corpus is synthetic (no ImageNet .rec
-# is in the repository): 2048 images at 256 x 320 (short side = resize),
+# is in the repository): 1024 images at 256 x 320 (short side = resize),
 # labels i % 1000, blurred noise (tools/bench_io.py `build_corpus`) as
 # JPEG (PIL, quality 95) where a codec imports, else PPM
-IMAGENET_CORPUS = dict(n=2048, h=256, w=320)
+IMAGENET_CORPUS = dict(n=1024, h=256, w=320)
 IMAGENET_LAYERS = 50
 IMAGENET_RESIZE = 256
 IMAGENET_MEAN = dict(mean_r=123.68, mean_g=116.78, mean_b=103.94)
@@ -935,8 +970,18 @@ def k1_case(x, w, b, card, flush):
     for route in routes:
         call = lambda: fc_relu(x, w, b, route)
         t[f"{route}_ms"] = time_ms(call, flush)
-        t[f"{route}_device_ms"] = device_ms(call, flush=flush,
-                                            names=K1_KERNELS)
+        dev = device_ms(call, flush=flush, names=K1_KERNELS)
+        for _ in range(2):
+            if dev >= t_bound:
+                break
+            # below the card's bound no launch can be: the profile lost
+            # the route's main kernel (0.0039 ms against a 0.0200 ms
+            # bound once, fp32 (1, 4096, 4096) tensor_core)
+            print(f"K1 {name} {route}: profiled {dev:.4f} ms, below the "
+                  f"bound {t_bound:.4f} ms; profiled again")
+            dev = device_ms(call, flush=flush, names=K1_KERNELS)
+        t[f"{route}_device_ms"] = dev if dev >= t_bound else \
+            t[f"{route}_ms"]
     t["ms"] = t[f"{chosen}_ms"]
     t["device_ms"] = t[f"{chosen}_device_ms"]
     print(f"K1 time   {name} route={chosen} kernel_ms={t['ms']:.4f} "
@@ -4788,13 +4833,14 @@ def imagenet_parity(mx, sym, rec):
 
 def imagenet_lane(mx, sym, rec, card, wire):
     """Phase 12c: the config through the public Module.fit for 2 epochs
-    of 16 batches (epoch 0 warms up; epoch 1 is timed), fed by the .rec
-    through the ring (`wire` "float32" or "uint8"), or by one resident
-    batch on the card (`wire` "resident").  images/s over epoch 1 (its
-    first batch waits on the epoch-end work and the ring's restart) and
-    over its batches 1-15 (steady), the median step ms (CUDA events at
-    batch ends), ring stalls over epoch 1, the h2d bytes a batch and the
-    ring's put rate, peak memory.  Returns (module, numbers)."""
+    of the corpus's batches (epoch 0 warms up; epoch 1 is timed), fed by
+    the .rec through the ring (`wire` "float32" or "uint8"), or by one
+    resident batch on the card (`wire` "resident").  images/s over epoch
+    1 (its first batch waits on the epoch-end work and the ring's
+    restart) and over its batches from the second on (steady), the
+    median step ms (CUDA events at batch ends), ring stalls over epoch
+    1, the h2d bytes a batch and the ring's put rate, peak memory.
+    Returns (module, numbers)."""
     batch = IMAGENET_BATCH
     per_epoch = IMAGENET_CORPUS["n"] // batch
     if wire == "resident":
@@ -8100,8 +8146,8 @@ FF16_RAGGED = 500               # 16a: predict's rows (a tail of 52 of 64)
 CKPT16 = dict(epochs=2, period=20)   # 16b: Module.fit's elastic snapshots
 SERVE16_SIZES = (1, 7, 32, 3, 16, 2, 29, 8, 5, 12)   # 16b: request rows
 C16_EXACT = 1e-6                # 16d: the C program against in-process
-RESUME16 = dict(sentences=600, buckets=(10, 20, 40, 60), epochs=2,
-                period=4, kill_after=10, term_after=24)   # 16e
+RESUME16 = dict(sentences=400, buckets=(10, 20, 40, 60), epochs=2,
+                period=4, kill_after=7, term_after=16)    # 16e: 22 batches
 GRAD16 = {"fc": (2, 4, 3), "conv": (1, 2, 5, 5, 2, 3)}   # 16f's small ops
 
 
@@ -9534,7 +9580,7 @@ def zoo_phase(card, workdir):
 # CenterCrop 224, ToTensor, Normalize with ImageNet's mean and std) and
 # the random one of training (RandomResizedCrop 224, a left-right flip,
 # brightness, contrast and saturation jitter of 0.4)
-LOADER18_CORPUS = dict(n=1280, h=256, w=256)
+LOADER18_CORPUS = dict(n=640, h=256, w=256)
 LOADER18_RESIZE = 256           # the evaluation pipeline's short side
 LOADER18_FOLDER = 64            # PNGs of an ImageFolderDataset tree
 LOADER18_BATCH = 128
@@ -11185,6 +11231,23 @@ def router20(mx, card, tmp):
 
         clients = [threading.Thread(target=client, args=(c,), daemon=True)
                    for c in range(SWAP20_CLIENTS)]
+        # w0's swap and the deepcheck after it, timed on the router's
+        # side: both wait on the swap's budget, not the 5 s control
+        # timeout of the health loop
+        w0_ms = {}
+
+        def timed(name, fn):
+            def call(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    if name == "swap" or k.get("timeout_s") is not None:
+                        w0_ms[name] = (time.perf_counter() - t) * 1e3
+            return call
+
+        remote[0].swap = timed("swap", remote[0].swap)
+        remote[0].probe = timed("deepcheck", remote[0].probe)
         for t in clients:
             t.start()
         t_swap = time.perf_counter()
@@ -11216,13 +11279,15 @@ def router20(mx, card, tmp):
               "20b: the swap changed a ladder or missed a worker")
         k1_w0b = worker_k1_20(wst, "20b w0")
         out["20b"] = {"swap_s": swap_s, "answers": len(seen),
-                      "versions": versions}
+                      "versions": versions, "w0_ms": w0_ms}
         out["k1_local"] += k1_swap
         out["k1_workers"] += k1_w0b - k1_w0
         print(f"20b: swap_weights(checkpoint_dir=) over l0, l1, w0 in "
               f"{swap_s:.2f} s under {SWAP20_CLIENTS} clients: "
               f"{len(seen)} answers, {versions[0]} old and {versions[1]} "
-              f"new, none mixed, none dropped; ladders "
+              f"new, none mixed, none dropped; w0's swap "
+              f"{w0_ms.get('swap', float('nan')):.1f} ms and its deepcheck "
+              f"{w0_ms.get('deepcheck', float('nan')):.1f} ms; ladders "
               f"{programs} and {wst['programs']} unchanged, worker builds 0"
               f" [{card}]")
     finally:
@@ -12013,6 +12078,865 @@ def dtype_keys(prefix, rep):
              "max_abs_err")}
 
 
+# -- phase 22: the training guardian and the train-to-serve loop (slice 20)
+# 22a: train_mnist's mlp (K1 at fc1 and fc2) through Module.fit with
+# checkpoints, 8 batches of 64 an epoch, 2 epochs; the guardian polls
+# every 4 steps and warms its spike detector over 4 (the JAX package's
+# own tests' settings), so a spike at step 10 is diagnosed
+GUARD22 = dict(images=512, batch=64, epochs=2, period=4, lr=0.1,
+               momentum=0.9)
+GUARD22_ENV = {"MXNET_GUARDIAN_INTERVAL": "4",
+               "MXNET_GUARDIAN_SPIKE_WINDOW": "4"}
+GUARD22_SKIP = "seed=7;grad.nonfinite:error(at=5)"
+GUARD22_SPIKE = "seed=7;loss.spike:error(at=10)"
+GUARD22_DIVERGE = "seed=7;grad.nonfinite:error(at=3-12)"
+GUARD22_NAN_BATCH = 4          # the NaN batch of the guardian on/off run
+GUARD22_KEYS = ("reason", "step", "epoch", "nbatch", "shard")
+GUARD22_SYNC_STEPS = 8         # 22b: guarded steps under sync debug mode
+# 22c: AlexNet (Dropout 0, fp32, K1 at fc6/fc7) fine-tunes fc6, fc7 and
+# its classifier on a seeded 10-class task (a random pattern per class
+# plus noise) from a boot model whose classifier holds the classes'
+# centred mean fc7 features, scaled so that the boot model's mean
+# log-likelihood of the true class is `boot_loglik` (below the task's
+# ceiling of 0); the canary scores that log-likelihood on a holdout of
+# `holdout` images (`loglik22`) with the JAX default tolerance, and the
+# last promoted version must beat the boot model's score by `gain`; a
+# checkpoint every 4 steps, the publisher's cadence 2 steps (a torn
+# publish is retried before the next checkpoint exists); after training,
+# a degraded version (the live classifier scaled by `degrade`: the same
+# argmax, softer answers) and a poisoned one (negated) are published
+LOOP22 = dict(classes=10, noise=0.3, batch=128, batches=8, epochs=3,
+              period=4, publish=2, boot_batches=2, boot_loglik=-1.0,
+              holdout=128, lr=0.001, momentum=0.9, tol=0.02, gain=0.05,
+              degrade=0.25, poll_s=0.2, clients=2, rows=(1, 2, 4, 8),
+              torn="seed=3;publish.commit:torn(at=2)", wait_s=60.0)
+DEV22 = "cuda"                # 22c's torch device (a CPU rehearsal: "cpu")
+
+
+def guard22_params(mx, seed=SEED):
+    """The mlp's parameters from a numpy seed (the same on the card and
+    on the CPU)."""
+    rng = np.random.RandomState(seed)
+    shapes = {"fc1": (128, 784), "fc2": (64, 128), "fc3": (10, 64)}
+    out = {}
+    for name, (n, k) in shapes.items():
+        out[f"{name}_weight"] = (rng.normal(0, 1, (n, k)) /
+                                 np.sqrt(k)).astype("f4")
+        out[f"{name}_bias"] = np.zeros(n, "f4")
+    return out
+
+
+def nan22(mx, inner, bad):
+    """`inner`'s batches with batch `bad` of each epoch all NaN."""
+
+    class Nan22(mx.io.DataIter):
+        def __init__(self):
+            super().__init__(batch_size=inner.batch_size)
+            self._i = 0
+
+        provide_data = property(lambda self: inner.provide_data)
+        provide_label = property(lambda self: inner.provide_label)
+
+        def reset(self):
+            inner.reset()
+            self._i = 0
+
+        def next(self):
+            batch = inner.next()
+            self._i += 1
+            if self._i - 1 != bad:
+                return batch
+            nan = mx.nd.array(np.full(batch.data[0].shape, np.nan, "f4"),
+                              ctx=mx.cpu())
+            return mx.io.DataBatch([nan], batch.label, pad=0)
+
+    return Nan22()
+
+
+def guard22_fit(mx, ctx, ck=None, spec=None, num_epoch=None, resume=False,
+                nan_batch=None):
+    """One seeded Module.fit of the mlp under TPU_PALLAS on `ctx`."""
+    from incubator_mxnet_tpu_torch.resilience import faults
+    g = GUARD22
+    x, y = mx.test_utils.get_mnist_like(g["images"])
+    it = mx.io.NDArrayIter(x, y, g["batch"], shuffle=False)
+    if nan_batch is not None:
+        it = nan22(mx, it, nan_batch)
+    mod = mx.mod.Module(mlp_symbol(mx), context=ctx)
+    args = {k: mx.nd.array(v, ctx=mx.cpu())
+            for k, v in guard22_params(mx).items()}
+    if spec:
+        faults.configure(spec)
+    try:
+        mod.fit(it, num_epoch=num_epoch or g["epochs"], optimizer="sgd",
+                optimizer_params={"learning_rate": g["lr"],
+                                  "momentum": g["momentum"]},
+                eval_metric="acc", arg_params=args, kvstore=None,
+                checkpoint_dir=ck, checkpoint_period=g["period"],
+                resume=resume)
+    finally:
+        faults.clear()
+    return mod
+
+
+def guard22_sha(mod):
+    import hashlib
+    args, auxs = mod.get_params()
+    h = hashlib.sha256()
+    for k in sorted(args):
+        h.update(args[k].asnumpy().tobytes())
+    for k in sorted(auxs):
+        h.update(auxs[k].asnumpy().tobytes())
+    return h.hexdigest()
+
+
+def guard22_decisions(mod, ck):
+    """What a guarded run decided: its quarantine lines (the decision
+    keys), rollback step window and counters."""
+    from incubator_mxnet_tpu_torch.resilience.guardian import QuarantineLog
+    g = mod._guardian
+    q = QuarantineLog(os.path.join(ck, "quarantine.jsonl")).load() \
+        if ck else []
+    st = g.stats()
+    return {"quarantine": [tuple(e.get(k) for k in GUARD22_KEYS)
+                           for e in q],
+            "signals": [e.get("signal") for e in q],
+            "window": g.last_rollback_window,
+            "stats": {k: st[k] for k in ("steps_observed", "polls", "skips",
+                                         "spikes", "rollbacks",
+                                         "quarantined")}}
+
+
+def guard22_scenarios(mx, ctx, root):
+    """22a's runs on `ctx`: skip (twice), spike + its clean reference,
+    divergence, resume over the quarantine."""
+    from incubator_mxnet_tpu_torch.resilience import TrainingDivergedError
+    out = {}
+    skip = [guard22_fit(mx, ctx, os.path.join(root, f"skip{i}"),
+                        GUARD22_SKIP) for i in range(2)]
+    out["skip_sha"] = [guard22_sha(m) for m in skip]
+    out["skip"] = guard22_decisions(skip[1], os.path.join(root, "skip1"))
+    out["skip_finite"] = all(np.isfinite(a.asnumpy()).all()
+                             for a in skip[1].get_params()[0].values())
+    spike = guard22_fit(mx, ctx, os.path.join(root, "spike"), GUARD22_SPIKE)
+    out["spike"] = guard22_decisions(spike, os.path.join(root, "spike"))
+    os.makedirs(os.path.join(root, "ref"))
+    shutil.copy(os.path.join(root, "spike", "quarantine.jsonl"),
+                os.path.join(root, "ref", "quarantine.jsonl"))
+    ref = guard22_fit(mx, ctx, os.path.join(root, "ref"))
+    out["spike_sha"], out["ref_sha"] = guard22_sha(spike), guard22_sha(ref)
+    out["ref_rollbacks"] = ref._guardian.stats()["rollbacks"]
+    os.environ["MXNET_GUARDIAN_MAX_FAILURES"] = "2"
+    try:
+        guard22_fit(mx, ctx, None, GUARD22_DIVERGE)
+        out["diverged"] = None
+    except TrainingDivergedError as e:
+        out["diverged"] = (e.step, e.shard, e.signal)
+    finally:
+        os.environ.pop("MXNET_GUARDIAN_MAX_FAILURES")
+    rck = os.path.join(root, "resume")
+    guard22_fit(mx, ctx, rck, GUARD22_SKIP, num_epoch=1)
+    resumed = guard22_fit(mx, ctx, rck, resume=True)
+    pos = [(q[2], q[3]) for q in guard22_decisions(
+        resumed, rck)["quarantine"]]
+    g = resumed._guardian
+    out["resume"] = {"positions": pos,
+                     "skipped": all(g.should_skip(*p) for p in pos),
+                     "new_skips": g.stats()["skips"]}
+    return out
+
+
+def guard22_mlp(mx, card, workdir):
+    """22a: the guardian on BASELINE config #1's mlp (K1 at fc1 and fc2)
+    through Module.fit with checkpoints, on the card and on the CPU."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    root = tempfile.mkdtemp(dir=workdir, prefix="guard22-")
+    try:
+        fc_relu.launches = 0
+        gpu = guard22_scenarios(mx, mx.gpu(0), os.path.join(root, "gpu"))
+        on = guard22_fit(mx, mx.gpu(0), nan_batch=GUARD22_NAN_BATCH,
+                         num_epoch=1)
+        launches = fc_relu.launches
+        os.environ["MXNET_GUARDIAN"] = "0"
+        try:
+            off = guard22_fit(mx, mx.gpu(0), nan_batch=GUARD22_NAN_BATCH,
+                              num_epoch=1)
+        finally:
+            os.environ.pop("MXNET_GUARDIAN")
+        cpu = guard22_scenarios(mx, mx.cpu(), os.path.join(root, "cpu"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    finite = {name: all(np.isfinite(a.asnumpy()).all()
+                        for a in m.get_params()[0].values())
+              for name, m in (("on", on), ("off", off))}
+    sk, sp = gpu["skip"], gpu["spike"]
+    print(f"22a skip: {GUARD22_SKIP!r}: {sk['stats']['skips']} skip(s), "
+          f"quarantine {sk['quarantine']}; two seeded runs "
+          f"{'sha256-equal' if len(set(gpu['skip_sha'])) == 1 else 'DIFFER'}"
+          f" ({gpu['skip_sha'][0][:16]}); parameters finite "
+          f"{gpu['skip_finite']} [{card}]")
+    print(f"22a NaN batch {GUARD22_NAN_BATCH}: guardian on, parameters "
+          f"finite {finite['on']} ({on._guardian.stats()['skips']} skip); "
+          f"MXNET_GUARDIAN=0, parameters finite {finite['off']} "
+          f"(poisoned) [{card}]")
+    print(f"22a rollback: {GUARD22_SPIKE!r}: {sp['stats']['rollbacks']} "
+          f"rollback, window {sp['window']}, quarantine {sp['quarantine']}"
+          f", spike signal {sp['signals'][0]:.6g}; against a clean run over"
+          f" the same quarantine "
+          f"{'sha256-equal' if gpu['spike_sha'] == gpu['ref_sha'] else 'DIFFER'}"
+          f" [{card}]")
+    print(f"22a divergence: {GUARD22_DIVERGE!r} with MAX_FAILURES=2: "
+          f"TrainingDivergedError at step {gpu['diverged'][0]}, signal "
+          f"{gpu['diverged'][2]}, shard {gpu['diverged'][1]} [{card}]")
+    print(f"22a resume: quarantined positions {gpu['resume']['positions']}"
+          f" skipped on resume {gpu['resume']['skipped']}, "
+          f"{gpu['resume']['new_skips']} new skips [{card}]")
+    same = {k: (gpu[k]["quarantine"], gpu[k]["window"], gpu[k]["stats"])
+            == (cpu[k]["quarantine"], cpu[k]["window"], cpu[k]["stats"])
+            for k in ("skip", "spike")}
+    sig = max(abs(a / b - 1) for a, b in zip(sp["signals"],
+                                             cpu["spike"]["signals"])
+              if a is not None and b is not None)
+    div_same = gpu["diverged"][:2] == cpu["diverged"][:2]
+    print(f"22a card vs CPU: skip decisions equal {same['skip']}, rollback "
+          f"decisions equal {same['spike']} (quarantined signals within "
+          f"{sig:.2e} relative), divergence step and shard equal "
+          f"{div_same}, resume positions equal "
+          f"{gpu['resume']['positions'] == cpu['resume']['positions']}")
+    print(f"22a guardian_fit: K1 {launches} launches over the card's fits "
+          f"[{card}]")
+    ok = (len(set(gpu["skip_sha"])) == 1 and sk["stats"]["skips"] == 1
+          and gpu["skip_finite"] and finite["on"] and not finite["off"]
+          and sp["stats"]["rollbacks"] == 1
+          and gpu["spike_sha"] == gpu["ref_sha"]
+          and gpu["ref_rollbacks"] == 0 and gpu["diverged"] is not None
+          and gpu["diverged"][1] and gpu["resume"]["skipped"]
+          and gpu["resume"]["positions"]
+          and gpu["resume"]["new_skips"] == 0 and all(same.values())
+          and div_same and sig <= 1e-3
+          and gpu["resume"]["positions"] == cpu["resume"]["positions"]
+          and launches > 0)
+    check(ok, "22a: a guardian gate failed (see the 22a lines)")
+    return {"launches": launches, "skip": sk, "spike": sp,
+            "diverged": gpu["diverged"]}
+
+
+def sync_calls(fn, n):
+    """(count, where) of the synchronizing CUDA calls in `n` calls of
+    `fn`, as torch.cuda.set_sync_debug_mode('warn') reports them; `where`
+    lists each call's "file:line" in the Python code that made it."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(n):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    hits = [w for w in caught if "synchroniz" in str(w.message)]
+    return len(hits), [f"{os.path.basename(w.filename)}:{w.lineno}"
+                       for w in hits]
+
+
+def burst_ms(fn, reps=10):
+    """Mean time of fn() over `reps` calls enqueued back to back between
+    two CUDA events, after one warm call: while a call moves hundreds of
+    MB the host enqueues the next, so its launch gaps stay hidden."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def guard22_lanes(mx, card):
+    """22b's lanes in one process: 17b's AlexNet lane (bf16, batch 128,
+    K1 at fc6/fc7) through Module.fit unguarded, guarded, guarded,
+    unguarded (an order that favours neither side), then phase 6's mlp
+    fit unguarded and guarded; returns (guarded AlexNet module, its K1
+    launches, its guardian's stats, AlexNet's lanes, the mlp's)."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    batch, warm, timed = (ALEX_LANE[k] for k in ("batch", "warm", "timed"))
+    _, sym = alex_symbol(mx, DROP_RATE)
+    lanes, mlp, kept = {}, {}, None
+    for name in ("off", "on", "on2", "off2"):
+        guarded = name.startswith("on")
+        if not guarded:
+            os.environ["MXNET_GUARDIAN"] = "0"
+        fc_relu.launches = 0
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        try:
+            mod, lanes[name] = resnet_lane(
+                mx, sym, "bfloat16", batch, warm, timed, card,
+                PEAK_FLOPS[BF16], opt=OPT17,
+                label=f"22b alexnet {'guarded' if guarded else 'unguarded'}")
+        finally:
+            os.environ.pop("MXNET_GUARDIAN", None)
+        # the lane's peak above what was allocated when it started
+        lanes[name]["peak_gib"] -= base
+        if name == "on":
+            kept = (mod, fc_relu.launches, mod._guardian.stats())
+        del mod
+        gc.collect()
+    for name in ("off", "on"):
+        if name == "off":
+            os.environ["MXNET_GUARDIAN"] = "0"
+        print(f"22b mlp: phase 6's fit, guardian {name}:")
+        try:
+            mod, _, mlp[name] = fit_case(mx, "mlp", mlp_symbol(mx), card)
+        finally:
+            os.environ.pop("MXNET_GUARDIAN", None)
+        del mod
+    return kept + (lanes, mlp)
+
+
+def guard22_parts(fs, card):
+    """Where the guarded step's added device time goes: each part of the
+    health word and the select on AlexNet's tensors, timed with CUDA
+    events (`burst_ms`), beside the bytes it must move and the rate
+    that makes; stand-in gradients of the weights' shapes and dtypes;
+    the flag true, so the tensors keep their bits."""
+    from incubator_mxnet_tpu_torch import fused as _fused
+    plan = fs._guard_plan()
+    _, live, old, n, groups = plan
+    ws, old_ws = live[:n], old[:n]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = [torch.randn(w.shape, generator=g, device="cuda", dtype=w.dtype)
+             for w in ws]
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
+    dev = torch.device("cuda")
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
+    state, wb = size(live), size(ws)
+    parts = {
+        "copy": (lambda: [torch._foreach_copy_(o, t) for t, o in groups],
+                 2 * state),
+        "flag norms (gradients, new weights)":
+            (lambda: _fused._norms(grads + ws, dev), 2 * wb),
+        "old weights' norm": (lambda: _fused._norms(old_ws, dev), wb),
+        "select": (lambda: _fused._select(ok, live, old), 3 * state),
+        "displacement (sub into old, norm)":
+            (lambda: (torch._foreach_sub_(old_ws, ws),
+                      _fused._norms(old_ws, dev)), 4 * wb)}
+    out = {k: (burst_ms(fn), nbytes) for k, (fn, nbytes) in parts.items()}
+
+    def whole():
+        for t, o in groups:
+            torch._foreach_copy_(o, t)
+        fs._health(grads, [], plan)
+
+    out["all of it (copy + _health)"] = (
+        burst_ms(whole), sum(nb for _, nb in out.values()))
+    print(f"22b where the guarded step's time goes (CUDA events, 10 calls "
+          f"back to back; {len(live)} tensors, {state / 1e6:.1f} MB of "
+          f"weights, fp32 masters and momenta, {wb / 1e6:.1f} MB of "
+          f"weights) [{card}]:")
+    for k, (ms, nb) in out.items():
+        print(f"22b   {k}: {ms:.3f} ms, {nb / 1e6:.1f} MB moved at least, "
+              f"{nb / ms / 1e9:.2f} TB/s (the card's {HBM_BYTES_S / 1e12:.2f}"
+              f"), bound {nb / HBM_BYTES_S * 1e3:.3f} ms")
+    return {k: ms for k, (ms, _) in out.items()}
+
+
+def guard22_alexnet(mx, card):
+    """22b: the guardian's cost on 17b's AlexNet lane and phase 6's mlp
+    (`guard22_lanes`), one warm AlexNet step profiled unguarded and
+    guarded, the parts of the added time (`guard22_parts`), and the
+    guarded and unguarded fused step's synchronizing calls between
+    polls."""
+    from incubator_mxnet_tpu_torch.resilience import TrainingGuardian
+    batch, warm, timed = (ALEX_LANE[k] for k in ("batch", "warm", "timed"))
+    mod, launches, st, lanes, mlp = guard22_lanes(mx, card)
+    one = next(resident_iter(mx, batch, "bfloat16", 1))
+    metric = mx.metric.create("acc")
+    fs = mod._fused_step
+    step = lambda: mod.fit_step(one, metric)    # noqa: E731
+    guard = TrainingGuardian(interval=10 ** 9)
+    prof = {}
+    for name, g in (("unguarded", None), ("guarded", guard)):
+        fs.attach_guardian(g)
+        prof[name] = profile_one_step(step, card,
+                                      f"22b alexnet profile {name}", batch)
+    counts = {}
+    # unguarded, guarded, unguarded again: a call that syncs once in
+    # whichever window comes first shows in both unguarded windows' sum
+    for name, g in (("plain", None), ("guarded", guard), ("plain2", None)):
+        fs.attach_guardian(g)
+        step()
+        counts[name] = sync_calls(step, GUARD22_SYNC_STEPS)
+    plain = min(counts["plain"][0], counts["plain2"][0])
+    guarded = counts["guarded"][0]
+    polled = guard.stats()["polls"]
+    parts = guard22_parts(fs, card)
+    mean = lambda a, b: (a + b) / 2   # noqa: E731
+    off = {k: mean(lanes["off"][k], lanes["off2"][k])
+           for k in ("step_ms", "images_s")}
+    on = {k: mean(lanes["on"][k], lanes["on2"][k])
+          for k in ("step_ms", "images_s")}
+    cost = on["step_ms"] / off["step_ms"] - 1
+    peak = [max(lanes[a]["peak_gib"], lanes[b]["peak_gib"])
+            for a, b in (("off", "off2"), ("on", "on2"))]
+    print(f"22b alexnet guardian cost: step median "
+          f"{lanes['off']['step_ms']:.3f} / {lanes['off2']['step_ms']:.3f} ms"
+          f" off, {lanes['on']['step_ms']:.3f} / {lanes['on2']['step_ms']:.3f}"
+          f" ms on ({cost:+.4f} on the means); images/s {off['images_s']:.1f}"
+          f" off, {on['images_s']:.1f} on; peak above the lane's start "
+          f"{peak[0]:.2f} off / {peak[1]:.2f} on GiB; "
+          f"{st['steps_observed']} steps observed, "
+          f"{st['polls']} polls, {st['skips']} skips [{card}]")
+    pu, pg = prof["unguarded"], prof["guarded"]
+    print(f"22b alexnet one warm step profiled: unguarded {pu['kernels']} "
+          f"kernels, device {pu['device_ms']:.3f} ms, host "
+          f"{pu['host_ms']:.3f} ms to enqueue; guarded {pg['kernels']} "
+          f"kernels, device {pg['device_ms']:.3f} ms, host "
+          f"{pg['host_ms']:.3f} ms; the guard adds "
+          f"{pg['kernels'] - pu['kernels']} kernels, "
+          f"{pg['device_ms'] - pu['device_ms']:.3f} ms of device time "
+          f"and {pg['host_ms'] - pu['host_ms']:.3f} ms of host time "
+          f"[{card}]")
+    mcost = mlp["on"]["step_ms"] / mlp["off"]["step_ms"] - 1
+    print(f"22b mlp guardian cost (phase 6's fit, host-bound): step median "
+          f"{mlp['off']['step_ms']:.3f} ms off, {mlp['on']['step_ms']:.3f} ms"
+          f" on ({mcost:+.4f}); samples/s {mlp['off']['samples_s']:.0f} off, "
+          f"{mlp['on']['samples_s']:.0f} on [{card}]")
+    print(f"22b synchronizing calls over {GUARD22_SYNC_STEPS} steps "
+          f"(torch.cuda.set_sync_debug_mode('warn')): unguarded "
+          f"{counts['plain'][0]} then {counts['plain2'][0]}, guarded "
+          f"between polls {guarded} ({polled} polls); where: " +
+          "; ".join(f"{k} {v[1]}" for k, v in counts.items() if v[1])
+          + f" {'ok' if guarded <= plain else 'FAIL'} [{card}]")
+    print(f"22b alexnet_guarded: K1 {launches} launches over "
+          f"{warm + timed} guarded train forwards [{card}]")
+    check(guarded <= plain and polled == 0,
+          f"22b: the guarded step synchronizes {guarded} times against "
+          f"the unguarded step's {plain}")
+    check(launches == 2 * (warm + timed) and
+          st["steps_observed"] == warm + timed and st["skips"] == 0,
+          f"22b: K1 {launches} launches, {st['steps_observed']} steps "
+          "observed")
+    return {"off": off, "on": on, "cost": cost, "mlp_cost": mcost,
+            "syncs": (plain, guarded), "parts": parts, "launches": launches}
+
+
+def task22(mx, seed, batches, batch):
+    """LOOP22's seeded task on the card, as a DataIter: class k's images
+    are pattern k plus `noise` Gaussian noise; `batches` batches of
+    `batch` an epoch, the same every epoch (batch i drawn from seed + i);
+    `draw(i, n)` gives any draw."""
+    c = LOOP22["classes"]
+    rng = np.random.RandomState(SEED + 2200)
+    patterns = torch.from_numpy(rng.rand(c, *IMAGE).astype("f4")).to(DEV22)
+
+    class Task22(mx.io.DataIter):
+        def __init__(self):
+            super().__init__(batch_size=batch)
+            self._i = 0
+
+        @property
+        def provide_data(self):
+            return [mx.io.DataDesc("data", (batch,) + IMAGE)]
+
+        @property
+        def provide_label(self):
+            return [mx.io.DataDesc("softmax_label", (batch,))]
+
+        def draw(self, i, n=None):
+            n = n or batch
+            r = np.random.RandomState(seed + i)
+            # every class equally often (up to n % c): a balanced batch
+            # keeps the classifier's biases from drifting to one class
+            y = torch.from_numpy(r.permutation(np.arange(n) % c)).to(DEV22)
+            g = torch.Generator(device=DEV22).manual_seed(seed + i)
+            x = patterns[y] + LOOP22["noise"] * torch.randn(
+                (n,) + IMAGE, generator=g, device=DEV22)
+            return x, y.to(torch.float32)
+
+        def reset(self):
+            self._i = 0
+
+        def next(self):
+            if self._i >= batches:
+                raise StopIteration
+            x, y = self.draw(self._i)
+            self._i += 1
+            return mx.io.DataBatch([mx.nd.NDArray(x, ctx=mx.gpu(0))],
+                                   [mx.nd.NDArray(y, ctx=mx.gpu(0))], pad=0)
+
+    return Task22()
+
+
+def loglik22(outputs, labels):
+    """22c's canary score: the mean log-softmax that the served logits
+    give the true class (higher is better, 0 at best)."""
+    out = outputs[0] if isinstance(outputs, (list, tuple)) else outputs
+    z = np.asarray(out.asnumpy() if hasattr(out, "asnumpy") else out,
+                   dtype=np.float64)
+    z = z - z.max(axis=1, keepdims=True)
+    lp = z - np.log(np.exp(z).sum(axis=1, keepdims=True))
+    y = np.asarray(labels).reshape(-1).astype(np.int64)
+    return float(lp[np.arange(len(y)), y].mean())
+
+
+def loop22_boot(mx, task):
+    """The boot model: AlexNet (Dropout 0) from Xavier, its classifier's
+    rows 0..9 the classes' centred mean fc7 features (unit norm) over
+    `boot_batches` labelled batches times the scale that makes the mean
+    log-likelihood of the true class over those batches `boot_loglik`
+    (bisection), every other class's bias -1e3."""
+    c = LOOP22["classes"]
+    net = alex_net(mx, 0.0)
+    mx.random.seed(SEED)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    feats, labels = [], []
+    for i in range(LOOP22["boot_batches"]):
+        x, y = task.draw(10 ** 6 + i)
+        if i == 0:
+            net(mx.nd.NDArray(x, ctx=mx.gpu(0)))    # the deferred shapes
+        feats.append(net.features(mx.nd.NDArray(x, ctx=mx.gpu(0))).data)
+        labels.append(y)
+    f = torch.cat(feats).double()
+    y = torch.cat(labels).long()
+    mu = f.mean(0)
+    m = torch.stack([f[y == k].mean(0) for k in range(c)]) - mu
+    w = m / m.norm(dim=1, keepdim=True)
+    logits = f @ w.T - w @ mu
+
+    def loglik(scale):
+        lp = torch.log_softmax(scale * logits, dim=1)
+        return lp[torch.arange(len(y), device=y.device), y].mean().item()
+
+    lo, hi = -12.0, 12.0            # log2 of the scale
+    for _ in range(60):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if loglik(2 ** mid) < LOOP22["boot_loglik"] \
+            else (lo, mid)
+    w = w * 2 ** lo
+    values = {n: p.data().asnumpy() for n, p in
+              net.collect_params().items()}
+    wname, bname = f"{ALEX_PREFIX}dense2_weight", f"{ALEX_PREFIX}dense2_bias"
+    values[wname] = np.zeros_like(values[wname])
+    values[wname][:c] = w.cpu().numpy()
+    values[bname] = np.full_like(values[bname], -1e3)
+    values[bname][:c] = -(w @ mu).cpu().numpy()
+    return values
+
+
+def loop22_ckpt(mx, root, values, step):
+    """One elastic checkpoint of `values`, stamped healthy."""
+    from incubator_mxnet_tpu_torch import checkpoint as ckpt
+    mgr = ckpt.CheckpointManager(root, keep_last=64)
+    mgr.snapshot(arrays={f"arg:{k}": v for k, v in values.items()},
+                 step=step, meta={"health": {"status": "healthy"}},
+                 sync=True)
+    mgr.close()
+    return os.path.join(root, "ckpt-%010d" % step)
+
+
+def loop22(mx, card, workdir):
+    """22c: a trainer thread fine-tunes AlexNet through Module.fit with
+    checkpoints and a CheckpointPublisher into a ModelRegistry; a
+    LoopController canaries (`loglik22`) and promotes each version over
+    a ReplicaRouter of two LocalReplicas serving AlexNet (K1 at fc6/fc7,
+    buckets 1-32 and the holdout's) while clients send requests; a torn
+    publish, a degraded version (classifier scaled down) and a poisoned
+    one (classifier negated) are injected."""
+    from incubator_mxnet_tpu_torch import checkpoint as ckpt
+    from incubator_mxnet_tpu_torch.loop import (CheckpointPublisher,
+                                                LoopController,
+                                                ModelRegistry)
+    from incubator_mxnet_tpu_torch.resilience import faults
+    from incubator_mxnet_tpu_torch.serving import LocalReplica, ReplicaRouter
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    L = LOOP22
+    buckets = tuple(sorted(set(BUCKETS + (L["holdout"],))))
+    for m in sorted(set(buckets + (L["batch"],))):
+        alex_k1_held(m, F32, "22c")
+    root = tempfile.mkdtemp(dir=workdir, prefix="loop22-")
+    t_phase = time.perf_counter()
+    # stopped in `finally`, so that a failed gate leaves no thread behind
+    stop, ctrl, router, clients = threading.Event(), None, None, []
+    try:
+        task = task22(mx, SEED + 22, L["batches"], L["batch"])
+        boot_values = loop22_boot(mx, task)
+        boot = loop22_ckpt(mx, os.path.join(root, "boot"), boot_values, 0)
+        _, sym = alex_symbol(mx, 0.0)
+        part = mx.subgraph.partition_graph(
+            alex_net(mx, 0.0)(mx.sym.Variable("data")), "TPU_PALLAS")
+        fused = [n["op"] for n in json.loads(part.tojson())["nodes"]
+                 ].count("_sg_pallas_fc_relu")
+        check(fused == 2, f"22c: the served graph partitions to {fused} K1 "
+              "nodes")
+        args = {k: v for k, v in boot_values.items()}
+        reps = [LocalReplica(mx.serving.ServedModel(
+            part, args, {}, data_shapes=[("data", (1,) + IMAGE)],
+            buckets=buckets, ctx=mx.gpu(0), name=f"alex22-{i}"),
+            replica_id=f"r{i}") for i in range(2)]
+        router = ReplicaRouter(reps, name="loop22", health_interval_s=5.0)
+        hx, hy = task.draw(2 * 10 ** 6, L["holdout"])
+        holdout = ({"data": hx.cpu().numpy()}, hy.cpu().numpy())
+        reg = ModelRegistry(os.path.join(root, "registry"))
+        ck_root = os.path.join(root, "ck")
+        pub = CheckpointPublisher(reg, ck_root, publish_steps=L["publish"],
+                                  publish_secs=0)
+        ctrl = LoopController(router, reg, holdout, score_fn=loglik22,
+                              canary_tol=L["tol"],
+                              poll_interval_s=L["poll_s"],
+                              incumbent_checkpoint=boot,
+                              eval_timeout_ms=120000)
+        promoted, real_promote = [], ctrl._promote
+
+        def promote(cand, inc, can):
+            res = real_promote(cand, inc, can)
+            promoted.append((cand["version"], time.perf_counter(), inc,
+                             can))
+            return res
+
+        ctrl._promote = promote
+        fixed = [n for n in sym.list_arguments()
+                 if n not in ("data", "softmax_label")
+                 and not n.startswith(f"{ALEX_PREFIX}dense")]
+        mod = mx.mod.Module(sym, context=mx.gpu(0),
+                            fixed_param_names=fixed)
+        sent, refused, futures = [0], [0], []
+        lock = threading.Lock()
+
+        def client(k):
+            rng = np.random.RandomState(SEED + 220 + k)
+            while not stop.is_set():
+                rows = L["rows"][rng.randint(len(L["rows"]))]
+                x, _ = task.draw(3 * 10 ** 6 + rng.randint(1000), rows)
+                try:
+                    fut = router.submit({"data": x.cpu().numpy()},
+                                        timeout_ms=120000)
+                except Exception:   # noqa: BLE001 - shed at admission
+                    with lock:
+                        refused[0] += 1
+                    continue
+                with lock:
+                    sent[0] += 1
+                    futures.append((rows, fut))
+                stop.wait(0.02)
+
+        def pace(p):
+            # the trainer waits (at most wait_s) until the controller has
+            # decided on every version the registry shows
+            seen = reg.latest()
+            if seen is None:
+                return
+            deadline = time.monotonic() + L["wait_s"]
+            while ctrl.stats()["live_version"] < seen["version"] and \
+                    reg.rejected(seen["version"]) is None and \
+                    time.monotonic() < deadline:
+                time.sleep(0.02)
+
+        train_err = []
+
+        def train():
+            try:
+                pub.fit(mod, task, num_epoch=L["epochs"], kvstore=None,
+                        optimizer="sgd",
+                        optimizer_params={"learning_rate": L["lr"],
+                                          "momentum": L["momentum"],
+                                          "rescale_grad": 1.0 / L["batch"]},
+                        arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in boot_values.items()},
+                        eval_metric="acc", checkpoint_dir=ck_root,
+                        checkpoint_period=L["period"],
+                        checkpoint_keep_last=2, batch_end_callback=[pace])
+            except Exception as e:   # noqa: BLE001 - reported below
+                train_err.append(e)
+
+        fc_relu.launches = 0
+        fc_relu.by_thread.clear()
+        faults.configure(L["torn"])
+        ctrl.start()
+        clients = [threading.Thread(target=client, args=(k,),
+                                    name=f"mx-loop22-client-{k}")
+                   for k in range(L["clients"])]
+        trainer = threading.Thread(target=train, name="mx-loop22-trainer")
+        t0 = time.perf_counter()
+        for t in clients + [trainer]:
+            t.start()
+        trainer.join(timeout=600)
+        t_train = time.perf_counter()
+        check(not trainer.is_alive() and not train_err,
+              f"22c: the trainer failed: {train_err}")
+        torn = [e["ctx"].get("version") for e in faults.trace()
+                if e.get("site") == "publish.commit"]
+        faults.clear()
+        final = pub.stats()["last_published_version"]
+        deadline = time.monotonic() + L["wait_s"]
+        while ctrl.stats()["live_version"] < final and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+        live = reg.get(ctrl.stats()["live_version"])
+        check(live is not None, "22c: no version was promoted")
+        # the degraded version, then the poisoned one: the live
+        # checkpoint with its classifier scaled by `degrade`, then
+        # negated, published as the next steps
+        data = ckpt.load(live["checkpoint"])
+        other = [r for r in router.replicas()][1]
+        other_v = router.stats()["replicas"][other]["version"]
+        bad_versions = []
+        for k, factor in enumerate((L["degrade"], -1.0)):
+            bad = {n.partition(":")[2]: np.asarray(v)
+                   for n, v in data.arrays.items()}
+            for n in (f"{ALEX_PREFIX}dense2_weight",
+                      f"{ALEX_PREFIX}dense2_bias"):
+                bad[n] = bad[n] * np.float32(factor)
+            vbad = final + 1 + k
+            bad_versions.append(vbad)
+            reg.publish(loop22_ckpt(mx, os.path.join(root, f"bad{k}"), bad,
+                                    vbad),
+                        step=vbad, health={"status": "healthy"},
+                        watermark={"step": vbad, "time": time.time()})
+            deadline = time.monotonic() + L["wait_s"]
+            while ctrl.stats()["canary_rejections"] < k + 1 and \
+                    time.monotonic() < deadline:
+                time.sleep(0.05)
+        time.sleep(0.5)      # the clients run through the swap back
+        stop.set()
+        for t in clients:
+            t.join(timeout=60)
+        ctrl.stop()
+        results = []
+        for rows, fut in futures:
+            try:
+                out = fut.result(timeout=120)
+                first = out[0] if isinstance(out, (list, tuple)) else out
+                first = first.asnumpy() if hasattr(first, "asnumpy") \
+                    else np.asarray(first)
+                results.append(first.shape == (rows, CLASSES) and
+                               bool(np.isfinite(first).all()))
+            except Exception:   # noqa: BLE001 - a lost request
+                results.append(False)
+        launches = fc_relu.launches
+        k1_train = fc_relu.by_thread["mx-loop22-trainer"]
+        k1_serve = launches - k1_train
+        st = ctrl.stats()
+        rstats = router.stats()["replicas"]
+        answers = router.predict({"data": holdout[0]["data"]},
+                                 timeout_ms=120000)
+        served = loglik22(answers, holdout[1])
+        router.shutdown()
+        scrape = mx.obs.scrape.metrics_reply()
+        prom = mx.obs.parse_prometheus(scrape["prom"])
+        lag = [v for (name, _), v in prom.items()
+               if name.endswith("freshness_lag_s")]
+        rejected = [r["version"] for r in
+                    reg.versions(include_rejected=True) if r["rejected"]]
+        stamps = {v: reg.rejected(v) or {} for v in rejected}
+        pst = pub.stats()
+        visible = reg.versions()
+        steps = L["batches"] * L["epochs"]
+    finally:
+        faults.clear()
+        stop.set()
+        for t in clients:
+            t.join(timeout=60)
+        if ctrl is not None:
+            ctrl.stop()
+        if router is not None:
+            router.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    during = [p for p in promoted if p[1] <= t_train]
+    lost = results.count(False)
+    nan = float("nan")
+    print(f"22c trainer: AlexNet fine-tuned through Module.fit, {steps} "
+          f"steps of batch {L['batch']} in {t_train - t0:.2f} s (paced by "
+          f"the canary), checkpoints every {L['period']}, published "
+          f"{pst['published']} versions (the publish of v{torn[0] if torn else None} torn, "
+          f"then published again), fences {pst['fences']} [{card}]")
+    print(f"22c canary (mean log-likelihood of the true class over "
+          f"{L['holdout']} holdout images, tol {L['tol']}): promotions "
+          + ", ".join(f"v{v} ({c:.4f} vs {i:.4f})" for v, _, i, c in promoted)
+          + f"; {len(during)} while training ran; rejected "
+          + ", ".join(f"v{v} ({stamps[v].get('canary_score', nan):.4f} vs "
+                      f"{stamps[v].get('incumbent_score', nan):.4f})"
+                      for v in rejected)
+          + f" (degraded v{bad_versions[0]}: classifier x {L['degrade']}; "
+          f"poisoned v{bad_versions[1]}: negated), canary rejections "
+          f"{st['canary_rejections']},"
+        f" eval failures {st['eval_failures']}, swap failures "
+        f"{st['swap_failures']}; replica versions "
+        f"{ {r: s['version'] for r, s in rstats.items()} } (the other "
+        f"replica {other} at {other_v} before the poisoned canary) "
+        f"[{card}]")
+    print(f"22c clients: {sent[0]} requests admitted, {refused[0]} refused "
+          f"at admission, {lost} lost or wrong; the fleet's holdout score "
+          f"after the rejections {served:.6f}; loop.freshness_lag_s "
+          f"{st.get('freshness_lag_s', float('nan')):.3f} s (SLO "
+          f"{st['freshness_slo_s']:g} s), scraped {lag} [{card}]")
+    print(f"22c K1: loop_trainer {k1_train} launches ({2 * steps} = 2 x "
+          f"{steps} train forwards), loop_replicas {k1_serve} [{card}]")
+    gates = {
+        "3 promotions while training": len(during) >= 3,
+        "only the degraded and the poisoned versions rejected":
+            st["canary_rejections"] == 2 and rejected == bad_versions,
+        "the promotions improved on the boot model": bool(promoted) and
+            promoted[-1][3] >= promoted[0][2] + L["gain"],
+        "no admitted request lost": lost == 0 and sent[0] > 0,
+        "the torn publish invisible, then published again":
+            pst["torn_publishes"] == 1 and len(torn) == 1
+            and torn[0] in [v["version"] for v in visible],
+        "the bad versions invisible":
+            all(v["version"] not in bad_versions for v in visible),
+        "the bad versions never past their canary":
+            rstats[other]["version"] == other_v,
+        "the fleet serves the incumbent": bool(promoted) and
+            abs(served - promoted[-1][3]) <= 1e-4,
+        "freshness within the SLO and scraped":
+            bool(lag) and max(lag) <= st["freshness_slo_s"],
+        "K1 on both paths": k1_train == 2 * steps and k1_serve > 0}
+    failed = [k for k, v in gates.items() if not v]
+    check(not failed, f"22c: gates failed: {failed}")
+    return {"promotions": len(promoted), "during": len(during),
+            "rejected": rejected, "sent": sent[0], "lost": lost,
+            "lag": st.get("freshness_lag_s"), "k1_train": k1_train,
+            "k1_serve": k1_serve, "s": time.perf_counter() - t_phase}
+
+
+def guardian_phase(card, workdir):
+    """Phase 22: the training guardian (22a, 22b) and the train-to-serve
+    loop (22c); 22d's K1 counts go into the kernels line."""
+    import incubator_mxnet_tpu_torch as mx
+    out, times = {}, {}
+    saved = {k: os.environ.get(k) for k in GUARD22_ENV}
+    os.environ.update(GUARD22_ENV)
+    os.environ["MXNET_SUBGRAPH_BACKEND"] = "TPU_PALLAS"
+    try:
+        t0 = time.perf_counter()
+        out["22a"] = guard22_mlp(mx, card, workdir)
+        times["22a"] = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    try:
+        t0 = time.perf_counter()
+        out["22b"] = guard22_alexnet(mx, card)
+        times["22b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["22c"] = loop22(mx, card, workdir)
+        times["22c"] = time.perf_counter() - t0
+    finally:
+        os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+    out["times"] = times
+    out["k1"] = {"guardian_fit": out["22a"]["launches"],
+                 "alexnet_guarded": out["22b"]["launches"],
+                 "loop_trainer": out["22c"]["k1_train"],
+                 "loop_replicas": out["22c"]["k1_serve"]}
+    return out
+
 def main():
     if sys.argv[1:]:
         print(f"usage: python3 chip_smoke.py (takes no arguments; got "
@@ -12108,6 +13032,11 @@ def main():
     print(f"phase 20: {time.perf_counter() - t0 - t21:.1f} s")
     print(f"phase 21: {t21:.1f} s (21a, 21c, 21d, and 21b's scrape inside "
           f"20c)")
+    t0 = time.perf_counter()
+    g22 = guardian_phase(card, str(_build.BUILD_DIR.parent))
+    for k, v in g22["times"].items():
+        print(f"phase {k}: {v:.1f} s")
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -12343,6 +13272,22 @@ def main():
           f"{td['off']['p50_ms']:.1f}/{td['on']['p50_ms']:.1f} ms, p99 "
           f"{td['off']['p99_ms']:.1f}/{td['on']['p99_ms']:.1f} ms, "
           f"{td['span_ns']:.0f} ns a span [{card}]")
+    ga, gb, lc = g22["22a"], g22["22b"], g22["22c"]
+    print(f"guardian summary: 22a mlp skip sha256-equal, rollback "
+          f"sha256-equal to the clean run, divergence at step "
+          f"{ga['diverged'][0]} ({ga['diverged'][1]}), decisions equal the "
+          f"CPU's; 22b AlexNet bf16 batch {ALEX_LANE['batch']} step "
+          f"{gb['off']['step_ms']:.3f} ms off / {gb['on']['step_ms']:.3f} ms "
+          f"on ({gb['cost']:+.4f}), {gb['off']['images_s']:.1f} / "
+          f"{gb['on']['images_s']:.1f} images/s, the mlp "
+          f"{gb['mlp_cost']:+.4f}, synchronizing calls "
+          f"{gb['syncs'][0]} / {gb['syncs'][1]}; 22c {lc['promotions']} "
+          f"promotions ({lc['during']} while training), rejected "
+          f"{lc['rejected']}, {lc['sent']} requests admitted, {lc['lost']} "
+          f"lost, freshness lag {lc['lag']:.3f} s; K1 launches "
+          f"{g22['k1']}; " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                        g22["times"].items())
+          + f" [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"
@@ -12365,14 +13310,15 @@ def main():
         "launches": launches + train_launches + kvp["dp_launches"]
         + kvp["wd_launches"] + seq["k1_launches"] + sum(api["k1"].values())
         + sum(zoo["k1"].values()) + sum(loaders["k1"].values())
-        + sum(s17["k1"].values()) + sum(f20["k1"].values()),
+        + sum(s17["k1"].values()) + sum(f20["k1"].values())
+        + sum(g22["k1"].values()),
         "paths": {"serving": launches, "training": train_launches,
                   "data_parallel": kvp["dp_launches"],
                   "wide_deep": kvp["wd_launches"],
                   "sequential_module": seq["k1_launches"],
                   "dist_sync_workers": dist["launches"], **api["k1"],
                   **zoo["k1"], **loaders["k1"], **s17["k1"],
-                  **f20["k1"]},
+                  **f20["k1"], **g22["k1"]},
         "max_abs_err": rep["max_abs_err"],
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

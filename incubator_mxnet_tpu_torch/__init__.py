@@ -75,6 +75,10 @@ adds the serving fleet (`serving.ReplicaRouter`, worker processes, host
 daemons, `serving.fleet.FleetManager`).  Slice 19 adds the telemetry
 plane: `obs` (metrics, cross-process trace spans, the ``metrics`` scrape
 frame, the shared JSONL sink) and `profiler` over `torch.profiler`.
+Slice 20 adds the training guardian (`resilience.guardian`, armed by
+`Module.fit`: skip-batch, rollback to the last healthy checkpoint,
+quarantine, `TrainingDivergedError`) and the train-to-serve loop
+(`loop`: `ModelRegistry`, `CheckpointPublisher`, `LoopController`).
 
     import incubator_mxnet_tpu_torch as mx
 """
@@ -125,6 +129,7 @@ from .attribute import AttrScope
 from . import contrib
 from . import obs
 from . import profiler
+from . import loop
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "ops", "symbol", "sym", "ndarray", "nd", "subgraph",
@@ -135,4 +140,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "checkpoint", "rnn", "recordio", "native", "image", "io_plane",
            "kvstore", "kv", "kvstore_server", "resilience", "embedding",
            "test_utils", "monitor", "Monitor", "attribute", "AttrScope",
-           "contrib", "obs", "profiler"]
+           "contrib", "obs", "profiler", "loop"]

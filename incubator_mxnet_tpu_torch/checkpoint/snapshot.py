@@ -34,9 +34,11 @@ The shard format is the JAX package's, byte for byte
 values, then the raw bytes.  bfloat16 is written under the dtype string
 ``"bfloat16"``, as the JAX package writes it, and read back as a torch
 tensor (numpy has no bfloat16 without `ml_dtypes`); every other array
-reads back as numpy.  The JAX package's lock-order and thread-sanitizer
-hooks (`analysis.locks`, `analysis.tsan`) and its fault-injection sites
-(`resilience.faults`) are not ported.
+reads back as numpy.  The ``checkpoint.commit`` fault site fires before
+the manifest is written: a ``torn`` clause commits the directory without
+it (a checkpoint never resumed from).  The JAX package's lock-order and
+thread-sanitizer hooks (`analysis.locks`, `analysis.tsan`) are not
+ported.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ import torch
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
 from .. import storage
+from ..resilience import faults as _faults
 from . import manifest as _manifest
 
 ARRAYS_SHARD = "arrays.npk"
@@ -325,6 +328,20 @@ class SnapshotJob:
             # other processes wrote them; the manifest records what rank 0
             # expects so validate() still covers them after adoption
             shards.update(self._adopt_rank_shards(tmp))
+            try:
+                _faults.fire("checkpoint.commit", step=self.step)
+            except _faults.TornWrite:
+                # the writer "dies" between the directory landing and the
+                # manifest: the directory is committed WITHOUT a manifest
+                # and the write returns as if it had succeeded, which is
+                # what a killed process leaves; validate() rejects it and
+                # latest() falls back one commit
+                final = os.path.join(self.root,
+                                     _manifest.checkpoint_dirname(self.step))
+                if os.path.isdir(final):
+                    shutil.rmtree(final)
+                os.replace(tmp, final)
+                return
             _manifest.write_manifest(
                 tmp, step=self.step, epoch=self.epoch, nbatch=self.nbatch,
                 shards=shards, rng=self.rng, meta=self.meta,

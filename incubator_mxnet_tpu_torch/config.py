@@ -84,6 +84,20 @@ the registered producers; ``MXNET_PROFILER_AUTOSTART`` (off) starts
 custom-event buffer and ``MXNET_PROFILER_MODE`` (0) is accepted and
 ignored, as in the JAX package.
 
+The training guardian's knobs, with the JAX package's defaults:
+``MXNET_GUARDIAN`` (on) arms `resilience.guardian.TrainingGuardian` in
+every `Module.fit`; ``MXNET_GUARDIAN_INTERVAL`` (8) trained steps between
+the polls of the health word, ``_SPIKE_WINDOW`` (16) the spike
+detector's EWMA window and warm-up, ``_SPIKE_K`` (6.0) its k-sigma,
+``_MAX_FAILURES`` (3) consecutive unhealthy steps and ``_MAX_ROLLBACKS``
+(2) rollbacks before `TrainingDivergedError`, and ``_QUARANTINE``
+(empty: ``<checkpoint_dir>/quarantine.jsonl``) the quarantine file.
+The train-to-serve loop's (`loop/`): ``MXNET_LOOP_PUBLISH_STEPS`` (100)
+and ``MXNET_LOOP_PUBLISH_SECS`` (0: off) the publisher's cadence,
+``MXNET_LOOP_CANARY_TOL`` (0.02) the canary gate's tolerance,
+``MXNET_LOOP_POLL_S`` (2.0) the controller's poll interval and
+``MXNET_LOOP_FRESHNESS_SLO_S`` (600.0) the freshness SLO.
+
 ``MXNET_FLASH_INTERPRET`` is not carried over: in the port the tensor's
 device decides.  A CPU tensor takes a kernel's plain PyTorch version; a
 CUDA tensor launches the kernel or raises.
@@ -274,6 +288,41 @@ KNOBS = {
                                   "profiler.py custom-event buffer cap "
                                   "(drop-oldest past it, counted in "
                                   "'profiler.dropped_events')"),
+    "MXNET_GUARDIAN": (_BOOL, True,
+                       "training health guardian in Module.fit: the "
+                       "fused step's health word, skip-batch, rollback "
+                       "to the last healthy checkpoint, quarantine"),
+    "MXNET_GUARDIAN_INTERVAL": (int, 8,
+                                "trained steps between health-word polls "
+                                "(one host read an interval)"),
+    "MXNET_GUARDIAN_SPIKE_WINDOW": (int, 16,
+                                    "EWMA window and warm-up steps of the "
+                                    "loss-spike detector"),
+    "MXNET_GUARDIAN_SPIKE_K": (float, 6.0,
+                               "k-sigma of log(signal) over its EWMA "
+                               "diagnosed as a loss spike"),
+    "MXNET_GUARDIAN_MAX_FAILURES": (int, 3,
+                                    "consecutive unhealthy steps before "
+                                    "TrainingDivergedError"),
+    "MXNET_GUARDIAN_MAX_ROLLBACKS": (int, 2,
+                                     "rollbacks a fit may take before a "
+                                     "spike raises TrainingDivergedError"),
+    "MXNET_GUARDIAN_QUARANTINE": (str, "",
+                                  "quarantine JSONL path (default "
+                                  "<checkpoint_dir>/quarantine.jsonl)"),
+    "MXNET_LOOP_PUBLISH_STEPS": (int, 100,
+                                 "trained steps between registry publishes "
+                                 "(0 disables the step cadence)"),
+    "MXNET_LOOP_PUBLISH_SECS": (float, 0.0,
+                                "wall-clock publish cadence in seconds "
+                                "(0 disables)"),
+    "MXNET_LOOP_CANARY_TOL": (float, 0.02,
+                              "how far below the incumbent a canary may "
+                              "score on the holdout and still promote"),
+    "MXNET_LOOP_POLL_S": (float, 2.0,
+                          "LoopController registry poll interval"),
+    "MXNET_LOOP_FRESHNESS_SLO_S": (float, 600.0,
+                                   "freshness SLO on loop.freshness_lag_s"),
 }
 
 

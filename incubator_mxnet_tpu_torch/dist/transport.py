@@ -270,10 +270,11 @@ class Channel:
         msg["client"] = self.client_id
         return msg
 
-    def request(self, obj):
+    def request(self, obj, timeout=None):
         """One round trip.  Connection failures resend under the retry
         policy (the server dedups by client and seq); a timeout raises
-        and leaves the channel consistent."""
+        and leaves the channel consistent.  ``timeout`` (seconds)
+        replaces the channel's for this request only."""
         msg = self._frame(obj)
         # with tracing on (MXNET_OBS_TRACE) the frame carries a ``tr``
         # span context the server's handling span parents to; a resend
@@ -281,7 +282,7 @@ class Channel:
         sp = _obs_trace.rpc_span(msg, f"{self.host}:{self.port}")
         self._last_frame = msg
         try:
-            return self._send_framed(msg)
+            return self._send_framed(msg, timeout)
         finally:
             sp.end()
 
@@ -290,10 +291,11 @@ class Channel:
         a server that already applied it replays its cached reply."""
         return self._send_framed(self._last_frame)
 
-    def _send_framed(self, msg):
+    def _send_framed(self, msg, timeout=None):
         if self._closed:
             raise ConnectionError(
                 f"channel to {self.host}:{self.port} is closed")
+        wait = self._timeout if timeout is None else float(timeout)
         delays = self._retry.delays()
         while True:
             try:
@@ -301,15 +303,20 @@ class Channel:
                     self._connect(self._reconnect_wait)
                     if self.on_reconnect is not None:
                         self.on_reconnect(self)
-                send_msg(self._sock, msg)
-                return self._read_reply(msg["seq"])
+                self._sock.settimeout(wait)
+                try:
+                    send_msg(self._sock, msg)
+                    return self._read_reply(msg["seq"])
+                finally:
+                    if self._sock is not None:
+                        self._sock.settimeout(self._timeout)
             except socket.timeout:
                 # the timeout may have fired mid-frame: drop the socket;
                 # the next request reconnects and resends stay safe
                 self._drop_sock()
                 raise TimeoutError(
                     f"request {msg.get('cmd')!r} to {self.host}:{self.port} "
-                    f"timed out after {self._timeout:g}s; the server is "
+                    f"timed out after {wait:g}s; the server is "
                     "slow or wedged")
             except (ConnectionError, EOFError, OSError):
                 self._drop_sock()

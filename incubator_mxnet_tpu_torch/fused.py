@@ -140,8 +140,26 @@ class FusedTrainStep:
     its `get`.  Every write is in place, so nothing is deferred and the
     module's arrays are current after each call.  The JAX class compiles
     the step into one program (and K steps into one scan) with donated
-    buffers, a program cache and a guardian; this one runs eagerly, and
-    capturing it as a CUDA graph is ROADMAP work.
+    buffers and a program cache; this one runs eagerly, and capturing it
+    as a CUDA graph is ROADMAP work.
+
+    With a training guardian attached (`attach_guardian`) each step also
+    computes the health word on the device, as the JAX step does in its
+    program: the gradients times the guardian's multiplier, one
+    all-finite flag over the gradients, the floating outputs and the
+    new weights, and the displacement ratio ||w_new - w|| / ||w||,
+    handed to `TrainingGuardian.record_health` as device scalars.  A
+    step that is not finite leaves the weights, the optimizer states, the
+    BatchNorm aux and the metric's totals bit for bit as they were; the
+    update counts and the random streams advance.  The step copies the
+    parameters, states and aux into buffers first (`torch._foreach_copy_`)
+    and afterwards keeps ``torch.where(flag, new, old)`` of each, a select
+    that gives ``new`` or ``old`` bit for bit whatever the floats hold.
+    The flag is the finiteness of each tensor's L2 norm, accumulated in
+    float32 (`torch._foreach_norm`, whose sums carry a NaN or an infinity
+    through); a tensor whose norm overflows float32 counts as not finite.
+    A healthy step's results are bit-identical to the unguarded step's,
+    and nothing reads the device.
 
     Built by `Module.init_optimizer` when `Module._fusable` allows it;
     optimizer state lives in the module's updater either way, so the
@@ -166,6 +184,14 @@ class FusedTrainStep:
         self._shapes = {n: self._exec.arg_dict[n].shape
                         for n in self._input_names}
         self.steps = 0
+        self._guardian = None
+        self._plan = None         # the guarded step's tensors and buffers
+
+    def attach_guardian(self, guardian):
+        """Arm (or, with None, disarm) the training guardian's health
+        word and the select of a step that is not finite."""
+        armed = guardian is not None and getattr(guardian, "in_graph", True)
+        self._guardian = guardian if armed else None
 
     def __call__(self, data_batch, eval_metric=None):
         """Run one step on `data_batch`.  Returns False, having done
@@ -183,17 +209,99 @@ class FusedTrainStep:
                 for n, v in zip(self._input_names, values)):
             return False
         exe = self._exec
+        guardian = self._guardian
+        if guardian is not None:
+            plan = self._guard_plan()
+            for live, old in plan[4]:
+                torch._foreach_copy_(old, live)
         outs = exe.forward(is_train=True,
                            **dict(zip(self._input_names, values)))
         grads = exe._grads()
+        grads = [grads[p] for p in self._grad_pos]
+        if guardian is not None:
+            gmul = guardian.step_multipliers(1)[0]
+            if gmul != 1.0:   # NaN or the spike scale, injected
+                torch._foreach_mul_(grads, gmul)
         self._updater.update_multi(
-            self._indices, [NDArray(grads[p]) for p in self._grad_pos],
+            self._indices, [NDArray(g) for g in grads],
             [exe.arg_dict[n] for n in self._param_names])
+        finite = None
+        if guardian is not None:
+            finite, signal = self._health(grads, outs, plan)
+            guardian.record_health(1, finite, signal)
         labels = [exe.arg_dict[n] for n in self._label_names]
         for metric in leaves:
-            metric._accumulate(*metric.device_update(labels, outs))
+            totals = metric.device_update(labels, outs)
+            if finite is not None:
+                # a refused step adds nothing to the metric's totals
+                totals = [torch.where(finite, t, 0) for t in totals]
+            metric._accumulate(*totals)
         self.steps += 1
         return True
+
+    # -- the guardian's health word ------------------------------------------
+    def _guard_plan(self):
+        """(key, live, copies, number of weights, (live, copies) by
+        dtype): the tensors a step may change (weights, optimizer-state
+        leaves, aux) and their copy buffers, also grouped by dtype (a
+        multi-tensor copy of one dtype takes the fused route; a mixed list
+        is copied tensor by tensor).  Built once, and again only when the
+        module replaced a
+        weight, an index's optimizer state or an aux array (`key` holds
+        them; the optimizers update in place, so a step never does).
+        Every updated index's state is created first, as `update_multi`
+        would."""
+        exe, upd = self._exec, self._updater
+        for i, n in zip(self._indices, self._param_names):
+            if i not in upd.states:
+                upd.states[i] = upd.optimizer.create_state_multi_precision(
+                    i, exe.arg_dict[n])
+        ws = [exe.arg_dict[n].data for n in self._param_names]
+        states = [upd.states[i] for i in self._indices]
+        aux = [a.data for a in exe.aux_arrays]
+        key = ws + states + aux
+        plan = self._plan
+        if plan is not None and len(plan[0]) == len(key) and \
+                all(a is b for a, b in zip(plan[0], key)):
+            return plan
+        leaves, stack = [], list(reversed(states))
+        while stack:
+            st = stack.pop()
+            if isinstance(st, NDArray):
+                leaves.append(st.data)
+            elif isinstance(st, torch.Tensor):
+                leaves.append(st)
+            elif isinstance(st, (tuple, list)):
+                stack.extend(reversed(st))
+        live = ws + leaves + aux
+        old = [torch.empty_like(t) for t in live]
+        groups = {}
+        for t, o in zip(live, old):
+            if t.numel():
+                pair = groups.setdefault(t.dtype, ([], []))
+                pair[0].append(t)
+                pair[1].append(o)
+        self._plan = (key, live, old, len(ws), list(groups.values()))
+        return self._plan
+
+    def _health(self, grads, outs, plan):
+        """The health word of the step just applied: (all-finite flag,
+        displacement ratio) as device scalars.  The flag covers the
+        gradients, the floating outputs and the new weights (as the JAX
+        step's does); a step that is not finite is selected away and its
+        ratio is NaN.  The displacement is taken after the select, into
+        the old weights' buffers, so no weight-sized temporary is made."""
+        _, live, old, n, _ = plan
+        ws, old_ws = live[:n], old[:n]
+        floats = [o.data for o in outs if o.data.is_floating_point()]
+        dev = self._exec._device
+        finite = _norms(grads + floats + ws, dev).isfinite().all()
+        wn = torch.linalg.vector_norm(_norms(old_ws, dev))
+        _select(finite, live, old)
+        if ws:
+            torch._foreach_sub_(old_ws, ws)    # old - new: its norm is dn
+        dn = torch.linalg.vector_norm(_norms(old_ws, dev))
+        return finite, torch.where(finite, dn / (wn + 1e-12), float("nan"))
 
     def ring_placement(self):
         """Where the h2d ring lands this step's batches
@@ -202,6 +310,34 @@ class FusedTrainStep:
         each one with a device-to-device copy and no cast."""
         from .io_plane import RingPlacement
         return RingPlacement.for_fused_step(self)
+
+
+def _norms(tensors, device):
+    """A float32 vector of the tensors' L2 norms, one multi-tensor launch
+    a dtype (a mixed list would be normed tensor by tensor), accumulated
+    in float32 (float64 tensors in float64), in the order of the dtypes'
+    first tensors; a NaN or infinity in a tensor carries through its
+    norm."""
+    groups = {}
+    for t in tensors:
+        if t.numel():
+            groups.setdefault(t.dtype, []).append(t)
+    parts = [torch.stack(torch._foreach_norm(ts) if dt == torch.float64
+                         else torch._foreach_norm(ts, 2,
+                                                  dtype=torch.float32)
+                         ).float() for dt, ts in groups.items()]
+    if not parts:
+        return torch.zeros(0, device=device)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _select(flag, live, old):
+    """``live = live if flag else old`` for every pair, in place and bit
+    for bit (a select, not arithmetic: a NaN of `live` is not carried
+    into `old`), without reading `flag` on the host.  There is no
+    multi-tensor where, so it is one launch a tensor."""
+    for t, o in zip(live, old):
+        torch.where(flag, t, o, out=t)
 
 
 def _metric_leaves(eval_metric):

@@ -17,7 +17,10 @@ IMREAD_COLOR)``, HWC uint8 in BGR order (the finish reverses it to RGB).
 Routes, first that imports: cv2; PIL (its RGB reversed); numpy for
 binary PPM (P6), which needs no codec.  A record no route can decode for
 want of a codec raises `CodecUnavailableError`; it is never counted as a
-corrupt record.  Without cv2 the iterator's resize is `resize_linear`,
+corrupt record; a record that fails to decode is replaced by zeros,
+counted and quarantined, and each record's bytes pass the
+``io.corrupt_record`` payload fault site first.  Without cv2 the
+iterator's resize is `resize_linear`,
 the fixed-point arithmetic of cv2's INTER_LINEAR for uint8, and
 ``fast_decode`` (libjpeg's reduced decode) falls back to a full decode.
 The detection pipeline (`image_detection`: the Det augmenters,
@@ -43,6 +46,7 @@ from .obs import trace as _obs_trace
 from .ndarray.ndarray import NDArray, array
 from . import native as _native
 from . import recordio as _recordio
+from .resilience import faults as _faults
 
 _log = logging.getLogger(__name__)
 
@@ -588,6 +592,8 @@ class ImageIter(DataIter):
             source=getattr(self.imgrec, "uri", None),
             record=idx if isinstance(idx, int) else None,
             detail=str(exc)[:200])
+        _faults.note("corrupt-record", site="io.corrupt_record",
+                     record=idx if isinstance(idx, int) else -1)
 
     @property
     def provide_data(self):
@@ -865,6 +871,8 @@ class ImageRecordIterImpl(DataIter):
             self._quarantine, reason="corrupt_record",
             source=self._path_imgrec, record=int(rec_id),
             detail=str(exc)[:200])
+        _faults.note("corrupt-record", site="io.corrupt_record",
+                     record=int(rec_id))
 
     def close(self):
         if self._pool is not None:
@@ -920,7 +928,11 @@ class ImageRecordIterImpl(DataIter):
             header = img = None
             try:
                 raw = _record_payload(self._buf, self._records[rec_id])
-                header, payload = _recordio.unpack(bytes(raw))
+                # the payload fault site: a ``corrupt`` clause bit-flips
+                # this record's bytes, deterministically
+                raw = _faults.mutate("io.corrupt_record", bytes(raw),
+                                     record=rec_id)
+                header, payload = _recordio.unpack(raw)
                 img = self._decode(payload, need)
                 if img is None:
                     raise MXNetError("not a decodable image")

@@ -164,6 +164,12 @@ class DataIter:
     def set_checkpoint_state(self, state, nbatch=0):
         self.seek(nbatch)
 
+    def record_range(self, nbatch):
+        """(source, lo, hi): where batch `nbatch` of this epoch draws its
+        records from, the training guardian's shard attribution; None
+        when the iterator cannot say (the default)."""
+        return None
+
 
 class NDArrayIter(DataIter):
     """Iterate over in-memory arrays (reference `io.py NDArrayIter`):
@@ -254,6 +260,13 @@ class NDArrayIter(DataIter):
         """Cursor arithmetic from the epoch-start cursor; no data is
         touched."""
         self.cursor = self._epoch_cursor0 + int(nbatch) * self.batch_size
+
+    def record_range(self, nbatch):
+        """The sample-index window batch `nbatch` of this epoch draws
+        from (the shuffle permutation maps it onto rows)."""
+        lo = max(self._epoch_cursor0 + (int(nbatch) + 1) * self.batch_size,
+                 0)
+        return ("ndarray", lo, min(lo + self.batch_size, self.num_data))
 
     def checkpoint_state(self):
         # the shuffle permutation is the epoch's batch order; the

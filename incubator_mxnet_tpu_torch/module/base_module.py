@@ -8,15 +8,20 @@ batch (`Module`'s runs the fused train step where it can, else
 batch-end callbacks after each (with a ``monitor``, `Monitor.tic`,
 `_batch_step` and `Monitor.toc_print` instead, as the JAX loop, so the
 monitor sees every forward's outputs), `_fit_epoch_begin` before each
-epoch, and the elastic
-checkpoints of `_fit_attempt`
-(``checkpoint_dir``, ``checkpoint_period``, ``checkpoint_keep_last``,
-``resume``; `checkpoint/`), and the h2d staging ring around the training
-iterator (`_wrap_io_ring`, ``MXNET_IO_RING``).  The other planes the JAX
-`fit` wraps around that loop are not ported (README "Declared
-divergences"): the fused step's K-step blocks, the training guardian and
-its rollback, the supervisor, the program cache, failover after a lost
-server and shrink-and-resume (``max_restarts``, ``mesh``).
+epoch, the elastic checkpoints of `_fit_attempt` (``checkpoint_dir``,
+``checkpoint_period``, ``checkpoint_keep_last``, ``resume``;
+`checkpoint/`; under a ``dist_*`` kvstore a rank other than 0 publishes
+only its rank-local state into ``rank-shards/``), the h2d staging ring
+around the training iterator (`_wrap_io_ring`, ``MXNET_IO_RING``), and
+the training guardian (`resilience.guardian`, ``MXNET_GUARDIAN``, on by
+default): skip-batch on a step that is not finite, quarantined positions
+skipped, a forced poll and a ``health`` stamp at every snapshot, and
+`fit`'s restart loop, which rolls back to the newest healthy checkpoint
+after a loss spike.  The other planes the JAX `fit` wraps around that
+loop are not ported (README "Declared divergences"): the fused step's
+K-step blocks, the supervisor, the program cache and its ``programs/``
+payload, failover after a lost server and shrink-and-resume
+(``max_restarts``, ``mesh``).
 """
 from __future__ import annotations
 
@@ -182,16 +187,105 @@ class BaseModule:
         143.  ``resume=True`` restarts from the newest valid checkpoint
         in that directory, mid-epoch, bit-identical to a run that was
         never stopped; a fresh run refuses a directory that holds
-        another run's checkpoints."""
+        another run's checkpoints.
+
+        Training guardian (`resilience.guardian`, ``MXNET_GUARDIAN``):
+        the fused step computes a health word on the device and refuses
+        a step that is not finite (skip-batch, its position
+        quarantined); a diagnosed loss spike makes this loop restore the
+        newest checkpoint stamped healthy at or before the last
+        in-bounds step, replay from there and skip the quarantined
+        window (rollback); past the failure or rollback budget a
+        `TrainingDivergedError` names the step, the signal and the data
+        shard."""
+        from ..resilience import guardian as _guardian_mod
+        self._guardian = _guardian_mod.TrainingGuardian.maybe_create(
+            checkpoint_dir, logger=self.logger)
+        # every attempt gets these; the restart loop flips only the
+        # resume and force flags
+        fixed = dict(
+            eval_data=eval_data, eval_metric=eval_metric,
+            epoch_end_callback=epoch_end_callback,
+            batch_end_callback=batch_end_callback, kvstore=kvstore,
+            optimizer=optimizer, optimizer_params=optimizer_params,
+            eval_end_callback=eval_end_callback,
+            eval_batch_end_callback=eval_batch_end_callback,
+            initializer=initializer, arg_params=arg_params,
+            aux_params=aux_params, allow_missing=allow_missing,
+            begin_epoch=begin_epoch, num_epoch=num_epoch,
+            validation_metric=validation_metric, monitor=monitor,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_period=checkpoint_period,
+            checkpoint_keep_last=checkpoint_keep_last)
+        while True:
+            try:
+                return self._fit_attempt(
+                    train_data, force_rebind=force_rebind,
+                    force_init=force_init, resume=resume, **fixed)
+            except _guardian_mod.RollbackRequested as e:
+                # a loss spike's update was applied: restore the newest
+                # healthy checkpoint at or before the last in-bounds step
+                # (the guardian's pending_rollback_step bounds the pick)
+                # and replay; the spike window is quarantined, so the
+                # resumed attempt skips it.  The guardian budgets these.
+                if checkpoint_dir is None or self._guardian is None:
+                    raise
+                self.logger.warning(
+                    "fit: %s — restarting from the last healthy "
+                    "checkpoint in %r", e, checkpoint_dir)
+                self._teardown_kvstore()
+                resume = True
+                force_rebind = True
+                force_init = True
+
+    def _teardown_kvstore(self):
+        """Drop the kvstore so the next `init_optimizer` builds a fresh
+        one (the restart path).  A dist store's channels close without
+        the protocol's 'stop': this worker restarts, it does not leave."""
+        kv = getattr(self, "_kvstore", None)
+        if kv is not None:
+            try:
+                if hasattr(kv, "_chans"):
+                    kv.close(send_stop=False)
+                elif hasattr(kv, "close"):
+                    kv.close()
+            except Exception:   # noqa: BLE001 - a dead store is expected
+                pass
+        self._kvstore = None
+        self.optimizer_initialized = False
+
+    def _fit_attempt(self, train_data, eval_data=None, eval_metric="acc",
+                     epoch_end_callback=None, batch_end_callback=None,
+                     kvstore="local", optimizer="sgd",
+                     optimizer_params=(("learning_rate", 0.01),),
+                     eval_end_callback=None, eval_batch_end_callback=None,
+                     initializer=None, arg_params=None, aux_params=None,
+                     allow_missing=False, force_rebind=False,
+                     force_init=False, begin_epoch=0, num_epoch=None,
+                     validation_metric=None, monitor=None,
+                     checkpoint_dir=None, checkpoint_period=100,
+                     checkpoint_keep_last=5, resume=False):
+        """One fit attempt; `RollbackRequested` propagates to `fit`'s
+        restart loop with the checkpoint manager flushed and closed."""
         assert num_epoch is not None, "please specify number of epochs"
         from ..initializer import Uniform
+        guardian = getattr(self, "_guardian", None)
         ckpt_resume = None
         resume_nbatch = 0
         gstep = 0
         if checkpoint_dir is not None:
             from .. import checkpoint as _ckpt
             if resume:
-                path = _ckpt.latest(checkpoint_dir)
+                if guardian is not None and \
+                        guardian.pending_rollback_step is not None:
+                    # rollback: newer checkpoints may carry the spike's
+                    # damage, so pick by health stamp AND the last
+                    # in-bounds step
+                    path = _ckpt.latest_healthy(
+                        checkpoint_dir,
+                        max_step=guardian.pending_rollback_step)
+                else:
+                    path = _ckpt.latest(checkpoint_dir)
                 ckpt_resume = _ckpt.load(path) if path is not None else None
             elif _ckpt.latest(checkpoint_dir, deep=False,
                               include_rejected=True) is not None:
@@ -230,8 +324,26 @@ class BaseModule:
             self.install_monitor(monitor)
         ckpt_mgr = None
         if checkpoint_dir is not None:
+            # the dist layout: the kvstore names this process's rank;
+            # rank 0 owns the parameters, the manifest and retention, the
+            # other ranks publish side shards only
+            kv = getattr(self, "_kvstore", None)
+            rank = getattr(kv, "rank", 0) if kv is not None else 0
+            num_ranks = getattr(kv, "num_workers", 1) if kv is not None \
+                else 1
             ckpt_mgr = _ckpt.CheckpointManager(
-                checkpoint_dir, keep_last=checkpoint_keep_last)
+                checkpoint_dir, keep_last=checkpoint_keep_last,
+                rank=rank, num_ranks=num_ranks)
+            if ckpt_resume is not None and rank != 0:
+                # this worker's own iterator position and random streams
+                # live in its shard; rank 0's must not stand in for them
+                # (no shard: the manifest's nbatch alone)
+                ckpt_resume.blobs.pop(_ckpt.state.ITERATOR_BLOB, None)
+                ckpt_resume.rng = None
+                shard = ckpt_resume.rank_shard(rank)
+                if shard is not None:
+                    ckpt_resume.blobs.update(shard.get("blobs") or {})
+                    ckpt_resume.rng = shard.get("rng")
         if ckpt_resume is not None:
             # rebuilds the fused step around the restored optimizer
             _ckpt.state.restore_module_optimizer(
@@ -246,6 +358,15 @@ class BaseModule:
         # after init_optimizer (and the restore, which may rebuild the
         # fused step): the step's placement binds the ring
         train_data, io_ring = self._wrap_io_ring(train_data)
+        if guardian is not None:
+            if guardian.pending_rollback_step is not None:
+                # the restore landed (or no healthy checkpoint existed and
+                # this attempt starts from the caller's parameters)
+                guardian.rollback_committed(
+                    ckpt_resume.step if ckpt_resume is not None else 0)
+            # after every path that rebuilds the fused step
+            guardian.attach(self)
+            guardian.attach_iterator(train_data)
         try:
             self._fit_epochs(
                 train_data, eval_data, eval_metric, validation_metric,
@@ -270,6 +391,7 @@ class BaseModule:
                     eval_batch_end_callback, begin_epoch, num_epoch,
                     ckpt_mgr, ckpt_resume, resume_nbatch, gstep,
                     checkpoint_period, monitor=None):
+        guardian = getattr(self, "_guardian", None)
         last_snap_step = gstep
         for epoch in range(begin_epoch, num_epoch):
             self._fit_epoch_begin(epoch, train_data)
@@ -287,6 +409,14 @@ class BaseModule:
                     resume_nbatch)
                 nbatch = resume_nbatch
             for data_batch in train_data:
+                if guardian is not None and \
+                        guardian.should_skip(epoch, nbatch):
+                    # a quarantined position: consumed, never trained on;
+                    # the position still advances, so resume stays
+                    # aligned with the run that quarantined it
+                    guardian.note_skipped(epoch, nbatch)
+                    nbatch += 1
+                    continue
                 if monitor is not None:
                     monitor.tic()
                     self._batch_step(data_batch, eval_metric)
@@ -301,6 +431,13 @@ class BaseModule:
                         callback(params)
                 nbatch += 1
                 gstep += 1
+                if guardian is not None:
+                    # pair the step's health token with its position, then
+                    # run the ladder every MXNET_GUARDIAN_INTERVAL steps
+                    # (one device read; may raise RollbackRequested or
+                    # TrainingDivergedError)
+                    guardian.tag(epoch, nbatch - 1, train_data)
+                    guardian.maybe_poll(gstep)
                 if ckpt_mgr is not None:
                     # batch boundary: parameters and (epoch, nbatch, step)
                     # agree, the only place a snapshot may be taken
@@ -312,6 +449,10 @@ class BaseModule:
                         self._elastic_snapshot(ckpt_mgr, train_data, epoch,
                                                nbatch, gstep)
                         last_snap_step = gstep
+            if guardian is not None:
+                # the epoch's last tokens, before the boundary snapshot
+                # stamps its manifest
+                guardian.maybe_poll(gstep, force=True)
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -373,9 +514,32 @@ class BaseModule:
                           sync=False, meta=None):
         """Stage one elastic checkpoint: device-to-host copies queued on
         the train step's stream, serialization and the atomic commit in
-        the background (`checkpoint/`)."""
-        arrays, blobs, staged = self._checkpoint_capture(train_data)
+        the background (`checkpoint/`).  With a guardian, its pending
+        tokens are read first (a snapshot never stamps itself healthy on
+        stale evidence; an undetected spike raises here and no snapshot
+        is taken) and the manifest carries its ``health`` stamp.  A rank
+        other than 0 writes only its rank-local state: its iterator
+        position and, with the optimizer on the worker, its states."""
+        from .. import checkpoint as _ckpt
+        guardian = getattr(self, "_guardian", None)
         meta = dict(meta or {})
+        if guardian is not None:
+            guardian.maybe_poll(step, force=True)
+            meta["health"] = guardian.health_stamp()
+        if mgr.rank != 0:
+            blobs = {}
+            if self.optimizer_initialized and \
+                    not getattr(self, "_update_on_kvstore", False) and \
+                    getattr(self, "_updater", None) is not None:
+                blobs[_ckpt.state.OPTIMIZER_BLOB] = \
+                    self._updater.get_states(dump_optimizer=True)
+            it_blob = _ckpt.state.capture_iterator(train_data)
+            if it_blob is not None:
+                blobs[_ckpt.state.ITERATOR_BLOB] = it_blob
+            mgr.snapshot(arrays={}, blobs=blobs, step=step, epoch=epoch,
+                         nbatch=nbatch, sync=sync, meta=meta)
+            return
+        arrays, blobs, staged = self._checkpoint_capture(train_data)
         optimizer = getattr(self, "_optimizer", None)
         if optimizer is not None:
             meta["optimizer"] = optimizer.state_dict()

@@ -14,8 +14,9 @@ magic word where it can, otherwise treats the tail as EOF, counts every
 skip on ``corrupt_records``, and appends one entry per skip to a
 quarantine log attached with `set_quarantine` (any object with an
 ``append(reason=, source=, ...)`` method).  `read_idx` of a damaged
-record returns None.  The JAX module's chaos fault site
-(``io.corrupt_record``) is not ported: the port has no fault injector.
+record returns None.  Every assembled record passes the
+``io.corrupt_record`` payload fault site (`resilience.faults.mutate`),
+where a ``corrupt`` clause bit-flips it, as in the JAX module.
 
 `pack_img`/`unpack_img` code with PIL where it imports, as the JAX
 package does, else with OpenCV; PPM (P6) needs neither.
@@ -222,7 +223,7 @@ class MXRecordIO:
             if cflag is None:
                 return None
             if cflag == 0:
-                return buf
+                return self._deliver(buf)
             if cflag != 1:
                 self._corrupt("unexpected continuation flag %d at "
                               "record start" % cflag)
@@ -238,14 +239,20 @@ class MXRecordIO:
                     continue
                 if cflag == 3:
                     parts.append(buf)
-                    return MAGIC_BYTES.join(parts)
+                    return self._deliver(MAGIC_BYTES.join(parts))
                 # a fresh record start interrupted the sequence: drop
                 # the torn record, adopt this part
                 self._corrupt("multi-part record interrupted by flag %d"
                               % cflag)
                 if cflag == 0:
-                    return buf
+                    return self._deliver(buf)
                 parts = [buf]
+
+    def _deliver(self, rec):
+        """One assembled record through the ``io.corrupt_record`` payload
+        fault site (one global read when no schedule is configured)."""
+        from .resilience import faults as _faults
+        return _faults.mutate("io.corrupt_record", rec, uri=self.uri)
 
     def tell(self):
         return self.handle.tell()

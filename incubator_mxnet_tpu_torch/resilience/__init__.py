@@ -5,23 +5,30 @@ dist kvstore, the sharded embedding table and the serving batcher use:
 `RetryPolicy` and `RetryBudget` (exponential backoff with jitter,
 deadlines, a shared budget), `CircuitBreaker` (consecutive-failure trip,
 half-open probes), `ServerLostError`, the structured error a permanently
-lost parameter server raises, and `faults`, the deterministic fault
+lost parameter server raises, `faults`, the deterministic fault
 injection registry (``MXNET_FAULTS``; `inject`, `configure`, `fire`,
-`trace`).  The elastic supervisor and the training guardian are not
-ported (README, "Declared divergences").
+`mutate`, `trace`), and the training guardian (`guardian`:
+`TrainingGuardian`, `TrainingDivergedError`, `RollbackRequested`,
+`QuarantineLog`), which `Module.fit` arms by default.  The elastic
+supervisor waits for ROADMAP item 14-dist.
 """
 from __future__ import annotations
 
 from ..base import MXNetError
 from . import faults
 from .faults import (FaultInjected, TornWrite, configure, inject, clear,
-                     reset, trace, fire, active)
+                     reset, trace, fire, mutate, active)
 from .retry import RetryPolicy, RetryBudget
 from .breaker import CircuitBreaker
+from . import guardian
+from .guardian import (TrainingGuardian, TrainingDivergedError,
+                       RollbackRequested, QuarantineLog)
 
 __all__ = ["faults", "FaultInjected", "TornWrite", "configure", "inject",
-           "clear", "reset", "trace", "fire", "active", "RetryPolicy",
-           "RetryBudget", "CircuitBreaker", "ServerLostError"]
+           "clear", "reset", "trace", "fire", "mutate", "active",
+           "RetryPolicy", "RetryBudget", "CircuitBreaker", "ServerLostError",
+           "guardian", "TrainingGuardian", "TrainingDivergedError",
+           "RollbackRequested", "QuarantineLog"]
 
 
 class ServerLostError(MXNetError):

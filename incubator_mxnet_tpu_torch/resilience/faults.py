@@ -6,9 +6,15 @@ are injected at NAMED SITES on the failure-prone paths; a site is one
 `fire(site, **ctx)` call, which costs a function call and one global
 read when no fault is configured.  The port wires the ``serving.execute``
 site (the micro-batcher's batch execution), the router's
-``router.dispatch``, ``replica.health`` and ``replica.swap`` and the
-fleet's ``fleet.spawn`` and ``host.down``; the transport, server and
-``checkpoint.commit`` sites come with their subsystems (ROADMAP.md).
+``router.dispatch``, ``replica.health`` and ``replica.swap``, the fleet's
+``fleet.spawn`` and ``host.down``, the checkpoint writer's
+``checkpoint.commit`` (a ``torn`` clause commits a directory without its
+manifest), the training guardian's ``grad.nonfinite`` and ``loss.spike``
+(fired once a fused train step; an ``error`` clause becomes a NaN or a
+1e6 gradient multiplier for that step), the record readers'
+``io.corrupt_record`` payload site, and the train-to-serve loop's
+``publish.commit`` and ``canary.eval``; the transport's and the parameter
+server's sites come with ROADMAP item 14-dist.
 
 Faults come from the ``MXNET_FAULTS`` environment spec or the
 programmatic `inject()` API.  Spec grammar (clauses joined with ``;``)::
@@ -27,16 +33,18 @@ Firing controls (any clause):
 * ``cmd=NAME``           — only hits whose context carries ``cmd=NAME``
 * ``record=N``           — only hits whose context carries ``record=N``
 
-The grammar keeps the JAX package's ``corrupt`` kind, which damages a
-payload at a payload site; the port has no such site, and `fire` skips
-``corrupt`` clauses.  Every fired fault appends an event to an
-in-process trace (`trace()`), and, when ``MXNET_FAULTS_LOG`` names a
-file, one JSON line per event, stamped with the process id, the
-``DMLC_RANK``, the thread and the time and written through the shared
-line-atomic sink (`obs.jsonl_sink`), so the processes of one run share a
-log; each event is also a `profiler.record_fault` instant while a
-profile runs, as in the JAX package.  The same seed always gives the
-same schedule.
+A ``corrupt`` clause damages a payload: it fires only through
+`mutate(site, payload)`, the hook of a site that holds bytes, which
+returns a bit-flipped copy (``bytes=N`` positions, seeded by the
+schedule's seed, the site and the hit; ``offset=K`` flips N bytes from
+K instead); `fire` skips ``corrupt`` clauses.  Every fired fault appends
+an event to an in-process trace (`trace()`), and, when
+``MXNET_FAULTS_LOG`` names a file, one JSON line per event, stamped with
+the process id, the ``DMLC_RANK``, the thread and the time and written
+through the shared line-atomic sink (`obs.jsonl_sink`), so the processes
+of one run share a log; each event is also a `profiler.record_fault`
+instant while a profile runs, as in the JAX package.  The same seed
+always gives the same schedule.
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ from ..obs import jsonl_sink as _jsonl
 from ..base import MXNetError
 
 __all__ = ["FaultInjected", "TornWrite", "configure", "inject", "clear",
-           "reset", "trace", "fire", "note", "active",
+           "reset", "trace", "fire", "mutate", "note", "active",
            "parse_spec"]
 
 
@@ -306,6 +314,53 @@ def fire(site, **ctx):
                          if isinstance(v, (str, int, float, bool))}}
         _record(event)
     _execute(clause, site, ctx)
+
+
+def mutate(site, payload, **ctx):
+    """The payload-site hook: `fire` plus the ``corrupt`` kind.
+
+    Returns `payload` untouched when nothing fires; a firing ``corrupt``
+    clause returns a deterministic bit-flipped copy (seeded by the
+    schedule's seed, the site and the hit, so the same spec damages the
+    same bytes of the same record); any other kind runs as in `fire`."""
+    if not ACTIVE:
+        if ACTIVE is None:
+            active()
+            if not ACTIVE:
+                return payload
+        else:
+            return payload
+    clause = None
+    with _lock:
+        for c in _clauses:
+            if c.matches(site, ctx) and c.evaluate() and clause is None:
+                clause = c
+        if clause is None:
+            return payload
+        clause.fired += 1
+        event = {"event": "fault", "site": site, "kind": clause.kind,
+                 "hit": clause.hits, "seq": len(_trace) + 1,
+                 "ctx": {k: v for k, v in ctx.items()
+                         if isinstance(v, (str, int, float, bool))}}
+        _record(event)
+        hit = clause.hits
+    if clause.kind != "corrupt":
+        _execute(clause, site, ctx)
+        return payload
+    data = bytearray(payload)
+    if not data:
+        return payload
+    n = min(int(clause.args.get("bytes", 16)), len(data))
+    rng = random.Random((_seed, site, hit).__repr__())
+    if "offset" in clause.args:
+        start = int(clause.args["offset"]) % len(data)
+        positions = [(start + i) % len(data) for i in range(n)]
+    else:
+        positions = rng.sample(range(len(data)), n)
+    for pos in positions:
+        # a non-zero seeded byte: every chosen position changes
+        data[pos] ^= rng.randint(1, 255)
+    return bytes(data)
 
 
 def _execute(clause, site, ctx):

@@ -480,12 +480,13 @@ class DecodeReplica(Replica):
             raise ReplicaLostError(self.replica_id, reason="engine dead")
         return True
 
-    def probe(self):
+    def probe(self, timeout_s=None):
         """Deepcheck: a real single-token decode through the prepared
-        ladder (prefill + step + eviction)."""
+        ladder (prefill + step + eviction), waited on for ``timeout_s``
+        (30 s by default)."""
         fut = self.engine.submit([1], max_new_tokens=1,
                                  priority="best_effort")
-        return fut.result(30.0)
+        return fut.result(30.0 if timeout_s is None else timeout_s)
 
     def swap(self, arg_params=None, aux_params=None, checkpoint_dir=None):
         from ..llm import stack_lm_params

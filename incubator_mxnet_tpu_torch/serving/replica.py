@@ -21,8 +21,11 @@ The contract a router relies on:
   future fails with `ReplicaLostError` when the replica dies before
   resolving it (the failover trigger; anything else is a caller error
   that would fail identically on every replica).
-* ``heartbeat()`` is a cheap liveness check; ``probe()`` is the
-  deepcheck, a real bucket-1 inference through the prepared ladder.
+* ``heartbeat()`` is a cheap liveness check; ``probe(timeout_s=None)``
+  is the deepcheck, a real bucket-1 inference through the prepared
+  ladder.  The router passes ``timeout_s`` for the deepcheck that ends
+  a weight swap: a remote replica waits that long for it instead of
+  its short control timeout.
 * ``swap(...)`` replaces the parameter set in place (same shapes, same
   programs: `ServedModel.program_count` is unchanged); ``version``
   counts committed swaps.
@@ -96,7 +99,7 @@ class Replica:
     def heartbeat(self):
         raise NotImplementedError
 
-    def probe(self):
+    def probe(self, timeout_s=None):
         raise NotImplementedError
 
     def swap(self, arg_params=None, aux_params=None, checkpoint_dir=None):
@@ -210,8 +213,9 @@ class LocalReplica(Replica):
                                    reason="batcher worker is gone")
         return {"outstanding": self.outstanding(), "version": self.version}
 
-    def probe(self):
-        """Deepcheck: a real inference through the smallest bucket."""
+    def probe(self, timeout_s=None):
+        """Deepcheck: a real inference through the smallest bucket (in
+        this process: ``timeout_s`` has nothing to bound)."""
         self.heartbeat()
         model = self._model
         model.infer(_zero_request(model))
@@ -391,16 +395,21 @@ class RemoteReplica(Replica):
     nothing (each request is one forward), so the local queue length
     drives the load estimate.  ``timeout`` bounds a dispatch round trip
     (None: ``MXNET_PS_REQUEST_TIMEOUT``); the control channel's is
-    short, so one wedged worker cannot pin the router's health loop."""
+    short, so one wedged worker cannot pin the router's health loop.
+    ``swap_timeout`` bounds a ``swap`` (the worker reads a checkpoint
+    and uploads it), as the router's ``timeout_s`` bounds the deepcheck
+    after it: a worker busy with a large model is slow there, not
+    dead.  The JAX replica holds both to the control timeout."""
 
     def __init__(self, host, port, replica_id=None, process=None,
                  concurrency=2, max_queue=256, timeout=None,
-                 control_timeout=5.0):
+                 control_timeout=5.0, swap_timeout=120.0):
         self.replica_id = str(replica_id if replica_id is not None
                               else f"remote/{host}:{port}")
         self.host, self.port = host, int(port)
         self.process = process       # Popen when spawn()ed
         self.ready_info = {}
+        self.swap_timeout = float(swap_timeout)
         self._q = _queue.PriorityQueue(maxsize=int(max_queue))
         self._seq_counter = 0
         self._lost = threading.Event()
@@ -561,14 +570,15 @@ class RemoteReplica(Replica):
                     exc=ReplicaLostError(self.replica_id, pend.rid, reason))
 
     # -- health --------------------------------------------------------------
-    def _control_request(self, msg):
+    def _control_request(self, msg, timeout=None):
         if self._lost.is_set():
             raise ReplicaLostError(self.replica_id)
+        longer = {} if timeout is None else {"timeout": timeout}
         try:
             # one request at a time: the health thread and stats or swap
             # callers share this serial channel
             with self._control_lock:
-                reply = self._control.request(msg)
+                reply = self._control.request(msg, **longer)
         except TimeoutError:
             # slow but connected is suspicion, not death: the router
             # dispreferrs the replica; only continued silence evicts it
@@ -584,8 +594,8 @@ class RemoteReplica(Replica):
     def heartbeat(self):
         return self._control_request({"cmd": "hb"})
 
-    def probe(self):
-        return self._control_request({"cmd": "probe"})
+    def probe(self, timeout_s=None):
+        return self._control_request({"cmd": "probe"}, timeout_s)
 
     def swap(self, arg_params=None, aux_params=None, checkpoint_dir=None):
         if checkpoint_dir is None:
@@ -594,7 +604,8 @@ class RemoteReplica(Replica):
                 "checkpoint_dir the worker can read (raw parameter "
                 "tensors are not shipped over the control channel)")
         reply = self._control_request({"cmd": "swap",
-                                       "checkpoint_dir": checkpoint_dir})
+                                       "checkpoint_dir": checkpoint_dir},
+                                      self.swap_timeout)
         self.version = int(reply["version"])
         return self.version
 

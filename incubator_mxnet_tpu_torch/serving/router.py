@@ -518,7 +518,10 @@ class ReplicaRouter:
                          version=replica.version + 1)
             replica.swap(arg_params=arg_params, aux_params=aux_params,
                          checkpoint_dir=checkpoint_dir)
-            replica.probe()   # deepcheck before rejoining
+            # deepcheck before rejoining, on the swap's budget: a worker
+            # that shares its card with the rest of the fleet is slow
+            # there, not dead
+            replica.probe(timeout_s=float(drain_timeout_s))
         except ReplicaLostError as exc:
             self._on_replica_lost(slot)
             return exc
@@ -541,7 +544,8 @@ class ReplicaRouter:
         served at one version.  On a failure the roll ABORTS with an
         error naming the swapped and untouched replicas; the fleet keeps
         serving.  ``version`` labels the roll (a concurrent swap fails
-        with `SwapInProgressError` naming it)."""
+        with `SwapInProgressError` naming it).  ``drain_timeout_s``
+        bounds each replica's drain, and the deepcheck after its swap."""
         self._acquire_swap(version if version is not None
                            else (checkpoint_dir or "<params>"))
         try:

@@ -17,6 +17,7 @@ JAX package's custom VJP (which is not a Pallas kernel either).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import threading
@@ -118,7 +119,9 @@ def _check(x, w, b):
 def fc_relu(x, w, b, route=None):
     """K1: relu(x @ w.T + b) in x's dtype.  CUDA tensors launch the
     kernels of the library's plan, or of ``route`` (one of `ROUTES`) when
-    given, and count one in ``fc_relu.launches`` per call; operands of
+    given, and count one in ``fc_relu.launches`` per call (and one under
+    the launching thread's name in ``fc_relu.by_thread``, so a caller
+    running training and serving at once can tell them apart); operands of
     mixed dtypes are cast to the dtype they promote to, whose kernel runs,
     and the result is cast to x's dtype, as the JAX kernel's fp32
     accumulation of promoted operands gives it; non-contiguous operands
@@ -159,10 +162,12 @@ def _launch(x, w, b, route):
                          + lib.mx_cuda_error_string(err).decode())
     with _launches_lock:   # replicas launch K1 from several threads
         fc_relu.launches += 1
+        fc_relu.by_thread[threading.current_thread().name] += 1
     return out
 
 
 fc_relu.launches = 0
+fc_relu.by_thread = collections.Counter()
 _launches_lock = threading.Lock()
 
 

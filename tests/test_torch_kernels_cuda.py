@@ -29,7 +29,11 @@ the CPU; the quantized FC's float64 route exact at fc8's K, and a LibSVM
 CSR batch densified on the card; K1's launch counter exact across
 threads, and a router over two LocalReplicas on the card against the
 CPU; a traced LocalReplica whose batch spans and K1 count agree, and K1
-at the mlp's small weights on cuda_core against `fc_relu_ref`.
+at the mlp's small weights on cuda_core against `fc_relu_ref`; the
+training guardian's mlp step with K1 (no synchronizing call between
+polls beyond the unguarded step's, a NaN-injected step leaving every
+weight and momentum bit for bit) and a torn ``checkpoint.commit`` never
+resumed from.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -39,6 +43,7 @@ no JAX, so on a machine with a card and no JAX it runs alone:
 
 `chip_smoke.py` covers the full VGG-16 and long-context attention shapes.
 """
+import os
 import subprocess
 from pathlib import Path
 
@@ -1974,3 +1979,118 @@ def test_fc_relu_route_at_the_mlp_shapes(shape, route):
     ref = fc_relu_ref(x, w, b)
     torch.testing.assert_close(got, ref, rtol=1e-4,
                                atol=1e-4 * ref.abs().max().item())
+
+
+def _guarded_mlp(mx, cs, momentum=0.9):
+    """train_mnist's mlp under TPU_PALLAS on the card with phase 22's
+    seeded parameters, bound and optimized, a guardian armed that never
+    polls; returns (module, guardian, batches)."""
+    from incubator_mxnet_tpu_torch.resilience import TrainingGuardian
+    x, y = mx.test_utils.get_mnist_like(256)
+    it = mx.io.NDArrayIter(x, y, 64, shuffle=False)
+    mod = mx.mod.Module(cs.mlp_symbol(mx), context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in cs.guard22_params(mx).items()})
+    mod.init_optimizer(kvstore=None, optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1, "momentum": momentum})
+    guardian = TrainingGuardian(interval=10 ** 9)
+    guardian.attach(mod)
+    return mod, guardian, list(it)
+
+
+@pytest.mark.cuda
+def test_guarded_mlp_step_makes_no_host_sync(monkeypatch):
+    """22b's gate on the mlp: between polls the guarded fused step (K1 at
+    fc1 and fc2) makes no synchronizing call the unguarded one does not
+    (torch.cuda.set_sync_debug_mode('warn'); unguarded windows before and
+    after the guarded one), and K1 ran twice a step."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    cs = _chip_smoke()
+    monkeypatch.setenv("MXNET_SUBGRAPH_BACKEND", "TPU_PALLAS")
+    mod, guardian, batches = _guarded_mlp(mx, cs)
+    metric = mx.metric.create("acc")
+    fs = mod._fused_step
+    assert fs._guardian is guardian
+    step = iter(batches * 8)
+
+    def one():
+        assert mod._fused_step(next(step), metric)
+
+    counts = {}
+    for name, g in (("plain", None), ("guarded", guardian),
+                    ("plain2", None)):
+        fs.attach_guardian(g)
+        one()
+        before = fc_relu.launches
+        counts[name] = cs.sync_calls(one, 6)
+        assert fc_relu.launches - before == 12
+    plain = min(counts["plain"][0], counts["plain2"][0])
+    assert counts["guarded"][0] <= plain, counts
+    assert guardian.stats()["polls"] == 0
+    assert guardian.stats()["steps_observed"] == 7
+
+
+@pytest.mark.cuda
+def test_nan_step_leaves_parameters_and_momenta_bit_identical(monkeypatch):
+    """An injected grad.nonfinite step on the card leaves every weight
+    and momentum bit for bit as it was (the guarded step's select), and
+    the next poll counts one skip."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.resilience import faults
+    cs = _chip_smoke()
+    monkeypatch.setenv("MXNET_SUBGRAPH_BACKEND", "TPU_PALLAS")
+    mod, guardian, batches = _guarded_mlp(mx, cs)
+    metric = mx.metric.create("acc")
+    mod.fit_step(batches[0], metric)
+
+    def state():
+        exe = mod._exec_group.execs[0]
+        ws = [exe.arg_dict[n].data.clone() for n in sorted(exe.arg_dict)
+              if n not in ("data", "softmax_label")]
+        return ws + [s.data.clone() for _, s in
+                     sorted(mod._updater.states.items())]
+
+    before = state()
+    faults.configure("grad.nonfinite:error(at=1)")
+    try:
+        mod.fit_step(batches[1], metric)
+    finally:
+        faults.clear()
+    after = state()
+    assert len(before) == len(after) == 12
+    for a, b in zip(before, after):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    guardian.maybe_poll(2, force=True)
+    assert guardian.stats()["skips"] == 1
+    mod.fit_step(batches[2], metric)      # the next step trains again
+    assert not all(torch.equal(a, b) for a, b in zip(after, state()))
+
+
+@pytest.mark.cuda
+def test_torn_checkpoint_commit_is_never_resumed(monkeypatch, tmp_path):
+    """A ``checkpoint.commit`` torn write of the mlp's fit on the card
+    commits a directory without its manifest: `latest` passes over it
+    and a resume starts from the commit before it."""
+    _need_card()
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import checkpoint as ckpt
+    from incubator_mxnet_tpu_torch.resilience import faults
+    cs = _chip_smoke()
+    monkeypatch.setenv("MXNET_SUBGRAPH_BACKEND", "TPU_PALLAS")
+    root = str(tmp_path / "ck")
+    # commits at steps 4 and 8 and at the epoch's end (8 again: 8
+    # batches of 64); the third is torn and replaces step 8's
+    cs.guard22_fit(mx, mx.gpu(0), root, "checkpoint.commit:torn(at=3)",
+                   num_epoch=1)
+    torn = tmp_path / "ck" / ("ckpt-%010d" % 8)
+    assert torn.is_dir() and not (torn / "manifest.json").exists()
+    assert ckpt.latest(root).endswith("ckpt-%010d" % 4)
+    resumed = cs.guard22_fit(mx, mx.gpu(0), root, resume=True, num_epoch=1)
+    assert resumed._guardian is not None
+    got = ckpt.latest(root)
+    assert got is not None and (tmp_path / "ck" / os.path.basename(got) /
+                                "manifest.json").exists()

@@ -594,3 +594,101 @@ def test_remote_control_channel_one_request_at_a_time(pkg):
         t.join(10)
     assert not any(t.is_alive() for t in callers)
     assert chan.most == (1 if pkg == "port" else 2)
+
+
+class _SwapStub(_Stub):
+    """A stub that records the deepcheck budget the router gives it."""
+
+    def __init__(self, pkg, rid):
+        super().__init__(pkg, rid, [0.0])
+        self.probe_budgets = []
+
+    def swap(self, arg_params=None, aux_params=None, checkpoint_dir=None):
+        self.version += 1
+        return self.version
+
+    def probe(self, timeout_s=None):
+        self.probe_budgets.append(timeout_s)
+        return {}
+
+
+class _BudgetChannel:
+    """Records each control request's command and its timeout override."""
+
+    def __init__(self):
+        self.sent = []
+
+    def request(self, msg, timeout=None):
+        self.sent.append((msg["cmd"], timeout))
+        return {"ok": True, "outstanding": 0, "version": 1, "programs": 1}
+
+
+def test_swap_deepcheck_waits_on_the_swap_budget():
+    """A worker busy with a large model can take longer than the short
+    control timeout to load a checkpoint and run its first inference:
+    the router gives the deepcheck after a swap ``drain_timeout_s``, and
+    a `RemoteReplica` sends ``swap`` on ``swap_timeout``.  Heartbeats and
+    the health loop's deepchecks keep the control timeout."""
+    stub = _SwapStub(tmx, "s0")
+    router = ReplicaRouter([stub], health_interval_s=100.0)
+    try:
+        router.swap_weights(arg_params={}, drain_timeout_s=7.0)
+        router.swap_one("s0", arg_params={}, drain_timeout_s=9.0)
+    finally:
+        router.shutdown()
+    assert stub.probe_budgets == [7.0, 9.0]
+    assert stub.version == 2
+    rep = object.__new__(RemoteReplica)
+    rep.replica_id = "w0"
+    rep._lost = threading.Event()
+    rep._control = chan = _BudgetChannel()
+    rep._control_lock = threading.Lock()
+    rep.swap_timeout = 120.0
+    rep.heartbeat()
+    rep.swap(checkpoint_dir="/nowhere")
+    rep.probe(timeout_s=7.0)
+    rep.probe()
+    assert chan.sent == [("hb", None), ("swap", 120.0), ("probe", 7.0),
+                         ("probe", None)]
+    assert rep.version == 1
+
+
+def test_channel_timeout_override_holds_for_one_request():
+    """`Channel.request(timeout=)` waits longer for that request only: a
+    server that answers after 0.3 s times out a 0.1 s channel, answers
+    the same channel given 5 s, and times it out again afterwards."""
+    import socketserver
+    from incubator_mxnet_tpu_torch.dist import transport
+
+    class Slow(socketserver.BaseRequestHandler):
+        def handle(self):
+            while True:
+                try:
+                    msg = transport.recv_msg(self.request)
+                    time.sleep(0.3)
+                    transport.send_msg(self.request,
+                                       {"ok": True, "seq": msg["seq"]})
+                except (EOFError, ConnectionError, OSError):
+                    return
+
+    class Server(socketserver.ThreadingTCPServer):
+        daemon_threads = True
+        allow_reuse_address = True
+
+    server = Server(("127.0.0.1", 0), Slow)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        chan = transport.Channel("127.0.0.1", server.server_address[1],
+                                 timeout=0.1, connect_wait=5.0)
+        with pytest.raises(TimeoutError, match="after 0.1s"):
+            chan.request({"cmd": "hb"})
+        assert chan.request({"cmd": "hb"}, timeout=5.0)["ok"]
+        with pytest.raises(TimeoutError, match="after 0.1s"):
+            chan.request({"cmd": "hb"})
+        chan.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(10)
+    assert not thread.is_alive()

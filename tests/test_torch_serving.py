@@ -162,7 +162,9 @@ def test_port_imports_no_jax():
     contrib conv-LSTM cell), and slice 18's serving fleet (router,
     replicas, worker, hostd, fleet, the embedding serving path), and
     slice 19's telemetry plane (obs: a span, a counter, a scrape reply;
-    a profiler session dumped), loads
+    a profiler trace dumped), and slice 20's guardian and loop (a
+    Module.fit that skips an injected non-finite step, its checkpoint
+    published through a CheckpointPublisher into a ModelRegistry), loads
     neither jax nor the JAX package (the
     C shim's embedded interpreter is checked in
     tests/test_torch_serving_edges.py)."""
@@ -374,6 +376,22 @@ def test_port_imports_no_jax():
         mx.profiler.Marker("m").mark()
         mx.profiler.set_state("stop")
         mx.profiler.dump()
+        import incubator_mxnet_tpu_torch.resilience.guardian
+        import incubator_mxnet_tpu_torch.loop.controller
+        ck = os.path.join(tempfile.mkdtemp(), "ck")
+        mx.resilience.faults.configure("grad.nonfinite:error(at=2)")
+        pub = mx.loop.CheckpointPublisher(
+            os.path.join(tempfile.mkdtemp(), "reg"), ck, publish_steps=1)
+        mod = mx.mod.Module(mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+            mx.sym.Variable("data"), num_hidden=2), name="softmax"),
+            context=mx.cpu())
+        pub.fit(mod, mx.io.NDArrayIter(np.ones((8, 3), "f4"),
+                                       np.zeros(8, "f4"), 2),
+                num_epoch=1, checkpoint_period=2)
+        mx.resilience.faults.clear()
+        assert mod._guardian.stats()["skips"] == 1
+        pub.poll(99)     # fit has flushed its last snapshot
+        assert pub.registry.latest()["version"] == 4
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "incubator_mxnet_tpu"))
@@ -386,8 +404,8 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-# modules of the port the scan must reach (slices 15, 18 and 19 among
-# them)
+# modules of the port the scan must reach (slices 15, 18, 19 and 20
+# among them)
 PORT_MODULES = (
     "gluon/block.py", "gluon/loss.py", "gluon/nn/activations.py",
     "gluon/nn/basic_layers.py", "gluon/nn/conv_layers.py",
@@ -401,7 +419,9 @@ PORT_MODULES = (
     "serving/router.py", "serving/replica.py", "serving/worker.py",
     "serving/hostd.py", "serving/fleet.py", "embedding/serving.py",
     "obs/__init__.py", "obs/jsonl_sink.py", "obs/metrics.py",
-    "obs/trace.py", "obs/scrape.py", "profiler.py")
+    "obs/trace.py", "obs/scrape.py", "profiler.py",
+    "resilience/guardian.py", "loop/__init__.py", "loop/registry.py",
+    "loop/publisher.py", "loop/controller.py")
 
 
 def test_port_sources_never_import_jax():
