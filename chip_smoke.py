@@ -125,7 +125,7 @@ exits non-zero:
    plus tied head), each step's parameters and momenta from the CPU's
    state; in fp32 each device's step from the float64 state (the card
    as close as the CPU).  b. the lane at batch 8 x T 1024 (n_ctx) in
-   fp32, TF32 off, one resident batch, 4 warm + 16 timed steps: tokens/s,
+   fp32, TF32 off, one resident batch, 4 warm + 8 timed steps: tokens/s,
    step ms, peak memory, `mfu` (67 TFLOP/s); then the same with elastic
    checkpoints every 4 batches: the snapshot call's ms, the background
    write's seconds and bytes, the slowdown.  d. one warm step under
@@ -216,7 +216,8 @@ exits non-zero:
    through Module.fit (accuracy > 0.95, images/s, step ms).  c. one
    ParameterServer and two workers on the card through the port's
    launcher, Module.fit(kvstore='dist_sync') at batch 32 each for 8
-   steps, SGD on the server: the workers' parameters equal bit for bit
+   steps on the server's plane (MXNET_KVSTORE_COLLECTIVE=0), SGD on the
+   server: the workers' parameters equal bit for bit
    and within rtol 1e-5 + 1e-6*max of one process at batch 64; the same
    with 2-bit compression (the push's wire bytes 1/16 of fp32's);
    steps/s, push and pull ms, the server's update ms.  d.
@@ -250,8 +251,8 @@ exits non-zero:
    signum, dcasgd and lbsgd (the example's params, --mom 0.9) and
    rmsprop (also centered), adagrad, adadelta, adamax, nadam, ftml, ftrl
    and sgld (fit's optimizer name, the example's params less momentum,
-   which the nine refuse): 6 fused steps over buckets
-   60/20/40/20/60/10, card vs CPU free running and from the CPU's state
+   which the nine refuse): 2 fused steps over buckets 60/20, card vs
+   CPU free running and from the CPU's state
    (11a's gate: in fp32 for nag, signum, dcasgd, lbsgd, adadelta and
    ftrl, in float64 for the other adaptive ones, and for rmsprop
    centered with SoftmaxOutput's softmax in
@@ -480,6 +481,34 @@ exits non-zero:
    process.  d. K1's launches on each
    path (guardian_fit, alexnet_guarded, loop_trainer and loop_replicas by
    the launching thread) into the kernels line.
+23. the elastic supervisor, the collective data plane and fit's failover
+   (slice 21).  a. the port's launcher starts 2 workers on the card with
+   MXNET_KVSTORE_COLLECTIVE unset (the collective plane: a gloo group,
+   since the two share the card): 14c's mlp lane through
+   Module.fit(kvstore='dist_sync'), the workers' parameters equal bit for
+   bit and within DP_TOL of one process on the global batch, one
+   all-reduce a step after the keys' init, no push on the server, K1
+   twice a step; then 17b's AlexNet (Dropout 0.5) in fp32 at batch 128 =
+   2 x 64: each timed step's all-reduce ms, bytes (one fp32 bucket) and
+   GB/s through gloo, steps/s against 17b's rate, the workers equal.  b.
+   one worker's dist_sync fit of the mlp with a snapshot a batch: the
+   server crashed at batch 7 and replaced empty on its port; fit raises
+   ServerLostError inside, resumes from the last checkpoint and ends
+   sha256-equal to a clean run; the time from the crash to the first
+   resumed step.  c. 3 `dist.pod_worker` processes (the mlp, batch 32,
+   the socket plane), rank 2 killed at its 4th step (host.step:kill):
+   the survivors see it dead within the deadline + 2 s, their stalled
+   round raises CollectiveTimeoutError naming [2], they shrink to world
+   2 at epoch 1 and resume, PARAMS_SHA equal to a 2-worker control
+   resumed from the same checkpoint; detection, shrink barrier and
+   restart seconds.  d. gluon.Trainer over AlexNet (Dropout 0, K1 at
+   fc6/fc7 through a partitioned SymbolBlock) in bf16 on [gpu(0),
+   gpu(0)], half of each batch of 128 a replica, through the bucketed
+   store at 32 MB: each step from one context's state at the whole
+   batch, the fp32 masters' displacement within rtol 2**-6 + 2**-6*max;
+   one reduction a bucket; buckets, fill and the reduce's ms a step.
+   K1's launches on each path (dist_collective, dist_failover,
+   pod_workers, trainer_multi_ctx) into the kernels line.
 
 The last two lines are a JSON object of per-kernel measurements and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -511,9 +540,10 @@ import torch
 SEED = 0
 VGG_FC_SHAPES = ((25088, 4096), (4096, 4096))   # (K, N) of fc6, fc7
 BUCKETS = (1, 2, 4, 8, 16, 32)
-# K1's rows in phase 3: the serving buckets, and the batch a training step
-# of the classifier runs
-K1_ROWS = BUCKETS + (128,)
+# K1's rows in phase 3: the serving buckets, and the batches a training
+# step of the classifier runs (64: AlexNet's half batch on a worker of
+# 23a and a context of 23d)
+K1_ROWS = BUCKETS + (64, 128)
 # phase 3's route gate: the route the library takes may spend at most this
 # factor times the other route's profiler device time, plus this many ms
 K1_ROUTE_GATE = (1.10, 0.001)
@@ -768,14 +798,17 @@ LM_TRAIN_PARITY = (2, 128, 3)       # 10a: batch, T, steps (float64)
 # layers, at its full width and vocabulary (a cut of depth: the CPU's
 # float64 steps took 62 s of 10a and 53.4 s of 18d at 12 layers)
 LM_TRAIN_PARITY_LAYERS = 1
-LM_TRAIN_LANE = (8, 1024, 4, 16)    # 10b: batch, T (n_ctx), warm, timed
+LM_TRAIN_LANE = (8, 1024, 4, 8)     # 10b: batch, T (n_ctx), warm, timed
 LM_CKPT_PERIOD = 4                  # 10b: processed batches per snapshot
 # 10a float32: each device's step from the float64 CPU state, at most
 # this factor times the CPU's distance from the float64 step, plus this
 LM_TRAIN_ENVELOPE = (3.0, 1e-6)
 # 10c: reduced depth (2 layers at width 768, the full vocabulary), batch
 # 4 x 256, 2 epochs of 6 shuffled batches, a snapshot every 2 batches;
-# SIGKILL after batch 8 (mid epoch 1), SIGTERM once batch 5 is done
+# SIGKILL after batch 8 (mid epoch 1), SIGTERM once batch 5 is done.  A
+# cut to 1 layer and epochs of 4 batches took nothing back (the
+# children's 54.9 s became 58.3 s on another card: five process starts
+# bound them), so the depth stays
 LM_RESUME = dict(layers=2, batch=4, t=256, batches=6, epochs=2, period=2,
                  kill_after=8, term_after=5)
 LM_RESUME_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
@@ -866,6 +899,11 @@ def within(got, ref, rtol, atol_scale):
     diff = (got.float() - ref.float()).abs()
     bound = rtol * ref.float().abs() + atol_scale * ref.float().abs().max()
     return diff.max().item(), bool((diff <= bound).all())
+
+
+# the plain attention's launches timed in phase 3b: 34-58 ms each at the
+# long contexts (20 launches of it took ~14 s of the phase)
+PLAIN_ITERS = 5
 
 
 def time_ms(fn, flush, iters=20):
@@ -1401,7 +1439,7 @@ def attn_kernel_phase(card, flush):
         times = {"ms": ms, "bound_ms": t_bound, "bound_by": bound_by,
                  "max_abs_err": err, "library_ms": None,
                  "plain_ms": time_ms(lambda: fa._ref_bthd(
-                     q, k, v, *offs, causal, 256), flush)}
+                     q, k, v, *offs, causal, 256), flush, PLAIN_ITERS)}
         lib_causal, why = sdpa_equivalent(causal, offs, t)
         if lib_causal is None:
             print(f"K2/K3 vs SDPA {name} n/a: {why}")
@@ -6423,7 +6461,7 @@ def dp_fit(mx, sym, card):
                zip(ticks, ticks[1:]) if n1 > 0]
     med = statistics.median(step_ms)
     ok = acc > 0.95 and launches == 4 * (steps + evals) and \
-        mod._kvstore.stats()["fallback_reduces"] == steps
+        mod._kvstore.stats()["batched_pushes"] == steps
     print(f"dp 14b fit: {TRAIN_EPOCHS} epochs on [gpu(0), gpu(0)] "
           f"kvstore='device' in {wall:.2f} s (eval included); step median "
           f"{med:.3f} ms (p10 {np.percentile(step_ms, 10):.3f}, p90 "
@@ -6444,6 +6482,15 @@ def dist_data(mx):
     return np.asarray(x[:n], np.float32), np.asarray(y[:n], np.float32)
 
 
+def dist_rows(rank, workers):
+    """The rows of `dist_data` a worker of `workers` fits: its share of
+    each global batch of TRAIN_BATCH, in order."""
+    per = TRAIN_BATCH // workers
+    return np.concatenate([np.arange(j * TRAIN_BATCH + rank * per,
+                                     j * TRAIN_BATCH + (rank + 1) * per)
+                           for j in range(DIST_STEPS)])
+
+
 def dist_worker():
     """One 14c worker (started by the port's launcher, on the card unless
     DIST_WORKER_DEVICE says "cpu"): train_mnist's mlp at batch 32 (its
@@ -6462,9 +6509,7 @@ def dist_worker():
     rank = int(os.environ["DMLC_RANK"])
     per = TRAIN_BATCH // DIST_WORKERS
     x, y = dist_data(mx)
-    rows = np.concatenate([np.arange(j * TRAIN_BATCH + rank * per,
-                                     j * TRAIN_BATCH + (rank + 1) * per)
-                           for j in range(DIST_STEPS)])
+    rows = dist_rows(rank, DIST_WORKERS)
     init = dict(np.load(os.path.join(out_dir, "init.npz")))
     result, stores, updates_before = {}, [], 0
     for lane, prefix, comp in (("plain", "", None), ("2bit", "c_", DP_2BIT)):
@@ -6532,7 +6577,10 @@ def dist_phase(mx, sym, card, workdir, device="cuda"):
     init = dp_init(mx, sym)
     with tempfile.TemporaryDirectory(dir=workdir) as out:
         np.savez(os.path.join(out, "init.npz"), **init)
+        # the server's data plane: gradients through the parameter server
+        # (the collective plane, the default, is phase 23a's)
         env = dict(os.environ, DIST_OUT=out, MXNET_PS_REQUEST_TIMEOUT="120",
+                   MXNET_KVSTORE_COLLECTIVE="0",
                    DIST_WORKER_DEVICE="cpu" if device == "cpu" else "cuda")
         here = os.path.dirname(os.path.abspath(__file__))
         proc = subprocess.run(
@@ -6817,6 +6865,12 @@ OPT15_GATE = {"nag": "fp32", "signum": "fp32", "dcasgd": "fp32",
 # lane held in fp32 (the lanes held in float64 have no fp32 run: a cut,
 # with their printed fp32 reading, of 15b's 142 s)
 LSTM15_TIMED = 3
+# 15b: the parity steps, a batch of each listed bucket in turn: a switch
+# between buckets on the shared parameters, 2 updates of every
+# optimizer's states, the second from the first's (a cut of 11a's 6
+# steps, 60/20/40/20/60/10, to take back chip time: 15b took 99.7 s with
+# 6 steps, 53.3 s with 3 (60/20/60) on another card)
+LSTM15_PARITY_KEYS = (60, 20)
 # 15c: train_mnist's mlp as a SequentialModule
 SEQ15_STEPS = 8
 SEQ15_TOL = (1e-5, 1e-6)        # 15c: the split against one Module
@@ -7616,7 +7670,7 @@ def opt15_compare(optimizer, run, ref, teacher):
 
 
 def opt15_lane(mx, cfg, batches, values, label, optimizer, params, card):
-    """One optimizer through config #4's 6 parity steps under 11a's gate,
+    """One optimizer through config #4's parity steps under 11a's gate,
     card vs CPU from the same parameters and batches, free running and
     each step from the CPU's state, in fp32 (TF32 off) and, unless the
     lane is held in fp32 (OPT15_GATE), in the dtype that holds it (and,
@@ -7712,7 +7766,7 @@ def opt15_witness(mx, cfg, batches, values, params):
 
 
 def sgld15(mx, cfg, batches, values, card):
-    """SGLD over the 6 parity steps: the CPU free running, the card each
+    """SGLD over the parity steps: the CPU free running, the card each
     step from the CPU's parameters after the step before (11a's
     teacher), in fp32 (a reading) and in float64 (held).  Each step's
     gradient to 11a's tolerance, and the update less its deterministic
@@ -7788,7 +7842,7 @@ def lstm15(mx, card):
     pool = {}
     for b in lstm_iter(mx, corpus, cfg):
         pool.setdefault(b.bucket_key, []).append(b)
-    batches = [pool[k].pop(0) for k in LSTM_PARITY_KEYS]
+    batches = [pool[k].pop(0) for k in LSTM15_PARITY_KEYS]
     values = lstm_state(mx, lstm_module(mx, cfg, mx.cpu()))
     for name in REFUSE15:
         try:
@@ -7804,7 +7858,8 @@ def lstm15(mx, card):
         res = opt15_lane(mx, cfg, batches, values, label, name, params, card)
         out[label] = res
         if name == "sgld":
-            parity = (f"6 steps from the CPU's state: gradients held in "
+            parity = (f"{len(batches)} steps from the CPU's state: "
+                      f"gradients held in "
                       f"float64, worst {res['float64'][0]:.2e} of the "
                       f"tolerance (step {res['float64'][2]}, "
                       f"{res['float64'][1]}); fp32 reading "
@@ -7815,8 +7870,10 @@ def lstm15(mx, card):
                       f"{res['noise_card'][1]:.5f}, lr "
                       f"{LSTM15_OPT['learning_rate']})")
         else:
-            parity = f"6 steps, held in {res['gate']}: " + opt15_reading(
-                res, res["gate"])
+            keys = "/".join(map(str, LSTM15_PARITY_KEYS))
+            parity = (f"{len(batches)} steps ({keys}), held in "
+                      f"{res['gate']}: "
+                      + opt15_reading(res, res["gate"]))
         timed = "not timed (no fp32 run)" if res["step_ms"] is None else \
             f"{res['step_ms']:.2f} ms = {res['tokens_s']:.0f} tokens/s"
         print(f"lstm15 {label}: {'--optimizer ' if flag else 'fit(optimizer='}"
@@ -8860,7 +8917,7 @@ ZOO17 = (("densenet121", 224), ("inceptionv3", 299), ("mobilenet1.0", 224),
          ("mobilenetv2_1.0", 224), ("squeezenet1.0", 224),
          ("squeezenet1.1", 224))
 ZOO17_PARITY = (2, 2)           # 17d: (batch, steps), float64, card vs CPU
-ZOO17_LANE = dict(batch=32, warm=2, timed=6)   # 17d: fp32 on the card
+ZOO17_LANE = dict(batch=32, warm=2, timed=3)   # 17d: fp32 on the card
 ZOO17_PREFIX = "zoo_"
 # 17e: a block on the card against the CPU in fp32 (TF32 off): products
 # (cuDNN, cuBLAS) and sums in other orders, as phase 15's products
@@ -9601,7 +9658,7 @@ LOADER18_DRAIN_S = 10.0         # workers gone this long after a break
 BRIDGE18 = (8, 3)
 LANE18_EPOCHS = 2
 # 18d: the gluon LM at LM_CFG's widths; parity as 10a (batch 2 x T 128,
-# 3 steps, float64), the lane as 10b (8 x 1024, 4 warm + 16 timed steps,
+# 3 steps, float64), the lane as 10b (8 x 1024, 4 warm + 8 timed steps,
 # fp32 with TF32 off), each step's batch from a DataLoader of seeded
 # token windows with 2 workers through the h2d ring
 GLM18_PREFIX = "glm18_"
@@ -12937,6 +12994,738 @@ def guardian_phase(card, workdir):
                  "loop_replicas": out["22c"]["k1_serve"]}
     return out
 
+# -- phase 23: the elastic supervisor, the collective plane, failover -------
+
+# 23a: the collective plane (MXNET_KVSTORE_COLLECTIVE unset: on) in
+# COLL23_WORKERS worker processes started by the port's launcher.  The
+# mlp lane is 14c's (8 steps, batch 32 a worker, SGD on the workers);
+# the AlexNet lane is 17b's model (Dropout 0.5, Xavier, OPT17) in fp32,
+# batch ALEX23["batch"] / COLL23_WORKERS a worker, `warm` steps and then
+# `timed` steps
+COLL23_WORKERS = 2
+ALEX23 = dict(batch=128, warm=2, timed=4)
+# 23b: one worker fitting the mlp with a snapshot a batch over 2 epochs
+# of 6 batches of 64; the server crashes at the end of batch 7 and an
+# empty one takes its port; failover diagnosed in well under a second
+FAIL23 = dict(batches=6, epochs=2, kill_at=7)
+FAIL23_ENV = {"MXNET_PS_RECONNECT_WAIT": "0.2", "MXNET_PS_MAX_RETRIES": "2",
+              "MXNET_PS_BREAKER_THRESHOLD": "2"}
+# 23c: 3 pod workers (dist.pod_worker, train_mnist's mlp at batch 32, 6
+# batches an epoch, 2 epochs, the socket plane), rank 2 killed at its 4th
+# step; the pod's clocks (the coordinator reads them in this process)
+POD23 = dict(workers=3, kill_rank=2, kill_at=4, batch=32, batches=6)
+POD23_CLOCKS = {"MXNET_SUPERVISOR_HEARTBEAT_S": "0.2",
+                "MXNET_SUPERVISOR_DEADLINE_S": "1.0",
+                "MXNET_SUPERVISOR_COLLECTIVE_TIMEOUT_S": "5.0",
+                "MXNET_SUPERVISOR_SHRINK_BARRIER_S": "10.0",
+                "MXNET_PS_RECONNECT_WAIT": "1.0"}
+# 23d: gluon.Trainer on [gpu(0), gpu(0)], AlexNet (Dropout 0) bf16 with
+# fp32 master weights, half of each batch of 128 a context, 4 steps
+TRAINER23 = dict(batch=128, steps=4)
+# 23d: each step's displacement of the fp32 masters, two replicas from
+# one context's state against that context at the whole batch (rtol,
+# atol * max|displacement|), outside the fc6/fc7 units whose ReLU flipped
+# between M = 64 and M = 128: each replica's bf16 gradient and their
+# bf16 sum are rounded (2**-8 relative each) where one context rounds
+# the whole batch's once.  Not PARITY_TOL on the masters: a bias starts
+# at 0, so its master is all displacement (0.4-0.6 % off after a step on
+# the CPU at batch 4); not free running: from the second step a master 1
+# ulp apart rounds to another bf16 weight (7.8x this tolerance after two
+# steps on the CPU); and not over the flipped units, whose gradients
+# moved by 3.1 % of the largest at fc7 on an H100 (3 units of 4096)
+TRAINER23_TOL = (2 ** -6, 2 ** -6)
+
+
+def env23(updates):
+    """Set `updates` in os.environ; returns what to restore."""
+    saved = {k: os.environ.get(k) for k in updates}
+    for k, v in updates.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return saved
+
+
+def params_sha(args):
+    """sha256 over the sorted parameters' bytes."""
+    import hashlib
+    return hashlib.sha256(b"".join(
+        args[k].asnumpy().tobytes() for k in sorted(args))).hexdigest()
+
+
+def coll23_worker():
+    """One 23a worker (started by the port's launcher on the card): the
+    mlp lane through Module.fit(kvstore='dist_sync') on the collective
+    plane from DIST_OUT's initial parameters, then AlexNet in fp32 at
+    half of ALEX23's batch.  Writes the parameters, K1's launches, the
+    plane's dispatches and all-reduce timings to DIST_OUT."""
+    marks = [time.time()]
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = os.environ["DIST_OUT"]
+    rank = int(os.environ["DMLC_RANK"])
+    per = TRAIN_BATCH // COLL23_WORKERS
+    x, y = dist_data(mx)
+    rows = dist_rows(rank, COLL23_WORKERS)
+    init = dict(np.load(os.path.join(out_dir, "init.npz")))
+    result = {}
+    mod = mx.mod.Module(mlp_symbol(mx), context=mx.gpu(0))
+    ticks = []
+    fc_relu.launches = 0
+    mod.fit(mx.io.NDArrayIter(x[rows], y[rows], per), num_epoch=1,
+            kvstore="dist_sync", optimizer="sgd",
+            optimizer_params={"learning_rate": TRAIN_LR,
+                              "momentum": TRAIN_MOMENTUM},
+            arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in init.items()},
+            batch_end_callback=lambda p: ticks.append(time.perf_counter()))
+    kv, plane = mod._kvstore, mod._kvstore._collective
+    check(plane is not None, "23a: the collective plane did not form")
+    args, _ = mod.get_params()
+    np.savez(os.path.join(out_dir, f"mlp{rank}.npz"),
+             **{k: v.asnumpy() for k, v in args.items()})
+    server = kv.server_metrics()[0]
+    result["mlp"] = {
+        "launches": fc_relu.launches, "steps": len(ticks),
+        "keys": len(mod._exec_group.param_names),
+        "dispatches": plane.dispatch_count, "backend": plane.backend,
+        "wire_bytes": kv.wire_bytes, "server_pushes": server["pushes"],
+        "server_updates": server["updates"], "rescale":
+            mod._optimizer.rescale_grad}
+    kv.close(send_stop=False)
+    marks.append(time.time())
+    batch, warm, timed = (ALEX23[k] for k in ("batch", "warm", "timed"))
+    _, sym = alex_symbol(mx, DROP_RATE)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    ticks = []
+
+    def tick(p):
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter())
+    fc_relu.launches = 0
+    mx.random.seed(SEED)
+    mod.fit(resident_iter(mx, batch // COLL23_WORKERS, "float32",
+                          warm + timed, seed=SEED + 23 + rank),
+            num_epoch=1, kvstore="dist_sync", optimizer="sgd",
+            optimizer_params=dict(OPT17), initializer=resnet_init(mx),
+            batch_end_callback=tick)
+    kv, plane = mod._kvstore, mod._kvstore._collective
+    args, _ = mod.get_params()
+    total = sum(int(v.size) * 4 for v in args.values())
+    steps = [(b, s) for b, s in plane.timings if b == total]
+    result["alexnet"] = {
+        "launches": fc_relu.launches, "steps": len(ticks),
+        "sha": params_sha(args), "bytes": total,
+        "allreduce_s": [s for _, s in steps[-timed:]],
+        "step_s": (ticks[-1] - ticks[warm - 1]) / timed,
+        "finite": all(bool(np.isfinite(v.asnumpy()).all())
+                      for v in args.values()),
+        "wire_bytes": kv.wire_bytes}
+    # one stop a worker: the launcher's server stops once both sent it
+    kv.close()
+    result["marks"] = marks + [time.time()]
+    with open(os.path.join(out_dir, f"result{rank}.json"), "w") as f:
+        json.dump(result, f)
+    print(f"coll23 worker {rank} OK", flush=True)
+
+
+def coll23(mx, card, workdir, alex_images_s):
+    """23a: the port's launcher starts COLL23_WORKERS workers on the card
+    with MXNET_KVSTORE_COLLECTIVE unset.  The mlp lane: the workers'
+    parameters equal bit for bit and within DP_TOL of one process fitting
+    the global batch on the card; one all-reduce a step (one dtype
+    bucket) after the keys' init; no gradient byte on the server; K1
+    twice a step in each worker.  The AlexNet lane: per step, the
+    all-reduce's ms, its bytes, the GB/s through gloo, and steps/s."""
+    sym = mlp_symbol(mx)
+    init = dp_init(mx, sym)
+    t0, wall0 = time.perf_counter(), time.time()
+    with tempfile.TemporaryDirectory(dir=workdir) as out:
+        np.savez(os.path.join(out, "init.npz"), **init)
+        env = dict(os.environ, DIST_OUT=out, MXNET_PS_REQUEST_TIMEOUT="300",
+                   MXNET_SUBGRAPH_BACKEND="TPU_PALLAS")
+        env.pop("MXNET_KVSTORE_COLLECTIVE", None)
+        here = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.run(
+            [sys.executable, "-m", "incubator_mxnet_tpu_torch.dist.launch",
+             "-n", str(COLL23_WORKERS), sys.executable, "-c",
+             "import chip_smoke; chip_smoke.coll23_worker()"],
+            cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        tail = (proc.stdout + proc.stderr)[-3000:]
+        check(proc.returncode == 0, f"23a: the launched job failed "
+              f"(rc {proc.returncode}):\n{tail}")
+        res = [json.load(open(os.path.join(out, f"result{r}.json")))
+               for r in range(COLL23_WORKERS)]
+        params = [dict(np.load(os.path.join(out, f"mlp{r}.npz")))
+                  for r in range(COLL23_WORKERS)]
+    launch_s = time.perf_counter() - t0
+    marks = [[m - wall0 for m in r["marks"]] for r in res]
+    print("23a timeline: worker started, its mlp lane done, its AlexNet "
+          "lane done, s after the launch: "
+          + "; ".join(", ".join(f"{m:.1f}" for m in w) for w in marks))
+    x, y = dist_data(mx)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.fit(mx.io.NDArrayIter(x, y, TRAIN_BATCH), num_epoch=1,
+            optimizer="sgd", optimizer_params={"learning_rate": TRAIN_LR,
+                                               "momentum": TRAIN_MOMENTUM},
+            arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in init.items()})
+    want = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    same = all(np.array_equal(params[0][k], p[k])
+               for p in params[1:] for k in want)
+    pw, pn = held_worst(params[0], want, DP_TOL)
+    mlp = [r["mlp"] for r in res]
+    gates = {
+        "workers equal bit for bit": same,
+        "within DP_TOL of one process": pw <= 1,
+        "the collective plane, gloo": all(m["backend"] == "gloo"
+                                          for m in mlp),
+        "one all-reduce a step after the keys' init": all(
+            m["steps"] == DIST_STEPS and
+            m["dispatches"] == m["keys"] + DIST_STEPS for m in mlp),
+        "no gradient byte on the server": all(
+            m["wire_bytes"] == 0 and m["server_pushes"] == 0 and
+            m["server_updates"] == 0 for m in mlp),
+        "rescale 1 / global batch": all(
+            m["rescale"] == 1.0 / TRAIN_BATCH for m in mlp),
+        "K1 twice a step": all(m["launches"] == 2 * DIST_STEPS
+                               for m in mlp)}
+    print(f"23a collective plane: {COLL23_WORKERS} workers x batch "
+          f"{TRAIN_BATCH // COLL23_WORKERS} of train_mnist's mlp, "
+          f"Module.fit(kvstore='dist_sync') {DIST_STEPS} steps through the "
+          f"launcher ({launch_s:.1f} s with process starts, both lanes): "
+          f"workers equal bit for bit {same}; vs one process at batch "
+          f"{TRAIN_BATCH} at {pw:.3f} of DP_TOL (worst {pn}); dispatches "
+          f"{[m['dispatches'] for m in mlp]} = {mlp[0]['keys']} keys' init "
+          f"+ {DIST_STEPS} steps; server pushes "
+          f"{[m['server_pushes'] for m in mlp]}, wire bytes "
+          f"{[m['wire_bytes'] for m in mlp]}; K1 launches "
+          f"{[m['launches'] for m in mlp]} [{card}]")
+    alex = [r["alexnet"] for r in res]
+    steps = ALEX23["warm"] + ALEX23["timed"]
+    ar_ms = [1e3 * statistics.median(a["allreduce_s"]) for a in alex]
+    nbytes = alex[0]["bytes"]
+    step_s = max(a["step_s"] for a in alex)
+    images_s = ALEX23["batch"] / step_s
+    gates.update({
+        "AlexNet workers equal bit for bit": len({a["sha"] for a in alex})
+        == 1,
+        "AlexNet finite": all(a["finite"] for a in alex),
+        "AlexNet one bucket a step": all(
+            len(a["allreduce_s"]) == ALEX23["timed"] for a in alex),
+        "AlexNet K1 twice a step": all(a["launches"] == 2 * steps
+                                       for a in alex)})
+    for i, a in enumerate(alex):
+        print(f"23a alexnet worker {i}: all-reduce per timed step "
+              + ", ".join(f"{1e3 * s:.2f}" for s in a["allreduce_s"])
+              + f" ms of {nbytes} bytes (one fp32 bucket) = "
+              + ", ".join(f"{nbytes / s / 1e9:.3f}" for s in
+                          a["allreduce_s"])
+              + f" GB/s through gloo; step {1e3 * a['step_s']:.2f} ms; K1 "
+              f"{a['launches']} launches [{card}]")
+    print(f"23a alexnet: fp32, batch {ALEX23['batch']} = "
+          f"{COLL23_WORKERS} x {ALEX23['batch'] // COLL23_WORKERS}, "
+          f"{1 / step_s:.2f} steps/s = {images_s:.1f} images/s against "
+          f"17b's one process {alex_images_s:.1f} images/s (bf16, batch "
+          f"{ALEX_LANE['batch']}): {images_s / alex_images_s:.3f}; "
+          f"all-reduce median {statistics.median(ar_ms):.2f} ms = "
+          f"{nbytes / statistics.median(ar_ms) / 1e6:.3f} GB/s [{card}]")
+    failed = [k for k, v in gates.items() if not v]
+    check(not failed, f"23a: gates failed: {failed}")
+    return {"launches": sum(m["launches"] for m in mlp)
+            + sum(a["launches"] for a in alex),
+            "allreduce_ms": statistics.median(ar_ms), "bytes": nbytes,
+            "gb_s": nbytes / statistics.median(ar_ms) / 1e6,
+            "steps_s": 1 / step_s, "images_s": images_s,
+            "dp_worst": pw, "dispatches": mlp[0]["dispatches"]}
+
+
+def fail23_fit(mx, server, data, ckpt=None, kill_at=None):
+    """One worker's dist_sync fit of train_mnist's mlp on the card
+    against `server` (FAIL23, a snapshot a batch with `ckpt`).  With
+    `kill_at` the server crashes at that batch end and an empty one
+    takes its port.  -> (params sha256, batch-end times, crash time,
+    replacement servers, K1 launches)."""
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    x, y = data
+    mx.random.seed(SEED)
+    np.random.seed(SEED)
+    mod = mx.mod.Module(mlp_symbol(mx), context=mx.gpu(0))
+    ends, crash, replacement = [], [], []
+    cls, port = type(server), server.port
+
+    def cb(p):
+        ends.append(time.perf_counter())
+        if kill_at is not None and len(ends) == kill_at:
+            crash.append(time.perf_counter())
+            server._simulate_crash()
+            for _ in range(200):
+                try:
+                    srv = cls(host="127.0.0.1", port=port, num_workers=1)
+                    break
+                except OSError:
+                    time.sleep(0.05)
+            replacement.append(srv.start())
+    fc_relu.launches = 0
+    mod.fit(mx.io.NDArrayIter(x, y, TRAIN_BATCH, shuffle=False),
+            kvstore="dist_sync", optimizer="sgd",
+            optimizer_params={"learning_rate": TRAIN_LR,
+                              "momentum": TRAIN_MOMENTUM},
+            num_epoch=FAIL23["epochs"], checkpoint_dir=ckpt,
+            checkpoint_period=1, batch_end_callback=cb)
+    launches = fc_relu.launches
+    sha = params_sha(mod.get_params()[0])
+    mod._kvstore.close()
+    return sha, ends, crash, replacement, launches
+
+
+def fail23(mx, card, workdir):
+    """23b: the card's form of the JAX gate
+    `test_killed_server_fit_auto_resumes_bit_identical`: a clean
+    one-worker dist_sync fit, then the same fit whose server is crashed
+    mid-epoch and replaced empty on the same port; fit raises
+    ServerLostError inside, restarts from the last checkpoint and ends
+    sha256-equal to the clean run."""
+    from incubator_mxnet_tpu_torch.dist.server import ParameterServer
+    x, y = dist_data(mx)
+    n = FAIL23["batches"] * TRAIN_BATCH
+    data = (x[:n], y[:n])
+    steps = FAIL23["batches"] * FAIL23["epochs"]
+    servers = []
+    saved = env23(dict(FAIL23_ENV, DMLC_PS_ROOT_URI="127.0.0.1",
+                       DMLC_RANK="0", DMLC_NUM_WORKER="1",
+                       DMLC_NUM_SERVER="1", DMLC_PS_ROOT_PORT=None,
+                       MXNET_SUBGRAPH_BACKEND="TPU_PALLAS"))
+    root = tempfile.mkdtemp(dir=workdir, prefix="fail23-")
+    try:
+        clean = ParameterServer(num_workers=1).start()
+        servers.append(clean)
+        os.environ["DMLC_PS_ROOT_PORT"] = str(clean.port)
+        sha_clean, ends_clean, _, _, k1_clean = fail23_fit(mx, clean, data)
+        server = ParameterServer(num_workers=1).start()
+        servers.append(server)
+        os.environ["DMLC_PS_ROOT_PORT"] = str(server.port)
+        sha, ends, crash, repl, k1 = fail23_fit(
+            mx, server, data, ckpt=os.path.join(root, "ck"),
+            kill_at=FAIL23["kill_at"])
+        servers += repl
+    finally:
+        for s in servers:
+            s.shutdown()
+        env23(saved)
+        shutil.rmtree(root, ignore_errors=True)
+    resumed = [t for t in ends if crash and t > crash[0]]
+    gates = {"the kill ran": bool(crash) and bool(repl),
+             "sha256-equal to the clean run": sha == sha_clean,
+             "the clean run took every step": len(ends_clean) == steps,
+             "K1 twice a forward": k1_clean == 2 * steps and
+             k1 == 2 * len(ends)}
+    first_s = resumed[0] - crash[0] if resumed else float("nan")
+    print(f"23b lost server: one worker, train_mnist's mlp, "
+          f"{FAIL23['epochs']} epochs of {FAIL23['batches']} batches of "
+          f"{TRAIN_BATCH}, a snapshot a batch; the server crashed at the "
+          f"end of batch {FAIL23['kill_at']} and replaced empty on its "
+          f"port: {len(ends)} batch ends (the clean run {len(ends_clean)}),"
+          f" first resumed step {first_s:.3f} s after the crash; params "
+          f"sha256 {sha[:16]} vs clean {sha_clean[:16]} "
+          f"{'equal' if sha == sha_clean else 'DIFFER'}; K1 {k1} launches "
+          f"[{card}]")
+    failed = [k for k, v in gates.items() if not v]
+    check(not failed, f"23b: gates failed: {failed}")
+    return {"launches": k1 + k1_clean, "resume_s": first_s,
+            "batches": len(ends)}
+
+
+def pod23_run(port, n, ckpt, kill=None, resume=False):
+    """`dist.pod_worker` in `n` processes on the card against the
+    coordinator on `port`: -> (processes, outputs)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DMLC_RANK", "MXNET_FAULTS",
+                        "MXNET_SUPERVISOR_EPOCH")}
+    env.update(POD23_CLOCKS, DMLC_PS_ROOT_URI="127.0.0.1",
+               DMLC_PS_ROOT_PORT=str(port), DMLC_NUM_WORKER=str(n),
+               DMLC_ROLE="worker", MXNET_KVSTORE_COLLECTIVE="0",
+               MXNET_SUBGRAPH_BACKEND="TPU_PALLAS", POD_MODEL="mlp",
+               POD_DEVICE="gpu", POD_BATCH=str(POD23["batch"]),
+               POD_BATCHES=str(POD23["batches"]), POD_CKPT_DIR=ckpt,
+               POD_RESUME="1" if resume else "0",
+               MXNET_PS_REQUEST_TIMEOUT="120")
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, spawned = [], time.time()
+    for r in range(n):
+        wenv = dict(env, DMLC_RANK=str(r))
+        if kill is not None and r == kill[0]:
+            wenv["MXNET_FAULTS"] = f"seed=23;host.step:kill(at={kill[1]})"
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m",
+             "incubator_mxnet_tpu_torch.dist.pod_worker"], cwd=here,
+            env=wenv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    steps = [float(line.split()[4]) for o in outs for line in o.splitlines()
+             if line.startswith("STEP ")]
+    if steps:
+        print(f"23c timeline ({n} workers): first step "
+              f"{min(steps) - spawned:.1f} s after the spawn, the last "
+              f"{max(steps) - spawned:.1f} s, all exited "
+              f"{time.time() - spawned:.1f} s")
+    return procs, outs
+
+
+def pod23_line(out, key):
+    m = re.search(rf"^{key} (.*)$", out, re.M)
+    return m.group(1) if m else None
+
+
+def pod23(mx, card, workdir):
+    """23c: the JAX pod gate on the card: 3 pod workers fitting the mlp,
+    rank 2 SIGKILLed at its 4th step.  The survivors see it dead within
+    the deadline + 2 s, their stalled round raises CollectiveTimeoutError
+    naming [2], they shrink to world 2 at epoch 1 and resume; their
+    PARAMS_SHA equals a 2-worker control resumed from the same
+    checkpoint."""
+    from incubator_mxnet_tpu_torch.dist.server import ParameterServer
+    root = tempfile.mkdtemp(dir=workdir, prefix="pod23-")
+    ckpt, control = os.path.join(root, "ck"), os.path.join(root, "control")
+    saved = env23(POD23_CLOCKS)
+    try:
+        server = ParameterServer(num_workers=POD23["workers"]).start()
+        try:
+            procs, outs = pod23_run(server.port, POD23["workers"], ckpt,
+                                    kill=(POD23["kill_rank"],
+                                          POD23["kill_at"]))
+        finally:
+            server.shutdown()
+        survivors = [r for r in range(POD23["workers"])
+                     if r != POD23["kill_rank"]]
+        for r in survivors:
+            check(procs[r].returncode == 0 and "worker OK" in outs[r],
+                  f"23c: survivor {r} failed (rc {procs[r].returncode}):\n"
+                  f"{outs[r][-3000:]}")
+        m = re.search(r"resuming from .*\(step (\d+),", outs[survivors[0]])
+        check(m is not None, "23c: no resume line")
+        resume_step = int(m.group(1))
+        shutil.copytree(ckpt, control)
+        for entry in os.listdir(control):
+            cm = re.match(r"ckpt-(\d+)$", entry)
+            if cm and int(cm.group(1)) > resume_step:
+                shutil.rmtree(os.path.join(control, entry))
+        server = ParameterServer(num_workers=len(survivors)).start()
+        try:
+            cprocs, couts = pod23_run(server.port, len(survivors), control,
+                                      resume=True)
+        finally:
+            server.shutdown()
+    finally:
+        env23(saved)
+    for r, p in enumerate(cprocs):
+        check(p.returncode == 0, f"23c: control worker {r} failed "
+              f"(rc {p.returncode}):\n{couts[r][-3000:]}")
+    killed = outs[POD23["kill_rank"]]
+    last_step = max((float(line.split()[4]) for line in killed.splitlines()
+                     if line.startswith("STEP ")), default=float("nan"))
+    deadline = float(POD23_CLOCKS["MXNET_SUPERVISOR_DEADLINE_S"])
+    detect, shrink_s, restart, k1 = [], [], [], []
+    for r in survivors:
+        o = outs[r]
+        found = [f for f in json.loads(pod23_line(o, "FINDINGS") or "[]")
+                 if f["code"] == "host-lost"]
+        detect.append(found[0]["time"] - last_step if found
+                      else float("inf"))
+        sh = json.loads(pod23_line(o, "SHRINK") or "{}")
+        shrink_s.append(sh.get("seconds", float("nan")))
+        after = [float(line.split()[4]) for line in o.splitlines()
+                 if line.startswith("STEP ") and sh.get("ended") and
+                 float(line.split()[4]) > sh["ended"]]
+        restart.append(after[0] - sh["ended"] if after else float("nan"))
+        k1.append(int(pod23_line(o, "K1") or -1))
+    stats = [json.loads(pod23_line(outs[r], "SUPSTATS") or "{}")
+             for r in survivors]
+    chaos = {pod23_line(outs[r], "PARAMS_SHA") for r in survivors}
+    ctrl = {pod23_line(o, "PARAMS_SHA") for o in couts}
+    steps_run = [sum(line.startswith("STEP ") for line in outs[r]
+                     .splitlines()) for r in survivors]
+    gates = {
+        "the killed host exited 137": procs[POD23["kill_rank"]].returncode
+        == 137,
+        "death seen within the deadline + 2 s": all(
+            d <= deadline + 2.0 for d in detect),
+        "CollectiveTimeoutError naming [2]": all(
+            re.search(r"host\(s\) \[2\] failed to arrive", outs[r])
+            for r in survivors),
+        "shrunk to world 2 at epoch 1": all(
+            "pod shrunk to world_size=2" in outs[r] for r in survivors)
+        and all(s.get("epoch") == 1 and s.get("world_size") == 2
+                for s in stats),
+        "PARAMS_SHA equal to the control's": len(chaos) == 1 and
+        None not in chaos and chaos == ctrl,
+        "no COMPILES line": not any("COMPILES" in o for o in outs + couts),
+        # the stalled step's forward ran too: its round never completed
+        "K1 twice a forward in every survivor": all(
+            k == 2 * (n + 1) for k, n in zip(k1, steps_run))}
+    print(f"23c lost host: {POD23['workers']} pod workers (train_mnist's "
+          f"mlp, batch {POD23['batch']}, the socket plane, heartbeat "
+          f"{POD23_CLOCKS['MXNET_SUPERVISOR_HEARTBEAT_S']} s, deadline "
+          f"{deadline:g} s, watchdog "
+          f"{POD23_CLOCKS['MXNET_SUPERVISOR_COLLECTIVE_TIMEOUT_S']} s), "
+          f"rank {POD23['kill_rank']} killed at its step "
+          f"{POD23['kill_at']}: seen dead "
+          + ", ".join(f"{d:.3f}" for d in detect)
+          + " s after its last step; shrink barrier "
+          + ", ".join(f"{s:.3f}" for s in shrink_s)
+          + " s; first resumed step "
+          + ", ".join(f"{s:.3f}" for s in restart)
+          + f" s after the commit; resumed from step {resume_step}; "
+          f"PARAMS_SHA {'equal' if chaos == ctrl else 'DIFFER'} to the "
+          f"2-worker control; K1 {k1} launches over {steps_run} steps and "
+          f"the stalled one [{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+    failed = [k for k, v in gates.items() if not v]
+    check(not failed, f"23c: gates failed: {failed}\n"
+          + "\n".join(o[-1500:] for o in outs))
+    return {"launches": sum(k1), "detect_s": max(detect),
+            "shrink_s": max(shrink_s), "restart_s": max(restart)}
+
+
+def trainer23_graph(mx):
+    """AlexNet (Dropout 0) partitioned under TPU_PALLAS: K1 at fc6, fc7."""
+    return mx.subgraph.partition_graph(
+        alex_net(mx, 0.0)(mx.sym.Variable("data")), "TPU_PALLAS")
+
+
+def trainer23_block(mx, values, ctxs, grad_req="write", outputs=None):
+    """The partitioned AlexNet (or its `outputs`) as a SymbolBlock on
+    `ctxs` holding `values`, in bf16."""
+    net = mx.gluon.SymbolBlock(outputs if outputs is not None else
+                               trainer23_graph(mx), mx.sym.Variable("data"))
+    for name, p in net.collect_params().items():
+        p.initialize(ctx=ctxs)
+        p.set_data(values[name])
+        p.grad_req = grad_req
+    net.cast("bfloat16")
+    return net
+
+
+def trainer23_lane(mx, values, ctxs, split, grad_req="write"):
+    net = trainer23_block(mx, values, ctxs, grad_req)
+    return {"net": net, "ctxs": ctxs, "split": split, "k1": 0,
+            "reduce_ms": [], "trainer": mx.gluon.Trainer(
+                net.collect_params(), "sgd",
+                dict(OPT17, multi_precision=True))}
+
+
+def trainer23_step(mx, lane, x, y, loss_fn):
+    """One step of a 23d lane: each of `split` shares of the batch on its
+    replica (under `replica`; one context accumulates them with
+    ``grad_req='add'``), then the batched reduce (timed,
+    CUDA-synchronised) and the update; K1's launches added up."""
+    from incubator_mxnet_tpu_torch.gluon.parameter import replica
+    from incubator_mxnet_tpu_torch.subgraph.fused_ops import fc_relu
+    ctxs, net, trainer = lane["ctxs"], lane["net"], lane["trainer"]
+    if lane["split"] > len(ctxs):
+        for p in net.collect_params().values():
+            p.zero_grad()
+    fc_relu.launches = 0
+    for k, (xk, yk) in enumerate(zip(np.split(x, lane["split"]),
+                                     np.split(y, lane["split"]))):
+        c = k % len(ctxs)
+        data = mx.nd.array(xk, ctx=ctxs[c]).astype("bfloat16")
+        label = mx.nd.array(yk, ctx=ctxs[c])
+        with replica(c), mx.autograd.record():
+            loss = loss_fn(net(data), label)
+        loss.backward()
+    lane["k1"] += fc_relu.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.allreduce_grads()
+    torch.cuda.synchronize()
+    lane["reduce_ms"].append((time.perf_counter() - t0) * 1e3)
+    trainer.update(x.shape[0])
+
+
+def trainer23_state(lane):
+    """({name: bf16 weights of every copy}, {name: fp32 master},
+    {name: momentum}) of a 23d lane's first replica, as numpy."""
+    states = lane["trainer"]._updaters[0].states
+    params = lane["net"].collect_params()
+    copies = {n: [d.asnumpy() for d in p.list_data()]
+              for n, p in params.items()}
+    return (copies, {n: states[i][1].asnumpy() for i, n in enumerate(params)},
+            {n: states[i][0].asnumpy() for i, n in enumerate(params)})
+
+
+def trainer23_teach(two, one):
+    """Every replica of `two` takes `one`'s weights, masters and momenta
+    (11a's teacher: each step starts from the reference's state)."""
+    ref = one["trainer"]._updaters[0].states
+    pairs = zip(two["net"].collect_params().values(),
+                one["net"].collect_params().values())
+    for i, (p, q) in enumerate(pairs):
+        for k, upd in enumerate(two["trainer"]._updaters):
+            p.list_data()[k]._set_data(q.data().data)
+            upd.states[i] = tuple(None if t is None else t.copy()
+                                  for t in ref[i])
+
+
+def trainer23_flips(mx, values, x):
+    """{weight or bias name: mask} of fc6's and fc7's units whose ReLU
+    output is 0 for some image at M = 64 (the replicas' halves) and not
+    at M = 128 (one context), or the reverse, with the weights `values`
+    (fp32 numpy, cast to bf16 as the lanes hold them): K1
+    rounds to bf16 in other orders at the two M, and a unit at its kink
+    flips (phase 17a's excuse of a flipped max-pool window, for ReLU)."""
+    graph = trainer23_graph(mx)
+    internals = graph.get_internals()
+    names = internals.list_outputs()
+    k1 = [i for i, n in enumerate(names) if n == "fwd_tpu_pallas_output"]
+    check(len(k1) == 2, f"23d: {len(k1)} K1 outputs in the graph")
+    outs = mx.sym.Group([internals[i] for i in k1])
+    block = trainer23_block(mx, values, [mx.gpu(0)], "null", outs)
+    acts = {}
+    for m in (x.shape[0] // 2, x.shape[0]):
+        got = [block(mx.nd.array(xk, ctx=mx.gpu(0)).astype("bfloat16"))
+               for xk in np.split(x, x.shape[0] // m)]
+        acts[m] = [np.concatenate([g[j].astype("float32").asnumpy()
+                                   for g in got]) for j in range(2)]
+    mask = {}
+    for j, layer in enumerate(("dense0", "dense1")):
+        a, b = acts[x.shape[0] // 2][j], acts[x.shape[0]][j]
+        units = ((a > 0) != (b > 0)).any(axis=0)
+        w = f"{ALEX_PREFIX}{layer}_weight"
+        mask[w] = np.repeat(units[:, None], values[w].shape[1], axis=1)
+        mask[f"{ALEX_PREFIX}{layer}_bias"] = units
+    return mask
+
+
+def trainer23(mx, card):
+    """23d: gluon.Trainer over AlexNet's parameters on [gpu(0), gpu(0)]
+    (two replicas on the one card, each forward under
+    `gluon.parameter.replica`), half of each batch a replica, through the
+    bucketed store at the default cap.  Free running, TRAINER23's steps
+    equal bit for bit (weights of both copies, masters, momenta) one
+    context accumulating the same two halves; each step from one
+    context's state at the whole batch, the fp32 masters' displacement
+    within TRAINER23_TOL outside the fc6/fc7 units whose ReLU flipped
+    (counted); one reduction a bucket each step; K1 at fc6, fc7."""
+    batch, steps = TRAINER23["batch"], TRAINER23["steps"]
+    alex_k1_held(batch // 2, BF16, "23d")
+    alex_k1_held(batch, BF16, "23d")
+    ref = alex_net(mx, 0.0)
+    mx.random.seed(SEED)
+    ref.initialize(resnet_init(mx), ctx=mx.cpu())
+    ref(mx.nd.zeros((1,) + IMAGE, ctx=mx.cpu()))
+    values = {n: p.data().asnumpy() for n, p in
+              ref.collect_params().items()}
+    rng = np.random.RandomState(SEED + 230)
+    batches = [(rng.rand(batch, *IMAGE).astype("f4"),
+                rng.randint(0, CLASSES, batch).astype("f4"))
+               for _ in range(steps)]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    two2 = [mx.gpu(0), mx.gpu(0)]
+    free = trainer23_lane(mx, values, two2, 2)
+    halves = trainer23_lane(mx, values, [mx.gpu(0)], 2, "add")
+    taught = trainer23_lane(mx, values, two2, 2)
+    whole = trainer23_lane(mx, values, [mx.gpu(0)], 1)
+    before, worst, flips, stats = values, (0.0, "none"), [], []
+    for step, (x, y) in enumerate(batches):
+        if step:
+            trainer23_teach(taught, whole)
+        cur = values if not step else {
+            n: p.data().astype("float32").asnumpy()
+            for n, p in whole["net"].collect_params().items()}
+        mask = trainer23_flips(mx, cur, x)
+        flips.append(int(sum(m.sum() for n, m in mask.items()
+                             if n.endswith("_bias"))))
+        for lane in (free, halves, taught, whole):
+            trainer23_step(mx, lane, x, y, loss_fn)
+        stats.append(dict(free["trainer"]._kvstore.stats()))
+        got = trainer23_state(taught)[1]
+        want = trainer23_state(whole)[1]
+        w = held_worst({n: got[n] - before[n] for n in want},
+                       {n: want[n] - before[n] for n in want},
+                       TRAINER23_TOL,
+                       keep={n: ~mask[n] if n in mask else
+                             np.ones(want[n].shape, bool) for n in want})
+        worst = max(worst, (w[0], f"{w[1]} at step {step + 1}"))
+        before = want
+    torch.cuda.synchronize()
+    a, b = trainer23_state(free), trainer23_state(halves)
+    bitwise = all(
+        all(np.array_equal(c, b[0][n][0]) for c in a[0][n]) and
+        np.array_equal(a[1][n], b[1][n]) and np.array_equal(a[2][n], b[2][n])
+        for n in b[1])
+    zero = {"buckets": 0, "allreduce_dispatches": 0}
+    buckets = [q["buckets"] - p["buckets"]
+               for p, q in zip([zero] + stats[:-1], stats)]
+    dispatches = [q["allreduce_dispatches"] - p["allreduce_dispatches"]
+                  for p, q in zip([zero] + stats[:-1], stats)]
+    fill = stats[-1]["avg_bucket_fill"]
+    gates = {"two replicas = one context over the halves, bit for bit":
+             bitwise,
+             "each step's displacement within TRAINER23_TOL": worst[0] <= 1,
+             "one reduction a bucket each step": dispatches == buckets
+             and all(n == buckets[0] and n > 0 for n in buckets),
+             "one batched push a step":
+             stats[-1]["batched_pushes"] == steps,
+             "K1 twice a replica's forward": free["k1"] == 2 * 2 * steps
+             and whole["k1"] == 2 * steps}
+    print(f"23d gluon.Trainer on [gpu(0), gpu(0)]: AlexNet bf16 (fp32 "
+          f"masters), batch {batch} = 2 x {batch // 2}, {steps} steps "
+          f"through kvstore 'device' at "
+          f"{stats[-1]['bucket_cap_mb']:g} MB buckets: {buckets[0]} "
+          f"buckets a step, mean fill {fill:.3f}, reductions {dispatches};"
+          f" reduce " + ", ".join(f"{ms:.3f}" for ms in free["reduce_ms"])
+          + f" ms a step; free running, weights, masters and momenta "
+          f"{'equal' if bitwise else 'NOT equal'} bit for bit to one "
+          f"context over the same halves; each step from one context's "
+          f"state at batch {batch}: the masters' displacement at "
+          f"{worst[0]:.3f} of the tolerance (rtol {TRAINER23_TOL[0]:g}, "
+          f"atol {TRAINER23_TOL[1]:g}*max; worst {worst[1]}) outside "
+          f"{flips} fc6/fc7 units whose ReLU flipped between M = "
+          f"{batch // 2} and {batch}; K1 {free['k1']} launches (one "
+          f"context at the whole batch {whole['k1']}) [{card}]")
+    out = {"launches": free["k1"], "buckets": buckets[0], "fill": fill,
+           "reduce_ms": statistics.median(free["reduce_ms"]),
+           "worst": worst[0], "flips": sum(flips)}
+    del free, halves, taught, whole
+    gc.collect()
+    failed = [k for k, v in gates.items() if not v]
+    check(not failed, f"23d: gates failed: {failed}")
+    return out
+
+
+def elastic_phase(card, workdir, alex_images_s):
+    """Phase 23: the collective plane (23a), a lost server (23b), a lost
+    host (23c), the bucketed Trainer over two replicas (23d); the K1
+    counts of each go into the kernels line."""
+    import incubator_mxnet_tpu_torch as mx
+    out, times = {}, {}
+    for key, fn in (("23a", lambda: coll23(mx, card, workdir,
+                                           alex_images_s)),
+                    ("23b", lambda: fail23(mx, card, workdir)),
+                    ("23c", lambda: pod23(mx, card, workdir)),
+                    ("23d", lambda: trainer23(mx, card))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        times[key] = time.perf_counter() - t0
+        print(f"phase {key}: {times[key]:.1f} s")
+    out["times"] = times
+    out["k1"] = {"dist_collective": out["23a"]["launches"],
+                 "dist_failover": out["23b"]["launches"],
+                 "pod_workers": out["23c"]["launches"],
+                 "trainer_multi_ctx": out["23d"]["launches"]}
+    return out
+
+
 def main():
     if sys.argv[1:]:
         print(f"usage: python3 chip_smoke.py (takes no arguments; got "
@@ -13037,6 +13826,10 @@ def main():
     for k, v in g22["times"].items():
         print(f"phase {k}: {v:.1f} s")
     print(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    e23 = elastic_phase(card, str(_build.BUILD_DIR.parent),
+                        zoo["17b"]["images_s"])
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     bf16, fp32, prof = resnet["bf16"], resnet["fp32"], resnet["profile"]
@@ -13288,6 +14081,22 @@ def main():
           f"{g22['k1']}; " + ", ".join(f"{k} {v:.1f} s" for k, v in
                                         g22["times"].items())
           + f" [{card}]")
+    ea, eb, ec, ed = (e23[k] for k in ("23a", "23b", "23c", "23d"))
+    print(f"elastic summary: 23a {COLL23_WORKERS} dist_sync workers on the "
+          f"collective plane (gloo): the mlp at {ea['dp_worst']:.3f} of "
+          f"DP_TOL, {ea['dispatches']} all-reduces a worker; AlexNet fp32 "
+          f"all-reduce {ea['allreduce_ms']:.2f} ms for {ea['bytes']} bytes "
+          f"= {ea['gb_s']:.3f} GB/s, {ea['steps_s']:.2f} steps/s "
+          f"({ea['images_s']:.1f} images/s); 23b first resumed step "
+          f"{eb['resume_s']:.3f} s after the server's crash, sha256-equal; "
+          f"23c host seen dead {ec['detect_s']:.3f} s after its last step, "
+          f"shrink barrier {ec['shrink_s']:.3f} s, restart "
+          f"{ec['restart_s']:.3f} s, PARAMS_SHA equal; 23d "
+          f"{ed['buckets']} buckets a step, fill {ed['fill']:.3f}, reduce "
+          f"{ed['reduce_ms']:.3f} ms, displacement at {ed['worst']:.3f} of "
+          f"the tolerance; K1 launches {e23['k1']}; "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in e23["times"].items())
+          + f" [{card}]")
     for key, dt in ((REP, F32), (REP_BF16, BF16)):
         m, k, n, _ = key
         k1[dt]["shape"] = f"{str(dt)[6:]} M={m} K={k} N={n}"
@@ -13311,14 +14120,14 @@ def main():
         + kvp["wd_launches"] + seq["k1_launches"] + sum(api["k1"].values())
         + sum(zoo["k1"].values()) + sum(loaders["k1"].values())
         + sum(s17["k1"].values()) + sum(f20["k1"].values())
-        + sum(g22["k1"].values()),
+        + sum(g22["k1"].values()) + sum(e23["k1"].values()),
         "paths": {"serving": launches, "training": train_launches,
                   "data_parallel": kvp["dp_launches"],
                   "wide_deep": kvp["wd_launches"],
                   "sequential_module": seq["k1_launches"],
                   "dist_sync_workers": dist["launches"], **api["k1"],
                   **zoo["k1"], **loaders["k1"], **s17["k1"],
-                  **f20["k1"], **g22["k1"]},
+                  **f20["k1"], **g22["k1"], **e23["k1"]},
         "max_abs_err": rep["max_abs_err"],
         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

@@ -45,13 +45,21 @@ device_augment="auto")` to uint8 NHWC batches; ``MXNET_IO_AUTO_SHARD``
 The kvstore's and the parameter server's knobs, with the JAX package's
 defaults: ``MXNET_KVSTORE_BIGARRAY_BOUND`` (int, 1000000)
 is the element count past which a dist key splits into one range per
-server; ``MXNET_KVSTORE_COLLECTIVE`` (bool, default off in the port, on
-in the JAX package) asks for the collective data plane, which the port
-does not have: a dist_sync store raises when it is on.
+server; ``MXNET_KVSTORE_COLLECTIVE`` (bool, on) sends a ``dist_sync``
+store's gradients through the collective data plane (an all-reduce over
+a `torch.distributed` group of the workers, `dist/collective.py`),
+``0`` through
+the parameter server; ``MXNET_KVSTORE_BUCKET_MB`` (32) caps a bucket of
+the batched reduce over several contexts.
 ``MXNET_PS_REQUEST_TIMEOUT`` (330 s), ``MXNET_PS_CONNECT_WAIT`` (90 s),
 ``MXNET_PS_RECONNECT_WAIT`` (5 s), ``MXNET_PS_MAX_RETRIES`` (3),
 ``MXNET_PS_BREAKER_THRESHOLD`` (2) and ``MXNET_PS_BREAKER_RESET_S`` (30 s)
 drive `dist.transport.Channel` and the per-server circuit breakers;
+``MXNET_SUPERVISOR`` (on) starts a `resilience.supervisor.JobSupervisor`
+in a multi-worker dist `Module.fit`, which restarts at most
+``MXNET_FIT_MAX_RESTARTS`` (2) times after a lost server or host;
+``MXNET_SUPERVISOR_HEARTBEAT_S`` (2 s) is its heartbeat interval and
+``MXNET_SUPERVISOR_STRAGGLER_K`` (3) its straggler rule's k;
 ``MXNET_SUPERVISOR_EPOCH`` (0) is the membership epoch a worker registers
 at, ``MXNET_SUPERVISOR_DEADLINE_S`` (10 s) the membership table's
 heartbeat deadline, and the shrink barrier's deadline is the larger of
@@ -166,10 +174,15 @@ KNOBS = {
     "MXNET_KVSTORE_BIGARRAY_BOUND": (int, 1000000,
                                      "dist keys with more elements split "
                                      "into one contiguous range per server"),
-    "MXNET_KVSTORE_COLLECTIVE": (_BOOL, False,
-                                 "asks dist_sync for the collective data "
-                                 "plane, which the port does not have "
-                                 "(raises); off: the socket plane"),
+    "MXNET_KVSTORE_COLLECTIVE": (_BOOL, True,
+                                 "dist_sync gradients all-reduce over a "
+                                 "torch.distributed group of the workers "
+                                 "(dist/collective.py); 0: through the "
+                                 "parameter server"),
+    "MXNET_KVSTORE_BUCKET_MB": (float, 32,
+                                "size cap of a bucket of the batched "
+                                "multi-context reduce (priority order: the "
+                                "last key first); fractions allowed"),
     "MXNET_PS_REQUEST_TIMEOUT": (float, 330.0,
                                  "dist transport per-request timeout; "
                                  "exceeds the server's 300 s waits"),
@@ -185,6 +198,22 @@ KNOBS = {
     "MXNET_PS_BREAKER_RESET_S": (float, 30.0,
                                  "open -> half-open window of a "
                                  "server's circuit breaker"),
+    "MXNET_FIT_MAX_RESTARTS": (int, 2,
+                               "Module.fit restarts from the last "
+                               "checkpoint after ServerLostError or "
+                               "CollectiveTimeoutError at most this many "
+                               "times"),
+    "MXNET_SUPERVISOR": (_BOOL, True,
+                         "JobSupervisor around a multi-worker dist "
+                         "Module.fit: heartbeats, the hung-collective "
+                         "watchdog, stragglers, shrink-and-resume"),
+    "MXNET_SUPERVISOR_HEARTBEAT_S": (float, 2.0,
+                                     "heartbeat interval to the pod "
+                                     "coordinator (the root server)"),
+    "MXNET_SUPERVISOR_STRAGGLER_K": (float, 3.0,
+                                     "k-sigma divergence of a host's "
+                                     "step-time EWMA from the pod median "
+                                     "flagged as a straggler"),
     "MXNET_SUPERVISOR_EPOCH": (int, 0,
                                "membership epoch a worker registers at"),
     "MXNET_SUPERVISOR_DEADLINE_S": (float, 10.0,

@@ -11,12 +11,16 @@ PyTorch port of `incubator_mxnet_tpu/dist/` (reference ps-lite stack:
 * `server`     — `ParameterServer`: sync rounds, async pushes, the
   server-side optimizer, the sharded embedding table's row shards;
   ``python -m incubator_mxnet_tpu_torch.dist.server``;
-* `kvstore_dist` — `KVStoreDist`, the worker side;
+* `collective` — the workers' `torch.distributed` process group (gloo,
+  or NCCL with a card a rank), torn down and re-formed at a smaller
+  world by shrink-and-resume;
+* `kvstore_dist` — `KVStoreDist`, the worker side, with the collective
+  data plane (the default for ``dist_sync``) and the socket plane;
 * `launch`     — a local launcher: servers and workers with the dmlc
-  tracker's environment.
-
-The JAX package's `collective` (push and pull as XLA collectives over
-`jax.distributed`) is not ported; README, "Declared divergences".
+  tracker's environment;
+* `pod_worker` — one elastic pod worker (``python -m
+  incubator_mxnet_tpu_torch.dist.pod_worker``), the repo's
+  `tools/pod_worker.py` for the port.
 """
 from . import compression, transport
 from .kvstore_dist import KVStoreDist

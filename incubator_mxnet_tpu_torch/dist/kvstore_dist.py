@@ -1,7 +1,25 @@
 """Worker-side distributed KVStore (reference `src/kvstore/kvstore_dist.h`).
 
-PyTorch port of `incubator_mxnet_tpu/dist/kvstore_dist.py` on the socket
-data plane: the per-context values of a key are summed on the worker
+PyTorch port of `incubator_mxnet_tpu/dist/kvstore_dist.py`, with its two
+data planes.
+
+**The collective plane** (``dist_sync`` with more than one worker and
+``MXNET_KVSTORE_COLLECTIVE`` on, the default as in the JAX package): the
+gradients never reach the parameter server.  Each worker sums its
+contexts' values of a key, then the workers all-reduce them over a
+`torch.distributed` group (`collective`, gloo where ranks share a card,
+NCCL where each has its own): a batched push is ONE collective per dtype
+bucket (flatten, concatenate, all-reduce, split; `_CollectivePlane`),
+2-bit compressed gradients cross as bfloat16 where that is exact
+(`_wire_dtype`), and the optimizer runs on every worker alike on the
+all-reduced gradient.  `init` sends rank 0's value out by an all-reduce
+to which the others add zeros, so every worker starts from the same
+bits.  The server keeps registration, barriers and membership.  Where
+the group cannot form, the store warns and uses the server, as the JAX
+store does.
+
+**The socket plane** (``MXNET_KVSTORE_COLLECTIVE=0``, ``dist_async``, or
+one worker): the per-context values of a key are summed on the worker
 (`kvstore.KVStoreDevice`'s reduce, on the card), then ONE merged array
 per key travels to its parameter server (2-bit packed under
 compression, `compression`), which aggregates the round (``dist_sync``)
@@ -12,12 +30,13 @@ its number, or a stable hash of its name); a bigger one splits into one
 contiguous range per server, each stored under the true key.  Each
 server has a circuit breaker; a tripped one, or a server that answers
 but forgot a key this worker initialized, raises `ServerLostError`
-naming the server and the keys it owned.
+naming the server and the keys it owned; a request released by a shrink
+of the pod (the server's "epoch fenced" reply) raises
+`CollectiveTimeoutError`, the signal `Module.fit` shrinks and resumes
+on.  Push, pull and the barrier run under the active `JobSupervisor`'s
+watchdog (`resilience.supervisor.supervised`).
 
-The JAX package's collective data plane (``MXNET_KVSTORE_COLLECTIVE``,
-gradients all-reduced over `jax.distributed`) is not ported, and NCCL
-refuses two ranks on one card: asking for it raises.  The tracker's
-environment names the worker: ``DMLC_PS_ROOT_URI``,
+The tracker's environment names the worker: ``DMLC_PS_ROOT_URI``,
 ``DMLC_PS_ROOT_PORT``, ``DMLC_RANK`` (`launch.py` sets them).
 """
 from __future__ import annotations
@@ -28,9 +47,15 @@ import zlib
 
 import numpy as _np
 
+import torch
+
 from ..base import MXNetError
-from ..kvstore import KVStoreDevice, _normalize, _normalize_push, _key
+from ..context import cpu, gpu, num_gpus
+from ..kvstore import (KVStore, KVStoreDevice, _normalize, _normalize_push,
+                       _key, _updater_key)
+from ..ndarray.ndarray import NDArray
 from ..resilience import CircuitBreaker, ServerLostError
+from ..resilience import faults as _faults
 from .transport import Channel, loads_port_blob
 
 __all__ = ["KVStoreDist"]
@@ -47,14 +72,6 @@ class KVStoreDist(KVStoreDevice):
         super().__init__(kind)
         from .. import config as _config
         self._sync = "async" not in kind
-        if self._sync and _config.get("MXNET_KVSTORE_COLLECTIVE"):
-            raise MXNetError(
-                f"kvstore {kind!r} with MXNET_KVSTORE_COLLECTIVE=1 asks for "
-                "the collective data plane (the JAX package's all-reduce "
-                "over jax.distributed); the port has no such plane yet — "
-                "its NCCL counterpart is not ported, and NCCL refuses two "
-                "ranks on one card.  Unset it (or set 0) for the "
-                "parameter server's socket plane")
         host = os.environ.get("DMLC_PS_ROOT_URI", "127.0.0.1")
         port = int(os.environ.get("DMLC_PS_ROOT_PORT", 9091))
         self._chan = Channel(host, port)
@@ -94,6 +111,24 @@ class KVStoreDist(KVStoreDevice):
         # namespace (the base class registers 'kvstore')
         from ..obs import metrics as _obs_metrics
         _obs_metrics.register_producer("kvstore.dist", self.stats)
+        # the collective data plane: sync mode only (async semantics need
+        # a mailbox, which is the server)
+        self._collective = None
+        if self._sync and self._num_workers > 1 and \
+                _config.get("MXNET_KVSTORE_COLLECTIVE"):
+            try:
+                self._collective = _CollectivePlane(self._rank,
+                                                    self._num_workers)
+            except Exception as e:
+                import logging
+                logging.getLogger(__name__).warning(
+                    "collective data plane unavailable (%s); gradients go "
+                    "through the parameter server", str(e)[:200])
+            else:
+                # the store, the all-reduce and the optimizer on the card
+                # the group drives (NCCL: card r for rank r)
+                self._store_ctx = gpu(torch.cuda.current_device()) \
+                    if num_gpus() > 0 else cpu(0)
 
     # -- identity ------------------------------------------------------------
     @property
@@ -103,6 +138,11 @@ class KVStoreDist(KVStoreDevice):
     @property
     def num_workers(self):
         return self._num_workers
+
+    @property
+    def prefers_batched_push(self):
+        """A batched push rides one collective per dtype bucket."""
+        return self._collective is not None
 
     def server_addresses(self):
         """Every server's (host, port), root first."""
@@ -121,6 +161,8 @@ class KVStoreDist(KVStoreDevice):
             "resends": sum(c.resends for c in self._chans),
             "discarded_stale": sum(c.discarded_stale for c in self._chans),
             "wire_bytes": self.wire_bytes,
+            "collective_dispatches": None if self._collective is None
+            else self._collective.dispatch_count,
             "breakers": [
                 {"server": i, "addr": f"{c.host}:{c.port}",
                  "state": b.state,
@@ -157,6 +199,8 @@ class KVStoreDist(KVStoreDevice):
                         reason=f"unresponsive during {msg.get('cmd')!r}: "
                                f"{breaker.failure_threshold} consecutive "
                                f"timeouts ({e})") from e
+                _faults.note("retry", site="kvstore", server=srv,
+                             cmd=msg.get("cmd"), error="timeout")
             except (ConnectionError, EOFError, OSError) as e:
                 framed = True
                 if breaker.record_failure():
@@ -166,8 +210,18 @@ class KVStoreDist(KVStoreDevice):
                                f"after {breaker.failure_threshold} "
                                f"consecutive failures "
                                f"({type(e).__name__}: {e})") from e
+                _faults.note("reconnect", site="kvstore", server=srv,
+                             cmd=msg.get("cmd"))
         if "error" in reply:
             err = reply["error"]
+            if "epoch fenced" in err:
+                # a shrink committed while this request waited: the
+                # recoverable signal fit's restart loop shrinks on
+                from ..resilience.supervisor import CollectiveTimeoutError
+                breaker.record_success()   # the server is alive and sane
+                raise CollectiveTimeoutError(
+                    f"kvstore.{msg.get('cmd')}", axis="workers",
+                    detail=err)
             k = msg.get("key")
             if "has not been initialized" in err and k is not None \
                     and k in self._store:
@@ -199,9 +253,19 @@ class KVStoreDist(KVStoreDevice):
         return [(i, slice(bounds[i], bounds[i + 1])) for i in range(n)]
 
     # -- data plane ----------------------------------------------------------
+    def _supervised(self, name, fn):
+        """Run a blocking cross-worker exchange under the active
+        `JobSupervisor`'s watchdog (a plain call when none is active):
+        a round a dead worker never joins becomes a
+        `CollectiveTimeoutError` naming it instead of a hang."""
+        from ..resilience.supervisor import supervised
+        return supervised(name, fn, axis="workers")
+
     def init(self, key, value):
         """Rank 0 ships the initial values to the owning servers; every
-        worker barriers, then keeps a local copy (its shape routes pulls)."""
+        worker barriers, then keeps a local copy (its shape routes pulls).
+        On the collective plane the local copy is rank 0's value, sent
+        out by an all-reduce to which the other ranks add zeros."""
         keys, values = _normalize(key, value)
         if self._rank == 0:
             for k, v in zip(keys, values):
@@ -212,11 +276,73 @@ class KVStoreDist(KVStoreDevice):
                                         "values": [flat[sl]]})
         self._barrier()
         for k, v in zip(keys, values):
-            self._store[_key(k)] = v.copyto(self._store_ctx)
+            if self._collective is not None:
+                dev = self._store_ctx.torch_device
+                src = v.data.detach().to(dev, copy=True) \
+                    if self._rank == 0 else \
+                    torch.zeros(v.shape, dtype=v.data.dtype, device=dev)
+                self._store[_key(k)] = NDArray(
+                    self._collective.allreduce(src), ctx=self._store_ctx)
+            else:
+                self._store[_key(k)] = v.copyto(self._store_ctx)
+
+    def _wire_dtype(self, merged_dtype):
+        """The all-reduce's dtype for compressed gradients.  Quantized
+        terms are {-t, 0, +t} and partial sums k*t with |k| <= workers;
+        bfloat16 (8 significand bits) keeps every k*t exact only when t's
+        significand is one bit (a power of two) and k <= 256, so outside
+        that the merged dtype crosses (the JAX package's rule)."""
+        import math
+        thr = float(self._compression.get("threshold", 0.5))
+        frac = math.frexp(abs(thr))[0] if thr else 0.5
+        if self._num_workers <= 256 and frac == 0.5:
+            return torch.bfloat16
+        return merged_dtype
+
+    def _collective_push_batch(self, keys, values):
+        """Sync push on the collective plane: the local reduce per key,
+        then ONE all-reduce per dtype bucket over the flattened keys (one
+        collective a step instead of one a parameter); the optimizer,
+        when set, updates every worker's copy alike.  No gradient byte
+        reaches a server."""
+        sks, merged, dtypes = [], [], []
+        dev = self._store_ctx.torch_device
+        for k, vals in zip(keys, values):
+            sk = _key(k)
+            if sk not in self._store:
+                raise MXNetError(f"Key {k} has not been initialized")
+            m = self._reduce_compress(sk, vals).data.to(dev)
+            if self._compression is not None:
+                dtypes.append(m.dtype)
+                m = m.to(self._wire_dtype(m.dtype))
+            else:
+                dtypes.append(None)
+            merged.append(m)
+            sks.append(sk)
+        summed = [NDArray(out if dt is None else out.to(dt),
+                          ctx=self._store_ctx)
+                  for out, dt in zip(self._collective.allreduce_many(merged),
+                                     dtypes)]
+        if self._updater is not None:
+            # every worker applies the same update to the same gradient
+            self._updater.update_multi([_updater_key(sk) for sk in sks],
+                                       summed,
+                                       [self._store[sk] for sk in sks])
+        else:
+            self._store.update(zip(sks, summed))
 
     def push(self, key, value, priority=0):
-        from .compression import pack_2bit
         keys, values = _normalize_push(key, value)
+        if self._collective is not None:
+            self._supervised(
+                "kvstore.push",
+                lambda: self._collective_push_batch(keys, values))
+            return
+        self._supervised("kvstore.push",
+                         lambda: self._socket_push(keys, values))
+
+    def _socket_push(self, keys, values):
+        from .compression import pack_2bit
         for k, vals in zip(keys, values):
             sk = _key(k)
             if sk not in self._store:
@@ -241,10 +367,17 @@ class KVStoreDist(KVStoreDevice):
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """The servers' value of each key (a sync pull waits for the
-        rounds this worker pushed into), into every out array."""
+        rounds this worker pushed into), into every out array; on the
+        collective plane, the local copy the all-reduce left."""
         if out is None:
             raise MXNetError("pull requires out=")
+        self._supervised("kvstore.pull", lambda: self._pull_impl(key, out))
+
+    def _pull_impl(self, key, out):
         keys, outs = _normalize_push(key, out)
+        if self._collective is not None:
+            KVStore.pull(self, keys, out=outs)
+            return
         for k, tgt_list in zip(keys, outs):
             sk = _key(k)
             src = self._store.get(sk)
@@ -272,8 +405,15 @@ class KVStoreDist(KVStoreDevice):
     # -- control plane -------------------------------------------------------
     def set_optimizer(self, optimizer):
         """Rank 0 ships the pickled optimizer to every server, which then
-        runs the update (reference `kvstore.py:535`); everyone barriers."""
+        runs the update (reference `kvstore.py:535`); everyone barriers.
+        On the collective plane no server sees a gradient: every worker
+        runs the optimizer alike on the all-reduced gradient."""
         self._optimizer = optimizer
+        if self._collective is not None:
+            from .. import optimizer as _opt
+            self._updater = _opt.get_updater(optimizer)
+            self._barrier()
+            return
         if self._rank == 0:
             blob = pickle.dumps(optimizer)
             for srv in range(len(self._chans)):
@@ -283,12 +423,24 @@ class KVStoreDist(KVStoreDevice):
 
     def get_optimizer_states(self, dump_optimizer=False):
         """Every server's optimizer states, one blob (each server owns
-        the states of its key ranges)."""
+        the states of its key ranges); on the collective plane the local
+        updater's, which every worker holds alike."""
+        if self._updater is not None:
+            return self._updater.get_states(dump_optimizer=dump_optimizer)
         blobs = {}
         for srv in range(len(self._chans)):
             reply = self._request(srv, {"cmd": "get_optimizer_states",
                                         "dump_optimizer": dump_optimizer})
             blobs[srv] = reply.get("states")
+            if blobs[srv] is None and self._optimizer is not None:
+                # this worker shipped an optimizer the server no longer
+                # has: it restarted empty, its states are gone
+                chan = self._chans[srv]
+                self._breakers[srv].record_failure()
+                raise ServerLostError(
+                    srv, f"{chan.host}:{chan.port}",
+                    keys=self._keys_on(srv),
+                    reason="server restarted without its optimizer")
         if all(b is None for b in blobs.values()):
             raise MXNetError(
                 "get_optimizer_states: no optimizer is installed on any "
@@ -297,19 +449,25 @@ class KVStoreDist(KVStoreDevice):
 
     def set_optimizer_states(self, blob):
         """Restore a `get_optimizer_states` blob: rank 0 sends each server
-        its states, then everyone barriers."""
+        its states, then everyone barriers; a worker-side blob loads into
+        the local updater."""
         payload = loads_port_blob(blob) if isinstance(blob, bytes) \
             else blob
-        if not (isinstance(payload, dict) and
-                "dist_server_states" in payload):
-            raise MXNetError("set_optimizer_states: not a dist store's "
-                             "blob (get_optimizer_states of a dist store)")
-        if self._rank == 0:
-            for srv, states in payload["dist_server_states"].items():
-                if states is not None:
-                    self._request(int(srv), {"cmd": "set_optimizer_states",
-                                             "states": states})
-        self._barrier()
+        if isinstance(payload, dict) and "dist_server_states" in payload:
+            if self._rank == 0:
+                for srv, states in payload["dist_server_states"].items():
+                    if states is not None:
+                        self._request(int(srv),
+                                      {"cmd": "set_optimizer_states",
+                                       "states": states})
+            self._barrier()
+            return
+        if self._updater is None:
+            raise MXNetError(
+                "set_optimizer_states: blob holds worker-side updater "
+                "state but this store has no local updater (collective "
+                "mode not engaged?)")
+        KVStore.set_optimizer_states(self, blob)
 
     def server_metrics(self):
         """Each server's counters from its ``metrics`` scrape: pushes,
@@ -340,7 +498,9 @@ class KVStoreDist(KVStoreDevice):
                              "; ".join(errors))
 
     def _barrier(self):
-        _check(self._chan.request({"cmd": "barrier"}))
+        self._supervised(
+            "kvstore.barrier",
+            lambda: _check(self._chan.request({"cmd": "barrier"})))
 
     def close(self, send_stop=True):
         """Close every server channel; ``send_stop`` counts this worker as
@@ -367,3 +527,63 @@ class KVStoreDist(KVStoreDevice):
             self.close()
         except Exception:
             pass
+
+
+class _CollectivePlane:
+    """The all-reduce over one `torch.distributed` group of the worker
+    processes (`collective.init_process_group`).  `allreduce` sums a
+    tensor across the workers; `allreduce_many` sums a list with ONE
+    collective per dtype bucket (flatten, concatenate, all-reduce,
+    split), as the reference batches its NCCL pushes (`model.py:125`).
+    ``dispatch_count`` counts the collectives issued; ``timings`` keeps
+    the last 64 as (bytes, seconds), each timed to its completion."""
+
+    def __init__(self, rank, num_workers):
+        from . import collective
+        joined = collective.init_process_group(num_processes=num_workers,
+                                               process_id=rank)
+        if joined[1] != num_workers or joined[2] != rank:
+            raise RuntimeError(
+                f"joined group {joined} is not rank {rank} of "
+                f"{num_workers} (shut the old group down first)")
+        self._pg = collective.process_group()
+        self.backend = collective.backend()
+        self.dispatch_count = 0
+        self.timings = []
+
+    def allreduce(self, t):
+        """`t` summed over the workers: a new tensor on `t`'s device."""
+        import time
+        out = t.detach().contiguous().clone()
+        cuda = out.is_cuda
+        if cuda:
+            torch.cuda.synchronize(out.device)
+        t0 = time.perf_counter()
+        self.dispatch_count += 1
+        self._pg.allreduce([out]).wait()
+        if cuda:
+            torch.cuda.synchronize(out.device)
+        self.timings.append((out.numel() * out.element_size(),
+                             time.perf_counter() - t0))
+        del self.timings[:-64]
+        return out
+
+    def allreduce_many(self, arrs):
+        """Each tensor of `arrs` summed over the workers, one collective
+        per dtype: ``[flat_0 | flat_1 | ...]`` all-reduced, then split
+        back into the tensors' shapes."""
+        if len(arrs) == 1:
+            return [self.allreduce(arrs[0])]
+        by_dtype = {}
+        for i, a in enumerate(arrs):
+            by_dtype.setdefault(a.dtype, []).append(i)
+        out = [None] * len(arrs)
+        for idxs in by_dtype.values():
+            dev = arrs[idxs[0]].device
+            bucket = torch.cat([arrs[i].detach().reshape(-1).to(dev)
+                                for i in idxs])
+            summed = self.allreduce(bucket)
+            pieces = torch.split(summed, [arrs[i].numel() for i in idxs])
+            for i, piece in zip(idxs, pieces):
+                out[i] = piece.view(arrs[i].shape)
+        return out

@@ -24,7 +24,8 @@ server's own counters (pushes, pulls, rounds applied, optimizer updates
 and their time) are its producer under ``ps.<port>``, which the JAX
 server does not register.  ``profiler`` drives the port's `profiler` in
 this process.  Every command runs inside a ``server.<cmd>`` span that
-adopts the request frame's trace context.
+adopts the request frame's trace context, after the ``server.dispatch``
+fault site (a ``crash`` clause kills the server in place).
 
 Sync semantics (``dist_sync``): each key carries a version, the number
 of completed rounds; a worker's n-th push joins round n, which applies
@@ -46,6 +47,7 @@ import numpy as np
 from ..obs import metrics as _obs_metrics
 from ..obs import trace as _obs_trace
 from ..obs.scrape import metrics_reply
+from ..resilience import faults as _faults
 from .membership import MembershipTable
 from .transport import loads_port_blob, recv_msg, send_msg
 
@@ -121,6 +123,10 @@ class ParameterServer:
                         break     # a "dead" server closes without reply
                     try:
                         reply = outer._handle(msg)
+                    except _faults.FaultInjected as exc:
+                        if exc.kind == "crash":
+                            outer._simulate_crash()
+                        break     # the connection dies mid-request
                     except (ConnectionError, OSError):
                         break
                     except Exception as exc:
@@ -237,6 +243,7 @@ class ParameterServer:
         try:
             # the cross-process trace edge: the handling span adopts the
             # frame's ``tr`` context
+            _faults.fire("server.dispatch", cmd=cmd)
             with _obs_trace.server_span(msg, f"server.{cmd}",
                                         cat="kvstore"):
                 reply = self._dispatch(msg)

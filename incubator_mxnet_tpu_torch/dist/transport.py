@@ -25,7 +25,9 @@ connect retries under a deadline (the startup race); a timed-out request
 leaves the channel usable (its late reply is dropped by sequence number);
 a dropped connection resends the same frame, which the server answers
 from its (client, seq) cache instead of applying it twice.  The JAX
-package's tracing spans, sanitizer hooks and fault-injection sites are
+package's fault-injection sites are here (``transport.connect`` per
+connect attempt, ``transport.send`` per frame sent, ``transport.recv``
+per frame awaited; a resend notes ``retry``); its sanitizer hooks are
 not ported.
 """
 from __future__ import annotations
@@ -198,7 +200,8 @@ class Channel:
     def __init__(self, host: str, port: int, timeout: float | None = None,
                  connect_wait: float | None = None, retry=None):
         from .. import config as _config
-        from ..resilience import RetryPolicy
+        from ..resilience import RetryPolicy, faults as _faults
+        self._faults = _faults
         self.host, self.port = host, int(port)
         # the timeout must exceed the server's longest wait (300 s sync
         # rounds and barriers); it bounds a dead or partitioned server
@@ -230,6 +233,8 @@ class Channel:
         attempt = 0
         while True:
             try:
+                self._faults.fire("transport.connect", host=self.host,
+                                  port=self.port)
                 self._sock = socket.create_connection(
                     (self.host, self.port), timeout=10.0)
                 break
@@ -257,6 +262,7 @@ class Channel:
         """The reply for sequence number `expect`; frames answering other
         (timed-out) requests are dropped."""
         while True:
+            self._faults.fire("transport.recv", sock=self._sock)
             reply = recv_msg(self._sock)
             seq = reply.get("seq") if isinstance(reply, dict) else None
             if seq is None or seq == expect:
@@ -305,6 +311,8 @@ class Channel:
                         self.on_reconnect(self)
                 self._sock.settimeout(wait)
                 try:
+                    self._faults.fire("transport.send", cmd=msg.get("cmd"),
+                                      sock=self._sock)
                     send_msg(self._sock, msg)
                     return self._read_reply(msg["seq"])
                 finally:
@@ -318,12 +326,15 @@ class Channel:
                     f"request {msg.get('cmd')!r} to {self.host}:{self.port} "
                     f"timed out after {wait:g}s; the server is "
                     "slow or wedged")
-            except (ConnectionError, EOFError, OSError):
+            except (ConnectionError, EOFError, OSError) as exc:
                 self._drop_sock()
                 delay = next(delays, None)
                 if delay is None:
                     raise
                 self.resends += 1
+                self._faults.note("retry", site="transport.send",
+                                  cmd=msg.get("cmd"), attempt=self.resends,
+                                  error=type(exc).__name__)
                 time.sleep(delay)
 
     def bare_request(self, obj):

@@ -16,8 +16,18 @@ gradient there by ``grad_req``, and `grad()`, `list_grad()` and
 leaves; `cast` makes new ones, with gradients, in the new dtype;
 `set_data` and the optimizer write into the leaves in place, so a later
 `autograd.record()` sees the new values through the same leaves.
+
+A parameter may hold one context several times (``ctx=[gpu(0), gpu(0)]``:
+data-parallel replicas on one card).  ``data(ctx)`` and ``grad(ctx)``
+answer with the first copy on `ctx`, as in the JAX package; inside
+``with replica(k):`` they answer with copy k where it lives on `ctx`, so
+each replica's forward and backward use its own copy (the port's
+addition: the JAX package has no way to address the second copy).
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
@@ -29,7 +39,27 @@ from ..ndarray.ndarray import NDArray
 from .. import ndarray as nd
 
 __all__ = ["DeferredInitializationError", "Parameter", "Constant",
-           "ParameterDict"]
+           "ParameterDict", "replica"]
+
+_replica = contextvars.ContextVar("mx_gluon_replica", default=None)
+
+
+@contextlib.contextmanager
+def replica(k):
+    """Within the block, a parameter's ``data(ctx)`` and ``grad(ctx)``
+    give its k-th copy when that copy lives on `ctx`."""
+    token = _replica.set(int(k))
+    try:
+        yield
+    finally:
+        _replica.reset(token)
+
+
+def _copy_index(ctx_list, ctx):
+    k = _replica.get()
+    if k is not None and k < len(ctx_list) and ctx_list[k] == ctx:
+        return k
+    return ctx_list.index(ctx)
 
 
 class DeferredInitializationError(MXNetError):
@@ -217,7 +247,7 @@ class Parameter:
         self._check_initialized(ctx)
         if ctx is None:
             return self._data[0]
-        return self._data[self._ctx_list.index(ctx)]
+        return self._data[_copy_index(self._ctx_list, ctx)]
 
     def list_data(self):
         """The data array on every context."""
@@ -241,7 +271,7 @@ class Parameter:
         self._check_initialized(ctx)
         if ctx is None:
             return self._grad[0]
-        return self._grad[self._ctx_list.index(ctx)]
+        return self._grad[_copy_index(self._ctx_list, ctx)]
 
     def list_grad(self):
         """The gradient array on every context."""

@@ -1,25 +1,29 @@
 """Gluon Trainer (reference `python/mxnet/gluon/trainer.py`).
 
-PyTorch port of `incubator_mxnet_tpu/gluon/trainer.py` on one context.
+PyTorch port of `incubator_mxnet_tpu/gluon/trainer.py`.
 `step(batch_size)` sets the optimizer's ``rescale_grad`` to the scale the
 trainer was given (``optimizer_params["rescale_grad"]``, default 1)
-over `batch_size`, exactly as the JAX package does, then updates every
-parameter that takes a gradient with one `Updater.update_multi` call
-(the multi-tensor SGD, with fp32 master weights for bf16 parameters
-under ``multi_precision``), reading the gradient arrays `autograd`
-filled.  The update runs in place on the parameters' autograd leaves,
-outside the graph, so the next `autograd.record()` sees the new values.
+over `batch_size`, exactly as the JAX package does, sums the gradients
+of parameters held on several contexts through the kvstore, then updates
+every parameter that takes a gradient, context by context, with one
+`Updater.update_multi` call each (the multi-tensor SGD, with fp32
+master weights for bf16 parameters under ``multi_precision``), reading
+the gradient arrays `autograd` filled.  The update runs in place on the
+parameters' autograd leaves, outside the graph, so the next
+`autograd.record()` sees the new values.
 
-A ``dist_*`` kvstore on one context is created and its keys initialized
-at the first step, with the compression asked for, as the JAX package
-does (`trainer.py:105-118`); `allreduce_grads` sums only gradients held
-on several contexts (`:145-166`), so on one context it pushes nothing,
-as there.  Without ``dist`` one context needs no kvstore (the JAX
-package creates none either).  Parameters on several contexts are not
-ported yet (ROADMAP).  ZeRO state
-partitioning (``zero=``) and a device mesh (``mesh=``) need more than
-one card and raise.  `save_states` / `load_states` pickle the updater's
-states and the optimizer in the port's own format.
+Parameters on several contexts (``[gpu(0), gpu(0)]`` on one card) get a
+kvstore (``device`` by default) and one updater a context, as in the JAX
+package (`trainer.py:105-118`): `allreduce_grads` hands the store every
+such gradient in ONE batched push and pull (`:139-170`), which the
+``device`` store reduces in size-capped buckets (`kvstore.KVStoreDevice`)
+and writes back into every context's gradient.  A ``dist_*`` kvstore is
+created and its keys initialized at the first step, with the compression
+asked for; on one context it pushes nothing, as in the JAX package, and
+without ``dist`` one context needs no kvstore.  ZeRO state partitioning
+(``zero=``) and a device mesh (``mesh=``) wait for 14-parallel and
+raise.  `save_states` / `load_states` pickle the updater's states and
+the optimizer in the port's own format.
 """
 from __future__ import annotations
 
@@ -42,8 +46,8 @@ class Trainer:
         if zero not in (None, False) or mesh is not None:
             raise MXNetError(
                 "Trainer(zero=..., mesh=...) shards optimizer state over "
-                "several cards; the port trains on one (ROADMAP Queue 1, "
-                "item 14)")
+                "a device mesh; the port has no mesh yet (ROADMAP "
+                "14-parallel)")
         if isinstance(params, (dict, ParameterDict)):
             params = list(params.values())
         if not isinstance(params, (list, tuple)):
@@ -60,9 +64,6 @@ class Trainer:
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._contexts = self._check_contexts()
-        if len(self._contexts) > 1:
-            raise MXNetError("Trainer: the port trains on one context; the "
-                             f"parameters live on {self._contexts}")
         self._init_optimizer(optimizer, optimizer_params)
         self._kvstore_type = kvstore
         self._compression_params = compression_params
@@ -71,10 +72,11 @@ class Trainer:
         self._kv_initialized = False
 
     def _init_kvstore(self):
-        """A ``dist`` store (a name, or a dist store) with every live
-        parameter's key initialized; else none."""
+        """A store (a name, or a store) with every live parameter's key
+        initialized, for parameters on several contexts or a ``dist``
+        store; else none."""
         kind = self._kvstore_type
-        if "dist" in str(kind):
+        if len(self._contexts) > 1 or "dist" in str(kind):
             kv = kvs.create(kind) if isinstance(kind, str) else kind
             if self._compression_params:
                 kv.set_gradient_compression(self._compression_params)
@@ -105,7 +107,9 @@ class Trainer:
         else:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
-        self._updaters = [opt.get_updater(self._optimizer)]
+        # one updater a context, sharing the optimizer (the JAX Trainer's)
+        self._updaters = [opt.get_updater(self._optimizer)
+                          for _ in range(max(1, len(self._contexts)))]
 
     @property
     def learning_rate(self):
@@ -123,13 +127,22 @@ class Trainer:
 
     def allreduce_grads(self):
         """Sum through the kvstore the gradients held on several contexts
-        (on one context, none)."""
+        (on one context, none): one batched push and pull where the store
+        prefers it, so the step costs O(buckets) reductions."""
         if not self._kv_initialized:
             self._init_kvstore()
         if self._kvstore is None:
             return
         live = [(i, p.list_grad()) for i, p in enumerate(self._params)
                 if p.grad_req != "null" and len(p.list_grad()) > 1]
+        if not live:
+            return
+        if getattr(self._kvstore, "prefers_batched_push", False):
+            keys = [i for i, _ in live]
+            grads = [g for _, g in live]
+            self._kvstore.push(keys, grads)
+            self._kvstore.pull(keys, grads)
+            return
         for i, grads in live:
             self._kvstore.push(i, grads, priority=-i)
             self._kvstore.pull(i, grads, priority=-i)
@@ -143,9 +156,11 @@ class Trainer:
         live = [(i, p) for i, p in enumerate(self._params)
                 if p.grad_req != "null"]
         if live:
-            self._updaters[0].update_multi(
-                [i for i, _ in live], [p.list_grad()[0] for _, p in live],
-                [p.list_data()[0] for _, p in live])
+            for k, updater in enumerate(self._updaters):
+                updater.update_multi(
+                    [i for i, _ in live],
+                    [p.list_grad()[k] for _, p in live],
+                    [p.list_data()[k] for _, p in live])
 
     def get_checkpoint_state(self):
         """The updater's states (host arrays) and the pickled optimizer
@@ -154,14 +169,16 @@ class Trainer:
         return self._updaters[0].get_states(dump_optimizer=True)
 
     def set_checkpoint_state(self, blob):
-        """Restore a `get_checkpoint_state` blob: its states, each on its
-        parameter's context, and its optimizer replace the trainer's."""
-        updater = self._updaters[0]
-        updater.set_states(blob)
-        for i, state in updater.states.items():
-            updater.states[i] = _on_ctx(state,
-                                        self._params[i].list_ctx()[0])
-        self._optimizer = updater.optimizer
+        """Restore a `get_checkpoint_state` blob: every context's updater
+        takes its states, each on that context, and the one restored
+        optimizer replaces the trainer's."""
+        for k, updater in enumerate(self._updaters):
+            updater.set_states(blob)
+            for i, state in updater.states.items():
+                updater.states[i] = _on_ctx(state,
+                                            self._params[i].list_ctx()[k])
+            updater.optimizer = self._updaters[0].optimizer
+        self._optimizer = self._updaters[0].optimizer
         self._optimizer.param_dict = dict(enumerate(self._params))
 
     def save_states(self, fname):

@@ -13,16 +13,27 @@ PyTorch port of `incubator_mxnet_tpu/kvstore.py`:
 
 A push of several values for a key (one per context) sums them in push
 order on the first value's device, as the JAX store does when the values
-share a device (`kvstore.py:516-523`); the JAX bucketed all-reduce over
-distinct devices (`:645-760`, `:909-960`) needs several cards and is not
-ported, so a batched multi-key push counts a ``fallback_reduces`` there
-as the JAX store does on one device.  `plan_buckets`, the JAX bucket
-rule, is kept as the pure function it is.  2-bit gradient compression
-quantizes the reduced value with a per-key error-feedback residual
-(`:267-299`) on the device it lives on: ``q = thr where g + r >= thr,
--thr where <= -thr, else 0``, ``r = g + r - q``.
+share a device (`kvstore.py:516-523`).  A batched multi-key push on
+``device`` / ``tpu`` is the JAX store's bucketed reduce (`:505-630`):
+the keys, in priority order (the last key first: backward makes the last
+layer's gradients first), pack into single-dtype buckets of at most
+``MXNET_KVSTORE_BUCKET_MB`` (`plan_buckets`, the JAX rule); each bucket
+is one flatten and concatenate per context, one sum in context order and
+one split, so a step costs O(buckets) reductions, not one a key, and
+its sums are bit for bit the per-key path's.  A batched pull broadcasts
+a bucket at a time (`_pull_buckets`); `begin_push` / `push_part` /
+`end_push` stream a push bucket by bucket.  The contexts of one card
+(``[gpu(0), gpu(0)]``) reduce on that card; values on several cards are
+moved to the first one's (the JAX store's all-reduce over a mesh of
+cards is not measured).  2-bit gradient compression quantizes the
+reduced value with a per-key error-feedback residual (`:267-299`),
+after the bucket's split on the bucketed path: ``q = thr where g + r >=
+thr, -thr where <= -thr, else 0``, ``r = g + r - q``.  `live_stats` and
+`findings` read every live bucketed store's `stats()`.
 """
 from __future__ import annotations
+
+import weakref
 
 import numpy as _np
 import torch
@@ -32,7 +43,46 @@ from .context import cpu, gpu, num_gpus
 from .ndarray.ndarray import NDArray
 from . import optimizer as opt
 
-__all__ = ["KVStore", "KVStoreDevice", "create", "plan_buckets"]
+__all__ = ["KVStore", "KVStoreDevice", "create", "plan_buckets",
+           "live_stats", "findings"]
+
+# live bucketed stores (weak): `live_stats` reads them without holding
+# them alive
+_LIVE_STORES = weakref.WeakSet()
+
+
+def live_stats():
+    """`stats()` of every live ``device`` / ``tpu`` store."""
+    out = []
+    for kv in list(_LIVE_STORES):
+        try:
+            out.append(kv.stats())
+        except Exception:
+            pass
+    return out
+
+
+def findings():
+    """One summary line a live bucketed store that took batched pushes:
+    its dispatch economy (reductions a push must be O(buckets), never
+    O(keys)), as dicts with the JAX finding's fields."""
+    out = []
+    for st in live_stats():
+        if not st.get("batched_pushes"):
+            continue
+        out.append({
+            "pass": "kvstore.buckets", "code": "summary",
+            "severity": "hint", "location": "kvstore",
+            "message": "kvstore='%s': %d batched pushes, %d allreduce "
+                       "dispatches (%.2f buckets/push, cap %d MB, avg fill "
+                       "%.0f%%), %.1f MB reduced"
+                       % (st["type"], st["batched_pushes"],
+                          st["allreduce_dispatches"],
+                          st["allreduce_dispatches"]
+                          / max(1, st["batched_pushes"]),
+                          st["bucket_cap_mb"], 100.0 * st["avg_bucket_fill"],
+                          st["bytes_reduced"] / (1 << 20))})
+    return out
 
 
 def _key(k):
@@ -259,17 +309,37 @@ class KVStoreDevice(KVStore):
     """``device`` / ``nccl`` / ``tpu``: the store and the reduction on
     the card.  Values of one key on one device (several contexts on one
     card) sum in push order there; values on several devices are moved
-    to the first one's and summed in push order.  The counters are the
-    JAX collective store's (`stats()`)."""
+    to the first one's and summed in push order.  A batched multi-key
+    push is the bucketed reduce; the counters are the JAX collective
+    store's (`stats()`)."""
 
     def __init__(self, kind="device"):
         super().__init__(kind)
+        self.allreduce_dispatches = 0   # one a bucket (tests assert it)
         self._counters = {"pushes": 0, "batched_pushes": 0,
-                          "fallback_reduces": 0, "bytes_reduced": 0}
+                          "fallback_reduces": 0, "bytes_reduced": 0,
+                          "buckets": 0, "fill_sum": 0.0,
+                          "pull_broadcasts": 0}
+        self._fill_hist = [0, 0, 0, 0]   # fill quartiles (<=25..<=100%)
+        self._stream = None              # an open streaming push
+        _LIVE_STORES.add(self)
         # telemetry plane: the counters under the 'kvstore' namespace
         # (weakly held; the newest live store answers scrapes)
         from .obs import metrics as _obs_metrics
         _obs_metrics.register_producer("kvstore", self.stats)
+
+    @property
+    def _bucket_cap_bytes(self):
+        from . import config as _config
+        # fractional MB are honored (KB-sized caps force several buckets)
+        return max(1, int(float(_config.get("MXNET_KVSTORE_BUCKET_MB"))
+                          * (1 << 20)))
+
+    @property
+    def prefers_batched_push(self):
+        """A multi-key push and pull should come as one call: the key
+        list reduces in O(buckets) reductions."""
+        return True
 
     def _reduce_ctx(self, vals):
         return vals[0].context
@@ -280,33 +350,196 @@ class KVStoreDevice(KVStore):
                 vals[0].data.numel() * vals[0].data.element_size()
         return super()._reduce(vals)
 
+    # -- the bucketed reduce ---------------------------------------------------
+    @staticmethod
+    def _nbytes(v):
+        return v.data.numel() * v.data.element_size()
+
+    def _plan_buckets(self, order, values):
+        """The key indices of `order` (already in priority order) packed
+        into size-capped single-dtype buckets (`plan_buckets`)."""
+        return plan_buckets(order, [self._nbytes(v[0]) for v in values],
+                            [v[0].data.dtype for v in values],
+                            self._bucket_cap_bytes)
+
+    def _reduce_bucket(self, idxs, keys, values):
+        """One bucket: each context's values flattened and concatenated,
+        the contexts summed in push order on the first one's device (one
+        reduction), the split back into the keys, and each key's 2-bit
+        quantize with its own residual (elementwise: the bucket's codes
+        and residuals are the per-key path's)."""
+        ctx0 = values[idxs[0]][0].context
+        dev = ctx0.torch_device
+        shapes = [values[i][0].shape for i in idxs]
+        sizes = [values[i][0].data.numel() for i in idxs]
+        acc = None
+        for d in range(len(values[idxs[0]])):
+            cat = torch.cat([values[i][d].data.detach().reshape(-1).to(dev)
+                             for i in idxs])
+            acc = cat if acc is None else acc + cat
+        self.allreduce_dispatches += 1
+        nbytes = acc.numel() * acc.element_size()
+        self._counters["bytes_reduced"] += nbytes
+        self._counters["buckets"] += 1
+        fill = min(1.0, nbytes / self._bucket_cap_bytes)
+        self._counters["fill_sum"] += fill
+        self._fill_hist[min(3, max(0, int(_np.ceil(fill * 4)) - 1))] += 1
+        out = {}
+        for i, p, shape in zip(idxs, torch.split(acc, sizes), shapes):
+            out[i] = NDArray(p.view(shape), ctx=ctx0)
+            if self._compression is not None:
+                out[i] = self._compress(_key(keys[i]), out[i])
+        return out
+
+    def _reduce_ordered(self, order, keys, values):
+        """The bucketed reduce of `values` in priority order: the merged
+        arrays, aligned with `keys`."""
+        self._counters["batched_pushes"] += 1
+        bytes_before = self._counters["bytes_reduced"]
+        plan = self._plan_buckets(order, values)
+        merged = {}
+        for bucket in plan:
+            merged.update(self._reduce_bucket(bucket, keys, values))
+        from . import profiler as _profiler
+        _profiler.record_kvstore(
+            "bucketed_push", keys=len(keys), buckets=len(plan),
+            bytes=self._counters["bytes_reduced"] - bytes_before)
+        return [merged[i] for i in range(len(values))]
+
+    def _reduce_many(self, values, keys):
+        """The batched push's reduce: reversed key order, since backward
+        makes the last layer's gradients first."""
+        return self._reduce_ordered(list(reversed(range(len(values)))),
+                                    list(keys), values)
+
     def push(self, key, value, priority=0):
         keys, values = _normalize_push(key, value)
         self._counters["pushes"] += 1
         if len(keys) > 1 and all(len(vals) > 1 for vals in values):
-            # the JAX store's bucketed reduce needs distinct devices; on
-            # one device, and in the port everywhere, it falls back to
-            # the per-key reduce
-            self._counters["fallback_reduces"] += 1
-            bytes_before = self._counters["bytes_reduced"]
+            for k in keys:
+                if _key(k) not in self._store:
+                    raise MXNetError(f"Key {k} has not been initialized")
             from .obs import trace as _obs_trace
             with _obs_trace.span("kvstore.push", cat="kvstore",
                                  keys=len(keys)):
-                super().push(keys, values, priority)
-            from . import profiler as _profiler
-            _profiler.record_kvstore(
-                "fallback_push", keys=len(keys),
-                bytes=self._counters["bytes_reduced"] - bytes_before)
+                for k, m in zip(keys, self._reduce_many(values, keys)):
+                    self._commit(k, m)
             return
         super().push(keys, values, priority)
 
+    # -- streaming push ----------------------------------------------------------
+    def begin_push(self):
+        """Open a streaming push: gradients come a key at a time
+        (`push_part`) in production order, and a bucket reduces as soon
+        as the pending keys reach the cap; `end_push` flushes the tail."""
+        if self._stream is not None:
+            raise MXNetError("begin_push: a streaming push is already open")
+        self._stream = {"keys": [], "values": [], "bytes": 0}
+
+    def push_part(self, key, value, priority=0):
+        """Add keys' per-context gradients to the open streaming push."""
+        st = self._stream
+        if st is None:
+            raise MXNetError("push_part outside begin_push/end_push")
+        keys, values = _normalize_push(key, value)
+        for k, vals in zip(keys, values):
+            if _key(k) not in self._store:
+                raise MXNetError(f"Key {k} has not been initialized")
+            st["keys"].append(k)
+            st["values"].append(vals)
+            st["bytes"] += self._nbytes(vals[0])
+        if st["bytes"] >= self._bucket_cap_bytes:
+            self._flush_stream()
+
+    def _flush_stream(self):
+        st = self._stream
+        keys, values = st["keys"], st["values"]
+        if not keys:
+            return
+        st["keys"], st["values"], st["bytes"] = [], [], 0
+        if all(len(vals) > 1 for vals in values):
+            merged = self._reduce_ordered(list(range(len(keys))), keys,
+                                          values)
+        else:
+            merged = [self._reduce_compress(_key(k), vals)
+                      for k, vals in zip(keys, values)]
+        for k, m in zip(keys, merged):
+            self._commit(k, m)
+
+    def end_push(self):
+        """Flush the open streaming push's tail and close it."""
+        if self._stream is None:
+            raise MXNetError("end_push without begin_push")
+        try:
+            self._flush_stream()
+        finally:
+            self._stream = None
+
+    # -- the bucketed pull -------------------------------------------------------
+    def pull(self, key, out=None, priority=0, ignore_sparse=True):
+        if out is None:
+            raise MXNetError("pull requires out=")
+        keys, outs = _normalize_push(key, out)
+        for k in keys:
+            if _key(k) not in self._store:
+                raise MXNetError(f"Key {k} has not been initialized")
+        rest = list(range(len(keys)))
+        if len(keys) > 1:
+            rest = self._pull_buckets(keys, outs)
+        if rest:
+            super().pull([keys[i] for i in rest],
+                         out=[outs[i] for i in rest])
+
+    def _pull_buckets(self, keys, outs):
+        """Broadcast the keys pulled into several targets a bucket at a
+        time: the stored values concatenated, one copy of the bucket a
+        target device, split into the targets.  Returns the indices left
+        for the per-key pull."""
+        elig = [i for i, t in enumerate(outs) if len(t) > 1]
+        if len(elig) < 2:
+            return list(range(len(keys)))
+        values = [[self._store[_key(keys[i])]] for i in elig]
+        for bucket in self._plan_buckets(range(len(elig)), values):
+            idxs = [elig[j] for j in bucket]
+            srcs = [self._store[_key(keys[i])].data for i in idxs]
+            buf = torch.cat([v.reshape(-1) for v in srcs])
+            self._counters["pull_broadcasts"] += 1
+            sizes = [v.numel() for v in srcs]
+            by_dev = {}
+            for j, i in enumerate(idxs):
+                for tgt in outs[i]:
+                    dev = tgt.data.device
+                    if dev not in by_dev:
+                        by_dev[dev] = torch.split(buf.to(dev), sizes)
+                    tgt._set_data(by_dev[dev][j].view(srcs[j].shape))
+        chosen = set(elig)
+        return [i for i in range(len(keys)) if i not in chosen]
+
     def stats(self):
-        """The store's counters: pushes, batched pushes (0: the bucketed
-        path is not ported), fallback reduces, bytes reduced, and the
-        compression in force."""
-        return dict(self._counters, type=self._kind,
-                    compression=None if self._compression is None
-                    else dict(self._compression))
+        """The store's counters: pushes, batched pushes, reductions
+        (``allreduce_dispatches``, one a bucket), bytes reduced, buckets,
+        the cap, the fill, pull broadcasts, fallback reduces and the
+        compression in force.  The reduce is synchronous on the host's
+        stream order, so ``overlap_ratio`` is 0 (not measured)."""
+        c = self._counters
+        return {
+            "type": self._kind,
+            "pushes": c["pushes"],
+            "batched_pushes": c["batched_pushes"],
+            "allreduce_dispatches": self.allreduce_dispatches,
+            "bytes_reduced": c["bytes_reduced"],
+            "buckets": c["buckets"],
+            "bucket_cap_mb": self._bucket_cap_bytes / (1 << 20),
+            "bucket_fill_hist": {
+                "<=25%": self._fill_hist[0], "<=50%": self._fill_hist[1],
+                "<=75%": self._fill_hist[2], "<=100%": self._fill_hist[3]},
+            "avg_bucket_fill": c["fill_sum"] / max(1, c["buckets"]),
+            "overlap_ratio": 0.0,
+            "pull_broadcasts": c["pull_broadcasts"],
+            "fallback_reduces": c["fallback_reduces"],
+            "compression": None if self._compression is None
+            else dict(self._compression),
+        }
 
 
 def _normalize(key, value):

@@ -17,11 +17,16 @@ the training guardian (`resilience.guardian`, ``MXNET_GUARDIAN``, on by
 default): skip-batch on a step that is not finite, quarantined positions
 skipped, a forced poll and a ``health`` stamp at every snapshot, and
 `fit`'s restart loop, which rolls back to the newest healthy checkpoint
-after a loss spike.  The other planes the JAX `fit` wraps around that
-loop are not ported (README "Declared divergences"): the fused step's
-K-step blocks, the supervisor, the program cache and its ``programs/``
-payload, failover after a lost server and shrink-and-resume
-(``max_restarts``, ``mesh``).
+after a loss spike.  The same loop fails over (``max_restarts``,
+``MXNET_FIT_MAX_RESTARTS``): a lost parameter server (`ServerLostError`)
+restarts the fit from the last checkpoint against its replacement, and a
+lost host (`CollectiveTimeoutError` from the supervisor's watchdog)
+shrinks the pod first, as in the JAX package.  A multi-worker dist fit
+runs under a `resilience.supervisor.JobSupervisor` (``MXNET_SUPERVISOR``):
+heartbeats, the hung-collective watchdog, stragglers; the ``host.step``
+fault site fires before each step.  Not ported (README "Declared
+divergences"): the fused step's K-step blocks, the program cache and its
+``programs/`` payload, and ``mesh=`` (14-parallel).
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ class BaseModule:
         self.params_initialized = False
         self.optimizer_initialized = False
         self._symbol = None
+        self._supervisor = None   # the JobSupervisor of the last dist fit
 
     # -- high-level API --------------------------------------------------------
     def forward_backward(self, data_batch):
@@ -172,7 +178,8 @@ class BaseModule:
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
             monitor=None, checkpoint_dir=None, checkpoint_period=100,
-            checkpoint_keep_last=5, resume=False):
+            checkpoint_keep_last=5, resume=False, max_restarts=None,
+            mesh=None):
         """The classic training loop (reference `base_module.py fit`):
         bind, init_params, init_optimizer, then per epoch one
         `fit_step` and the batch-end callbacks per batch, the epoch-end
@@ -197,8 +204,29 @@ class BaseModule:
         in-bounds step, replay from there and skip the quarantined
         window (rollback); past the failure or rollback budget a
         `TrainingDivergedError` names the step, the signal and the data
-        shard."""
+        shard.
+
+        Failover: a distributed run that loses a parameter server for
+        good (`ServerLostError`) restarts from the last committed
+        checkpoint against the replacement at the same address, at most
+        ``max_restarts`` times (``MXNET_FIT_MAX_RESTARTS``); without a
+        ``checkpoint_dir`` or budget the error propagates.  A multi-worker
+        dist fit runs under a `JobSupervisor`; a lost host surfaces as a
+        `CollectiveTimeoutError` naming it, and the survivors shrink the
+        pod (the epoch-fenced barrier), adopt their new dense ranks and
+        restart from the last checkpoint at the smaller world size.  The
+        guardian's rollbacks have their own budget."""
+        import os as _os
+        from ..resilience import ServerLostError, CollectiveTimeoutError
         from ..resilience import guardian as _guardian_mod
+        if mesh is not None:
+            raise MXNetError(
+                "Module.fit(mesh=...) trains over a device mesh; the port "
+                "has no mesh yet (ROADMAP 14-parallel)")
+        if max_restarts is None:
+            from .. import config as _config
+            max_restarts = int(_config.get("MXNET_FIT_MAX_RESTARTS"))
+        failed_over = False
         self._guardian = _guardian_mod.TrainingGuardian.maybe_create(
             checkpoint_dir, logger=self.logger)
         # every attempt gets these; the restart loop flips only the
@@ -237,6 +265,91 @@ class BaseModule:
                 resume = True
                 force_rebind = True
                 force_init = True
+            except (ServerLostError, CollectiveTimeoutError,
+                    ConnectionError, EOFError, TimeoutError) as e:
+                # a raw connection error is recoverable only in a
+                # restart's re-init (the handshake with the replacement
+                # server); on a first attempt it is a configuration error
+                if not isinstance(e, (ServerLostError,
+                                      CollectiveTimeoutError)) \
+                        and not failed_over:
+                    raise
+                if checkpoint_dir is None or max_restarts <= 0:
+                    raise
+                if not isinstance(kvstore, str):
+                    # a caller's kvstore instance cannot be rebuilt
+                    raise
+                if isinstance(e, CollectiveTimeoutError):
+                    # a host is gone: the survivors agree on the smaller
+                    # world first (the epoch-fenced shrink barrier), then
+                    # this worker adopts its new dense rank and epoch; the
+                    # coordinator reset its store at the commit, so the
+                    # resumed attempt re-inits it from the checkpoint
+                    if getattr(self, "_supervisor", None) is None:
+                        raise
+                    try:
+                        shrink = self._supervisor.shrink(reason=str(e))
+                    except Exception as shrink_exc:
+                        self.logger.error(
+                            "fit: shrink barrier failed (%s) after %s",
+                            shrink_exc, e)
+                        raise e from shrink_exc
+                    self.logger.warning(
+                        "fit: %s — pod shrunk to world_size=%d at epoch "
+                        "%d (this worker: rank %d -> %d)", e,
+                        shrink.world_size, shrink.epoch,
+                        self._supervisor.rank, shrink.rank)
+                    self._last_shrink = shrink
+                    _os.environ["DMLC_RANK"] = str(shrink.rank)
+                    _os.environ["DMLC_NUM_WORKER"] = str(shrink.world_size)
+                    _os.environ["MXNET_SUPERVISOR_EPOCH"] = \
+                        str(shrink.epoch)
+                    self._supervisor = None
+                    # the old process group spans the dead host: forget it
+                    # so the restarted store's collective plane forms anew
+                    # at the surviving world size, on the new epoch's port
+                    from ..dist import collective as _collective
+                    _collective.shutdown()
+                max_restarts -= 1
+                failed_over = True
+                self.logger.warning(
+                    "fit: %s — restarting from the last checkpoint in %r "
+                    "(%d restart(s) remaining)", e, checkpoint_dir,
+                    max_restarts)
+                self._teardown_kvstore()
+                # the next attempt resumes this run's checkpoints (where
+                # one exists its parameters win); the caller's arg_params
+                # stay as the fallback for a crash before the first commit
+                resume = True
+                force_rebind = True
+                force_init = True
+
+    def _start_supervisor(self):
+        """A started `JobSupervisor` for a multi-worker dist fit (also
+        kept on ``self._supervisor`` for the restart loop's shrink
+        barrier), activated so the kvstore's exchanges run under its
+        watchdog; None for one process, a non-dist store, with
+        ``MXNET_SUPERVISOR=0``, or when it cannot start (the fit then
+        runs unsupervised)."""
+        self._supervisor = None
+        kv = getattr(self, "_kvstore", None)
+        if kv is None or getattr(kv, "num_workers", 1) <= 1 or \
+                not hasattr(kv, "_chan"):
+            return None
+        from .. import config as _config
+        if not _config.get("MXNET_SUPERVISOR"):
+            return None
+        from ..resilience import supervisor as _sup_mod
+        try:
+            sup = _sup_mod.JobSupervisor.for_kvstore(kv).start()
+        except Exception as e:
+            self.logger.warning(
+                "supervisor unavailable (%s); continuing unsupervised",
+                str(e)[:200])
+            return None
+        _sup_mod.activate(sup)
+        self._supervisor = sup
+        return sup
 
     def _teardown_kvstore(self):
         """Drop the kvstore so the next `init_optimizer` builds a fresh
@@ -320,6 +433,7 @@ class BaseModule:
             self._restore_checkpoint_layout(ckpt_resume)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        sup = self._start_supervisor()
         if monitor is not None:
             self.install_monitor(monitor)
         ckpt_mgr = None
@@ -367,6 +481,8 @@ class BaseModule:
             # after every path that rebuilds the fused step
             guardian.attach(self)
             guardian.attach_iterator(train_data)
+        from ..resilience import CollectiveTimeoutError, ServerLostError
+        lost = False
         try:
             self._fit_epochs(
                 train_data, eval_data, eval_metric, validation_metric,
@@ -374,14 +490,30 @@ class BaseModule:
                 eval_batch_end_callback, begin_epoch, num_epoch, ckpt_mgr,
                 ckpt_resume, resume_nbatch, gstep, checkpoint_period,
                 monitor)
+        except (ServerLostError, CollectiveTimeoutError):
+            lost = True   # no deferred flush error may mask the failover
+            raise
         finally:
             if io_ring is not None:
                 # stop the feeder and drop the read-ahead; the inner
                 # iterator stays usable for the caller
                 io_ring._pause()
+            if sup is not None:
+                # stop the heartbeats but keep self._supervisor: the
+                # restart loop's shrink barrier needs its identity and
+                # view (the shrink rides a fresh channel)
+                from ..resilience import supervisor as _sup_mod
+                _sup_mod.deactivate(sup)
+                try:
+                    sup.stop()
+                except Exception:
+                    pass
             if ckpt_mgr is not None:
                 try:
                     ckpt_mgr.flush()
+                except MXNetError:
+                    if not lost:
+                        raise
                 finally:
                     ckpt_mgr.close()
 
@@ -391,6 +523,7 @@ class BaseModule:
                     eval_batch_end_callback, begin_epoch, num_epoch,
                     ckpt_mgr, ckpt_resume, resume_nbatch, gstep,
                     checkpoint_period, monitor=None):
+        from ..resilience import faults as _faults
         guardian = getattr(self, "_guardian", None)
         last_snap_step = gstep
         for epoch in range(begin_epoch, num_epoch):
@@ -417,6 +550,10 @@ class BaseModule:
                     guardian.note_skipped(epoch, nbatch)
                     nbatch += 1
                     continue
+                # the pod chaos site: a ``kill`` here is a whole-host
+                # SIGKILL at a step boundary
+                _faults.fire("host.step", nbatch=nbatch, epoch=epoch)
+                step_tic = time.time()
                 if monitor is not None:
                     monitor.tic()
                     self._batch_step(data_batch, eval_metric)
@@ -431,6 +568,11 @@ class BaseModule:
                         callback(params)
                 nbatch += 1
                 gstep += 1
+                sup = getattr(self, "_supervisor", None)
+                if sup is not None:
+                    # the step's wall time feeds the heartbeat EWMA the
+                    # straggler rule compares; the counter keys lag
+                    sup.record_step(time.time() - step_tic)
                 if guardian is not None:
                     # pair the step's health token with its position, then
                     # run the ladder every MXNET_GUARDIAN_INTERVAL steps

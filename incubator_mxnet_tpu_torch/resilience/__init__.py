@@ -9,8 +9,10 @@ lost parameter server raises, `faults`, the deterministic fault
 injection registry (``MXNET_FAULTS``; `inject`, `configure`, `fire`,
 `mutate`, `trace`), and the training guardian (`guardian`:
 `TrainingGuardian`, `TrainingDivergedError`, `RollbackRequested`,
-`QuarantineLog`), which `Module.fit` arms by default.  The elastic
-supervisor waits for ROADMAP item 14-dist.
+`QuarantineLog`), which `Module.fit` arms by default, and the elastic
+supervisor (`supervisor`: `JobSupervisor`, `CollectiveTimeoutError`,
+`HostLostError`, `StaleEpochError`), which a multi-worker dist
+`Module.fit` starts.
 """
 from __future__ import annotations
 
@@ -20,6 +22,9 @@ from .faults import (FaultInjected, TornWrite, configure, inject, clear,
                      reset, trace, fire, mutate, active)
 from .retry import RetryPolicy, RetryBudget
 from .breaker import CircuitBreaker
+from . import supervisor
+from .supervisor import (JobSupervisor, CollectiveTimeoutError,
+                         HostLostError, StaleEpochError)
 from . import guardian
 from .guardian import (TrainingGuardian, TrainingDivergedError,
                        RollbackRequested, QuarantineLog)
@@ -27,7 +32,8 @@ from .guardian import (TrainingGuardian, TrainingDivergedError,
 __all__ = ["faults", "FaultInjected", "TornWrite", "configure", "inject",
            "clear", "reset", "trace", "fire", "mutate", "active",
            "RetryPolicy", "RetryBudget", "CircuitBreaker", "ServerLostError",
-           "guardian", "TrainingGuardian", "TrainingDivergedError",
+           "supervisor", "JobSupervisor", "CollectiveTimeoutError",
+           "HostLostError", "StaleEpochError", "guardian", "TrainingGuardian", "TrainingDivergedError",
            "RollbackRequested", "QuarantineLog"]
 
 

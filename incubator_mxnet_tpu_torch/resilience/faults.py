@@ -13,8 +13,11 @@ manifest), the training guardian's ``grad.nonfinite`` and ``loss.spike``
 (fired once a fused train step; an ``error`` clause becomes a NaN or a
 1e6 gradient multiplier for that step), the record readers'
 ``io.corrupt_record`` payload site, and the train-to-serve loop's
-``publish.commit`` and ``canary.eval``; the transport's and the parameter
-server's sites come with ROADMAP item 14-dist.
+``publish.commit`` and ``canary.eval``, the transport's
+``transport.connect``, ``transport.send`` and ``transport.recv``, the
+parameter server's ``server.dispatch`` (a ``crash`` clause kills the
+server in place), and the elastic supervisor's ``heartbeat.send``,
+``collective.dispatch`` and ``host.step`` (in `Module.fit`).
 
 Faults come from the ``MXNET_FAULTS`` environment spec or the
 programmatic `inject()` API.  Spec grammar (clauses joined with ``;``)::

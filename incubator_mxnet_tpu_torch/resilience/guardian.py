@@ -333,20 +333,27 @@ class TrainingGuardian:
     def _wire_kvstore(self, kv):
         """The health bits' reduction: each worker pushes its counters on
         a reserved key and pulls the sum, so one worker's verdict is every
-        worker's.  Unsupervised in the port (ROADMAP item 14-dist)."""
+        worker's; inside the supervisor's watchdog when one is active
+        (`supervisor.supervised`), as in the JAX package."""
+        from . import supervisor as _sup
         state = {"inited": False}
         key = "__guardian_health__"
 
         def allreduce(vec):
             from .. import nd
             from ..context import cpu
-            if not state["inited"]:
-                kv.init(key, nd.zeros(len(vec), ctx=cpu()))
-                state["inited"] = True
-            kv.push(key, nd.array(_np.asarray(vec, _np.float32), ctx=cpu()))
-            out = nd.zeros(len(vec), ctx=cpu())
-            kv.pull(key, out)
-            return out.asnumpy()
+
+            def exchange():
+                if not state["inited"]:
+                    kv.init(key, nd.zeros(len(vec), ctx=cpu()))
+                    state["inited"] = True
+                kv.push(key, nd.array(_np.asarray(vec, _np.float32),
+                                      ctx=cpu()))
+                out = nd.zeros(len(vec), ctx=cpu())
+                kv.pull(key, out)
+                return out.asnumpy()
+
+            return _sup.supervised("guardian.sync", exchange)
 
         self._allreduce = allreduce
 

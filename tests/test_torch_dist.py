@@ -8,11 +8,23 @@ port's, through the commands whose payloads are numpy and plain types
 its own: ``dist_sync`` with 2 and 4 worker processes, three servers over
 uneven key ranges with the server-side optimizer's states pulled back,
 an async push applied at once, a killed server surfacing
-`ServerLostError`, ``MXNET_KVSTORE_COLLECTIVE=1`` refused, the
-launcher's exit codes, the packed wire under compression, and
-`Module.fit(kvstore='dist_sync')` in two workers against one process on
-the global batch (rtol 1e-5 + 1e-6 * max|array|; the workers' parameters
-equal bit for bit).
+`ServerLostError`, the launcher's exit codes, the packed wire under
+compression, and `Module.fit(kvstore='dist_sync')` in two workers
+against one process on the global batch (rtol 1e-5 + 1e-6 * max|array|;
+the workers' parameters equal bit for bit); every test of the server's
+data plane pins ``MXNET_KVSTORE_COLLECTIVE=0``, as the JAX tests do.
+The collective plane (the default): 2 gloo ranks on the CPU through the
+JAX multiprocess worker's expected numbers and batched keys, one
+collective a step in `Module.fit`, no gradient byte on the server, and
+2-bit's wire dtype as the JAX rule picks it.  Failover: the transport's
+and the server's fault sites (a torn send and a lost reply change
+nothing, a refused connect retries, a crashed server is lost), `fit`
+resuming bit for bit after its server was killed and replaced empty,
+and `fit` without a checkpoint directory raising `ServerLostError`; a
+one-worker ``dist_sync`` fit of the same mlp on the same data in both
+packages, each against its own server, within rtol 1e-5 + 1e-6 *
+max|array| (the JAX package's server updates in another order of fp32
+operations).
 
 Every server binds port 0 and is shut down in a ``finally``; every
 request times out in 60 s and every child process in 120 s.
@@ -21,6 +33,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -31,6 +44,7 @@ import incubator_mxnet_tpu_torch as tmx
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD_TIMEOUT = 120
 TOL = (1e-5, 1e-6)
+FIT_TOL = (1e-3, 1e-4)      # phase 6's gate on parameters after a fit
 
 _ENV_KEYS = ("DMLC_PS_ROOT_URI", "DMLC_PS_ROOT_PORT", "DMLC_RANK",
              "DMLC_NUM_WORKER", "DMLC_NUM_SERVER", "DMLC_ROLE",
@@ -462,16 +476,118 @@ def test_killed_server_surfaces_server_lost(monkeypatch):
         root.shutdown()
 
 
-def test_collective_plane_raises(monkeypatch):
+PLANE_WORKER = r"""
+import os
+import numpy as np
+import incubator_mxnet_tpu_torch as mx
+from incubator_mxnet_tpu_torch import nd
+c = mx.cpu()
+kv = mx.kv.create("dist_sync")
+rank = kv.rank
+want = os.environ["WANT_PLANE"]
+assert (kv._collective is not None) == (want == "collective"), want
+kv.init("w", nd.zeros((6,), ctx=c))
+kv.push("w", nd.ones((6,), ctx=c) * (rank + 1))
+out = nd.zeros((6,), ctx=c)
+kv.pull("w", out=out)
+np.testing.assert_array_equal(out.asnumpy(), 3.0)
+st = kv.stats()
+if want == "collective":
+    assert kv.prefers_batched_push and st["wire_bytes"] == 0
+    assert st["collective_dispatches"] == 2       # init + one push
+else:
+    assert not kv.prefers_batched_push and st["wire_bytes"] == 24
+    assert st["collective_dispatches"] is None
+kv._barrier()
+if rank == 0:
+    print("SERVER_PUSHES %d" % kv.server_metrics()[0]["pushes"])
+kv._barrier()
+kv.close()
+print("worker %d OK" % rank)
+"""
+
+
+@pytest.mark.parametrize("plane", ["collective", "socket"])
+def test_collective_plane_is_the_default(tmp_path, plane):
+    """With ``MXNET_KVSTORE_COLLECTIVE`` unset a 2-worker ``dist_sync``
+    store all-reduces its gradients over a gloo group and the server
+    sees no push; ``MXNET_KVSTORE_COLLECTIVE=0`` keeps the gradients on
+    the server's socket plane."""
     from incubator_mxnet_tpu_torch.dist.server import ParameterServer
+    script = tmp_path / "plane.py"
+    script.write_text(PLANE_WORKER)
     server = ParameterServer(num_workers=2).start()
     try:
-        _tracker_env(monkeypatch, server.port, workers=2,
-                     MXNET_KVSTORE_COLLECTIVE="1")
-        with pytest.raises(tmx.MXNetError, match="collective data plane"):
-            tmx.kv.create("dist_sync")
+        extra = {"WANT_PLANE": plane}
+        if plane == "socket":
+            extra["MXNET_KVSTORE_COLLECTIVE"] = "0"
+        _run_workers(script, 2, server.port, **extra)
+        assert server.stats()["pushes"] == (0 if plane == "collective"
+                                            else 2)
     finally:
         server.shutdown()
+
+
+COLLECTIVE_WORKER = WORKER.replace(
+    'kv._barrier()\nkv.close()\nprint("worker %d OK" % rank)', r"""
+# batched keys: one all-reduce per dtype bucket, split back, and the
+# optimizer set above applied to each: b = 0 - lr * sum / nw
+keys = ["b0", "b1", "b2", "b3"]
+shapes = [(3,), (2, 2), (5,), (4,)]
+for k, sh in zip(keys, shapes):
+    kv.init(k, nd.zeros(sh, ctx=c))
+before = kv._collective.dispatch_count
+kv.push(keys, [nd.array(np.arange(np.prod(sh), dtype="f4").reshape(sh)
+                        * (rank + 1), ctx=c) for sh in shapes])
+assert kv._collective.dispatch_count == before + 1
+for k, sh in zip(keys, shapes):
+    o = nd.zeros(sh, ctx=c)
+    kv.pull(k, out=o)
+    np.testing.assert_allclose(
+        o.asnumpy(),
+        -0.1 * np.arange(np.prod(sh), dtype="f4").reshape(sh) * tot / nw,
+        rtol=1e-6)
+st = kv.stats()
+assert st["wire_bytes"] == 0 and kv._collective.backend == "gloo"
+kv._barrier()
+kv.close()
+print("worker %d OK" % rank)""")
+
+
+def test_collective_plane_multiprocess(tmp_path):
+    """The JAX `test_dist_sync_multiprocess` worker's expected numbers
+    (rounds that do not mix, several contexts summed first, the
+    optimizer's w = w0 - lr * mean gradient, which runs on every worker)
+    on the collective plane over 2 gloo ranks, then a batched push of 4
+    keys in one all-reduce; the server receives no gradient."""
+    from incubator_mxnet_tpu_torch.dist.server import ParameterServer
+    assert COLLECTIVE_WORKER != WORKER
+    script = tmp_path / "worker_coll.py"
+    script.write_text(COLLECTIVE_WORKER)
+    server = ParameterServer(num_workers=2).start()
+    try:
+        _run_workers(script, 2, server.port)
+        assert server.stats()["pushes"] == 0
+    finally:
+        server.shutdown()
+
+
+@pytest.mark.parametrize("thr,workers,wire", [
+    (0.5, 2, "bfloat16"), (0.25, 256, "bfloat16"), (0.3, 2, "float32"),
+    (0.5, 257, "float32")])
+def test_wire_dtype_under_2bit_matches_jax(thr, workers, wire):
+    """The collective plane sends 2-bit codes as bfloat16 only where
+    every partial sum k * t is exact there (t a power of two, k <= 256),
+    as the JAX rule decides."""
+    import types
+    import torch
+    from incubator_mxnet_tpu.dist.kvstore_dist import KVStoreDist as J
+    from incubator_mxnet_tpu_torch.dist.kvstore_dist import KVStoreDist as T
+    kv = types.SimpleNamespace(_compression={"threshold": thr},
+                               _num_workers=workers)
+    got = T._wire_dtype(kv, torch.float32)
+    want = J._wire_dtype(kv, np.float32)
+    assert str(got).replace("torch.", "") == wire == np.dtype(want).name
 
 
 @pytest.mark.parametrize("code", [0, 3])
@@ -541,7 +657,7 @@ def test_compression_packs_the_wire(tmp_path):
     script.write_text(WORKER_COMPRESS)
     server = ParameterServer(num_workers=2).start()
     try:
-        _run_workers(script, 2, server.port)
+        _run_workers(script, 2, server.port, MXNET_KVSTORE_COLLECTIVE="0")
     finally:
         server.shutdown()
 
@@ -608,7 +724,8 @@ def test_module_fit_dist_sync_two_workers(tmp_path):
     script.write_text(FIT_WORKER)
     server = ParameterServer(num_workers=2).start()
     try:
-        _run_workers(script, 2, server.port, OUT_DIR=str(tmp_path))
+        _run_workers(script, 2, server.port, OUT_DIR=str(tmp_path),
+                     MXNET_KVSTORE_COLLECTIVE="0")
         assert server.stats()["updates"] == 4 * 4
     finally:
         server.shutdown()
@@ -664,4 +781,286 @@ def test_module_fit_dist_async_one_worker(monkeypatch):
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=TOL[0],
                                    atol=TOL[1] * np.abs(want[k]).max(),
+                                   err_msg=k)
+
+
+FIT_COLLECTIVE_WORKER = FIT_WORKER.replace(
+    "mod._kvstore.close()", """kv = mod._kvstore
+assert kv._collective is not None and kv.wire_bytes == 0
+# 4 keys' init, then one bucket a step
+assert kv._collective.dispatch_count == 4 + len(X) // DIST_BATCH, \\
+    kv._collective.dispatch_count
+assert kv.server_metrics()[0]["pushes"] == 0
+kv.close()""")
+
+
+def test_module_fit_collective_plane_two_workers(tmp_path):
+    """`Module.fit(kvstore='dist_sync')` in two workers on the collective
+    plane (the default): one all-reduce a step, no gradient byte on the
+    server, the workers' parameters equal bit for bit and within rtol
+    1e-5 + 1e-6 * max|array| of one process on the global batch."""
+    from incubator_mxnet_tpu_torch.dist.server import ParameterServer
+    assert FIT_COLLECTIVE_WORKER != FIT_WORKER
+    script = tmp_path / "fit_coll.py"
+    script.write_text(FIT_COLLECTIVE_WORKER)
+    server = ParameterServer(num_workers=2).start()
+    try:
+        _run_workers(script, 2, server.port, OUT_DIR=str(tmp_path))
+        assert server.stats()["updates"] == 0
+    finally:
+        server.shutdown()
+    w0, w1 = (np.load(tmp_path / f"w{r}.npz") for r in range(2))
+    ns = {}
+    exec(FIT_COMMON, ns)
+    X, Y, init = ns["dist_data"]()
+    mod = tmx.mod.Module(ns["dist_mlp"](), context=tmx.cpu())
+    mod.fit(tmx.io.NDArrayIter(X, Y, ns["DIST_BATCH"]), num_epoch=1,
+            optimizer="sgd", optimizer_params=dict(ns["DIST_OPT"]),
+            arg_params={k: tmx.nd.array(v, ctx=tmx.cpu())
+                        for k, v in init.items()})
+    want = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    for k in want:
+        np.testing.assert_array_equal(w0[k], w1[k])
+        np.testing.assert_allclose(
+            w0[k], want[k], rtol=TOL[0],
+            atol=TOL[1] * np.abs(want[k]).max(), err_msg=k)
+
+
+# -- failover: the fault sites, fit's restart ------------------------------------
+
+@pytest.fixture()
+def fast_failover(monkeypatch):
+    """Failover diagnosed in well under a second."""
+    monkeypatch.setenv("MXNET_PS_RECONNECT_WAIT", "0.2")
+    monkeypatch.setenv("MXNET_PS_MAX_RETRIES", "2")
+    monkeypatch.setenv("MXNET_PS_BREAKER_THRESHOLD", "2")
+
+
+@pytest.fixture()
+def faults():
+    from incubator_mxnet_tpu_torch.resilience import faults as f
+    f.clear()
+    yield f
+    f.clear()
+
+
+def _push_pull_run(monkeypatch, faults, fault=None):
+    """3 pushes then a pull of one worker: the pulled values, the
+    server's version, the channel's resends and the faults fired."""
+    from incubator_mxnet_tpu_torch.dist.server import ParameterServer
+    from incubator_mxnet_tpu_torch.dist.kvstore_dist import KVStoreDist
+    nd, c = tmx.nd, tmx.cpu()
+    server = ParameterServer(num_workers=1).start()
+    _tracker_env(monkeypatch, server.port)
+    kv = KVStoreDist("dist_sync")
+    try:
+        kv.init("w", nd.zeros((4,), ctx=c))
+        if fault is not None:
+            faults.inject(*fault[0], **fault[1])
+        for i in range(3):
+            kv.push("w", nd.ones((4,), ctx=c) * (i + 1))
+        out = nd.zeros((4,), ctx=c)
+        kv.pull("w", out=out)
+        fired = [(e["site"], e["ctx"].get("cmd")) for e in faults.trace()
+                 if e["event"] == "fault"]
+        return (out.asnumpy(), server._state.version["w"],
+                kv._chan.resends, fired)
+    finally:
+        faults.clear()
+        kv.close()
+        server.shutdown()
+
+
+@pytest.mark.parametrize("site,args", [
+    ("transport.send", {"cmd": "push", "at": 2}),
+    ("transport.recv", {"at": 2}),
+    ("transport.connect", {"n": 1})], ids=["send", "recv", "connect"])
+def test_transport_fault_sites_change_nothing(monkeypatch, fast_failover,
+                                              faults, site, args):
+    """A frame torn mid-send, a reply lost after the server applied the
+    push (the resend hits the (client, seq) cache, no double apply) and
+    a refused connect (the reconnect retries): the values and the round
+    count equal the fault-free run's, as in the JAX package's tests."""
+    clean, clean_ver, _, _ = _push_pull_run(monkeypatch, faults)
+    kind = "refuse" if site == "transport.connect" else "drop"
+    if site == "transport.connect":
+        # a refused reconnect: drop the live socket first so the next
+        # request must connect again
+        from incubator_mxnet_tpu_torch.dist import transport
+
+        orig = transport.Channel._send_framed
+
+        def dropping(self, msg, timeout=None):
+            if msg.get("cmd") == "push" and not getattr(self, "_dropped",
+                                                        False):
+                self._dropped = True
+                self._drop_sock()
+            return orig(self, msg, timeout)
+        monkeypatch.setattr(transport.Channel, "_send_framed", dropping)
+    vals, ver, resends, fired = _push_pull_run(
+        monkeypatch, faults, fault=((site, kind), args))
+    np.testing.assert_array_equal(vals, clean)
+    assert ver == clean_ver
+    assert [f[0] for f in fired] == [site]
+    if site != "transport.connect":
+        assert resends >= 1
+
+
+def test_server_dispatch_fault_site(monkeypatch, fast_failover, faults):
+    """``server.dispatch``: a slow dispatch times a request out and
+    leaves the channel usable; a crash kills the server in place and the
+    next request raises `ServerLostError`."""
+    from incubator_mxnet_tpu_torch.dist.server import ParameterServer
+    from incubator_mxnet_tpu_torch.dist.kvstore_dist import KVStoreDist
+    from incubator_mxnet_tpu_torch.dist.transport import Channel
+    from incubator_mxnet_tpu_torch.resilience import ServerLostError
+    server = ParameterServer(num_workers=1).start()
+    try:
+        faults.inject("server.dispatch", "slow", ms=400, at=2)
+        chan = Channel("127.0.0.1", server.port, timeout=0.15)
+        assert chan.request({"cmd": "init", "keys": ["a"],
+                             "values": [np.ones(2, "f4")]}).get("ok")
+        with pytest.raises(TimeoutError, match="slow or wedged"):
+            chan.request({"cmd": "pull", "key": "a"})
+        time.sleep(0.5)
+        r = chan.request({"cmd": "pull", "key": "a"})
+        np.testing.assert_array_equal(np.asarray(r["value"]), 1.0)
+        chan.close()
+        faults.clear()
+        _tracker_env(monkeypatch, server.port)
+        kv = KVStoreDist("dist_sync")
+        kv.init("w", tmx.nd.ones((6,), ctx=tmx.cpu()))
+        faults.inject("server.dispatch", "crash", cmd="push", at=1)
+        with pytest.raises(ServerLostError) as err:
+            kv.push("w", tmx.nd.ones((6,), ctx=tmx.cpu()))
+        assert err.value.server == 0 and "w" in err.value.keys
+        assert [e["kind"] for e in faults.trace()
+                if e["event"] == "fault"] == ["crash"]
+        kv.close(send_stop=False)
+    finally:
+        server.shutdown()
+
+
+def _mlp(pkg):
+    s = pkg.sym
+    d = s.Variable("data")
+    f1 = s.FullyConnected(d, num_hidden=8, name="fc1")
+    a1 = s.Activation(f1, act_type="relu")
+    f2 = s.FullyConnected(a1, num_hidden=4, name="fc2")
+    return s.SoftmaxOutput(f2, name="softmax")
+
+
+def _fit_dist(pkg, server, port, ckpt_dir=None, kill_at=None, num_epoch=2,
+              ctx=None):
+    """One single-worker dist_sync fit of `_mlp` against `server` (the
+    JAX package's `tests/test_resilience.py` run).  With `kill_at` the
+    server is crashed at that batch end and an empty replacement starts
+    on the same port; fit must diagnose the loss and resume."""
+    srv_cls = type(server)
+    pkg.random.seed(11)
+    np.random.seed(11)
+    X = np.random.RandomState(2).randn(48, 10).astype("f4")
+    y = (np.arange(48) % 4).astype("f4")
+    it = pkg.io.NDArrayIter(X, y, batch_size=8, shuffle=False)
+    mod = pkg.mod.Module(_mlp(pkg), context=ctx or pkg.cpu())
+    replacement, cb = [], None
+    if kill_at is not None:
+        hits = {"n": 0}
+
+        def cb(param):
+            hits["n"] += 1
+            if hits["n"] == kill_at:
+                server._simulate_crash()
+                for _ in range(200):
+                    try:
+                        srv = srv_cls(host="127.0.0.1", port=port,
+                                      num_workers=1)
+                        break
+                    except OSError:
+                        time.sleep(0.05)
+                replacement.append(srv.start())
+    mod.fit(it, kvstore="dist_sync", optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1}, num_epoch=num_epoch,
+            checkpoint_dir=ckpt_dir, checkpoint_period=1,
+            batch_end_callback=cb)
+    params = {k: v.asnumpy().copy() for k, v in mod.get_params()[0].items()}
+    if getattr(mod, "_kvstore", None) is not None:
+        mod._kvstore.close()
+    return params, replacement
+
+
+def test_killed_server_fit_auto_resumes_bit_identical(monkeypatch, tmp_path,
+                                                      fast_failover):
+    """The server crashes mid-epoch and comes back empty on the same
+    address: `Module.fit(checkpoint_dir=...)` raises `ServerLostError`
+    inside, restarts from the last checkpoint and ends bit for bit where
+    an uninterrupted run ends."""
+    from incubator_mxnet_tpu_torch.dist.server import ParameterServer
+    clean_server = ParameterServer(num_workers=1).start()
+    _tracker_env(monkeypatch, clean_server.port)
+    clean, _ = _fit_dist(tmx, clean_server, clean_server.port)
+    clean_server.shutdown()
+    server = ParameterServer(num_workers=1).start()
+    _tracker_env(monkeypatch, server.port)
+    try:
+        got, replacement = _fit_dist(tmx, server, server.port,
+                                     ckpt_dir=str(tmp_path / "ck"),
+                                     kill_at=7)
+    finally:
+        server.shutdown()
+    assert replacement, "the kill callback never ran"
+    try:
+        assert sorted(got) == sorted(clean)
+        for k in clean:
+            np.testing.assert_array_equal(got[k], clean[k], err_msg=k)
+    finally:
+        for srv in replacement:
+            srv.shutdown()
+
+
+def test_fit_without_checkpoint_dir_still_dies_on_server_loss(
+        monkeypatch, fast_failover):
+    """No checkpoint, no silent restart: `ServerLostError` propagates,
+    and ``max_restarts=0`` refuses a restart even with a directory."""
+    from incubator_mxnet_tpu_torch.dist.server import ParameterServer
+    from incubator_mxnet_tpu_torch.resilience import ServerLostError
+    X = np.random.RandomState(3).randn(16, 10).astype("f4")
+    y = (np.arange(16) % 4).astype("f4")
+    for kw in ({}, {"max_restarts": 0, "checkpoint_dir": None}):
+        server = ParameterServer(num_workers=1).start()
+        _tracker_env(monkeypatch, server.port)
+        mod = tmx.mod.Module(_mlp(tmx), context=tmx.cpu())
+        try:
+            with pytest.raises(ServerLostError):
+                mod.fit(tmx.io.NDArrayIter(X, y, 8, shuffle=False),
+                        kvstore="dist_sync", optimizer="sgd", num_epoch=2,
+                        batch_end_callback=lambda p: server._simulate_crash(),
+                        **kw)
+        finally:
+            if getattr(mod, "_kvstore", None) is not None:
+                mod._kvstore.close(send_stop=False)
+            server.shutdown()
+
+
+def test_one_worker_dist_fit_matches_jax(monkeypatch):
+    """The same one-worker ``dist_sync`` fit of `_mlp` (seeded data and
+    initializer) in both packages, each against its own server: the
+    parameters after 2 epochs of 6 steps within phase 6's gate on
+    parameters after a fit, rtol 1e-3 + 1e-4 * max|array| (fp32 sums in
+    other orders through forward, backward and the server's SGD; a bias
+    near zero moves by ~1e-4 of itself)."""
+    import incubator_mxnet_tpu.dist.server as jserver
+    from incubator_mxnet_tpu_torch.dist.server import ParameterServer
+    out = {}
+    for pkg, cls in ((tmx, ParameterServer), (jmx, jserver.ParameterServer)):
+        server = cls(num_workers=1).start()
+        _tracker_env(monkeypatch, server.port)
+        try:
+            out[pkg], _ = _fit_dist(pkg, server, server.port)
+        finally:
+            server.shutdown()
+    assert sorted(out[tmx]) == sorted(out[jmx])
+    for k, want in out[jmx].items():
+        np.testing.assert_allclose(out[tmx][k], want, rtol=FIT_TOL[0],
+                                   atol=FIT_TOL[1] * np.abs(want).max(),
                                    err_msg=k)

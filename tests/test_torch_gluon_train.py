@@ -381,6 +381,64 @@ def test_trainer_on_several_cards_raises():
                 tmx.gluon.Trainer(net.collect_params(), "sgd", {}, **kw)
 
 
+@pytest.mark.parametrize("bucket_mb,devices", [
+    (32, (0, 1)), (0.0005, (0, 1)), (32, (0, 0))],
+    ids=["one-bucket", "kb-buckets", "one-device"])
+def test_trainer_two_contexts_match_jax_one_context(monkeypatch, bucket_mb,
+                                                    devices):
+    """`Trainer` over parameters on two contexts ([cpu(0), cpu(1)], or
+    [cpu(0), cpu(0)]: two replicas on one device, each forward under
+    `parameter.replica`), each context fed half of every batch, against
+    the JAX package's one-context step on the whole batch (the JAX
+    multi-context lanes fail on the CPU, ROADMAP Queue 3): every loss and
+    parameter after every step within NET_TOL, both contexts' copies
+    equal bit for bit, and one batched push a step reducing in one
+    reduction a bucket of the bucketed store."""
+    from incubator_mxnet_tpu_torch.gluon.parameter import replica
+    monkeypatch.setenv("MXNET_KVSTORE_BUCKET_MB", str(bucket_mb))
+    opt = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3}
+    batches = _batches(4)
+    tnet, jnet = _pair()
+    jl, js, _ = _train(jmx, jnet, opt, batches)
+    values = block_params_to_numpy(tnet)
+    ctxs = [tmx.cpu(i) for i in devices]
+    net = _mlp(tmx)
+    net.initialize(ctx=ctxs)
+    block_params_from_numpy(net, values)
+    trainer = tmx.gluon.Trainer(net.collect_params(), "sgd", dict(opt))
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    plan = None
+    for step, (x, y) in enumerate(batches):
+        xs = tmx.gluon.utils.split_and_load(tmx.nd.array(x, ctx=ctxs[0]),
+                                            ctxs)
+        ys = tmx.gluon.utils.split_and_load(tmx.nd.array(y, ctx=ctxs[0]),
+                                            ctxs)
+        losses = []
+        for k, (a, b) in enumerate(zip(xs, ys)):
+            with replica(k), tmx.autograd.record():
+                losses.append(loss_fn(net(a), b))
+            losses[-1].backward()
+        trainer.step(x.shape[0])
+        got = float(np.concatenate([v.asnumpy() for v in losses])
+                    .astype(np.float64).mean())
+        _close(got, jl[step], NET_TOL, f"loss {step + 1}")
+        for name, param in net.collect_params().items():
+            a, b = (d.asnumpy() for d in param.list_data())
+            np.testing.assert_array_equal(a, b, err_msg=name)
+            _close(a, js[step][name], NET_TOL, f"step {step + 1} {name}")
+        st = trainer._kvstore.stats()
+        if plan is None:
+            plan = st["buckets"]
+        assert st["batched_pushes"] == step + 1
+        assert st["allreduce_dispatches"] == st["buckets"] == \
+            plan * (step + 1)
+    sizes = [v.size * 4 for v in values.values()]
+    assert plan == len(tmx.kv.plan_buckets(
+        list(reversed(range(len(sizes)))), sizes, ["float32"] * len(sizes),
+        int(bucket_mb * (1 << 20)))) == (1 if bucket_mb == 32 else 2)
+    assert trainer._kvstore.type == "device"
+
+
 def test_learning_rate_and_lr_mult():
     """learning_rate / set_learning_rate, and a Parameter's lr_mult and
     wd_mult, as the JAX trainer applies them."""

@@ -33,7 +33,9 @@ at the mlp's small weights on cuda_core against `fc_relu_ref`; the
 training guardian's mlp step with K1 (no synchronizing call between
 polls beyond the unguarded step's, a NaN-injected step leaving every
 weight and momentum bit for bit) and a torn ``checkpoint.commit`` never
-resumed from.
+resumed from; the dist kvstore's collective plane (a gloo all-reduce of
+CUDA tensors between 2 ranks on the one card) and K1's launches in a
+``dist_sync`` worker on that plane.
 
 Every test here needs a card and skips without one.  The module imports
 no JAX, so on a machine with a card and no JAX it runs alone:
@@ -45,6 +47,7 @@ no JAX, so on a machine with a card and no JAX it runs alone:
 """
 import os
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -2094,3 +2097,100 @@ def test_torn_checkpoint_commit_is_never_resumed(monkeypatch, tmp_path):
     got = ckpt.latest(root)
     assert got is not None and (tmp_path / "ck" / os.path.basename(got) /
                                 "manifest.json").exists()
+
+
+COLLECTIVE_CUDA_WORKER = r"""
+import os, sys
+import torch
+from incubator_mxnet_tpu_torch.dist import collective
+from incubator_mxnet_tpu_torch.dist.kvstore_dist import _CollectivePlane
+rank = int(sys.argv[1])
+os.environ["DMLC_PS_ROOT_PORT"] = sys.argv[2]
+plane = _CollectivePlane(rank, 2)
+assert collective.backend() == "gloo", collective.backend()
+g = torch.Generator().manual_seed(rank)
+xs = [torch.randn(1000, generator=g).cuda(),
+      torch.randn(7, 3, generator=g).cuda()]
+out = plane.allreduce_many(xs)
+assert plane.dispatch_count == 1 and all(o.is_cuda for o in out)
+torch.save([o.cpu() for o in out], sys.argv[3] + "/out%d.pt" % rank)
+print("worker %d OK" % rank, flush=True)
+"""
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.mark.cuda
+def test_collective_plane_allreduces_cuda_tensors(tmp_path):
+    """Two ranks on the one card form a gloo group (NCCL refuses two
+    ranks on one device) and all-reduce CUDA tensors in one bucket: both
+    get a + b bit for bit (one addition of two values)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card")
+    script = tmp_path / "coll.py"
+    script.write_text(COLLECTIVE_CUDA_WORKER)
+    port = str(_free_port())
+    repo = str(Path(__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), port,
+                               str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for r in range(2)]
+    outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"worker {r} OK" in out, out
+    got = [torch.load(tmp_path / f"out{r}.pt") for r in range(2)]
+    want = []
+    for r in range(2):
+        g = torch.Generator().manual_seed(r)
+        want.append([torch.randn(1000, generator=g),
+                     torch.randn(7, 3, generator=g)])
+    for a, b, x, y in zip(got[0], got[1], want[0], want[1]):
+        assert torch.equal(a, b) and torch.equal(a, x + y)
+
+
+@pytest.mark.cuda
+def test_k1_launches_in_a_dist_sync_worker(monkeypatch):
+    """A one-worker ``dist_sync`` fit of the mlp under ``TPU_PALLAS`` on
+    the card against its parameter server: K1 launches twice a train
+    forward (fc1 and fc2), and the parameters are finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card")
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.dist.server import ParameterServer
+    server = ParameterServer(num_workers=1).start()
+    try:
+        for k, v in {"DMLC_PS_ROOT_URI": "127.0.0.1",
+                     "DMLC_PS_ROOT_PORT": str(server.port),
+                     "DMLC_RANK": "0", "DMLC_NUM_WORKER": "1",
+                     "MXNET_SUBGRAPH_BACKEND": "TPU_PALLAS",
+                     "MXNET_PS_REQUEST_TIMEOUT": "60"}.items():
+            monkeypatch.setenv(k, v)
+        s = mx.sym
+        x = s.Activation(s.FullyConnected(s.Variable("data"), name="fc1",
+                                          num_hidden=128), act_type="relu")
+        x = s.Activation(s.FullyConnected(x, name="fc2", num_hidden=64),
+                         act_type="relu")
+        net = s.SoftmaxOutput(s.FullyConnected(x, name="fc3",
+                                               num_hidden=10),
+                              name="softmax")
+        data, label = mx.test_utils.get_mnist_like(128)
+        mod = mx.mod.Module(net, context=mx.gpu(0))
+        fc_relu.launches = 0
+        mod.fit(mx.io.NDArrayIter(data, label, 32), num_epoch=1,
+                kvstore="dist_sync", optimizer="sgd",
+                optimizer_params={"learning_rate": 0.1})
+        assert fc_relu.launches == 2 * 4
+        assert all(np.isfinite(v.asnumpy()).all()
+                   for v in mod.get_params()[0].values())
+        mod._kvstore.close()
+    finally:
+        server.shutdown()

@@ -257,8 +257,8 @@ def test_errors(pkg):
 
 def test_multikey_push():
     """A multi-key push of per-context values: the same sums as per-key
-    pushes and as the JAX store's bucketed push; the port counts the
-    fallback reduce the JAX store takes on one device."""
+    pushes and as the JAX store's bucketed push, through one bucket, as
+    the JAX store counts it (one batched push, one reduction)."""
     keys = ["a", "b", "c"]
     shapes = [(3,), (2, 2), (5, 1)]
     rng = np.random.RandomState(0)
@@ -270,8 +270,10 @@ def test_multikey_push():
         np.testing.assert_allclose(t1, j1, rtol=1e-6, atol=1e-6)
         np.testing.assert_allclose(t1, np.sum(vals[k], axis=0), rtol=1e-6,
                                    atol=1e-6)
-    assert jstats["batched_pushes"] == 1
-    assert tstats["fallback_reduces"] == 1 and tstats["pushes"] == 1
+    assert jstats["batched_pushes"] == tstats["batched_pushes"] == 1
+    assert tstats["allreduce_dispatches"] == \
+        jstats["allreduce_dispatches"] == 1
+    assert tstats["fallback_reduces"] == 0 and tstats["pushes"] == 1
 
 
 @BOTH
@@ -343,6 +345,91 @@ def test_2bit_residual_sequence_bitwise(kind):
         np.testing.assert_array_equal(a, b, err_msg=f"codes, push {step}")
         np.testing.assert_array_equal(c, d, err_msg=f"residual, push {step}")
     assert set(np.unique(np.concatenate(tc))) <= {-0.5, 0.0, 0.5}
+
+
+def case_bucketed_cap(p, keys, shapes, vals, two_bit):
+    """A batched push over every context under the cap in force, then a
+    batched pull into every context: the sums, the stats, the residuals
+    (2-bit) and every context's pulled copy."""
+    kv = p.mx.kv.create("device")
+    if two_bit:
+        kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    for k, s in zip(keys, shapes):
+        kv.init(k, p.zeros(s))
+    pushes = []
+    for step in range(3 if two_bit else 1):
+        kv.push(keys, [[p.arr(v * (step + 1), i)
+                        for i, v in enumerate(vals[k])] for k in keys])
+        outs = [[p.zeros(s, i) for i in range(len(vals[k]))]
+                for k, s in zip(keys, shapes)]
+        kv.pull(keys, out=outs)
+        pushes.append([[o.asnumpy() for o in row] for row in outs])
+    resid = {k: _host(kv._residuals[k]) for k in
+             kv._residuals} if two_bit else {}
+    return pushes, kv.stats(), resid
+
+
+@pytest.mark.parametrize("two_bit", [False, True], ids=["fp32", "2bit"])
+def test_bucketed_multikey_push_matches_jax(monkeypatch, two_bit):
+    """JAX `test_tpu_kvstore_bucketed_multikey_push` on 2 CPU contexts,
+    under a KB-sized ``MXNET_KVSTORE_BUCKET_MB`` that cuts several
+    buckets: the same bucket plan as the JAX store's (`plan_buckets`,
+    reversed key order), one reduction a bucket, the sums and 2-bit
+    codes and residuals bit for bit (two contexts add once), and every
+    context's pulled copy equal."""
+    monkeypatch.setenv("MXNET_KVSTORE_BUCKET_MB", str(40 / (1 << 20)))
+    keys = ["a", "b", "c", "d", "e"]
+    shapes = [(3,), (2, 2), (5, 1), (9,), (2,)]
+    rng = np.random.RandomState(0)
+    vals = {k: [rng.randn(*s).astype("f4") for _ in range(2)]
+            for k, s in zip(keys, shapes)}
+    (jp, jst, jres), (tp, tst, tres) = _pair(case_bucketed_cap, keys,
+                                            shapes, vals, two_bit)
+    from incubator_mxnet_tpu.kvstore import plan_buckets as jplan
+    sizes = [int(np.prod(s)) * 4 for s in shapes]
+    plan = jplan(list(reversed(range(5))), sizes, ["float32"] * 5, 40)
+    assert len(plan) > 1
+    assert tst["buckets"] == jst["buckets"] == len(plan) * len(tp)
+    assert tst["allreduce_dispatches"] == jst["allreduce_dispatches"]
+    assert tst["batched_pushes"] == jst["batched_pushes"] == len(tp)
+    assert tst["bytes_reduced"] == jst["bytes_reduced"]
+    assert tst["pull_broadcasts"] > 0
+    for step, (trow, jrow) in enumerate(zip(tp, jp)):
+        for k, t_ctx, j_ctx in zip(keys, trow, jrow):
+            for t, j in zip(t_ctx, j_ctx):
+                np.testing.assert_array_equal(t, j, err_msg=f"{k} {step}")
+            np.testing.assert_array_equal(t_ctx[0], t_ctx[1])
+    for k in jres:
+        np.testing.assert_array_equal(tres[k], jres[k], err_msg=k)
+
+
+def test_streaming_push_buckets_as_the_cap_fills(monkeypatch):
+    """`begin_push` / `push_part` / `end_push`: a bucket reduces as soon
+    as the pending keys reach the cap, the tail at `end_push`; the sums
+    equal the batched push's bit for bit."""
+    monkeypatch.setenv("MXNET_KVSTORE_BUCKET_MB", str(32 / (1 << 20)))
+    rng = np.random.RandomState(1)
+    vals = [[rng.randn(4).astype("f4") for _ in range(2)] for _ in range(5)]
+    kv = tmx.kv.create("device")
+    for i in range(5):
+        kv.init(i, PORT.zeros((4,)))
+    kv.begin_push()
+    seen = []
+    for i in range(5):
+        kv.push_part(i, [PORT.arr(v, c) for c, v in enumerate(vals[i])])
+        seen.append(kv.stats()["buckets"])
+    kv.end_push()
+    assert seen == [0, 1, 1, 2, 2] and kv.stats()["buckets"] == 3
+    with pytest.raises(tmx.MXNetError, match="without begin_push"):
+        kv.end_push()
+    for i in range(5):
+        out = PORT.zeros((4,))
+        kv.pull(i, out=out)
+        np.testing.assert_array_equal(out.asnumpy(),
+                                      vals[i][0] + vals[i][1])
+    assert [st for st in tmx.kv.live_stats() if st["buckets"] == 3]
+    assert any("batched pushes" in f["message"]
+               for f in tmx.kv.findings())
 
 
 def test_plan_buckets_matches_jax():

@@ -278,13 +278,14 @@ def test_module_without_context_needs_the_card(monkeypatch):
 
 
 def test_fit_rejects_what_is_not_ported(monkeypatch):
-    """A dist_sync kvstore asked for the collective data plane raises
-    (the parameter server's socket plane is ported:
-    tests/test_torch_dist.py; elastic checkpoints too:
-    tests/test_torch_checkpoint.py).  Monitors, which raised before
-    they were ported, now run: fit takes the per-batch path and the
-    monitor sees every batch's outputs (tests/test_torch_sequential.py
-    holds their values to the JAX package's)."""
+    """``mesh=`` (14-parallel) raises.  A dist_sync kvstore asked for the
+    collective data plane, which raised before it was ported, now trains
+    (one worker: the plane needs two, so the server's plane carries the
+    gradients; tests/test_torch_dist.py holds the plane itself).
+    Monitors, which raised before they were ported, run: fit takes the
+    per-batch path and the monitor sees every batch's outputs
+    (tests/test_torch_sequential.py holds their values to the JAX
+    package's)."""
     from incubator_mxnet_tpu_torch.dist.server import ParameterServer
     mod = tmx.mod.Module(mlp(), context=tmx.cpu())
     train, _ = _iters(tmx, n=32)
@@ -294,6 +295,9 @@ def test_fit_rejects_what_is_not_ported(monkeypatch):
     mod.fit(train, num_epoch=1, monitor=mon)
     assert mon.step == len(seen) > 0
     assert mod._fused_step.steps == 0
+    with pytest.raises(tmx.MXNetError, match="14-parallel"):
+        tmx.mod.Module(mlp(), context=tmx.cpu()).fit(
+            train, num_epoch=1, mesh=object())
     server = ParameterServer(num_workers=1).start()
     try:
         for k, v in {"DMLC_PS_ROOT_URI": "127.0.0.1",
@@ -301,9 +305,12 @@ def test_fit_rejects_what_is_not_ported(monkeypatch):
                      "DMLC_RANK": "0", "MXNET_KVSTORE_COLLECTIVE": "1",
                      "MXNET_PS_REQUEST_TIMEOUT": "30"}.items():
             monkeypatch.setenv(k, v)
-        with pytest.raises(tmx.MXNetError, match="collective data plane"):
-            tmx.mod.Module(mlp(), context=tmx.cpu()).fit(
-                train, num_epoch=1, kvstore="dist_sync")
+        dist = tmx.mod.Module(mlp(), context=tmx.cpu())
+        fresh, _ = _iters(tmx, n=32)
+        dist.fit(fresh, num_epoch=1, kvstore="dist_sync")
+        assert dist._kvstore._collective is None and dist._update_on_kvstore
+        assert server.stats()["pushes"] > 0
+        dist._kvstore.close()
     finally:
         server.shutdown()
 
