@@ -79,6 +79,13 @@ Slice 20 adds the training guardian (`resilience.guardian`, armed by
 `Module.fit`: skip-batch, rollback to the last healthy checkpoint,
 quarantine, `TrainingDivergedError`) and the train-to-serve loop
 (`loop`: `ModelRegistry`, `CheckpointPublisher`, `LoopController`).
+Slice 21 adds the elastic supervisor, the collective data plane and
+`fit`'s failover.  Slice 22 adds the small public modules (`operator`'s
+`CustomOp` with ``nd.Custom``, `viz`, `engine`, `libinfo`) and
+`parallel`'s meshes: DTensor layouts over a mesh of ranks
+(`shard_block`, `put`, `shard_params`), the collective verbs, the
+data-parallel, ZeRO and pipeline steps, ``Trainer(zero=, mesh=)``,
+``Module.fit(mesh=)`` and ``SyncBatchNorm`` across ranks.
 
     import incubator_mxnet_tpu_torch as mx
 """
@@ -130,6 +137,11 @@ from . import contrib
 from . import obs
 from . import profiler
 from . import loop
+from . import engine
+from . import operator
+from . import visualization
+from . import visualization as viz
+from . import libinfo
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "ops", "symbol", "sym", "ndarray", "nd", "subgraph",
@@ -140,4 +152,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "checkpoint", "rnn", "recordio", "native", "image", "io_plane",
            "kvstore", "kv", "kvstore_server", "resilience", "embedding",
            "test_utils", "monitor", "Monitor", "attribute", "AttrScope",
-           "contrib", "obs", "profiler", "loop"]
+           "contrib", "obs", "profiler", "loop", "engine", "operator",
+           "visualization", "viz", "libinfo"]

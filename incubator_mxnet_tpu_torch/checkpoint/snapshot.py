@@ -395,8 +395,10 @@ class SnapshotJob:
         tmp = os.path.join(pool_dir, ".%s.tmp.%d" % (fname, os.getpid()))
         with open(tmp, "wb") as f:
             pickle.dump(payload, f, protocol=_PICKLE_PROTO)
+        # sized before it is published: rank 0's commit may adopt (move)
+        # it the moment it appears in the pool
+        self.bytes_written = os.path.getsize(tmp)
         os.replace(tmp, os.path.join(pool_dir, fname))
-        self.bytes_written = os.path.getsize(os.path.join(pool_dir, fname))
         suffix = "-rank-%d.bin" % self.rank
         for name in os.listdir(pool_dir):
             if name.startswith("step-") and name.endswith(suffix):

@@ -10,6 +10,12 @@ block's parameters, by full name, as numpy: out of a block of either
 package, and into one of the port's (a `.params` file that either
 package's `save_parameters` wrote loads with `Block.load_parameters`).
 
+`local_params_to_numpy` and `local_params_from_numpy` do the same by
+the name under the block's own prefix (``embed_weight``, ``qkv_weight``
+of a MiniTransformer whatever its instance number; ``dense0_weight`` of
+an AlexNet), so a block composed in another process or package, under
+another prefix, takes the same values.
+
 `lm_params_from_numpy` carries a transformer LM's parameters (a JAX
 `TransformerLM`'s, a Module arg dict, or a `.params` file's ``arg:``
 keys) into the port's `TransformerLM`, or into the arg dict
@@ -51,7 +57,8 @@ from ..context import cpu as _cpu
 from ..ndarray.ndarray import array
 
 __all__ = ["params_from_numpy", "block_params_to_numpy",
-           "block_params_from_numpy", "lm_params_from_numpy",
+           "block_params_from_numpy", "local_params_to_numpy",
+           "local_params_from_numpy", "lm_params_from_numpy",
            "trainer_states_to_numpy", "trainer_states_from_numpy",
            "module_states_to_numpy", "module_states_from_numpy",
            "bucketing_params_to_numpy", "bucketing_params_from_numpy",
@@ -91,6 +98,21 @@ def block_params_from_numpy(block, values, ctx=None):
     _load_into(dict(block.collect_params().items()),
                {k: _np_of(v) for k, v in values.items()}, "the given values",
                ctx, False, False)
+
+
+def local_params_to_numpy(block):
+    """{parameter name under `block`'s prefix: numpy array} of a gluon
+    block of either package."""
+    n = len(block.prefix)
+    return {name[n:]: _np_of(p.data())
+            for name, p in block.collect_params().items()}
+
+
+def local_params_from_numpy(block, values, ctx=None):
+    """`block_params_from_numpy` of `values` keyed by the name under
+    `block`'s prefix."""
+    block_params_from_numpy(block, {block.prefix + k: v
+                                    for k, v in values.items()}, ctx)
 
 
 def lm_params_from_numpy(values, block=None, ctx=None):

@@ -106,6 +106,11 @@ and ``MXNET_LOOP_PUBLISH_SECS`` (0: off) the publisher's cadence,
 ``MXNET_LOOP_POLL_S`` (2.0) the controller's poll interval and
 ``MXNET_LOOP_FRESHNESS_SLO_S`` (600.0) the freshness SLO.
 
+The engine's and the mesh's, as in the JAX package:
+``MXNET_ENGINE_TYPE`` (``ThreadedEnginePerDevice``; ``NaiveEngine``
+synchronizes after every op, `engine.py`) and ``MXNET_MESH`` (empty: the
+composed mesh `Module` lays over its contexts).
+
 ``MXNET_FLASH_INTERPRET`` is not carried over: in the port the tensor's
 device decides.  A CPU tensor takes a kernel's plain PyTorch version; a
 CUDA tensor launches the kernel or raises.
@@ -123,6 +128,13 @@ _BOOL = lambda s: s not in ("0", "false", "False", "")  # noqa: E731
 
 # name -> (parser, default, doc)
 KNOBS = {
+    "MXNET_ENGINE_TYPE": (str, "ThreadedEnginePerDevice",
+                          "engine.py: NaiveEngine synchronizes after "
+                          "every op and names the op that failed"),
+    "MXNET_MESH": (str, "",
+                   "composed mesh spec for Module over its contexts, "
+                   "e.g. 'dp=2' or 'dp=2,tp=2' (the dp axis splits the "
+                   "batch); the fit/init_optimizer mesh= argument wins"),
     "MXNET_FLASH_VMEM_MB": (float, 10.0,
                             "MiB of one head's K and V past which flash "
                             "attention runs the split-KV kernel"),

@@ -7,8 +7,8 @@ PyTorch port of `incubator_mxnet_tpu/gluon/nn/basic_layers.py`:
 and op attributes.  The JAX `HybridSequential` can lower runs of equal
 children to one `lax.scan` inside its fused step; an eager interpreter
 has no use for that, so the children run one after another.
-`SyncBatchNorm` sets the op's ``sync``; on the one card the port trains
-on, the statistics it would gather across replicas are the batch's own.
+`SyncBatchNorm` sets the op's ``sync``: under a bound mesh of ranks its
+statistics are summed over the mesh's ``sync_axis`` group.
 """
 from __future__ import annotations
 
@@ -199,8 +199,9 @@ class BatchNorm(HybridBlock):
 class SyncBatchNorm(BatchNorm):
     """`BatchNorm` with the op's ``sync`` set (reference
     `basic_layers.py:312 SyncBatchNorm`): statistics over every
-    data-parallel replica, which on the port's one card are the batch's
-    own; ``num_devices`` and ``sync_axis`` are kept for the API."""
+    data-parallel replica, the ranks of the ``sync_axis`` axis of a
+    bound mesh of ranks (the batch's own without one);
+    ``num_devices`` is kept for the API."""
 
     def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
                  epsilon=1e-5, sync_axis="dp", **kwargs):

@@ -20,9 +20,17 @@ such gradient in ONE batched push and pull (`:139-170`), which the
 and writes back into every context's gradient.  A ``dist_*`` kvstore is
 created and its keys initialized at the first step, with the compression
 asked for; on one context it pushes nothing, as in the JAX package, and
-without ``dist`` one context needs no kvstore.  ZeRO state partitioning
-(``zero=``) and a device mesh (``mesh=``) wait for 14-parallel and
-raise.  `save_states` / `load_states` pickle the updater's states and
+without ``dist`` one context needs no kvstore.  On a mesh of ranks
+(`parallel.shard_block`) the parameters and gradients are DTensors: the
+backward leaves each gradient in its parameter's layout (the dp
+all-reduce is DTensor's redistribution of the partial sums), each
+sharded weight is updated on each rank's local shards
+(`parallel.gluon_bridge.update_on_shards`), and each optimizer state
+takes its weight's layout, or with ``zero=mesh`` (or
+``(mesh, axis)``, or ``zero=True`` with ``mesh=`` or ``MXNET_MESH``) a
+layout sharded over the mesh's data-parallel axis: ZeRO state
+partitioning, each dp rank holding 1/N of every state whose leading
+dimension the axis divides.  `save_states` / `load_states` pickle the updater's states and
 the optimizer in the port's own format.
 """
 from __future__ import annotations
@@ -43,11 +51,6 @@ class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None, zero=None, mesh=None):
-        if zero not in (None, False) or mesh is not None:
-            raise MXNetError(
-                "Trainer(zero=..., mesh=...) shards optimizer state over "
-                "a device mesh; the port has no mesh yet (ROADMAP "
-                "14-parallel)")
         if isinstance(params, (dict, ParameterDict)):
             params = list(params.values())
         if not isinstance(params, (list, tuple)):
@@ -70,6 +73,7 @@ class Trainer:
         self._kvstore = None
         self._update_on_kvstore = False
         self._kv_initialized = False
+        self._zero = _resolve_zero(zero, mesh)
 
     def _init_kvstore(self):
         """A store (a name, or a store) with every live parameter's key
@@ -156,11 +160,36 @@ class Trainer:
         live = [(i, p) for i, p in enumerate(self._params)
                 if p.grad_req != "null"]
         if live:
+            from ..parallel import gluon_bridge as gb
             for k, updater in enumerate(self._updaters):
-                updater.update_multi(
-                    [i for i, _ in live],
-                    [p.list_grad()[k] for _, p in live],
-                    [p.list_data()[k] for _, p in live])
+                for i, p in live:
+                    if i not in updater.states:
+                        w = p.list_data()[k]
+                        updater.states[i] = self._optimizer. \
+                            create_state_multi_precision(i, w)
+                        self._place_state(updater.states[i], w)
+                sharded = [(i, p) for i, p in live
+                           if gb.is_sharded(p.list_data()[k].data)]
+                plain = [(i, p) for i, p in live if (i, p) not in sharded]
+                if plain:
+                    updater.update_multi(
+                        [i for i, _ in plain],
+                        [p.list_grad()[k] for _, p in plain],
+                        [p.list_data()[k] for _, p in plain])
+                for i, p in sharded:
+                    gb.update_on_shards(updater.optimizer, i,
+                                        p.list_data()[k], p.list_grad()[k],
+                                        updater.states[i])
+
+    def _place_state(self, state, weight):
+        """Lay a fresh optimizer state out as its weight's residency asks:
+        ZeRO-sharded when ``zero=`` was given, else as a mesh-sharded
+        weight is laid out (`incubator_mxnet_tpu/gluon/trainer.py:207`)."""
+        from ..parallel import gluon_bridge as gb
+        if self._zero is not None:
+            gb.shard_state_for_zero(state, *self._zero)
+        elif gb.is_sharded(weight.data):
+            gb.place_state_like(state, weight.data)
 
     def get_checkpoint_state(self):
         """The updater's states (host arrays) and the pickled optimizer
@@ -190,3 +219,32 @@ class Trainer:
         """Restore `save_states`' file."""
         with open(fname, "rb") as f:
             self.set_checkpoint_state(f.read())
+
+
+def _resolve_zero(zero, mesh):
+    """The ZeRO layout of ``zero=``, (mesh, axis) or None: False and None
+    are nothing; True takes `mesh` (a `Mesh` or a spec) or, without it,
+    the ``MXNET_MESH`` spec's mesh, and raises with neither; a mesh
+    alone shards over its data-parallel axis, found by name
+    (`dp_axis_of`), never by position.  A mesh is built only for
+    ``zero=True`` (over ranks that is a collective); a `mesh` that is
+    not a mesh spec raises either way."""
+    from ..parallel.mesh import Mesh, dp_axis_of, mesh_from_spec, parse_spec
+    if isinstance(mesh, str):
+        parse_spec(mesh)
+    elif mesh is not None and not isinstance(mesh, (Mesh, dict)):
+        raise MXNetError(f"Trainer(mesh={mesh!r}): neither a Mesh nor a "
+                         f"mesh spec")
+    if zero is True:
+        if not isinstance(mesh, Mesh):
+            mesh = mesh_from_spec(mesh)
+        if mesh is None:
+            raise MXNetError(
+                "Trainer(zero=True) needs a mesh: pass mesh= (or set "
+                "MXNET_MESH), or hand zero= the mesh directly")
+        zero = mesh
+    elif zero is False:
+        zero = None
+    if zero is not None and not isinstance(zero, tuple):
+        zero = (zero, dp_axis_of(zero))
+    return zero

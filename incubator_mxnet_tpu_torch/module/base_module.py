@@ -26,7 +26,8 @@ runs under a `resilience.supervisor.JobSupervisor` (``MXNET_SUPERVISOR``):
 heartbeats, the hung-collective watchdog, stragglers; the ``host.step``
 fault site fires before each step.  Not ported (README "Declared
 divergences"): the fused step's K-step blocks, the program cache and its
-``programs/`` payload, and ``mesh=`` (14-parallel).
+``programs/`` payload.  ``mesh=`` lays a mesh over the module's contexts
+(`Module.init_optimizer`).
 """
 from __future__ import annotations
 
@@ -219,10 +220,6 @@ class BaseModule:
         import os as _os
         from ..resilience import ServerLostError, CollectiveTimeoutError
         from ..resilience import guardian as _guardian_mod
-        if mesh is not None:
-            raise MXNetError(
-                "Module.fit(mesh=...) trains over a device mesh; the port "
-                "has no mesh yet (ROADMAP 14-parallel)")
         if max_restarts is None:
             from .. import config as _config
             max_restarts = int(_config.get("MXNET_FIT_MAX_RESTARTS"))
@@ -245,6 +242,8 @@ class BaseModule:
             checkpoint_dir=checkpoint_dir,
             checkpoint_period=checkpoint_period,
             checkpoint_keep_last=checkpoint_keep_last)
+        if mesh is not None:
+            fixed["mesh"] = mesh
         while True:
             try:
                 return self._fit_attempt(
@@ -377,9 +376,10 @@ class BaseModule:
                      force_init=False, begin_epoch=0, num_epoch=None,
                      validation_metric=None, monitor=None,
                      checkpoint_dir=None, checkpoint_period=100,
-                     checkpoint_keep_last=5, resume=False):
+                     checkpoint_keep_last=5, resume=False, **mesh):
         """One fit attempt; `RollbackRequested` propagates to `fit`'s
-        restart loop with the checkpoint manager flushed and closed."""
+        restart loop with the checkpoint manager flushed and closed.
+        ``mesh=``, when given, goes to `init_optimizer`."""
         assert num_epoch is not None, "please specify number of epochs"
         from ..initializer import Uniform
         guardian = getattr(self, "_guardian", None)
@@ -432,7 +432,7 @@ class BaseModule:
             # a BucketingModule binds the buckets the snapshot had bound
             self._restore_checkpoint_layout(ckpt_resume)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
-                            optimizer_params=optimizer_params)
+                            optimizer_params=optimizer_params, **mesh)
         sup = self._start_supervisor()
         if monitor is not None:
             self.install_monitor(monitor)

@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import logging
 
+import numpy as np
+
 from ..base import MXNetError
 from ..context import Context, cpu, current_context
 from ..obs import trace as _obs_trace
@@ -293,18 +295,27 @@ class Module(BaseModule):
     # -- optimizer -------------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
-                       force_init=False):
+                       force_init=False, mesh=None):
         """The kvstore, the optimizer (by name, with ``rescale_grad = 1 /
         (batch * workers of a dist sync store)`` unless given, or an
         instance) and where it runs: on the store (`set_optimizer`) or in
         the module's updater, whose states are per device (index ``i *
-        n_contexts + k``) (reference `module.py init_optimizer`)."""
+        n_contexts + k``) (reference `module.py init_optimizer`).
+
+        ``mesh`` (a spec, ``'dp=2'`` or ``'dp=2,tp=2'``, or a `Mesh`; else
+        ``MXNET_MESH``) lays a mesh over the module's contexts: its
+        data-parallel axis (`parallel.dp_axis_of`) sets the split, so the
+        module rebinds over the first context of each dp slice when the
+        mesh has other axes (a composed ``dp=2,tp=2`` over four contexts
+        trains on two).  The other axes hold no sharded parameters here:
+        `Module` has no sharding rules, as in the JAX package."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
         if self._params_dirty:
             self._sync_params_from_devices()
+        self._set_mesh(mesh)
         kvstore, update_on_kvstore = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
         batch_size = self._exec_group.batch_size
@@ -360,6 +371,28 @@ class Module(BaseModule):
         if preload is not None:
             self.load_optimizer_states(preload)
             self._preload_opt_states = None
+
+    def _set_mesh(self, mesh):
+        """Resolve ``mesh=`` over the contexts (`init_optimizer`) and
+        rebind over its dp axis's contexts when they are fewer."""
+        from ..parallel.mesh import Mesh, dp_axis_of, mesh_from_spec
+        if mesh is None or not isinstance(mesh, Mesh):
+            mesh = mesh_from_spec(mesh, devices=self._context)
+        self._mesh = mesh
+        if mesh is None:
+            self._dp_size = len(self._context)
+            return
+        axis = dp_axis_of(mesh)
+        self._dp_size = mesh.shape[axis]
+        grid = mesh.devices.reshape(tuple(mesh.shape.values()))
+        lead = np.moveaxis(grid, mesh.axis_names.index(axis), 0)
+        dp_ctxs = list(lead.reshape(self._dp_size, -1)[:, 0])
+        if dp_ctxs != self._context:
+            self._context = dp_ctxs
+            self._work_load_list = [1] * len(dp_ctxs)
+            self.bind(self._data_shapes, self._label_shapes,
+                      self.for_training, self.inputs_need_grad,
+                      force_rebind=True)
 
     def _share_optimizer(self, src):
         """Take `src`'s optimizer and updater (its states included), and

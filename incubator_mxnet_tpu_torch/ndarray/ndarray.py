@@ -33,6 +33,7 @@ import torch
 from ..base import MXNetError, torch_dtype
 from ..context import Context, current_context, cpu
 from .. import autograd as _autograd
+from .. import engine as _engine
 from .. import profiler as _profiler
 
 __all__ = ["NDArray", "invoke", "imperative_invoke", "array", "zeros",
@@ -43,6 +44,14 @@ def _ctx_of(tensor):
     if tensor.device.type == "cuda":
         return Context("gpu", tensor.device.index or 0)
     return cpu()
+
+
+def _whole(t):
+    """The whole tensor of a DTensor laid out on a mesh of ranks
+    (`parallel`), gathered to every rank; any other tensor as it is."""
+    if type(t) is not torch.Tensor and hasattr(t, "full_tensor"):
+        return t.full_tensor()
+    return t
 
 
 def _unpickle(data, device_type, device_id):
@@ -112,7 +121,7 @@ class NDArray:
         """Copy to a host numpy array (bfloat16 widens to float32); the
         copy never shares memory with the array, which may be written in
         place later."""
-        t = self._data.detach()
+        t = _whole(self._data.detach())
         if t.dtype == torch.bfloat16:
             t = t.float()
         out = t.cpu().numpy()
@@ -144,14 +153,14 @@ class NDArray:
         # there is no card, on the CPU (`_unpickle`).  A numpy array
         # pickles its elements in one copy; bfloat16, which numpy lacks,
         # goes as a compact CPU tensor
-        t = self._data.detach().cpu()
+        t = _whole(self._data.detach()).cpu()
         data = t.clone() if t.dtype == torch.bfloat16 else t.numpy()
         return _unpickle, (data, self._ctx.device_type, self._ctx.device_id)
 
     def as_in_context(self, ctx):
         if ctx == self._ctx:
             return self
-        return NDArray(self._data.detach().to(ctx.torch_device), ctx=ctx)
+        return _on(self._data.detach(), ctx)
 
     as_in_ctx = as_in_context
 
@@ -174,8 +183,7 @@ class NDArray:
         """Copy into `other` (an NDArray of the same shape, written in
         place and keeping its dtype and device) or onto a Context."""
         if isinstance(other, Context):
-            return NDArray(self._data.detach().to(other.torch_device,
-                                                  copy=True), ctx=other)
+            return _on(self._data.detach(), other, copy=True)
         if not isinstance(other, NDArray):
             raise MXNetError(f"copyto: target must be NDArray or Context, "
                              f"got {type(other).__name__}")
@@ -199,8 +207,7 @@ class NDArray:
             self._data.copy_(value)
 
     def wait_to_read(self):
-        if self._data.is_cuda:
-            torch.cuda.current_stream(self._data.device).synchronize()
+        _engine.wait_to_read(self._data)
 
     # -- autograd ------------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
@@ -444,6 +451,12 @@ def invoke(op, data, kwargs, out=None):
     with torch.set_grad_enabled(graph):
         if _profiler._imperative_active():
             res = _timed_call(op, params, tensors, out_ctx)
+        elif _engine.naive():
+            res = _engine.run_naive(op.name, lambda: op.fn(
+                params, *tensors) if op.nin else op.fn(
+                    params, *tensors, device=out_ctx.torch_device),
+                {out_ctx.torch_device} | {t.device for t in tensors
+                                          if isinstance(t, torch.Tensor)})
         else:
             res = op.fn(params, *tensors) if op.nin else \
                 op.fn(params, *tensors, device=out_ctx.torch_device)
@@ -500,6 +513,16 @@ def imperative_invoke(op_name, *data, **kwargs):
 # Creation functions
 # ---------------------------------------------------------------------------
 
+def _on(t, ctx, copy=False):
+    """An NDArray of tensor `t` on `ctx`; inside `engine.bulk`, a host
+    copy that the scope's exit moves in one batched copy."""
+    if _engine.bulk_active():
+        out = NDArray(t.to("cpu", copy=True), ctx=ctx)
+        _engine.stage(out)
+        return out
+    return NDArray(t.to(ctx.torch_device, copy=copy), ctx=ctx)
+
+
 def array(source, ctx=None, dtype=None):
     """An NDArray holding a copy of `source` (numpy array, NDArray or
     tensor) on `ctx` (default `current_context()`).  As in the reference,
@@ -516,7 +539,7 @@ def array(source, ctx=None, dtype=None):
         t = torch.from_numpy(_np.array(source, copy=True))
     if dtype is not None:
         t = t.to(torch_dtype(dtype))
-    return NDArray(t.to(ctx.torch_device), ctx=ctx)
+    return _on(t, ctx)
 
 
 def _filled(shape, ctx, dtype, value):
@@ -528,6 +551,9 @@ def _filled(shape, ctx, dtype, value):
     name = "_zeros" if value == 0 else "_ones" if value == 1 else "_full"
     if name == "_full":
         params["value"] = value
+    if _engine.bulk_active():
+        return _on(_reg.get(name).fn(params, device=torch.device("cpu")),
+                   ctx)
     return NDArray(_reg.get(name).fn(params, device=ctx.torch_device),
                    ctx=ctx)
 
@@ -647,7 +673,4 @@ def concatenate(arrays, axis=0, always_copy=True):
                              dim=axis), ctx=ctx)
 
 
-def waitall():
-    """Wait for every queued operation on the card."""
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+waitall = _engine.waitall

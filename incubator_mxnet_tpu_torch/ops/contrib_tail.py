@@ -360,12 +360,14 @@ def _sbn_nout(params):
                   "ndev": 1, "key": ""},
           input_names=["data", "gamma", "beta", "moving_mean", "moving_var"])
 def _sync_batch_norm(params, x, gamma, beta, moving_mean, moving_var):
-    """BatchNorm (`nn._batch_norm`) with statistics over the batch it is
-    given; ``ndev`` and ``key`` are accepted.  Statistics across several
-    cards need a process group: ROADMAP item 14."""
+    """BatchNorm (`nn._batch_norm`) with ``sync`` set over the ``dp``
+    axis: in training under a bound mesh of ranks with that axis, the
+    statistics of the whole batch, summed over the axis's group; else
+    the batch's own.  ``ndev`` and ``key`` are accepted (the group
+    decides who takes part)."""
     from .nn import _batch_norm
     sub = {k: params[k] for k in ("eps", "momentum", "fix_gamma",
                                   "use_global_stats", "output_mean_var")}
-    sub.update(axis=1, cudnn_off=False, sync=False, sync_axis="dp",
+    sub.update(axis=1, cudnn_off=False, sync=True, sync_axis="dp",
                _train=params.get("_train", False))
     return _batch_norm(sub, x, gamma, beta, moving_mean, moving_var)

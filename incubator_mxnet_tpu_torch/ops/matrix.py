@@ -230,9 +230,17 @@ def _embedding(params, data, weight):
     JAX op's clip before `jnp.take`: on the card an index out of range
     would be a device-side assert that ends the process's CUDA context.
     Float indices (an `NDArrayIter` gives float32 tokens) truncate to
-    integers after the clip."""
+    integers after the clip.  A weight sharded by rows over a mesh of
+    ranks (`parallel.shard_block`) looks each row up on the rank that
+    holds it; the partial rows are summed over the mesh at once, so the
+    result is replicated like a lookup of the whole table."""
     idx = data.clamp(0, int(params["input_dim"]) - 1).long()
-    return torch.nn.functional.embedding(idx, weight)
+    out = torch.nn.functional.embedding(idx, weight)
+    if any(p.is_partial() for p in getattr(out, "placements", ())):
+        from torch.distributed.tensor import Replicate
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
+    return out
 
 
 @register("where", nin=3)

@@ -76,12 +76,21 @@ def _convolution(params, x, weight, *rest):
         raise MXNetError("Convolution supports 1D/2D/3D kernels")
     bias = None if params["no_bias"] else rest[0]
     dt = _promoted(x, weight, bias)
-    return _CONV_FN[nd](
-        x.to(dt), weight.to(dt), None if bias is None else bias.to(dt),
-        stride=_tup(params["stride"], nd, 1),
-        padding=_tup(params["pad"], nd, 0),
-        dilation=_tup(params["dilate"], nd, 1),
-        groups=int(params["num_group"])).to(x.dtype)
+
+    def conv(x, weight, bias):
+        return _CONV_FN[nd](
+            x.to(dt), weight.to(dt), None if bias is None else bias.to(dt),
+            stride=_tup(params["stride"], nd, 1),
+            padding=_tup(params["pad"], nd, 0),
+            dilation=_tup(params["dilate"], nd, 1),
+            groups=int(params["num_group"])).to(x.dtype)
+    if type(weight) is not torch.Tensor and hasattr(weight, "placements") \
+            and int(params["num_group"]) == 1:
+        # a mesh of ranks: on each rank's local shards (DTensor's own
+        # convolution splits images, not the batch)
+        from ..parallel.tensor_parallel import on_local_shards
+        return on_local_shards(conv, x, weight, bias)
+    return conv(x, weight, bias)
 
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
@@ -93,6 +102,10 @@ _AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
                   "cudnn_off": False, "pooling_convention": "valid",
                   "stride": (), "pad": (), "count_include_pad": True})
 def _pooling(params, x):
+    if type(x) is not torch.Tensor and hasattr(x, "placements"):
+        # a mesh of ranks: on each rank's local shard
+        from ..parallel.tensor_parallel import on_local_rows
+        return on_local_rows(lambda xl: _pooling(params, xl), x)
     nd = x.ndim - 2
     ptype = params["pool_type"]
     if ptype not in ("max", "avg", "sum"):
@@ -266,8 +279,14 @@ def _batch_norm(params, x, gamma, beta, moving_mean, moving_var):
     comes back from the kernel's saved inverse deviation.  With
     ``output_mean_var`` the statistics are outputs that gradients may
     reach, so that case runs as plain torch ops.  ``sync`` asks for
-    statistics over every data-parallel replica; the port trains on one
-    device, where those are the batch's own."""
+    statistics over every data-parallel replica: in training, with a mesh
+    of ranks bound (``with mesh:``, `parallel.data_parallel_step`) that
+    has the ``sync_axis`` axis, the sums of x and of its squared
+    deviations and the element count are all-reduced over that axis's
+    group, in plain torch ops, so every rank normalises with the whole
+    batch's statistics and gradients flow through the sums (the JAX op's
+    pmean of the moments); without one, the statistics are the batch's
+    own."""
     axis = int(params["axis"]) % x.ndim
     eps = float(params["eps"])
     momentum = float(params["momentum"])
@@ -282,9 +301,13 @@ def _batch_norm(params, x, gamma, beta, moving_mean, moving_var):
         # autograd and the outputs keep the moving statistics, and the
         # executor overwrites the aux arrays in place after the forward
         moving_mean, moving_var = moving_mean.clone(), moving_var.clone()
-    if params["output_mean_var"]:
+    group = None
+    if train and params.get("sync"):
+        from ..parallel.mesh import bound_group
+        group = bound_group(str(params.get("sync_axis", "dp")))
+    if params["output_mean_var"] or group is not None:
         out, mean, var, inv = _bn_plain(xc, g, b, moving_mean, moving_var,
-                                        train, eps, sdt)
+                                        train, eps, sdt, group)
     elif train:
         out, mean, inv = torch.native_batch_norm(xc, g, b, None, None, True,
                                                  0.0, eps)
@@ -309,14 +332,24 @@ def _batch_norm(params, x, gamma, beta, moving_mean, moving_var):
     return outs if len(outs) > 1 else out
 
 
-def _bn_plain(x, gamma, beta, moving_mean, moving_var, train, eps, sdt):
+def _bn_plain(x, gamma, beta, moving_mean, moving_var, train, eps, sdt,
+              group=None):
     """BatchNorm over channel axis 1 as differentiable torch ops in
-    `sdt`: (out, mean, biased var, rsqrt(var + eps))."""
+    `sdt`: (out, mean, biased var, rsqrt(var + eps)); in training with a
+    process `group`, the statistics of the batch summed over it."""
     red = tuple(i for i in range(x.ndim) if i != 1)
     shape = [1] * x.ndim
     shape[1] = x.shape[1]
     xs = x.to(sdt)
-    if train:
+    if train and group is not None:
+        from ..parallel.verbs import all_reduce_sum
+        sums = all_reduce_sum(torch.cat([
+            xs.sum(dim=red), xs.new_full((1,), x.numel() // x.shape[1])]),
+            group)
+        mean = sums[:-1] / sums[-1]
+        var = all_reduce_sum((xs - mean.reshape(shape)).square().sum(
+            dim=red), group) / sums[-1]
+    elif train:
         mean = xs.mean(dim=red)
         var = (xs - mean.reshape(shape)).square().mean(dim=red)
     else:

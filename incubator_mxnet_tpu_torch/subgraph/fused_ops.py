@@ -199,6 +199,14 @@ def _compute(params, x, w, b):
         x = x.reshape(x.shape[0], -1)
     if x.is_meta:                     # shape inference: no data, no kernel
         return fc_relu_ref(x, w, b)
+    from torch.distributed.tensor import DTensor
+    if isinstance(w, DTensor):
+        # a mesh of ranks (`parallel.shard_block`): K1 on each rank's
+        # local shards, column-parallel or data-parallel
+        from ..parallel.tensor_parallel import on_local_shards
+        return on_local_shards(
+            lambda xl, wl, bl: FCRelu.apply(xl.contiguous(), wl, bl),
+            x, w, b)
     return FCRelu.apply(x.contiguous(), w, b)
 
 

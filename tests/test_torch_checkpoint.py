@@ -135,6 +135,28 @@ def test_rank_shard_layout(tmp_path):
     assert data.rank_shard(3) is None
 
 
+def test_rank_shard_adopted_at_once(tmp_path, monkeypatch):
+    """Rank 0's commit may move a non-primary rank's shard out of the
+    pool as soon as it is published: the publishing rank's snapshot
+    still succeeds (a race seen on the card in a 2-worker pod fit)."""
+    from incubator_mxnet_tpu_torch.checkpoint import snapshot as snap
+    real = snap.os.replace
+    adopted = tmp_path / "adopted"
+    adopted.mkdir()
+
+    def replace_then_adopt(src, dst):
+        real(src, dst)
+        if os.path.basename(str(dst)).endswith("-rank-1.bin"):
+            real(dst, adopted / os.path.basename(str(dst)))
+
+    monkeypatch.setattr(snap.os, "replace", replace_then_adopt)
+    w1 = ckpt.CheckpointManager(str(tmp_path / "ck"), rank=1, num_ranks=2)
+    assert w1.snapshot(arrays={"slice": torch.arange(4, dtype=torch.float32)},
+                       step=7, sync=True) == 7
+    w1.close()
+    assert (adopted / "step-7-rank-1.bin").stat().st_size > 0
+
+
 def test_ndarray_iter_seek_and_state():
     X = np.arange(40, dtype="f4").reshape(20, 2)
     it = NDArrayIter(X, np.arange(20, dtype="f4"), batch_size=4,

@@ -374,10 +374,13 @@ def test_trainer_states_carry_across_packages():
 
 
 def test_trainer_on_several_cards_raises():
+    """``zero=True`` without a mesh, and a ``mesh=`` that is neither a
+    `Mesh` nor a mesh spec, raise naming the mesh (the sharded layouts
+    themselves are in tests/test_torch_parallel.py)."""
     with tmx.cpu():
         net, _ = _pair()
         for kw in ({"zero": True}, {"mesh": object()}):
-            with pytest.raises(tmx.MXNetError, match="ROADMAP"):
+            with pytest.raises(tmx.MXNetError, match="mesh"):
                 tmx.gluon.Trainer(net.collect_params(), "sgd", {}, **kw)
 
 

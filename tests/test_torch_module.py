@@ -278,7 +278,10 @@ def test_module_without_context_needs_the_card(monkeypatch):
 
 
 def test_fit_rejects_what_is_not_ported(monkeypatch):
-    """``mesh=`` (14-parallel) raises.  A dist_sync kvstore asked for the
+    """``mesh=`` lays a mesh over the module's contexts, so a value that
+    is neither a `Mesh` nor a mesh spec raises the spec grammar's error
+    (tests/test_torch_parallel.py trains through it).  A dist_sync
+    kvstore asked for the
     collective data plane, which raised before it was ported, now trains
     (one worker: the plane needs two, so the server's plane carries the
     gradients; tests/test_torch_dist.py holds the plane itself).
@@ -295,7 +298,7 @@ def test_fit_rejects_what_is_not_ported(monkeypatch):
     mod.fit(train, num_epoch=1, monitor=mon)
     assert mon.step == len(seen) > 0
     assert mod._fused_step.steps == 0
-    with pytest.raises(tmx.MXNetError, match="14-parallel"):
+    with pytest.raises(tmx.MXNetError, match="mesh spec grammar"):
         tmx.mod.Module(mlp(), context=tmx.cpu()).fit(
             train, num_epoch=1, mesh=object())
     server = ParameterServer(num_workers=1).start()

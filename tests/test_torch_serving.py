@@ -164,7 +164,10 @@ def test_port_imports_no_jax():
     slice 19's telemetry plane (obs: a span, a counter, a scrape reply;
     a profiler trace dumped), and slice 20's guardian and loop (a
     Module.fit that skips an injected non-finite step, its checkpoint
-    published through a CheckpointPublisher into a ModelRegistry), loads
+    published through a CheckpointPublisher into a ModelRegistry), and
+    slice 22's modules (a CustomOp through nd.Custom under record, a
+    bulk initialisation, a summary printed, libinfo's features, every
+    module of parallel/ with a mesh over contexts), loads
     neither jax nor the JAX package (the
     C shim's embedded interpreter is checked in
     tests/test_torch_serving_edges.py)."""
@@ -239,6 +242,47 @@ def test_port_imports_no_jax():
         import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.inception
         import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.mobilenet
         import incubator_mxnet_tpu_torch.gluon.model_zoo.vision.squeezenet
+        import incubator_mxnet_tpu_torch.engine
+        import incubator_mxnet_tpu_torch.operator
+        import incubator_mxnet_tpu_torch.visualization
+        import incubator_mxnet_tpu_torch.libinfo
+        import incubator_mxnet_tpu_torch.parallel.mesh
+        import incubator_mxnet_tpu_torch.parallel.collectives
+        import incubator_mxnet_tpu_torch.parallel.verbs
+        import incubator_mxnet_tpu_torch.parallel.tensor_parallel
+        import incubator_mxnet_tpu_torch.parallel.gluon_bridge
+        import incubator_mxnet_tpu_torch.parallel.data_parallel
+        import incubator_mxnet_tpu_torch.parallel.zero
+        import incubator_mxnet_tpu_torch.parallel.pipeline
+
+        @mx.operator.register("sq22")
+        class _SqProp(mx.operator.CustomOpProp):
+            def create_operator(self, ctx, shapes, dtypes):
+                class _Sq(mx.operator.CustomOp):
+                    def forward(self, is_train, req, in_data, out_data,
+                                aux):
+                        self.assign(out_data[0], req[0],
+                                    in_data[0] * in_data[0])
+
+                    def backward(self, req, out_grad, in_data, out_data,
+                                 in_grad, aux):
+                        self.assign(in_grad[0], req[0],
+                                    2 * in_data[0] * out_grad[0])
+                return _Sq()
+        xc = mx.nd.array(np.arange(3.0), ctx=mx.cpu())
+        xc.attach_grad()
+        with mx.autograd.record():
+            yc = mx.nd.Custom(xc, op_type="sq22")
+        yc.backward()
+        assert xc.grad.asnumpy().tolist() == [0.0, 2.0, 4.0]
+        with mx.engine.bulk(16):
+            staged = mx.nd.ones((2, 2), ctx=mx.cpu())
+        assert mx.engine.h2d_copies == 1
+        mx.viz.print_summary(mx.sym.FullyConnected(
+            mx.sym.Variable("data"), num_hidden=2), shape={"data": (1, 3)})
+        assert "BACKENDS" in mx.libinfo.features()
+        assert mx.parallel.mesh_from_spec("dp=1", devices=[mx.cpu()]) \
+            .shape == {"dp": 1}
         import chip_smoke
         import tempfile
         rec = os.path.join(tempfile.mkdtemp(), "a.rec")
@@ -404,7 +448,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-# modules of the port the scan must reach (slices 15, 18, 19 and 20
+# modules of the port the scan must reach (slices 15, 18, 19, 20 and 22
 # among them)
 PORT_MODULES = (
     "gluon/block.py", "gluon/loss.py", "gluon/nn/activations.py",
@@ -421,7 +465,11 @@ PORT_MODULES = (
     "obs/__init__.py", "obs/jsonl_sink.py", "obs/metrics.py",
     "obs/trace.py", "obs/scrape.py", "profiler.py",
     "resilience/guardian.py", "loop/__init__.py", "loop/registry.py",
-    "loop/publisher.py", "loop/controller.py")
+    "loop/publisher.py", "loop/controller.py", "engine.py", "operator.py",
+    "visualization.py", "libinfo.py", "parallel/__init__.py",
+    "parallel/mesh.py", "parallel/collectives.py", "parallel/verbs.py",
+    "parallel/tensor_parallel.py", "parallel/gluon_bridge.py",
+    "parallel/data_parallel.py", "parallel/zero.py", "parallel/pipeline.py")
 
 
 def test_port_sources_never_import_jax():
